@@ -1,0 +1,8 @@
+"""DeepSeek-Coder-33B [arXiv:2401.14196]: llama-arch, deep+wide."""
+from repro_torch.common.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-coder-33b", family="dense",
+    n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8, d_head=128,
+    d_ff=19200, vocab=32256, act="swiglu", rope_theta=100000.0,
+)
