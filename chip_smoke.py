@@ -8,8 +8,10 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
 1. print the card (``nvidia-smi`` name and power limit) and build every
    kernel from ``src/repro_torch/csrc`` (into ``build/repro_torch``);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (plus ragged edges, bias, G = 1, bf16 and fp32) and
-   time kernel, plain version and one PyTorch library call;
+   main path's shapes (plus ragged edges, bias, G = 1, bf16 and fp32;
+   for the paged kernels permuted block tables, slots of length 0, 1,
+   16, 17 and 255, int8 pools with random scales) and time kernel, plain
+   version and one PyTorch library call;
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -18,7 +20,21 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    (the random weights are rescaled to a well-conditioned model first);
    the same for reduced fp32 configs, at a tight tolerance;
 4. the same for qwen1.5-0.5b at full width (QKV bias, MHA, tied vocab);
-5. print ``{"kernels": [...]}``, then the last line
+5. continuous batching on the paged pools: on reduced fp32 configs the
+   Scheduler's greedy streams on the kernels equal the plain backend's
+   (model-dtype and int8 pools, a stream that preempts); then
+   full-width tinyllama-1.1b through the ``Scheduler`` (8 slots, 128
+   pages of 16, 24 requests with prompts of 32-256 tokens and gen 32,
+   8 submitted at once and 2 more every 4 steps), once with bf16 and
+   once with int8 pools: every request FINISHED, every page free after
+   the drain, the paged kernel launched 22 times a decode step, the
+   dense decode kernel never, ``vwr_attention`` 22 times a (batch-1)
+   prefill; the same stream again with 40 pages held, where growth must
+   preempt and every request still finish; 4 requests replayed
+   teacher-forced and held against the plain path; steps, preemptions,
+   peak pages, table widths, generated tokens/s and p50/p99 latency and
+   ITL printed;
+6. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Without a CUDA device
@@ -288,7 +304,118 @@ def check_kernels(torch, F):
                    4 * B * KV * G * D * n,
                    elt * (B * KV * G * D + 2 * B * n * KV * D)
                    + 4 * B * KV * G * (D + 2), head)
+
+    # ---- vwr_paged_flash_decode[_q8]: partials through a block table ----
+    tiny_lens = (0, 1, 16, 17, 255, 100, 200, 64)
+    pg_cases = [
+        # label, B, KV, G, D, page_size, n_pages, J, lens, dtype, timed,
+        # headline
+        ("tinyllama 8 slots", 8, 4, 8, 64, 16, 1024, 16, tiny_lens, bf16,
+         True, True),
+        ("qwen 8 slots (G=1)", 8, 16, 1, 64, 16, 1024, 16, tiny_lens, bf16,
+         True, False),
+        ("fp32", 4, 4, 8, 64, 16, 256, 16, (255, 0, 17, 16), f32, False,
+         False),
+        ("D=32 G=3", 3, 2, 3, 32, 16, 64, 6, (5, 0, 90), bf16, False,
+         False),
+        ("D=128 G=16", 2, 1, 16, 128, 16, 64, 5, (33, 64), f32, False,
+         False),
+        ("page 8, wide table", 3, 2, 4, 64, 8, 128, 12, (1, 40, 9), bf16,
+         False, False),
+    ]
+    for q8 in (False, True):
+        kname = "vwr_paged_flash_decode" + ("_q8" if q8 else "")
+        print(kname)
+        for (label, B, KV, G, D, ps, n_pages, J, lens, dt, timed,
+             head) in pg_cases:
+            q = randn(B * KV, G, D, dtype=dt)
+            shape = (n_pages, ps, KV, D)
+            if q8:
+                pools = [torch.randint(-127, 128, shape, generator=gen,
+                                       device="cuda", dtype=torch.int8)
+                         for _ in range(2)]
+                scales = [torch.rand((n_pages, KV), generator=gen,
+                                     device="cuda") * 0.02 + 1e-3
+                          for _ in range(2)]
+            else:
+                pools = [randn(*shape, dtype=dt) for _ in range(2)]
+                scales = []
+            table, counts, live = _paged_table(torch, gen, lens, J, ps,
+                                               n_pages)
+            ops_ = (q, *pools, *scales, table, counts)
+            fn = KD.vwr_paged_flash_decode_q8 if q8 \
+                else KD.vwr_paged_flash_decode
+            ref = KD.vwr_paged_flash_decode_q8_ref if q8 \
+                else KD.vwr_paged_flash_decode_ref
+            shape_s = (f"B{B} KV{KV} G{G} D{D} ps{ps} J{J} "
+                       f"pages{n_pages} lens{max(lens)}")
+            got = fn(*ops_)
+            torch.cuda.synchronize()
+            err = compare(kname, shape_s, f32, got, ref(*ops_))
+            for b, n in enumerate(lens):
+                if n == 0 and got[2][b * KV:(b + 1) * KV].abs().max() != 0:
+                    raise AssertionError("a slot with no valid key must "
+                                         "give l=0")
+            if timed:
+                # the kernel reads only the valid keys of a live page,
+                # but both scales of every live (page, head)
+                n_keys = sum(lens)
+                pool_elt = pools[0].element_size()
+                nbytes = (pool_elt * 2 * n_keys * KV * D
+                          + (8 * live * KV if q8 else 0)
+                          + q.element_size() * q.numel()
+                          + 8 * B * J + 4 * B * KV * G * (D + 2))
+                record(kname, label, shape_s, dt, err,
+                       lambda: fn(*ops_), lambda: ref(*ops_),
+                       _paged_sdpa(torch, F, q, pools, scales, table,
+                                   counts, KV, G, D),
+                       4 * KV * G * D * n_keys, nbytes, head)
     return results
+
+
+def _paged_table(torch, gen, lens, J, ps, n_pages):
+    """A block table of randomly permuted physical pages for each slot's
+    live pages, zero past them, and its (B, J) counts; plus the number
+    of live pages."""
+    import numpy as np
+
+    B = len(lens)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
+    table = np.zeros((B, J), np.int32)
+    counts = np.zeros((B, J), np.int32)
+    k = 0
+    for b, n in enumerate(lens):
+        live = -(-n // ps)
+        table[b, :live] = perm[k:k + live].numpy()
+        counts[b, :live] = np.clip(n - ps * np.arange(live), 0, ps)
+        k += live
+    return (torch.from_numpy(table).cuda(), torch.from_numpy(counts).cuda(),
+            k)
+
+
+def _paged_sdpa(torch, F, q, pools, scales, table, counts, KV, G, D):
+    """The library yardstick of a paged decode: gather each slot's
+    pages into a dense (B, KV, T, D) cache (dequantized for int8) and
+    run SDPA with the G query heads of a KV head as its query rows and
+    the counts as the mask."""
+    B, J = table.shape
+    ps = pools[0].shape[1]
+    idx = table.long()
+    mask = (torch.arange(ps, device="cuda")[None, None, :]
+            < counts[..., None]).reshape(B, 1, 1, J * ps)
+    qs = q.reshape(B, KV, G, D)
+
+    def run():
+        kv = []
+        for i, pool in enumerate(pools):
+            x = pool[idx]                          # (B, J, ps, KV, D)
+            if scales:
+                x = (x.to(q.dtype)
+                     * scales[i][idx][:, :, None, :, None].to(q.dtype))
+            kv.append(x.reshape(B, J * ps, KV, D).transpose(1, 2))
+        return F.scaled_dot_product_attention(qs, kv[0], kv[1],
+                                              attn_mask=mask)
+    return run
 
 
 # ----------------------------------------------------------------------
@@ -376,6 +503,11 @@ def _condition(torch, params):
                     * 0.02)
 
 
+def _decode(eng, tok, pos, cache):
+    table = eng.default_block_table() if eng.ecfg.paged else None
+    return eng.decode_step(tok, pos, cache, block_table=table)
+
+
 def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
                     check_greedy=False, atol=None):
     """Per-step max |logits error| of ``eng`` against ``ref`` on one
@@ -401,8 +533,8 @@ def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
             out.append(err / scale)
         if i + 1 < gen:
             tok = tokens[:, i]
-            lc, cc = eng.decode_step(tok, P + i, cc)
-            lr, cr = ref.decode_step(tok, P + i, cr)
+            lc, cc = _decode(eng, tok, P + i, cc)
+            lr, cr = _decode(ref, tok, P + i, cr)
     return out
 
 
@@ -431,6 +563,307 @@ def serve_reduced_fp32(torch, name):
           f"(limit {E2E_FP32_TOL:g} x max(1, max|logits|)), greedy tokens "
           "identical")
     return max(err)
+
+
+# ----------------------------------------------------------------------
+# phases 5-6: continuous batching on the paged pools
+# ----------------------------------------------------------------------
+
+# the Scheduler stream: 24 requests with seeded prompt lengths in
+# 32-256 and gen 32; 8 submitted at once, then 2 more every 4 steps,
+# over 8 slots and 128 pages of 16 (fewer than 8 long requests need,
+# so growth can preempt)
+N_REQ, FIRST, EVERY, BURST, GEN = 24, 8, 4, 2, 32
+PROMPT = (32, 256)
+SLOTS, PAGE, N_PAGES = 8, 16, 128
+# the full pool never runs dry on this stream (admission waits for
+# pages, and 32 tokens grow a request by at most 2 pages); the same
+# stream again with this many pages held (``faults.hold_pages``) does,
+# so growth preempts at full width
+HELD = 40
+# the teacher-forced replay runs the same kernels on the same rows as
+# the served stream, but its table width and slot mates differ, so the
+# partials may round differently and a near-tie flip a greedy pick:
+# at least this share of the replayed steps must pick the served token
+REPLAY_AGREE = 0.95
+
+
+def _requests(cfg, n, prompt, gen, seed):
+    import numpy as np
+
+    from repro_torch.engine import Request
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt[0], prompt[1] + 1, n)
+    return [Request(rid=i, tokens=rng.integers(0, cfg.vocab, int(p))
+                    .astype(np.int32), gen=gen)
+            for i, p in enumerate(lens)]
+
+
+def _drive(sched, reqs):
+    """Submit FIRST requests, then BURST more every EVERY steps (or at
+    once when the scheduler runs dry), and step until all are done."""
+    k = min(FIRST, len(reqs))
+    for r in reqs[:k]:
+        sched.submit(r)
+    next_at = EVERY
+    while (k < len(reqs) or sched.pending or sched.parked
+           or sched.n_active):
+        idle = not (sched.n_active or sched.pending or sched.parked)
+        if k < len(reqs) and (sched.stats["steps"] >= next_at or idle):
+            for r in reqs[k:k + BURST]:
+                sched.submit(r)
+            k += BURST
+            next_at += EVERY
+        sched.admit()
+        sched.step()
+    return sched.results()
+
+
+def serve_scheduler(torch, kv_dtype, params=None):
+    """Full-width tinyllama-1.1b through the Scheduler on the kernels:
+    the stream above, launch counts checked, the stream again with
+    pages held so that growth preempts, then finished requests replayed
+    teacher-forced through the engine's slots and held against the
+    plain path (``_replay_slots``)."""
+    from repro_torch.common.module import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.engine import (DecodeEngine, EngineConfig,
+                                    RequestStatus, Scheduler)
+    from repro_torch.kernels import build
+
+    cfg = get_config("tinyllama-1.1b")
+    ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
+                        page_size=PAGE, n_pages=N_PAGES, kv_dtype=kv_dtype,
+                        kernel_impl="cuda")
+    eng = DecodeEngine(cfg, ecfg, params=params, device="cuda", seed=0)
+    if params is None:
+        _condition(torch, eng.params)
+    print(f"Scheduler, tinyllama-1.1b, {kv_dtype} pools: {SLOTS} slots, "
+          f"{N_PAGES} pages of {PAGE}, {N_REQ} requests, prompts "
+          f"{PROMPT[0]}-{PROMPT[1]}, gen {GEN}")
+    # a short warm-up stream, so the counted one finds the allocator's
+    # pools and the kernels' first launches done
+    _drive(Scheduler(eng), _requests(cfg, 4, PROMPT, 4, seed=5))
+    reqs = _requests(cfg, N_REQ, PROMPT, GEN, seed=4)
+    sched = Scheduler(eng)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = _drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    st = sched.stats
+    L = cfg.n_layers
+    paged = "vwr_paged_flash_decode" + ("_q8" if kv_dtype == "int8"
+                                        else "")
+    other = ("vwr_paged_flash_decode" if kv_dtype == "int8"
+             else "vwr_paged_flash_decode_q8")
+    want = {paged: L * st["steps"], other: 0, "vwr_flash_decode": 0,
+            "vwr_attention": L * st["prefills"],
+            "vwr_swiglu": L * (st["prefills"] + st["steps"]),
+            "vwr_matmul": L * (5 * st["prefills"] + st["steps"])}
+    print(f"  launches: {launches}")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"scheduler {kv_dtype}: {k} launched "
+                                 f"{launches[k]} times, expected {n}")
+    bad = {rid: r.status for rid, r in out.items()
+           if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+    if len(out) != N_REQ or bad:
+        raise AssertionError(f"scheduler {kv_dtype}: unfinished {bad}")
+    sched.allocator.check()
+    if sched.allocator.free_pages != N_PAGES:
+        raise AssertionError("pages left allocated after the drain")
+    n_tok = sum(len(r) for r in out.values())
+    lat, itl = sched.latency_percentiles(), sched.itl_percentiles()
+    summary = {
+        "kv_dtype": kv_dtype, "steps": st["steps"],
+        "prefills": st["prefills"], "preempted": st["preempted"],
+        "parked": st["parked"], "peak_pages": st["peak_pages"],
+        "table_widths": {str(k): v for k, v in
+                         sorted(st["table_widths"].items())},
+        "generated_tokens": n_tok, "wall_s": wall,
+        "gen_tok_s": n_tok / wall,
+        "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
+        "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
+        "launches": launches}
+    print(f"  steps {st['steps']}, prefills {st['prefills']}, preempted "
+          f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
+          f"table widths {summary['table_widths']}")
+    print(f"  {n_tok} tokens in {wall:.4f} s: {summary['gen_tok_s']:.1f} "
+          f"generated tok/s; request latency p50 {lat['p50']:.4f} s p99 "
+          f"{lat['p99']:.4f} s; ITL p50 {itl['p50'] * 1e3:.3f} ms p99 "
+          f"{itl['p99'] * 1e3:.3f} ms")
+    summary["held_pages_stream"] = _pressured_stream(torch, eng, cfg, out,
+                                                     paged)
+
+    rel, agree = _replay_slots(torch, eng, sched.cache, reqs, out,
+                               kv_dtype)
+    summary.update(logits_rel_err=rel, replay_agree=agree,
+                   n_params=sum(t.numel() for _, t in leaves(eng.params)))
+    params = eng.params
+    del eng, sched
+    torch.cuda.empty_cache()
+    return summary, params
+
+
+def _replay_slots(torch, eng, cache, reqs, out, kv_dtype):
+    """Teacher-force finished requests through the serving engine's
+    slots, all of them live in one decode batch, on the drained stream's
+    pools (stale pages and int8 scales included), and hold each
+    request's logits at every step against a batch-1 plain engine: dense
+    for model-dtype pools, paged int8 for int8 pools, which reads the
+    same quantized pages.  A wrong table or counts row, a write into
+    another slot's page or a stale scale shows here.  Returns the
+    per-step relative errors and the steps whose greedy pick equals the
+    served token, which must be at least REPLAY_AGREE of them."""
+    import numpy as np
+
+    from repro_torch.engine import DecodeEngine, EngineConfig
+    from repro_torch.engine.paged_cache import write_prefill
+
+    cfg, vocab = eng.cfg, eng.cfg.vocab
+    # the first requests whose pages fit the pool together, one a slot
+    picked, need = [], 0
+    for r in reqs:
+        n = -(-(len(r.tokens) + GEN - 1) // PAGE)
+        if len(picked) < SLOTS and need + n <= N_PAGES:
+            picked.append((r, n))
+            need += n
+    if len(picked) < SLOTS:
+        raise AssertionError(f"only {len(picked)} requests fit the pool")
+    perm = np.random.default_rng(7).permutation(N_PAGES).astype(np.int32)
+    table = np.zeros((SLOTS, eng.max_pages), np.int32)
+    lens = np.zeros((SLOTS,), np.int32)
+    served = np.zeros((SLOTS, GEN), np.int32)
+    got = [[] for _ in picked]
+    at = 0
+    for b, (r, n) in enumerate(picked):
+        table[b, :n] = perm[at:at + n]
+        at += n
+        logits, caches = eng.prefill_fn(
+            eng.params, {"tokens": torch.from_numpy(r.tokens)[None].cuda()})
+        write_prefill(cfg, cache, caches, table[b][None])
+        got[b].append(logits[0, :vocab])
+        lens[b] = len(r.tokens)
+        served[b] = out[r.rid].tokens
+    for i in range(GEN - 1):
+        logits, cache = eng.decode_step(served[:, i], lens + i, cache,
+                                        block_table=table)
+        for b in range(SLOTS):
+            got[b].append(logits[b, :vocab])
+
+    one = EngineConfig(batch=1, max_len=eng.ecfg.max_len,
+                       kernel_impl="torch")
+    if kv_dtype == "int8":
+        one = one.replace(paged=True, page_size=PAGE, kv_dtype="int8")
+    ref = DecodeEngine(cfg, one, params=eng.params, device="cuda")
+    rel, agree = [], 0
+    for b, (r, _) in enumerate(picked):
+        P = len(r.tokens)
+        lr, cr = ref.prefill({"tokens": torch.from_numpy(r.tokens)[None]
+                              .cuda()})
+        for i in range(GEN):
+            want = lr[0, :vocab]
+            rel.append(((got[b][i] - want).abs().max()
+                        / want.abs().max()).item())
+            agree += int(got[b][i].argmax()) == int(served[b, i])
+            if i + 1 < GEN:
+                lr, cr = _decode(ref, served[b, i:i + 1], P + i, cr)
+    worst = max(rel)
+    print(f"  {len(picked)} requests replayed in {SLOTS} live slots, "
+          f"teacher-forced: logits vs the plain "
+          f"{'dense' if kv_dtype == 'bf16' else 'paged int8'} path max "
+          f"|d|/max|ref| {worst:.3e} over {len(rel)} steps (limit "
+          f"{E2E_BF16_REL:g}); greedy == served token at "
+          f"{agree}/{len(rel)} steps (floor {REPLAY_AGREE:g})")
+    if not worst <= E2E_BF16_REL:
+        raise AssertionError(f"scheduler {kv_dtype}: logits diverge from "
+                             "the plain path")
+    if agree < REPLAY_AGREE * len(rel):
+        raise AssertionError(f"scheduler {kv_dtype}: the replay picks the "
+                             f"served token at only {agree}/{len(rel)} "
+                             "steps")
+    del ref
+    return rel, agree
+
+
+def _pressured_stream(torch, eng, cfg, out, paged):
+    """The stream again with HELD pages held out of the pool: growth
+    must preempt; every request still finishes, the pages come back,
+    and the paged kernel carries every decode step and the batch-1
+    ``vwr_attention`` every (re-)admission prefill.  Recompute
+    re-admission prefills the generated prefix instead of reading the
+    decode-written K/V, so a near-tie may pick another token at bf16:
+    the streams equal to the unpressured run are counted, not held."""
+    from repro_torch.engine import RequestStatus, Scheduler
+    from repro_torch.engine.faults import hold_pages
+    from repro_torch.kernels import build
+
+    sched = Scheduler(eng)
+    release = hold_pages(sched, HELD)
+    build.reset_launches()
+    res = _drive(sched, _requests(cfg, N_REQ, PROMPT, GEN, seed=4))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    release()
+    st = sched.stats
+    L = cfg.n_layers
+    if st["preempted"] < 1:
+        raise AssertionError(f"{HELD} held pages: growth never preempted")
+    if (launches[paged] != L * st["steps"]
+            or launches["vwr_attention"] != L * st["prefills"]
+            or launches["vwr_flash_decode"] != 0):
+        raise AssertionError(f"{HELD} held pages: launches {launches}")
+    bad = [rid for rid, r in res.items()
+           if r.status is not RequestStatus.FINISHED or len(r) != GEN]
+    if len(res) != N_REQ or bad:
+        raise AssertionError(f"{HELD} held pages: unfinished {bad}")
+    sched.allocator.check()
+    if sched.allocator.free_pages != N_PAGES:
+        raise AssertionError("pages left allocated after the drain")
+    same = sum(bool((res[rid] == out[rid]).all()) for rid in out)
+    print(f"  {HELD} pages held: steps {st['steps']}, prefills "
+          f"{st['prefills']}, preempted {st['preempted']}, parked "
+          f"{st['parked']}, table widths "
+          f"{dict(sorted(st['table_widths'].items()))}; {same}/{N_REQ} "
+          "streams equal to the unpressured run")
+    return {"held": HELD, "steps": st["steps"], "prefills": st["prefills"],
+            "preempted": st["preempted"], "parked": st["parked"],
+            "streams_equal": same, "launches": launches}
+
+
+def scheduler_reduced_fp32(torch, name):
+    """Reduced fp32 config on the card: the Scheduler's greedy streams
+    on the kernels equal the plain backend's, for both pool dtypes,
+    over a stream that preempts."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import DecodeEngine, EngineConfig, Scheduler
+
+    cfg = reduced(get_config(name)).replace(d_head=32)
+    streams = {}
+    for kv_dtype in ("bf16", "int8"):
+        ecfg = EngineConfig(batch=3, max_len=64, paged=True, page_size=8,
+                            n_pages=12, kv_dtype=kv_dtype,
+                            kernel_impl="cuda")
+        eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
+        ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                           params=eng.params, device="cuda")
+        for e in (eng, ref):
+            sched = Scheduler(e)
+            out = _drive(sched, _requests(cfg, 7, (5, 40), 16, seed=6))
+            streams[kv_dtype, e.cfg.kernel_impl] = (
+                [out[i].tokens.tolist() for i in range(7)],
+                sched.stats["preempted"])
+        if streams[kv_dtype, "cuda"] != streams[kv_dtype, "torch"]:
+            raise AssertionError(f"{name} reduced fp32 {kv_dtype}: "
+                                 "Scheduler streams differ")
+        print(f"  {cfg.name} fp32 Scheduler, {kv_dtype} pools: greedy "
+              f"streams identical ({streams[kv_dtype, 'cuda'][1]} "
+              "preemptions)")
+    return {k: v[1] for k, v in streams.items() if k[1] == "cuda"}
 
 
 # ----------------------------------------------------------------------
@@ -474,23 +907,39 @@ def main() -> int:
     tiny = serve(torch, "tinyllama-1.1b", 32, expected(22, 32))
     qwen = serve(torch, "qwen1.5-0.5b", 8, expected(24, 8))
 
+    print("continuous batching")
+    sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
+                  for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
+    sched_bf16, params = serve_scheduler(torch, "bf16")
+    sched_int8, _ = serve_scheduler(torch, "int8", params=params)
+    del params
+    launches = {**tiny["launches"],
+                "vwr_paged_flash_decode":
+                    sched_bf16["launches"]["vwr_paged_flash_decode"],
+                "vwr_paged_flash_decode_q8":
+                    sched_int8["launches"]["vwr_paged_flash_decode_q8"]}
+
     kernels = []
     sources = {"vwr_matmul": "vwr_matmul", "vwr_swiglu": "vwr_matmul",
                "vwr_attention": "vwr_attention",
-               "vwr_flash_decode": "vwr_decode"}
+               "vwr_flash_decode": "vwr_decode",
+               "vwr_paged_flash_decode": "vwr_paged_decode",
+               "vwr_paged_flash_decode_q8": "vwr_paged_decode"}
     replaces = {
         "vwr_matmul": "src/repro/kernels/vwr_matmul.py:120",
         "vwr_swiglu": "src/repro/kernels/vwr_matmul.py:84",
         "vwr_attention": "src/repro/kernels/vwr_attention.py:81",
-        "vwr_flash_decode": "src/repro/kernels/vwr_decode.py:1222"}
-    for name in per_step:
+        "vwr_flash_decode": "src/repro/kernels/vwr_decode.py:1222",
+        "vwr_paged_flash_decode": "src/repro/kernels/vwr_decode.py:327",
+        "vwr_paged_flash_decode_q8": "src/repro/kernels/vwr_decode.py:542"}
+    for name in sources:
         head = next(r for r in results if r["kernel"] == name
                     and r["headline"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{sources[name]}.cu",
             "replaces": replaces[name],
-            "launches": tiny["launches"][name],
+            "launches": launches[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -498,6 +947,10 @@ def main() -> int:
     detail = {"card": card, "torch": torch.__version__,
               "build_s": secs, "kernel_cases": results,
               "reduced_fp32_max_abs": fp32, "serve": [tiny, qwen],
+              "scheduler": [sched_bf16, sched_int8],
+              "scheduler_reduced_fp32_preemptions": {
+                  n: {k[0]: v for k, v in d.items()}
+                  for n, d in sched_fp32.items()},
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

@@ -1,1 +1,1 @@
-"""Decode attention across cache slabs (single-slab branch)."""
+"""Decode attention across cache slabs and page pools (local branches)."""

@@ -1,8 +1,12 @@
 """DecodeEngine: the serving surface on one device.
 
-Counterpart of ``repro.engine.engine`` for the dense ``(batch, max_len)``
-decode cache.  One object owns the config, the parameters on the
-device, and the prefill/decode step functions::
+Counterpart of ``repro.engine.engine`` for the dense family, with the
+dense ``(batch, max_len)`` decode cache or, with ``EngineConfig(paged=
+True)``, a paged one (``engine.paged_cache``: shared page pools in the
+model dtype or, with ``kv_dtype='int8'``, int8 with per-page scales,
+addressed through per-slot block tables), which ``engine.scheduler``
+runs continuous batching on.  One object owns the config, the
+parameters on the device, and the prefill/decode step functions::
 
     from repro_torch.configs import get_config
     from repro_torch.engine import DecodeEngine, EngineConfig
@@ -13,8 +17,9 @@ device, and the prefill/decode step functions::
 
 The engine runs on ``device="cuda"`` by default and raises if there is
 no GPU; pass ``device="cpu"`` to run the plain versions on the CPU.
-Paged KV, int8 pools, the prefix cache, chunked prefill and sequence
-sharding are not ported yet and raise ``NotImplementedError``.
+The prefix cache, chunked prefill, sequence sharding, meshes other than
+(1, 1) and the paged MoE/MLA/audio pools are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import dataclasses
 import time
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common.module import map_tree, resolve_device
+from repro_torch.engine import paged_cache
 from repro_torch.engine.cache import pad_cache_from_prefill
 from repro_torch.launch import steps
 from repro_torch.models import lm
@@ -40,7 +47,11 @@ class EngineConfig:
     the fields of ``repro.engine.EngineConfig``.
 
     ``decode_shard`` / ``kernel_impl`` default to None = inherit the
-    ModelConfig's setting."""
+    ModelConfig's setting.  ``paged=True`` replaces the dense cache with
+    a pool of ``n_pages`` pages of ``page_size`` positions (None = a
+    dense-equivalent ``batch * ceil(max_len / page_size)``); ``batch``
+    then counts slots.  ``kv_dtype='int8'`` (paged only) stores the
+    pools as int8 with fp32 per-(page, KV head) scales."""
     batch: int = 1
     max_len: int = 128              # prompt + generation budget
     mesh_shape: Tuple[int, int] = (1, 1)      # (data, model)
@@ -62,10 +73,6 @@ class EngineConfig:
 def _unported(ecfg: EngineConfig) -> Optional[str]:
     """The first option the port does not serve yet, with its ROADMAP
     place (queue 1), or None."""
-    if ecfg.paged:
-        return "paged=True (paged KV + Scheduler: item 6)"
-    if ecfg.kv_dtype == "int8":
-        return "kv_dtype='int8' (int8 page pools: item 8)"
     if ecfg.prefix_cache:
         return "prefix_cache=True (item 7)"
     if ecfg.chunked_prefill:
@@ -94,6 +101,12 @@ class DecodeEngine:
         if ecfg.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"EngineConfig.kv_dtype must be 'bf16' or "
                              f"'int8', got {ecfg.kv_dtype!r}")
+        if ecfg.kv_dtype == "int8" and not ecfg.paged:
+            raise ValueError(
+                "kv_dtype='int8' requires paged=True: the dense decode "
+                "cache appends in place every step and a growing "
+                "per-sequence scale would re-quantize the whole slab "
+                "per token — per-page scales make the rewrite O(page)")
         unported = _unported(ecfg)
         if unported is not None:
             raise NotImplementedError(
@@ -103,6 +116,13 @@ class DecodeEngine:
                           decode_shard=ecfg.decode_shard)
         self.cfg = cfg
         self.ecfg = ecfg
+        if ecfg.paged:
+            paged_cache.check_family(cfg)
+            self.page_size = ecfg.page_size
+            self.max_pages = paged_cache.max_pages(ecfg.max_len,
+                                                   ecfg.page_size)
+            self.n_pages = (ecfg.n_pages if ecfg.n_pages is not None
+                            else ecfg.batch * self.max_pages)
         self.device = resolve_device(device)
         if params is None:
             params = lm.init(cfg, seed=seed, device=self.device)
@@ -128,15 +148,63 @@ class DecodeEngine:
         if B != self.ecfg.batch:
             raise ValueError(f"batch {B} != engine batch {self.ecfg.batch}")
         logits, caches = self.prefill_fn(self.params, {"tokens": tokens})
-        cache = pad_cache_from_prefill(self.cfg, caches, B,
-                                       self.ecfg.max_len)
+        if self.ecfg.paged:
+            cache = self.init_paged_cache()
+            paged_cache.write_prefill(self.cfg, cache, caches,
+                                      self.default_block_table())
+        else:
+            cache = pad_cache_from_prefill(self.cfg, caches, B,
+                                           self.ecfg.max_len)
         return logits, cache
 
+    def init_paged_cache(self):
+        """Zeroed page pools on the device: the starting cache of
+        continuous batching (``engine.scheduler`` fills it per admitted
+        request)."""
+        if not self.ecfg.paged:
+            raise ValueError("init_paged_cache() needs paged=True")
+        return paged_cache.init_paged_cache(
+            self.cfg, self.n_pages, self.page_size,
+            kv_dtype=self.ecfg.kv_dtype, device=self.device)
+
+    def default_block_table(self) -> np.ndarray:
+        """Whole-batch identity block table (host int32): slot b owns
+        pages [b * max_pages, (b+1) * max_pages), the dense-equivalent
+        layout ``generate`` uses.  The scheduler builds its own tables
+        from the page allocator."""
+        if not self.ecfg.paged:
+            raise ValueError("default_block_table() needs paged=True")
+        B, J = self.ecfg.batch, self.max_pages
+        if self.n_pages < B * J:
+            raise ValueError(
+                f"whole-batch paged prefill needs n_pages >= "
+                f"batch*max_pages = {B * J}, got {self.n_pages}; "
+                "drive an oversubscribed pool through "
+                "engine.scheduler.Scheduler instead")
+        return np.arange(B * J, dtype=np.int32).reshape(B, J)
+
     @torch.no_grad()
-    def decode_step(self, token, cur_len: int, cache):
-        """One token for the whole batch: token (B,) int; every slot at
-        position ``cur_len``.  Returns (logits (B, vocab_padded) fp32,
-        cache) — the cache is updated in place."""
+    def decode_step(self, token, cur_len, cache, block_table=None):
+        """One token for the whole batch: token (B,) int.  Returns
+        (logits (B, vocab_padded) fp32, cache) — the cache is updated in
+        place.
+
+        Dense cache: every slot at position ``cur_len`` (a host int).
+        Paged: ``cur_len`` is an int or a per-slot (B,) host array and
+        ``block_table`` a (B, W) host int32 table, W <= max_pages
+        covering every slot's live pages (the scheduler passes the
+        power-of-two bucket of the longest active slot)."""
+        if self.ecfg.paged:
+            if block_table is None:
+                raise ValueError(
+                    "paged decode_step needs the block_table operand "
+                    "(engine.default_block_table() for whole-batch "
+                    "generation)")
+            lens = np.broadcast_to(np.asarray(cur_len, np.int32),
+                                   (self.ecfg.batch,))
+            return self.decode_fn(self.params, {
+                "token": token, "cur_len": lens,
+                "block_table": block_table, "cache": cache})
         return self.decode_fn(self.params, {
             "token": torch.as_tensor(token, device=self.device),
             "cur_len": int(cur_len), "cache": cache})
@@ -184,10 +252,12 @@ class DecodeEngine:
 
         # first token is always the argmax of the prefill logits
         tok = logits.argmax(-1).to(torch.int32)
+        table = self.default_block_table() if self.ecfg.paged else None
         out = [tok]
         t0 = time.perf_counter()
         for i in range(gen - 1):
-            logits, cache = self.decode_step(tok, prefill_tokens + i, cache)
+            logits, cache = self.decode_step(tok, prefill_tokens + i, cache,
+                                             block_table=table)
             if check_finite and not bool(torch.isfinite(logits).all()):
                 raise NonFiniteLogitsError(
                     f"non-finite logits at decode step {i}")

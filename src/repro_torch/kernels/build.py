@@ -29,12 +29,14 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("vwr_matmul", "vwr_attention", "vwr_decode")
+SOURCES = ("vwr_matmul", "vwr_attention", "vwr_decode", "vwr_paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"vwr_matmul": 0, "vwr_swiglu": 0,
-                            "vwr_attention": 0, "vwr_flash_decode": 0}
+                            "vwr_attention": 0, "vwr_flash_decode": 0,
+                            "vwr_paged_flash_decode": 0,
+                            "vwr_paged_flash_decode_q8": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -146,11 +148,10 @@ def dtype_code(dtype) -> int:
 
 def check_operands(kernel: str, dtype, **operands) -> None:
     """Each operand is ``name=(tensor or None, expected shape)``.  Every
-    tensor given must be a contiguous, 16-byte-aligned CUDA tensor of
+    tensor given must be a contiguous, 16-byte aligned CUDA tensor of
     ``dtype`` and that shape on the current device; raises otherwise."""
     import torch
 
-    dtype_code(dtype)
     given = {n: ts for n, ts in operands.items() if ts[0] is not None}
     for name, (t, _) in given.items():
         if t.device.type != "cuda":

@@ -13,7 +13,9 @@ def build_prefill(cfg):
 
 
 def build_decode(cfg):
-    """One-token serve step over the dense cache."""
+    """One-token serve step: over the dense cache, or over the paged
+    pools when the batch carries a ``block_table`` (``lm.decode_step``
+    routes it to ``lm.paged_decode_step``)."""
     def serve_step(params, batch):
         return lm.decode_step(params, batch, cfg)
     return serve_step

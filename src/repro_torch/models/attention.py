@@ -2,8 +2,9 @@
 and single-token decode partials.
 
 Counterpart of ``repro.models.attention`` for the dense serving path.
-The ``qkv_proj``, ``o_proj``, ``attention`` and ``decode_partial`` ops
-are registered here per dispatch backend: 'torch' is the plain
+The ``qkv_proj``, ``o_proj``, ``attention``, ``decode_partial``,
+``decode_partial_paged`` and ``decode_partial_paged_q8`` ops are
+registered here per dispatch backend: 'torch' is the plain
 formulation, 'cuda' goes through the hand-written kernels
 (``repro_torch.kernels.ops``).  Decode attention returns unnormalized
 partials ``(o_tilde, m, l)`` so that sequence-sharded slabs can be
@@ -238,3 +239,59 @@ def _decode_partial_torch(q, k, v, cur_len, pos0=0):
 def _decode_partial_cuda(q, k, v, cur_len, pos0=0):
     from repro_torch.kernels import ops
     return ops.vwr_flash_decode(q, k, v, cur_len, pos0=pos0)
+
+
+# ---------------- paged decode (block-table-indexed page pool) ----------------
+
+def paged_flash_decode_partial(q, k_pool, v_pool, block_table, page_counts
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Gather reference for the paged decode contract.
+
+    q: (B, H, Dh) one new token per slot; k_pool, v_pool: (n_pages,
+    page_size, KV, Dh); block_table, page_counts: (B, J) int — physical
+    page and valid tokens per (slot, logical page), 0 masking a page
+    (past the slot's length, unallocated, or another shard's).  The
+    plain version of the paged kernel
+    (``kernels.vwr_decode.vwr_paged_flash_decode_ref``) over the query's
+    kv-major head groups.  Returns fp32 (o_tilde (B, H, Dh), m (B, H),
+    l (B, H))."""
+    from repro_torch.kernels import ops, vwr_decode
+    out = vwr_decode.vwr_paged_flash_decode_ref(
+        ops._groups(q, k_pool.shape[2]), k_pool, v_pool, block_table,
+        page_counts)
+    return ops._heads(*out, q.shape[0])
+
+
+# Registered paged contract: (q (B,H,Dh), pools (n_pages,ps,KV,Dh),
+# table (B,J), counts (B,J)) -> fp32 (o_tilde, m, l); the q8 ops take
+# int8 pools and their fp32 (n_pages, KV) scales after the pools.
+
+@D.register("decode_partial_paged", "torch")
+def _decode_partial_paged_torch(q, k_pool, v_pool, table, counts):
+    return paged_flash_decode_partial(q, k_pool, v_pool, table, counts)
+
+
+@D.register("decode_partial_paged", "cuda")
+def _decode_partial_paged_cuda(q, k_pool, v_pool, table, counts):
+    from repro_torch.kernels import ops
+    return ops.vwr_paged_flash_decode(q, k_pool, v_pool, table, counts)
+
+
+@D.register("decode_partial_paged_q8", "torch")
+def _decode_partial_paged_q8_torch(q, k_pool, v_pool, k_scale, v_scale,
+                                   table, counts):
+    # the gathered pages are dequantized, not the whole pool
+    from repro_torch.kernels import ops, vwr_decode
+    out = vwr_decode.vwr_paged_flash_decode_q8_ref(
+        ops._groups(q, k_pool.shape[2]), k_pool, v_pool, k_scale, v_scale,
+        table, counts)
+    return ops._heads(*out, q.shape[0])
+
+
+@D.register("decode_partial_paged_q8", "cuda")
+def _decode_partial_paged_q8_cuda(q, k_pool, v_pool, k_scale, v_scale,
+                                  table, counts):
+    from repro_torch.kernels import ops
+    return ops.vwr_paged_flash_decode_q8(q, k_pool, v_pool, k_scale,
+                                         v_scale, table, counts)

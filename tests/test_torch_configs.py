@@ -90,7 +90,9 @@ def test_dispatch_registry_has_both_backends():
 
 def test_kernel_build_paths_and_counters():
     assert set(build.LAUNCHES) == {"vwr_matmul", "vwr_swiglu",
-                                   "vwr_attention", "vwr_flash_decode"}
+                                   "vwr_attention", "vwr_flash_decode",
+                                   "vwr_paged_flash_decode",
+                                   "vwr_paged_flash_decode_q8"}
     for name in build.SOURCES:
         p = build.lib_path(name)
         assert (build.CSRC / f"{name}.cu").exists()

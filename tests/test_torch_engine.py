@@ -1,7 +1,7 @@
 """The port's DecodeEngine against the JAX DecodeEngine: same greedy
 tokens from the same parameters and prompts (mesh (1, 1), batch 2,
 prompt 16, gen 8), the same input checks, and the options the port does
-not serve yet refused."""
+not serve yet refused.  The paged engine is in ``test_torch_paged.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,7 +74,8 @@ def test_engine_on_cuda_without_a_gpu_raises(monkeypatch):
         DecodeEngine(tc, EngineConfig(batch=1, max_len=8))
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(kv_dtype="int8"),
+@pytest.mark.parametrize("kw", [dict(paged=True, prefix_cache=True),
+                                dict(paged=True, chunked_prefill=True),
                                 dict(prefix_cache=True),
                                 dict(chunked_prefill=True),
                                 dict(decode_shard="seq"),
@@ -83,6 +84,14 @@ def test_unported_engine_options_raise(kw):
     _, tc = _cfgs("tinyllama-1.1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tc, EngineConfig(batch=1, max_len=8, **kw),
+                     device="cpu")
+
+
+def test_int8_kv_without_paged_raises():
+    """As in the JAX engine: int8 pools need paged=True."""
+    _, tc = _cfgs("tinyllama-1.1b")
+    with pytest.raises(ValueError, match="requires paged=True"):
+        DecodeEngine(tc, EngineConfig(batch=1, max_len=8, kv_dtype="int8"),
                      device="cpu")
 
 

@@ -101,12 +101,26 @@ def test_unported_families_raise(name):
 
 
 def test_paged_and_seq_sharded_decode_raise():
+    """Paged decode is served now (``test_torch_paged.py``); what still
+    raises is sequence-sharded decode, over the dense cache and over
+    the page pools, and the paged pools of unported families."""
     tc = tconfigs.reduced(tconfigs.get_config("tinyllama-1.1b"))
     tp = lm.init(tc, seed=0, device="cpu")
     cache = lm.init_cache(tc, 1, 8, device="cpu")
     batch = {"token": torch.zeros(1, dtype=torch.int32), "cur_len": 0,
              "cache": cache}
-    with pytest.raises(NotImplementedError, match="item 6"):
-        lm.decode_step(tp, {**batch, "block_table": None}, tc)
     with pytest.raises(NotImplementedError, match="item 14"):
         lm.decode_step(tp, batch, tc.replace(decode_shard="seq"))
+    paged = {"token": np.zeros(1, np.int32),
+             "cur_len": np.ones(1, np.int32),
+             "block_table": np.zeros((1, 2), np.int32),
+             "cache": {"k": torch.zeros(tc.n_layers, 2, 4, tc.n_kv_heads,
+                                        tc.d_head),
+                       "v": torch.zeros(tc.n_layers, 2, 4, tc.n_kv_heads,
+                                        tc.d_head)}}
+    with pytest.raises(NotImplementedError, match="item 14"):
+        lm.decode_step(tp, paged, tc.replace(decode_shard="seq"))
+    # it raises before any pool write: the cache is left as it was
+    assert not paged["cache"]["k"].any() and not paged["cache"]["v"].any()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        lm.decode_step(tp, paged, tc.replace(family="moe"))
