@@ -34,7 +34,22 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    teacher-forced and held against the plain path; steps, preemptions,
    peak pages, table widths, generated tokens/s and p50/p99 latency and
    ITL printed;
-6. print ``{"kernels": [...]}``, then the last line
+6. the prefix cache and chunked prefill: kernels 6 and 8 are held and
+   timed in phase 2 (tinyllama's 64-token chunk over 16 pages, partial
+   and masked pages, the first chunk, C 1, qwen's G 1, D 32 and 128,
+   fp32, page 8, int8 pools, tables past the pool); on reduced fp32
+   configs the prefix + chunked Scheduler streams on the kernels equal
+   the plain backend's (unchunked ones for model-dtype pools); at full
+   width, tinyllama-1.1b layer 0's chunk rows through
+   ``chunk_prefill_attend`` and ``local_chunk_prefix_attend`` (the
+   phase whose launches of kernels 6 and 8 are counted), a 256-token
+   prompt's final-chunk logits through ``lm.prefill_chunk`` against the
+   plain path, then the shared-prompt stream (16 of 24 requests open
+   with one 128-token system prompt) through the Scheduler in six
+   prefix / chunked modes, launch counts checked, the on/on streams
+   replayed teacher-forced (each step whose pick is not the served
+   token printed with its logit gaps beside its error);
+7. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Without a CUDA device
@@ -69,6 +84,10 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}   # atol, rtol
 # two paths round to bf16 at different points in each of 22-24 layers.
 E2E_FP32_TOL = 1e-3
 E2E_BF16_REL = 5e-2
+# int8 chunk rows through kernel 8 against the same math on the
+# dequantized pools: fp32 against fp32 on the same int8 pages, only the
+# order of the sums differs (as TOL's fp32 atol)
+CHUNK_Q8_REL = 1e-4
 
 
 def sh(cmd):
@@ -117,6 +136,7 @@ def bound_ms(flops, nbytes, dtype):
 
 def check_kernels(torch, F):
     from repro_torch.kernels import vwr_attention as KA
+    from repro_torch.kernels import vwr_chunk as KC
     from repro_torch.kernels import vwr_decode as KD
     from repro_torch.kernels import vwr_matmul as KM
 
@@ -370,6 +390,79 @@ def check_kernels(torch, F):
                        _paged_sdpa(torch, F, q, pools, scales, table,
                                    counts, KV, G, D),
                        4 * KV * G * D * n_keys, nbytes, head)
+
+    # ---- vwr_chunk_prefix_attend[_q8]: a prompt chunk vs its prior pages ----
+    ck_cases = [
+        # label, KV, G, D, page_size, C, counts, dtype, timed, headline
+        ("tinyllama chunk 64, 16 pages", 4, 8, 64, 16, 64, (16,) * 16, bf16,
+         True, True),
+        ("partial tail", 4, 8, 64, 16, 64, (16,) * 5 + (7,), bf16, False,
+         False),
+        ("masked middle pages", 4, 8, 64, 16, 64, (16, 0, 0, 16, 3), bf16,
+         False, False),
+        ("first chunk: all masked", 4, 8, 64, 16, 64, (0, 0, 0), bf16, False,
+         False),
+        ("C=1", 4, 8, 64, 16, 1, (16, 16, 5), bf16, False, False),
+        ("qwen chunk 64 (G=1)", 16, 1, 64, 16, 64, (16,) * 16, bf16, True,
+         False),
+        ("D=32", 2, 4, 32, 16, 8, (16, 9), bf16, False, False),
+        ("D=128", 2, 4, 128, 16, 8, (16, 9), bf16, False, False),
+        ("fp32", 4, 8, 64, 16, 16, (16, 16, 11), f32, False, False),
+        ("page 8", 2, 3, 64, 8, 5, (8, 8, 0, 1), bf16, False, False),
+    ]
+    for q8 in (False, True):
+        kname = "vwr_chunk_prefix_attend" + ("_q8" if q8 else "")
+        print(kname)
+        for (label, KV, G, D, ps, C, counts, dt, timed,
+             head) in ck_cases:
+            n_pages = 64
+            J = len(counts)
+            q = randn(KV, C * G, D, dtype=dt)
+            shape = (n_pages, ps, KV, D)
+            if q8:
+                pools = [torch.randint(-127, 128, shape, generator=gen,
+                                       device="cuda", dtype=torch.int8)
+                         for _ in range(2)]
+                scales = [torch.rand((n_pages, KV), generator=gen,
+                                     device="cuda") * 0.02 + 1e-3
+                          for _ in range(2)]
+            else:
+                pools = [randn(*shape, dtype=dt) for _ in range(2)]
+                scales = []
+            # a permuted table whose last entry lies past the pool (the
+            # kernel clamps it to the last page, as the plain version)
+            table = torch.randperm(n_pages, generator=gen,
+                                   device="cuda")[:J].to(torch.int32)
+            table[-1] = n_pages + 5
+            cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+            ops_ = (q, *pools, *scales, table, cnt)
+            fn = KC.vwr_chunk_prefix_attend_q8 if q8 \
+                else KC.vwr_chunk_prefix_attend
+            ref = KC.vwr_chunk_prefix_attend_q8_ref if q8 \
+                else KC.vwr_chunk_prefix_attend_ref
+            shape_s = (f"KV{KV} G{G} D{D} ps{ps} C{C} J{J} "
+                       f"keys{sum(counts)}")
+            got = fn(*ops_)
+            torch.cuda.synchronize()
+            err = compare(kname, shape_s, f32, got, ref(*ops_))
+            if not any(counts) and (got[2].abs().max().item() != 0.0
+                                    or got[0].abs().max().item() != 0.0
+                                    or got[1].max().item() > -1e29):
+                raise AssertionError("a chunk with no valid prior key must "
+                                     "give m=-1e30, l=0, o=0")
+            if timed:
+                # the kernel reads the valid keys of the live pages and
+                # both scales of every live (page, head)
+                n_keys = sum(counts)
+                live = sum(1 for c in counts if c)
+                nbytes = (pools[0].element_size() * 2 * n_keys * KV * D
+                          + (8 * live * KV if q8 else 0)
+                          + q.element_size() * q.numel() + 8 * J
+                          + 4 * KV * C * G * (D + 2))
+                record(kname, label, shape_s, dt, err,
+                       lambda: fn(*ops_), lambda: ref(*ops_),
+                       _chunk_sdpa(torch, F, q, pools, scales, table, cnt),
+                       4 * KV * C * G * D * n_keys, nbytes, head)
     return results
 
 
@@ -391,6 +484,29 @@ def _paged_table(torch, gen, lens, J, ps, n_pages):
         k += live
     return (torch.from_numpy(table).cuda(), torch.from_numpy(counts).cuda(),
             k)
+
+
+def _chunk_sdpa(torch, F, q, pools, scales, table, counts):
+    """The library yardstick of a chunk-prefix partial: gather the prior
+    pages into a dense (KV, T, D) prefix (dequantized for int8) and run
+    SDPA with each KV head's C*G query rows, the counts as the mask."""
+    J = table.shape[0]
+    n_pages, ps, KV, D = pools[0].shape
+    idx = table.long().clamp(0, n_pages - 1)
+    mask = (torch.arange(ps, device="cuda")[None, :]
+            < counts[:, None]).reshape(1, 1, 1, J * ps)
+
+    def run():
+        kv = []
+        for i, pool in enumerate(pools):
+            x = pool[idx]                          # (J, ps, KV, D)
+            if scales:
+                x = x.to(q.dtype) * scales[i][idx][:, None, :, None].to(
+                    q.dtype)
+            kv.append(x.reshape(1, J * ps, KV, D).transpose(1, 2))
+        return F.scaled_dot_product_attention(q[None], kv[0], kv[1],
+                                              attn_mask=mask)
+    return run
 
 
 def _paged_sdpa(torch, F, q, pools, scales, table, counts, KV, G, D):
@@ -586,6 +702,11 @@ HELD = 40
 # partials may round differently and a near-tie flip a greedy pick:
 # at least this share of the replayed steps must pick the served token
 REPLAY_AGREE = 0.95
+# the int8 prefix + chunked stream reads each prefix through quantized
+# pages where the replay's whole-prompt prefill reads it in full
+# precision, so more near-ties flip: 236/256 steps agreed on an NVIDIA
+# H100 80GB HBM3 at 700 W, and this floor leaves room for 5 more flips
+REPLAY_AGREE_Q8 = 0.9
 
 
 def _requests(cfg, n, prompt, gen, seed):
@@ -663,7 +784,8 @@ def serve_scheduler(torch, kv_dtype, params=None):
     want = {paged: L * st["steps"], other: 0, "vwr_flash_decode": 0,
             "vwr_attention": L * st["prefills"],
             "vwr_swiglu": L * (st["prefills"] + st["steps"]),
-            "vwr_matmul": L * (5 * st["prefills"] + st["steps"])}
+            "vwr_matmul": L * (5 * st["prefills"] + st["steps"]),
+            "vwr_chunk_prefix_attend": 0, "vwr_chunk_prefix_attend_q8": 0}
     print(f"  launches: {launches}")
     for k, n in want.items():
         if launches[k] != n:
@@ -699,9 +821,10 @@ def serve_scheduler(torch, kv_dtype, params=None):
     summary["held_pages_stream"] = _pressured_stream(torch, eng, cfg, out,
                                                      paged)
 
-    rel, agree = _replay_slots(torch, eng, sched.cache, reqs, out,
-                               kv_dtype)
+    rel, agree, flips = _replay_slots(torch, eng, sched.cache, reqs, out,
+                                      kv_dtype)
     summary.update(logits_rel_err=rel, replay_agree=agree,
+                   replay_flips=flips,
                    n_params=sum(t.numel() for _, t in leaves(eng.params)))
     params = eng.params
     del eng, sched
@@ -709,7 +832,8 @@ def serve_scheduler(torch, kv_dtype, params=None):
     return summary, params
 
 
-def _replay_slots(torch, eng, cache, reqs, out, kv_dtype):
+def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
+                  agree_floor=REPLAY_AGREE):
     """Teacher-force finished requests through the serving engine's
     slots, all of them live in one decode batch, on the drained stream's
     pools (stale pages and int8 scales included), and hold each
@@ -717,8 +841,13 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype):
     for model-dtype pools, paged int8 for int8 pools, which reads the
     same quantized pages.  A wrong table or counts row, a write into
     another slot's page or a stale scale shows here.  Returns the
-    per-step relative errors and the steps whose greedy pick equals the
-    served token, which must be at least REPLAY_AGREE of them."""
+    per-step relative errors, the steps whose greedy pick equals the
+    served token, which must be at least ``agree_floor`` of them, and
+    one record a step where it does not: the replay's gap between its
+    top two logits and between its pick and the served token, beside
+    that step's max |d| against the plain path (a near-tie flip has a
+    gap below the error) and whether the plain path picks the served
+    token."""
     import numpy as np
 
     from repro_torch.engine import DecodeEngine, EngineConfig
@@ -760,16 +889,26 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype):
     if kv_dtype == "int8":
         one = one.replace(paged=True, page_size=PAGE, kv_dtype="int8")
     ref = DecodeEngine(cfg, one, params=eng.params, device="cuda")
-    rel, agree = [], 0
+    rel, agree, flips = [], 0, []
     for b, (r, _) in enumerate(picked):
         P = len(r.tokens)
         lr, cr = ref.prefill({"tokens": torch.from_numpy(r.tokens)[None]
                               .cuda()})
         for i in range(GEN):
-            want = lr[0, :vocab]
-            rel.append(((got[b][i] - want).abs().max()
-                        / want.abs().max()).item())
-            agree += int(got[b][i].argmax()) == int(served[b, i])
+            want, x = lr[0, :vocab], got[b][i]
+            err = (x - want).abs().max().item()
+            rel.append(err / want.abs().max().item())
+            tok = int(served[b, i])
+            if int(x.argmax()) == tok:
+                agree += 1
+            else:
+                top2 = x.float().topk(2).values
+                flips.append({
+                    "rid": r.rid, "step": i,
+                    "top2_gap": (top2[0] - top2[1]).item(),
+                    "served_gap": (top2[0] - x[tok].float()).item(),
+                    "abs_err": err,
+                    "plain_picks_served": int(want.argmax()) == tok})
             if i + 1 < GEN:
                 lr, cr = _decode(ref, served[b, i:i + 1], P + i, cr)
     worst = max(rel)
@@ -778,16 +917,21 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype):
           f"{'dense' if kv_dtype == 'bf16' else 'paged int8'} path max "
           f"|d|/max|ref| {worst:.3e} over {len(rel)} steps (limit "
           f"{E2E_BF16_REL:g}); greedy == served token at "
-          f"{agree}/{len(rel)} steps (floor {REPLAY_AGREE:g})")
+          f"{agree}/{len(rel)} steps (floor {agree_floor})")
+    for f in flips:
+        print(f"    request {f['rid']} step {f['step']}: top-two gap "
+              f"{f['top2_gap']:.4g}, pick - served {f['served_gap']:.4g}, "
+              f"max |d| vs plain {f['abs_err']:.4g}, plain picks served "
+              f"{f['plain_picks_served']}")
     if not worst <= E2E_BF16_REL:
         raise AssertionError(f"scheduler {kv_dtype}: logits diverge from "
                              "the plain path")
-    if agree < REPLAY_AGREE * len(rel):
+    if agree < agree_floor * len(rel):
         raise AssertionError(f"scheduler {kv_dtype}: the replay picks the "
                              f"served token at only {agree}/{len(rel)} "
                              "steps")
     del ref
-    return rel, agree
+    return rel, agree, flips
 
 
 def _pressured_stream(torch, eng, cfg, out, paged):
@@ -867,6 +1011,382 @@ def scheduler_reduced_fp32(torch, name):
 
 
 # ----------------------------------------------------------------------
+# phase 6: the prefix cache and chunked prefill
+# ----------------------------------------------------------------------
+
+# chunked prefill at full width: 64-token chunks (4 pages of 16), the
+# default budget of slots + chunk = 72 tokens a step
+CHUNK_TOKENS = 64
+# the shared-prompt stream: N_SHARED requests open with one SYSTEM-token
+# system prompt (8 whole pages) and a unique tail of TAIL tokens; the
+# rest have unique prompts of PROMPT tokens; arrivals as in _drive
+SYSTEM, TAIL, N_SHARED = 128, (16, 128), 16
+# (pool dtype, prefix cache, chunked prefill) of each stream, off/off
+# first: the on/on streams are compared with it
+PC_MODES = (("bf16", False, False), ("bf16", True, True),
+            ("int8", False, False), ("int8", True, True),
+            ("bf16", True, False), ("bf16", False, True))
+
+
+def _shared_requests(cfg, seed=4):
+    import numpy as np
+
+    from repro_torch.engine import Request
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab, SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(
+        0, cfg.vocab, int(rng.integers(TAIL[0], TAIL[1] + 1)))])
+        for _ in range(N_SHARED)]
+    prompts += [rng.integers(0, cfg.vocab, int(rng.integers(
+        PROMPT[0], PROMPT[1] + 1))) for _ in range(N_REQ - N_SHARED)]
+    order = rng.permutation(N_REQ)
+    return [Request(rid=i, tokens=prompts[j].astype(np.int32), gen=GEN)
+            for i, j in enumerate(order)]
+
+
+def _stream_launches(st, n_layers, kv_dtype, prefix, chunked):
+    """The launches a stream must count: the paged decode kernel of its
+    pool dtype every step (a mixed step too), vwr_attention for every
+    whole-prompt prefill (none when chunked; a prefix hit prefills its
+    suffix on the blockwise path), the matmuls for every prefill pass
+    (a whole or suffix prefill, or a chunk) and decode step, and never
+    the chunk-prefix kernels: the engine's chunk path, like the JAX
+    package's, does not reach them."""
+    paged = "vwr_paged_flash_decode" + ("_q8" if kv_dtype == "int8" else "")
+    other = ("vwr_paged_flash_decode" if kv_dtype == "int8"
+             else "vwr_paged_flash_decode_q8")
+    passes = st["chunks"] if chunked else st["prefills"]
+    whole = 0 if chunked else (st["prefix_misses"] if prefix
+                               else st["prefills"])
+    L = n_layers
+    return {paged: L * st["steps"], other: 0, "vwr_flash_decode": 0,
+            "vwr_attention": L * whole,
+            "vwr_swiglu": L * (passes + st["steps"]),
+            "vwr_matmul": L * (5 * passes + st["steps"]),
+            "vwr_chunk_prefix_attend": 0, "vwr_chunk_prefix_attend_q8": 0}
+
+
+def chunk_rows(torch, params):
+    """Full-width chunk rows: tinyllama-1.1b's layer 0 (conditioned random
+    weights) on a 256-token prompt, q/k/v from the port's ``qkv_proj`` on
+    the kernels, K/V written into bf16 and int8 pools by
+    ``write_prefill``; for chunks at 64, 128 and 192, the chunk's rows
+    through ``chunk_prefill_attend`` (bf16) or
+    ``dist.decode.local_chunk_prefix_attend`` with the pools' scales,
+    merged with ``chunk_self_attn_partial`` (int8), on the 'cuda'
+    backend, against the plain fp32 whole-prompt causal pass (bf16) or
+    the same math on the dequantized pools (int8).  The launch counts of
+    kernels 6 and 8 are read over this phase."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import decode as DD
+    from repro_torch.engine import paged_cache as PC
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import lm
+
+    cfg = get_config("tinyllama-1.1b")
+    lp = lm._layer(params["layers"], 0)
+    P, C, n_pages = 256, CHUNK_TOKENS, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (1, P), generator=g, device="cuda",
+                         dtype=torch.int32)
+    h = lm._norm(cfg, lp["attn_norm"],
+                 LY.embed(params["embed"], toks).to(torch.bfloat16))
+    q, k, v = A.qkv_proj(lp["attn"], h, torch.arange(P, device="cuda"),
+                         cfg.rope_theta, cfg)
+    whole = A.full_attn_ref(q.float(), k.float(), v.float(),
+                            causal=True)[0]
+    one = cfg.replace(n_layers=1)
+    pages = np.random.default_rng(8).permutation(n_pages)[:P // PAGE]
+    q, k, v = q[0], k[0], v[0]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = {}
+    for kv_dtype in ("bf16", "int8"):
+        cache = PC.init_paged_cache(one, n_pages, PAGE, kv_dtype=kv_dtype,
+                                    device="cuda")
+        PC.write_prefill(one, cache, (k[None, None], v[None, None]),
+                         pages[None].astype(np.int32))
+        kp, vp = cache["k"][0], cache["v"][0]
+        rel = []
+        for c0 in (64, 128, 192):
+            jp = c0 // PAGE
+            table = torch.from_numpy(pages[:jp].astype(np.int32)).cuda()
+            counts = torch.full((jp,), PAGE, dtype=torch.int32,
+                                device="cuda")
+            qc, kc, vc = q[c0:c0 + C], k[c0:c0 + C], v[c0:c0 + C]
+            if kv_dtype == "bf16":
+                got = A.chunk_prefill_attend(qc, kc, vc, kp, vp, table,
+                                             counts, backend="cuda")
+                want = whole[c0:c0 + C]
+            else:
+                ks, vs = cache["k_scale"][0], cache["v_scale"][0]
+                part = DD.local_chunk_prefix_attend(
+                    qc, kp, vp, table, counts, k_scale=ks, v_scale=vs,
+                    backend="cuda")
+                o_t, _, l = A.merge_partials(
+                    part, A.chunk_self_attn_partial(qc, kc, vc))
+                got = A.normalize_partial(o_t, l, torch.float32)
+                kd = kp.float() * ks[:, None, :, None]
+                vd = vp.float() * vs[:, None, :, None]
+                o_t, _, l = A.merge_partials(
+                    A.chunk_prefix_attend_partial(qc.float(), kd, vd,
+                                                  table, counts),
+                    A.chunk_self_attn_partial(qc.float(), kc.float(),
+                                              vc.float()))
+                want = A.normalize_partial(o_t, l, torch.float32)
+            torch.cuda.synchronize()
+            rel.append(((got.float() - want).abs().max()
+                        / want.abs().max()).item())
+        limit = E2E_BF16_REL if kv_dtype == "bf16" else CHUNK_Q8_REL
+        print(f"  {kv_dtype} pools, chunks at 64/128/192 of a {P}-token "
+              f"prompt (layer 0, {cfg.n_heads} heads / {cfg.n_kv_heads} KV,"
+              f" D {cfg.d_head}): max |d|/max|ref| "
+              + ", ".join(f"{r:.3e}" for r in rel)
+              + f" (limit {limit:g})")
+        if not max(rel) <= limit:
+            raise AssertionError(f"chunk rows, {kv_dtype} pools: off the "
+                                 "reference")
+        out[kv_dtype] = rel
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in
+                ("vwr_chunk_prefix_attend", "vwr_chunk_prefix_attend_q8")}
+    print(f"  launches in the chunk phase: {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError("a chunk-prefix kernel was never launched")
+    return {"rel_err": out, "launches": launches}
+
+
+def chunked_prefill_logits(torch, params):
+    """Full-width chunked prefill on the engine's chunk path: a 256-token
+    prompt through ``lm.prefill_chunk`` 64 tokens at a time on the
+    kernels; the final chunk's logits (those that pick a chunked
+    request's first token) against the plain path's.  bf16 pools: the
+    plain whole-prompt prefill (as the kernels' whole prefill is, shown
+    beside it).  int8 pools: the plain chunked prefill over int8 pools
+    (a later chunk reads the earlier ones through the quantized pages,
+    so against the whole prefill it is shown, not held)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import paged_cache as PC
+    from repro_torch.models import lm
+
+    cfg = get_config("tinyllama-1.1b")
+    plain = cfg.replace(kernel_impl="torch")
+    P, C, n_pages = 256, CHUNK_TOKENS, 32
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (1, P), generator=g, device="cuda",
+                         dtype=torch.int32)
+    pages = np.random.default_rng(9).permutation(n_pages)[:P // PAGE]
+    pages = pages.astype(np.int32)
+    V = cfg.vocab
+
+    def chunked(c, kv_dtype):
+        cache = PC.init_paged_cache(c, n_pages, PAGE, kv_dtype=kv_dtype,
+                                    device="cuda")
+        for p0 in range(0, P, C):
+            logits, cache = lm.prefill_chunk(params, {
+                "tokens": toks[:, p0:p0 + C], "pages": pages[:p0 // PAGE],
+                "write_pages": pages[p0 // PAGE:(p0 + C) // PAGE],
+                "cache": cache}, c)
+        return logits[:, :V]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    whole = lm.prefill(params, {"tokens": toks}, plain)[0][:, :V]
+    q8 = chunked(cfg, "int8")
+    out = {"whole_kernel": rel(lm.prefill(params, {"tokens": toks},
+                                          cfg)[0][:, :V], whole),
+           "bf16": rel(chunked(cfg, "bf16"), whole),
+           "int8": rel(q8, chunked(plain, "int8")),
+           "int8_vs_whole": rel(q8, whole)}
+    print(f"  a {P}-token prompt in chunks of {C} through lm.prefill_chunk "
+          f"(tinyllama-1.1b, 22 layers), final logits, max |d|/max|ref|: "
+          f"bf16 pools vs the plain whole prefill {out['bf16']:.3e} (the "
+          f"kernels' whole prefill {out['whole_kernel']:.3e}); int8 pools "
+          f"vs the plain chunked prefill {out['int8']:.3e} (vs the plain "
+          f"whole prefill {out['int8_vs_whole']:.3e}, shown); limit "
+          f"{E2E_BF16_REL:g}")
+    if not max(out["bf16"], out["int8"]) <= E2E_BF16_REL:
+        raise AssertionError("chunked prefill logits off the plain path")
+    return out
+
+
+def serve_prefix_chunked(torch, params):
+    """Full-width tinyllama-1.1b through the Scheduler with the prefix
+    cache and chunked prefill, on the shared-prompt stream, in each of
+    PC_MODES: launch counts checked, every request finished and every
+    page back (but the trie's), the on/on streams replayed
+    teacher-forced against the plain path (``_replay_slots``) and
+    compared with the off/off streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import (DecodeEngine, EngineConfig,
+                                    RequestStatus, Scheduler)
+    from repro_torch.kernels import build
+
+    cfg = get_config("tinyllama-1.1b")
+    engines = {}
+    for kv_dtype in ("bf16", "int8"):
+        eng = DecodeEngine(cfg, EngineConfig(
+            batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
+            page_size=PAGE, n_pages=N_PAGES, kv_dtype=kv_dtype,
+            chunk_tokens=CHUNK_TOKENS, kernel_impl="cuda"),
+            params=params, device="cuda")
+        # warm-up: the first launches of the suffix and chunk paths
+        _drive(Scheduler(eng, prefix_cache=True, chunked_prefill=True),
+               _requests(cfg, 4, PROMPT, 4, seed=5))
+        engines[kv_dtype] = eng
+    print(f"Scheduler with the prefix cache and chunked prefill, "
+          f"tinyllama-1.1b: {N_REQ} requests ({N_SHARED} open with one "
+          f"{SYSTEM}-token system prompt + {TAIL[0]}-{TAIL[1]} tokens, "
+          f"{N_REQ - N_SHARED} unique of {PROMPT[0]}-{PROMPT[1]}), gen "
+          f"{GEN}, chunk {CHUNK_TOKENS}")
+    summaries, outs = [], {}
+    for kv_dtype, prefix, chunked in PC_MODES:
+        eng = engines[kv_dtype]
+        reqs = _shared_requests(cfg)
+        sched = Scheduler(eng, prefix_cache=prefix, chunked_prefill=chunked)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = _drive(sched, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        st = sched.stats
+        tag = (f"{kv_dtype} pools, prefix {'on' if prefix else 'off'}, "
+               f"chunked {'on' if chunked else 'off'}")
+        want = _stream_launches(st, cfg.n_layers, kv_dtype, prefix,
+                                chunked)
+        for k, n in want.items():
+            if launches[k] != n:
+                raise AssertionError(f"{tag}: {k} launched {launches[k]} "
+                                     f"times, expected {n}")
+        bad = {rid: r.status for rid, r in out.items()
+               if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+        if len(out) != N_REQ or bad:
+            raise AssertionError(f"{tag}: unfinished {bad}")
+        sched.allocator.check()
+        cached = sched.prefix.cached_pages if prefix else 0
+        if sched.allocator.free_pages != N_PAGES - cached:
+            raise AssertionError(f"{tag}: pages left allocated")
+        if prefix and chunked and not (st["prefix_hits"] > 0
+                                       and st["chunks"] > 0):
+            raise AssertionError(f"{tag}: no prefix hit or no chunk")
+        n_tok = sum(len(r) for r in out.values())
+        lat, itl = sched.latency_percentiles(), sched.itl_percentiles()
+        keys = ("steps", "prefills", "preempted", "parked", "peak_pages",
+                "prefix_hits", "prefix_misses", "prefix_hit_tokens",
+                "prefix_evictions", "shared_pages", "cow_forks",
+                "mixed_steps", "chunks", "chunked_tokens")
+        summary = {"kv_dtype": kv_dtype, "prefix": prefix,
+                   "chunked": chunked, **{k: st[k] for k in keys},
+                   "table_widths": {str(k): v for k, v in
+                                    sorted(st["table_widths"].items())},
+                   "generated_tokens": n_tok, "wall_s": wall,
+                   "gen_tok_s": n_tok / wall,
+                   "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
+                   "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
+                   "launches": launches}
+        print(f"  {tag}: steps {st['steps']}, prefills {st['prefills']}, "
+              f"preempted {st['preempted']}, peak pages "
+              f"{st['peak_pages']}/{N_PAGES}, table widths "
+              f"{summary['table_widths']}")
+        print("    " + ", ".join(f"{k} {st[k]}" for k in keys[5:]))
+        print(f"    {n_tok} tokens in {wall:.4f} s: "
+              f"{summary['gen_tok_s']:.1f} generated tok/s; request "
+              f"latency p50 {lat['p50']:.4f} s p99 {lat['p99']:.4f} s; "
+              f"ITL p50 {itl['p50'] * 1e3:.3f} ms p99 "
+              f"{itl['p99'] * 1e3:.3f} ms")
+        print(f"    launches: {launches}")
+        outs[kv_dtype, prefix, chunked] = out
+        if prefix and chunked:
+            base = outs[kv_dtype, False, False]
+            same = sum(bool((out[rid] == base[rid]).all()) for rid in out)
+            print(f"    {same}/{N_REQ} streams equal to the off/off run")
+            summary["streams_equal_off"] = same
+            rel, agree, flips = _replay_slots(
+                torch, eng, sched.cache, reqs, out, kv_dtype,
+                agree_floor=(REPLAY_AGREE if kv_dtype == "bf16"
+                             else REPLAY_AGREE_Q8))
+            summary.update(logits_rel_err=rel, replay_agree=agree,
+                           replay_flips=flips)
+        summaries.append(summary)
+        del sched
+    del engines
+    torch.cuda.empty_cache()
+    return summaries
+
+
+def scheduler_reduced_prefix_chunked(torch, name):
+    """Reduced fp32 config on the card, over a pool that preempts and
+    requests that share a 16-token system prompt: with model-dtype pools
+    the prefix-cache and chunked streams on the kernels equal the
+    prefix-off, unchunked streams on the plain backend, token for token;
+    with int8 pools (a hit or a later chunk reads the prefix through the
+    quantized pages, so a near-tie may pick otherwise than the off/off
+    run) they equal the plain backend's prefix and chunked streams, and
+    the streams equal to the off/off run are counted."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import (DecodeEngine, EngineConfig, Request,
+                                    Scheduler)
+
+    cfg = reduced(get_config(name)).replace(d_head=32)
+    rng = np.random.default_rng(6)
+    system = rng.integers(0, cfg.vocab, 16)
+    prompts = ([np.concatenate([system, rng.integers(0, cfg.vocab, int(n))])
+                for n in rng.integers(1, 20, 4)]
+               + [rng.integers(0, cfg.vocab, int(n))
+                  for n in rng.integers(5, 40, 3)])
+
+    def run(eng, **kw):
+        sched = Scheduler(eng, **kw)
+        out = _drive(sched, [Request(rid=i, tokens=p.astype(np.int32),
+                                     gen=16) for i, p in enumerate(prompts)])
+        return [out[i].tokens.tolist() for i in range(len(prompts))], sched
+
+    summary = {}
+    for kv_dtype in ("bf16", "int8"):
+        ecfg = EngineConfig(batch=3, max_len=64, paged=True, page_size=8,
+                            n_pages=12, kv_dtype=kv_dtype,
+                            chunk_tokens=8, kernel_impl="cuda")
+        eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
+        ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                           params=eng.params, device="cuda")
+        on = dict(prefix_cache=True, chunked_prefill=True)
+        got, sched = run(eng, **on)
+        off, _ = run(ref)
+        want = off if kv_dtype == "bf16" else run(ref, **on)[0]
+        st = sched.stats
+        if not (st["prefix_hits"] > 0 and st["chunks"] > 0):
+            raise AssertionError(f"{name} reduced fp32 {kv_dtype}: no "
+                                 "prefix hit or no chunk")
+        if got != want:
+            raise AssertionError(
+                f"{name} reduced fp32 {kv_dtype}: prefix and chunked "
+                "streams on the kernels differ from the plain backend's")
+        same = sum(a == b for a, b in zip(got, off))
+        print(f"  {cfg.name} fp32 Scheduler, {kv_dtype} pools, prefix + "
+              f"chunked on the kernels: {st['prefix_hits']} hits, "
+              f"{st['chunks']} chunks, {st['preempted']} preemptions; "
+              f"equal to the plain "
+              f"{'off/off' if kv_dtype == 'bf16' else 'prefix + chunked'}"
+              f" streams; {same}/{len(prompts)} equal to the plain off/off")
+        summary[kv_dtype] = {k: st[k] for k in (
+            "prefix_hits", "chunks", "preempted", "prefix_evictions")}
+        summary[kv_dtype]["streams_equal_off"] = same
+    return summary
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -912,26 +1432,38 @@ def main() -> int:
                   for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
     sched_bf16, params = serve_scheduler(torch, "bf16")
     sched_int8, _ = serve_scheduler(torch, "int8", params=params)
+
+    print("prefix cache and chunked prefill")
+    pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
+               for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
+    rows = chunk_rows(torch, params)
+    chunk_logits = chunked_prefill_logits(torch, params)
+    pc_streams = serve_prefix_chunked(torch, params)
     del params
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
                 "vwr_paged_flash_decode_q8":
-                    sched_int8["launches"]["vwr_paged_flash_decode_q8"]}
+                    sched_int8["launches"]["vwr_paged_flash_decode_q8"],
+                **rows["launches"]}
 
     kernels = []
     sources = {"vwr_matmul": "vwr_matmul", "vwr_swiglu": "vwr_matmul",
                "vwr_attention": "vwr_attention",
                "vwr_flash_decode": "vwr_decode",
                "vwr_paged_flash_decode": "vwr_paged_decode",
-               "vwr_paged_flash_decode_q8": "vwr_paged_decode"}
+               "vwr_paged_flash_decode_q8": "vwr_paged_decode",
+               "vwr_chunk_prefix_attend": "vwr_chunk_prefix",
+               "vwr_chunk_prefix_attend_q8": "vwr_chunk_prefix"}
     replaces = {
         "vwr_matmul": "src/repro/kernels/vwr_matmul.py:120",
         "vwr_swiglu": "src/repro/kernels/vwr_matmul.py:84",
         "vwr_attention": "src/repro/kernels/vwr_attention.py:81",
         "vwr_flash_decode": "src/repro/kernels/vwr_decode.py:1222",
         "vwr_paged_flash_decode": "src/repro/kernels/vwr_decode.py:327",
-        "vwr_paged_flash_decode_q8": "src/repro/kernels/vwr_decode.py:542"}
+        "vwr_paged_flash_decode_q8": "src/repro/kernels/vwr_decode.py:542",
+        "vwr_chunk_prefix_attend": "src/repro/kernels/vwr_decode.py:870",
+        "vwr_chunk_prefix_attend_q8": "src/repro/kernels/vwr_decode.py:967"}
     for name in sources:
         head = next(r for r in results if r["kernel"] == name
                     and r["headline"])
@@ -951,6 +1483,9 @@ def main() -> int:
               "scheduler_reduced_fp32_preemptions": {
                   n: {k[0]: v for k, v in d.items()}
                   for n, d in sched_fp32.items()},
+              "prefix_chunked_reduced_fp32": pc_fp32,
+              "chunk_rows": rows, "chunked_prefill_logits": chunk_logits,
+              "prefix_chunked": pc_streams,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

@@ -63,3 +63,26 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
+
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// 16 bytes of a pool row as fp32: 8 bf16, 8 fp32 (two loads) or 16 int8.
+// `p` must be 16-byte aligned.
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           float* out) {
+  load8(p, out);
+}
+__device__ __forceinline__ void load_chunk(const float* p, float* out) {
+  load8(p, out);
+}
+__device__ __forceinline__ void load_chunk(const int8_t* p, float* out) {
+  int4 raw = *reinterpret_cast<const int4*>(p);
+  const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[4 * i] = c[i].x;
+    out[4 * i + 1] = c[i].y;
+    out[4 * i + 2] = c[i].z;
+    out[4 * i + 3] = c[i].w;
+  }
+}

@@ -1,11 +1,13 @@
-"""Decode attention across cache slabs and page pools.
+"""Decode and chunk-prefix attention across cache slabs and page pools.
 
 Counterpart of ``repro.dist.decode``; only the single-slab / single-shard
 branches are ported.  The decode partials come from the dispatch
 registry (``decode_partial``, ``decode_partial_paged``,
 ``decode_partial_paged_q8``: 'torch' plain, 'cuda' the kernels) and are
-normalized here.  The sequence-sharded combine over
-``torch.distributed`` is ROADMAP queue 1 item 14.
+normalized here; the chunk-prefix partials (``chunk_prefix_paged``,
+``chunk_prefix_paged_q8``) are returned unnormalized, for the caller to
+merge with the chunk's causal self partial.  The sequence-sharded
+combine over ``torch.distributed`` is ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -84,3 +86,30 @@ def paged_decode_attend(q, k_pool, v_pool, table, counts, *,
     return local_paged_decode_attend(q, k_pool, v_pool, table, counts,
                                      k_scale=k_scale, v_scale=v_scale,
                                      backend=backend)
+
+
+# ======================================================================
+# chunked prefill: chunk-prefix attention
+# ======================================================================
+
+def local_chunk_prefix_attend(q, k_pool, v_pool, table, counts, *,
+                              k_scale=None, v_scale=None,
+                              backend="cuda"):
+    """Single-shard chunk -> prior-pages attention partial through the
+    dispatch registry.
+
+    q: (C, H, Dh) one prompt chunk's queries; k_pool, v_pool: (n_pages,
+    page_size, KV, Dh); table: (J,) int32 the chunk's PRIOR whole pages
+    (earlier chunks and prefix-cache aliases); counts: (J,) int32 valid
+    tokens per page.  Returns the UNNORMALIZED fp32 partial (o_t (C, H,
+    Dh), m (C, H), l (C, H)): the caller merges it with the chunk's
+    causal self partial (``models.attention.merge_partials``) and
+    normalizes, as ``models.attention.chunk_prefill_attend`` does.
+    ``k_scale``/``v_scale`` ((n_pages, KV) fp32) select the q8 op over
+    int8 pools."""
+    if k_scale is not None:
+        return D.dispatch("chunk_prefix_paged_q8", backend, q, k_pool,
+                          v_pool, k_scale, v_scale, table, counts)
+    return D.dispatch("chunk_prefix_paged", backend, q, k_pool, v_pool,
+                      table, counts)
+

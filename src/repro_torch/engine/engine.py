@@ -15,11 +15,15 @@ parameters on the device, and the prefill/decode step functions::
                        EngineConfig(batch=4, max_len=160))
     tokens, stats = eng.generate({"tokens": prompts}, gen=32)
 
+A paged dense-family engine also carries ``suffix_prefill_fn`` (the
+suffix-only prefill of a prefix-cache hit) and ``mixed_fn`` (one
+chunked-prefill chunk plus the decode batch in one step), which the
+Scheduler's ``prefix_cache`` and ``chunked_prefill`` modes use.
+
 The engine runs on ``device="cuda"`` by default and raises if there is
 no GPU; pass ``device="cpu"`` to run the plain versions on the CPU.
-The prefix cache, chunked prefill, sequence sharding, meshes other than
-(1, 1) and the paged MoE/MLA/audio pools are not ported yet and raise
-``NotImplementedError``.
+Sequence sharding, meshes other than (1, 1) and the paged MoE/MLA/audio
+pools are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,7 +55,10 @@ class EngineConfig:
     a pool of ``n_pages`` pages of ``page_size`` positions (None = a
     dense-equivalent ``batch * ceil(max_len / page_size)``); ``batch``
     then counts slots.  ``kv_dtype='int8'`` (paged only) stores the
-    pools as int8 with fp32 per-(page, KV head) scales."""
+    pools as int8 with fp32 per-(page, KV head) scales.
+    ``prefix_cache`` / ``chunked_prefill`` / ``chunk_tokens`` are the
+    Scheduler's defaults for those modes (paged token-only families;
+    ``chunk_tokens`` a positive multiple of ``page_size``)."""
     batch: int = 1
     max_len: int = 128              # prompt + generation budget
     mesh_shape: Tuple[int, int] = (1, 1)      # (data, model)
@@ -73,15 +80,37 @@ class EngineConfig:
 def _unported(ecfg: EngineConfig) -> Optional[str]:
     """The first option the port does not serve yet, with its ROADMAP
     place (queue 1), or None."""
-    if ecfg.prefix_cache:
-        return "prefix_cache=True (item 7)"
-    if ecfg.chunked_prefill:
-        return "chunked_prefill=True (item 7)"
     if ecfg.decode_shard == "seq":
         return "decode_shard='seq' (distributed decode: item 14)"
     if tuple(ecfg.mesh_shape) != (1, 1):
         return f"mesh_shape={ecfg.mesh_shape} (distributed: item 14)"
     return None
+
+
+def _check_prefix_and_chunks(cfg, ecfg: EngineConfig) -> None:
+    """The JAX engine's checks of the prefix-cache and chunked-prefill
+    options (``ValueError``)."""
+    for on, what, why in (
+            (ecfg.prefix_cache, "prefix_cache=True",
+             "prefix sharing aliases physical pages through block tables"),
+            (ecfg.chunked_prefill, "chunked_prefill=True",
+             "chunks land in granted pages through the block table")):
+        if not on:
+            continue
+        if not ecfg.paged:
+            raise ValueError(f"{what} needs paged=True: {why}")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"{what} supports the token-only families ('dense', "
+                f"'moe'); family {cfg.family!r} prepends frontend "
+                "positions a token-keyed prefix cannot match")
+    if ecfg.chunked_prefill and (ecfg.chunk_tokens < 1
+                                 or ecfg.chunk_tokens % ecfg.page_size):
+        raise ValueError(
+            f"chunk_tokens={ecfg.chunk_tokens} must be a positive "
+            f"multiple of page_size={ecfg.page_size}: every non-final "
+            "chunk must end page-aligned so the next chunk's resident "
+            "prefix is whole pages")
 
 
 class DecodeEngine:
@@ -107,6 +136,7 @@ class DecodeEngine:
                 "cache appends in place every step and a growing "
                 "per-sequence scale would re-quantize the whole slab "
                 "per token — per-page scales make the rewrite O(page)")
+        _check_prefix_and_chunks(cfg, ecfg)
         unported = _unported(ecfg)
         if unported is not None:
             raise NotImplementedError(
@@ -129,6 +159,12 @@ class DecodeEngine:
         self.params = map_tree(lambda t: t.to(self.device), params)
         self.prefill_fn = steps.build_prefill(cfg)
         self.decode_fn = steps.build_decode(cfg)
+        # built for every paged token-only engine, so a Scheduler can turn
+        # either mode on per stream whatever the EngineConfig defaults
+        token_only = ecfg.paged and cfg.family in ("dense", "moe")
+        self.suffix_prefill_fn = (steps.build_suffix_prefill(cfg)
+                                  if token_only else None)
+        self.mixed_fn = steps.build_mixed_step(cfg) if token_only else None
 
     # ------------------------------------------------------------------
     # steps

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -82,18 +82,26 @@ Fault = object   # NonFiniteLogits | TransientError | SlowStep | CrashFault
 class FaultyStepFn:
     """A step function with a deterministic fault schedule keyed by call
     index (``.calls``; a retry is a new call).  The wrapped function
-    returns a tuple whose first element is the logits — NonFiniteLogits
-    corrupts that."""
+    returns a tuple whose first element is the decode logits —
+    ``(logits, cache)`` for prefill and decode steps, ``(logits,
+    chunk_logits, cache)`` for the mixed chunked-prefill step —
+    NonFiniteLogits corrupts that.  ``counter`` (a one-element list)
+    lets two wrappers share one call index."""
 
-    def __init__(self, fn: Callable, faults: Sequence[Fault] = ()):
+    def __init__(self, fn: Callable, faults: Sequence[Fault] = (),
+                 counter: Optional[List[int]] = None):
         self.fn = fn
         self.faults = list(faults)
-        self.calls = 0
+        self._calls = counter if counter is not None else [0]
         self.injected = 0
 
+    @property
+    def calls(self) -> int:
+        return self._calls[0]
+
     def __call__(self, params, batch):
-        k = self.calls
-        self.calls += 1
+        k = self._calls[0]
+        self._calls[0] += 1
         for f in self.faults:
             if isinstance(f, SlowStep) and f.step == k:
                 self.injected += 1
@@ -115,14 +123,22 @@ class FaultyStepFn:
 
 
 class FaultyEngine:
-    """Delegating engine proxy with fault-wrapped decode and prefill
-    step functions; the underlying engine is never changed."""
+    """Delegating engine proxy with fault-wrapped step functions; the
+    underlying engine is never changed.  ``decode_faults`` are keyed by
+    the scheduler's STEP sequence: the decode and the mixed (chunked
+    prefill) step wrappers share one call counter and one fault list, so
+    call index k is the k-th step whichever kind it was."""
 
     def __init__(self, eng, decode_faults: Sequence[Fault] = (),
                  prefill_faults: Sequence[Fault] = ()):
         self._eng = eng
-        self.decode_fn = FaultyStepFn(eng.decode_fn, decode_faults)
+        counter: List[int] = [0]
+        self.decode_fn = FaultyStepFn(eng.decode_fn, decode_faults,
+                                      counter=counter)
         self.prefill_fn = FaultyStepFn(eng.prefill_fn, prefill_faults)
+        self.mixed_fn = (
+            FaultyStepFn(eng.mixed_fn, decode_faults, counter=counter)
+            if getattr(eng, "mixed_fn", None) is not None else None)
 
     def __getattr__(self, name):
         return getattr(self._eng, name)

@@ -14,8 +14,9 @@ key.
 The JAX package writes pools functionally (``.at[].set`` on a donated
 buffer); here every write is in place into the engine-owned pools
 (``write_prefill``, ``quantized_page_write`` and the decode step), as
-the port's dense cache already is.  The MLA, MoE and audio pools and
-``fork_page`` (the prefix cache's copy-on-write) are not ported yet.
+the port's dense cache already is; ``fork_page`` (the prefix cache's
+copy-on-write) copies a page in place.  The MLA, MoE and audio pools
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -181,7 +182,11 @@ def write_prefill(cfg, cache, caches, table) -> None:
 
     ``caches`` is ``lm.prefill``'s (k, v) stacks (L, B', S, KV, Dh) for
     B' requests (the whole batch, or 1 for the scheduler's admission);
-    ``table`` holds their block-table rows (B', max_pages), host ints."""
+    ``table`` holds the rows (B', >= ceil(S / page_size)) of the pages
+    they land in, host ints or a device tensor: a whole prompt's row, or
+    for a suffix or a chunk (``lm.prefill_suffix`` / ``prefill_chunk``,
+    which start page-aligned) the row of pages from its first position
+    on — never a shared prefix page."""
     check_family(cfg)
     for name, kv in zip(("k", "v"), caches):
         if name + "_scale" in cache:
@@ -191,11 +196,22 @@ def write_prefill(cfg, cache, caches, table) -> None:
             _scatter_pages(cache[name], kv, table)
 
 
-def fork_page(cfg, cache, src, dst):
-    """Copy-on-write page fork of the prefix cache: not ported yet."""
-    raise NotImplementedError(
-        "fork_page (prefix-cache copy-on-write) is not ported to "
-        "repro_torch yet: ROADMAP queue 1 item 7")
+def fork_page(cfg, cache, src: int, dst: int) -> None:
+    """Copy physical page ``src`` onto ``dst`` across every pool leaf, in
+    place (the JAX function returns a new cache): the K/V pools and, for
+    int8 pools, the fp32 scale rows, which are part of the page (a
+    forked page must dequantize exactly like its original until the
+    diverging write lands).  Every leaf of the dense paged cache has the
+    page axis at 1 (pools ``(L, n_pages, ps, KV, Dh)``, scales
+    ``(L, n_pages, KV)``); the audio family's slot-dense cross cache
+    does not, and is refused."""
+    if cfg.family == "audio":
+        raise ValueError(
+            "fork_page does not support the audio family: the slot-dense "
+            "cross cache carries slots, not pages, at axis 1")
+    check_family(cfg)
+    for leaf in cache.values():
+        leaf[:, dst] = leaf[:, src]
 
 
 # ----------------------------------------------------------------------
@@ -232,6 +248,11 @@ class PageAllocator:
     @property
     def used_pages(self) -> int:
         return self.n_pages - len(self._free)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages currently held by more than one holder."""
+        return sum(1 for r in self._refs.values() if r > 1)
 
     def refcount(self, page: int) -> int:
         """Current holders of ``page`` (0 = free)."""

@@ -1,8 +1,8 @@
 """Continuous batching: request-level serving on the paged DecodeEngine.
 
-Counterpart of ``repro.engine.scheduler`` without the prefix cache,
-chunked prefill and durable serving (ROADMAP queue 1 items 7 and 9).
-The engine's paged decode step runs as a slot machine:
+Counterpart of ``repro.engine.scheduler`` without durable serving
+(ROADMAP queue 1 item 9).  The engine's paged decode step runs as a
+slot machine:
 
   admit    a pending request takes a free slot: its prompt is prefilled
            alone (batch 1) and written into freshly allocated pages;
@@ -16,11 +16,27 @@ The engine's paged decode step runs as a slot machine:
            generated prefix prefilled again at re-admission);
   retire   a finished request frees its pages and its slot at once.
 
-Every request walks a status machine::
+With ``prefix_cache`` admission first matches the longest cached
+whole-page prefix of the prompt (``engine.prefix_cache``), aliases those
+pages into the slot's table and prefills only the suffix
+(``engine.suffix_prefill_fn``); pages are decref'd, never freed, and
+under pool pressure cold trie leaves are evicted before any slot is
+preempted.  With ``chunked_prefill`` admission grants a prompt all its
+pages and a slot at once, and the prompt prefills ``chunk_tokens`` at a
+time INSIDE the shared step (``engine.mixed_fn``: one chunk plus the
+whole decode batch), packed under a token budget (``pack_chunk``) that
+always runs every decoding slot, so a long prompt no longer stalls
+decode between steps.
 
-    PENDING -> RUNNING -> FINISHED
-       |          |-> PREEMPTED -> (again)
-       |          |-> FAILED / TIMED_OUT / CANCELLED
+Every request walks a status machine (PREFILLING only with chunked
+prefill)::
+
+    PENDING -> [PREFILLING ->] RUNNING -> FINISHED
+       |          |               |-> PREEMPTED -> (again)
+       |          |               |     (chunked: the in-flight chunk is
+       |          |               |      dropped, completed pages kept)
+       |          |               |-> FAILED / TIMED_OUT / CANCELLED
+       |          `-> FAILED / TIMED_OUT / CANCELLED
        |-> REJECTED               (over budget, the pool can never fit it)
        |-> CANCELLED / TIMED_OUT  (while still queued)
 
@@ -33,11 +49,13 @@ bounded backoff (``runtime.resilience``), and a slot preempted more
 than ``max_preemptions`` times is parked until the pool quiets.
 Injectors for all of this are in ``engine.faults``.
 
-All bookkeeping (free slots, pages, per-slot lengths, block tables) is
-host-side numpy.  A step sends the device one buffer (token, lengths,
-table, write ids and counts; ``models.lm.paged_step_meta``) and reads
-back one (3, B) int32 array: the greedy pick, the sampled pick and the
-finite flag of every slot.
+All bookkeeping (free slots, pages, per-slot lengths, block tables, the
+prefix trie) is host-side numpy.  A step sends the device one buffer
+(token, lengths, table, write ids and counts, and a mixed step's chunk
+tokens and pages; ``models.lm.paged_step_meta``) and reads back one
+(3, B) int32 array — (3, B + 1) when a final chunk's logits seed its
+request's first token: the greedy pick, the sampled pick and the finite
+flag of every row.
 
 Sampling cannot reproduce the JAX package's ``fold_in`` keys: a sampled
 step is Gumbel-max with noise from a counter-based hash of (seed, step,
@@ -57,8 +75,9 @@ import torch
 
 from repro_torch.engine.faults import CrashError
 from repro_torch.engine.paged_cache import (PageAllocator,
-                                            bucket_table_width,
+                                            bucket_table_width, fork_page,
                                             write_prefill)
+from repro_torch.engine.prefix_cache import PrefixCache
 from repro_torch.runtime.resilience import (Heartbeat, RetryPolicy,
                                             StragglerMonitor,
                                             call_with_retries, percentiles)
@@ -68,6 +87,7 @@ class RequestStatus(str, enum.Enum):
     """Request lifecycle states (terminal: FINISHED / REJECTED /
     FAILED / CANCELLED / TIMED_OUT)."""
     PENDING = "PENDING"
+    PREFILLING = "PREFILLING"   # chunked prefill in flight
     RUNNING = "RUNNING"
     PREEMPTED = "PREEMPTED"
     FINISHED = "FINISHED"
@@ -151,6 +171,7 @@ class _Slot:
     steps: int = 0                  # decode steps taken (sampling step)
     order: int = 0                  # admission sequence (LIFO preempt)
     preempts: int = 0               # times evicted (livelock watchdog)
+    prefilled: int = 0              # chunked: prompt positions resident
     token_times: List[float] = dataclasses.field(default_factory=list)
 
 
@@ -183,11 +204,18 @@ def gumbel_noise(seeds, steps, vocab: int, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def pick_tokens(logits, seeds, steps, temps) -> np.ndarray:
+def pick_tokens(logits, seeds, steps, temps, extra=None) -> np.ndarray:
     """Greedy argmax, the sampled pick (Gumbel-max at each slot's
     temperature; the greedy pick where no slot samples) and the isfinite
     flag of every row, stacked (3, B) int32 and read back in one
-    device-to-host copy.  seeds/steps/temps: (B,) host arrays."""
+    device-to-host copy.  seeds/steps/temps: (B,) host arrays.  ``extra``
+    (R, V) logits rows (a final chunk's) are picked greedily after the
+    B slots, in the same copy: (3, B + R)."""
+    if extra is not None:
+        logits = torch.cat([logits, extra.to(logits.dtype)])
+        seeds, steps, temps = (
+            np.concatenate([a, np.zeros(extra.shape[0], a.dtype)])
+            for a in map(np.asarray, (seeds, steps, temps)))
     greedy = logits.argmax(-1)
     finite = torch.isfinite(logits).all(-1)
     sampled = greedy
@@ -199,6 +227,26 @@ def pick_tokens(logits, seeds, steps, temps) -> np.ndarray:
         sampled = (logits / safe_t[:, None] + noise).argmax(-1)
     picked = torch.stack([greedy, sampled, finite.long()]).to(torch.int32)
     return picked.cpu().numpy()
+
+
+def pack_chunk(remaining: int, n_decode: int, budget: int,
+               chunk_tokens: int, page_size: int) -> int:
+    """Token-budget packing rule of one mixed step: how many prompt
+    tokens of the head in-flight prefill ride along with ``n_decode``
+    decoding slots under a ``budget``-token step.
+
+    Decode is never starved: every decoding slot runs (the chunk takes
+    only ``budget - n_decode`` tokens, down to zero), and the chunk never
+    exceeds ``chunk_tokens``.  A non-final chunk is floored to a whole
+    number of pages, so the NEXT chunk's resident prefix is whole pages
+    (the suffix-prefill contract); the final chunk takes ``remaining``
+    exactly, page-aligned or not.  Returns 0 when no chunk fits."""
+    room = min(budget - n_decode, chunk_tokens)
+    if room <= 0:
+        return 0
+    if room >= remaining:
+        return remaining            # final chunk (may be unaligned)
+    return (room // page_size) * page_size
 
 
 class Scheduler:
@@ -218,9 +266,32 @@ class Scheduler:
     ``straggler`` / ``heartbeat``  ``runtime.resilience`` monitors run
                          in every ``step()``.
 
-    ``prefix_cache``, ``chunked_prefill``, ``journal`` and
-    ``snapshotter`` are not ported yet and raise ``NotImplementedError``
-    when set.
+    ``prefix_cache`` (None = the EngineConfig's) turns on prompt-prefix
+    sharing: admission matches the longest cached whole-page prefix,
+    increfs and aliases those pages into the slot's table and prefills
+    only the suffix; retire and preempt decref, and when an allocation
+    would exhaust the pool, refcount-1 LRU trie leaves are evicted
+    before any slot is preempted.  Greedy streams equal the cache-off
+    scheduler's for model-dtype pools (the suffix prefill reads exactly
+    the K/V a cold prefill computes).  On int8 pools a hit's suffix
+    prefill reads the prefix through the quantized pages where a cold
+    prefill saw full precision, so a near-tie argmax can flip.
+
+    ``chunked_prefill`` (None = the EngineConfig's) turns on chunked
+    admission, packed by ``pack_chunk`` with the EngineConfig's
+    ``chunk_tokens`` under a budget of ``batch + chunk_tokens`` tokens a
+    step.  Greedy streams equal the unchunked scheduler's for
+    model-dtype pools (each chunk is suffix-prefill math over the same
+    kv block boundaries as the whole prefill); int8 pools carry the same
+    near-tie caveat as a prefix hit.
+
+    Counters (zero when the mode is off): ``prefix_hits``,
+    ``prefix_misses``, ``prefix_hit_tokens``, ``prefix_evictions``,
+    ``shared_pages`` (peak pages held twice or more), ``cow_forks``,
+    ``mixed_steps``, ``chunks`` and ``chunked_tokens``.
+
+    ``journal`` and ``snapshotter`` are not ported yet and raise
+    ``NotImplementedError`` when set.
     """
 
     def __init__(self, engine, bucket_tables: bool = True,
@@ -235,15 +306,12 @@ class Scheduler:
             raise ValueError(
                 "Scheduler needs a paged engine: EngineConfig("
                 "paged=True, page_size=..., n_pages=...)")
-        for name, value, item in (
-                ("prefix_cache", prefix_cache, "item 7"),
-                ("chunked_prefill", chunked_prefill, "item 7"),
-                ("journal", journal, "item 9"),
-                ("snapshotter", snapshotter, "item 9")):
+        for name, value in (("journal", journal),
+                            ("snapshotter", snapshotter)):
             if value:
                 raise NotImplementedError(
                     f"Scheduler({name}=...) is not ported to repro_torch "
-                    f"yet: ROADMAP queue 1 {item}")
+                    "yet: ROADMAP queue 1 item 9")
         self.eng = engine
         self.cfg = engine.cfg
         B, J = engine.ecfg.batch, engine.max_pages
@@ -265,13 +333,55 @@ class Scheduler:
         self.pending: deque = deque()   # Request | preempted _Slot
         self.parked: deque = deque()    # watchdog-parked _Slots
         self.finished: Dict[Any, RequestResult] = {}
+        if prefix_cache is None:
+            prefix_cache = engine.ecfg.prefix_cache
+        self.prefix: Optional[PrefixCache] = None
+        if prefix_cache:
+            if self.cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    f"prefix_cache supports the token-only families "
+                    f"('dense', 'moe'); family {self.cfg.family!r} "
+                    "prepends frontend positions a token-keyed prefix "
+                    "index cannot match")
+            if engine.suffix_prefill_fn is None:
+                raise ValueError("engine has no suffix_prefill_fn — "
+                                 "construct a paged dense engine")
+            self.prefix = PrefixCache(self.page_size, self.allocator)
+        if chunked_prefill is None:
+            chunked_prefill = engine.ecfg.chunked_prefill
+        self.chunked = bool(chunked_prefill)
+        self.chunk_tokens = 0
+        self.token_budget = 0
+        if self.chunked:
+            if self.cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    f"chunked_prefill supports the token-only families "
+                    f"('dense', 'moe'); got family {self.cfg.family!r}")
+            if getattr(engine, "mixed_fn", None) is None:
+                raise ValueError("engine has no mixed_fn — construct a "
+                                 "paged dense engine")
+            ct = engine.ecfg.chunk_tokens
+            if ct < 1 or ct % self.page_size:
+                raise ValueError(
+                    f"chunk_tokens must be a positive multiple of "
+                    f"page_size {self.page_size}; got {ct} (a non-final "
+                    "chunk must end page-aligned so the next chunk's "
+                    "prefix is whole pages)")
+            self.chunk_tokens = ct
+            # the budget: every slot decodes AND a full chunk fits
+            self.token_budget = B + ct
+        self._prefilling: deque = deque()   # slot ids, chunking order
         self.stats = {"prefills": 0, "admitted": 0, "retired": 0,
                       "steps": 0, "peak_pages": 0, "preempted": 0,
                       "table_widths": {},   # width -> steps at it
                       "rejected": 0, "failed": 0, "cancelled": 0,
                       "timed_out": 0, "step_retries": 0,
                       "prefill_retries": 0, "parked": 0,
-                      "straggler_flags": 0}
+                      "straggler_flags": 0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_hit_tokens": 0, "prefix_evictions": 0,
+                      "shared_pages": 0, "cow_forks": 0,
+                      "mixed_steps": 0, "chunks": 0, "chunked_tokens": 0}
         self._latencies: List[float] = []
         self._itl: List[float] = []     # inter-token latency samples
         self._order = 0
@@ -297,7 +407,9 @@ class Scheduler:
 
     def itl_percentiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
         """Inter-token-latency percentiles (seconds between consecutive
-        tokens of a request) over every terminal request so far."""
+        tokens of a request) over every terminal request so far: the
+        tail is what a long prompt's prefill between steps inflates, and
+        what chunked prefill cuts."""
         return percentiles(self._itl, qs)
 
     # ------------------------------------------------------------------
@@ -330,18 +442,33 @@ class Scheduler:
         self.stats[key] += 1
         return res
 
+    def _clear_row(self, slot_id: int) -> None:
+        if slot_id in self._prefilling:
+            self._prefilling.remove(slot_id)
+        self.slots[slot_id] = None
+        self.lens[slot_id] = 0
+        self.tokens[slot_id] = 0
+
     def _evict(self, slot_id: int) -> _Slot:
-        """Release a slot's pages and batch row (no terminal record)."""
+        """Release a slot's pages and batch row (no terminal record).
+        Pages are decref'd, not freed: with the prefix cache on, a row
+        may alias pages the trie or another slot still holds."""
         slot = self.slots[slot_id]
         if slot.pages:
             self.allocator.decref(slot.pages)
             slot.pages = []
-        self.slots[slot_id] = None
-        self.lens[slot_id] = 0
-        self.tokens[slot_id] = 0
+        slot.prefilled = 0
+        self._clear_row(slot_id)
         return slot
 
     def _retire(self, slot_id: int) -> None:
+        slot = self.slots[slot_id]
+        if self.prefix is not None:
+            # index the retiring request's whole pages, prompt AND
+            # generated tokens (a follow-up prompt that extends the
+            # conversation hits the whole history); the cache holds
+            # positions [0, length) = prompt + out[:-1]
+            self.prefix.insert(self._teacher_tokens(slot), slot.pages)
         slot = self._evict(slot_id)
         self._terminal(slot.req, slot.out, RequestStatus.FINISHED,
                        token_times=slot.token_times)
@@ -355,8 +482,24 @@ class Scheduler:
         """Evict an active slot to the FRONT of the pending queue
         (recompute preemption): its pages free now and its prompt plus
         generated prefix is prefilled again at re-admission, so no token
-        is lost.  A slot past ``max_preemptions`` is parked instead."""
-        slot = self._evict(slot_id)
+        is lost.  A slot past ``max_preemptions`` is parked instead.
+
+        A PREFILLING slot drops only its in-flight chunk: the whole pages
+        its completed chunks wrote stay with the slot across the queue
+        (``prefilled`` is page-aligned while PREFILLING), so re-admission
+        grants the missing tail and resumes chunking where it left off;
+        at least one tail page frees, so pool pressure still makes
+        progress."""
+        slot = self.slots[slot_id]
+        if slot.req.status is RequestStatus.PREFILLING:
+            keep = slot.prefilled // self.page_size
+            tail = slot.pages[keep:]
+            if tail:
+                self.allocator.decref(tail)
+            slot.pages = slot.pages[:keep]
+            self._clear_row(slot_id)
+        else:
+            slot = self._evict(slot_id)
         slot.preempts += 1
         slot.req.status = RequestStatus.PREEMPTED
         if slot.preempts > self.max_preemptions:
@@ -384,6 +527,7 @@ class Scheduler:
                 req = item.req if isinstance(item, _Slot) else item
                 if req.rid == rid:
                     q.remove(item)
+                    self._release_queued(item)
                     toks = item.out if isinstance(item, _Slot) else []
                     self._terminal(req, toks, RequestStatus.CANCELLED,
                                    f"cancelled while {where}",
@@ -391,6 +535,15 @@ class Scheduler:
                                        item, "token_times", None))
                     return True
         return False
+
+    def _release_queued(self, item) -> None:
+        """Drop the pages a queued item still holds: a chunk-preempted
+        slot keeps its completed prefix pages across the queue, and if it
+        ends while queued they must be released here."""
+        if isinstance(item, _Slot) and item.pages:
+            self.allocator.decref(item.pages)
+            item.pages = []
+            item.prefilled = 0
 
     # ------------------------------------------------------------------
     # admission
@@ -451,6 +604,7 @@ class Scheduler:
             partial = item.out if resumed else []
             if self._deadline_expired(req):
                 self.pending.popleft()
+                self._release_queued(item)
                 self._terminal(req, partial, RequestStatus.TIMED_OUT,
                                f"deadline_s={req.deadline_s} lapsed "
                                "while queued",
@@ -460,46 +614,98 @@ class Scheduler:
             fault = self._validate(req)
             if fault is not None:
                 self.pending.popleft()
+                self._release_queued(item)
                 self._terminal(req, partial, RequestStatus.REJECTED,
                                fault)
                 continue
+            # a chunk-preempted slot may come back with out == [] (it
+            # never finished prefilling): the prefill emits its first
+            # token, as for a fresh request
             positions = len(self._teacher_tokens(item))
             need = self._pages_needed(positions,
                                       max(len(partial), 1) < req.gen)
             if need > self.allocator.n_pages:
                 self.pending.popleft()
+                self._release_queued(item)
                 self._terminal(
                     req, partial, RequestStatus.REJECTED,
                     f"needs {need} pages but the pool only has "
                     f"{self.allocator.n_pages} in total — raise "
                     "EngineConfig.n_pages or page_size")
                 continue
-            if need > self.allocator.free_pages:
+            # the pages a chunk-preempted slot kept across the queue hold
+            # its completed prefix: no prefix match (the slot holds its
+            # own refs), only the missing tail is allocated
+            held = list(item.pages) if resumed else []
+            # prefix match, incref'd NOW so the eviction below cannot
+            # reclaim it; private pages cover the suffix and growth
+            matched: List[int] = []
+            if self.prefix is not None and not held:
+                matched = self.prefix.match(self._teacher_tokens(item))
+                if matched:
+                    self.allocator.incref(matched)
+            resident = held or matched
+            private = need - len(resident)
+            if private > self.allocator.free_pages \
+                    and self.prefix is not None:
+                # refcount-1 LRU trie leaves go before any preemption
+                self.stats["prefix_evictions"] += self.prefix.evict(
+                    private - self.allocator.free_pages)
+            if private > self.allocator.free_pages:
+                if matched:
+                    self.allocator.decref(matched)
                 break               # wait for a retirement
             self.pending.popleft()
-            if self._admit_into(slot_id, item,
-                                self.allocator.alloc(need)):
+            if self.prefix is not None and not held:
+                if matched:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += \
+                        len(matched) * self.page_size
+                else:
+                    self.stats["prefix_misses"] += 1
+                self.stats["shared_pages"] = max(
+                    self.stats["shared_pages"],
+                    self.allocator.shared_pages)
+            pages = resident + self.allocator.alloc(private)
+            if self.chunked:
+                ok = self._admit_chunked(slot_id, item, pages,
+                                         n_resident=len(resident))
+            else:
+                ok = self._admit_into(slot_id, item, pages,
+                                      n_shared=len(matched))
+            if ok:
                 admitted += 1
         return admitted
 
-    def _admit_into(self, slot_id: int, item, pages: List[int]) -> bool:
+    def _admit_into(self, slot_id: int, item, pages: List[int],
+                    n_shared: int = 0) -> bool:
         """Prefill ``item`` (a fresh Request, or a preempted _Slot whose
         prompt and generated prefix go in again) into ``pages`` of
-        ``slot_id``.  A prefill that keeps failing past the retry budget
-        FAILs the request (pages released), not the stream.  Returns
-        True if the slot went active."""
+        ``slot_id``.  The first ``n_shared`` pages are prefix-cache
+        aliases already in the pool: the prefill runs over the suffix
+        only (``engine.suffix_prefill_fn``, reading the shared pages)
+        and the scatter writes only the private suffix pages.  A prefill
+        that keeps failing past the retry budget FAILs the request
+        (pages released), not the stream.  Returns True if the slot went
+        active."""
         resumed = isinstance(item, _Slot)
         req = item.req if resumed else item
         tokens = self._teacher_tokens(item)
-        batch = {"tokens": torch.from_numpy(tokens)[None].to(
+        M = n_shared * self.page_size       # cached positions (whole pages)
+        batch = {"tokens": torch.from_numpy(tokens[M:])[None].to(
             self.eng.device)}
+        prefill_fn = self.eng.prefill_fn
+        if n_shared:
+            batch["pages"] = np.asarray(pages[:n_shared], np.int32)
+            batch["cache"] = self.cache
+            prefill_fn = self.eng.suffix_prefill_fn
 
         def _count_retry(attempt, exc):
             self.stats["prefill_retries"] += 1
 
         try:
             logits, caches = call_with_retries(
-                self.eng.prefill_fn, self.eng.params, batch,
+                prefill_fn, self.eng.params, batch,
                 policy=self.retry, on_retry=_count_retry)
         except Exception as e:                      # noqa: BLE001
             self.allocator.decref(pages)
@@ -511,7 +717,10 @@ class Scheduler:
         self.stats["prefills"] += 1
         row = np.zeros((self.table.shape[1],), np.int32)
         row[:len(pages)] = pages
-        write_prefill(self.cfg, self.cache, caches, row[None])
+        # only the suffix pages are written: the shared prefix pages hold
+        # their K/V already and must never be written through
+        write_prefill(self.cfg, self.cache, caches,
+                      row[None, n_shared:len(pages)])
         if resumed:
             slot = _Slot(req=req, length=len(tokens), pages=list(pages),
                          out=list(item.out), steps=item.steps,
@@ -534,8 +743,45 @@ class Scheduler:
         self.stats["admitted"] += 1
         self.stats["peak_pages"] = max(self.stats["peak_pages"],
                                        self.allocator.used_pages)
+        if self.prefix is not None:
+            # index the prefilled whole pages now, so concurrent
+            # requests that share this prompt hit while it is in flight
+            # (re-inserting a matched prefix creates no node)
+            self.prefix.insert(tokens, slot.pages)
         if len(slot.out) >= req.gen:
             self._retire(slot_id)   # gen=1: the prefill already ends it
+        return True
+
+    def _admit_chunked(self, slot_id: int, item, pages: List[int],
+                       n_resident: int = 0) -> bool:
+        """Grant pages and enqueue chunks: no model call here.  The slot
+        goes PREFILLING with all its pages granted, and later mixed
+        steps prefill ``chunk_tokens`` at a time.  The first
+        ``n_resident`` pages already hold K/V (a prefix-cache match, or
+        the completed pages a chunk-preempted slot kept), so chunking
+        starts at position ``n_resident * page_size``.  Meanwhile the
+        slot rides the decode batch with length 0 (no write, masked,
+        its logits discarded)."""
+        resumed = isinstance(item, _Slot)
+        req = item.req if resumed else item
+        slot = item if resumed else _Slot(req=req, length=0, pages=[],
+                                          out=[])
+        slot.pages = list(pages)
+        slot.prefilled = n_resident * self.page_size
+        slot.length = 0
+        slot.order = self._order
+        self._order += 1
+        req.status = RequestStatus.PREFILLING
+        self.slots[slot_id] = slot
+        row = np.zeros((self.table.shape[1],), np.int32)
+        row[:len(pages)] = pages
+        self.table[slot_id] = row
+        self.lens[slot_id] = 0
+        self.tokens[slot_id] = 0
+        self._prefilling.append(slot_id)
+        self.stats["admitted"] += 1
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self.allocator.used_pages)
         return True
 
     # ------------------------------------------------------------------
@@ -544,9 +790,11 @@ class Scheduler:
 
     def _grow_pages(self) -> None:
         """A slot whose next write opens a new page gets one more from
-        the pool.  When the pool is dry, the LATEST-admitted active slot
-        is preempted until the page fits (the needy slot itself, if it
-        is the latest)."""
+        the pool.  When the pool is dry, refcount-1 LRU trie leaves are
+        evicted first; only then is the LATEST-admitted active slot
+        preempted until the page fits (the needy slot itself, if it is
+        the latest).  A preempted slot's trie-held prefix pages stay
+        resident and become evictable next round, so the loop ends."""
         for slot_id, slot in enumerate(self.slots):
             if slot is None:
                 continue
@@ -554,6 +802,10 @@ class Scheduler:
             if page_idx < len(slot.pages):
                 continue
             while self.allocator.free_pages < 1:
+                if self.prefix is not None:
+                    self.stats["prefix_evictions"] += self.prefix.evict(1)
+                    if self.allocator.free_pages >= 1:
+                        break
                 victim = max(
                     (s for s, sl in enumerate(self.slots)
                      if sl is not None),
@@ -566,6 +818,40 @@ class Scheduler:
             (page,) = self.allocator.alloc(1)
             slot.pages.append(page)
             self.table[slot_id, page_idx] = page
+            self.stats["peak_pages"] = max(
+                self.stats["peak_pages"], self.allocator.used_pages)
+
+    def _cow_guard(self) -> None:
+        """Copy-on-write: fork any slot's WRITE page (where its next
+        decode token lands) that is shared (refcount > 1), so the write
+        cannot corrupt another reader's prefix.  The scheduler's own
+        path never needs it (matched prefixes are whole pages, tail and
+        growth pages private), but an outside incref (a snapshot, a
+        test) makes a write page shared, and this keeps aliasing safe."""
+        for slot_id, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            if slot.req.status is RequestStatus.PREFILLING:
+                # no decode write while chunking, and chunks write only
+                # private suffix pages
+                continue
+            wp = slot.length // self.page_size
+            page = slot.pages[wp]
+            if self.allocator.refcount(page) <= 1:
+                continue
+            if self.allocator.free_pages < 1:
+                self.stats["prefix_evictions"] += self.prefix.evict(1)
+            if self.allocator.free_pages < 1:
+                # no page to fork into: back this slot off rather than
+                # write through a shared page
+                self._preempt(slot_id)
+                continue
+            (new,) = self.allocator.alloc(1)
+            fork_page(self.cfg, self.cache, page, new)
+            slot.pages[wp] = new
+            self.table[slot_id, wp] = new
+            self.allocator.decref([page])
+            self.stats["cow_forks"] += 1
             self.stats["peak_pages"] = max(
                 self.stats["peak_pages"], self.allocator.used_pages)
 
@@ -585,25 +871,72 @@ class Scheduler:
             self._terminal(slot.req, slot.out, RequestStatus.TIMED_OUT,
                            reason, token_times=slot.token_times)
 
-    def _run_decode(self, dbatch):
+    def _run_step(self, fn, batch):
         def _count_retry(attempt, exc):
             self.stats["step_retries"] += 1
-        # the step writes each active slot's new K/V in place; a retry
-        # after a fault writes the same values at the same positions
-        # again (on int8 pools the page scale is already max(s_old,
-        # s_tok), so the requantization is the identity), so re-running
-        # is safe
-        return call_with_retries(self.eng.decode_fn, self.eng.params,
-                                 dbatch, policy=self.retry,
-                                 on_retry=_count_retry)
+        # a step writes each active slot's new K/V (and a mixed step its
+        # chunk's pages) in place; a retry after a fault writes the same
+        # values at the same positions again (on int8 pools the page
+        # scale is already max(s_old, s_tok), so the requantization is
+        # the identity, and a chunk's pages are quantized whole), so
+        # re-running is safe and redoes only the in-flight chunk
+        return call_with_retries(fn, self.eng.params, batch,
+                                 policy=self.retry, on_retry=_count_retry)
+
+    def _pack_chunk_for_step(self, n_decode: int):
+        """(slot_id, C) of the head in-flight prefill's next chunk under
+        the token budget, or (None, 0) when nothing chunks this step."""
+        if not (self.chunked and self._prefilling):
+            return None, 0
+        sid = self._prefilling[0]
+        slot = self.slots[sid]
+        remaining = len(self._teacher_tokens(slot)) - slot.prefilled
+        C = pack_chunk(remaining, n_decode, self.token_budget,
+                       self.chunk_tokens, self.page_size)
+        return (sid, C) if C > 0 else (None, 0)
+
+    def _promote(self, slot_id: int, tok: int, finite: bool) -> None:
+        """Final chunk done: the slot leaves PREFILLING and joins the
+        decode batch next step, as at the end of ``_admit_into``: the
+        first token is the greedy pick ``tok`` of the final chunk's
+        logits for a fresh request, the pending generated token for a
+        resumed one; the prefilled prefix is indexed into the trie.
+        Non-finite chunk logits (``finite`` False) FAIL the request
+        alone."""
+        slot = self.slots[slot_id]
+        req = slot.req
+        if not finite:
+            self._fail_slot(slot_id, "non-finite logits in chunked "
+                            "prefill (final chunk)")
+            return
+        self.stats["prefills"] += 1
+        if slot.out:
+            tok = slot.out[-1]
+            slot.length = len(req.tokens) + len(slot.out) - 1
+        else:
+            slot.out = [tok]
+            slot.length = len(req.tokens)
+            slot.token_times.append(time.monotonic())
+        req.status = RequestStatus.RUNNING
+        self.lens[slot_id] = slot.length
+        self.tokens[slot_id] = tok
+        if self.prefix is not None:
+            self.prefix.insert(self._teacher_tokens(slot), slot.pages)
+        if len(slot.out) >= req.gen:
+            self._retire(slot_id)   # gen=1: the prefill already ends it
 
     def step(self) -> None:
-        """One decode step for every RUNNING slot, then retirement.
+        """One decode step for every RUNNING slot — in chunked mode with
+        up to ``chunk_tokens`` of the head in-flight prompt packed into
+        the same call (``engine.mixed_fn``) under the token budget —
+        then retirement.
 
         Deadlines expire first (TIMED_OUT with partial tokens), a
         transient step exception is retried up to ``retry.max_retries``
-        times, and a slot whose logits hold NaN/inf is quarantined
-        (FAILED) alone while the other slots go on."""
+        times (a mixed-step retry redoes only the current chunk), and a
+        slot whose logits hold NaN/inf is quarantined (FAILED) alone
+        while the other slots go on (a PREFILLING slot at its final
+        chunk, where its logits first matter)."""
         if self.n_active == 0:
             return
         self._expire_deadlines()
@@ -612,7 +945,19 @@ class Scheduler:
         self._grow_pages()
         if self.n_active == 0:      # growth preempted everything
             return
-        running = [sid for sid, s in enumerate(self.slots) if s is not None]
+        if self.prefix is not None:
+            self._cow_guard()
+            if self.n_active == 0:
+                return
+        # who decodes THIS step: PREFILLING slots ride the batch masked,
+        # and a slot promoted after the mixed call must not take this
+        # step's (garbage) logits row
+        running = [sid for sid, s in enumerate(self.slots)
+                   if s is not None
+                   and s.req.status is not RequestStatus.PREFILLING]
+        c_slot, C = self._pack_chunk_for_step(len(running))
+        if c_slot is None and not running:
+            return                  # nothing decodes, nothing chunks
         if self.straggler is not None:
             self.straggler.start_step()
         # table-width bucketing: after _grow_pages every active slot owns
@@ -620,13 +965,34 @@ class Scheduler:
         # count bounds every logical page the step reads
         W = self.table.shape[1]
         if self.bucket_tables:
-            live = max(len(self.slots[s].pages) for s in running)
+            live = max(len(s.pages) for s in self.slots if s is not None)
             W = bucket_table_width(live, W)
         self.stats["table_widths"][W] = \
             self.stats["table_widths"].get(W, 0) + 1
         dbatch = {"token": self.tokens, "cur_len": self.lens,
                   "block_table": self.table[:, :W], "cache": self.cache}
-        logits, self.cache = self._run_decode(dbatch)
+        final = None                # the final chunk's logits row
+        if c_slot is not None:
+            slot = self.slots[c_slot]
+            toks = self._teacher_tokens(slot)
+            p0 = slot.prefilled
+            jp = p0 // self.page_size               # whole prefix pages
+            jw = -(-(p0 + C) // self.page_size)     # end page (excl.)
+            dbatch["chunk_tokens"] = toks[p0:p0 + C]
+            dbatch["chunk_pages"] = np.asarray(slot.pages[:jp], np.int32)
+            dbatch["chunk_write_pages"] = np.asarray(slot.pages[jp:jw],
+                                                     np.int32)
+            logits, chunk_logits, self.cache = self._run_step(
+                self.eng.mixed_fn, dbatch)
+            self.stats["mixed_steps"] += 1
+            self.stats["chunks"] += 1
+            self.stats["chunked_tokens"] += C
+            slot.prefilled = p0 + C
+            if slot.prefilled >= len(toks):
+                self._prefilling.popleft()
+                final = chunk_logits
+        else:
+            logits, self.cache = self._run_step(self.eng.decode_fn, dbatch)
         self.stats["steps"] += 1
         B = len(self.slots)
         seeds = np.zeros((B,), np.int64)
@@ -637,7 +1003,10 @@ class Scheduler:
             seeds[sid] = slot.req.seed
             steps[sid] = slot.steps
             temps[sid] = slot.req.temperature
-        greedy, sampled, finite = pick_tokens(logits, seeds, steps, temps)
+        greedy, sampled, finite = pick_tokens(logits, seeds, steps, temps,
+                                              extra=final)
+        if final is not None:
+            self._promote(c_slot, int(greedy[B]), bool(finite[B]))
         now = time.monotonic()
         for slot_id in running:
             slot = self.slots[slot_id]
@@ -682,6 +1051,7 @@ class Scheduler:
                 item = self.pending.popleft()
                 req = item.req if isinstance(item, _Slot) else item
                 toks = item.out if isinstance(item, _Slot) else []
+                self._release_queued(item)
                 self._terminal(
                     req, toks, RequestStatus.REJECTED,
                     f"page pool exhausted: cannot admit with "

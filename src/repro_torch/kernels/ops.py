@@ -8,13 +8,20 @@ kernels mask their ragged edges themselves and read the native head
 layouts, so what is left here is reshaping: a bias to ``(1, N)``, a
 decode query to its ``(B*KV, G, D)`` groups (heads are kv-major,
 ``h = kv*G + g``), and contiguity.  The JAX paged wrappers clamp the
-block table to ``[0, n_pages)`` before the kernel; here the kernel
-clamps each entry it reads (no clamped copy a layer).  There are no
-block sizes to tune yet (the block autotuner is later work).
+block table to ``[0, n_pages)`` before the kernel; the paged decode
+wrappers leave that to the kernel, which clamps each entry it reads (no
+clamped copy a layer), and the chunk-prefix wrappers clamp their (J,)
+table on the device, as the JAX ones do.  There are no block sizes to
+tune yet (the block autotuner is later work).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.vwr_attention import vwr_attention as _attention
+from repro_torch.kernels.vwr_chunk import vwr_chunk_prefix_attend as _chunk
+from repro_torch.kernels.vwr_chunk import \
+    vwr_chunk_prefix_attend_q8 as _chunk_q8
 from repro_torch.kernels.vwr_decode import vwr_flash_decode as _decode
 from repro_torch.kernels.vwr_decode import vwr_paged_flash_decode as _paged
 from repro_torch.kernels.vwr_decode import \
@@ -100,3 +107,53 @@ def vwr_paged_flash_decode_q8(q, k_pool, v_pool, k_scale, v_scale, table,
     out = _paged_q8(_groups(q, k_pool.shape[2]), k_pool, v_pool, k_scale,
                     v_scale, table, counts)
     return _heads(*out, B)
+
+
+def _chunk_rows(q, n_kv):
+    """(C, H, D) chunk queries -> (KV, C*G, D): each KV head's rows,
+    token-major (row c*G + g is token c's head kv*G + g)."""
+    C, H, D = q.shape
+    G = H // n_kv
+    return q.reshape(C, n_kv, G, D).transpose(0, 1).reshape(
+        n_kv, C * G, D).contiguous()
+
+
+def _chunk_heads(o_t, m, l, C):
+    """(KV, C*G, ...) partials -> (C, H, ...)."""
+    KV, CG, D = o_t.shape
+    G = CG // C
+    return (o_t.reshape(KV, C, G, D).transpose(0, 1).reshape(C, KV * G, D),
+            m.reshape(KV, C, G).transpose(0, 1).reshape(C, KV * G),
+            l.reshape(KV, C, G).transpose(0, 1).reshape(C, KV * G))
+
+
+def _chunk_index(table, counts, n_pages):
+    """The (J,) table clamped to [0, n_pages) and both as contiguous
+    int32, on their own device (no host scalar, no sync)."""
+    return (table.clamp(0, n_pages - 1).to(torch.int32).contiguous(),
+            counts.to(torch.int32).contiguous())
+
+
+def vwr_chunk_prefix_attend(q, k_pool, v_pool, table, counts):
+    """Chunked-prefill prefix partials: a (C, H, Dh) query chunk against
+    its prompt's J prior pages, each page staged once for all C*G query
+    rows of a KV head.
+
+    k_pool, v_pool: (n_pages, page_size, KV, Dh); table: (J,) physical
+    page ids in prefix order; counts: (J,) valid tokens per page, 0
+    masking a page.  Returns fp32 (o_tilde (C, H, Dh), m (C, H),
+    l (C, H)); the chunk's own causal block is merged downstream
+    (``models.attention.merge_partials``)."""
+    tbl, cnt = _chunk_index(table, counts, k_pool.shape[0])
+    out = _chunk(_chunk_rows(q, k_pool.shape[2]), k_pool, v_pool, tbl, cnt)
+    return _chunk_heads(*out, q.shape[0])
+
+
+def vwr_chunk_prefix_attend_q8(q, k_pool, v_pool, k_scale, v_scale, table,
+                               counts):
+    """``vwr_chunk_prefix_attend`` over int8 pools with fp32
+    (n_pages, KV) per-(page, KV head) scales."""
+    tbl, cnt = _chunk_index(table, counts, k_pool.shape[0])
+    out = _chunk_q8(_chunk_rows(q, k_pool.shape[2]), k_pool, v_pool,
+                    k_scale, v_scale, tbl, cnt)
+    return _chunk_heads(*out, q.shape[0])

@@ -3,12 +3,13 @@ and single-token decode partials.
 
 Counterpart of ``repro.models.attention`` for the dense serving path.
 The ``qkv_proj``, ``o_proj``, ``attention``, ``decode_partial``,
-``decode_partial_paged`` and ``decode_partial_paged_q8`` ops are
-registered here per dispatch backend: 'torch' is the plain
-formulation, 'cuda' goes through the hand-written kernels
-(``repro_torch.kernels.ops``).  Decode attention returns unnormalized
-partials ``(o_tilde, m, l)`` so that sequence-sharded slabs can be
-combined (``dist.decode``).
+``decode_partial_paged``, ``decode_partial_paged_q8``,
+``chunk_prefix_paged`` and ``chunk_prefix_paged_q8`` ops are registered
+here per dispatch backend: 'torch' is the plain formulation, 'cuda'
+goes through the hand-written kernels (``repro_torch.kernels.ops``).
+Decode and chunk-prefix attention return unnormalized partials
+``(o_tilde, m, l)`` so that slabs, shards and a chunk's own causal
+block can be combined (``merge_partials``, ``dist.decode``).
 """
 from __future__ import annotations
 
@@ -169,8 +170,19 @@ def _attention_torch(q, k, v, *, causal, q_positions=None,
 def _attention_cuda(q, k, v, *, causal, q_positions=None,
                     kv_positions=None, block_q=512, block_kv=1024):
     """Zero-copy GQA flash kernel.  The non-causal (encoder) path keeps
-    the blockwise formulation, as in the JAX package."""
+    the blockwise formulation, as in the JAX package.
+
+    The kernel has no positional offset: queries and keys both start at
+    position 0, so a suffix-shaped call (queries at [M, M+S) over keys
+    [0, M+S), ``lm.prefill_suffix``) is refused here rather than given
+    wrong rows; the suffix path calls ``blockwise_attn`` itself."""
     if causal:
+        if q.shape[1] != k.shape[1]:
+            raise ValueError(
+                f"the 'cuda' attention kernel takes queries and keys of "
+                f"one length from position 0; got {q.shape[1]} queries "
+                f"over {k.shape[1]} keys (a suffix-shaped call: use "
+                "blockwise_attn with q_positions/kv_positions)")
         from repro_torch.kernels import ops
         return ops.vwr_attention(q, k, v, causal=True)
     return _attention_torch(q, k, v, causal=causal, q_positions=q_positions,
@@ -295,3 +307,112 @@ def _decode_partial_paged_q8_cuda(q, k_pool, v_pool, k_scale, v_scale,
     from repro_torch.kernels import ops
     return ops.vwr_paged_flash_decode_q8(q, k_pool, v_pool, k_scale,
                                          v_scale, table, counts)
+
+
+# ---------------- chunked prefill (query chunk vs the paged pool) -------
+#
+# A prompt chunk's attention splits into two partials under the flash
+# combine contract: a PREFIX partial — the (C, H, Dh) query chunk against
+# the prompt's prior pages (earlier chunks and prefix-cache hits), masked
+# per page by valid counts; the registered ``chunk_prefix_paged`` op,
+# whose 'cuda' backend stages each prior page once for all C queries —
+# and a SELF partial, the C x C causal block over the chunk's own KV
+# (``chunk_self_attn_partial``).  ``merge_partials`` folds the two (and,
+# across shards, per-shard prefix partials) into one.
+
+def merge_partials(a, b):
+    """Flash-combine two (o_tilde, m, l) partials over the same queries.
+    Exact: a fully masked partial (m = NEG_INF, l = 0) contributes
+    nothing."""
+    o1, m1, l1 = a
+    o2, m2, l2 = b
+    m = torch.maximum(m1, m2)
+    s1 = torch.where(m1 > NEG_INF / 2, torch.exp(m1 - m), 0.0)
+    s2 = torch.where(m2 > NEG_INF / 2, torch.exp(m2 - m), 0.0)
+    return (o1 * s1[..., None] + o2 * s2[..., None], m, l1 * s1 + l2 * s2)
+
+
+def normalize_partial(o_t, l, dtype):
+    return (o_t / l.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def chunk_prefix_attend_partial(q, k_pool, v_pool, table, counts):
+    """Gather reference for the chunk-prefix contract.  q: (C, H, Dh)
+    one prompt's query chunk; k_pool, v_pool: (n_pages, page_size, KV,
+    Dh); table: (J,) int the chunk's PRIOR pages; counts: (J,) valid
+    tokens per page.  The plain version of the chunk-prefix kernel
+    (``kernels.vwr_chunk.vwr_chunk_prefix_attend_ref``) over the chunk's
+    kv-major rows.  Returns fp32 (o_tilde (C, H, Dh), m (C, H),
+    l (C, H))."""
+    from repro_torch.kernels import ops, vwr_chunk
+    out = vwr_chunk.vwr_chunk_prefix_attend_ref(
+        ops._chunk_rows(q, k_pool.shape[2]), k_pool, v_pool, table, counts)
+    return ops._chunk_heads(*out, q.shape[0])
+
+
+def chunk_self_attn_partial(q, k, v):
+    """Causal partial over the chunk's OWN KV: q (C, H, Dh) against k/v
+    (C, KV, Dh), position i attending keys [0, i].  A small dense
+    (C, C) block in plain PyTorch, as the JAX package leaves it to XLA."""
+    C, H, Dh = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    qf = q.float().reshape(C, KV, G, Dh) / (Dh ** 0.5)
+    s = torch.einsum("chgd,thd->chgt", qf, k.float())
+    idx = torch.arange(C, device=q.device)
+    causal = idx[:, None] >= idx[None, :]
+    s = torch.where(causal[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where((m > NEG_INF / 2)[..., None], p, 0.0)
+    o_t = torch.einsum("chgt,thd->chgd", p, v.float())
+    return (o_t.reshape(C, H, Dh), m.reshape(C, H),
+            p.sum(-1).reshape(C, H))
+
+
+def chunk_prefill_attend(q, chunk_k, chunk_v, k_pool, v_pool, table,
+                         counts, *, backend="cuda"):
+    """One chunk's whole chunked-prefill attention: the prefix partial
+    (registry op ``chunk_prefix_paged``) merged with the within-chunk
+    causal partial, normalized.  q: (C, H, Dh); chunk_k/v: (C, KV, Dh)
+    the chunk's own KV; pools, table and counts as
+    ``chunk_prefix_attend_partial``.  Returns (C, H, Dh) in q's dtype."""
+    prefix = D.dispatch("chunk_prefix_paged", backend, q, k_pool, v_pool,
+                        table, counts)
+    o_t, _, l = merge_partials(prefix,
+                               chunk_self_attn_partial(q, chunk_k, chunk_v))
+    return normalize_partial(o_t, l, q.dtype)
+
+
+# Registered chunk-prefix contract: (q (C,H,Dh), pools (n_pages,ps,KV,Dh),
+# table (J,), counts (J,)) -> fp32 (o_tilde, m, l); the q8 op takes int8
+# pools and their fp32 (n_pages, KV) scales after the pools.
+
+@D.register("chunk_prefix_paged", "torch")
+def _chunk_prefix_paged_torch(q, k_pool, v_pool, table, counts):
+    return chunk_prefix_attend_partial(q, k_pool, v_pool, table, counts)
+
+
+@D.register("chunk_prefix_paged", "cuda")
+def _chunk_prefix_paged_cuda(q, k_pool, v_pool, table, counts):
+    from repro_torch.kernels import ops
+    return ops.vwr_chunk_prefix_attend(q, k_pool, v_pool, table, counts)
+
+
+@D.register("chunk_prefix_paged_q8", "torch")
+def _chunk_prefix_paged_q8_torch(q, k_pool, v_pool, k_scale, v_scale,
+                                 table, counts):
+    # the gathered pages are dequantized, not the whole pool
+    from repro_torch.kernels import ops, vwr_chunk
+    out = vwr_chunk.vwr_chunk_prefix_attend_q8_ref(
+        ops._chunk_rows(q, k_pool.shape[2]), k_pool, v_pool, k_scale,
+        v_scale, table, counts)
+    return ops._chunk_heads(*out, q.shape[0])
+
+
+@D.register("chunk_prefix_paged_q8", "cuda")
+def _chunk_prefix_paged_q8_cuda(q, k_pool, v_pool, k_scale, v_scale,
+                                table, counts):
+    from repro_torch.kernels import ops
+    return ops.vwr_chunk_prefix_attend_q8(q, k_pool, v_pool, k_scale,
+                                          v_scale, table, counts)

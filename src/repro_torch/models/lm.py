@@ -12,7 +12,12 @@ granite, qwen, deepseek-coder).  Conventions kept from the JAX package:
   * the dense decode cache is ``{"k", "v"}`` of shape (L, B, T, KV, Dh);
     the paged one is pools of shape (L, n_pages, page_size, KV, Dh)
     (+ fp32 (L, n_pages, KV) scales for int8 pools) addressed through
-    per-slot block tables (``paged_decode_step``).
+    per-slot block tables (``paged_decode_step``);
+  * a prompt whose prefix is already in the pools (a prefix-cache hit,
+    or the earlier chunks of a chunked prefill) prefills only its
+    suffix against the prefix gathered back out of the pools
+    (``prefill_suffix``, ``prefill_chunk``), on the blockwise
+    formulation, so every suffix row equals the whole prompt's row.
 
 ``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda').
 """
@@ -167,6 +172,129 @@ def prefill(params, batch, cfg):
 
 
 # ======================================================================
+# suffix-only prefill (prefix cache) and chunked prefill
+# ======================================================================
+
+def _gather_prefix_kv(cache, pages):
+    """The matched prefix pages gathered back out of the pools into
+    prefill-cache-shaped (L, 1, M, KV, Dh) stacks (M = len(pages) *
+    page_size); int8 pools are dequantized through their per-(page, KV
+    head) scales in fp32.  For model-dtype pools the rows are exactly the
+    K/V the original prefill wrote."""
+    out = []
+    for name in ("k", "v"):
+        g = cache[name][:, pages]                 # (L, J, ps, KV, Dh)
+        if name + "_scale" in cache:
+            s = cache[name + "_scale"][:, pages]  # (L, J, KV)
+            g = g.float() * s[:, :, None, :, None]
+        L_, J, ps = g.shape[:3]
+        out.append(g.reshape(L_, 1, J * ps, *g.shape[3:]))
+    return tuple(out)
+
+
+def _suffix_attn_delta(cfg, ap, h, q_pos, kv_pos, prefix, *,
+                       residual=None):
+    """Attention step of the suffix body: queries at global positions
+    ``q_pos`` over concat(prefix K/V from the pools, the suffix K/V
+    computed here).  It calls the blockwise formulation itself, never the
+    ``attention`` registry op: the kernel has no positional offset, and
+    the streaming kv loop sees the same kv length and block boundaries
+    as the whole-prompt prefill, so each suffix row is the whole
+    prompt's row (as in the JAX package, whose suffix path also stays
+    off its prefill kernel)."""
+    pk, pv = prefix
+    q, k, v = A.qkv_proj(ap, h, q_pos, cfg.rope_theta, cfg)
+    k_all = torch.cat([pk.to(k.dtype), k], dim=1)
+    v_all = torch.cat([pv.to(v.dtype), v], dim=1)
+    if cfg.accounting:
+        o = A.full_attn_ref(q, k_all, v_all, causal=True,
+                            q_positions=q_pos, kv_positions=kv_pos)
+    else:
+        o = A.blockwise_attn(q, k_all, v_all, causal=True,
+                             q_positions=q_pos, kv_positions=kv_pos,
+                             block_q=cfg.attn_block_q,
+                             block_kv=cfg.attn_block_kv)
+    return A.o_proj(ap, o, cfg, residual=residual), (k, v)
+
+
+def _dense_suffix_body(cfg, q_pos, kv_pos, x, lp, prefix):
+    x, kv = _suffix_attn_delta(cfg, lp["attn"],
+                               _norm(cfg, lp["attn_norm"], x), q_pos,
+                               kv_pos, prefix, residual=x)
+    x = L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
+              backend=cfg, residual=x)
+    return x, kv
+
+
+def prefill_suffix(params, batch, cfg):
+    """Prefill only the SUFFIX of a prompt whose prefix is already in the
+    page pools (a prefix-cache hit).
+
+    batch: ``tokens`` (1, S) suffix tokens; ``pages`` (J_m,) the matched
+    physical page ids (whole pages, prefix order; host ints or a device
+    tensor); ``cache`` the live pools the prefix is read from.  The
+    prefix length M = J_m * page_size comes from the shape of ``pages``.
+
+    Returns (last-token logits (1, vocab_padded) fp32, (k, v) stacks
+    (L, 1, S, KV, Dh)) as ``prefill`` restricted to positions [M, M+S):
+    they scatter into the slot's pages from page J_m on (the suffix
+    starts page-aligned).  The token-only families: frontend families
+    prepend positions a token-keyed prefix cannot match."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(
+            f"prefill_suffix supports the token-only families ('dense', "
+            f"'moe'); family {cfg.family!r} prepends frontend positions "
+            "that a token-keyed prefix index cannot match")
+    _check_family(cfg)
+    cache = batch["cache"]
+    dev = cache["k"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    pages = torch.as_tensor(batch["pages"], device=dev).long()
+    M = pages.shape[0] * cache["k"].shape[2]
+    S = tokens.shape[1]
+    q_pos = torch.arange(S, device=dev) + M
+    kv_pos = torch.arange(M + S, device=dev)
+    x = L.embed(params["embed"], tokens).to(L.dt(cfg))
+    pk, pv = _gather_prefix_kv(cache, pages)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = _dense_suffix_body(cfg, q_pos, kv_pos, x,
+                                       _layer(params["layers"], i),
+                                       (pk[i], pv[i]))
+        ks.append(k)
+        vs.append(v)
+    h = _norm(cfg, params["final_norm"], x)
+    logits = _logits(params, h[:, -1:, :], cfg)[:, 0]
+    return logits.float(), (torch.stack(ks), torch.stack(vs))
+
+
+def prefill_chunk(params, batch, cfg):
+    """One chunk of a chunked prefill: the chunk's K/V against everything
+    already resident, scattered into its granted pages.
+
+    batch: ``tokens`` (1, C) chunk tokens at global positions [M, M+C),
+    M = len(pages) * page_size; ``pages`` (J_p,) ALL pages holding
+    positions [0, M) in prefix order (prefix-cache pages, then earlier
+    chunks' pages: every non-final chunk ends page-aligned, so the
+    resident prefix is whole pages); ``write_pages`` (J_w,) the pages
+    positions [M, M+C) land in; ``cache`` the live pools, written in
+    place (quantize-on-write for int8 pools), so the next chunk reads
+    this one back through the block table.
+
+    The attention is ``prefill_suffix``'s: every chunk row, and the final
+    chunk's last-token logits, equal the whole-prompt prefill's for
+    model-dtype pools.  Returns (last-chunk-token logits (1,
+    vocab_padded) fp32, cache)."""
+    from repro_torch.engine.paged_cache import write_prefill
+    cache = batch["cache"]
+    logits, caches = prefill_suffix(
+        params, {"tokens": batch["tokens"], "pages": batch["pages"],
+                 "cache": cache}, cfg)
+    write_prefill(cfg, cache, caches, batch["write_pages"][None])
+    return logits, cache
+
+
+# ======================================================================
 # decode
 # ======================================================================
 
@@ -264,6 +392,7 @@ class PagedStep(NamedTuple):
     pages: torch.Tensor      # (A,) page each active slot writes to
     offs: torch.Tensor       # (A,) offset in that page
     all_active: bool
+    extra: tuple = ()        # further int32 host arrays, on the device
 
 
 def _to_host(x) -> np.ndarray:
@@ -282,12 +411,14 @@ def _page_write_ids(table, lens, page_size):
     return act, pages, la % page_size, lens + (lens > 0)
 
 
-def paged_step_meta(token, lens, table, page_size: int, device
-                    ) -> PagedStep:
+def paged_step_meta(token, lens, table, page_size: int, device,
+                    extra=()) -> PagedStep:
     """Build a paged step's metadata from host arrays — ``lens`` (B,),
     ``table`` (B, W), and ``token`` (B,) unless it is already on the
     device — with one host-to-device copy (asynchronous from pinned
-    memory on CUDA, so the host does not wait for the device here)."""
+    memory on CUDA, so the host does not wait for the device here).
+    ``extra`` host int arrays (the mixed step's chunk tokens and pages)
+    ride the same copy and come back as ``PagedStep.extra``."""
     lens = _to_host(lens).astype(np.int32)
     table = _to_host(table).astype(np.int32)
     B, W = table.shape
@@ -295,7 +426,8 @@ def paged_step_meta(token, lens, table, page_size: int, device
     counts = DD._page_counts(n_valid, W, page_size)
     on_device = (isinstance(token, torch.Tensor)
                  and token.device.type == device.type)
-    parts = [lens, act, pages, offs, table.ravel(), counts.ravel()]
+    parts = [lens, act, pages, offs, table.ravel(), counts.ravel(),
+             *(_to_host(x).ravel() for x in extra)]
     if not on_device:
         parts.append(_to_host(token))
     # each part padded to 4 int32, so every view starts 16-byte aligned
@@ -308,12 +440,14 @@ def paged_step_meta(token, lens, table, page_size: int, device
     buf = torch.from_numpy(buf)
     if device.type == "cuda":
         buf = buf.pin_memory().to(device, non_blocking=True)
-    lens_d, act_d, pages_d, offs_d, tbl_d, cnt_d, *tok = [
+    lens_d, act_d, pages_d, offs_d, tbl_d, cnt_d, *rest = [
         buf[at:at + n] for at, n in zip(starts, sizes)]
-    return PagedStep(token=token if on_device else tok[0], pos=lens_d,
-                     table=tbl_d.view(B, W), counts=cnt_d.view(B, W),
-                     act=act_d, pages=pages_d, offs=offs_d,
-                     all_active=len(act) == B)
+    n_extra = len(extra)
+    return PagedStep(token=token if on_device else rest[n_extra],
+                     pos=lens_d, table=tbl_d.view(B, W),
+                     counts=cnt_d.view(B, W), act=act_d, pages=pages_d,
+                     offs=offs_d, all_active=len(act) == B,
+                     extra=tuple(rest[:n_extra]))
 
 
 def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope):
@@ -351,7 +485,7 @@ def _dense_paged_body(cfg, meta, rope, x, lp, kp, vp, ks, vs):
                      backend=cfg)
 
 
-def paged_decode_step(params, batch, cfg):
+def paged_decode_step(params, batch, cfg, meta=None):
     """One-token serve step over a paged KV cache (dense family).
 
     batch: ``token`` (B,), ``cur_len`` (B,) per-slot valid positions and
@@ -360,6 +494,8 @@ def paged_decode_step(params, batch, cfg):
     (``engine.paged_cache`` pools, written in place).  Slots with
     cur_len == 0 are inactive: they write nothing, their attention is
     masked to zero and their logits are garbage the caller discards.
+    ``meta`` is the step's metadata when the caller already built it
+    (``paged_step_meta``; the mixed step does, with its chunk's).
     Returns (logits (B, vocab_padded) fp32, cache)."""
     # engine modules import this one: keep the import lazy
     from repro_torch.engine.paged_cache import check_family
@@ -370,9 +506,10 @@ def paged_decode_step(params, batch, cfg):
         raise NotImplementedError(DD._SEQ_SHARD)
     cache = batch["cache"]
     kpool, vpool = cache["k"], cache["v"]
-    meta = paged_step_meta(batch["token"], batch["cur_len"],
-                           batch["block_table"], kpool.shape[2],
-                           kpool.device)
+    if meta is None:
+        meta = paged_step_meta(batch["token"], batch["cur_len"],
+                               batch["block_table"], kpool.shape[2],
+                               kpool.device)
     x = L.embed(params["embed"], meta.token).to(L.dt(cfg))   # (B, D)
     rope = None
     if cfg.rope_theta:

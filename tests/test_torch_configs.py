@@ -92,7 +92,9 @@ def test_kernel_build_paths_and_counters():
     assert set(build.LAUNCHES) == {"vwr_matmul", "vwr_swiglu",
                                    "vwr_attention", "vwr_flash_decode",
                                    "vwr_paged_flash_decode",
-                                   "vwr_paged_flash_decode_q8"}
+                                   "vwr_paged_flash_decode_q8",
+                                   "vwr_chunk_prefix_attend",
+                                   "vwr_chunk_prefix_attend_q8"}
     for name in build.SOURCES:
         p = build.lib_path(name)
         assert (build.CSRC / f"{name}.cu").exists()

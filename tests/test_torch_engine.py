@@ -1,7 +1,8 @@
 """The port's DecodeEngine against the JAX DecodeEngine: same greedy
 tokens from the same parameters and prompts (mesh (1, 1), batch 2,
-prompt 16, gen 8), the same input checks, and the options the port does
-not serve yet refused.  The paged engine is in ``test_torch_paged.py``."""
+prompt 16, gen 8), the same input checks (the prefix-cache and chunked
+prefill options included), and the options the port does not serve yet
+refused.  The paged engine is in ``test_torch_paged.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,17 +75,49 @@ def test_engine_on_cuda_without_a_gpu_raises(monkeypatch):
         DecodeEngine(tc, EngineConfig(batch=1, max_len=8))
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True, prefix_cache=True),
-                                dict(paged=True, chunked_prefill=True),
-                                dict(prefix_cache=True),
-                                dict(chunked_prefill=True),
-                                dict(decode_shard="seq"),
+@pytest.mark.parametrize("kw", [dict(decode_shard="seq"),
                                 dict(mesh_shape=(1, 2))])
 def test_unported_engine_options_raise(kw):
     _, tc = _cfgs("tinyllama-1.1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tc, EngineConfig(batch=1, max_len=8, **kw),
                      device="cpu")
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(prefix_cache=True), "prefix_cache=True needs paged=True"),
+    (dict(chunked_prefill=True), "chunked_prefill=True needs paged=True"),
+    (dict(paged=True, page_size=4, chunked_prefill=True, chunk_tokens=6),
+     "positive multiple of page_size"),
+    (dict(paged=True, page_size=4, chunked_prefill=True, chunk_tokens=0),
+     "positive multiple of page_size"),
+], ids=["prefix-dense", "chunked-dense", "chunk-not-page-multiple",
+        "chunk-zero"])
+def test_prefix_and_chunked_options_are_checked(kw, match):
+    """The JAX engine's ValueErrors for the prefix-cache and chunked
+    prefill options (``repro.engine.engine`` 134-164)."""
+    _, tc = _cfgs("tinyllama-1.1b")
+    with pytest.raises(ValueError, match=match):
+        DecodeEngine(tc, EngineConfig(batch=1, max_len=8, **kw),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("prefix,chunked", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_paged_engine_builds_suffix_and_mixed_steps(prefix, chunked):
+    """Every paged dense engine carries the suffix prefill and the mixed
+    step, whatever its defaults (a Scheduler turns the modes on per
+    stream); the dense-cache engine carries neither."""
+    _, tc = _cfgs("tinyllama-1.1b")
+    eng = DecodeEngine(tc, EngineConfig(
+        batch=1, max_len=8, paged=True, page_size=4, prefix_cache=prefix,
+        chunked_prefill=chunked, chunk_tokens=4), device="cpu")
+    assert callable(eng.suffix_prefill_fn) and callable(eng.mixed_fn)
+    assert (eng.ecfg.prefix_cache, eng.ecfg.chunked_prefill) == (prefix,
+                                                                 chunked)
+    dense = DecodeEngine(tc, EngineConfig(batch=1, max_len=8),
+                         device="cpu")
+    assert dense.suffix_prefill_fn is None and dense.mixed_fn is None
 
 
 def test_int8_kv_without_paged_raises():

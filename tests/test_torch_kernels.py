@@ -157,3 +157,38 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     for got, want in zip(KD.vwr_flash_decode(qd, k, v, 40, 3),
                          KD.vwr_flash_decode_ref(qd, k, v, 40, 3)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pools", "int8-pools"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_chunk_prefix_kernels_match_plain(cuda, dtype, q8):
+    """Kernels 6 and 8 against their plain versions: full pages, a
+    partial tail, masked pages in the middle and a table entry past the
+    pool (clamped), at C 8 and C 1."""
+    from repro_torch.kernels import vwr_chunk as KC
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n_pages, ps, KV, G, D = 12, 16, 2, 4, 64
+    shape = (n_pages, ps, KV, D)
+    if q8:
+        pools = [torch.randint(-127, 128, shape, generator=g, device=cuda,
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand((n_pages, KV), generator=g, device=cuda) * 0.02
+                  + 1e-3 for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, generator=g, device=cuda).to(dt)
+                 for _ in range(2)]
+        scales = []
+    table = torch.tensor([3, 11, 0, 7, 40], dtype=torch.int32, device=cuda)
+    counts = torch.tensor([ps, 0, ps, 0, 5], dtype=torch.int32, device=cuda)
+    fn = KC.vwr_chunk_prefix_attend_q8 if q8 else KC.vwr_chunk_prefix_attend
+    ref = (KC.vwr_chunk_prefix_attend_q8_ref if q8
+           else KC.vwr_chunk_prefix_attend_ref)
+    for C in (8, 1):
+        q = torch.randn(KV, C * G, D, generator=g, device=cuda).to(dt)
+        args = (q, *pools, *scales, table, counts)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref(*args)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

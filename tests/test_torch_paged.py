@@ -458,8 +458,11 @@ def test_paged_engine_input_checks():
         tpc.check_family(tc.replace(family="ssm"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         tpc.check_family(tc.replace(family="moe"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpc.fork_page(tc, cache, 0, 1)
+    cache["k"][:, 0] = 1.0
+    tpc.fork_page(tc, cache, 0, 1)      # served now: an in-place copy
+    assert torch.equal(cache["k"][:, 1], cache["k"][:, 0])
+    with pytest.raises(ValueError, match="audio"):
+        tpc.fork_page(tc.replace(family="audio"), cache, 0, 1)
 
 
 # ---------------------------------------------------------------- on the card

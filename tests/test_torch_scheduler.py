@@ -169,10 +169,19 @@ def test_scheduler_needs_a_paged_engine_and_refuses_unported_modes(eng):
                          device="cpu")
     with pytest.raises(ValueError, match="paged"):
         Scheduler(dense)
-    for kw in (dict(prefix_cache=True), dict(chunked_prefill=True),
-               dict(journal=object()), dict(snapshotter=object())):
+    for kw in (dict(journal=object()), dict(snapshotter=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Scheduler(eng, **kw)
+    # the prefix cache and chunked prefill are served: the constructor
+    # takes them, with the JAX Scheduler's checks
+    sched = Scheduler(eng, prefix_cache=True, chunked_prefill=True)
+    assert sched.prefix is not None and sched.chunked
+    assert sched.chunk_tokens == eng.ecfg.chunk_tokens
+    assert sched.token_budget == eng.ecfg.batch + eng.ecfg.chunk_tokens
+    odd = DecodeEngine(_cfg(), eng.ecfg.replace(chunk_tokens=6),
+                       params=eng.params, device="cpu")
+    with pytest.raises(ValueError, match="multiple of"):
+        Scheduler(odd, chunked_prefill=True)
 
 
 def test_slot_reuse_and_no_reprefill(eng):
