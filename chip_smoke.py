@@ -49,7 +49,21 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    prefix / chunked modes, launch counts checked, the on/on streams
    replayed teacher-forced (each step whose pick is not the served
    token printed with its logit gaps beside its error);
-7. print ``{"kernels": [...]}``, then the last line
+7. the moe family: kernels 10, 14 (dense latent cache) and 11, 13
+   (latent page pools, int8 with page scales) are held and timed in
+   phase 2 at DeepSeek-V3's widths (H 128, r 512, rope 64); on reduced
+   fp32 deepseek-v3 (MLA) and olmoe (GQA) ``generate`` and the
+   Scheduler's streams (model-dtype and int8 pools) on the kernels
+   equal the plain path's; then deepseek-v3-671b at full width cut to
+   4 layers (3 dense, 1 MoE of 256 experts; bf16, ~30 GB of random,
+   conditioned weights): ``generate`` (batch 4, prompt 128, gen 32;
+   kernel 10 four times a decode step) teacher-forced against the plain
+   path with the routing of both compared, kernel 14 through
+   ``dist.decode.local_mla_decode_attend`` over generate's latent cache
+   quantized per sequence, and the Scheduler stream of phase 5 on bf16
+   and int8 latent pools (kernels 11 and 13), its requests replayed in
+   the live slots through both paths;
+8. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Without a CUDA device
@@ -169,15 +183,18 @@ def check_kernels(torch, F):
     results = []
 
     def record(kernel, label, shape, dtype, err, fn, plain, library,
-               flops, nbytes, headline=False):
+               flops, nbytes, headline=False, op_dtype=None):
+        """``op_dtype``: the type the operations run in, for the bound
+        (the input dtype unless given)."""
         ms = time_ms(torch, fn)
+        ops_t = str(op_dtype or dtype)[6:]
         row = {"kernel": kernel, "case": label, "shape": shape,
                "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
                "plain_ms": time_ms(torch, plain),
                "library_ms": (None if library is None
                               else time_ms(torch, library)),
-               "bound_ms": bound_ms(flops, nbytes, str(dtype)[6:]),
-               "bound_by": ("operations" if flops / PEAK_FLOPS[str(dtype)[6:]]
+               "bound_ms": bound_ms(flops, nbytes, ops_t),
+               "bound_by": ("operations" if flops / PEAK_FLOPS[ops_t]
                             > nbytes / PEAK_BYTES else "bytes"),
                "headline": headline}
         results.append(row)
@@ -463,7 +480,158 @@ def check_kernels(torch, F):
                        lambda: fn(*ops_), lambda: ref(*ops_),
                        _chunk_sdpa(torch, F, q, pools, scales, table, cnt),
                        4 * KV * C * G * D * n_keys, nbytes, head)
+    check_mla_kernels(torch, F, gen, compare, record)
     return results
+
+
+def check_mla_kernels(torch, F, gen, compare, record):
+    """Kernels 10, 14 (dense latent cache, bf16 / fp32 / int8 with (B,)
+    scales) and 11, 13 (latent page pools, int8 with (n_pages,) scales)
+    at DeepSeek-V3's widths (H 128, r 512, rope 64, fp32 queries) against
+    their plain versions; the bound counts the fp32 queries and partials
+    beside the valid keys, and fp32 operations (the queries are fp32)."""
+    from repro_torch.kernels import vwr_mla_decode as KM
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    H, R, RP, SCALE = 128, 512, 64, 1.0 / 192 ** 0.5
+
+    def queries(B):
+        return (torch.randn(B, H, R, generator=gen, device="cuda"),
+                torch.randn(B, H, RP, generator=gen, device="cuda"))
+
+    def caches(lead, dt, q8):
+        if q8:
+            return ([torch.randint(-127, 128, (*lead, w), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                     for w in (R, RP)],
+                    [torch.rand(lead[0], generator=gen, device="cuda")
+                     * 0.02 + 1e-3 for _ in range(2)])
+        return [torch.randn(*lead, w, generator=gen, device="cuda").to(dt)
+                for w in (R, RP)], []
+
+    def split(B, keys, elt, scale_bytes, index_bytes):
+        parts = {"queries": 4 * B * H * (R + RP),
+                 "keys": elt * keys * (R + RP), "scales": scale_bytes,
+                 "index": index_bytes, "partials": 4 * B * H * (R + 2)}
+        print("      bytes: " + ", ".join(f"{k} {v:,}" for k, v in
+                                          parts.items())
+              + f"; total {sum(parts.values()):,}")
+        return sum(parts.values())
+
+    def library(qa, qr, ckv, kr, valid):
+        """SDPA on the concatenated view of the valid keys: the heads as
+        the query rows of one shared KV head, masked by ``valid``."""
+        from repro_torch.models.mla import mla_concat_view
+
+        def run():
+            q_cat, k_cat, v_cat, _ = mla_concat_view(qa, qr, ckv, kr, SCALE)
+            return F.scaled_dot_product_attention(
+                q_cat[:, None].to(ckv.dtype), k_cat.transpose(1, 2),
+                v_cat.transpose(1, 2), attn_mask=valid[:, None, None, :])
+        return run
+
+    dense_cases = [
+        # label, B, T, cur_len, pos0, dtype, timed, headline
+        ("deepseek decode", 4, 160, 144, 0, bf16, True, True),
+        ("slab pos0 30, keys past cur", 4, 160, 150, 30, bf16, False, False),
+        ("fp32 cache", 2, 77, 77, 0, f32, False, False),
+        ("no valid key", 2, 40, 3, 10, bf16, False, False),
+    ]
+    for q8 in (False, True):
+        kname = "vwr_mla_flash_decode" + ("_q8" if q8 else "")
+        print(kname)
+        fn = KM.vwr_mla_flash_decode_q8 if q8 else KM.vwr_mla_flash_decode
+        ref = (KM.vwr_mla_flash_decode_q8_ref if q8
+               else KM.vwr_mla_flash_decode_ref)
+        for label, B, T, cur, pos0, dt, timed, head in dense_cases:
+            qa, qr = queries(B)
+            cache, scales = caches((B, T), dt, q8)
+            args = (qa, qr, *cache, *scales, cur, pos0)
+            shape = f"B{B} H{H} r{R} rope{RP} T{T} cur{cur} pos0{pos0}"
+            got = fn(*args, scale=SCALE)
+            torch.cuda.synchronize()
+            err = compare(kname, shape, f32, got, ref(*args, scale=SCALE))
+            if cur <= pos0 and (got[2].abs().max().item() != 0.0
+                                or got[1].max().item() > -1e29):
+                raise AssertionError("a head with no valid key must give "
+                                     "m=-1e30, l=0")
+            if timed:
+                n = max(0, min(T, cur - pos0))
+                elt = cache[0].element_size()
+                nbytes = split(B, B * n, elt, 8 * B if q8 else 0, 0)
+                valid = torch.ones(B, n, dtype=torch.bool, device="cuda")
+
+                def sliced(qa=qa, qr=qr, cache=cache, scales=scales, n=n,
+                           valid=valid):
+                    kv = [c[:, :n] for c in cache]
+                    if scales:
+                        kv = [c.to(bf16) * s[:, None, None].to(bf16)
+                              for c, s in zip(kv, scales)]
+                    return library(qa, qr, *kv, valid)()
+                record(kname, label, shape, dt, err,
+                       lambda: fn(*args, scale=SCALE),
+                       lambda: ref(*args, scale=SCALE), sliced,
+                       2 * H * B * n * (2 * R + RP), nbytes, head,
+                       op_dtype=f32)
+
+    # 8 slots, ragged: 653 keys in 44 live pages; slot 0 is inactive, a
+    # page of slot 4 is counted 0 and slot 2's table entry lies past the
+    # pool (the kernel clamps it to the last page, as the plain version)
+    lens, ps, n_pages, J = (0, 1, 16, 17, 255, 100, 200, 64), 16, 1024, 17
+    paged_cases = [
+        # label, page_size, dtype, timed, headline
+        ("deepseek 8 slots", ps, bf16, True, True),
+        ("fp32 pools", ps, f32, False, False),
+        ("page 8", 8, bf16, False, False),
+    ]
+    for q8 in (False, True):
+        kname = "vwr_mla_paged_flash_decode" + ("_q8" if q8 else "")
+        print(kname)
+        fn = (KM.vwr_mla_paged_flash_decode_q8 if q8
+              else KM.vwr_mla_paged_flash_decode)
+        ref = (KM.vwr_mla_paged_flash_decode_q8_ref if q8
+               else KM.vwr_mla_paged_flash_decode_ref)
+        for label, pgs, dt, timed, head in paged_cases:
+            B = len(lens)
+            qa, qr = queries(B)
+            pools, scales = caches((n_pages, pgs), dt, q8)
+            table, counts, live = _paged_table(torch, gen, lens,
+                                               J * ps // pgs, pgs, n_pages)
+            counts[4, 3] = 0
+            table[2, 0] = n_pages + 5
+            args = (qa, qr, *pools, *scales, table, counts)
+            n_keys = int(counts.sum())
+            live = int((counts > 0).sum())
+            shape = (f"B{B} H{H} r{R} rope{RP} ps{pgs} J{table.shape[1]} "
+                     f"keys{n_keys} pages{live}")
+            got = fn(*args, scale=SCALE)
+            torch.cuda.synchronize()
+            err = compare(kname, shape, f32, got, ref(*args, scale=SCALE))
+            if got[2][0].abs().max().item() != 0.0:
+                raise AssertionError("an inactive slot must give l=0")
+            if timed:
+                elt = pools[0].element_size()
+                nbytes = split(B, n_keys, elt, 8 * live if q8 else 0,
+                               8 * table.numel())
+                tbl = table.long().clamp(0, n_pages - 1)
+                valid = (torch.arange(pgs, device="cuda")[None, None, :]
+                         < counts[..., None]).reshape(B, -1)
+
+                def gathered(qa=qa, qr=qr, pools=pools, scales=scales,
+                             tbl=tbl, valid=valid):
+                    kv = []
+                    for i, pool in enumerate(pools):
+                        x = pool[tbl]
+                        if scales:
+                            x = (x.to(bf16) * scales[i][tbl][:, :, None,
+                                                              None].to(bf16))
+                        kv.append(x.reshape(B, -1, x.shape[-1]))
+                    return library(qa, qr, *kv, valid)()
+                record(kname, label, shape, dt, err,
+                       lambda: fn(*args, scale=SCALE),
+                       lambda: ref(*args, scale=SCALE), gathered,
+                       2 * H * n_keys * (2 * R + RP), nbytes, head,
+                       op_dtype=f32)
 
 
 def _paged_table(torch, gen, lens, J, ps, n_pages):
@@ -596,24 +764,45 @@ def serve(torch, name, gen, expected_launches):
             "logits_rel_err": rel, **stats}
 
 
+# projections rescaled by ``_condition``: GQA's, the MLPs' and experts',
+# the unembedding, and MLA's
+PROJECTIONS = ("wq", "wk", "wv", "wo", "wi", "wg", "w", "wq_a", "wq_b",
+               "wkv_a", "wk_b", "wv_b")
+
+
+def _std(torch, t, chunk=1 << 24):
+    """The standard deviation of ``t``, summed in fp64 over slices of
+    ``chunk`` elements: no fp32 copy of a whole (15 GB) expert stack."""
+    flat = t.reshape(-1)
+    n = flat.numel()
+    s = torch.zeros((), dtype=torch.float64, device=t.device)
+    s2 = torch.zeros_like(s)
+    for i in range(0, n, chunk):
+        c = flat[i:i + chunk].double()
+        s += c.sum()
+        s2 += c.square().sum()
+    return ((s2 - s * s / n) / (n - 1)).sqrt().item()
+
+
 def _condition(torch, params):
     """Rescale random weights to a well-conditioned model, in place.
 
     The JAX package's fan-in init (mirrored by ``init_params``) takes
     ``shape[-2]`` as the fan-in, which for ``wq``/``wk``/``wv``
-    ``(d, H, Dh)`` is the head count: q and k come out with stds of
-    ~8-20, attention is close to a hard argmax and the residual stream
-    grows layer by layer, so 1-ulp bf16 differences flip attention
-    choices and no two rounding orders agree after 22 layers.  Every
-    projection is rescaled to std 0.02 (HF Llama's initializer_range)
-    and the QKV biases drawn at std 0.02, so the fused bias is not a
-    sum of zeros."""
+    ``(d, H, Dh)`` — and MLA's ``wq_b``/``wk_b``/``wv_b`` ``(rank, H,
+    Dh)`` — is the head count: q and k come out with stds of ~8-20,
+    attention is close to a hard argmax and the residual stream grows
+    layer by layer, so 1-ulp bf16 differences flip attention choices
+    and no two rounding orders agree after 22 layers.  Every projection
+    is rescaled to std 0.02 (HF Llama's initializer_range) and the QKV
+    biases drawn at std 0.02, so the fused bias is not a sum of
+    zeros."""
     from repro_torch.common.module import leaves
 
     g = torch.Generator(device="cuda").manual_seed(3)
     for path, t in leaves(params):
-        if path[-1] in ("wq", "wk", "wv", "wo", "wi", "wg", "w"):
-            t.mul_(0.02 / t.float().std())
+        if path[-1] in PROJECTIONS:
+            t.mul_(0.02 / _std(torch, t))
         elif path[-1] in ("bq", "bk", "bv"):
             t.copy_(torch.randn(t.shape, generator=g, device=t.device)
                     * 0.02)
@@ -654,14 +843,27 @@ def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
     return out
 
 
+def _reduced_on_card(name):
+    """``reduced(name)`` at widths the kernels take: head dim 32 (D in
+    {32, 64, 128}) and, for MLA, latent rank 32 and rope width 32 (r and
+    rope multiples of 32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config(name)).replace(d_head=32)
+    if cfg.mla is not None:
+        cfg = cfg.replace(mla=dataclasses.replace(
+            cfg.mla, kv_lora_rank=32, rope_head_dim=32))
+    return cfg
+
+
 def serve_reduced_fp32(torch, name):
     """Reduced fp32 config on the card: kernel path against the plain
     path at the Pallas-vs-XLA tolerance, greedy streams identical."""
-    from repro_torch.configs import get_config, reduced
     from repro_torch.engine import DecodeEngine, EngineConfig
 
-    # the kernels take D in {32, 64, 128}: widen the reduced head dim
-    cfg = reduced(get_config(name)).replace(d_head=32)
+    cfg = _reduced_on_card(name)
     ecfg = EngineConfig(batch=2, max_len=40, kernel_impl="cuda")
     eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
     ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
@@ -983,10 +1185,9 @@ def scheduler_reduced_fp32(torch, name):
     """Reduced fp32 config on the card: the Scheduler's greedy streams
     on the kernels equal the plain backend's, for both pool dtypes,
     over a stream that preempts."""
-    from repro_torch.configs import get_config, reduced
     from repro_torch.engine import DecodeEngine, EngineConfig, Scheduler
 
-    cfg = reduced(get_config(name)).replace(d_head=32)
+    cfg = _reduced_on_card(name)
     streams = {}
     for kv_dtype in ("bf16", "int8"):
         ecfg = EngineConfig(batch=3, max_len=64, paged=True, page_size=8,
@@ -1335,11 +1536,10 @@ def scheduler_reduced_prefix_chunked(torch, name):
     the streams equal to the off/off run are counted."""
     import numpy as np
 
-    from repro_torch.configs import get_config, reduced
     from repro_torch.engine import (DecodeEngine, EngineConfig, Request,
                                     Scheduler)
 
-    cfg = reduced(get_config(name)).replace(d_head=32)
+    cfg = _reduced_on_card(name)
     rng = np.random.default_rng(6)
     system = rng.integers(0, cfg.vocab, 16)
     prompts = ([np.concatenate([system, rng.integers(0, cfg.vocab, int(n))])
@@ -1384,6 +1584,419 @@ def scheduler_reduced_prefix_chunked(torch, name):
             "prefix_hits", "chunks", "preempted", "prefix_evictions")}
         summary[kv_dtype]["streams_equal_off"] = same
     return summary
+
+
+# ----------------------------------------------------------------------
+# phase 7: DeepSeek-V3, the moe family with MLA
+# ----------------------------------------------------------------------
+
+# DeepSeek-V3 at its published widths, cut in depth only: its 3 dense
+# layers (d_ff 18,432) and 1 MoE layer (256 experts of 2,048, top-8,
+# 1 shared, sigmoid scores, routed scale 2.5): 15.1 G parameters
+DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK_DEPTH = 4
+
+
+class _Routes:
+    """Records every MoE FFN call's top-k expert sets (sorted ids, one
+    row a token) under the current ``tag``, to count the (token, layer)
+    sets that differ between the kernel and the plain path."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.top_k_gates
+        self.tag, self.log = None, {}
+
+    def __enter__(self):
+        def top_k_gates(probs, sel, cfg):
+            gates, idx = self.orig(probs, sel, cfg)
+            if self.tag is not None:
+                self.log.setdefault(self.tag, []).append(
+                    idx.sort(-1).values.reshape(-1, idx.shape[-1]))
+            return gates, idx
+        self.moe.top_k_gates = top_k_gates
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_gates = self.orig
+
+    def take(self, tag):
+        return self.log.pop(tag, [])
+
+
+def _differ(a, b):
+    """Rows (tokens) whose expert sets differ between two calls' logs."""
+    return (a != b).any(-1)
+
+
+def _hold_with_flips(what, rel, flipped):
+    """Hold every (step, row) relative logits error to E2E_BF16_REL,
+    except rows whose MoE group saw an expert set differ between the
+    two paths, which are counted and printed with their errors.  Random
+    routers put near-ties in the top-8 of 256 sigmoid scores, which the
+    two paths' bf16 roundings break apart; a flip moves that token's
+    output and, through the capacity drops, its group's (a prefill's
+    sequence, a decode step's slots).  The one MoE layer is the last
+    layer at depth 4, so a flip reaches no other row.  Returns the
+    summary."""
+    rel = [float(x) for x in rel]
+    held = [x for x, f in zip(rel, flipped) if not f]
+    flips = [x for x, f in zip(rel, flipped) if f]
+    worst = max(held) if held else 0.0
+    print(f"  {what}: logits vs the plain path max |d|/max|ref| "
+          f"{max(rel):.3e} over {len(rel)} rows (limit {E2E_BF16_REL:g}); "
+          f"{len(flips)} rows with a routing flip between the paths"
+          + (f", their max {max(flips):.3e}; without them {worst:.3e}"
+             if flips else ""))
+    if not worst <= E2E_BF16_REL:
+        raise AssertionError(f"{what}: logits diverge from the plain path "
+                             "where the routing agrees")
+    return {"max_rel": max(rel), "max_rel_routing_agrees": worst,
+            "rows": len(rel), "flipped_rows": len(flips),
+            "flipped_max_rel": max(flips) if flips else None}
+
+
+def deepseek_generate(torch, eng, ref, routes, gen=32):
+    """``generate`` on the kernels (launches counted: kernel 10 four
+    times a decode step), then the stream teacher-forced through both
+    paths with their routing compared.  Returns the summary and the
+    kernel path's dense latent cache after the stream."""
+    from repro_torch.kernels import build
+
+    cfg, vocab = eng.cfg, eng.cfg.vocab
+    B, P, L = eng.ecfg.batch, 128, cfg.n_layers
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, vocab, (B, P), generator=g, device="cuda",
+                            dtype=torch.int32)
+    eng.generate({"tokens": prompts}, gen=gen)          # warm-up
+    build.reset_launches()
+    tokens, stats = eng.generate({"tokens": prompts}, gen=gen)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update(vwr_mla_flash_decode=L * (gen - 1), vwr_swiglu=L * gen,
+                vwr_matmul=L * gen)
+    print(f"  generate batch {B}, prompt {P}, gen {gen}: launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"deepseek generate: launches {launches}, "
+                             f"expected {want}")
+    if tokens.shape != (B, gen) or not bool(
+            ((tokens >= 0) & (tokens < vocab)).all()):
+        raise AssertionError(f"deepseek: bad tokens {tokens.shape}")
+    print(f"  prefill_tok_s {stats['prefill_tok_s']:.1f}  decode_tok_s "
+          f"{stats['decode_tok_s']:.1f}  (t_prefill {stats['t_prefill_s']:.4f}"
+          f" s, t_decode {stats['t_decode_s']:.4f} s)")
+
+    rel, flipped, n_moe = [], [], L - cfg.moe.first_k_dense
+    diff_rows = [0] * n_moe
+    routes.tag = "cuda"
+    lc, cc = eng.prefill({"tokens": prompts})
+    routes.tag = "torch"
+    lr, cr = ref.prefill({"tokens": prompts})
+    for i in range(gen):
+        if not bool((lc.argmax(-1).to(torch.int32) == tokens[:, i]).all()):
+            raise AssertionError(f"step {i}: the kernel path is not "
+                                 "deterministic (replay != generate)")
+        d = [_differ(a, b) for a, b in zip(routes.take("cuda"),
+                                            routes.take("torch"))]
+        for j, x in enumerate(d):
+            diff_rows[j] += int(x.sum())
+        # a prefill groups each sequence's tokens, a decode step all B
+        # rows: a flip anywhere in the group can move capacity drops
+        flip = torch.stack(d).any(0).reshape(B, -1).any(-1)
+        if i:
+            flip[:] = flip.any()
+        err = (lc - lr)[:, :vocab].abs().amax(-1)
+        scale = lr[:, :vocab].abs().max()
+        for b in range(B):
+            rel.append((err[b] / scale).item())
+            flipped.append(bool(flip[b]))
+        if i + 1 < gen:
+            tok = tokens[:, i]
+            routes.tag = "cuda"
+            lc, cc = _decode(eng, tok, P + i, cc)
+            routes.tag = "torch"
+            lr, cr = _decode(ref, tok, P + i, cr)
+    routes.tag = None
+    summary = _hold_with_flips("generate, teacher-forced", rel, flipped)
+    print(f"  expert sets (token, MoE layer) differing between the paths: "
+          f"{diff_rows} of {B * P + B * (gen - 1)} a layer (prefill "
+          "tokens and decode rows)")
+    del cr
+    return {"batch": B, "prompt": P, "gen": gen, "launches": launches,
+            "expert_sets_differ": diff_rows, **summary, **stats}, cc
+
+
+def deepseek_kernel14(torch, cfg, cache, cur_len):
+    """Kernel 14 through ``dist.decode.local_mla_decode_attend`` with
+    per-sequence int8 scales over the latent cache ``generate`` left
+    behind, quantized one scale a sequence (latent and rope apart),
+    held to the plain dequantize-then-attend op; launches counted."""
+    from repro_torch.dist import decode as DD
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant import int8_scale
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    atol, rtol = TOL["float32"]
+    m = cfg.mla
+    scale = 1.0 / (m.nope_head_dim + m.rope_head_dim) ** 0.5
+    work = []
+    for grp in (cache["dense"], cache["moe"]):
+        for i in range(grp["ckv"].shape[0]):
+            q8, sc = [], []
+            for x in (grp["ckv"][i], grp["krope"][i]):
+                s = int8_scale(x.float().abs().amax(dim=(1, 2)))   # (B,)
+                q8.append(torch.clamp(torch.round(x.float() / s[:, None,
+                                                               None]),
+                                      -127, 127).to(torch.int8))
+                sc.append(s)
+            B = q8[0].shape[0]
+            q = (torch.randn(B, cfg.n_heads, m.kv_lora_rank, generator=g,
+                             device="cuda"),
+                 torch.randn(B, cfg.n_heads, m.rope_head_dim, generator=g,
+                             device="cuda"))
+            work.append((q, q8, sc))
+    build.reset_launches()
+    got = [DD.local_mla_decode_attend(*q, *q8, cur_len, scale=scale,
+                                      ckv_scale=sc[0], krope_scale=sc[1],
+                                      backend="cuda")
+           for q, q8, sc in work]
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["vwr_mla_flash_decode_q8"]
+    err = 0.0
+    for (q, q8, sc), x in zip(work, got):
+        want = DD.local_mla_decode_attend(*q, *q8, cur_len, scale=scale,
+                                          ckv_scale=sc[0],
+                                          krope_scale=sc[1],
+                                          backend="torch")
+        d = (x - want).abs()
+        err = max(err, d.max().item())
+        if not bool((d <= atol + rtol * want.abs()).all()):
+            raise AssertionError("kernel 14 disagrees with "
+                                 "dequantize-then-attend")
+    print(f"  kernel 14 over the int8 latent cache of generate ({len(work)}"
+          f" layers, cur_len {cur_len}): max|err| {err:.3e} (atol {atol:g},"
+          f" rtol {rtol:g}), {launches} launches")
+    if launches != len(work):
+        raise AssertionError(f"kernel 14 launched {launches} times")
+    return {"layers": len(work), "max_abs_err": err, "launches": launches}
+
+
+def deepseek_scheduler(torch, params, cfg, kv_dtype, routes):
+    """Full-width DeepSeek-V3 through the Scheduler on the kernels (the
+    stream of ``serve_scheduler``: 8 slots, 128 pages of 16, 24 requests,
+    prompts 32-256, gen 32), launch counts checked (kernel 11 or 13 four
+    times a decode step), then 8 finished requests replayed
+    teacher-forced in the 8 live slots through both paths."""
+    from repro_torch.engine import (DecodeEngine, EngineConfig,
+                                    RequestStatus, Scheduler)
+    from repro_torch.kernels import build
+
+    ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
+                        page_size=PAGE, n_pages=N_PAGES, kv_dtype=kv_dtype,
+                        kernel_impl="cuda")
+    eng = DecodeEngine(cfg, ecfg, params=params, device="cuda")
+    print(f"  Scheduler, {kv_dtype} pools: {SLOTS} slots, {N_PAGES} pages of"
+          f" {PAGE}, {N_REQ} requests, prompts {PROMPT[0]}-{PROMPT[1]}, "
+          f"gen {GEN}")
+    _drive(Scheduler(eng), _requests(cfg, 4, PROMPT, 4, seed=5))
+    reqs = _requests(cfg, N_REQ, PROMPT, GEN, seed=4)
+    sched = Scheduler(eng)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = _drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    st = sched.stats
+    L = cfg.n_layers
+    paged = "vwr_mla_paged_flash_decode" + ("_q8" if kv_dtype == "int8"
+                                            else "")
+    want = {k: 0 for k in launches}
+    want.update({paged: L * st["steps"],
+                 "vwr_swiglu": L * (st["prefills"] + st["steps"]),
+                 "vwr_matmul": L * (st["prefills"] + st["steps"])})
+    print(f"    launches: { {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"deepseek scheduler {kv_dtype}: launches "
+                             f"{launches}, expected {want}")
+    bad = {rid: r.status for rid, r in out.items()
+           if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+    if len(out) != N_REQ or bad:
+        raise AssertionError(f"deepseek scheduler {kv_dtype}: unfinished "
+                             f"{bad}")
+    sched.allocator.check()
+    if sched.allocator.free_pages != N_PAGES:
+        raise AssertionError("pages left allocated after the drain")
+    n_tok = sum(len(r) for r in out.values())
+    lat, itl = sched.latency_percentiles(), sched.itl_percentiles()
+    summary = {
+        "kv_dtype": kv_dtype, "steps": st["steps"],
+        "prefills": st["prefills"], "preempted": st["preempted"],
+        "peak_pages": st["peak_pages"],
+        "table_widths": {str(k): v for k, v in
+                         sorted(st["table_widths"].items())},
+        "generated_tokens": n_tok, "wall_s": wall,
+        "gen_tok_s": n_tok / wall, "latency_p50_s": lat["p50"],
+        "latency_p99_s": lat["p99"], "itl_p50_s": itl["p50"],
+        "itl_p99_s": itl["p99"], "launches": launches}
+    print(f"    steps {st['steps']}, prefills {st['prefills']}, preempted "
+          f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
+          f"table widths {summary['table_widths']}")
+    print(f"    {n_tok} tokens in {wall:.4f} s: {summary['gen_tok_s']:.1f} "
+          f"generated tok/s; request latency p50 {lat['p50']:.4f} s p99 "
+          f"{lat['p99']:.4f} s; ITL p50 {itl['p50'] * 1e3:.3f} ms p99 "
+          f"{itl['p99'] * 1e3:.3f} ms")
+    ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                       params=params, device="cuda")
+    summary["replay"] = _replay_both(torch, eng, ref, sched.cache, reqs,
+                                     out, routes)
+    del eng, ref, sched
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _replay_both(torch, eng, ref, cache, reqs, out, routes):
+    """Replay the first 8 finished requests that fit the pool together,
+    one a slot, teacher-forced with their served tokens, through the
+    kernel engine on the drained stream's pools (stale pages and scales
+    included) and through the plain engine on a copy of them, in the
+    same slot layout: the MoE FFN's decode group (and so its capacity
+    drops) is then the same on both paths, which a batch-1 reference
+    would not share.  Logits are held where the routing agrees; the
+    served token's agreement is counted for both paths (the served
+    stream had other slot mates, so other capacity drops)."""
+    import numpy as np
+
+    from repro_torch.engine.paged_cache import write_prefill
+    from repro_torch.models import lm
+
+    cfg, vocab = eng.cfg, eng.cfg.vocab
+    picked, need = [], 0
+    for r in reqs:
+        n = -(-(len(r.tokens) + GEN - 1) // PAGE)
+        if len(picked) < SLOTS and need + n <= N_PAGES:
+            picked.append((r, n))
+            need += n
+    if len(picked) < SLOTS:
+        raise AssertionError(f"only {len(picked)} requests fit the pool")
+    perm = np.random.default_rng(7).permutation(N_PAGES).astype(np.int32)
+    table = np.zeros((SLOTS, eng.max_pages), np.int32)
+    lens = np.zeros((SLOTS,), np.int32)
+    served = np.zeros((SLOTS, GEN), np.int32)
+    at = 0
+    for b, (r, n) in enumerate(picked):
+        table[b, :n] = perm[at:at + n]
+        at += n
+        lens[b] = len(r.tokens)
+        served[b] = out[r.rid].tokens
+    logits = {}
+    pools = {"cuda": cache, "torch": lm.map_groups(lambda t: t.clone(),
+                                                   cache)}
+    for path, e in (("cuda", eng), ("torch", ref)):
+        c = pools[path]
+        routes.tag = path
+        got = [[] for _ in picked]
+        for b, (r, _) in enumerate(picked):
+            lg, caches = e.prefill_fn(
+                e.params, {"tokens": torch.from_numpy(r.tokens)[None]
+                           .cuda()})
+            write_prefill(cfg, c, caches, table[b][None])
+            got[b].append(lg[0, :vocab].float())
+        for i in range(GEN - 1):
+            lg, c = e.decode_step(served[:, i], lens + i, c,
+                                  block_table=table)
+            for b in range(SLOTS):
+                got[b].append(lg[b, :vocab].float())
+        logits[path] = got
+    routes.tag = None
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    calls = list(zip(routes.take("cuda"), routes.take("torch")))
+    prefill_calls, decode_calls = (calls[:SLOTS * n_moe],
+                                   calls[SLOTS * n_moe:])
+    diff_rows = [0] * n_moe
+    rel, flipped, agree = [], [], {"cuda": 0, "torch": 0}
+    for b in range(SLOTS):
+        for j in range(n_moe):
+            a, c = prefill_calls[b * n_moe + j]
+            diff_rows[j] += int(_differ(a, c).sum())
+    for i in range(GEN):
+        if i == 0:          # each request's prefill is its own group
+            flip = [any(bool(_differ(*prefill_calls[b * n_moe + j]).any())
+                        for j in range(n_moe)) for b in range(SLOTS)]
+        else:
+            d = [_differ(a, c) for a, c in
+                 decode_calls[(i - 1) * n_moe:i * n_moe]]
+            for j, x in enumerate(d):
+                diff_rows[j] += int(x.sum())
+            flip = [any(bool(x.any()) for x in d)] * SLOTS
+        for b in range(SLOTS):
+            x, want = logits["cuda"][b][i], logits["torch"][b][i]
+            rel.append(((x - want).abs().max() / want.abs().max()).item())
+            flipped.append(flip[b])
+            for path in agree:
+                agree[path] += int(logits[path][b][i].argmax()) == int(
+                    served[b, i])
+    summary = _hold_with_flips(f"{SLOTS} requests replayed in the live "
+                               "slots, kernel vs plain", rel, flipped)
+    print(f"    served token picked by the replay at {agree['cuda']}/"
+          f"{len(rel)} steps (plain replay: {agree['torch']}/{len(rel)}); "
+          f"expert sets differing between the paths per MoE layer "
+          f"{diff_rows}")
+    return {**summary, "agree_served": agree, "expert_sets_differ":
+            diff_rows}
+
+
+def serve_deepseek(torch):
+    """Phase 7 at full width: DeepSeek-V3 cut to 4 layers, bf16, random
+    weights from a seed (conditioned), through ``generate`` (kernel 10),
+    kernel 14 over generate's latent cache, and the Scheduler with bf16
+    (kernel 11) and int8 (kernel 13) latent pools."""
+    from repro_torch.common.module import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig
+
+    cfg = get_config(DEEPSEEK)
+    print(f"{DEEPSEEK}: full width (d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"MLA r {cfg.mla.kv_lora_rank} rope {cfg.mla.rope_head_dim}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, vocab "
+          f"{cfg.vocab}, {cfg.dtype})")
+    print(f"reduced: n_layers {cfg.n_layers} -> {DEEPSEEK_DEPTH}")
+    cfg = cfg.replace(n_layers=DEEPSEEK_DEPTH)
+    gen = 32
+    ecfg = EngineConfig(batch=4, max_len=128 + gen, kernel_impl="cuda")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
+    _condition(torch, eng.params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in leaves(eng.params))
+    n_bytes = sum(t.numel() * t.element_size() for _, t in
+                  leaves(eng.params))
+    print(f"  {cfg.moe.first_k_dense} dense + "
+          f"{cfg.n_layers - cfg.moe.first_k_dense} MoE layers, "
+          f"{n_params / 1e9:.3f} B params, {n_bytes / 1e9:.1f} GB "
+          f"({time.perf_counter() - t0:.1f} s to init, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB)")
+    ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                       params=eng.params, device="cuda")
+    with _Routes() as routes:
+        gen_summary, cache = deepseek_generate(torch, eng, ref, routes,
+                                               gen=gen)
+        k14 = deepseek_kernel14(torch, cfg, cache, 128 + gen - 1)
+        del cache, ref
+        params = eng.params
+        del eng
+        torch.cuda.empty_cache()
+        streams = [deepseek_scheduler(torch, params, cfg, kv, routes)
+                   for kv in ("bf16", "int8")]
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": DEEPSEEK, "n_layers": DEEPSEEK_DEPTH,
+            "n_params": n_params, "generate": gen_summary,
+            "kernel14": k14, "scheduler": streams}
 
 
 # ----------------------------------------------------------------------
@@ -1440,12 +2053,27 @@ def main() -> int:
     chunk_logits = chunked_prefill_logits(torch, params)
     pc_streams = serve_prefix_chunked(torch, params)
     del params
+    torch.cuda.empty_cache()
+
+    print("the moe family: DeepSeek-V3 (MLA) and OLMoE (GQA)")
+    moe_fp32 = {n: serve_reduced_fp32(torch, n)
+                for n in (DEEPSEEK, "olmoe-1b-7b")}
+    moe_sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
+                      for n in (DEEPSEEK, "olmoe-1b-7b")}
+    deepseek = serve_deepseek(torch)
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
                 "vwr_paged_flash_decode_q8":
                     sched_int8["launches"]["vwr_paged_flash_decode_q8"],
-                **rows["launches"]}
+                **rows["launches"],
+                "vwr_mla_flash_decode":
+                    deepseek["generate"]["launches"]["vwr_mla_flash_decode"],
+                "vwr_mla_paged_flash_decode": deepseek["scheduler"][0][
+                    "launches"]["vwr_mla_paged_flash_decode"],
+                "vwr_mla_paged_flash_decode_q8": deepseek["scheduler"][1][
+                    "launches"]["vwr_mla_paged_flash_decode_q8"],
+                "vwr_mla_flash_decode_q8": deepseek["kernel14"]["launches"]}
 
     kernels = []
     sources = {"vwr_matmul": "vwr_matmul", "vwr_swiglu": "vwr_matmul",
@@ -1454,7 +2082,11 @@ def main() -> int:
                "vwr_paged_flash_decode": "vwr_paged_decode",
                "vwr_paged_flash_decode_q8": "vwr_paged_decode",
                "vwr_chunk_prefix_attend": "vwr_chunk_prefix",
-               "vwr_chunk_prefix_attend_q8": "vwr_chunk_prefix"}
+               "vwr_chunk_prefix_attend_q8": "vwr_chunk_prefix",
+               "vwr_mla_flash_decode": "vwr_mla_decode",
+               "vwr_mla_paged_flash_decode": "vwr_mla_decode",
+               "vwr_mla_paged_flash_decode_q8": "vwr_mla_decode",
+               "vwr_mla_flash_decode_q8": "vwr_mla_decode"}
     replaces = {
         "vwr_matmul": "src/repro/kernels/vwr_matmul.py:120",
         "vwr_swiglu": "src/repro/kernels/vwr_matmul.py:84",
@@ -1463,7 +2095,12 @@ def main() -> int:
         "vwr_paged_flash_decode": "src/repro/kernels/vwr_decode.py:327",
         "vwr_paged_flash_decode_q8": "src/repro/kernels/vwr_decode.py:542",
         "vwr_chunk_prefix_attend": "src/repro/kernels/vwr_decode.py:870",
-        "vwr_chunk_prefix_attend_q8": "src/repro/kernels/vwr_decode.py:967"}
+        "vwr_chunk_prefix_attend_q8": "src/repro/kernels/vwr_decode.py:967",
+        "vwr_mla_flash_decode": "src/repro/kernels/vwr_decode.py:164",
+        "vwr_mla_paged_flash_decode": "src/repro/kernels/vwr_decode.py:265",
+        "vwr_mla_paged_flash_decode_q8":
+            "src/repro/kernels/vwr_decode.py:747",
+        "vwr_mla_flash_decode_q8": "src/repro/kernels/vwr_decode.py:649"}
     for name in sources:
         head = next(r for r in results if r["kernel"] == name
                     and r["headline"])
@@ -1486,6 +2123,11 @@ def main() -> int:
               "prefix_chunked_reduced_fp32": pc_fp32,
               "chunk_rows": rows, "chunked_prefill_logits": chunk_logits,
               "prefix_chunked": pc_streams,
+              "moe_reduced_fp32_max_abs": moe_fp32,
+              "moe_scheduler_reduced_fp32_preemptions": {
+                  n: {k[0]: v for k, v in d.items()}
+                  for n, d in moe_sched_fp32.items()},
+              "deepseek": deepseek,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

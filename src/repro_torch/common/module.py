@@ -34,16 +34,20 @@ class ParamDef:
 
 # ---------------- initializers: (generator, shape, dtype, device) ----------------
 
+# The fp32 draw is scaled in place: a full-width expert stack (256 x 7168
+# x 2048) is 15 GB in fp32, so a scaled copy beside it would not fit the
+# card next to the bf16 weights already made.
+
 def fan_in_init(gen, shape, dtype, device):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def embed_init(gen, shape, dtype, device):
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * 0.02).to(dtype)
+    return x.mul_(0.02).to(dtype)
 
 
 def zeros_init(gen, shape, dtype, device):

@@ -3,10 +3,13 @@
 Counterpart of ``repro.dist.decode``; only the single-slab / single-shard
 branches are ported.  The decode partials come from the dispatch
 registry (``decode_partial``, ``decode_partial_paged``,
-``decode_partial_paged_q8``: 'torch' plain, 'cuda' the kernels) and are
-normalized here; the chunk-prefix partials (``chunk_prefix_paged``,
-``chunk_prefix_paged_q8``) are returned unnormalized, for the caller to
-merge with the chunk's causal self partial.  The sequence-sharded
+``decode_partial_paged_q8`` and the split-operand MLA ops
+``decode_partial_mla``, ``decode_partial_mla_q8``,
+``decode_partial_mla_paged``, ``decode_partial_mla_paged_q8``: 'torch'
+plain, 'cuda' the kernels) and are normalized here; the chunk-prefix
+partials (``chunk_prefix_paged``, ``chunk_prefix_paged_q8``) are
+returned unnormalized, for the caller to merge with the chunk's causal
+self partial.  The sequence-sharded
 combine over ``torch.distributed`` is ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
@@ -86,6 +89,84 @@ def paged_decode_attend(q, k_pool, v_pool, table, counts, *,
     return local_paged_decode_attend(q, k_pool, v_pool, table, counts,
                                      k_scale=k_scale, v_scale=v_scale,
                                      backend=backend)
+
+
+# ======================================================================
+# absorbed MLA: the latent and rope caches as separate operands
+# ======================================================================
+
+def local_mla_decode_attend(q_abs, q_rope, cache_ckv, cache_krope, cur_len,
+                            *, scale: float, ckv_scale=None,
+                            krope_scale=None, backend="cuda"
+                            ) -> torch.Tensor:
+    """Single-slab split-operand MLA decode attention: the normalized
+    (B, H, r) latent context, fp32 as q_abs.
+
+    q_abs (B, H, r) fp32; q_rope (B, H, rope); cache_ckv (B, T, r);
+    cache_krope (B, T, rope); ``cur_len`` valid positions (a host int on
+    the kernel path).  ``ckv_scale`` / ``krope_scale`` ((B,) fp32)
+    select the q8 op over int8 latent caches."""
+    if ckv_scale is not None:
+        o_t, m, l = D.dispatch("decode_partial_mla_q8", backend, q_abs,
+                               q_rope, cache_ckv, cache_krope, ckv_scale,
+                               krope_scale, cur_len, scale=scale)
+    else:
+        o_t, m, l = D.dispatch("decode_partial_mla", backend, q_abs,
+                               q_rope, cache_ckv, cache_krope, cur_len,
+                               scale=scale)
+    return _normalize(o_t, l, q_abs.dtype)
+
+
+def mla_decode_attend(q_abs, q_rope, cache_ckv, cache_krope, cur_len, *,
+                      scale: float, ckv_scale=None, krope_scale=None,
+                      backend="cuda", seq_shard: bool = False
+                      ) -> torch.Tensor:
+    """Split-operand MLA decode attention used by ``models.lm``: the
+    local path.  ``seq_shard=True`` is not ported yet."""
+    if seq_shard:
+        raise NotImplementedError(_SEQ_SHARD)
+    return local_mla_decode_attend(q_abs, q_rope, cache_ckv, cache_krope,
+                                   cur_len, scale=scale,
+                                   ckv_scale=ckv_scale,
+                                   krope_scale=krope_scale,
+                                   backend=backend)
+
+
+def local_mla_paged_decode_attend(q_abs, q_rope, ckv_pool, krope_pool,
+                                  table, counts, *, scale: float,
+                                  ckv_scale=None, krope_scale=None,
+                                  backend="cuda") -> torch.Tensor:
+    """Single-shard split-operand paged MLA decode attention (the
+    normalized (B, H, r) latent context).
+
+    ckv_pool (n_pages, page_size, r); krope_pool (n_pages, page_size,
+    rope); table, counts (B, J) int32, the counts built once a step from
+    the lengths (``_page_counts``), as for the GQA pools.
+    ``ckv_scale`` / ``krope_scale`` ((n_pages,) fp32) select the q8 op
+    over int8 pools."""
+    if ckv_scale is not None:
+        o_t, m, l = D.dispatch("decode_partial_mla_paged_q8", backend,
+                               q_abs, q_rope, ckv_pool, krope_pool,
+                               ckv_scale, krope_scale, table, counts,
+                               scale=scale)
+    else:
+        o_t, m, l = D.dispatch("decode_partial_mla_paged", backend, q_abs,
+                               q_rope, ckv_pool, krope_pool, table, counts,
+                               scale=scale)
+    return _normalize(o_t, l, q_abs.dtype)
+
+
+def mla_paged_decode_attend(q_abs, q_rope, ckv_pool, krope_pool, table,
+                            counts, *, scale: float, ckv_scale=None,
+                            krope_scale=None, backend="cuda",
+                            seq_shard: bool = False) -> torch.Tensor:
+    """Paged split-operand MLA decode attention used by ``models.lm``:
+    the local path.  ``seq_shard=True`` is not ported yet."""
+    if seq_shard:
+        raise NotImplementedError(_SEQ_SHARD)
+    return local_mla_paged_decode_attend(
+        q_abs, q_rope, ckv_pool, krope_pool, table, counts, scale=scale,
+        ckv_scale=ckv_scale, krope_scale=krope_scale, backend=backend)
 
 
 # ======================================================================

@@ -1,12 +1,13 @@
 """DecodeEngine: the serving surface on one device.
 
-Counterpart of ``repro.engine.engine`` for the dense family, with the
-dense ``(batch, max_len)`` decode cache or, with ``EngineConfig(paged=
-True)``, a paged one (``engine.paged_cache``: shared page pools in the
-model dtype or, with ``kv_dtype='int8'``, int8 with per-page scales,
-addressed through per-slot block tables), which ``engine.scheduler``
-runs continuous batching on.  One object owns the config, the
-parameters on the device, and the prefill/decode step functions::
+Counterpart of ``repro.engine.engine`` for the dense and moe families,
+with the dense ``(batch, max_len)`` decode cache or, with
+``EngineConfig(paged=True)``, a paged one (``engine.paged_cache``:
+shared page pools in the model dtype or, with ``kv_dtype='int8'``, int8
+with per-page scales, addressed through per-slot block tables), which
+``engine.scheduler`` runs continuous batching on.  One object owns the
+config, the parameters on the device, and the prefill/decode step
+functions::
 
     from repro_torch.configs import get_config
     from repro_torch.engine import DecodeEngine, EngineConfig
@@ -15,6 +16,14 @@ parameters on the device, and the prefill/decode step functions::
                        EngineConfig(batch=4, max_len=160))
     tokens, stats = eng.generate({"tokens": prompts}, gen=32)
 
+DeepSeek-V3 (the moe family with MLA) serves the same way, on latent
+caches and pools::
+
+    eng = DecodeEngine(get_config("deepseek-v3-671b"),
+                       EngineConfig(batch=8, max_len=288, paged=True,
+                                    page_size=16, n_pages=128,
+                                    kv_dtype="int8"))
+
 A paged dense-family engine also carries ``suffix_prefill_fn`` (the
 suffix-only prefill of a prefix-cache hit) and ``mixed_fn`` (one
 chunked-prefill chunk plus the decode batch in one step), which the
@@ -22,8 +31,9 @@ Scheduler's ``prefix_cache`` and ``chunked_prefill`` modes use.
 
 The engine runs on ``device="cuda"`` by default and raises if there is
 no GPU; pass ``device="cpu"`` to run the plain versions on the CPU.
-Sequence sharding, meshes other than (1, 1) and the paged MoE/MLA/audio
-pools are not ported yet and raise ``NotImplementedError``.
+Sequence sharding, meshes other than (1, 1), the audio pools and the
+moe family's prefix cache and chunked prefill are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -111,6 +121,8 @@ def _check_prefix_and_chunks(cfg, ecfg: EngineConfig) -> None:
             f"multiple of page_size={ecfg.page_size}: every non-final "
             "chunk must end page-aligned so the next chunk's resident "
             "prefix is whole pages")
+    if (ecfg.prefix_cache or ecfg.chunked_prefill) and cfg.family == "moe":
+        raise NotImplementedError(lm.MOE_PREFIX)
 
 
 class DecodeEngine:
@@ -159,12 +171,13 @@ class DecodeEngine:
         self.params = map_tree(lambda t: t.to(self.device), params)
         self.prefill_fn = steps.build_prefill(cfg)
         self.decode_fn = steps.build_decode(cfg)
-        # built for every paged token-only engine, so a Scheduler can turn
-        # either mode on per stream whatever the EngineConfig defaults
-        token_only = ecfg.paged and cfg.family in ("dense", "moe")
+        # built for every paged dense-family engine, so a Scheduler can
+        # turn either mode on per stream whatever the EngineConfig
+        # defaults (the moe family's are not ported yet)
+        suffix = ecfg.paged and cfg.family == "dense"
         self.suffix_prefill_fn = (steps.build_suffix_prefill(cfg)
-                                  if token_only else None)
-        self.mixed_fn = steps.build_mixed_step(cfg) if token_only else None
+                                  if suffix else None)
+        self.mixed_fn = steps.build_mixed_step(cfg) if suffix else None
 
     # ------------------------------------------------------------------
     # steps

@@ -1,22 +1,27 @@
 """Paged KV cache: a shared page pool + per-slot block tables.
 
-Counterpart of ``repro.engine.paged_cache`` for the dense (GQA) family.
-The cache is ``{"k", "v"}`` pools of shape ``(L, n_pages, page_size,
-KV, Dh)``, the layout of the JAX package, so a pool copies across as it
-is; a ``(B_slots, max_pages)`` int32 block table maps each slot's
-logical page j to a physical page id handed out by ``PageAllocator``.
+Counterpart of ``repro.engine.paged_cache`` for the dense (GQA) and moe
+(GQA or MLA) families.  The cache is ``{"k", "v"}`` pools of shape
+``(L, n_pages, page_size, KV, Dh)``, or for MLA the latent and rope
+pools ``{"ckv", "krope"}`` of shape ``(L, n_pages, page_size, r)`` /
+``(L, n_pages, page_size, rope)``; the moe family nests them as
+``{"dense": ... or None, "moe": ...}`` per layer group.  These are the
+layouts of the JAX package, so a pool copies across as it is; a
+``(B_slots, max_pages)`` int32 block table maps each slot's logical page
+j to a physical page id handed out by ``PageAllocator``.
 
 With ``kv_dtype='int8'`` the pools hold symmetric int8 pages with fp32
-scale sidecars ``k_scale``/``v_scale`` of shape ``(L, n_pages, KV)`` —
-one scale per page and KV head — that the q8 decode kernel applies per
-key.
+scale sidecars: ``k_scale``/``v_scale`` of shape ``(L, n_pages, KV)`` —
+one scale per page and KV head — or ``ckv_scale``/``krope_scale`` of
+shape ``(L, n_pages)`` — one per whole latent (rope) page — that the q8
+decode kernels apply.
 
 The JAX package writes pools functionally (``.at[].set`` on a donated
 buffer); here every write is in place into the engine-owned pools
 (``write_prefill``, ``quantized_page_write`` and the decode step), as
 the port's dense cache already is; ``fork_page`` (the prefix cache's
-copy-on-write) copies a page in place.  The MLA, MoE and audio pools
-are not ported yet.
+copy-on-write) copies a page in place.  The audio pools are not ported
+yet, nor the moe family's prefix cache.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from repro_torch.kernels.quant import int8_scale, quantize_int8
+from repro_torch.models import lm
 from repro_torch.models.layers import dt
 
 PAGED_FAMILIES = ("dense", "vlm", "moe", "audio")
@@ -34,21 +40,20 @@ PAGED_FAMILIES = ("dense", "vlm", "moe", "audio")
 def check_family(cfg) -> None:
     """Paged KV covers the KV-cache families (``ValueError`` for the
     recurrent ones, as in the JAX package); of those the port serves the
-    dense GQA family so far."""
+    dense GQA family and the moe family (GQA or MLA) so far."""
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(
             f"paged KV cache supports the KV-cache families "
             f"{PAGED_FAMILIES}; family {cfg.family!r} carries O(1) "
             "recurrent state per slot (nothing to page) — serve it "
             "with the dense engine")
-    if cfg.family != "dense" or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else cfg.family
-        where = ("item 10 (MoE + MLA families)"
-                 if cfg.family == "moe" or cfg.mla is not None
-                 else "item 11 (remaining families)")
-        raise NotImplementedError(
-            f"paged {what} pools are not ported to repro_torch yet: "
-            f"ROADMAP queue 1 {where}")
+    if cfg.family == "moe" or (cfg.family == "dense" and cfg.mla is None):
+        return
+    what, where = (("MLA", "item 10 (MLA)") if cfg.family == "dense"
+                   else (cfg.family, "item 11 (remaining families)"))
+    raise NotImplementedError(
+        f"paged {what} pools are not ported to repro_torch yet: "
+        f"ROADMAP queue 1 {where}")
 
 
 def max_pages(max_len: int, page_size: int) -> int:
@@ -70,23 +75,31 @@ def bucket_table_width(live_pages: int, max_pages: int) -> int:
 
 def paged_cache_spec(cfg, n_pages: int, page_size: int,
                      kv_dtype: str = None):
-    """{name: (shape, dtype)} of the paged decode cache.
+    """{name: (shape, dtype)} of the paged decode cache (nested per layer
+    group for the moe family).
 
     ``kv_dtype``: None/'bf16' keeps the pools at the model dtype;
-    'int8' stores int8 pools plus fp32 (L, n_pages, KV) scales."""
+    'int8' stores int8 pools plus fp32 scales, (L, n_pages, KV) for K/V
+    pools and (L, n_pages) for the latent and rope pools."""
     check_family(cfg)
     if kv_dtype not in (None, "bf16", "int8"):
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                          f"{kv_dtype!r}")
     q8 = kv_dtype == "int8"
     pool_dt = torch.int8 if q8 else dt(cfg)
-    L, KV = cfg.n_layers, cfg.n_kv_heads
-    sh = (L, n_pages, page_size, KV, cfg.d_head)
-    spec = {"k": (sh, pool_dt), "v": (sh, pool_dt)}
-    if q8:
-        spec["k_scale"] = ((L, n_pages, KV), torch.float32)
-        spec["v_scale"] = ((L, n_pages, KV), torch.float32)
-    return spec
+
+    def group(shapes):
+        spec = {name: (sh, pool_dt) for name, sh in shapes.items()}
+        if q8:
+            for name, sh in shapes.items():
+                # one scale a page and KV head, or a whole latent page
+                spec[name + "_scale"] = (sh[:2] + sh[3:-1], torch.float32)
+        return spec
+
+    tree = lm.group_specs(cfg, (n_pages, page_size))
+    if cfg.family == "moe":
+        return {k: None if g is None else group(g) for k, g in tree.items()}
+    return group(tree)
 
 
 def _layer_aligned_zeros(shape, dtype, device) -> torch.Tensor:
@@ -103,9 +116,9 @@ def _layer_aligned_zeros(shape, dtype, device) -> torch.Tensor:
 
 def init_paged_cache(cfg, n_pages: int, page_size: int,
                      kv_dtype: str = None, device="cuda"):
-    return {name: _layer_aligned_zeros(shape, dtype, device)
-            for name, (shape, dtype) in paged_cache_spec(
-                cfg, n_pages, page_size, kv_dtype).items()}
+    return lm.map_groups(
+        lambda sd: _layer_aligned_zeros(sd[0], sd[1], device),
+        paged_cache_spec(cfg, n_pages, page_size, kv_dtype))
 
 
 # ----------------------------------------------------------------------
@@ -133,25 +146,33 @@ def _scatter_pages(pool, kv, table):
 
 
 def _scatter_pages_q8(pool, scales, kv, table):
-    """Quantize-on-write prefill scatter into an int8 pool and its
-    (L, n_pages, KV) scales, in place: one symmetric int8 scale per
-    (page, KV head) over the page's (page_size, Dh) values; the zero
-    pad of a partial last page stays inside the group, so it scrubs
-    stale bytes and leaves the amax alone."""
+    """Quantize-on-write prefill scatter into an int8 pool and its scales,
+    in place: one symmetric int8 scale per (page, KV head) over the
+    page's (page_size, Dh) values for a K/V pool ((L, n_pages, KV)
+    scales), one per whole page for a flat latent or rope pool (L,
+    n_pages, ps, r) ((L, n_pages) scales).  The zero pad of a partial
+    last page stays inside the group, so it scrubs stale bytes and
+    leaves the amax alone."""
     rows, ids = _page_rows(kv, table, pool.shape[2])
-    q, s = quantize_int8(rows, axis=(2, 4))     # s: (L, B'*J, 1, KV, 1)
+    if pool.ndim == 5:
+        q, s = quantize_int8(rows, axis=(2, 4))  # s: (L, B'*J, 1, KV, 1)
+        s = s[:, :, 0, :, 0]
+    else:
+        q, s = quantize_int8(rows, axis=(2, 3))  # s: (L, B'*J, 1, 1)
+        s = s[:, :, 0, 0]
     pool[:, ids] = q
-    scales[:, ids] = s[:, :, 0, :, 0]
+    scales[:, ids] = s
 
 
 def quantized_page_write(pool, scales, pages, offs, x):
     """One decode token per active slot into one layer's int8 pool
-    (n_pages, ps, KV, Dh) and scales (n_pages, KV), in place.
+    (n_pages, ps, KV, Dh) with scales (n_pages, KV), or a flat latent
+    pool (n_pages, ps, r) with one scale a page (n_pages,), in place.
 
     pages, offs: (A,) physical page and offset of each active slot's
     write (inactive slots are left out by the caller, where the JAX
     function sends them to page ``n_pages`` and drops the write);
-    x: (A, KV, Dh) the new token's values.
+    x: (A, KV, Dh) or (A, r) the new token's values.
 
     A write at offset 0 resets the page's scale to the token's own amax
     and zeroes the rest of the page (the scrub of a reused page); a
@@ -162,13 +183,18 @@ def quantized_page_write(pool, scales, pages, offs, x):
     if A == 0:
         return
     xf = x.float()
-    s_tok = int8_scale(xf.abs().amax(-1))                   # (A, KV)
+    s_tok = int8_scale(xf.abs().amax(-1))             # (A, KV) or (A,)
     s_old = scales[pages]
-    fresh = (offs == 0)[:, None]
+    per_head = pool.ndim == 4
+    fresh = (offs == 0)[:, None] if per_head else offs == 0
     s_new = torch.where(fresh, s_tok, torch.maximum(s_old, s_tok))
-    page_f = pool[pages].float() * s_old[:, None, :, None]
-    page_f = torch.where(fresh[:, :, None, None], 0.0, page_f)
-    qpage = torch.clamp(torch.round(page_f / s_new[:, None, :, None]),
+
+    def ex(t):                          # per-page values -> page shape
+        return t[:, None, :, None] if per_head else t[:, None, None]
+
+    page_f = pool[pages].float() * ex(s_old)
+    page_f = torch.where(ex(fresh), 0.0, page_f)
+    qpage = torch.clamp(torch.round(page_f / ex(s_new)),
                         -127, 127).to(torch.int8)
     qtok = torch.clamp(torch.round(xf / s_new[..., None]),
                        -127, 127).to(torch.int8)
@@ -177,23 +203,39 @@ def quantized_page_write(pool, scales, pages, offs, x):
     scales[pages] = s_new
 
 
+def _scatter_group(group, stacks, table) -> None:
+    """One layer group's prefill stacks into its pools ({"k", "v"} or
+    {"ckv", "krope"}, in that order), quantize-on-write when the group
+    carries scales."""
+    for name, kv in zip(("ckv", "krope") if "ckv" in group else ("k", "v"),
+                        stacks):
+        if name + "_scale" in group:
+            _scatter_pages_q8(group[name], group[name + "_scale"], kv,
+                              table)
+        else:
+            _scatter_pages(group[name], kv, table)
+
+
 def write_prefill(cfg, cache, caches, table) -> None:
     """Scatter prefill KV material into the page pools, in place.
 
-    ``caches`` is ``lm.prefill``'s (k, v) stacks (L, B', S, KV, Dh) for
-    B' requests (the whole batch, or 1 for the scheduler's admission);
+    ``caches`` is ``lm.prefill``'s cache stacks for B' requests (the
+    whole batch, or 1 for the scheduler's admission): (k, v) (L, B', S,
+    KV, Dh), or for the moe family the pair (dense layers' stacks or
+    None, MoE layers'), each (k, v) or MLA's (c_kv, k_rope);
     ``table`` holds the rows (B', >= ceil(S / page_size)) of the pages
     they land in, host ints or a device tensor: a whole prompt's row, or
     for a suffix or a chunk (``lm.prefill_suffix`` / ``prefill_chunk``,
     which start page-aligned) the row of pages from its first position
     on — never a shared prefix page."""
     check_family(cfg)
-    for name, kv in zip(("k", "v"), caches):
-        if name + "_scale" in cache:
-            _scatter_pages_q8(cache[name], cache[name + "_scale"], kv,
-                              table)
-        else:
-            _scatter_pages(cache[name], kv, table)
+    if cfg.family == "moe":
+        kv_d, kv_m = caches
+        if kv_d is not None:
+            _scatter_group(cache["dense"], kv_d, table)
+        _scatter_group(cache["moe"], kv_m, table)
+    else:
+        _scatter_group(cache, caches, table)
 
 
 def fork_page(cfg, cache, src: int, dst: int) -> None:
@@ -209,6 +251,8 @@ def fork_page(cfg, cache, src: int, dst: int) -> None:
         raise ValueError(
             "fork_page does not support the audio family: the slot-dense "
             "cross cache carries slots, not pages, at axis 1")
+    if cfg.family == "moe":
+        raise NotImplementedError(lm.MOE_PREFIX)
     check_family(cfg)
     for leaf in cache.values():
         leaf[:, dst] = leaf[:, src]

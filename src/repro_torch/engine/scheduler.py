@@ -78,6 +78,7 @@ from repro_torch.engine.paged_cache import (PageAllocator,
                                             bucket_table_width, fork_page,
                                             write_prefill)
 from repro_torch.engine.prefix_cache import PrefixCache
+from repro_torch.models import lm
 from repro_torch.runtime.resilience import (Heartbeat, RetryPolicy,
                                             StragglerMonitor,
                                             call_with_retries, percentiles)
@@ -336,6 +337,10 @@ class Scheduler:
         if prefix_cache is None:
             prefix_cache = engine.ecfg.prefix_cache
         self.prefix: Optional[PrefixCache] = None
+        if chunked_prefill is None:
+            chunked_prefill = engine.ecfg.chunked_prefill
+        if (prefix_cache or chunked_prefill) and self.cfg.family == "moe":
+            raise NotImplementedError(lm.MOE_PREFIX)
         if prefix_cache:
             if self.cfg.family not in ("dense", "moe"):
                 raise ValueError(
@@ -347,8 +352,6 @@ class Scheduler:
                 raise ValueError("engine has no suffix_prefill_fn — "
                                  "construct a paged dense engine")
             self.prefix = PrefixCache(self.page_size, self.allocator)
-        if chunked_prefill is None:
-            chunked_prefill = engine.ecfg.chunked_prefill
         self.chunked = bool(chunked_prefill)
         self.chunk_tokens = 0
         self.token_budget = 0

@@ -2,12 +2,13 @@
 code uses, mapped onto each kernel's contract.
 
 Counterpart of ``repro.kernels.ops`` for the kernels of the dense and
-paged serving paths.  The JAX wrappers pad every operand to block multiples
+paged serving paths and of absorbed-MLA decode.  The JAX wrappers pad every operand to block multiples
 (``ops.py`` ``_pad_dim``) and flatten heads to ``(B*H, S, D)``; the CUDA
 kernels mask their ragged edges themselves and read the native head
 layouts, so what is left here is reshaping: a bias to ``(1, N)``, a
 decode query to its ``(B*KV, G, D)`` groups (heads are kv-major,
-``h = kv*G + g``), and contiguity.  The JAX paged wrappers clamp the
+``h = kv*G + g``), and contiguity (the absorbed MLA queries come out of
+``einsum`` as permuted views).  The JAX paged wrappers clamp the
 block table to ``[0, n_pages)`` before the kernel; the paged decode
 wrappers leave that to the kernel, which clamps each entry it reads (no
 clamped copy a layer), and the chunk-prefix wrappers clamp their (J,)
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import vwr_mla_decode as _mla
 from repro_torch.kernels.vwr_attention import vwr_attention as _attention
 from repro_torch.kernels.vwr_chunk import vwr_chunk_prefix_attend as _chunk
 from repro_torch.kernels.vwr_chunk import \
@@ -157,3 +159,48 @@ def vwr_chunk_prefix_attend_q8(q, k_pool, v_pool, k_scale, v_scale, table,
     out = _chunk_q8(_chunk_rows(q, k_pool.shape[2]), k_pool, v_pool,
                     k_scale, v_scale, tbl, cnt)
     return _chunk_heads(*out, q.shape[0])
+
+
+# ----------------------------------------------------------------------
+# absorbed-MLA decode: kernels 10, 11, 13 and 14 (csrc/vwr_mla_decode.cu)
+# ----------------------------------------------------------------------
+
+def vwr_mla_flash_decode(q_abs, q_rope, c_kv, k_rope, cur_len, pos0=0, *,
+                         scale):
+    """Unnormalized split-operand MLA partials against a dense latent
+    cache.  q_abs (B, H, r) and q_rope (B, H, rope) fp32, folded through
+    wk_b; c_kv (B, T, r) and k_rope (B, T, rope), first position at
+    global ``pos0``; ``scale`` the absorbed 1/sqrt(nope + rope).
+    Returns fp32 (o_tilde (B, H, r), m (B, H), l (B, H))."""
+    return _mla.vwr_mla_flash_decode(
+        q_abs.contiguous(), q_rope.contiguous(), c_kv.contiguous(),
+        k_rope.contiguous(), cur_len, pos0, scale=scale)
+
+
+def vwr_mla_flash_decode_q8(q_abs, q_rope, c_kv, k_rope, ckv_scale,
+                            krope_scale, cur_len, pos0=0, *, scale):
+    """``vwr_mla_flash_decode`` over int8 caches with fp32 (B,) scales."""
+    return _mla.vwr_mla_flash_decode_q8(
+        q_abs.contiguous(), q_rope.contiguous(), c_kv.contiguous(),
+        k_rope.contiguous(), ckv_scale.contiguous(),
+        krope_scale.contiguous(), cur_len, pos0, scale=scale)
+
+
+def vwr_mla_paged_flash_decode(q_abs, q_rope, ckv_pool, krope_pool, table,
+                               counts, *, scale):
+    """Unnormalized split-operand MLA partials over latent page pools
+    (n_pages, page_size, r / rope); table, counts (B, J) int32, 0
+    masking a page; the kernel clamps each table entry it reads."""
+    return _mla.vwr_mla_paged_flash_decode(
+        q_abs.contiguous(), q_rope.contiguous(), ckv_pool, krope_pool,
+        table, counts, scale=scale)
+
+
+def vwr_mla_paged_flash_decode_q8(q_abs, q_rope, ckv_pool, krope_pool,
+                                  ckv_scale, krope_scale, table, counts, *,
+                                  scale):
+    """``vwr_mla_paged_flash_decode`` over int8 pools with fp32
+    (n_pages,) latent and rope scales."""
+    return _mla.vwr_mla_paged_flash_decode_q8(
+        q_abs.contiguous(), q_rope.contiguous(), ckv_pool, krope_pool,
+        ckv_scale, krope_scale, table, counts, scale=scale)

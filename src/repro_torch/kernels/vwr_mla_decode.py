@@ -1,0 +1,216 @@
+"""Absorbed-MLA flash-decode partials against a dense latent cache or
+latent page pools: plain versions and the CUDA kernel wrappers.
+
+Counterparts of ``repro.kernels.vwr_decode``'s ``vwr_mla_flash_decode_p``,
+``vwr_mla_flash_decode_q8_p``, ``vwr_mla_paged_flash_decode_p`` and
+``vwr_mla_paged_flash_decode_q8_p`` (all four in
+``csrc/vwr_mla_decode.cu``).  The queries come folded through ``wk_b``
+(``models.mla.mla_absorbed_queries``): ``q_abs`` (B, H, r) and
+``q_rope`` (B, H, rope), fp32.  A key's score is
+``(q_abs . c_kv + q_rope . k_rope) * scale`` and its value is the latent
+row ``c_kv`` itself, so the two caches are read once each, as separate
+operands.
+
+The dense cache is ``c_kv`` (B, T, r) / ``k_rope`` (B, T, rope) whose
+first position has global index ``pos0``; positions with
+``pos0 + idx < cur_len`` are valid.  The pools are (n_pages, page_size,
+r) / (n_pages, page_size, rope): logical page j of slot b is the
+physical page ``table[b, j]`` (clamped to [0, n_pages)) holding
+``counts[b, j]`` valid keys, 0 masking the page.  int8 caches carry fp32
+scales, one a sequence (B,) for the dense cache and one a page
+(n_pages,) for the pools, separately for the latent and the rope part.
+
+Returns the unnormalized fp32 partials ``(o_tilde (B, H, r), m (B, H),
+l (B, H))``; a head with no valid key gives ``m = -1e30, l = 0,
+o_tilde = 0``.  A wrapper given CPU tensors runs the plain version;
+given CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+# the kernel holds a lane's share of r and rope in registers: r / 32
+# and rope / 32 latent and rope features a lane
+RANKS = (32, 64, 128, 256, 512)
+ROPES = (32, 64)
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def mla_partials(q_abs, q_rope, ckv, kr, valid, scale: float):
+    """The plain arithmetic: q_abs (B, H, r), q_rope (B, H, rope); ckv
+    (B, T, r), kr (B, T, rope) in any dtype; valid (B or 1, T) bool."""
+    ckv, kr = ckv.float(), kr.float()
+    s = torch.einsum("bhr,btr->bht", q_abs.float(), ckv)
+    s = s + torch.einsum("bhk,btk->bht", q_rope.float(), kr)
+    s = torch.where(valid[:, None, :], s * scale, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where((m > NEG_INF / 2)[..., None], p, 0.0)
+    return torch.einsum("bht,btr->bhr", p, ckv), m, p.sum(-1)
+
+
+def vwr_mla_flash_decode_ref(q_abs, q_rope, c_kv, k_rope, cur_len, pos0=0,
+                             *, scale: float):
+    """Plain version of kernel 10: c_kv (B, T, r), k_rope (B, T, rope)."""
+    T = c_kv.shape[1]
+    valid = pos0 + torch.arange(T, device=c_kv.device) < cur_len
+    return mla_partials(q_abs, q_rope, c_kv, k_rope, valid[None], scale)
+
+
+def vwr_mla_flash_decode_q8_ref(q_abs, q_rope, c_kv, k_rope, ckv_scale,
+                                krope_scale, cur_len, pos0=0, *,
+                                scale: float):
+    """Plain version of kernel 14: the int8 caches dequantized with their
+    fp32 (B,) scales, then as ``vwr_mla_flash_decode_ref``."""
+    ckv = c_kv.float() * ckv_scale[:, None, None]
+    kr = k_rope.float() * krope_scale[:, None, None]
+    return vwr_mla_flash_decode_ref(q_abs, q_rope, ckv, kr, cur_len, pos0,
+                                    scale=scale)
+
+
+def _gather_pages(pool, table):
+    """(n_pages, ps, X) pool -> (B, J*ps, X) the table's pages (clamped)."""
+    B, J = table.shape
+    tbl = table.long().clamp(0, pool.shape[0] - 1)
+    return pool[tbl].reshape(B, J * pool.shape[1], pool.shape[2]), tbl
+
+
+def _page_valid(counts, ps):
+    B, J = counts.shape
+    return (torch.arange(ps, device=counts.device)[None, None, :]
+            < counts[..., None]).reshape(B, J * ps)
+
+
+def vwr_mla_paged_flash_decode_ref(q_abs, q_rope, ckv_pool, krope_pool,
+                                   table, counts, *, scale: float):
+    """Plain version of kernel 11: gathers only the tables' pages."""
+    ckv, _ = _gather_pages(ckv_pool, table)
+    kr, _ = _gather_pages(krope_pool, table)
+    return mla_partials(q_abs, q_rope, ckv, kr,
+                        _page_valid(counts, ckv_pool.shape[1]), scale)
+
+
+def vwr_mla_paged_flash_decode_q8_ref(q_abs, q_rope, ckv_pool, krope_pool,
+                                      ckv_scale, krope_scale, table, counts,
+                                      *, scale: float):
+    """Plain version of kernel 13: the gathered int8 pages dequantized
+    with their fp32 (n_pages,) scales, then as the bf16 version."""
+    ckv, tbl = _gather_pages(ckv_pool, table)
+    kr, _ = _gather_pages(krope_pool, table)
+    ps = ckv_pool.shape[1]
+    ckv = ckv.float() * ckv_scale[tbl].repeat_interleave(ps, 1)[..., None]
+    kr = kr.float() * krope_scale[tbl].repeat_interleave(ps, 1)[..., None]
+    return mla_partials(q_abs, q_rope, ckv, kr, _page_valid(counts, ps),
+                        scale)
+
+
+# ----------------------------------------------------------------------
+# the kernels
+# ----------------------------------------------------------------------
+
+def _launch(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
+    """Check the operands and launch ``kernel``; ``index`` is (table,
+    counts) for the pools, () for the dense cache (``n_keys`` valid keys
+    from row 0 of each sequence's slab)."""
+    B, H, r = q_abs.shape
+    rope = q_rope.shape[2]
+    paged = bool(index)
+    lead = ckv.shape[:2]
+    if (r not in RANKS or rope not in ROPES or q_rope.shape[:2] != (B, H)
+            or ckv.shape != (*lead, r) or kr.shape != (*lead, rope)
+            or (not paged and lead[0] != B) or lead[0] < 1):
+        raise ValueError(
+            f"{kernel}: needs q_abs (B, H, r in {RANKS}) and q_rope (B, H, "
+            f"rope in {ROPES}) against latent/rope caches (B or n_pages, "
+            f"T or page_size, r / rope); got q_abs {tuple(q_abs.shape)}, "
+            f"q_rope {tuple(q_rope.shape)}, c_kv {tuple(ckv.shape)}, "
+            f"k_rope {tuple(kr.shape)}")
+    build.check_operands(kernel, torch.float32, q_abs=(q_abs, (B, H, r)),
+                         q_rope=(q_rope, (B, H, rope)))
+    cache_dt = torch.int8 if scales else ckv.dtype
+    code = 0 if scales else build.dtype_code(cache_dt)
+    build.check_operands(kernel, cache_dt, c_kv=(ckv, ckv.shape),
+                         k_rope=(kr, kr.shape))
+    if scales:
+        build.check_operands(kernel, torch.float32,
+                             ckv_scale=(scales[0], (lead[0],)),
+                             krope_scale=(scales[1], (lead[0],)))
+    J = 0
+    if paged:
+        J = index[0].shape[1]
+        build.check_operands(kernel, torch.int32,
+                             table=(index[0], (B, J)),
+                             counts=(index[1], (B, J)))
+    f32 = dict(dtype=torch.float32, device=q_abs.device)
+    o_t = torch.empty((B, H, r), **f32)
+    m = torch.empty((B, H), **f32)
+    l = torch.empty((B, H), **f32)
+    ptrs = [q_abs, q_rope, ckv, kr, *scales, *index, o_t, m, l]
+    lib, fn = build.kernel_fn("vwr_mla_decode", f"{kernel}_launch",
+                              [_VP] * len(ptrs) + [_I] * 7
+                              + [_F, _I, _VP])
+    err = fn(*(t.data_ptr() for t in ptrs), B, H, r, rope, lead[0],
+             lead[1], J if paged else n_keys, scale, code,
+             build.stream_of(q_abs))
+    build.check(lib, err, kernel)
+    build.count_launch(kernel)
+    return o_t, m, l
+
+
+def vwr_mla_flash_decode(q_abs, q_rope, c_kv, k_rope, cur_len: int,
+                         pos0: int = 0, *, scale: float):
+    """Kernel 10.  q_abs (B, H, r), q_rope (B, H, rope) fp32; c_kv
+    (B, T, r), k_rope (B, T, rope) bf16 or fp32; ``cur_len`` and
+    ``pos0`` host integers on the kernel path.  Returns fp32 (o_tilde,
+    m, l) as ``vwr_mla_flash_decode_ref``."""
+    if q_abs.device.type == "cpu":
+        return vwr_mla_flash_decode_ref(q_abs, q_rope, c_kv, k_rope,
+                                        cur_len, pos0, scale=scale)
+    n_keys = max(0, min(c_kv.shape[1], int(cur_len) - int(pos0)))
+    return _launch("vwr_mla_flash_decode", q_abs, q_rope, c_kv, k_rope,
+                   (), (), n_keys, scale)
+
+
+def vwr_mla_flash_decode_q8(q_abs, q_rope, c_kv, k_rope, ckv_scale,
+                            krope_scale, cur_len: int, pos0: int = 0, *,
+                            scale: float):
+    """Kernel 14: kernel 10 over int8 caches with fp32 (B,) scales."""
+    if q_abs.device.type == "cpu":
+        return vwr_mla_flash_decode_q8_ref(q_abs, q_rope, c_kv, k_rope,
+                                           ckv_scale, krope_scale, cur_len,
+                                           pos0, scale=scale)
+    n_keys = max(0, min(c_kv.shape[1], int(cur_len) - int(pos0)))
+    return _launch("vwr_mla_flash_decode_q8", q_abs, q_rope, c_kv, k_rope,
+                   (ckv_scale, krope_scale), (), n_keys, scale)
+
+
+def vwr_mla_paged_flash_decode(q_abs, q_rope, ckv_pool, krope_pool, table,
+                               counts, *, scale: float):
+    """Kernel 11.  Pools (n_pages, page_size, r / rope) bf16 or fp32;
+    table, counts (B, J) int32.  The kernel clamps each table entry it
+    reads, so no clamped copy of the table is made."""
+    if q_abs.device.type == "cpu":
+        return vwr_mla_paged_flash_decode_ref(q_abs, q_rope, ckv_pool,
+                                              krope_pool, table, counts,
+                                              scale=scale)
+    return _launch("vwr_mla_paged_flash_decode", q_abs, q_rope, ckv_pool,
+                   krope_pool, (), (table, counts), 0, scale)
+
+
+def vwr_mla_paged_flash_decode_q8(q_abs, q_rope, ckv_pool, krope_pool,
+                                  ckv_scale, krope_scale, table, counts, *,
+                                  scale: float):
+    """Kernel 13: kernel 11 over int8 pools with fp32 (n_pages,) scales."""
+    if q_abs.device.type == "cpu":
+        return vwr_mla_paged_flash_decode_q8_ref(
+            q_abs, q_rope, ckv_pool, krope_pool, ckv_scale, krope_scale,
+            table, counts, scale=scale)
+    return _launch("vwr_mla_paged_flash_decode_q8", q_abs, q_rope, ckv_pool,
+                   krope_pool, (ckv_scale, krope_scale), (table, counts), 0,
+                   scale)

@@ -4,12 +4,15 @@ prefill and a few decode steps of ``DecodeEngine`` at full width.
     PYTHONPATH=src python3 -m repro_torch.launch.trace \\
         --arch tinyllama-1.1b --kernel-impl cuda --cache paged-int8 \\
         --out trace.json
+    PYTHONPATH=src python3 -m repro_torch.launch.trace \\
+        --arch deepseek-v3-671b --n-layers 4 --cache paged
 
 Batch 4, prompt 128, 8 decode steps, random weights from seed 0 (the
 shapes ``chip_smoke.py`` serves), over the dense cache or, with
 ``--cache paged`` / ``paged-int8``, over page pools of 16 positions in
 the model dtype / int8 (whole-batch block tables, as ``generate``
-uses).  Prints, for the prefill and for the decode steps: wall time,
+uses); ``--n-layers`` cuts the depth (the widths stay the published
+ones).  Prints, for the prefill and for the decode steps: wall time,
 summed device kernel time, the device's busy and idle shares of the
 wall time, the number of device kernels launched, and kernel time by
 name (largest first).  Writes the same as JSON to ``--out``.  Needs a
@@ -70,10 +73,13 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-impl", default="cuda")
     ap.add_argument("--cache", default="dense",
                     choices=("dense", "paged", "paged-int8"))
+    ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if args.n_layers is not None:
+        cfg = cfg.replace(n_layers=args.n_layers)
     paged = args.cache != "dense"
     eng = DecodeEngine(cfg, EngineConfig(
         batch=BATCH, max_len=PROMPT + STEPS + 1,
@@ -98,7 +104,7 @@ def main(argv=None) -> int:
             tok = lg.argmax(-1).to(torch.int32)
 
     _, dec = _window(decode)
-    report = {"arch": args.arch, "batch": BATCH,
+    report = {"arch": args.arch, "n_layers": cfg.n_layers, "batch": BATCH,
               "prompt": PROMPT, "steps": STEPS,
               "kernel_impl": args.kernel_impl, "cache": args.cache,
               "device": torch.cuda.get_device_name(0),

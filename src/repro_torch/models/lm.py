@@ -1,23 +1,32 @@
-"""Model assembly for the dense family: spec, prefill and decode.
+"""Model assembly for the dense and moe families: spec, prefill and
+decode.
 
-Counterpart of ``repro.models.lm``, dense family only (tinyllama,
-granite, qwen, deepseek-coder).  Conventions kept from the JAX package:
+Counterpart of ``repro.models.lm`` for the dense family (tinyllama,
+granite, qwen, deepseek-coder) and the moe family (olmoe with GQA,
+deepseek-v3 with MLA).  Conventions kept from the JAX package:
 
-  * pre-norm GQA attention + MLP; the attention and MLP sub-blocks take
-    the residual stream as ``residual=`` on prefill (fused into the
-    kernel epilogue on the 'cuda' backend), while decode adds the MLP
-    output outside (``x + mlp(...)``), as the JAX decode body does;
+  * pre-norm attention + MLP (or MoE FFN); the attention and MLP
+    sub-blocks take the residual stream as ``residual=`` on prefill
+    (fused into the kernel epilogue on the 'cuda' backend), while decode
+    adds the FFN output outside (``x + mlp(...)``), as the JAX decode
+    body does; the moe family runs its ``first_k_dense`` dense layers
+    (``dense_layers``, FFN width ``d_ff_dense``) before its MoE layers
+    (``layers``), and its attention is MLA when ``cfg.mla`` is set;
   * parameters are stacked on a leading layer axis; the layers run as
     a Python loop over it;
-  * the dense decode cache is ``{"k", "v"}`` of shape (L, B, T, KV, Dh);
-    the paged one is pools of shape (L, n_pages, page_size, KV, Dh)
-    (+ fp32 (L, n_pages, KV) scales for int8 pools) addressed through
-    per-slot block tables (``paged_decode_step``);
+  * the dense decode cache is ``{"k", "v"}`` of shape (L, B, T, KV, Dh),
+    or ``{"ckv", "krope"}`` (L, B, T, r / rope) for MLA, nested as
+    ``{"dense": ..., "moe": ...}`` for the moe family (``"dense"`` None
+    without dense layers); the paged one holds pools of shape (L,
+    n_pages, page_size, KV, Dh) or (L, n_pages, page_size, r / rope)
+    (+ fp32 scales for int8 pools) in the same nesting, addressed
+    through per-slot block tables (``paged_decode_step``);
   * a prompt whose prefix is already in the pools (a prefix-cache hit,
     or the earlier chunks of a chunked prefill) prefills only its
     suffix against the prefix gathered back out of the pools
     (``prefill_suffix``, ``prefill_chunk``), on the blockwise
-    formulation, so every suffix row equals the whole prompt's row.
+    formulation, so every suffix row equals the whole prompt's row
+    (dense family; the moe family's suffix prefill is not ported yet).
 
 ``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda').
 """
@@ -33,23 +42,26 @@ from repro_torch.dist import decode as DD
 from repro_torch.kernels import dispatch as D
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
-# where each unported family lives in ROADMAP.md queue 1
-_UNPORTED = {
-    "moe": "item 10 (MoE + MLA families)",
-    "hybrid": "item 11 (remaining families)",
-    "ssm": "item 11 (remaining families)",
-    "vlm": "item 11 (remaining families)",
-    "audio": "item 11 (remaining families)",
-}
+# the prefix cache and chunked prefill of the moe family: the MLA suffix
+# prefill (``mla_attention_suffix``) and the MLA chunk-prefix kernels
+MOE_PREFIX = ("the prefix cache and chunked prefill of the moe family "
+              "(suffix prefill over MLA latent pools, kernels 12 and 15) "
+              "are not ported to repro_torch yet: ROADMAP queue 1 item 10")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.mla is not None:
-        where = _UNPORTED.get(cfg.family, "item 10 (MLA)")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet: ROADMAP queue 1 {where}")
+    """The dense family (GQA) and the moe family (GQA or MLA) are
+    ported; the others raise with their ROADMAP item."""
+    if cfg.family == "moe" or (cfg.family == "dense" and cfg.mla is None):
+        return
+    where = ("item 10 (MLA)" if cfg.family == "dense"
+             else "item 11 (remaining families)")
+    raise NotImplementedError(
+        f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
+        f"yet: ROADMAP queue 1 {where}")
 
 
 # ======================================================================
@@ -72,12 +84,26 @@ def _norm(cfg, p, x):
 # spec / init
 # ======================================================================
 
-def _dense_layer_spec(cfg):
+def _attn_spec(cfg):
+    return MLA.mla_spec(cfg) if cfg.mla is not None else A.gqa_spec(cfg)
+
+
+def _dense_layer_spec(cfg, d_ff=None):
     return {
         "attn_norm": _norm_spec(cfg),
-        "attn": A.gqa_spec(cfg),
+        "attn": _attn_spec(cfg),
         "mlp_norm": _norm_spec(cfg),
-        "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, L.dt(cfg)),
+        "mlp": L.mlp_spec(cfg.d_model, d_ff or cfg.d_ff, cfg.act,
+                          L.dt(cfg)),
+    }
+
+
+def _moe_layer_spec(cfg):
+    return {
+        "attn_norm": _norm_spec(cfg),
+        "attn": _attn_spec(cfg),
+        "mlp_norm": _norm_spec(cfg),
+        "moe": MOE.moe_spec(cfg),
     }
 
 
@@ -87,8 +113,18 @@ def model_spec(cfg) -> Dict[str, Any]:
     spec: Dict[str, Any] = {
         "embed": L.embedding_spec(cfg.vocab_padded, cfg.d_model, dtype),
         "final_norm": _norm_spec(cfg),
-        "layers": M.stack_specs(_dense_layer_spec(cfg), cfg.n_layers),
     }
+    if cfg.family == "moe":
+        m = cfg.moe
+        if m.first_k_dense:
+            spec["dense_layers"] = M.stack_specs(
+                _dense_layer_spec(cfg, d_ff=m.d_ff_dense or cfg.d_ff),
+                m.first_k_dense)
+        spec["layers"] = M.stack_specs(_moe_layer_spec(cfg),
+                                       cfg.n_layers - m.first_k_dense)
+    else:
+        spec["layers"] = M.stack_specs(_dense_layer_spec(cfg),
+                                       cfg.n_layers)
     if not cfg.tie_embeddings:
         spec["unembed"] = L.unembed_spec(cfg.vocab_padded, cfg.d_model,
                                          dtype)
@@ -102,8 +138,35 @@ def init(cfg, seed: int = 0, device="cuda"):
 
 
 def _layer(stacked, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
+    """Layer ``i``'s parameters (or cache): views into the stacks."""
     return M.map_tree(lambda a: a[i], stacked)
+
+
+def _depth(stacked) -> int:
+    return next(M.leaves(stacked))[1].shape[0]
+
+
+def _groups(cfg, params):
+    """The layer stacks in order: (stacked parameters, the key of their
+    cache group (None: the whole cache), whether the FFN is the MoE)."""
+    if cfg.family != "moe":
+        return [(params["layers"], None, False)]
+    groups = [(params["layers"], "moe", True)]
+    if cfg.moe.first_k_dense:
+        groups.insert(0, (params["dense_layers"], "dense", False))
+    return groups
+
+
+def _cache_group(cache, key):
+    return cache if key is None else cache[key]
+
+
+def _pool_leaf(cfg, cache):
+    """The cache leaf whose shape gives the pages and page size of a
+    paged cache: the latent pool for MLA, the K pool otherwise (in the
+    moe group for the moe family)."""
+    return _cache_group(cache, "moe" if cfg.family == "moe" else None)[
+        "ckv" if cfg.mla is not None else "k"]
 
 
 # ======================================================================
@@ -112,7 +175,12 @@ def _layer(stacked, i: int):
 
 def _attn_delta(cfg, ap, h, positions, *, residual=None):
     """h already normed.  Returns (residual + attn(h) if residual is
-    given else attn(h), (k, v)) for cache building."""
+    given else attn(h), (k, v)) for cache building — (c_kv, k_rope) for
+    MLA, whose prefill is the expanded form on the blockwise path."""
+    if cfg.mla is not None:
+        out, kv = MLA.mla_attention(ap, h, positions, cfg,
+                                    dense=cfg.accounting)
+        return (out if residual is None else residual + out), kv
     q, k, v = A.qkv_proj(ap, h, positions, cfg.rope_theta, cfg)
     o = D.dispatch("attention", cfg, q, k, v, causal=True,
                    q_positions=positions, kv_positions=positions,
@@ -128,26 +196,42 @@ def _dense_body(cfg, positions, x, lp):
     return x, kv
 
 
+def _moe_body(cfg, positions, x, lp):
+    x, kv = _attn_delta(cfg, lp["attn"], _norm(cfg, lp["attn_norm"], x),
+                        positions, residual=x)
+    y, _aux = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x), cfg)
+    return x + y, kv
+
+
 class ForwardOut(NamedTuple):
     h: torch.Tensor          # (B, S, D) final hidden (post-norm)
-    caches: Any              # (k, v) stacks (L, B, S, KV, Dh) or None
+    caches: Any              # KV stacks (see ``backbone``) or None
 
 
 def backbone(params, tokens, cfg, *, collect_cache=False) -> ForwardOut:
     """tokens: (B, S) int.  ``collect_cache=True`` (prefill) also
-    returns the per-layer KV stacks."""
+    returns the per-layer cache stacks: (k, v) (L, B, S, KV, Dh), or
+    (c_kv, k_rope) (L, B, S, r / rope) for MLA; for the moe family the
+    pair (dense layers' stacks or None, MoE layers' stacks)."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens).to(L.dt(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _dense_body(cfg, positions, x,
-                                _layer(params["layers"], i))
+    stacks = {}
+    for stacked, key, moe in _groups(cfg, params):
+        body = _moe_body if moe else _dense_body
+        ks, vs = [], []
+        for i in range(_depth(stacked)):
+            x, (k, v) = body(cfg, positions, x, _layer(stacked, i))
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
         if collect_cache:
-            ks.append(k)
-            vs.append(v)
+            stacks[key] = (torch.stack(ks), torch.stack(vs))
     x = _norm(cfg, params["final_norm"], x)
-    caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    caches = None
+    if collect_cache:
+        caches = ((stacks.get("dense"), stacks["moe"])
+                  if cfg.family == "moe" else stacks[None])
     return ForwardOut(h=x, caches=caches)
 
 
@@ -164,8 +248,8 @@ def _logits(params, h, cfg):
 
 def prefill(params, batch, cfg):
     """Full-sequence prefill: returns (last-token logits (B, V) fp32,
-    (k, v) stacks); ``engine.pad_cache_from_prefill`` pads the stacks
-    into a fixed-size decode cache."""
+    the cache stacks of ``backbone``); ``engine.pad_cache_from_prefill``
+    pads them into a fixed-size decode cache."""
     out = backbone(params, batch["tokens"], cfg, collect_cache=True)
     logits = _logits(params, out.h[:, -1:, :], cfg)[:, 0]
     return logits.float(), out.caches
@@ -245,6 +329,8 @@ def prefill_suffix(params, batch, cfg):
             f"prefill_suffix supports the token-only families ('dense', "
             f"'moe'); family {cfg.family!r} prepends frontend positions "
             "that a token-keyed prefix index cannot match")
+    if cfg.family == "moe":
+        raise NotImplementedError(MOE_PREFIX)
     _check_family(cfg)
     cache = batch["cache"]
     dev = cache["k"].device
@@ -298,17 +384,61 @@ def prefill_chunk(params, batch, cfg):
 # decode
 # ======================================================================
 
+def _group_spec(cfg, n: int, lead):
+    """One cache group of ``n`` layers: (L, *lead, KV, Dh) K/V, or the
+    (L, *lead, r) latent and (L, *lead, rope) rope caches for MLA."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": (n, *lead, m.kv_lora_rank),
+                "krope": (n, *lead, m.rope_head_dim)}
+    sh = (n, *lead, cfg.n_kv_heads, cfg.d_head)
+    return {"k": sh, "v": sh}
+
+
+def group_specs(cfg, lead):
+    """The cache tree's shapes: one group, or for the moe family
+    ``{"dense": group or None, "moe": group}`` (``engine.paged_cache``
+    builds its pools on it with ``lead = (n_pages, page_size)``)."""
+    if cfg.family == "moe":
+        m = cfg.moe
+        return {"dense": (_group_spec(cfg, m.first_k_dense, lead)
+                          if m.first_k_dense else None),
+                "moe": _group_spec(cfg, cfg.n_layers - m.first_k_dense,
+                                   lead)}
+    return _group_spec(cfg, cfg.n_layers, lead)
+
+
+def map_groups(fn, tree):
+    """``fn`` over a cache tree's leaves (a nested dict; None stays)."""
+    return {k: (None if v is None else map_groups(fn, v)
+                if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
+
+
 def cache_spec(cfg, batch: int, max_len: int):
-    """{name: (shape, dtype)} of the dense decode cache."""
+    """{name: (shape, dtype)} of the dense decode cache (nested for the
+    moe family)."""
     _check_family(cfg)
-    sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": (sh, L.dt(cfg)), "v": (sh, L.dt(cfg))}
+    return map_groups(lambda sh: (sh, L.dt(cfg)),
+                      group_specs(cfg, (batch, max_len)))
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, (shape, dtype) in cache_spec(cfg, batch,
-                                                   max_len).items()}
+    return map_groups(
+        lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device),
+        cache_spec(cfg, batch, max_len))
+
+
+def _rope_dim(cfg) -> int:
+    """The features a rotary table turns: MLA's rope part, else a head."""
+    return cfg.mla.rope_head_dim if cfg.mla is not None else cfg.d_head
+
+
+def _step_rope(cfg, positions):
+    """One set of rotary tables for every layer of a step (None without
+    rotary embeddings; MLA always rotates its rope features)."""
+    if not cfg.rope_theta and cfg.mla is None:
+        return None
+    return L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
 
 
 def _rope1(x, rope):
@@ -342,11 +472,48 @@ def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope):
     return torch.einsum("bhk,hkd->bd", o, lp["wo"])
 
 
-def _dense_decode_body(cfg, cur_len, rope, x, lp, ck, cv):
-    h = _norm(cfg, lp["attn_norm"], x)
-    x = x + _decode_gqa(cfg, lp["attn"], h, ck, cv, cur_len, rope)
-    return x + L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
-                     backend=cfg)
+def _mla_token(cfg, lp, h, rope):
+    """One token's MLA material: (q_abs (B, H, r) fp32, q_rope (B, H,
+    rope) fp32, scale, c_kv (B, r), k_rope (B, rope))."""
+    h3 = h[:, None, :]
+    q_nope, q_rope = MLA.mla_queries(lp, h3, None, cfg, rope=rope)
+    c_kv, k_rope = MLA.mla_latent(lp, h3, None, cfg, rope=rope)
+    q_abs, q_rope, scale = MLA.mla_absorbed_queries(lp, q_nope[:, 0],
+                                                    q_rope[:, 0], cfg)
+    return q_abs, q_rope, scale, c_kv[:, 0], k_rope[:, 0]
+
+
+def _decode_mla(cfg, lp, h, cckv, ckr, cur_len, rope):
+    """Absorbed MLA decode.  cckv (B, T, r) / ckr (B, T, rope) this
+    layer's latent and rope caches, written in place at ``cur_len``;
+    the two ride separately into ``dist.decode.mla_decode_attend``.
+    Returns the attention delta (B, D)."""
+    q_abs, q_rope, scale, c_kv, k_rope = _mla_token(cfg, lp, h, rope)
+    cckv[:, cur_len] = c_kv
+    ckr[:, cur_len] = k_rope
+    o = DD.mla_decode_attend(q_abs, q_rope, cckv, ckr, cur_len + 1,
+                             scale=scale, backend=cfg.kernel_impl,
+                             seq_shard=(cfg.decode_shard == "seq"))
+    return MLA.mla_decode_finish(lp, o.float(), cfg).to(h.dtype)
+
+
+def _decode_attn_delta(cfg, ap, h, cs, cur_len, rope):
+    """Attention step of the dense-cache decode: MLA or GQA on this
+    layer's cache slice ``cs``."""
+    if cfg.mla is not None:
+        return _decode_mla(cfg, ap, h, cs["ckv"], cs["krope"], cur_len,
+                           rope)
+    return _decode_gqa(cfg, ap, h, cs["k"], cs["v"], cur_len, rope)
+
+
+def _ffn_delta(cfg, lp, x, moe: bool):
+    """The decode FFN's delta: the MLP, or the MoE FFN over all B slots
+    as one group, inactive slots included, as the JAX decode step groups
+    them (a slot's capacity depends on its neighbours)."""
+    h = _norm(cfg, lp["mlp_norm"], x)
+    if moe:
+        return MOE.moe_ffn(lp["moe"], h[None], cfg)[0][0]
+    return L.mlp(lp["mlp"], h, cfg.act, backend=cfg)
 
 
 def decode_step(params, batch, cfg):
@@ -362,16 +529,18 @@ def decode_step(params, batch, cfg):
     cur = int(batch["cur_len"])
     cache = batch["cache"]
     x = L.embed(params["embed"], batch["token"]).to(L.dt(cfg))  # (B, D)
-    # one set of rotary tables for every layer; torch.full fills on the
-    # device (a tensor copied from a host scalar would sync the stream)
-    rope = None
-    if cfg.rope_theta:
-        pos = torch.full((1,), cur, dtype=torch.float32, device=x.device)
-        rope = L.rope_tables(pos, cfg.d_head, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = _dense_decode_body(cfg, cur, rope, x,
-                               _layer(params["layers"], i),
-                               cache["k"][i], cache["v"][i])
+    # torch.full fills on the device (a tensor copied from a host scalar
+    # would sync the stream)
+    rope = _step_rope(cfg, torch.full((1,), cur, dtype=torch.float32,
+                                      device=x.device))
+    for stacked, key, moe in _groups(cfg, params):
+        group = _cache_group(cache, key)
+        for i in range(_depth(stacked)):
+            lp = _layer(stacked, i)
+            h = _norm(cfg, lp["attn_norm"], x)
+            x = x + _decode_attn_delta(cfg, lp["attn"], h,
+                                       _layer(group, i), cur, rope)
+            x = x + _ffn_delta(cfg, lp, x, moe)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
     return logits, cache
@@ -450,6 +619,18 @@ def paged_step_meta(token, lens, table, page_size: int, device,
                      extra=tuple(rest[:n_extra]))
 
 
+def _pool_write(pool, scales, meta, x):
+    """Each active slot's token ``x`` (B, ...) into this layer's pool at
+    its page and offset, in place (quantize-on-write for int8 pools)."""
+    if not meta.all_active:
+        x = x.index_select(0, meta.act)
+    if scales is not None:
+        from repro_torch.engine.paged_cache import quantized_page_write
+        quantized_page_write(pool, scales, meta.pages, meta.offs, x)
+    else:
+        pool[meta.pages, meta.offs] = x.to(pool.dtype)
+
+
 def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope):
     """h: (B, D) normed; kp/vp: this layer's (n_pages, ps, KV, Dh)
     pools, written in place at each active slot's position; ks/vs its
@@ -462,41 +643,55 @@ def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope):
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     if rope is not None:
         q, k = _rope1(q, rope), _rope1(k, rope)
-    if not meta.all_active:
-        k, v = k.index_select(0, meta.act), v.index_select(0, meta.act)
-    if ks is not None:
-        from repro_torch.engine.paged_cache import quantized_page_write
-        quantized_page_write(kp, ks, meta.pages, meta.offs, k)
-        quantized_page_write(vp, vs, meta.pages, meta.offs, v)
-    else:
-        kp[meta.pages, meta.offs] = k.to(kp.dtype)
-        vp[meta.pages, meta.offs] = v.to(vp.dtype)
+    _pool_write(kp, ks, meta, k)
+    _pool_write(vp, vs, meta, v)
     o = DD.paged_decode_attend(q, kp, vp, meta.table, meta.counts,
                                k_scale=ks, v_scale=vs,
                                backend=cfg.kernel_impl)
     return torch.einsum("bhk,hkd->bd", o, lp["wo"])
 
 
-def _dense_paged_body(cfg, meta, rope, x, lp, kp, vp, ks, vs):
-    h = _norm(cfg, lp["attn_norm"], x)
-    x = x + _decode_gqa_paged(cfg, lp["attn"], h, kp, vp, ks, vs, meta,
-                              rope)
-    return x + L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
-                     backend=cfg)
+def _decode_mla_paged(cfg, lp, h, ckv_pool, krope_pool, cs, rs, meta,
+                      rope):
+    """Absorbed MLA decode against this layer's latent pools (n_pages,
+    ps, r) / (n_pages, ps, rope), written in place; cs/rs their
+    (n_pages,) scales for int8 pools, else None.  The pools ride
+    separately into ``dist.decode.mla_paged_decode_attend``.  Returns
+    the attention delta (B, D)."""
+    q_abs, q_rope, scale, c_kv, k_rope = _mla_token(cfg, lp, h, rope)
+    _pool_write(ckv_pool, cs, meta, c_kv)
+    _pool_write(krope_pool, rs, meta, k_rope)
+    o = DD.mla_paged_decode_attend(q_abs, q_rope, ckv_pool, krope_pool,
+                                   meta.table, meta.counts, scale=scale,
+                                   ckv_scale=cs, krope_scale=rs,
+                                   backend=cfg.kernel_impl)
+    return MLA.mla_decode_finish(lp, o.float(), cfg).to(h.dtype)
+
+
+def _paged_attn_delta(cfg, ap, h, cs, meta, rope):
+    """Attention step of the paged decode: MLA or GQA on this layer's
+    pool slice ``cs``; int8 pools are told by their scales."""
+    if cfg.mla is not None:
+        return _decode_mla_paged(cfg, ap, h, cs["ckv"], cs["krope"],
+                                 cs.get("ckv_scale"), cs.get("krope_scale"),
+                                 meta, rope)
+    return _decode_gqa_paged(cfg, ap, h, cs["k"], cs["v"], cs.get("k_scale"),
+                             cs.get("v_scale"), meta, rope)
 
 
 def paged_decode_step(params, batch, cfg, meta=None):
-    """One-token serve step over a paged KV cache (dense family).
+    """One-token serve step over a paged KV cache.
 
     batch: ``token`` (B,), ``cur_len`` (B,) per-slot valid positions and
     ``block_table`` (B, W) — host arrays (numpy or CPU tensors; the
     token may already be on the device) — and ``cache``
     (``engine.paged_cache`` pools, written in place).  Slots with
     cur_len == 0 are inactive: they write nothing, their attention is
-    masked to zero and their logits are garbage the caller discards.
-    ``meta`` is the step's metadata when the caller already built it
-    (``paged_step_meta``; the mixed step does, with its chunk's).
-    Returns (logits (B, vocab_padded) fp32, cache)."""
+    masked to zero and their logits are garbage the caller discards
+    (they still take part in the MoE FFN's one decode group, as in the
+    JAX step).  ``meta`` is the step's metadata when the caller already
+    built it (``paged_step_meta``; the mixed step does, with its
+    chunk's).  Returns (logits (B, vocab_padded) fp32, cache)."""
     # engine modules import this one: keep the import lazy
     from repro_torch.engine.paged_cache import check_family
     check_family(cfg)
@@ -505,22 +700,21 @@ def paged_decode_step(params, batch, cfg, meta=None):
         # cache as it was
         raise NotImplementedError(DD._SEQ_SHARD)
     cache = batch["cache"]
-    kpool, vpool = cache["k"], cache["v"]
     if meta is None:
+        leaf = _pool_leaf(cfg, cache)
         meta = paged_step_meta(batch["token"], batch["cur_len"],
-                               batch["block_table"], kpool.shape[2],
-                               kpool.device)
+                               batch["block_table"], leaf.shape[2],
+                               leaf.device)
     x = L.embed(params["embed"], meta.token).to(L.dt(cfg))   # (B, D)
-    rope = None
-    if cfg.rope_theta:
-        rope = L.rope_tables(meta.pos[:, None], cfg.d_head,
-                             cfg.rope_theta)          # per-slot positions
-    q8 = "k_scale" in cache
-    for i in range(cfg.n_layers):
-        x = _dense_paged_body(
-            cfg, meta, rope, x, _layer(params["layers"], i), kpool[i],
-            vpool[i], cache["k_scale"][i] if q8 else None,
-            cache["v_scale"][i] if q8 else None)
+    rope = _step_rope(cfg, meta.pos[:, None])         # per-slot positions
+    for stacked, key, moe in _groups(cfg, params):
+        group = _cache_group(cache, key)
+        for i in range(_depth(stacked)):
+            lp = _layer(stacked, i)
+            h = _norm(cfg, lp["attn_norm"], x)
+            x = x + _paged_attn_delta(cfg, lp["attn"], h, _layer(group, i),
+                                      meta, rope)
+            x = x + _ffn_delta(cfg, lp, x, moe)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
     return logits, cache

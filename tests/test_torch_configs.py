@@ -78,7 +78,9 @@ def test_no_jax_or_reference_imports(path):
 def test_dispatch_registry_has_both_backends():
     from repro_torch.models import lm  # noqa: F401  (registers the ops)
     for op in ("qkv_proj", "o_proj", "attention", "mlp", "swiglu",
-               "decode_partial"):
+               "decode_partial", "decode_partial_mla",
+               "decode_partial_mla_q8", "decode_partial_mla_paged",
+               "decode_partial_mla_paged_q8"):
         assert dispatch.backends(op) == ("cuda", "torch"), op
     with pytest.raises(KeyError, match="no 'auto' backend"):
         dispatch.resolve("mlp", "auto")
@@ -94,7 +96,11 @@ def test_kernel_build_paths_and_counters():
                                    "vwr_paged_flash_decode",
                                    "vwr_paged_flash_decode_q8",
                                    "vwr_chunk_prefix_attend",
-                                   "vwr_chunk_prefix_attend_q8"}
+                                   "vwr_chunk_prefix_attend_q8",
+                                   "vwr_mla_flash_decode",
+                                   "vwr_mla_paged_flash_decode",
+                                   "vwr_mla_paged_flash_decode_q8",
+                                   "vwr_mla_flash_decode_q8"}
     for name in build.SOURCES:
         p = build.lib_path(name)
         assert (build.CSRC / f"{name}.cu").exists()

@@ -57,6 +57,41 @@ def test_generate_matches_jax_engine(name, timpl):
                           "decode_tok_s"}
 
 
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "olmoe-1b-7b"])
+def test_moe_generate_matches_jax_engine(name):
+    """The moe family on the dense cache: reduced deepseek-v3 (MLA latent
+    cache, kernel 10's plain version) and reduced olmoe (GQA), the
+    port's 'cuda' backend against the JAX engine's greedy tokens."""
+    jc, tc = _cfgs(name)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jeng = JEngine(jc, JEngineConfig(batch=B, max_len=P + GEN,
+                                     mesh_shape=(1, 1)), mesh=mesh)
+    toks = np.random.default_rng(2).integers(0, jc.vocab, (B, P),
+                                             dtype=np.int32)
+    want, _ = jeng.generate({"tokens": jnp.asarray(toks)}, gen=GEN)
+    params = bridge.from_jax(jax.tree.map(np.asarray, jeng.params), "cpu")
+    eng = DecodeEngine(tc, EngineConfig(batch=B, max_len=P + GEN),
+                       params=params, device="cpu")
+    got, _ = eng.generate({"tokens": torch.from_numpy(toks)}, gen=GEN)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kw", [dict(prefix_cache=True),
+                                dict(chunked_prefill=True, chunk_tokens=4)])
+def test_moe_prefix_and_chunked_options_raise(kw):
+    """Paged moe engines serve, but not the prefix cache or chunked
+    prefill yet (ROADMAP queue 1 item 10); the JAX engine's ValueErrors
+    come first, as for the dense family."""
+    _, tc = _cfgs("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        DecodeEngine(tc, EngineConfig(batch=1, max_len=8, paged=True,
+                                      page_size=4, **kw), device="cpu")
+    with pytest.raises(ValueError, match="needs paged=True"):
+        DecodeEngine(tc, EngineConfig(batch=1, max_len=8, **kw),
+                     device="cpu")
+
+
 def test_engine_rejects_overlong_generation_and_bad_batch():
     _, tc = _cfgs("tinyllama-1.1b")
     eng = DecodeEngine(tc, EngineConfig(batch=2, max_len=12), device="cpu")

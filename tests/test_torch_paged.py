@@ -318,6 +318,102 @@ def test_quantized_page_write_matches_jax():
     np.testing.assert_array_equal(ts.numpy()[[0, 2]], scales[[0, 2]])
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "olmoe-1b-7b"])
+def test_moe_pool_spec_matches_jax(name, kv_dtype):
+    """The moe family's nested pools ({"dense": ..., "moe": ...}; MLA
+    latent and rope pools with (L, n_pages) scales for int8) have the
+    JAX spec's shapes and dtypes, and every layer of every leaf starts
+    16-byte aligned."""
+    jc = jconfigs.reduced(jconfigs.get_config(name))
+    tc = tconfigs.reduced(tconfigs.get_config(name))
+    jspec = jpc.paged_cache_spec(jc, 9, 4, 2, kv_dtype=kv_dtype)
+    tspec = tpc.paged_cache_spec(tc, 9, 4, kv_dtype=kv_dtype)
+    cache = tpc.init_paged_cache(tc, 9, 4, kv_dtype=kv_dtype, device="cpu")
+    assert set(tspec) == set(jspec) == {"dense", "moe"}
+    for grp in ("dense", "moe"):
+        if jspec[grp] is None:
+            assert tspec[grp] is None and cache[grp] is None
+            continue
+        want = {k: (tuple(v.shape), f"torch.{v.dtype}")
+                for k, v in jspec[grp].items()}
+        assert {k: (v[0], str(v[1])) for k, v in tspec[grp].items()} == want
+        for k, t in cache[grp].items():
+            assert (tuple(t.shape), str(t.dtype)) == want[k]
+            assert all(t[i].data_ptr() % 16 == 0 for i in range(len(t)))
+
+
+def _mla_cfgs():
+    return (jconfigs.reduced(jconfigs.get_config("deepseek-v3-671b")),
+            tconfigs.reduced(tconfigs.get_config("deepseek-v3-671b")))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_moe_write_prefill_matches_jax(kv_dtype):
+    """Reduced deepseek-v3's prefill material (a dense and an MoE layer
+    group of latent and rope stacks, S = 7: a ragged last page) into
+    permuted pages of pools holding stale bytes: bit-equal to JAX, int8
+    quantized one scale a whole page."""
+    jc, tc = _mla_cfgs()
+    rng = np.random.default_rng(15)
+    m, S, ps, n_pages = jc.mla, 7, 4, 9
+    stacks = tuple(
+        tuple(rng.standard_normal((n, 2, S, w)).astype(np.float32)
+              for w in (m.kv_lora_rank, m.rope_head_dim))
+        for n in (1, jc.n_layers - 1))
+    table = np.zeros((2, 3), np.int32)
+    table[:, :2] = rng.permutation(n_pages)[:4].reshape(2, 2)
+    jcache = jpc.init_paged_cache(jc, n_pages, ps, 2, kv_dtype=kv_dtype)
+    tcache = tpc.init_paged_cache(tc, n_pages, ps, kv_dtype=kv_dtype,
+                                  device="cpu")
+    for grp in ("dense", "moe"):
+        stale = {k: rng.integers(-50, 50, v.shape).astype(v.dtype)
+                 for k, v in jcache[grp].items()}
+        jcache[grp] = {k: jnp.asarray(v) for k, v in stale.items()}
+        for k, v in stale.items():
+            tcache[grp][k].copy_(_t(v))
+    jcache = jpc.write_prefill(jc, jcache, jax.tree.map(jnp.asarray, stacks),
+                               jnp.asarray(table))
+    tpc.write_prefill(tc, tcache, jax.tree.map(_t, stacks), table)
+    for grp in ("dense", "moe"):
+        assert set(tcache[grp]) == set(jcache[grp])
+        for k in jcache[grp]:
+            np.testing.assert_array_equal(tcache[grp][k].numpy(),
+                                          np.asarray(jcache[grp][k]),
+                                          err_msg=f"{grp}/{k}")
+
+
+def test_mla_quantized_page_write_matches_jax():
+    """Decode writes into a flat int8 latent pool (n_pages, ps, r) with
+    one scale a page: an offset-0 write into a stale page (scale reset,
+    page scrubbed), growing tokens (the page scale grows and resident
+    rows requantize) and an inactive slot; bit-equal to JAX."""
+    rng = np.random.default_rng(18)
+    n_pages, ps, r = 8, 4, 16
+    pool = rng.integers(-100, 100, (n_pages, ps, r)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.2, (n_pages,)).astype(np.float32)
+    table = np.array([[3, 5, 7], [1, 4, 6], [0, 2, 6]], np.int32)
+    lens = np.array([3, 1, 0], np.int32)
+    jp, js = jnp.asarray(pool), jnp.asarray(scales)
+    tp, ts = _t(pool.copy()), _t(scales.copy())
+    for step in range(7):
+        x = (rng.standard_normal((3, r)) * (1 + step)).astype(np.float32)
+        jpages, joffs, _ = jlm._page_write_ids(
+            jnp.asarray(table), jnp.asarray(lens), ps, n_pages)
+        jp, js = jpc.quantized_page_write(jp, js, jpages, joffs,
+                                          jnp.asarray(x))
+        act, pages, offs, _ = lm._page_write_ids(table, lens, ps)
+        tpc.quantized_page_write(tp, ts, _t(pages), _t(offs), _t(x[act]))
+        lens = lens + (lens > 0)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp),
+                                      err_msg=f"step {step}")
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js),
+                                      err_msg=f"step {step}")
+        if step == 1:                   # slot 0's offset-0 write
+            assert torch.all(tp[5, 1:] == 0)
+    np.testing.assert_array_equal(tp.numpy()[[0, 2]], pool[[0, 2]])
+
+
 # ---------------------------------------------------------------- model
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
@@ -329,6 +425,26 @@ def test_paged_decode_step_matches_jax(name, kv_dtype, jimpl, timpl):
     permuted pages) and one inactive slot, 8 paged decode steps fed the
     JAX greedy tokens: the active rows' logits agree at 1e-4 of scale
     and pick the same tokens ('bf16' pools hold the fp32 model dtype)."""
+    _paged_steps(name, kv_dtype, jimpl, timpl)
+
+
+@pytest.mark.parametrize("name,kv_dtype,jimpl,timpl", [
+    ("deepseek-v3-671b", "bf16", "xla", "torch"),
+    ("deepseek-v3-671b", "int8", "pallas", "cuda"),
+    ("olmoe-1b-7b", "int8", "pallas", "cuda")])
+def test_moe_paged_decode_step_matches_jax(name, kv_dtype, jimpl, timpl):
+    """The same for the moe family: MLA latent pools (reduced deepseek-v3,
+    a dense first layer, int8 pools with one scale a page) and GQA pools
+    (reduced olmoe; its Scheduler streams are held in
+    ``test_torch_scheduler.py``).  The inactive slot's garbage token
+    takes part in the MoE FFN's decode group, as in the JAX step, so the
+    active rows depend on it.  (At this seed the JAX package's own 'xla'
+    and 'pallas' int8 olmoe steps part by 1.6e-3 of the logits at step
+    2; the port's two backends agree with its 'pallas' one.)"""
+    _paged_steps(name, kv_dtype, jimpl, timpl)
+
+
+def _paged_steps(name, kv_dtype, jimpl, timpl):
     jc = jconfigs.reduced(jconfigs.get_config(name)).replace(
         kernel_impl=jimpl)
     tc = tconfigs.reduced(tconfigs.get_config(name)).replace(
@@ -418,6 +534,17 @@ def test_paged_generate_matches_dense_and_jax(name, kv_dtype):
     """The port's paged ``generate`` (kernel backend) gives the JAX
     paged engine's greedy tokens; with model-dtype pools it also gives
     the port's dense ``generate``'s."""
+    _paged_generate(name, kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "olmoe-1b-7b"])
+def test_moe_paged_generate_matches_dense_and_jax(name, kv_dtype):
+    """The same for the moe family (MLA latent pools and GQA pools)."""
+    _paged_generate(name, kv_dtype)
+
+
+def _paged_generate(name, kv_dtype):
     B, P, GEN, ps = 2, 9, 7, 4
     jc = jconfigs.reduced(jconfigs.get_config(name))
     tc = tconfigs.reduced(tconfigs.get_config(name))
@@ -456,8 +583,12 @@ def test_paged_engine_input_checks():
         eng.default_block_table()       # 3 pages < 2 slots x 2 pages
     with pytest.raises(ValueError, match="recurrent state"):
         tpc.check_family(tc.replace(family="ssm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tpc.check_family(tc.replace(family="moe"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        tpc.check_family(tc.replace(family="audio"))
+    # the moe family is served now; its prefix cache's fork_page is not
+    tpc.check_family(tconfigs.reduced(tconfigs.get_config("olmoe-1b-7b")))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        tpc.fork_page(tc.replace(family="moe"), cache, 0, 1)
     cache["k"][:, 0] = 1.0
     tpc.fork_page(tc, cache, 0, 1)      # served now: an in-place copy
     assert torch.equal(cache["k"][:, 1], cache["k"][:, 0])

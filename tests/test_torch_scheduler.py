@@ -106,6 +106,56 @@ def test_scheduler_streams_match_jax(name, kv_dtype):
         _drained(sched, eng)
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "olmoe-1b-7b"])
+def test_moe_scheduler_streams_match_jax(name, kv_dtype):
+    """The moe family through the Scheduler: reduced deepseek-v3 on MLA
+    latent pools (kernels 11 and 13's plain versions) and reduced olmoe
+    on GQA pools, model-dtype and int8, the same stream as above (a
+    preemption, slot reuse).  The MoE FFN runs every slot as one decode
+    group, inactive slots included, as the JAX step does."""
+    jc = jconfigs.reduced(jconfigs.get_config(name))
+    tc = tconfigs.reduced(tconfigs.get_config(name))
+    ekw = dict(batch=2, max_len=24, paged=True, page_size=4, n_pages=7,
+               kv_dtype=kv_dtype)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jeng = JEngine(jc, JEngineConfig(**ekw), mesh=mesh)
+    # fixed-width tables: one compiled JAX step, not one a bucket
+    want, jsched = _stream(JScheduler, JRequest, jeng, bucket_tables=False)
+    params = bridge.from_jax(jax.tree.map(np.asarray, jeng.params), "cpu")
+    eng = DecodeEngine(tc, EngineConfig(**ekw, kernel_impl="cuda"),
+                       params=params, device="cpu")
+    got, sched = _stream(Scheduler, Request, eng, bucket_tables=False)
+    assert set(got) == set(want)
+    for rid in want:
+        assert got[rid].status is RequestStatus.FINISHED
+        np.testing.assert_array_equal(got[rid], np.asarray(want[rid]),
+                                      err_msg=f"rid {rid}")
+    for key in ("preempted", "prefills", "steps", "peak_pages",
+                "table_widths"):
+        assert sched.stats[key] == jsched.stats[key], key
+    assert sched.stats["preempted"] > 0
+    _drained(sched, eng)
+
+
+@pytest.mark.parametrize("mode", ["prefix_cache", "chunked_prefill"])
+def test_moe_scheduler_refuses_prefix_and_chunked(mode):
+    """The moe family's prefix cache and chunked prefill are the next
+    slice (ROADMAP queue 1 item 10): the Scheduler refuses them, as an
+    argument and as the EngineConfig's default."""
+    tc = tconfigs.reduced(tconfigs.get_config("deepseek-v3-671b"))
+    ekw = dict(batch=2, max_len=16, paged=True, page_size=4, n_pages=8)
+    eng = DecodeEngine(tc, EngineConfig(**ekw), device="cpu")
+    assert eng.suffix_prefill_fn is None and eng.mixed_fn is None
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        Scheduler(eng, **{mode: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        DecodeEngine(tc, EngineConfig(**ekw, **{mode: True}),
+                     params=eng.params, device="cpu")
+    Scheduler(eng)                      # the plain Scheduler is served
+
+
 # ------------------------------------------------- lifecycle (port)
 
 def _cfg(**kw):
