@@ -10,14 +10,18 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (plus ragged edges, bias, G = 1, bf16 and fp32;
    for the paged kernels permuted block tables, slots of length 0, 1,
-   16, 17 and 255, int8 pools with random scales) and time kernel, plain
-   version and one PyTorch library call;
+   16, 17 and 255, int8 pools with random scales; kernel 9 at kernel
+   4's shapes over int8 caches with (B*KV,) scales) and time kernel,
+   plain version and one PyTorch library call;
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
    set to 0 just before the timed generate and read just after; then replay the same token stream teacher-forced
    through the plain 'torch' backend and hold each step's logits to it
-   (the random weights are rescaled to a well-conditioned model first);
+   (the random weights are rescaled to a well-conditioned model first),
+   and run kernel 9 through ``dist.decode.local_decode_attend`` with
+   scales over the replay's dense cache quantized one scale a (batch,
+   KV head) row, against dequantize-then-attend (its launches counted);
    the same for reduced fp32 configs, at a tight tolerance;
 4. the same for qwen1.5-0.5b at full width (QKV bias, MHA, tied vocab);
 5. continuous batching on the paged pools: on reduced fp32 configs the
@@ -63,7 +67,26 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    quantized per sequence, and the Scheduler stream of phase 5 on bf16
    and int8 latent pools (kernels 11 and 13), its requests replayed in
    the live slots through both paths;
-8. print ``{"kernels": [...]}``, then the last line
+8. the prefix cache and chunked prefill of the MLA families: kernels 12
+   and 15 (a chunk's C tokens against its prior latent pages, one (J,)
+   table) are held and timed in phase 2 at DeepSeek-V3's widths (a
+   64-token chunk over 16 pages of 16, a partial page, a count-0 page,
+   a first chunk, C 1, fp32 pools, a table entry past the pool); on
+   reduced fp32 deepseek-v3, olmoe and a dense config with MLA the
+   prefix + chunked Scheduler streams on the kernels equal the plain
+   path's (both pools); then deepseek-v3-671b at depth 4 serves the
+   shared-prompt stream of phase 6 with the prefix cache and chunked
+   prefill on (chunks of 64) on bf16 and int8 latent pools (kernel 11 or
+   13 four times a decode or mixed step), every request finished and
+   every page but the trie's free; kernels 12 and 15 run through
+   ``chunk_prefix_mla_paged{,_q8}`` on the stream's system-prompt pages
+   with each layer's true queries (the phase whose launches of 12 and
+   15 are counted), and 8 requests are replayed, prompts in chunks,
+   through both paths with the routing rule of phase 7.  A chunk or a
+   suffix is its own MoE group, whose capacity (1.25 x its tokens x 8 /
+   256) drops otherwise than the whole prompt's, so the chunked streams
+   are held against the plain path's chunked ones, not the unchunked;
+9. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Without a CUDA device
@@ -342,6 +365,41 @@ def check_kernels(torch, F):
                    elt * (B * KV * G * D + 2 * B * n * KV * D)
                    + 4 * B * KV * G * (D + 2), head)
 
+    # ---- vwr_flash_decode_q8: the same over an int8 cache, (B*KV,) scales
+    print("vwr_flash_decode_q8")
+    for label, B, T, KV, G, D, cur, pos0, dt, timed, head in dc_cases:
+        q = randn(B * KV, G, D, dtype=dt)
+        k, v = [torch.randint(-127, 128, (B, T, KV, D), generator=gen,
+                              device="cuda", dtype=torch.int8)
+                for _ in range(2)]
+        ks, vs = [torch.rand(B * KV, generator=gen, device="cuda") * 0.02
+                  + 1e-3 for _ in range(2)]
+        args = (q, k, v, ks, vs, cur, pos0)
+        shape = f"B{B} T{T} KV{KV} G{G} D{D} cur{cur} pos0{pos0}"
+        got = KD.vwr_flash_decode_q8(*args)
+        torch.cuda.synchronize()
+        err = compare("vwr_flash_decode_q8", shape, f32, got,
+                      KD.vwr_flash_decode_q8_ref(*args))
+        if label == "masked row" and got[2].abs().max().item() != 0.0:
+            raise AssertionError("a group with no valid key must give l=0")
+        if timed:
+            n = max(0, min(T, cur - pos0))
+            qs = q.reshape(B, KV * G, 1, D)
+
+            def library(q=qs, k=k, v=v, ks=ks, vs=vs, n=n, B=B, KV=KV,
+                        dt=dt):
+                """Dequantize the valid rows, then SDPA (GQA)."""
+                kd, vd = [(x[:, :n].to(dt) * s.reshape(B, 1, KV, 1).to(dt)
+                           ).transpose(1, 2) for x, s in ((k, ks), (v, vs))]
+                return F.scaled_dot_product_attention(q, kd, vd,
+                                                      enable_gqa=True)
+            record("vwr_flash_decode_q8", label, shape, dt, err,
+                   lambda: KD.vwr_flash_decode_q8(*args),
+                   lambda: KD.vwr_flash_decode_q8_ref(*args), library,
+                   4 * B * KV * G * D * n,
+                   q.element_size() * B * KV * G * D + 2 * B * n * KV * D
+                   + 8 * B * KV + 4 * B * KV * G * (D + 2), head)
+
     # ---- vwr_paged_flash_decode[_q8]: partials through a block table ----
     tiny_lens = (0, 1, 16, 17, 255, 100, 200, 64)
     pg_cases = [
@@ -486,8 +544,9 @@ def check_kernels(torch, F):
 
 def check_mla_kernels(torch, F, gen, compare, record):
     """Kernels 10, 14 (dense latent cache, bf16 / fp32 / int8 with (B,)
-    scales) and 11, 13 (latent page pools, int8 with (n_pages,) scales)
-    at DeepSeek-V3's widths (H 128, r 512, rope 64, fp32 queries) against
+    scales), 11, 13 (latent page pools, int8 with (n_pages,) scales) and
+    12, 15 (a prompt chunk against its prior latent pages) at
+    DeepSeek-V3's widths (H 128, r 512, rope 64, fp32 queries) against
     their plain versions; the bound counts the fp32 queries and partials
     beside the valid keys, and fp32 operations (the queries are fp32)."""
     from repro_torch.kernels import vwr_mla_decode as KM
@@ -633,6 +692,73 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        2 * H * n_keys * (2 * R + RP), nbytes, head,
                        op_dtype=f32)
 
+    # kernels 12 and 15: a prompt chunk's C tokens against its prior
+    # pages, one (J,) table; each case's last table entry lies past the
+    # pool (the kernel clamps it to the last page, as the plain version)
+    chunk_cases = [
+        # label, C, counts, dtype, timed, headline
+        ("deepseek chunk 64, 16 pages of 16", 64, (16,) * 16, bf16, True,
+         True),
+        ("partial page", 64, (16,) * 5 + (7,), bf16, False, False),
+        ("count-0 page", 64, (16, 0, 16, 3), bf16, False, False),
+        ("first chunk: all masked", 64, (0, 0), bf16, False, False),
+        ("C=1", 1, (16, 16, 5), bf16, False, False),
+        ("fp32 pools", 16, (16, 16, 11), f32, False, False),
+    ]
+    n_pages = 64
+    for q8 in (False, True):
+        kname = "vwr_mla_chunk_prefix_attend" + ("_q8" if q8 else "")
+        print(kname)
+        fn = (KM.vwr_mla_chunk_prefix_attend_q8 if q8
+              else KM.vwr_mla_chunk_prefix_attend)
+        ref = (KM.vwr_mla_chunk_prefix_attend_q8_ref if q8
+               else KM.vwr_mla_chunk_prefix_attend_ref)
+        for label, C, cnts, dt, timed, head in chunk_cases:
+            qa, qr = queries(C)
+            pools, scales = caches((n_pages, ps), dt, q8)
+            J = len(cnts)
+            table = torch.randperm(n_pages, generator=gen,
+                                   device="cuda")[:J].to(torch.int32)
+            table[-1] = n_pages + 5
+            counts = torch.tensor(cnts, dtype=torch.int32, device="cuda")
+            args = (qa, qr, *pools, *scales, table, counts)
+            n_keys, live = sum(cnts), sum(1 for c in cnts if c)
+            shape = (f"C{C} H{H} r{R} rope{RP} ps{ps} J{J} keys{n_keys}")
+            got = fn(*args, scale=SCALE)
+            torch.cuda.synchronize()
+            err = compare(kname, shape, f32, got, ref(*args, scale=SCALE))
+            if not any(cnts) and (got[2].abs().max().item() != 0.0
+                                  or got[0].abs().max().item() != 0.0
+                                  or got[1].max().item() > -1e29):
+                raise AssertionError("a chunk with no valid prior key must "
+                                     "give m=-1e30, l=0, o=0")
+            if timed:
+                elt = pools[0].element_size()
+                nbytes = split(C, n_keys, elt, 8 * live if q8 else 0,
+                               8 * J)
+                tbl = table.long().clamp(0, n_pages - 1)
+                valid = (torch.arange(ps, device="cuda")[None, :]
+                         < counts[:, None]).reshape(1, -1)
+
+                def gathered(qa=qa, qr=qr, pools=pools, scales=scales,
+                             tbl=tbl, valid=valid, C=C):
+                    """The chunk's C*H rows as the queries of one
+                    sequence over its gathered (dequantized) pages."""
+                    kv = []
+                    for i, pool in enumerate(pools):
+                        x = pool[tbl]
+                        if scales:
+                            x = x.to(bf16) * scales[i][tbl][:, None,
+                                                            None].to(bf16)
+                        kv.append(x.reshape(1, -1, x.shape[-1]))
+                    return library(qa.reshape(1, C * H, R),
+                                   qr.reshape(1, C * H, RP), *kv, valid)()
+                record(kname, label, shape, dt, err,
+                       lambda: fn(*args, scale=SCALE),
+                       lambda: ref(*args, scale=SCALE), gathered,
+                       2 * C * H * n_keys * (2 * R + RP), nbytes, head,
+                       op_dtype=f32)
+
 
 def _paged_table(torch, gen, lens, J, ps, n_pages):
     """A block table of randomly permuted physical pages for each slot's
@@ -706,9 +832,11 @@ def _paged_sdpa(torch, F, q, pools, scales, table, counts, KV, G, D):
 # phases 3-4: serving end to end
 # ----------------------------------------------------------------------
 
-def serve(torch, name, gen, expected_launches):
+def serve(torch, name, gen, expected_launches, kernel9=False):
     """Full-width generate on the kernels (launches counted), then the
-    same token stream teacher-forced through the plain backend."""
+    same token stream teacher-forced through the plain backend; with
+    ``kernel9``, kernel 9 over the kernel path's dense cache after the
+    stream (``dense_kernel9``)."""
     from repro_torch.common.module import leaves
     from repro_torch.configs import get_config
     from repro_torch.engine import DecodeEngine, EngineConfig
@@ -750,18 +878,72 @@ def serve(torch, name, gen, expected_launches):
 
     ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
                        params=eng.params, device="cuda")
-    rel = _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
-                          check_greedy=True)
+    rel, cache = _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
+                                 check_greedy=True)
     worst = max(rel)
     print(f"  teacher-forced logits vs plain path: max |d|/max|ref| "
           f"{worst:.3e} over {len(rel)} steps (limit {E2E_BF16_REL:g})")
     if not worst <= E2E_BF16_REL:
         raise AssertionError(f"{name}: logits diverge from the plain path")
-    del eng, ref
+    k9 = dense_kernel9(torch, cfg, cache, P + gen - 1) if kernel9 else None
+    del eng, ref, cache
     torch.cuda.empty_cache()
     return {"arch": name, "batch": B, "prompt": P, "gen": gen,
             "n_params": n_params, "launches": launches,
-            "logits_rel_err": rel, **stats}
+            "logits_rel_err": rel, "kernel9": k9, **stats}
+
+
+def dense_kernel9(torch, cfg, cache, cur_len):
+    """Kernel 9 through ``dist.decode.local_decode_attend`` with scales,
+    over the dense K/V cache the teacher-forced stream left behind,
+    quantized one scale a (batch, KV head) row, against the plain
+    dequantize-then-attend op on the same int8 cache; launches counted
+    (one a layer)."""
+    from repro_torch.dist import decode as DD
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant import int8_scale
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    atol, rtol = TOL["float32"]
+    work = []
+    for i in range(cache["k"].shape[0]):
+        q8, sc = [], []
+        for x in (cache["k"][i], cache["v"][i]):       # (B, T, KV, D)
+            s = int8_scale(x.float().abs().amax(dim=(1, 3)))    # (B, KV)
+            q8.append(torch.clamp(torch.round(x.float() / s[:, None, :,
+                                                            None]),
+                                  -127, 127).to(torch.int8))
+            sc.append(s)
+        B = q8[0].shape[0]
+        q = torch.randn(B, cfg.n_heads, cfg.d_head, generator=g,
+                        device="cuda").to(cache["k"].dtype)
+        work.append((q, q8, sc))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = [DD.local_decode_attend(q, *q8, cur_len, k_scale=sc[0],
+                                  v_scale=sc[1], backend="cuda")
+           for q, q8, sc in work]
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["vwr_flash_decode_q8"]
+    err = 0.0
+    for (q, q8, sc), x in zip(work, got):
+        want = DD.local_decode_attend(q.float(), *q8, cur_len,
+                                      k_scale=sc[0], v_scale=sc[1],
+                                      backend="torch")
+        # the kernel path returns the queries' bf16: one rounding more
+        d = (x.float() - want).abs()
+        err = max(err, d.max().item())
+        atol_, rtol_ = TOL["bfloat16"] if x.dtype == torch.bfloat16 \
+            else (atol, rtol)
+        if not bool((d <= atol_ + rtol_ * want.abs()).all()):
+            raise AssertionError("kernel 9 disagrees with "
+                                 "dequantize-then-attend")
+    print(f"  kernel 9 over the int8 dense cache of the stream "
+          f"({len(work)} layers, cur_len {cur_len}): max|err| {err:.3e}, "
+          f"{launches} launches")
+    if launches != len(work):
+        raise AssertionError(f"kernel 9 launched {launches} times")
+    return {"layers": len(work), "max_abs_err": err, "launches": launches}
 
 
 # projections rescaled by ``_condition``: GQA's, the MLPs' and experts',
@@ -817,7 +999,8 @@ def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
                     check_greedy=False, atol=None):
     """Per-step max |logits error| of ``eng`` against ``ref`` on one
     stream, relative to max|ref|; with ``atol``, absolute, and raising
-    past ``atol`` times the logits' scale (max|ref|, at least 1)."""
+    past ``atol`` times the logits' scale (max|ref|, at least 1).
+    Returns the errors and ``eng``'s dense cache after the stream."""
     out = []
     vocab = eng.cfg.vocab
     lc, cc = eng.prefill({"tokens": prompts})
@@ -840,7 +1023,7 @@ def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
             tok = tokens[:, i]
             lc, cc = _decode(eng, tok, P + i, cc)
             lr, cr = _decode(ref, tok, P + i, cr)
-    return out
+    return out, cc
 
 
 def _reduced_on_card(name):
@@ -875,8 +1058,8 @@ def serve_reduced_fp32(torch, name):
     tok_r, _ = ref.generate({"tokens": prompts}, gen=9)
     if not bool((tok_c == tok_r).all()):
         raise AssertionError(f"{name} reduced fp32: greedy streams differ")
-    err = _teacher_forced(torch, eng, ref, prompts, tok_c, 31, 9,
-                          atol=E2E_FP32_TOL)
+    err, _ = _teacher_forced(torch, eng, ref, prompts, tok_c, 31, 9,
+                             atol=E2E_FP32_TOL)
     print(f"  {cfg.name} fp32: max|d logits| {max(err):.3e} "
           f"(limit {E2E_FP32_TOL:g} x max(1, max|logits|)), greedy tokens "
           "identical")
@@ -1525,21 +1708,35 @@ def serve_prefix_chunked(torch, params):
     return summaries
 
 
-def scheduler_reduced_prefix_chunked(torch, name):
-    """Reduced fp32 config on the card, over a pool that preempts and
-    requests that share a 16-token system prompt: with model-dtype pools
-    the prefix-cache and chunked streams on the kernels equal the
-    prefix-off, unchunked streams on the plain backend, token for token;
-    with int8 pools (a hit or a later chunk reads the prefix through the
-    quantized pages, so a near-tie may pick otherwise than the off/off
-    run) they equal the plain backend's prefix and chunked streams, and
-    the streams equal to the off/off run are counted."""
+def _dense_mla_on_card():
+    """The dense family with MLA attention (the JAX matrices' ``mla``
+    config), at widths the kernels take: reduced tinyllama with an MLA
+    block of latent rank 32 and rope width 32."""
+    from repro_torch.common.config import MLAConfig
+
+    return _reduced_on_card("tinyllama-1.1b").replace(
+        name="tinyllama-1.1b-reduced+mla", mla=MLAConfig(
+            q_lora_rank=32, kv_lora_rank=32, rope_head_dim=32,
+            nope_head_dim=16, v_head_dim=16))
+
+
+def scheduler_reduced_prefix_chunked(torch, name, cfg=None):
+    """Reduced fp32 config on the card (``cfg``, or ``name``'s), over a
+    pool that preempts and requests that share a 16-token system prompt:
+    with model-dtype pools the prefix-cache and chunked streams on the
+    kernels equal the prefix-off, unchunked streams on the plain
+    backend, token for token; with int8 pools (a hit or a later chunk
+    reads the prefix through the quantized pages, so a near-tie may pick
+    otherwise than the off/off run), and for the moe family (a chunk or
+    a suffix is its own MoE group, whose capacity drops differ from the
+    whole prompt's), they equal the plain backend's prefix and chunked
+    streams, and the streams equal to the off/off run are counted."""
     import numpy as np
 
     from repro_torch.engine import (DecodeEngine, EngineConfig, Request,
                                     Scheduler)
 
-    cfg = _reduced_on_card(name)
+    cfg = cfg or _reduced_on_card(name)
     rng = np.random.default_rng(6)
     system = rng.integers(0, cfg.vocab, 16)
     prompts = ([np.concatenate([system, rng.integers(0, cfg.vocab, int(n))])
@@ -1564,7 +1761,8 @@ def scheduler_reduced_prefix_chunked(torch, name):
         on = dict(prefix_cache=True, chunked_prefill=True)
         got, sched = run(eng, **on)
         off, _ = run(ref)
-        want = off if kv_dtype == "bf16" else run(ref, **on)[0]
+        same_modes = kv_dtype == "int8" or cfg.family == "moe"
+        want = run(ref, **on)[0] if same_modes else off
         st = sched.stats
         if not (st["prefix_hits"] > 0 and st["chunks"] > 0):
             raise AssertionError(f"{name} reduced fp32 {kv_dtype}: no "
@@ -1578,7 +1776,7 @@ def scheduler_reduced_prefix_chunked(torch, name):
               f"chunked on the kernels: {st['prefix_hits']} hits, "
               f"{st['chunks']} chunks, {st['preempted']} preemptions; "
               f"equal to the plain "
-              f"{'off/off' if kv_dtype == 'bf16' else 'prefix + chunked'}"
+              f"{'prefix + chunked' if same_modes else 'off/off'}"
               f" streams; {same}/{len(prompts)} equal to the plain off/off")
         summary[kv_dtype] = {k: st[k] for k in (
             "prefix_hits", "chunks", "preempted", "prefix_evictions")}
@@ -1783,26 +1981,38 @@ def deepseek_kernel14(torch, cfg, cache, cur_len):
     return {"layers": len(work), "max_abs_err": err, "launches": launches}
 
 
-def deepseek_scheduler(torch, params, cfg, kv_dtype, routes):
-    """Full-width DeepSeek-V3 through the Scheduler on the kernels (the
-    stream of ``serve_scheduler``: 8 slots, 128 pages of 16, 24 requests,
-    prompts 32-256, gen 32), launch counts checked (kernel 11 or 13 four
-    times a decode step), then 8 finished requests replayed
-    teacher-forced in the 8 live slots through both paths."""
+def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,
+                       prefix_chunked=False):
+    """Full-width DeepSeek-V3 through the Scheduler on the kernels, launch
+    counts checked (kernel 11 or 13 four times a decode or mixed step),
+    then 8 finished requests replayed teacher-forced in the 8 live slots
+    through both paths.  The stream of ``serve_scheduler`` (8 slots, 128
+    pages of 16, 24 requests, prompts 32-256, gen 32); with
+    ``prefix_chunked`` the shared-prompt stream of
+    ``serve_prefix_chunked`` with the prefix cache and chunked prefill
+    (chunks of CHUNK_TOKENS) on, replayed through chunked prefills, and
+    kernels 12 and 15 run on the prefix pages it left in its pools
+    (``deepseek_chunk_prefix``)."""
     from repro_torch.engine import (DecodeEngine, EngineConfig,
                                     RequestStatus, Scheduler)
     from repro_torch.kernels import build
 
     ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
                         page_size=PAGE, n_pages=N_PAGES, kv_dtype=kv_dtype,
-                        kernel_impl="cuda")
+                        chunk_tokens=CHUNK_TOKENS, kernel_impl="cuda")
     eng = DecodeEngine(cfg, ecfg, params=params, device="cuda")
-    print(f"  Scheduler, {kv_dtype} pools: {SLOTS} slots, {N_PAGES} pages of"
-          f" {PAGE}, {N_REQ} requests, prompts {PROMPT[0]}-{PROMPT[1]}, "
-          f"gen {GEN}")
-    _drive(Scheduler(eng), _requests(cfg, 4, PROMPT, 4, seed=5))
-    reqs = _requests(cfg, N_REQ, PROMPT, GEN, seed=4)
-    sched = Scheduler(eng)
+    modes = dict(prefix_cache=prefix_chunked, chunked_prefill=prefix_chunked)
+    tag = f"{kv_dtype} pools" + (", prefix cache + chunked prefill"
+                                 if prefix_chunked else "")
+    print(f"  Scheduler, {tag}: {SLOTS} slots, {N_PAGES} pages of {PAGE}, "
+          f"{N_REQ} requests, " + (
+              f"{N_SHARED} open with one {SYSTEM}-token system prompt, "
+              f"chunk {CHUNK_TOKENS}, " if prefix_chunked else
+              f"prompts {PROMPT[0]}-{PROMPT[1]}, ") + f"gen {GEN}")
+    _drive(Scheduler(eng, **modes), _requests(cfg, 4, PROMPT, 4, seed=5))
+    reqs = (_shared_requests(cfg) if prefix_chunked
+            else _requests(cfg, N_REQ, PROMPT, GEN, seed=4))
+    sched = Scheduler(eng, **modes)
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -1814,28 +2024,37 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes):
     L = cfg.n_layers
     paged = "vwr_mla_paged_flash_decode" + ("_q8" if kv_dtype == "int8"
                                             else "")
+    # a prefill pass: a whole prompt, a suffix, or a chunk
+    passes = st["chunks"] if prefix_chunked else st["prefills"]
     want = {k: 0 for k in launches}
     want.update({paged: L * st["steps"],
-                 "vwr_swiglu": L * (st["prefills"] + st["steps"]),
-                 "vwr_matmul": L * (st["prefills"] + st["steps"])})
+                 "vwr_swiglu": L * (passes + st["steps"]),
+                 "vwr_matmul": L * (passes + st["steps"])})
     print(f"    launches: { {k: v for k, v in launches.items() if v} }")
     if launches != want:
-        raise AssertionError(f"deepseek scheduler {kv_dtype}: launches "
+        raise AssertionError(f"deepseek scheduler {tag}: launches "
                              f"{launches}, expected {want}")
     bad = {rid: r.status for rid, r in out.items()
            if r.status is not RequestStatus.FINISHED or len(r) != GEN}
     if len(out) != N_REQ or bad:
-        raise AssertionError(f"deepseek scheduler {kv_dtype}: unfinished "
-                             f"{bad}")
+        raise AssertionError(f"deepseek scheduler {tag}: unfinished {bad}")
     sched.allocator.check()
-    if sched.allocator.free_pages != N_PAGES:
-        raise AssertionError("pages left allocated after the drain")
+    cached = sched.prefix.cached_pages if prefix_chunked else 0
+    if sched.allocator.free_pages != N_PAGES - cached:
+        raise AssertionError(f"{tag}: pages left allocated after the "
+                             "drain")
+    if prefix_chunked and not (st["prefix_hits"] > 0 and st["chunks"] > 0):
+        raise AssertionError(f"{tag}: no prefix hit or no chunk")
     n_tok = sum(len(r) for r in out.values())
     lat, itl = sched.latency_percentiles(), sched.itl_percentiles()
+    keys = ("prefix_hits", "prefix_misses", "prefix_hit_tokens",
+            "prefix_evictions", "shared_pages", "cow_forks", "mixed_steps",
+            "chunks", "chunked_tokens")
     summary = {
-        "kv_dtype": kv_dtype, "steps": st["steps"],
-        "prefills": st["prefills"], "preempted": st["preempted"],
-        "peak_pages": st["peak_pages"],
+        "kv_dtype": kv_dtype, "prefix_chunked": prefix_chunked,
+        "steps": st["steps"], "prefills": st["prefills"],
+        "preempted": st["preempted"], "peak_pages": st["peak_pages"],
+        **({k: st[k] for k in keys} if prefix_chunked else {}),
         "table_widths": {str(k): v for k, v in
                          sorted(st["table_widths"].items())},
         "generated_tokens": n_tok, "wall_s": wall,
@@ -1845,29 +2064,125 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes):
     print(f"    steps {st['steps']}, prefills {st['prefills']}, preempted "
           f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
           f"table widths {summary['table_widths']}")
+    if prefix_chunked:
+        print("    " + ", ".join(f"{k} {st[k]}" for k in keys))
     print(f"    {n_tok} tokens in {wall:.4f} s: {summary['gen_tok_s']:.1f} "
           f"generated tok/s; request latency p50 {lat['p50']:.4f} s p99 "
           f"{lat['p99']:.4f} s; ITL p50 {itl['p50'] * 1e3:.3f} ms p99 "
           f"{itl['p99'] * 1e3:.3f} ms")
+    if prefix_chunked:
+        summary["chunk_prefix"] = deepseek_chunk_prefix(
+            torch, eng.params, cfg, sched, reqs)
+        sched.prefix.clear()
+        sched.allocator.check()
+        if sched.allocator.free_pages != N_PAGES:
+            raise AssertionError(f"{tag}: pages left allocated after the "
+                                 "trie was cleared")
+        print(f"    all {N_PAGES} pages free once the trie's "
+              f"{cached} are released")
     ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
                        params=params, device="cuda")
-    summary["replay"] = _replay_both(torch, eng, ref, sched.cache, reqs,
-                                     out, routes)
+    summary["replay"] = _replay_both(
+        torch, eng, ref, sched.cache, reqs, out, routes,
+        chunk=CHUNK_TOKENS if prefix_chunked else None)
     del eng, ref, sched
     torch.cuda.empty_cache()
     return summary
 
 
-def _replay_both(torch, eng, ref, cache, reqs, out, routes):
+def deepseek_chunk_prefix(torch, params, cfg, sched, reqs):
+    """Kernels 12 and 15 on the stream's own data: the shared system
+    prompt's pages, found in the drained Scheduler's prefix trie, and the
+    absorbed queries of the next CHUNK_TOKENS tokens of a request that
+    opens with it, each layer's from its true input (the suffix prefill
+    of those tokens over those pages, on the plain path, run layer by
+    layer).  ``chunk_prefix_mla_paged`` (bf16 pools) or its q8 op (int8,
+    with the pools' page scales) on the 'cuda' backend against the
+    'torch' op; launches counted, one a layer."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.models import layers as LY
+    from repro_torch.models import lm
+    from repro_torch.models import mla as MLA
+
+    req = next(r for r in reqs if len(r.tokens) >= SYSTEM + CHUNK_TOKENS
+               and len(sched.prefix.match(r.tokens)) * PAGE >= SYSTEM)
+    pages = np.asarray(sched.prefix.match(req.tokens)[:SYSTEM // PAGE],
+                       np.int32)
+    M, C = len(pages) * PAGE, CHUNK_TOKENS
+    plain = cfg.replace(kernel_impl="torch")
+    cache = sched.cache
+    toks = torch.from_numpy(req.tokens[M:M + C]).cuda()[None]
+    q_pos = torch.arange(C, device="cuda") + M
+    kv_pos = torch.arange(M + C, device="cuda")
+    pages_d = torch.from_numpy(pages).cuda()
+    x = LY.embed(params["embed"], toks).to(torch.bfloat16)
+    table = pages_d.to(torch.int32)
+    counts = torch.full((len(pages),), PAGE, dtype=torch.int32,
+                        device="cuda")
+    work = []
+    for stacked, key, moe in lm._groups(cfg, params):
+        group = lm._cache_group(cache, key)
+        prefix = lm._gather_prefix_kv(group, ("ckv", "krope"),
+                                      pages_d.long())
+        for i in range(lm._depth(stacked)):
+            lp = lm._layer(stacked, i)
+            h = lm._norm(cfg, lp["attn_norm"], x)
+            q_nope, q_rope = MLA.mla_queries(lp["attn"], h, q_pos, cfg)
+            q_abs, q_rope, scale = MLA.mla_absorbed_queries(
+                lp["attn"], q_nope[0], q_rope[0], cfg)
+            pools = [group[n][i] for n in ("ckv", "krope")]
+            scales = [group[n][i] for n in ("ckv_scale", "krope_scale")
+                      if n in group]
+            work.append((q_abs, q_rope, pools, scales, scale))
+            body = lm._moe_suffix_body if moe else lm._dense_suffix_body
+            x, _ = body(plain, q_pos, kv_pos, x, lp,
+                        tuple(t[i] for t in prefix))
+    op = "chunk_prefix_mla_paged" + ("_q8" if work[0][3] else "")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = [D.dispatch(op, "cuda", qa, qr, *pools, *scales, table, counts,
+                      scale=scale)
+           for qa, qr, pools, scales, scale in work]
+    torch.cuda.synchronize()
+    kernel = "vwr_mla_chunk_prefix_attend" + ("_q8" if work[0][3] else "")
+    launches = build.LAUNCHES[kernel]
+    atol, rtol = TOL["float32"]
+    err = 0.0
+    for (qa, qr, pools, scales, scale), part in zip(work, got):
+        want = D.dispatch(op, "torch", qa, qr, *pools, *scales, table,
+                          counts, scale=scale)
+        for a, b in zip(part, want):
+            d = (a - b).abs()
+            err = max(err, d.max().item())
+            if not bool((d <= atol + rtol * b.abs()).all()):
+                raise AssertionError(f"{kernel} disagrees with its plain "
+                                     "op on the stream's prefix pages")
+    print(f"    {kernel} on the stream's {len(pages)} system-prompt pages, "
+          f"a {C}-token chunk at position {M}, {len(work)} layers: "
+          f"max|err| {err:.3e} (atol {atol:g}, rtol {rtol:g}), "
+          f"{launches} launches")
+    if launches != len(work):
+        raise AssertionError(f"{kernel} launched {launches} times")
+    return {"kernel": kernel, "pages": len(pages), "chunk": C,
+            "layers": len(work), "max_abs_err": err, "launches": launches}
+
+
+def _replay_both(torch, eng, ref, cache, reqs, out, routes, chunk=None):
     """Replay the first 8 finished requests that fit the pool together,
     one a slot, teacher-forced with their served tokens, through the
     kernel engine on the drained stream's pools (stale pages and scales
     included) and through the plain engine on a copy of them, in the
     same slot layout: the MoE FFN's decode group (and so its capacity
     drops) is then the same on both paths, which a batch-1 reference
-    would not share.  Logits are held where the routing agrees; the
-    served token's agreement is counted for both paths (the served
-    stream had other slot mates, so other capacity drops)."""
+    would not share.  Each prompt goes in whole, or with ``chunk`` in
+    chunks of that many tokens through ``lm.prefill_chunk`` (each chunk
+    its own MoE group, as in the stream).  Logits are held where the
+    routing agrees; the served token's agreement is counted for both
+    paths (the served stream had other slot mates, so other capacity
+    drops)."""
     import numpy as np
 
     from repro_torch.engine.paged_cache import write_prefill
@@ -1897,15 +2212,23 @@ def _replay_both(torch, eng, ref, cache, reqs, out, routes):
                                                    cache)}
     for path, e in (("cuda", eng), ("torch", ref)):
         c = pools[path]
-        routes.tag = path
         got = [[] for _ in picked]
         for b, (r, _) in enumerate(picked):
-            lg, caches = e.prefill_fn(
-                e.params, {"tokens": torch.from_numpy(r.tokens)[None]
-                           .cuda()})
-            write_prefill(cfg, c, caches, table[b][None])
+            routes.tag = (path, "prefill", b)
+            toks = torch.from_numpy(r.tokens)[None].cuda()
+            if chunk is None:
+                lg, caches = e.prefill_fn(e.params, {"tokens": toks})
+                write_prefill(cfg, c, caches, table[b][None])
+            for p0 in range(0, len(r.tokens) if chunk else 0, chunk or 1):
+                end = min(p0 + chunk, len(r.tokens))
+                lg, c = lm.prefill_chunk(e.params, {
+                    "tokens": toks[:, p0:end],
+                    "pages": table[b, :p0 // PAGE],
+                    "write_pages": table[b, p0 // PAGE:-(-end // PAGE)],
+                    "cache": c}, e.cfg)
             got[b].append(lg[0, :vocab].float())
         for i in range(GEN - 1):
+            routes.tag = (path, "step", i)
             lg, c = e.decode_step(served[:, i], lens + i, c,
                                   block_table=table)
             for b in range(SLOTS):
@@ -1913,34 +2236,41 @@ def _replay_both(torch, eng, ref, cache, reqs, out, routes):
         logits[path] = got
     routes.tag = None
     n_moe = cfg.n_layers - cfg.moe.first_k_dense
-    calls = list(zip(routes.take("cuda"), routes.take("torch")))
-    prefill_calls, decode_calls = (calls[:SLOTS * n_moe],
-                                   calls[SLOTS * n_moe:])
+
+    def differ(tag):
+        """Per call under ``tag`` (a prefill pass a MoE layer, in order),
+        the rows whose expert sets differ between the paths."""
+        return [_differ(a, c) for a, c in
+                zip(routes.take(("cuda", *tag)), routes.take(("torch",
+                                                              *tag)))]
+
     diff_rows = [0] * n_moe
     rel, flipped, agree = [], [], {"cuda": 0, "torch": 0}
+    first_flip, step_flip = [], []
     for b in range(SLOTS):
-        for j in range(n_moe):
-            a, c = prefill_calls[b * n_moe + j]
-            diff_rows[j] += int(_differ(a, c).sum())
+        d = differ(("prefill", b))
+        for k, x in enumerate(d):
+            diff_rows[k % n_moe] += int(x.sum())
+        # the first logits row comes out of the last pass (the prompt,
+        # or its final chunk), which is its own MoE group
+        first_flip.append(any(bool(x.any()) for x in d[-n_moe:]))
+    for i in range(GEN - 1):
+        d = differ(("step", i))
+        for j, x in enumerate(d):
+            diff_rows[j] += int(x.sum())
+        step_flip.append(any(bool(x.any()) for x in d))
     for i in range(GEN):
-        if i == 0:          # each request's prefill is its own group
-            flip = [any(bool(_differ(*prefill_calls[b * n_moe + j]).any())
-                        for j in range(n_moe)) for b in range(SLOTS)]
-        else:
-            d = [_differ(a, c) for a, c in
-                 decode_calls[(i - 1) * n_moe:i * n_moe]]
-            for j, x in enumerate(d):
-                diff_rows[j] += int(x.sum())
-            flip = [any(bool(x.any()) for x in d)] * SLOTS
         for b in range(SLOTS):
             x, want = logits["cuda"][b][i], logits["torch"][b][i]
             rel.append(((x - want).abs().max() / want.abs().max()).item())
-            flipped.append(flip[b])
+            flipped.append(first_flip[b] if i == 0 else step_flip[i - 1])
             for path in agree:
                 agree[path] += int(logits[path][b][i].argmax()) == int(
                     served[b, i])
-    summary = _hold_with_flips(f"{SLOTS} requests replayed in the live "
-                               "slots, kernel vs plain", rel, flipped)
+    what = (f"{SLOTS} requests replayed in the live slots" + (
+        f" (prompts in chunks of {chunk})" if chunk else "")
+        + ", kernel vs plain")
+    summary = _hold_with_flips(what, rel, flipped)
     print(f"    served token picked by the replay at {agree['cuda']}/"
           f"{len(rel)} steps (plain replay: {agree['torch']}/{len(rel)}); "
           f"expert sets differing between the paths per MoE layer "
@@ -1950,10 +2280,12 @@ def _replay_both(torch, eng, ref, cache, reqs, out, routes):
 
 
 def serve_deepseek(torch):
-    """Phase 7 at full width: DeepSeek-V3 cut to 4 layers, bf16, random
+    """Phases 7-8 at full width: DeepSeek-V3 cut to 4 layers, bf16, random
     weights from a seed (conditioned), through ``generate`` (kernel 10),
-    kernel 14 over generate's latent cache, and the Scheduler with bf16
-    (kernel 11) and int8 (kernel 13) latent pools."""
+    kernel 14 over generate's latent cache, the Scheduler with bf16
+    (kernel 11) and int8 (kernel 13) latent pools, and the shared-prompt
+    stream with the prefix cache and chunked prefill on both pools
+    (kernels 12 and 15 on its prefix pages)."""
     from repro_torch.common.module import leaves
     from repro_torch.configs import get_config
     from repro_torch.engine import DecodeEngine, EngineConfig
@@ -1992,11 +2324,15 @@ def serve_deepseek(torch):
         torch.cuda.empty_cache()
         streams = [deepseek_scheduler(torch, params, cfg, kv, routes)
                    for kv in ("bf16", "int8")]
+        pc_streams = [deepseek_scheduler(torch, params, cfg, kv, routes,
+                                         prefix_chunked=True)
+                      for kv in ("bf16", "int8")]
     del params
     torch.cuda.empty_cache()
     return {"arch": DEEPSEEK, "n_layers": DEEPSEEK_DEPTH,
             "n_params": n_params, "generate": gen_summary,
-            "kernel14": k14, "scheduler": streams}
+            "kernel14": k14, "scheduler": streams,
+            "prefix_chunked": pc_streams}
 
 
 # ----------------------------------------------------------------------
@@ -2037,7 +2373,8 @@ def main() -> int:
 
     fp32 = {n: serve_reduced_fp32(torch, n)
             for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
-    tiny = serve(torch, "tinyllama-1.1b", 32, expected(22, 32))
+    tiny = serve(torch, "tinyllama-1.1b", 32, expected(22, 32),
+                 kernel9=True)
     qwen = serve(torch, "qwen1.5-0.5b", 8, expected(24, 8))
 
     print("continuous batching")
@@ -2060,7 +2397,14 @@ def main() -> int:
                 for n in (DEEPSEEK, "olmoe-1b-7b")}
     moe_sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
                       for n in (DEEPSEEK, "olmoe-1b-7b")}
+    print("prefix cache and chunked prefill of the MLA and moe families")
+    mla_pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
+                   for n in (DEEPSEEK, "olmoe-1b-7b")}
+    dense_mla = _dense_mla_on_card()
+    mla_pc_fp32[dense_mla.name] = scheduler_reduced_prefix_chunked(
+        torch, None, cfg=dense_mla)
     deepseek = serve_deepseek(torch)
+    pc = deepseek["prefix_chunked"]
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
@@ -2073,7 +2417,12 @@ def main() -> int:
                     "launches"]["vwr_mla_paged_flash_decode"],
                 "vwr_mla_paged_flash_decode_q8": deepseek["scheduler"][1][
                     "launches"]["vwr_mla_paged_flash_decode_q8"],
-                "vwr_mla_flash_decode_q8": deepseek["kernel14"]["launches"]}
+                "vwr_mla_flash_decode_q8": deepseek["kernel14"]["launches"],
+                "vwr_flash_decode_q8": tiny["kernel9"]["launches"],
+                "vwr_mla_chunk_prefix_attend":
+                    pc[0]["chunk_prefix"]["launches"],
+                "vwr_mla_chunk_prefix_attend_q8":
+                    pc[1]["chunk_prefix"]["launches"]}
 
     kernels = []
     sources = {"vwr_matmul": "vwr_matmul", "vwr_swiglu": "vwr_matmul",
@@ -2086,7 +2435,10 @@ def main() -> int:
                "vwr_mla_flash_decode": "vwr_mla_decode",
                "vwr_mla_paged_flash_decode": "vwr_mla_decode",
                "vwr_mla_paged_flash_decode_q8": "vwr_mla_decode",
-               "vwr_mla_flash_decode_q8": "vwr_mla_decode"}
+               "vwr_mla_flash_decode_q8": "vwr_mla_decode",
+               "vwr_flash_decode_q8": "vwr_decode",
+               "vwr_mla_chunk_prefix_attend": "vwr_mla_decode",
+               "vwr_mla_chunk_prefix_attend_q8": "vwr_mla_decode"}
     replaces = {
         "vwr_matmul": "src/repro/kernels/vwr_matmul.py:120",
         "vwr_swiglu": "src/repro/kernels/vwr_matmul.py:84",
@@ -2100,7 +2452,12 @@ def main() -> int:
         "vwr_mla_paged_flash_decode": "src/repro/kernels/vwr_decode.py:265",
         "vwr_mla_paged_flash_decode_q8":
             "src/repro/kernels/vwr_decode.py:747",
-        "vwr_mla_flash_decode_q8": "src/repro/kernels/vwr_decode.py:649"}
+        "vwr_mla_flash_decode_q8": "src/repro/kernels/vwr_decode.py:649",
+        "vwr_flash_decode_q8": "src/repro/kernels/vwr_decode.py:451",
+        "vwr_mla_chunk_prefix_attend":
+            "src/repro/kernels/vwr_decode.py:1064",
+        "vwr_mla_chunk_prefix_attend_q8":
+            "src/repro/kernels/vwr_decode.py:1162"}
     for name in sources:
         head = next(r for r in results if r["kernel"] == name
                     and r["headline"])
@@ -2127,6 +2484,7 @@ def main() -> int:
               "moe_scheduler_reduced_fp32_preemptions": {
                   n: {k[0]: v for k, v in d.items()}
                   for n, d in moe_sched_fp32.items()},
+              "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,
               "deepseek": deepseek,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

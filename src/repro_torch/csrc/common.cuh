@@ -66,6 +66,20 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
 
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
+// Eight consecutive int8 of a row as fp32: one 8-byte load.  `p` must be
+// 8-byte aligned.
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    out[4 * i] = c[i].x;
+    out[4 * i + 1] = c[i].y;
+    out[4 * i + 2] = c[i].z;
+    out[4 * i + 3] = c[i].w;
+  }
+}
+
 // 16 bytes of a pool row as fp32: 8 bf16, 8 fp32 (two loads) or 16 int8.
 // `p` must be 16-byte aligned.
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,

@@ -1,11 +1,15 @@
 // Absorbed-MLA flash-decode partials for one new token against the
 // latent cache, for Hopper (sm_90a): a dense (B, T, .) cache or page pools
-// (n_pages, page_size, .), each in bf16 / fp32 or int8 with fp32 scales.
+// (n_pages, page_size, .), each in bf16 / fp32 or int8 with fp32 scales;
+// and the partials of a prompt chunk's C tokens against its prior latent
+// pages (chunked prefill), the pools' contract with one table shared.
 //
 // Replaces: src/repro/kernels/vwr_decode.py :: vwr_mla_flash_decode_p
 //           src/repro/kernels/vwr_decode.py :: vwr_mla_paged_flash_decode_p
 //           src/repro/kernels/vwr_decode.py :: vwr_mla_paged_flash_decode_q8_p
 //           src/repro/kernels/vwr_decode.py :: vwr_mla_flash_decode_q8_p
+//           src/repro/kernels/vwr_decode.py :: vwr_mla_chunk_prefix_attend_p
+//           src/repro/kernels/vwr_decode.py :: vwr_mla_chunk_prefix_attend_q8_p
 //
 // Contract (the Pallas bodies'): the queries are folded through wk_b, so a
 // key's score is s = (q_abs * scale) . c_kv + (q_rope * scale) . k_rope
@@ -24,7 +28,12 @@
 // DeepSeek-V3) is read once per token and feeds 4 flops per head, 512 per
 // element at H = 128 (about 256 per byte at bf16): near the ridge, but at
 // decode's few keys the fp32 queries and partials in and out (2 x H x r x
-// 4 bytes a sequence) outweigh the keys, so it is memory-bound.
+// 4 bytes a sequence) outweigh the keys, so it is memory-bound.  The chunk
+// kernels are not: every prior key is reused by all C x H query rows
+// (2 x 576 + 2 x 512 flops a row a key: 4.6 GFLOP at C 64, H 128 and 256
+// keys, ~0.07 ms at the fp32 rate, against ~36 MB of fp32 queries and
+// partials, ~0.011 ms), so they are bound by operations, the natural
+// first target for the tensor cores.
 //
 // Design.  The TPU kernel keeps all H heads' (H, r) accumulators in VMEM:
 // 256 KB at DeepSeek-V3's widths, more than a block's shared memory.  Here
@@ -39,6 +48,15 @@
 // softmax per head and adds p * c_kv into the lane's accumulators.  The
 // heads-as-M tensor-core form ((H x 576) . (576 x T) a sequence, a wgmma
 // tile) is later work.
+//
+// The chunk kernels run the pools' body with "sequence" read as "chunk
+// token" and the table row shared (stride 0).  The TPU kernel keeps all
+// (C x H, r) fp32 accumulators in VMEM across a sequential grid over the
+// pages: 16 MB at a 64-token chunk of DeepSeek-V3, far past a block's
+// shared memory.  Here the rows are independent, so they are tiled across
+// blocks (grid (C, H / 16)), and the page loop is the loop inside each
+// block; a staged tile serves the block's 16 rows, and L2 serves the C
+// blocks that read the same page.
 #include "common.cuh"
 
 namespace {
@@ -60,6 +78,7 @@ struct MlaArgs {
   float* l;
   int B, H, lead, rows, n;   // lead: B | n_pages; rows: T | ps; n: keys | J
   float scale;
+  int tstride;               // pools: table row stride, J | 0 (chunk)
 };
 
 // `count` elements (a multiple of 32) from `src` to shared fp32 `dst`,
@@ -190,9 +209,10 @@ __global__ void __launch_bounds__(THREADS) mla_decode_kernel(const MlaArgs a) {
              min(TK, a.n - t0), cs, rs);
   } else {
     // pools: logical page j is physical page table[b, j] (clamped) with
-    // counts[b, j] valid rows; a page with none is skipped unread
-    const int* tb = a.table + (size_t)b * a.n;
-    const int* cb = a.counts + (size_t)b * a.n;
+    // counts[b, j] valid rows (table[j] / counts[j] for every chunk
+    // token); a page with none is skipped unread
+    const int* tb = a.table + (size_t)b * a.tstride;
+    const int* cb = a.counts + (size_t)b * a.tstride;
     for (int j = 0; j < a.n; ++j) {
       const int cnt = min(cb[j], a.rows);
       if (cnt <= 0) continue;
@@ -270,7 +290,7 @@ extern "C" int vwr_mla_flash_decode_launch(
     int rows, int n_keys, float scale, int dtype, void* stream) {
   const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
                   nullptr, nullptr, nullptr, nullptr, (float*)o_t,
-                  (float*)m, (float*)l, B, H, lead, rows, n_keys, scale};
+                  (float*)m, (float*)l, B, H, lead, rows, n_keys, scale, 0};
   return launch_dtype(a, r, rope, dtype, false, (cudaStream_t)stream);
 }
 
@@ -284,7 +304,7 @@ extern "C" int vwr_mla_flash_decode_q8_launch(
   const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
                   (const float*)ckv_scale, (const float*)krope_scale,
                   nullptr, nullptr, (float*)o_t, (float*)m, (float*)l, B, H,
-                  lead, rows, n_keys, scale};
+                  lead, rows, n_keys, scale, 0};
   return launch_dtype(a, r, rope, dtype, true, (cudaStream_t)stream);
 }
 
@@ -299,7 +319,7 @@ extern "C" int vwr_mla_paged_flash_decode_launch(
   const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
                   nullptr, nullptr, (const int*)table, (const int*)counts,
                   (float*)o_t, (float*)m, (float*)l, B, H, lead, rows, J,
-                  scale};
+                  scale, J};
   return launch_dtype(a, r, rope, dtype, false, (cudaStream_t)stream);
 }
 
@@ -314,6 +334,38 @@ extern "C" int vwr_mla_paged_flash_decode_q8_launch(
   const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
                   (const float*)ckv_scale, (const float*)krope_scale,
                   (const int*)table, (const int*)counts, (float*)o_t,
-                  (float*)m, (float*)l, B, H, lead, rows, J, scale};
+                  (float*)m, (float*)l, B, H, lead, rows, J, scale, J};
+  return launch_dtype(a, r, rope, dtype, true, (cudaStream_t)stream);
+}
+
+// Kernel 12: a chunk of C tokens, q_abs (C, H, r) and q_rope (C, H, rope)
+// fp32, against the pools ckv (n_pages, ps, r) and krope (n_pages, ps,
+// rope) in `dtype` through one table and counts (J,) int32 shared by the C
+// tokens.  Writes fp32 o_t (C, H, r), m and l (C, H).  `lead` is n_pages
+// and `rows` is ps.
+extern "C" int vwr_mla_chunk_prefix_attend_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* table, const void* counts, void* o_t, void* m, void* l,
+    int C, int H, int r, int rope, int lead, int rows, int J, float scale,
+    int dtype, void* stream) {
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  nullptr, nullptr, (const int*)table, (const int*)counts,
+                  (float*)o_t, (float*)m, (float*)l, C, H, lead, rows, J,
+                  scale, 0};
+  return launch_dtype(a, r, rope, dtype, false, (cudaStream_t)stream);
+}
+
+// Kernel 15: kernel 12 over int8 pools with fp32 (n_pages,) latent and
+// rope scales.
+extern "C" int vwr_mla_chunk_prefix_attend_q8_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* ckv_scale, const void* krope_scale, const void* table,
+    const void* counts, void* o_t, void* m, void* l, int C, int H, int r,
+    int rope, int lead, int rows, int J, float scale, int dtype,
+    void* stream) {
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  (const float*)ckv_scale, (const float*)krope_scale,
+                  (const int*)table, (const int*)counts, (float*)o_t,
+                  (float*)m, (float*)l, C, H, lead, rows, J, scale, 0};
   return launch_dtype(a, r, rope, dtype, true, (cudaStream_t)stream);
 }

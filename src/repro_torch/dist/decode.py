@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.dist.decode``; only the single-slab / single-shard
 branches are ported.  The decode partials come from the dispatch
-registry (``decode_partial``, ``decode_partial_paged``,
+registry (``decode_partial``, ``decode_partial_q8``,
+``decode_partial_paged``,
 ``decode_partial_paged_q8`` and the split-operand MLA ops
 ``decode_partial_mla``, ``decode_partial_mla_q8``,
 ``decode_partial_mla_paged``, ``decode_partial_mla_paged_q8``: 'torch'
@@ -28,11 +29,18 @@ def _normalize(o_t, l, dtype):
     return (o_t / l.clamp_min(1e-30)[..., None]).to(dtype)
 
 
-def local_decode_attend(q, cache_k, cache_v, cur_len, *,
-                        backend="cuda") -> torch.Tensor:
-    """Single-slab decode attention (normalized) through the registry."""
-    o_t, m, l = D.dispatch("decode_partial", backend, q, cache_k, cache_v,
-                           cur_len)
+def local_decode_attend(q, cache_k, cache_v, cur_len, *, k_scale=None,
+                        v_scale=None, backend="cuda") -> torch.Tensor:
+    """Single-slab decode attention (normalized) through the registry.
+
+    ``k_scale`` / ``v_scale`` ((B, KV) fp32, one a (batch, KV head) row)
+    select the q8 op: ``cache_k`` / ``cache_v`` are then int8."""
+    if k_scale is not None:
+        o_t, m, l = D.dispatch("decode_partial_q8", backend, q, cache_k,
+                               cache_v, k_scale, v_scale, cur_len)
+    else:
+        o_t, m, l = D.dispatch("decode_partial", backend, q, cache_k,
+                               cache_v, cur_len)
     return _normalize(o_t, l, q.dtype)
 
 

@@ -24,16 +24,16 @@ caches and pools::
                                     page_size=16, n_pages=128,
                                     kv_dtype="int8"))
 
-A paged dense-family engine also carries ``suffix_prefill_fn`` (the
-suffix-only prefill of a prefix-cache hit) and ``mixed_fn`` (one
-chunked-prefill chunk plus the decode batch in one step), which the
-Scheduler's ``prefix_cache`` and ``chunked_prefill`` modes use.
+A paged engine (dense or moe family, GQA or MLA) also carries
+``suffix_prefill_fn`` (the suffix-only prefill of a prefix-cache hit)
+and ``mixed_fn`` (one chunked-prefill chunk plus the decode batch in one
+step), which the Scheduler's ``prefix_cache`` and ``chunked_prefill``
+modes use.
 
 The engine runs on ``device="cuda"`` by default and raises if there is
 no GPU; pass ``device="cpu"`` to run the plain versions on the CPU.
-Sequence sharding, meshes other than (1, 1), the audio pools and the
-moe family's prefix cache and chunked prefill are not ported yet and
-raise ``NotImplementedError``.
+Sequence sharding, meshes other than (1, 1) and the audio pools are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -121,8 +121,6 @@ def _check_prefix_and_chunks(cfg, ecfg: EngineConfig) -> None:
             f"multiple of page_size={ecfg.page_size}: every non-final "
             "chunk must end page-aligned so the next chunk's resident "
             "prefix is whole pages")
-    if (ecfg.prefix_cache or ecfg.chunked_prefill) and cfg.family == "moe":
-        raise NotImplementedError(lm.MOE_PREFIX)
 
 
 class DecodeEngine:
@@ -171,10 +169,10 @@ class DecodeEngine:
         self.params = map_tree(lambda t: t.to(self.device), params)
         self.prefill_fn = steps.build_prefill(cfg)
         self.decode_fn = steps.build_decode(cfg)
-        # built for every paged dense-family engine, so a Scheduler can
+        # built for every paged token-only engine, so a Scheduler can
         # turn either mode on per stream whatever the EngineConfig
-        # defaults (the moe family's are not ported yet)
-        suffix = ecfg.paged and cfg.family == "dense"
+        # defaults
+        suffix = ecfg.paged and cfg.family in ("dense", "moe")
         self.suffix_prefill_fn = (steps.build_suffix_prefill(cfg)
                                   if suffix else None)
         self.mixed_fn = steps.build_mixed_step(cfg) if suffix else None

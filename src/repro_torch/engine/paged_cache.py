@@ -1,10 +1,10 @@
 """Paged KV cache: a shared page pool + per-slot block tables.
 
-Counterpart of ``repro.engine.paged_cache`` for the dense (GQA) and moe
-(GQA or MLA) families.  The cache is ``{"k", "v"}`` pools of shape
+Counterpart of ``repro.engine.paged_cache`` for the dense and moe
+families (each GQA or MLA).  The cache is ``{"k", "v"}`` pools of shape
 ``(L, n_pages, page_size, KV, Dh)``, or for MLA the latent and rope
 pools ``{"ckv", "krope"}`` of shape ``(L, n_pages, page_size, r)`` /
-``(L, n_pages, page_size, rope)``; the moe family nests them as
+``(L, n_pages, page_size, rope)``; the moe family nests either as
 ``{"dense": ... or None, "moe": ...}`` per layer group.  These are the
 layouts of the JAX package, so a pool copies across as it is; a
 ``(B_slots, max_pages)`` int32 block table maps each slot's logical page
@@ -20,8 +20,8 @@ The JAX package writes pools functionally (``.at[].set`` on a donated
 buffer); here every write is in place into the engine-owned pools
 (``write_prefill``, ``quantized_page_write`` and the decode step), as
 the port's dense cache already is; ``fork_page`` (the prefix cache's
-copy-on-write) copies a page in place.  The audio pools are not ported
-yet, nor the moe family's prefix cache.
+copy-on-write) copies a page in place, across every leaf of the nested
+tree.  The audio pools are not ported yet.
 """
 from __future__ import annotations
 
@@ -40,20 +40,18 @@ PAGED_FAMILIES = ("dense", "vlm", "moe", "audio")
 def check_family(cfg) -> None:
     """Paged KV covers the KV-cache families (``ValueError`` for the
     recurrent ones, as in the JAX package); of those the port serves the
-    dense GQA family and the moe family (GQA or MLA) so far."""
+    dense and moe families (each GQA or MLA) so far."""
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(
             f"paged KV cache supports the KV-cache families "
             f"{PAGED_FAMILIES}; family {cfg.family!r} carries O(1) "
             "recurrent state per slot (nothing to page) — serve it "
             "with the dense engine")
-    if cfg.family == "moe" or (cfg.family == "dense" and cfg.mla is None):
+    if cfg.family in ("dense", "moe"):
         return
-    what, where = (("MLA", "item 10 (MLA)") if cfg.family == "dense"
-                   else (cfg.family, "item 11 (remaining families)"))
     raise NotImplementedError(
-        f"paged {what} pools are not ported to repro_torch yet: "
-        f"ROADMAP queue 1 {where}")
+        f"paged {cfg.family} pools are not ported to repro_torch yet: "
+        "ROADMAP queue 1 item 11 (remaining families)")
 
 
 def max_pages(max_len: int, page_size: int) -> int:
@@ -239,23 +237,26 @@ def write_prefill(cfg, cache, caches, table) -> None:
 
 
 def fork_page(cfg, cache, src: int, dst: int) -> None:
-    """Copy physical page ``src`` onto ``dst`` across every pool leaf, in
-    place (the JAX function returns a new cache): the K/V pools and, for
-    int8 pools, the fp32 scale rows, which are part of the page (a
-    forked page must dequantize exactly like its original until the
-    diverging write lands).  Every leaf of the dense paged cache has the
-    page axis at 1 (pools ``(L, n_pages, ps, KV, Dh)``, scales
-    ``(L, n_pages, KV)``); the audio family's slot-dense cross cache
-    does not, and is refused."""
+    """Copy physical page ``src`` onto ``dst`` across every pool leaf of
+    the (nested) cache, in place (the JAX function maps the tree and
+    returns a new cache): the K/V or latent and rope pools and, for int8
+    pools, the fp32 scale rows, which are part of the page (a forked
+    page must dequantize exactly like its original until the diverging
+    write lands).  A None group (the moe family without dense layers) is
+    skipped.  Every leaf of these paged caches has the page axis at 1
+    (pools ``(L, n_pages, ps, ...)``, scales ``(L, n_pages[, KV])``);
+    the audio family's slot-dense cross cache does not, and is
+    refused."""
     if cfg.family == "audio":
         raise ValueError(
             "fork_page does not support the audio family: the slot-dense "
             "cross cache carries slots, not pages, at axis 1")
-    if cfg.family == "moe":
-        raise NotImplementedError(lm.MOE_PREFIX)
     check_family(cfg)
-    for leaf in cache.values():
+
+    def fork(leaf):
         leaf[:, dst] = leaf[:, src]
+
+    lm.map_groups(fork, cache)
 
 
 # ----------------------------------------------------------------------

@@ -78,7 +78,6 @@ from repro_torch.engine.paged_cache import (PageAllocator,
                                             bucket_table_width, fork_page,
                                             write_prefill)
 from repro_torch.engine.prefix_cache import PrefixCache
-from repro_torch.models import lm
 from repro_torch.runtime.resilience import (Heartbeat, RetryPolicy,
                                             StragglerMonitor,
                                             call_with_retries, percentiles)
@@ -339,8 +338,6 @@ class Scheduler:
         self.prefix: Optional[PrefixCache] = None
         if chunked_prefill is None:
             chunked_prefill = engine.ecfg.chunked_prefill
-        if (prefix_cache or chunked_prefill) and self.cfg.family == "moe":
-            raise NotImplementedError(lm.MOE_PREFIX)
         if prefix_cache:
             if self.cfg.family not in ("dense", "moe"):
                 raise ValueError(
@@ -350,7 +347,7 @@ class Scheduler:
                     "index cannot match")
             if engine.suffix_prefill_fn is None:
                 raise ValueError("engine has no suffix_prefill_fn — "
-                                 "construct a paged dense engine")
+                                 "construct a paged dense or moe engine")
             self.prefix = PrefixCache(self.page_size, self.allocator)
         self.chunked = bool(chunked_prefill)
         self.chunk_tokens = 0
@@ -362,7 +359,7 @@ class Scheduler:
                     f"('dense', 'moe'); got family {self.cfg.family!r}")
             if getattr(engine, "mixed_fn", None) is None:
                 raise ValueError("engine has no mixed_fn — construct a "
-                                 "paged dense engine")
+                                 "paged dense or moe engine")
             ct = engine.ecfg.chunk_tokens
             if ct < 1 or ct % self.page_size:
                 raise ValueError(

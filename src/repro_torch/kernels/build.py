@@ -43,7 +43,10 @@ LAUNCHES: Dict[str, int] = {"vwr_matmul": 0, "vwr_swiglu": 0,
                             "vwr_mla_flash_decode": 0,
                             "vwr_mla_paged_flash_decode": 0,
                             "vwr_mla_paged_flash_decode_q8": 0,
-                            "vwr_mla_flash_decode_q8": 0}
+                            "vwr_mla_flash_decode_q8": 0,
+                            "vwr_flash_decode_q8": 0,
+                            "vwr_mla_chunk_prefix_attend": 0,
+                            "vwr_mla_chunk_prefix_attend_q8": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

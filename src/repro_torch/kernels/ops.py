@@ -25,6 +25,7 @@ from repro_torch.kernels.vwr_chunk import vwr_chunk_prefix_attend as _chunk
 from repro_torch.kernels.vwr_chunk import \
     vwr_chunk_prefix_attend_q8 as _chunk_q8
 from repro_torch.kernels.vwr_decode import vwr_flash_decode as _decode
+from repro_torch.kernels.vwr_decode import vwr_flash_decode_q8 as _decode_q8
 from repro_torch.kernels.vwr_decode import vwr_paged_flash_decode as _paged
 from repro_torch.kernels.vwr_decode import \
     vwr_paged_flash_decode_q8 as _paged_q8
@@ -84,6 +85,16 @@ def vwr_flash_decode(q, k, v, cur_len, pos0=0):
     out = _decode(_groups(q, k.shape[2]), k.contiguous(), v.contiguous(),
                   cur_len, pos0)
     return _heads(*out, q.shape[0])
+
+
+def vwr_flash_decode_q8(q, k, v, k_scale, v_scale, cur_len, pos0=0):
+    """``vwr_flash_decode`` over an int8 cache with fp32 (B, KV) scales,
+    one a (batch, KV head) row."""
+    B = q.shape[0]
+    out = _decode_q8(_groups(q, k.shape[2]), k.contiguous(), v.contiguous(),
+                     k_scale.reshape(-1).contiguous(),
+                     v_scale.reshape(-1).contiguous(), cur_len, pos0)
+    return _heads(*out, B)
 
 
 def vwr_paged_flash_decode(q, k_pool, v_pool, table, counts):
@@ -162,7 +173,8 @@ def vwr_chunk_prefix_attend_q8(q, k_pool, v_pool, k_scale, v_scale, table,
 
 
 # ----------------------------------------------------------------------
-# absorbed-MLA decode: kernels 10, 11, 13 and 14 (csrc/vwr_mla_decode.cu)
+# absorbed MLA: decode kernels 10, 11, 13 and 14, chunk-prefix kernels 12
+# and 15 (csrc/vwr_mla_decode.cu)
 # ----------------------------------------------------------------------
 
 def vwr_mla_flash_decode(q_abs, q_rope, c_kv, k_rope, cur_len, pos0=0, *,
@@ -204,3 +216,27 @@ def vwr_mla_paged_flash_decode_q8(q_abs, q_rope, ckv_pool, krope_pool,
     return _mla.vwr_mla_paged_flash_decode_q8(
         q_abs.contiguous(), q_rope.contiguous(), ckv_pool, krope_pool,
         ckv_scale, krope_scale, table, counts, scale=scale)
+
+
+def vwr_mla_chunk_prefix_attend(q_abs, q_rope, ckv_pool, krope_pool, table,
+                                counts, *, scale):
+    """Unnormalized split-operand MLA partials of a prompt chunk: q_abs
+    (C, H, r) and q_rope (C, H, rope) fp32 against its J prior pages of
+    the latent pools (n_pages, page_size, r / rope); table, counts (J,),
+    0 masking a page; the kernel clamps each table entry it reads.
+    Returns fp32 (o_tilde (C, H, r), m (C, H), l (C, H))."""
+    return _mla.vwr_mla_chunk_prefix_attend(
+        q_abs.contiguous(), q_rope.contiguous(), ckv_pool, krope_pool,
+        table.to(torch.int32).contiguous(),
+        counts.to(torch.int32).contiguous(), scale=scale)
+
+
+def vwr_mla_chunk_prefix_attend_q8(q_abs, q_rope, ckv_pool, krope_pool,
+                                   ckv_scale, krope_scale, table, counts, *,
+                                   scale):
+    """``vwr_mla_chunk_prefix_attend`` over int8 pools with fp32
+    (n_pages,) latent and rope scales."""
+    return _mla.vwr_mla_chunk_prefix_attend_q8(
+        q_abs.contiguous(), q_rope.contiguous(), ckv_pool, krope_pool,
+        ckv_scale, krope_scale, table.to(torch.int32).contiguous(),
+        counts.to(torch.int32).contiguous(), scale=scale)

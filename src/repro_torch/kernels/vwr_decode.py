@@ -2,7 +2,9 @@
 plain versions and the CUDA kernel wrappers.
 
 Counterparts of ``repro.kernels.vwr_decode``'s ``vwr_flash_decode_p``
-(kernel ``csrc/vwr_decode.cu``), ``vwr_paged_flash_decode_p`` and
+and ``vwr_flash_decode_q8_p`` (both in ``csrc/vwr_decode.cu``; the int8
+cache carries one fp32 scale a (batch, KV head) row),
+``vwr_paged_flash_decode_p`` and
 ``vwr_paged_flash_decode_q8_p`` (both in ``csrc/vwr_paged_decode.cu``).
 The paged kernels walk a slot's block table: logical page j is the
 physical page ``table[slot, j]`` of an ``(n_pages, page_size, KV, D)``
@@ -54,33 +56,64 @@ def vwr_flash_decode_ref(q, k, v, cur_len, pos0=0):
             p.sum(-1).reshape(BKV, G))
 
 
+def vwr_flash_decode_q8_ref(q, k, v, k_scale, v_scale, cur_len, pos0=0):
+    """Plain version of the int8 kernel: k, v int8 (B, T, KV, D) with
+    fp32 (B*KV,) scales, dequantized, then as ``vwr_flash_decode_ref``."""
+    B, T, KV, _ = k.shape
+    kf = k.float() * k_scale.reshape(B, 1, KV, 1)
+    vf = v.float() * v_scale.reshape(B, 1, KV, 1)
+    return vwr_flash_decode_ref(q, kf, vf, cur_len, pos0)
+
+
+def _dense_launch(kernel, q, k, v, scales, cur_len, pos0):
+    BKV, G, D = q.shape
+    B, T, KV, _ = k.shape
+    if BKV != B * KV or G > MAX_GROUP or D not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: needs q (B*KV, G<={MAX_GROUP}, D in "
+                         f"{HEAD_DIMS}), got q {tuple(q.shape)} and cache "
+                         f"{tuple(k.shape)}")
+    code = build.dtype_code(q.dtype)
+    build.check_operands(kernel, q.dtype, q=(q, (BKV, G, D)))
+    build.check_operands(kernel, torch.int8 if scales else q.dtype,
+                         k=(k, (B, T, KV, D)), v=(v, (B, T, KV, D)))
+    if scales:
+        build.check_operands(kernel, torch.float32,
+                             k_scale=(scales[0], (BKV,)),
+                             v_scale=(scales[1], (BKV,)))
+    n_keys = max(0, min(T, int(cur_len) - int(pos0)))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o_t = torch.empty((BKV, G, D), **f32)
+    m = torch.empty((BKV, G), **f32)
+    l = torch.empty((BKV, G), **f32)
+    ptrs = [q, k, v, *scales, o_t, m, l]
+    lib, fn = build.kernel_fn("vwr_decode", f"{kernel}_launch",
+                              [_VP] * len(ptrs) + [_I] * 6 + [_F, _I, _VP])
+    err = fn(*(t.data_ptr() for t in ptrs), B, T, KV, G, D, n_keys,
+             1.0 / D ** 0.5, code, build.stream_of(q))
+    build.check(lib, err, kernel)
+    build.count_launch(kernel)
+    return o_t, m, l
+
+
 def vwr_flash_decode(q, k, v, cur_len: int, pos0: int = 0):
     """q: (B*KV, G, D) one token's heads, kv-major; k, v: (B, T, KV, D);
     ``cur_len`` and ``pos0`` are host integers on the kernel path.
     Returns fp32 (o_tilde, m, l) as ``vwr_flash_decode_ref``."""
     if q.device.type == "cpu":
         return vwr_flash_decode_ref(q, k, v, cur_len, pos0)
-    BKV, G, D = q.shape
-    B, T, KV, _ = k.shape
-    if BKV != B * KV or G > MAX_GROUP or D not in HEAD_DIMS:
-        raise ValueError(f"vwr_flash_decode: needs q (B*KV, G<={MAX_GROUP}"
-                         f", D in {HEAD_DIMS}), got q {tuple(q.shape)} "
-                         f"and cache {tuple(k.shape)}")
-    build.check_operands("vwr_flash_decode", q.dtype, q=(q, (BKV, G, D)),
-                         k=(k, (B, T, KV, D)), v=(v, (B, T, KV, D)))
-    n_keys = max(0, min(T, int(cur_len) - int(pos0)))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_t = torch.empty((BKV, G, D), **f32)
-    m = torch.empty((BKV, G), **f32)
-    l = torch.empty((BKV, G), **f32)
-    lib, fn = build.kernel_fn("vwr_decode", "vwr_flash_decode_launch",
-                              [_VP] * 6 + [_I] * 6 + [_F, _I, _VP])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_t.data_ptr(),
-             m.data_ptr(), l.data_ptr(), B, T, KV, G, D, n_keys,
-             1.0 / D ** 0.5, build.dtype_code(q.dtype), build.stream_of(q))
-    build.check(lib, err, "vwr_flash_decode")
-    build.count_launch("vwr_flash_decode")
-    return o_t, m, l
+    return _dense_launch("vwr_flash_decode", q, k, v, (), cur_len, pos0)
+
+
+def vwr_flash_decode_q8(q, k, v, k_scale, v_scale, cur_len: int,
+                        pos0: int = 0):
+    """``vwr_flash_decode`` over an int8 cache k, v (B, T, KV, D) with
+    fp32 (B*KV,) scales, one a (batch, KV head) row; q stays bf16 or
+    fp32."""
+    if q.device.type == "cpu":
+        return vwr_flash_decode_q8_ref(q, k, v, k_scale, v_scale, cur_len,
+                                       pos0)
+    return _dense_launch("vwr_flash_decode_q8", q, k, v, (k_scale, v_scale),
+                         cur_len, pos0)
 
 
 # ----------------------------------------------------------------------

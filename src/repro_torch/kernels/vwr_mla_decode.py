@@ -1,9 +1,11 @@
 """Absorbed-MLA flash-decode partials against a dense latent cache or
-latent page pools: plain versions and the CUDA kernel wrappers.
+latent page pools, and a prompt chunk's partials against its prior latent
+pages: plain versions and the CUDA kernel wrappers.
 
 Counterparts of ``repro.kernels.vwr_decode``'s ``vwr_mla_flash_decode_p``,
-``vwr_mla_flash_decode_q8_p``, ``vwr_mla_paged_flash_decode_p`` and
-``vwr_mla_paged_flash_decode_q8_p`` (all four in
+``vwr_mla_flash_decode_q8_p``, ``vwr_mla_paged_flash_decode_p``,
+``vwr_mla_paged_flash_decode_q8_p``, ``vwr_mla_chunk_prefix_attend_p``
+and ``vwr_mla_chunk_prefix_attend_q8_p`` (all six in
 ``csrc/vwr_mla_decode.cu``).  The queries come folded through ``wk_b``
 (``models.mla.mla_absorbed_queries``): ``q_abs`` (B, H, r) and
 ``q_rope`` (B, H, rope), fp32.  A key's score is
@@ -16,7 +18,10 @@ first position has global index ``pos0``; positions with
 ``pos0 + idx < cur_len`` are valid.  The pools are (n_pages, page_size,
 r) / (n_pages, page_size, rope): logical page j of slot b is the
 physical page ``table[b, j]`` (clamped to [0, n_pages)) holding
-``counts[b, j]`` valid keys, 0 masking the page.  int8 caches carry fp32
+``counts[b, j]`` valid keys, 0 masking the page.  A chunk's C tokens
+(``q_abs`` (C, H, r)) share one (J,) table and counts: the decode
+contract of the pools with every token reading the same pages.  int8
+caches carry fp32
 scales, one a sequence (B,) for the dense cache and one a page
 (n_pages,) for the pools, separately for the latent and the rope part.
 
@@ -110,14 +115,41 @@ def vwr_mla_paged_flash_decode_q8_ref(q_abs, q_rope, ckv_pool, krope_pool,
                         scale)
 
 
+def vwr_mla_chunk_prefix_attend_ref(q_abs, q_rope, ckv_pool, krope_pool,
+                                    table, counts, *, scale: float):
+    """Plain version of kernel 12: q_abs (C, H, r), q_rope (C, H, rope)
+    against the (J,) table's pages, as one (1, C*H) row block of kernel
+    11's plain version.  Returns fp32 (o_tilde (C, H, r), m (C, H),
+    l (C, H))."""
+    C, H, r = q_abs.shape
+    o, m, l = vwr_mla_paged_flash_decode_ref(
+        q_abs.reshape(1, C * H, r), q_rope.reshape(1, C * H, -1), ckv_pool,
+        krope_pool, table[None], counts[None], scale=scale)
+    return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
+
+
+def vwr_mla_chunk_prefix_attend_q8_ref(q_abs, q_rope, ckv_pool, krope_pool,
+                                       ckv_scale, krope_scale, table, counts,
+                                       *, scale: float):
+    """Plain version of kernel 15: kernel 12's over the table's int8 pages
+    dequantized with their fp32 (n_pages,) scales."""
+    C, H, r = q_abs.shape
+    o, m, l = vwr_mla_paged_flash_decode_q8_ref(
+        q_abs.reshape(1, C * H, r), q_rope.reshape(1, C * H, -1), ckv_pool,
+        krope_pool, ckv_scale, krope_scale, table[None], counts[None],
+        scale=scale)
+    return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
+
+
 # ----------------------------------------------------------------------
 # the kernels
 # ----------------------------------------------------------------------
 
 def _launch(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
     """Check the operands and launch ``kernel``; ``index`` is (table,
-    counts) for the pools, () for the dense cache (``n_keys`` valid keys
-    from row 0 of each sequence's slab)."""
+    counts) for the pools, (B, J) a sequence or (J,) shared by the B
+    chunk tokens, () for the dense cache (``n_keys`` valid keys from row
+    0 of each sequence's slab)."""
     B, H, r = q_abs.shape
     rope = q_rope.shape[2]
     paged = bool(index)
@@ -143,10 +175,12 @@ def _launch(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
                              krope_scale=(scales[1], (lead[0],)))
     J = 0
     if paged:
-        J = index[0].shape[1]
+        J = index[0].shape[-1]
+        # a chunk's B tokens share one (J,) table, a sequence has its row
+        rows = () if kernel.startswith("vwr_mla_chunk") else (B,)
         build.check_operands(kernel, torch.int32,
-                             table=(index[0], (B, J)),
-                             counts=(index[1], (B, J)))
+                             table=(index[0], (*rows, J)),
+                             counts=(index[1], (*rows, J)))
     f32 = dict(dtype=torch.float32, device=q_abs.device)
     o_t = torch.empty((B, H, r), **f32)
     m = torch.empty((B, H), **f32)
@@ -214,3 +248,31 @@ def vwr_mla_paged_flash_decode_q8(q_abs, q_rope, ckv_pool, krope_pool,
     return _launch("vwr_mla_paged_flash_decode_q8", q_abs, q_rope, ckv_pool,
                    krope_pool, (ckv_scale, krope_scale), (table, counts), 0,
                    scale)
+
+
+def vwr_mla_chunk_prefix_attend(q_abs, q_rope, ckv_pool, krope_pool, table,
+                                counts, *, scale: float):
+    """Kernel 12.  q_abs (C, H, r), q_rope (C, H, rope) fp32, a prompt
+    chunk's absorbed queries; pools (n_pages, page_size, r / rope) bf16 or
+    fp32; table, counts (J,) int32 the chunk's prior pages, shared by its
+    C tokens (the kernel clamps each entry it reads).  Returns fp32
+    (o_tilde (C, H, r), m (C, H), l (C, H))."""
+    if q_abs.device.type == "cpu":
+        return vwr_mla_chunk_prefix_attend_ref(q_abs, q_rope, ckv_pool,
+                                               krope_pool, table, counts,
+                                               scale=scale)
+    return _launch("vwr_mla_chunk_prefix_attend", q_abs, q_rope, ckv_pool,
+                   krope_pool, (), (table, counts), 0, scale)
+
+
+def vwr_mla_chunk_prefix_attend_q8(q_abs, q_rope, ckv_pool, krope_pool,
+                                   ckv_scale, krope_scale, table, counts, *,
+                                   scale: float):
+    """Kernel 15: kernel 12 over int8 pools with fp32 (n_pages,) scales."""
+    if q_abs.device.type == "cpu":
+        return vwr_mla_chunk_prefix_attend_q8_ref(
+            q_abs, q_rope, ckv_pool, krope_pool, ckv_scale, krope_scale,
+            table, counts, scale=scale)
+    return _launch("vwr_mla_chunk_prefix_attend_q8", q_abs, q_rope,
+                   ckv_pool, krope_pool, (ckv_scale, krope_scale),
+                   (table, counts), 0, scale)

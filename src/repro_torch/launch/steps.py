@@ -45,10 +45,10 @@ def build_mixed_step(cfg):
     fp32, cache) — the pools are updated in place."""
     def mixed_step(params, batch):
         cache = batch["cache"]
-        kpool = cache["k"]
+        leaf = lm.pool_leaf(cfg, cache)
         meta = lm.paged_step_meta(
             batch["token"], batch["cur_len"], batch["block_table"],
-            kpool.shape[2], kpool.device,
+            leaf.shape[2], leaf.device,
             extra=(batch["chunk_tokens"], batch["chunk_pages"],
                    batch["chunk_write_pages"]))
         toks, pages, write_pages = meta.extra

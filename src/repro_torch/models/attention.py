@@ -253,6 +253,26 @@ def _decode_partial_cuda(q, k, v, cur_len, pos0=0):
     return ops.vwr_flash_decode(q, k, v, cur_len, pos0=pos0)
 
 
+# The q8 contract: the same over an int8 cache with fp32 (B, KV) scales,
+# one a (batch, KV head) row, applied after the dots.
+
+@D.register("decode_partial_q8", "torch")
+def _decode_partial_q8_torch(q, k, v, k_scale, v_scale, cur_len, pos0=0):
+    # dequantize, then attend
+    T = k.shape[1]
+    kf = k.float() * k_scale[:, None, :, None]
+    vf = v.float() * v_scale[:, None, :, None]
+    return flash_decode_partial(
+        q, kf, vf, pos0 + torch.arange(T, device=q.device), cur_len)
+
+
+@D.register("decode_partial_q8", "cuda")
+def _decode_partial_q8_cuda(q, k, v, k_scale, v_scale, cur_len, pos0=0):
+    from repro_torch.kernels import ops
+    return ops.vwr_flash_decode_q8(q, k, v, k_scale, v_scale, cur_len,
+                                   pos0=pos0)
+
+
 # ---------------- paged decode (block-table-indexed page pool) ----------------
 
 def paged_flash_decode_partial(q, k_pool, v_pool, block_table, page_counts

@@ -11,7 +11,8 @@ deepseek-v3 with MLA).  Conventions kept from the JAX package:
     adds the FFN output outside (``x + mlp(...)``), as the JAX decode
     body does; the moe family runs its ``first_k_dense`` dense layers
     (``dense_layers``, FFN width ``d_ff_dense``) before its MoE layers
-    (``layers``), and its attention is MLA when ``cfg.mla`` is set;
+    (``layers``); either family's attention is MLA when ``cfg.mla`` is
+    set;
   * parameters are stacked on a leading layer axis; the layers run as
     a Python loop over it;
   * the dense decode cache is ``{"k", "v"}`` of shape (L, B, T, KV, Dh),
@@ -25,8 +26,12 @@ deepseek-v3 with MLA).  Conventions kept from the JAX package:
     or the earlier chunks of a chunked prefill) prefills only its
     suffix against the prefix gathered back out of the pools
     (``prefill_suffix``, ``prefill_chunk``), on the blockwise
-    formulation, so every suffix row equals the whole prompt's row
-    (dense family; the moe family's suffix prefill is not ported yet).
+    formulation, so every suffix row equals the whole prompt's row for
+    model-dtype pools (GQA, and MLA through ``mla_attention_suffix``).
+    The moe family's suffix runs its MoE FFN over the suffix tokens
+    alone, as in the JAX package: with capacity drops (capacity
+    ``ceil(S * top_k * capacity_factor / n_experts)`` of the tokens in
+    the call) a suffix's rows can differ from the whole prompt's.
 
 ``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda').
 """
@@ -45,23 +50,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
-# the prefix cache and chunked prefill of the moe family: the MLA suffix
-# prefill (``mla_attention_suffix``) and the MLA chunk-prefix kernels
-MOE_PREFIX = ("the prefix cache and chunked prefill of the moe family "
-              "(suffix prefill over MLA latent pools, kernels 12 and 15) "
-              "are not ported to repro_torch yet: ROADMAP queue 1 item 10")
-
-
 def _check_family(cfg) -> None:
-    """The dense family (GQA) and the moe family (GQA or MLA) are
+    """The dense and moe families (each with GQA or MLA attention) are
     ported; the others raise with their ROADMAP item."""
-    if cfg.family == "moe" or (cfg.family == "dense" and cfg.mla is None):
+    if cfg.family in ("dense", "moe"):
         return
-    where = ("item 10 (MLA)" if cfg.family == "dense"
-             else "item 11 (remaining families)")
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
-        f"yet: ROADMAP queue 1 {where}")
+        "yet: ROADMAP queue 1 item 11 (remaining families)")
 
 
 # ======================================================================
@@ -161,12 +157,40 @@ def _cache_group(cache, key):
     return cache if key is None else cache[key]
 
 
-def _pool_leaf(cfg, cache):
+def _kv_names(cfg):
+    """A cache group's two leaves: the latent and rope caches for MLA,
+    K and V otherwise."""
+    return ("ckv", "krope") if cfg.mla is not None else ("k", "v")
+
+
+def pool_leaf(cfg, cache):
     """The cache leaf whose shape gives the pages and page size of a
     paged cache: the latent pool for MLA, the K pool otherwise (in the
     moe group for the moe family)."""
     return _cache_group(cache, "moe" if cfg.family == "moe" else None)[
-        "ckv" if cfg.mla is not None else "k"]
+        _kv_names(cfg)[0]]
+
+
+def _run_groups(cfg, params, x, layer, collect):
+    """Every layer group in order (``_groups``): ``layer(x, lp, key, i,
+    moe) -> (x, cache pair)`` for layer ``i`` of the group whose cache
+    key is ``key``.  Returns (x, None or the cache stacks of ``backbone``:
+    one group's (L, ...) pair, or for the moe family (dense layers'
+    pair or None, MoE layers'))."""
+    stacks = {}
+    for stacked, key, moe in _groups(cfg, params):
+        ks, vs = [], []
+        for i in range(_depth(stacked)):
+            x, (k, v) = layer(x, _layer(stacked, i), key, i, moe)
+            if collect:
+                ks.append(k)
+                vs.append(v)
+        if collect:
+            stacks[key] = (torch.stack(ks), torch.stack(vs))
+    if not collect:
+        return x, None
+    return x, ((stacks.get("dense"), stacks["moe"])
+               if cfg.family == "moe" else stacks[None])
 
 
 # ======================================================================
@@ -216,23 +240,12 @@ def backbone(params, tokens, cfg, *, collect_cache=False) -> ForwardOut:
     _check_family(cfg)
     x = L.embed(params["embed"], tokens).to(L.dt(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    stacks = {}
-    for stacked, key, moe in _groups(cfg, params):
-        body = _moe_body if moe else _dense_body
-        ks, vs = [], []
-        for i in range(_depth(stacked)):
-            x, (k, v) = body(cfg, positions, x, _layer(stacked, i))
-            if collect_cache:
-                ks.append(k)
-                vs.append(v)
-        if collect_cache:
-            stacks[key] = (torch.stack(ks), torch.stack(vs))
-    x = _norm(cfg, params["final_norm"], x)
-    caches = None
-    if collect_cache:
-        caches = ((stacks.get("dense"), stacks["moe"])
-                  if cfg.family == "moe" else stacks[None])
-    return ForwardOut(h=x, caches=caches)
+
+    def layer(x, lp, key, i, moe):
+        return (_moe_body if moe else _dense_body)(cfg, positions, x, lp)
+
+    x, caches = _run_groups(cfg, params, x, layer, collect_cache)
+    return ForwardOut(h=_norm(cfg, params["final_norm"], x), caches=caches)
 
 
 def _logits(params, h, cfg):
@@ -259,18 +272,21 @@ def prefill(params, batch, cfg):
 # suffix-only prefill (prefix cache) and chunked prefill
 # ======================================================================
 
-def _gather_prefix_kv(cache, pages):
-    """The matched prefix pages gathered back out of the pools into
-    prefill-cache-shaped (L, 1, M, KV, Dh) stacks (M = len(pages) *
-    page_size); int8 pools are dequantized through their per-(page, KV
-    head) scales in fp32.  For model-dtype pools the rows are exactly the
-    K/V the original prefill wrote."""
+def _gather_prefix_kv(group, names, pages):
+    """The matched prefix pages gathered back out of one layer group's
+    pools ``names`` into prefill-cache-shaped (L, 1, M, ...) stacks (M =
+    len(pages) * page_size); int8 pools are dequantized in fp32 through
+    their scales: one a (page, KV head) for K/V pools, (L, J, KV), one a
+    page for the latent and rope pools, (L, J).  For model-dtype pools
+    the rows are exactly what the original prefill wrote."""
     out = []
-    for name in ("k", "v"):
-        g = cache[name][:, pages]                 # (L, J, ps, KV, Dh)
-        if name + "_scale" in cache:
-            s = cache[name + "_scale"][:, pages]  # (L, J, KV)
-            g = g.float() * s[:, :, None, :, None]
+    for name in names:
+        g = group[name][:, pages]                 # (L, J, ps, ...)
+        if name + "_scale" in group:
+            s = group[name + "_scale"][:, pages]
+            s = (s[:, :, None, :, None] if g.ndim == 5
+                 else s[:, :, None, None])
+            g = g.float() * s
         L_, J, ps = g.shape[:3]
         out.append(g.reshape(L_, 1, J * ps, *g.shape[3:]))
     return tuple(out)
@@ -285,7 +301,12 @@ def _suffix_attn_delta(cfg, ap, h, q_pos, kv_pos, prefix, *,
     the streaming kv loop sees the same kv length and block boundaries
     as the whole-prompt prefill, so each suffix row is the whole
     prompt's row (as in the JAX package, whose suffix path also stays
-    off its prefill kernel)."""
+    off its prefill kernel).  MLA rebuilds its keys and values from the
+    prefix latents (``mla_attention_suffix``)."""
+    if cfg.mla is not None:
+        out, kv = MLA.mla_attention_suffix(ap, h, q_pos, kv_pos, cfg,
+                                           *prefix)
+        return (out if residual is None else residual + out), kv
     pk, pv = prefix
     q, k, v = A.qkv_proj(ap, h, q_pos, cfg.rope_theta, cfg)
     k_all = torch.cat([pk.to(k.dtype), k], dim=1)
@@ -310,6 +331,14 @@ def _dense_suffix_body(cfg, q_pos, kv_pos, x, lp, prefix):
     return x, kv
 
 
+def _moe_suffix_body(cfg, q_pos, kv_pos, x, lp, prefix):
+    x, kv = _suffix_attn_delta(cfg, lp["attn"],
+                               _norm(cfg, lp["attn_norm"], x), q_pos,
+                               kv_pos, prefix, residual=x)
+    y, _aux = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x), cfg)
+    return x + y, kv
+
+
 def prefill_suffix(params, batch, cfg):
     """Prefill only the SUFFIX of a prompt whose prefix is already in the
     page pools (a prefix-cache hit).
@@ -319,39 +348,43 @@ def prefill_suffix(params, batch, cfg):
     tensor); ``cache`` the live pools the prefix is read from.  The
     prefix length M = J_m * page_size comes from the shape of ``pages``.
 
-    Returns (last-token logits (1, vocab_padded) fp32, (k, v) stacks
-    (L, 1, S, KV, Dh)) as ``prefill`` restricted to positions [M, M+S):
+    Returns (last-token logits (1, vocab_padded) fp32, the suffix's cache
+    stacks in ``prefill``'s layout (GQA (k, v) (L, 1, S, KV, Dh), MLA
+    (c_kv, k_rope); for the moe family the pair (dense layers' stacks or
+    None, MoE layers'))) as ``prefill`` restricted to positions [M, M+S):
     they scatter into the slot's pages from page J_m on (the suffix
-    starts page-aligned).  The token-only families: frontend families
-    prepend positions a token-keyed prefix cannot match."""
+    starts page-aligned).  Each layer group reads its prefix out of its
+    own pools.  The token-only families: frontend families prepend
+    positions a token-keyed prefix cannot match."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(
             f"prefill_suffix supports the token-only families ('dense', "
             f"'moe'); family {cfg.family!r} prepends frontend positions "
             "that a token-keyed prefix index cannot match")
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_PREFIX)
     _check_family(cfg)
     cache = batch["cache"]
-    dev = cache["k"].device
+    leaf = pool_leaf(cfg, cache)
+    dev = leaf.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     pages = torch.as_tensor(batch["pages"], device=dev).long()
-    M = pages.shape[0] * cache["k"].shape[2]
+    M = pages.shape[0] * leaf.shape[2]
     S = tokens.shape[1]
     q_pos = torch.arange(S, device=dev) + M
     kv_pos = torch.arange(M + S, device=dev)
     x = L.embed(params["embed"], tokens).to(L.dt(cfg))
-    pk, pv = _gather_prefix_kv(cache, pages)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _dense_suffix_body(cfg, q_pos, kv_pos, x,
-                                       _layer(params["layers"], i),
-                                       (pk[i], pv[i]))
-        ks.append(k)
-        vs.append(v)
+    prefix = {key: _gather_prefix_kv(_cache_group(cache, key),
+                                     _kv_names(cfg), pages)
+              for _, key, _ in _groups(cfg, params)}
+
+    def layer(x, lp, key, i, moe):
+        body = _moe_suffix_body if moe else _dense_suffix_body
+        return body(cfg, q_pos, kv_pos, x, lp,
+                    tuple(t[i] for t in prefix[key]))
+
+    x, caches = _run_groups(cfg, params, x, layer, True)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, -1:, :], cfg)[:, 0]
-    return logits.float(), (torch.stack(ks), torch.stack(vs))
+    return logits.float(), caches
 
 
 def prefill_chunk(params, batch, cfg):
@@ -701,7 +734,7 @@ def paged_decode_step(params, batch, cfg, meta=None):
         raise NotImplementedError(DD._SEQ_SHARD)
     cache = batch["cache"]
     if meta is None:
-        leaf = _pool_leaf(cfg, cache)
+        leaf = pool_leaf(cfg, cache)
         meta = paged_step_meta(batch["token"], batch["cur_len"],
                                batch["block_table"], leaf.shape[2],
                                leaf.device)

@@ -8,7 +8,11 @@ qk width nope + rope, V zero-padded to it, as in the JAX package).
 Decode uses the absorbed form: ``q_nope`` is folded through ``wk_b``, so
 scores and values are taken against the latent cache itself, which the
 ``decode_partial_mla*`` registry ops read as two separate operands
-('torch' plain, 'cuda' the kernels of ``csrc/vwr_mla_decode.cu``).
+('torch' plain, 'cuda' the kernels of ``csrc/vwr_mla_decode.cu``).  A
+suffix-only prefill (prefix cache, chunked prefill) rebuilds the keys
+of the prefix latents gathered out of the pools
+(``mla_attention_suffix``); the ``chunk_prefix_mla_paged*`` ops take an
+absorbed query chunk against the prior latent pages.
 
 Rotary embeddings here rotate ``rope_head_dim`` features (not
 ``d_head``); a caller that builds one table for a whole step passes it
@@ -104,6 +108,39 @@ def mla_attention(p, x, positions, cfg, *, causal=True, dense=False):
                            q_positions=positions, kv_positions=positions,
                            block_q=cfg.attn_block_q,
                            block_kv=cfg.attn_block_kv)
+    out = torch.einsum("bshk,hkd->bsd", o[..., :m.v_head_dim], p["wo"])
+    return out, (c_kv, k_rope)
+
+
+def mla_attention_suffix(p, x, q_positions, kv_positions, cfg, prefix_ckv,
+                         prefix_krope):
+    """Expanded-form attention of a suffix-only prefill (prefix cache,
+    chunked prefill).  ``x`` (B, S, D) holds the suffix tokens at global
+    ``q_positions``; ``prefix_ckv`` (B, M, r) / ``prefix_krope`` (B, M,
+    rope) are the prefix latents gathered back out of the pools.  Keys
+    and values are rebuilt from the concatenated latents through wk_b /
+    wv_b as the whole prefill does, on the same blockwise kv length and
+    block boundaries, so each suffix row equals the whole prompt's row
+    for model-dtype pools.  Returns (out (B, S, D), (c_kv, k_rope)) of
+    the suffix only."""
+    m = cfg.mla
+    H = cfg.n_heads
+    rope = rope_table(cfg, q_positions)
+    q_nope, q_rope = mla_queries(p, x, q_positions, cfg, rope=rope)
+    c_kv, k_rope = mla_latent(p, x, q_positions, cfg, rope=rope)
+    ckv_all = torch.cat([prefix_ckv.to(c_kv.dtype), c_kv], 1)
+    krope_all = torch.cat([prefix_krope.to(k_rope.dtype), k_rope], 1)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv_all, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", ckv_all, p["wv_b"])
+    k_rope_h = krope_all[:, :, None, :].expand(*krope_all.shape[:2], H,
+                                                m.rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    attend = full_attn_ref if cfg.accounting else blockwise_attn
+    blocks = ({} if cfg.accounting else
+              dict(block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv))
+    o = attend(q, k, v_pad(v, q.shape[-1]), causal=True,
+               q_positions=q_positions, kv_positions=kv_positions, **blocks)
     out = torch.einsum("bshk,hkd->bsd", o[..., :m.v_head_dim], p["wo"])
     return out, (c_kv, k_rope)
 
@@ -218,6 +255,63 @@ def _decode_partial_mla_paged_q8_cuda(q_abs, q_rope, ckv_pool, krope_pool,
                                              krope_pool, ckv_scale,
                                              krope_scale, table, counts,
                                              scale=scale)
+
+
+# ---------------- chunked prefill (absorbed chunk vs latent pools) -------
+#
+# The MLA sibling of ``attention.chunk_prefix_attend_partial``: an
+# absorbed (C, H, r) query chunk against the latent pools over the
+# chunk's PRIOR pages, table and counts (J,) shared by the C tokens.
+# Returns latent-space fp32 partials (o_tilde (C, H, r), m (C, H),
+# l (C, H)).  As in the JAX package no engine path dispatches these ops
+# (the engine's chunk step is ``mla_attention_suffix``).
+
+def mla_chunk_prefix_attend_partial(q_abs, q_rope, ckv_pool, krope_pool,
+                                    table, counts, *, scale: float):
+    """The plain gather reference of the MLA chunk-prefix contract
+    (kernel 12's plain version): table / counts (J,) int, a count of 0
+    masking a page, entries clamped to [0, n_pages)."""
+    return KM.vwr_mla_chunk_prefix_attend_ref(q_abs, q_rope, ckv_pool,
+                                              krope_pool, table, counts,
+                                              scale=scale)
+
+
+@D.register("chunk_prefix_mla_paged", "torch")
+def _chunk_prefix_mla_paged_torch(q_abs, q_rope, ckv_pool, krope_pool,
+                                  table, counts, *, scale):
+    return mla_chunk_prefix_attend_partial(q_abs, q_rope, ckv_pool,
+                                           krope_pool, table, counts,
+                                           scale=scale)
+
+
+@D.register("chunk_prefix_mla_paged", "cuda")
+def _chunk_prefix_mla_paged_cuda(q_abs, q_rope, ckv_pool, krope_pool,
+                                 table, counts, *, scale):
+    from repro_torch.kernels import ops
+    return ops.vwr_mla_chunk_prefix_attend(q_abs, q_rope, ckv_pool,
+                                           krope_pool, table, counts,
+                                           scale=scale)
+
+
+@D.register("chunk_prefix_mla_paged_q8", "torch")
+def _chunk_prefix_mla_paged_q8_torch(q_abs, q_rope, ckv_pool, krope_pool,
+                                     ckv_scale, krope_scale, table, counts,
+                                     *, scale):
+    # the gathered pages are dequantized, not the whole pool
+    return KM.vwr_mla_chunk_prefix_attend_q8_ref(
+        q_abs, q_rope, ckv_pool, krope_pool, ckv_scale, krope_scale, table,
+        counts, scale=scale)
+
+
+@D.register("chunk_prefix_mla_paged_q8", "cuda")
+def _chunk_prefix_mla_paged_q8_cuda(q_abs, q_rope, ckv_pool, krope_pool,
+                                    ckv_scale, krope_scale, table, counts,
+                                    *, scale):
+    from repro_torch.kernels import ops
+    return ops.vwr_mla_chunk_prefix_attend_q8(q_abs, q_rope, ckv_pool,
+                                              krope_pool, ckv_scale,
+                                              krope_scale, table, counts,
+                                              scale=scale)
 
 
 def mla_concat_view(q_abs, q_rope, c_kv, k_rope, scale: float):

@@ -10,7 +10,11 @@ chunked Scheduler's and the port's unchunked ones; the page-boundary,
 one-token-final-chunk and prefix-hit-all-but-one admission edges;
 preemption in mid-prefill; a transient fault on a mixed step; a
 non-finite final chunk; the config checks; the ITL percentiles; and the
-'cuda' attention op refusing a suffix-shaped call.  Shapes are those of
+'cuda' attention op refusing a suffix-shaped call.  ``prefill_chunk``
+and the Scheduler streams run the three configs of the JAX matrix
+(``tests/test_chunked.py``): gqa, mla (the dense family with MLA) and
+moe-mla (one dense and one MoE layer, capacity factor 4 so that no token
+drops), on bf16 and int8 pools.  Shapes are those of
 ``tests/test_chunked.py`` (2 layers, d 64, page 4, chunk 8, fp32).  The
 JAX engines run on an explicit (1, 1) mesh with Auto axes (its default
 mesh fails under JAX 0.9, ROADMAP queue 3).
@@ -23,6 +27,7 @@ from jax.sharding import AxisType
 
 torch = pytest.importorskip("torch")
 
+from repro.common import config as jconfig  # noqa: E402
 from repro.common.config import ModelConfig as JModelConfig  # noqa: E402
 from repro.engine import DecodeEngine as JEngine  # noqa: E402
 from repro.engine import EngineConfig as JEngineConfig  # noqa: E402
@@ -31,6 +36,7 @@ from repro.engine import Scheduler as JScheduler  # noqa: E402
 from repro.engine.scheduler import pack_chunk as jpack_chunk  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.common import config as tconfig  # noqa: E402
 from repro_torch.common.config import ModelConfig  # noqa: E402
 from repro_torch.engine import (DecodeEngine, EngineConfig,  # noqa: E402
                                 Request, RequestStatus, Scheduler, faults)
@@ -59,6 +65,33 @@ def _t(a):
 
 def _cfg(**kw):
     return ModelConfig(**{**_BASE, **kw})
+
+
+# the JAX matrix's configs (tests/test_chunked.py): GQA, the dense family
+# with MLA, and the moe family with MLA
+_MLA = dict(q_lora_rank=32, kv_lora_rank=16, rope_head_dim=8,
+            nope_head_dim=16, v_head_dim=16)
+_MOE = dict(n_experts=4, top_k=2, d_expert=32, first_k_dense=1,
+            d_ff_dense=128, capacity_factor=4.0)
+KINDS = ("gqa", "mla", "moe-mla")
+
+
+def _kind_cfgs(kind):
+    """(JAX ModelConfig, port ModelConfig) of one of ``KINDS``."""
+    out = []
+    for mod in (jconfig, tconfig):
+        kw = dict(_BASE)
+        if kind != "gqa":
+            kw["mla"] = mod.MLAConfig(**_MLA)
+        if kind == "moe-mla":
+            kw.update(family="moe", moe=mod.MoEConfig(**_MOE))
+        out.append(mod.ModelConfig(**kw))
+    return tuple(out)
+
+
+def _kind_id(kind, rest):
+    """The gqa cases keep the ids they had before the MLA configs."""
+    return rest if kind == "gqa" else f"{kind}-{rest}"
 
 
 def _engine(cfg=None, B=2, max_len=32, n_pages=24, impl="torch",
@@ -245,23 +278,25 @@ def test_chunk_rows_match_whole_prefill_rows(rng):
                                        **TOL, err_msg=f"chunk at {c0}")
 
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-def test_prefill_chunk_matches_whole_prefill_and_jax(kv_dtype, rng):
+@pytest.mark.parametrize("kind,kv_dtype", [
+    pytest.param(k, kv, id=_kind_id(k, kv))
+    for k in KINDS for kv in ("bf16", "int8")])
+def test_prefill_chunk_matches_whole_prefill_and_jax(kind, kv_dtype, rng):
     """Chunk by chunk through ``lm.prefill_chunk`` (the engine's chunk
     path), against JAX's ``lm.prefill_chunk`` on the same parameters and
     pages (1e-4 of the logits' scale).  For model-dtype pools each
     chunk's last-token logits are also the whole prompt's at that
     position, bit for bit (the blockwise pass sees the same kv block
-    boundaries), and the pools end up holding the whole prefill's K/V.
-    int8 pools read the earlier chunks through the quantized pages; their
-    layer-0 pages, which do not depend on the prefix, are the whole
-    prefill's."""
+    boundaries; no MoE token drops at capacity factor 4), and the pools
+    end up holding the whole prefill's cache.  int8 pools read the
+    earlier chunks through the quantized pages; their first-layer pages,
+    which do not depend on the prefix, are the whole prefill's."""
     from repro.engine import paged_cache as jpc
     from repro.models import lm as jlm
     from repro_torch.engine import paged_cache as tpc
-    jc = JModelConfig(**_BASE)
+    jc, tc = _kind_cfgs(kind)
     jparams = jlm.init(jc, jax.random.PRNGKey(0))
-    eng = _engine(kv_dtype=kv_dtype, params=bridge.from_jax(
+    eng = _engine(tc, kv_dtype=kv_dtype, params=bridge.from_jax(
         jax.tree.map(np.asarray, jparams), "cpu"))
     cfg, params = eng.cfg, eng.params
     P = 19
@@ -290,10 +325,19 @@ def test_prefill_chunk_matches_whole_prefill_and_jax(kv_dtype, rng):
                 params, {"tokens": _t(toks[:p0 + C])[None]}, cfg)
             torch.testing.assert_close(got, whole, rtol=0, atol=0)
     layers = slice(None) if kv_dtype == "bf16" else slice(0, 1)
-    for name in cache:
-        torch.testing.assert_close(cache[name][layers, pages],
-                                   want_cache[name][layers, pages],
-                                   rtol=0, atol=0)
+    # the first layer group: the whole cache, or the moe family's dense
+    # layers (which come first)
+    first = (lambda c: c["dense"]) if kind == "moe-mla" else (lambda c: c)
+    groups = ([(cache["dense"], want_cache["dense"]),
+               (cache["moe"], want_cache["moe"])] if kind == "moe-mla"
+              else [(cache, want_cache)])
+    if kv_dtype == "int8":
+        groups = [(first(cache), first(want_cache))]
+    for got_g, want_g in groups:
+        for name in got_g:
+            torch.testing.assert_close(got_g[name][layers, pages],
+                                       want_g[name][layers, pages],
+                                       rtol=0, atol=0)
 
 
 def test_cuda_attention_refuses_a_suffix_shaped_call():
@@ -318,31 +362,35 @@ _SPECS = [(19, 6), (5, 4), (11, 5)]
 _MESH = None
 
 
-def _jax_engine(ekw):
+def _jax_engine(ekw, jc=None):
     global _MESH
     if _MESH is None:
         _MESH = jax.make_mesh((1, 1), ("data", "model"),
                               axis_types=(AxisType.Auto, AxisType.Auto))
-    return JEngine(JModelConfig(**_BASE), JEngineConfig(**ekw), mesh=_MESH)
+    return JEngine(jc or JModelConfig(**_BASE), JEngineConfig(**ekw),
+                   mesh=_MESH)
 
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("prefix", [False, True],
-                         ids=["no-prefix", "prefix"])
-def test_chunked_scheduler_matches_jax_and_unchunked(kv_dtype, prefix):
-    """gqa x pool dtype x prefix cache: the port's chunked streams equal
-    the JAX chunked Scheduler's (same parameters, same requests), with
-    the same chunk counters; for model-dtype pools they also equal the
-    port's unchunked streams.  On int8 pools a later chunk reads the
+@pytest.mark.parametrize("kind,prefix,kv_dtype", [
+    pytest.param(k, p, kv, id=_kind_id(
+        k, f"{'prefix' if p else 'no-prefix'}-{kv}"))
+    for k in KINDS for p in (False, True) for kv in ("bf16", "int8")])
+def test_chunked_scheduler_matches_jax_and_unchunked(kind, prefix,
+                                                     kv_dtype):
+    """config x pool dtype x prefix cache: the port's chunked streams
+    equal the JAX chunked Scheduler's (same parameters, same requests),
+    with the same chunk counters; for model-dtype pools they also equal
+    the port's unchunked streams.  On int8 pools a later chunk reads the
     earlier ones through the quantized pages, so the first token of the
-    19-token prompt differs from the unchunked stream here — in the JAX
-    Scheduler exactly as in the port, which is what is held."""
+    19-token gqa prompt differs from the unchunked stream here — in the
+    JAX Scheduler exactly as in the port, which is what is held."""
     ekw = dict(batch=2, max_len=32, paged=True, page_size=PS, n_pages=24,
                chunked_prefill=True, chunk_tokens=CT, kv_dtype=kv_dtype,
                prefix_cache=prefix)
-    jeng = _jax_engine(ekw)
+    jc, tc = _kind_cfgs(kind)
+    jeng = _jax_engine(ekw, jc)
     params = bridge.from_jax(jax.tree.map(np.asarray, jeng.params), "cpu")
-    eng = DecodeEngine(_cfg(), EngineConfig(**ekw, kernel_impl="torch"),
+    eng = DecodeEngine(tc, EngineConfig(**ekw, kernel_impl="torch"),
                        params=params, device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, 256, (p,)).astype(np.int32)

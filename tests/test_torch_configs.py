@@ -100,7 +100,10 @@ def test_kernel_build_paths_and_counters():
                                    "vwr_mla_flash_decode",
                                    "vwr_mla_paged_flash_decode",
                                    "vwr_mla_paged_flash_decode_q8",
-                                   "vwr_mla_flash_decode_q8"}
+                                   "vwr_mla_flash_decode_q8",
+                                   "vwr_flash_decode_q8",
+                                   "vwr_mla_chunk_prefix_attend",
+                                   "vwr_mla_chunk_prefix_attend_q8"}
     for name in build.SOURCES:
         p = build.lib_path(name)
         assert (build.CSRC / f"{name}.cu").exists()

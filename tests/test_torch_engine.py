@@ -1,8 +1,9 @@
 """The port's DecodeEngine against the JAX DecodeEngine: same greedy
 tokens from the same parameters and prompts (mesh (1, 1), batch 2,
 prompt 16, gen 8), the same input checks (the prefix-cache and chunked
-prefill options included), and the options the port does not serve yet
-refused.  The paged engine is in ``test_torch_paged.py``."""
+prefill options included), the moe family's engine with those options
+serving the JAX Scheduler's streams, and the options the port does not
+serve yet refused.  The paged engine is in ``test_torch_paged.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,14 +80,43 @@ def test_moe_generate_matches_jax_engine(name):
 
 @pytest.mark.parametrize("kw", [dict(prefix_cache=True),
                                 dict(chunked_prefill=True, chunk_tokens=4)])
-def test_moe_prefix_and_chunked_options_raise(kw):
-    """Paged moe engines serve, but not the prefix cache or chunked
-    prefill yet (ROADMAP queue 1 item 10); the JAX engine's ValueErrors
-    come first, as for the dense family."""
-    _, tc = _cfgs("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        DecodeEngine(tc, EngineConfig(batch=1, max_len=8, paged=True,
-                                      page_size=4, **kw), device="cpu")
+def test_moe_prefix_and_chunked_options_serve(kw):
+    """A paged deepseek-v3 engine (the moe family with MLA latent pools)
+    with the prefix cache or chunked prefill as its default carries the
+    suffix prefill and the mixed step, and a Scheduler on it serves the
+    JAX Scheduler's greedy streams, with the same counters, over two
+    requests that share a two-page prompt; the JAX engine's ValueErrors
+    still come first without ``paged``."""
+    from repro.engine import Request as JRequest
+    from repro.engine import Scheduler as JScheduler
+    from repro_torch.engine import Request, Scheduler
+    jc, tc = _cfgs("deepseek-v3-671b")
+    ekw = dict(batch=2, max_len=20, paged=True, page_size=4, n_pages=12,
+               **kw)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jeng = JEngine(jc, JEngineConfig(**ekw), mesh=mesh)
+    eng = DecodeEngine(tc, EngineConfig(**ekw), params=bridge.from_jax(
+        jax.tree.map(np.asarray, jeng.params), "cpu"), device="cpu")
+    assert callable(eng.suffix_prefill_fn) and callable(eng.mixed_fn)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, jc.vocab, 8)
+    prompts = [np.concatenate([shared, rng.integers(0, jc.vocab, n)])
+               .astype(np.int32) for n in (2, 5)]
+    outs = []
+    for sched, req in ((JScheduler(jeng, bucket_tables=False), JRequest),
+                       (Scheduler(eng, bucket_tables=False), Request)):
+        for i, p in enumerate(prompts):
+            sched.submit(req(rid=i, tokens=p, gen=4))
+        outs.append((sched.run(), sched.stats))
+    (want, jst), (got, st) = outs
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], np.asarray(want[rid]),
+                                      err_msg=f"rid {rid}")
+    for key in ("prefix_hits", "chunks", "mixed_steps", "prefills",
+                "steps"):
+        assert st[key] == jst[key], key
+    assert st["prefix_hits" if "prefix_cache" in kw else "chunks"] > 0
     with pytest.raises(ValueError, match="needs paged=True"):
         DecodeEngine(tc, EngineConfig(batch=1, max_len=8, **kw),
                      device="cpu")

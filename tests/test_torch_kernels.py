@@ -1,4 +1,6 @@
-"""The four ported kernels against the JAX ops they replace.
+"""The dense-path kernels (matmul, swiglu, attention, and the dense-cache
+flash decode over a model-dtype or an int8 cache) against the JAX ops
+they replace.
 
 On the CPU each wrapper runs its plain version, which is held to the
 JAX op (Pallas in interpret mode, the way the JAX package's own tests
@@ -13,7 +15,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.dist import decode as jdd  # noqa: E402
+from repro.kernels import dispatch as JD  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.dist import decode as tdd  # noqa: E402
+from repro_torch.kernels import dispatch as D  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import vwr_attention as KA  # noqa: E402
@@ -106,6 +112,66 @@ def test_flash_decode_matches_jax(T, cur_len, pos0):
         assert torch.all(got[2] == 0) and torch.all(got[1] == KD.NEG_INF)
 
 
+def _q8_cache(rng, B, T, KV, D):
+    kv = [rng.integers(-127, 128, (B, T, KV, D)).astype(np.int8)
+          for _ in range(2)]
+    scales = [rng.uniform(1e-3, 2e-2, (B, KV)).astype(np.float32)
+              for _ in range(2)]
+    return kv, scales
+
+
+@pytest.mark.parametrize("T,cur_len,pos0", [
+    (24, 17, 0),      # cur_len < T
+    (21, 30, 10),     # a slab at pos0 > 0, T not a multiple of a block
+    (20, 5, 8),       # no valid position: l = 0, m = -1e30
+])
+@pytest.mark.parametrize("jimpl,timpl", [("xla", "torch"),
+                                         ("pallas", "cuda")])
+def test_decode_partial_q8_ops_match_jax(T, cur_len, pos0, jimpl, timpl):
+    """The ``decode_partial_q8`` op (kernel 9's, on the CPU its plain
+    version: dequantize, then attend) against JAX's 'xla' op and its
+    'pallas' op in interpret mode, over an int8 cache with one scale a
+    (batch, KV head) row."""
+    rng = np.random.default_rng(T + cur_len)
+    B, H, KV, Dh = 2, 8, 2, 16
+    q = _randn(rng, B, H, Dh)
+    (k, v), (ks, vs) = _q8_cache(rng, B, T, KV, Dh)
+    want = JD.dispatch("decode_partial_q8", jimpl, *(jnp.asarray(a) for a in
+                                                     (q, k, v, ks, vs)),
+                       cur_len, pos0)
+    got = D.dispatch("decode_partial_q8", timpl,
+                     *(torch.from_numpy(a) for a in (q, k, v, ks, vs)),
+                     cur_len, pos0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g.numpy(), w)
+    if cur_len <= pos0:
+        assert torch.all(got[2] == 0) and torch.all(got[1] == KD.NEG_INF)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["cache", "int8"])
+def test_local_decode_attend_matches_jax(q8):
+    """``dist.decode.local_decode_attend``: scales select the q8 op (kernel
+    9 on the 'cuda' backend), held against JAX's function with the same
+    scales through its 'pallas' backend."""
+    rng = np.random.default_rng(11)
+    B, H, KV, Dh, T = 2, 8, 2, 16, 24
+    q = _randn(rng, B, H, Dh)
+    if q8:
+        (k, v), scales = _q8_cache(rng, B, T, KV, Dh)
+    else:
+        k, v, scales = _randn(rng, B, T, KV, Dh), _randn(rng, B, T, KV, Dh), []
+    names = ("k_scale", "v_scale")
+    want = jdd.local_decode_attend(
+        *(jnp.asarray(a) for a in (q, k, v)), 19, backend="pallas",
+        **{n: jnp.asarray(s) for n, s in zip(names, scales)})
+    got = tdd.local_decode_attend(
+        *(torch.from_numpy(a) for a in (q, k, v)), 19, backend="cuda",
+        **{n: torch.from_numpy(s) for n, s in zip(names, scales)})
+    assert got.dtype == torch.float32
+    _close(got.numpy(), want)
+
+
 def test_cpu_tensors_run_the_plain_version_uncounted():
     build.reset_launches()
     x = torch.randn(4, 8)
@@ -157,6 +223,31 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     for got, want in zip(KD.vwr_flash_decode(qd, k, v, 40, 3),
                          KD.vwr_flash_decode_ref(qd, k, v, 40, 3)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_decode_q8_matches_plain(cuda, dtype):
+    """Kernel 9 against its plain version: T not a multiple of the tile,
+    a slab at pos0 > 0, a row with no valid key, G 1 and 16, D 32 to
+    128, bf16 and fp32 queries."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for B, T, KV, G, D, cur, pos0 in ((4, 160, 4, 8, 64, 144, 0),
+                                      (2, 77, 2, 4, 64, 50, 5),
+                                      (3, 33, 2, 1, 32, 20, 0),
+                                      (1, 65, 1, 16, 128, 65, 0),
+                                      (2, 40, 2, 4, 64, 3, 10)):
+        q = torch.randn(B * KV, G, D, generator=g, device=cuda).to(dt)
+        kv = [torch.randint(-127, 128, (B, T, KV, D), generator=g,
+                            device=cuda, dtype=torch.int8) for _ in range(2)]
+        sc = [torch.rand(B * KV, generator=g, device=cuda) * 0.02 + 1e-3
+              for _ in range(2)]
+        args = (q, *kv, *sc, cur, pos0)
+        got = KD.vwr_flash_decode_q8(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, KD.vwr_flash_decode_q8_ref(*args)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

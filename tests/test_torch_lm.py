@@ -20,10 +20,12 @@ torch = pytest.importorskip("torch")
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.engine import pad_cache_from_prefill as jpad  # noqa: E402
+from repro.engine import paged_cache as jpc  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.engine import pad_cache_from_prefill  # noqa: E402
+from repro_torch.engine import paged_cache as tpc  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 TOL = 1e-4
@@ -91,21 +93,49 @@ def test_padded_vocab_is_masked():
     assert torch.all(logits[:, :500] > -1e29)
 
 
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-v3-671b",
-                                  "zamba2-1.2b", "xlstm-350m",
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_prefill_suffix_matches_jax(name, kv_dtype):
+    """The moe family's suffix prefill (the prefix cache's): reduced olmoe
+    (GQA pools) and deepseek-v3 (MLA latent pools, a dense layer group
+    first), a 9-token prompt's first two pages prefilled into the pools
+    and its suffix through ``lm.prefill_suffix``, logits and both layer
+    groups' suffix stacks against JAX's at 1e-4 of their scale."""
+    jc = jconfigs.reduced(jconfigs.get_config(name))
+    tc = tconfigs.reduced(tconfigs.get_config(name))
+    jp = jlm.init(jc, jax.random.PRNGKey(0))
+    tp = bridge.from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(1).integers(0, tc.vocab, 9).astype(
+        np.int32)
+    pages, M = np.asarray([3, 1], np.int32), 8
+    jcache = jpc.write_prefill(
+        jc, jpc.init_paged_cache(jc, 6, 4, 1, kv_dtype=kv_dtype),
+        jlm.prefill(jp, {"tokens": jnp.asarray(toks[:M])[None]}, jc)[1],
+        jnp.asarray(pages)[None])
+    cache = tpc.init_paged_cache(tc, 6, 4, kv_dtype=kv_dtype, device="cpu")
+    tpc.write_prefill(tc, cache, lm.prefill(
+        tp, {"tokens": torch.from_numpy(toks[:M])[None]}, tc)[1],
+        pages[None])
+    want, (jd, jm) = jlm.prefill_suffix(
+        jp, {"tokens": jnp.asarray(toks[M:])[None],
+             "pages": jnp.asarray(pages), "cache": jcache}, jc)
+    got, (d, m) = lm.prefill_suffix(
+        tp, {"tokens": torch.from_numpy(toks[M:])[None], "pages": pages,
+             "cache": cache}, tc)
+    _close(got.numpy(), want, "logits")
+    assert (d is None) == (jd is None) == (tc.moe.first_k_dense == 0)
+    for g, w in zip((*(d or ()), *m), (*(jd or ()), *jm)):
+        assert g.shape == w.shape
+        _close(g.numpy(), w, "suffix stacks")
+
+
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-350m",
                                   "internvl2-2b", "seamless-m4t-large-v2"])
 def test_unported_families_raise(name):
-    """The moe family is served now (``test_torch_moe.py``): what it
-    still refuses is the suffix prefill of the prefix cache; the other
-    families refuse their spec."""
+    """The dense and moe families are served (the moe family in
+    ``test_torch_moe.py``, its suffix prefill above); the other families
+    refuse their spec."""
     tc = tconfigs.reduced(tconfigs.get_config(name))
-    if tc.family == "moe":
-        tp = lm.init(tc, seed=0, device="cpu")
-        batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                 "pages": [0], "cache": {}}
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            lm.prefill_suffix(tp, batch, tc)
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         lm.model_spec(tc)
 

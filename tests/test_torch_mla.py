@@ -1,6 +1,6 @@
-"""The port's MLA (``models/mla.py``) and its four decode kernels
-(``kernels/vwr_mla_decode.py``, plain versions on the CPU) against the
-JAX package's.
+"""The port's MLA (``models/mla.py``), its four decode kernels and its
+two chunk-prefix kernels (``kernels/vwr_mla_decode.py``, plain versions
+on the CPU) against the JAX package's.
 
 Inputs are made with numpy from a seed and handed to both sides in fp32.
 Tolerance 1e-5 (atol and rtol): both sides compute in fp32 and differ
@@ -9,8 +9,10 @@ to the JAX 'xla' ops and to the JAX 'pallas' ops (interpret mode, as
 the JAX package's own tests run them) over ragged pages, a count-0
 page, a slot with no valid key, a table entry past the pool, a slab at
 pos0 > 0 and int8 caches with their scales, and split against the
-concatenated ``mla_concat_view`` through the plain GQA decode ops.  The
-kernels themselves need the card: the ``cuda``-marked cases skip here.
+concatenated ``mla_concat_view`` through the plain GQA decode ops; the
+two ``chunk_prefix_mla_paged*`` ops the same way over a chunk's (J,)
+table, and ``mla_attention_suffix`` against JAX's.  The kernels
+themselves need the card: the ``cuda``-marked cases skip here.
 """
 import jax
 import jax.numpy as jnp
@@ -110,6 +112,29 @@ def test_latent_queries_and_attention_match_jax(attn_params, positions):
         got, (ckv, kr) = mla.mla_attention(tp, tx, tpos, tc, dense=dense)
         want, (jckv, jkr) = jmla.mla_attention(jp, jx, jpos, jc,
                                                dense=dense)
+        _close(got.numpy(), want)
+        _close(ckv.numpy(), jckv)
+        _close(kr.numpy(), jkr)
+
+
+def test_attention_suffix_matches_jax(attn_params):
+    """``mla_attention_suffix``: 7 suffix tokens at positions [12, 19) over
+    12 prefix latents, blockwise and dense (``accounting``)."""
+    jc, tc = _cfgs()
+    jp, tp = attn_params
+    rng = np.random.default_rng(2)
+    M, S = 12, 7
+    x = _randn(rng, 1, S, tc.d_model)
+    pckv = _randn(rng, 1, M, tc.mla.kv_lora_rank)
+    pkr = _randn(rng, 1, M, tc.mla.rope_head_dim)
+    q_pos, kv_pos = np.arange(M, M + S), np.arange(M + S)
+    for acc in (False, True):
+        got, (ckv, kr) = mla.mla_attention_suffix(
+            tp, _t(x), _t(q_pos), _t(kv_pos), tc.replace(accounting=acc),
+            _t(pckv), _t(pkr))
+        want, (jckv, jkr) = jmla.mla_attention_suffix(
+            jp, *(jnp.asarray(a) for a in (x, q_pos, kv_pos)),
+            jc.replace(accounting=acc), jnp.asarray(pckv), jnp.asarray(pkr))
         _close(got.numpy(), want)
         _close(ckv.numpy(), jckv)
         _close(kr.numpy(), jkr)
@@ -235,6 +260,29 @@ def test_split_equals_concat_view(paged):
     assert torch.all(cat[0][..., r:] == 0)
     for a, b in zip(split[1:], cat[1:]):
         torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["model-dtype", "int8"])
+@pytest.mark.parametrize("jimpl,timpl", [("xla", "torch"),
+                                         ("pallas", "cuda")])
+def test_chunk_prefix_mla_ops_match_jax(q8, jimpl, timpl):
+    """The ``chunk_prefix_mla_paged*`` ops (kernels 12 and 15; on the CPU
+    their plain versions) against JAX's: a 3-token chunk over ragged
+    prior pages, a count-0 page and a table entry past the pool; then a
+    first chunk with no valid prior key (m = -1e30, l = 0, o = 0)."""
+    rng = np.random.default_rng(9)
+    C = 3
+    _, pools, scales, table, counts = _paged_case(rng, q8)
+    q = (_randn(rng, C, H, R), _randn(rng, C, H, ROPE))
+    op = "chunk_prefix_mla_paged" + ("_q8" if q8 else "")
+    for tbl, cnt in ((table[0], counts[0]), (table[1], counts[1])):
+        args = (*q, *pools, *scales, tbl, cnt)
+        want = JD.dispatch(op, jimpl, *(jnp.asarray(a) for a in args),
+                           scale=SCALE)
+        got = D.dispatch(op, timpl, *(_t(a) for a in args), scale=SCALE)
+        _close_partials(got, want)
+    assert torch.all(got[2] == 0) and torch.all(got[0] == 0)
+    assert torch.all(got[1] == KM.NEG_INF)
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["model-dtype", "int8"])
@@ -390,3 +438,39 @@ def test_cuda_paged_mla_kernels_match_plain(cuda, dtype, q8, ps):
     for a, b in zip(got, ref(*args, scale=0.07)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     assert torch.all(got[2][1] == 0) and torch.all(got[1][1] == KM.NEG_INF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pools", "int8-pools"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_chunk_kernels_match_plain(cuda, dtype, q8):
+    """Kernels 12 and 15 against their plain versions at DeepSeek-V3's
+    widths: a 64-token chunk over full pages, a partial page, a count-0
+    page and a table entry past the pool; C 1; a first chunk."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n_pages, ps, r, rope, H_ = 24, 16, 512, 64, 128
+    if q8:
+        pools = [torch.randint(-127, 128, (n_pages, ps, w), generator=g,
+                               device=cuda, dtype=torch.int8)
+                 for w in (r, rope)]
+        scales = [torch.rand(n_pages, generator=g, device=cuda) * 0.02
+                  + 1e-3 for _ in range(2)]
+    else:
+        pools = [torch.randn(n_pages, ps, w, generator=g,
+                             device=cuda).to(dt) for w in (r, rope)]
+        scales = []
+    fn = (KM.vwr_mla_chunk_prefix_attend_q8 if q8
+          else KM.vwr_mla_chunk_prefix_attend)
+    ref = (KM.vwr_mla_chunk_prefix_attend_q8_ref if q8
+           else KM.vwr_mla_chunk_prefix_attend_ref)
+    for C, table, counts in ((64, [4, 9, 2, 30, 0], [ps, ps, 0, 3, ps]),
+                             (1, [7, 1], [ps, 5]), (5, [3, 8], [0, 0])):
+        q, _, _ = _card_inputs(g, C, H_, r, rope, 1, dt, False, cuda)
+        args = (*q, *pools, *scales,
+                torch.tensor(table, dtype=torch.int32, device=cuda),
+                torch.tensor(counts, dtype=torch.int32, device=cuda))
+        got = fn(*args, scale=0.07)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref(*args, scale=0.07)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

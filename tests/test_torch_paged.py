@@ -585,10 +585,19 @@ def test_paged_engine_input_checks():
         tpc.check_family(tc.replace(family="ssm"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         tpc.check_family(tc.replace(family="audio"))
-    # the moe family is served now; its prefix cache's fork_page is not
-    tpc.check_family(tconfigs.reduced(tconfigs.get_config("olmoe-1b-7b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        tpc.fork_page(tc.replace(family="moe"), cache, 0, 1)
+    # the moe family is served, its prefix cache's fork_page too: every
+    # leaf of the nested {"dense": None, "moe": ...} olmoe pools
+    olmoe = tconfigs.reduced(tconfigs.get_config("olmoe-1b-7b"))
+    tpc.check_family(olmoe)
+    nested = tpc.init_paged_cache(olmoe, 3, 4, kv_dtype="int8",
+                                  device="cpu")
+    assert nested["dense"] is None
+    for leaf in nested["moe"].values():
+        leaf[:, 0] = 3
+    tpc.fork_page(olmoe, nested, 0, 2)
+    for name, leaf in nested["moe"].items():
+        assert torch.equal(leaf[:, 2], leaf[:, 0]), name
+        assert not leaf[:, 1].any(), name
     cache["k"][:, 0] = 1.0
     tpc.fork_page(tc, cache, 0, 1)      # served now: an in-place copy
     assert torch.equal(cache["k"][:, 1], cache["k"][:, 0])

@@ -5,10 +5,13 @@ over the same allocator operations: the refcounted allocator, the
 whole-page boundaries, longest prefix-ordered matches, dedup, LRU
 eviction that never drops a held page, and a random interleaving that
 pins the refcount partition.  ``fork_page`` copies every pool leaf
-(int8 scales included) as JAX's does and refuses the audio family.
-``lm.prefill_suffix`` against JAX's on the same pools; then the
-Scheduler: prefix on == off (bucketed and fixed-width tables) and equal
-to the JAX Scheduler's streams, multi-turn reuse of generated tokens,
+(int8 scales included, the nested latent pools of the moe family too)
+as JAX's does and refuses the audio family.  ``lm.prefill_suffix``
+against JAX's on the same pools; then the Scheduler: prefix on == off
+(bucketed and fixed-width tables) and equal to the JAX Scheduler's
+streams, for the three configs of the JAX matrix (gqa, mla: the dense
+family with MLA, moe-mla: one dense and one MoE layer at capacity factor
+4), multi-turn reuse of generated tokens,
 no double free when a sharing slot is preempted, the copy-on-write
 guard, eviction before preemption, and ``clear`` draining the pool.
 Shapes are those of ``tests/test_prefix_cache.py`` (2 layers, d 64,
@@ -23,6 +26,7 @@ from jax.sharding import AxisType
 
 torch = pytest.importorskip("torch")
 
+from repro.common import config as jconfig  # noqa: E402
 from repro.common.config import ModelConfig as JModelConfig  # noqa: E402
 from repro.engine import DecodeEngine as JEngine  # noqa: E402
 from repro.engine import EngineConfig as JEngineConfig  # noqa: E402
@@ -33,6 +37,7 @@ from repro.engine import Scheduler as JScheduler  # noqa: E402
 from repro.engine import paged_cache as jpc  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.common import config as tconfig  # noqa: E402
 from repro_torch.common.config import ModelConfig  # noqa: E402
 from repro_torch.engine import (DecodeEngine, EngineConfig,  # noqa: E402
                                 PageAllocator, Request, Scheduler,
@@ -55,6 +60,43 @@ def _no_autotune(monkeypatch):
 
 def _cfg(**kw):
     return ModelConfig(**{**_BASE, **kw})
+
+
+# the JAX matrix's configs (tests/test_prefix_cache.py): GQA, the dense
+# family with MLA, and the moe family with MLA
+_MLA = dict(q_lora_rank=32, kv_lora_rank=16, rope_head_dim=8,
+            nope_head_dim=16, v_head_dim=16)
+_MOE = dict(n_experts=4, top_k=2, d_expert=32, first_k_dense=1,
+            d_ff_dense=128, capacity_factor=4.0)
+KINDS = ("gqa", "mla", "moe-mla")
+
+
+def _kind_cfgs(kind):
+    """(JAX ModelConfig, port ModelConfig) of one of ``KINDS``."""
+    out = []
+    for mod in (jconfig, tconfig):
+        kw = dict(_BASE)
+        if kind != "gqa":
+            kw["mla"] = mod.MLAConfig(**_MLA)
+        if kind == "moe-mla":
+            kw.update(family="moe", moe=mod.MoEConfig(**_MOE))
+        out.append(mod.ModelConfig(**kw))
+    return tuple(out)
+
+
+def _kind_id(kind, rest):
+    """The gqa cases keep the ids they had before the MLA configs."""
+    return rest if kind == "gqa" else f"{kind}-{rest}"
+
+
+def _leaves(tree, path=()):
+    """(path, tensor or array) of every leaf of a nested cache, None
+    groups skipped."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        elif v is not None:
+            yield path + (k,), v
 
 
 def _engine(B=2, P=8, G=5, n_pages=16, params=None, **kw):
@@ -291,29 +333,39 @@ def test_refcount_partition_under_random_interleaving():
 
 # ------------------------------------------------- copy-on-write fork
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-def test_fork_page_copies_every_leaf(kv_dtype, rng):
+@pytest.mark.parametrize("kind,kv_dtype", [
+    ("gqa", "bf16"), ("gqa", "int8"), ("mla", "int8"), ("moe-mla", "int8"),
+    ("moe-mla", "bf16")], ids=["bf16", "int8", "mla-int8", "moe-mla-int8",
+                               "moe-mla-bf16"])
+def test_fork_page_copies_every_leaf(kind, kv_dtype, rng):
     """``fork_page`` duplicates one physical page across every pool leaf
-    — the fp32 scale rows of int8 pools included — in place, leaving
-    every other page alone, as JAX's functional fork does."""
-    eng = _engine(kv_dtype=kv_dtype)
+    — the fp32 scale rows of int8 pools included, the latent and rope
+    pools of MLA and both groups of the moe family's nested tree — in
+    place, leaving every other page alone, as JAX's functional fork
+    does."""
+    jc, tc = _kind_cfgs(kind)
+    eng = DecodeEngine(tc, EngineConfig(
+        batch=2, max_len=13, paged=True, page_size=PS, n_pages=16,
+        kv_dtype=kv_dtype, kernel_impl="torch"), device="cpu", seed=0)
     cache = eng.init_paged_cache()
-    for leaf in cache.values():
+    for _, leaf in _leaves(cache):
         src = (rng.standard_normal(leaf.shape) if leaf.is_floating_point()
                else rng.integers(-5, 5, leaf.shape))
         leaf.copy_(torch.from_numpy(np.asarray(src)).to(leaf.dtype))
-    before = {k: v.numpy().copy() for k, v in cache.items()}
-    jcache = {k: jnp.asarray(v) for k, v in before.items()}
+    before = {p: v.numpy().copy() for p, v in _leaves(cache)}
+    jcache = lm.map_groups(lambda t: jnp.asarray(t.numpy().copy()), cache)
     src, dst, other = 1, 3, 0
     fork_page(eng.cfg, cache, src, dst)
-    jforked = jpc.fork_page(JModelConfig(**_BASE), jcache, src, dst)
-    assert set(cache) == set(jforked)
-    for name, leaf in cache.items():
-        got, was = leaf.numpy(), before[name]
+    jforked = dict(_leaves(jpc.fork_page(jc, jcache, src, dst)))
+    assert set(before) == set(jforked)
+    if kind == "moe-mla" and kv_dtype == "int8":
+        assert ("moe", "ckv_scale") in before
+    for path, leaf in _leaves(cache):
+        got, was, name = leaf.numpy(), before[path], "/".join(path)
         np.testing.assert_array_equal(got[:, dst], was[:, src], name)
         np.testing.assert_array_equal(got[:, other], was[:, other], name)
         np.testing.assert_array_equal(got[:, src], was[:, src], name)
-        np.testing.assert_array_equal(got, np.asarray(jforked[name]), name)
+        np.testing.assert_array_equal(got, np.asarray(jforked[path]), name)
 
 
 def test_fork_page_rejects_audio():
@@ -324,16 +376,18 @@ def test_fork_page_rejects_audio():
 
 # ------------------------------------------------- suffix prefill
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-def test_prefill_suffix_matches_jax(kv_dtype, rng):
+@pytest.mark.parametrize("kind,kv_dtype", [
+    pytest.param(k, kv, id=_kind_id(k, kv))
+    for k in KINDS for kv in ("bf16", "int8")])
+def test_prefill_suffix_matches_jax(kind, kv_dtype, rng):
     """A prompt's first two pages prefilled into the pools, then its
     suffix through ``lm.prefill_suffix`` over those pages: logits and
-    suffix K/V against JAX's ``lm.prefill_suffix`` on the same pools, at
-    1e-4 of their scale (int8 pools dequantized through their scales by
-    both)."""
-    jc = JModelConfig(**_BASE)
+    the suffix's cache stacks (K/V, or MLA's latent and rope rows; both
+    layer groups of the moe family) against JAX's ``lm.prefill_suffix``
+    on the same pools, at 1e-4 of their scale (int8 pools dequantized
+    through their scales by both)."""
+    jc, tc = _kind_cfgs(kind)
     jparams = jlm.init(jc, jax.random.PRNGKey(0))
-    tc = _cfg()
     params = bridge.from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     P, M = 11, 2 * PS
     toks = rng.integers(2, tc.vocab, (P,)).astype(np.int32)
@@ -348,14 +402,20 @@ def test_prefill_suffix_matches_jax(kv_dtype, rng):
     _, kv = lm.prefill(params, {"tokens": torch.from_numpy(toks[:M])[None]},
                        tc)
     tpc.write_prefill(tc, cache, kv, pages[None])
-    want, (jk, jv) = jlm.prefill_suffix(
+    want, jstacks = jlm.prefill_suffix(
         jparams, {"tokens": jnp.asarray(toks[M:])[None],
                   "pages": jnp.asarray(pages), "cache": jcache}, jc)
-    got, (k, v) = lm.prefill_suffix(
+    got, stacks = lm.prefill_suffix(
         params, {"tokens": torch.from_numpy(toks[M:])[None], "pages": pages,
                  "cache": cache}, tc)
     assert got.dtype == torch.float32 and got.shape == want.shape
-    for g, w in ((got, want), (k, jk), (v, jv)):
+    pairs = [(got, want)]
+    if kind == "moe-mla":       # (dense layers' stacks, MoE layers')
+        stacks, jstacks = (*stacks[0], *stacks[1]), (*jstacks[0],
+                                                     *jstacks[1])
+    pairs += list(zip(stacks, jstacks))
+    assert len(pairs) == (5 if kind == "moe-mla" else 3)
+    for g, w in pairs:
         w = np.asarray(w)
         assert g.shape == w.shape
         assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
@@ -372,12 +432,13 @@ def test_prefill_suffix_refuses_frontend_families():
 _MESH = None
 
 
-def _jax_stream(ekw, prompts, gen, **sched_kw):
+def _jax_stream(ekw, prompts, gen, jc=None, **sched_kw):
     global _MESH
     if _MESH is None:
         _MESH = jax.make_mesh((1, 1), ("data", "model"),
                               axis_types=(AxisType.Auto, AxisType.Auto))
-    jeng = JEngine(JModelConfig(**_BASE), JEngineConfig(**ekw), mesh=_MESH)
+    jeng = JEngine(jc or JModelConfig(**_BASE), JEngineConfig(**ekw),
+                   mesh=_MESH)
     sched = JScheduler(jeng, **sched_kw)
     for r in _reqs(prompts, gen, cls=JRequest):
         sched.submit(r)
@@ -385,14 +446,17 @@ def _jax_stream(ekw, prompts, gen, **sched_kw):
     return jeng, sched, out
 
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("bucket", [True, False],
-                         ids=["bucketed", "fixed-width"])
-def test_prefix_scheduler_matches_off_and_jax(kv_dtype, bucket, rng):
+@pytest.mark.parametrize("kind,bucket,kv_dtype", [
+    pytest.param(k, b, kv, id=_kind_id(
+        k, f"{'bucketed' if b else 'fixed-width'}-{kv}"))
+    for k in KINDS for b in (True, False) for kv in ("bf16", "int8")
+    if b or k == "gqa"])
+def test_prefix_scheduler_matches_off_and_jax(kind, bucket, kv_dtype, rng):
     """Shared-prompt requests run suffix-only prefill over aliased pages:
     the streams with the cache ON equal the cache-off ones and the JAX
     Scheduler's (same parameters), with the same hit counters, for both
-    table widths."""
+    table widths (gqa) and for the dense and moe families with MLA."""
+    jc, tc = _kind_cfgs(kind)
     P, G = 9, 5
     ekw = dict(batch=2, max_len=P + 3 + G, paged=True, page_size=PS,
                n_pages=16, prefix_cache=True, kv_dtype=kv_dtype)
@@ -400,9 +464,9 @@ def test_prefix_scheduler_matches_off_and_jax(kv_dtype, bucket, rng):
     prompts = [shared, shared,                      # exact repeat
                np.concatenate([shared, [7, 8, 9]]),  # extension
                rng.integers(2, 256, (P,))]           # unrelated
-    jeng, jsched, jwant = _jax_stream(ekw, prompts, G,
+    jeng, jsched, jwant = _jax_stream(ekw, prompts, G, jc,
                                       bucket_tables=bucket)
-    eng = DecodeEngine(_cfg(), EngineConfig(**ekw, kernel_impl="torch"),
+    eng = DecodeEngine(tc, EngineConfig(**ekw, kernel_impl="torch"),
                        params=bridge.from_jax(jax.tree.map(
                            np.asarray, jeng.params), "cpu"), device="cpu")
     off, want = _run(eng, _reqs(prompts, G), prefix_cache=False,

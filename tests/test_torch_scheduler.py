@@ -140,20 +140,52 @@ def test_moe_scheduler_streams_match_jax(name, kv_dtype):
 
 
 @pytest.mark.parametrize("mode", ["prefix_cache", "chunked_prefill"])
-def test_moe_scheduler_refuses_prefix_and_chunked(mode):
-    """The moe family's prefix cache and chunked prefill are the next
-    slice (ROADMAP queue 1 item 10): the Scheduler refuses them, as an
-    argument and as the EngineConfig's default."""
-    tc = tconfigs.reduced(tconfigs.get_config("deepseek-v3-671b"))
-    ekw = dict(batch=2, max_len=16, paged=True, page_size=4, n_pages=8)
-    eng = DecodeEngine(tc, EngineConfig(**ekw), device="cpu")
-    assert eng.suffix_prefill_fn is None and eng.mixed_fn is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        Scheduler(eng, **{mode: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        DecodeEngine(tc, EngineConfig(**ekw, **{mode: True}),
-                     params=eng.params, device="cpu")
-    Scheduler(eng)                      # the plain Scheduler is served
+def test_moe_scheduler_serves_prefix_and_chunked(mode):
+    """The moe family's prefix cache and chunked prefill, on reduced olmoe
+    (the moe family with GQA pools; the MLA configs run in
+    ``test_torch_prefix_cache.py`` and ``test_torch_chunked.py``): the
+    Scheduler turned on by argument serves the JAX Scheduler's greedy
+    streams over requests that share a two-page prompt, with the same
+    counters, and an engine with the mode as its default serves too."""
+    jc = jconfigs.reduced(jconfigs.get_config("olmoe-1b-7b"))
+    tc = tconfigs.reduced(tconfigs.get_config("olmoe-1b-7b"))
+    ekw = dict(batch=2, max_len=24, paged=True, page_size=4, n_pages=16,
+               chunk_tokens=4)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jeng = JEngine(jc, JEngineConfig(**ekw), mesh=mesh)
+    eng = DecodeEngine(tc, EngineConfig(**ekw, kernel_impl="cuda"),
+                       params=bridge.from_jax(jax.tree.map(
+                           np.asarray, jeng.params), "cpu"), device="cpu")
+    assert callable(eng.suffix_prefill_fn) and callable(eng.mixed_fn)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, 512, 8).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 512, n)]).astype(
+        np.int32) for n in (3, 1, 6)]
+
+    def run(sched):
+        for i, p in enumerate(prompts):
+            sched.submit((JRequest if isinstance(sched, JScheduler)
+                          else Request)(rid=i, tokens=p, gen=5))
+        return sched.run(), sched
+
+    want, jsched = run(JScheduler(jeng, bucket_tables=False,
+                                  **{mode: True}))
+    default = DecodeEngine(tc, EngineConfig(**ekw, **{mode: True}),
+                           params=eng.params, device="cpu")
+    for e in (eng, default):
+        got, sched = run(Scheduler(e, bucket_tables=False,
+                                   **({mode: True} if e is eng else {})))
+        for rid in want:
+            assert got[rid].status is RequestStatus.FINISHED
+            np.testing.assert_array_equal(got[rid], np.asarray(want[rid]),
+                                          err_msg=f"rid {rid}")
+        for key in ("prefix_hits", "prefix_hit_tokens", "chunks",
+                    "mixed_steps", "prefills", "steps"):
+            assert sched.stats[key] == jsched.stats[key], key
+        assert sched.stats["prefix_hits" if mode == "prefix_cache"
+                           else "chunks"] > 0
+        sched.allocator.check()
 
 
 # ------------------------------------------------- lifecycle (port)
