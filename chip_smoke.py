@@ -11,8 +11,11 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    main path's shapes (plus ragged edges, bias, G = 1, bf16 and fp32;
    for the paged kernels permuted block tables, slots of length 0, 1,
    16, 17 and 255, int8 pools with random scales; kernel 9 at kernel
-   4's shapes over int8 caches with (B*KV,) scales) and time kernel,
-   plain version and one PyTorch library call;
+   4's shapes over int8 caches with (B*KV,) scales; the attention,
+   decode and chunk kernels at the reduced configs' head dim 16, zero-
+   padded by their wrappers, and decode groups of 32 and 40 query rows,
+   launched in slices of 16; every MLA kernel at the reduced r 16 /
+   rope 8) and time kernel, plain version and one PyTorch library call;
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -86,8 +89,30 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    suffix is its own MoE group, whose capacity (1.25 x its tokens x 8 /
    256) drops otherwise than the whole prompt's, so the chunked streams
    are held against the plain path's chunked ones, not the unchunked;
-9. print ``{"kernels": [...]}``, then the last line
+9. the paper's CNN path (``core``, ``configs.provet_cnn``, kernels 16
+   ``vwr_conv2d`` and 17 ``vwr_depthwise``): phase 2 holds both against
+   their plain versions at the JAX tests' ragged shapes (C 7 / 3, F 5 /
+   9, 1x1, 5x5 and 7x7 taps, H_out and W_out off the tile, every
+   epilogue with and without bias) and at every stride-1 layer of the
+   suite (N 1 and 32, bf16 and fp32), each timed beside its bound, its
+   plain version and cuDNN; here the suite runs through
+   ``ops.vwr_conv2d`` (bias + relu) and ``ops.vwr_depthwise``, and the
+   section 6.1 demo on the card, launches counted, outputs held against
+   the plain versions, and the fused bias + relu conv is timed against
+   the conv followed by separate bias and relu passes; RN_112x112
+   (stride 2) and AN_55x55 (stride 4) are printed as not covered;
+10. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
+
+The reduced fp32 configs of phases 3-8 run at the CPU tests' widths
+(head dim 16; MLA rank 16, rope 8): the kernel wrappers zero-pad them to
+the kernels' widths.  Their greedy Scheduler streams equal the plain
+path's; on int8 pools, where the pool write's int8 rounding can turn a
+last-bit difference of two fp32 products into a step of the page's
+scale and so part two streams at a near-tie, a stream that parts is
+replayed with the plain path's tokens through both paths, the plain path
+reading the kernel path's int8 pages, and held at the fp32 logits
+tolerance to its end (``_hold_streams``).
 
 Details go to ``chiprun_out/chip_smoke.json``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -303,6 +328,8 @@ def check_kernels(torch, F):
         ("ragged S", 1, 200, 4, 1, 64, bf16, False, False),
         ("D=128", 1, 70, 4, 2, 128, f32, False, False),
         ("D=32", 2, 33, 2, 2, 32, bf16, False, False),
+        ("D=16 (reduced, padded)", 2, 33, 4, 2, 16, f32, False, False),
+        ("D=16 (reduced, padded)", 1, 40, 4, 4, 16, bf16, False, False),
     ]
     for label, B, S, H, KV, D, dt, timed, head in at_cases:
         q = randn(B, S, H, D, dtype=dt)
@@ -338,6 +365,12 @@ def check_kernels(torch, F):
         ("masked row", 2, 40, 2, 4, 64, 3, 10, f32, False, False),
         ("D=128 G=16", 1, 65, 1, 16, 128, 65, 0, f32, False, False),
         ("D=32 G=3", 3, 33, 2, 3, 32, 20, 0, bf16, False, False),
+        ("D=16 G=4 (reduced, padded)", 2, 40, 1, 4, 16, 37, 0, f32, False,
+         False),
+        ("D=16 G=32 (2 launches)", 2, 40, 2, 32, 16, 37, 0, bf16, False,
+         False),
+        ("D=64 G=40 (3 launches)", 1, 70, 1, 40, 64, 66, 2, f32, False,
+         False),
     ]
     for label, B, T, KV, G, D, cur, pos0, dt, timed, head in dc_cases:
         q = randn(B * KV, G, D, dtype=dt)
@@ -417,6 +450,10 @@ def check_kernels(torch, F):
          False),
         ("page 8, wide table", 3, 2, 4, 64, 8, 128, 12, (1, 40, 9), bf16,
          False, False),
+        ("D=16 G=4 (reduced, padded)", 3, 1, 4, 16, 8, 12, 6, (40, 0, 9),
+         f32, False, False),
+        ("D=16 G=32 (2 launches)", 2, 2, 32, 16, 8, 32, 6, (33, 17), bf16,
+         False, False),
     ]
     for q8 in (False, True):
         kname = "vwr_paged_flash_decode" + ("_q8" if q8 else "")
@@ -484,6 +521,10 @@ def check_kernels(torch, F):
         ("D=128", 2, 4, 128, 16, 8, (16, 9), bf16, False, False),
         ("fp32", 4, 8, 64, 16, 16, (16, 16, 11), f32, False, False),
         ("page 8", 2, 3, 64, 8, 5, (8, 8, 0, 1), bf16, False, False),
+        ("D=16 (reduced, padded)", 1, 4, 16, 8, 8, (8, 8, 5), f32, False,
+         False),
+        ("D=16 (reduced, padded)", 2, 2, 16, 8, 3, (8, 0, 3), bf16, False,
+         False),
     ]
     for q8 in (False, True):
         kname = "vwr_chunk_prefix_attend" + ("_q8" if q8 else "")
@@ -539,6 +580,7 @@ def check_kernels(torch, F):
                        _chunk_sdpa(torch, F, q, pools, scales, table, cnt),
                        4 * KV * C * G * D * n_keys, nbytes, head)
     check_mla_kernels(torch, F, gen, compare, record)
+    check_conv_kernels(torch, F, gen, compare, record)
     return results
 
 
@@ -758,6 +800,195 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        lambda: ref(*args, scale=SCALE), gathered,
                        2 * C * H * n_keys * (2 * R + RP), nbytes, head,
                        op_dtype=f32)
+
+    # the reduced configs' widths (r 16, rope 8: zero-padded to 32 / 32 by
+    # the wrappers), every MLA kernel once, against its plain version
+    h, r, rp, lead, ps8 = 4, 16, 8, 12, 8
+    qa = torch.randn(3, h, r, generator=gen, device="cuda")
+    qr = torch.randn(3, h, rp, generator=gen, device="cuda")
+    table = torch.tensor([[3, 0], [11, 7], [5, 5]], dtype=torch.int32,
+                         device="cuda")
+    counts = torch.tensor([[8, 3], [8, 0], [0, 0]], dtype=torch.int32,
+                          device="cuda")
+    for q8 in (False, True):
+        sfx = "_q8" if q8 else ""
+        for kind, lead_shape, index in (
+                ("flash_decode", (3, 20), ()),
+                ("paged_flash_decode", (lead, ps8), (table, counts)),
+                ("chunk_prefix_attend", (lead, ps8),
+                 (table[1].clone(), counts[0].clone()))):
+            kname = f"vwr_mla_{kind}{sfx}"
+            if q8:
+                cache = [torch.randint(-127, 128, (*lead_shape, w),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int8) for w in (r, rp)]
+                scales = [torch.rand(lead_shape[0], generator=gen,
+                                     device="cuda") * 0.02 + 1e-3
+                          for _ in range(2)]
+            else:
+                cache = [torch.randn(*lead_shape, w, generator=gen,
+                                     device="cuda") for w in (r, rp)]
+                scales = []
+            tail = (13, 0) if not index else index
+            args = (qa, qr, *cache, *scales, *tail)
+            got = getattr(KM, kname)(*args, scale=SCALE)
+            torch.cuda.synchronize()
+            compare(kname, f"H{h} r{r} rope{rp} (reduced, padded)", f32,
+                    got, getattr(KM, kname + "_ref")(*args, scale=SCALE))
+
+
+# ----------------------------------------------------------------------
+# kernels 16 and 17: the paper's CNN layers (phase 2 and phase 9)
+# ----------------------------------------------------------------------
+
+# the paper's one image, and a batch of 32
+CNN_BATCHES = (1, 32)
+# the headline cases of the {"kernels"} line
+CNN_HEADLINE = {"vwr_conv2d": ("RN_56x56", 32, "bfloat16"),
+                "vwr_depthwise": ("MN_56x56", 32, "bfloat16")}
+
+
+def _cnn_layers():
+    """The provet_cnn suite's layers the kernels take (stride 1) and the
+    ones they do not (RN_112x112 at stride 2, AN_55x55 at stride 4)."""
+    from repro_torch.configs import provet_cnn
+
+    return ([l for l in provet_cnn.LAYERS if l.stride == 1],
+            [l for l in provet_cnn.LAYERS if l.stride != 1])
+
+
+def _conv_operands(torch, gen, n, H, W, C, n_out, KH, KW, dt, bias=True,
+                   depthwise=False):
+    """x (n, H, W, C), w (KH, KW, C[, n_out]) scaled by 1/sqrt(fan-in),
+    and a bias (n_out,) (None for depthwise or ``bias=False``)."""
+    x = torch.randn(n, H, W, C, generator=gen, device="cuda").to(dt)
+    if depthwise:
+        w = torch.randn(KH, KW, C, generator=gen, device="cuda")
+        return x, (w / (KH * KW) ** 0.5).to(dt), None
+    w = torch.randn(KH, KW, C, n_out, generator=gen, device="cuda")
+    b = (torch.randn(n_out, generator=gen, device="cuda") * 0.1).to(dt)
+    return x, (w / (KH * KW * C) ** 0.5).to(dt), (b if bias else None)
+
+
+def _conv_work(x, w, bias, act, depthwise=False):
+    """(operations, bytes) of one conv: a multiply and an add a tap of
+    each output (KH*KW*C taps, KH*KW depthwise), the bias and the
+    activation one operation an output each; x, w, bias and the output
+    moved once each."""
+    N, H, W, C = x.shape
+    KH, KW = w.shape[:2]
+    outs = N * (H - KH + 1) * (W - KW + 1) * (C if depthwise else w.shape[3])
+    ops_ = 2 * outs * KH * KW * (1 if depthwise else C)
+    ops_ += outs * ((bias is not None) + (act is not None))
+    nbytes = x.element_size() * (x.numel() + w.numel() + outs + (
+        0 if bias is None else bias.numel()))
+    return ops_, nbytes
+
+
+def _cudnn(torch, F, x, w, bias, depthwise=False):
+    """The library yardstick: one cuDNN ``F.conv2d`` on channels-last
+    views of x (no copy) and of the weights (reformatted once, outside
+    the timed call), with the bias; ``groups=C`` for depthwise."""
+    xl = x.permute(0, 3, 1, 2)
+    if depthwise:
+        wl = w.permute(2, 0, 1).unsqueeze(1).contiguous(
+            memory_format=torch.channels_last)
+        return lambda: F.conv2d(xl, wl, groups=x.shape[3])
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xl, wl, bias)
+
+
+def check_conv_kernels(torch, F, gen, compare, record):
+    """Kernels 16 (vwr_conv2d) and 17 (vwr_depthwise) against their plain
+    versions: the JAX tests' ragged shapes (C 7 / 3, F 5 / 9, a 1x1 and a
+    5x5 conv), H_out and W_out off the tile, every epilogue with and
+    without bias, in bf16 and fp32; then every stride-1 layer of the
+    provet_cnn suite at N 1 and 32, bf16 and fp32 (conv with bias +
+    relu), each timed beside its bound, its plain version and cuDNN."""
+    from repro_torch.kernels import vwr_conv2d as K16
+    from repro_torch.kernels import vwr_depthwise as K17
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    print("vwr_conv2d")
+    conv_edges = [
+        # label, N, H, W, C, F, KH, KW, bias, activation
+        ("3x3", 1, 9, 9, 8, 8, 3, 3, True, "relu"),
+        ("C 7 F 5", 2, 13, 11, 7, 5, 3, 3, True, "gelu"),
+        ("1x1, bias only", 1, 8, 8, 4, 16, 1, 1, True, None),
+        ("5x5 C 3 F 9, no bias", 2, 12, 10, 3, 9, 5, 5, False, "relu"),
+        ("H_out 13 W_out 19", 2, 15, 21, 24, 70, 3, 3, True, "silu"),
+        ("F 130, no bias or act", 1, 10, 40, 64, 130, 3, 3, False, None),
+        ("gelu, no bias", 1, 11, 18, 16, 24, 3, 3, False, "gelu"),
+        ("silu, no bias", 1, 11, 18, 16, 24, 3, 3, False, "silu"),
+        ("7x7 C 3, W_out 37", 1, 43, 43, 3, 64, 7, 7, True, "relu"),
+    ]
+    for label, N, H, W, C, Fo, KH, KW, has_b, act in conv_edges:
+        for dt in (f32, bf16):
+            x, w, b = _conv_operands(torch, gen, N, H, W, C, Fo, KH, KW, dt,
+                                     bias=has_b)
+            got = K16.vwr_conv2d(x, w, b, activation=act)
+            torch.cuda.synchronize()
+            compare("vwr_conv2d", f"{label} {act or ''}", dt, got,
+                    K16.vwr_conv2d_ref(x, w, b, activation=act))
+    print("vwr_depthwise")
+    dw_edges = [
+        # label, N, H, W, C, K
+        ("3x3 C 8", 1, 10, 10, 8, 3),
+        ("C 16, H_out 10 W_out 7", 2, 12, 9, 16, 3),
+        ("5x5 C 4", 1, 9, 9, 4, 5),
+        ("C 70 (past a 64-channel block, not 8-aligned)", 2, 13, 21, 70, 3),
+        ("C 3, 7x7", 1, 20, 30, 3, 7),
+    ]
+    for label, N, H, W, C, K in dw_edges:
+        for dt in (f32, bf16):
+            x, w, _ = _conv_operands(torch, gen, N, H, W, C, C, K, K, dt,
+                                     depthwise=True)
+            got = K17.vwr_depthwise(x, w)
+            torch.cuda.synchronize()
+            compare("vwr_depthwise", label, dt, got,
+                    K17.vwr_depthwise_ref(x, w))
+
+    covered, _ = _cnn_layers()
+    for layer in covered:
+        dw = layer.depthwise
+        kname = "vwr_depthwise" if dw else "vwr_conv2d"
+        print(f"{kname} {layer.name}")
+        for n in CNN_BATCHES:
+            for dt in (bf16, f32):
+                x, w, b = _conv_operands(
+                    torch, gen, n, layer.H_in, layer.W_in, layer.C_in,
+                    layer.C_out, layer.K, layer.K, dt, depthwise=dw)
+                act = None if dw else "relu"
+                if dw:
+                    fn = (lambda x=x, w=w: K17.vwr_depthwise(x, w))
+                    plain = (lambda x=x, w=w: K17.vwr_depthwise_ref(x, w))
+                else:
+                    fn = (lambda x=x, w=w, b=b:
+                          K16.vwr_conv2d(x, w, b, activation="relu"))
+                    plain = (lambda x=x, w=w, b=b:
+                             K16.vwr_conv2d_ref(x, w, b, activation="relu"))
+                shape = (f"N{n} {layer.H_in}x{layer.W_in}x{layer.C_in}"
+                         + ("" if dw else f" F{layer.C_out}")
+                         + f" {layer.K}x{layer.K}"
+                         + ("" if dw else " +bias+relu"))
+                got = fn()
+                torch.cuda.synchronize()
+                err = compare(kname, f"{layer.name} N{n}", dt, got, plain())
+                head = CNN_HEADLINE[kname] == (layer.name, n, str(dt)[6:])
+                library = _cudnn(torch, F, x, w, b, depthwise=dw)
+                if head:
+                    # the yardstick computes the same function (the relu
+                    # aside, which it leaves out)
+                    lib = library()
+                    lib = lib if dw else torch.relu(lib.float()).to(dt)
+                    compare(f"{kname} (cuDNN)", layer.name, dt,
+                            lib.permute(0, 2, 3, 1), got)
+                flops, nbytes = _conv_work(x, w, b, act, depthwise=dw)
+                # depthwise has no product to put on the tensor cores:
+                # its operations are fp32 FMAs whatever the input type
+                record(kname, f"{layer.name} N{n}", shape, dt, err, fn,
+                       plain, library, flops, nbytes, head,
+                       op_dtype=f32 if dw else None)
 
 
 def _paged_table(torch, gen, lens, J, ps, n_pages):
@@ -1026,19 +1257,13 @@ def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
     return out, cc
 
 
-def _reduced_on_card(name):
-    """``reduced(name)`` at widths the kernels take: head dim 32 (D in
-    {32, 64, 128}) and, for MLA, latent rank 32 and rope width 32 (r and
-    rope multiples of 32)."""
-    import dataclasses
-
+def _reduced(name):
+    """``reduced(name)`` as the CPU tests run it: head dim 16 and, for MLA,
+    latent rank 16 and rope width 8, which the kernel wrappers zero-pad to
+    the kernels' widths on each call."""
     from repro_torch.configs import get_config, reduced
 
-    cfg = reduced(get_config(name)).replace(d_head=32)
-    if cfg.mla is not None:
-        cfg = cfg.replace(mla=dataclasses.replace(
-            cfg.mla, kv_lora_rank=32, rope_head_dim=32))
-    return cfg
+    return reduced(get_config(name))
 
 
 def serve_reduced_fp32(torch, name):
@@ -1046,7 +1271,7 @@ def serve_reduced_fp32(torch, name):
     path at the Pallas-vs-XLA tolerance, greedy streams identical."""
     from repro_torch.engine import DecodeEngine, EngineConfig
 
-    cfg = _reduced_on_card(name)
+    cfg = _reduced(name)
     ecfg = EngineConfig(batch=2, max_len=40, kernel_impl="cuda")
     eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
     ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
@@ -1364,14 +1589,170 @@ def _pressured_stream(torch, eng, cfg, out, paged):
             "streams_equal": same, "launches": launches}
 
 
+def _replay_streams(torch, eng, ref, reqs, streams, chunk=None):
+    """Teacher-force each request's ``streams`` tokens through ``eng`` and
+    ``ref`` from fresh pools of their config, as many requests at a time
+    as slots and pages allow, in the same slot layout on both paths:
+    each prompt whole, or in chunks of ``chunk`` tokens through
+    ``lm.prefill_chunk`` (each chunk reading the earlier chunks' pages),
+    then one decode step a token.  Idle slots write into a spare page.
+
+    ``ref`` runs each of these steps twice: on a copy of ``eng``'s pools
+    just after ``eng``'s step (``"shared"``: it reads the pages ``eng``
+    wrote and rewrites only the step's own tokens, on the same int8
+    grid), and on pools of its own (``"torch"``).  Returns, per request,
+    the logits rows (the prefill's, then each step's) under ``"cuda"``,
+    ``"shared"`` and ``"torch"``."""
+    import numpy as np
+
+    from repro_torch.engine.paged_cache import write_prefill
+    from repro_torch.models import lm
+
+    B, ps, vocab = eng.ecfg.batch, eng.page_size, eng.cfg.vocab
+    spare = eng.n_pages - 1
+    perm = np.random.default_rng(7).permutation(spare).astype(np.int32)
+    groups, group, need = [], [], 0
+    for r in reqs:
+        n = -(-(len(r.tokens) + len(streams[r.rid]) - 1) // ps)
+        if n > spare:
+            raise AssertionError(f"request {r.rid} needs {n} pages")
+        if len(group) == B or need + n > spare:
+            groups.append(group)
+            group, need = [], 0
+        group.append((r, n))
+        need += n
+    groups.append(group)
+    logits = {r.rid: {"cuda": [], "shared": [], "torch": []} for r in reqs}
+    for group in groups:
+        table = np.full((B, eng.max_pages), spare, np.int32)
+        lens = np.zeros((B,), np.int32)
+        at = 0
+        for b, (r, n) in enumerate(group):
+            table[b, :n] = perm[at:at + n]
+            at += n
+            lens[b] = len(r.tokens)
+        pools = {"cuda": eng.init_paged_cache(),
+                 "torch": ref.init_paged_cache()}
+
+        def run(f, rows):
+            """One step ``f(engine, cache) -> (logits, cache)`` on the
+            three paths; ``rows`` (slot, request id) pairs to keep."""
+            out = {}
+            out["cuda"], pools["cuda"] = f(eng, pools["cuda"])
+            out["shared"], _ = f(ref, lm.map_groups(lambda t: t.clone(),
+                                                    pools["cuda"]))
+            out["torch"], pools["torch"] = f(ref, pools["torch"])
+            for b, rid in rows:
+                for path, lg in out.items():
+                    logits[rid][path].append(lg[b, :vocab].float())
+
+        for b, (r, _) in enumerate(group):
+            toks = torch.from_numpy(r.tokens)[None].cuda()
+
+            def prefill(e, c, row=table[b]):
+                lg, caches = e.prefill_fn(e.params, {"tokens": toks})
+                write_prefill(e.cfg, c, caches, row[None])
+                return lg, c
+            if chunk is None:
+                run(prefill, [(0, r.rid)])
+            for p0 in range(0, len(r.tokens) if chunk else 0, chunk or 1):
+                end = min(p0 + chunk, len(r.tokens))
+                part = {"tokens": toks[:, p0:end],
+                        "pages": table[b, :p0 // ps],
+                        "write_pages": table[b, p0 // ps:-(-end // ps)]}
+                run(lambda e, c: lm.prefill_chunk(
+                    e.params, {**part, "cache": c}, e.cfg),
+                    [(0, r.rid)] if end == len(r.tokens) else [])
+        gen = max(len(streams[r.rid]) for r, _ in group)
+        for i in range(gen - 1):
+            tok = np.zeros((B,), np.int32)
+            live = [(b, r.rid) for b, (r, _) in enumerate(group)
+                    if i + 1 < len(streams[r.rid])]
+            for b, rid in live:
+                tok[b] = streams[rid][i]
+            cur = np.where(lens > 0, lens + i, 0)
+            run(lambda e, c: e.decode_step(tok, cur, c, block_table=table),
+                live)
+    return logits
+
+
+def _hold_streams(torch, what, eng, ref, reqs, got, want, chunk=None):
+    """Greedy Scheduler streams of the kernel path on int8 pools
+    (``got``, one token list a request) against the plain path's
+    (``want``): equal, or held past the step where they part.
+
+    A pool write quantizes K and V to int8, so a last-bit difference
+    between two fp32 products can move a value across a rounding
+    boundary (one step of the page's scale); where two candidate tokens
+    lie closer than that moves the logits, the picks part.  Every
+    request whose streams part is then replayed with the plain path's
+    tokens (``_replay_streams``), and at every step, the split and every
+    later page included, the kernel path's logits are held at
+    E2E_FP32_TOL x max(1, max|logits|) to the plain path's on the same
+    int8 pages (``"shared"``).  The plain path on pools of its own is
+    reported beside it and not held: there the int8 rounding of the
+    whole history differs between the paths, not the kernels alone.
+    Returns a summary (empty where the streams are equal)."""
+    if got == want:
+        return {}
+    parted = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if any(len(got[i]) != len(want[i]) for i in parted):
+        raise AssertionError(f"{what}: streams of different lengths")
+    first = min((next(j for j, (x, y) in enumerate(zip(got[i], want[i]))
+                      if x != y), i) for i in parted)
+    logits = _replay_streams(torch, eng, ref, [reqs[i] for i in parted],
+                             {i: want[i] for i in parted}, chunk)
+
+    def rel(x, y):
+        return (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+    worst, own, steps, agree, agree_shared = 0.0, 0.0, 0, 0, 0
+    for i in parted:
+        lg = logits[i]
+        for j, (x, y, z) in enumerate(zip(lg["cuda"], lg["shared"],
+                                          lg["torch"])):
+            err = rel(x, y)
+            if not err <= E2E_FP32_TOL:
+                raise AssertionError(
+                    f"{what}: request {i}, replayed with the plain "
+                    f"path's tokens, step {j}: max|d logits| {err:.3e} of "
+                    f"scale past {E2E_FP32_TOL:g} on the same int8 pages")
+            worst, own = max(worst, err), max(own, rel(x, z))
+            steps += 1
+            agree += int(x.argmax()) == want[i][j]
+            agree_shared += int(y.argmax()) == want[i][j]
+    return {"first_split": {"request": first[1], "step": first[0]},
+            "parted": parted, "replayed_steps": steps,
+            "max_rel_err": worst, "max_rel_err_own_pools": own,
+            "kernel_picks_plain_token": agree,
+            "plain_on_same_pages_picks_plain_token": agree_shared}
+
+
+def _stream_note(held):
+    if not held:
+        return "identical"
+    return (f"part at request {held['first_split']['request']} step "
+            f"{held['first_split']['step']} ({len(held['parted'])} "
+            "streams); replayed with the plain tokens: max|d logits| "
+            f"{held['max_rel_err']:.3e} of scale on the same int8 pages "
+            f"over {held['replayed_steps']} steps (limit "
+            f"{E2E_FP32_TOL:g}; on each path's own pools "
+            f"{held['max_rel_err_own_pools']:.3e}, not held); the plain "
+            "stream's token is picked by the kernel path at "
+            f"{held['kernel_picks_plain_token']}/{held['replayed_steps']} "
+            "steps, by the plain path on the same pages at "
+            f"{held['plain_on_same_pages_picks_plain_token']}/"
+            f"{held['replayed_steps']}")
+
+
 def scheduler_reduced_fp32(torch, name):
     """Reduced fp32 config on the card: the Scheduler's greedy streams
-    on the kernels equal the plain backend's, for both pool dtypes,
-    over a stream that preempts."""
+    on the kernels equal the plain backend's over a stream that
+    preempts; on int8 pools a stream that parts is held to its end
+    through a replay (``_hold_streams``)."""
     from repro_torch.engine import DecodeEngine, EngineConfig, Scheduler
 
-    cfg = _reduced_on_card(name)
-    streams = {}
+    cfg = _reduced(name)
+    streams, held = {}, {}
     for kv_dtype in ("bf16", "int8"):
         ecfg = EngineConfig(batch=3, max_len=64, paged=True, page_size=8,
                             n_pages=12, kv_dtype=kv_dtype,
@@ -1381,17 +1762,24 @@ def scheduler_reduced_fp32(torch, name):
                            params=eng.params, device="cuda")
         for e in (eng, ref):
             sched = Scheduler(e)
-            out = _drive(sched, _requests(cfg, 7, (5, 40), 16, seed=6))
+            reqs = _requests(cfg, 7, (5, 40), 16, seed=6)
+            out = _drive(sched, reqs)
             streams[kv_dtype, e.cfg.kernel_impl] = (
                 [out[i].tokens.tolist() for i in range(7)],
                 sched.stats["preempted"])
-        if streams[kv_dtype, "cuda"] != streams[kv_dtype, "torch"]:
+        got, want = (streams[kv_dtype, k][0] for k in ("cuda", "torch"))
+        if kv_dtype == "int8":
+            held[kv_dtype] = _hold_streams(
+                torch, f"{name} reduced fp32 int8", eng, ref, reqs, got,
+                want)
+        elif got != want:
             raise AssertionError(f"{name} reduced fp32 {kv_dtype}: "
                                  "Scheduler streams differ")
         print(f"  {cfg.name} fp32 Scheduler, {kv_dtype} pools: greedy "
-              f"streams identical ({streams[kv_dtype, 'cuda'][1]} "
-              "preemptions)")
-    return {k: v[1] for k, v in streams.items() if k[1] == "cuda"}
+              f"streams {_stream_note(held.get(kv_dtype))} "
+              f"({streams[kv_dtype, 'cuda'][1]} preemptions)")
+    return {"preemptions": {k[0]: v[1] for k, v in streams.items()
+                            if k[1] == "cuda"}, "parted": held}
 
 
 # ----------------------------------------------------------------------
@@ -1708,15 +2096,14 @@ def serve_prefix_chunked(torch, params):
     return summaries
 
 
-def _dense_mla_on_card():
-    """The dense family with MLA attention (the JAX matrices' ``mla``
-    config), at widths the kernels take: reduced tinyllama with an MLA
-    block of latent rank 32 and rope width 32."""
+def _dense_mla():
+    """The dense family with MLA attention: reduced tinyllama with the JAX
+    matrices' ``mla`` block (latent rank 16, rope width 8)."""
     from repro_torch.common.config import MLAConfig
 
-    return _reduced_on_card("tinyllama-1.1b").replace(
+    return _reduced("tinyllama-1.1b").replace(
         name="tinyllama-1.1b-reduced+mla", mla=MLAConfig(
-            q_lora_rank=32, kv_lora_rank=32, rope_head_dim=32,
+            q_lora_rank=32, kv_lora_rank=16, rope_head_dim=8,
             nope_head_dim=16, v_head_dim=16))
 
 
@@ -1730,13 +2117,15 @@ def scheduler_reduced_prefix_chunked(torch, name, cfg=None):
     otherwise than the off/off run), and for the moe family (a chunk or
     a suffix is its own MoE group, whose capacity drops differ from the
     whole prompt's), they equal the plain backend's prefix and chunked
-    streams, and the streams equal to the off/off run are counted."""
+    streams, and the streams equal to the off/off run are counted; on
+    int8 pools a stream that parts is held to its end through a replay
+    with its prompt in chunks (``_hold_streams``)."""
     import numpy as np
 
     from repro_torch.engine import (DecodeEngine, EngineConfig, Request,
                                     Scheduler)
 
-    cfg = cfg or _reduced_on_card(name)
+    cfg = cfg or _reduced(name)
     rng = np.random.default_rng(6)
     system = rng.integers(0, cfg.vocab, 16)
     prompts = ([np.concatenate([system, rng.integers(0, cfg.vocab, int(n))])
@@ -1748,7 +2137,8 @@ def scheduler_reduced_prefix_chunked(torch, name, cfg=None):
         sched = Scheduler(eng, **kw)
         out = _drive(sched, [Request(rid=i, tokens=p.astype(np.int32),
                                      gen=16) for i, p in enumerate(prompts)])
-        return [out[i].tokens.tolist() for i in range(len(prompts))], sched
+        return ([out[i].tokens.tolist() for i in range(len(prompts))],
+                sched)
 
     summary = {}
     for kv_dtype in ("bf16", "int8"):
@@ -1767,7 +2157,14 @@ def scheduler_reduced_prefix_chunked(torch, name, cfg=None):
         if not (st["prefix_hits"] > 0 and st["chunks"] > 0):
             raise AssertionError(f"{name} reduced fp32 {kv_dtype}: no "
                                  "prefix hit or no chunk")
-        if got != want:
+        held = {}
+        if kv_dtype == "int8":
+            reqs = [Request(rid=i, tokens=p.astype(np.int32), gen=16)
+                    for i, p in enumerate(prompts)]
+            held = _hold_streams(
+                torch, f"{cfg.name} reduced fp32 int8 prefix + chunked",
+                eng, ref, reqs, got, want, chunk=ecfg.chunk_tokens)
+        elif got != want:
             raise AssertionError(
                 f"{name} reduced fp32 {kv_dtype}: prefix and chunked "
                 "streams on the kernels differ from the plain backend's")
@@ -1775,12 +2172,12 @@ def scheduler_reduced_prefix_chunked(torch, name, cfg=None):
         print(f"  {cfg.name} fp32 Scheduler, {kv_dtype} pools, prefix + "
               f"chunked on the kernels: {st['prefix_hits']} hits, "
               f"{st['chunks']} chunks, {st['preempted']} preemptions; "
-              f"equal to the plain "
+              f"{_stream_note(held)} to the plain "
               f"{'prefix + chunked' if same_modes else 'off/off'}"
               f" streams; {same}/{len(prompts)} equal to the plain off/off")
         summary[kv_dtype] = {k: st[k] for k in (
             "prefix_hits", "chunks", "preempted", "prefix_evictions")}
-        summary[kv_dtype]["streams_equal_off"] = same
+        summary[kv_dtype].update(streams_equal_off=same, parted=held)
     return summary
 
 
@@ -2336,6 +2733,85 @@ def serve_deepseek(torch):
 
 
 # ----------------------------------------------------------------------
+# phase 9: the paper's CNN path
+# ----------------------------------------------------------------------
+
+def serve_cnn(torch):
+    """The CNN path at full width, through its user entry points: every
+    stride-1 layer of the provet_cnn suite at its published shape, N 1
+    and 32, bf16 and fp32, through ``ops.vwr_conv2d`` (bias + relu) and
+    ``ops.vwr_depthwise``, and the section 6.1 demo on the card, with
+    every launch counter set to 0 just before and read just after; then
+    each output held against its plain version (shape, finite, TOL), and
+    the fused bias + relu conv timed against the conv followed by the
+    bias and the relu as separate passes."""
+    from repro_torch.examples import provet_conv_demo
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.vwr_conv2d import vwr_conv2d_ref
+    from repro_torch.kernels.vwr_depthwise import vwr_depthwise_ref
+
+    covered, skipped = _cnn_layers()
+    for layer in skipped:
+        print(f"  {layer.name}: stride {layer.stride}, outside both "
+              "kernels' stride-1 contract (as in JAX): not covered")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = [(layer, n, dt, _conv_operands(
+        torch, gen, n, layer.H_in, layer.W_in, layer.C_in, layer.C_out,
+        layer.K, layer.K, dt, depthwise=layer.depthwise))
+        for layer in covered for n in CNN_BATCHES
+        for dt in (torch.bfloat16, torch.float32)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs = [ops.vwr_depthwise(x, w) if layer.depthwise
+            else ops.vwr_conv2d(x, w, b, activation="relu")
+            for layer, _, _, (x, w, b) in cases]
+    demo = provet_conv_demo.main("cuda")
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("vwr_conv2d",
+                                               "vwr_depthwise")}
+    n_dw = sum(layer.depthwise for layer, *_ in cases)
+    # the demo's last section launches the conv kernel twice
+    want = {"vwr_conv2d": len(cases) - n_dw + 2, "vwr_depthwise": n_dw}
+    print(f"  launches over the suite and the demo: {launches}")
+    if launches != want:
+        raise AssertionError(f"CNN path launches {launches}, expected "
+                             f"{want}")
+    if max(demo["6.1_err"], demo["6.2.1_err"], demo["6.2.2_err"],
+           demo["fused_err"]) > 1e-4:
+        raise AssertionError(f"provet_conv_demo errors {demo}")
+    rows = []
+    for (layer, n, dt, (x, w, b)), out in zip(cases, outs):
+        want_out = (vwr_depthwise_ref(x, w) if layer.depthwise
+                    else vwr_conv2d_ref(x, w, b, activation="relu"))
+        atol, rtol = TOL[str(dt)[6:]]
+        d = (out.float() - want_out.float()).abs()
+        ok = (out.shape == want_out.shape and bool(out.isfinite().all())
+              and bool((d <= atol + rtol * want_out.float().abs()).all()))
+        rows.append({"layer": layer.name, "N": n, "dtype": str(dt)[6:],
+                     "shape": list(out.shape),
+                     "max_abs_err": d.max().item()})
+        print(f"  {layer.name:11s} N{n:<3d} {str(dt)[6:]:9s} out "
+              f"{tuple(out.shape)} max|err| {d.max().item():.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{layer.name} N{n} {dt}: the CNN path's "
+                                 "output is off its plain version")
+    layer, n, dt, (x, w, b) = next(
+        c for c in cases if (c[0].name, c[1], str(c[2])[6:])
+        == CNN_HEADLINE["vwr_conv2d"])
+    fused = time_ms(torch, lambda: ops.vwr_conv2d(x, w, b,
+                                                  activation="relu"))
+    unfused = time_ms(torch, lambda: torch.relu(ops.vwr_conv2d(x, w) + b))
+    print(f"  {layer.name} N{n} bf16 conv + bias + relu: fused "
+          f"{fused:.4f} ms, conv then bias and relu passes {unfused:.4f} ms")
+    return {"launches": launches, "outputs": rows,
+            "not_covered": [l.name for l in skipped],
+            "fused_ms": fused, "unfused_ms": unfused,
+            "demo_errors": {k: v for k, v in demo.items()
+                            if k.endswith("_err")}}
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2400,11 +2876,14 @@ def main() -> int:
     print("prefix cache and chunked prefill of the MLA and moe families")
     mla_pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
                    for n in (DEEPSEEK, "olmoe-1b-7b")}
-    dense_mla = _dense_mla_on_card()
+    dense_mla = _dense_mla()
     mla_pc_fp32[dense_mla.name] = scheduler_reduced_prefix_chunked(
         torch, None, cfg=dense_mla)
     deepseek = serve_deepseek(torch)
     pc = deepseek["prefix_chunked"]
+
+    print("the paper's CNN path: provet_cnn suite on kernels 16 and 17")
+    cnn = serve_cnn(torch)
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
@@ -2422,7 +2901,8 @@ def main() -> int:
                 "vwr_mla_chunk_prefix_attend":
                     pc[0]["chunk_prefix"]["launches"],
                 "vwr_mla_chunk_prefix_attend_q8":
-                    pc[1]["chunk_prefix"]["launches"]}
+                    pc[1]["chunk_prefix"]["launches"],
+                **cnn["launches"]}
 
     kernels = []
     sources = {"vwr_matmul": "vwr_matmul", "vwr_swiglu": "vwr_matmul",
@@ -2438,7 +2918,8 @@ def main() -> int:
                "vwr_mla_flash_decode_q8": "vwr_mla_decode",
                "vwr_flash_decode_q8": "vwr_decode",
                "vwr_mla_chunk_prefix_attend": "vwr_mla_decode",
-               "vwr_mla_chunk_prefix_attend_q8": "vwr_mla_decode"}
+               "vwr_mla_chunk_prefix_attend_q8": "vwr_mla_decode",
+               "vwr_conv2d": "vwr_conv2d", "vwr_depthwise": "vwr_depthwise"}
     replaces = {
         "vwr_matmul": "src/repro/kernels/vwr_matmul.py:120",
         "vwr_swiglu": "src/repro/kernels/vwr_matmul.py:84",
@@ -2457,7 +2938,9 @@ def main() -> int:
         "vwr_mla_chunk_prefix_attend":
             "src/repro/kernels/vwr_decode.py:1064",
         "vwr_mla_chunk_prefix_attend_q8":
-            "src/repro/kernels/vwr_decode.py:1162"}
+            "src/repro/kernels/vwr_decode.py:1162",
+        "vwr_conv2d": "src/repro/kernels/vwr_conv2d.py:57",
+        "vwr_depthwise": "src/repro/kernels/vwr_depthwise.py:35"}
     for name in sources:
         head = next(r for r in results if r["kernel"] == name
                     and r["headline"])
@@ -2474,18 +2957,14 @@ def main() -> int:
               "build_s": secs, "kernel_cases": results,
               "reduced_fp32_max_abs": fp32, "serve": [tiny, qwen],
               "scheduler": [sched_bf16, sched_int8],
-              "scheduler_reduced_fp32_preemptions": {
-                  n: {k[0]: v for k, v in d.items()}
-                  for n, d in sched_fp32.items()},
+              "scheduler_reduced_fp32": sched_fp32,
               "prefix_chunked_reduced_fp32": pc_fp32,
               "chunk_rows": rows, "chunked_prefill_logits": chunk_logits,
               "prefix_chunked": pc_streams,
               "moe_reduced_fp32_max_abs": moe_fp32,
-              "moe_scheduler_reduced_fp32_preemptions": {
-                  n: {k[0]: v for k, v in d.items()}
-                  for n, d in moe_sched_fp32.items()},
+              "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,
-              "deepseek": deepseek,
+              "deepseek": deepseek, "cnn": cnn,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

@@ -13,8 +13,9 @@ import dataclasses
 from repro_torch.common.config import (MLAConfig, Mamba2Config,  # noqa: F401
                                        ModelConfig, MoEConfig, XLSTMConfig)
 
-from repro_torch.configs import (deepseek_coder_33b, deepseek_v3_671b,
-                                 granite_3_8b, internvl2_2b, olmoe_1b_7b,
+from repro_torch.configs import (deepseek_coder_33b,  # noqa: F401
+                                 deepseek_v3_671b, granite_3_8b,
+                                 internvl2_2b, olmoe_1b_7b, provet_cnn,
                                  qwen1_5_0_5b, seamless_m4t_large_v2,
                                  tinyllama_1_1b, xlstm_350m, zamba2_1_2b)
 

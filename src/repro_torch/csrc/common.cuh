@@ -100,3 +100,45 @@ __device__ __forceinline__ void load_chunk(const int8_t* p, float* out) {
     out[4 * i + 3] = c[i].w;
   }
 }
+
+// ---- fused epilogues (vwr_matmul, vwr_conv2d): codes as in
+// kernels/vwr_matmul.py ACT_CODES ----
+
+enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
+
+__device__ __forceinline__ float silu(float v) {
+  return v / (1.0f + expf(-v));
+}
+
+// jax.nn.gelu's default: the tanh approximation
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * v * (1.0f + tanhf(k0 * (v + 0.044715f * v * v * v)));
+}
+
+__device__ __forceinline__ float activate(float v, int act) {
+  switch (act) {
+    case ACT_RELU: return fmaxf(v, 0.0f);
+    case ACT_SILU: return silu(v);
+    case ACT_GELU: return gelu_tanh(v);
+    default: return v;
+  }
+}
+
+// Eight bf16 of row `row`, columns col .. col+7, of a row-major
+// (rows, cols) matrix as one 16-byte chunk; zeros past either edge.
+// `vec`: cols % 8 == 0 and `p` 16-byte aligned (the 16-byte load is
+// taken only for a chunk wholly inside the row).
+__device__ __forceinline__ uint4 chunk8(const __nv_bfloat16* p, int row,
+                                        int col, int rows, int cols,
+                                        bool vec) {
+  if (row < rows && vec && col + 8 <= cols)
+    return *reinterpret_cast<const uint4*>(p + (size_t)row * cols + col);
+  uint4 out;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    o[e] = (row < rows && col + e < cols) ? p[(size_t)row * cols + col + e]
+                                          : __float2bfloat16(0.0f);
+  return out;
+}

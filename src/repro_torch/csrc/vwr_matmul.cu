@@ -43,42 +43,7 @@ constexpr int BK_F = 16, AF_LD = BM + 4, BF_LD = BN + 4;
 // fp32 accumulator staging for the epilogue
 constexpr int C_LD = BN + 4;
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
-
-__device__ __forceinline__ float silu(float v) {
-  return v / (1.0f + expf(-v));
-}
-
-// jax.nn.gelu's default: the tanh approximation
-__device__ __forceinline__ float gelu_tanh(float v) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * v * (1.0f + tanhf(k0 * (v + 0.044715f * v * v * v)));
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case ACT_RELU: return fmaxf(v, 0.0f);
-    case ACT_SILU: return silu(v);
-    case ACT_GELU: return gelu_tanh(v);
-    default: return v;
-  }
-}
-
-// ---- bf16 tiles: 16-byte chunks, masked at the ragged edge ----
-
-__device__ __forceinline__ uint4 chunk8(const __nv_bfloat16* p, int row,
-                                        int col, int rows, int cols,
-                                        bool vec) {
-  if (row < rows && vec && col + 8 <= cols)
-    return *reinterpret_cast<const uint4*>(p + (size_t)row * cols + col);
-  uint4 out;
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    o[e] = (row < rows && col + e < cols) ? p[(size_t)row * cols + col + e]
-                                          : __float2bfloat16(0.0f);
-  return out;
-}
+// ---- bf16 tiles: 16-byte chunks (common.cuh chunk8), masked ----
 
 struct TileH {
   uint4 a[2];     // x: 64 rows x 4 chunks = 256 chunks, 2 per thread

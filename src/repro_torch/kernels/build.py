@@ -30,7 +30,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("vwr_matmul", "vwr_attention", "vwr_decode", "vwr_paged_decode",
-           "vwr_chunk_prefix", "vwr_mla_decode")
+           "vwr_chunk_prefix", "vwr_mla_decode", "vwr_conv2d",
+           "vwr_depthwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,7 +47,8 @@ LAUNCHES: Dict[str, int] = {"vwr_matmul": 0, "vwr_swiglu": 0,
                             "vwr_mla_flash_decode_q8": 0,
                             "vwr_flash_decode_q8": 0,
                             "vwr_mla_chunk_prefix_attend": 0,
-                            "vwr_mla_chunk_prefix_attend_q8": 0}
+                            "vwr_mla_chunk_prefix_attend_q8": 0,
+                            "vwr_conv2d": 0, "vwr_depthwise": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

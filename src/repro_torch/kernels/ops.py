@@ -2,7 +2,9 @@
 code uses, mapped onto each kernel's contract.
 
 Counterpart of ``repro.kernels.ops`` for the kernels of the dense and
-paged serving paths and of absorbed-MLA decode.  The JAX wrappers pad every operand to block multiples
+paged serving paths, of absorbed-MLA decode and of the paper's CNN
+layers (conv2d, depthwise).  The JAX wrappers pad every operand to block
+multiples
 (``ops.py`` ``_pad_dim``) and flatten heads to ``(B*H, S, D)``; the CUDA
 kernels mask their ragged edges themselves and read the native head
 layouts, so what is left here is reshaping: a bias to ``(1, N)``, a
@@ -13,7 +15,9 @@ block table to ``[0, n_pages)`` before the kernel; the paged decode
 wrappers leave that to the kernel, which clamps each entry it reads (no
 clamped copy a layer), and the chunk-prefix wrappers clamp their (J,)
 table on the device, as the JAX ones do.  There are no block sizes to
-tune yet (the block autotuner is later work).
+tune yet (the block autotuner is later work), so the conv wrappers have
+no ``bh`` / ``bf`` knob: the JAX ones pad H_out and F to their blocks,
+the CUDA conv kernels mask ragged C, F, H_out and W_out themselves.
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ from repro_torch.kernels.vwr_attention import vwr_attention as _attention
 from repro_torch.kernels.vwr_chunk import vwr_chunk_prefix_attend as _chunk
 from repro_torch.kernels.vwr_chunk import \
     vwr_chunk_prefix_attend_q8 as _chunk_q8
+from repro_torch.kernels.vwr_conv2d import vwr_conv2d as _conv2d
 from repro_torch.kernels.vwr_decode import vwr_flash_decode as _decode
 from repro_torch.kernels.vwr_decode import vwr_flash_decode_q8 as _decode_q8
 from repro_torch.kernels.vwr_decode import vwr_paged_flash_decode as _paged
 from repro_torch.kernels.vwr_decode import \
     vwr_paged_flash_decode_q8 as _paged_q8
+from repro_torch.kernels.vwr_depthwise import vwr_depthwise as _depthwise
 from repro_torch.kernels.vwr_matmul import vwr_matmul as _matmul
 from repro_torch.kernels.vwr_matmul import vwr_swiglu as _swiglu
 
@@ -50,6 +56,23 @@ def vwr_swiglu(x, wg, wi):
     """``silu(x @ wg) * (x @ wi)`` in one kernel pass; x: (M, K);
     wg, wi: (K, N)."""
     return _swiglu(x.contiguous(), wg.contiguous(), wi.contiguous())
+
+
+def vwr_conv2d(x, w, bias=None, *, activation=None):
+    """``act(conv2d(x, w) + bias)`` in one kernel pass.
+
+    x: (N, H, W, C); w: (KH, KW, C, F); stride 1, VALID.  bias: (F,) (or
+    (1, F)) and activation in {None, 'relu', 'gelu', 'silu'} are fused
+    into the fp32 sum before the single output store.  Returns
+    (N, H-KH+1, W-KW+1, F) in x.dtype."""
+    b = None if bias is None else bias.reshape(w.shape[3]).contiguous()
+    return _conv2d(x.contiguous(), w.contiguous(), b, activation=activation)
+
+
+def vwr_depthwise(x, w):
+    """Depthwise conv: x (N, H, W, C); w (KH, KW, C); stride 1, VALID.
+    Returns (N, H-KH+1, W-KW+1, C) in x.dtype."""
+    return _depthwise(x.contiguous(), w.contiguous())
 
 
 def vwr_attention(q, k, v, *, causal=True):

@@ -21,6 +21,14 @@ o_tilde = 0``.  The dense kernel reads the cache in its native
 ``(B, T, KV, D)`` layout (no transpose) and stops at the last valid
 position.
 
+The kernels take a head dim D in {32, 64, 128} and at most 16 query
+rows (G) a KV head.  ``widths.at_widths`` zero-pads a narrower D
+(the reduced configs' 16) to the next of those, with the scale of the
+true width, and launches a larger G in slices of 16 rows; on a paged
+pool of a reduced config that pads the whole pool on each call, which
+is acceptable at reduced widths.  Nothing is copied at D 64 or 128 and
+G <= 16.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.
 """
@@ -30,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, widths
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -39,12 +47,14 @@ MAX_GROUP = 16
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def vwr_flash_decode_ref(q, k, v, cur_len, pos0=0):
-    """Plain version.  q: (B*KV, G, D); k, v: (B, T, KV, D).  Returns
-    fp32 (o_tilde (B*KV, G, D), m (B*KV, G), l (B*KV, G))."""
+def vwr_flash_decode_ref(q, k, v, cur_len, pos0=0, *, scale=None):
+    """Plain version.  q: (B*KV, G, D); k, v: (B, T, KV, D); ``scale``
+    1/sqrt(D) unless given.  Returns fp32 (o_tilde (B*KV, G, D),
+    m (B*KV, G), l (B*KV, G))."""
     BKV, G, D = q.shape
     B, T, KV, _ = k.shape
-    qf = q.float().reshape(B, KV, G, D) * (1.0 / D ** 0.5)
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    qf = q.float().reshape(B, KV, G, D) * scale
     s = torch.einsum("bhgd,bthd->bhgt", qf, k.float())
     valid = pos0 + torch.arange(T, device=q.device) < cur_len
     s = torch.where(valid, s, NEG_INF)
@@ -56,22 +66,30 @@ def vwr_flash_decode_ref(q, k, v, cur_len, pos0=0):
             p.sum(-1).reshape(BKV, G))
 
 
-def vwr_flash_decode_q8_ref(q, k, v, k_scale, v_scale, cur_len, pos0=0):
+def vwr_flash_decode_q8_ref(q, k, v, k_scale, v_scale, cur_len, pos0=0, *,
+                            scale=None):
     """Plain version of the int8 kernel: k, v int8 (B, T, KV, D) with
     fp32 (B*KV,) scales, dequantized, then as ``vwr_flash_decode_ref``."""
     B, T, KV, _ = k.shape
     kf = k.float() * k_scale.reshape(B, 1, KV, 1)
     vf = v.float() * v_scale.reshape(B, 1, KV, 1)
-    return vwr_flash_decode_ref(q, kf, vf, cur_len, pos0)
+    return vwr_flash_decode_ref(q, kf, vf, cur_len, pos0, scale=scale)
 
 
 def _dense_launch(kernel, q, k, v, scales, cur_len, pos0):
+    scale = 1.0 / q.shape[-1] ** 0.5
+    return widths.at_widths(
+        lambda q, k, v: _dense_kernel(kernel, q, k, v, scales, cur_len,
+                                      pos0, scale),
+        [((q, k, v), HEAD_DIMS)], kernel, max_group=MAX_GROUP)
+
+
+def _dense_kernel(kernel, q, k, v, scales, cur_len, pos0, scale):
     BKV, G, D = q.shape
     B, T, KV, _ = k.shape
-    if BKV != B * KV or G > MAX_GROUP or D not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: needs q (B*KV, G<={MAX_GROUP}, D in "
-                         f"{HEAD_DIMS}), got q {tuple(q.shape)} and cache "
-                         f"{tuple(k.shape)}")
+    if BKV != B * KV:
+        raise ValueError(f"{kernel}: needs q (B*KV, G, D), got q "
+                         f"{tuple(q.shape)} and cache {tuple(k.shape)}")
     code = build.dtype_code(q.dtype)
     build.check_operands(kernel, q.dtype, q=(q, (BKV, G, D)))
     build.check_operands(kernel, torch.int8 if scales else q.dtype,
@@ -89,7 +107,7 @@ def _dense_launch(kernel, q, k, v, scales, cur_len, pos0):
     lib, fn = build.kernel_fn("vwr_decode", f"{kernel}_launch",
                               [_VP] * len(ptrs) + [_I] * 6 + [_F, _I, _VP])
     err = fn(*(t.data_ptr() for t in ptrs), B, T, KV, G, D, n_keys,
-             1.0 / D ** 0.5, code, build.stream_of(q))
+             scale, code, build.stream_of(q))
     build.check(lib, err, kernel)
     build.count_launch(kernel)
     return o_t, m, l
@@ -120,12 +138,14 @@ def vwr_flash_decode_q8(q, k, v, k_scale, v_scale, cur_len: int,
 # paged pools: kernels 5 and 7 (csrc/vwr_paged_decode.cu)
 # ----------------------------------------------------------------------
 
-def _paged_partials(q, k, v, counts):
+def _paged_partials(q, k, v, counts, scale):
     """q: (B*KV, G, D); k, v: (B, J, ps, KV, D) fp32 gathered pages;
-    counts: (B, J) valid keys per logical page."""
+    counts: (B, J) valid keys per logical page; ``scale`` 1/sqrt(D)
+    unless given."""
     BKV, G, D = q.shape
     B, J, ps, KV, _ = k.shape
-    qf = q.float().reshape(B, KV, G, D) * (1.0 / D ** 0.5)
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    qf = q.float().reshape(B, KV, G, D) * scale
     s = torch.einsum("bhgd,bthd->bhgt", qf, k.reshape(B, J * ps, KV, D))
     valid = (torch.arange(ps, device=q.device)[None, None, :]
              < counts[..., None]).reshape(B, 1, 1, J * ps)
@@ -138,7 +158,8 @@ def _paged_partials(q, k, v, counts):
             p.sum(-1).reshape(BKV, G))
 
 
-def vwr_paged_flash_decode_ref(q, k_pool, v_pool, table, counts):
+def vwr_paged_flash_decode_ref(q, k_pool, v_pool, table, counts, *,
+                               scale=None):
     """Plain version of the paged kernel.  q: (B*KV, G, D); k_pool,
     v_pool: (n_pages, page_size, KV, D); table, counts: (B, J) int —
     logical page j of slot b is physical page ``table[b, j]`` (clamped
@@ -147,32 +168,38 @@ def vwr_paged_flash_decode_ref(q, k_pool, v_pool, table, counts):
     l (B*KV, G))."""
     tbl = table.long().clamp(0, k_pool.shape[0] - 1)
     return _paged_partials(q, k_pool[tbl].float(), v_pool[tbl].float(),
-                           counts)
+                           counts, scale)
 
 
 def vwr_paged_flash_decode_q8_ref(q, k_pool, v_pool, k_scale, v_scale,
-                                  table, counts):
+                                  table, counts, *, scale=None):
     """Plain version of the int8-pool kernel: k_pool, v_pool int8
     (n_pages, page_size, KV, D) with fp32 (n_pages, KV) scales,
     dequantized page by page, then as ``vwr_paged_flash_decode_ref``."""
     tbl = table.long().clamp(0, k_pool.shape[0] - 1)
     k = k_pool[tbl].float() * k_scale[tbl][:, :, None, :, None]
     v = v_pool[tbl].float() * v_scale[tbl][:, :, None, :, None]
-    return _paged_partials(q, k, v, counts)
+    return _paged_partials(q, k, v, counts, scale)
 
 
 def _paged_launch(kernel, q, k_pool, v_pool, table, counts, scales):
+    scale = 1.0 / q.shape[-1] ** 0.5
+    return widths.at_widths(
+        lambda q, k_pool, v_pool: _paged_kernel(
+            kernel, q, k_pool, v_pool, table, counts, scales, scale),
+        [((q, k_pool, v_pool), HEAD_DIMS)], kernel, max_group=MAX_GROUP)
+
+
+def _paged_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
     BKV, G, D = q.shape
     n_pages, ps, KV, Dp = k_pool.shape
     B, J = table.shape
     code = build.dtype_code(q.dtype)
-    if (BKV != B * KV or Dp != D or G > MAX_GROUP or D not in HEAD_DIMS
-            or n_pages < 1):
-        raise ValueError(f"{kernel}: needs q (B*KV, G<={MAX_GROUP}, D in "
-                         f"{HEAD_DIMS}) against pools (n_pages>=1, ps, KV,"
-                         f" D) and a (B, J) table; got q {tuple(q.shape)},"
-                         f" pool {tuple(k_pool.shape)}, table "
-                         f"{tuple(table.shape)}")
+    if BKV != B * KV or Dp != D or n_pages < 1:
+        raise ValueError(f"{kernel}: needs q (B*KV, G, D) against pools "
+                         f"(n_pages>=1, ps, KV, D) and a (B, J) table; got "
+                         f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, "
+                         f"table {tuple(table.shape)}")
     pool_dt = torch.int8 if scales else q.dtype
     build.check_operands(kernel, q.dtype, q=(q, (BKV, G, D)))
     build.check_operands(kernel, pool_dt, k_pool=(k_pool, k_pool.shape),
@@ -192,7 +219,7 @@ def _paged_launch(kernel, q, k_pool, v_pool, table, counts, scales):
                               [_VP] * len(ptrs) + [_I] * 7
                               + [_F, _I, _VP])
     err = fn(*(t.data_ptr() for t in ptrs), B, J, n_pages, ps, KV, G, D,
-             1.0 / D ** 0.5, code, build.stream_of(q))
+             scale, code, build.stream_of(q))
     build.check(lib, err, kernel)
     build.count_launch(kernel)
     return o_t, m, l

@@ -23,7 +23,8 @@ ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu default
     "silu": F.silu,
 }
-_ACT_CODES = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
+# the csrc/common.cuh Act codes of the fused epilogues
+ACT_CODES = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -55,7 +56,7 @@ def vwr_matmul(x, w, bias=None, residual=None, *, activation=None):
     x: (M, K); w: (K, N); bias: (1, N) or None; residual: (M, N) or
     None; activation in {None, 'relu', 'silu', 'gelu'}.  Returns (M, N)
     in x.dtype."""
-    if activation not in _ACT_CODES:
+    if activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if x.device.type == "cpu":
         return vwr_matmul_ref(x, w, bias, residual, activation=activation)
@@ -71,7 +72,7 @@ def vwr_matmul(x, w, bias=None, residual=None, *, activation=None):
              None if bias is None else bias.data_ptr(),
              None if residual is None else residual.data_ptr(),
              out.data_ptr(), M, N, K, build.dtype_code(x.dtype),
-             _ACT_CODES[activation], build.stream_of(x))
+             ACT_CODES[activation], build.stream_of(x))
     build.check(lib, err, "vwr_matmul")
     build.count_launch("vwr_matmul")
     return out

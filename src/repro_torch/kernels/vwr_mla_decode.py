@@ -27,8 +27,14 @@ scales, one a sequence (B,) for the dense cache and one a page
 
 Returns the unnormalized fp32 partials ``(o_tilde (B, H, r), m (B, H),
 l (B, H))``; a head with no valid key gives ``m = -1e30, l = 0,
-o_tilde = 0``.  A wrapper given CPU tensors runs the plain version;
-given CUDA tensors it launches the kernel or raises.
+o_tilde = 0``.  The kernels take r in {32, ..., 512} and rope in {32,
+64}; a narrower r or rope (the reduced configs' 16 and 8) is zero-padded
+to the next of those, queries and caches, on each call (zeros change no
+score, and the padded latent columns of o_tilde are sliced off): on the
+pools of a reduced config that copies the whole pool a call, which is
+acceptable at reduced widths.  Nothing is copied at DeepSeek-V3's r 512,
+rope 64.  A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, widths
 
 NEG_INF = -1e30
 # the kernel holds a lane's share of r and rope in registers: r / 32
@@ -146,23 +152,34 @@ def vwr_mla_chunk_prefix_attend_q8_ref(q_abs, q_rope, ckv_pool, krope_pool,
 # ----------------------------------------------------------------------
 
 def _launch(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
-    """Check the operands and launch ``kernel``; ``index`` is (table,
-    counts) for the pools, (B, J) a sequence or (J,) shared by the B
-    chunk tokens, () for the dense cache (``n_keys`` valid keys from row
-    0 of each sequence's slab)."""
+    """Check the operands' shapes and launch ``kernel`` at the widths it
+    takes (``widths.at_widths``: r and rope zero-padded, o_tilde sliced
+    back); ``index`` is (table, counts) for the pools, (B, J) a sequence
+    or (J,) shared by the B chunk tokens, () for the dense cache
+    (``n_keys`` valid keys from row 0 of each sequence's slab)."""
+    B, H, r0 = q_abs.shape
+    rope0 = q_rope.shape[2]
+    lead = ckv.shape[:2]
+    if (q_rope.shape[:2] != (B, H) or ckv.shape != (*lead, r0)
+            or kr.shape != (*lead, rope0) or (not index and lead[0] != B)
+            or lead[0] < 1):
+        raise ValueError(
+            f"{kernel}: needs q_abs (B, H, r) and q_rope (B, H, rope) "
+            f"against latent/rope caches (B or n_pages, T or page_size, "
+            f"r / rope); got q_abs {tuple(q_abs.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, c_kv {tuple(ckv.shape)}, k_rope "
+            f"{tuple(kr.shape)}")
+    return widths.at_widths(
+        lambda q_abs, ckv, q_rope, kr: _kernel(
+            kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale),
+        [((q_abs, ckv), RANKS), ((q_rope, kr), ROPES)], kernel)
+
+
+def _kernel(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
     B, H, r = q_abs.shape
     rope = q_rope.shape[2]
     paged = bool(index)
     lead = ckv.shape[:2]
-    if (r not in RANKS or rope not in ROPES or q_rope.shape[:2] != (B, H)
-            or ckv.shape != (*lead, r) or kr.shape != (*lead, rope)
-            or (not paged and lead[0] != B) or lead[0] < 1):
-        raise ValueError(
-            f"{kernel}: needs q_abs (B, H, r in {RANKS}) and q_rope (B, H, "
-            f"rope in {ROPES}) against latent/rope caches (B or n_pages, "
-            f"T or page_size, r / rope); got q_abs {tuple(q_abs.shape)}, "
-            f"q_rope {tuple(q_rope.shape)}, c_kv {tuple(ckv.shape)}, "
-            f"k_rope {tuple(kr.shape)}")
     build.check_operands(kernel, torch.float32, q_abs=(q_abs, (B, H, r)),
                          q_rope=(q_rope, (B, H, rope)))
     cache_dt = torch.int8 if scales else ckv.dtype

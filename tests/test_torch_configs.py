@@ -49,6 +49,10 @@ def test_import_leaves_jax_out():
             "import repro_torch, repro_torch.bridge, repro_torch.configs\n"
             "import repro_torch.engine, repro_torch.kernels.ops\n"
             "import repro_torch.kernels.build, repro_torch.models.lm\n"
+            "import repro_torch.core, repro_torch.configs.provet_cnn\n"
+            "import repro_torch.kernels.vwr_conv2d\n"
+            "import repro_torch.kernels.vwr_depthwise\n"
+            "import repro_torch.examples.provet_conv_demo\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -103,7 +107,9 @@ def test_kernel_build_paths_and_counters():
                                    "vwr_mla_flash_decode_q8",
                                    "vwr_flash_decode_q8",
                                    "vwr_mla_chunk_prefix_attend",
-                                   "vwr_mla_chunk_prefix_attend_q8"}
+                                   "vwr_mla_chunk_prefix_attend_q8",
+                                   "vwr_conv2d", "vwr_depthwise"}
+    assert {"vwr_conv2d", "vwr_depthwise"} <= set(build.SOURCES)
     for name in build.SOURCES:
         p = build.lib_path(name)
         assert (build.CSRC / f"{name}.cu").exists()

@@ -337,19 +337,28 @@ def test_cpu_mla_ops_run_the_plain_version_uncounted():
 
 def test_mla_kernel_shapes_are_checked():
     """On a non-CPU device the wrapper reaches the kernel's checks: a
-    rank or rope width the kernel has no instance for is refused."""
+    rank or rope width past the widest the kernel has an instance for is
+    refused; a narrower one (r 48, rope 8) is zero-padded to the next
+    (64, 32) and goes on to the device check."""
     meta = dict(device="meta")
-    q_abs = torch.empty(2, 4, 48, **meta)
     q_rope = torch.empty(2, 4, 64, **meta)
-    with pytest.raises(ValueError, match="r in"):
-        KM.vwr_mla_flash_decode(q_abs, q_rope, torch.empty(2, 8, 48, **meta),
+    with pytest.raises(ValueError, match="past the widest"):
+        KM.vwr_mla_flash_decode(torch.empty(2, 4, 1024, **meta), q_rope,
+                                torch.empty(2, 8, 1024, **meta),
                                 torch.empty(2, 8, 64, **meta), 8,
                                 scale=1.0)
-    q_abs = torch.empty(2, 4, 64, **meta)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        KM.vwr_mla_flash_decode(q_abs, q_rope, torch.empty(2, 8, 64, **meta),
-                                torch.empty(2, 8, 64, **meta), 8,
+    with pytest.raises(ValueError, match="past the widest"):
+        KM.vwr_mla_flash_decode(torch.empty(2, 4, 64, **meta),
+                                torch.empty(2, 4, 96, **meta),
+                                torch.empty(2, 8, 64, **meta),
+                                torch.empty(2, 8, 96, **meta), 8,
                                 scale=1.0)
+    for r, rope in ((48, 8), (64, 64)):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            KM.vwr_mla_flash_decode(
+                torch.empty(2, 4, r, **meta), torch.empty(2, 4, rope, **meta),
+                torch.empty(2, 8, r, **meta), torch.empty(2, 8, rope, **meta),
+                8, scale=1.0)
 
 
 # ---------------------------------------------------------------- on the card
