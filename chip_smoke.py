@@ -16,10 +16,22 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    padded by their wrappers, and decode groups of 32 and 40 query rows,
    launched in slices of 16; every MLA kernel at the reduced r 16 /
    rope 8) and time kernel, plain version and one PyTorch library call;
+   ``vwr_matmul``'s bf16 variants (split-K, wgmma tiles) at M 1, 4, 8,
+   16, the crossover +- 1 and 72, with bias, residual and every
+   activation, K off the split's slice, K or N off 8 (the rule must send
+   those to ``gemm_kernel``), each case served by the variant the rule
+   names and each new variant bitwise equal over two launches; the
+   crossover timed at M 1-72 and the tensor maps' host encoding cost;
+   DeepSeek-V3's decode down projections timed; ``vwr_attention`` timed
+   at B1 S256 and S2048 (tinyllama widths) and S512 D128 (olmoe widths),
+   and held at G 16, S 1 and S off the tile, bf16 bitwise over two
+   launches;
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
-   set to 0 just before the timed generate and read just after; then replay the same token stream teacher-forced
+   set to 0 just before the timed generate and read just after (the
+   prefill's products must run on the wgmma variant, each decode step's
+   down projection on the split-K one); then replay the same token stream teacher-forced
    through the plain 'torch' backend and hold each step's logits to it
    (the random weights are rescaled to a well-conditioned model first),
    and run kernel 9 through ``dist.decode.local_decode_attend`` with
@@ -196,7 +208,30 @@ def bound_ms(flops, nbytes, dtype):
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
+def _alt_plans(KM, kind, M, N, K):
+    """The variant's own plan, then others of the same form: for the wgmma
+    tiles 64- or 128-row tiles with K in 1, 2, 4 or 8 slices; for split-K
+    K in slices sized for ~1, 2 or 4 blocks an SM."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    if kind == "wgmma":
+        own, kt = KM.tile_plan(M, N, K), cdiv(K, KM.TILE_BK)
+        alts = [(bm, cdiv(kt, cdiv(kt, ns)), cdiv(kt, ns))
+                for bm in (64, 128) for ns in (1, 2, 4, 8) if kt // ns >= 4]
+    else:
+        own = KM.splitk_plan(M, N, K)
+        mt, strips = own[0], cdiv(M, own[0]) * cdiv(N, KM.SPLITK_BN)
+        alts = []
+        for per_sm in (1, 2, 4):
+            ks = cdiv(cdiv(K, max(1, cdiv(per_sm * KM.SMS, strips))), 16) * 16
+            ks = min(max(ks, 64), KM.SPLITK_X_FLOATS // mt)
+            alts.append((mt, cdiv(K, ks), ks))
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
 def check_kernels(torch, F):
+    from repro_torch.kernels import build
     from repro_torch.kernels import vwr_attention as KA
     from repro_torch.kernels import vwr_chunk as KC
     from repro_torch.kernels import vwr_decode as KD
@@ -252,6 +287,7 @@ def check_kernels(torch, F):
 
     # ---- vwr_matmul: act(x @ w + bias) + residual ----
     print("vwr_matmul")
+    cross = KM.SPLITK_MAX_M
     mm_cases = [
         # label, M, K, N, dtype, bias, residual, act, timed, headline
         ("tinyllama q", 512, 2048, 2048, bf16, False, False, None, True, False),
@@ -261,11 +297,28 @@ def check_kernels(torch, F):
         ("tinyllama decode down", 4, 5632, 2048, bf16, False, False, None, True, False),
         ("qwen qkv+bias", 512, 1024, 1024, bf16, True, False, None, True, False),
         ("qwen decode down", 4, 2816, 1024, bf16, False, False, None, True, False),
+        ("deepseek-v3 decode down", 4, 18432, 7168, bf16, False, False, None, True, False),
+        ("deepseek-v3 shared-expert down", 4, 2048, 7168, bf16, False, False, None, True, False),
         ("fp32 k/v", 512, 2048, 256, f32, False, False, None, False, False),
         ("ragged gelu", 100, 130, 50, f32, True, True, "gelu", False, False),
         ("ragged relu", 77, 200, 333, bf16, True, False, "relu", False, False),
         ("ragged silu", 5, 70, 19, f32, False, True, "silu", False, False),
         ("ragged silu", 5, 72, 24, bf16, True, True, "silu", False, False),
+        # the rows the variant rule parts: decode batches, the crossover
+        # +- 1, a mixed step (8 slots + a 64-token chunk)
+        *[(f"M {m}", m, 5632, 2048, bf16, False, False, None, False, False)
+          for m in sorted({1, 4, 8, 16, cross - 1, cross, cross + 1, 72})],
+        # bias, residual and each activation on both bf16 variants
+        ("split-K epilogue", 4, 2048, 256, bf16, True, True, "silu", False, False),
+        ("split-K epilogue", 3, 1000, 136, bf16, True, False, "relu", False, False),
+        ("split-K epilogue", 2, 4104, 264, bf16, False, True, "gelu", False, False),
+        ("wgmma epilogue", 72, 2048, 256, bf16, True, True, "silu", False, False),
+        ("wgmma epilogue", 100, 200, 136, bf16, True, False, "relu", False, False),
+        ("wgmma epilogue", 300, 1000, 2056, bf16, False, True, "gelu", False, False),
+        # K off the split's slice; K or N off 8 (these take gemm_kernel)
+        ("K off the slice", 4, 1000, 2048, bf16, False, False, None, False, False),
+        ("K off 8", 4, 70, 2048, bf16, True, False, None, False, False),
+        ("N off 8", 512, 2048, 250, bf16, False, True, None, False, False),
     ]
     for label, M, K, N, dt, has_b, has_r, act, timed, head in mm_cases:
         x = randn(M, K, dtype=dt)
@@ -274,10 +327,23 @@ def check_kernels(torch, F):
         r = randn(M, N, dtype=dt) if has_r else None
         shape = f"{M}x{K}x{N}" + ("+bias" if has_b else "") + (
             "+res" if has_r else "") + (f"+{act}" if act else "")
+        kind = KM.variant(M, N, K, dt, True)
+        before = dict(build.VARIANTS)
         got = KM.vwr_matmul(x, w, b, r, activation=act)
         torch.cuda.synchronize()
-        err = compare("vwr_matmul", shape, dt, got,
+        served = [k for k, n in build.VARIANTS.items() if n != before[k]]
+        if served != [f"vwr_matmul.{kind}"]:
+            raise AssertionError(f"vwr_matmul {shape}: the rule picks "
+                                 f"{kind}, the wrapper launched {served}")
+        if (K % 8 or N % 8 or dt == f32) and kind != "gemm":
+            raise AssertionError(f"vwr_matmul {shape}: {kind} cannot take "
+                                 "this shape")
+        err = compare(f"vwr_matmul {kind}", shape, dt, got,
                       KM.vwr_matmul_ref(x, w, b, r, activation=act))
+        if kind != "gemm" and not torch.equal(
+                got, KM.vwr_matmul(x, w, b, r, activation=act)):
+            raise AssertionError(f"vwr_matmul {kind} {shape}: two launches "
+                                 "differ")
         if timed:
             elt = x.element_size()
             nbytes = elt * (M * K + K * N + M * N * (2 if has_r else 1)
@@ -291,6 +357,53 @@ def check_kernels(torch, F):
                    lambda: KM.vwr_matmul(x, w, b, r, activation=act),
                    lambda: KM.vwr_matmul_ref(x, w, b, r, activation=act),
                    lib, 2 * M * K * N, nbytes, head)
+            results[-1]["variant"] = kind
+
+    # the crossover: both bf16 variants at the down projection's K and N
+    print("  M crossover (K 5632, N 2048; ms): M, split-K, wgmma, cuBLAS")
+    for M in (1, 4, 8, 16, 32, 64, 72):
+        x = randn(M, 5632, dtype=bf16)
+        w = randn(5632, 2048, dtype=bf16, scale=5632 ** -0.5)
+        want = KM.vwr_matmul_ref(x, w)
+        row = {"kernel": "vwr_matmul crossover", "M": M,
+               "bound_ms": bound_ms(2 * M * 5632 * 2048,
+                                    2 * (M * 5632 + 5632 * 2048 + M * 2048),
+                                    "bfloat16")}
+        for kind in ("splitk", "wgmma"):
+            compare(f"vwr_matmul {kind}", f"{M}x5632x2048", bf16,
+                    KM.launch(x, w, None, None, None, kind), want)
+            row[f"{kind}_ms"] = time_ms(
+                torch, lambda: KM.launch(x, w, None, None, None, kind))
+        row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, w))
+        row["rule"] = KM.variant(M, 2048, 5632, bf16, True)
+        results.append(row)
+        print(f"    M {M:3d}: {row['splitk_ms']:.4f} {row['wgmma_ms']:.4f} "
+              f"{row['library_ms']:.4f} (rule: {row['rule']})")
+    # the plans behind the rule: each variant's plan (first) against the
+    # alternatives at the main path's shapes
+    print("  plans (ms; (tile, splits, depth)):")
+    for kind, M, K, N in (("wgmma", 512, 5632, 2048), ("wgmma", 512, 2048, 256),
+                          ("wgmma", 72, 5632, 2048), ("wgmma", 8, 5632, 2048),
+                          ("splitk", 4, 5632, 2048), ("splitk", 4, 18432, 7168)):
+        x = randn(M, K, dtype=bf16)
+        w = randn(K, N, dtype=bf16, scale=K ** -0.5)
+        row = {"kernel": "vwr_matmul plans", "variant": kind,
+               "shape": f"{M}x{K}x{N}", "plans": []}
+        for plan in _alt_plans(KM, kind, M, N, K):
+            ms = time_ms(torch, lambda: KM.launch(x, w, None, None, None,
+                                                  kind, plan))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, w))
+        results.append(row)
+        print(f"    {kind} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; cuBLAS {row['library_ms']:.4f}")
+    x, w = randn(512, 5632, dtype=bf16), randn(5632, 2048, dtype=bf16)
+    enc = KM.encode_us(x, w)
+    results.append({"kernel": "vwr_matmul tensor maps",
+                    "shape": "512x5632x2048", "encode_us": enc})
+    print(f"  wgmma variant: encoding both tensor maps {enc:.3f} us a call "
+          "(host)")
 
     # ---- vwr_swiglu: silu(x @ wg) * (x @ wi) ----
     print("vwr_swiglu")
@@ -324,6 +437,12 @@ def check_kernels(torch, F):
     at_cases = [
         ("tinyllama prefill", 4, 128, 32, 4, 64, bf16, True, True),
         ("qwen prefill (G=1)", 4, 128, 16, 16, 64, bf16, True, False),
+        ("tinyllama batch-1 prefill", 1, 256, 32, 4, 64, bf16, True, False),
+        ("tinyllama long prefill", 1, 2048, 32, 4, 64, bf16, True, False),
+        ("olmoe prefill (D=128)", 1, 512, 16, 16, 128, bf16, True, False),
+        ("G=16", 2, 100, 32, 2, 64, bf16, False, False),
+        ("S=1", 1, 1, 16, 1, 64, bf16, False, False),
+        ("S off the tile", 1, 130, 32, 4, 64, bf16, False, False),
         ("ragged S", 2, 100, 8, 2, 64, f32, False, False),
         ("ragged S", 1, 200, 4, 1, 64, bf16, False, False),
         ("D=128", 1, 70, 4, 2, 128, f32, False, False),
@@ -340,6 +459,9 @@ def check_kernels(torch, F):
         torch.cuda.synchronize()
         err = compare("vwr_attention", shape, dt, got,
                       KA.vwr_attention_ref(q, k, v))
+        if dt == bf16 and not torch.equal(got, KA.vwr_attention(q, k, v)):
+            raise AssertionError(f"vwr_attention {shape}: two launches "
+                                 "differ")
         if timed:
             G = H // KV
             # the library call gets the heads expanded outside its time
@@ -1063,8 +1185,10 @@ def _paged_sdpa(torch, F, q, pools, scales, table, counts, KV, G, D):
 # phases 3-4: serving end to end
 # ----------------------------------------------------------------------
 
-def serve(torch, name, gen, expected_launches, kernel9=False):
-    """Full-width generate on the kernels (launches counted), then the
+def serve(torch, name, gen, expected_launches, expected_variants,
+          kernel9=False):
+    """Full-width generate on the kernels (launches counted, and
+    ``vwr_matmul``'s per variant), then the
     same token stream teacher-forced through the plain backend; with
     ``kernel9``, kernel 9 over the kernel path's dense cache after the
     stream (``dense_kernel9``)."""
@@ -1095,11 +1219,14 @@ def serve(torch, name, gen, expected_launches, kernel9=False):
     tokens, stats = eng.generate({"tokens": prompts}, gen=gen)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
+    variants = dict(build.VARIANTS)
     print(f"  launches in generate: {launches}")
-    for k, n in expected_launches.items():
-        if launches[k] != n:
-            raise AssertionError(f"{name}: {k} launched {launches[k]} "
-                                 f"times, expected {n}")
+    print(f"  vwr_matmul by variant: {variants}")
+    for k, n in {**expected_launches, **expected_variants}.items():
+        got = launches[k] if k in launches else variants[k]
+        if got != n:
+            raise AssertionError(f"{name}: {k} launched {got} times, "
+                                 f"expected {n}")
     if tokens.shape != (B, gen) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab)).all()):
         raise AssertionError(f"{name}: bad tokens {tokens.shape}")
@@ -1121,7 +1248,7 @@ def serve(torch, name, gen, expected_launches, kernel9=False):
     torch.cuda.empty_cache()
     return {"arch": name, "batch": B, "prompt": P, "gen": gen,
             "n_params": n_params, "launches": launches,
-            "logits_rel_err": rel, "kernel9": k9, **stats}
+            "matmul_variants": variants, "logits_rel_err": rel, "kernel9": k9, **stats}
 
 
 def dense_kernel9(torch, cfg, cache, cur_len):
@@ -2847,11 +2974,19 @@ def main() -> int:
         return {k: cfg_layers * (p + d * (gen - 1))
                 for k, (p, d) in per_step.items()}
 
+    def variants(cfg_layers, gen):
+        """The prefill's 5 products a layer (M = batch x prompt) take
+        wgmma tiles, each decode step's down projection (M = batch) the
+        split-K variant."""
+        return {"vwr_matmul.wgmma": 5 * cfg_layers,
+                "vwr_matmul.splitk": cfg_layers * (gen - 1),
+                "vwr_matmul.gemm": 0}
+
     fp32 = {n: serve_reduced_fp32(torch, n)
             for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
     tiny = serve(torch, "tinyllama-1.1b", 32, expected(22, 32),
-                 kernel9=True)
-    qwen = serve(torch, "qwen1.5-0.5b", 8, expected(24, 8))
+                 variants(22, 32), kernel9=True)
+    qwen = serve(torch, "qwen1.5-0.5b", 8, expected(24, 8), variants(24, 8))
 
     print("continuous batching")
     sched_fp32 = {n: scheduler_reduced_fp32(torch, n)

@@ -4,30 +4,57 @@
 //           (act(x @ w + bias) + residual) and vwr_swiglu_p
 //           (silu(x @ wg) * (x @ wi)).
 //
-// What bounds it on an H100: at the prefill shapes of the main path
-// (M = B*S = 512 rows, K and N of 2048..5632) a product does ~300-500
-// flops per byte it must move, at or above the card's 295 flop/byte
-// bf16 ridge, so the tensor cores bound it.  At decode M = B = 4 and
-// the weights are the bytes: the kernel is weight-bandwidth-bound
-// (each (K, N) weight is streamed once per step).
+// Three kernels; kernels/vwr_matmul.py `variant` picks one per call:
 //
-// Design: one 128-thread block per 64x64 output tile; the K axis that
-// the TPU grid walked sequentially is a loop inside the block, stepping
-// 32 (bf16) or 16 (fp32) at a time through shared memory.  bf16 tiles
-// go through WMMA 16x16x16 (tensor cores, fp32 accumulate); fp32 tiles
-// through an fp32 FMA loop (no TF32, so fp32 results match a plain
-// fp32 product to rounding).  The next K tile is fetched into registers
-// while the current one multiplies.  The epilogue runs on the fp32
-// accumulators staged in shared memory: bias -> activation -> residual
-// -> cast (or silu(g) * h for swiglu, both in fp32), then one store per
-// output element, so the output makes one trip to memory.  Ragged M, N
-// and K edges are masked in the loads and the store (no padding pass).
-// Swiglu feeds one staged x tile to two accumulators.
+// 1. splitk_kernel (bf16 vwr_matmul, M <= the crossover, 4: decode).
+//    Bound by the weight's bytes: 4x5632x2048 reads 23 MB for 92 MFLOP.
+//    The grid is (M tiles of up to 8 rows) x (128-column strips) x (K
+//    splits), sized to about one block on each of the 132 SMs.  A block
+//    stages its x slice once in shared memory as fp32 (while its first
+//    weight loads fly) and streams its (K slice, strip) of w with 16-byte
+//    loads that skip L1 and leave L2 first (the weight is read once a
+//    step), two batches of four in flight a thread (the next batch is
+//    issued before the current one is used); each thread keeps MT x 8
+//    fp32 sums (FMA: at M <= 4 the tensor cores would idle on padding).
+//    Partials go to an fp32 workspace; the last block of a strip to finish
+//    (an int32 counter a strip, reset to 0 by that block) sums them in
+//    split order and runs the epilogue, so a call is one launch and its
+//    result is bitwise reproducible.
+// 2. tile_kernel (bf16 vwr_matmul, larger M: prefill and mixed steps).
+//    Bound by operations at prefill (512x5632x2048: ~11.8 GFLOP against
+//    ~30 MB).  One producer warp keeps a 192 KB ring of x (K-major, box 64
+//    x BM) and w (MN-major, two 64 x 64 boxes) tiles full by TMA with the
+//    128-byte swizzle, completing on mbarriers; one or two consumer
+//    warpgroups run wgmma m64n128k16 on them (B transposed, as w lies N-
+//    contiguous) with fp32 accumulators in registers.  The epilogue (bias
+//    -> act -> residual -> cast) runs once the tile is staged in the idle
+//    ring, in one short loop with row-contiguous stores (unrolled over the
+//    registers, 32 inlined copies of it were a large fixed cost a block).
+//    The wrapper's tile rule (tile_plan) takes one 128-row tile a column
+//    strip up to 128 rows, so the weight is read once, with K split (the
+//    same last-block reduction as kernel 1) to ~64 blocks; past 128 rows,
+//    128-row tiles where they fill the SMs, else 64-row ones.  Ragged M,
+//    N and the K tail arrive zero-filled from TMA; the stores are masked.
+//    The tensor maps are encoded on the host at each call, through the
+//    driver entry point (no -lcuda).
+// 3. gemm_kernel: fp32 vwr_matmul, every shape the other two cannot take
+//    (K or N not a multiple of 8: TMA and the 16-byte loads need 16-byte
+//    rows), and vwr_swiglu in both types.  One 128-thread block per 64x64
+//    output tile; the K axis is a loop inside the block, stepping 32
+//    (bf16) or 16 (fp32) at a time through shared memory.  bf16 tiles go
+//    through WMMA 16x16x16 (fp32 accumulate); fp32 tiles through an fp32
+//    FMA loop (no TF32, so fp32 results match a plain fp32 product to
+//    rounding).  The next K tile is fetched into registers while the
+//    current one multiplies.  The epilogue runs on the fp32 accumulators
+//    staged in shared memory: bias -> activation -> residual -> cast (or
+//    silu(g) * h for swiglu, both in fp32), one store an element; ragged
+//    edges are masked in the loads and the store.  Swiglu feeds one staged
+//    x tile to two accumulators.
 //
-// Known limit: at decode M = 4 a 64-row tile is mostly padding and the
-// grid is N/64 blocks, which underfills 132 SMs; a split-K or
-// GEMV-shaped variant is later work (PERF.md).
+// Every variant accumulates in fp32 and casts once, as the Pallas kernel.
 #include <mma.h>
+
+#include <chrono>
 
 #include "common.cuh"
 
@@ -258,6 +285,460 @@ int launch(const void* x, const void* w0, const void* w1, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// bf16 variants for Hopper: split-K weight streaming and wgmma + TMA tiles
+// ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// bias -> activation -> residual -> one cast, for columns n and n + 1 of
+// row m (n even, N % 8 == 0: one 4-byte load and store).
+__device__ __forceinline__ void epilogue_pair(const bf16* bias,
+                                              const bf16* res, bf16* out,
+                                              int m, int n, int N, float v0,
+                                              float v1, int act) {
+  if (bias != nullptr) {
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bias + n));
+    v0 += b.x;
+    v1 += b.y;
+  }
+  v0 = activate(v0, act);
+  v1 = activate(v1, act);
+  const size_t o = (size_t)m * N + n;
+  if (res != nullptr) {
+    const float2 r = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(res + o));
+    v0 += r.x;
+    v1 += r.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+}
+
+// Called by the `nthreads` threads (thread 0 among them) of a block that
+// has stored its fp32 partial: true in the last of the `nsplit` blocks of
+// its output tile to get here.  The fence before the count publishes the
+// partial; the one after it orders the reads of the others' partials.
+__device__ __forceinline__ bool last_split(int* counter, int nsplit,
+                                           int nthreads) {
+  __shared__ int last;
+  __threadfence();
+  bar_sync(1, nthreads);
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == nsplit - 1;
+  bar_sync(1, nthreads);
+  if (!last) return false;
+  __threadfence();
+  return true;
+}
+
+// The last block of a tile: rows [m0, m0 + bm) x columns [n0, n0 + bn) of
+// the nsplit fp32 partials (planes of M x N), summed in split order, then
+// the epilogue; the tile's counter goes back to 0 for the next launch.
+// Four columns a thread and FIN partials in flight before the adds, so the
+// sum waits on L2 nsplit / FIN times, not nsplit times.
+constexpr int FIN = 16;
+__device__ void finish_tile(const float* ws, int* counter, int nsplit, int M,
+                            int N, int m0, int bm, int n0, int bn,
+                            const bf16* bias, const bf16* res, bf16* out,
+                            int act, int tid, int nthreads) {
+  const size_t plane = (size_t)M * N;
+  for (int i = tid; i < bm * bn / 4; i += nthreads) {
+    const int m = m0 + i / (bn / 4), n = n0 + 4 * (i % (bn / 4));
+    if (m >= M || n >= N) continue;
+    const float* p = ws + (size_t)m * N + n;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j0 = 0; j0 < nsplit; j0 += FIN) {
+      float4 t[FIN];
+#pragma unroll
+      for (int u = 0; u < FIN; ++u)
+        t[u] = j0 + u < nsplit
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                         p + (j0 + u) * plane))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < FIN; ++u) {
+        s.x += t[u].x;
+        s.y += t[u].y;
+        s.z += t[u].z;
+        s.w += t[u].w;
+      }
+    }
+    epilogue_pair(bias, res, out, m, n, N, s.x, s.y, act);
+    epilogue_pair(bias, res, out, m, n + 2, N, s.z, s.w, act);
+  }
+  if (tid == 0) *counter = 0;
+}
+
+// ---- 1. split-K weight streaming ----
+
+constexpr int SK_THREADS = 256, SK_BN = 128;
+constexpr int SK_LANES = SK_BN / 8;             // threads across a strip: 16
+constexpr int SK_ROWS = SK_THREADS / SK_LANES;  // w rows a step: 16
+constexpr int SK_UNROLL = 4;  // 16-byte loads a batch, two batches in flight
+constexpr int SK_WARPS = SK_THREADS / 32;
+
+// An L2 policy that evicts these lines first: the weight stream is read
+// once a step, so it should displace nothing else held in L2.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+      : "=l"(policy));
+  return policy;
+}
+
+// 16 bytes of the weight stream: kept out of L1, first out of L2.
+__device__ __forceinline__ uint4 ld_stream(const bf16* p, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
+      "[%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ void unpack8(uint4 v, float* f) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+
+// Dynamic shared memory (floats): x's slice (MT x ksplit), then the warps'
+// sums (SK_WARPS x MT x SK_BN).
+template <int MT>
+constexpr int splitk_smem_floats(int ksplit) {
+  return MT * ksplit > SK_WARPS * MT * SK_BN ? MT * ksplit
+                                             : SK_WARPS * MT * SK_BN;
+}
+
+// grid (M tiles of MT rows, N strips of SK_BN, K splits of ksplit rows);
+// the M tiles of one strip and split are neighbours in launch order, so
+// the second reads the weight slice from L2.
+template <int MT>
+__global__ void __launch_bounds__(SK_THREADS, 2)
+splitk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+              const bf16* __restrict__ bias, const bf16* __restrict__ res,
+              bf16* __restrict__ out, float* __restrict__ ws,
+              int* __restrict__ counters, int M, int N, int K, int ksplit,
+              int act) {
+  extern __shared__ float sk_smem[];
+  const int mt = blockIdx.x, strip = blockIdx.y, split = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int m0 = mt * MT, n0 = strip * SK_BN, k0 = split * ksplit;
+  const int kl = min(ksplit, K - k0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const int c = tid % SK_LANES, r = tid / SK_LANES;
+  const bool col_ok = n0 + c * 8 < N;
+  const bf16* wp = w + (size_t)k0 * N + n0 + c * 8;
+  constexpr int STEP = SK_ROWS * SK_UNROLL;  // rows a batch of loads covers
+  const uint64_t policy = evict_first_policy();
+  auto fetch = [&](uint4 (&wv)[SK_UNROLL], int kb) {
+#pragma unroll
+    for (int u = 0; u < SK_UNROLL; ++u) {
+      const int k = kb + u * SK_ROWS;
+      wv[u] = (col_ok && k < kl) ? ld_stream(wp + (size_t)k * N, policy)
+                                 : make_uint4(0, 0, 0, 0);
+    }
+  };
+  float acc[MT][8];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[m][e] = 0.0f;
+  float* xs = sk_smem;
+  auto consume = [&](const uint4 (&wv)[SK_UNROLL], int kb) {
+#pragma unroll
+    for (int u = 0; u < SK_UNROLL; ++u) {
+      const int k = kb + u * SK_ROWS;
+      if (k >= kl) break;
+      float wf[8];
+      unpack8(wv[u], wf);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float xm = xs[m * ksplit + k];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[m][e] = fmaf(xm, wf[e], acc[m][e]);
+      }
+    }
+  };
+  // two batches of loads in flight: the next one is issued before the
+  // current one is multiplied (the first while x is staged)
+  uint4 wa[SK_UNROLL], wb[SK_UNROLL];
+  fetch(wa, r);
+  for (int i = tid; i < MT * kl; i += SK_THREADS) {
+    const int m = i / kl, k = i % kl;
+    xs[m * ksplit + k] =
+        m0 + m < M ? __bfloat162float(x[(size_t)(m0 + m) * K + k0 + k])
+                   : 0.0f;
+  }
+  __syncthreads();
+  for (int kb = r; kb < kl; kb += 2 * STEP) {
+    fetch(wb, kb + STEP);
+    consume(wa, kb);
+    fetch(wa, kb + 2 * STEP);
+    consume(wb, kb + STEP);
+  }
+
+  // the block's sum over its 16 row lanes: lanes l and l + 16 of a warp,
+  // then the 8 warps in order
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc[m][e] += __shfl_xor_sync(0xffffffffu, acc[m][e], 16);
+  __syncthreads();  // xs is read no more
+  float* red = sk_smem;
+  if (lane < 16) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float4* dst =
+          reinterpret_cast<float4*>(red + (warp * MT + m) * SK_BN + c * 8);
+      dst[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+      dst[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+    }
+  }
+  __syncthreads();
+  float* part = ws + (size_t)split * M * N;
+  for (int i = tid; i < MT * SK_BN / 2; i += SK_THREADS) {
+    const int m = i / (SK_BN / 2), col = 2 * (i % (SK_BN / 2));
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int q = 0; q < SK_WARPS; ++q) {
+      s0 += red[(q * MT + m) * SK_BN + col];
+      s1 += red[(q * MT + m) * SK_BN + col + 1];
+    }
+    const int gm = m0 + m, gn = n0 + col;
+    if (gm >= M || gn >= N) continue;
+    if (nsplit == 1)
+      epilogue_pair(bias, res, out, gm, gn, N, s0, s1, act);
+    else
+      *reinterpret_cast<float2*>(part + (size_t)gm * N + gn) =
+          make_float2(s0, s1);
+  }
+  if (nsplit == 1) return;
+  int* counter = counters + mt * gridDim.y + strip;
+  if (!last_split(counter, nsplit, SK_THREADS)) return;
+  finish_tile(ws, counter, nsplit, M, N, m0, MT, n0, SK_BN, bias, res, out,
+              act, tid, SK_THREADS);
+}
+
+template <int MT>
+int splitk_launch(const void* x, const void* w, const void* bias,
+                  const void* res, void* out, void* ws, void* counters,
+                  int M, int N, int K, int nsplit, int ksplit, int act,
+                  void* stream) {
+  const size_t smem = splitk_smem_floats<MT>(ksplit) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // see the plan
+  const dim3 grid((M + MT - 1) / MT, (N + SK_BN - 1) / SK_BN, nsplit);
+  splitk_kernel<MT><<<grid, SK_THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
+      (bf16*)out, (float*)ws, (int*)counters, M, N, K, ksplit, act);
+  return (int)cudaGetLastError();
+}
+
+// ---- 2. wgmma + TMA tiles ----
+
+constexpr int TG_BN = 128, TG_BK = 64;
+constexpr int TG_B_BOX = TG_BK * 64 * 2;  // one 64 x 64 box of w: 8 KB
+constexpr int TG_C_LD = TG_BN + 8;        // fp32 row of the staged tile
+
+// The ring holds 192 KB of tiles: 8 stages of 24 KB at BM 64, 6 of 32 KB
+// at BM 128, enough steps in flight to cover TMA's latency.
+template <int BM>
+struct TileShape {
+  static constexpr int NC = BM / 64;             // consumer warpgroups
+  static constexpr int THREADS = NC * 128 + 32;  // + the producer warp
+  static constexpr int A_BYTES = BM * TG_BK * 2;
+  static constexpr int STAGE = A_BYTES + 2 * TG_B_BOX;
+  static constexpr int STAGES = 192 * 1024 / STAGE;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(BM * TG_C_LD * 4 <= STAGES * STAGE,
+                "the staged accumulators fit in the ring");
+};
+
+// grid (N tiles of 128, M tiles of BM, K splits of kt_split 64-deep steps)
+template <int BM>
+__global__ void __launch_bounds__(TileShape<BM>::THREADS)
+tile_kernel(const __grid_constant__ CUtensorMap tx,
+            const __grid_constant__ CUtensorMap tw,
+            const bf16* __restrict__ bias, const bf16* __restrict__ res,
+            bf16* __restrict__ out, float* __restrict__ ws,
+            int* __restrict__ counters, int M, int N, int K, int kt_split,
+            int act) {
+  using S = TileShape<BM>;
+  extern __shared__ unsigned char tg_smem[];
+  unsigned char* smem = align1024(tg_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::STAGES * S::STAGE);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * TG_BN, m0 = blockIdx.y * BM;
+  const int KT = (K + TG_BK - 1) / TG_BK;
+  const int kt0 = blockIdx.z * kt_split, nk = min(KT - kt0, kt_split);
+  const int nsplit = gridDim.z;
+
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], S::NC * 4);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == S::NC * 4) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % S::STAGES;
+        mbar_wait(&empty[s], ((i / S::STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * S::STAGE;
+        const int k = (kt0 + i) * TG_BK;
+        mbar_expect_tx(&full[s], S::STAGE);
+        tma_load_2d(st, &tx, k, m0, &full[s]);
+        tma_load_2d(st + S::A_BYTES, &tw, n0, k, &full[s]);
+        tma_load_2d(st + S::A_BYTES + TG_B_BOX, &tw, n0 + 64, k, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows m0 + 64 wg .. + 63
+  const int wg = warp / 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % S::STAGES;
+    mbar_wait(&full[s], (i / S::STAGES) & 1);
+    const unsigned char* a = smem + s * S::STAGE + wg * 64 * 128;
+    const unsigned char* b = smem + s * S::STAGE + S::A_BYTES;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TG_BK / 16; ++kk)
+      wgmma_ss_n128<1>(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                       wgmma_desc(b + kk * 16 * 128, TG_B_BOX, 1024));
+    wgmma_commit();
+    fence_regs(acc);
+    if (i > 0) {  // the previous step's products are done: free its stage
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % S::STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // The epilogue runs once a block: the accumulators go through the idle
+  // ring (fp32, padded rows) so that one short loop, not 32 unrolled
+  // copies of it, applies bias -> act -> residual with 8-byte stores
+  // along each row.  Every load of the ring has landed and been used.
+  const int nthreads = S::NC * 128;
+  bar_sync(1, nthreads);  // both warpgroups are done with the ring
+  float* Cs = reinterpret_cast<float*>(smem);
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < TG_BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(Cs + (r0 + 8 * h) * TG_C_LD + 8 * j +
+                                 2 * (lane % 4)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  bar_sync(1, nthreads);
+  float* part = ws + (size_t)blockIdx.z * M * N;
+#pragma unroll 1
+  for (int i = tid; i < BM * TG_BN / 4; i += nthreads) {
+    const int r = i / (TG_BN / 4), c = 4 * (i % (TG_BN / 4));
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;  // N % 8 == 0: n + 3 < N
+    const float4 v = *reinterpret_cast<const float4*>(Cs + r * TG_C_LD + c);
+    if (nsplit == 1) {
+      epilogue_pair(bias, res, out, m, n, N, v.x, v.y, act);
+      epilogue_pair(bias, res, out, m, n + 2, N, v.z, v.w, act);
+    } else {
+      *reinterpret_cast<float4*>(part + (size_t)m * N + n) = v;
+    }
+  }
+  if (nsplit == 1) return;
+  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (!last_split(counter, nsplit, nthreads)) return;
+  finish_tile(ws, counter, nsplit, M, N, m0, BM, n0, TG_BN, bias, res, out,
+              act, tid, nthreads);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 (rows, cols) matrix as 2-d boxes of box_rows x 64
+// columns (128 bytes: the 128-byte swizzle's row).
+int encode_rows(CUtensorMap* map, const void* base, int rows, int cols,
+                int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BM>
+int tile_launch(const void* x, const void* w, const void* bias,
+                const void* res, void* out, void* ws, void* counters, int M,
+                int N, int K, int nsplit, int kt_split, int act,
+                void* stream) {
+  using S = TileShape<BM>;
+  CUtensorMap tx, tw;
+  int e = encode_rows(&tx, x, M, K, BM);
+  if (e != 0) return e;
+  e = encode_rows(&tw, w, K, N, TG_BK);
+  if (e != 0) return e;
+  e = smem_limit_once<tile_kernel<BM>>(S::SMEM);
+  if (e != 0) return e;
+  const dim3 grid((N + TG_BN - 1) / TG_BN, (M + BM - 1) / BM, nsplit);
+  tile_kernel<BM><<<grid, S::THREADS, S::SMEM, (cudaStream_t)stream>>>(
+      tx, tw, (const bf16*)bias, (const bf16*)res, (bf16*)out, (float*)ws,
+      (int*)counters, M, N, K, kt_split, act);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace
 
 // out (M, N) = act(x (M, K) @ w (K, N) + bias (N,)) + res (M, N);
@@ -287,4 +768,77 @@ extern "C" int vwr_swiglu_launch(const void* x, const void* wg,
     return launch<float, true>(x, wg, wi, nullptr, nullptr, out, M, N, K,
                                ACT_NONE, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 split-K variant (kernels/vwr_matmul.py splitk_plan): M rows in
+// tiles of mt (1, 2, 4 or 8), nsplit slices of ksplit rows of K
+// (nsplit * ksplit >= K > (nsplit - 1) * ksplit); ws: nsplit x M x N fp32
+// (unused when nsplit is 1); counters: one int32 of 0 per (M tile, strip),
+// left at 0.  N % 8 == 0; pointers 16-byte aligned.
+extern "C" int vwr_matmul_splitk_launch(const void* x, const void* w,
+                                        const void* bias, const void* res,
+                                        void* out, void* ws, void* counters,
+                                        int M, int N, int K, int mt,
+                                        int nsplit, int ksplit, int act,
+                                        void* stream) {
+  if (act < ACT_NONE || act > ACT_GELU || N % 8 != 0 || nsplit < 1 ||
+      ksplit < 1 || (long)nsplit * ksplit < K ||
+      (long)(nsplit - 1) * ksplit >= K)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return 0;
+  switch (mt) {
+    case 1: return splitk_launch<1>(x, w, bias, res, out, ws, counters, M, N,
+                                    K, nsplit, ksplit, act, stream);
+    case 2: return splitk_launch<2>(x, w, bias, res, out, ws, counters, M, N,
+                                    K, nsplit, ksplit, act, stream);
+    case 4: return splitk_launch<4>(x, w, bias, res, out, ws, counters, M, N,
+                                    K, nsplit, ksplit, act, stream);
+    case 8: return splitk_launch<8>(x, w, bias, res, out, ws, counters, M, N,
+                                    K, nsplit, ksplit, act, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 wgmma variant (kernels/vwr_matmul.py tile_plan): BM 64 or 128,
+// K in nsplit slices of kt_split 64-deep steps; ws: nsplit x M x N fp32
+// (unused when nsplit is 1); counters: one int32 of 0 per output tile,
+// left at 0.  K % 8 == 0, N % 8 == 0 (TMA's 16-byte rows); pointers
+// 16-byte aligned.
+extern "C" int vwr_matmul_tile_launch(const void* x, const void* w,
+                                      const void* bias, const void* res,
+                                      void* out, void* ws, void* counters,
+                                      int M, int N, int K, int bm,
+                                      int nsplit, int kt_split, int act,
+                                      void* stream) {
+  const int KT = (K + TG_BK - 1) / TG_BK;
+  if (act < ACT_NONE || act > ACT_GELU || K % 8 != 0 || N % 8 != 0 ||
+      K <= 0 || nsplit < 1 || kt_split < 1 || nsplit * kt_split < KT ||
+      (nsplit - 1) * kt_split >= KT)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return 0;
+  if (bm == 64)
+    return tile_launch<64>(x, w, bias, res, out, ws, counters, M, N, K,
+                           nsplit, kt_split, act, stream);
+  if (bm == 128)
+    return tile_launch<128>(x, w, bias, res, out, ws, counters, M, N, K,
+                            nsplit, kt_split, act, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Host nanoseconds a call of the wgmma variant spends encoding its two
+// tensor maps (the mean over `reps` encodings of x (M, K) and w (K, N));
+// negative on an encoding error.  A measurement entry: no kernel runs.
+extern "C" double vwr_matmul_encode_ns(const void* x, const void* w, int M,
+                                       int N, int K, int bm, int reps) {
+  CUtensorMap tx, tw;
+  // the first encoding (the entry point's lookup) stays outside the mean
+  if (encode_rows(&tx, x, M, K, bm) != 0) return -1.0;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    if (encode_rows(&tx, x, M, K, bm) != 0 ||
+        encode_rows(&tw, w, K, N, TG_BK) != 0)
+      return -1.0;
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / reps;
 }

@@ -14,7 +14,9 @@ an explicit ``build()``) does it.  Each C entry point returns
 
 Every kernel wrapper adds one to its entry in ``LAUNCHES`` where it
 launches its kernel, and nowhere else, so a run can show which kernels
-the main path went through.
+the main path went through.  A kernel with variants (``vwr_matmul``:
+split-K, wgmma, the WMMA / FMA tile kernel) also counts the variant that
+ran in ``VARIANTS``.
 """
 from __future__ import annotations
 
@@ -50,16 +52,22 @@ LAUNCHES: Dict[str, int] = {"vwr_matmul": 0, "vwr_swiglu": 0,
                             "vwr_mla_chunk_prefix_attend_q8": 0,
                             "vwr_conv2d": 0, "vwr_depthwise": 0}
 
+VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
+                            "vwr_matmul.gemm": 0}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, variant: Optional[str] = None) -> None:
     LAUNCHES[kernel] += 1
+    if variant is not None:
+        VARIANTS[f"{kernel}.{variant}"] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANTS):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc() -> str:

@@ -10,7 +10,9 @@ output is ``acc / max(l, 1e-30)``.  The kernel reads the native
 transpose or padding pass is made.  The kernel takes D in {32, 64,
 128}; a narrower head (the reduced configs' 16) is zero-padded to the
 next of those on each call, with the scale of the true width
-(``widths.at_widths``).
+(``widths.at_widths``).  bf16 runs on the tensor cores (wgmma, the G
+query heads of a KV head packed into the rows of one tile, P rounded to
+bf16 before P @ V); fp32 runs on FMA, P in fp32.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.

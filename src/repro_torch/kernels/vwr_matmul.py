@@ -6,6 +6,16 @@ Counterpart of ``repro.kernels.vwr_matmul`` (``vwr_matmul_p``,
 fp32 accumulators and apply the whole epilogue to them before one cast:
 ``act(x @ w + bias) + residual`` and ``silu(x @ wg) * (x @ wi)``.
 
+``vwr_matmul`` has three kernels, and ``variant`` picks one per call from
+the shape, the type and the operands' alignment: ``"splitk"`` (bf16, M at
+most ``SPLITK_MAX_M``: decode steps stream the weight, split along K over
+the SMs), ``"wgmma"`` (bf16, larger M: wgmma tiles fed by TMA) and
+``"gemm"`` (fp32, and every bf16 shape whose K or N is not a multiple of
+8, which TMA and 16-byte loads cannot take: the WMMA / FMA tile kernel,
+which ``vwr_swiglu`` always takes).  Each is a hand-written kernel of this
+repository; none is the plain version.  ``build.VARIANTS`` counts the
+launches of each beside ``build.LAUNCHES["vwr_matmul"]``.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.
 """
@@ -27,6 +37,82 @@ ACTIVATIONS = {
 ACT_CODES = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+
+# The crossover: bf16 calls with M at or below it stream the weight split
+# along K, larger ones take wgmma tiles (measured on the H100 at M 1-72,
+# PERF.md: split-K wins at 1 and 4, the tiles from 5).
+SPLITK_MAX_M = 4
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SPLITK_BN, SPLITK_ROWS = 128, 16   # csrc SK_BN, SK_ROWS
+SPLITK_X_FLOATS = 8192     # x's staged slice: 32 KB of fp32
+TILE_BN, TILE_BK = 128, 64     # csrc TG_BN, TG_BK
+
+
+def variant(M, N, K, dtype, aligned):
+    """The kernel that serves a ``vwr_matmul`` call: "splitk", "wgmma" or
+    "gemm".  ``aligned``: every operand's address is a multiple of 16
+    bytes.  The two bf16 variants read 16-byte rows (TMA's rule, and the
+    split-K kernel's 16-byte weight loads): K and N must be multiples of
+    8.  fp32 calls, shapes that break this, and empty products take
+    today's tile kernel ("gemm"), which is hand-written too."""
+    if (str(dtype) != "torch.bfloat16" or not aligned or K % 8 or N % 8
+            or min(M, N, K) == 0):
+        return "gemm"
+    return "splitk" if M <= SPLITK_MAX_M else "wgmma"
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def splitk_plan(M, N, K):
+    """(mt, nsplit, ksplit) of the split-K variant: M tiles of mt rows
+    (the next power of two, at most 8), K cut into nsplit slices of ksplit
+    rows (a multiple of 16, at least 64, x's slice within 32 KB) so that
+    M tiles x 128-column strips x slices reach ~1 block an SM (measured
+    against 2 and 4, PERF.md)."""
+    mt = min(8, 1 << (M - 1).bit_length())
+    blocks = _cdiv(M, mt) * _cdiv(N, SPLITK_BN)
+    ksplit = _cdiv(_cdiv(K, max(1, _cdiv(SMS, blocks))),
+                   SPLITK_ROWS) * SPLITK_ROWS
+    ksplit = min(max(ksplit, 64), SPLITK_X_FLOATS // mt)
+    return mt, _cdiv(K, ksplit), ksplit
+
+
+def tile_plan(M, N, K):
+    """(bm, nsplit, kt_split) of the wgmma variant.  Up to 128 rows: one
+    128-row tile a column strip, so the weight is read once, and K split
+    to bring the blocks near 64 (at least 4 steps of 64 a slice).  Past
+    128 rows: 128-row tiles where they alone give every SM a tile, else
+    64-row ones, and no split (the partials' round trip costs more than
+    the idle SMs at these shapes)."""
+    kt = _cdiv(K, TILE_BK)
+    if M <= 128:
+        bm, tiles = 128, _cdiv(N, TILE_BN)
+        nsplit = max(1, min(64 // tiles, kt // 4))
+    else:
+        bm = 128 if _cdiv(M, 128) * _cdiv(N, TILE_BN) >= SMS else 64
+        nsplit = 1
+    kt_split = _cdiv(kt, nsplit)
+    return bm, _cdiv(kt, kt_split), kt_split
+
+
+_ENTRIES = {"splitk": "vwr_matmul_splitk_launch",
+            "wgmma": "vwr_matmul_tile_launch"}
+_COUNTERS = {}
+
+
+def _counters(device, n):
+    """A zeroed int32 buffer of at least ``n`` split counters on
+    ``device``, kept across calls: every kernel that counts leaves its
+    counters at 0.  Launches on one stream share it."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        import torch
+
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def vwr_matmul_ref(x, w, bias=None, residual=None, *, activation=None):
@@ -65,17 +151,61 @@ def vwr_matmul(x, w, bias=None, residual=None, *, activation=None):
     build.check_operands("vwr_matmul", x.dtype, x=(x, (M, K)),
                          w=(w, (K, N)), bias=(bias, (1, N)),
                          residual=(residual, (M, N)))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, bias, residual)
+                  if t is not None)
+    return launch(x, w, bias, residual, activation,
+                  variant(M, N, K, x.dtype, aligned))
+
+
+def launch(x, w, bias, residual, activation, kind, plan=None):
+    """One launch of variant ``kind`` on operands ``vwr_matmul`` checked;
+    ``vwr_matmul`` passes ``variant``'s choice and its plan.  chip_smoke.py
+    also times the variants, and other plans (``splitk_plan`` /
+    ``tile_plan``'s tuples), against each other through it."""
+    M, K = x.shape
+    N = w.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib, fn = build.kernel_fn("vwr_matmul", "vwr_matmul_launch",
-                              [_VP] * 5 + [_I] * 5 + [_VP])
-    err = fn(x.data_ptr(), w.data_ptr(),
-             None if bias is None else bias.data_ptr(),
-             None if residual is None else residual.data_ptr(),
-             out.data_ptr(), M, N, K, build.dtype_code(x.dtype),
-             ACT_CODES[activation], build.stream_of(x))
+    ptrs = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr())
+    tail = (ACT_CODES[activation], build.stream_of(x))
+    if kind == "gemm":
+        lib, fn = build.kernel_fn("vwr_matmul", "vwr_matmul_launch",
+                                  [_VP] * 5 + [_I] * 5 + [_VP])
+        err = fn(*ptrs, M, N, K, build.dtype_code(x.dtype), *tail)
+    else:
+        planner, bn = ((splitk_plan, SPLITK_BN) if kind == "splitk"
+                       else (tile_plan, TILE_BN))
+        tile, nsplit, depth = plan or planner(M, N, K)
+        n_counters = _cdiv(M, tile) * _cdiv(N, bn)
+        ws = (torch.empty((nsplit, M, N), dtype=torch.float32,
+                          device=x.device) if nsplit > 1 else None)
+        counters = _counters(x.device, n_counters)
+        lib, fn = build.kernel_fn("vwr_matmul", _ENTRIES[kind],
+                                  [_VP] * 7 + [_I] * 7 + [_VP])
+        err = fn(*ptrs, None if ws is None else ws.data_ptr(),
+                 counters.data_ptr(), M, N, K, tile, nsplit, depth, *tail)
     build.check(lib, err, "vwr_matmul")
-    build.count_launch("vwr_matmul")
+    build.count_launch("vwr_matmul", kind)
     return out
+
+
+def encode_us(x, w, reps=1000):
+    """Host microseconds the wgmma variant spends encoding its two tensor
+    maps a call (the mean of ``reps``), at x (M, K) and w (K, N) on the
+    card."""
+    M, K = x.shape
+    N = w.shape[1]
+    lib = build.library("vwr_matmul")
+    fn = lib.vwr_matmul_encode_ns
+    fn.argtypes = [_VP, _VP] + [_I] * 5
+    fn.restype = ctypes.c_double
+    ns = fn(x.data_ptr(), w.data_ptr(), M, N, K, tile_plan(M, N, K)[0],
+            reps)
+    if ns < 0:
+        raise RuntimeError("vwr_matmul: cuTensorMapEncodeTiled failed")
+    return ns / 1e3
 
 
 def vwr_swiglu(x, wg, wi):

@@ -283,3 +283,53 @@ def test_cuda_chunk_prefix_kernels_match_plain(cuda, dtype, q8):
         torch.cuda.synchronize()
         for a, b in zip(got, ref(*args)):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+@pytest.mark.parametrize("kind,M,K,N", [
+    ("splitk", 4, 5632, 2048),    # tinyllama decode down
+    ("splitk", 1, 72, 24),        # M 1, one 128-column strip past N
+    ("splitk", 3, 1000, 136),     # K not a multiple of a slice
+    ("wgmma", 512, 2048, 256),    # 64-row tiles (k/v): 16 blocks
+    ("wgmma", 72, 5632, 2048),    # a mixed step: K split 4 ways
+    ("wgmma", 100, 200, 136),     # ragged M, N and K tail
+    ("wgmma", 8, 5632, 2048),     # past the crossover: one 128-row tile
+])
+def test_cuda_matmul_variants_match_plain(cuda, kind, M, K, N, act):
+    """Each bf16 variant of kernel 1, forced, with bias and residual,
+    against the plain version; two launches are bitwise equal (the
+    split reduction sums in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).bfloat16()
+
+    x, w, b, res = r(M, K), r(K, N, scale=K ** -0.5), r(1, N), r(M, N)
+    assert KM.variant(M, N, K, torch.bfloat16, True) == kind
+    got = KM.vwr_matmul(x, w, b, res, activation=act)
+    again = KM.vwr_matmul(x, w, b, res, activation=act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, KM.vwr_matmul_ref(x, w, b, res, activation=act),
+        atol=1e-2, rtol=1.6e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 8, 16])
+def test_cuda_attention_wgmma_matches_plain(cuda, G, D):
+    """Kernel 3's bf16 path (the G heads of a KV head packed into the
+    rows of one wgmma tile, P rounded to bf16) against the plain version
+    at S off the tile, S 1, and two KV heads."""
+    g = torch.Generator(device=cuda).manual_seed(G * D)
+    for B, S in ((2, 100), (1, 1), (1, 130)):
+        q = torch.randn(B, S, 2 * G, D, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(B, S, 2, D, generator=g, device=cuda).bfloat16()
+                for _ in range(2))
+        got = KA.vwr_attention(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, KA.vwr_attention_ref(q, k, v),
+                                   atol=1e-2, rtol=1.6e-2)
+        assert torch.equal(got, KA.vwr_attention(q, k, v))
