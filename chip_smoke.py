@@ -25,7 +25,11 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    DeepSeek-V3's decode down projections timed; ``vwr_attention`` timed
    at B1 S256 and S2048 (tinyllama widths) and S512 D128 (olmoe widths),
    and held at G 16, S 1 and S off the tile, bf16 bitwise over two
-   launches;
+   launches; kernel 12 (the MLA chunk prefix) on bf16 pools by its
+   wgmma variant (pages of 16 and 64, C 1, 3 and 64, partial and count-0
+   pages), on fp32 pools by the FMA kernel, each case served by the
+   variant ``chunk_variant`` names and each wgmma output bitwise equal
+   over two launches;
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -105,11 +109,15 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    ``vwr_conv2d`` and 17 ``vwr_depthwise``): phase 2 holds both against
    their plain versions at the JAX tests' ragged shapes (C 7 / 3, F 5 /
    9, 1x1, 5x5 and 7x7 taps, H_out and W_out off the tile, every
-   epilogue with and without bias) and at every stride-1 layer of the
-   suite (N 1 and 32, bf16 and fp32), each timed beside its bound, its
-   plain version and cuDNN; here the suite runs through
-   ``ops.vwr_conv2d`` (bias + relu) and ``ops.vwr_depthwise``, and the
-   section 6.1 demo on the card, launches counted, outputs held against
+   epilogue with and without bias), at the edges of kernel 16's wgmma
+   variant (C 96, row tiles across images, 1x1 and 5x5 taps, K split
+   unevenly) and at every stride-1 layer of the suite (N 1 and 32, bf16
+   and fp32), each served by the variant ``variant`` names (bf16 wgmma
+   bitwise over two launches) and timed beside its bound, its plain
+   version and cuDNN, and times the wgmma plans behind the split rule;
+   here the suite runs through ``ops.vwr_conv2d`` (bias + relu) and
+   ``ops.vwr_depthwise``, and the section 6.1 demo on the card, launches
+   counted (``vwr_conv2d``'s per variant), outputs held against
    the plain versions, and the fused bias + relu conv is timed against
    the conv followed by separate bias and relu passes; RN_112x112
    (stride 2) and AN_55x55 (stride 4) are printed as not covered;
@@ -284,6 +292,8 @@ def check_kernels(torch, F):
         print(f"    {label}: kernel {ms:.4f} ms, plain {row['plain_ms']:.4f}"
               f" ms, library {row['library_ms']} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    record.rows = results   # the phase's rows, for the checks it calls
 
     # ---- vwr_matmul: act(x @ w + bias) + residual ----
     print("vwr_matmul")
@@ -712,7 +722,8 @@ def check_mla_kernels(torch, F, gen, compare, record):
     12, 15 (a prompt chunk against its prior latent pages) at
     DeepSeek-V3's widths (H 128, r 512, rope 64, fp32 queries) against
     their plain versions; the bound counts the fp32 queries and partials
-    beside the valid keys, and fp32 operations (the queries are fp32)."""
+    beside the valid keys, and fp32 operations (the queries are fp32),
+    bf16 ones for kernel 12's wgmma variant (its terms are bf16)."""
     from repro_torch.kernels import vwr_mla_decode as KM
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -858,16 +869,24 @@ def check_mla_kernels(torch, F, gen, compare, record):
 
     # kernels 12 and 15: a prompt chunk's C tokens against its prior
     # pages, one (J,) table; each case's last table entry lies past the
-    # pool (the kernel clamps it to the last page, as the plain version)
+    # pool (the kernel clamps it to the last page, as the plain version).
+    # Kernel 12 on bf16 pools runs its wgmma variant (chunk_variant), on
+    # fp32 pools the FMA kernel; each wgmma output is bitwise equal over
+    # two launches.
+    from repro_torch.kernels import build
+
     chunk_cases = [
-        # label, C, counts, dtype, timed, headline
-        ("deepseek chunk 64, 16 pages of 16", 64, (16,) * 16, bf16, True,
-         True),
-        ("partial page", 64, (16,) * 5 + (7,), bf16, False, False),
-        ("count-0 page", 64, (16, 0, 16, 3), bf16, False, False),
-        ("first chunk: all masked", 64, (0, 0), bf16, False, False),
-        ("C=1", 1, (16, 16, 5), bf16, False, False),
-        ("fp32 pools", 16, (16, 16, 11), f32, False, False),
+        # label, C, counts, page size, dtype, timed, headline
+        ("deepseek chunk 64, 16 pages of 16", 64, (16,) * 16, 16, bf16,
+         True, True),
+        ("partial page", 64, (16,) * 5 + (7,), 16, bf16, False, False),
+        ("count-0 page", 64, (16, 0, 16, 3), 16, bf16, False, False),
+        ("first chunk: all masked", 64, (0, 0), 16, bf16, False, False),
+        ("C=1", 1, (16, 16, 5), 16, bf16, False, False),
+        ("C=3", 3, (16, 0, 16, 9), 16, bf16, False, False),
+        ("pages of 64: sub-tiled", 8, (64, 50, 0, 64), 64, bf16, False,
+         False),
+        ("fp32 pools", 16, (16, 16, 11), 16, f32, False, False),
     ]
     n_pages = 64
     for q8 in (False, True):
@@ -877,9 +896,9 @@ def check_mla_kernels(torch, F, gen, compare, record):
               else KM.vwr_mla_chunk_prefix_attend)
         ref = (KM.vwr_mla_chunk_prefix_attend_q8_ref if q8
                else KM.vwr_mla_chunk_prefix_attend_ref)
-        for label, C, cnts, dt, timed, head in chunk_cases:
+        for label, C, cnts, pgs, dt, timed, head in chunk_cases:
             qa, qr = queries(C)
-            pools, scales = caches((n_pages, ps), dt, q8)
+            pools, scales = caches((n_pages, pgs), dt, q8)
             J = len(cnts)
             table = torch.randperm(n_pages, generator=gen,
                                    device="cuda")[:J].to(torch.int32)
@@ -887,10 +906,26 @@ def check_mla_kernels(torch, F, gen, compare, record):
             counts = torch.tensor(cnts, dtype=torch.int32, device="cuda")
             args = (qa, qr, *pools, *scales, table, counts)
             n_keys, live = sum(cnts), sum(1 for c in cnts if c)
-            shape = (f"C{C} H{H} r{R} rope{RP} ps{ps} J{J} keys{n_keys}")
+            shape = (f"C{C} H{H} r{R} rope{RP} ps{pgs} J{J} keys{n_keys}")
+            before = dict(build.VARIANTS)
             got = fn(*args, scale=SCALE)
             torch.cuda.synchronize()
-            err = compare(kname, shape, f32, got, ref(*args, scale=SCALE))
+            kind = None
+            if not q8:
+                kind = KM.chunk_variant(R, RP, pgs, dt)
+                served = [k.split(".")[1] for k, v in build.VARIANTS.items()
+                          if k.startswith(kname + ".") and v != before[k]]
+                if served != [kind]:
+                    raise AssertionError(f"{kname} {shape}: the rule picks "
+                                         f"{kind}, the wrapper launched "
+                                         f"{served}")
+                if kind == "wgmma" and not all(
+                        torch.equal(a, b) for a, b in
+                        zip(got, fn(*args, scale=SCALE))):
+                    raise AssertionError(f"{kname} wgmma {shape}: two "
+                                         "launches differ")
+            err = compare(kname + (f" {kind}" if kind else ""), shape, f32,
+                          got, ref(*args, scale=SCALE))
             if not any(cnts) and (got[2].abs().max().item() != 0.0
                                   or got[0].abs().max().item() != 0.0
                                   or got[1].max().item() > -1e29):
@@ -901,7 +936,7 @@ def check_mla_kernels(torch, F, gen, compare, record):
                 nbytes = split(C, n_keys, elt, 8 * live if q8 else 0,
                                8 * J)
                 tbl = table.long().clamp(0, n_pages - 1)
-                valid = (torch.arange(ps, device="cuda")[None, :]
+                valid = (torch.arange(pgs, device="cuda")[None, :]
                          < counts[:, None]).reshape(1, -1)
 
                 def gathered(qa=qa, qr=qr, pools=pools, scales=scales,
@@ -917,11 +952,16 @@ def check_mla_kernels(torch, F, gen, compare, record):
                         kv.append(x.reshape(1, -1, x.shape[-1]))
                     return library(qa.reshape(1, C * H, R),
                                    qr.reshape(1, C * H, RP), *kv, valid)()
+                # the wgmma variant's operations are bf16 (the fp32
+                # queries and P as two bf16 terms); the others' fp32
                 record(kname, label, shape, dt, err,
                        lambda: fn(*args, scale=SCALE),
                        lambda: ref(*args, scale=SCALE), gathered,
                        2 * C * H * n_keys * (2 * R + RP), nbytes, head,
-                       op_dtype=f32)
+                       op_dtype=bf16 if kind == "wgmma" else f32)
+                if kind:
+                    record.rows[-1]["variant"] = kind
+                    print(f"      variant {kind}")
 
     # the reduced configs' widths (r 16, rope 8: zero-padded to 32 / 32 by
     # the wrappers), every MLA kernel once, against its plain version
@@ -1020,37 +1060,117 @@ def _cudnn(torch, F, x, w, bias, depthwise=False):
     return lambda: F.conv2d(xl, wl, bias)
 
 
+# the wgmma conv's plans: the rule's plan (first) against others of the
+# same form at these layers (label, N, H, W, C, F, K)
+CONV_PLAN_SHAPES = (("RN_56x56 N32", 32, 58, 58, 64, 64, 3),
+                    ("RN_28x28 N32", 32, 30, 30, 128, 128, 3),
+                    ("RN_14x14 N32", 32, 16, 16, 256, 256, 3),
+                    ("RN_7x7 N32", 32, 9, 9, 512, 512, 3),
+                    ("AN_27x27 N32", 32, 31, 31, 96, 256, 5),
+                    ("RN_7x7 N1", 1, 9, 9, 512, 512, 3),
+                    ("RN_28x28 N1", 1, 30, 30, 128, 128, 3),
+                    ("AN_27x27 N1", 1, 31, 31, 96, 256, 5))
+
+
+def _conv_alt_plans(K16, N, H, W, C, Fo, KH):
+    """The rule's plan, then 64- / 128-row and -filter tiles with the K
+    steps in 1, 2, 4, 9 or 18 balanced slices (at least 2 steps a
+    slice)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    own = K16.plan(N, H, W, C, KH, KH, Fo)
+    kt = KH * KH * cdiv(C, K16.SLICE)
+    alts = [(bm, bn, cdiv(kt, cdiv(kt, ns)), cdiv(kt, ns))
+            for bm in (64, 128) for bn in (64, 128)
+            for ns in (1, 2, 4, 9, 18) if kt // ns >= 2]
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
 def check_conv_kernels(torch, F, gen, compare, record):
     """Kernels 16 (vwr_conv2d) and 17 (vwr_depthwise) against their plain
     versions: the JAX tests' ragged shapes (C 7 / 3, F 5 / 9, a 1x1 and a
     5x5 conv), H_out and W_out off the tile, every epilogue with and
-    without bias, in bf16 and fp32; then every stride-1 layer of the
-    provet_cnn suite at N 1 and 32, bf16 and fp32 (conv with bias +
-    relu), each timed beside its bound, its plain version and cuDNN."""
+    without bias, in bf16 and fp32; the edges of kernel 16's wgmma
+    variant (a ragged 64-channel slice, row tiles across images, 1x1 and
+    5x5 taps, K split unevenly), each bitwise equal over two launches;
+    then every stride-1 layer of the provet_cnn suite at N 1 and 32, bf16
+    and fp32 (conv with bias + relu), each timed beside its bound, its
+    plain version and cuDNN, with the variant that served it; and the
+    wgmma plans behind the split rule."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import vwr_conv2d as K16
     from repro_torch.kernels import vwr_depthwise as K17
 
     f32, bf16 = torch.float32, torch.bfloat16
+
+    def conv(x, w, b, act, plan=None):
+        """One launch through the wrapper (or of ``plan``, forced), the
+        variant that served it, and for wgmma a second launch that must
+        equal the first bit for bit."""
+        before = dict(build.VARIANTS)
+        out = (K16.vwr_conv2d(x, w, b, activation=act) if plan is None
+               else K16.launch(x, w, b, act, "wgmma", plan))
+        torch.cuda.synchronize()
+        served = [k[len("vwr_conv2d."):] for k, n in build.VARIANTS.items()
+                  if k.startswith("vwr_conv2d.") and n != before[k]]
+        N, H, W, C = x.shape
+        KH, KW, _, Fo = w.shape
+        want = ("wgmma" if plan is not None
+                else K16.variant(N, H, W, C, KH, KW, Fo, x.dtype, True))
+        if served != [want]:
+            raise AssertionError(f"vwr_conv2d {tuple(x.shape)}: the rule "
+                                 f"picks {want}, the wrapper launched "
+                                 f"{served}")
+        if want == "wgmma":
+            again = (K16.vwr_conv2d(x, w, b, activation=act) if plan is None
+                     else K16.launch(x, w, b, act, "wgmma", plan))
+            if not torch.equal(out, again):
+                raise AssertionError(f"vwr_conv2d wgmma {tuple(x.shape)}: "
+                                     "two launches differ")
+        return out, want
+
     print("vwr_conv2d")
     conv_edges = [
-        # label, N, H, W, C, F, KH, KW, bias, activation
-        ("3x3", 1, 9, 9, 8, 8, 3, 3, True, "relu"),
-        ("C 7 F 5", 2, 13, 11, 7, 5, 3, 3, True, "gelu"),
-        ("1x1, bias only", 1, 8, 8, 4, 16, 1, 1, True, None),
-        ("5x5 C 3 F 9, no bias", 2, 12, 10, 3, 9, 5, 5, False, "relu"),
-        ("H_out 13 W_out 19", 2, 15, 21, 24, 70, 3, 3, True, "silu"),
-        ("F 130, no bias or act", 1, 10, 40, 64, 130, 3, 3, False, None),
-        ("gelu, no bias", 1, 11, 18, 16, 24, 3, 3, False, "gelu"),
-        ("silu, no bias", 1, 11, 18, 16, 24, 3, 3, False, "silu"),
-        ("7x7 C 3, W_out 37", 1, 43, 43, 3, 64, 7, 7, True, "relu"),
+        # label, N, H, W, C, F, KH, KW, bias, activation, dtypes, plan
+        ("3x3", 1, 9, 9, 8, 8, 3, 3, True, "relu", (f32, bf16), None),
+        ("C 7 F 5", 2, 13, 11, 7, 5, 3, 3, True, "gelu", (f32, bf16), None),
+        ("1x1, bias only", 1, 8, 8, 4, 16, 1, 1, True, None, (f32, bf16),
+         None),
+        ("5x5 C 3 F 9, no bias", 2, 12, 10, 3, 9, 5, 5, False, "relu",
+         (f32, bf16), None),
+        ("H_out 13 W_out 19", 2, 15, 21, 24, 70, 3, 3, True, "silu",
+         (f32, bf16), None),
+        ("F 130, no bias or act", 1, 10, 40, 64, 130, 3, 3, False, None,
+         (f32, bf16), None),
+        ("gelu, no bias", 1, 11, 18, 16, 24, 3, 3, False, "gelu",
+         (f32, bf16), None),
+        ("silu, no bias", 1, 11, 18, 16, 24, 3, 3, False, "silu",
+         (f32, bf16), None),
+        ("7x7 C 3, W_out 37", 1, 43, 43, 3, 64, 7, 7, True, "relu",
+         (f32, bf16), None),
+        # the wgmma variant's edges
+        ("C 96: a ragged 64-channel slice", 2, 9, 9, 96, 64, 3, 3, True,
+         "gelu", (bf16,), None),
+        ("N 3, W_out 7: row tiles across images", 3, 9, 9, 64, 128, 3, 3,
+         False, "silu", (bf16,), None),
+        ("N 3, W_out 13", 3, 15, 15, 32, 64, 3, 3, True, None, (bf16,),
+         None),
+        ("1x1 on wgmma", 2, 8, 8, 64, 64, 1, 1, True, "relu", (bf16,), None),
+        ("5x5 on wgmma", 1, 12, 12, 32, 64, 5, 5, False, None, (bf16,),
+         None),
+        ("F 192 C 8", 1, 10, 10, 8, 192, 3, 3, True, "relu", (bf16,), None),
+        ("K split unevenly: 72 steps in 5 x 15", 1, 9, 9, 512, 512, 3, 3,
+         True, "relu", (bf16,), (64, 64, 5, 15)),
+        ("128-row tiles, 3 splits", 1, 9, 9, 512, 512, 3, 3, True, "relu",
+         (bf16,), (128, 128, 3, 24)),
     ]
-    for label, N, H, W, C, Fo, KH, KW, has_b, act in conv_edges:
-        for dt in (f32, bf16):
+    for label, N, H, W, C, Fo, KH, KW, has_b, act, dts, plan in conv_edges:
+        for dt in dts:
             x, w, b = _conv_operands(torch, gen, N, H, W, C, Fo, KH, KW, dt,
                                      bias=has_b)
-            got = K16.vwr_conv2d(x, w, b, activation=act)
-            torch.cuda.synchronize()
-            compare("vwr_conv2d", f"{label} {act or ''}", dt, got,
+            got, kind = conv(x, w, b, act, plan)
+            compare(f"vwr_conv2d {kind}", f"{label} {act or ''}", dt, got,
                     K16.vwr_conv2d_ref(x, w, b, activation=act))
     print("vwr_depthwise")
     dw_edges = [
@@ -1084,18 +1204,20 @@ def check_conv_kernels(torch, F, gen, compare, record):
                 if dw:
                     fn = (lambda x=x, w=w: K17.vwr_depthwise(x, w))
                     plain = (lambda x=x, w=w: K17.vwr_depthwise_ref(x, w))
+                    got, kind = fn(), None
+                    torch.cuda.synchronize()
                 else:
                     fn = (lambda x=x, w=w, b=b:
                           K16.vwr_conv2d(x, w, b, activation="relu"))
                     plain = (lambda x=x, w=w, b=b:
                              K16.vwr_conv2d_ref(x, w, b, activation="relu"))
+                    got, kind = conv(x, w, b, "relu")
                 shape = (f"N{n} {layer.H_in}x{layer.W_in}x{layer.C_in}"
                          + ("" if dw else f" F{layer.C_out}")
                          + f" {layer.K}x{layer.K}"
                          + ("" if dw else " +bias+relu"))
-                got = fn()
-                torch.cuda.synchronize()
-                err = compare(kname, f"{layer.name} N{n}", dt, got, plain())
+                err = compare(kname + (f" {kind}" if kind else ""),
+                              f"{layer.name} N{n}", dt, got, plain())
                 head = CNN_HEADLINE[kname] == (layer.name, n, str(dt)[6:])
                 library = _cudnn(torch, F, x, w, b, depthwise=dw)
                 if head:
@@ -1111,6 +1233,35 @@ def check_conv_kernels(torch, F, gen, compare, record):
                 record(kname, f"{layer.name} N{n}", shape, dt, err, fn,
                        plain, library, flops, nbytes, head,
                        op_dtype=f32 if dw else None)
+                if kind:
+                    row = record.rows[-1]
+                    row["variant"] = kind
+                    if kind == "wgmma":
+                        row["plan"] = K16.plan(*x.shape, *w.shape[:2],
+                                               w.shape[3])
+                    print(f"      variant {kind}"
+                          + (f", plan {row['plan']}" if "plan" in row
+                             else ""))
+
+    # the plans behind the split rule: (bm, bn, nsplit, kt_split)
+    print("  vwr_conv2d wgmma plans (ms; (bm, bn, nsplit, kt_split)), the "
+          "tile kernel and cuDNN:")
+    for label, N, H, W, C, Fo, KH in CONV_PLAN_SHAPES:
+        x, w, b = _conv_operands(torch, gen, N, H, W, C, Fo, KH, KH, bf16)
+        row = {"kernel": "vwr_conv2d plans", "case": label, "plans": []}
+        for p in _conv_alt_plans(K16, N, H, W, C, Fo, KH):
+            ms = time_ms(torch, lambda p=p: K16.launch(x, w, b, "relu",
+                                                       "wgmma", p))
+            row["plans"].append({"plan": p, "ms": ms})
+        row["tile_ms"] = time_ms(torch, lambda: K16.launch(x, w, b, "relu",
+                                                           "tile"))
+        row["library_ms"] = time_ms(torch, _cudnn(torch, F, x, w, b))
+        best = min(row["plans"], key=lambda q: q["ms"])
+        record.rows.append(row)
+        print(f"    {label}: rule {row['plans'][0]['plan']} "
+              f"{row['plans'][0]['ms']:.4f}, best {best['plan']} "
+              f"{best['ms']:.4f} of {len(row['plans'])}; tile "
+              f"{row['tile_ms']:.4f}; cuDNN {row['library_ms']:.4f}")
 
 
 def _paged_table(torch, gen, lens, J, ps, n_pages):
@@ -1219,7 +1370,8 @@ def serve(torch, name, gen, expected_launches, expected_variants,
     tokens, stats = eng.generate({"tokens": prompts}, gen=gen)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    variants = dict(build.VARIANTS)
+    variants = {k: n for k, n in build.VARIANTS.items()
+                if k.startswith("vwr_matmul.")}
     print(f"  launches in generate: {launches}")
     print(f"  vwr_matmul by variant: {variants}")
     for k, n in {**expected_launches, **expected_variants}.items():
@@ -2673,6 +2825,8 @@ def deepseek_chunk_prefix(torch, params, cfg, sched, reqs):
     torch.cuda.synchronize()
     kernel = "vwr_mla_chunk_prefix_attend" + ("_q8" if work[0][3] else "")
     launches = build.LAUNCHES[kernel]
+    variants = {k: n for k, n in build.VARIANTS.items()
+                if k.startswith(kernel + ".")}
     atol, rtol = TOL["float32"]
     err = 0.0
     for (qa, qr, pools, scales, scale), part in zip(work, got):
@@ -2687,11 +2841,17 @@ def deepseek_chunk_prefix(torch, params, cfg, sched, reqs):
     print(f"    {kernel} on the stream's {len(pages)} system-prompt pages, "
           f"a {C}-token chunk at position {M}, {len(work)} layers: "
           f"max|err| {err:.3e} (atol {atol:g}, rtol {rtol:g}), "
-          f"{launches} launches")
+          f"{launches} launches" + (f", by variant {variants}" if variants
+                                    else ""))
     if launches != len(work):
         raise AssertionError(f"{kernel} launched {launches} times")
+    if variants and variants != {f"{kernel}.wgmma": len(work),
+                                 f"{kernel}.fma": 0}:
+        raise AssertionError(f"{kernel}: the bf16 prefix pages take the "
+                             f"wgmma variant, launched {variants}")
     return {"kernel": kernel, "pages": len(pages), "chunk": C,
-            "layers": len(work), "max_abs_err": err, "launches": launches}
+            "layers": len(work), "max_abs_err": err, "launches": launches,
+            "variants": variants}
 
 
 def _replay_both(torch, eng, ref, cache, reqs, out, routes, chunk=None):
@@ -2896,13 +3056,20 @@ def serve_cnn(torch):
     torch.cuda.synchronize()
     launches = {k: build.LAUNCHES[k] for k in ("vwr_conv2d",
                                                "vwr_depthwise")}
+    variants = {k: n for k, n in build.VARIANTS.items()
+                if k.startswith("vwr_conv2d.")}
     n_dw = sum(layer.depthwise for layer, *_ in cases)
-    # the demo's last section launches the conv kernel twice
+    n_bf16 = sum(not layer.depthwise and dt == torch.bfloat16
+                 for layer, _, dt, _ in cases)
+    # the demo's last section launches the conv kernel twice, in fp32
     want = {"vwr_conv2d": len(cases) - n_dw + 2, "vwr_depthwise": n_dw}
-    print(f"  launches over the suite and the demo: {launches}")
-    if launches != want:
-        raise AssertionError(f"CNN path launches {launches}, expected "
-                             f"{want}")
+    want_variants = {"vwr_conv2d.wgmma": n_bf16,
+                     "vwr_conv2d.tile": len(cases) - n_dw - n_bf16 + 2}
+    print(f"  launches over the suite and the demo: {launches}; "
+          f"vwr_conv2d by variant: {variants}")
+    if launches != want or variants != want_variants:
+        raise AssertionError(f"CNN path launches {launches} {variants}, "
+                             f"expected {want} {want_variants}")
     if max(demo["6.1_err"], demo["6.2.1_err"], demo["6.2.2_err"],
            demo["fused_err"]) > 1e-4:
         raise AssertionError(f"provet_conv_demo errors {demo}")
@@ -2931,7 +3098,7 @@ def serve_cnn(torch):
     unfused = time_ms(torch, lambda: torch.relu(ops.vwr_conv2d(x, w) + b))
     print(f"  {layer.name} N{n} bf16 conv + bias + relu: fused "
           f"{fused:.4f} ms, conv then bias and relu passes {unfused:.4f} ms")
-    return {"launches": launches, "outputs": rows,
+    return {"launches": launches, "variants": variants, "outputs": rows,
             "not_covered": [l.name for l in skipped],
             "fused_ms": fused, "unfused_ms": unfused,
             "demo_errors": {k: v for k, v in demo.items()

@@ -46,6 +46,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Across the four lanes of a quad (the threads that share a row of an
+// mma / wgmma accumulator fragment).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Two floats as one bf16x2 register, `lo` in the low half (rounded to
+// nearest even).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Eight consecutive elements of a row as fp32: one 16-byte load for bf16
 // (two for fp32).  `p` must be 16-byte aligned.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
@@ -162,7 +180,8 @@ int smem_limit_once(int bytes) {
 }
 
 // ---- Hopper (sm_90a) building blocks: shared-memory addresses, mbarriers,
-// cp.async, TMA and wgmma (vwr_matmul's tile kernel, vwr_attention) ----
+// cp.async, TMA and wgmma (the wgmma kernels of vwr_matmul, vwr_attention,
+// vwr_conv2d and vwr_mla_decode) ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -225,12 +244,31 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 3-d TMA box at coordinates (c0 innermost, c1, c2), as tma_load_2d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // 16 bytes global -> shared, bypassing L1; zeros when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// Arrive on `bar` once this thread's cp.async copies issued so far have
+// landed; .noinc: the barrier's expected count includes this arrival.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -291,6 +329,21 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // shared-memory descriptors, A K-major; rs: A from registers (four bf16x2
 // a thread, the layout of mma.m16n8k16's A).  TB: 1 when B is MN-major
 // (N contiguous), 0 when K-major.
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n32(
+    float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
 
 template <int TB>
 __device__ __forceinline__ void wgmma_ss_n64(
@@ -390,4 +443,143 @@ __device__ __forceinline__ void wgmma_rs_n128(
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// ---- split reductions and the bf16 epilogue (vwr_matmul's split-K and
+// tile kernels, vwr_conv2d's wgmma kernel): a block that owns one K slice
+// of an output tile stores its fp32 partial; the last of the tile's blocks
+// sums them in split order and runs the epilogue (one launch, no float
+// atomics, bitwise reproducible) ----
+
+__device__ __forceinline__ void bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// bias -> activation -> residual -> one cast, for columns n and n + 1 of
+// row m (n even, N % 8 == 0: one 4-byte load and store).
+__device__ __forceinline__ void epilogue_pair(const __nv_bfloat16* bias,
+                                              const __nv_bfloat16* res,
+                                              __nv_bfloat16* out, int m,
+                                              int n, int N, float v0,
+                                              float v1, int act) {
+  if (bias != nullptr) {
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bias + n));
+    v0 += b.x;
+    v1 += b.y;
+  }
+  v0 = activate(v0, act);
+  v1 = activate(v1, act);
+  const size_t o = (size_t)m * N + n;
+  if (res != nullptr) {
+    const float2 r = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(res + o));
+    v0 += r.x;
+    v1 += r.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+}
+
+// Called by the `nthreads` threads (thread 0 among them) of a block that
+// has stored its fp32 partial: true in the last of the `nsplit` blocks of
+// its output tile to get here.  The fence before the count publishes the
+// partial; the one after it orders the reads of the others' partials.
+__device__ __forceinline__ bool last_split(int* counter, int nsplit,
+                                           int nthreads) {
+  __shared__ int last;
+  __threadfence();
+  bar_sync(1, nthreads);
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == nsplit - 1;
+  bar_sync(1, nthreads);
+  if (!last) return false;
+  __threadfence();
+  return true;
+}
+
+// The last block of a tile: rows [m0, m0 + bm) x columns [n0, n0 + bn) of
+// the nsplit fp32 partials (planes of M x N), summed in split order, then
+// the epilogue; the tile's counter goes back to 0 for the next launch.
+// Four columns a thread and FIN partials in flight before the adds, so the
+// sum waits on L2 nsplit / FIN times, not nsplit times.
+constexpr int FIN = 16;
+__device__ void finish_tile(const float* ws, int* counter, int nsplit, int M,
+                            int N, int m0, int bm, int n0, int bn,
+                            const __nv_bfloat16* bias,
+                            const __nv_bfloat16* res, __nv_bfloat16* out,
+                            int act, int tid, int nthreads) {
+  const size_t plane = (size_t)M * N;
+  for (int i = tid; i < bm * bn / 4; i += nthreads) {
+    const int m = m0 + i / (bn / 4), n = n0 + 4 * (i % (bn / 4));
+    if (m >= M || n >= N) continue;
+    const float* p = ws + (size_t)m * N + n;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j0 = 0; j0 < nsplit; j0 += FIN) {
+      float4 t[FIN];
+#pragma unroll
+      for (int u = 0; u < FIN; ++u)
+        t[u] = j0 + u < nsplit
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                         p + (j0 + u) * plane))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < FIN; ++u) {
+        s.x += t[u].x;
+        s.y += t[u].y;
+        s.z += t[u].z;
+        s.w += t[u].w;
+      }
+    }
+    epilogue_pair(bias, res, out, m, n, N, s.x, s.y, act);
+    epilogue_pair(bias, res, out, m, n + 2, N, s.z, s.w, act);
+  }
+  if (tid == 0) *counter = 0;
+}
+
+// ---- host: tensor maps ----
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 (rows, cols) matrix as 2-d boxes of box_rows x 64
+// columns (128 bytes: the 128-byte swizzle's row); columns past `cols`
+// read as zeros.
+inline int encode_rows(CUtensorMap* map, const void* base, int rows,
+                       int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -15,27 +15,64 @@
 // reads each input and weight once, ~100-1000 flops a byte: in bf16 near
 // the 295 flop/byte ridge (RN_56x56 at N 32: 7.4 GFLOP against 26.7 MB),
 // in fp32 (no tensor cores, no TF32) well above it, so bound by operations.
+// At N 1 the small layers are bound by their weights' bytes (RN_7x7: 4.7
+// MB against 0.23 GFLOP) and by how many SMs the grid reaches.
 //
-// Design.  The TPU kernel stages whole halo'd rows (bh + KH - 1, W, C) and
-// a (KH, KW, C, bf) weight block in VMEM; at the suite's widths that is
-// more than a block's 227 KB of shared memory (RN_7x7's weight block alone
-// is 1.18 MB in bf16).  Here a block owns a TH x TW = 4 x 16 tile of
-// output pixels of one image and a BN = 64 tile of filters, and walks C in
-// chunks of CK channels (32 bf16, 16 fp32).  For each chunk it stages the
-// halo'd input tile (TH + KH - 1) x (TW + KW - 1) x CK in shared memory
-// once (the paper's wide transaction: no im2col, no input re-read per
-// tap) and reads it KH * KW times shifted, one tap at a time, against that
-// tap's (CK, BN) weight slice (fetched into registers during the previous
-// tap's products, then stored to shared memory).  Accumulators stay in
-// registers across all chunks and taps: bf16 tiles go through WMMA
-// 16x16x16 (tensor cores, fp32 accumulate; an A fragment is one output
-// row's 16 pixels, read straight out of the halo tile with the pixel
-// stride as its leading dimension), fp32 tiles through fp32 FMAs.  The
-// epilogue stages the fp32 sums in shared memory and stores each output
-// once, coalesced along F.  Ragged C, F, H_out and W_out are masked (zeros
-// staged past each edge, nothing stored past the output), so no padding
-// pass is made; 16-byte loads are taken only where C (input) or F
-// (weights) is a multiple of 8.  wgmma / TMA tiles are later work.
+// Two kernels; kernels/vwr_conv2d.py `variant` picks one per call.
+//
+// 1. conv_wgmma (bf16, C and F multiples of 8, 16-byte aligned operands).
+//    The GEMM's rows are the output pixels flattened across images, so a
+//    7x7 output wastes no tile rows and a row tile may span two images.
+//    K is walked tap by tap in slices of 64 channels (128 bytes).  A block
+//    owns a BM x BN tile (BM 64 or 128 pixels, BN 64 or 128 filters) and a
+//    range of K steps.  A producer warpgroup fills a 4-stage ring: row m of
+//    the A tile of tap (kj, ki) and slice c0 is x[n, oh+kj, ow+ki, c0:+64],
+//    one 128-byte run of the NHWC input, gathered by cp.async (16 bytes a
+//    thread, eight threads a row, so a warp reads four whole runs) into the
+//    128-byte-swizzled K-major layout of wgmma; the weights, viewed as a
+//    (KH*KW, C, F) tensor, come in as 64 x 64 TMA boxes with the same
+//    swizzle and are read MN-major (the transpose bit), as kernel 1's tile
+//    kernel reads w.  Rows past M and channels past C arrive as zeros (the
+//    gather's zero fill; TMA's out-of-bounds fill per tap), so C 96 (64 +
+//    32) needs no padding pass and the weights are not re-laid out; the
+//    consumers skip the 16-deep slices past C.  Each producer thread's
+//    copies arrive on the stage's mbarrier as they land
+//    (cp.async.mbarrier.arrive.noinc), so the producer never waits on its
+//    own loads and the whole ring is in flight (a deeper ring measured no
+//    faster); a consumer fences the proxies after its wait, before wgmma
+//    reads the gathered rows.
+//    TMA's im2col mode (cuTensorMapEncodeIm2col) would do the gather in
+//    hardware; the cp.async route was taken because it reuses the
+//    swizzled staging that kernel 3 already runs on the card and needs no
+//    per-tap corner arithmetic in a tensor map.  Each input row is read
+//    from L2 once a tap (every suite input fits in the 50 MB L2), and from
+//    device memory about once.  One or two consumer warpgroups run wgmma
+//    m64nBNk16 with fp32 accumulators in registers.  Where the tiles leave
+//    SMs idle (N 1; RN_7x7 at N 32), the wrapper's plan splits the K steps
+//    across blocks: each stores an fp32 partial to a workspace and the last
+//    block of a tile (kernel 1's int32 counter, common.cuh last_split /
+//    finish_tile) adds them in split order, so a call is one launch,
+//    without float atomics, and bitwise reproducible.  The epilogue stages
+//    the tile in the idle ring and stores each output once, coalesced
+//    along F, with every thread of the block.
+// 2. conv_kernel (fp32, and bf16 shapes the first cannot take: C or F off
+//    a multiple of 8).  A block owns a TH x TW = 4 x 16 tile of output
+//    pixels of one image and a BN = 64 tile of filters, and walks C in
+//    chunks of CK channels (32 bf16, 16 fp32).  For each chunk it stages
+//    the halo'd input tile (TH + KH - 1) x (TW + KW - 1) x CK in shared
+//    memory once (the paper's wide transaction: no im2col, no input re-read
+//    per tap) and reads it KH * KW times shifted, one tap at a time,
+//    against that tap's (CK, BN) weight slice (fetched into registers
+//    during the previous tap's products, then stored to shared memory).
+//    Accumulators stay in registers across all chunks and taps: bf16 tiles
+//    go through WMMA 16x16x16 (fp32 accumulate; an A fragment is one output
+//    row's 16 pixels, read straight out of the halo tile with the pixel
+//    stride as its leading dimension), fp32 tiles through fp32 FMAs.  The
+//    epilogue stages the fp32 sums in shared memory and stores each output
+//    once, coalesced along F.  Ragged C, F, H_out and W_out are masked
+//    (zeros staged past each edge, nothing stored past the output); 16-byte
+//    loads are taken only where C (input) or F (weights) is a multiple of
+//    8.
 #include <mma.h>
 
 #include "common.cuh"
@@ -308,6 +345,222 @@ int launch(ConvArgs a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// bf16: wgmma implicit GEMM over flattened output pixels
+// ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int STAGES = 4;
+constexpr int WG_BOX = 64 * 128;  // one 64-channel x 64-filter box: 8 KB
+
+template <int BM, int BN>
+struct WgShape {
+  static constexpr int NC = BM / 64;                // consumer warpgroups
+  static constexpr int THREADS = (NC + 1) * 128;    // + the producer
+  static constexpr int A_BYTES = BM * 128;          // BM pixels x 64 channels
+  static constexpr int B_BYTES = (BN / 64) * WG_BOX;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int C_LD = BN + 8;               // fp32 row, epilogue
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(BM * C_LD * 4 <= STAGES * STAGE,
+                "the staged accumulators fit in the ring");
+  static_assert(SMEM <= 232448, "fits a block's shared memory");
+};
+
+struct WgArgs {
+  const bf16* x;
+  const bf16* bias;
+  bf16* out;
+  float* ws;
+  int* counters;
+  int N, H, W, C, KH, KW, F, Ho, Wo, M;
+  int slices;    // 64-channel slices a tap: ceil(C / 64)
+  int kt_split;  // K steps a block (the last block of a tile may have fewer)
+  int act;
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 64) wgmma_ss_n64<1>(d, da, db);
+  else wgmma_ss_n128<1>(d, da, db);
+}
+
+// grid (M tiles of BM, F tiles of BN, K splits of kt_split steps); a K
+// step is one tap's 64-channel slice
+template <int BM, int BN>
+__global__ void __launch_bounds__(WgShape<BM, BN>::THREADS)
+conv_wgmma(const __grid_constant__ CUtensorMap tw, const WgArgs a) {
+  using S = WgShape<BM, BN>;
+  extern __shared__ unsigned char cw_smem[];
+  unsigned char* smem = align1024(cw_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * S::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * BM, f0 = blockIdx.y * BN;
+  const int KT = a.KH * a.KW * a.slices;
+  const int kt0 = blockIdx.z * a.kt_split;
+  const int nk = min(KT - kt0, a.kt_split);
+  const int nsplit = gridDim.z;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's 128 threads (as their copies land), and the
+      // arrival that sets the weight boxes' transaction bytes
+      mbar_init(&full[s], 128 + 1);
+      mbar_init(&empty[s], S::NC * 4);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+
+  if (warp >= S::NC * 4) {
+    // producer: thread p gathers 16-byte chunk p % 8 of rows p / 8 + 16 j
+    const int p = tid - S::NC * 128, chunk = p % 8;
+    constexpr int RPT = BM / 16;
+    long long base[RPT];  // row's pixel (n, oh, ow) in x, or -1 past M
+    const int HWo = a.Ho * a.Wo;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int m = m0 + p / 8 + 16 * j;
+      if (m < a.M) {
+        const int n = m / HWo, rem = m % HWo;
+        const int oh = rem / a.Wo, ow = rem % a.Wo;
+        base[j] = (((long long)n * a.H + oh) * a.W + ow) * a.C;
+      } else {
+        base[j] = -1;
+      }
+    }
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+      const int kt = kt0 + i, tap = kt / a.slices;
+      const int c0 = (kt % a.slices) * 64;
+      unsigned char* st = smem + s * S::STAGE;
+      if (p == 0) {
+        mbar_expect_tx(&full[s], S::B_BYTES);
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_load_3d(st + S::A_BYTES + b * WG_BOX, &tw, f0 + 64 * b, c0,
+                      tap, &full[s]);
+      }
+      const int c = c0 + chunk * 8;
+      const long long off =
+          ((long long)(tap / a.KW) * a.W + tap % a.KW) * a.C + c;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const bool ok = base[j] >= 0 && c < a.C;
+        cp_async16(st + swz128(p / 8 + 16 * j, chunk),
+                   ok ? a.x + base[j] + off : a.x, ok);
+      }
+      cp_async_arrive(&full[s]);
+    }
+    cp_async_wait<0>();
+  } else {
+    // consumer warpgroup wg: rows m0 + 64 wg .. + 63
+    const int wg = warp / 4;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      fence_proxy_async();  // the gathered rows, to wgmma's async proxy
+      const unsigned char* at = smem + s * S::STAGE + wg * 64 * 128;
+      const unsigned char* bt = smem + s * S::STAGE + S::A_BYTES;
+      // the 16-deep slices that hold channels (C 96: two in the last)
+      const int depth = a.C - ((kt0 + i) % a.slices) * 64;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk * 16 < depth)
+          wgmma_tile<BN>(acc, wgmma_desc(at + kk * 32, 16, 1024),
+                         wgmma_desc(bt + kk * 16 * 128, WG_BOX, 1024));
+      wgmma_commit();
+      fence_regs(acc);
+      if (i > 0) {  // the previous step's products are done: free its stage
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // Epilogue, once a block, through the idle ring (every copy has landed
+  // and every product is done past this barrier): fp32 rows, then bias ->
+  // act -> one cast with 8-byte stores along F, by every thread.
+  __syncthreads();
+  float* Cs = reinterpret_cast<float*>(smem);
+  if (warp < S::NC * 4) {
+    const int r0 = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(Cs + (r0 + 8 * h) * S::C_LD + 8 * j +
+                                   2 * (lane % 4)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  __syncthreads();
+  float* part = a.ws + (size_t)blockIdx.z * a.M * a.F;
+#pragma unroll 1
+  for (int i = tid; i < BM * BN / 4; i += S::THREADS) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
+    const int m = m0 + r, f = f0 + c;
+    if (m >= a.M || f >= a.F) continue;  // F % 8 == 0: f + 3 < F
+    const float4 v = *reinterpret_cast<const float4*>(Cs + r * S::C_LD + c);
+    if (nsplit == 1) {
+      epilogue_pair(a.bias, nullptr, a.out, m, f, a.F, v.x, v.y, a.act);
+      epilogue_pair(a.bias, nullptr, a.out, m, f + 2, a.F, v.z, v.w, a.act);
+    } else {
+      *reinterpret_cast<float4*>(part + (size_t)m * a.F + f) = v;
+    }
+  }
+  if (nsplit == 1) return;
+  int* counter = a.counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (!last_split(counter, nsplit, S::THREADS)) return;
+  finish_tile(a.ws, counter, nsplit, a.M, a.F, m0, BM, f0, BN, a.bias,
+              nullptr, a.out, a.act, tid, S::THREADS);
+}
+
+// The weights (KH, KW, C, F) as a (KH*KW, C, F) tensor of 64-filter x
+// 64-channel boxes, 128-byte swizzle; channels past C read as zeros.
+int encode_weights(CUtensorMap* map, const void* w, int taps, int C, int F) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)F, (cuuint64_t)C,
+                              (cuuint64_t)taps};
+  const cuuint64_t strides[2] = {(cuuint64_t)F * 2, (cuuint64_t)C * F * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(w), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BM, int BN>
+int wg_launch(const void* w, const WgArgs& a, int nsplit,
+              cudaStream_t stream) {
+  using S = WgShape<BM, BN>;
+  CUtensorMap tw;
+  int e = encode_weights(&tw, w, a.KH * a.KW, a.C, a.F);
+  if (e != 0) return e;
+  e = smem_limit_once<conv_wgmma<BM, BN>>(S::SMEM);
+  if (e != 0) return e;
+  const dim3 grid((a.M + BM - 1) / BM, (a.F + BN - 1) / BN, nsplit);
+  conv_wgmma<BM, BN><<<grid, S::THREADS, S::SMEM, stream>>>(tw, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out (N, H-KH+1, W-KW+1, F) = act(conv2d(x (N, H, W, C), w (KH, KW, C, F))
@@ -324,5 +577,37 @@ extern "C" int vwr_conv2d_launch(const void* x, const void* w,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == REPRO_BF16) return launch<__nv_bfloat16>(a, s);
   if (dtype == REPRO_F32) return launch<float>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 wgmma variant (kernels/vwr_conv2d.py plan): tiles of bm (64 or
+// 128) output pixels x bn (64 or 128) filters, the KH*KW*ceil(C/64) K
+// steps in nsplit slices of kt_split (nsplit * kt_split >= steps >
+// (nsplit - 1) * kt_split); ws: nsplit x (N*H_out*W_out) x F fp32 (unused when nsplit is
+// 1); counters: one int32 of 0 per output tile, left at 0.  C % 8 == 0,
+// F % 8 == 0; pointers 16-byte aligned.
+extern "C" int vwr_conv2d_wgmma_launch(const void* x, const void* w,
+                                       const void* bias, void* out, void* ws,
+                                       void* counters, int N, int H, int W,
+                                       int C, int KH, int KW, int F, int bm,
+                                       int bn, int nsplit, int kt_split,
+                                       int act, void* stream) {
+  const int Ho = H - KH + 1, Wo = W - KW + 1, slices = (C + 63) / 64;
+  const long long M = (long long)N * Ho * Wo;
+  const int KT = KH * KW * slices;
+  if (act < ACT_NONE || act > ACT_GELU || C <= 0 || C % 8 != 0 ||
+      F % 8 != 0 || KH <= 0 || KW <= 0 || M >= (1LL << 31) ||
+      nsplit < 1 || kt_split < 1 || (long long)nsplit * kt_split < KT ||
+      (long long)(nsplit - 1) * kt_split >= KT)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || F <= 0) return 0;
+  const WgArgs a{(const bf16*)x, (const bf16*)bias, (bf16*)out, (float*)ws,
+                 (int*)counters, N, H, W, C, KH, KW, F, Ho, Wo, (int)M,
+                 slices, kt_split, act};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bm == 64 && bn == 64) return wg_launch<64, 64>(w, a, nsplit, s);
+  if (bm == 64 && bn == 128) return wg_launch<64, 128>(w, a, nsplit, s);
+  if (bm == 128 && bn == 64) return wg_launch<128, 64>(w, a, nsplit, s);
+  if (bm == 128 && bn == 128) return wg_launch<128, 128>(w, a, nsplit, s);
   return (int)cudaErrorInvalidValue;
 }

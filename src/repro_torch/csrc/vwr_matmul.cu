@@ -291,88 +291,6 @@ int launch(const void* x, const void* w0, const void* w1, const void* bias,
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void bar_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
-}
-
-// bias -> activation -> residual -> one cast, for columns n and n + 1 of
-// row m (n even, N % 8 == 0: one 4-byte load and store).
-__device__ __forceinline__ void epilogue_pair(const bf16* bias,
-                                              const bf16* res, bf16* out,
-                                              int m, int n, int N, float v0,
-                                              float v1, int act) {
-  if (bias != nullptr) {
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(bias + n));
-    v0 += b.x;
-    v1 += b.y;
-  }
-  v0 = activate(v0, act);
-  v1 = activate(v1, act);
-  const size_t o = (size_t)m * N + n;
-  if (res != nullptr) {
-    const float2 r = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(res + o));
-    v0 += r.x;
-    v1 += r.y;
-  }
-  *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
-}
-
-// Called by the `nthreads` threads (thread 0 among them) of a block that
-// has stored its fp32 partial: true in the last of the `nsplit` blocks of
-// its output tile to get here.  The fence before the count publishes the
-// partial; the one after it orders the reads of the others' partials.
-__device__ __forceinline__ bool last_split(int* counter, int nsplit,
-                                           int nthreads) {
-  __shared__ int last;
-  __threadfence();
-  bar_sync(1, nthreads);
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == nsplit - 1;
-  bar_sync(1, nthreads);
-  if (!last) return false;
-  __threadfence();
-  return true;
-}
-
-// The last block of a tile: rows [m0, m0 + bm) x columns [n0, n0 + bn) of
-// the nsplit fp32 partials (planes of M x N), summed in split order, then
-// the epilogue; the tile's counter goes back to 0 for the next launch.
-// Four columns a thread and FIN partials in flight before the adds, so the
-// sum waits on L2 nsplit / FIN times, not nsplit times.
-constexpr int FIN = 16;
-__device__ void finish_tile(const float* ws, int* counter, int nsplit, int M,
-                            int N, int m0, int bm, int n0, int bn,
-                            const bf16* bias, const bf16* res, bf16* out,
-                            int act, int tid, int nthreads) {
-  const size_t plane = (size_t)M * N;
-  for (int i = tid; i < bm * bn / 4; i += nthreads) {
-    const int m = m0 + i / (bn / 4), n = n0 + 4 * (i % (bn / 4));
-    if (m >= M || n >= N) continue;
-    const float* p = ws + (size_t)m * N + n;
-    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int j0 = 0; j0 < nsplit; j0 += FIN) {
-      float4 t[FIN];
-#pragma unroll
-      for (int u = 0; u < FIN; ++u)
-        t[u] = j0 + u < nsplit
-                   ? __ldcg(reinterpret_cast<const float4*>(
-                         p + (j0 + u) * plane))
-                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int u = 0; u < FIN; ++u) {
-        s.x += t[u].x;
-        s.y += t[u].y;
-        s.z += t[u].z;
-        s.w += t[u].w;
-      }
-    }
-    epilogue_pair(bias, res, out, m, n, N, s.x, s.y, act);
-    epilogue_pair(bias, res, out, m, n + 2, N, s.z, s.w, act);
-  }
-  if (tid == 0) *counter = 0;
-}
-
 // ---- 1. split-K weight streaming ----
 
 constexpr int SK_THREADS = 256, SK_BN = 128;
@@ -670,52 +588,6 @@ tile_kernel(const __grid_constant__ CUtensorMap tx,
   if (!last_split(counter, nsplit, nthreads)) return;
   finish_tile(ws, counter, nsplit, M, N, m0, BM, n0, TG_BN, bias, res, out,
               act, tid, nthreads);
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry
-// point, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major bf16 (rows, cols) matrix as 2-d boxes of box_rows x 64
-// columns (128 bytes: the 128-byte swizzle's row).
-int encode_rows(CUtensorMap* map, const void* base, int rows, int cols,
-                int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int BM>

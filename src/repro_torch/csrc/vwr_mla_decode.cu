@@ -49,14 +49,61 @@
 // heads-as-M tensor-core form ((H x 576) . (576 x T) a sequence, a wgmma
 // tile) is later work.
 //
-// The chunk kernels run the pools' body with "sequence" read as "chunk
-// token" and the table row shared (stride 0).  The TPU kernel keeps all
-// (C x H, r) fp32 accumulators in VMEM across a sequential grid over the
-// pages: 16 MB at a 64-token chunk of DeepSeek-V3, far past a block's
-// shared memory.  Here the rows are independent, so they are tiled across
-// blocks (grid (C, H / 16)), and the page loop is the loop inside each
-// block; a staged tile serves the block's 16 rows, and L2 serves the C
-// blocks that read the same page.
+// The chunk kernels.  The TPU kernel keeps all (C x H, r) fp32
+// accumulators in VMEM across a sequential grid over the pages: 16 MB at a
+// 64-token chunk of DeepSeek-V3, far past a block's shared memory.  The
+// rows are independent, so they are tiled across blocks, and the page loop
+// is the loop inside each block.
+//
+// Kernel 15 (int8 pools) and kernel 12 on fp32 pools run the pools' body
+// above with "sequence" read as "chunk token" and the table row shared
+// (stride 0): grid (C, H / 16), fp32 FMAs; a staged tile serves a block's
+// 16 rows, and L2 serves the C blocks that read the same page.
+//
+// Kernel 12 on bf16 pools (mla_chunk_wgmma; kernels/vwr_mla_decode.py
+// chunk_variant: r in {128, 256, 512}, rope in {32, 64}, pages of a
+// multiple of 8 rows) puts the tensor cores on it.  The rows are the chunk's C x H
+// query rows in q_abs's order (c major, h minor), 64 a block: at C 64 and
+// H 128 that is 128 blocks, one wave on 132 SMs, and every staged key
+// serves 64 rows.  On the tensor cores the 4.6 GFLOP of the headline shape
+// take ~0.005 ms (two bf16 terms: ~0.009), under the ~0.011 ms that its
+// 36 MB of fp32 queries and partials take, so bytes bound it.
+//   Numerics.  The queries are fp32 and are read once, times `scale`, and
+//   each is split into two bf16 terms: hi = bf16(x), lo = bf16(x - hi).
+//   The pool values are bf16, so every product term is exact in fp32 and
+//   wgmma's fp32 sums keep a score to about 2^-17 of |q| |k| a term (the
+//   plain version's fp32 einsum: 2^-24).  P is split the same way (hi + lo
+//   = p to 2^-17) as the register A operand of P c_kv.  l sums the fp32 p;
+//   m is the fp32 row maximum of the scores.
+//   Shared memory.  The two query terms, K-major with the 128-byte swizzle
+//   (64-column blocks of 64 rows; the rope block last), take 147 KB at r
+//   512, rope 64; keys come in tiles of 32 rows (36 KB a tile), two
+//   stages: the queries stay resident and no key tile is read twice by a
+//   block.
+//   Keys.  The block walks the table's pages: a tile holds 32 / ps whole
+//   pages (ps <= 32) or 32 rows of one page (larger pages are sub-tiled);
+//   a count-0 page is skipped unread and entries are clamped to [0,
+//   n_pages).  Each page segment of a tile comes in by TMA (boxes of 64
+//   columns x min(ps, 32) rows, the 128-byte swizzle, a box a lane of one
+//   warp of the second warpgroup, on the stage's mbarrier): cp.async
+//   gathers by every thread took a third of a tile's time.  Slots past a
+//   page's count are masked in the scores (P = 0 there, as in the plain
+//   version); segments past the table's end are zero-filled.  One warp of
+//   the first warpgroup walks the table two tiles ahead into a small map
+//   in shared memory while the P c_kv products run.
+//   Products.  Two consumer warpgroups; each owns half of the output's r
+//   columns (256 fp32 accumulators a row at r 512 would not fit one
+//   warpgroup's registers).  S = q . [c_kv | k_rope] is split by its depth
+//   instead of computed twice: each warpgroup runs wgmma m64n32k16 over
+//   half of the 576 dimensions (hi and lo terms into one accumulator) and
+//   the two halves are added through 8 KB of shared memory (each side adds
+//   the other's half to its own, the same fp32 sum).  Both then run the
+//   same fp32 online softmax on the 64 x 32 fragment, and P (hi, lo) from
+//   registers times the tile's c_kv columns of their half (MN-major, the
+//   transpose bit) accumulates into o_tilde.  The next tile's loads are
+//   issued while the score products run.  A row with no valid key keeps
+//   m = -1e30, l = 0, o_tilde = 0.  o_tilde leaves through the idle query
+//   blocks, whole rows of 16-byte stores.
 #include "common.cuh"
 
 namespace {
@@ -277,6 +324,431 @@ int launch_dtype(const MlaArgs& a, int r, int rope, int dtype, bool q8,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------
+// Kernel 12 on bf16 pools: wgmma with the chunk's C*H rows as M
+// ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int CW_ROWS = 64;      // query rows a block
+constexpr int CW_KEYS = 32;      // key slots a tile
+constexpr int CW_THREADS = 256;  // two consumer warpgroups
+constexpr int CW_SEGS = 4;       // page segments a tile, at most (pages of 8)
+// a tile's map in shared memory: whether the tile exists, its valid slots
+// (bit t), its absent segments (bit g), each segment's first pool row
+constexpr int CW_EXISTS = 0, CW_VALID = 1, CW_ABSENT = 2, CW_SEG0 = 3;
+constexpr int CW_MAP = CW_SEG0 + CW_SEGS + 1;  // + 1: 8-byte aligned maps
+
+// Shared memory: 64-column blocks (128-byte rows, 128-byte swizzle) of the
+// latent dims, then one of the rope dims (rope 32 fills half of each row).
+template <int R, int RP>
+struct CwSmem {
+  static constexpr int BLK = R / 64 + 1;
+  static constexpr int QBLK = CW_ROWS * 128;          // 8 KB
+  static constexpr int KBLK = CW_KEYS * 128;          // 4 KB
+  static constexpr int QTERM = BLK * QBLK;            // q_hi, then q_lo
+  static constexpr int KEYS = 2 * QTERM;              // two key stages
+  static constexpr int KSTAGE = BLK * KBLK;
+  static constexpr int XCH = KEYS + 2 * KSTAGE;       // S exchange
+  static constexpr int MAPS = XCH + 128 * 16 * 4;     // 3 tiles' maps
+  static constexpr int BARS = MAPS + 3 * CW_MAP * 4;  // a stage's mbarrier
+  static constexpr int BYTES = 1024 + BARS + 2 * 8;
+  static_assert(BARS % 8 == 0, "mbarriers are 8-byte aligned");
+  static_assert(BYTES <= 232448, "fits a block's shared memory");
+};
+
+// A key tile: up to 4 segments of consecutive rows of one page each
+// (seg = min(ps, 32) rows a segment, 32 / seg segments a tile).
+struct KeyTile {
+  int page[CW_SEGS];  // physical page (clamped), or -1: no segment
+  int row0[CW_SEGS];  // first row within the page
+  int n[CW_SEGS];     // valid rows
+};
+
+// The next tile from the cursor (page j, row o), which it advances.
+// page[0] < 0: no keys are left.
+__device__ __forceinline__ KeyTile next_tile(const int* table,
+                                             const int* counts, int J,
+                                             int ps, int n_pages, int seg,
+                                             int& j, int& o) {
+  KeyTile k;
+#pragma unroll
+  for (int g = 0; g < CW_SEGS; ++g) {
+    k.page[g] = -1;
+    k.row0[g] = 0;
+    k.n[g] = 0;
+    if (g * seg + seg > CW_KEYS) continue;
+    while (j < J && min(counts[j], ps) <= 0) ++j;
+    if (j >= J) continue;
+    const int cnt = min(counts[j], ps);
+    k.page[g] = min(max(table[j], 0), n_pages - 1);
+    k.row0[g] = o;
+    k.n[g] = min(cnt - o, seg);
+    o += seg;
+    if (o >= cnt) {
+      ++j;
+      o = 0;
+    }
+  }
+  return k;
+}
+
+// Slot t of tile k: its pool row (page * ps + row), or -1 where masked.
+__device__ __forceinline__ int slot_row(const KeyTile& k, int t, int seg,
+                                        int ps) {
+  const int g = t / seg, i = t % seg;
+  int row = -1;
+#pragma unroll
+  for (int q = 0; q < CW_SEGS; ++q)
+    if (q == g && k.page[q] >= 0 && i < k.n[q])
+      row = k.page[q] * ps + k.row0[q] + i;
+  return row;
+}
+
+// o (64 rows x OC columns of this warpgroup) += P . V for one 16-key slice:
+// P from registers, V MN-major at `vt` (64-column blocks KBLK apart).
+template <int OC>
+__device__ __forceinline__ void pv_slice(float (&o)[OC / 2],
+                                         const uint32_t (&a)[4],
+                                         const unsigned char* vt, int kblk) {
+  if constexpr (OC == 64) {
+    wgmma_rs_n64<1>(o, a, wgmma_desc(vt, kblk, 1024));
+  } else {
+#pragma unroll
+    for (int h = 0; h < OC / 128; ++h)
+      wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(o + 64 * h), a,
+                       wgmma_desc(vt + 2 * h * kblk, kblk, 1024));
+  }
+}
+
+// tc, tr: the pools as (n_pages * ps, r) and (n_pages * ps, rope) row
+// matrices in boxes of 64 columns x seg rows, 128-byte swizzle.
+template <int R, int RP>
+__global__ void __launch_bounds__(CW_THREADS, 1)
+mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
+                const __grid_constant__ CUtensorMap tr, const MlaArgs a) {
+  using L = CwSmem<R, RP>;
+  constexpr int KS = (R + RP) / 16;  // 16-deep slices of a score
+  constexpr int OC = R / 2;          // output columns a warpgroup
+  constexpr int CH = (R + RP) / 8;
+  extern __shared__ unsigned char cw_smem[];
+  unsigned char* sm = align1024(cw_smem);
+  float* xch = reinterpret_cast<float*>(sm + L::XCH);
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  const int rows = a.B * a.H, row0 = blockIdx.x * CW_ROWS;
+  const int ps = a.rows, seg = min(ps, CW_KEYS), nseg = CW_KEYS / seg;
+
+  // Warp 0 walks the table two tiles ahead of the products into maps that
+  // rotate: the tile in products, the tile in flight, the tile walked.
+  int* maps = reinterpret_cast<int*>(sm + L::MAPS);
+  auto map = [&](int i) { return maps + (i % 3) * CW_MAP; };
+  int j = 0, po = 0;
+  auto walk = [&](int i) {  // warp 0
+    const KeyTile k = next_tile(a.table, a.counts, a.n, ps, a.lead, seg, j,
+                                po);
+    int* mp = map(i);
+    const uint32_t valid =
+        __ballot_sync(0xffffffffu, slot_row(k, lane, seg, ps) >= 0);
+    uint32_t absent = 0;
+#pragma unroll
+    for (int g = 0; g < CW_SEGS; ++g) {
+      if (g < nseg && k.page[g] < 0) absent |= 1u << g;
+      if (lane == g)
+        mp[CW_SEG0 + g] = k.page[g] >= 0 ? k.page[g] * ps + k.row0[g] : -1;
+    }
+    if (lane == 0) {
+      mp[CW_EXISTS] = k.page[0] >= 0;
+      mp[CW_VALID] = (int)valid;
+      mp[CW_ABSENT] = (int)absent;
+    }
+  };
+  // Tile i into stage i % 2: its segments by TMA, one box a lane of warp
+  // 4 (the other warpgroup walks); the absent ones (the table's end) as
+  // zeros (every thread, then a proxy fence).
+  auto load_tile = [&](int i) {
+    const int* mp = map(i);
+    unsigned char* st = sm + L::KEYS + (i & 1) * L::KSTAGE;
+    const uint32_t absent = mp[CW_ABSENT];
+    if (tid / 32 == 4) {
+      if (lane == 0)
+        mbar_expect_tx(&kbar[i & 1], (nseg - __popc(absent)) * seg * 128 *
+                                         L::BLK);
+      __syncwarp();
+      for (int q = lane; q < nseg * L::BLK; q += 32) {
+        const int g = q / L::BLK, b = q % L::BLK, r = mp[CW_SEG0 + g];
+        if (r >= 0)
+          tma_load_2d(st + b * L::KBLK + g * seg * 128,
+                      b < R / 64 ? &tc : &tr, b < R / 64 ? 64 * b : 0, r,
+                      &kbar[i & 1]);
+      }
+    }
+    if (absent) {
+      for (int g = 0; g < nseg; ++g) {
+        if (!(absent >> g & 1)) continue;
+        for (int e = tid; e < seg * L::BLK * 8; e += CW_THREADS) {
+          const int b = e / (seg * 8), c = e % (seg * 8);
+          *reinterpret_cast<uint4*>(st + b * L::KBLK + g * seg * 128 +
+                                    c * 16) = make_uint4(0, 0, 0, 0);
+        }
+      }
+      fence_proxy_async();
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(&kbar[0], 1);
+    mbar_init(&kbar[1], 1);
+    mbar_init_fence();
+  }
+  // slots past the last whole segment (pages of 24: rows 24-31) stay zero
+  for (int e = tid; e < 2 * L::BLK * (CW_KEYS - nseg * seg) * 8;
+       e += CW_THREADS) {
+    const int per = (CW_KEYS - nseg * seg) * 8, blk = e / per;
+    *reinterpret_cast<uint4*>(sm + L::KEYS + blk * L::KBLK +
+                              nseg * seg * 128 + (e % per) * 16) =
+        make_uint4(0, 0, 0, 0);
+  }
+  if (tid < 32) {
+    walk(0);
+    walk(1);
+  }
+  __syncthreads();
+  // the first key tile flies while the queries are staged
+  if (map(0)[CW_EXISTS]) load_tile(0);
+
+  // the queries, times scale, as two bf16 terms; QB 16-byte chunks of
+  // loads in flight a thread before the first is converted
+  constexpr int QN = CW_ROWS * CH / CW_THREADS, QB = 9;
+  static_assert(CW_ROWS * CH % CW_THREADS == 0, "whole chunks a thread");
+#pragma unroll 1
+  for (int b0 = 0; b0 < QN; b0 += QB) {
+    float v[QB][8];
+#pragma unroll
+    for (int u = 0; u < QB; ++u) {
+      const int e = tid + (b0 + u) * CW_THREADS;
+      const int r = e / CH, cc = e % CH, g = row0 + r;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[u][i] = 0.0f;
+      if (b0 + u < QN && g < rows)
+        load8(cc < R / 8 ? a.q_abs + (size_t)g * R + cc * 8
+                         : a.q_rope + (size_t)g * RP + (cc - R / 8) * 8,
+              v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < QB; ++u) {
+      if (b0 + u >= QN) break;
+      const int e = tid + (b0 + u) * CW_THREADS;
+      const int r = e / CH, cc = e % CH;
+      uint4 hi, lo;
+      uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
+      uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = v[u][2 * i] * a.scale;
+        const float x1 = v[u][2 * i + 1] * a.scale;
+        const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+        const float2 bf = __bfloat1622float2(b);
+        h[i] = *reinterpret_cast<const uint32_t*>(&b);
+        l[i] = pack_bf16(x0 - bf.x, x1 - bf.y);
+      }
+      const int blk = cc < R / 8 ? cc / 8 : R / 64;
+      const int c8 = cc < R / 8 ? cc % 8 : cc - R / 8;
+      const uint32_t off = blk * L::QBLK + swz128(r, c8);
+      *reinterpret_cast<uint4*>(sm + off) = hi;
+      *reinterpret_cast<uint4*>(sm + L::QTERM + off) = lo;
+    }
+  }
+  fence_proxy_async();  // the query terms, to wgmma's async proxy
+
+  // this thread's two rows of every accumulator fragment, and its 8 key
+  // slots of a tile (bit 2 jb + e: slot 8 jb + 2 (lane % 4) + e)
+  const int r0 = warp * 16 + lane / 4, r1 = r0 + 8;
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  float o[OC / 2];
+#pragma unroll
+  for (int i = 0; i < OC / 2; ++i) o[i] = 0.0f;
+
+  for (int t = 0; map(t)[CW_EXISTS]; ++t) {
+    // tile t has landed; every warpgroup is done with tile t - 1's stage,
+    // which tile t + 1 takes next, and with tile t - 1's map
+    mbar_wait(&kbar[t & 1], (t >> 1) & 1);
+    __syncthreads();
+    const unsigned char* kt = sm + L::KEYS + (t & 1) * L::KSTAGE;
+
+    // this warpgroup's half of the score depth, both query terms
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KS / 2; ++i) {
+      const int ks = wg * (KS / 2) + i;
+      const uint32_t qo = (ks / 4) * L::QBLK + (ks % 4) * 32;
+      const uint64_t db =
+          wgmma_desc(kt + (ks / 4) * L::KBLK + (ks % 4) * 32, 16, 1024);
+      wgmma_ss_n32<0>(s, wgmma_desc(sm + qo, 16, 1024), db);
+      wgmma_ss_n32<0>(s, wgmma_desc(sm + L::QTERM + qo, 16, 1024), db);
+    }
+    wgmma_commit();
+    // while the products run: the next tile's loads, this tile's mask
+    if (map(t + 1)[CW_EXISTS]) load_tile(t + 1);
+    const uint32_t valid = map(t)[CW_VALID];
+    uint32_t ok = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      ok |= (valid >> (8 * (b / 2) + 2 * (lane % 4) + b % 2) & 1) << b;
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // the two halves, added on both sides in the same fp32 sum
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) xch[i * 128 + wt] = s[i];
+    }
+    bar_sync(2, CW_THREADS);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float other = xch[i * 128 + wt];
+        xch[i * 128 + wt] = s[i];
+        s[i] += other;
+      }
+    }
+    bar_sync(2, CW_THREADS);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] += xch[i * 128 + wt];
+    }
+
+    // mask the empty slots, online softmax in fp32
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int i = 4 * (b / 2) + b % 2;
+      if (!(ok >> b & 1)) {
+        s[i] = REPRO_NEG_INF;
+        s[i + 2] = REPRO_NEG_INF;
+      }
+      mx0 = fmaxf(mx0, s[i]);
+      mx1 = fmaxf(mx1, s[i + 2]);
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float c0 = __expf(m0 - mx0), c1 = __expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+    if (!__all_sync(0xffffffffu, c0 == 1.0f && c1 == 1.0f)) {
+#pragma unroll
+      for (int i = 0; i < OC / 8; ++i) {
+        o[4 * i] *= c0;
+        o[4 * i + 1] *= c0;
+        o[4 * i + 2] *= c1;
+        o[4 * i + 3] *= c1;
+      }
+    }
+    // P = exp(s - m), split into bf16 hi + lo A fragments: keys 16 kc ..
+    // + 15 are the accumulator's column blocks 2 kc and 2 kc + 1
+    uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+    for (int jb = 0; jb < 4; ++jb) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = ok >> (2 * jb + e) & 1;
+        p[e] = in ? __expf(s[4 * jb + e] - m0) : 0.0f;
+        p[2 + e] = in ? __expf(s[4 * jb + 2 + e] - m1) : 0.0f;
+      }
+      l0 += p[0] + p[1];
+      l1 += p[2] + p[3];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(p[2 * h], p[2 * h + 1]);
+        const float2 bf = __bfloat1622float2(b);
+        ph[jb / 2][(jb % 2) * 2 + h] = *reinterpret_cast<const uint32_t*>(&b);
+        pl[jb / 2][(jb % 2) * 2 + h] =
+            pack_bf16(p[2 * h] - bf.x, p[2 * h + 1] - bf.y);
+      }
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) {
+      const unsigned char* vt =
+          kt + wg * (OC / 64) * L::KBLK + kc * 16 * 128;
+      pv_slice<OC>(o, ph[kc], vt, L::KBLK);
+      pv_slice<OC>(o, pl[kc], vt, L::KBLK);
+    }
+    wgmma_commit();
+    // while these products run: the walk of tile t + 2
+    if (tid < 32) walk(t + 2);
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  // o_tilde through the idle query blocks (fp32 rows padded by 4), then
+  // whole rows out with 16-byte stores
+  constexpr int OLD = R + 4;
+  static_assert(CW_ROWS * OLD * 4 <= 2 * L::QTERM, "o fits the query area");
+  float* os = reinterpret_cast<float*>(sm);
+  __syncthreads();  // every warpgroup is done reading the queries
+#pragma unroll
+  for (int i = 0; i < OC / 8; ++i) {
+    const int col = wg * OC + 8 * i + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(os + r0 * OLD + col) =
+        make_float2(o[4 * i], o[4 * i + 1]);
+    *reinterpret_cast<float2*>(os + r1 * OLD + col) =
+        make_float2(o[4 * i + 2], o[4 * i + 3]);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (wg == 0 && lane % 4 == 0) {
+    if (row0 + r0 < rows) {
+      a.m[row0 + r0] = m0;
+      a.l[row0 + r0] = l0;
+    }
+    if (row0 + r1 < rows) {
+      a.m[row0 + r1] = m1;
+      a.l[row0 + r1] = l1;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < CW_ROWS * (R / 4); e += CW_THREADS) {
+    const int r = e / (R / 4), c = 4 * (e % (R / 4));
+    if (row0 + r < rows)
+      *reinterpret_cast<float4*>(a.o_t + (size_t)(row0 + r) * R + c) =
+          *reinterpret_cast<const float4*>(os + r * OLD + c);
+  }
+}
+
+template <int R, int RP>
+int launch_chunk_wgmma(const MlaArgs& a, cudaStream_t stream) {
+  using L = CwSmem<R, RP>;
+  const int seg = a.rows < CW_KEYS ? a.rows : CW_KEYS;
+  CUtensorMap tc, tr;
+  int e = encode_rows(&tc, a.ckv, a.lead * a.rows, R, seg);
+  if (e != 0) return e;
+  e = encode_rows(&tr, a.krope, a.lead * a.rows, RP, seg);
+  if (e != 0) return e;
+  e = smem_limit_once<mla_chunk_wgmma<R, RP>>(L::BYTES);
+  if (e != 0) return e;
+  const int blocks = (a.B * a.H + CW_ROWS - 1) / CW_ROWS;
+  mla_chunk_wgmma<R, RP><<<blocks, CW_THREADS, L::BYTES, stream>>>(tc, tr,
+                                                                     a);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_chunk_rope(const MlaArgs& a, int rope, cudaStream_t stream) {
+  if (rope == 32) return launch_chunk_wgmma<R, 32>(a, stream);
+  if (rope == 64) return launch_chunk_wgmma<R, 64>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Kernel 10.  q_abs (B, H, r) and q_rope (B, H, rope) fp32; c_kv (B, T, r)
@@ -353,6 +825,31 @@ extern "C" int vwr_mla_chunk_prefix_attend_launch(
                   (float*)o_t, (float*)m, (float*)l, C, H, lead, rows, J,
                   scale, 0};
   return launch_dtype(a, r, rope, dtype, false, (cudaStream_t)stream);
+}
+
+// Kernel 12 on bf16 pools, the wgmma variant: the arguments of
+// vwr_mla_chunk_prefix_attend_launch; r in {128, 256, 512}, rope in {32,
+// 64}, page size (`rows`) a multiple of 8.
+extern "C" int vwr_mla_chunk_prefix_attend_wgmma_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* table, const void* counts, void* o_t, void* m, void* l,
+    int C, int H, int r, int rope, int lead, int rows, int J, float scale,
+    int dtype, void* stream) {
+  if (dtype != REPRO_BF16 || lead <= 0 || rows < 8 || rows % 8 != 0 ||
+      J < 0)
+    return (int)cudaErrorInvalidValue;
+  if (C <= 0 || H <= 0) return 0;
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  nullptr, nullptr, (const int*)table, (const int*)counts,
+                  (float*)o_t, (float*)m, (float*)l, C, H, lead, rows, J,
+                  scale, 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (r) {
+    case 128: return launch_chunk_rope<128>(a, rope, s);
+    case 256: return launch_chunk_rope<256>(a, rope, s);
+    case 512: return launch_chunk_rope<512>(a, rope, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel 15: kernel 12 over int8 pools with fp32 (n_pages,) latent and

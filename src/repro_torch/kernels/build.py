@@ -15,8 +15,9 @@ an explicit ``build()``) does it.  Each C entry point returns
 Every kernel wrapper adds one to its entry in ``LAUNCHES`` where it
 launches its kernel, and nowhere else, so a run can show which kernels
 the main path went through.  A kernel with variants (``vwr_matmul``:
-split-K, wgmma, the WMMA / FMA tile kernel) also counts the variant that
-ran in ``VARIANTS``.
+split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_conv2d``: wgmma or the
+halo-tile kernel; ``vwr_mla_chunk_prefix_attend``: wgmma or FMA) also
+counts the variant that ran in ``VARIANTS``.
 """
 from __future__ import annotations
 
@@ -53,7 +54,10 @@ LAUNCHES: Dict[str, int] = {"vwr_matmul": 0, "vwr_swiglu": 0,
                             "vwr_conv2d": 0, "vwr_depthwise": 0}
 
 VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
-                            "vwr_matmul.gemm": 0}
+                            "vwr_matmul.gemm": 0, "vwr_conv2d.wgmma": 0,
+                            "vwr_conv2d.tile": 0,
+                            "vwr_mla_chunk_prefix_attend.wgmma": 0,
+                            "vwr_mla_chunk_prefix_attend.fma": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -192,6 +196,24 @@ def check_operands(kernel: str, dtype, **operands) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be contiguous and "
                              "16-byte aligned")
+
+
+_SPLIT_COUNTERS: Dict[object, object] = {}
+
+
+def split_counters(device, n: int):
+    """A zeroed int32 buffer of at least ``n`` counters on ``device`` for
+    the kernels whose K splits are summed by the last block of a tile
+    (``vwr_matmul``'s split-K and wgmma variants, ``vwr_conv2d``'s wgmma
+    variant), kept across calls: every launch leaves its counters at 0.
+    Launches on one stream share it."""
+    import torch
+
+    buf = _SPLIT_COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[device] = buf
+    return buf
 
 
 def stream_of(t) -> int:

@@ -99,20 +99,6 @@ def tile_plan(M, N, K):
 
 _ENTRIES = {"splitk": "vwr_matmul_splitk_launch",
             "wgmma": "vwr_matmul_tile_launch"}
-_COUNTERS = {}
-
-
-def _counters(device, n):
-    """A zeroed int32 buffer of at least ``n`` split counters on
-    ``device``, kept across calls: every kernel that counts leaves its
-    counters at 0.  Launches on one stream share it."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        import torch
-
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
 
 
 def vwr_matmul_ref(x, w, bias=None, residual=None, *, activation=None):
@@ -181,7 +167,7 @@ def launch(x, w, bias, residual, activation, kind, plan=None):
         n_counters = _cdiv(M, tile) * _cdiv(N, bn)
         ws = (torch.empty((nsplit, M, N), dtype=torch.float32,
                           device=x.device) if nsplit > 1 else None)
-        counters = _counters(x.device, n_counters)
+        counters = build.split_counters(x.device, n_counters)
         lib, fn = build.kernel_fn("vwr_matmul", _ENTRIES[kind],
                                   [_VP] * 7 + [_I] * 7 + [_VP])
         err = fn(*ptrs, None if ws is None else ws.data_ptr(),

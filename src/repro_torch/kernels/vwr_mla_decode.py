@@ -35,6 +35,14 @@ pools of a reduced config that copies the whole pool a call, which is
 acceptable at reduced widths.  Nothing is copied at DeepSeek-V3's r 512,
 rope 64.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
+
+Kernel 12 has two kernels, and ``chunk_variant`` picks one per call:
+``"wgmma"`` (bf16 pools at r 128 / 256 / 512, rope 32 / 64, pages of a
+multiple of 8 rows: the chunk's C*H rows as wgmma rows, the fp32
+queries and P each split into two bf16 terms; ``chunk_split_emulation``
+is its arithmetic in plain PyTorch) or ``"fma"`` (fp32 pools and every
+other width: the decode body, fp32 FMAs).  ``build.VARIANTS`` counts
+both.
 """
 from __future__ import annotations
 
@@ -49,6 +57,11 @@ NEG_INF = -1e30
 # and rope / 32 latent and rope features a lane
 RANKS = (32, 64, 128, 256, 512)
 ROPES = (32, 64)
+# kernel 12's wgmma variant: its widths, its page rows (a multiple of 8:
+# the TMA boxes of a page land on whole 8-row swizzle atoms), its key tile
+WGMMA_RANKS = (128, 256, 512)
+WGMMA_PAGE_ROWS = 8
+CHUNK_KEYS = 32
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -147,6 +160,77 @@ def vwr_mla_chunk_prefix_attend_q8_ref(q_abs, q_rope, ckv_pool, krope_pool,
     return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
 
 
+def chunk_variant(r, rope, page_size, dtype):
+    """The kernel that serves a ``vwr_mla_chunk_prefix_attend`` call at
+    the kernel's widths (after ``widths.at_widths``): "wgmma" or "fma"."""
+    if (str(dtype) == "torch.bfloat16" and r in WGMMA_RANKS
+            and rope in ROPES and page_size % WGMMA_PAGE_ROWS == 0
+            and page_size > 0):
+        return "wgmma"
+    return "fma"
+
+
+def _bf16_terms(x):
+    """x (fp32) as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
+    each returned as fp32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def chunk_key_tiles(table, counts, page_size):
+    """The wgmma variant's walk over the table: a list of key tiles, each
+    ``CHUNK_KEYS`` pool rows (page * page_size + row), -1 for a masked
+    slot.  A tile holds ``CHUNK_KEYS // seg`` segments of ``seg =
+    min(page_size, CHUNK_KEYS)`` rows of one page each; count-0 pages are
+    skipped; entries are clamped to [0, n_pages) by the caller."""
+    seg = min(page_size, CHUNK_KEYS)
+    rows = []
+    for j, page in enumerate(table):
+        cnt = min(int(counts[j]), page_size)
+        for o in range(0, max(cnt, 0), seg):
+            rows.append([page * page_size + o + i if o + i < cnt else -1
+                         for i in range(seg)])
+    per = CHUNK_KEYS // seg
+    tiles = []
+    for t in range(0, len(rows), per):
+        tile = [r for seg_rows in rows[t:t + per] for r in seg_rows]
+        tiles.append(tile + [-1] * (CHUNK_KEYS - len(tile)))
+    return tiles
+
+
+def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
+                          *, scale: float):
+    """Kernel 12's wgmma arithmetic in plain PyTorch (the tests hold it
+    against ``vwr_mla_chunk_prefix_attend_ref``): the queries times scale
+    and P each as two bf16 terms against the bf16 pools' values, fp32
+    products and sums, an fp32 online softmax over the kernel's key tiles.
+    Returns fp32 (o_tilde (C, H, r), m (C, H), l (C, H))."""
+    C, H, r = q_abs.shape
+    n_pages, ps = ckv_pool.shape[:2]
+    qa = [t.reshape(C * H, r) for t in _bf16_terms(q_abs.float() * scale)]
+    qr = [t.reshape(C * H, -1)
+          for t in _bf16_terms(q_rope.float() * scale)]
+    ckv = ckv_pool.bfloat16().float().reshape(n_pages * ps, r)
+    kr = krope_pool.bfloat16().float().reshape(n_pages * ps, -1)
+    tbl = table.long().clamp(0, n_pages - 1).tolist()
+    m = torch.full((C * H,), NEG_INF)
+    l = torch.zeros(C * H)
+    o = torch.zeros(C * H, r)
+    for tile in chunk_key_tiles(tbl, counts.tolist(), ps):
+        idx = torch.tensor([max(t, 0) for t in tile])
+        ok = torch.tensor([t >= 0 for t in tile])
+        kc, kp = ckv[idx], kr[idx]
+        s = sum(q @ kc.T for q in qa) + sum(q @ kp.T for q in qr)
+        s = torch.where(ok[None], s, NEG_INF)
+        mx = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - mx)
+        p = torch.where(ok[None], torch.exp(s - mx[:, None]), 0.0)
+        l = l * corr + p.sum(-1)
+        o = o * corr[:, None] + sum(t @ kc for t in _bf16_terms(p))
+        m = mx
+    return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
+
+
 # ----------------------------------------------------------------------
 # the kernels
 # ----------------------------------------------------------------------
@@ -203,14 +287,17 @@ def _kernel(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
     m = torch.empty((B, H), **f32)
     l = torch.empty((B, H), **f32)
     ptrs = [q_abs, q_rope, ckv, kr, *scales, *index, o_t, m, l]
-    lib, fn = build.kernel_fn("vwr_mla_decode", f"{kernel}_launch",
+    kind = (chunk_variant(r, rope, lead[1], ckv.dtype)
+            if kernel == "vwr_mla_chunk_prefix_attend" else None)
+    entry = kernel + ("_wgmma_launch" if kind == "wgmma" else "_launch")
+    lib, fn = build.kernel_fn("vwr_mla_decode", entry,
                               [_VP] * len(ptrs) + [_I] * 7
                               + [_F, _I, _VP])
     err = fn(*(t.data_ptr() for t in ptrs), B, H, r, rope, lead[0],
              lead[1], J if paged else n_keys, scale, code,
              build.stream_of(q_abs))
     build.check(lib, err, kernel)
-    build.count_launch(kernel)
+    build.count_launch(kernel, kind)
     return o_t, m, l
 
 
@@ -273,7 +360,8 @@ def vwr_mla_chunk_prefix_attend(q_abs, q_rope, ckv_pool, krope_pool, table,
     chunk's absorbed queries; pools (n_pages, page_size, r / rope) bf16 or
     fp32; table, counts (J,) int32 the chunk's prior pages, shared by its
     C tokens (the kernel clamps each entry it reads).  Returns fp32
-    (o_tilde (C, H, r), m (C, H), l (C, H))."""
+    (o_tilde (C, H, r), m (C, H), l (C, H)).  On the card ``chunk_variant``
+    picks the kernel (wgmma on bf16 pools at the widths it takes)."""
     if q_abs.device.type == "cpu":
         return vwr_mla_chunk_prefix_attend_ref(q_abs, q_rope, ckv_pool,
                                                krope_pool, table, counts,

@@ -398,3 +398,39 @@ def test_cuda_padded_wrappers_match_plain(cuda, dtype):
     close(KM.vwr_mla_chunk_prefix_attend(qa, qr, *lp, tbl, cnt, scale=0.2),
           KM.vwr_mla_chunk_prefix_attend_ref(qa, qr, *lp, tbl, cnt,
                                              scale=0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,f,k,bias,act,plan", [
+    (1, 9, 9, 512, 512, 3, True, "relu", None),     # RN_7x7 N 1: K split
+    (2, 9, 9, 96, 64, 3, True, "gelu", None),       # C 96: a ragged slice
+    (3, 9, 9, 64, 128, 3, False, "silu", None),     # W_out 7: tiles cross images
+    (3, 15, 15, 32, 64, 3, True, None, None),       # W_out 13
+    (2, 8, 8, 64, 64, 1, True, "relu", None),       # 1x1
+    (1, 12, 12, 32, 64, 5, False, None, None),      # 5x5
+    (1, 9, 9, 512, 512, 3, True, "relu", (64, 64, 5, 15)),  # uneven split
+])
+def test_cuda_conv_wgmma_matches_plain(cuda, n, h, w, c, f, k, bias, act,
+                                       plan):
+    """Kernel 16's wgmma variant (bf16) against its plain version at the
+    bf16 tolerance, counted as such, and bitwise equal over two
+    launches."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).bfloat16()
+    wt = (torch.randn(k, k, c, f, generator=g, device=cuda)
+          * (k * k * c) ** -0.5).bfloat16()
+    b = torch.randn(f, generator=g, device=cuda).bfloat16() if bias else None
+    assert K16.variant(n, h, w, c, k, k, f, x.dtype, True) == "wgmma"
+    build.reset_launches()
+    if plan is None:
+        got = K16.vwr_conv2d(x, wt, b, activation=act)
+        again = K16.vwr_conv2d(x, wt, b, activation=act)
+    else:
+        got = K16.launch(x, wt, b, act, "wgmma", plan)
+        again = K16.launch(x, wt, b, act, "wgmma", plan)
+    torch.cuda.synchronize()
+    assert build.VARIANTS["vwr_conv2d.wgmma"] == 2
+    torch.testing.assert_close(
+        got, K16.vwr_conv2d_ref(x, wt, b, activation=act), atol=1e-2,
+        rtol=1.6e-2)
+    assert torch.equal(got, again)

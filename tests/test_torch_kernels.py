@@ -333,3 +333,39 @@ def test_cuda_attention_wgmma_matches_plain(cuda, G, D):
         torch.testing.assert_close(got, KA.vwr_attention_ref(q, k, v),
                                    atol=1e-2, rtol=1.6e-2)
         assert torch.equal(got, KA.vwr_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,ps,counts", [
+    (3, 16, (16, 0, 16, 7)),        # a count-0 and a partial page
+    (1, 16, (16, 16, 5)),
+    (8, 64, (64, 50, 0, 64)),       # pages of 64: sub-tiled by 32 rows
+    (4, 8, (8, 3, 0, 8, 8)),        # pages of 8: four to a tile
+    (2, 16, (0, 0)),                # no valid key
+])
+def test_cuda_mla_chunk_wgmma_matches_plain(cuda, C, ps, counts):
+    """Kernel 12's wgmma variant on bf16 pools at DeepSeek-V3's widths
+    (H 128, r 512, rope 64) against its plain version at the kernel's
+    fp32 tolerance; a table entry past the pool (clamped); the variant
+    counted; bitwise equal over two launches."""
+    from repro_torch.kernels import vwr_mla_decode as KML
+    g = torch.Generator(device=cuda).manual_seed(12)
+    n_pages, H, r, rope = 16, 128, 512, 64
+    qa = torch.randn(C, H, r, generator=g, device=cuda)
+    qr = torch.randn(C, H, rope, generator=g, device=cuda)
+    pools = [torch.randn(n_pages, ps, w, generator=g, device=cuda).bfloat16()
+             for w in (r, rope)]
+    table = torch.randperm(n_pages, generator=g, device=cuda)[:len(counts)]
+    table = table.to(torch.int32)
+    table[-1] = n_pages + 3
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    args = (qa, qr, *pools, table, cnt)
+    build.reset_launches()
+    got = KML.vwr_mla_chunk_prefix_attend(*args, scale=0.07)
+    again = KML.vwr_mla_chunk_prefix_attend(*args, scale=0.07)
+    torch.cuda.synchronize()
+    assert build.VARIANTS["vwr_mla_chunk_prefix_attend.wgmma"] == 2
+    for a, b, c in zip(got, KML.vwr_mla_chunk_prefix_attend_ref(
+            *args, scale=0.07), again):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a, c)

@@ -120,8 +120,8 @@ def test_prefill_tiles_cover_the_sms_without_split():
 def test_variant_counters_reset_with_the_launch_counts():
     build.VARIANTS["vwr_matmul.splitk"] += 3
     build.reset_launches()
-    assert set(build.VARIANTS) == {"vwr_matmul.splitk", "vwr_matmul.wgmma",
-                                   "vwr_matmul.gemm"}
+    assert {k for k in build.VARIANTS if k.startswith("vwr_matmul.")} == {
+        "vwr_matmul.splitk", "vwr_matmul.wgmma", "vwr_matmul.gemm"}
     assert all(n == 0 for n in build.VARIANTS.values())
     x = torch.randn(4, 16)
     KM.vwr_matmul(x.bfloat16(), torch.eye(16).bfloat16())
