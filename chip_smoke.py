@@ -22,12 +22,22 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    those to ``gemm_kernel``), each case served by the variant the rule
    names and each new variant bitwise equal over two launches; the
    crossover timed at M 1-72 and the tensor maps' host encoding cost;
-   DeepSeek-V3's decode down projections timed; ``vwr_attention`` timed
+   DeepSeek-V3's decode down projections timed; ``vwr_swiglu`` the same
+   way (its wgmma variant reads wg and wi side by side, each case served
+   by the variant the rule names, bitwise over two launches; a batch-1
+   decode, the Scheduler's M 8, a mixed step's M 72 and DeepSeek-V3's
+   shared expert and dense layers timed, beside the 4-call library and
+   one cuBLAS product ``x @ [wg | wi]``; the wgmma tiles against the
+   WMMA kernel at M 1-72 and its plans tabled; the host's enqueue time
+   of a call on each kernel beside one ``torch.matmul``, and the tensor
+   maps' share of it);
+   ``vwr_attention`` timed
    at B1 S256 and S2048 (tinyllama widths) and S512 D128 (olmoe widths),
    and held at G 16, S 1 and S off the tile, bf16 bitwise over two
    launches; kernel 12 (the MLA chunk prefix) on bf16 pools by its
    wgmma variant (pages of 16 and 64, C 1, 3 and 64, partial and count-0
-   pages), on fp32 pools by the FMA kernel, each case served by the
+   pages), on fp32 pools by the FMA kernel, and kernel 15 on int8 pools
+   by its wgmma variant at the same cases, each case served by the
    variant ``chunk_variant`` names and each wgmma output bitwise equal
    over two launches;
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
@@ -35,7 +45,9 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    on the kernels (after one warm-up generate), with every launch counter
    set to 0 just before the timed generate and read just after (the
    prefill's products must run on the wgmma variant, each decode step's
-   down projection on the split-K one); then replay the same token stream teacher-forced
+   down projection on the split-K one, swiglu on wgmma at both; the
+   Scheduler and DeepSeek-V3 phases hold swiglu's variants too); then
+   replay the same token stream teacher-forced
    through the plain 'torch' backend and hold each step's logits to it
    (the random weights are rescaled to a well-conditioned model first),
    and run kernel 9 through ``dist.decode.local_decode_attend`` with
@@ -238,6 +250,228 @@ def _alt_plans(KM, kind, M, N, K):
     return [own] + [p for p in dict.fromkeys(alts) if p != own]
 
 
+def _swiglu_case(torch, F, KM, build, x, wg, wi, label, compare, record,
+                 timed, head):
+    """One ``vwr_swiglu`` call held against its plain version, served by
+    the variant the rule names (bf16 variants bitwise equal over two
+    launches); timed, its row gets the 4-call yardstick as the library
+    and, beside it, one cuBLAS product ``x @ [wg | wi]`` (what the two
+    products alone cost)."""
+    M, K = x.shape
+    N = wg.shape[1]
+    dt = x.dtype
+    shape = f"{M}x{K}x{N}"
+    kind = KM.swiglu_variant(M, N, K, dt, True)
+    before = dict(build.VARIANTS)
+    got = KM.vwr_swiglu(x, wg, wi)
+    torch.cuda.synchronize()
+    served = [k for k, n in build.VARIANTS.items() if n != before[k]]
+    if served != [f"vwr_swiglu.{kind}"]:
+        raise AssertionError(f"vwr_swiglu {shape}: the rule picks {kind}, "
+                             f"the wrapper launched {served}")
+    if (K % 8 or N % 8 or dt == torch.float32) and kind != "gemm":
+        raise AssertionError(f"vwr_swiglu {shape}: {kind} cannot take this "
+                             "shape")
+    err = compare(f"vwr_swiglu {kind}", shape, dt, got,
+                  KM.vwr_swiglu_ref(x, wg, wi))
+    if kind != "gemm" and not torch.equal(got, KM.vwr_swiglu(x, wg, wi)):
+        raise AssertionError(f"vwr_swiglu {kind} {shape}: two launches "
+                             "differ")
+    if timed:
+        record("vwr_swiglu", label, shape, dt, err,
+               lambda: KM.vwr_swiglu(x, wg, wi),
+               lambda: KM.vwr_swiglu_ref(x, wg, wi),
+               lambda: F.silu(x @ wg) * (x @ wi),
+               4 * M * K * N,
+               x.element_size() * (M * K + 2 * K * N + M * N), head)
+        w_cat = torch.cat([wg, wi], 1)
+        row = record.rows[-1]
+        row["variant"] = kind
+        row["cat_ms"] = time_ms(torch, lambda: x @ w_cat)
+        print(f"      variant {kind}; one cuBLAS x @ [wg | wi] "
+              f"{row['cat_ms']:.4f} ms")
+        del w_cat
+
+
+def check_swiglu(torch, F, gen, randn, compare, record):
+    """``vwr_swiglu`` (kernel 2) at the main path's shapes, each served by
+    the variant ``swiglu_variant`` names (wgmma tiles for bf16,
+    ``gemm_kernel`` for fp32 and K or N off 8), the wgmma output bitwise
+    over two launches; then, on inputs of their own generator (so every
+    later case draws what it drew before), a batch-1 decode, the
+    Scheduler's M 8, a mixed step's M 72 and DeepSeek-V3's shapes timed,
+    the wgmma tiles against ``gemm_kernel`` (the WMMA kernel bf16 swiglu
+    ran before them) and the library at M 1-72, the wgmma plans, and the
+    host's enqueue time of a call on each kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_matmul as KM
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("vwr_swiglu")
+    sw_cases = [
+        ("tinyllama gate/up", 512, 2048, 5632, bf16, True, True),
+        ("tinyllama decode", 4, 2048, 5632, bf16, True, False),
+        ("qwen gate/up", 512, 1024, 2816, bf16, True, False),
+        ("fp32", 64, 256, 512, f32, False, False),
+        ("ragged", 37, 100, 70, f32, False, False),
+        ("ragged", 37, 104, 72, bf16, False, False),
+    ]
+    for label, M, K, N, dt, timed, head in sw_cases:
+        x = randn(M, K, dtype=dt)
+        wg = randn(K, N, dtype=dt, scale=K ** -0.5)
+        wi = randn(K, N, dtype=dt, scale=K ** -0.5)
+        _swiglu_case(torch, F, KM, build, x, wg, wi, label, compare, record,
+                     timed, head)
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(bf16)
+
+    for label, M, K, N, timed in (
+            ("Scheduler decode (8 slots)", 8, 2048, 5632, True),
+            ("mixed step (8 slots + 64-token chunk)", 72, 2048, 5632, True),
+            ("qwen decode", 4, 1024, 2816, True),
+            ("deepseek-v3 shared expert", 4, 7168, 2048, True),
+            ("deepseek-v3 dense layers", 4, 7168, 18432, True),
+            ("batch-1 decode", 1, 2048, 5632, True),
+            ("wgmma, M 2, K off 64, N off 64", 2, 1000, 136, False),
+            ("wgmma, N off 64", 300, 1000, 200, False),
+            ("wgmma, M and N under a tile", 3, 512, 40, False),
+            ("wgmma, M 2, N under a strip", 2, 512, 40, False)):
+        _swiglu_case(torch, F, KM, build, rand(M, K),
+                     rand(K, N, scale=K ** -0.5), rand(K, N, scale=K ** -0.5),
+                     label, compare, record, timed, False)
+
+    # the wgmma tiles against the WMMA kernel at tinyllama's K and N
+    print("  swiglu by M (K 2048, N 5632; ms): M, gemm (WMMA), wgmma, "
+          "library (4 calls), cuBLAS x @ [wg | wi]")
+    K, N = 2048, 5632
+    wg, wi = rand(K, N, scale=K ** -0.5), rand(K, N, scale=K ** -0.5)
+    w_cat = torch.cat([wg, wi], 1)
+    for M in (1, 2, 3, 4, 5, 8, 16, 32, 64, 72):
+        x = rand(M, K)
+        want = KM.vwr_swiglu_ref(x, wg, wi)
+        row = {"kernel": "vwr_swiglu by M", "M": M,
+               "bound_ms": bound_ms(4 * M * K * N,
+                                    2 * (M * K + 2 * K * N + M * N),
+                                    "bfloat16")}
+        for kind in ("gemm", "wgmma"):
+            compare(f"vwr_swiglu {kind}", f"{M}x{K}x{N}", bf16,
+                    KM.swiglu_launch(x, wg, wi, kind), want)
+            row[f"{kind}_ms"] = time_ms(
+                torch, lambda: KM.swiglu_launch(x, wg, wi, kind))
+        row["library_ms"] = time_ms(torch,
+                                    lambda: F.silu(x @ wg) * (x @ wi))
+        row["cat_ms"] = time_ms(torch, lambda: x @ w_cat)
+        row["rule"] = KM.swiglu_variant(M, N, K, bf16, True)
+        record.rows.append(row)
+        print(f"    M {M:3d}: {row['gemm_ms']:.4f} {row['wgmma_ms']:.4f} "
+              f"{row['library_ms']:.4f} {row['cat_ms']:.4f} "
+              f"(rule: {row['rule']})")
+    del w_cat
+    # the plans behind the rule: each variant's plan (first) against the
+    # alternatives, the wgmma tiles' 128-column strips among them
+    print("  swiglu wgmma plans (ms; (bm, bn, splits, steps)):")
+    for M, K, N in ((512, 2048, 5632), (512, 1024, 2816), (72, 2048, 5632),
+                    (4, 2048, 5632), (4, 7168, 18432), (1, 2048, 5632)):
+        x = rand(M, K)
+        wg, wi = rand(K, N, scale=K ** -0.5), rand(K, N, scale=K ** -0.5)
+        want = KM.vwr_swiglu_ref(x, wg, wi)
+        row = {"kernel": "vwr_swiglu plans", "variant": "wgmma",
+               "shape": f"{M}x{K}x{N}", "plans": []}
+        for plan in _swiglu_plans(KM, M, N, K):
+            compare("vwr_swiglu wgmma", f"{M}x{K}x{N} {plan}", bf16,
+                    KM.swiglu_launch(x, wg, wi, "wgmma", plan), want)
+            ms = time_ms(torch, lambda: KM.swiglu_launch(x, wg, wi, "wgmma",
+                                                         plan))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["library_ms"] = time_ms(torch,
+                                    lambda: F.silu(x @ wg) * (x @ wi))
+        record.rows.append(row)
+        print(f"    {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; library {row['library_ms']:.4f}")
+        del x, wg, wi, want
+    _swiglu_enqueue(torch, F, KM, rand, record)
+
+
+def _enqueue_us(torch, fn, reps=200):
+    """Host microseconds a call of ``fn`` takes to return (the mean of
+    ``reps`` back to back after a warm-up, the device's work not waited
+    for), and the same with the device's work waited for at the end."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return 1e6 * (t1 - t0) / reps, 1e6 * (t2 - t0) / reps
+
+
+def _swiglu_enqueue(torch, F, KM, rand, record):
+    """The host's time to enqueue one swiglu call at a decode step's shape
+    (and a tiny one): ``gemm_kernel`` (the WMMA kernel bf16 swiglu ran
+    before the wgmma tiles) and the wgmma tiles through ``swiglu_launch``,
+    the operand checks with the ``gemm_kernel`` launch (the wrapper bf16
+    swiglu had before the wgmma tiles), the whole wrapper (``vwr_swiglu``:
+    the checks, the rule, the wgmma launch), one ``torch.matmul`` and the
+    4-call library, in three rounds; and the wgmma variant's three tensor
+    maps' share of it (``encode_us``)."""
+    from repro_torch.kernels import build
+
+    def checked_gemm(x, wg, wi):
+        M, K = x.shape
+        N = wg.shape[1]
+        build.check_operands("vwr_swiglu", x.dtype, x=(x, (M, K)),
+                             wg=(wg, (K, N)), wi=(wi, (K, N)))
+        return KM.swiglu_launch(x, wg, wi, "gemm")
+
+    print("  swiglu host enqueue (us a call; enqueue, and with the device):")
+    for M, K, N in ((4, 2048, 5632), (4, 64, 64)):
+        x = rand(M, K)
+        wg, wi = rand(K, N, scale=K ** -0.5), rand(K, N, scale=K ** -0.5)
+        calls = {
+            "gemm": lambda: KM.swiglu_launch(x, wg, wi, "gemm"),
+            "wgmma": lambda: KM.swiglu_launch(x, wg, wi, "wgmma"),
+            "checks + gemm": lambda: checked_gemm(x, wg, wi),
+            "vwr_swiglu": lambda: KM.vwr_swiglu(x, wg, wi),
+            "torch.matmul": lambda: torch.matmul(x, wg),
+            "library": lambda: F.silu(x @ wg) * (x @ wi),
+        }
+        row = {"kernel": "vwr_swiglu enqueue", "shape": f"{M}x{K}x{N}",
+               **{k: [] for k in calls}}
+        for _ in range(3):
+            for name, fn in calls.items():
+                row[name].append(_enqueue_us(torch, fn))
+        row["encode_us"] = KM.encode_us(x, wg, weights=2)
+        record.rows.append(row)
+        for name in calls:
+            print(f"    {row['shape']} {name}: " + ", ".join(
+                f"{a:.2f} / {b:.2f}" for a, b in row[name]))
+        print(f"    {row['shape']} wgmma tensor maps (x, wg, wi): "
+              f"{row['encode_us']:.3f} us a call")
+        del x, wg, wi
+
+
+def _swiglu_plans(KM, M, N, K):
+    """The wgmma variant's own plan, then others of the same form: 64- or
+    128-row tiles on 64- or 128-column strips, K in 1, 2 or 4 slices up
+    to 128 rows (whole above, as ``tile_plan``)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    own, kt = KM.swiglu_tile_plan(M, N, K), cdiv(K, KM.TILE_BK)
+    alts = [(bm, bn, cdiv(kt, cdiv(kt, ns)), cdiv(kt, ns))
+            for bn in KM.SWIGLU_TILE_BNS for bm in (64, 128)
+            for ns in ((1, 2, 4) if M <= 128 else (1,)) if kt // ns >= 4]
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
 def check_kernels(torch, F):
     from repro_torch.kernels import build
     from repro_torch.kernels import vwr_attention as KA
@@ -416,31 +650,7 @@ def check_kernels(torch, F):
           "(host)")
 
     # ---- vwr_swiglu: silu(x @ wg) * (x @ wi) ----
-    print("vwr_swiglu")
-    sw_cases = [
-        ("tinyllama gate/up", 512, 2048, 5632, bf16, True, True),
-        ("tinyllama decode", 4, 2048, 5632, bf16, True, False),
-        ("qwen gate/up", 512, 1024, 2816, bf16, True, False),
-        ("fp32", 64, 256, 512, f32, False, False),
-        ("ragged", 37, 100, 70, f32, False, False),
-        ("ragged", 37, 104, 72, bf16, False, False),
-    ]
-    for label, M, K, N, dt, timed, head in sw_cases:
-        x = randn(M, K, dtype=dt)
-        wg = randn(K, N, dtype=dt, scale=K ** -0.5)
-        wi = randn(K, N, dtype=dt, scale=K ** -0.5)
-        shape = f"{M}x{K}x{N}"
-        got = KM.vwr_swiglu(x, wg, wi)
-        torch.cuda.synchronize()
-        err = compare("vwr_swiglu", shape, dt, got,
-                      KM.vwr_swiglu_ref(x, wg, wi))
-        if timed:
-            record("vwr_swiglu", label, shape, dt, err,
-                   lambda: KM.vwr_swiglu(x, wg, wi),
-                   lambda: KM.vwr_swiglu_ref(x, wg, wi),
-                   lambda: F.silu(x @ wg) * (x @ wi),
-                   4 * M * K * N,
-                   x.element_size() * (M * K + 2 * K * N + M * N), head)
+    check_swiglu(torch, F, gen, randn, compare, record)
 
     # ---- vwr_attention: causal, zero-copy GQA ----
     print("vwr_attention")
@@ -870,9 +1080,9 @@ def check_mla_kernels(torch, F, gen, compare, record):
     # kernels 12 and 15: a prompt chunk's C tokens against its prior
     # pages, one (J,) table; each case's last table entry lies past the
     # pool (the kernel clamps it to the last page, as the plain version).
-    # Kernel 12 on bf16 pools runs its wgmma variant (chunk_variant), on
-    # fp32 pools the FMA kernel; each wgmma output is bitwise equal over
-    # two launches.
+    # Kernel 12 on bf16 pools and kernel 15 on int8 pools run their wgmma
+    # variant (chunk_variant), kernel 12 on fp32 pools the FMA kernel; each
+    # wgmma output is bitwise equal over two launches.
     from repro_torch.kernels import build
 
     chunk_cases = [
@@ -910,22 +1120,20 @@ def check_mla_kernels(torch, F, gen, compare, record):
             before = dict(build.VARIANTS)
             got = fn(*args, scale=SCALE)
             torch.cuda.synchronize()
-            kind = None
-            if not q8:
-                kind = KM.chunk_variant(R, RP, pgs, dt)
-                served = [k.split(".")[1] for k, v in build.VARIANTS.items()
-                          if k.startswith(kname + ".") and v != before[k]]
-                if served != [kind]:
-                    raise AssertionError(f"{kname} {shape}: the rule picks "
-                                         f"{kind}, the wrapper launched "
-                                         f"{served}")
-                if kind == "wgmma" and not all(
-                        torch.equal(a, b) for a, b in
-                        zip(got, fn(*args, scale=SCALE))):
-                    raise AssertionError(f"{kname} wgmma {shape}: two "
-                                         "launches differ")
-            err = compare(kname + (f" {kind}" if kind else ""), shape, f32,
-                          got, ref(*args, scale=SCALE))
+            kind = KM.chunk_variant(R, RP, pgs, pools[0].dtype)
+            served = [k.split(".")[1] for k, v in build.VARIANTS.items()
+                      if k.startswith(kname + ".") and v != before[k]]
+            if served != [kind]:
+                raise AssertionError(f"{kname} {shape}: the rule picks "
+                                     f"{kind}, the wrapper launched "
+                                     f"{served}")
+            if kind == "wgmma" and not all(
+                    torch.equal(a, b) for a, b in
+                    zip(got, fn(*args, scale=SCALE))):
+                raise AssertionError(f"{kname} wgmma {shape}: two "
+                                     "launches differ")
+            err = compare(f"{kname} {kind}", shape, f32, got,
+                          ref(*args, scale=SCALE))
             if not any(cnts) and (got[2].abs().max().item() != 0.0
                                   or got[0].abs().max().item() != 0.0
                                   or got[1].max().item() > -1e29):
@@ -953,15 +1161,15 @@ def check_mla_kernels(torch, F, gen, compare, record):
                     return library(qa.reshape(1, C * H, R),
                                    qr.reshape(1, C * H, RP), *kv, valid)()
                 # the wgmma variant's operations are bf16 (the fp32
-                # queries and P as two bf16 terms); the others' fp32
+                # queries and P as two bf16 terms, int8 keys exact in
+                # bf16); the FMA kernel's fp32
                 record(kname, label, shape, dt, err,
                        lambda: fn(*args, scale=SCALE),
                        lambda: ref(*args, scale=SCALE), gathered,
                        2 * C * H * n_keys * (2 * R + RP), nbytes, head,
                        op_dtype=bf16 if kind == "wgmma" else f32)
-                if kind:
-                    record.rows[-1]["variant"] = kind
-                    print(f"      variant {kind}")
+                record.rows[-1]["variant"] = kind
+                print(f"      variant {kind}")
 
     # the reduced configs' widths (r 16, rope 8: zero-padded to 32 / 32 by
     # the wrappers), every MLA kernel once, against its plain version
@@ -1339,7 +1547,7 @@ def _paged_sdpa(torch, F, q, pools, scales, table, counts, KV, G, D):
 def serve(torch, name, gen, expected_launches, expected_variants,
           kernel9=False):
     """Full-width generate on the kernels (launches counted, and
-    ``vwr_matmul``'s per variant), then the
+    ``vwr_matmul``'s and ``vwr_swiglu``'s per variant), then the
     same token stream teacher-forced through the plain backend; with
     ``kernel9``, kernel 9 over the kernel path's dense cache after the
     stream (``dense_kernel9``)."""
@@ -1371,9 +1579,9 @@ def serve(torch, name, gen, expected_launches, expected_variants,
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     variants = {k: n for k, n in build.VARIANTS.items()
-                if k.startswith("vwr_matmul.")}
+                if k.startswith(("vwr_matmul.", "vwr_swiglu."))}
     print(f"  launches in generate: {launches}")
-    print(f"  vwr_matmul by variant: {variants}")
+    print(f"  vwr_matmul / vwr_swiglu by variant: {variants}")
     for k, n in {**expected_launches, **expected_variants}.items():
         got = launches[k] if k in launches else variants[k]
         if got != n:
@@ -1630,6 +1838,25 @@ def _drive(sched, reqs):
     return sched.results()
 
 
+def _swiglu_variants(torch, what, L, prefills, steps, passes=None):
+    """``vwr_swiglu``'s launches by variant over a Scheduler stream (the
+    counts since the last reset), held: every whole-prompt prefill (or,
+    with chunks or suffixes, every pass of them: ``passes``) and every
+    decode step on the wgmma tiles, L launches each.  Returns the
+    counts."""
+    from repro_torch.kernels import build
+
+    got = {k: n for k, n in build.VARIANTS.items()
+           if k.startswith("vwr_swiglu.")}
+    print(f"    vwr_swiglu by variant: {got}")
+    runs = (prefills if passes is None else passes) + steps
+    want = {"vwr_swiglu.wgmma": L * runs, "vwr_swiglu.gemm": 0}
+    if got != want:
+        raise AssertionError(f"{what}: vwr_swiglu by variant {got}, "
+                             f"expected {want}")
+    return got
+
+
 def serve_scheduler(torch, kv_dtype, params=None):
     """Full-width tinyllama-1.1b through the Scheduler on the kernels:
     the stream above, launch counts checked, the stream again with
@@ -1680,6 +1907,8 @@ def serve_scheduler(torch, kv_dtype, params=None):
         if launches[k] != n:
             raise AssertionError(f"scheduler {kv_dtype}: {k} launched "
                                  f"{launches[k]} times, expected {n}")
+    swiglu = _swiglu_variants(torch, f"scheduler {kv_dtype}", L,
+                              st["prefills"], st["steps"])
     bad = {rid: r.status for rid, r in out.items()
            if r.status is not RequestStatus.FINISHED or len(r) != GEN}
     if len(out) != N_REQ or bad:
@@ -1699,7 +1928,7 @@ def serve_scheduler(torch, kv_dtype, params=None):
         "gen_tok_s": n_tok / wall,
         "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
         "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
-        "launches": launches}
+        "launches": launches, "swiglu_variants": swiglu}
     print(f"  steps {st['steps']}, prefills {st['prefills']}, preempted "
           f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
           f"table widths {summary['table_widths']}")
@@ -2550,11 +2779,16 @@ def deepseek_generate(torch, eng, ref, routes, gen=32):
     want = {k: 0 for k in launches}
     want.update(vwr_mla_flash_decode=L * (gen - 1), vwr_swiglu=L * gen,
                 vwr_matmul=L * gen)
+    swiglu = {k: n for k, n in build.VARIANTS.items()
+              if k.startswith("vwr_swiglu.")}
+    # the prefill's rows (B x P) and each step's (B, 4) on wgmma tiles
+    want_sw = {"vwr_swiglu.wgmma": L * gen, "vwr_swiglu.gemm": 0}
     print(f"  generate batch {B}, prompt {P}, gen {gen}: launches "
-          f"{ {k: v for k, v in launches.items() if v} }")
-    if launches != want:
-        raise AssertionError(f"deepseek generate: launches {launches}, "
-                             f"expected {want}")
+          f"{ {k: v for k, v in launches.items() if v} }; vwr_swiglu by "
+          f"variant {swiglu}")
+    if launches != want or swiglu != want_sw:
+        raise AssertionError(f"deepseek generate: launches {launches} "
+                             f"{swiglu}, expected {want} {want_sw}")
     if tokens.shape != (B, gen) or not bool(
             ((tokens >= 0) & (tokens < vocab)).all()):
         raise AssertionError(f"deepseek: bad tokens {tokens.shape}")
@@ -2599,7 +2833,8 @@ def deepseek_generate(torch, eng, ref, routes, gen=32):
           "tokens and decode rows)")
     del cr
     return {"batch": B, "prompt": P, "gen": gen, "launches": launches,
-            "expert_sets_differ": diff_rows, **summary, **stats}, cc
+            "swiglu_variants": swiglu, "expert_sets_differ": diff_rows,
+            **summary, **stats}, cc
 
 
 def deepseek_kernel14(torch, cfg, cache, cur_len):
@@ -2710,6 +2945,9 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,
     if launches != want:
         raise AssertionError(f"deepseek scheduler {tag}: launches "
                              f"{launches}, expected {want}")
+    swiglu = _swiglu_variants(torch, f"deepseek scheduler {tag}", L,
+                              st["prefills"], st["steps"],
+                              passes if prefix_chunked else None)
     bad = {rid: r.status for rid, r in out.items()
            if r.status is not RequestStatus.FINISHED or len(r) != GEN}
     if len(out) != N_REQ or bad:
@@ -2736,7 +2974,8 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,
         "generated_tokens": n_tok, "wall_s": wall,
         "gen_tok_s": n_tok / wall, "latency_p50_s": lat["p50"],
         "latency_p99_s": lat["p99"], "itl_p50_s": itl["p50"],
-        "itl_p99_s": itl["p99"], "launches": launches}
+        "itl_p99_s": itl["p99"], "launches": launches,
+        "swiglu_variants": swiglu}
     print(f"    steps {st['steps']}, prefills {st['prefills']}, preempted "
           f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
           f"table widths {summary['table_widths']}")
@@ -3143,11 +3382,13 @@ def main() -> int:
 
     def variants(cfg_layers, gen):
         """The prefill's 5 products a layer (M = batch x prompt) take
-        wgmma tiles, each decode step's down projection (M = batch) the
-        split-K variant."""
+        wgmma tiles, each decode step's down projection (M = batch, 4)
+        the split-K variant; swiglu takes wgmma tiles at both."""
         return {"vwr_matmul.wgmma": 5 * cfg_layers,
                 "vwr_matmul.splitk": cfg_layers * (gen - 1),
-                "vwr_matmul.gemm": 0}
+                "vwr_matmul.gemm": 0,
+                "vwr_swiglu.wgmma": cfg_layers * gen,
+                "vwr_swiglu.gemm": 0}
 
     fp32 = {n: serve_reduced_fp32(torch, n)
             for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}

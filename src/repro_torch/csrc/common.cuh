@@ -4,6 +4,7 @@
 
 #include <cuda.h>  // CUtensorMap (types only: nothing links -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +62,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 // nearest even).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats as one f16x2 register, `lo` in the low half (rounded to
+// nearest even).
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -328,22 +336,31 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // + 8, columns 8j + 2 (t%4) and + 1, as d[4j + 0..3]).  ss: A and B by
 // shared-memory descriptors, A K-major; rs: A from registers (four bf16x2
 // a thread, the layout of mma.m16n8k16's A).  TB: 1 when B is MN-major
-// (N contiguous), 0 when K-major.
+// (N contiguous), 0 when K-major.  F16 (n32 and the rs forms): both
+// operands fp16 instead, in the same layouts.
 
-template <int TB>
+#define REPRO_WGMMA_N32(TYPES)                                                \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPES " {"                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15"                                                                   \
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15])                                                           \
+      : "l"(da), "l"(db), "r"(1), "n"(TB))
+
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n32(
     float (&d)[16], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15"
-      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+  if constexpr (F16)
+    REPRO_WGMMA_N32("f16.f16");
+  else
+    REPRO_WGMMA_N32("bf16.bf16");
 }
+#undef REPRO_WGMMA_N32
 
 template <int TB>
 __device__ __forceinline__ void wgmma_ss_n64(
@@ -393,57 +410,71 @@ __device__ __forceinline__ void wgmma_ss_n128(
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-template <int TB>
+#define REPRO_WGMMA_RS_N64(TYPES)                                             \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPES " {"                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31"                                                    \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31])                                              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),         \
+        "n"(TB))
+
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n64(
     float (&d)[32], const uint32_t (&a)[4],
     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-      "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (F16)
+    REPRO_WGMMA_RS_N64("f16.f16");
+  else
+    REPRO_WGMMA_RS_N64("bf16.bf16");
 }
+#undef REPRO_WGMMA_RS_N64
 
-template <int TB>
+#define REPRO_WGMMA_RS_N128(TYPES)                                            \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPES " {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                      \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),      \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),      \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),         \
+        "n"(TB))
+
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n128(
     float (&d)[64], const uint32_t (&a)[4],
     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (F16)
+    REPRO_WGMMA_RS_N128("f16.f16");
+  else
+    REPRO_WGMMA_RS_N128("bf16.bf16");
 }
+#undef REPRO_WGMMA_RS_N128
 
 // ---- split reductions and the bf16 epilogue (vwr_matmul's split-K and
 // tile kernels, vwr_conv2d's wgmma kernel): a block that owns one K slice
@@ -535,6 +566,61 @@ __device__ void finish_tile(const float* ws, int* counter, int nsplit, int M,
   if (tid == 0) *counter = 0;
 }
 
+// ---- vwr_swiglu's epilogue on the same split reductions: the partials of
+// a tile are g and h in planes of M x 2N (g at column n, h at N + n) ----
+
+// silu(g) * h in fp32, then one cast, for columns n and n + 1 of row m
+// (n even, N % 8 == 0: one 4-byte store).
+__device__ __forceinline__ void swiglu_pair(__nv_bfloat16* out, int m, int n,
+                                            int N, float g0, float g1,
+                                            float h0, float h1) {
+  *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+      __floats2bfloat162_rn(silu(g0) * h0, silu(g1) * h1);
+}
+
+// Four consecutive fp32 partials at `p` of each of `nsplit` planes,
+// summed in split order, FIN loads in flight before the adds.
+__device__ __forceinline__ float4 sum_splits(const float* p, size_t plane,
+                                             int nsplit) {
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int j0 = 0; j0 < nsplit; j0 += FIN) {
+    float4 t[FIN];
+#pragma unroll
+    for (int u = 0; u < FIN; ++u)
+      t[u] = j0 + u < nsplit
+                 ? __ldcg(reinterpret_cast<const float4*>(p + (j0 + u) * plane))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int u = 0; u < FIN; ++u) {
+      s.x += t[u].x;
+      s.y += t[u].y;
+      s.z += t[u].z;
+      s.w += t[u].w;
+    }
+  }
+  return s;
+}
+
+// finish_tile for vwr_swiglu: rows [m0, m0 + bm) x output columns [n0, n0
+// + bn), g and h each summed in split order, then silu(g) * h; the tile's
+// counter goes back to 0.
+__device__ void finish_swiglu_tile(const float* ws, int* counter, int nsplit,
+                                   int M, int N, int m0, int bm, int n0,
+                                   int bn, __nv_bfloat16* out, int tid,
+                                   int nthreads) {
+  const size_t plane = (size_t)M * 2 * N;
+  for (int i = tid; i < bm * bn / 4; i += nthreads) {
+    const int m = m0 + i / (bn / 4), n = n0 + 4 * (i % (bn / 4));
+    if (m >= M || n >= N) continue;
+    const float* p = ws + (size_t)m * 2 * N + n;
+    const float4 g = sum_splits(p, plane, nsplit);
+    const float4 h = sum_splits(p + N, plane, nsplit);
+    swiglu_pair(out, m, n, N, g.x, g.y, h.x, h.y);
+    swiglu_pair(out, m, n + 2, N, g.z, g.w, h.z, h.w);
+  }
+  if (tid == 0) *counter = 0;
+}
+
 // ---- host: tensor maps ----
 
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry
@@ -579,6 +665,27 @@ inline int encode_rows(CUtensorMap* map, const void* base, int rows,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// encode_rows' sibling for a row-major int8 (rows, cols) matrix: 2-d boxes
+// of box_rows x box_cols (box_cols * 1 byte a multiple of 16, at most
+// 256), no swizzle (the tile is read by the threads that convert it, not
+// by wgmma); columns past `cols` read as zeros.
+inline int encode_rows_i8(CUtensorMap* map, const void* base, int rows,
+                          int cols, int box_rows, int box_cols) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -4,7 +4,8 @@
 //           (act(x @ w + bias) + residual) and vwr_swiglu_p
 //           (silu(x @ wg) * (x @ wi)).
 //
-// Three kernels; kernels/vwr_matmul.py `variant` picks one per call:
+// Three kernels for vwr_matmul, two for vwr_swiglu;
+// kernels/vwr_matmul.py `variant` (`swiglu_variant`) picks one per call:
 //
 // 1. splitk_kernel (bf16 vwr_matmul, M <= the crossover, 4: decode).
 //    Bound by the weight's bytes: 4x5632x2048 reads 23 MB for 92 MFLOP.
@@ -19,37 +20,47 @@
 //    Partials go to an fp32 workspace; the last block of a strip to finish
 //    (an int32 counter a strip, reset to 0 by that block) sums them in
 //    split order and runs the epilogue, so a call is one launch and its
-//    result is bitwise reproducible.
-// 2. tile_kernel (bf16 vwr_matmul, larger M: prefill and mixed steps).
-//    Bound by operations at prefill (512x5632x2048: ~11.8 GFLOP against
-//    ~30 MB).  One producer warp keeps a 192 KB ring of x (K-major, box 64
-//    x BM) and w (MN-major, two 64 x 64 boxes) tiles full by TMA with the
-//    128-byte swizzle, completing on mbarriers; one or two consumer
-//    warpgroups run wgmma m64n128k16 on them (B transposed, as w lies N-
-//    contiguous) with fp32 accumulators in registers.  The epilogue (bias
-//    -> act -> residual -> cast) runs once the tile is staged in the idle
-//    ring, in one short loop with row-contiguous stores (unrolled over the
-//    registers, 32 inlined copies of it were a large fixed cost a block).
-//    The wrapper's tile rule (tile_plan) takes one 128-row tile a column
-//    strip up to 128 rows, so the weight is read once, with K split (the
-//    same last-block reduction as kernel 1) to ~64 blocks; past 128 rows,
-//    128-row tiles where they fill the SMs, else 64-row ones.  Ragged M,
-//    N and the K tail arrive zero-filled from TMA; the stores are masked.
-//    The tensor maps are encoded on the host at each call, through the
-//    driver entry point (no -lcuda).
-// 3. gemm_kernel: fp32 vwr_matmul, every shape the other two cannot take
-//    (K or N not a multiple of 8: TMA and the 16-byte loads need 16-byte
-//    rows), and vwr_swiglu in both types.  One 128-thread block per 64x64
-//    output tile; the K axis is a loop inside the block, stepping 32
-//    (bf16) or 16 (fp32) at a time through shared memory.  bf16 tiles go
-//    through WMMA 16x16x16 (fp32 accumulate); fp32 tiles through an fp32
-//    FMA loop (no TF32, so fp32 results match a plain fp32 product to
-//    rounding).  The next K tile is fetched into registers while the
-//    current one multiplies.  The epilogue runs on the fp32 accumulators
-//    staged in shared memory: bias -> activation -> residual -> cast (or
-//    silu(g) * h for swiglu, both in fp32), one store an element; ragged
-//    edges are masked in the loads and the store.  Swiglu feeds one staged
-//    x tile to two accumulators.
+//    result is bitwise reproducible.  Swiglu has no split-K variant: its
+//    wgmma tiles, on one 64-row tile, stream wg and wi as fast at M 1-2
+//    on some shapes and faster on others (PERF.md), so every bf16 swiglu
+//    takes them.
+// 2. tile_kernel (bf16, larger M: prefill, mixed steps; every bf16
+//    swiglu).  Bound by operations at prefill (512x5632x2048: ~11.8 GFLOP
+//    against ~30 MB; swiglu 512x2048x5632: 23.6 GFLOP).  One producer warp
+//    keeps a 192 KB ring of x (K-major, box 64 x BM) and w (MN-major, 64 x
+//    64 boxes) tiles full by TMA with the 128-byte swizzle, completing on
+//    mbarriers; one or two consumer warpgroups run wgmma m64n128k16 on them
+//    (B transposed, as w lies N-contiguous) with fp32 accumulators in
+//    registers.  vwr_matmul loads w's boxes at n0 and n0 + 64; swiglu loads
+//    wg's box and wi's box at the same n0, so one n128 product leaves g in
+//    accumulator columns 0-63 and h in 64-127 of 64 output columns (or, on
+//    128-column strips, two boxes of each and two n128 products).  The
+//    epilogue (bias -> act -> residual -> cast, or silu(g) * h) runs once
+//    the tile is staged in the idle ring, in one short loop with
+//    row-contiguous stores (unrolled over the registers, 32 inlined copies
+//    of it were a large fixed cost a block).  The wrapper's tile rule
+//    (tile_plan) takes one 128-row tile a column strip up to 128 rows, so
+//    the weight is read once, with K split (the same last-block reduction
+//    as kernel 1) to ~64 blocks; past 128 rows, 128-row tiles where they
+//    fill the SMs, else 64-row ones.  Swiglu's (swiglu_tile_plan) is
+//    tile_plan's of the product of width 2N up to 128 rows, on one 64-row
+//    tile up to 64 rows, and 128-row tiles on 128-column strips past 128
+//    rows (measured, PERF.md).  Ragged M, N and the K tail arrive
+//    zero-filled from TMA; the stores are masked.  The tensor maps are
+//    encoded on the host at each call, through the driver entry point (no
+//    -lcuda).
+// 3. gemm_kernel: fp32, and every shape the other two cannot take (K or N
+//    not a multiple of 8: TMA and the 16-byte loads need 16-byte rows).
+//    One 128-thread block per 64x64 output tile; the K axis is a loop
+//    inside the block, stepping 32 (bf16) or 16 (fp32) at a time through
+//    shared memory.  bf16 tiles go through WMMA 16x16x16 (fp32
+//    accumulate); fp32 tiles through an fp32 FMA loop (no TF32, so fp32
+//    results match a plain fp32 product to rounding).  The next K tile is
+//    fetched into registers while the current one multiplies.  The
+//    epilogue runs on the fp32 accumulators staged in shared memory: bias
+//    -> activation -> residual -> cast (or silu(g) * h for swiglu, both in
+//    fp32), one store an element; ragged edges are masked in the loads and
+//    the store.  Swiglu feeds one staged x tile to two accumulators.
 //
 // Every variant accumulates in fp32 and casts once, as the Pallas kernel.
 #include <mma.h>
@@ -465,38 +476,49 @@ int splitk_launch(const void* x, const void* w, const void* bias,
 
 constexpr int TG_BN = 128, TG_BK = 64;
 constexpr int TG_B_BOX = TG_BK * 64 * 2;  // one 64 x 64 box of w: 8 KB
-constexpr int TG_C_LD = TG_BN + 8;        // fp32 row of the staged tile
 
-// The ring holds 192 KB of tiles: 8 stages of 24 KB at BM 64, 6 of 32 KB
-// at BM 128, enough steps in flight to cover TMA's latency.
-template <int BM>
+// SW: 0 for vwr_matmul (two 64 x 64 boxes of w at n0 and n0 + 64, one
+// n128 product: 128 output columns a strip); for vwr_swiglu the boxes of
+// wg and then of wi at the same columns, so the products leave g in the
+// first half of the accumulator columns and h in the second: SW 1, one
+// box of each (one n128 product, 64 output columns a strip); SW 2, two of
+// each (two n128 products, 128 output columns a strip).  The ring holds
+// 192 KB of tiles: 8 stages of 24 KB at BM 64, 6 of 32 KB at BM 128 (4 of
+// 40 / 48 KB at SW 2), enough steps in flight to cover TMA's latency.
+template <int BM, int SW>
 struct TileShape {
   static constexpr int NC = BM / 64;             // consumer warpgroups
   static constexpr int THREADS = NC * 128 + 32;  // + the producer warp
+  static constexpr int NBOX = SW == 2 ? 4 : 2;   // 64 x 64 boxes of w a step
+  static constexpr int NACC = NBOX * 32;         // accumulators a thread
+  static constexpr int OUTW = SW == 0 ? TG_BN : 64 * SW;  // output columns
+  static constexpr int C_LD = NBOX * 64 + 8;     // fp32 row of the staged tile
   static constexpr int A_BYTES = BM * TG_BK * 2;
-  static constexpr int STAGE = A_BYTES + 2 * TG_B_BOX;
+  static constexpr int STAGE = A_BYTES + NBOX * TG_B_BOX;
   static constexpr int STAGES = 192 * 1024 / STAGE;
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
-  static_assert(BM * TG_C_LD * 4 <= STAGES * STAGE,
+  static_assert(BM * C_LD * 4 <= STAGES * STAGE,
                 "the staged accumulators fit in the ring");
 };
 
-// grid (N tiles of 128, M tiles of BM, K splits of kt_split 64-deep steps)
-template <int BM>
-__global__ void __launch_bounds__(TileShape<BM>::THREADS)
+// grid (N strips of OUTW, M tiles of BM, K splits of kt_split 64-deep
+// steps); tw1 is wi's map for swiglu (unused by vwr_matmul)
+template <int BM, int SW>
+__global__ void __launch_bounds__((TileShape<BM, SW>::THREADS))
 tile_kernel(const __grid_constant__ CUtensorMap tx,
             const __grid_constant__ CUtensorMap tw,
+            const __grid_constant__ CUtensorMap tw1,
             const bf16* __restrict__ bias, const bf16* __restrict__ res,
             bf16* __restrict__ out, float* __restrict__ ws,
             int* __restrict__ counters, int M, int N, int K, int kt_split,
             int act) {
-  using S = TileShape<BM>;
+  using S = TileShape<BM, SW>;
   extern __shared__ unsigned char tg_smem[];
   unsigned char* smem = align1024(tg_smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::STAGES * S::STAGE);
   uint64_t* empty = full + S::STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * TG_BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * S::OUTW, m0 = blockIdx.y * BM;
   const int KT = (K + TG_BK - 1) / TG_BK;
   const int kt0 = blockIdx.z * kt_split, nk = min(KT - kt0, kt_split);
   const int nsplit = gridDim.z;
@@ -519,8 +541,13 @@ tile_kernel(const __grid_constant__ CUtensorMap tx,
         const int k = (kt0 + i) * TG_BK;
         mbar_expect_tx(&full[s], S::STAGE);
         tma_load_2d(st, &tx, k, m0, &full[s]);
-        tma_load_2d(st + S::A_BYTES, &tw, n0, k, &full[s]);
-        tma_load_2d(st + S::A_BYTES + TG_B_BOX, &tw, n0 + 64, k, &full[s]);
+#pragma unroll
+        for (int q = 0; q < S::NBOX; ++q) {
+          const bool second = SW != 0 && q >= S::NBOX / 2;  // wi's boxes
+          const int col = n0 + 64 * (SW == 0 ? q : q % (S::NBOX / 2));
+          tma_load_2d(st + S::A_BYTES + q * TG_B_BOX, second ? &tw1 : &tw,
+                      col, k, &full[s]);
+        }
       }
     }
     return;
@@ -528,9 +555,9 @@ tile_kernel(const __grid_constant__ CUtensorMap tx,
 
   // consumer warpgroup wg: rows m0 + 64 wg .. + 63
   const int wg = warp / 4;
-  float acc[64];
+  float acc[S::NACC];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < S::NACC; ++i) acc[i] = 0.0f;
   for (int i = 0; i < nk; ++i) {
     const int s = i % S::STAGES;
     mbar_wait(&full[s], (i / S::STAGES) & 1);
@@ -540,8 +567,12 @@ tile_kernel(const __grid_constant__ CUtensorMap tx,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TG_BK / 16; ++kk)
-      wgmma_ss_n128<1>(acc, wgmma_desc(a + kk * 32, 16, 1024),
-                       wgmma_desc(b + kk * 16 * 128, TG_B_BOX, 1024));
+#pragma unroll
+      for (int h = 0; h < S::NACC / 64; ++h)
+        wgmma_ss_n128<1>(*reinterpret_cast<float(*)[64]>(acc + 64 * h),
+                         wgmma_desc(a + kk * 32, 16, 1024),
+                         wgmma_desc(b + 2 * h * TG_B_BOX + kk * 16 * 128,
+                                    TG_B_BOX, 1024));
     wgmma_commit();
     fence_regs(acc);
     if (i > 0) {  // the previous step's products are done: free its stage
@@ -555,61 +586,100 @@ tile_kernel(const __grid_constant__ CUtensorMap tx,
 
   // The epilogue runs once a block: the accumulators go through the idle
   // ring (fp32, padded rows) so that one short loop, not 32 unrolled
-  // copies of it, applies bias -> act -> residual with 8-byte stores
-  // along each row.  Every load of the ring has landed and been used.
+  // copies of it, applies bias -> act -> residual (or silu(g) * h) with
+  // 8-byte stores along each row.  Every load of the ring has landed and
+  // been used.
   const int nthreads = S::NC * 128;
   bar_sync(1, nthreads);  // both warpgroups are done with the ring
   float* Cs = reinterpret_cast<float*>(smem);
   const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
-  for (int j = 0; j < TG_BN / 8; ++j)
+  for (int j = 0; j < S::NACC / 4; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(Cs + (r0 + 8 * h) * TG_C_LD + 8 * j +
+      *reinterpret_cast<float2*>(Cs + (r0 + 8 * h) * S::C_LD + 8 * j +
                                  2 * (lane % 4)) =
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   bar_sync(1, nthreads);
-  float* part = ws + (size_t)blockIdx.z * M * N;
-#pragma unroll 1
-  for (int i = tid; i < BM * TG_BN / 4; i += nthreads) {
-    const int r = i / (TG_BN / 4), c = 4 * (i % (TG_BN / 4));
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;  // N % 8 == 0: n + 3 < N
-    const float4 v = *reinterpret_cast<const float4*>(Cs + r * TG_C_LD + c);
-    if (nsplit == 1) {
-      epilogue_pair(bias, res, out, m, n, N, v.x, v.y, act);
-      epilogue_pair(bias, res, out, m, n + 2, N, v.z, v.w, act);
-    } else {
-      *reinterpret_cast<float4*>(part + (size_t)m * N + n) = v;
-    }
-  }
-  if (nsplit == 1) return;
   int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
-  if (!last_split(counter, nsplit, nthreads)) return;
-  finish_tile(ws, counter, nsplit, M, N, m0, BM, n0, TG_BN, bias, res, out,
-              act, tid, nthreads);
+  if constexpr (SW != 0) {
+    // g in staged columns [0, OUTW), h in [OUTW, 2 OUTW)
+    float* part = ws + (size_t)blockIdx.z * M * 2 * N;
+#pragma unroll 1
+    for (int i = tid; i < BM * S::OUTW / 4; i += nthreads) {
+      const int r = i / (S::OUTW / 4), c = 4 * (i % (S::OUTW / 4));
+      const int m = m0 + r, n = n0 + c;
+      if (m >= M || n >= N) continue;  // N % 8 == 0: n + 3 < N
+      const float4 g = *reinterpret_cast<const float4*>(Cs + r * S::C_LD + c);
+      const float4 h =
+          *reinterpret_cast<const float4*>(Cs + r * S::C_LD + S::OUTW + c);
+      if (nsplit == 1) {
+        swiglu_pair(out, m, n, N, g.x, g.y, h.x, h.y);
+        swiglu_pair(out, m, n + 2, N, g.z, g.w, h.z, h.w);
+      } else {
+        float* pr = part + (size_t)m * 2 * N + n;
+        *reinterpret_cast<float4*>(pr) = g;
+        *reinterpret_cast<float4*>(pr + N) = h;
+      }
+    }
+    if (nsplit == 1) return;
+    if (!last_split(counter, nsplit, nthreads)) return;
+    finish_swiglu_tile(ws, counter, nsplit, M, N, m0, BM, n0, S::OUTW, out,
+                       tid, nthreads);
+  } else {
+    float* part = ws + (size_t)blockIdx.z * M * N;
+#pragma unroll 1
+    for (int i = tid; i < BM * TG_BN / 4; i += nthreads) {
+      const int r = i / (TG_BN / 4), c = 4 * (i % (TG_BN / 4));
+      const int m = m0 + r, n = n0 + c;
+      if (m >= M || n >= N) continue;  // N % 8 == 0: n + 3 < N
+      const float4 v = *reinterpret_cast<const float4*>(Cs + r * S::C_LD + c);
+      if (nsplit == 1) {
+        epilogue_pair(bias, res, out, m, n, N, v.x, v.y, act);
+        epilogue_pair(bias, res, out, m, n + 2, N, v.z, v.w, act);
+      } else {
+        *reinterpret_cast<float4*>(part + (size_t)m * N + n) = v;
+      }
+    }
+    if (nsplit == 1) return;
+    if (!last_split(counter, nsplit, nthreads)) return;
+    finish_tile(ws, counter, nsplit, M, N, m0, BM, n0, TG_BN, bias, res, out,
+                act, tid, nthreads);
+  }
 }
 
-template <int BM>
-int tile_launch(const void* x, const void* w, const void* bias,
-                const void* res, void* out, void* ws, void* counters, int M,
-                int N, int K, int nsplit, int kt_split, int act,
-                void* stream) {
-  using S = TileShape<BM>;
-  CUtensorMap tx, tw;
+template <int BM, int SW>
+int tile_launch(const void* x, const void* w, const void* w1,
+                const void* bias, const void* res, void* out, void* ws,
+                void* counters, int M, int N, int K, int nsplit, int kt_split,
+                int act, void* stream) {
+  using S = TileShape<BM, SW>;
+  CUtensorMap tx, tw, tw1;
   int e = encode_rows(&tx, x, M, K, BM);
   if (e != 0) return e;
   e = encode_rows(&tw, w, K, N, TG_BK);
   if (e != 0) return e;
-  e = smem_limit_once<tile_kernel<BM>>(S::SMEM);
+  if (SW != 0) {
+    e = encode_rows(&tw1, w1, K, N, TG_BK);
+    if (e != 0) return e;
+  } else {
+    tw1 = tw;
+  }
+  e = smem_limit_once<tile_kernel<BM, SW>>(S::SMEM);
   if (e != 0) return e;
-  const dim3 grid((N + TG_BN - 1) / TG_BN, (M + BM - 1) / BM, nsplit);
-  tile_kernel<BM><<<grid, S::THREADS, S::SMEM, (cudaStream_t)stream>>>(
-      tx, tw, (const bf16*)bias, (const bf16*)res, (bf16*)out, (float*)ws,
-      (int*)counters, M, N, K, kt_split, act);
+  const dim3 grid((N + S::OUTW - 1) / S::OUTW, (M + BM - 1) / BM, nsplit);
+  tile_kernel<BM, SW><<<grid, S::THREADS, S::SMEM, (cudaStream_t)stream>>>(
+      tx, tw, tw1, (const bf16*)bias, (const bf16*)res, (bf16*)out,
+      (float*)ws, (int*)counters, M, N, K, kt_split, act);
   return (int)cudaGetLastError();
 }
 
+// The plan's checks shared by the two variants' entries: K in nsplit
+// slices of `depth` units (rows or 64-deep steps), none of them empty.
+inline bool bad_split(int units, int nsplit, int depth) {
+  return nsplit < 1 || depth < 1 || (long)nsplit * depth < units ||
+         (long)(nsplit - 1) * depth >= units;
+}
 
 }  // namespace
 
@@ -653,9 +723,8 @@ extern "C" int vwr_matmul_splitk_launch(const void* x, const void* w,
                                         int M, int N, int K, int mt,
                                         int nsplit, int ksplit, int act,
                                         void* stream) {
-  if (act < ACT_NONE || act > ACT_GELU || N % 8 != 0 || nsplit < 1 ||
-      ksplit < 1 || (long)nsplit * ksplit < K ||
-      (long)(nsplit - 1) * ksplit >= K)
+  if (act < ACT_NONE || act > ACT_GELU || N % 8 != 0 ||
+      bad_split(K, nsplit, ksplit))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
   switch (mt) {
@@ -684,32 +753,59 @@ extern "C" int vwr_matmul_tile_launch(const void* x, const void* w,
                                       void* stream) {
   const int KT = (K + TG_BK - 1) / TG_BK;
   if (act < ACT_NONE || act > ACT_GELU || K % 8 != 0 || N % 8 != 0 ||
-      K <= 0 || nsplit < 1 || kt_split < 1 || nsplit * kt_split < KT ||
-      (nsplit - 1) * kt_split >= KT)
+      K <= 0 || bad_split(KT, nsplit, kt_split))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
   if (bm == 64)
-    return tile_launch<64>(x, w, bias, res, out, ws, counters, M, N, K,
-                           nsplit, kt_split, act, stream);
+    return tile_launch<64, 0>(x, w, nullptr, bias, res, out, ws, counters, M,
+                              N, K, nsplit, kt_split, act, stream);
   if (bm == 128)
-    return tile_launch<128>(x, w, bias, res, out, ws, counters, M, N, K,
-                            nsplit, kt_split, act, stream);
+    return tile_launch<128, 0>(x, w, nullptr, bias, res, out, ws, counters,
+                               M, N, K, nsplit, kt_split, act, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// Host nanoseconds a call of the wgmma variant spends encoding its two
-// tensor maps (the mean over `reps` encodings of x (M, K) and w (K, N));
-// negative on an encoding error.  A measurement entry: no kernel runs.
+// vwr_swiglu's wgmma variant (kernels/vwr_matmul.py swiglu_tile_plan): the
+// arguments of vwr_matmul_tile_launch with wg and wi for w; bn, the output
+// columns a strip, 64 (boxes of wg and wi side by side in one n128
+// product) or 128 (two n128 products); ws: nsplit x M x 2N fp32.
+extern "C" int vwr_swiglu_tile_launch(const void* x, const void* wg,
+                                      const void* wi, void* out, void* ws,
+                                      void* counters, int M, int N, int K,
+                                      int bm, int bn, int nsplit,
+                                      int kt_split, void* stream) {
+  const int KT = (K + TG_BK - 1) / TG_BK;
+  if (K % 8 != 0 || N % 8 != 0 || K <= 0 || bad_split(KT, nsplit, kt_split))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return 0;
+#define SWIGLU_TILE(BM_, SW_)                                                 \
+  if (bm == BM_ && bn == 64 * SW_)                                            \
+    return tile_launch<BM_, SW_>(x, wg, wi, nullptr, nullptr, out, ws,        \
+                                 counters, M, N, K, nsplit, kt_split,         \
+                                 ACT_NONE, stream);
+  SWIGLU_TILE(64, 1)
+  SWIGLU_TILE(128, 1)
+  SWIGLU_TILE(64, 2)
+  SWIGLU_TILE(128, 2)
+#undef SWIGLU_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Host nanoseconds a call of the wgmma variant spends encoding its tensor
+// maps (the mean over `reps` encodings of x (M, K) and `nw` maps of w (K,
+// N): 1 for vwr_matmul, 2 for vwr_swiglu's wg and wi); negative on an
+// encoding error.  A measurement entry: no kernel runs.
 extern "C" double vwr_matmul_encode_ns(const void* x, const void* w, int M,
-                                       int N, int K, int bm, int reps) {
+                                       int N, int K, int bm, int nw,
+                                       int reps) {
   CUtensorMap tx, tw;
   // the first encoding (the entry point's lookup) stays outside the mean
   if (encode_rows(&tx, x, M, K, bm) != 0) return -1.0;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i) {
-    if (encode_rows(&tx, x, M, K, bm) != 0 ||
-        encode_rows(&tw, w, K, N, TG_BK) != 0)
-      return -1.0;
+    if (encode_rows(&tx, x, M, K, bm) != 0) return -1.0;
+    for (int j = 0; j < nw; ++j)
+      if (encode_rows(&tw, w, K, N, TG_BK) != 0) return -1.0;
   }
   const auto t1 = std::chrono::steady_clock::now();
   return std::chrono::duration<double, std::nano>(t1 - t0).count() / reps;

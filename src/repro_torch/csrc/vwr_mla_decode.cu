@@ -55,14 +55,16 @@
 // rows are independent, so they are tiled across blocks, and the page loop
 // is the loop inside each block.
 //
-// Kernel 15 (int8 pools) and kernel 12 on fp32 pools run the pools' body
-// above with "sequence" read as "chunk token" and the table row shared
-// (stride 0): grid (C, H / 16), fp32 FMAs; a staged tile serves a block's
-// 16 rows, and L2 serves the C blocks that read the same page.
+// Kernel 12 on fp32 pools, and both at the padded widths the wgmma
+// variant does not take, run the pools' body above with "sequence" read as
+// "chunk token" and the table row shared (stride 0): grid (C, H / 16),
+// fp32 FMAs; a staged tile serves a block's 16 rows, and L2 serves the C
+// blocks that read the same page.
 //
-// Kernel 12 on bf16 pools (mla_chunk_wgmma; kernels/vwr_mla_decode.py
-// chunk_variant: r in {128, 256, 512}, rope in {32, 64}, pages of a
-// multiple of 8 rows) puts the tensor cores on it.  The rows are the chunk's C x H
+// Kernel 12 on bf16 pools and kernel 15 on int8 pools (mla_chunk_wgmma;
+// kernels/vwr_mla_decode.py chunk_variant: r in {128, 256, 512}, rope in
+// {32, 64}, pages of a multiple of 8 rows) put the tensor cores on it.
+// The rows are the chunk's C x H
 // query rows in q_abs's order (c major, h minor), 64 a block: at C 64 and
 // H 128 that is 128 blocks, one wave on 132 SMs, and every staged key
 // serves 64 rows.  On the tensor cores the 4.6 GFLOP of the headline shape
@@ -104,6 +106,30 @@
 //   issued while the score products run.  A row with no valid key keeps
 //   m = -1e30, l = 0, o_tilde = 0.  o_tilde leaves through the idle query
 //   blocks, whole rows of 16-byte stores.
+//   Kernel 15 (int8 pools, Q8).  An int8 value is exact in a 16-bit
+//   float, so the keys are converted and the page scales applied in fp32
+//   outside the products: s = (q_abs . c8) cs + (q_rope . k8) rs, P c8
+//   with P times cs before its hi / lo split, l over the unscaled P (the
+//   plain version's order).  The terms are fp16, not bf16: against int8
+//   keys two bf16 terms (2^-18 of each product) used 0.79-1.11 of the
+//   fp32 tolerance at 256 keys, two fp16 terms (2^-22) ~0.2 (PERF.md).
+//   fp16's range is kept by powers of two: each query row is scaled so
+//   its largest |q| lies in [2^14, 2^15) (the row is staged by one warp,
+//   which takes the maximum from its registers), P times cs so the
+//   largest scale of a counted page does, and the scores and o_tilde
+//   divide them out again, exactly.  Shared memory holds no third stage:
+//   the room of kernel 12's two bf16 stages takes one fp16 stage (36 KB
+//   at r 512) and a ring of two int8 stages (32 rows of r + rope bytes,
+//   18 KB each, unswizzled; latent boxes of up to 256 columns and a rope
+//   box a segment, by TMA).  Tile t + 1 lands in int8 while tile t's
+//   products run; once tile t's P c_kv products are done, every thread
+//   converts it into the fp16 stage (128-byte swizzle; byte permutes and
+//   one fp16 subtraction a pair, not the conversion units), and tile t + 2's
+//   loads go to the int8 stage tile t left.  The walking warp also copies
+//   each segment's two page scales into the tile's map (0 for an absent
+//   segment).  The second warpgroup's half of the score depth ends in the
+//   rope dims: it keeps them in a second m64n32 accumulator, and each side
+//   scales its sums per key column before the exchange.
 #include "common.cuh"
 
 namespace {
@@ -338,10 +364,16 @@ constexpr int CW_SEGS = 4;       // page segments a tile, at most (pages of 8)
 // (bit t), its absent segments (bit g), each segment's first pool row
 constexpr int CW_EXISTS = 0, CW_VALID = 1, CW_ABSENT = 2, CW_SEG0 = 3;
 constexpr int CW_MAP = CW_SEG0 + CW_SEGS + 1;  // + 1: 8-byte aligned maps
+// int8 pools: each segment's latent and rope scales (fp32 bits) follow
+constexpr int CW_CS0 = CW_SEG0 + CW_SEGS, CW_RS0 = CW_CS0 + CW_SEGS;
+constexpr int CW_MAP_Q8 = CW_RS0 + CW_SEGS + 1;
 
 // Shared memory: 64-column blocks (128-byte rows, 128-byte swizzle) of the
 // latent dims, then one of the rope dims (rope 32 fills half of each row).
-template <int R, int RP>
+// int8 pools (Q8): the two key stages' room holds one 16-bit stage (fp16
+// there) and a ring of two int8 stages (TMA's; rows of r + rope bytes,
+// unswizzled).
+template <int R, int RP, bool Q8>
 struct CwSmem {
   static constexpr int BLK = R / 64 + 1;
   static constexpr int QBLK = CW_ROWS * 128;          // 8 KB
@@ -349,12 +381,19 @@ struct CwSmem {
   static constexpr int QTERM = BLK * QBLK;            // q_hi, then q_lo
   static constexpr int KEYS = 2 * QTERM;              // two key stages
   static constexpr int KSTAGE = BLK * KBLK;
+  static constexpr int I8STAGE = CW_KEYS * (R + RP);  // an int8 stage
+  static constexpr int I8 = KEYS + KSTAGE;            // Q8: the int8 ring
   static constexpr int XCH = KEYS + 2 * KSTAGE;       // S exchange
   static constexpr int MAPS = XCH + 128 * 16 * 4;     // 3 tiles' maps
-  static constexpr int BARS = MAPS + 3 * CW_MAP * 4;  // a stage's mbarrier
-  static constexpr int BYTES = 1024 + BARS + 2 * 8;
+  static constexpr int MAPW = Q8 ? CW_MAP_Q8 : CW_MAP;
+  static constexpr int BARS = MAPS + 3 * MAPW * 4;    // a stage's mbarrier
+  // Q8: each query row's largest |q| (fp32 bits), then the largest latent
+  // scale of a counted page
+  static constexpr int EXT = BARS + 2 * 8;
+  static constexpr int BYTES = 1024 + EXT + (Q8 ? (CW_ROWS + 1) * 4 : 0);
   static_assert(BARS % 8 == 0, "mbarriers are 8-byte aligned");
   static_assert(BYTES <= 232448, "fits a block's shared memory");
+  static_assert(KSTAGE + 2 * I8STAGE <= 2 * KSTAGE, "the int8 ring fits");
 };
 
 // A key tile: up to 4 segments of consecutive rows of one page each
@@ -407,27 +446,58 @@ __device__ __forceinline__ int slot_row(const KeyTile& k, int t, int seg,
 
 // o (64 rows x OC columns of this warpgroup) += P . V for one 16-key slice:
 // P from registers, V MN-major at `vt` (64-column blocks KBLK apart).
-template <int OC>
+// F16: P and V in fp16 (kernel 15), else bf16.
+template <int OC, bool F16>
 __device__ __forceinline__ void pv_slice(float (&o)[OC / 2],
                                          const uint32_t (&a)[4],
                                          const unsigned char* vt, int kblk) {
   if constexpr (OC == 64) {
-    wgmma_rs_n64<1>(o, a, wgmma_desc(vt, kblk, 1024));
+    wgmma_rs_n64<1, F16>(o, a, wgmma_desc(vt, kblk, 1024));
   } else {
 #pragma unroll
     for (int h = 0; h < OC / 128; ++h)
-      wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(o + 64 * h), a,
-                       wgmma_desc(vt + 2 * h * kblk, kblk, 1024));
+      wgmma_rs_n128<1, F16>(*reinterpret_cast<float(*)[64]>(o + 64 * h), a,
+                            wgmma_desc(vt + 2 * h * kblk, kblk, 1024));
   }
 }
 
+// Q8: four int8 (one word, the first in the low byte) as two fp16x2 words,
+// exactly: each byte + 128 is set as the mantissa of 1024 (0x6400), and
+// 1152 = 1024 + 128 subtracted (integer ops and one fp16 subtraction a
+// pair, not four conversions).
+__device__ __forceinline__ void i8x4_to_f16(uint32_t w, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const __half2 bias = __float2half2_rn(1152.0f);
+  uint32_t a = __byte_perm(u, 0x64646464u, 0x4140);
+  uint32_t b = __byte_perm(u, 0x64646464u, 0x4342);
+  const __half2 x = __hsub2(*reinterpret_cast<__half2*>(&a), bias);
+  const __half2 y = __hsub2(*reinterpret_cast<__half2*>(&b), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&x);
+  hi = *reinterpret_cast<const uint32_t*>(&y);
+}
+
+// Q8: the power of two that brings `amax` into [2^14, 2^15) (1 for 0), so
+// that x times it and its fp16 terms stay inside fp16's normal range for
+// every |x| within 2^-17 of amax (kernels/vwr_mla_decode.py _pow2_up).
+__device__ __forceinline__ float pow2_up(float amax) {
+  if (!(amax > 0.0f)) return 1.0f;
+  int e;
+  frexpf(amax, &e);
+  return ldexpf(1.0f, min(15 - e, 126));
+}
+
 // tc, tr: the pools as (n_pages * ps, r) and (n_pages * ps, rope) row
-// matrices in boxes of 64 columns x seg rows, 128-byte swizzle.
-template <int R, int RP>
+// matrices in boxes of 64 columns x seg rows, 128-byte swizzle; int8
+// pools (Q8) in boxes of I8W (latent) or rope columns x seg rows,
+// unswizzled.
+template <int R, int RP, bool Q8>
 __global__ void __launch_bounds__(CW_THREADS, 1)
 mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
                 const __grid_constant__ CUtensorMap tr, const MlaArgs a) {
-  using L = CwSmem<R, RP>;
+  using L = CwSmem<R, RP, Q8>;
+  constexpr int I8W = R < 256 ? R : 256;  // columns of an int8 latent box
+  constexpr int NB8 = R / I8W + 1;        // int8 boxes a segment
   constexpr int KS = (R + RP) / 16;  // 16-deep slices of a score
   constexpr int OC = R / 2;          // output columns a warpgroup
   constexpr int CH = (R + RP) / 8;
@@ -443,7 +513,7 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   // Warp 0 walks the table two tiles ahead of the products into maps that
   // rotate: the tile in products, the tile in flight, the tile walked.
   int* maps = reinterpret_cast<int*>(sm + L::MAPS);
-  auto map = [&](int i) { return maps + (i % 3) * CW_MAP; };
+  auto map = [&](int i) { return maps + (i % 3) * L::MAPW; };
   int j = 0, po = 0;
   auto walk = [&](int i) {  // warp 0
     const KeyTile k = next_tile(a.table, a.counts, a.n, ps, a.lead, seg, j,
@@ -455,8 +525,15 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
 #pragma unroll
     for (int g = 0; g < CW_SEGS; ++g) {
       if (g < nseg && k.page[g] < 0) absent |= 1u << g;
-      if (lane == g)
+      if (lane == g) {
         mp[CW_SEG0 + g] = k.page[g] >= 0 ? k.page[g] * ps + k.row0[g] : -1;
+        if constexpr (Q8) {  // an absent segment's scales are 0
+          const bool on = k.page[g] >= 0;
+          mp[CW_CS0 + g] = __float_as_int(on ? a.ckv_scale[k.page[g]] : 0.0f);
+          mp[CW_RS0 + g] =
+              __float_as_int(on ? a.krope_scale[k.page[g]] : 0.0f);
+        }
+      }
     }
     if (lane == 0) {
       mp[CW_EXISTS] = k.page[0] >= 0;
@@ -469,8 +546,30 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   // zeros (every thread, then a proxy fence).
   auto load_tile = [&](int i) {
     const int* mp = map(i);
-    unsigned char* st = sm + L::KEYS + (i & 1) * L::KSTAGE;
     const uint32_t absent = mp[CW_ABSENT];
+    if constexpr (Q8) {
+      // into int8 stage i % 2: latent boxes of I8W columns, then the rope
+      // box, each a region of CW_KEYS rows; an absent segment is not
+      // loaded (its stale bytes are finite and its slots masked)
+      unsigned char* st = sm + L::I8 + (i & 1) * L::I8STAGE;
+      if (tid / 32 == 4) {
+        if (lane == 0)
+          mbar_expect_tx(&kbar[i & 1],
+                         (nseg - __popc(absent)) * seg * (R + RP));
+        __syncwarp();
+        for (int q = lane; q < nseg * NB8; q += 32) {
+          const int g = q / NB8, b = q % NB8, r = mp[CW_SEG0 + g];
+          if (r >= 0)
+            tma_load_2d(b < NB8 - 1
+                            ? st + b * CW_KEYS * I8W + g * seg * I8W
+                            : st + CW_KEYS * R + g * seg * RP,
+                        b < NB8 - 1 ? &tc : &tr, b < NB8 - 1 ? I8W * b : 0,
+                        r, &kbar[i & 1]);
+        }
+      }
+      return;
+    }
+    unsigned char* st = sm + L::KEYS + (i & 1) * L::KSTAGE;
     if (tid / 32 == 4) {
       if (lane == 0)
         mbar_expect_tx(&kbar[i & 1], (nseg - __popc(absent)) * seg * 128 *
@@ -497,33 +596,139 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
     }
   };
 
+  // Q8: int8 stage i % 2 (tile i, landed) into the fp16 stage (the 128-
+  // byte swizzle of kernel 12's stages), 16 values of a row at a time a
+  // thread, then to wgmma's async proxy.  Every row is converted: int8
+  // bytes are finite, so masked slots and absent segments, whose stale
+  // bytes are never loaded, meet P = 0.
+  auto convert = [&](int i) {
+    const int8_t* st =
+        reinterpret_cast<const int8_t*>(sm + L::I8 + (i & 1) * L::I8STAGE);
+    for (int e = tid; e < CW_KEYS * CH / 2; e += CW_THREADS) {
+      const int t = e / (CH / 2), cc = 2 * (e % (CH / 2));  // 16 values
+      const int8_t* src =
+          cc < R / 8
+              ? st + (cc * 8 / I8W) * CW_KEYS * I8W + t * I8W + cc * 8 % I8W
+              : st + CW_KEYS * R + t * RP + (cc - R / 8) * 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(src);
+      uint4 f[2];
+      i8x4_to_f16(raw.x, f[0].x, f[0].y);
+      i8x4_to_f16(raw.y, f[0].z, f[0].w);
+      i8x4_to_f16(raw.z, f[1].x, f[1].y);
+      i8x4_to_f16(raw.w, f[1].z, f[1].w);
+      const int blk = cc < R / 8 ? cc / 8 : R / 64;
+      const int c8 = cc < R / 8 ? cc % 8 : cc - R / 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint4*>(sm + L::KEYS + blk * L::KBLK +
+                                  swz128(t, c8 + h)) = f[h];
+    }
+    fence_proxy_async();
+  };
+
   if (tid == 0) {
     mbar_init(&kbar[0], 1);
     mbar_init(&kbar[1], 1);
     mbar_init_fence();
   }
+  int* ext = reinterpret_cast<int*>(sm + L::EXT);
+  if (Q8 && tid == 0) ext[CW_ROWS] = 0;
   // slots past the last whole segment (pages of 24: rows 24-31) stay zero
-  for (int e = tid; e < 2 * L::BLK * (CW_KEYS - nseg * seg) * 8;
-       e += CW_THREADS) {
-    const int per = (CW_KEYS - nseg * seg) * 8, blk = e / per;
-    *reinterpret_cast<uint4*>(sm + L::KEYS + blk * L::KBLK +
-                              nseg * seg * 128 + (e % per) * 16) =
-        make_uint4(0, 0, 0, 0);
+  if constexpr (!Q8) {
+    for (int e = tid; e < 2 * L::BLK * (CW_KEYS - nseg * seg) * 8;
+         e += CW_THREADS) {
+      const int per = (CW_KEYS - nseg * seg) * 8, blk = e / per;
+      *reinterpret_cast<uint4*>(sm + L::KEYS + blk * L::KBLK +
+                                nseg * seg * 128 + (e % per) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
   }
   if (tid < 32) {
     walk(0);
     walk(1);
   }
   __syncthreads();
-  // the first key tile flies while the queries are staged
+  // the first key tile (Q8: the first two) flies while the queries are
+  // staged
   if (map(0)[CW_EXISTS]) load_tile(0);
+  if (Q8 && map(1)[CW_EXISTS]) load_tile(1);
 
-  // the queries, times scale, as two bf16 terms; QB 16-byte chunks of
-  // loads in flight a thread before the first is converted
+  // the queries, times scale, as two bf16 terms (Q8: fp16 terms of each
+  // row times its power of two); QB 16-byte chunks of loads in flight a
+  // thread before the first is converted
   constexpr int QN = CW_ROWS * CH / CW_THREADS, QB = 9;
   static_assert(CW_ROWS * CH % CW_THREADS == 0, "whole chunks a thread");
+  // Q8: the largest latent scale of a counted page (P's power of two)
+  if constexpr (Q8) {
+    float cmax = 0.0f;
+    for (int j = tid; j < a.n; j += CW_THREADS)
+      if (a.counts[j] > 0)
+        cmax = fmaxf(cmax, fabsf(a.ckv_scale[min(max(a.table[j], 0),
+                                                 a.lead - 1)]));
+    atomicMax(&ext[CW_ROWS], __float_as_int(cmax));
+  }
+  if constexpr (Q8) {
+    // a warp a row (RB rows of loads in flight): the row's largest |q|
+    // times scale, from the registers, sets its power of two (kept in ext
+    // for the score fragments' rows)
+    constexpr int RPW = CW_ROWS / (CW_THREADS / 32), RB = 2;
+    constexpr int CL = (CH + 31) / 32;  // chunks a lane a row
 #pragma unroll 1
-  for (int b0 = 0; b0 < QN; b0 += QB) {
+    for (int q0 = 0; q0 < RPW; q0 += RB) {
+      float v[RB][CL][8];
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int g = row0 + (tid / 32) * RPW + q0 + q;
+#pragma unroll
+        for (int k = 0; k < CL; ++k) {
+          const int cc = lane + 32 * k;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[q][k][i] = 0.0f;
+          if (cc < CH && g < rows)
+            load8(cc < R / 8 ? a.q_abs + (size_t)g * R + cc * 8
+                             : a.q_rope + (size_t)g * RP + (cc - R / 8) * 8,
+                  v[q][k]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int r = (tid / 32) * RPW + q0 + q;
+        float mx = 0.0f;
+#pragma unroll
+        for (int k = 0; k < CL; ++k)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            mx = fmaxf(mx, fabsf(v[q][k][i] * a.scale));
+        mx = warp_max(mx);
+        if (lane == 0) ext[r] = __float_as_int(mx);
+        const float up = pow2_up(mx);
+#pragma unroll
+        for (int k = 0; k < CL; ++k) {
+          const int cc = lane + 32 * k;
+          if (cc >= CH) break;
+          uint4 hi, lo;
+          uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
+          uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x0 = v[q][k][2 * i] * a.scale * up;
+            const float x1 = v[q][k][2 * i + 1] * a.scale * up;
+            const __half2 b = __floats2half2_rn(x0, x1);
+            const float2 bf = __half22float2(b);
+            h[i] = *reinterpret_cast<const uint32_t*>(&b);
+            l[i] = pack_f16(x0 - bf.x, x1 - bf.y);
+          }
+          const int blk = cc < R / 8 ? cc / 8 : R / 64;
+          const int c8 = cc < R / 8 ? cc % 8 : cc - R / 8;
+          const uint32_t off = blk * L::QBLK + swz128(r, c8);
+          *reinterpret_cast<uint4*>(sm + off) = hi;
+          *reinterpret_cast<uint4*>(sm + L::QTERM + off) = lo;
+        }
+      }
+    }
+  }
+#pragma unroll 1
+  for (int b0 = 0; b0 < (Q8 ? 0 : QN); b0 += QB) {
     float v[QB][8];
 #pragma unroll
     for (int u = 0; u < QB; ++u) {
@@ -561,40 +766,85 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
     }
   }
   fence_proxy_async();  // the query terms, to wgmma's async proxy
+  if constexpr (Q8) {
+    if (map(0)[CW_EXISTS]) {
+      mbar_wait(&kbar[0], 0);
+      convert(0);
+    }
+    __syncthreads();  // tile 0 and every row's power of two are in place
+  }
 
   // this thread's two rows of every accumulator fragment, and its 8 key
   // slots of a tile (bit 2 jb + e: slot 8 jb + 2 (lane % 4) + e)
   const int r0 = warp * 16 + lane / 4, r1 = r0 + 8;
   float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  // Q8: the powers of two of this thread's two query rows and of P (its
+  // scores and o_tilde divide them out again, exactly)
+  float down0 = 1.0f, down1 = 1.0f, pup = 1.0f;
+  if constexpr (Q8) {
+    down0 = 1.0f / pow2_up(__int_as_float(ext[r0]));
+    down1 = 1.0f / pow2_up(__int_as_float(ext[r1]));
+    pup = pow2_up(__int_as_float(ext[CW_ROWS]));
+  }
   float o[OC / 2];
 #pragma unroll
   for (int i = 0; i < OC / 2; ++i) o[i] = 0.0f;
 
+  // Q8: the segment of each of this thread's 8 key slots (2 bits each:
+  // slot 8 (b / 2) + 2 (lane % 4) + b % 2), the same for every tile
+  uint32_t segs = 0;
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    segs |= (uint32_t)((8 * (b / 2) + 2 * (lane % 4) + b % 2) / seg) << 2 * b;
+
   for (int t = 0; map(t)[CW_EXISTS]; ++t) {
-    // tile t has landed; every warpgroup is done with tile t - 1's stage,
-    // which tile t + 1 takes next, and with tile t - 1's map
-    mbar_wait(&kbar[t & 1], (t >> 1) & 1);
-    __syncthreads();
-    const unsigned char* kt = sm + L::KEYS + (t & 1) * L::KSTAGE;
+    // Q8: tile t is in the fp16 stage (converted at the end of iteration
+    // t - 1, or before the loop)
+    if constexpr (!Q8) {
+      // tile t has landed; every warpgroup is done with tile t - 1's
+      // stage, which tile t + 1 takes next, and with tile t - 1's map
+      mbar_wait(&kbar[t & 1], (t >> 1) & 1);
+      __syncthreads();
+    }
+    const unsigned char* kt = sm + L::KEYS + (Q8 ? 0 : (t & 1) * L::KSTAGE);
 
     // this warpgroup's half of the score depth, both query terms
     float s[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = 0.0f;
     fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < KS / 2; ++i) {
-      const int ks = wg * (KS / 2) + i;
+    auto slice = [&](float(&acc)[16], int ks) {
       const uint32_t qo = (ks / 4) * L::QBLK + (ks % 4) * 32;
       const uint64_t db =
           wgmma_desc(kt + (ks / 4) * L::KBLK + (ks % 4) * 32, 16, 1024);
-      wgmma_ss_n32<0>(s, wgmma_desc(sm + qo, 16, 1024), db);
-      wgmma_ss_n32<0>(s, wgmma_desc(sm + L::QTERM + qo, 16, 1024), db);
+      wgmma_ss_n32<0, Q8>(acc, wgmma_desc(sm + qo, 16, 1024), db);
+      wgmma_ss_n32<0, Q8>(acc, wgmma_desc(sm + L::QTERM + qo, 16, 1024), db);
+    };
+    // Q8: the second warpgroup's half ends in the rope dims, whose page
+    // scale differs from the latent one: a second accumulator
+    float sr[Q8 ? 16 : 1];
+    if constexpr (Q8) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sr[i] = 0.0f;
+      fence_regs(sr);
+      wgmma_fence();
+      if (wg == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS / 2; ++ks) slice(s, ks);
+      } else {
+#pragma unroll
+        for (int ks = KS / 2; ks < R / 16; ++ks) slice(s, ks);
+#pragma unroll
+        for (int ks = R / 16; ks < KS; ++ks) slice(sr, ks);
+      }
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < KS / 2; ++i) slice(s, wg * (KS / 2) + i);
     }
     wgmma_commit();
     // while the products run: the next tile's loads, this tile's mask
-    if (map(t + 1)[CW_EXISTS]) load_tile(t + 1);
+    if (!Q8 && map(t + 1)[CW_EXISTS]) load_tile(t + 1);
     const uint32_t valid = map(t)[CW_VALID];
     uint32_t ok = 0;
 #pragma unroll
@@ -602,6 +852,23 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
       ok |= (valid >> (8 * (b / 2) + 2 * (lane % 4) + b % 2) & 1) << b;
     wgmma_wait<0>();
     fence_regs(s);
+    if constexpr (Q8) {
+      // each side's sum times its key columns' page scales, in fp32
+      fence_regs(sr);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int i = 4 * (b / 2) + b % 2, g = segs >> 2 * b & 3;
+        const float cs = __int_as_float(map(t)[CW_CS0 + g]);
+        if (wg == 0) {
+          s[i] *= cs * down0;
+          s[i + 2] *= cs * down1;
+        } else {
+          const float rs = __int_as_float(map(t)[CW_RS0 + g]);
+          s[i] = s[i] * (cs * down0) + sr[i] * (rs * down0);
+          s[i + 2] = s[i + 2] * (cs * down1) + sr[i + 2] * (rs * down1);
+        }
+      }
+    }
 
     // the two halves, added on both sides in the same fp32 sum
     if (wg == 1) {
@@ -665,6 +932,28 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
       }
       l0 += p[0] + p[1];
       l1 += p[2] + p[3];
+      if constexpr (Q8) {
+        // the latent scale (times P's power of two) rides on P, after l;
+        // fp16 terms
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float cs =
+              __int_as_float(map(t)[CW_CS0 + (segs >> 2 * (2 * jb + e) & 3)]) *
+              pup;
+          p[e] *= cs;
+          p[2 + e] *= cs;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __half2 b = __floats2half2_rn(p[2 * h], p[2 * h + 1]);
+          const float2 bf = __half22float2(b);
+          ph[jb / 2][(jb % 2) * 2 + h] =
+              *reinterpret_cast<const uint32_t*>(&b);
+          pl[jb / 2][(jb % 2) * 2 + h] =
+              pack_f16(p[2 * h] - bf.x, p[2 * h + 1] - bf.y);
+        }
+        continue;
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const __nv_bfloat162 b = __floats2bfloat162_rn(p[2 * h], p[2 * h + 1]);
@@ -680,14 +969,26 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
     for (int kc = 0; kc < 2; ++kc) {
       const unsigned char* vt =
           kt + wg * (OC / 64) * L::KBLK + kc * 16 * 128;
-      pv_slice<OC>(o, ph[kc], vt, L::KBLK);
-      pv_slice<OC>(o, pl[kc], vt, L::KBLK);
+      pv_slice<OC, Q8>(o, ph[kc], vt, L::KBLK);
+      pv_slice<OC, Q8>(o, pl[kc], vt, L::KBLK);
     }
     wgmma_commit();
     // while these products run: the walk of tile t + 2
     if (tid < 32) walk(t + 2);
     wgmma_wait<0>();
     fence_regs(o);
+    if constexpr (Q8) {
+      // every warpgroup is done with the fp16 stage and tile t + 2 is
+      // walked: tile t + 2 into tile t's int8 stage (converted before
+      // this iteration), tile t + 1 from its int8 stage into the fp16 one
+      __syncthreads();
+      if (map(t + 2)[CW_EXISTS]) load_tile(t + 2);
+      if (map(t + 1)[CW_EXISTS]) {
+        mbar_wait(&kbar[(t + 1) & 1], ((t + 1) >> 1) & 1);
+        convert(t + 1);
+        __syncthreads();
+      }
+    }
   }
 
   // o_tilde through the idle query blocks (fp32 rows padded by 4), then
@@ -696,13 +997,14 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   static_assert(CW_ROWS * OLD * 4 <= 2 * L::QTERM, "o fits the query area");
   float* os = reinterpret_cast<float*>(sm);
   __syncthreads();  // every warpgroup is done reading the queries
+  const float odown = 1.0f / pup;   // Q8: P's power of two, out again
 #pragma unroll
   for (int i = 0; i < OC / 8; ++i) {
     const int col = wg * OC + 8 * i + 2 * (lane % 4);
     *reinterpret_cast<float2*>(os + r0 * OLD + col) =
-        make_float2(o[4 * i], o[4 * i + 1]);
+        make_float2(o[4 * i] * odown, o[4 * i + 1] * odown);
     *reinterpret_cast<float2*>(os + r1 * OLD + col) =
-        make_float2(o[4 * i + 2], o[4 * i + 3]);
+        make_float2(o[4 * i + 2] * odown, o[4 * i + 3] * odown);
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
@@ -725,28 +1027,46 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   }
 }
 
-template <int R, int RP>
+template <int R, int RP, bool Q8>
 int launch_chunk_wgmma(const MlaArgs& a, cudaStream_t stream) {
-  using L = CwSmem<R, RP>;
+  using L = CwSmem<R, RP, Q8>;
   const int seg = a.rows < CW_KEYS ? a.rows : CW_KEYS;
   CUtensorMap tc, tr;
-  int e = encode_rows(&tc, a.ckv, a.lead * a.rows, R, seg);
+  int e = Q8 ? encode_rows_i8(&tc, a.ckv, a.lead * a.rows, R, seg,
+                              R < 256 ? R : 256)
+             : encode_rows(&tc, a.ckv, a.lead * a.rows, R, seg);
   if (e != 0) return e;
-  e = encode_rows(&tr, a.krope, a.lead * a.rows, RP, seg);
+  e = Q8 ? encode_rows_i8(&tr, a.krope, a.lead * a.rows, RP, seg, RP)
+         : encode_rows(&tr, a.krope, a.lead * a.rows, RP, seg);
   if (e != 0) return e;
-  e = smem_limit_once<mla_chunk_wgmma<R, RP>>(L::BYTES);
+  e = smem_limit_once<mla_chunk_wgmma<R, RP, Q8>>(L::BYTES);
   if (e != 0) return e;
   const int blocks = (a.B * a.H + CW_ROWS - 1) / CW_ROWS;
-  mla_chunk_wgmma<R, RP><<<blocks, CW_THREADS, L::BYTES, stream>>>(tc, tr,
-                                                                     a);
+  mla_chunk_wgmma<R, RP, Q8><<<blocks, CW_THREADS, L::BYTES, stream>>>(
+      tc, tr, a);
   return (int)cudaGetLastError();
 }
 
-template <int R>
+template <int R, bool Q8>
 int launch_chunk_rope(const MlaArgs& a, int rope, cudaStream_t stream) {
-  if (rope == 32) return launch_chunk_wgmma<R, 32>(a, stream);
-  if (rope == 64) return launch_chunk_wgmma<R, 64>(a, stream);
+  if (rope == 32) return launch_chunk_wgmma<R, 32, Q8>(a, stream);
+  if (rope == 64) return launch_chunk_wgmma<R, 64, Q8>(a, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma variant's checks and its instance for r (the pools' page size,
+// `rows`, a multiple of 8).
+template <bool Q8>
+int launch_chunk(const MlaArgs& a, int r, int rope, cudaStream_t stream) {
+  if (a.lead <= 0 || a.rows < 8 || a.rows % 8 != 0 || a.n < 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.H <= 0) return 0;
+  switch (r) {
+    case 128: return launch_chunk_rope<128, Q8>(a, rope, stream);
+    case 256: return launch_chunk_rope<256, Q8>(a, rope, stream);
+    case 512: return launch_chunk_rope<512, Q8>(a, rope, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -835,21 +1155,12 @@ extern "C" int vwr_mla_chunk_prefix_attend_wgmma_launch(
     const void* table, const void* counts, void* o_t, void* m, void* l,
     int C, int H, int r, int rope, int lead, int rows, int J, float scale,
     int dtype, void* stream) {
-  if (dtype != REPRO_BF16 || lead <= 0 || rows < 8 || rows % 8 != 0 ||
-      J < 0)
-    return (int)cudaErrorInvalidValue;
-  if (C <= 0 || H <= 0) return 0;
+  if (dtype != REPRO_BF16) return (int)cudaErrorInvalidValue;
   const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
                   nullptr, nullptr, (const int*)table, (const int*)counts,
                   (float*)o_t, (float*)m, (float*)l, C, H, lead, rows, J,
                   scale, 0};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (r) {
-    case 128: return launch_chunk_rope<128>(a, rope, s);
-    case 256: return launch_chunk_rope<256>(a, rope, s);
-    case 512: return launch_chunk_rope<512>(a, rope, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_chunk<false>(a, r, rope, (cudaStream_t)stream);
 }
 
 // Kernel 15: kernel 12 over int8 pools with fp32 (n_pages,) latent and
@@ -865,4 +1176,20 @@ extern "C" int vwr_mla_chunk_prefix_attend_q8_launch(
                   (const int*)table, (const int*)counts, (float*)o_t,
                   (float*)m, (float*)l, C, H, lead, rows, J, scale, 0};
   return launch_dtype(a, r, rope, dtype, true, (cudaStream_t)stream);
+}
+
+// Kernel 15's wgmma variant: the arguments of
+// vwr_mla_chunk_prefix_attend_q8_launch; r in {128, 256, 512}, rope in
+// {32, 64}, page size (`rows`) a multiple of 8.
+extern "C" int vwr_mla_chunk_prefix_attend_q8_wgmma_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* ckv_scale, const void* krope_scale, const void* table,
+    const void* counts, void* o_t, void* m, void* l, int C, int H, int r,
+    int rope, int lead, int rows, int J, float scale, int dtype,
+    void* stream) {
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  (const float*)ckv_scale, (const float*)krope_scale,
+                  (const int*)table, (const int*)counts, (float*)o_t,
+                  (float*)m, (float*)l, C, H, lead, rows, J, scale, 0};
+  return launch_chunk<true>(a, r, rope, (cudaStream_t)stream);
 }

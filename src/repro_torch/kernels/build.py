@@ -15,9 +15,11 @@ an explicit ``build()``) does it.  Each C entry point returns
 Every kernel wrapper adds one to its entry in ``LAUNCHES`` where it
 launches its kernel, and nowhere else, so a run can show which kernels
 the main path went through.  A kernel with variants (``vwr_matmul``:
-split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_conv2d``: wgmma or the
-halo-tile kernel; ``vwr_mla_chunk_prefix_attend``: wgmma or FMA) also
-counts the variant that ran in ``VARIANTS``.
+split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_swiglu``: wgmma or the
+WMMA / FMA tile kernel;
+``vwr_conv2d``: wgmma or the halo-tile kernel;
+``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA)
+also counts the variant that ran in ``VARIANTS``.
 """
 from __future__ import annotations
 
@@ -54,10 +56,13 @@ LAUNCHES: Dict[str, int] = {"vwr_matmul": 0, "vwr_swiglu": 0,
                             "vwr_conv2d": 0, "vwr_depthwise": 0}
 
 VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
-                            "vwr_matmul.gemm": 0, "vwr_conv2d.wgmma": 0,
-                            "vwr_conv2d.tile": 0,
+                            "vwr_matmul.gemm": 0, "vwr_swiglu.wgmma": 0,
+                            "vwr_swiglu.gemm": 0,
+                            "vwr_conv2d.wgmma": 0, "vwr_conv2d.tile": 0,
                             "vwr_mla_chunk_prefix_attend.wgmma": 0,
-                            "vwr_mla_chunk_prefix_attend.fma": 0}
+                            "vwr_mla_chunk_prefix_attend.fma": 0,
+                            "vwr_mla_chunk_prefix_attend_q8.wgmma": 0,
+                            "vwr_mla_chunk_prefix_attend_q8.fma": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -204,9 +209,9 @@ _SPLIT_COUNTERS: Dict[object, object] = {}
 def split_counters(device, n: int):
     """A zeroed int32 buffer of at least ``n`` counters on ``device`` for
     the kernels whose K splits are summed by the last block of a tile
-    (``vwr_matmul``'s split-K and wgmma variants, ``vwr_conv2d``'s wgmma
-    variant), kept across calls: every launch leaves its counters at 0.
-    Launches on one stream share it."""
+    (``vwr_matmul``'s split-K and wgmma variants, ``vwr_swiglu``'s and
+    ``vwr_conv2d``'s wgmma variants), kept across calls: every launch
+    leaves its counters at 0.  Launches on one stream share it."""
     import torch
 
     buf = _SPLIT_COUNTERS.get(device)

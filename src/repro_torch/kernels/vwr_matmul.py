@@ -6,15 +6,22 @@ Counterpart of ``repro.kernels.vwr_matmul`` (``vwr_matmul_p``,
 fp32 accumulators and apply the whole epilogue to them before one cast:
 ``act(x @ w + bias) + residual`` and ``silu(x @ wg) * (x @ wi)``.
 
-``vwr_matmul`` has three kernels, and ``variant`` picks one per call from
-the shape, the type and the operands' alignment: ``"splitk"`` (bf16, M at
-most ``SPLITK_MAX_M``: decode steps stream the weight, split along K over
-the SMs), ``"wgmma"`` (bf16, larger M: wgmma tiles fed by TMA) and
+``variant`` picks one of ``vwr_matmul``'s three kernels per call from
+the shape, the type and the operands' alignment: ``"splitk"`` (bf16, M
+at most ``SPLITK_MAX_M``: decode steps stream the weight, split along K
+over the SMs), ``"wgmma"`` (bf16, larger M: wgmma tiles fed by TMA) and
 ``"gemm"`` (fp32, and every bf16 shape whose K or N is not a multiple of
-8, which TMA and 16-byte loads cannot take: the WMMA / FMA tile kernel,
-which ``vwr_swiglu`` always takes).  Each is a hand-written kernel of this
-repository; none is the plain version.  ``build.VARIANTS`` counts the
-launches of each beside ``build.LAUNCHES["vwr_matmul"]``.
+8, which TMA and 16-byte loads cannot take: the WMMA / FMA tile kernel).
+``swiglu_variant`` picks one of ``vwr_swiglu``'s two: ``"wgmma"`` for
+every bf16 shape the tiles take (at M 1-2 they stream the weights as
+fast as a split-K kernel would, PERF.md), else ``"gemm"``.  Its two
+weights are one product ``x @ [wg | wi]`` of width 2N cut into strips
+that hold the same output columns of both (``swiglu_tile_plan``), so
+each strip applies ``silu(g) * h`` to its own fp32 sums;
+``swiglu_split_emulation`` is that layout in plain PyTorch.
+Each is a hand-written kernel of this repository; none is the plain
+version.  ``build.VARIANTS`` counts the launches of each beside
+``build.LAUNCHES["vwr_matmul"]`` / ``["vwr_swiglu"]``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.
@@ -61,6 +68,13 @@ def variant(M, N, K, dtype, aligned):
     return "splitk" if M <= SPLITK_MAX_M else "wgmma"
 
 
+def swiglu_variant(M, N, K, dtype, aligned):
+    """The kernel that serves a ``vwr_swiglu`` call (wg, wi: (K, N)):
+    "wgmma" wherever ``variant`` would take a bf16 variant, else
+    "gemm"."""
+    return "gemm" if variant(M, N, K, dtype, aligned) == "gemm" else "wgmma"
+
+
 def _cdiv(a, b):
     return -(-a // b)
 
@@ -95,6 +109,26 @@ def tile_plan(M, N, K):
         nsplit = 1
     kt_split = _cdiv(kt, nsplit)
     return bm, _cdiv(kt, kt_split), kt_split
+
+
+# output columns a strip of vwr_swiglu's wgmma variant: 64 (boxes of wg and
+# wi side by side in one n128 product) or 128 (two n128 products)
+SWIGLU_TILE_BNS = (64, 128)
+
+
+def swiglu_tile_plan(M, N, K):
+    """(bm, bn, nsplit, kt_split) of vwr_swiglu's wgmma variant.  Up to
+    128 rows: tile_plan of the product ``x @ [wg | wi]`` (width 2N) in
+    strips of bn = 64 output columns, 128 accumulator columns [g | h], on
+    one 64-row tile up to 64 rows.  Past 128 rows: 128-row tiles on strips
+    of 128 output columns (two n128 products: x read half as often), K
+    whole.  Measured on the H100 (PERF.md): 128-column strips 0.069 /
+    0.022 ms against 0.074 / 0.027 at 512x2048x5632 / 512x1024x2816, a
+    64-row tile 0.028 against 0.031 at M 8."""
+    if M > 128:
+        return 128, 128, 1, _cdiv(K, TILE_BK)
+    bm, nsplit, kt_split = tile_plan(M, 2 * N, K)
+    return (64 if M <= 64 else bm), 64, nsplit, kt_split
 
 
 _ENTRIES = {"splitk": "vwr_matmul_splitk_launch",
@@ -177,21 +211,49 @@ def launch(x, w, bias, residual, activation, kind, plan=None):
     return out
 
 
-def encode_us(x, w, reps=1000):
-    """Host microseconds the wgmma variant spends encoding its two tensor
-    maps a call (the mean of ``reps``), at x (M, K) and w (K, N) on the
-    card."""
+def encode_us(x, w, reps=1000, weights=1):
+    """Host microseconds the wgmma variant spends encoding its tensor maps
+    a call (the mean of ``reps``), at x (M, K) and ``weights`` maps of w
+    (K, N) on the card: 1 for ``vwr_matmul``, 2 for ``vwr_swiglu``'s wg
+    and wi."""
     M, K = x.shape
     N = w.shape[1]
     lib = build.library("vwr_matmul")
     fn = lib.vwr_matmul_encode_ns
-    fn.argtypes = [_VP, _VP] + [_I] * 5
+    fn.argtypes = [_VP, _VP] + [_I] * 6
     fn.restype = ctypes.c_double
-    ns = fn(x.data_ptr(), w.data_ptr(), M, N, K, tile_plan(M, N, K)[0],
-            reps)
+    bm = (tile_plan(M, N, K) if weights == 1
+          else swiglu_tile_plan(M, N, K))[0]
+    ns = fn(x.data_ptr(), w.data_ptr(), M, N, K, bm, weights, reps)
     if ns < 0:
         raise RuntimeError("vwr_matmul: cuTensorMapEncodeTiled failed")
     return ns / 1e3
+
+
+def swiglu_split_emulation(x, wg, wi, plan=None):
+    """The wgmma variant's layout in plain PyTorch, in fp32: a strip of
+    ``bn`` output columns holds wg's and wi's columns side by side, K is
+    sliced by the plan (``swiglu_tile_plan``'s unless ``plan`` is given)
+    into slices of kt_split 64-deep steps, each slice's product is a
+    partial summed in split order, then ``silu(g) * h`` and one cast to
+    x.dtype.  The order of the sums inside a slice is torch's, not the
+    kernel's."""
+    M, K = x.shape
+    N = wg.shape[1]
+    _, bn, nsplit, kt_split = plan or swiglu_tile_plan(M, N, K)
+    depth = kt_split * TILE_BK
+    xf, gf, hf = x.float(), wg.float(), wi.float()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    for n0 in range(0, N, bn):
+        cols = slice(n0, min(N, n0 + bn))
+        w = torch.cat([gf[:, cols], hf[:, cols]], 1)
+        acc = torch.zeros(M, w.shape[1], device=x.device)
+        for s in range(nsplit):
+            ks = slice(s * depth, min(K, (s + 1) * depth))
+            acc = acc + xf[:, ks] @ w[ks]
+        g, h = acc.split(cols.stop - n0, 1)
+        out[:, cols] = F.silu(g) * h
+    return out.to(x.dtype)
 
 
 def vwr_swiglu(x, wg, wi):
@@ -204,11 +266,35 @@ def vwr_swiglu(x, wg, wi):
     N = wg.shape[1]
     build.check_operands("vwr_swiglu", x.dtype, x=(x, (M, K)),
                          wg=(wg, (K, N)), wi=(wi, (K, N)))
+    # check_operands raised unless every operand is 16-byte aligned
+    return swiglu_launch(x, wg, wi, swiglu_variant(M, N, K, x.dtype, True))
+
+
+def swiglu_launch(x, wg, wi, kind, plan=None):
+    """One launch of vwr_swiglu's variant ``kind`` on operands
+    ``vwr_swiglu`` checked, with ``swiglu_tile_plan``'s plan unless
+    ``plan`` is given; chip_smoke.py times the variants and plans against
+    each other through it."""
+    M, K = x.shape
+    N = wg.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib, fn = build.kernel_fn("vwr_matmul", "vwr_swiglu_launch",
-                              [_VP] * 4 + [_I] * 4 + [_VP])
-    err = fn(x.data_ptr(), wg.data_ptr(), wi.data_ptr(), out.data_ptr(),
-             M, N, K, build.dtype_code(x.dtype), build.stream_of(x))
+    ptrs = (x.data_ptr(), wg.data_ptr(), wi.data_ptr(), out.data_ptr())
+    if kind == "gemm":
+        lib, fn = build.kernel_fn("vwr_matmul", "vwr_swiglu_launch",
+                                  [_VP] * 4 + [_I] * 4 + [_VP])
+        err = fn(*ptrs, M, N, K, build.dtype_code(x.dtype),
+                 build.stream_of(x))
+    else:
+        bm, bn, nsplit, kt_split = plan or swiglu_tile_plan(M, N, K)
+        ws = (torch.empty((nsplit, M, 2 * N), dtype=torch.float32,
+                          device=x.device) if nsplit > 1 else None)
+        counters = build.split_counters(x.device,
+                                        _cdiv(M, bm) * _cdiv(N, bn))
+        lib, fn = build.kernel_fn("vwr_matmul", "vwr_swiglu_tile_launch",
+                                  [_VP] * 6 + [_I] * 7 + [_VP])
+        err = fn(*ptrs, None if ws is None else ws.data_ptr(),
+                 counters.data_ptr(), M, N, K, bm, bn, nsplit, kt_split,
+                 build.stream_of(x))
     build.check(lib, err, "vwr_swiglu")
-    build.count_launch("vwr_swiglu")
+    build.count_launch("vwr_swiglu", kind)
     return out

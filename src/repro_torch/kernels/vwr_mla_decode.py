@@ -36,13 +36,15 @@ acceptable at reduced widths.  Nothing is copied at DeepSeek-V3's r 512,
 rope 64.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
 
-Kernel 12 has two kernels, and ``chunk_variant`` picks one per call:
-``"wgmma"`` (bf16 pools at r 128 / 256 / 512, rope 32 / 64, pages of a
-multiple of 8 rows: the chunk's C*H rows as wgmma rows, the fp32
-queries and P each split into two bf16 terms; ``chunk_split_emulation``
-is its arithmetic in plain PyTorch) or ``"fma"`` (fp32 pools and every
-other width: the decode body, fp32 FMAs).  ``build.VARIANTS`` counts
-both.
+Kernels 12 and 15 have two kernels each, and ``chunk_variant`` picks one
+per call: ``"wgmma"`` (bf16 or int8 pools at r 128 / 256 / 512, rope
+32 / 64, pages of a multiple of 8 rows: the chunk's C*H rows as wgmma
+rows, the fp32 queries and P each split into two bf16 terms; on int8
+pools two fp16 terms of each query row and of P scaled by powers of two,
+the keys converted to fp16 exactly and their page scales applied in fp32
+outside the products; ``chunk_split_emulation`` is its arithmetic in
+plain PyTorch) or ``"fma"`` (fp32 pools and every other width: the decode
+body, fp32 FMAs).  ``build.VARIANTS`` counts both.
 """
 from __future__ import annotations
 
@@ -161,9 +163,10 @@ def vwr_mla_chunk_prefix_attend_q8_ref(q_abs, q_rope, ckv_pool, krope_pool,
 
 
 def chunk_variant(r, rope, page_size, dtype):
-    """The kernel that serves a ``vwr_mla_chunk_prefix_attend`` call at
-    the kernel's widths (after ``widths.at_widths``): "wgmma" or "fma"."""
-    if (str(dtype) == "torch.bfloat16" and r in WGMMA_RANKS
+    """The kernel that serves a ``vwr_mla_chunk_prefix_attend`` (bf16 or
+    fp32 pools) or ``_q8`` (int8 pools) call at the kernel's widths
+    (after ``widths.at_widths``): "wgmma" or "fma"."""
+    if (str(dtype) in ("torch.bfloat16", "torch.int8") and r in WGMMA_RANKS
             and rope in ROPES and page_size % WGMMA_PAGE_ROWS == 0
             and page_size > 0):
         return "wgmma"
@@ -175,6 +178,30 @@ def _bf16_terms(x):
     each returned as fp32."""
     hi = x.bfloat16().float()
     return hi, (x - hi).bfloat16().float()
+
+
+# kernel 15's fp16 terms: each query row (and P) is scaled by the power of
+# two that brings its largest magnitude into [2^14, 2^15): inside fp16's
+# range, with lo = fp16(x - hi) still a normal number for every element
+# down to 2^-17 of the largest
+F16_TOP = 15
+
+
+def _pow2_up(amax):
+    """The power of two that brings amax into [2^14, 2^15) (1 for 0)."""
+    e = torch.frexp(amax)[1]
+    return torch.where(amax > 0, torch.ldexp(torch.ones_like(amax),
+                                             (F16_TOP - e).clamp(max=126)),
+                       1.0)
+
+
+def _f16_terms(x, up):
+    """x (fp32) as two fp16 terms of x * up, hi = fp16(x up) and lo =
+    fp16(x up - hi), each returned as fp32 and divided by up again (both
+    exact: up is a power of two)."""
+    xs = x * up
+    hi = xs.half().float()
+    return hi / up, (xs - hi).half().float() / up
 
 
 def chunk_key_tiles(table, counts, page_size):
@@ -199,17 +226,36 @@ def chunk_key_tiles(table, counts, page_size):
 
 
 def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
-                          *, scale: float):
-    """Kernel 12's wgmma arithmetic in plain PyTorch (the tests hold it
-    against ``vwr_mla_chunk_prefix_attend_ref``): the queries times scale
-    and P each as two bf16 terms against the bf16 pools' values, fp32
-    products and sums, an fp32 online softmax over the kernel's key tiles.
-    Returns fp32 (o_tilde (C, H, r), m (C, H), l (C, H))."""
+                          ckv_scale=None, krope_scale=None, *, scale: float):
+    """The wgmma variant's arithmetic in plain PyTorch (the tests hold it
+    against ``vwr_mla_chunk_prefix_attend_ref`` and its q8 sibling): the
+    queries times scale and P each as two bf16 terms against the bf16
+    pools' values, fp32 products and sums, an fp32 online softmax over the
+    kernel's key tiles.  With the int8 pools' (n_pages,) scales the terms
+    are fp16 (each query row, and P, scaled by the power of two
+    ``_pow2_up`` gives), the int8 values exact in fp16, a key's latent and
+    rope sums each take their page's scale in fp32 and P takes the latent
+    one before its split, while l sums the unscaled P.  Returns fp32
+    (o_tilde (C, H, r), m (C, H), l (C, H))."""
     C, H, r = q_abs.shape
     n_pages, ps = ckv_pool.shape[:2]
-    qa = [t.reshape(C * H, r) for t in _bf16_terms(q_abs.float() * scale)]
-    qr = [t.reshape(C * H, -1)
-          for t in _bf16_terms(q_rope.float() * scale)]
+    q8 = ckv_scale is not None
+    xa = q_abs.float().reshape(C * H, r) * scale
+    xr = q_rope.float().reshape(C * H, -1) * scale
+    if q8:
+        # int8 pools: fp16 terms, each row scaled by its power of two
+        up = _pow2_up(torch.maximum(xa.abs().amax(-1), xr.abs().amax(-1)))
+        qa, qr = (_f16_terms(t, up[:, None]) for t in (xa, xr))
+        # P times the latent scale, scaled by the power of two of the
+        # largest scale of a counted page
+        cs_pages = torch.where(counts > 0, ckv_scale.float()[
+            table.long().clamp(0, n_pages - 1)], 0.0)
+        p_up = _pow2_up(cs_pages.amax() if cs_pages.numel()
+                        else torch.zeros(()))
+        p_terms = lambda p: _f16_terms(p, p_up)   # noqa: E731
+    else:
+        qa, qr = _bf16_terms(xa), _bf16_terms(xr)
+        p_terms = _bf16_terms
     ckv = ckv_pool.bfloat16().float().reshape(n_pages * ps, r)
     kr = krope_pool.bfloat16().float().reshape(n_pages * ps, -1)
     tbl = table.long().clamp(0, n_pages - 1).tolist()
@@ -220,13 +266,22 @@ def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
         idx = torch.tensor([max(t, 0) for t in tile])
         ok = torch.tensor([t >= 0 for t in tile])
         kc, kp = ckv[idx], kr[idx]
-        s = sum(q @ kc.T for q in qa) + sum(q @ kp.T for q in qr)
-        s = torch.where(ok[None], s, NEG_INF)
+        s_lat = sum(q @ kc.T for q in qa)
+        s_rope = sum(q @ kp.T for q in qr)
+        cs = torch.ones(len(tile))
+        if q8:
+            # a masked slot's page scale: 0 (no segment) or its page's
+            pages = idx // ps
+            cs = torch.where(ok, ckv_scale.float()[pages], 0.0)
+            s_lat = s_lat * cs[None]
+            s_rope = s_rope * torch.where(ok, krope_scale.float()[pages],
+                                          0.0)[None]
+        s = torch.where(ok[None], s_lat + s_rope, NEG_INF)
         mx = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - mx)
         p = torch.where(ok[None], torch.exp(s - mx[:, None]), 0.0)
         l = l * corr + p.sum(-1)
-        o = o * corr[:, None] + sum(t @ kc for t in _bf16_terms(p))
+        o = o * corr[:, None] + sum(t @ kc for t in p_terms(p * cs[None]))
         m = mx
     return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
 
@@ -288,7 +343,7 @@ def _kernel(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
     l = torch.empty((B, H), **f32)
     ptrs = [q_abs, q_rope, ckv, kr, *scales, *index, o_t, m, l]
     kind = (chunk_variant(r, rope, lead[1], ckv.dtype)
-            if kernel == "vwr_mla_chunk_prefix_attend" else None)
+            if kernel.startswith("vwr_mla_chunk") else None)
     entry = kernel + ("_wgmma_launch" if kind == "wgmma" else "_launch")
     lib, fn = build.kernel_fn("vwr_mla_decode", entry,
                               [_VP] * len(ptrs) + [_I] * 7
@@ -373,7 +428,9 @@ def vwr_mla_chunk_prefix_attend(q_abs, q_rope, ckv_pool, krope_pool, table,
 def vwr_mla_chunk_prefix_attend_q8(q_abs, q_rope, ckv_pool, krope_pool,
                                    ckv_scale, krope_scale, table, counts, *,
                                    scale: float):
-    """Kernel 15: kernel 12 over int8 pools with fp32 (n_pages,) scales."""
+    """Kernel 15: kernel 12 over int8 pools with fp32 (n_pages,) scales;
+    on the card ``chunk_variant`` picks the kernel (wgmma at the widths
+    it takes)."""
     if q_abs.device.type == "cpu":
         return vwr_mla_chunk_prefix_attend_q8_ref(
             q_abs, q_rope, ckv_pool, krope_pool, ckv_scale, krope_scale,

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro.dist import decode as jdd  # noqa: E402
 from repro.kernels import dispatch as JD  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+import repro_torch.models.lm  # noqa: E402,F401  (registers the dispatch ops)
 from repro_torch.dist import decode as tdd  # noqa: E402
 from repro_torch.kernels import dispatch as D  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -216,6 +217,19 @@ def test_cuda_kernels_match_plain(cuda, dtype):
         KM.vwr_matmul_ref(x, w, b, res, activation="gelu"), **tol)
     torch.testing.assert_close(KM.vwr_swiglu(x, w, w),
                                KM.vwr_swiglu_ref(x, w, w), **tol)
+    if dtype == "bfloat16":
+        # swiglu's wgmma tiles at M 2, M 4 (a decode step) and M 72,
+        # against the plain version and the emulation of their layout
+        # with the same plan (K split at M 2 and 4)
+        for M in (2, 4, 72):
+            xs, wg, wi = r(M, 512), r(512, 136) * 0.05, r(512, 136) * 0.05
+            before = build.VARIANTS["vwr_swiglu.wgmma"]
+            got = KM.vwr_swiglu(xs, wg, wi)
+            assert build.VARIANTS["vwr_swiglu.wgmma"] == before + 1
+            torch.testing.assert_close(got, KM.vwr_swiglu_ref(xs, wg, wi),
+                                       **tol)
+            torch.testing.assert_close(
+                got, KM.swiglu_split_emulation(xs, wg, wi), **tol)
     q, k, v = r(2, 45, 8, 64), r(2, 45, 2, 64), r(2, 45, 2, 64)
     torch.testing.assert_close(KA.vwr_attention(q, k, v),
                                KA.vwr_attention_ref(q, k, v), **tol)

@@ -1,19 +1,27 @@
-"""The rule that picks ``vwr_matmul``'s kernel for a call, and the plans of
-its two bf16 variants (split-K weight streaming and wgmma tiles).
+"""The rule that picks ``vwr_matmul``'s and ``vwr_swiglu``'s kernel for a
+call, and the plans of their two bf16 variants (split-K weight streaming
+and wgmma tiles).
 
 The rule and the plans are plain Python, so they are held here on the
 CPU: the main path's shapes map to the variant meant for them, fp32 and
 unaligned shapes map to the WMMA / FMA tile kernel, no shape that TMA or
 the 16-byte weight loads cannot take reaches a bf16 variant, and every
-plan covers K exactly and stays within the kernel's limits.  The kernels
-themselves run on the card (``cuda``-marked cases in
-``test_torch_kernels.py`` and ``chip_smoke.py``).
+plan covers K exactly and stays within the kernel's limits.  Swiglu's
+wgmma layout (wg's and wi's columns side by side in a strip, K sliced by
+the plan, partials summed in split order) is emulated in plain PyTorch
+(``swiglu_split_emulation``) and the emulation is held against the plain
+version and the JAX op: that checks the layout's arithmetic, not the
+kernel.  The kernels themselves run on the card (``cuda``-marked cases
+in ``test_torch_kernels.py``, the wgmma swiglu against this emulation
+too, and ``chip_smoke.py``).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import vwr_matmul as KM  # noqa: E402
 
@@ -126,3 +134,142 @@ def test_variant_counters_reset_with_the_launch_counts():
     x = torch.randn(4, 16)
     KM.vwr_matmul(x.bfloat16(), torch.eye(16).bfloat16())
     assert all(n == 0 for n in build.VARIANTS.values())   # CPU: plain
+
+
+# ---- vwr_swiglu: silu(x @ wg) * (x @ wi) ----
+
+@pytest.mark.parametrize("what,M,K,N,want", [
+    ("tinyllama prefill", 512, 2048, 5632, "wgmma"),
+    ("tinyllama decode", 4, 2048, 5632, "wgmma"),
+    ("Scheduler decode: 8 slots", 8, 2048, 5632, "wgmma"),
+    ("a mixed step: 8 slots + a 64-token chunk", 72, 2048, 5632, "wgmma"),
+    ("qwen prefill", 512, 1024, 2816, "wgmma"),
+    ("qwen decode", 4, 1024, 2816, "wgmma"),
+    ("deepseek-v3 shared expert", 4, 7168, 2048, "wgmma"),
+    ("deepseek-v3 dense layers", 4, 7168, 18432, "wgmma"),
+    ("a batch-1 decode", 1, 2048, 5632, "wgmma"),
+    ("a batch-2 decode", 2, 2048, 5632, "wgmma"),
+    ("a batch-3 decode", 3, 2048, 5632, "wgmma"),
+    ("a batch-2 deepseek-v3 shared expert", 2, 7168, 2048, "wgmma"),
+])
+def test_swiglu_main_path_shapes_take_their_variant(what, M, K, N, want):
+    assert KM.swiglu_variant(M, N, K, BF16, True) == want, what
+
+
+def test_swiglu_takes_wgmma_wherever_matmul_takes_a_bf16_variant():
+    """swiglu has no split-K variant: at every M (and over a sweep of K
+    and N) it takes the wgmma tiles where ``variant`` takes either bf16
+    variant, and ``gemm_kernel`` where ``variant`` does."""
+    rng = np.random.default_rng(2)
+    for M in range(0, 80):
+        K, N = (int(v) for v in rng.integers(1, 600, 2))
+        for k, n in ((2048, 5632), (K, N), (8 * K, 8 * N)):
+            want = KM.variant(M, n, k, BF16, True)
+            got = KM.swiglu_variant(M, n, k, BF16, True)
+            assert got == ("gemm" if want == "gemm" else "wgmma")
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (512, 2048, 5632, F32),           # fp32 keeps the WMMA / FMA kernel
+    (4, 2048, 5632, F32),
+    (64, 256, 512, F32),
+    (37, 100, 70, BF16),              # K and N off 8
+    (37, 104, 70, BF16),              # N off 8
+    (4, 100, 72, BF16),               # K off 8
+])
+def test_swiglu_fp32_and_off_8_take_the_tile_kernel(M, K, N, dtype):
+    assert KM.swiglu_variant(M, N, K, dtype, True) == "gemm"
+
+
+SWIGLU_SHAPES = [(512, 2048, 5632), (4, 2048, 5632), (8, 2048, 5632),
+                 (72, 2048, 5632), (512, 1024, 2816), (4, 1024, 2816),
+                 (4, 7168, 2048), (4, 7168, 18432), (1, 2048, 5632),
+                 (3, 1000, 136), (37, 104, 72), (300, 1000, 200)]
+
+
+@pytest.mark.parametrize("M,K,N", SWIGLU_SHAPES)
+def test_swiglu_plans_cover_k_once_in_64_wide_strips(M, K, N):
+    """The wgmma plan slices K exactly once (no empty slice) into slices
+    of at least 4 steps when it splits, its strips are 64 (or, past 128
+    rows, 128) output columns of wg and of wi, and the grid fits."""
+    bm, bn, nsplit, kt_split = KM.swiglu_tile_plan(M, N, K)
+    kt = -(-K // KM.TILE_BK)
+    assert bm in (64, 128) and bn in KM.SWIGLU_TILE_BNS
+    assert nsplit * kt_split >= kt > (nsplit - 1) * kt_split
+    # past 128 rows wide strips of 128-row tiles, K whole; else one row
+    # tile (64 rows up to 64), the weights read once
+    assert (bn == 128) == (M > 128)
+    assert bm == (64 if M <= 64 else 128)
+    if M > 128:
+        assert nsplit == 1
+    if nsplit > 1:
+        assert kt_split >= 4
+    assert -(-M // bm) <= 65535 and nsplit <= 65535   # grid y and z
+
+
+@pytest.mark.parametrize("M,K,N,plan", [
+    # tinyllama's gate/up at prefill: 44 strips of 128 output columns x 4
+    # row tiles of 128 (176 blocks), K whole
+    (512, 2048, 5632, (128, 128, 1, 32)),
+    # qwen's: 22 strips x 4 (88 blocks)
+    (512, 1024, 2816, (128, 128, 1, 16)),
+    # a mixed step: one row tile of 128, 88 strips of 64
+    (72, 2048, 5632, (128, 64, 1, 32)),
+    # the Scheduler's decode: one row tile of 64
+    (8, 2048, 5632, (64, 64, 1, 32)),
+])
+def test_swiglu_tile_plan_at_the_main_path(M, K, N, plan):
+    assert KM.swiglu_tile_plan(M, N, K) == plan
+
+
+@pytest.mark.parametrize("M,K,N,plan", [
+    (4, 2048, 320, None),              # the rule's own plans
+    (72, 512, 200, None),
+    (300, 1000, 200, None),
+    (5, 1000, 136, (64, 64, 4, 4)),    # four slices, the last step short
+    (4, 2048, 320, (64, 128, 8, 4)),   # eight slices on 128-column strips
+    (37, 640, 72, (64, 64, 3, 4)),     # three slices of 4 steps
+    (37, 640, 200, (128, 128, 2, 5)),  # 128-column strips
+])
+def test_swiglu_split_layout_matches_the_plain_version(M, K, N, plan):
+    """The emulation of the wgmma layout (wg's and wi's columns side by
+    side in a strip, K sliced by the plan, partials summed in split
+    order, then silu(g) * h) computes the plain version's function to
+    fp32 rounding.  This holds the emulation, not the kernel."""
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    wg, wi = (torch.from_numpy(rng.standard_normal((K, N), np.float32)
+                               * K ** -0.5) for _ in range(2))
+    got = KM.swiglu_split_emulation(x, wg, wi, plan)
+    torch.testing.assert_close(got, KM.vwr_swiglu_ref(x, wg, wi),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def _no_autotune(monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("M,K,N", [(16, 32, 48), (7, 20, 16)])
+def test_swiglu_split_layout_matches_jax(_no_autotune, bn, M, K, N):
+    """The same emulation, on 64- and 128-column strips, against the JAX
+    op (Pallas in interpret mode) on the same numpy inputs, fp32: the
+    layout's arithmetic, not the kernel."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    wg, wi = ((rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+              for _ in range(2))
+    want = jops.vwr_swiglu(jnp.asarray(x), jnp.asarray(wg), jnp.asarray(wi))
+    got = KM.swiglu_split_emulation(
+        *(torch.from_numpy(a) for a in (x, wg, wi)), (64, bn, 1, 1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_swiglu_variant_counts_stay_zero_on_the_cpu():
+    build.reset_launches()
+    x = torch.randn(4, 16).bfloat16()
+    KM.vwr_swiglu(x, torch.eye(16).bfloat16(), torch.eye(16).bfloat16())
+    assert all(n == 0 for n in build.VARIANTS.values())   # CPU: plain
+    assert build.LAUNCHES["vwr_swiglu"] == 0

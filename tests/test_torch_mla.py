@@ -455,7 +455,10 @@ def test_cuda_paged_mla_kernels_match_plain(cuda, dtype, q8, ps):
 def test_cuda_mla_chunk_kernels_match_plain(cuda, dtype, q8):
     """Kernels 12 and 15 against their plain versions at DeepSeek-V3's
     widths: a 64-token chunk over full pages, a partial page, a count-0
-    page and a table entry past the pool; C 1; a first chunk."""
+    page and a table entry past the pool; C 1; a first chunk.  Kernel 15
+    (int8 pools at r 512) launches its wgmma variant."""
+    from repro_torch.kernels import build
+
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(3)
     n_pages, ps, r, rope, H_ = 24, 16, 512, 64, 128
@@ -479,7 +482,11 @@ def test_cuda_mla_chunk_kernels_match_plain(cuda, dtype, q8):
         args = (*q, *pools, *scales,
                 torch.tensor(table, dtype=torch.int32, device=cuda),
                 torch.tensor(counts, dtype=torch.int32, device=cuda))
+        before = build.VARIANTS["vwr_mla_chunk_prefix_attend_q8.wgmma"]
         got = fn(*args, scale=0.07)
         torch.cuda.synchronize()
         for a, b in zip(got, ref(*args, scale=0.07)):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        if q8:
+            assert (build.VARIANTS["vwr_mla_chunk_prefix_attend_q8.wgmma"]
+                    == before + 1)
