@@ -472,12 +472,29 @@ def _swiglu_plans(KM, M, N, K):
     return [own] + [p for p in dict.fromkeys(alts) if p != own]
 
 
+def _served(kernel, shape, before, build, want):
+    """The variant of ``kernel`` that the launches since ``before`` (a
+    copy of ``build.VARIANTS``) counted must be ``want`` alone."""
+    served = {k.split(".")[-1] for k, n in build.VARIANTS.items()
+              if k.startswith(kernel + ".") and n != before[k]}
+    if served != {want}:
+        raise AssertionError(f"{kernel} {shape}: the rule picks {want}, "
+                             f"the wrapper launched {sorted(served)}")
+
+
+def _bitwise(kernel, shape, got, again):
+    """Two launches of a kernel on the same inputs give equal outputs."""
+    if not all(a.equal(b) for a, b in zip(got, again)):
+        raise AssertionError(f"{kernel} {shape}: two launches differ")
+
+
 def check_kernels(torch, F):
     from repro_torch.kernels import build
     from repro_torch.kernels import vwr_attention as KA
     from repro_torch.kernels import vwr_chunk as KC
     from repro_torch.kernels import vwr_decode as KD
     from repro_torch.kernels import vwr_matmul as KM
+    from repro_torch.kernels import widths
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -719,13 +736,20 @@ def check_kernels(torch, F):
         k = randn(B, T, KV, D, dtype=dt)
         v = randn(B, T, KV, D, dtype=dt)
         shape = f"B{B} T{T} KV{KV} G{G} D{D} cur{cur} pos0{pos0}"
+        before = dict(build.VARIANTS)
         got = KD.vwr_flash_decode(q, k, v, cur, pos0)
         torch.cuda.synchronize()
+        _served("vwr_flash_decode", shape, before, build,
+                KD.decode_variant(dt, widths.native_width(
+                    D, KD.HEAD_DIMS, "vwr_flash_decode"), min(G, 16)))
         # fp32 partials whatever the input type
         err = compare("vwr_flash_decode", shape, f32, got,
                       KD.vwr_flash_decode_ref(q, k, v, cur, pos0))
         if label == "masked row" and got[2].abs().max().item() != 0.0:
             raise AssertionError("a group with no valid key must give l=0")
+        if dt == bf16:
+            _bitwise("vwr_flash_decode", shape, got,
+                     KD.vwr_flash_decode(q, k, v, cur, pos0))
         if timed:
             n = max(0, min(T, cur - pos0))
             qs = q.reshape(B, KV * G, 1, D)
@@ -900,9 +924,16 @@ def check_kernels(torch, F):
                 else KC.vwr_chunk_prefix_attend_ref
             shape_s = (f"KV{KV} G{G} D{D} ps{ps} C{C} J{J} "
                        f"keys{sum(counts)}")
+            before = dict(build.VARIANTS)
             got = fn(*ops_)
             torch.cuda.synchronize()
+            if not q8:
+                _served(kname, shape_s, before, build, KC.chunk_variant(
+                    C * G, widths.native_width(D, KC.HEAD_DIMS, kname), ps,
+                    dt))
             err = compare(kname, shape_s, f32, got, ref(*ops_))
+            if dt == bf16 and not q8:
+                _bitwise(kname, shape_s, got, fn(*ops_))
             if not any(counts) and (got[2].abs().max().item() != 0.0
                                     or got[0].abs().max().item() != 0.0
                                     or got[1].max().item() > -1e29):
@@ -921,9 +952,302 @@ def check_kernels(torch, F):
                        lambda: fn(*ops_), lambda: ref(*ops_),
                        _chunk_sdpa(torch, F, q, pools, scales, table, cnt),
                        4 * KV * C * G * D * n_keys, nbytes, head)
+    check_split_variants(torch, F, compare, record)
     check_mla_kernels(torch, F, gen, compare, record)
     check_conv_kernels(torch, F, gen, compare, record)
     return results
+
+
+# kernel 4's split variant at split and tile edges (plans forced through
+# ``decode_launch``; None: ``decode_plan``'s), and the long caches
+DECODE_EDGES = [
+    # label, B, T, KV, G, D, cur_len, pos0, plan, timed
+    ("nine splits of a slice", 4, 160, 4, 8, 64, 144, 0, (9, 16), False),
+    ("one key past a split", 2, 160, 2, 8, 64, 17, 0, (2, 16), False),
+    ("one key past a tile", 2, 160, 2, 8, 64, 65, 0, None, False),
+    ("splits of partial tiles", 2, 300, 2, 8, 64, 300, 0, (3, 112), False),
+    ("one key", 1, 40, 2, 4, 64, 1, 0, None, False),
+    ("no key", 2, 40, 2, 4, 64, 3, 10, None, False),
+    ("pos0 > 0, two splits", 2, 300, 2, 8, 64, 290, 7, (2, 144), False),
+    ("D=128 G=16, two splits", 1, 200, 1, 16, 128, 200, 0, (2, 112), False),
+    ("D=32 G=3, three splits", 3, 100, 2, 3, 32, 90, 0, (3, 32), False),
+    ("G=1, three splits", 4, 136, 16, 1, 64, 130, 0, (3, 48), False),
+    ("B4 T2048", 4, 2048, 4, 8, 64, 2048, 0, None, True),
+    ("B1 T2048", 1, 2048, 4, 8, 64, 2048, 0, None, True),
+    ("B4 T2048 cur 1000 pos0 300", 4, 2048, 4, 8, 64, 1000, 300, None,
+     False),
+]
+# kernel 6's wgmma variant: C 1, J 0, partial pages mid-table, pages of
+# 8, 24 and 64, D 32 / 128, forced splits, a 2048-token prompt's last
+# chunk (124 prior pages of 16, 1,984 keys)
+CHUNK_EDGES = [
+    # label, KV, G, D, page_size, C, counts, plan, timed
+    ("C=1", 4, 8, 64, 16, 1, (16, 16, 5), None, False),
+    ("J=0", 4, 8, 64, 16, 64, (), None, False),
+    ("partial pages mid-table", 4, 8, 64, 16, 64,
+     (16, 9, 16, 16, 0, 16, 3, 16), None, False),
+    ("partial pages, forced splits", 4, 8, 64, 16, 64,
+     (16, 9, 16, 16, 0, 16, 3, 16), (2, 4), False),
+    ("counts 8, 0, 1", 2, 4, 64, 16, 8, (8, 0, 1), None, False),
+    ("page 8", 2, 3, 64, 8, 5, (8, 8, 0, 1) + (8,) * 12, None, False),
+    ("page 24", 2, 4, 64, 24, 8, (24, 24, 5, 24, 0, 24), None, False),
+    ("page 64", 2, 4, 64, 64, 8, (64, 50, 0, 64), None, False),
+    ("D=32", 2, 4, 32, 16, 8, (16, 9, 16), None, False),
+    ("D=128", 2, 4, 128, 16, 8, (16, 9, 16), None, False),
+    ("tinyllama chunk 64, 124 pages", 4, 8, 64, 16, 64, (16,) * 124, None,
+     True),
+]
+
+
+def _decode_plans(KD, BKV, n):
+    """decode_plan's plan first, then splits of 16 .. 2048 keys (at most
+    FIN_SPLITS of them)."""
+    own = KD.decode_plan(BKV, n)
+    alts = [(-(-n // kps), kps) for kps in
+            (16, 32, 48, 64, 128, 256, 512, 1024, 2048)
+            if kps <= max(n, 16) + 15 and -(-n // kps) <= 32]
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
+def _chunk_plans(KC, KV, CG, J, ps):
+    """chunk_plan's plan first, then splits of 4 .. 64 pages (at most
+    FIN_SPLITS of them)."""
+    own = KC.chunk_plan(KV, CG, J, ps)
+    alts = [(-(-J // jps), jps) for jps in (4, 8, 12, 16, 28, 64)
+            if jps <= max(J, 4) and -(-J // jps) <= 32]
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
+def check_split_variants(torch, F, compare, record):
+    """Kernel 4's split variant and kernel 6's wgmma variant at their split
+    and tile edges (the variant counted, within the fp32 limit of the plain
+    version and of the emulation of their arithmetic, bitwise over two
+    launches), the long shapes timed beside their bounds, the plan tables
+    and the host's enqueue of a kernel-4 call.  A generator of its own, so
+    the cases before and after draw the inputs they drew before."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_chunk as KC
+    from repro_torch.kernels import vwr_decode as KD
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    print("vwr_flash_decode split edges")
+    for (label, B, T, KV, G, D, cur, pos0, plan,
+         timed) in DECODE_EDGES:
+        q, k, v = randn(B * KV, G, D), randn(B, T, KV, D), randn(B, T, KV, D)
+        n = max(0, min(T, cur - pos0))
+        shape = (f"B{B} T{T} KV{KV} G{G} D{D} cur{cur} pos0{pos0} plan "
+                 f"{plan or KD.decode_plan(B * KV, n)}")
+
+        def run(q=q, k=k, v=v, cur=cur, pos0=pos0, n=n, plan=plan):
+            if plan is None:
+                return KD.vwr_flash_decode(q, k, v, cur, pos0)
+            return KD.decode_launch(q, k, v, n, "split", plan)
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served("vwr_flash_decode", shape, before, build, "split")
+        err = compare("vwr_flash_decode", shape, f32, got,
+                      KD.vwr_flash_decode_ref(q, k, v, cur, pos0))
+        compare("  vs emulation", shape, f32, got,
+                KD.decode_split_emulation(q, k, v, cur, pos0, plan=plan))
+        _bitwise("vwr_flash_decode", shape, got, run())
+        if n == 0 and (got[2].abs().max().item() != 0.0
+                       or got[1].max().item() > -1e29):
+            raise AssertionError("a group with no valid key must give "
+                                 "m=-1e30, l=0")
+        if timed:
+            qs = q.reshape(B, KV * G, 1, D)
+            ks, vs = (x[:, :n].transpose(1, 2).repeat_interleave(G, 1)
+                      for x in (k, v))
+            record("vwr_flash_decode", label, shape, bf16, err, run,
+                   lambda q=q, k=k, v=v, cur=cur, pos0=pos0:
+                   KD.vwr_flash_decode_ref(q, k, v, cur, pos0),
+                   lambda qs=qs, ks=ks, vs=vs:
+                   F.scaled_dot_product_attention(qs, ks, vs),
+                   4 * B * KV * G * D * n,
+                   2 * (B * KV * G * D + 2 * B * n * KV * D)
+                   + 4 * B * KV * G * (D + 2))
+
+    print("  vwr_flash_decode plans (ms; (splits, keys a split)), the FMA "
+          "kernel, SDPA:")
+    for label, B, T, KV, G, cur in (("tinyllama decode", 4, 160, 4, 8, 144),
+                                    ("qwen decode (G=1)", 4, 136, 16, 1,
+                                     130),
+                                    ("tinyllama long", 4, 2048, 4, 8, 2048),
+                                    ("tinyllama batch 1 long", 1, 2048, 4,
+                                     8, 2048)):
+        D = 64
+        q, k, v = randn(B * KV, G, D), randn(B, T, KV, D), randn(B, T, KV, D)
+        n = min(T, cur)
+        row = {"kernel": "vwr_flash_decode plans", "case": label,
+               "shape": f"B{B} T{T} KV{KV} G{G} D{D} cur{cur}",
+               "plans": []}
+        for plan in _decode_plans(KD, B * KV, n):
+            ms = time_ms(torch, lambda: KD.decode_launch(q, k, v, n, "split",
+                                                         plan))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["fma_ms"] = time_ms(torch, lambda: KD.decode_launch(q, k, v, n,
+                                                                "fma"))
+        qs = q.reshape(B, KV * G, 1, D)
+        ks, vs = (x[:, :n].transpose(1, 2).repeat_interleave(G, 1)
+                  for x in (k, v))
+        row["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f}")
+    _decode_enqueue(torch, F, KD, build, randn, record)
+
+    print("vwr_chunk_prefix_attend wgmma edges")
+    n_pages = 160
+    for (label, KV, G, D, ps, C, counts, plan, timed) in CHUNK_EDGES:
+        J = len(counts)
+        q = randn(KV, C * G, D)
+        pools = [randn(n_pages, ps, KV, D) for _ in range(2)]
+        table = torch.randperm(n_pages, generator=gen,
+                               device="cuda")[:J].to(torch.int32)
+        if J:
+            table[-1] = n_pages + 5
+        cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        ops_ = (q, *pools, table, cnt)
+        shape = (f"KV{KV} G{G} D{D} ps{ps} C{C} J{J} keys{sum(counts)} plan "
+                 f"{plan or KC.chunk_plan(KV, C * G, J, ps)}")
+
+        def run(ops_=ops_, plan=plan):
+            if plan is None:
+                return KC.vwr_chunk_prefix_attend(*ops_)
+            return KC.chunk_launch(*ops_, "wgmma", plan)
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served("vwr_chunk_prefix_attend", shape, before, build, "wgmma")
+        err = compare("vwr_chunk_prefix_attend", shape, f32, got,
+                      KC.vwr_chunk_prefix_attend_ref(*ops_))
+        compare("  vs emulation", shape, f32, got,
+                KC.chunk_wgmma_emulation(*ops_, plan=plan))
+        _bitwise("vwr_chunk_prefix_attend", shape, got, run())
+        if not any(counts) and (got[2].abs().max().item() != 0.0
+                                or got[0].abs().max().item() != 0.0
+                                or got[1].max().item() > -1e29):
+            raise AssertionError("a chunk with no valid prior key must "
+                                 "give m=-1e30, l=0, o=0")
+        if timed:
+            n_keys = sum(counts)
+            record("vwr_chunk_prefix_attend", label, shape, bf16, err, run,
+                   lambda ops_=ops_: KC.vwr_chunk_prefix_attend_ref(*ops_),
+                   _chunk_sdpa(torch, F, q, pools, [], table, cnt),
+                   4 * KV * C * G * D * n_keys,
+                   2 * (2 * n_keys * KV * D + q.numel()) + 8 * J
+                   + 4 * KV * C * G * (D + 2))
+
+    print("  vwr_chunk_prefix_attend plans (ms; (splits, pages a split)), "
+          "the FMA kernel:")
+    for label, KV, G, C, J in (("tinyllama chunk 64, 16 pages", 4, 8, 64, 16),
+                               ("124 pages", 4, 8, 64, 124),
+                               ("C=1, 16 pages", 4, 8, 1, 16),
+                               ("qwen chunk 64 (G=1)", 16, 1, 64, 16)):
+        D, ps = 64, 16
+        q = randn(KV, C * G, D)
+        pools = [randn(n_pages, ps, KV, D) for _ in range(2)]
+        table = torch.randperm(n_pages, generator=gen,
+                               device="cuda")[:J].to(torch.int32)
+        cnt = torch.full((J,), ps, dtype=torch.int32, device="cuda")
+        ops_ = (q, *pools, table, cnt)
+        row = {"kernel": "vwr_chunk_prefix_attend plans", "case": label,
+               "shape": f"KV{KV} G{G} D{D} C{C} J{J} of {ps}",
+               "plans": []}
+        for plan in _chunk_plans(KC, KV, C * G, J, ps):
+            ms = time_ms(torch, lambda: KC.chunk_launch(*ops_, "wgmma",
+                                                        plan))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["fma_ms"] = time_ms(torch, lambda: KC.chunk_launch(*ops_,
+                                                               "fma"))
+        row["rule"] = KC.chunk_variant(C * G, D, ps, bf16)
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f} (rule: {row['rule']})")
+
+
+def _parent_decode(torch, KD, build, q, k, v, cur_len, pos0=0):
+    """The wrapper kernel 4 had before its split variant (the FMA kernel
+    on every cache), line for line: the widths, the operand checks, the
+    outputs, the launch, the count."""
+    import ctypes
+
+    from repro_torch.kernels import widths
+
+    kernel = "vwr_flash_decode"
+    _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def dense_kernel(q, k, v):
+        BKV, G, D = q.shape
+        B, T, KV, _ = k.shape
+        if BKV != B * KV:
+            raise ValueError(f"{kernel}: needs q (B*KV, G, D)")
+        code = build.dtype_code(q.dtype)
+        build.check_operands(kernel, q.dtype, q=(q, (BKV, G, D)))
+        build.check_operands(kernel, q.dtype, k=(k, (B, T, KV, D)),
+                             v=(v, (B, T, KV, D)))
+        n_keys = max(0, min(T, int(cur_len) - int(pos0)))
+        f32 = dict(dtype=torch.float32, device=q.device)
+        o_t = torch.empty((BKV, G, D), **f32)
+        m = torch.empty((BKV, G), **f32)
+        l = torch.empty((BKV, G), **f32)
+        ptrs = [q, k, v, o_t, m, l]
+        lib, fn = build.kernel_fn("vwr_decode", f"{kernel}_launch",
+                                  [_VP] * len(ptrs) + [_I] * 6
+                                  + [_F, _I, _VP])
+        err = fn(*(t.data_ptr() for t in ptrs), B, T, KV, G, D, n_keys,
+                 scale, code, build.stream_of(q))
+        build.check(lib, err, kernel)
+        build.count_launch(kernel)
+        return o_t, m, l
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    return widths.at_widths(dense_kernel, [((q, k, v), KD.HEAD_DIMS)],
+                            kernel, max_group=KD.MAX_GROUP)
+
+
+def _decode_enqueue(torch, F, KD, build, randn, record):
+    """The host's time to enqueue one kernel-4 call at tinyllama's decode
+    shape (B4 T160 cur 144 KV4 G8 D64): the FMA kernel and the split
+    variant through ``decode_launch``, the parent's wrapper (width
+    handling, operand checks, the FMA launch: ``_parent_decode``), the
+    whole wrapper (``vwr_flash_decode``: the same with the rule, the
+    plan, the workspace and the split launch) and SDPA, in three
+    rounds."""
+    B, T, KV, G, D, cur = 4, 160, 4, 8, 64, 144
+    q, k, v = randn(B * KV, G, D), randn(B, T, KV, D), randn(B, T, KV, D)
+    qs = q.reshape(B, KV * G, 1, D)
+    ks, vs = (x[:, :cur].transpose(1, 2).repeat_interleave(G, 1)
+              for x in (k, v))
+    calls = {
+        "fma": lambda: KD.decode_launch(q, k, v, cur, "fma"),
+        "split": lambda: KD.decode_launch(q, k, v, cur, "split"),
+        "parent's wrapper (checks + fma)": lambda: _parent_decode(
+            torch, KD, build, q, k, v, cur),
+        "vwr_flash_decode": lambda: KD.vwr_flash_decode(q, k, v, cur),
+        "SDPA": lambda: F.scaled_dot_product_attention(qs, ks, vs),
+    }
+    row = {"kernel": "vwr_flash_decode enqueue",
+           "shape": f"B{B} T{T} KV{KV} G{G} D{D} cur{cur}",
+           **{name: [] for name in calls}}
+    for _ in range(3):
+        for name, fn in calls.items():
+            row[name].append(_enqueue_us(torch, fn))
+    record.rows.append(row)
+    print("  vwr_flash_decode host enqueue (us a call; enqueue, and with "
+          "the device):")
+    for name in calls:
+        print(f"    {name}: " + ", ".join(f"{a:.2f} / {b:.2f}"
+                                          for a, b in row[name]))
 
 
 def check_mla_kernels(torch, F, gen, compare, record):
@@ -1579,9 +1903,11 @@ def serve(torch, name, gen, expected_launches, expected_variants,
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     variants = {k: n for k, n in build.VARIANTS.items()
-                if k.startswith(("vwr_matmul.", "vwr_swiglu."))}
+                if k.startswith(("vwr_matmul.", "vwr_swiglu.",
+                                 "vwr_flash_decode."))}
     print(f"  launches in generate: {launches}")
-    print(f"  vwr_matmul / vwr_swiglu by variant: {variants}")
+    print(f"  vwr_matmul / vwr_swiglu / vwr_flash_decode by variant: "
+          f"{variants}")
     for k, n in {**expected_launches, **expected_variants}.items():
         got = launches[k] if k in launches else variants[k]
         if got != n:
@@ -1755,8 +2081,10 @@ def _reduced(name):
 
 def serve_reduced_fp32(torch, name):
     """Reduced fp32 config on the card: kernel path against the plain
-    path at the Pallas-vs-XLA tolerance, greedy streams identical."""
+    path at the Pallas-vs-XLA tolerance, greedy streams identical; kernel
+    4 (where the family decodes through it) on its FMA kernel."""
     from repro_torch.engine import DecodeEngine, EngineConfig
+    from repro_torch.kernels import build
 
     cfg = _reduced(name)
     ecfg = EngineConfig(batch=2, max_len=40, kernel_impl="cuda")
@@ -1766,7 +2094,12 @@ def serve_reduced_fp32(torch, name):
     g = torch.Generator(device="cuda").manual_seed(2)
     prompts = torch.randint(0, cfg.vocab, (2, 31), generator=g,
                             device="cuda", dtype=torch.int32)
+    build.reset_launches()
     tok_c, _ = eng.generate({"tokens": prompts}, gen=9)
+    torch.cuda.synchronize()
+    if build.VARIANTS["vwr_flash_decode.split"]:
+        raise AssertionError(f"{name} reduced fp32: kernel 4 must keep its "
+                             "FMA kernel on fp32 caches")
     tok_r, _ = ref.generate({"tokens": prompts}, gen=9)
     if not bool((tok_c == tok_r).all()):
         raise AssertionError(f"{name} reduced fp32: greedy streams differ")
@@ -2435,10 +2768,18 @@ def chunk_rows(torch, params):
     torch.cuda.synchronize()
     launches = {k: build.LAUNCHES[k] for k in
                 ("vwr_chunk_prefix_attend", "vwr_chunk_prefix_attend_q8")}
-    print(f"  launches in the chunk phase: {launches}")
+    variants = {k: build.VARIANTS[k] for k in
+                ("vwr_chunk_prefix_attend.wgmma",
+                 "vwr_chunk_prefix_attend.fma")}
+    print(f"  launches in the chunk phase: {launches}; kernel 6 by "
+          f"variant: {variants}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError("a chunk-prefix kernel was never launched")
-    return {"rel_err": out, "launches": launches}
+    if variants["vwr_chunk_prefix_attend.wgmma"] != launches[
+            "vwr_chunk_prefix_attend"]:
+        raise AssertionError("kernel 6 on bf16 pools must run its wgmma "
+                             "variant")
+    return {"rel_err": out, "launches": launches, "variants": variants}
 
 
 def chunked_prefill_logits(torch, params):
@@ -3383,12 +3724,15 @@ def main() -> int:
     def variants(cfg_layers, gen):
         """The prefill's 5 products a layer (M = batch x prompt) take
         wgmma tiles, each decode step's down projection (M = batch, 4)
-        the split-K variant; swiglu takes wgmma tiles at both."""
+        the split-K variant; swiglu takes wgmma tiles at both; every
+        decode step's attention the split variant of kernel 4 (bf16)."""
         return {"vwr_matmul.wgmma": 5 * cfg_layers,
                 "vwr_matmul.splitk": cfg_layers * (gen - 1),
                 "vwr_matmul.gemm": 0,
                 "vwr_swiglu.wgmma": cfg_layers * gen,
-                "vwr_swiglu.gemm": 0}
+                "vwr_swiglu.gemm": 0,
+                "vwr_flash_decode.split": cfg_layers * (gen - 1),
+                "vwr_flash_decode.fma": 0}
 
     fp32 = {n: serve_reduced_fp32(torch, n)
             for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}

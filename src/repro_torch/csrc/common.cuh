@@ -621,6 +621,181 @@ __device__ void finish_swiglu_tile(const float* ws, int* counter, int nsplit,
   if (tid == 0) *counter = 0;
 }
 
+// ---- split flash partials (vwr_decode's split kernel, vwr_chunk_prefix's
+// wgmma kernel): a block that owns one key split of a row group stores the
+// unnormalized fp32 partial (o_tilde, m, l) of its keys; the last of the
+// group's blocks (last_split) merges them in split order (one launch, no
+// float atomics, bitwise reproducible) ----
+
+// The last block of a row group: `rows` rows of `nsplit` <= FIN_SPLITS
+// partials (o_tilde rows x D at o_part + s * o_step, m and l at m_part /
+// l_part + s * ml_step) merged in split order with the flash combine: m =
+// max_s m_s, each split weighted by exp(m_s - m), or 0 for a split without
+// a valid key (m_s = -1e30), so a row with no valid key in any split gets
+// m = -1e30, l = 0, o = 0.  Every split's m and l are loaded at once, and
+// FIN partials of o in flight before the adds, so the merge waits on L2
+// about 1 + nsplit / FIN times.  `wsm`: rows * nsplit floats of shared
+// memory for the weights.  Called by all `nthreads` threads of the block;
+// the group's counter goes back to 0 for the next launch.  D % 4 == 0, o
+// 16-byte aligned.
+constexpr int FIN_SPLITS = 32;
+__device__ void finish_partials(const float* o_part, const float* m_part,
+                                const float* l_part, int nsplit,
+                                size_t o_step, size_t ml_step, int rows,
+                                int D, float* o, float* m, float* l,
+                                int* counter, float* wsm, int tid,
+                                int nthreads) {
+  for (int r = tid; r < rows; r += nthreads) {
+    float ms[FIN_SPLITS], ls[FIN_SPLITS];
+#pragma unroll
+    for (int s = 0; s < FIN_SPLITS; ++s) {
+      const bool in = s < nsplit;
+      ms[s] = in ? __ldcg(m_part + s * ml_step + r) : REPRO_NEG_INF;
+      ls[s] = in ? __ldcg(l_part + s * ml_step + r) : 0.0f;
+    }
+    float mx = REPRO_NEG_INF;
+#pragma unroll
+    for (int s = 0; s < FIN_SPLITS; ++s) mx = fmaxf(mx, ms[s]);
+    float lsum = 0.0f;
+#pragma unroll
+    for (int s = 0; s < FIN_SPLITS; ++s) {
+      if (s >= nsplit) break;
+      const float w = ms[s] > REPRO_NEG_INF / 2 ? expf(ms[s] - mx) : 0.0f;
+      wsm[s * rows + r] = w;
+      lsum += ls[s] * w;
+    }
+    m[r] = mx;
+    l[r] = lsum;
+  }
+  __syncthreads();
+  const int q4 = D / 4;
+  for (int i = tid; i < rows * q4; i += nthreads) {
+    const int r = i / q4, c = 4 * (i % q4);
+    const float* p = o_part + (size_t)r * D + c;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s0 = 0; s0 < nsplit; s0 += FIN) {
+      float4 t[FIN];
+#pragma unroll
+      for (int u = 0; u < FIN; ++u)
+        t[u] = s0 + u < nsplit ? __ldcg(reinterpret_cast<const float4*>(
+                                     p + (s0 + u) * o_step))
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < FIN; ++u) {
+        if (s0 + u >= nsplit) break;
+        const float w = wsm[(s0 + u) * rows + r];
+        acc.x = fmaf(t[u].x, w, acc.x);
+        acc.y = fmaf(t[u].y, w, acc.y);
+        acc.z = fmaf(t[u].z, w, acc.z);
+        acc.w = fmaf(t[u].w, w, acc.w);
+      }
+    }
+    *reinterpret_cast<float4*>(o + (size_t)r * D + c) = acc;
+  }
+  if (tid == 0) *counter = 0;
+}
+
+// Two fp32 values as two bf16x2 terms: hi = bf16(x), lo = bf16(x - hi)
+// (hi + lo keeps x to ~2^-17; kernels/vwr_mla_decode.py _bf16_terms).
+__device__ __forceinline__ void bf16_terms(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+  const float2 bf = __bfloat1622float2(b);
+  hi = *reinterpret_cast<const uint32_t*>(&b);
+  lo = pack_bf16(x0 - bf.x, x1 - bf.y);
+}
+
+// ---- mma.sync (vwr_decode's split kernel) ----
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16,
+// column-major): PTX's mma.m16n8k16 with g = lane / 4, t = lane % 4: a0
+// (row g, columns 2t, 2t + 1), a1 (row g + 8), a2 (row g, columns 2t + 8,
+// + 9), a3 (row g + 8, columns 2t + 8, + 9); b0 (rows 2t, 2t + 1 of column
+// g), b1 (rows 2t + 8, + 9); d0, d1 (row g, columns 2t, 2t + 1), d2, d3
+// (row g + 8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 b16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of matrix i's rows, and r[i] is its fragment (row lane / 4,
+// columns 2 (lane % 4), + 1); _trans: the fragment of its transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// ---- the walk over a block table (vwr_mla_decode's and vwr_chunk_prefix's
+// wgmma kernels): a key tile of KEYS slots holds up to SEGS segments of
+// consecutive rows of one page each (seg = min(ps, KEYS) rows a segment,
+// KEYS / seg segments a tile) ----
+
+template <int SEGS>
+struct KeyTile {
+  int page[SEGS];  // physical page (clamped), or -1: no segment
+  int row0[SEGS];  // first row within the page
+  int n[SEGS];     // valid rows
+};
+
+// The next tile from the cursor (page j, row o) up to table entry J, which
+// it advances: count-0 pages are skipped unread, entries clamped to [0,
+// n_pages).  page[0] < 0: no keys are left.
+template <int KEYS, int SEGS>
+__device__ __forceinline__ KeyTile<SEGS> next_tile(const int* table,
+                                                   const int* counts, int J,
+                                                   int ps, int n_pages,
+                                                   int seg, int& j, int& o) {
+  KeyTile<SEGS> k;
+#pragma unroll
+  for (int g = 0; g < SEGS; ++g) {
+    k.page[g] = -1;
+    k.row0[g] = 0;
+    k.n[g] = 0;
+    if (g * seg + seg > KEYS) continue;
+    while (j < J && min(counts[j], ps) <= 0) ++j;
+    if (j >= J) continue;
+    const int cnt = min(counts[j], ps);
+    k.page[g] = min(max(table[j], 0), n_pages - 1);
+    k.row0[g] = o;
+    k.n[g] = min(cnt - o, seg);
+    o += seg;
+    if (o >= cnt) {
+      ++j;
+      o = 0;
+    }
+  }
+  return k;
+}
+
+// Slot t of tile k: its pool row (page * ps + row), or -1 where masked.
+template <int SEGS>
+__device__ __forceinline__ int slot_row(const KeyTile<SEGS>& k, int t,
+                                        int seg, int ps) {
+  const int g = t / seg, i = t % seg;
+  int row = -1;
+#pragma unroll
+  for (int q = 0; q < SEGS; ++q)
+    if (q == g && k.page[q] >= 0 && i < k.n[q])
+      row = k.page[q] * ps + k.row0[q] + i;
+  return row;
+}
+
 // ---- host: tensor maps ----
 
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry

@@ -19,10 +19,39 @@
 // flops (C * G = 512 query rows at tinyllama's 64-token chunks), 512
 // flop per byte of bf16, above the card's 295 flop/byte ridge, so the
 // bound is the operations at the tensor-core rate; at one prompt's
-// prefix (a few hundred keys) the work is a few tens of MFLOP, and
-// latency and the fp32 CUDA-core dots below set its time.
+// prefix (a few hundred keys) the work is a few tens of MFLOP (~0.0003
+// ms), and a launch and the memory round trips set its time.
 //
-// Design: the TPU kernel's wide staging — each page is staged once for
+// Two kernels (kernels/vwr_chunk.py chunk_variant picks one per call).
+//
+// bf16 pools (chunk_wgmma; kernel 6's "wgmma" variant, pages of a multiple
+// of 8 rows): kernel 3's GQA packing over kernel 12's page walk.
+//   Rows.  The chunk's C * G query rows of one KV head in q's own order,
+//   64 a block as wgmma's M (tinyllama's chunk: 8 tokens x 8 heads; qwen,
+//   G 1: 64 tokens); rows past C * G are zeros and never stored.  Q is
+//   staged once by cp.async in the 128-byte swizzle; D 32 is zero-filled to
+//   64 columns, D 128 takes two 64-column blocks.
+//   Keys.  Every thread walks the split's table entries alike (common.cuh
+//   next_tile): a 64-key tile holds 64 / ps whole pages (ps <= 64) or 64
+//   rows of a larger page; count-0 pages are skipped before any pool byte
+//   is read; entries are clamped to [0, n_pages); slots past a page's count
+//   are masked per key (a partial page may sit mid-table) and zero-filled.
+//   Segments come in by cp.async, two stages: the next tile loads while
+//   this one multiplies.
+//   Products.  S = Q K^T is a wgmma m64n64k16 with both operands in shared
+//   memory (exact products: q and the pools are bf16); the fp32 online
+//   softmax runs on the fragment; P is split into two bf16 terms (hi,
+//   lo = bf16(p - hi)) as the register A operand of O += P V (V MN-major,
+//   the transpose bit), ~2^-17 a weight, inside the 1e-4 limit.
+//   Filling the card.  The grid is (ceil(C G / 64), nsplit, KV): the table
+//   is cut into nsplit splits of whole tiles (kernels/vwr_chunk.py
+//   chunk_plan: near 4 blocks an SM, measured), each split's partial goes
+//   to a workspace and the row group's last block merges them in split
+//   order (common.cuh finish_partials, kernel 4's merge), one launch,
+//   bitwise reproducible.
+//
+// fp32 pools (chunk_prefix_kernel; "fma"), pages off 8, and kernel 8 on
+// int8 pools: the TPU kernel's wide staging — each page is staged once for
 // all C*G query rows of a grid step — kept per block.  One 128-thread
 // block per (tile of 32 query rows, KV head); the TPU grid's sequential
 // page axis becomes a loop inside the block over the J prior pages,
@@ -39,9 +68,11 @@
 // memory.  Reads of a K/V row in shared memory are 4 consecutive floats
 // broadcast to the warp's 8 rows, free of bank conflicts.
 //
-// Known limits: the dots run on the CUDA cores in fp32, not the tensor
-// cores; one KV head's C*G rows make ceil(C*G / 32) blocks, so a chunk of
-// one token (C = G = 1) keeps 4 of 128 threads busy.
+// Known limits: the wgmma variant re-walks the table in every thread and
+// stages by cp.async (no TMA), and a split's merge costs ~2 us; at 124
+// prior pages it runs at ~3.5% of its bound.  The FMA kernel runs the dots
+// on the CUDA cores in fp32, and one KV head's C*G rows make ceil(C*G /
+// 32) blocks.
 #include "common.cuh"
 
 namespace {
@@ -197,6 +228,251 @@ bool bad_shape(const ChunkArgs& a) {
          a.KV > 65535;
 }
 
+
+// ---- bf16 pools: wgmma, 64 chunk rows a block, key tiles split across
+// blocks ----
+
+using bf16 = __nv_bfloat16;
+constexpr int CW_ROWS = 64;     // query rows a block (wgmma's M)
+constexpr int CW_KEYS = 64;     // key slots a tile
+constexpr int CW_THREADS = 128; // one warpgroup
+constexpr int CW_SEGS = 8;      // page segments a tile, at most (pages of 8)
+
+// Shared memory, in 64-row x 64-column bf16 blocks of 8 KB (128-byte rows,
+// 128-byte swizzle; DP = D rounded up to 64): Q, then K and V, two stages
+// each.  After the key loop the K stages hold the merge's weights.
+template <int DP>
+struct CwSmem {
+  static constexpr int TILE = (DP / 64) * 8192;
+  static constexpr int Q = 0, K = TILE, V = 3 * TILE;
+  static constexpr int BYTES = 1024 + 5 * TILE;
+};
+
+// Byte offset of 16-byte chunk c of row r in a 64-row tile.
+__device__ __forceinline__ uint32_t cw_chunk(int r, int c) {
+  return (uint32_t)((c / 8) * 8192) + swz128(r, c % 8);
+}
+
+template <int DP>
+__device__ __forceinline__ void cw_pv(float (&o)[DP / 2],
+                                      const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void cw_pv<64>(float (&o)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  wgmma_rs_n64<1>(o, a, db);
+}
+template <>
+__device__ __forceinline__ void cw_pv<128>(float (&o)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  wgmma_rs_n128<1>(o, a, db);
+}
+
+// grid (ceil(CG / 64), nsplit, KV): block (rb, s, kvh) takes q rows rb * 64
+// .. + 63 of KV head kvh against table entries [s jps, (s + 1) jps).
+template <int D>
+__global__ void __launch_bounds__(CW_THREADS)
+chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
+            int* __restrict__ counters, int jps) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int NC = DP / 8;  // 16-byte chunks a staged row
+  using L = CwSmem<DP>;
+  extern __shared__ unsigned char cw_smem[];
+  unsigned char* sm = align1024(cw_smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rb = blockIdx.x, split = blockIdx.y, kvh = blockIdx.z;
+  const int RB = gridDim.x, S = gridDim.y;
+  const int row0 = rb * CW_ROWS, nq = min(CW_ROWS, a.CG - row0);
+  const size_t prow = (size_t)a.KV * D;  // pool key-row stride
+  const bf16* kpool = static_cast<const bf16*>(a.k_pool) + (size_t)kvh * D;
+  const bf16* vpool = static_cast<const bf16*>(a.v_pool) + (size_t)kvh * D;
+  const bf16* qb =
+      static_cast<const bf16*>(a.q) + ((size_t)kvh * a.CG + row0) * D;
+  const int ps = a.ps, seg = min(ps, CW_KEYS);
+  const int j_end = min(a.J, (split + 1) * jps);
+  int j = split * jps, po = 0;  // the walk's cursor (every thread walks)
+
+  // the chunk rows, zero past nq and past D
+  for (int e = tid; e < CW_ROWS * NC; e += CW_THREADS) {
+    const int r = e / NC, c = e % NC;
+    const bool ok = r < nq && c * 8 < D;
+    cp_async16(sm + L::Q + cw_chunk(r, c), ok ? qb + (size_t)r * D + c * 8
+                                              : qb, ok);
+  }
+  // the next key tile of the split into stage `buf` (zeros in its masked
+  // slots); returns its valid slots (bit t), or 0 when no keys are left
+  auto stage = [&](int buf) -> uint64_t {
+    const KeyTile<CW_SEGS> kt = next_tile<CW_KEYS, CW_SEGS>(
+        a.table, a.counts, j_end, ps, a.n_pages, seg, j, po);
+    if (kt.page[0] < 0) return 0;
+    for (int e = tid; e < CW_KEYS * NC; e += CW_THREADS) {
+      const int r = e / NC, c = e % NC;
+      const int pr = slot_row(kt, r, seg, ps);
+      const bool ok = pr >= 0 && c * 8 < D;
+      const size_t off = ok ? (size_t)pr * prow + c * 8 : 0;
+      cp_async16(sm + L::K + buf * L::TILE + cw_chunk(r, c), kpool + off,
+                 ok);
+      cp_async16(sm + L::V + buf * L::TILE + cw_chunk(r, c), vpool + off,
+                 ok);
+    }
+    const uint32_t lo = __ballot_sync(0xffffffffu,
+                                      slot_row(kt, lane, seg, ps) >= 0);
+    const uint32_t hi = __ballot_sync(0xffffffffu,
+                                      slot_row(kt, lane + 32, seg, ps) >= 0);
+    return (uint64_t)hi << 32 | lo;
+  };
+  uint64_t valid = stage(0);
+  cp_async_commit();
+
+  // this thread's two rows of the accumulator fragments
+  const int r0 = warp * 16 + lane / 4, r1 = r0 + 8;
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; valid != 0; ++t) {
+    const uint64_t next = stage((t + 1) & 1);
+    if (next != 0) {
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const unsigned char* Kt = sm + L::K + (t & 1) * L::TILE;
+    const unsigned char* Vt = sm + L::V + (t & 1) * L::TILE;
+
+    // S = Q K^T over the D / 16 steps that hold columns
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int off = (ks / 4) * 8192 + (ks % 4) * 32;
+      wgmma_ss_n64<0>(s, wgmma_desc(sm + L::Q + off, 16, 1024),
+                      wgmma_desc(Kt + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // scale, mask the empty slots (per key), online softmax in fp32; a
+    // tile holds a valid key, so the maxima are real scores from here
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = valid >> (8 * jb + 2 * (lane % 4) + e) & 1;
+        s[4 * jb + e] = in ? s[4 * jb + e] * a.scale : REPRO_NEG_INF;
+        s[4 * jb + 2 + e] = in ? s[4 * jb + 2 + e] * a.scale : REPRO_NEG_INF;
+        mx0 = fmaxf(mx0, s[4 * jb + e]);
+        mx1 = fmaxf(mx1, s[4 * jb + 2 + e]);
+      }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      acc[4 * i] *= c0;
+      acc[4 * i + 1] *= c0;
+      acc[4 * i + 2] *= c1;
+      acc[4 * i + 3] *= c1;
+    }
+    // P = exp(s - m) as two bf16 terms, the A fragments of P V: keys 16 kc
+    // .. + 15 are the accumulator's column blocks 2 kc and 2 kc + 1
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = valid >> (8 * jb + 2 * (lane % 4) + e) & 1;
+        p[e] = in ? expf(s[4 * jb + e] - m0) : 0.0f;
+        p[2 + e] = in ? expf(s[4 * jb + 2 + e] - m1) : 0.0f;
+      }
+      l0 += p[0] + p[1];
+      l1 += p[2] + p[3];
+      bf16_terms(p[0], p[1], ph[jb / 2][(jb % 2) * 2],
+                 pl[jb / 2][(jb % 2) * 2]);
+      bf16_terms(p[2], p[3], ph[jb / 2][(jb % 2) * 2 + 1],
+                 pl[jb / 2][(jb % 2) * 2 + 1]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint64_t db = wgmma_desc(Vt + kc * 16 * 128, 8192, 1024);
+      cw_pv<DP>(acc, ph[kc], db);
+      cw_pv<DP>(acc, pl[kc], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // stage t % 2 is free for tile t + 2
+    valid = next;
+  }
+  cp_async_wait<0>();  // the queries' copies, when no key tile came
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // one split: straight to the outputs; else this split's partial
+  const size_t grp = (size_t)kvh * RB + rb, part = grp * S + split;
+  const size_t n_parts = (size_t)a.KV * RB * S;
+  float* m_ws = ws + n_parts * CW_ROWS * D;
+  float* l_ws = m_ws + n_parts * CW_ROWS;
+  const size_t out_row = (size_t)kvh * a.CG + row0;
+  float* o_dst = S == 1 ? a.o_t + out_row * D : ws + part * CW_ROWS * D;
+  float* m_dst = S == 1 ? a.m + out_row : m_ws + part * CW_ROWS;
+  float* l_dst = S == 1 ? a.l + out_row : l_ws + part * CW_ROWS;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r1 : r0;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      const int col = 8 * i + 2 * (lane % 4);
+      if (col < D)
+        *reinterpret_cast<float2*>(o_dst + (size_t)r * D + col) =
+            make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+    if (lane % 4 == 0) {
+      m_dst[r] = h ? m1 : m0;
+      l_dst[r] = h ? l1 : l0;
+    }
+  }
+  if (S == 1) return;
+  if (!last_split(&counters[grp], S, CW_THREADS)) return;
+  finish_partials(ws + grp * S * CW_ROWS * D, m_ws + grp * S * CW_ROWS,
+                  l_ws + grp * S * CW_ROWS, S, (size_t)CW_ROWS * D, CW_ROWS,
+                  nq, D, a.o_t + out_row * D, a.m + out_row, a.l + out_row,
+                  &counters[grp], reinterpret_cast<float*>(sm + L::K), tid,
+                  CW_THREADS);
+}
+
+template <int D>
+int launch_wgmma(const ChunkArgs& a, float* ws, int* counters, int nsplit,
+                 int jps, cudaStream_t stream) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int smem = CwSmem<DP>::BYTES;
+  if (CW_ROWS * nsplit * 4 > 2 * CwSmem<DP>::TILE)
+    return (int)cudaErrorInvalidValue;  // the merge's weights
+  const int e = smem_limit_once<chunk_wgmma<D>>(smem);
+  if (e != 0) return e;
+  const dim3 grid((a.CG + CW_ROWS - 1) / CW_ROWS, nsplit, a.KV);
+  chunk_wgmma<D><<<grid, CW_THREADS, smem, stream>>>(a, ws, counters, jps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (KV, CG, D) — CG = C * G chunk rows per KV head, kv-major; k_pool,
@@ -239,4 +515,34 @@ extern "C" int vwr_chunk_prefix_attend_q8_launch(
   if (dtype == REPRO_BF16) return launch<__nv_bfloat16, int8_t, true>(a, D, s);
   if (dtype == REPRO_F32) return launch<float, int8_t, true>(a, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 6 on bf16 pools, on wgmma: the operands of
+// vwr_chunk_prefix_attend_launch (bf16; ps a multiple of 8), plus the plan
+// (kernels/vwr_chunk.py chunk_plan): nsplit splits of jps table entries,
+// nsplit * jps >= J, none starting at or past J (J 0: one split).  ws:
+// KV * ceil(CG / 64) * nsplit * 64 * (D + 2) fp32 (the partials; unused at
+// one split); counters: KV * ceil(CG / 64) int32, zero, left zero.
+extern "C" int vwr_chunk_prefix_attend_wgmma_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* counts, void* o_t, void* m, void* l, void* ws,
+    void* counters, int CG, int J, int n_pages, int ps, int KV, int D,
+    int nsplit, int jps, float scale, void* stream) {
+  const ChunkArgs a{q, k_pool, v_pool, nullptr, nullptr, (const int*)table,
+                    (const int*)counts, (float*)o_t, (float*)m, (float*)l,
+                    CG, J, n_pages, ps, KV, scale};
+  if (bad_shape(a) || ps % 8 != 0 || nsplit < 1 || nsplit > FIN_SPLITS ||
+      jps < 1 || (long long)nsplit * jps < J ||
+      (nsplit > 1 && ((long long)(nsplit - 1) * jps >= J || ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (CG == 0 || KV == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)ws;
+  int* c = (int*)counters;
+  switch (D) {
+    case 32: return launch_wgmma<32>(a, w, c, nsplit, jps, s);
+    case 64: return launch_wgmma<64>(a, w, c, nsplit, jps, s);
+    case 128: return launch_wgmma<128>(a, w, c, nsplit, jps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

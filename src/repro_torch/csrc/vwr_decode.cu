@@ -8,21 +8,51 @@
 // What bounds it on an H100: every valid cached K/V element is read
 // once per generated token and feeds 2 * G flops, so the kernel is
 // memory-bound (2 * G flops per 2-byte element, or per int8 byte, is far
-// under the 295 flop/byte ridge).  The int8 cache halves those bytes.
+// under the 295 flop/byte ridge).  The int8 cache halves those bytes.  At
+// a decode step's ~150 keys the bytes take ~0.0002 ms: a launch and one
+// round trip to memory set the time.
 //
-// Design: one 128-thread block per (batch, KV head) query group: the G
-// query heads that share the KV head read each K/V row once (zero-copy
-// GQA, straight from the native (B, T, KV, D) cache layout).  The TPU
-// grid's sequential KV axis becomes a loop that stops at the last valid
-// position (min(T, cur_len - pos0)), so unwritten cache rows are never
-// read.  The block's 4 warps split the keys 32 at a time (split-KV
-// inside the block); each lane scores one key for all G queries with
-// 16-byte loads of its K row, keeps an fp32 online softmax per query,
-// and accumulates P @ V over 2 (D = 64) output dims per lane.  The four
-// warp partials merge in shared memory with the same flash combine
-// (m > -1e30/2 guard) that ``merge_partials`` uses, and the block writes
-// the unnormalized fp32 (o_tilde, m, l) the decode contract returns: a
-// row with no valid key gives m = -1e30, l = 0, o_tilde = 0.
+// Two kernels (kernels/vwr_decode.py decode_variant picks one per call).
+//
+// bf16 caches (decode_split; kernel 4's "split" variant): grid (B * KV,
+// nsplit), one 128-thread block a split of a (batch, KV head) group's
+// keys (kernels/vwr_decode.py decode_plan: splits of at least 256 keys, so
+// a decode step's ~150 keys take one block a group and a 2048-key cache 8).
+//   Keys.  64-key K and V tiles come in by cp.async 16-byte copies into a
+//   ring of 4 stages (3 at D 128; 128-byte swizzle), so a split of up to 3
+//   tiles has all of them in flight at once; rows past the split's last
+//   valid key are zero-filled, and the 16-key slices past it are neither
+//   loaded nor read.  Warp w scores keys 16 w .. + 15 of each tile.
+//   Products on the tensor cores with mma.sync.m16n8k16 (bf16 in, fp32
+//   sums), not wgmma, whose 64 rows a group of G <= 16 would fill a
+//   quarter of at best: the group's G rows, zero-padded to 16, are the A
+//   operand, loaded once into registers; K comes by ldmatrix.  S = Q K^T
+//   is exact in its products (q and k are bf16) and `scale` multiplies
+//   the fp32 score; keys past the split's end are masked (P = 0).  The
+//   online softmax runs in fp32 on the fragment.  P is split into two bf16
+//   terms, hi = bf16(p) and lo = bf16(p - hi) (kernel 12's split), both the
+//   A operand of O += P V with V by ldmatrix.trans: each weight keeps
+//   ~2^-17, inside the 1e-4 limit (one term, 2^-9, misses it).
+//   Merge.  The four warps' partials merge in shared memory in warp order
+//   with the flash combine (m > -1e30/2 guard).  One split writes the
+//   outputs; more write fp32 partials (G x D o, m, l) to a workspace, and
+//   the group's last block (common.cuh last_split) merges them in split
+//   order (finish_partials) and resets the group's counter: one launch,
+//   no float atomics, bitwise reproducible.
+//
+// fp32 caches (decode_kernel; "fma"), and kernel 9 on int8 caches: one
+// 128-thread block per (batch, KV head) query group: the G query heads
+// that share the KV head read each K/V row once (zero-copy GQA, straight
+// from the native (B, T, KV, D) cache layout).  The TPU grid's sequential
+// KV axis becomes a loop that stops at the last valid position (min(T,
+// cur_len - pos0)), so unwritten cache rows are never read.  The block's
+// 4 warps split the keys 32 at a time; each lane scores one key for all G
+// queries with 16-byte loads of its K row, keeps an fp32 online softmax
+// per query, and accumulates P @ V over 2 (D = 64) output dims per lane.
+// The four warp partials merge in shared memory with the same flash
+// combine, and the block writes the unnormalized fp32 (o_tilde, m, l) the
+// decode contract returns: a row with no valid key gives m = -1e30, l =
+// 0, o_tilde = 0 (both kernels).
 //
 // The int8 kernel is the same body on the cache's element type: its rows
 // load 8 int8 a lane at a time, the row's k scale multiplies each score
@@ -30,9 +60,11 @@
 // constant over the row, so both commute with the sums exactly, as in the
 // Pallas kernel; the model-dtype kernel takes scales of 1).
 //
-// Known limit: at B * KV = 16 groups (tinyllama, batch 4) the grid is
-// 16 blocks on 132 SMs; spreading one group over several blocks
-// (split-KV across blocks plus a combine pass) is later work.
+// Known limits: a split's merge (fences, a counter in L2, the partials'
+// round trip) costs ~2 us on the H100, more than splitting a decode
+// step's ~150 keys saves, so tinyllama's batch-4 step runs 16 blocks;
+// a 2048-key cache reaches ~15% of its byte bound.  The FMA kernel (fp32,
+// int8) keeps one block a group.
 #include "common.cuh"
 
 namespace {
@@ -189,6 +221,267 @@ int launch_d(const DecodeArgs& a, int D, void* stream) {
   }
 }
 
+
+// ---- bf16 caches: split-KV across blocks on mma.sync ----
+
+using bf16 = __nv_bfloat16;
+constexpr int SP_THREADS = 128, SP_TILE = 64, SP_SLICE = 16;
+
+// Shared memory: a ring of NST stages, each a K and a V tile of SP_TILE
+// rows in 64-column blocks of 128-byte rows with the 128-byte swizzle (DP
+// = D rounded up to 64: D 32 fills half of each row): 64 KB at D 32 / 64
+// (4 stages), 96 KB at D 128 (3), so a split of up to 3 (2) tiles has
+// every tile in flight at once.  After the key loop the same bytes hold
+// the four warps' partials, then the merge's weights.
+template <int DP>
+struct SpSmem {
+  static constexpr int NST = DP == 128 ? 3 : 4;
+  static constexpr int STAGE = (DP / 64) * SP_TILE * 128;  // K or V
+  static constexpr int K = 0, V = NST * STAGE;
+  static constexpr int BYTES = 1024 + 2 * NST * STAGE;
+};
+
+// Byte offset of 16-byte chunk c of row r in a staged tile.
+__device__ __forceinline__ uint32_t sp_chunk(int r, int c) {
+  return (uint32_t)((c / 8) * (SP_TILE * 128)) + swz128(r, c % 8);
+}
+
+// Two bf16 of row `r` (zero past G), columns c, c + 1, as one register.
+__device__ __forceinline__ uint32_t q_pair(const bf16* qb, int r, int G,
+                                           int D, int c) {
+  return r < G ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * D + c)
+               : 0u;
+}
+
+// grid (B * KV, nsplit): block (bkv, s) takes keys [s kps, min(n_keys,
+// (s + 1) kps)) of its group; warp w scores keys 16 w .. + 15 of each
+// 64-key tile.
+template <int D>
+__global__ void __launch_bounds__(SP_THREADS)
+decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, float* __restrict__ o_t,
+             float* __restrict__ m_out, float* __restrict__ l_out,
+             float* __restrict__ ws, int* __restrict__ counters, int T_len,
+             int KV, int G, int n_keys, int kps, float scale) {
+  constexpr int DP = D < 64 ? 64 : D;
+  using L = SpSmem<DP>;
+  constexpr int KK = D / 16;  // 16-deep steps of a score
+  constexpr int NB = D / 8;   // 8-column blocks of o, 16-byte chunks a row
+  extern __shared__ unsigned char sp_smem[];
+  unsigned char* sm = align1024(sp_smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bkv = blockIdx.x, split = blockIdx.y, S = gridDim.y;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const size_t row = (size_t)KV * D;
+  const bf16* kb = k + (size_t)b * T_len * row + (size_t)kvh * D;
+  const bf16* vb = v + (size_t)b * T_len * row + (size_t)kvh * D;
+  const int k0 = split * kps, k1 = min(n_keys, k0 + kps);
+  const int n_tiles = k1 > k0 ? (k1 - k0 + SP_TILE - 1) / SP_TILE : 0;
+
+  // tile i into stage i % NST: the rows of the slices that hold a valid
+  // key (zeros past k1; the slices past them are not read)
+  auto stage = [&](int i) {
+    const int t0 = k0 + i * SP_TILE;
+    const int rows =
+        min(SP_TILE, (k1 - t0 + SP_SLICE - 1) / SP_SLICE * SP_SLICE);
+    unsigned char* kt = sm + L::K + (i % L::NST) * L::STAGE;
+    unsigned char* vt = sm + L::V + (i % L::NST) * L::STAGE;
+    for (int e = tid; e < rows * NB; e += SP_THREADS) {
+      const int r = e / NB, c = e % NB;
+      const bool ok = t0 + r < k1;
+      const size_t off = ok ? (size_t)(t0 + r) * row + c * 8 : 0;
+      cp_async16(kt + sp_chunk(r, c), kb + off, ok);
+      cp_async16(vt + sp_chunk(r, c), vb + off, ok);
+    }
+  };
+  // the first NST - 1 tiles in flight (a group each, empty past n_tiles)
+#pragma unroll
+  for (int i = 0; i < L::NST - 1; ++i) {
+    if (i < n_tiles) stage(i);
+    cp_async_commit();
+  }
+
+  // the group's query rows, zero past G, as the A fragments of S = Q K^T
+  const bf16* qb = q + (size_t)bkv * G * D;
+  uint32_t qa[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const int c = 16 * kk + 2 * t4;
+    qa[kk][0] = q_pair(qb, g, G, D, c);
+    qa[kk][1] = q_pair(qb, g + 8, G, D, c);
+    qa[kk][2] = q_pair(qb, g, G, D, c + 8);
+    qa[kk][3] = q_pair(qb, g + 8, G, D, c + 8);
+  }
+
+  // rows g and g + 8 of the online softmax; l sums this thread's columns
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  float o[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
+
+  // ldmatrix: lane's row of matrix lane / 8
+  const int mi = lane / 8, mr = lane % 8;
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i has landed; every warp is done with tile i - 1, whose stage
+    // tile i + NST - 1 takes
+    cp_async_wait<L::NST - 2>();
+    __syncthreads();
+    if (i + L::NST - 1 < n_tiles) stage(i + L::NST - 1);
+    cp_async_commit();
+    const int s0 = k0 + i * SP_TILE + warp * SP_SLICE;  // this warp's slice
+    if (s0 < k1) {
+      const unsigned char* kt = sm + L::K + (i % L::NST) * L::STAGE;
+      const unsigned char* vt = sm + L::V + (i % L::NST) * L::STAGE;
+      // S (16 rows x 16 keys): key blocks j = 0, 1 of 8 keys
+      float s[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t kf[4];
+        ldsm_x4(kf, kt + sp_chunk(warp * SP_SLICE + 8 * (mi / 2) + mr,
+                                  2 * kk + mi % 2));
+        mma_bf16(s[0], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[1], qa[kk], kf[2], kf[3]);
+      }
+      // scale, mask past k1, online softmax in fp32
+      bool in[2][2];
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          in[j][e] = s0 + 8 * j + 2 * t4 + e < k1;
+          s[j][e] = in[j][e] ? s[j][e] * scale : REPRO_NEG_INF;
+          s[j][2 + e] = in[j][e] ? s[j][2 + e] * scale : REPRO_NEG_INF;
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
+      // key s0 is valid, so the maxima are real scores from here
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        o[nb][0] *= c0;
+        o[nb][1] *= c0;
+        o[nb][2] *= c1;
+        o[nb][3] *= c1;
+      }
+      float p[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[j][e] = in[j][e] ? expf(s[j][e] - m0) : 0.0f;
+          p[j][2 + e] = in[j][e] ? expf(s[j][2 + e] - m1) : 0.0f;
+          l0 += p[j][e];
+          l1 += p[j][2 + e];
+        }
+      // P as two bf16 terms, the A fragments of O += P V: keys 0-7 are key
+      // block 0, keys 8-15 block 1
+      uint32_t ph[4], pl[4];
+      bf16_terms(p[0][0], p[0][1], ph[0], pl[0]);
+      bf16_terms(p[0][2], p[0][3], ph[1], pl[1]);
+      bf16_terms(p[1][0], p[1][1], ph[2], pl[2]);
+      bf16_terms(p[1][2], p[1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        uint32_t vf[4];  // V transposed: columns nb and nb + 1
+        ldsm_x4_trans(vf, vt + sp_chunk(warp * SP_SLICE + 8 * (mi % 2) + mr,
+                                        nb + mi / 2));
+        mma_bf16(o[nb], ph, vf[0], vf[1]);
+        mma_bf16(o[nb], pl, vf[0], vf[1]);
+        mma_bf16(o[nb + 1], ph, vf[2], vf[3]);
+        mma_bf16(o[nb + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // the four warps' partials, merged in warp order into the block's
+  float* Os = reinterpret_cast<float*>(sm);  // [warp][16][D]
+  float* Ms = Os + 4 * 16 * D;               // [warp][16]
+  float* Ls = Ms + 4 * 16;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int col = 8 * nb + 2 * t4;
+    *reinterpret_cast<float2*>(Os + (warp * 16 + g) * D + col) =
+        make_float2(o[nb][0], o[nb][1]);
+    *reinterpret_cast<float2*>(Os + (warp * 16 + g + 8) * D + col) =
+        make_float2(o[nb][2], o[nb][3]);
+  }
+  if (t4 == 0) {
+    Ms[warp * 16 + g] = m0;
+    Ms[warp * 16 + g + 8] = m1;
+    Ls[warp * 16 + g] = l0;
+    Ls[warp * 16 + g + 8] = l1;
+  }
+  __syncthreads();
+  // one split: straight to the outputs; else this split's partial
+  const size_t part = (size_t)bkv * S + split;
+  float* o_dst = S == 1 ? o_t + (size_t)bkv * G * D : ws + part * G * D;
+  float* m_ws = ws + (size_t)gridDim.x * S * G * D;
+  float* l_ws = m_ws + (size_t)gridDim.x * S * G;
+  float* m_dst = S == 1 ? m_out + (size_t)bkv * G : m_ws + part * G;
+  float* l_dst = S == 1 ? l_out + (size_t)bkv * G : l_ws + part * G;
+  for (int e = tid; e < G * D; e += SP_THREADS) {
+    const int r = e / D, d = e % D;
+    float mx = REPRO_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, Ms[w * 16 + r]);
+    float acc = 0.0f, lsum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float mw = Ms[w * 16 + r];
+      const float sw = mw > REPRO_NEG_INF / 2 ? expf(mw - mx) : 0.0f;
+      acc += Os[(w * 16 + r) * D + d] * sw;
+      lsum += Ls[w * 16 + r] * sw;
+    }
+    o_dst[e] = acc;
+    if (d == 0) {
+      m_dst[r] = mx;
+      l_dst[r] = lsum;
+    }
+  }
+  if (S == 1) return;
+  if (!last_split(&counters[bkv], S, SP_THREADS)) return;
+  // the shared bytes of the partials are free (last_split's barrier)
+  finish_partials(ws + (size_t)bkv * S * G * D, m_ws + (size_t)bkv * S * G,
+                  l_ws + (size_t)bkv * S * G, S, (size_t)G * D, G, G, D,
+                  o_t + (size_t)bkv * G * D, m_out + (size_t)bkv * G,
+                  l_out + (size_t)bkv * G, &counters[bkv], Os, tid,
+                  SP_THREADS);
+}
+
+template <int D>
+int launch_split(const DecodeArgs& a, float* ws, int* counters, int nsplit,
+                 int kps, cudaStream_t stream) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int smem = SpSmem<DP>::BYTES;
+  static_assert(4 * 16 * D * 4 + 2 * 64 * 4 <= smem - 1024,
+                "the warps' partials fit the stages");
+  static_assert(16 * FIN_SPLITS * 4 <= smem - 1024,
+                "the merge's weights fit the stages");
+  if (smem > 48 * 1024) {
+    const int e = smem_limit_once<decode_split<D>>(smem);
+    if (e != 0) return e;
+  }
+  decode_split<D><<<dim3(a.B * a.KV, nsplit), SP_THREADS, smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (float*)a.o_t,
+      (float*)a.m, (float*)a.l, ws, counters, a.T_len, a.KV, a.G, a.n_keys,
+      kps, a.scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B*KV, G, D) — one token's heads, kv-major (h = kv*G + g); k, v
@@ -224,4 +517,33 @@ extern "C" int vwr_flash_decode_q8_launch(
     return launch_d<__nv_bfloat16, int8_t>(a, D, stream);
   if (dtype == REPRO_F32) return launch_d<float, int8_t>(a, D, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 4 on bf16 caches, split across blocks: the operands of
+// vwr_flash_decode_launch (bf16), plus the plan (kernels/vwr_decode.py
+// decode_plan): nsplit splits of kps keys a (batch, KV head) group,
+// nsplit * kps >= n_keys, no split starting at or past n_keys (n_keys 0:
+// one split).  ws: B * KV * nsplit * G * (D + 2) fp32 (the partials; unused
+// at one split); counters: B * KV int32, zero, left zero.
+extern "C" int vwr_flash_decode_split_launch(
+    const void* q, const void* k, const void* v, void* o_t, void* m, void* l,
+    void* ws, void* counters, int B, int T_len, int KV, int G, int D,
+    int n_keys, int nsplit, int kps, float scale, void* stream) {
+  if (G <= 0 || G > 16 || n_keys < 0 || n_keys > T_len || nsplit < 1 ||
+      nsplit > FIN_SPLITS || kps < 1 || (long long)nsplit * kps < n_keys ||
+      (nsplit > 1 && ((long long)(nsplit - 1) * kps >= n_keys ||
+                      ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || KV <= 0) return 0;
+  const DecodeArgs a{q, k, v, nullptr, nullptr, o_t, m, l,
+                     B, T_len, KV, G, n_keys, scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)ws;
+  int* c = (int*)counters;
+  switch (D) {
+    case 32: return launch_split<32>(a, w, c, nsplit, kps, s);
+    case 64: return launch_split<64>(a, w, c, nsplit, kps, s);
+    case 128: return launch_split<128>(a, w, c, nsplit, kps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -397,52 +397,9 @@ struct CwSmem {
 };
 
 // A key tile: up to 4 segments of consecutive rows of one page each
-// (seg = min(ps, 32) rows a segment, 32 / seg segments a tile).
-struct KeyTile {
-  int page[CW_SEGS];  // physical page (clamped), or -1: no segment
-  int row0[CW_SEGS];  // first row within the page
-  int n[CW_SEGS];     // valid rows
-};
-
-// The next tile from the cursor (page j, row o), which it advances.
-// page[0] < 0: no keys are left.
-__device__ __forceinline__ KeyTile next_tile(const int* table,
-                                             const int* counts, int J,
-                                             int ps, int n_pages, int seg,
-                                             int& j, int& o) {
-  KeyTile k;
-#pragma unroll
-  for (int g = 0; g < CW_SEGS; ++g) {
-    k.page[g] = -1;
-    k.row0[g] = 0;
-    k.n[g] = 0;
-    if (g * seg + seg > CW_KEYS) continue;
-    while (j < J && min(counts[j], ps) <= 0) ++j;
-    if (j >= J) continue;
-    const int cnt = min(counts[j], ps);
-    k.page[g] = min(max(table[j], 0), n_pages - 1);
-    k.row0[g] = o;
-    k.n[g] = min(cnt - o, seg);
-    o += seg;
-    if (o >= cnt) {
-      ++j;
-      o = 0;
-    }
-  }
-  return k;
-}
-
-// Slot t of tile k: its pool row (page * ps + row), or -1 where masked.
-__device__ __forceinline__ int slot_row(const KeyTile& k, int t, int seg,
-                                        int ps) {
-  const int g = t / seg, i = t % seg;
-  int row = -1;
-#pragma unroll
-  for (int q = 0; q < CW_SEGS; ++q)
-    if (q == g && k.page[q] >= 0 && i < k.n[q])
-      row = k.page[q] * ps + k.row0[q] + i;
-  return row;
-}
+// (seg = min(ps, 32) rows a segment, 32 / seg segments a tile; the walk
+// is common.cuh's).
+using CwTile = KeyTile<CW_SEGS>;
 
 // o (64 rows x OC columns of this warpgroup) += P . V for one 16-key slice:
 // P from registers, V MN-major at `vt` (64-column blocks KBLK apart).
@@ -516,8 +473,8 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   auto map = [&](int i) { return maps + (i % 3) * L::MAPW; };
   int j = 0, po = 0;
   auto walk = [&](int i) {  // warp 0
-    const KeyTile k = next_tile(a.table, a.counts, a.n, ps, a.lead, seg, j,
-                                po);
+    const CwTile k = next_tile<CW_KEYS, CW_SEGS>(a.table, a.counts, a.n,
+                                                 ps, a.lead, seg, j, po);
     int* mp = map(i);
     const uint32_t valid =
         __ballot_sync(0xffffffffu, slot_row(k, lane, seg, ps) >= 0);

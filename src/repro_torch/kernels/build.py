@@ -18,8 +18,10 @@ the main path went through.  A kernel with variants (``vwr_matmul``:
 split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_swiglu``: wgmma or the
 WMMA / FMA tile kernel;
 ``vwr_conv2d``: wgmma or the halo-tile kernel;
-``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA)
-also counts the variant that ran in ``VARIANTS``.
+``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
+``vwr_flash_decode``: split-KV on mma.sync or FMA;
+``vwr_chunk_prefix_attend``: wgmma or FMA) also counts the variant that
+ran in ``VARIANTS``.
 """
 from __future__ import annotations
 
@@ -62,7 +64,11 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
                             "vwr_mla_chunk_prefix_attend.wgmma": 0,
                             "vwr_mla_chunk_prefix_attend.fma": 0,
                             "vwr_mla_chunk_prefix_attend_q8.wgmma": 0,
-                            "vwr_mla_chunk_prefix_attend_q8.fma": 0}
+                            "vwr_mla_chunk_prefix_attend_q8.fma": 0,
+                            "vwr_flash_decode.split": 0,
+                            "vwr_flash_decode.fma": 0,
+                            "vwr_chunk_prefix_attend.wgmma": 0,
+                            "vwr_chunk_prefix_attend.fma": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -210,14 +216,35 @@ def split_counters(device, n: int):
     """A zeroed int32 buffer of at least ``n`` counters on ``device`` for
     the kernels whose K splits are summed by the last block of a tile
     (``vwr_matmul``'s split-K and wgmma variants, ``vwr_swiglu``'s and
-    ``vwr_conv2d``'s wgmma variants), kept across calls: every launch
-    leaves its counters at 0.  Launches on one stream share it."""
+    ``vwr_conv2d``'s wgmma variants) or whose key splits are merged by the
+    last block of a row group (``vwr_flash_decode``'s split variant,
+    ``vwr_chunk_prefix_attend``'s wgmma variant), kept across calls: every
+    launch leaves its counters at 0.  Launches on one stream share it."""
     import torch
 
     buf = _SPLIT_COUNTERS.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _SPLIT_COUNTERS[device] = buf
+    return buf
+
+
+_SPLIT_WORKSPACE: Dict[object, object] = {}
+
+
+def split_workspace(device, n: int):
+    """An fp32 buffer of at least ``n`` floats on ``device`` for the key
+    splits' partials (``vwr_flash_decode``'s split variant,
+    ``vwr_chunk_prefix_attend``'s wgmma variant), kept across calls and
+    grown (doubled) when a call needs more: a launch writes every partial
+    it reads.  Launches on one stream share it."""
+    import torch
+
+    buf = _SPLIT_WORKSPACE.get(device)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * (0 if buf is None else buf.numel()), 1 << 16)
+        buf = torch.empty(size, dtype=torch.float32, device=device)
+        _SPLIT_WORKSPACE[device] = buf
     return buf
 
 

@@ -29,12 +29,22 @@ pool of a reduced config that pads the whole pool on each call, which
 is acceptable at reduced widths.  Nothing is copied at D 64 or 128 and
 G <= 16.
 
+Kernel 4 has two kernels, and ``decode_variant`` picks one per call:
+``"split"`` (bf16 caches at D 32 / 64 / 128: each (batch, KV head)
+group's keys cut into ``decode_plan``'s splits, one block a split, the
+products on mma.sync with P as two bf16 terms, the splits merged by the
+group's last block in the same launch; ``decode_split_emulation`` is its
+arithmetic in plain PyTorch) or ``"fma"`` (fp32 caches: the FMA kernel).
+Kernel 9 (the int8 cache) runs the FMA kernel.  ``build.VARIANTS``
+counts both of kernel 4's.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +53,18 @@ from repro_torch.kernels import build, widths
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
+# kernel 4's split variant (csrc SP_*): a block stages 64-key tiles and
+# each of its 4 warps scores a 16-key slice of a tile; a split holds whole
+# slices.  decode_plan aims at DECODE_BLOCKS blocks with splits of at
+# least DECODE_MIN_KEYS keys (a split's merge costs ~2 us, more than the
+# extra blocks save at fewer keys: measured on the H100, PERF.md) and at
+# most DECODE_MAX_SPLITS splits a group (the last block reads every
+# split's partial; csrc FIN_SPLITS).
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SPLIT_TILE, SPLIT_SLICE, SPLIT_WARPS = 64, 16, 4
+DECODE_BLOCKS = 2 * SMS
+DECODE_MIN_KEYS = 256
+DECODE_MAX_SPLITS = 32
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -76,6 +98,99 @@ def vwr_flash_decode_q8_ref(q, k, v, k_scale, v_scale, cur_len, pos0=0, *,
     return vwr_flash_decode_ref(q, kf, vf, cur_len, pos0, scale=scale)
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def decode_variant(dtype, D, G):
+    """The kernel that serves a ``vwr_flash_decode`` call at the kernel's
+    widths (after ``widths.at_widths``): "split" for bf16 caches at D 32,
+    64 or 128 and G <= 16, else "fma"."""
+    if dtype == torch.bfloat16 and D in HEAD_DIMS and G <= MAX_GROUP:
+        return "split"
+    return "fma"
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(BKV, n_keys):
+    """(nsplit, keys a split) of the split variant: a group's n_keys keys
+    in nsplit splits of whole 16-key slices, as many as bring the B*KV
+    groups near ``DECODE_BLOCKS`` blocks, each of at least
+    ``DECODE_MIN_KEYS`` keys and at most ``DECODE_MAX_SPLITS`` of them,
+    sized evenly so that no split starts at or past n_keys.  Short caches
+    (a decode step's ~150 keys) take one split; n_keys 0 gives one split
+    (the group's empty partial)."""
+    slices = max(1, _cdiv(n_keys, SPLIT_SLICE))
+    want = min(DECODE_MAX_SPLITS, max(1, _cdiv(DECODE_BLOCKS, BKV)),
+               max(1, n_keys // DECODE_MIN_KEYS))
+    per = _cdiv(slices, want)
+    return _cdiv(slices, per), SPLIT_SLICE * per
+
+
+def combine_partials(parts):
+    """The flash combine of fp32 partials ``[(o_tilde, m, l), ...]`` in
+    list order: m = max m_s, each weighted by exp(m_s - m), or 0 where
+    m_s = -1e30 (no valid key).  The split kernels' merge."""
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    o, l = 0.0, 0.0
+    for o_s, m_s, l_s in parts:
+        w = torch.where(m_s > NEG_INF / 2, torch.exp(m_s - m), 0.0)
+        o = o + o_s * w[..., None]
+        l = l + l_s * w
+    return o, m, l
+
+
+def bf16_terms(x, terms=2):
+    """x (fp32) as ``terms`` bf16 terms, hi = bf16(x) and lo = bf16(x -
+    hi) (the wgmma / mma.sync kernels' two, or hi alone), each returned
+    as fp32."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float())[:terms]
+
+
+def decode_split_emulation(q, k, v, cur_len, pos0=0, plan=None, terms=2):
+    """The split variant's arithmetic in plain PyTorch (the tests hold it
+    against ``vwr_flash_decode_ref`` and the JAX op): per split
+    (``decode_plan``'s unless ``plan`` is given), 64-key tiles whose 16-key
+    slices go to 4 warps; each warp keeps an fp32 online softmax over its
+    slices with the scores (q . k) * scale of the bf16 values and P as
+    ``terms`` bf16 terms against V; the warps merge in warp order into the
+    split's partial, the splits in split order (``combine_partials``).
+    Returns fp32 (o_tilde (B*KV, G, D), m (B*KV, G), l (B*KV, G))."""
+    BKV, G, D = q.shape
+    B, T, KV, _ = k.shape
+    scale = 1.0 / D ** 0.5
+    n = max(0, min(T, int(cur_len) - int(pos0)))
+    nsplit, kps = plan or decode_plan(BKV, n)
+    qf = q.bfloat16().float()
+    kf, vf = (t.bfloat16().float().permute(0, 2, 1, 3).reshape(BKV, T, D)
+              for t in (k, v))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    empty = (torch.zeros((BKV, G, D), **f32),
+             torch.full((BKV, G), NEG_INF, **f32), torch.zeros((BKV, G), **f32))
+    splits = []
+    for sp in range(nsplit):
+        k0, k1 = sp * kps, min(n, (sp + 1) * kps)
+        warps = [empty] * SPLIT_WARPS
+        for t0 in range(k0, k1, SPLIT_TILE):
+            for w in range(SPLIT_WARPS):
+                s0 = t0 + SPLIT_SLICE * w
+                if s0 >= k1:
+                    continue
+                keys = slice(s0, min(s0 + SPLIT_SLICE, k1))
+                o, m, l = warps[w]
+                sc = torch.einsum("bgd,btd->bgt", qf, kf[:, keys]) * scale
+                mx = torch.maximum(m, sc.amax(-1))
+                corr = torch.exp(m - mx)
+                p = torch.exp(sc - mx[..., None])
+                pv = sum(torch.einsum("bgt,btd->bgd", t, vf[:, keys])
+                         for t in bf16_terms(p, terms))
+                warps[w] = (o * corr[..., None] + pv, mx,
+                            l * corr + p.sum(-1))
+        splits.append(combine_partials(warps))
+    return combine_partials(splits)
+
+
 def _dense_launch(kernel, q, k, v, scales, cur_len, pos0):
     scale = 1.0 / q.shape[-1] ** 0.5
     return widths.at_widths(
@@ -99,6 +214,17 @@ def _dense_kernel(kernel, q, k, v, scales, cur_len, pos0, scale):
                              k_scale=(scales[0], (BKV,)),
                              v_scale=(scales[1], (BKV,)))
     n_keys = max(0, min(T, int(cur_len) - int(pos0)))
+    if scales:   # kernel 9
+        out = _launch_fma(kernel, q, k, v, scales, n_keys, scale, code)
+        build.count_launch(kernel)
+        return out
+    return decode_launch(q, k, v, n_keys, decode_variant(q.dtype, D, G),
+                         scale=scale)
+
+
+def _launch_fma(kernel, q, k, v, scales, n_keys, scale, code):
+    BKV, G, D = q.shape
+    B, T, KV, _ = k.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     o_t = torch.empty((BKV, G, D), **f32)
     m = torch.empty((BKV, G), **f32)
@@ -109,8 +235,38 @@ def _dense_kernel(kernel, q, k, v, scales, cur_len, pos0, scale):
     err = fn(*(t.data_ptr() for t in ptrs), B, T, KV, G, D, n_keys,
              scale, code, build.stream_of(q))
     build.check(lib, err, kernel)
-    build.count_launch(kernel)
     return o_t, m, l
+
+
+def decode_launch(q, k, v, n_keys, kind, plan=None, scale=None):
+    """One launch of kernel 4's variant ``kind`` ("split" or "fma") on
+    operands ``vwr_flash_decode`` checked, keys 0 .. n_keys - 1 valid, with
+    ``decode_plan``'s plan unless ``plan`` is given; chip_smoke.py times
+    the variants and plans against each other through it."""
+    BKV, G, D = q.shape
+    B, T, KV, _ = k.shape
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    kernel = "vwr_flash_decode"
+    if kind == "fma":
+        out = _launch_fma(kernel, q, k, v, (), n_keys, scale,
+                          build.dtype_code(q.dtype))
+    else:
+        nsplit, kps = plan or decode_plan(BKV, n_keys)
+        ws = build.split_workspace(q.device, BKV * nsplit * G * (D + 2))
+        counters = build.split_counters(q.device, BKV)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        out = (torch.empty((BKV, G, D), **f32),
+               torch.empty((BKV, G), **f32), torch.empty((BKV, G), **f32))
+        lib, fn = build.kernel_fn("vwr_decode",
+                                  "vwr_flash_decode_split_launch",
+                                  [_VP] * 8 + [_I] * 8 + [_F, _VP])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *(t.data_ptr() for t in out), ws.data_ptr(),
+                 counters.data_ptr(), B, T, KV, G, D, n_keys, nsplit, kps,
+                 scale, build.stream_of(q))
+        build.check(lib, err, kernel)
+    build.count_launch(kernel, kind)
+    return out
 
 
 def vwr_flash_decode(q, k, v, cur_len: int, pos0: int = 0):

@@ -53,6 +53,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, widths
+from repro_torch.kernels.vwr_chunk import key_tiles
+from repro_torch.kernels.vwr_decode import bf16_terms
 
 NEG_INF = -1e30
 # the kernel holds a lane's share of r and rope in registers: r / 32
@@ -173,13 +175,6 @@ def chunk_variant(r, rope, page_size, dtype):
     return "fma"
 
 
-def _bf16_terms(x):
-    """x (fp32) as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
-    each returned as fp32."""
-    hi = x.bfloat16().float()
-    return hi, (x - hi).bfloat16().float()
-
-
 # kernel 15's fp16 terms: each query row (and P) is scaled by the power of
 # two that brings its largest magnitude into [2^14, 2^15): inside fp16's
 # range, with lo = fp16(x - hi) still a normal number for every element
@@ -205,24 +200,9 @@ def _f16_terms(x, up):
 
 
 def chunk_key_tiles(table, counts, page_size):
-    """The wgmma variant's walk over the table: a list of key tiles, each
-    ``CHUNK_KEYS`` pool rows (page * page_size + row), -1 for a masked
-    slot.  A tile holds ``CHUNK_KEYS // seg`` segments of ``seg =
-    min(page_size, CHUNK_KEYS)`` rows of one page each; count-0 pages are
-    skipped; entries are clamped to [0, n_pages) by the caller."""
-    seg = min(page_size, CHUNK_KEYS)
-    rows = []
-    for j, page in enumerate(table):
-        cnt = min(int(counts[j]), page_size)
-        for o in range(0, max(cnt, 0), seg):
-            rows.append([page * page_size + o + i if o + i < cnt else -1
-                         for i in range(seg)])
-    per = CHUNK_KEYS // seg
-    tiles = []
-    for t in range(0, len(rows), per):
-        tile = [r for seg_rows in rows[t:t + per] for r in seg_rows]
-        tiles.append(tile + [-1] * (CHUNK_KEYS - len(tile)))
-    return tiles
+    """The wgmma variant's walk over the table: ``vwr_chunk.key_tiles``
+    with tiles of ``CHUNK_KEYS`` slots."""
+    return key_tiles(table, counts, page_size, CHUNK_KEYS)
 
 
 def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
@@ -254,8 +234,8 @@ def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
                         else torch.zeros(()))
         p_terms = lambda p: _f16_terms(p, p_up)   # noqa: E731
     else:
-        qa, qr = _bf16_terms(xa), _bf16_terms(xr)
-        p_terms = _bf16_terms
+        qa, qr = bf16_terms(xa), bf16_terms(xr)
+        p_terms = bf16_terms
     ckv = ckv_pool.bfloat16().float().reshape(n_pages * ps, r)
     kr = krope_pool.bfloat16().float().reshape(n_pages * ps, -1)
     tbl = table.long().clamp(0, n_pages - 1).tolist()

@@ -383,3 +383,89 @@ def test_cuda_mla_chunk_wgmma_matches_plain(cuda, C, ps, counts):
             *args, scale=0.07), again):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,KV,G,D,cur,pos0,plan", [
+    (4, 160, 4, 8, 64, 144, 0, None),       # tinyllama's step: one split
+    (4, 160, 4, 8, 64, 144, 0, (9, 16)),    # nine splits of a slice
+    (2, 160, 2, 8, 64, 17, 0, (2, 16)),     # one key past a split
+    (2, 160, 2, 8, 64, 65, 0, None),        # one key past a tile
+    (2, 300, 2, 8, 64, 300, 0, (3, 112)),   # splits of partial tiles
+    (1, 40, 2, 4, 64, 1, 0, None),          # one key
+    (2, 40, 2, 4, 64, 3, 10, None),         # no key
+    (2, 77, 2, 4, 64, 50, 5, None),         # a slab at pos0 > 0
+    (1, 200, 1, 16, 128, 200, 0, (2, 112)), # D 128, G 16
+    (3, 33, 2, 3, 32, 20, 0, None),         # D 32, G 3
+    (4, 2048, 4, 8, 64, 2048, 0, None),     # a long cache: 8 splits
+])
+def test_cuda_flash_decode_split_matches_plain(cuda, B, T, KV, G, D, cur,
+                                               pos0, plan):
+    """Kernel 4's split variant on bf16 caches at split and tile edges
+    against the plain version and its emulation at 1e-4; the variant
+    counted; bitwise equal over two launches."""
+    g = torch.Generator(device=cuda).manual_seed(B * T + cur)
+    q = torch.randn(B * KV, G, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, T, KV, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    n = max(0, min(T, cur - pos0))
+    build.reset_launches()
+    if plan is None:
+        got = KD.vwr_flash_decode(q, k, v, cur, pos0)
+        again = KD.vwr_flash_decode(q, k, v, cur, pos0)
+    else:
+        got = KD.decode_launch(q, k, v, n, "split", plan)
+        again = KD.decode_launch(q, k, v, n, "split", plan)
+    torch.cuda.synchronize()
+    assert build.VARIANTS["vwr_flash_decode.split"] == 2
+    for a, b, c, d in zip(got, KD.vwr_flash_decode_ref(q, k, v, cur, pos0),
+                          KD.decode_split_emulation(q, k, v, cur, pos0,
+                                                    plan=plan), again):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KV,G,D,C,ps,counts,plan", [
+    (4, 8, 64, 64, 16, (16,) * 16, None),     # tinyllama's chunk: 4 splits
+    (4, 8, 64, 64, 16, (16, 9, 16, 16, 0, 16, 3), (2, 4)),  # partial mid
+    (4, 8, 64, 1, 16, (16, 16, 5), None),     # C 1
+    (2, 4, 64, 8, 16, (0, 0, 0), None),       # a first chunk: no key
+    (2, 4, 64, 8, 16, (), None),              # J 0
+    (2, 3, 64, 5, 8, (8, 8, 0, 1), None),     # pages of 8
+    (2, 4, 64, 8, 64, (64, 50, 0, 64), None), # pages of 64
+    (2, 4, 32, 8, 16, (16, 9), None),         # D 32
+    (2, 4, 128, 8, 16, (16, 9), None),        # D 128
+    (16, 1, 64, 64, 16, (16,) * 16, None),    # G 1
+])
+def test_cuda_chunk_prefix_wgmma_matches_plain(cuda, KV, G, D, C, ps, counts,
+                                               plan):
+    """Kernel 6's wgmma variant on bf16 pools against the plain version
+    and its emulation at 1e-4; a table entry past the pool (clamped); the
+    variant counted; bitwise equal over two launches."""
+    from repro_torch.kernels import vwr_chunk as KC
+    g = torch.Generator(device=cuda).manual_seed(C * ps + len(counts))
+    n_pages = 24
+    q = torch.randn(KV, C * G, D, generator=g, device=cuda).bfloat16()
+    pools = [torch.randn(n_pages, ps, KV, D, generator=g,
+                         device=cuda).bfloat16() for _ in range(2)]
+    table = torch.randperm(n_pages, generator=g, device=cuda)[:len(counts)]
+    table = table.to(torch.int32)
+    if len(counts):
+        table[-1] = n_pages + 3
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    args = (q, *pools, table, cnt)
+    build.reset_launches()
+    if plan is None:
+        got, again = (KC.vwr_chunk_prefix_attend(*args) for _ in range(2))
+    else:
+        got, again = (KC.chunk_launch(*args, "wgmma", plan)
+                      for _ in range(2))
+    torch.cuda.synchronize()
+    assert build.VARIANTS["vwr_chunk_prefix_attend.wgmma"] == 2
+    for a, b, c, d in zip(got, KC.vwr_chunk_prefix_attend_ref(*args),
+                          KC.chunk_wgmma_emulation(*args, plan=plan), again):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a, d)
