@@ -39,7 +39,15 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    pages), on fp32 pools by the FMA kernel, and kernel 15 on int8 pools
    by its wgmma variant at the same cases, each case served by the
    variant ``chunk_variant`` names and each wgmma output bitwise equal
-   over two launches;
+   over two launches; kernel 5 on bf16 pools by its mma variant (each
+   case's variant asserted, bitwise over two launches, held against the
+   plain version and its emulation; partial and count-0 pages mid-table,
+   a slot whose pages are all masked, entries past the pool, pages of 4
+   and 8, J 18, forced plans, a J 128 table of up to 2048 keys a slot
+   timed) and its plan table; then kernels 1 (split-K), 4 (8 splits) and
+   5 (8 splits) launched in turns on two streams with no synchronisation,
+   each stream's outputs bitwise equal to one stream's (the split
+   buffers belong to one stream);
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -62,7 +70,8 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    pages of 16, 24 requests with prompts of 32-256 tokens and gen 32,
    8 submitted at once and 2 more every 4 steps), once with bf16 and
    once with int8 pools: every request FINISHED, every page free after
-   the drain, the paged kernel launched 22 times a decode step, the
+   the drain, the paged kernel launched 22 times a decode step (on bf16
+   pools every launch on kernel 5's mma variant), the
    dense decode kernel never, ``vwr_attention`` 22 times a (batch-1)
    prefill; the same stream again with 40 pages held, where growth must
    preempt and every request still finish; 4 requests replayed
@@ -124,9 +133,12 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    epilogue with and without bias), at the edges of kernel 16's wgmma
    variant (C 96, row tiles across images, 1x1 and 5x5 taps, K split
    unevenly) and at every stride-1 layer of the suite (N 1 and 32, bf16
-   and fp32), each served by the variant ``variant`` names (bf16 wgmma
-   bitwise over two launches) and timed beside its bound, its plain
-   version and cuDNN, and times the wgmma plans behind the split rule;
+   and fp32), each served by the variant ``variant`` / ``dw_variant``
+   names (bf16 wgmma bitwise over two launches; the depthwise layers on
+   the row-streamed strips, whose ragged channel blocks, strips and
+   column tiles are held too) and timed beside its bound, its plain
+   version and cuDNN, and times the wgmma plans behind the split rule
+   and the depthwise strips' plans beside the halo-tile kernel;
    here the suite runs through ``ops.vwr_conv2d`` (bias + relu) and
    ``ops.vwr_depthwise``, and the section 6.1 demo on the card, launches
    counted (``vwr_conv2d``'s per variant), outputs held against
@@ -847,9 +859,18 @@ def check_kernels(torch, F):
                 else KD.vwr_paged_flash_decode_ref
             shape_s = (f"B{B} KV{KV} G{G} D{D} ps{ps} J{J} "
                        f"pages{n_pages} lens{max(lens)}")
+            before = dict(build.VARIANTS)
             got = fn(*ops_)
             torch.cuda.synchronize()
+            if not q8:
+                _served(kname, shape_s, before, build, KD.paged_variant(
+                    dt, widths.native_width(D, KD.HEAD_DIMS, kname),
+                    min(G, KD.MAX_GROUP)))
             err = compare(kname, shape_s, f32, got, ref(*ops_))
+            if dt == bf16 and not q8:
+                compare("  vs emulation", shape_s, f32, got,
+                        KD.paged_mma_emulation(*ops_))
+                _bitwise(kname, shape_s, got, fn(*ops_))
             for b, n in enumerate(lens):
                 if n == 0 and got[2][b * KV:(b + 1) * KV].abs().max() != 0:
                     raise AssertionError("a slot with no valid key must "
@@ -953,6 +974,7 @@ def check_kernels(torch, F):
                        _chunk_sdpa(torch, F, q, pools, scales, table, cnt),
                        4 * KV * C * G * D * n_keys, nbytes, head)
     check_split_variants(torch, F, compare, record)
+    check_paged_variants(torch, F, compare, record)
     check_mla_kernels(torch, F, gen, compare, record)
     check_conv_kernels(torch, F, gen, compare, record)
     return results
@@ -1173,6 +1195,244 @@ def check_split_variants(torch, F, compare, record):
         print(f"    {label} {row['shape']}: " + ", ".join(
             f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
             + f"; fma {row['fma_ms']:.4f} (rule: {row['rule']})")
+
+
+TWO_STREAM_ROUNDS = 16
+
+
+def check_two_streams(torch):
+    """The split buffers belong to one stream: launches of the kernels
+    that merge splits through them (kernel 4's split variant at B4 T2048,
+    8 splits a group; kernel 1's split-K at a decode shape; kernel 5's
+    mma variant on a 128-entry table, 8 splits a group) issued in turns
+    on two streams with no synchronisation between them, and each
+    stream's outputs held bitwise to the same launches on one stream.
+    With one buffer a device the two streams' blocks would count on the
+    same counters and overwrite each other's partials."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_decode as KD
+    from repro_torch.kernels import vwr_matmul as KM
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(bf16)
+
+    B, T, KV, G, D = 4, 2048, 4, 8, 64
+    qd, kd, vd = randn(B * KV, G, D), randn(B, T, KV, D), randn(B, T, KV, D)
+    xm, wm = randn(4, 5632), randn(5632, 2048, scale=0.02)
+    qp = randn(8 * KV, G, D)
+    pools = [randn(1200, 16, KV, D) for _ in range(2)]
+    table, counts, _ = _paged_table(torch, gen, LONG_LENS, 128, 16, 1200)
+    calls = {
+        "vwr_flash_decode split (8, 256)":
+            (lambda: KD.vwr_flash_decode(qd, kd, vd, T),
+             "vwr_flash_decode", "split"),
+        "vwr_matmul splitk 4x5632x2048":
+            (lambda: KM.vwr_matmul(xm, wm), "vwr_matmul", "splitk"),
+        "vwr_paged_flash_decode mma J 128":
+            (lambda: KD.vwr_paged_flash_decode(qp, *pools, table, counts),
+             "vwr_paged_flash_decode", "mma"),
+    }
+    if (KD.decode_plan(B * KV, T)[0] < 2
+            or KD.paged_plan(8 * KV, 128, 16)[0] < 2):
+        raise AssertionError("the two-stream cases must split")
+    print("two streams: split buffers per stream")
+    one = {}
+    for name, (fn, kernel, variant) in calls.items():
+        before = dict(build.VARIANTS)
+        one[name] = fn()
+        torch.cuda.synchronize()
+        _served(kernel, name, before, build, variant)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(TWO_STREAM_ROUNDS):
+        for name, (fn, _, _) in calls.items():
+            for i, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    got.append((name, i, fn()))
+    torch.cuda.synchronize()
+    handles = {st.cuda_stream for st in streams}
+    keyed = {k[1] for k in build._SPLIT_COUNTERS if k[1] in handles}
+    if keyed != handles:
+        raise AssertionError("the two streams did not get counter buffers "
+                             "of their own")
+    differ = {}
+    for name, i, out in got:
+        out = out if isinstance(out, tuple) else (out,)
+        ref = one[name] if isinstance(one[name], tuple) else (one[name],)
+        if not all(a.equal(b) for a, b in zip(out, ref)):
+            differ[name, i] = differ.get((name, i), 0) + 1
+    print(f"  {len(got)} launches on 2 streams, {TWO_STREAM_ROUNDS} rounds "
+          f"of {', '.join(calls)}: {sum(differ.values())} differ from one "
+          "stream")
+    if differ:
+        raise AssertionError(f"two streams: outputs differ from one stream "
+                             f"{differ}")
+    return {"launches": len(got), "rounds": TWO_STREAM_ROUNDS,
+            "kernels": list(calls), "differ": 0}
+
+
+# kernel 5's mma variant at split and tile edges (plans forced through
+# ``paged_launch``; None: ``paged_plan``'s), and the long table: counts
+# and table entries overridden at (slot, entry) after ``_paged_table``
+PAGED_LENS = (0, 1, 16, 17, 255, 100, 200, 64)
+LONG_LENS = (2048, 1900, 1500, 1024, 777, 2000, 100, 1)
+PAGED_EDGES = [
+    # label, B, KV, G, D, page_size, n_pages, J, lens, counts set,
+    # table set, plan, timed
+    ("partial and count-0 pages mid-table", 4, 4, 8, 64, 16, 256, 16,
+     (255, 200, 130, 64), {(0, 2): 5, (1, 7): 0, (2, 3): 9}, {}, None,
+     False),
+    ("a slot whose pages are all masked", 3, 4, 8, 64, 16, 128, 16,
+     (200, 0, 90), {(2, j): 0 for j in range(6)}, {}, None, False),
+    ("entries past the pool", 2, 4, 8, 64, 16, 64, 16, (255, 100), {},
+     {(0, 0): 71, (1, 3): -3}, None, False),
+    ("page 8", 3, 2, 4, 64, 8, 128, 12, (1, 40, 96), {(1, 2): 0}, {},
+     None, False),
+    ("page 4", 2, 2, 8, 64, 4, 160, 40, (160, 37), {(0, 5): 1}, {}, None,
+     False),
+    ("J 18", 8, 4, 8, 64, 16, 1024, 18, (288, 1, 17, 3, 100, 0, 250, 64),
+     {}, {}, None, False),
+    ("one block a group", 8, 4, 8, 64, 16, 1024, 16, PAGED_LENS, {}, {},
+     (1, 16), False),
+    ("splits of one entry", 2, 4, 8, 64, 16, 64, 16, (255, 130),
+     {(0, 4): 3}, {}, (16, 1), False),
+    ("uneven splits", 2, 4, 8, 64, 16, 64, 18, (288, 130), {}, {}, (5, 4),
+     False),
+    ("G 1", 8, 16, 1, 64, 16, 1024, 16, PAGED_LENS, {}, {}, None, False),
+    ("G 3, D 32", 3, 2, 3, 32, 16, 64, 6, (5, 0, 90), {}, {}, None, False),
+    ("G 16, D 128, two splits", 2, 1, 16, 128, 16, 64, 5, (33, 64), {}, {},
+     (2, 3), False),
+    ("long table: 8 slots, J 128", 8, 4, 8, 64, 16, 1200, 128, LONG_LENS,
+     {}, {}, None, True),
+]
+
+
+def _paged_plans(KD, BKV, J):
+    """paged_plan's plan first, then 1, 2, 3, 4, 6, 8, 16 or 32 even
+    splits of the table."""
+    own = KD.paged_plan(BKV, J, 16)
+    alts = [(-(-J // -(-J // n)), -(-J // n)) for n in
+            (1, 2, 3, 4, 6, 8, 16, 32) if n <= J]
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
+def check_paged_variants(torch, F, compare, record):
+    """Kernel 5's mma variant at its split and tile edges (the variant
+    counted, within the fp32 limit of the plain version and of the
+    emulation of its arithmetic, bitwise over two launches, a slot
+    without a valid key giving m = -1e30, l = 0, o = 0), the long table
+    timed beside its bound, the plan table and the host's enqueue of a
+    call.  A generator of its own, so the cases before and after draw the
+    inputs they drew before."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_decode as KD
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def operands(B, KV, G, D, ps, n_pages, J, lens, counts_set=None,
+                 table_set=None):
+        q = torch.randn(B * KV, G, D, generator=gen, device="cuda").to(bf16)
+        pools = [torch.randn(n_pages, ps, KV, D, generator=gen,
+                             device="cuda").to(bf16) for _ in range(2)]
+        table, counts, live = _paged_table(torch, gen, lens, J, ps, n_pages)
+        for (b, j), c in (counts_set or {}).items():
+            counts[b, j] = c
+        for (b, j), t in (table_set or {}).items():
+            table[b, j] = t
+        return (q, *pools, table, counts), live
+
+    print("vwr_paged_flash_decode mma edges")
+    for (label, B, KV, G, D, ps, n_pages, J, lens, cset, tset, plan,
+         timed) in PAGED_EDGES:
+        ops_, live = operands(B, KV, G, D, ps, n_pages, J, lens, cset, tset)
+        shape = (f"B{B} KV{KV} G{G} D{D} ps{ps} J{J} keys "
+                 f"{int(ops_[4].sum())} plan "
+                 f"{plan or KD.paged_plan(B * KV, J, ps)}")
+
+        def run(ops_=ops_, plan=plan):
+            if plan is None:
+                return KD.vwr_paged_flash_decode(*ops_)
+            return KD.paged_launch(*ops_, "mma", plan)
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served("vwr_paged_flash_decode", shape, before, build, "mma")
+        err = compare("vwr_paged_flash_decode", shape, f32, got,
+                      KD.vwr_paged_flash_decode_ref(*ops_))
+        compare("  vs emulation", shape, f32, got,
+                KD.paged_mma_emulation(*ops_, plan=plan))
+        _bitwise("vwr_paged_flash_decode", shape, got, run())
+        empty = (ops_[4].sum(1) == 0).repeat_interleave(KV)
+        if empty.any() and (got[2][empty].abs().max().item() != 0.0
+                            or got[0][empty].abs().max().item() != 0.0
+                            or got[1][empty].max().item() > -1e29):
+            raise AssertionError("a slot with no valid key must give "
+                                 "m=-1e30, l=0, o=0")
+        if timed:
+            n_keys = int(ops_[4].sum())
+            q = ops_[0]
+            record("vwr_paged_flash_decode", label, shape, bf16, err, run,
+                   lambda ops_=ops_: KD.vwr_paged_flash_decode_ref(*ops_),
+                   _paged_sdpa(torch, F, q, ops_[1:3], [], ops_[3], ops_[4],
+                               KV, G, D),
+                   4 * KV * G * D * n_keys,
+                   2 * (2 * n_keys * KV * D + q.numel()) + 8 * B * J
+                   + 4 * B * KV * G * (D + 2))
+
+    print("  vwr_paged_flash_decode plans (ms; (splits, table entries a "
+          "split)), the FMA kernel, SDPA:")
+    for label, KV, G, J, lens in (
+            ("tinyllama 8 slots, J 16", 4, 8, 16, PAGED_LENS),
+            ("qwen 8 slots (G 1), J 16", 16, 1, 16, PAGED_LENS),
+            ("tinyllama 8 slots, J 18", 4, 8, 18,
+             (288, 1, 17, 3, 100, 0, 250, 64)),
+            ("tinyllama 8 slots, J 128", 4, 8, 128, LONG_LENS)):
+        B, D, ps = 8, 64, 16
+        ops_, _ = operands(B, KV, G, D, ps, 1200, J, lens)
+        row = {"kernel": "vwr_paged_flash_decode plans", "case": label,
+               "shape": f"B{B} KV{KV} G{G} D{D} J{J} of {ps}, keys "
+                        f"{sum(lens)}", "plans": []}
+        for plan in _paged_plans(KD, B * KV, J):
+            ms = time_ms(torch, lambda: KD.paged_launch(*ops_, "mma", plan))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["fma_ms"] = time_ms(torch, lambda: KD.paged_launch(*ops_,
+                                                               "fma"))
+        row["library_ms"] = time_ms(torch, _paged_sdpa(
+            torch, F, ops_[0], ops_[1:3], [], ops_[3], ops_[4], KV, G, D))
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f}")
+
+    # the host's enqueue of a kernel-5 call at the headline
+    ops_, _ = operands(8, 4, 8, 64, 16, 1024, 16, PAGED_LENS)
+    calls = {
+        "fma": lambda: KD.paged_launch(*ops_, "fma"),
+        "mma": lambda: KD.paged_launch(*ops_, "mma"),
+        "vwr_paged_flash_decode": lambda: KD.vwr_paged_flash_decode(*ops_),
+        "SDPA": _paged_sdpa(torch, F, ops_[0], ops_[1:3], [], ops_[3],
+                            ops_[4], 4, 8, 64),
+    }
+    row = {"kernel": "vwr_paged_flash_decode enqueue",
+           "shape": "B8 KV4 G8 D64 J16 of 16",
+           **{name: [] for name in calls}}
+    for _ in range(3):
+        for name, fn in calls.items():
+            row[name].append(_enqueue_us(torch, fn))
+    record.rows.append(row)
+    print("  vwr_paged_flash_decode host enqueue (us a call; enqueue, and "
+          "with the device): the FMA and mma launches, the whole wrapper "
+          "(widths, checks, rule, plan, split buffers, mma launch), SDPA")
+    for name in calls:
+        print(f"    {name}: " + ", ".join(f"{a:.2f} / {b:.2f}"
+                                          for a, b in row[name]))
 
 
 def _parent_decode(torch, KD, build, q, k, v, cur_len, pos0=0):
@@ -1619,6 +1879,20 @@ def _conv_alt_plans(K16, N, H, W, C, Fo, KH):
     return [own] + [p for p in dict.fromkeys(alts) if p != own]
 
 
+def _dw_alt_plans(K17, N, H, W, C):
+    """dw_plan's (cb, sh, tw) first, then its cb and tw with strips of 4,
+    8, 16, 32 rows or the whole height, and its sh with the other channel
+    blocks (the widest column tiles their threads allow)."""
+    cb, sh, tw = own = K17.dw_plan(N, H, W, C, 3, 3)
+    Ho, Wo = H - 2, W - 2
+    alts = [(cb, min(r, Ho), tw) for r in (4, 8, 16, 32, Ho)]
+    for c in K17.DW_CBS:
+        if c < 8 * -(-C // 8) and c != cb:
+            tiles = -(-Wo // (K17.DW_THREADS // (c // 8)))
+            alts.append((c, sh, -(-Wo // tiles)))
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
 def check_conv_kernels(torch, F, gen, compare, record):
     """Kernels 16 (vwr_conv2d) and 17 (vwr_depthwise) against their plain
     versions: the JAX tests' ragged shapes (C 7 / 3, F 5 / 9, a 1x1 and a
@@ -1704,22 +1978,44 @@ def check_conv_kernels(torch, F, gen, compare, record):
             got, kind = conv(x, w, b, act, plan)
             compare(f"vwr_conv2d {kind}", f"{label} {act or ''}", dt, got,
                     K16.vwr_conv2d_ref(x, w, b, activation=act))
+    def depthwise(x, w, plan=None):
+        """One launch through the wrapper (or of the stream kernel with
+        ``plan``, forced) and the variant that served it, which must be
+        the one ``dw_variant`` names."""
+        before = dict(build.VARIANTS)
+        out = (K17.vwr_depthwise(x, w) if plan is None
+               else K17.dw_launch(x, w, "stream", plan))
+        torch.cuda.synchronize()
+        want = ("stream" if plan is not None
+                else K17.dw_variant(x.shape[3], *w.shape[:2]))
+        _served("vwr_depthwise", tuple(x.shape), before, build, want)
+        return out, want
+
     print("vwr_depthwise")
     dw_edges = [
-        # label, N, H, W, C, K
-        ("3x3 C 8", 1, 10, 10, 8, 3),
-        ("C 16, H_out 10 W_out 7", 2, 12, 9, 16, 3),
-        ("5x5 C 4", 1, 9, 9, 4, 5),
-        ("C 70 (past a 64-channel block, not 8-aligned)", 2, 13, 21, 70, 3),
-        ("C 3, 7x7", 1, 20, 30, 3, 7),
+        # label, N, H, W, C, K, plan (stream only; None: the rule's)
+        ("3x3 C 8", 1, 10, 10, 8, 3, None),
+        ("C 16, H_out 10 W_out 7", 2, 12, 9, 16, 3, None),
+        ("5x5 C 4", 1, 9, 9, 4, 5, None),
+        ("C 70 (past a 64-channel block, not 8-aligned)", 2, 13, 21, 70, 3,
+         None),
+        ("C 3, 7x7", 1, 20, 30, 3, 7, None),
+        # the stream kernel's edges: a ragged channel block, strip and
+        # column tile, whole-height strips, one output pixel
+        ("stream: C 24 in 16s, 28 rows in 5s, 39 columns in 12s", 3, 30, 41,
+         24, 3, (16, 5, 12)),
+        ("stream: C 40 in 32s, W_out 73 in two tiles", 2, 20, 75, 40, 3,
+         (32, 6, 37)),
+        ("stream: MN_56x56 N1, whole-height strips", 1, 58, 58, 128, 3,
+         (64, 56, 28)),
+        ("stream: one output pixel", 2, 3, 3, 8, 3, None),
     ]
-    for label, N, H, W, C, K in dw_edges:
+    for label, N, H, W, C, K, plan in dw_edges:
         for dt in (f32, bf16):
             x, w, _ = _conv_operands(torch, gen, N, H, W, C, C, K, K, dt,
                                      depthwise=True)
-            got = K17.vwr_depthwise(x, w)
-            torch.cuda.synchronize()
-            compare("vwr_depthwise", label, dt, got,
+            got, kind = depthwise(x, w, plan)
+            compare(f"vwr_depthwise {kind}", label, dt, got,
                     K17.vwr_depthwise_ref(x, w))
 
     covered, _ = _cnn_layers()
@@ -1736,8 +2032,7 @@ def check_conv_kernels(torch, F, gen, compare, record):
                 if dw:
                     fn = (lambda x=x, w=w: K17.vwr_depthwise(x, w))
                     plain = (lambda x=x, w=w: K17.vwr_depthwise_ref(x, w))
-                    got, kind = fn(), None
-                    torch.cuda.synchronize()
+                    got, kind = depthwise(x, w)
                 else:
                     fn = (lambda x=x, w=w, b=b:
                           K16.vwr_conv2d(x, w, b, activation="relu"))
@@ -1748,8 +2043,8 @@ def check_conv_kernels(torch, F, gen, compare, record):
                          + ("" if dw else f" F{layer.C_out}")
                          + f" {layer.K}x{layer.K}"
                          + ("" if dw else " +bias+relu"))
-                err = compare(kname + (f" {kind}" if kind else ""),
-                              f"{layer.name} N{n}", dt, got, plain())
+                err = compare(f"{kname} {kind}", f"{layer.name} N{n}", dt,
+                              got, plain())
                 head = CNN_HEADLINE[kname] == (layer.name, n, str(dt)[6:])
                 library = _cudnn(torch, F, x, w, b, depthwise=dw)
                 if head:
@@ -1771,6 +2066,8 @@ def check_conv_kernels(torch, F, gen, compare, record):
                     if kind == "wgmma":
                         row["plan"] = K16.plan(*x.shape, *w.shape[:2],
                                                w.shape[3])
+                    elif kind == "stream":
+                        row["plan"] = K17.dw_plan(*x.shape, *w.shape[:2])
                     print(f"      variant {kind}"
                           + (f", plan {row['plan']}" if "plan" in row
                              else ""))
@@ -1794,6 +2091,31 @@ def check_conv_kernels(torch, F, gen, compare, record):
               f"{row['plans'][0]['ms']:.4f}, best {best['plan']} "
               f"{best['ms']:.4f} of {len(row['plans'])}; tile "
               f"{row['tile_ms']:.4f}; cuDNN {row['library_ms']:.4f}")
+
+    # the stream kernel's plans: (cb, sh, tw)
+    print("  vwr_depthwise stream plans (ms; (cb, sh, tw)), the tile "
+          "kernel and cuDNN:")
+    for layer in (l for l in covered if l.depthwise):
+        for n, dt in ((32, bf16), (32, f32), (1, bf16)):
+            x, w, _ = _conv_operands(torch, gen, n, layer.H_in, layer.W_in,
+                                     layer.C_in, layer.C_in, 3, 3, dt,
+                                     depthwise=True)
+            row = {"kernel": "vwr_depthwise plans",
+                   "case": f"{layer.name} N{n} {str(dt)[6:]}", "plans": []}
+            for p in _dw_alt_plans(K17, *x.shape):
+                ms = time_ms(torch, lambda p=p: K17.dw_launch(x, w, "stream",
+                                                              p))
+                row["plans"].append({"plan": p, "ms": ms})
+            row["tile_ms"] = time_ms(torch, lambda: K17.dw_launch(x, w,
+                                                                  "tile"))
+            row["library_ms"] = time_ms(torch, _cudnn(torch, F, x, w, None,
+                                                      depthwise=True))
+            best = min(row["plans"], key=lambda q: q["ms"])
+            record.rows.append(row)
+            print(f"    {row['case']}: rule {row['plans'][0]['plan']} "
+                  f"{row['plans'][0]['ms']:.4f}, best {best['plan']} "
+                  f"{best['ms']:.4f} of {len(row['plans'])}; tile "
+                  f"{row['tile_ms']:.4f}; cuDNN {row['library_ms']:.4f}")
 
 
 def _paged_table(torch, gen, lens, J, ps, n_pages):
@@ -2190,6 +2512,24 @@ def _swiglu_variants(torch, what, L, prefills, steps, passes=None):
     return got
 
 
+def _paged_variants(what, kv_dtype, launches):
+    """Kernel 5's launches by variant over a stream (the counts since the
+    last reset), held: on bf16 pools every one of its ``launches`` on the
+    mma variant; on int8 pools kernel 7 runs, and kernel 5 none.  Returns
+    the counts."""
+    from repro_torch.kernels import build
+
+    got = {k: n for k, n in build.VARIANTS.items()
+           if k.startswith("vwr_paged_flash_decode.")}
+    want = {"vwr_paged_flash_decode.mma":
+            launches if kv_dtype == "bf16" else 0,
+            "vwr_paged_flash_decode.fma": 0}
+    if got != want:
+        raise AssertionError(f"{what}: vwr_paged_flash_decode by variant "
+                             f"{got}, expected {want}")
+    return got
+
+
 def serve_scheduler(torch, kv_dtype, params=None):
     """Full-width tinyllama-1.1b through the Scheduler on the kernels:
     the stream above, launch counts checked, the stream again with
@@ -2242,6 +2582,8 @@ def serve_scheduler(torch, kv_dtype, params=None):
                                  f"{launches[k]} times, expected {n}")
     swiglu = _swiglu_variants(torch, f"scheduler {kv_dtype}", L,
                               st["prefills"], st["steps"])
+    paged_variants = _paged_variants(f"scheduler {kv_dtype}", kv_dtype,
+                                     L * st["steps"])
     bad = {rid: r.status for rid, r in out.items()
            if r.status is not RequestStatus.FINISHED or len(r) != GEN}
     if len(out) != N_REQ or bad:
@@ -2261,7 +2603,8 @@ def serve_scheduler(torch, kv_dtype, params=None):
         "gen_tok_s": n_tok / wall,
         "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
         "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
-        "launches": launches, "swiglu_variants": swiglu}
+        "launches": launches, "swiglu_variants": swiglu,
+        "paged_variants": paged_variants}
     print(f"  steps {st['steps']}, prefills {st['prefills']}, preempted "
           f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
           f"table widths {summary['table_widths']}")
@@ -2412,6 +2755,8 @@ def _pressured_stream(torch, eng, cfg, out, paged):
             or launches["vwr_attention"] != L * st["prefills"]
             or launches["vwr_flash_decode"] != 0):
         raise AssertionError(f"{HELD} held pages: launches {launches}")
+    _paged_variants(f"{HELD} held pages", "int8" if paged.endswith("_q8")
+                    else "bf16", L * st["steps"])
     bad = [rid for rid, r in res.items()
            if r.status is not RequestStatus.FINISHED or len(r) != GEN]
     if len(res) != N_REQ or bad:
@@ -2889,6 +3234,7 @@ def serve_prefix_chunked(torch, params):
             if launches[k] != n:
                 raise AssertionError(f"{tag}: {k} launched {launches[k]} "
                                      f"times, expected {n}")
+        _paged_variants(tag, kv_dtype, cfg.n_layers * st["steps"])
         bad = {rid: r.status for rid, r in out.items()
                if r.status is not RequestStatus.FINISHED or len(r) != GEN}
         if len(out) != N_REQ or bad:
@@ -3637,16 +3983,18 @@ def serve_cnn(torch):
     launches = {k: build.LAUNCHES[k] for k in ("vwr_conv2d",
                                                "vwr_depthwise")}
     variants = {k: n for k, n in build.VARIANTS.items()
-                if k.startswith("vwr_conv2d.")}
+                if k.startswith(("vwr_conv2d.", "vwr_depthwise."))}
     n_dw = sum(layer.depthwise for layer, *_ in cases)
     n_bf16 = sum(not layer.depthwise and dt == torch.bfloat16
                  for layer, _, dt, _ in cases)
     # the demo's last section launches the conv kernel twice, in fp32
     want = {"vwr_conv2d": len(cases) - n_dw + 2, "vwr_depthwise": n_dw}
+    # every depthwise layer of the suite (3 x 3, C % 8 == 0) streams
     want_variants = {"vwr_conv2d.wgmma": n_bf16,
-                     "vwr_conv2d.tile": len(cases) - n_dw - n_bf16 + 2}
+                     "vwr_conv2d.tile": len(cases) - n_dw - n_bf16 + 2,
+                     "vwr_depthwise.stream": n_dw, "vwr_depthwise.tile": 0}
     print(f"  launches over the suite and the demo: {launches}; "
-          f"vwr_conv2d by variant: {variants}")
+          f"by variant: {variants}")
     if launches != want or variants != want_variants:
         raise AssertionError(f"CNN path launches {launches} {variants}, "
                              f"expected {want} {want_variants}")
@@ -3711,6 +4059,7 @@ def main() -> int:
     print(f"build: {secs:.1f} s ({', '.join(build.SOURCES)})")
 
     results = check_kernels(torch, F)
+    two_streams = check_two_streams(torch)
 
     print("end to end")
     per_step = {  # launches per layer: prefill, decode step
@@ -3842,6 +4191,7 @@ def main() -> int:
             "shape": head["shape"]})
     detail = {"card": card, "torch": torch.__version__,
               "build_s": secs, "kernel_cases": results,
+              "two_streams": two_streams,
               "reduced_fp32_max_abs": fp32, "serve": [tiny, qwen],
               "scheduler": [sched_bf16, sched_int8],
               "scheduler_reduced_fp32": sched_fp32,

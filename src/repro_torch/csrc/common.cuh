@@ -741,6 +741,202 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
+// ---- split flash decode on mma.sync (vwr_decode's split kernel, kernel 4,
+// and vwr_paged_decode's mma kernel, kernel 5): a 128-thread block scores
+// its group's G <= 16 query rows, zero-padded to 16, against staged 64-key
+// tiles, warp w the 16-key slice w of each, and writes the group's
+// partial or its split's ----
+
+constexpr int SD_THREADS = 128, SD_TILE = 64, SD_SLICE = 16;
+
+// Byte offset of 16-byte chunk c of key row r in a staged tile: 64-column
+// blocks of SD_TILE 128-byte rows, 128-byte swizzle.
+__device__ __forceinline__ uint32_t sd_chunk(int r, int c) {
+  return (uint32_t)((c / 8) * (SD_TILE * 128)) + swz128(r, c % 8);
+}
+
+// The group's G query rows (row stride D, zero past G) as the A fragments
+// of S = Q K^T: rows lane / 4 and lane / 4 + 8.
+template <int D>
+__device__ __forceinline__ void sd_load_q(uint32_t (&qa)[D / 16][4],
+                                          const __nv_bfloat16* qb, int G,
+                                          int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+  auto pair = [&](int r, int c) -> uint32_t {
+    return r < G ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * D + c)
+                 : 0u;
+  };
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = 16 * kk + 2 * t4;
+    qa[kk][0] = pair(g, c);
+    qa[kk][1] = pair(g + 8, c);
+    qa[kk][2] = pair(g, c + 8);
+    qa[kk][3] = pair(g + 8, c + 8);
+  }
+}
+
+// The running partial of one warp: rows g and g + 8 of the online softmax
+// (l sums this thread's columns) and their o fragments.
+template <int D>
+struct SdPartial {
+  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  float o[D / 8][4] = {};
+};
+
+// One warp's step over its slice: key rows row0 .. row0 + 15 of the staged
+// K tile kt and V tile vt, whose valid keys are the set bits of `valid`
+// (at least one).  S = Q K^T on mma.sync with K by ldmatrix (exact
+// products of bf16 values), `scale` on the fp32 score, masked keys at P =
+// 0, the online softmax in fp32 on the fragment, and O += P V with P as
+// two bf16 terms (hi, lo = bf16(p - hi): ~2^-17 a weight; one term, 2^-9,
+// misses the 1e-4 limit) and V by ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void sd_slice(SdPartial<D>& w,
+                                         const uint32_t (&qa)[D / 16][4],
+                                         const unsigned char* kt,
+                                         const unsigned char* vt, int row0,
+                                         uint32_t valid, float scale,
+                                         int lane) {
+  const int t4 = lane % 4, mi = lane / 8, mr = lane % 8;
+  // S (16 rows x 16 keys): key blocks j = 0, 1 of 8 keys
+  float s[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t kf[4];
+    ldsm_x4(kf, kt + sd_chunk(row0 + 8 * (mi / 2) + mr, 2 * kk + mi % 2));
+    mma_bf16(s[0], qa[kk], kf[0], kf[1]);
+    mma_bf16(s[1], qa[kk], kf[2], kf[3]);
+  }
+  bool in[2][2];
+  float mx0 = w.m0, mx1 = w.m1;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      in[j][e] = valid >> (8 * j + 2 * t4 + e) & 1u;
+      s[j][e] = in[j][e] ? s[j][e] * scale : REPRO_NEG_INF;
+      s[j][2 + e] = in[j][e] ? s[j][2 + e] * scale : REPRO_NEG_INF;
+      mx0 = fmaxf(mx0, s[j][e]);
+      mx1 = fmaxf(mx1, s[j][2 + e]);
+    }
+  // the slice holds a valid key, so the maxima are real scores from here
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  const float c0 = expf(w.m0 - mx0), c1 = expf(w.m1 - mx1);
+  w.m0 = mx0;
+  w.m1 = mx1;
+  w.l0 *= c0;
+  w.l1 *= c1;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    w.o[nb][0] *= c0;
+    w.o[nb][1] *= c0;
+    w.o[nb][2] *= c1;
+    w.o[nb][3] *= c1;
+  }
+  float p[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      p[j][e] = in[j][e] ? expf(s[j][e] - w.m0) : 0.0f;
+      p[j][2 + e] = in[j][e] ? expf(s[j][2 + e] - w.m1) : 0.0f;
+      w.l0 += p[j][e];
+      w.l1 += p[j][2 + e];
+    }
+  // P as two bf16 terms, the A fragments of O += P V: keys 0-7 are key
+  // block 0, keys 8-15 block 1
+  uint32_t ph[4], pl[4];
+  bf16_terms(p[0][0], p[0][1], ph[0], pl[0]);
+  bf16_terms(p[0][2], p[0][3], ph[1], pl[1]);
+  bf16_terms(p[1][0], p[1][1], ph[2], pl[2]);
+  bf16_terms(p[1][2], p[1][3], ph[3], pl[3]);
+#pragma unroll
+  for (int nb = 0; nb < D / 8; nb += 2) {
+    uint32_t vf[4];  // V transposed: columns nb and nb + 1
+    ldsm_x4_trans(vf, vt + sd_chunk(row0 + 8 * (mi % 2) + mr, nb + mi / 2));
+    mma_bf16(w.o[nb], ph, vf[0], vf[1]);
+    mma_bf16(w.o[nb], pl, vf[0], vf[1]);
+    mma_bf16(w.o[nb + 1], ph, vf[2], vf[3]);
+    mma_bf16(w.o[nb + 1], pl, vf[2], vf[3]);
+  }
+}
+
+// The block's end, after its key loop (every thread of the block calls
+// it): its cp.async copies drained, the four warps' partials merged in
+// shared memory (`sm`, the freed stages) in warp order with the flash
+// combine (m > -1e30/2 guard) into group bkv's outputs (one split) or into
+// split `split`'s partial in `ws` (G x D o, then m, then l, for `groups`
+// groups of `nsplit` splits); the group's last block (last_split) then
+// merges the partials in split order (finish_partials) and resets the
+// group's counter: one launch, no float atomics, bitwise reproducible.
+template <int D>
+__device__ __forceinline__ void sd_finish(SdPartial<D>& w, unsigned char* sm,
+                                          float* o_t, float* m_out,
+                                          float* l_out, float* ws,
+                                          int* counters, int groups, int bkv,
+                                          int split, int nsplit, int G) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages
+  const float l0 = quad_sum(w.l0), l1 = quad_sum(w.l1);
+  float* Os = reinterpret_cast<float*>(sm);  // [warp][16][D]
+  float* Ms = Os + 4 * 16 * D;               // [warp][16]
+  float* Ls = Ms + 4 * 16;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int col = 8 * nb + 2 * t4;
+    *reinterpret_cast<float2*>(Os + (warp * 16 + g) * D + col) =
+        make_float2(w.o[nb][0], w.o[nb][1]);
+    *reinterpret_cast<float2*>(Os + (warp * 16 + g + 8) * D + col) =
+        make_float2(w.o[nb][2], w.o[nb][3]);
+  }
+  if (t4 == 0) {
+    Ms[warp * 16 + g] = w.m0;
+    Ms[warp * 16 + g + 8] = w.m1;
+    Ls[warp * 16 + g] = l0;
+    Ls[warp * 16 + g + 8] = l1;
+  }
+  __syncthreads();
+  // one split: straight to the outputs; else this split's partial
+  const int S = nsplit;
+  const size_t part = (size_t)bkv * S + split;
+  float* o_dst = S == 1 ? o_t + (size_t)bkv * G * D : ws + part * G * D;
+  float* m_ws = ws + (size_t)groups * S * G * D;
+  float* l_ws = m_ws + (size_t)groups * S * G;
+  float* m_dst = S == 1 ? m_out + (size_t)bkv * G : m_ws + part * G;
+  float* l_dst = S == 1 ? l_out + (size_t)bkv * G : l_ws + part * G;
+  for (int e = tid; e < G * D; e += SD_THREADS) {
+    const int r = e / D, d = e % D;
+    float mx = REPRO_NEG_INF;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) mx = fmaxf(mx, Ms[v * 16 + r]);
+    float acc = 0.0f, lsum = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float mv = Ms[v * 16 + r];
+      const float sw = mv > REPRO_NEG_INF / 2 ? expf(mv - mx) : 0.0f;
+      acc += Os[(v * 16 + r) * D + d] * sw;
+      lsum += Ls[v * 16 + r] * sw;
+    }
+    o_dst[e] = acc;
+    if (d == 0) {
+      m_dst[r] = mx;
+      l_dst[r] = lsum;
+    }
+  }
+  if (S == 1) return;
+  if (!last_split(&counters[bkv], S, SD_THREADS)) return;
+  // the shared bytes of the partials are free (last_split's barrier)
+  finish_partials(ws + (size_t)bkv * S * G * D, m_ws + (size_t)bkv * S * G,
+                  l_ws + (size_t)bkv * S * G, S, (size_t)G * D, G, G, D,
+                  o_t + (size_t)bkv * G * D, m_out + (size_t)bkv * G,
+                  l_out + (size_t)bkv * G, &counters[bkv], Os, tid,
+                  SD_THREADS);
+}
+
 // ---- the walk over a block table (vwr_mla_decode's and vwr_chunk_prefix's
 // wgmma kernels): a key tile of KEYS slots holds up to SEGS segments of
 // consecutive rows of one page each (seg = min(ps, KEYS) rows a segment,

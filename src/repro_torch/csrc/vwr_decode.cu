@@ -38,7 +38,9 @@
 //   outputs; more write fp32 partials (G x D o, m, l) to a workspace, and
 //   the group's last block (common.cuh last_split) merges them in split
 //   order (finish_partials) and resets the group's counter: one launch,
-//   no float atomics, bitwise reproducible.
+//   no float atomics, bitwise reproducible.  The slice step and the
+//   block's end are common.cuh sd_slice / sd_finish, shared with kernel
+//   5's mma variant (csrc/vwr_paged_decode.cu).
 //
 // fp32 caches (decode_kernel; "fma"), and kernel 9 on int8 caches: one
 // 128-thread block per (batch, KV head) query group: the G query heads
@@ -225,9 +227,8 @@ int launch_d(const DecodeArgs& a, int D, void* stream) {
 // ---- bf16 caches: split-KV across blocks on mma.sync ----
 
 using bf16 = __nv_bfloat16;
-constexpr int SP_THREADS = 128, SP_TILE = 64, SP_SLICE = 16;
 
-// Shared memory: a ring of NST stages, each a K and a V tile of SP_TILE
+// Shared memory: a ring of NST stages, each a K and a V tile of SD_TILE
 // rows in 64-column blocks of 128-byte rows with the 128-byte swizzle (DP
 // = D rounded up to 64: D 32 fills half of each row): 64 KB at D 32 / 64
 // (4 stages), 96 KB at D 128 (3), so a split of up to 3 (2) tiles has
@@ -236,28 +237,16 @@ constexpr int SP_THREADS = 128, SP_TILE = 64, SP_SLICE = 16;
 template <int DP>
 struct SpSmem {
   static constexpr int NST = DP == 128 ? 3 : 4;
-  static constexpr int STAGE = (DP / 64) * SP_TILE * 128;  // K or V
+  static constexpr int STAGE = (DP / 64) * SD_TILE * 128;  // K or V
   static constexpr int K = 0, V = NST * STAGE;
   static constexpr int BYTES = 1024 + 2 * NST * STAGE;
 };
-
-// Byte offset of 16-byte chunk c of row r in a staged tile.
-__device__ __forceinline__ uint32_t sp_chunk(int r, int c) {
-  return (uint32_t)((c / 8) * (SP_TILE * 128)) + swz128(r, c % 8);
-}
-
-// Two bf16 of row `r` (zero past G), columns c, c + 1, as one register.
-__device__ __forceinline__ uint32_t q_pair(const bf16* qb, int r, int G,
-                                           int D, int c) {
-  return r < G ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * D + c)
-               : 0u;
-}
 
 // grid (B * KV, nsplit): block (bkv, s) takes keys [s kps, min(n_keys,
 // (s + 1) kps)) of its group; warp w scores keys 16 w .. + 15 of each
 // 64-key tile.
 template <int D>
-__global__ void __launch_bounds__(SP_THREADS)
+__global__ void __launch_bounds__(SD_THREADS)
 decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, float* __restrict__ o_t,
              float* __restrict__ m_out, float* __restrict__ l_out,
@@ -265,34 +254,32 @@ decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
              int KV, int G, int n_keys, int kps, float scale) {
   constexpr int DP = D < 64 ? 64 : D;
   using L = SpSmem<DP>;
-  constexpr int KK = D / 16;  // 16-deep steps of a score
-  constexpr int NB = D / 8;   // 8-column blocks of o, 16-byte chunks a row
+  constexpr int NB = D / 8;  // 16-byte chunks a row
   extern __shared__ unsigned char sp_smem[];
   unsigned char* sm = align1024(sp_smem);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bkv = blockIdx.x, split = blockIdx.y, S = gridDim.y;
+  const int bkv = blockIdx.x, split = blockIdx.y;
   const int b = bkv / KV, kvh = bkv % KV;
   const size_t row = (size_t)KV * D;
   const bf16* kb = k + (size_t)b * T_len * row + (size_t)kvh * D;
   const bf16* vb = v + (size_t)b * T_len * row + (size_t)kvh * D;
   const int k0 = split * kps, k1 = min(n_keys, k0 + kps);
-  const int n_tiles = k1 > k0 ? (k1 - k0 + SP_TILE - 1) / SP_TILE : 0;
+  const int n_tiles = k1 > k0 ? (k1 - k0 + SD_TILE - 1) / SD_TILE : 0;
 
   // tile i into stage i % NST: the rows of the slices that hold a valid
   // key (zeros past k1; the slices past them are not read)
   auto stage = [&](int i) {
-    const int t0 = k0 + i * SP_TILE;
+    const int t0 = k0 + i * SD_TILE;
     const int rows =
-        min(SP_TILE, (k1 - t0 + SP_SLICE - 1) / SP_SLICE * SP_SLICE);
+        min(SD_TILE, (k1 - t0 + SD_SLICE - 1) / SD_SLICE * SD_SLICE);
     unsigned char* kt = sm + L::K + (i % L::NST) * L::STAGE;
     unsigned char* vt = sm + L::V + (i % L::NST) * L::STAGE;
-    for (int e = tid; e < rows * NB; e += SP_THREADS) {
+    for (int e = tid; e < rows * NB; e += SD_THREADS) {
       const int r = e / NB, c = e % NB;
       const bool ok = t0 + r < k1;
       const size_t off = ok ? (size_t)(t0 + r) * row + c * 8 : 0;
-      cp_async16(kt + sp_chunk(r, c), kb + off, ok);
-      cp_async16(vt + sp_chunk(r, c), vb + off, ok);
+      cp_async16(kt + sd_chunk(r, c), kb + off, ok);
+      cp_async16(vt + sd_chunk(r, c), vb + off, ok);
     }
   };
   // the first NST - 1 tiles in flight (a group each, empty past n_tiles)
@@ -302,28 +289,9 @@ decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   }
 
-  // the group's query rows, zero past G, as the A fragments of S = Q K^T
-  const bf16* qb = q + (size_t)bkv * G * D;
-  uint32_t qa[KK][4];
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const int c = 16 * kk + 2 * t4;
-    qa[kk][0] = q_pair(qb, g, G, D, c);
-    qa[kk][1] = q_pair(qb, g + 8, G, D, c);
-    qa[kk][2] = q_pair(qb, g, G, D, c + 8);
-    qa[kk][3] = q_pair(qb, g + 8, G, D, c + 8);
-  }
-
-  // rows g and g + 8 of the online softmax; l sums this thread's columns
-  float m0 = REPRO_NEG_INF, m1 = REPRO_NEG_INF, l0 = 0.0f, l1 = 0.0f;
-  float o[NB][4];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
-
-  // ldmatrix: lane's row of matrix lane / 8
-  const int mi = lane / 8, mr = lane % 8;
+  uint32_t qa[D / 16][4];
+  sd_load_q<D>(qa, q + (size_t)bkv * G * D, G, lane);
+  SdPartial<D> w;
   for (int i = 0; i < n_tiles; ++i) {
     // tile i has landed; every warp is done with tile i - 1, whose stage
     // tile i + NST - 1 takes
@@ -331,135 +299,16 @@ decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (i + L::NST - 1 < n_tiles) stage(i + L::NST - 1);
     cp_async_commit();
-    const int s0 = k0 + i * SP_TILE + warp * SP_SLICE;  // this warp's slice
-    if (s0 < k1) {
-      const unsigned char* kt = sm + L::K + (i % L::NST) * L::STAGE;
-      const unsigned char* vt = sm + L::V + (i % L::NST) * L::STAGE;
-      // S (16 rows x 16 keys): key blocks j = 0, 1 of 8 keys
-      float s[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < KK; ++kk) {
-        uint32_t kf[4];
-        ldsm_x4(kf, kt + sp_chunk(warp * SP_SLICE + 8 * (mi / 2) + mr,
-                                  2 * kk + mi % 2));
-        mma_bf16(s[0], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[1], qa[kk], kf[2], kf[3]);
-      }
-      // scale, mask past k1, online softmax in fp32
-      bool in[2][2];
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          in[j][e] = s0 + 8 * j + 2 * t4 + e < k1;
-          s[j][e] = in[j][e] ? s[j][e] * scale : REPRO_NEG_INF;
-          s[j][2 + e] = in[j][e] ? s[j][2 + e] * scale : REPRO_NEG_INF;
-          mx0 = fmaxf(mx0, s[j][e]);
-          mx1 = fmaxf(mx1, s[j][2 + e]);
-        }
-      // key s0 is valid, so the maxima are real scores from here
-      mx0 = quad_max(mx0);
-      mx1 = quad_max(mx1);
-      const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= c0;
-      l1 *= c1;
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        o[nb][0] *= c0;
-        o[nb][1] *= c0;
-        o[nb][2] *= c1;
-        o[nb][3] *= c1;
-      }
-      float p[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          p[j][e] = in[j][e] ? expf(s[j][e] - m0) : 0.0f;
-          p[j][2 + e] = in[j][e] ? expf(s[j][2 + e] - m1) : 0.0f;
-          l0 += p[j][e];
-          l1 += p[j][2 + e];
-        }
-      // P as two bf16 terms, the A fragments of O += P V: keys 0-7 are key
-      // block 0, keys 8-15 block 1
-      uint32_t ph[4], pl[4];
-      bf16_terms(p[0][0], p[0][1], ph[0], pl[0]);
-      bf16_terms(p[0][2], p[0][3], ph[1], pl[1]);
-      bf16_terms(p[1][0], p[1][1], ph[2], pl[2]);
-      bf16_terms(p[1][2], p[1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int nb = 0; nb < NB; nb += 2) {
-        uint32_t vf[4];  // V transposed: columns nb and nb + 1
-        ldsm_x4_trans(vf, vt + sp_chunk(warp * SP_SLICE + 8 * (mi % 2) + mr,
-                                        nb + mi / 2));
-        mma_bf16(o[nb], ph, vf[0], vf[1]);
-        mma_bf16(o[nb], pl, vf[0], vf[1]);
-        mma_bf16(o[nb + 1], ph, vf[2], vf[3]);
-        mma_bf16(o[nb + 1], pl, vf[2], vf[3]);
-      }
-    }
+    const int s0 = k0 + i * SD_TILE + warp * SD_SLICE;  // this warp's slice
+    if (s0 >= k1) continue;
+    const uint32_t valid =
+        k1 - s0 >= SD_SLICE ? 0xffffu : (1u << (k1 - s0)) - 1u;
+    sd_slice<D>(w, qa, sm + L::K + (i % L::NST) * L::STAGE,
+                sm + L::V + (i % L::NST) * L::STAGE, warp * SD_SLICE, valid,
+                scale, lane);
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the stages
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // the four warps' partials, merged in warp order into the block's
-  float* Os = reinterpret_cast<float*>(sm);  // [warp][16][D]
-  float* Ms = Os + 4 * 16 * D;               // [warp][16]
-  float* Ls = Ms + 4 * 16;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    const int col = 8 * nb + 2 * t4;
-    *reinterpret_cast<float2*>(Os + (warp * 16 + g) * D + col) =
-        make_float2(o[nb][0], o[nb][1]);
-    *reinterpret_cast<float2*>(Os + (warp * 16 + g + 8) * D + col) =
-        make_float2(o[nb][2], o[nb][3]);
-  }
-  if (t4 == 0) {
-    Ms[warp * 16 + g] = m0;
-    Ms[warp * 16 + g + 8] = m1;
-    Ls[warp * 16 + g] = l0;
-    Ls[warp * 16 + g + 8] = l1;
-  }
-  __syncthreads();
-  // one split: straight to the outputs; else this split's partial
-  const size_t part = (size_t)bkv * S + split;
-  float* o_dst = S == 1 ? o_t + (size_t)bkv * G * D : ws + part * G * D;
-  float* m_ws = ws + (size_t)gridDim.x * S * G * D;
-  float* l_ws = m_ws + (size_t)gridDim.x * S * G;
-  float* m_dst = S == 1 ? m_out + (size_t)bkv * G : m_ws + part * G;
-  float* l_dst = S == 1 ? l_out + (size_t)bkv * G : l_ws + part * G;
-  for (int e = tid; e < G * D; e += SP_THREADS) {
-    const int r = e / D, d = e % D;
-    float mx = REPRO_NEG_INF;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, Ms[w * 16 + r]);
-    float acc = 0.0f, lsum = 0.0f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float mw = Ms[w * 16 + r];
-      const float sw = mw > REPRO_NEG_INF / 2 ? expf(mw - mx) : 0.0f;
-      acc += Os[(w * 16 + r) * D + d] * sw;
-      lsum += Ls[w * 16 + r] * sw;
-    }
-    o_dst[e] = acc;
-    if (d == 0) {
-      m_dst[r] = mx;
-      l_dst[r] = lsum;
-    }
-  }
-  if (S == 1) return;
-  if (!last_split(&counters[bkv], S, SP_THREADS)) return;
-  // the shared bytes of the partials are free (last_split's barrier)
-  finish_partials(ws + (size_t)bkv * S * G * D, m_ws + (size_t)bkv * S * G,
-                  l_ws + (size_t)bkv * S * G, S, (size_t)G * D, G, G, D,
-                  o_t + (size_t)bkv * G * D, m_out + (size_t)bkv * G,
-                  l_out + (size_t)bkv * G, &counters[bkv], Os, tid,
-                  SP_THREADS);
+  sd_finish<D>(w, sm, o_t, m_out, l_out, ws, counters, gridDim.x, bkv,
+               split, gridDim.y, G);
 }
 
 template <int D>
@@ -475,7 +324,7 @@ int launch_split(const DecodeArgs& a, float* ws, int* counters, int nsplit,
     const int e = smem_limit_once<decode_split<D>>(smem);
     if (e != 0) return e;
   }
-  decode_split<D><<<dim3(a.B * a.KV, nsplit), SP_THREADS, smem, stream>>>(
+  decode_split<D><<<dim3(a.B * a.KV, nsplit), SD_THREADS, smem, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (float*)a.o_t,
       (float*)a.m, (float*)a.l, ws, counters, a.T_len, a.KV, a.G, a.n_keys,
       kps, a.scale);

@@ -9,36 +9,75 @@
 // once per generated token and feeds 2 * G flops, far under the 295
 // flop/byte ridge, so the kernel is memory-bound; the int8 pools halve
 // the bytes of bf16 ones (plus 8 bytes of scales per live page and head).
+// At a decode step's few hundred keys a slot the bytes take ~0.0002 ms: a
+// launch and a few round trips to memory set the time.
 //
-// Design: the dense kernel's (csrc/vwr_decode.cu) with a block-table
-// walk.  One 128-thread block per (slot, KV head) query group: the G
-// query heads that share the KV head read each K/V row once (zero-copy
-// GQA).  A page is (page_size, KV, D) rows with the dense cache's
-// KV * D row stride, so the inner loop carries over.  The TPU grid's
-// sequential logical-page axis becomes a loop inside the block over the
-// slot's J * page_size logical key positions, 32 at a time per warp
-// (the 4 warps split the keys); a lane's key t lies in logical page
-// j = t / page_size, which resolves to physical page table[slot, j]
-// (clamped to [0, n_pages), as the JAX wrapper clamps the table) and is
-// valid iff t % page_size < counts[slot, j].  The counts need not be a
-// prefix: a page with count 0 is masked wherever it lies (the
-// sequence-sharded path passes ownership-masked counts), and a 32-key
-// tile with no valid key is skipped before any pool byte is read.
-// Each lane scores its key for all G queries with 16-byte loads of its
-// K row (8 bf16 / 8 fp32 / 16 int8 values), the warp keeps an fp32
-// online softmax per query, and P @ V runs over the tile's valid keys
-// only, each lane owning D / 32 output dims.  On int8 pools a 32-key
-// tile spans pages with different scales, so the scales are applied per
-// key, not per tile: each score is (q . k) * k_scale[page, head], and
-// each key's p is multiplied by v_scale[page, head] before P @ V (after
-// it entered l), which is what the TPU kernel computes per page as
-// (q . k) * ks and (p @ v) * vs.  The four warp partials merge in shared
-// memory with the flash combine (m > -1e30/2 guard), and the block
-// writes the unnormalized fp32 (o_tilde, m, l): a slot with no valid
+// Two kernels (kernels/vwr_decode.py paged_variant picks one per call).
+//
+// bf16 pools (paged_mma; kernel 5's "mma" variant): kernel 4's split
+// kernel (csrc/vwr_decode.cu decode_split) over the block-table walk.
+//   Grid (B * KV, nsplit), one 128-thread block a split of a (slot, KV
+//   head) group's table entries (kernels/vwr_decode.py paged_plan: at most
+//   2 blocks an SM in all, splits of at least 48 key slots, from the
+//   table's shape alone, so a paged step stays capturable: tinyllama's
+//   Scheduler tables, 32 groups x J 16 of 16, take 4 splits, 128 blocks;
+//   a 2048-key table 8).  Splits are ranges of table entries, so each key
+//   belongs to one split by construction; more than one split writes fp32
+//   partials to a workspace that the group's last block merges in split
+//   order (common.cuh last_split, finish_partials): one launch, no float
+//   atomics, bitwise reproducible.
+//   Keys.  A split's entries are J' * page_size logical key slots (entry
+//   j, row o), walked in 64-slot tiles.  Each slot resolves its own entry:
+//   masked past counts[slot, j] (a partial or count-0 page may sit
+//   anywhere in the table: the sequence-sharded path passes masked
+//   counts), the page clamped to [0, n_pages).  So any page size works,
+//   and no thread walks the table serially.  A tile's 64-bit slot mask
+//   comes from two ballots; its 16-slot slices that hold a valid key come
+//   in by cp.async 16-byte copies (masked slots zero-filled) into a ring
+//   of 4 stages (3 at D 128; 128-byte swizzle), so a split of up to 3
+//   tiles has every tile in flight at once; a tile or a slice without a
+//   valid key reads no pool byte and is skipped.
+//   Products.  mma.sync.m16n8k16: the group's G rows, zero-padded to 16,
+//   are the A operand, loaded once into registers; warp w scores slice w
+//   of each tile with K by ldmatrix; `scale` multiplies the fp32 score;
+//   masked slots get P = 0; the online softmax runs in fp32 on the
+//   fragment; P is split into two bf16 terms (hi, lo = bf16(p - hi)), both
+//   the A operand of O += P V with V by ldmatrix.trans (~2^-17 a weight,
+//   inside the 1e-4 limit; one term, 2^-9, misses it).  The four warps'
+//   partials merge in shared memory in warp order with the flash combine
+//   (m > -1e30/2 guard).
+//
+// fp32 pools (paged_decode_kernel; "fma"), and kernel 7 on int8 pools:
+// the dense FMA kernel's (csrc/vwr_decode.cu decode_kernel) with a
+// block-table walk.  One 128-thread block per (slot, KV head) query group:
+// the G query heads that share the KV head read each K/V row once
+// (zero-copy GQA).  A page is (page_size, KV, D) rows with the dense
+// cache's KV * D row stride, so the inner loop carries over.  The TPU
+// grid's sequential logical-page axis becomes a loop inside the block over
+// the slot's J * page_size logical key positions, 32 at a time per warp
+// (the 4 warps split the keys); a lane's key t lies in logical page j = t
+// / page_size, which resolves to physical page table[slot, j] (clamped)
+// and is valid iff t % page_size < counts[slot, j]; a 32-key tile with no
+// valid key is skipped before any pool byte is read.  Each lane scores
+// its key for all G queries with 16-byte loads of its K row (8 bf16 / 8
+// fp32 / 16 int8 values), the warp keeps an fp32 online softmax per
+// query, and P @ V runs over the tile's valid keys only, each lane owning
+// D / 32 output dims.  On int8 pools a 32-key tile spans pages with
+// different scales, so the scales are applied per key, not per tile: each
+// score is (q . k) * k_scale[page, head], and each key's p is multiplied
+// by v_scale[page, head] before P @ V (after it entered l), which is what
+// the TPU kernel computes per page as (q . k) * ks and (p @ v) * vs.  The
+// four warp partials merge in shared memory with the flash combine.
+//
+// Both write the unnormalized fp32 (o_tilde, m, l): a slot with no valid
 // key gives m = -1e30, l = 0, o_tilde = 0.
 //
-// Known limit: at 8 slots x 4 KV heads the grid is 32 blocks on 132
-// SMs; spreading one group over several blocks is later work.
+// Known limits: a split's merge costs ~2 us (kernel 4's), so the plan
+// keeps splits of at least three slices; at a decode step the time is a
+// launch and a few memory round trips (0.014 ms at tinyllama's 8 slots,
+// 0.47x SDPA over gathered pages; PERF.md).  The FMA kernel (fp32 pools,
+// kernel 7's int8 pools) keeps one block a group: 32 blocks on 132 SMs
+// at 8 slots x 4 KV heads.
 #include "common.cuh"
 
 namespace {
@@ -230,6 +269,133 @@ int launch_d(const PagedArgs& a, int D, cudaStream_t stream) {
   }
 }
 
+// ---- bf16 pools: kernel 4's split kernel over the page walk ----
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory: a ring of NST stages, each a K and a V tile of SD_TILE
+// key slots in 64-column blocks of 128-byte rows with the 128-byte swizzle
+// (DP = D rounded up to 64: D 32 fills half of each row), then one 64-bit
+// slot mask a stage: 64 KB at D 32 / 64 (4 stages), 96 KB at D 128 (3), so
+// a split of up to 3 (2) tiles has every tile in flight at once.  After
+// the key loop the stages hold the four warps' partials, then the merge's
+// weights.
+template <int DP>
+struct PmSmem {
+  static constexpr int NST = DP == 128 ? 3 : 4;
+  static constexpr int STAGE = (DP / 64) * SD_TILE * 128;  // K or V
+  static constexpr int K = 0, V = NST * STAGE, MASK = 2 * NST * STAGE;
+  static constexpr int BYTES = 1024 + MASK + NST * 8;
+};
+
+// grid (B * KV, nsplit): block (bkv, s) takes table entries [s jps,
+// min(J, (s + 1) jps)) of slot b = bkv / KV, i.e. its logical keys [s jps
+// ps, ...); tile i holds the split's logical keys 64 i .. + 63, and warp w
+// scores slots 16 w .. + 15 of each tile.
+template <int D>
+__global__ void __launch_bounds__(SD_THREADS)
+paged_mma(const PagedArgs a, float* __restrict__ ws,
+          int* __restrict__ counters, int jps) {
+  constexpr int DP = D < 64 ? 64 : D;
+  using L = PmSmem<DP>;
+  constexpr int NB = D / 8;  // 16-byte chunks a row
+  extern __shared__ unsigned char pm_smem[];
+  unsigned char* sm = align1024(pm_smem);
+  uint64_t* masks = reinterpret_cast<uint64_t*>(sm + L::MASK);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bkv = blockIdx.x, split = blockIdx.y;
+  const int KV = a.KV, ps = a.ps;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const size_t row = (size_t)KV * D;  // pool key-row stride
+  const bf16* kpool = static_cast<const bf16*>(a.k_pool) + (size_t)kvh * D;
+  const bf16* vpool = static_cast<const bf16*>(a.v_pool) + (size_t)kvh * D;
+  const int* tb = a.table + (size_t)b * a.J;
+  const int* cb = a.counts + (size_t)b * a.J;
+  const int j0 = split * jps, j1 = min(a.J, j0 + jps);
+  const int x0 = j0 * ps, x1 = j1 > j0 ? j1 * ps : x0;
+  const int n_tiles = (x1 - x0 + SD_TILE - 1) / SD_TILE;
+
+  // the pool row (page * ps + row in page) of the split's logical key x,
+  // or -1 where it is masked: past the split, or past its page's count (a
+  // count-0 page anywhere in the table masks the page); entries clamped
+  // to [0, n_pages)
+  auto key_row = [&](int x) -> int {
+    if (x >= x1) return -1;
+    const int j = x / ps, o = x - j * ps;
+    if (o >= __ldg(cb + j)) return -1;
+    return min(max(__ldg(tb + j), 0), a.n_pages - 1) * ps + o;
+  };
+  // tile i into stage i % NST: its slot mask (every warp makes the same
+  // ballots; thread 0 keeps it), then the rows of the 16-slot slices that
+  // hold a valid key (zeros in their masked slots); a tile without a
+  // valid key reads no pool byte, and its slices are neither loaded nor
+  // read
+  auto stage = [&](int i) {
+    const int t0 = x0 + i * SD_TILE;
+    const uint32_t lo = __ballot_sync(0xffffffffu, key_row(t0 + lane) >= 0);
+    const uint32_t hi =
+        __ballot_sync(0xffffffffu, key_row(t0 + lane + 32) >= 0);
+    const uint64_t vm = (uint64_t)hi << 32 | lo;
+    if (tid == 0) masks[i % L::NST] = vm;
+    unsigned char* kt = sm + L::K + (i % L::NST) * L::STAGE;
+    unsigned char* vt = sm + L::V + (i % L::NST) * L::STAGE;
+    for (int e = tid; e < SD_TILE * NB; e += SD_THREADS) {
+      const int r = e / NB, c = e % NB;
+      if ((vm >> (r / SD_SLICE * SD_SLICE) & 0xffffu) == 0) continue;
+      const int pr = key_row(t0 + r);
+      const bool ok = pr >= 0;
+      const size_t off = ok ? (size_t)pr * row + c * 8 : 0;
+      cp_async16(kt + sd_chunk(r, c), kpool + off, ok);
+      cp_async16(vt + sd_chunk(r, c), vpool + off, ok);
+    }
+  };
+  // the first NST - 1 tiles in flight (a group each, empty past n_tiles)
+#pragma unroll
+  for (int i = 0; i < L::NST - 1; ++i) {
+    if (i < n_tiles) stage(i);
+    cp_async_commit();
+  }
+
+  uint32_t qa[D / 16][4];
+  sd_load_q<D>(qa, static_cast<const bf16*>(a.q) + (size_t)bkv * a.G * D,
+               a.G, lane);
+  SdPartial<D> w;
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i has landed; every warp is done with tile i - 1, whose stage
+    // tile i + NST - 1 takes
+    cp_async_wait<L::NST - 2>();
+    __syncthreads();
+    const uint64_t vm = masks[i % L::NST];
+    if (i + L::NST - 1 < n_tiles) stage(i + L::NST - 1);
+    cp_async_commit();
+    const uint32_t valid = (uint32_t)(vm >> (warp * SD_SLICE)) & 0xffffu;
+    if (valid == 0) continue;  // this warp's slice has no valid key
+    sd_slice<D>(w, qa, sm + L::K + (i % L::NST) * L::STAGE,
+                sm + L::V + (i % L::NST) * L::STAGE, warp * SD_SLICE, valid,
+                a.scale, lane);
+  }
+  sd_finish<D>(w, sm, a.o_t, a.m, a.l, ws, counters, gridDim.x, bkv, split,
+               gridDim.y, a.G);
+}
+
+template <int D>
+int launch_mma(const PagedArgs& a, float* ws, int* counters, int nsplit,
+               int jps, cudaStream_t stream) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int smem = PmSmem<DP>::BYTES;
+  static_assert(4 * 16 * D * 4 + 2 * 64 * 4 <= PmSmem<DP>::MASK,
+                "the warps' partials fit the stages");
+  static_assert(16 * FIN_SPLITS * 4 <= PmSmem<DP>::MASK,
+                "the merge's weights fit the stages");
+  if (smem > 48 * 1024) {
+    const int e = smem_limit_once<paged_mma<D>>(smem);
+    if (e != 0) return e;
+  }
+  paged_mma<D><<<dim3(a.B * a.KV, nsplit), SD_THREADS, smem, stream>>>(
+      a, ws, counters, jps);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(const PagedArgs& a) {
   return a.G <= 0 || a.J < 0 || a.ps <= 0 || a.n_pages <= 0;
 }
@@ -279,4 +445,35 @@ extern "C" int vwr_paged_flash_decode_q8_launch(
     return launch_d<__nv_bfloat16, int8_t, true>(a, D, s);
   if (dtype == REPRO_F32) return launch_d<float, int8_t, true>(a, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 5 on bf16 pools, on mma.sync: the operands of
+// vwr_paged_flash_decode_launch (bf16), plus the plan
+// (kernels/vwr_decode.py paged_plan): nsplit splits of jps table entries a
+// (slot, KV head) group, nsplit * jps >= J, none starting at or past J (J
+// 0: one split).  ws: B * KV * nsplit * G * (D + 2) fp32 (the partials;
+// unused at one split); counters: B * KV int32, zero, left zero.
+extern "C" int vwr_paged_flash_decode_mma_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* counts, void* o_t, void* m, void* l, void* ws,
+    void* counters, int B, int J, int n_pages, int ps, int KV, int G, int D,
+    int nsplit, int jps, float scale, void* stream) {
+  const PagedArgs a{q, k_pool, v_pool, nullptr, nullptr,
+                    (const int*)table, (const int*)counts, (float*)o_t,
+                    (float*)m, (float*)l, B, J, n_pages, ps, KV, G, scale};
+  if (bad_shape(a) || G > 16 || nsplit < 1 || nsplit > FIN_SPLITS ||
+      jps < 1 || (long long)nsplit * jps < J ||
+      (long long)J * ps >= (1LL << 30) ||
+      (nsplit > 1 && ((long long)(nsplit - 1) * jps >= J || ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || KV <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)ws;
+  int* c = (int*)counters;
+  switch (D) {
+    case 32: return launch_mma<32>(a, w, c, nsplit, jps, s);
+    case 64: return launch_mma<64>(a, w, c, nsplit, jps, s);
+    case 128: return launch_mma<128>(a, w, c, nsplit, jps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -20,8 +20,10 @@ WMMA / FMA tile kernel;
 ``vwr_conv2d``: wgmma or the halo-tile kernel;
 ``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
 ``vwr_flash_decode``: split-KV on mma.sync or FMA;
-``vwr_chunk_prefix_attend``: wgmma or FMA) also counts the variant that
-ran in ``VARIANTS``.
+``vwr_paged_flash_decode``: split-KV on mma.sync or FMA;
+``vwr_chunk_prefix_attend``: wgmma or FMA; ``vwr_depthwise``: row-streamed
+strips or the halo tile) also counts the variant that ran in
+``VARIANTS``.
 """
 from __future__ import annotations
 
@@ -68,7 +70,11 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
                             "vwr_flash_decode.split": 0,
                             "vwr_flash_decode.fma": 0,
                             "vwr_chunk_prefix_attend.wgmma": 0,
-                            "vwr_chunk_prefix_attend.fma": 0}
+                            "vwr_chunk_prefix_attend.fma": 0,
+                            "vwr_paged_flash_decode.mma": 0,
+                            "vwr_paged_flash_decode.fma": 0,
+                            "vwr_depthwise.stream": 0,
+                            "vwr_depthwise.tile": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -212,39 +218,49 @@ def check_operands(kernel: str, dtype, **operands) -> None:
 _SPLIT_COUNTERS: Dict[object, object] = {}
 
 
-def split_counters(device, n: int):
-    """A zeroed int32 buffer of at least ``n`` counters on ``device`` for
-    the kernels whose K splits are summed by the last block of a tile
+def split_counters(device, stream: int, n: int):
+    """A zeroed int32 buffer of at least ``n`` counters for launches on
+    ``stream`` (the handle ``stream_of`` gives) on ``device``, for the
+    kernels whose K splits are summed by the last block of a tile
     (``vwr_matmul``'s split-K and wgmma variants, ``vwr_swiglu``'s and
     ``vwr_conv2d``'s wgmma variants) or whose key splits are merged by the
     last block of a row group (``vwr_flash_decode``'s split variant,
-    ``vwr_chunk_prefix_attend``'s wgmma variant), kept across calls: every
-    launch leaves its counters at 0.  Launches on one stream share it."""
+    ``vwr_paged_flash_decode``'s mma variant, ``vwr_chunk_prefix_attend``'s
+    wgmma variant), kept across calls: every launch leaves its counters at
+    0.  A buffer belongs to one stream, and so does a CUDA graph captured
+    on it: launches on one stream run in order and share it, launches on
+    two streams get two buffers and cannot race on them."""
     import torch
 
-    buf = _SPLIT_COUNTERS.get(device)
+    key = (device, stream)
+    buf = _SPLIT_COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _SPLIT_COUNTERS[device] = buf
+        _SPLIT_COUNTERS[key] = buf
     return buf
 
 
 _SPLIT_WORKSPACE: Dict[object, object] = {}
 
 
-def split_workspace(device, n: int):
-    """An fp32 buffer of at least ``n`` floats on ``device`` for the key
-    splits' partials (``vwr_flash_decode``'s split variant,
+def split_workspace(device, stream: int, n: int):
+    """An fp32 buffer of at least ``n`` floats for the key splits'
+    partials of launches on ``stream`` on ``device`` (``vwr_flash_decode``'s
+    split variant, ``vwr_paged_flash_decode``'s mma variant,
     ``vwr_chunk_prefix_attend``'s wgmma variant), kept across calls and
     grown (doubled) when a call needs more: a launch writes every partial
-    it reads.  Launches on one stream share it."""
+    it reads.  A buffer belongs to one stream, as ``split_counters``'s
+    does; it is allocated while that stream is current, so the caching
+    allocator frees a grown-out buffer only after the launches already
+    queued on that stream."""
     import torch
 
-    buf = _SPLIT_WORKSPACE.get(device)
+    key = (device, stream)
+    buf = _SPLIT_WORKSPACE.get(key)
     if buf is None or buf.numel() < n:
         size = max(n, 2 * (0 if buf is None else buf.numel()), 1 << 16)
         buf = torch.empty(size, dtype=torch.float32, device=device)
-        _SPLIT_WORKSPACE[device] = buf
+        _SPLIT_WORKSPACE[key] = buf
     return buf
 
 

@@ -278,9 +278,10 @@ def chunk_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
     else:
         nsplit, jps = plan or chunk_plan(KV, CG, J, ps)
         groups = KV * _cdiv(CG, CHUNK_ROWS)
+        stream = build.stream_of(q)
         ws = build.split_workspace(
-            q.device, groups * nsplit * CHUNK_ROWS * (D + 2))
-        counters = build.split_counters(q.device, groups)
+            q.device, stream, groups * nsplit * CHUNK_ROWS * (D + 2))
+        counters = build.split_counters(q.device, stream, groups)
         f32 = dict(dtype=torch.float32, device=q.device)
         out = (torch.empty((KV, CG, D), **f32),
                torch.empty((KV, CG), **f32), torch.empty((KV, CG), **f32))
@@ -291,7 +292,7 @@ def chunk_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
                  table.data_ptr(), counts.data_ptr(),
                  *(t.data_ptr() for t in out), ws.data_ptr(),
                  counters.data_ptr(), CG, J, n_pages, ps, KV, D, nsplit,
-                 jps, scale, build.stream_of(q))
+                 jps, scale, stream)
         build.check(lib, err, kernel)
     build.count_launch(kernel, kind)
     return out

@@ -162,12 +162,13 @@ def launch(x, w, bias, activation, kind, plan_=None):
         n_ws, n_counters = scratch_sizes(N, H, W, C, KH, KW, F, plan_)
         ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
               if n_ws else None)
-        counters = build.split_counters(x.device, n_counters)
+        stream = build.stream_of(x)
+        counters = build.split_counters(x.device, stream, n_counters)
         lib, fn = build.kernel_fn("vwr_conv2d", "vwr_conv2d_wgmma_launch",
                                   [_VP] * 6 + [_I] * 12 + [_VP])
         err = fn(*ptrs, None if ws is None else ws.data_ptr(),
                  counters.data_ptr(), N, H, W, C, KH, KW, F, *plan_,
-                 ACT_CODES[activation], build.stream_of(x))
+                 ACT_CODES[activation], stream)
     build.check(lib, err, "vwr_conv2d")
     build.count_launch("vwr_conv2d", kind)
     return out

@@ -35,8 +35,16 @@ group's keys cut into ``decode_plan``'s splits, one block a split, the
 products on mma.sync with P as two bf16 terms, the splits merged by the
 group's last block in the same launch; ``decode_split_emulation`` is its
 arithmetic in plain PyTorch) or ``"fma"`` (fp32 caches: the FMA kernel).
-Kernel 9 (the int8 cache) runs the FMA kernel.  ``build.VARIANTS``
-counts both of kernel 4's.
+Kernel 9 (the int8 cache) runs the FMA kernel.  Kernel 5 has two as well,
+and ``paged_variant`` picks one: ``"mma"`` (bf16 pools at D 32 / 64 /
+128, any page size: kernel 4's split kernel over the block table, each
+slot's table entries cut into ``paged_plan``'s splits from the table's
+shape alone, 64-slot tiles of logical keys that resolve their own
+entries, masked per key; ``paged_mma_emulation`` is its arithmetic) or
+``"fma"`` (fp32 pools: the FMA kernel).  Kernel 7 (int8 pools) runs the
+FMA kernel.  ``build.VARIANTS`` counts both variants of kernels 4 and 5.
+The split variants' partials and counters are ``build.split_workspace``
+/ ``split_counters``, one buffer per (device, stream).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.
@@ -65,6 +73,11 @@ SPLIT_TILE, SPLIT_SLICE, SPLIT_WARPS = 64, 16, 4
 DECODE_BLOCKS = 2 * SMS
 DECODE_MIN_KEYS = 256
 DECODE_MAX_SPLITS = 32
+# kernel 5's mma variant (csrc SD_*, kernel 4's tiles and slices):
+# paged_plan cuts a slot's table into at most DECODE_BLOCKS // (B*KV)
+# splits of at least PAGED_MIN_KEYS key slots (three slices), the plans
+# measured fastest on the H100 at the Scheduler's tables (PERF.md)
+PAGED_MIN_KEYS = 48
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -125,6 +138,35 @@ def decode_plan(BKV, n_keys):
                max(1, n_keys // DECODE_MIN_KEYS))
     per = _cdiv(slices, want)
     return _cdiv(slices, per), SPLIT_SLICE * per
+
+
+def paged_variant(dtype, D, G):
+    """The kernel that serves a ``vwr_paged_flash_decode`` call at the
+    kernel's widths (after ``widths.at_widths``): "mma" for bf16 pools at
+    D 32, 64 or 128 and G <= 16 (any page size), else "fma" (fp32 pools).
+    Kernel 7 (int8 pools) runs the FMA kernel."""
+    if dtype == torch.bfloat16 and D in HEAD_DIMS and G <= MAX_GROUP:
+        return "mma"
+    return "fma"
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(BKV, J, page_size):
+    """(nsplit, table entries a split) of the mma variant: a slot's J
+    table entries in nsplit splits of whole entries, so each key belongs
+    to one split by construction.  Sized from the table's J * page_size
+    key slots, never from the counts (no host copy of them, so the paged
+    step stays capturable): at most ``DECODE_BLOCKS`` blocks in all (one
+    wave of the B*KV groups' splits), each split of at least
+    ``PAGED_MIN_KEYS`` slots, at most ``DECODE_MAX_SPLITS`` of them, sized
+    evenly so that no split starts at or past J.  tinyllama's Scheduler
+    tables (32 groups, J 16 or 18 at pages of 16) take 4 or 6 splits,
+    qwen's (128 groups) 2, a 2048-key table 8; J 0 gives one split (the
+    empty partial)."""
+    want = min(DECODE_MAX_SPLITS, max(1, DECODE_BLOCKS // BKV),
+               max(1, J * page_size // PAGED_MIN_KEYS))
+    jps = max(1, _cdiv(J, want))
+    return max(1, _cdiv(J, jps)), jps
 
 
 def combine_partials(parts):
@@ -252,8 +294,10 @@ def decode_launch(q, k, v, n_keys, kind, plan=None, scale=None):
                           build.dtype_code(q.dtype))
     else:
         nsplit, kps = plan or decode_plan(BKV, n_keys)
-        ws = build.split_workspace(q.device, BKV * nsplit * G * (D + 2))
-        counters = build.split_counters(q.device, BKV)
+        stream = build.stream_of(q)
+        ws = build.split_workspace(q.device, stream,
+                                   BKV * nsplit * G * (D + 2))
+        counters = build.split_counters(q.device, stream, BKV)
         f32 = dict(dtype=torch.float32, device=q.device)
         out = (torch.empty((BKV, G, D), **f32),
                torch.empty((BKV, G), **f32), torch.empty((BKV, G), **f32))
@@ -263,7 +307,7 @@ def decode_launch(q, k, v, n_keys, kind, plan=None, scale=None):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *(t.data_ptr() for t in out), ws.data_ptr(),
                  counters.data_ptr(), B, T, KV, G, D, n_keys, nsplit, kps,
-                 scale, build.stream_of(q))
+                 scale, stream)
         build.check(lib, err, kernel)
     build.count_launch(kernel, kind)
     return out
@@ -338,6 +382,64 @@ def vwr_paged_flash_decode_q8_ref(q, k_pool, v_pool, k_scale, v_scale,
     return _paged_partials(q, k, v, counts, scale)
 
 
+def paged_mma_emulation(q, k_pool, v_pool, table, counts, plan=None,
+                        terms=2):
+    """The mma variant's arithmetic in plain PyTorch (the tests hold it
+    against ``vwr_paged_flash_decode_ref`` and the JAX op): per split
+    (``paged_plan``'s unless ``plan`` is given) the split's table entries
+    as logical key slots (entry j, row o; masked past ``counts[b, j]``,
+    pages clamped to [0, n_pages)) in 64-slot tiles whose 16-slot slices
+    go to 4 warps; a warp skips a slice without a valid key and keeps an
+    fp32 online softmax over the others with the scores (q . k) * scale
+    of the bf16 values and P as ``terms`` bf16 terms against V; the warps
+    merge in warp order into the split's partial, the splits in split
+    order (``combine_partials``).  Returns fp32 (o_tilde (B*KV, G, D),
+    m (B*KV, G), l (B*KV, G))."""
+    BKV, G, D = q.shape
+    n_pages, ps, KV, _ = k_pool.shape
+    B, J = table.shape
+    scale = 1.0 / D ** 0.5
+    nsplit, jps = plan or paged_plan(BKV, J, ps)
+    tbl = table.long().clamp(0, n_pages - 1)
+    qf = q.bfloat16().float()
+    kf, vf = (t[tbl].bfloat16().float().reshape(B, J * ps, KV, D)
+              .permute(0, 2, 1, 3).reshape(BKV, J * ps, D)
+              for t in (k_pool, v_pool))
+    valid = (torch.arange(ps, device=q.device) < counts[..., None].long()
+             ).reshape(B, 1, J * ps).expand(B, KV, J * ps).reshape(BKV, -1)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    empty = (torch.zeros((BKV, G, D), **f32),
+             torch.full((BKV, G), NEG_INF, **f32), torch.zeros((BKV, G), **f32))
+    splits = []
+    for sp in range(nsplit):
+        x0, x1 = sp * jps * ps, min(J, (sp + 1) * jps) * ps
+        warps = [empty] * SPLIT_WARPS
+        for t0 in range(x0, x1, SPLIT_TILE):
+            for w in range(SPLIT_WARPS):
+                keys = slice(t0 + SPLIT_SLICE * w,
+                             min(t0 + SPLIT_SLICE * (w + 1), x1))
+                ok = valid[:, keys]
+                if keys.start >= x1 or not bool(ok.any()):
+                    continue
+                live = ok.any(-1)                     # groups with a key
+                o, m, l = warps[w]
+                sc = torch.einsum("bgd,btd->bgt", qf, kf[:, keys]) * scale
+                sc = torch.where(ok[:, None], sc, NEG_INF)
+                mx = torch.maximum(m, sc.amax(-1))
+                corr = torch.exp(m - mx)
+                p = torch.where(ok[:, None], torch.exp(sc - mx[..., None]),
+                                0.0)
+                pv = sum(torch.einsum("bgt,btd->bgd", t, vf[:, keys])
+                         for t in bf16_terms(p, terms))
+                keep = live[:, None]
+                warps[w] = (torch.where(keep[..., None],
+                                        o * corr[..., None] + pv, o),
+                            torch.where(keep, mx, m),
+                            torch.where(keep, l * corr + p.sum(-1), l))
+        splits.append(combine_partials(warps))
+    return combine_partials(splits)
+
+
 def _paged_launch(kernel, q, k_pool, v_pool, table, counts, scales):
     scale = 1.0 / q.shape[-1] ** 0.5
     return widths.at_widths(
@@ -362,10 +464,23 @@ def _paged_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
                          v_pool=(v_pool, k_pool.shape))
     build.check_operands(kernel, torch.int32,
                          table=(table, (B, J)), counts=(counts, (B, J)))
-    if scales:
+    if scales:   # kernel 7
         build.check_operands(kernel, torch.float32,
                              k_scale=(scales[0], (n_pages, KV)),
                              v_scale=(scales[1], (n_pages, KV)))
+        out = _paged_fma(kernel, q, k_pool, v_pool, table, counts, scales,
+                         scale, code)
+        build.count_launch(kernel)
+        return out
+    return paged_launch(q, k_pool, v_pool, table, counts,
+                        paged_variant(q.dtype, D, G), scale=scale)
+
+
+def _paged_fma(kernel, q, k_pool, v_pool, table, counts, scales, scale,
+               code):
+    BKV, G, D = q.shape
+    n_pages, ps, KV, _ = k_pool.shape
+    B, J = table.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     o_t = torch.empty((BKV, G, D), **f32)
     m = torch.empty((BKV, G), **f32)
@@ -377,8 +492,43 @@ def _paged_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
     err = fn(*(t.data_ptr() for t in ptrs), B, J, n_pages, ps, KV, G, D,
              scale, code, build.stream_of(q))
     build.check(lib, err, kernel)
-    build.count_launch(kernel)
     return o_t, m, l
+
+
+def paged_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
+                 scale=None):
+    """One launch of kernel 5's variant ``kind`` ("mma" or "fma") on
+    operands ``vwr_paged_flash_decode`` checked, with ``paged_plan``'s
+    plan unless ``plan`` is given; chip_smoke.py times the variants and
+    plans against each other through it."""
+    BKV, G, D = q.shape
+    n_pages, ps, KV, _ = k_pool.shape
+    B, J = table.shape
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    kernel = "vwr_paged_flash_decode"
+    if kind == "fma":
+        out = _paged_fma(kernel, q, k_pool, v_pool, table, counts, (),
+                         scale, build.dtype_code(q.dtype))
+    else:
+        nsplit, jps = plan or paged_plan(BKV, J, ps)
+        stream = build.stream_of(q)
+        ws = build.split_workspace(q.device, stream,
+                                   BKV * nsplit * G * (D + 2))
+        counters = build.split_counters(q.device, stream, BKV)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        out = (torch.empty((BKV, G, D), **f32),
+               torch.empty((BKV, G), **f32), torch.empty((BKV, G), **f32))
+        lib, fn = build.kernel_fn("vwr_paged_decode",
+                                  "vwr_paged_flash_decode_mma_launch",
+                                  [_VP] * 10 + [_I] * 9 + [_F, _VP])
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 table.data_ptr(), counts.data_ptr(),
+                 *(t.data_ptr() for t in out), ws.data_ptr(),
+                 counters.data_ptr(), B, J, n_pages, ps, KV, G, D, nsplit,
+                 jps, scale, stream)
+        build.check(lib, err, kernel)
+    build.count_launch(kernel, kind)
+    return out
 
 
 def vwr_paged_flash_decode(q, k_pool, v_pool, table, counts):

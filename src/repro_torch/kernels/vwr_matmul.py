@@ -189,7 +189,8 @@ def launch(x, w, bias, residual, activation, kind, plan=None):
             None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
             out.data_ptr())
-    tail = (ACT_CODES[activation], build.stream_of(x))
+    stream = build.stream_of(x)
+    tail = (ACT_CODES[activation], stream)
     if kind == "gemm":
         lib, fn = build.kernel_fn("vwr_matmul", "vwr_matmul_launch",
                                   [_VP] * 5 + [_I] * 5 + [_VP])
@@ -201,7 +202,7 @@ def launch(x, w, bias, residual, activation, kind, plan=None):
         n_counters = _cdiv(M, tile) * _cdiv(N, bn)
         ws = (torch.empty((nsplit, M, N), dtype=torch.float32,
                           device=x.device) if nsplit > 1 else None)
-        counters = build.split_counters(x.device, n_counters)
+        counters = build.split_counters(x.device, stream, n_counters)
         lib, fn = build.kernel_fn("vwr_matmul", _ENTRIES[kind],
                                   [_VP] * 7 + [_I] * 7 + [_VP])
         err = fn(*ptrs, None if ws is None else ws.data_ptr(),
@@ -288,13 +289,14 @@ def swiglu_launch(x, wg, wi, kind, plan=None):
         bm, bn, nsplit, kt_split = plan or swiglu_tile_plan(M, N, K)
         ws = (torch.empty((nsplit, M, 2 * N), dtype=torch.float32,
                           device=x.device) if nsplit > 1 else None)
-        counters = build.split_counters(x.device,
+        stream = build.stream_of(x)
+        counters = build.split_counters(x.device, stream,
                                         _cdiv(M, bm) * _cdiv(N, bn))
         lib, fn = build.kernel_fn("vwr_matmul", "vwr_swiglu_tile_launch",
                                   [_VP] * 6 + [_I] * 7 + [_VP])
         err = fn(*ptrs, None if ws is None else ws.data_ptr(),
                  counters.data_ptr(), M, N, K, bm, bn, nsplit, kt_split,
-                 build.stream_of(x))
+                 stream)
     build.check(lib, err, "vwr_swiglu")
     build.count_launch("vwr_swiglu", kind)
     return out

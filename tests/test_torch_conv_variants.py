@@ -160,3 +160,92 @@ def test_variant_counts_stay_zero_on_the_cpu():
     assert build.VARIANTS["vwr_conv2d.wgmma"] == 0
     assert build.VARIANTS["vwr_conv2d.tile"] == 0
     assert build.LAUNCHES["vwr_conv2d"] == 0
+
+
+# ---- kernel 17 (vwr_depthwise): the row-streamed strips and their plan ----
+
+from repro_torch.kernels import vwr_depthwise as K17  # noqa: E402
+
+DW_LAYERS = [l for l in provet_cnn.LAYERS if l.stride == 1 and l.depthwise]
+# chip_smoke.py's depthwise edges (N, H, W, C, K) and the stream kernel's
+DW_EDGES = [(1, 10, 10, 8, 3), (2, 12, 9, 16, 3), (1, 9, 9, 4, 5),
+            (2, 13, 21, 70, 3), (1, 20, 30, 3, 7), (2, 20, 75, 40, 3),
+            (3, 30, 41, 24, 3), (2, 3, 3, 8, 3), (1, 130, 300, 64, 3)]
+DW_SHAPES = ([(n, l.H_in, l.W_in, l.C_in, l.K) for l in DW_LAYERS
+              for n in (1, 32)] + DW_EDGES)
+
+
+def test_suite_depthwise_layers_are_the_three_mn_layers():
+    assert sorted(l.name for l in DW_LAYERS) == [
+        "MN_112x112", "MN_56x56", "MN_7x7"]
+
+
+@pytest.mark.parametrize("C,KH,KW,want", [
+    (32, 3, 3, "stream"), (128, 3, 3, "stream"), (1024, 3, 3, "stream"),
+    (8, 3, 3, "stream"), (16, 3, 3, "stream"),
+    (4, 5, 5, "tile"), (70, 3, 3, "tile"), (3, 7, 7, "tile"),
+    (64, 1, 1, "tile"), (64, 3, 5, "tile"), (12, 3, 3, "tile")])
+def test_dw_rule(C, KH, KW, want):
+    """3 x 3 taps over 8-channel runs stream; other taps and ragged C keep
+    the halo-tile kernel."""
+    assert K17.dw_variant(C, KH, KW) == want
+
+
+@pytest.mark.parametrize("N,H,W,C,Kt", DW_SHAPES, ids=str)
+def test_dw_plan_covers_every_output_pixel_and_channel_once(N, H, W, C, Kt):
+    """The grid (strips x column tiles, channel blocks, N) of
+    ``dw_plan``'s (cb, sh, tw): every output row, column and channel of an
+    image in exactly one block, no block empty, and a block's threads and
+    its ring of input rows within the kernel's limits."""
+    cb, sh, tw = K17.dw_plan(N, H, W, C, Kt, Kt)
+    Ho, Wo = H - Kt + 1, W - Kt + 1
+    assert cb % 8 == 0 and 8 <= cb <= 64 and sh >= 1 and tw >= 1
+    assert tw * cb // 8 <= K17.DW_THREADS
+    assert K17.DW_RING * (tw + Kt - 1) * cb * 4 <= 227 * 1024   # fp32
+    seen = np.zeros((Ho, Wo, C), np.int32)
+    for r0 in range(0, Ho, sh):
+        for w0 in range(0, Wo, tw):
+            for c0 in range(0, C, cb):
+                block = seen[r0:r0 + sh, w0:w0 + tw, c0:c0 + cb]
+                assert block.size > 0
+                block += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("layer", DW_LAYERS, ids=[l.name for l in DW_LAYERS])
+def test_dw_plan_fills_the_card_at_n32_with_whole_strips(layer):
+    """N 32: the widest channel block (at most C), the fewest column tiles
+    its threads allow, strips of several rows (each input row read (sh +
+    2) / sh <= 1.1 times, or once where a strip is the whole image, against
+    the halo tile's 1.41x at MN_56x56), and one wave: at most
+    ``DW_BLOCKS`` blocks (two an SM) unless a strip is the whole image
+    already, and more blocks than SMs."""
+    cb, sh, tw = K17.dw_plan(32, layer.H_in, layer.W_in, layer.C_in, 3, 3)
+    Ho, Wo = layer.H_in - 2, layer.W_in - 2
+    assert cb == min(64, layer.C_in)
+    assert -(-Wo // tw) == -(-Wo // (K17.DW_THREADS // (cb // 8)))
+    assert sh == Ho or (sh + 2) / sh <= 1.1
+    blocks = 32 * -(-Ho // sh) * -(-Wo // tw) * -(-layer.C_in // cb)
+    assert blocks > K17.SMS
+    assert blocks <= K17.DW_BLOCKS or sh == Ho
+
+
+@pytest.mark.parametrize("layer", DW_LAYERS, ids=[l.name for l in DW_LAYERS])
+def test_dw_plan_trades_channels_and_rows_for_blocks_at_n1(layer):
+    """N 1: channel blocks narrow to 8 and strips shorten until the grid
+    has more blocks than the card has SMs."""
+    cb, sh, tw = K17.dw_plan(1, layer.H_in, layer.W_in, layer.C_in, 3, 3)
+    Ho, Wo = layer.H_in - 2, layer.W_in - 2
+    assert cb == 8
+    blocks = -(-Ho // sh) * -(-Wo // tw) * -(-layer.C_in // cb)
+    assert blocks > K17.SMS
+
+
+def test_depthwise_variant_counts_stay_zero_on_the_cpu():
+    build.reset_launches()
+    x = torch.randn(1, 10, 10, 8).bfloat16()
+    w = torch.randn(3, 3, 8).bfloat16()
+    K17.vwr_depthwise(x, w)
+    assert build.VARIANTS["vwr_depthwise.stream"] == 0
+    assert build.VARIANTS["vwr_depthwise.tile"] == 0
+    assert build.LAUNCHES["vwr_depthwise"] == 0
