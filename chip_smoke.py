@@ -44,10 +44,17 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    plain version and its emulation; partial and count-0 pages mid-table,
    a slot whose pages are all masked, entries past the pool, pages of 4
    and 8, J 18, forced plans, a J 128 table of up to 2048 keys a slot
-   timed) and its plan table; then kernels 1 (split-K), 4 (8 splits) and
-   5 (8 splits) launched in turns on two streams with no synchronisation,
-   each stream's outputs bitwise equal to one stream's (the split
-   buffers belong to one stream);
+   timed) and its plan table; kernels 10 and 11 on bf16 caches and pools
+   by their wgmma variant (64 heads a block as M; key splits merged in
+   the launch, column blocks; each case's variant asserted, bitwise over
+   two launches, held against the plain version and its emulation:
+   forced splits and column blocks, pos0 > 0, no valid key, H 20 and
+   192, r 256 / 128, pages of 8, 24, 32 and 64, entries past the pool),
+   B1 T2048 and a J 128 table timed beside the parent's FMA kernel, their
+   plan tables and the host's enqueue of both wrappers; then kernels 1
+   (split-K), 4 (8 splits), 5 (8 splits) and 11 launched in turns on two
+   streams with no synchronisation, each stream's outputs bitwise equal
+   to one stream's (the split buffers belong to one stream);
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -101,11 +108,13 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    equal the plain path's; then deepseek-v3-671b at full width cut to
    4 layers (3 dense, 1 MoE of 256 experts; bf16, ~30 GB of random,
    conditioned weights): ``generate`` (batch 4, prompt 128, gen 32;
-   kernel 10 four times a decode step) teacher-forced against the plain
+   kernel 10 four times a decode step, every launch on its wgmma
+   variant) teacher-forced against the plain
    path with the routing of both compared, kernel 14 through
    ``dist.decode.local_mla_decode_attend`` over generate's latent cache
    quantized per sequence, and the Scheduler stream of phase 5 on bf16
-   and int8 latent pools (kernels 11 and 13), its requests replayed in
+   and int8 latent pools (kernels 11, every launch on its wgmma variant,
+   and 13), its requests replayed in
    the live slots through both paths;
 8. the prefix cache and chunked prefill of the MLA families: kernels 12
    and 15 (a chunk's C tokens against its prior latent pages, one (J,)
@@ -164,6 +173,7 @@ the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -206,7 +216,12 @@ def sh(cmd):
 # ----------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=20):
-    """Mean device time of ``fn`` over ``reps`` launches, each timed with
+    """Mean device time of ``fn`` over ``reps`` launches (``launch_ms``)."""
+    return sum(launch_ms(torch, fn, reps)) / reps
+
+
+def launch_ms(torch, fn, reps=20):
+    """Device ms of each of ``reps`` launches of ``fn``, each timed with
     CUDA events after a 64 MB write that evicts the 50 MB L2 (the main
     path finds every weight cold).  A ~0.5 ms device sleep ahead of each
     launch keeps the device behind the host, so the events time queued
@@ -215,7 +230,6 @@ def time_ms(torch, fn, reps=20):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
     events = []
     for _ in range(reps):
         torch.cuda._sleep(1_000_000)
@@ -227,9 +241,7 @@ def time_ms(torch, fn, reps=20):
         b.record()
         events.append((a, b))
     torch.cuda.synchronize()
-    for a, b in events:
-        total += a.elapsed_time(b)
-    return total / reps
+    return [a.elapsed_time(b) for a, b in events]
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -976,6 +988,7 @@ def check_kernels(torch, F):
     check_split_variants(torch, F, compare, record)
     check_paged_variants(torch, F, compare, record)
     check_mla_kernels(torch, F, gen, compare, record)
+    check_mla_decode_variants(torch, F, compare, record)
     check_conv_kernels(torch, F, gen, compare, record)
     return results
 
@@ -1204,7 +1217,8 @@ def check_two_streams(torch):
     """The split buffers belong to one stream: launches of the kernels
     that merge splits through them (kernel 4's split variant at B4 T2048,
     8 splits a group; kernel 1's split-K at a decode shape; kernel 5's
-    mma variant on a 128-entry table, 8 splits a group) issued in turns
+    mma variant on a 128-entry table, 8 splits a group; kernel 11's wgmma
+    variant on a 128-entry table at DeepSeek-V3's widths) issued in turns
     on two streams with no synchronisation between them, and each
     stream's outputs held bitwise to the same launches on one stream.
     With one buffer a device the two streams' blocks would count on the
@@ -1212,6 +1226,7 @@ def check_two_streams(torch):
     from repro_torch.kernels import build
     from repro_torch.kernels import vwr_decode as KD
     from repro_torch.kernels import vwr_matmul as KM
+    from repro_torch.kernels import vwr_mla_decode as KMLA
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     bf16 = torch.bfloat16
@@ -1226,6 +1241,9 @@ def check_two_streams(torch):
     qp = randn(8 * KV, G, D)
     pools = [randn(1200, 16, KV, D) for _ in range(2)]
     table, counts, _ = _paged_table(torch, gen, LONG_LENS, 128, 16, 1200)
+    qm = [torch.randn(8, 128, w, generator=gen, device="cuda")
+          for w in (512, 64)]
+    mla_pools = [randn(1200, 16, w) for w in (512, 64)]
     calls = {
         "vwr_flash_decode split (8, 256)":
             (lambda: KD.vwr_flash_decode(qd, kd, vd, T),
@@ -1235,9 +1253,14 @@ def check_two_streams(torch):
         "vwr_paged_flash_decode mma J 128":
             (lambda: KD.vwr_paged_flash_decode(qp, *pools, table, counts),
              "vwr_paged_flash_decode", "mma"),
+        "vwr_mla_paged_flash_decode wgmma J 128":
+            (lambda: KMLA.vwr_mla_paged_flash_decode(
+                *qm, *mla_pools, table, counts, scale=192 ** -0.5),
+             "vwr_mla_paged_flash_decode", "wgmma"),
     }
     if (KD.decode_plan(B * KV, T)[0] < 2
-            or KD.paged_plan(8 * KV, 128, 16)[0] < 2):
+            or KD.paged_plan(8 * KV, 128, 16)[0] < 2
+            or KMLA.mla_decode_plan(8, 128, 128, 16)[0] < 2):
         raise AssertionError("the two-stream cases must split")
     print("two streams: split buffers per stream")
     one = {}
@@ -1510,6 +1533,20 @@ def _decode_enqueue(torch, F, KD, build, randn, record):
                                           for a, b in row[name]))
 
 
+def _mla_sdpa(F, qa, qr, ckv, kr, valid, scale):
+    """SDPA on the concatenated view of the valid keys: the heads as the
+    query rows of one shared KV head, masked by ``valid`` (B, keys).
+    Returns the call, timed as the MLA decode kernels' library."""
+    from repro_torch.models.mla import mla_concat_view
+
+    def run():
+        q_cat, k_cat, v_cat, _ = mla_concat_view(qa, qr, ckv, kr, scale)
+        return F.scaled_dot_product_attention(
+            q_cat[:, None].to(ckv.dtype), k_cat.transpose(1, 2),
+            v_cat.transpose(1, 2), attn_mask=valid[:, None, None, :])
+    return run
+
+
 def check_mla_kernels(torch, F, gen, compare, record):
     """Kernels 10, 14 (dense latent cache, bf16 / fp32 / int8 with (B,)
     scales), 11, 13 (latent page pools, int8 with (n_pages,) scales) and
@@ -1517,7 +1554,12 @@ def check_mla_kernels(torch, F, gen, compare, record):
     DeepSeek-V3's widths (H 128, r 512, rope 64, fp32 queries) against
     their plain versions; the bound counts the fp32 queries and partials
     beside the valid keys, and fp32 operations (the queries are fp32),
-    bf16 ones for kernel 12's wgmma variant (its terms are bf16)."""
+    bf16 ones for the wgmma variants of kernels 10, 11 and 12 (their terms
+    are bf16).  Kernels 10 and 11 on bf16 caches and pools run their
+    wgmma variant, on fp32 ones the FMA kernel (``decode_variant``), each
+    case's variant asserted and each wgmma output bitwise equal over two
+    launches."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import vwr_mla_decode as KM
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1547,16 +1589,7 @@ def check_mla_kernels(torch, F, gen, compare, record):
         return sum(parts.values())
 
     def library(qa, qr, ckv, kr, valid):
-        """SDPA on the concatenated view of the valid keys: the heads as
-        the query rows of one shared KV head, masked by ``valid``."""
-        from repro_torch.models.mla import mla_concat_view
-
-        def run():
-            q_cat, k_cat, v_cat, _ = mla_concat_view(qa, qr, ckv, kr, SCALE)
-            return F.scaled_dot_product_attention(
-                q_cat[:, None].to(ckv.dtype), k_cat.transpose(1, 2),
-                v_cat.transpose(1, 2), attn_mask=valid[:, None, None, :])
-        return run
+        return _mla_sdpa(F, qa, qr, ckv, kr, valid, SCALE)
 
     dense_cases = [
         # label, B, T, cur_len, pos0, dtype, timed, headline
@@ -1576,9 +1609,16 @@ def check_mla_kernels(torch, F, gen, compare, record):
             cache, scales = caches((B, T), dt, q8)
             args = (qa, qr, *cache, *scales, cur, pos0)
             shape = f"B{B} H{H} r{R} rope{RP} T{T} cur{cur} pos0{pos0}"
+            before = dict(build.VARIANTS)
             got = fn(*args, scale=SCALE)
             torch.cuda.synchronize()
-            err = compare(kname, shape, f32, got, ref(*args, scale=SCALE))
+            kind = None if q8 else KM.decode_variant(R, RP, H, None, dt)
+            if kind:
+                _served(kname, shape, before, build, kind)
+            if kind == "wgmma":
+                _bitwise(kname, shape, got, fn(*args, scale=SCALE))
+            err = compare(f"{kname} {kind or 'fma'}", shape, f32, got,
+                          ref(*args, scale=SCALE))
             if cur <= pos0 and (got[2].abs().max().item() != 0.0
                                 or got[1].max().item() > -1e29):
                 raise AssertionError("a head with no valid key must give "
@@ -1600,7 +1640,8 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        lambda: fn(*args, scale=SCALE),
                        lambda: ref(*args, scale=SCALE), sliced,
                        2 * H * B * n * (2 * R + RP), nbytes, head,
-                       op_dtype=f32)
+                       op_dtype=bf16 if kind == "wgmma" else f32)
+                record.rows[-1]["variant"] = kind or "fma"
 
     # 8 slots, ragged: 653 keys in 44 live pages; slot 0 is inactive, a
     # page of slot 4 is counted 0 and slot 2's table entry lies past the
@@ -1632,9 +1673,16 @@ def check_mla_kernels(torch, F, gen, compare, record):
             live = int((counts > 0).sum())
             shape = (f"B{B} H{H} r{R} rope{RP} ps{pgs} J{table.shape[1]} "
                      f"keys{n_keys} pages{live}")
+            before = dict(build.VARIANTS)
             got = fn(*args, scale=SCALE)
             torch.cuda.synchronize()
-            err = compare(kname, shape, f32, got, ref(*args, scale=SCALE))
+            kind = None if q8 else KM.decode_variant(R, RP, H, pgs, dt)
+            if kind:
+                _served(kname, shape, before, build, kind)
+            if kind == "wgmma":
+                _bitwise(kname, shape, got, fn(*args, scale=SCALE))
+            err = compare(f"{kname} {kind or 'fma'}", shape, f32, got,
+                          ref(*args, scale=SCALE))
             if got[2][0].abs().max().item() != 0.0:
                 raise AssertionError("an inactive slot must give l=0")
             if timed:
@@ -1659,7 +1707,8 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        lambda: fn(*args, scale=SCALE),
                        lambda: ref(*args, scale=SCALE), gathered,
                        2 * H * n_keys * (2 * R + RP), nbytes, head,
-                       op_dtype=f32)
+                       op_dtype=bf16 if kind == "wgmma" else f32)
+                record.rows[-1]["variant"] = kind or "fma"
 
     # kernels 12 and 15: a prompt chunk's C tokens against its prior
     # pages, one (J,) table; each case's last table entry lies past the
@@ -1667,8 +1716,6 @@ def check_mla_kernels(torch, F, gen, compare, record):
     # Kernel 12 on bf16 pools and kernel 15 on int8 pools run their wgmma
     # variant (chunk_variant), kernel 12 on fp32 pools the FMA kernel; each
     # wgmma output is bitwise equal over two launches.
-    from repro_torch.kernels import build
-
     chunk_cases = [
         # label, C, counts, page size, dtype, timed, headline
         ("deepseek chunk 64, 16 pages of 16", 64, (16,) * 16, 16, bf16,
@@ -1789,6 +1836,333 @@ def check_mla_kernels(torch, F, gen, compare, record):
             torch.cuda.synchronize()
             compare(kname, f"H{h} r{r} rope{rp} (reduced, padded)", f32,
                     got, getattr(KM, kname + "_ref")(*args, scale=SCALE))
+
+
+# kernels 10 and 11's wgmma variant at split, tile, column and row edges
+# (plans (splits, keys or table entries a split, column blocks) forced
+# through ``mla_decode_launch``; None: ``mla_decode_plan``'s)
+MLA_DENSE_EDGES = [
+    # label, B, H, r, rope, T, cur_len, pos0, plan, timed
+    ("one block a group", 4, 128, 512, 64, 160, 144, 0, (1, 160, 1), False),
+    ("two column blocks", 4, 128, 512, 64, 160, 144, 0, (1, 160, 2), False),
+    ("splits of partial tiles", 3, 128, 512, 64, 300, 300, 0, (3, 128, 1),
+     False),
+    ("one key past a split", 2, 128, 512, 64, 160, 33, 0, (2, 32, 4), False),
+    ("pos0 > 0, splits and column blocks", 2, 128, 512, 64, 300, 290, 7,
+     (3, 96, 4), False),
+    ("the last slab's boxes past the tensor", 2, 128, 512, 64, 40, 40, 0,
+     None, False),
+    ("no valid key", 2, 128, 512, 64, 40, 3, 10, None, False),
+    ("H 20 (masked rows), r 128", 3, 20, 128, 64, 37, 37, 0, None, False),
+    ("H 192, r 256, rope 32", 2, 192, 256, 32, 100, 90, 0, None, False),
+    ("32 splits", 1, 128, 512, 64, 1024, 1024, 0, (32, 32, 4), False),
+    ("B1 T2048", 1, 128, 512, 64, 2048, 2048, 0, None, True),
+]
+MLA_PAGED_EDGES = [
+    # label, H, r, rope, page_size, n_pages, J, lens, counts set, table
+    # set, plan, timed
+    ("pages of 8", 128, 512, 64, 8, 256, 34, PAGED_LENS, {}, {}, None,
+     False),
+    ("pages of 24", 128, 512, 64, 24, 128, 11, (255, 30, 0, 100),
+     {(0, 2): 5}, {}, None, False),
+    ("pages of 32", 128, 512, 64, 32, 64, 9, (255, 100, 0, 33), {}, {},
+     None, False),
+    ("pages of 64: sub-tiled", 128, 512, 64, 64, 64, 5, (255, 64, 1),
+     {(0, 1): 0}, {}, (2, 3, 4), False),
+    ("count-0 pages, splits of one entry", 128, 512, 64, 16, 1024, 17,
+     PAGED_LENS, {(4, 3): 0, (5, 2): 0}, {}, (17, 1, 1), False),
+    ("entries past the pool", 128, 512, 64, 16, 64, 17, PAGED_LENS, {},
+     {(2, 0): 69, (4, 5): -3}, None, False),
+    ("uneven splits, two column blocks", 128, 512, 64, 16, 1024, 17,
+     PAGED_LENS, {}, {}, (3, 6, 2), False),
+    ("H 20 (masked rows), r 128", 20, 128, 64, 16, 64, 6, (90, 0, 33), {},
+     {}, None, False),
+    ("H 192, r 256, rope 32", 192, 256, 32, 16, 64, 7, (100, 17), {}, {},
+     None, False),
+    ("J 128, 8 slots", 128, 512, 64, 16, 1200, 128, LONG_LENS, {}, {}, None,
+     True),
+]
+
+
+def _mla_plans(KM, B, H, n, ps, r):
+    """mla_decode_plan's plan first, then 1-32 even key splits of the
+    32-key tiles at each column count the kernel takes."""
+    own = KM.mla_decode_plan(B, H, n, ps, r)
+    unit = KM.CHUNK_KEYS if ps is None else max(1, KM.CHUNK_KEYS // ps)
+    n_tiles = max(1, -(-n // unit))
+    alts = []
+    for ncol in KM.decode_columns(r):
+        for k in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32):
+            if k <= n_tiles:
+                per = unit * -(-n_tiles // k)
+                alts.append((-(-n // per), per, ncol))
+    return [own] + [p for p in dict.fromkeys(alts) if p != own]
+
+
+def _parent_mla(torch, KM, build, qa, qr, ckv, kr, index, n_keys, scale):
+    """The wrapper kernels 10 and 11 had before their wgmma variant (the
+    FMA kernel on every cache and pool): the shape check, the widths, the
+    operand checks, the outputs, the launch, the count."""
+    from repro_torch.kernels import widths
+
+    kernel = ("vwr_mla_paged_flash_decode" if index
+              else "vwr_mla_flash_decode")
+    KM.check_shapes(kernel, qa, qr, ckv, kr, index)
+
+    def fma(qa, ckv, qr, kr):
+        B, H, r = qa.shape
+        build.check_operands(kernel, torch.float32, q_abs=(qa, (B, H, r)),
+                             q_rope=(qr, (B, H, qr.shape[2])))
+        build.check_operands(kernel, ckv.dtype, c_kv=(ckv, ckv.shape),
+                             k_rope=(kr, kr.shape))
+        if index:
+            J = index[0].shape[-1]
+            build.check_operands(kernel, torch.int32,
+                                 table=(index[0], (B, J)),
+                                 counts=(index[1], (B, J)))
+        out = KM._entry(kernel, "_launch", qa, qr, ckv, kr, (), index,
+                        n_keys, scale, build.dtype_code(ckv.dtype))
+        build.count_launch(kernel)
+        return out
+
+    return widths.at_widths(fma, [((qa, ckv), KM.RANKS),
+                                  ((qr, kr), KM.ROPES)], kernel)
+
+
+def check_mla_decode_variants(torch, F, compare, record):
+    """Kernels 10 and 11's wgmma variant at its split, tile, column and
+    row edges (the variant counted, within the fp32 limit of the plain
+    version and of the emulation of its arithmetic, bitwise over two
+    launches, a sequence without a valid key giving m = -1e30, l = 0,
+    o = 0), the long shapes timed beside their bounds and the parent's
+    kernel (the FMA one, forced), the plan tables (ms a plan, mean and
+    median, the FMA kernel, SDPA), the time of a launch by keys (the
+    plan's cost model) and the host's enqueue of a call.  A generator of
+    its own, so the cases before and after draw the inputs they drew
+    before."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_mla_decode as KM
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bf16, f32 = torch.bfloat16, torch.float32
+    scale = 1.0 / 192 ** 0.5
+
+    def randn(*shape, dt=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def dense_ops(B, H, r, rope, T):
+        return (randn(B, H, r), randn(B, H, rope), randn(B, T, r, dt=bf16),
+                randn(B, T, rope, dt=bf16))
+
+    def paged_ops(H, r, rope, ps, n_pages, J, lens, cset=None, tset=None):
+        B = len(lens)
+        table, counts, _ = _paged_table(torch, gen, lens, J, ps, n_pages)
+        for (b, j), c in (cset or {}).items():
+            counts[b, j] = c
+        for (b, j), t in (tset or {}).items():
+            table[b, j] = t
+        return (randn(B, H, r), randn(B, H, rope),
+                randn(n_pages, ps, r, dt=bf16),
+                randn(n_pages, ps, rope, dt=bf16)), (table, counts)
+
+    def nbytes(B, H, r, rope, n_keys, index_bytes):
+        """fp32 queries in, the valid bf16 keys, the index, fp32 partials
+        out."""
+        return (4 * B * H * (r + rope) + 2 * n_keys * (r + rope)
+                + index_bytes + 4 * B * H * (r + 2))
+
+    def held(kname, shape, run, want, emul, empty):
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served(kname, shape, before, build, "wgmma")
+        err = compare(kname, shape, f32, got, want)
+        compare("  vs emulation", shape, f32, got, emul)
+        _bitwise(kname, shape, got, run())
+        if bool(empty.any()) and (
+                got[2][empty].abs().max().item() != 0.0
+                or got[0][empty].abs().max().item() != 0.0
+                or got[1][empty].max().item() > -1e29):
+            raise AssertionError(f"{kname} {shape}: a sequence with no "
+                                 "valid key must give m=-1e30, l=0, o=0")
+        return err
+
+    def timed(kname, label, shape, err, run, plain, fma, library, flops,
+              n_bytes):
+        record(kname, label, shape, bf16, err, run, plain, library, flops,
+               n_bytes, op_dtype=bf16)
+        record.rows[-1]["variant"] = "wgmma"
+        record.rows[-1]["fma_ms"] = time_ms(torch, fma)
+        print(f"      the parent's kernel (fma): "
+              f"{record.rows[-1]['fma_ms']:.4f} ms")
+
+    print("vwr_mla_flash_decode wgmma edges")
+    kname = "vwr_mla_flash_decode"
+    for (label, B, H, r, rope, T, cur, pos0, plan,
+         is_timed) in MLA_DENSE_EDGES:
+        ops_ = dense_ops(B, H, r, rope, T)
+        n = max(0, min(T, cur - pos0))
+        shape = (f"B{B} H{H} r{r} rope{rope} T{T} cur{cur} pos0{pos0} plan "
+                 f"{plan or KM.mla_decode_plan(B, H, n, None, r)}")
+
+        def run(ops_=ops_, cur=cur, pos0=pos0, n=n, plan=plan):
+            if plan is None:
+                return KM.vwr_mla_flash_decode(*ops_, cur, pos0, scale=scale)
+            return KM.mla_decode_launch(*ops_, (), n, "wgmma", plan,
+                                        scale=scale)
+
+        def plain(ops_=ops_, cur=cur, pos0=pos0):
+            return KM.vwr_mla_flash_decode_ref(*ops_, cur, pos0, scale=scale)
+        err = held(kname, shape, run, plain(), KM.decode_split_emulation(
+            *ops_, cur_len=cur, pos0=pos0, plan=plan, scale=scale),
+            torch.full((B,), n == 0, device="cuda"))
+        if is_timed:
+            qa, qr, ckv, kr = ops_
+            valid = torch.ones(B, n, dtype=torch.bool, device="cuda")
+            timed(kname, label, shape, err, run, plain,
+                  lambda ops_=ops_, n=n: KM.mla_decode_launch(
+                      *ops_, (), n, "fma", scale=scale),
+                  _mla_sdpa(F, qa, qr, ckv[:, :n], kr[:, :n], valid, scale),
+                  2 * H * B * n * (2 * r + rope),
+                  nbytes(B, H, r, rope, B * n, 0))
+
+    print("vwr_mla_paged_flash_decode wgmma edges")
+    kname = "vwr_mla_paged_flash_decode"
+    for (label, H, r, rope, ps, n_pages, J, lens, cset, tset, plan,
+         is_timed) in MLA_PAGED_EDGES:
+        ops_, index = paged_ops(H, r, rope, ps, n_pages, J, lens, cset, tset)
+        B, n_keys = len(lens), int(index[1].sum())
+        shape = (f"B{B} H{H} r{r} rope{rope} ps{ps} J{J} keys{n_keys} plan "
+                 f"{plan or KM.mla_decode_plan(B, H, J, ps, r)}")
+
+        def run(ops_=ops_, index=index, plan=plan):
+            if plan is None:
+                return KM.vwr_mla_paged_flash_decode(*ops_, *index,
+                                                     scale=scale)
+            return KM.mla_decode_launch(*ops_, index, 0, "wgmma", plan,
+                                        scale=scale)
+
+        def plain(ops_=ops_, index=index):
+            return KM.vwr_mla_paged_flash_decode_ref(*ops_, *index,
+                                                     scale=scale)
+        err = held(kname, shape, run, plain(), KM.decode_split_emulation(
+            *ops_, *index, plan=plan, scale=scale),
+            index[1].sum(1) == 0)
+        if is_timed:
+            qa, qr, ckv, kr = ops_
+            tbl = index[0].long().clamp(0, n_pages - 1)
+            valid = (torch.arange(ps, device="cuda")[None, None, :]
+                     < index[1][..., None]).reshape(B, -1)
+            timed(kname, label, shape, err, run, plain,
+                  lambda ops_=ops_, index=index: KM.mla_decode_launch(
+                      *ops_, index, 0, "fma", scale=scale),
+                  _mla_sdpa(F, qa, qr, ckv[tbl].reshape(B, -1, r),
+                            kr[tbl].reshape(B, -1, rope), valid, scale),
+                  2 * H * n_keys * (2 * r + rope),
+                  nbytes(B, H, r, rope, n_keys, 8 * B * J))
+
+    # the plan tables and the host's enqueue, at the headlines and the
+    # long shapes: generate's dense caches (B4, 144 keys; B1, 2048) and the
+    # Scheduler's pools (8 slots, J 17 with a count-0 page and an entry
+    # past the pool; J 128)
+    shapes = []
+    for label, B, T, n in (("generate B4 T160 cur 144", 4, 160, 144),
+                           ("batch 1, 2048 keys", 1, 2048, 2048)):
+        ops_ = dense_ops(B, 128, 512, 64, T)
+        valid = torch.ones(B, n, dtype=torch.bool, device="cuda")
+        shapes.append((label, ops_, (), n, None, _mla_sdpa(
+            F, ops_[0], ops_[1], ops_[2][:, :n], ops_[3][:, :n], valid,
+            scale)))
+    for label, n_pages, J, lens, cset, tset in (
+            ("Scheduler 8 slots, J 17", 1024, 17, PAGED_LENS, {(4, 3): 0},
+             {(2, 0): 1029}),
+            ("8 slots, J 128", 1200, 128, LONG_LENS, {}, {})):
+        ops_, index = paged_ops(128, 512, 64, 16, n_pages, J, lens, cset,
+                                tset)
+        B = len(lens)
+        tbl = index[0].long().clamp(0, n_pages - 1)
+        valid = (torch.arange(16, device="cuda")[None, None, :]
+                 < index[1][..., None]).reshape(B, -1)
+        shapes.append((label, ops_, index, J, 16, _mla_sdpa(
+            F, ops_[0], ops_[1], ops_[2][tbl].reshape(B, -1, 512),
+            ops_[3][tbl].reshape(B, -1, 64), valid, scale)))
+    print("  MLA decode plans (ms, mean / median of 20 launches; (splits, "
+          "keys or table entries a split, column blocks)), the FMA kernel "
+          "(the parent's), SDPA:")
+    for label, ops_, index, n, ps, library in shapes:
+        B = ops_[0].shape[0]
+        kname = ("vwr_mla_paged_flash_decode" if index
+                 else "vwr_mla_flash_decode")
+        row = {"kernel": kname + " plans", "case": label,
+               "shape": f"B{B} H128 r512 rope64 " + (
+                   f"J{n} of {ps}, keys {int(index[1].sum())}" if index
+                   else f"keys {n}"), "plans": []}
+        for plan in _mla_plans(KM, B, 128, n, ps, 512):
+            ts = launch_ms(torch, lambda: KM.mla_decode_launch(
+                *ops_, index, 0 if index else n, "wgmma", plan,
+                scale=scale))
+            row["plans"].append({"plan": plan, "ms": sum(ts) / len(ts),
+                                 "median_ms": statistics.median(ts)})
+        row["fma_ms"] = time_ms(torch, lambda: KM.mla_decode_launch(
+            *ops_, index, 0 if index else n, "fma", scale=scale))
+        row["library_ms"] = time_ms(torch, library)
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f} / {p['median_ms']:.4f}"
+            for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f}")
+
+    # the terms of mla_decode_plan's cost model: a launch's time by keys
+    # at one split, one and four column blocks (a block's fixed cost and a
+    # 32-key tile's), beside a 4-byte fill kernel (the launch floor)
+    ops_ = dense_ops(4, 128, 512, 64, 512)
+    fill = torch.zeros(1, device="cuda")
+    row = {"kernel": "vwr_mla_flash_decode anatomy",
+           "shape": "B4 H128 r512 rope64, one split",
+           "floor_ms": time_ms(torch, fill.zero_), "ms": {}}
+    for ncol in (1, 4):
+        for n in (0, 32, 128, 512):
+            row["ms"][f"ncol {ncol}, {n} keys"] = time_ms(
+                torch, lambda: KM.mla_decode_launch(
+                    *ops_, (), n, "wgmma", (1, max(n, 32), ncol),
+                    scale=scale))
+    record.rows.append(row)
+    print(f"  MLA decode anatomy (ms a launch, one split; fill kernel "
+          f"{row['floor_ms']:.4f}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in row["ms"].items()))
+
+    print("  MLA decode host enqueue (us a call; enqueue, and with the "
+          "device): the FMA and wgmma launches, the parent's wrapper "
+          "(shapes, widths, checks, the FMA launch), the whole wrapper "
+          "(shapes, widths, checks, rule, plan, split buffers, wgmma "
+          "launch), SDPA")
+    for label, ops_, index, n, ps, library in (shapes[0], shapes[2]):
+        m = 0 if index else n
+        calls = {
+            "fma": lambda: KM.mla_decode_launch(*ops_, index, m, "fma",
+                                                scale=scale),
+            "wgmma": lambda: KM.mla_decode_launch(*ops_, index, m, "wgmma",
+                                                  scale=scale),
+            "parent's wrapper": lambda: _parent_mla(
+                torch, KM, build, *ops_, index, m, scale),
+            "wrapper": (
+                (lambda: KM.vwr_mla_paged_flash_decode(*ops_, *index,
+                                                       scale=scale))
+                if index else (lambda: KM.vwr_mla_flash_decode(
+                    *ops_, n, scale=scale))),
+            "SDPA": library,
+        }
+        row = {"kernel": ("vwr_mla_paged_flash_decode" if index
+                          else "vwr_mla_flash_decode") + " enqueue",
+               "case": label, **{name: [] for name in calls}}
+        for _ in range(3):
+            for name, fn in calls.items():
+                row[name].append(_enqueue_us(torch, fn))
+        record.rows.append(row)
+        print(f"    {label}:")
+        for name in calls:
+            print(f"      {name}: " + ", ".join(f"{a:.2f} / {b:.2f}"
+                                                for a, b in row[name]))
 
 
 # ----------------------------------------------------------------------
@@ -3467,12 +3841,15 @@ def deepseek_generate(torch, eng, ref, routes, gen=32):
     want.update(vwr_mla_flash_decode=L * (gen - 1), vwr_swiglu=L * gen,
                 vwr_matmul=L * gen)
     swiglu = {k: n for k, n in build.VARIANTS.items()
-              if k.startswith("vwr_swiglu.")}
-    # the prefill's rows (B x P) and each step's (B, 4) on wgmma tiles
-    want_sw = {"vwr_swiglu.wgmma": L * gen, "vwr_swiglu.gemm": 0}
+              if k.startswith(("vwr_swiglu.", "vwr_mla_flash_decode."))}
+    # the prefill's rows (B x P) and each step's (B, 4) on wgmma tiles;
+    # every decode step's kernel 10 on its wgmma variant
+    want_sw = {"vwr_swiglu.wgmma": L * gen, "vwr_swiglu.gemm": 0,
+               "vwr_mla_flash_decode.wgmma": L * (gen - 1),
+               "vwr_mla_flash_decode.fma": 0}
     print(f"  generate batch {B}, prompt {P}, gen {gen}: launches "
-          f"{ {k: v for k, v in launches.items() if v} }; vwr_swiglu by "
-          f"variant {swiglu}")
+          f"{ {k: v for k, v in launches.items() if v} }; vwr_swiglu and "
+          f"kernel 10 by variant {swiglu}")
     if launches != want or swiglu != want_sw:
         raise AssertionError(f"deepseek generate: launches {launches} "
                              f"{swiglu}, expected {want} {want_sw}")
@@ -3632,6 +4009,17 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,
     if launches != want:
         raise AssertionError(f"deepseek scheduler {tag}: launches "
                              f"{launches}, expected {want}")
+    # kernel 11 on bf16 pools: every launch on its wgmma variant (int8
+    # pools run kernel 13, the FMA kernel)
+    mla = {k: n for k, n in build.VARIANTS.items()
+           if k.startswith("vwr_mla_paged_flash_decode.")}
+    want_mla = {"vwr_mla_paged_flash_decode.wgmma":
+                launches[paged] if kv_dtype == "bf16" else 0,
+                "vwr_mla_paged_flash_decode.fma": 0}
+    print(f"    kernel 11 by variant: {mla}")
+    if mla != want_mla:
+        raise AssertionError(f"deepseek scheduler {tag}: kernel 11 by "
+                             f"variant {mla}, expected {want_mla}")
     swiglu = _swiglu_variants(torch, f"deepseek scheduler {tag}", L,
                               st["prefills"], st["steps"],
                               passes if prefix_chunked else None)
@@ -3662,7 +4050,7 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,
         "gen_tok_s": n_tok / wall, "latency_p50_s": lat["p50"],
         "latency_p99_s": lat["p99"], "itl_p50_s": itl["p50"],
         "itl_p99_s": itl["p99"], "launches": launches,
-        "swiglu_variants": swiglu}
+        "swiglu_variants": swiglu, "mla_variants": mla}
     print(f"    steps {st['steps']}, prefills {st['prefills']}, preempted "
           f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
           f"table widths {summary['table_widths']}")

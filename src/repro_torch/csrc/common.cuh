@@ -622,7 +622,7 @@ __device__ void finish_swiglu_tile(const float* ws, int* counter, int nsplit,
 }
 
 // ---- split flash partials (vwr_decode's split kernel, vwr_chunk_prefix's
-// wgmma kernel): a block that owns one key split of a row group stores the
+// and vwr_mla_decode's wgmma kernels): a block that owns one key split of a row group stores the
 // unnormalized fp32 partial (o_tilde, m, l) of its keys; the last of the
 // group's blocks (last_split) merges them in split order (one launch, no
 // float atomics, bitwise reproducible) ----
@@ -633,18 +633,21 @@ __device__ void finish_swiglu_tile(const float* ws, int* counter, int nsplit,
 // max_s m_s, each split weighted by exp(m_s - m), or 0 for a split without
 // a valid key (m_s = -1e30), so a row with no valid key in any split gets
 // m = -1e30, l = 0, o = 0.  Every split's m and l are loaded at once, and
-// FIN partials of o in flight before the adds, so the merge waits on L2
-// about 1 + nsplit / FIN times.  `wsm`: rows * nsplit floats of shared
+// FIN partials of o in flight before the adds (4 items of 4 columns a
+// thread, 4 splits of each), so the merge waits on L2 about 1 + (items a
+// thread / 4) (nsplit / 4) times, however few the splits.  `wsm`: rows * nsplit floats of shared
 // memory for the weights.  Called by all `nthreads` threads of the block;
 // the group's counter goes back to 0 for the next launch.  D % 4 == 0, o
-// 16-byte aligned.
+// 16-byte aligned; `ldo`: o's row stride (D unless given; the partials'
+// is D).
 constexpr int FIN_SPLITS = 32;
 __device__ void finish_partials(const float* o_part, const float* m_part,
                                 const float* l_part, int nsplit,
                                 size_t o_step, size_t ml_step, int rows,
                                 int D, float* o, float* m, float* l,
                                 int* counter, float* wsm, int tid,
-                                int nthreads) {
+                                int nthreads, int ldo = 0) {
+  if (ldo == 0) ldo = D;
   for (int r = tid; r < rows; r += nthreads) {
     float ms[FIN_SPLITS], ls[FIN_SPLITS];
 #pragma unroll
@@ -668,29 +671,49 @@ __device__ void finish_partials(const float* o_part, const float* m_part,
     l[r] = lsum;
   }
   __syncthreads();
-  const int q4 = D / 4;
-  for (int i = tid; i < rows * q4; i += nthreads) {
-    const int r = i / q4, c = 4 * (i % q4);
-    const float* p = o_part + (size_t)r * D + c;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int s0 = 0; s0 < nsplit; s0 += FIN) {
-      float4 t[FIN];
+  // FI_ITEMS 4-column items a thread at once, FIN / FI_ITEMS splits of
+  // each in flight: FIN loads before the adds however few the splits
+  constexpr int FI_ITEMS = 4, FI_SPLITS = FIN / FI_ITEMS;
+  const int q4 = D / 4, items = rows * q4;
+  for (int i0 = tid; i0 < items; i0 += FI_ITEMS * nthreads) {
+    float4 acc[FI_ITEMS];
 #pragma unroll
-      for (int u = 0; u < FIN; ++u)
-        t[u] = s0 + u < nsplit ? __ldcg(reinterpret_cast<const float4*>(
-                                     p + (s0 + u) * o_step))
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int v = 0; v < FI_ITEMS; ++v)
+      acc[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s0 = 0; s0 < nsplit; s0 += FI_SPLITS) {
+      float4 t[FI_ITEMS][FI_SPLITS];
 #pragma unroll
-      for (int u = 0; u < FIN; ++u) {
-        if (s0 + u >= nsplit) break;
-        const float w = wsm[(s0 + u) * rows + r];
-        acc.x = fmaf(t[u].x, w, acc.x);
-        acc.y = fmaf(t[u].y, w, acc.y);
-        acc.z = fmaf(t[u].z, w, acc.z);
-        acc.w = fmaf(t[u].w, w, acc.w);
+      for (int v = 0; v < FI_ITEMS; ++v) {
+        const int i = i0 + v * nthreads;
+        const float* p = o_part + (size_t)(i / q4) * D + 4 * (i % q4);
+#pragma unroll
+        for (int u = 0; u < FI_SPLITS; ++u)
+          t[v][u] = i < items && s0 + u < nsplit
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              p + (s0 + u) * o_step))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int v = 0; v < FI_ITEMS; ++v) {
+        const int r = (i0 + v * nthreads) / q4;
+#pragma unroll
+        for (int u = 0; u < FI_SPLITS; ++u) {
+          if (s0 + u >= nsplit || r >= rows) break;
+          const float w = wsm[(s0 + u) * rows + r];
+          acc[v].x = fmaf(t[v][u].x, w, acc[v].x);
+          acc[v].y = fmaf(t[v][u].y, w, acc[v].y);
+          acc[v].z = fmaf(t[v][u].z, w, acc[v].z);
+          acc[v].w = fmaf(t[v][u].w, w, acc[v].w);
+        }
       }
     }
-    *reinterpret_cast<float4*>(o + (size_t)r * D + c) = acc;
+#pragma unroll
+    for (int v = 0; v < FI_ITEMS; ++v) {
+      const int i = i0 + v * nthreads;
+      if (i < items)
+        *reinterpret_cast<float4*>(o + (size_t)(i / q4) * ldo +
+                                   4 * (i % q4)) = acc[v];
+    }
   }
   if (tid == 0) *counter = 0;
 }

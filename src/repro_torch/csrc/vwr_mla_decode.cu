@@ -36,18 +36,38 @@
 // first target for the tensor cores.
 //
 // Design.  The TPU kernel keeps all H heads' (H, r) accumulators in VMEM:
-// 256 KB at DeepSeek-V3's widths, more than a block's shared memory.  Here
-// a block takes one sequence and HB = 16 heads (grid (B, H / 16)), and each
-// of its 8 warps owns 2 heads.  A lane holds r / 32 latent and rope / 32
-// rope query features of each of its heads, and r / 32 accumulators, for
-// dims lane + 32 c.  The block walks the sequence's keys in tiles of at
-// most 16 rows (one page, or a sub-tile of a larger page); each tile of
-// latent and rope rows is staged once in shared memory as fp32 (16-byte
-// loads) and read by every warp.  A warp scores a key for both its heads
-// with fp32 FMAs and one warp reduction each, keeps an fp32 online
-// softmax per head and adds p * c_kv into the lane's accumulators.  The
-// heads-as-M tensor-core form ((H x 576) . (576 x T) a sequence, a wgmma
-// tile) is later work.
+// 256 KB at DeepSeek-V3's widths, more than a block's shared memory.  Two
+// kernels serve kernels 10 and 11 here, and kernels/vwr_mla_decode.py
+// decode_variant picks one a call: the wgmma kernel (below) for bf16
+// caches and pools at r 128 / 256 / 512, rope 32 / 64, pages of a
+// multiple of 8 rows, and the FMA kernel (mla_decode_kernel) for fp32
+// caches, the padded widths of the reduced configs and the int8 kernels
+// 13 and 14.
+//   The FMA kernel: a block takes one sequence and HB = 16 heads (grid (B,
+//   H / 16)), and each of its 8 warps owns 2 heads.  A lane holds r / 32
+//   latent and rope / 32 rope query features of each of its heads, and r
+//   / 32 accumulators, for dims lane + 32 c.  The block walks the
+//   sequence's keys in tiles of at most 16 rows (one page, or a sub-tile
+//   of a larger page); each tile of latent and rope rows is staged once in
+//   shared memory as fp32 (16-byte loads) and read by every warp.  A warp
+//   scores a key for both its heads with fp32 FMAs and one warp reduction
+//   each, keeps an fp32 online softmax per head and adds p * c_kv into the
+//   lane's accumulators.
+//   The wgmma kernel (mla_wgmma, shared with the chunk kernels below): the
+//   heads as M, (H x 576) . (576 x T) a sequence, 64 of a sequence's heads
+//   a block (rows past H masked), 2 blocks a sequence at H 128.  Its keys
+//   are the sequence's own table row (kernel 11) or its slab of the dense
+//   cache (kernel 10: rows b T .. b T + n_keys of a (B * T, r) tensor map;
+//   the 32-row TMA boxes that run past n_keys into the next sequence are
+//   masked in the scores, past the tensor TMA fills zeros).  Decode has
+//   few keys a sequence (144 in generate, 1-255 a Scheduler slot) and row
+//   blocks alone give 8-16 blocks, so mla_decode_plan also cuts a row
+//   group's keys into splits (whole table entries, from the table's shape,
+//   never its counts; whole 32-key tiles of the slab), one block a split,
+//   merged by the group's last block in the same launch (common.cuh
+//   finish_partials, as kernels 4-6), and its output columns into 1, 2 or
+//   4 column blocks that each score every key of their split and multiply
+//   P by their r / NCOL columns of c_kv only (no merge).
 //
 // The chunk kernels.  The TPU kernel keeps all (C x H, r) fp32
 // accumulators in VMEM across a sequential grid over the pages: 16 MB at a
@@ -61,7 +81,9 @@
 // fp32 FMAs; a staged tile serves a block's 16 rows, and L2 serves the C
 // blocks that read the same page.
 //
-// Kernel 12 on bf16 pools and kernel 15 on int8 pools (mla_chunk_wgmma;
+// Kernel 12 on bf16 pools and kernel 15 on int8 pools (mla_wgmma's CHUNK
+// instance: the chunk as one sequence of C x H rows, one split, one column
+// block;
 // kernels/vwr_mla_decode.py chunk_variant: r in {128, 256, 512}, rope in
 // {32, 64}, pages of a multiple of 8 rows) put the tensor cores on it.
 // The rows are the chunk's C x H
@@ -152,6 +174,11 @@ struct MlaArgs {
   int B, H, lead, rows, n;   // lead: B | n_pages; rows: T | ps; n: keys | J
   float scale;
   int tstride;               // pools: table row stride, J | 0 (chunk)
+  // the wgmma kernel's key splits: nsplit splits of `per` table entries
+  // (pools) or keys (dense), their partials and counters (nsplit > 1)
+  float* ws;
+  int* counters;
+  int nsplit, per;
 };
 
 // `count` elements (a multiple of 32) from `src` to shared fp32 `dst`,
@@ -351,7 +378,8 @@ int launch_dtype(const MlaArgs& a, int r, int rope, int dtype, bool q8,
 }
 
 // ---------------------------------------------------------------------
-// Kernel 12 on bf16 pools: wgmma with the chunk's C*H rows as M
+// The wgmma kernel: kernels 12 and 15 (a chunk's C*H rows as M), 10 and
+// 11 (a sequence's heads as M) on bf16 caches and pools
 // ---------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -445,18 +473,29 @@ __device__ __forceinline__ float pow2_up(float amax) {
 }
 
 // tc, tr: the pools as (n_pages * ps, r) and (n_pages * ps, rope) row
-// matrices in boxes of 64 columns x seg rows, 128-byte swizzle; int8
-// pools (Q8) in boxes of I8W (latent) or rope columns x seg rows,
-// unswizzled.
-template <int R, int RP, bool Q8>
+// matrices (the dense caches as (B * T, r) and (B * T, rope)) in boxes of
+// 64 columns x seg rows, 128-byte swizzle; int8 pools (Q8) in boxes of
+// I8W (latent) or rope columns x seg rows, unswizzled.  Grid (B *
+// ceil(H / 64), nsplit, NCOL): block (g, s, c) takes rows 64 hb .. of
+// sequence b = g / ceil(H / 64) (hb = g % ceil(H / 64); rows past H
+// masked), key split s and output columns c R / NCOL ..  CHUNK: the
+// chunk kernels' instance (12 and 15), a chunk as one sequence of C * H
+// rows over the shared table, one split, one column block, fixed at
+// compile time (no split merge in the kernel).  Int8 pools (Q8) come only
+// with CHUNK.
+template <int R, int RP, bool Q8, int NCOL, bool CHUNK>
 __global__ void __launch_bounds__(CW_THREADS, 1)
-mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
-                const __grid_constant__ CUtensorMap tr, const MlaArgs a) {
+mla_wgmma(const __grid_constant__ CUtensorMap tc,
+          const __grid_constant__ CUtensorMap tr, const MlaArgs a) {
+  static_assert(!CHUNK || NCOL == 1, "a chunk takes one column block");
+  static_assert(CHUNK || !Q8, "int8 pools: the chunk kernel only");
   using L = CwSmem<R, RP, Q8>;
   constexpr int I8W = R < 256 ? R : 256;  // columns of an int8 latent box
   constexpr int NB8 = R / I8W + 1;        // int8 boxes a segment
   constexpr int KS = (R + RP) / 16;  // 16-deep slices of a score
-  constexpr int OC = R / 2;          // output columns a warpgroup
+  constexpr int OCB = R / NCOL;      // output columns a block
+  constexpr int OC = OCB / 2;        // output columns a warpgroup
+  static_assert(OC == 64 || OC % 128 == 0, "pv_slice's widths");
   constexpr int CH = (R + RP) / 8;
   extern __shared__ unsigned char cw_smem[];
   unsigned char* sm = align1024(cw_smem);
@@ -464,8 +503,19 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   uint64_t* kbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
   const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
   const int warp = wt / 32, lane = tid % 32;
-  const int rows = a.B * a.H, row0 = blockIdx.x * CW_ROWS;
-  const int ps = a.rows, seg = min(ps, CW_KEYS), nseg = CW_KEYS / seg;
+  const int nrb = (a.H + CW_ROWS - 1) / CW_ROWS;  // row blocks a sequence
+  const int grp = blockIdx.x;
+  const int b = CHUNK ? 0 : grp / nrb, hb = CHUNK ? grp : grp % nrb;
+  const int split = CHUNK ? 0 : blockIdx.y, col = CHUNK ? 0 : blockIdx.z;
+  const int col0 = col * OCB, S = CHUNK ? 1 : a.nsplit;
+  const size_t row0 = (size_t)b * a.H + hb * CW_ROWS;
+  const int nrow = min(CW_ROWS, a.H - hb * CW_ROWS);
+  const bool dense = !CHUNK && a.table == nullptr;
+  const int ps = a.rows, seg = dense ? CW_KEYS : min(ps, CW_KEYS);
+  const int nseg = CW_KEYS / seg;
+  // the split's table entries [k0, k1) of row b (pools) or keys (dense)
+  const int k0 = CHUNK ? 0 : split * a.per;
+  const int k1 = CHUNK ? a.n : min(a.n, k0 + a.per);
 
   // Warp 0 walks the table two tiles ahead of the products into maps that
   // rotate: the tile in products, the tile in flight, the tile walked.
@@ -473,9 +523,25 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
   auto map = [&](int i) { return maps + (i % 3) * L::MAPW; };
   int j = 0, po = 0;
   auto walk = [&](int i) {  // warp 0
-    const CwTile k = next_tile<CW_KEYS, CW_SEGS>(a.table, a.counts, a.n,
-                                                 ps, a.lead, seg, j, po);
     int* mp = map(i);
+    if (dense) {
+      // 32 keys of sequence b's slab (rows b T + k ..); the rows past the
+      // split's keys are masked (the next sequence's, or TMA's zeros)
+      const int k = k0 + i * CW_KEYS;
+      const uint32_t valid = __ballot_sync(0xffffffffu, k + lane < k1);
+      if (lane < CW_SEGS)
+        mp[CW_SEG0 + lane] = lane == 0 && k < k1 ? b * ps + k : -1;
+      if (lane == 0) {
+        mp[CW_EXISTS] = k < k1;
+        mp[CW_VALID] = (int)valid;
+        mp[CW_ABSENT] = 0;
+      }
+      return;
+    }
+    const size_t t0 = (size_t)b * a.tstride + k0;
+    const CwTile k = next_tile<CW_KEYS, CW_SEGS>(
+        a.table + t0, a.counts + t0, max(k1 - k0, 0), ps, a.lead, seg, j,
+        po);
     const uint32_t valid =
         __ballot_sync(0xffffffffu, slot_row(k, lane, seg, ps) >= 0);
     uint32_t absent = 0;
@@ -635,15 +701,16 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
       float v[RB][CL][8];
 #pragma unroll
       for (int q = 0; q < RB; ++q) {
-        const int g = row0 + (tid / 32) * RPW + q0 + q;
+        const int r = (tid / 32) * RPW + q0 + q;
+        const size_t g = row0 + r;
 #pragma unroll
         for (int k = 0; k < CL; ++k) {
           const int cc = lane + 32 * k;
 #pragma unroll
           for (int i = 0; i < 8; ++i) v[q][k][i] = 0.0f;
-          if (cc < CH && g < rows)
-            load8(cc < R / 8 ? a.q_abs + (size_t)g * R + cc * 8
-                             : a.q_rope + (size_t)g * RP + (cc - R / 8) * 8,
+          if (cc < CH && r < nrow)
+            load8(cc < R / 8 ? a.q_abs + g * R + cc * 8
+                             : a.q_rope + g * RP + (cc - R / 8) * 8,
                   v[q][k]);
         }
       }
@@ -690,12 +757,13 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
 #pragma unroll
     for (int u = 0; u < QB; ++u) {
       const int e = tid + (b0 + u) * CW_THREADS;
-      const int r = e / CH, cc = e % CH, g = row0 + r;
+      const int r = e / CH, cc = e % CH;
+      const size_t g = row0 + r;
 #pragma unroll
       for (int i = 0; i < 8; ++i) v[u][i] = 0.0f;
-      if (b0 + u < QN && g < rows)
-        load8(cc < R / 8 ? a.q_abs + (size_t)g * R + cc * 8
-                         : a.q_rope + (size_t)g * RP + (cc - R / 8) * 8,
+      if (b0 + u < QN && r < nrow)
+        load8(cc < R / 8 ? a.q_abs + g * R + cc * 8
+                         : a.q_rope + g * RP + (cc - R / 8) * 8,
               v[u]);
     }
 #pragma unroll
@@ -925,7 +993,7 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
 #pragma unroll
     for (int kc = 0; kc < 2; ++kc) {
       const unsigned char* vt =
-          kt + wg * (OC / 64) * L::KBLK + kc * 16 * 128;
+          kt + (col0 / 64 + wg * (OC / 64)) * L::KBLK + kc * 16 * 128;
       pv_slice<OC, Q8>(o, ph[kc], vt, L::KBLK);
       pv_slice<OC, Q8>(o, pl[kc], vt, L::KBLK);
     }
@@ -948,46 +1016,68 @@ mla_chunk_wgmma(const __grid_constant__ CUtensorMap tc,
     }
   }
 
-  // o_tilde through the idle query blocks (fp32 rows padded by 4), then
-  // whole rows out with 16-byte stores
-  constexpr int OLD = R + 4;
+  // o_tilde through the idle query blocks (fp32 rows of the block's OCB
+  // columns, padded by 4), then whole rows out with 16-byte stores: to the
+  // outputs (one split) or to this split's partial (OCB columns a row)
+  constexpr int OLD = OCB + 4;
   static_assert(CW_ROWS * OLD * 4 <= 2 * L::QTERM, "o fits the query area");
   float* os = reinterpret_cast<float*>(sm);
   __syncthreads();  // every warpgroup is done reading the queries
   const float odown = 1.0f / pup;   // Q8: P's power of two, out again
 #pragma unroll
   for (int i = 0; i < OC / 8; ++i) {
-    const int col = wg * OC + 8 * i + 2 * (lane % 4);
-    *reinterpret_cast<float2*>(os + r0 * OLD + col) =
+    const int c = wg * OC + 8 * i + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(os + r0 * OLD + c) =
         make_float2(o[4 * i] * odown, o[4 * i + 1] * odown);
-    *reinterpret_cast<float2*>(os + r1 * OLD + col) =
+    *reinterpret_cast<float2*>(os + r1 * OLD + c) =
         make_float2(o[4 * i + 2] * odown, o[4 * i + 3] * odown);
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  if (wg == 0 && lane % 4 == 0) {
-    if (row0 + r0 < rows) {
-      a.m[row0 + r0] = m0;
-      a.l[row0 + r0] = l0;
+  const size_t cg = (size_t)grp * NCOL + col;  // the row group's columns
+  const size_t n_parts = (size_t)gridDim.x * NCOL * S;
+  float* m_ws = a.ws + n_parts * CW_ROWS * OCB;
+  float* l_ws = m_ws + n_parts * CW_ROWS;
+  const size_t part = cg * S + split;
+  float* o_dst =
+      S == 1 ? a.o_t + row0 * R + col0 : a.ws + part * CW_ROWS * OCB;
+  const int ld = S == 1 ? R : OCB;
+  // one split: every column block has the same m and l, the first writes
+  if (wg == 0 && lane % 4 == 0 && (S > 1 || col == 0)) {
+    float* m_dst = S == 1 ? a.m + row0 : m_ws + part * CW_ROWS;
+    float* l_dst = S == 1 ? a.l + row0 : l_ws + part * CW_ROWS;
+    if (r0 < nrow) {
+      m_dst[r0] = m0;
+      l_dst[r0] = l0;
     }
-    if (row0 + r1 < rows) {
-      a.m[row0 + r1] = m1;
-      a.l[row0 + r1] = l1;
+    if (r1 < nrow) {
+      m_dst[r1] = m1;
+      l_dst[r1] = l1;
     }
   }
   __syncthreads();
-  for (int e = tid; e < CW_ROWS * (R / 4); e += CW_THREADS) {
-    const int r = e / (R / 4), c = 4 * (e % (R / 4));
-    if (row0 + r < rows)
-      *reinterpret_cast<float4*>(a.o_t + (size_t)(row0 + r) * R + c) =
+  for (int e = tid; e < CW_ROWS * (OCB / 4); e += CW_THREADS) {
+    const int r = e / (OCB / 4), c = 4 * (e % (OCB / 4));
+    if (r < nrow)
+      *reinterpret_cast<float4*>(o_dst + (size_t)r * ld + c) =
           *reinterpret_cast<const float4*>(os + r * OLD + c);
   }
+  if (S == 1) return;
+  // the row group's last split merges the partials of its columns in
+  // split order (each column block's last block writes the same m, l)
+  if (!last_split(&a.counters[cg], S, CW_THREADS)) return;
+  finish_partials(a.ws + cg * S * CW_ROWS * OCB, m_ws + cg * S * CW_ROWS,
+                  l_ws + cg * S * CW_ROWS, S, (size_t)CW_ROWS * OCB, CW_ROWS,
+                  nrow, OCB, a.o_t + row0 * R + col0, a.m + row0, a.l + row0,
+                  &a.counters[cg], reinterpret_cast<float*>(sm + L::KEYS),
+                  tid, CW_THREADS, R);
 }
 
-template <int R, int RP, bool Q8>
-int launch_chunk_wgmma(const MlaArgs& a, cudaStream_t stream) {
+template <int R, int RP, bool Q8, int NCOL, bool CHUNK>
+int launch_wgmma(const MlaArgs& a, cudaStream_t stream) {
   using L = CwSmem<R, RP, Q8>;
-  const int seg = a.rows < CW_KEYS ? a.rows : CW_KEYS;
+  const int seg = a.table == nullptr ? CW_KEYS
+                  : a.rows < CW_KEYS ? a.rows : CW_KEYS;
   CUtensorMap tc, tr;
   int e = Q8 ? encode_rows_i8(&tc, a.ckv, a.lead * a.rows, R, seg,
                               R < 256 ? R : 256)
@@ -996,34 +1086,81 @@ int launch_chunk_wgmma(const MlaArgs& a, cudaStream_t stream) {
   e = Q8 ? encode_rows_i8(&tr, a.krope, a.lead * a.rows, RP, seg, RP)
          : encode_rows(&tr, a.krope, a.lead * a.rows, RP, seg);
   if (e != 0) return e;
-  e = smem_limit_once<mla_chunk_wgmma<R, RP, Q8>>(L::BYTES);
+  e = smem_limit_once<mla_wgmma<R, RP, Q8, NCOL, CHUNK>>(L::BYTES);
   if (e != 0) return e;
-  const int blocks = (a.B * a.H + CW_ROWS - 1) / CW_ROWS;
-  mla_chunk_wgmma<R, RP, Q8><<<blocks, CW_THREADS, L::BYTES, stream>>>(
-      tc, tr, a);
+  const dim3 grid(a.B * ((a.H + CW_ROWS - 1) / CW_ROWS), a.nsplit, NCOL);
+  mla_wgmma<R, RP, Q8, NCOL, CHUNK>
+      <<<grid, CW_THREADS, L::BYTES, stream>>>(tc, tr, a);
   return (int)cudaGetLastError();
 }
 
-template <int R, bool Q8>
-int launch_chunk_rope(const MlaArgs& a, int rope, cudaStream_t stream) {
-  if (rope == 32) return launch_chunk_wgmma<R, 32, Q8>(a, stream);
-  if (rope == 64) return launch_chunk_wgmma<R, 64, Q8>(a, stream);
+// The instance for rope and the column blocks (the decode kernels only:
+// NCOL 2 at r >= 256, 4 at r 512, so that a warpgroup owns >= 64
+// columns).
+template <int R, bool Q8, bool CHUNK>
+int launch_wgmma_rope(const MlaArgs& a, int rope, int ncol,
+                      cudaStream_t stream) {
+  if (rope != 32 && rope != 64) return (int)cudaErrorInvalidValue;
+  const bool r32 = rope == 32;
+  if (ncol == 1)
+    return r32 ? launch_wgmma<R, 32, Q8, 1, CHUNK>(a, stream)
+               : launch_wgmma<R, 64, Q8, 1, CHUNK>(a, stream);
+  if constexpr (!CHUNK && R >= 256) {
+    if (ncol == 2)
+      return r32 ? launch_wgmma<R, 32, Q8, 2, CHUNK>(a, stream)
+                 : launch_wgmma<R, 64, Q8, 2, CHUNK>(a, stream);
+  }
+  if constexpr (!CHUNK && R >= 512) {
+    if (ncol == 4)
+      return r32 ? launch_wgmma<R, 32, Q8, 4, CHUNK>(a, stream)
+                 : launch_wgmma<R, 64, Q8, 4, CHUNK>(a, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma variant's checks and its instance for r (the pools' page size,
-// `rows`, a multiple of 8).
+template <bool Q8, bool CHUNK>
+int launch_wgmma_r(const MlaArgs& a, int r, int rope, int ncol,
+                   cudaStream_t stream) {
+  switch (r) {
+    case 128: return launch_wgmma_rope<128, Q8, CHUNK>(a, rope, ncol, stream);
+    case 256: return launch_wgmma_rope<256, Q8, CHUNK>(a, rope, ncol, stream);
+    case 512: return launch_wgmma_rope<512, Q8, CHUNK>(a, rope, ncol, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The chunk kernels' wgmma variant: the chunk's C x H rows as one
+// sequence, one split, the pools' page size (`rows`) a multiple of 8.
 template <bool Q8>
 int launch_chunk(const MlaArgs& a, int r, int rope, cudaStream_t stream) {
   if (a.lead <= 0 || a.rows < 8 || a.rows % 8 != 0 || a.n < 0)
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.H <= 0) return 0;
-  switch (r) {
-    case 128: return launch_chunk_rope<128, Q8>(a, rope, stream);
-    case 256: return launch_chunk_rope<256, Q8>(a, rope, stream);
-    case 512: return launch_chunk_rope<512, Q8>(a, rope, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  MlaArgs c = a;
+  c.H = a.B * a.H;
+  c.B = 1;
+  c.tstride = 0;
+  c.nsplit = 1;
+  c.per = a.n > 0 ? a.n : 1;
+  return launch_wgmma_r<Q8, true>(c, r, rope, 1, stream);
+}
+
+// Kernels 10 and 11's wgmma variant: the plan's checks (nsplit splits of
+// `per` keys or table entries covering the n of them, none starting at or
+// past n, at most FIN_SPLITS; a workspace and counters when they split;
+// pages of a multiple of 8 rows), then the instance.
+int launch_decode(const MlaArgs& a, int r, int rope, int ncol,
+                  cudaStream_t stream) {
+  const bool dense = a.table == nullptr;
+  if (a.lead <= 0 || a.rows <= 0 || a.n < 0 || a.nsplit < 1 ||
+      a.nsplit > FIN_SPLITS || a.per < 1 ||
+      (long long)a.nsplit * a.per < a.n ||
+      (a.nsplit > 1 && ((long long)(a.nsplit - 1) * a.per >= a.n ||
+                        a.ws == nullptr || a.counters == nullptr)) ||
+      (!dense && (a.rows < 8 || a.rows % 8 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.H <= 0) return 0;
+  return launch_wgmma_r<false, false>(a, r, rope, ncol, stream);
 }
 
 }  // namespace
@@ -1070,6 +1207,40 @@ extern "C" int vwr_mla_paged_flash_decode_launch(
                   (float*)o_t, (float*)m, (float*)l, B, H, lead, rows, J,
                   scale, J};
   return launch_dtype(a, r, rope, dtype, false, (cudaStream_t)stream);
+}
+
+// Kernels 10 and 11 on bf16 caches and pools, the wgmma variant: the
+// operands of vwr_mla_flash_decode_launch / vwr_mla_paged_flash_decode_launch
+// (bf16; r in {128, 256, 512}, rope in {32, 64}; pages of a multiple of 8
+// rows), plus the plan (kernels/vwr_mla_decode.py mla_decode_plan): nsplit
+// splits of `per` keys (dense) or table entries (pools) and ncol column
+// blocks (1; 2 at r >= 256; 4 at r 512).  ws: B * ceil(H / 64) * nsplit *
+// 64 * (r + 2 ncol) fp32 (the partials; unused at one split); counters: B
+// * ceil(H / 64) * ncol int32, zero, left zero.
+extern "C" int vwr_mla_flash_decode_wgmma_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    void* o_t, void* m, void* l, void* ws, void* counters, int B, int H,
+    int r, int rope, int lead, int rows, int n_keys, int nsplit, int per,
+    int ncol, float scale, void* stream) {
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  nullptr, nullptr, nullptr, nullptr, (float*)o_t,
+                  (float*)m, (float*)l, B, H, lead, rows, n_keys, scale, 0,
+                  (float*)ws, (int*)counters, nsplit, per};
+  if (lead != B) return (int)cudaErrorInvalidValue;
+  return launch_decode(a, r, rope, ncol, (cudaStream_t)stream);
+}
+
+extern "C" int vwr_mla_paged_flash_decode_wgmma_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* table, const void* counts, void* o_t, void* m, void* l,
+    void* ws, void* counters, int B, int H, int r, int rope, int lead,
+    int rows, int J, int nsplit, int per, int ncol, float scale,
+    void* stream) {
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  nullptr, nullptr, (const int*)table, (const int*)counts,
+                  (float*)o_t, (float*)m, (float*)l, B, H, lead, rows, J,
+                  scale, J, (float*)ws, (int*)counters, nsplit, per};
+  return launch_decode(a, r, rope, ncol, (cudaStream_t)stream);
 }
 
 // Kernel 13: kernel 11 over int8 pools with fp32 (n_pages,) latent and

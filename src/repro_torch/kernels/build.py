@@ -18,6 +18,7 @@ the main path went through.  A kernel with variants (``vwr_matmul``:
 split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_swiglu``: wgmma or the
 WMMA / FMA tile kernel;
 ``vwr_conv2d``: wgmma or the halo-tile kernel;
+``vwr_mla_flash_decode``, ``vwr_mla_paged_flash_decode``,
 ``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
 ``vwr_flash_decode``: split-KV on mma.sync or FMA;
 ``vwr_paged_flash_decode``: split-KV on mma.sync or FMA;
@@ -63,6 +64,10 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
                             "vwr_matmul.gemm": 0, "vwr_swiglu.wgmma": 0,
                             "vwr_swiglu.gemm": 0,
                             "vwr_conv2d.wgmma": 0, "vwr_conv2d.tile": 0,
+                            "vwr_mla_flash_decode.wgmma": 0,
+                            "vwr_mla_flash_decode.fma": 0,
+                            "vwr_mla_paged_flash_decode.wgmma": 0,
+                            "vwr_mla_paged_flash_decode.fma": 0,
                             "vwr_mla_chunk_prefix_attend.wgmma": 0,
                             "vwr_mla_chunk_prefix_attend.fma": 0,
                             "vwr_mla_chunk_prefix_attend_q8.wgmma": 0,
@@ -225,8 +230,9 @@ def split_counters(device, stream: int, n: int):
     (``vwr_matmul``'s split-K and wgmma variants, ``vwr_swiglu``'s and
     ``vwr_conv2d``'s wgmma variants) or whose key splits are merged by the
     last block of a row group (``vwr_flash_decode``'s split variant,
-    ``vwr_paged_flash_decode``'s mma variant, ``vwr_chunk_prefix_attend``'s
-    wgmma variant), kept across calls: every launch leaves its counters at
+    ``vwr_paged_flash_decode``'s mma variant, ``vwr_chunk_prefix_attend``'s,
+    ``vwr_mla_flash_decode``'s and ``vwr_mla_paged_flash_decode``'s wgmma
+    variants), kept across calls: every launch leaves its counters at
     0.  A buffer belongs to one stream, and so does a CUDA graph captured
     on it: launches on one stream run in order and share it, launches on
     two streams get two buffers and cannot race on them."""
@@ -247,7 +253,8 @@ def split_workspace(device, stream: int, n: int):
     """An fp32 buffer of at least ``n`` floats for the key splits'
     partials of launches on ``stream`` on ``device`` (``vwr_flash_decode``'s
     split variant, ``vwr_paged_flash_decode``'s mma variant,
-    ``vwr_chunk_prefix_attend``'s wgmma variant), kept across calls and
+    ``vwr_chunk_prefix_attend``'s and the MLA decode kernels' wgmma
+    variants), kept across calls and
     grown (doubled) when a call needs more: a launch writes every partial
     it reads.  A buffer belongs to one stream, as ``split_counters``'s
     does; it is allocated while that stream is current, so the caching

@@ -36,6 +36,17 @@ acceptable at reduced widths.  Nothing is copied at DeepSeek-V3's r 512,
 rope 64.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
 
+Kernels 10 and 11 have two kernels each, and ``decode_variant`` picks one
+per call: ``"wgmma"`` (bf16 caches and pools at r 128 / 256 / 512, rope
+32 / 64, pages of a multiple of 8 rows: 64 of a sequence's heads as wgmma
+rows, the fp32 queries and P each split into two bf16 terms, the keys in
+32-slot tiles of the sequence's table row or slab; ``mla_decode_plan``
+cuts a row group's keys into splits, one block a split, merged by the
+group's last block in the same launch, and its output columns into
+column blocks; ``decode_split_emulation`` is its arithmetic in plain
+PyTorch) or ``"fma"`` (fp32 caches and every other width: fp32 FMAs).
+Kernels 13 and 14 (int8) run the FMA kernel.
+
 Kernels 12 and 15 have two kernels each, and ``chunk_variant`` picks one
 per call: ``"wgmma"`` (bf16 or int8 pools at r 128 / 256 / 512, rope
 32 / 64, pages of a multiple of 8 rows: the chunk's C*H rows as wgmma
@@ -44,28 +55,46 @@ pools two fp16 terms of each query row and of P scaled by powers of two,
 the keys converted to fp16 exactly and their page scales applied in fp32
 outside the products; ``chunk_split_emulation`` is its arithmetic in
 plain PyTorch) or ``"fma"`` (fp32 pools and every other width: the decode
-body, fp32 FMAs).  ``build.VARIANTS`` counts both.
+body, fp32 FMAs).  ``build.VARIANTS`` counts the variants of kernels 10,
+11, 12 and 15.  The split partials and counters are
+``build.split_workspace`` / ``split_counters``, one buffer per (device,
+stream).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build, widths
 from repro_torch.kernels.vwr_chunk import key_tiles
-from repro_torch.kernels.vwr_decode import bf16_terms
+from repro_torch.kernels.vwr_decode import SMS, bf16_terms, combine_partials
 
 NEG_INF = -1e30
 # the kernel holds a lane's share of r and rope in registers: r / 32
 # and rope / 32 latent and rope features a lane
 RANKS = (32, 64, 128, 256, 512)
 ROPES = (32, 64)
-# kernel 12's wgmma variant: its widths, its page rows (a multiple of 8:
-# the TMA boxes of a page land on whole 8-row swizzle atoms), its key tile
+# the wgmma variant of kernels 10-12 and 15: its widths, its page rows (a
+# multiple of 8: the TMA boxes of a page land on whole 8-row swizzle
+# atoms), its key tile, its query rows a block
 WGMMA_RANKS = (128, 256, 512)
 WGMMA_PAGE_ROWS = 8
 CHUNK_KEYS = 32
+DECODE_ROWS = 64
+# mla_decode_plan (kernels 10 and 11): at most DECODE_BLOCKS blocks (one
+# an SM: a block takes ~227 KB of shared memory), at most
+# DECODE_MAX_SPLITS key splits (csrc FIN_SPLITS), and of those plans the
+# one its cost model puts first.  The model's us, measured on the H100 at
+# DeepSeek-V3's widths (PERF.md §6): a 32-key tile's score TILE_US
+# (PAGED_US more through a block table) and its P c_kv products PV_US a
+# 512 columns; a block's o_tilde out O_US a 512 columns; a split's merge
+# MERGE_US and MERGE_US_KB a KB of partials the group's last block reads.
+DECODE_BLOCKS = SMS
+DECODE_MAX_SPLITS = 32
+TILE_US, PAGED_US, PV_US, O_US = 2.6, 0.7, 0.85, 4.1
+MERGE_US, MERGE_US_KB = 3.3, 0.022
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -175,6 +204,71 @@ def chunk_variant(r, rope, page_size, dtype):
     return "fma"
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def decode_variant(r, rope, H, page_size, dtype):
+    """The kernel that serves a ``vwr_mla_flash_decode`` (``page_size``
+    None: the dense cache) or ``vwr_mla_paged_flash_decode`` call at the
+    kernel's widths (after ``widths.at_widths``): "wgmma" for bf16 caches
+    and pools at r 128, 256 or 512 and rope 32 or 64, with pages of a
+    multiple of 8 rows (any H: the rows past H in a sequence's last block
+    of 64 are masked), else "fma" (fp32 caches, the reduced configs'
+    padded widths).  Kernels 13 and 14 (int8) run the FMA kernel."""
+    if (dtype == torch.bfloat16 and r in WGMMA_RANKS and rope in ROPES
+            and H > 0 and (page_size is None or (
+                page_size > 0 and page_size % WGMMA_PAGE_ROWS == 0))):
+        return "wgmma"
+    return "fma"
+
+
+def decode_columns(r):
+    """The column blocks the wgmma kernel has an instance for at rank r:
+    a warpgroup's half of a block takes >= 64 columns."""
+    return tuple(c for c in (1, 2, 4) if r // c >= 2 * DECODE_ROWS)
+
+
+@functools.lru_cache(maxsize=4096)
+def mla_decode_plan(B, H, n, page_size=None, r=512):
+    """(nsplit, per, ncol) of the wgmma variant: each of the B *
+    ceil(H / 64) row groups' keys in nsplit splits of ``per`` table
+    entries (pools, n = J, pages of ``page_size``) or ``per`` keys (dense,
+    ``page_size`` None, n = n_keys) and its output columns in ncol column
+    blocks.  Splits are whole 32-key tiles, sized evenly so that no split
+    starts at or past n; of the plans within ``DECODE_BLOCKS`` blocks (one
+    a group if even that is more) the cheapest by the cost model above,
+    every table entry counted full.  Sized from shapes alone: the pools'
+    from the table's (B, J), never from the counts (the paged step stays
+    capturable).  n 0 gives one split (the empty partial)."""
+    groups = B * _cdiv(H, DECODE_ROWS)
+    if page_size is None:                     # keys a tile
+        unit, n_tiles = CHUNK_KEYS, _cdiv(n, CHUNK_KEYS)
+    elif page_size <= CHUNK_KEYS:             # whole pages a tile
+        unit = CHUNK_KEYS // page_size
+        n_tiles = _cdiv(n, unit)
+    else:                                     # tiles a page
+        unit, n_tiles = None, n * _cdiv(page_size, CHUNK_KEYS)
+    tile_us = TILE_US + (0.0 if page_size is None else PAGED_US)
+    best = None
+    for ncol in decode_columns(r) or (1,):
+        w = r / (512 * ncol)                  # a block's share of 512
+        for k in range(1, min(DECODE_MAX_SPLITS, max(1, n_tiles)) + 1):
+            tiles = max(1, _cdiv(n_tiles, k))
+            per = (tiles * unit if unit else
+                   _cdiv(tiles, _cdiv(page_size, CHUNK_KEYS)))
+            nsplit = _cdiv(n, per) if n else 1
+            blocks = groups * nsplit * ncol
+            if blocks > DECODE_BLOCKS and (nsplit, ncol) != (1, 1):
+                continue
+            cost = tiles * (tile_us + PV_US * w) + O_US * w
+            if nsplit > 1:
+                cost += MERGE_US + MERGE_US_KB * nsplit * DECODE_ROWS * w * 2
+            plan = (cost, blocks, (nsplit, per, ncol))
+            best = plan if best is None or plan < best else best
+    return best[2]
+
+
 # kernel 15's fp16 terms: each query row (and P) is scaled by the power of
 # two that brings its largest magnitude into [2^14, 2^15): inside fp16's
 # range, with lo = fp16(x - hi) still a normal number for every element
@@ -203,6 +297,44 @@ def chunk_key_tiles(table, counts, page_size):
     """The wgmma variant's walk over the table: ``vwr_chunk.key_tiles``
     with tiles of ``CHUNK_KEYS`` slots."""
     return key_tiles(table, counts, page_size, CHUNK_KEYS)
+
+
+def _online_tiles(qa, qr, ckv, kr, tiles, p_terms, scales=None):
+    """The wgmma kernel's loop over its key tiles for a block of query
+    rows: qa, qr the query terms ((rows, r), (rows, rope) each), ckv, kr
+    the keys as (N, r) / (N, rope) rows, each tile a list of row indices
+    (-1: a masked slot); scores in fp32 from the terms' products, masked
+    per slot, an fp32 online softmax, P as ``p_terms`` against c_kv.
+    ``scales``: the int8 pools' (ckv_scale, krope_scale, page_size).
+    Returns fp32 (o_tilde (rows, r), m (rows,), l (rows,))."""
+    dev = dict(device=ckv.device)
+    rows, r = qa[0].shape[0], ckv.shape[1]
+    m = torch.full((rows,), NEG_INF, **dev)
+    l = torch.zeros(rows, **dev)
+    o = torch.zeros(rows, r, **dev)
+    for tile in tiles:
+        idx = torch.tensor([max(t, 0) for t in tile], **dev)
+        ok = torch.tensor([t >= 0 for t in tile], **dev)
+        kc, kp = ckv[idx], kr[idx]
+        s_lat = sum(q @ kc.T for q in qa)
+        s_rope = sum(q @ kp.T for q in qr)
+        cs = torch.ones(len(tile), **dev)
+        if scales is not None:
+            # a masked slot's page scale: 0 (no segment) or its page's
+            ckv_scale, krope_scale, ps = scales
+            pages = idx // ps
+            cs = torch.where(ok, ckv_scale.float()[pages], 0.0)
+            s_lat = s_lat * cs[None]
+            s_rope = s_rope * torch.where(ok, krope_scale.float()[pages],
+                                          0.0)[None]
+        s = torch.where(ok[None], s_lat + s_rope, NEG_INF)
+        mx = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - mx)
+        p = torch.where(ok[None], torch.exp(s - mx[:, None]), 0.0)
+        l = l * corr + p.sum(-1)
+        o = o * corr[:, None] + sum(t @ kc for t in p_terms(p * cs[None]))
+        m = mx
+    return o, m, l
 
 
 def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
@@ -239,36 +371,80 @@ def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
     ckv = ckv_pool.bfloat16().float().reshape(n_pages * ps, r)
     kr = krope_pool.bfloat16().float().reshape(n_pages * ps, -1)
     tbl = table.long().clamp(0, n_pages - 1).tolist()
-    m = torch.full((C * H,), NEG_INF)
-    l = torch.zeros(C * H)
-    o = torch.zeros(C * H, r)
-    for tile in chunk_key_tiles(tbl, counts.tolist(), ps):
-        idx = torch.tensor([max(t, 0) for t in tile])
-        ok = torch.tensor([t >= 0 for t in tile])
-        kc, kp = ckv[idx], kr[idx]
-        s_lat = sum(q @ kc.T for q in qa)
-        s_rope = sum(q @ kp.T for q in qr)
-        cs = torch.ones(len(tile))
-        if q8:
-            # a masked slot's page scale: 0 (no segment) or its page's
-            pages = idx // ps
-            cs = torch.where(ok, ckv_scale.float()[pages], 0.0)
-            s_lat = s_lat * cs[None]
-            s_rope = s_rope * torch.where(ok, krope_scale.float()[pages],
-                                          0.0)[None]
-        s = torch.where(ok[None], s_lat + s_rope, NEG_INF)
-        mx = torch.maximum(m, s.amax(-1))
-        corr = torch.exp(m - mx)
-        p = torch.where(ok[None], torch.exp(s - mx[:, None]), 0.0)
-        l = l * corr + p.sum(-1)
-        o = o * corr[:, None] + sum(t @ kc for t in p_terms(p * cs[None]))
-        m = mx
+    tiles = chunk_key_tiles(tbl, counts.tolist(), ps)
+    o, m, l = _online_tiles(qa, qr, ckv, kr, tiles, p_terms,
+                            (ckv_scale, krope_scale, ps) if q8 else None)
     return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
+
+
+def decode_split_emulation(q_abs, q_rope, c_kv, k_rope, table=None,
+                           counts=None, cur_len=None, pos0=0, plan=None, *,
+                           scale: float):
+    """The wgmma variant of kernels 10 and 11 in plain PyTorch (the tests
+    hold it against ``vwr_mla_flash_decode_ref`` /
+    ``vwr_mla_paged_flash_decode_ref`` and the JAX ops): each sequence's
+    rows, the queries times scale and P as two bf16 terms against the bf16
+    keys, per key split (``mla_decode_plan``'s unless ``plan`` is given)
+    an fp32 online softmax over the kernel's 32-slot tiles (the pools: the
+    page walk ``chunk_key_tiles`` over the split's table entries; the
+    dense cache: 32 keys of the slab a tile, masked past the split's
+    keys), the splits merged in split order (``combine_partials``).  The
+    column blocks change no value.  Dense: c_kv (B, T, r) with the keys
+    ``pos0 + idx < cur_len`` valid; pools: (n_pages, page_size, r) through
+    ``table`` / ``counts`` (B, J).  Returns fp32 (o_tilde (B, H, r),
+    m (B, H), l (B, H))."""
+    B, H, r = q_abs.shape
+    xa = q_abs.float() * scale
+    xr = q_rope.float() * scale
+    lead, rows = c_kv.shape[:2]
+    ckv = c_kv.bfloat16().float().reshape(lead * rows, r)
+    kr = k_rope.bfloat16().float().reshape(lead * rows, -1)
+    if table is None:
+        n = max(0, min(rows, int(cur_len) - int(pos0)))
+        nsplit, per, _ = plan or mla_decode_plan(B, H, n, None, r)
+    else:
+        n = table.shape[1]
+        nsplit, per, _ = plan or mla_decode_plan(B, H, n, rows, r)
+        tbl = table.long().clamp(0, lead - 1).tolist()
+        cnt = counts.tolist()
+    outs = []
+    for b in range(B):
+        qa, qr = bf16_terms(xa[b]), bf16_terms(xr[b])
+        parts = []
+        for sp in range(nsplit):
+            k0, k1 = sp * per, min(n, (sp + 1) * per)
+            if table is None:
+                tiles = [[b * rows + k if k < k1 else -1
+                          for k in range(t0, t0 + CHUNK_KEYS)]
+                         for t0 in range(k0, k1, CHUNK_KEYS)]
+            else:
+                tiles = chunk_key_tiles(tbl[b][k0:k1], cnt[b][k0:k1], rows)
+            parts.append(_online_tiles(qa, qr, ckv, kr, tiles, bf16_terms))
+        outs.append(combine_partials(parts))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
 
 
 # ----------------------------------------------------------------------
 # the kernels
 # ----------------------------------------------------------------------
+
+def check_shapes(kernel, q_abs, q_rope, ckv, kr, index):
+    """Raise unless q_abs (B, H, r) and q_rope (B, H, rope) meet latent /
+    rope caches (B or n_pages, T or page_size, r / rope); ``index`` ()
+    for the dense cache, whose lead must be B."""
+    B, H, r0 = q_abs.shape
+    lead = ckv.shape[:2]
+    if (q_rope.shape[:2] != (B, H) or ckv.shape != (*lead, r0)
+            or kr.shape != (*lead, q_rope.shape[2])
+            or (not index and lead[0] != B) or lead[0] < 1):
+        raise ValueError(
+            f"{kernel}: needs q_abs (B, H, r) and q_rope (B, H, rope) "
+            f"against latent/rope caches (B or n_pages, T or page_size, "
+            f"r / rope); got q_abs {tuple(q_abs.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, c_kv {tuple(ckv.shape)}, k_rope "
+            f"{tuple(kr.shape)}")
+
 
 def _launch(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
     """Check the operands' shapes and launch ``kernel`` at the widths it
@@ -276,18 +452,7 @@ def _launch(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
     back); ``index`` is (table, counts) for the pools, (B, J) a sequence
     or (J,) shared by the B chunk tokens, () for the dense cache
     (``n_keys`` valid keys from row 0 of each sequence's slab)."""
-    B, H, r0 = q_abs.shape
-    rope0 = q_rope.shape[2]
-    lead = ckv.shape[:2]
-    if (q_rope.shape[:2] != (B, H) or ckv.shape != (*lead, r0)
-            or kr.shape != (*lead, rope0) or (not index and lead[0] != B)
-            or lead[0] < 1):
-        raise ValueError(
-            f"{kernel}: needs q_abs (B, H, r) and q_rope (B, H, rope) "
-            f"against latent/rope caches (B or n_pages, T or page_size, "
-            f"r / rope); got q_abs {tuple(q_abs.shape)}, q_rope "
-            f"{tuple(q_rope.shape)}, c_kv {tuple(ckv.shape)}, k_rope "
-            f"{tuple(kr.shape)}")
+    check_shapes(kernel, q_abs, q_rope, ckv, kr, index)
     return widths.at_widths(
         lambda q_abs, ckv, q_rope, kr: _kernel(
             kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale),
@@ -317,23 +482,81 @@ def _kernel(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
         build.check_operands(kernel, torch.int32,
                              table=(index[0], (*rows, J)),
                              counts=(index[1], (*rows, J)))
+    if kernel.startswith("vwr_mla_chunk"):
+        kind = chunk_variant(r, rope, lead[1], ckv.dtype)
+    elif scales:   # kernels 13 and 14
+        kind = None
+    else:          # kernels 10 and 11
+        return mla_decode_launch(
+            q_abs, q_rope, ckv, kr, index, n_keys,
+            decode_variant(r, rope, H, lead[1] if paged else None,
+                           ckv.dtype), scale=scale)
+    out = _entry(kernel, "_wgmma_launch" if kind == "wgmma" else "_launch",
+                 q_abs, q_rope, ckv, kr, scales, index, n_keys, scale, code)
+    build.count_launch(kernel, kind)
+    return out
+
+
+def _outputs(q_abs):
+    B, H, r = q_abs.shape
     f32 = dict(dtype=torch.float32, device=q_abs.device)
-    o_t = torch.empty((B, H, r), **f32)
-    m = torch.empty((B, H), **f32)
-    l = torch.empty((B, H), **f32)
-    ptrs = [q_abs, q_rope, ckv, kr, *scales, *index, o_t, m, l]
-    kind = (chunk_variant(r, rope, lead[1], ckv.dtype)
-            if kernel.startswith("vwr_mla_chunk") else None)
-    entry = kernel + ("_wgmma_launch" if kind == "wgmma" else "_launch")
-    lib, fn = build.kernel_fn("vwr_mla_decode", entry,
+    return (torch.empty((B, H, r), **f32), torch.empty((B, H), **f32),
+            torch.empty((B, H), **f32))
+
+
+def _entry(kernel, entry, q_abs, q_rope, ckv, kr, scales, index, n_keys,
+           scale, code):
+    """One launch of the C entry point ``kernel + entry`` (the FMA kernel,
+    or kernel 12 / 15's wgmma variant) on operands ``_kernel`` checked."""
+    B, H, r = q_abs.shape
+    lead = ckv.shape[:2]
+    out = _outputs(q_abs)
+    ptrs = [q_abs, q_rope, ckv, kr, *scales, *index, *out]
+    lib, fn = build.kernel_fn("vwr_mla_decode", kernel + entry,
                               [_VP] * len(ptrs) + [_I] * 7
                               + [_F, _I, _VP])
-    err = fn(*(t.data_ptr() for t in ptrs), B, H, r, rope, lead[0],
-             lead[1], J if paged else n_keys, scale, code,
-             build.stream_of(q_abs))
+    err = fn(*(t.data_ptr() for t in ptrs), B, H, r, q_rope.shape[2],
+             lead[0], lead[1], index[0].shape[-1] if index else n_keys,
+             scale, code, build.stream_of(q_abs))
     build.check(lib, err, kernel)
+    return out
+
+
+def mla_decode_launch(q_abs, q_rope, ckv, kr, index, n_keys, kind,
+                      plan=None, *, scale: float):
+    """One launch of kernel 10's (``index`` (): the dense cache, ``n_keys``
+    valid keys a slab) or kernel 11's (``index`` (table, counts)) variant
+    ``kind`` ("wgmma" or "fma") on operands their wrappers checked, at the
+    kernel's widths, with ``mla_decode_plan``'s plan unless ``plan``
+    (nsplit, per, ncol) is given; chip_smoke.py times the variants and
+    plans against each other through it."""
+    kernel = ("vwr_mla_paged_flash_decode" if index
+              else "vwr_mla_flash_decode")
+    if kind == "fma":
+        out = _entry(kernel, "_launch", q_abs, q_rope, ckv, kr, (), index,
+                     n_keys, scale, build.dtype_code(ckv.dtype))
+    else:
+        B, H, r = q_abs.shape
+        lead = ckv.shape[:2]
+        n = index[0].shape[1] if index else n_keys
+        nsplit, per, ncol = plan or mla_decode_plan(
+            B, H, n, lead[1] if index else None, r)
+        groups = B * _cdiv(H, DECODE_ROWS)
+        stream = build.stream_of(q_abs)
+        ws = build.split_workspace(q_abs.device, stream,
+                                   groups * nsplit * DECODE_ROWS
+                                   * (r + 2 * ncol))
+        counters = build.split_counters(q_abs.device, stream, groups * ncol)
+        out = _outputs(q_abs)
+        ptrs = [q_abs, q_rope, ckv, kr, *index, *out, ws, counters]
+        lib, fn = build.kernel_fn("vwr_mla_decode", kernel + "_wgmma_launch",
+                                  [_VP] * len(ptrs) + [_I] * 10
+                                  + [_F, _VP])
+        err = fn(*(t.data_ptr() for t in ptrs), B, H, r, q_rope.shape[2],
+                 lead[0], lead[1], n, nsplit, per, ncol, scale, stream)
+        build.check(lib, err, kernel)
     build.count_launch(kernel, kind)
-    return o_t, m, l
+    return out
 
 
 def vwr_mla_flash_decode(q_abs, q_rope, c_kv, k_rope, cur_len: int,
