@@ -51,10 +51,17 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    forced splits and column blocks, pos0 > 0, no valid key, H 20 and
    192, r 256 / 128, pages of 8, 24, 32 and 64, entries past the pool),
    B1 T2048 and a J 128 table timed beside the parent's FMA kernel, their
-   plan tables and the host's enqueue of both wrappers; then kernels 1
-   (split-K), 4 (8 splits), 5 (8 splits) and 11 launched in turns on two
-   streams with no synchronisation, each stream's outputs bitwise equal
-   to one stream's (the split buffers belong to one stream);
+   plan tables and the host's enqueue of both wrappers; kernels 9 and 8
+   on int8 caches and pools by kernel 4's split and kernel 6's wgmma
+   variants (every int8 case on the variant its rule names, bitwise over
+   two launches, held against the plain version and the emulation;
+   kernels 4 and 6's split and tile edges over int8, B4 / B1 T2048 and
+   124 pages timed, plan tables beside the FMA kernel forced through
+   ``kind`` and dequantize-then-SDPA); then kernels 1 (split-K), 4 (8
+   splits), 5 (8 splits), 11, 9 (8 splits) and 8 (16 splits) launched in
+   turns on two streams with no synchronisation, each stream's outputs
+   bitwise equal to one stream's (the split buffers belong to one
+   stream);
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -67,7 +74,8 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    (the random weights are rescaled to a well-conditioned model first),
    and run kernel 9 through ``dist.decode.local_decode_attend`` with
    scales over the replay's dense cache quantized one scale a (batch,
-   KV head) row, against dequantize-then-attend (its launches counted);
+   KV head) row, against dequantize-then-attend (its launches counted,
+   every one on its split variant);
    the same for reduced fp32 configs, at a tight tolerance;
 4. the same for qwen1.5-0.5b at full width (QKV bias, MHA, tied vocab);
 5. continuous batching on the paged pools: on reduced fp32 configs the
@@ -93,7 +101,8 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    the plain backend's (unchunked ones for model-dtype pools); at full
    width, tinyllama-1.1b layer 0's chunk rows through
    ``chunk_prefill_attend`` and ``local_chunk_prefix_attend`` (the
-   phase whose launches of kernels 6 and 8 are counted), a 256-token
+   phase whose launches of kernels 6 and 8 are counted, every one on
+   its wgmma variant), a 256-token
    prompt's final-chunk logits through ``lm.prefill_chunk`` against the
    plain path, then the shared-prompt stream (16 of 24 requests open
    with one 128-token system prompt) through the Scheduler in six
@@ -799,26 +808,28 @@ def check_kernels(torch, F):
                   + 1e-3 for _ in range(2)]
         args = (q, k, v, ks, vs, cur, pos0)
         shape = f"B{B} T{T} KV{KV} G{G} D{D} cur{cur} pos0{pos0}"
+        before = dict(build.VARIANTS)
         got = KD.vwr_flash_decode_q8(*args)
         torch.cuda.synchronize()
+        kind = KD.decode_variant(dt, widths.native_width(
+            D, KD.HEAD_DIMS, "vwr_flash_decode_q8"), min(G, 16))
+        _served("vwr_flash_decode_q8", shape, before, build, kind)
         err = compare("vwr_flash_decode_q8", shape, f32, got,
                       KD.vwr_flash_decode_q8_ref(*args))
+        if kind == "split":
+            compare("  vs emulation", shape, f32, got,
+                    KD.decode_split_emulation(q, k, v, cur, pos0,
+                                              scales=(ks, vs)))
+            _bitwise("vwr_flash_decode_q8", shape, got,
+                     KD.vwr_flash_decode_q8(*args))
         if label == "masked row" and got[2].abs().max().item() != 0.0:
             raise AssertionError("a group with no valid key must give l=0")
         if timed:
             n = max(0, min(T, cur - pos0))
-            qs = q.reshape(B, KV * G, 1, D)
-
-            def library(q=qs, k=k, v=v, ks=ks, vs=vs, n=n, B=B, KV=KV,
-                        dt=dt):
-                """Dequantize the valid rows, then SDPA (GQA)."""
-                kd, vd = [(x[:, :n].to(dt) * s.reshape(B, 1, KV, 1).to(dt)
-                           ).transpose(1, 2) for x, s in ((k, ks), (v, vs))]
-                return F.scaled_dot_product_attention(q, kd, vd,
-                                                      enable_gqa=True)
             record("vwr_flash_decode_q8", label, shape, dt, err,
                    lambda: KD.vwr_flash_decode_q8(*args),
-                   lambda: KD.vwr_flash_decode_q8_ref(*args), library,
+                   lambda: KD.vwr_flash_decode_q8_ref(*args),
+                   _decode_q8_sdpa(F, q, k, v, ks, vs, n),
                    4 * B * KV * G * D * n,
                    q.element_size() * B * KV * G * D + 2 * B * n * KV * D
                    + 8 * B * KV + 4 * B * KV * G * (D + 2), head)
@@ -960,12 +971,15 @@ def check_kernels(torch, F):
             before = dict(build.VARIANTS)
             got = fn(*ops_)
             torch.cuda.synchronize()
-            if not q8:
-                _served(kname, shape_s, before, build, KC.chunk_variant(
-                    C * G, widths.native_width(D, KC.HEAD_DIMS, kname), ps,
-                    dt))
+            kind = KC.chunk_variant(
+                C * G, widths.native_width(D, KC.HEAD_DIMS, kname), ps, dt)
+            _served(kname, shape_s, before, build, kind)
             err = compare(kname, shape_s, f32, got, ref(*ops_))
-            if dt == bf16 and not q8:
+            if kind == "wgmma" and q8:
+                compare("  vs emulation", shape_s, f32, got,
+                        KC.chunk_wgmma_emulation(q, *pools, table, cnt,
+                                                 scales=scales))
+            if kind == "wgmma":
                 _bitwise(kname, shape_s, got, fn(*ops_))
             if not any(counts) and (got[2].abs().max().item() != 0.0
                                     or got[0].abs().max().item() != 0.0
@@ -986,6 +1000,7 @@ def check_kernels(torch, F):
                        _chunk_sdpa(torch, F, q, pools, scales, table, cnt),
                        4 * KV * C * G * D * n_keys, nbytes, head)
     check_split_variants(torch, F, compare, record)
+    check_q8_variants(torch, F, compare, record)
     check_paged_variants(torch, F, compare, record)
     check_mla_kernels(torch, F, gen, compare, record)
     check_mla_decode_variants(torch, F, compare, record)
@@ -1210,6 +1225,197 @@ def check_split_variants(torch, F, compare, record):
             + f"; fma {row['fma_ms']:.4f} (rule: {row['rule']})")
 
 
+def _decode_q8_sdpa(F, q, k, v, ks, vs, n):
+    """The library yardstick of kernel 9: dequantize the n valid rows of
+    the int8 cache to q's dtype with the (B*KV,) scales, then SDPA (GQA)
+    with the G heads of a KV head as its query rows."""
+    BKV, G, D = q.shape
+    B, T, KV, _ = k.shape
+    qs, dt = q.reshape(B, KV * G, 1, D), q.dtype
+
+    def run():
+        kd, vd = [(x[:, :n].to(dt) * s.reshape(B, 1, KV, 1).to(dt)
+                   ).transpose(1, 2) for x, s in ((k, ks), (v, vs))]
+        return F.scaled_dot_product_attention(qs, kd, vd, enable_gqa=True)
+    return run
+
+
+def check_q8_variants(torch, F, compare, record):
+    """Kernel 9's split variant and kernel 8's wgmma variant (kernels 4
+    and 6's over int8) at kernels 4 and 6's split and tile edges (the
+    variant counted, within the fp32 limit of the plain version and of the
+    emulation, bitwise over two launches), the long shapes timed beside
+    their bounds, and the plan tables beside the parent's FMA kernel
+    (forced through ``kind``) and the library call.  A generator of its
+    own (seed 24), so the other cases keep their inputs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_chunk as KC
+    from repro_torch.kernels import vwr_decode as KD
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return tuple(torch.rand(shape, generator=gen, device="cuda") * 0.02
+                     + 1e-3 for _ in range(2))
+
+    def cache(B, T, KV, G, D):
+        return (randn(B * KV, G, D), int8(B, T, KV, D), int8(B, T, KV, D),
+                scales(B * KV))
+
+    kname = "vwr_flash_decode_q8"
+    print(f"{kname} split edges")
+    for (label, B, T, KV, G, D, cur, pos0, plan,
+         timed) in DECODE_EDGES:
+        q, k, v, sc = cache(B, T, KV, G, D)
+        n = max(0, min(T, cur - pos0))
+        shape = (f"B{B} T{T} KV{KV} G{G} D{D} cur{cur} pos0{pos0} plan "
+                 f"{plan or KD.decode_plan(B * KV, n)}")
+
+        def run(q=q, k=k, v=v, sc=sc, cur=cur, pos0=pos0, n=n, plan=plan):
+            if plan is None:
+                return KD.vwr_flash_decode_q8(q, k, v, *sc, cur, pos0)
+            return KD.decode_launch(q, k, v, n, "split", plan, scales=sc)
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served(kname, shape, before, build, "split")
+        err = compare(kname, shape, f32, got,
+                      KD.vwr_flash_decode_q8_ref(q, k, v, *sc, cur, pos0))
+        compare("  vs emulation", shape, f32, got,
+                KD.decode_split_emulation(q, k, v, cur, pos0, plan=plan,
+                                          scales=sc))
+        _bitwise(kname, shape, got, run())
+        if n == 0 and (got[2].abs().max().item() != 0.0
+                       or got[1].max().item() > -1e29):
+            raise AssertionError("a group with no valid key must give "
+                                 "m=-1e30, l=0")
+        if timed:
+            record(kname, label, shape, bf16, err, run,
+                   lambda q=q, k=k, v=v, sc=sc, cur=cur, pos0=pos0:
+                   KD.vwr_flash_decode_q8_ref(q, k, v, *sc, cur, pos0),
+                   _decode_q8_sdpa(F, q, k, v, *sc, n),
+                   4 * B * KV * G * D * n,
+                   2 * B * KV * G * D + 2 * B * n * KV * D + 8 * B * KV
+                   + 4 * B * KV * G * (D + 2))
+
+    print(f"  {kname} plans (ms; (splits, keys a split)), the FMA kernel, "
+          "SDPA:")
+    for label, B, T, KV, G, cur in (("tinyllama decode", 4, 160, 4, 8, 144),
+                                    ("qwen decode (G=1)", 4, 136, 16, 1,
+                                     130),
+                                    ("tinyllama long", 4, 2048, 4, 8, 2048),
+                                    ("tinyllama batch 1 long", 1, 2048, 4,
+                                     8, 2048)):
+        D = 64
+        q, k, v, sc = cache(B, T, KV, G, D)
+        n = min(T, cur)
+        row = {"kernel": f"{kname} plans", "case": label,
+               "shape": f"B{B} T{T} KV{KV} G{G} D{D} cur{cur}",
+               "plans": []}
+        for plan in _decode_plans(KD, B * KV, n):
+            ms = time_ms(torch, lambda: KD.decode_launch(
+                q, k, v, n, "split", plan, scales=sc))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["fma_ms"] = time_ms(torch, lambda: KD.decode_launch(
+            q, k, v, n, "fma", scales=sc))
+        row["library_ms"] = time_ms(torch, _decode_q8_sdpa(F, q, k, v, *sc,
+                                                           n))
+        row["rule"] = KD.decode_variant(bf16, D, G)
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f} "
+            f"(rule: {row['rule']})")
+
+    kname = "vwr_chunk_prefix_attend_q8"
+    print(f"{kname} wgmma edges")
+    n_pages = 160
+    for (label, KV, G, D, ps, C, counts, plan, timed) in CHUNK_EDGES:
+        J = len(counts)
+        q = randn(KV, C * G, D)
+        pools = [int8(n_pages, ps, KV, D) for _ in range(2)]
+        sc = scales(n_pages, KV)
+        table = torch.randperm(n_pages, generator=gen,
+                               device="cuda")[:J].to(torch.int32)
+        if J:
+            table[-1] = n_pages + 5
+        cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        ops_ = (q, *pools, *sc, table, cnt)
+        shape = (f"KV{KV} G{G} D{D} ps{ps} C{C} J{J} keys{sum(counts)} plan "
+                 f"{plan or KC.chunk_plan(KV, C * G, J, ps)}")
+
+        def run(ops_=ops_, pools=pools, sc=sc, table=table, cnt=cnt,
+                plan=plan):
+            if plan is None:
+                return KC.vwr_chunk_prefix_attend_q8(*ops_)
+            return KC.chunk_launch(ops_[0], *pools, table, cnt, "wgmma",
+                                   plan, scales=sc)
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served(kname, shape, before, build, "wgmma")
+        err = compare(kname, shape, f32, got,
+                      KC.vwr_chunk_prefix_attend_q8_ref(*ops_))
+        compare("  vs emulation", shape, f32, got,
+                KC.chunk_wgmma_emulation(q, *pools, table, cnt, plan=plan,
+                                         scales=sc))
+        _bitwise(kname, shape, got, run())
+        if not any(counts) and (got[2].abs().max().item() != 0.0
+                                or got[0].abs().max().item() != 0.0
+                                or got[1].max().item() > -1e29):
+            raise AssertionError("a chunk with no valid prior key must "
+                                 "give m=-1e30, l=0, o=0")
+        if timed:
+            n_keys = sum(counts)
+            live = sum(1 for c in counts if c)
+            record(kname, label, shape, bf16, err, run,
+                   lambda ops_=ops_: KC.vwr_chunk_prefix_attend_q8_ref(
+                       *ops_),
+                   _chunk_sdpa(torch, F, q, pools, sc, table, cnt),
+                   4 * KV * C * G * D * n_keys,
+                   2 * n_keys * KV * D + 8 * live * KV + 2 * q.numel()
+                   + 8 * J + 4 * KV * C * G * (D + 2))
+
+    print(f"  {kname} plans (ms; (splits, pages a split)), the FMA kernel, "
+          "SDPA:")
+    for label, KV, G, C, J in (("tinyllama chunk 64, 16 pages", 4, 8, 64, 16),
+                               ("124 pages", 4, 8, 64, 124),
+                               ("C=1, 16 pages", 4, 8, 1, 16),
+                               ("qwen chunk 64 (G=1)", 16, 1, 64, 16)):
+        D, ps = 64, 16
+        q = randn(KV, C * G, D)
+        pools = [int8(n_pages, ps, KV, D) for _ in range(2)]
+        sc = scales(n_pages, KV)
+        table = torch.randperm(n_pages, generator=gen,
+                               device="cuda")[:J].to(torch.int32)
+        cnt = torch.full((J,), ps, dtype=torch.int32, device="cuda")
+        row = {"kernel": f"{kname} plans", "case": label,
+               "shape": f"KV{KV} G{G} D{D} C{C} J{J} of {ps}",
+               "plans": []}
+        for plan in _chunk_plans(KC, KV, C * G, J, ps):
+            ms = time_ms(torch, lambda: KC.chunk_launch(
+                q, *pools, table, cnt, "wgmma", plan, scales=sc))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["fma_ms"] = time_ms(torch, lambda: KC.chunk_launch(
+            q, *pools, table, cnt, "fma", scales=sc))
+        row["library_ms"] = time_ms(
+            torch, _chunk_sdpa(torch, F, q, pools, sc, table, cnt))
+        row["rule"] = KC.chunk_variant(C * G, D, ps, bf16)
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f} "
+            f"(rule: {row['rule']})")
+
+
 TWO_STREAM_ROUNDS = 16
 
 
@@ -1218,12 +1424,15 @@ def check_two_streams(torch):
     that merge splits through them (kernel 4's split variant at B4 T2048,
     8 splits a group; kernel 1's split-K at a decode shape; kernel 5's
     mma variant on a 128-entry table, 8 splits a group; kernel 11's wgmma
-    variant on a 128-entry table at DeepSeek-V3's widths) issued in turns
+    variant on a 128-entry table at DeepSeek-V3's widths; kernel 9's split
+    variant at B4 T2048 over an int8 cache; kernel 8's wgmma variant on
+    124 int8 pages, 16 splits a row group) issued in turns
     on two streams with no synchronisation between them, and each
     stream's outputs held bitwise to the same launches on one stream.
     With one buffer a device the two streams' blocks would count on the
     same counters and overwrite each other's partials."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_chunk as KC
     from repro_torch.kernels import vwr_decode as KD
     from repro_torch.kernels import vwr_matmul as KM
     from repro_torch.kernels import vwr_mla_decode as KMLA
@@ -1244,6 +1453,20 @@ def check_two_streams(torch):
     qm = [torch.randn(8, 128, w, generator=gen, device="cuda")
           for w in (512, 64)]
     mla_pools = [randn(1200, 16, w) for w in (512, 64)]
+    k8, v8 = (torch.randint(-127, 128, (B, T, KV, D), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    dsc = tuple(torch.rand(B * KV, generator=gen, device="cuda") * 0.02
+                + 1e-3 for _ in range(2))
+    qc = randn(KV, 64 * G, D)
+    cpools = [torch.randint(-127, 128, (160, 16, KV, D), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2)]
+    csc = tuple(torch.rand((160, KV), generator=gen, device="cuda") * 0.02
+                + 1e-3 for _ in range(2))
+    ctable = torch.randperm(160, generator=gen,
+                            device="cuda")[:124].to(torch.int32)
+    ccounts = torch.full((124,), 16, dtype=torch.int32, device="cuda")
     calls = {
         "vwr_flash_decode split (8, 256)":
             (lambda: KD.vwr_flash_decode(qd, kd, vd, T),
@@ -1257,10 +1480,18 @@ def check_two_streams(torch):
             (lambda: KMLA.vwr_mla_paged_flash_decode(
                 *qm, *mla_pools, table, counts, scale=192 ** -0.5),
              "vwr_mla_paged_flash_decode", "wgmma"),
+        "vwr_flash_decode_q8 split (8, 256)":
+            (lambda: KD.vwr_flash_decode_q8(qd, k8, v8, *dsc, T),
+             "vwr_flash_decode_q8", "split"),
+        "vwr_chunk_prefix_attend_q8 wgmma 124 pages":
+            (lambda: KC.vwr_chunk_prefix_attend_q8(qc, *cpools, *csc, ctable,
+                                                   ccounts),
+             "vwr_chunk_prefix_attend_q8", "wgmma"),
     }
     if (KD.decode_plan(B * KV, T)[0] < 2
             or KD.paged_plan(8 * KV, 128, 16)[0] < 2
-            or KMLA.mla_decode_plan(8, 128, 128, 16)[0] < 2):
+            or KMLA.mla_decode_plan(8, 128, 128, 16)[0] < 2
+            or KC.chunk_plan(KV, 64 * G, 124, 16)[0] < 2):
         raise AssertionError("the two-stream cases must split")
     print("two streams: split buffers per stream")
     one = {}
@@ -2678,12 +2909,17 @@ def dense_kernel9(torch, cfg, cache, cur_len):
         if not bool((d <= atol_ + rtol_ * want.abs()).all()):
             raise AssertionError("kernel 9 disagrees with "
                                  "dequantize-then-attend")
+    split = build.VARIANTS["vwr_flash_decode_q8.split"]
     print(f"  kernel 9 over the int8 dense cache of the stream "
           f"({len(work)} layers, cur_len {cur_len}): max|err| {err:.3e}, "
-          f"{launches} launches")
+          f"{launches} launches ({split} on the split variant)")
     if launches != len(work):
         raise AssertionError(f"kernel 9 launched {launches} times")
-    return {"layers": len(work), "max_abs_err": err, "launches": launches}
+    if split != launches:
+        raise AssertionError("kernel 9 on bf16 queries must run its split "
+                             "variant")
+    return {"layers": len(work), "max_abs_err": err, "launches": launches,
+            "split": split}
 
 
 # projections rescaled by ``_condition``: GQA's, the MLPs' and experts',
@@ -3489,15 +3725,17 @@ def chunk_rows(torch, params):
                 ("vwr_chunk_prefix_attend", "vwr_chunk_prefix_attend_q8")}
     variants = {k: build.VARIANTS[k] for k in
                 ("vwr_chunk_prefix_attend.wgmma",
-                 "vwr_chunk_prefix_attend.fma")}
-    print(f"  launches in the chunk phase: {launches}; kernel 6 by "
+                 "vwr_chunk_prefix_attend.fma",
+                 "vwr_chunk_prefix_attend_q8.wgmma",
+                 "vwr_chunk_prefix_attend_q8.fma")}
+    print(f"  launches in the chunk phase: {launches}; kernels 6 and 8 by "
           f"variant: {variants}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError("a chunk-prefix kernel was never launched")
-    if variants["vwr_chunk_prefix_attend.wgmma"] != launches[
-            "vwr_chunk_prefix_attend"]:
-        raise AssertionError("kernel 6 on bf16 pools must run its wgmma "
-                             "variant")
+    for k in launches:
+        if variants[f"{k}.wgmma"] != launches[k]:
+            raise AssertionError(f"{k} on bf16 queries must run its wgmma "
+                                 "variant")
     return {"rel_err": out, "launches": launches, "variants": variants}
 
 

@@ -279,6 +279,14 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                    smem_u32(bar))
                : "memory");
 }
+// 4 bytes global -> shared (through L1); zeros when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -728,6 +736,77 @@ __device__ __forceinline__ void bf16_terms(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(x0 - bf.x, x1 - bf.y);
 }
 
+// Two fp32 values as two f16x2 terms: hi = fp16(x), lo = fp16(x - hi)
+// (hi + lo keeps an x in [2^-14, 1] to ~2^-22).
+__device__ __forceinline__ void f16_terms(float x0, float x1, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __half2 b = __floats2half2_rn(x0, x1);
+  const float2 bf = __half22float2(b);
+  hi = *reinterpret_cast<const uint32_t*>(&b);
+  lo = pack_f16(x0 - bf.x, x1 - bf.y);
+}
+
+// ---- int8 keys and values as 16-bit operands (kernels 8, 9 and 15): an
+// int8 value is exact in both bf16 and fp16, so the tensor cores take it
+// converted, and its scale is applied in fp32 around the products ----
+
+// Four int8 (one word, the first in the low byte) as two fp16x2 words,
+// exactly: each byte + 128 is set as the mantissa of 1024 (0x6400), and
+// 1152 = 1024 + 128 subtracted (integer ops and one fp16 subtraction a
+// pair, not four conversions).
+__device__ __forceinline__ void i8x4_to_f16(uint32_t w, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const __half2 bias = __float2half2_rn(1152.0f);
+  uint32_t a = __byte_perm(u, 0x64646464u, 0x4140);
+  uint32_t b = __byte_perm(u, 0x64646464u, 0x4342);
+  const __half2 x = __hsub2(*reinterpret_cast<__half2*>(&a), bias);
+  const __half2 y = __hsub2(*reinterpret_cast<__half2*>(&b), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&x);
+  hi = *reinterpret_cast<const uint32_t*>(&y);
+}
+
+// Four int8 as two bf16x2 words, exactly: each byte + 128 is set as the
+// low mantissa byte of 2^23 in fp32 (0x4B000000), 2^23 + 128 subtracted,
+// and each pair packed (|x| <= 128 is exact in bf16).
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float bias = 8388736.0f;  // 2^23 + 128
+  const float x0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540));
+  const float x1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541));
+  const float x2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542));
+  const float x3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543));
+  lo = pack_bf16(x0 - bias, x1 - bias);
+  hi = pack_bf16(x2 - bias, x3 - bias);
+}
+
+// 16 int8 (one 16-byte chunk) as two 16-byte chunks of bf16 or fp16.
+template <bool F16>
+__device__ __forceinline__ void i8x16_to_16bit(const uint4& raw,
+                                               uint4 (&out)[2]) {
+  auto cvt = [](uint32_t w, uint32_t& lo, uint32_t& hi) {
+    if constexpr (F16)
+      i8x4_to_f16(w, lo, hi);
+    else
+      i8x4_to_bf16(w, lo, hi);
+  };
+  cvt(raw.x, out[0].x, out[0].y);
+  cvt(raw.y, out[0].z, out[0].w);
+  cvt(raw.z, out[1].x, out[1].y);
+  cvt(raw.w, out[1].z, out[1].w);
+}
+
+// The power of two that brings `amax` into [2^14, 2^15) (1 for 0), so
+// that x times it and its fp16 terms stay inside fp16's normal range for
+// every |x| within 2^-17 of amax (kernels/vwr_mla_decode.py _pow2_up).
+__device__ __forceinline__ float pow2_up(float amax) {
+  if (!(amax > 0.0f)) return 1.0f;
+  int e;
+  frexpf(amax, &e);
+  return ldexpf(1.0f, min(15 - e, 126));
+}
+
 // ---- mma.sync (vwr_decode's split kernel) ----
 
 // d (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16,
@@ -741,6 +820,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The same with fp16 operands.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -813,8 +901,10 @@ struct SdPartial {
 // products of bf16 values), `scale` on the fp32 score, masked keys at P =
 // 0, the online softmax in fp32 on the fragment, and O += P V with P as
 // two bf16 terms (hi, lo = bf16(p - hi): ~2^-17 a weight; one term, 2^-9,
-// misses the 1e-4 limit) and V by ldmatrix.trans.
-template <int D>
+// misses the 1e-4 limit) and V by ldmatrix.trans.  F16 (kernel 9's int8
+// cache): V is fp16 and P two fp16 terms (~2^-22 a weight: p <= 1 needs
+// no scaling; two bf16 terms used 0.94 of the limit at 2048 int8 keys).
+template <int D, bool F16 = false>
 __device__ __forceinline__ void sd_slice(SdPartial<D>& w,
                                          const uint32_t (&qa)[D / 16][4],
                                          const unsigned char* kt,
@@ -871,18 +961,31 @@ __device__ __forceinline__ void sd_slice(SdPartial<D>& w,
   // P as two bf16 terms, the A fragments of O += P V: keys 0-7 are key
   // block 0, keys 8-15 block 1
   uint32_t ph[4], pl[4];
-  bf16_terms(p[0][0], p[0][1], ph[0], pl[0]);
-  bf16_terms(p[0][2], p[0][3], ph[1], pl[1]);
-  bf16_terms(p[1][0], p[1][1], ph[2], pl[2]);
-  bf16_terms(p[1][2], p[1][3], ph[3], pl[3]);
+  auto terms = [](float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    if constexpr (F16)
+      f16_terms(x0, x1, hi, lo);
+    else
+      bf16_terms(x0, x1, hi, lo);
+  };
+  terms(p[0][0], p[0][1], ph[0], pl[0]);
+  terms(p[0][2], p[0][3], ph[1], pl[1]);
+  terms(p[1][0], p[1][1], ph[2], pl[2]);
+  terms(p[1][2], p[1][3], ph[3], pl[3]);
+  auto mma = [](float(&d)[4], const uint32_t(&a)[4], uint32_t b0,
+                uint32_t b1) {
+    if constexpr (F16)
+      mma_f16(d, a, b0, b1);
+    else
+      mma_bf16(d, a, b0, b1);
+  };
 #pragma unroll
   for (int nb = 0; nb < D / 8; nb += 2) {
     uint32_t vf[4];  // V transposed: columns nb and nb + 1
     ldsm_x4_trans(vf, vt + sd_chunk(row0 + 8 * (mi % 2) + mr, nb + mi / 2));
-    mma_bf16(w.o[nb], ph, vf[0], vf[1]);
-    mma_bf16(w.o[nb], pl, vf[0], vf[1]);
-    mma_bf16(w.o[nb + 1], ph, vf[2], vf[3]);
-    mma_bf16(w.o[nb + 1], pl, vf[2], vf[3]);
+    mma(w.o[nb], ph, vf[0], vf[1]);
+    mma(w.o[nb], pl, vf[0], vf[1]);
+    mma(w.o[nb + 1], ph, vf[2], vf[3]);
+    mma(w.o[nb + 1], pl, vf[2], vf[3]);
   }
 }
 
@@ -894,12 +997,15 @@ __device__ __forceinline__ void sd_slice(SdPartial<D>& w,
 // groups of `nsplit` splits); the group's last block (last_split) then
 // merges the partials in split order (finish_partials) and resets the
 // group's counter: one launch, no float atomics, bitwise reproducible.
+// `vs` multiplies the block's merged o_tilde (kernel 9: the group's v
+// scale, constant over its keys; 1 otherwise).
 template <int D>
 __device__ __forceinline__ void sd_finish(SdPartial<D>& w, unsigned char* sm,
                                           float* o_t, float* m_out,
                                           float* l_out, float* ws,
                                           int* counters, int groups, int bkv,
-                                          int split, int nsplit, int G) {
+                                          int split, int nsplit, int G,
+                                          float vs = 1.0f) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   cp_async_wait<0>();
@@ -944,7 +1050,7 @@ __device__ __forceinline__ void sd_finish(SdPartial<D>& w, unsigned char* sm,
       acc += Os[(v * 16 + r) * D + d] * sw;
       lsum += Ls[v * 16 + r] * sw;
     }
-    o_dst[e] = acc;
+    o_dst[e] = acc * vs;
     if (d == 0) {
       m_dst[r] = mx;
       l_dst[r] = lsum;

@@ -50,8 +50,24 @@
 //   order (common.cuh finish_partials, kernel 4's merge), one launch,
 //   bitwise reproducible.
 //
-// fp32 pools (chunk_prefix_kernel; "fma"), pages off 8, and kernel 8 on
-// int8 pools: the TPU kernel's wide staging — each page is staged once for
+// int8 pools (kernel 8's "wgmma" variant; the same kernel, Q8): an int8
+// value is exact in bf16, so the tile's products stay exact and the page
+// scales are applied in fp32 around them, as the TPU kernel applies them
+// after its dots.  Each tile's int8 K and V rows land by cp.async in a
+// ring of two int8 stages (the next tile loads while this one runs), with
+// the tile's per-slot page scales (4-byte cp.async, 0 in a masked slot);
+// the block then converts the tile exactly into one bf16 K and one V tile
+// in the 128-byte swizzle (common.cuh i8x16_to_16bit: byte permutes and
+// one fp32 subtraction a value, no conversion unit) before its products.
+// Each score column takes scale times its page's k scale after the
+// product; l sums the unscaled P, and P takes its column's v scale before
+// its split into two bf16 terms (the CPU emulation: 0.15-0.31 of the 1e-4
+// limit, so kernel 15's fp16 terms and powers of two are not needed).  At
+// D <= 64 the instance is held to 128 registers (4 blocks an SM, as kernel
+// 6's): at 136 it fit 3 and ran a 124-page table's 16 splits in two waves.
+//
+// fp32 pools (chunk_prefix_kernel; "fma") and pages off 8, over either
+// pool: the TPU kernel's wide staging — each page is staged once for
 // all C*G query rows of a grid step — kept per block.  One 128-thread
 // block per (tile of 32 query rows, KV head); the TPU grid's sequential
 // page axis becomes a loop inside the block over the J prior pages,
@@ -70,7 +86,9 @@
 //
 // Known limits: the wgmma variant re-walks the table in every thread and
 // stages by cp.async (no TMA), and a split's merge costs ~2 us; at 124
-// prior pages it runs at ~3.5% of its bound.  The FMA kernel runs the dots
+// prior pages it runs at ~3.5% of its bound.  On int8 pools the tile's
+// conversion runs between its landing and its products, not beside the
+// previous tile's.  The FMA kernel runs the dots
 // on the CUDA cores in fp32, and one KV head's C*G rows make ceil(C*G /
 // 32) blocks.
 #include "common.cuh"
@@ -240,12 +258,20 @@ constexpr int CW_SEGS = 8;      // page segments a tile, at most (pages of 8)
 
 // Shared memory, in 64-row x 64-column bf16 blocks of 8 KB (128-byte rows,
 // 128-byte swizzle; DP = D rounded up to 64): Q, then K and V, two stages
-// each.  After the key loop the K stages hold the merge's weights.
-template <int DP>
+// each.  Q8 (kernel 8): Q, one bf16 K and one V stage, then a ring of two
+// int8 stages (a tile's K and V rows, D bytes a row, unswizzled) and two
+// stages of the tile's per-slot scales (k, then v: 64 floats each).  After
+// the key loop the K and V tiles' first 2 TILE bytes hold the merge's
+// weights.
+template <int D, bool Q8>
 struct CwSmem {
+  static constexpr int DP = D < 64 ? 64 : D;
   static constexpr int TILE = (DP / 64) * 8192;
-  static constexpr int Q = 0, K = TILE, V = 3 * TILE;
-  static constexpr int BYTES = 1024 + 5 * TILE;
+  static constexpr int Q = 0, K = TILE, V = (Q8 ? 2 : 3) * TILE;
+  static constexpr int I8 = CW_KEYS * D;        // an int8 K or V tile
+  static constexpr int RING = (Q8 ? 3 : 5) * TILE;
+  static constexpr int SC = RING + (Q8 ? 4 * I8 : 0);
+  static constexpr int BYTES = 1024 + SC + (Q8 ? 2 * 2 * CW_KEYS * 4 : 0);
 };
 
 // Byte offset of 16-byte chunk c of row r in a 64-row tile.
@@ -270,14 +296,17 @@ __device__ __forceinline__ void cw_pv<128>(float (&o)[64],
 }
 
 // grid (ceil(CG / 64), nsplit, KV): block (rb, s, kvh) takes q rows rb * 64
-// .. + 63 of KV head kvh against table entries [s jps, (s + 1) jps).
-template <int D>
-__global__ void __launch_bounds__(CW_THREADS)
+// .. + 63 of KV head kvh against table entries [s jps, (s + 1) jps).  Q8:
+// int8 pools with (n_pages, KV) scales (kernel 8).
+template <int D, bool Q8>
+__global__ void __launch_bounds__(CW_THREADS, Q8 && D <= 64 ? 4 : 1)
 chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
             int* __restrict__ counters, int jps) {
-  constexpr int DP = D < 64 ? 64 : D;
-  constexpr int NC = DP / 8;  // 16-byte chunks a staged row
-  using L = CwSmem<DP>;
+  using L = CwSmem<D, Q8>;
+  using TP = std::conditional_t<Q8, int8_t, bf16>;
+  constexpr int DP = L::DP;
+  constexpr int NC = DP / 8;   // 16-byte chunks a staged bf16 row
+  constexpr int NI = D / 16;   // 16-byte chunks an int8 row
   extern __shared__ unsigned char cw_smem[];
   unsigned char* sm = align1024(cw_smem);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -285,8 +314,8 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
   const int RB = gridDim.x, S = gridDim.y;
   const int row0 = rb * CW_ROWS, nq = min(CW_ROWS, a.CG - row0);
   const size_t prow = (size_t)a.KV * D;  // pool key-row stride
-  const bf16* kpool = static_cast<const bf16*>(a.k_pool) + (size_t)kvh * D;
-  const bf16* vpool = static_cast<const bf16*>(a.v_pool) + (size_t)kvh * D;
+  const TP* kpool = static_cast<const TP*>(a.k_pool) + (size_t)kvh * D;
+  const TP* vpool = static_cast<const TP*>(a.v_pool) + (size_t)kvh * D;
   const bf16* qb =
       static_cast<const bf16*>(a.q) + ((size_t)kvh * a.CG + row0) * D;
   const int ps = a.ps, seg = min(ps, CW_KEYS);
@@ -301,20 +330,41 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
                                               : qb, ok);
   }
   // the next key tile of the split into stage `buf` (zeros in its masked
-  // slots); returns its valid slots (bit t), or 0 when no keys are left
+  // slots; Q8: its int8 rows and its slots' page scales, 0 where masked);
+  // returns its valid slots (bit t), or 0 when no keys are left
+  float* scales = reinterpret_cast<float*>(sm + L::SC);  // [buf][k|v][64]
   auto stage = [&](int buf) -> uint64_t {
     const KeyTile<CW_SEGS> kt = next_tile<CW_KEYS, CW_SEGS>(
         a.table, a.counts, j_end, ps, a.n_pages, seg, j, po);
     if (kt.page[0] < 0) return 0;
-    for (int e = tid; e < CW_KEYS * NC; e += CW_THREADS) {
-      const int r = e / NC, c = e % NC;
-      const int pr = slot_row(kt, r, seg, ps);
-      const bool ok = pr >= 0 && c * 8 < D;
-      const size_t off = ok ? (size_t)pr * prow + c * 8 : 0;
-      cp_async16(sm + L::K + buf * L::TILE + cw_chunk(r, c), kpool + off,
-                 ok);
-      cp_async16(sm + L::V + buf * L::TILE + cw_chunk(r, c), vpool + off,
-                 ok);
+    if constexpr (Q8) {
+      unsigned char* st = sm + L::RING + buf * 2 * L::I8;
+      for (int e = tid; e < CW_KEYS * NI; e += CW_THREADS) {
+        const int r = e / NI, c = e % NI;
+        const int pr = slot_row(kt, r, seg, ps);
+        const size_t off = pr >= 0 ? (size_t)pr * prow + c * 16 : 0;
+        cp_async16(st + r * D + c * 16, kpool + off, pr >= 0);
+        cp_async16(st + L::I8 + r * D + c * 16, vpool + off, pr >= 0);
+      }
+      if (tid < CW_KEYS) {
+        const int pr = slot_row(kt, tid, seg, ps);
+        const size_t off = pr >= 0 ? (size_t)(pr / ps) * a.KV + kvh : 0;
+        cp_async4(scales + buf * 2 * CW_KEYS + tid, a.k_scale + off,
+                  pr >= 0);
+        cp_async4(scales + buf * 2 * CW_KEYS + CW_KEYS + tid,
+                  a.v_scale + off, pr >= 0);
+      }
+    } else {
+      for (int e = tid; e < CW_KEYS * NC; e += CW_THREADS) {
+        const int r = e / NC, c = e % NC;
+        const int pr = slot_row(kt, r, seg, ps);
+        const bool ok = pr >= 0 && c * 8 < D;
+        const size_t off = ok ? (size_t)pr * prow + c * 8 : 0;
+        cp_async16(sm + L::K + buf * L::TILE + cw_chunk(r, c), kpool + off,
+                   ok);
+        cp_async16(sm + L::V + buf * L::TILE + cw_chunk(r, c), vpool + off,
+                   ok);
+      }
     }
     const uint32_t lo = __ballot_sync(0xffffffffu,
                                       slot_row(kt, lane, seg, ps) >= 0);
@@ -342,8 +392,30 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
     }
     fence_proxy_async();
     __syncthreads();
-    const unsigned char* Kt = sm + L::K + (t & 1) * L::TILE;
-    const unsigned char* Vt = sm + L::V + (t & 1) * L::TILE;
+    if constexpr (Q8) {
+      // tile t from its int8 stage into the bf16 K and V tiles (exact),
+      // then to wgmma's async proxy
+      const unsigned char* st = sm + L::RING + (t & 1) * 2 * L::I8;
+      for (int e = tid; e < CW_KEYS * NI; e += CW_THREADS) {
+        const int r = e / NI, c = e % NI;
+        uint4 f[2];
+        i8x16_to_16bit<false>(
+            *reinterpret_cast<const uint4*>(st + r * D + c * 16), f);
+        *reinterpret_cast<uint4*>(sm + L::K + cw_chunk(r, 2 * c)) = f[0];
+        *reinterpret_cast<uint4*>(sm + L::K + cw_chunk(r, 2 * c + 1)) = f[1];
+        i8x16_to_16bit<false>(
+            *reinterpret_cast<const uint4*>(st + L::I8 + r * D + c * 16), f);
+        *reinterpret_cast<uint4*>(sm + L::V + cw_chunk(r, 2 * c)) = f[0];
+        *reinterpret_cast<uint4*>(sm + L::V + cw_chunk(r, 2 * c + 1)) = f[1];
+      }
+      fence_proxy_async();
+      __syncthreads();
+    }
+    const unsigned char* Kt = sm + L::K + (Q8 ? 0 : (t & 1) * L::TILE);
+    const unsigned char* Vt = sm + L::V + (Q8 ? 0 : (t & 1) * L::TILE);
+    // Q8: this tile's per-slot scales
+    const float* ksc = scales + (t & 1) * 2 * CW_KEYS;
+    const float* vsc = ksc + CW_KEYS;
 
     // S = Q K^T over the D / 16 steps that hold columns
     float s[32];
@@ -361,16 +433,19 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
     wgmma_wait<0>();
     fence_regs(s);
 
-    // scale, mask the empty slots (per key), online softmax in fp32; a
-    // tile holds a valid key, so the maxima are real scores from here
+    // scale (Q8: times the slot's page k scale), mask the empty slots (per
+    // key), online softmax in fp32; a tile holds a valid key, so the
+    // maxima are real scores from here
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool in = valid >> (8 * jb + 2 * (lane % 4) + e) & 1;
-        s[4 * jb + e] = in ? s[4 * jb + e] * a.scale : REPRO_NEG_INF;
-        s[4 * jb + 2 + e] = in ? s[4 * jb + 2 + e] * a.scale : REPRO_NEG_INF;
+        const int slot = 8 * jb + 2 * (lane % 4) + e;
+        const bool in = valid >> slot & 1;
+        const float f = Q8 ? a.scale * ksc[slot] : a.scale;
+        s[4 * jb + e] = in ? s[4 * jb + e] * f : REPRO_NEG_INF;
+        s[4 * jb + 2 + e] = in ? s[4 * jb + 2 + e] * f : REPRO_NEG_INF;
         mx0 = fmaxf(mx0, s[4 * jb + e]);
         mx1 = fmaxf(mx1, s[4 * jb + 2 + e]);
       }
@@ -389,7 +464,8 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
       acc[4 * i + 3] *= c1;
     }
     // P = exp(s - m) as two bf16 terms, the A fragments of P V: keys 16 kc
-    // .. + 15 are the accumulator's column blocks 2 kc and 2 kc + 1
+    // .. + 15 are the accumulator's column blocks 2 kc and 2 kc + 1.  Q8:
+    // l sums the unscaled P, then P takes its slot's page v scale
     uint32_t ph[4][4], pl[4][4];
 #pragma unroll
     for (int jb = 0; jb < 8; ++jb) {
@@ -402,6 +478,14 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
       }
       l0 += p[0] + p[1];
       l1 += p[2] + p[3];
+      if constexpr (Q8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float vs = vsc[8 * jb + 2 * (lane % 4) + e];
+          p[e] *= vs;
+          p[2 + e] *= vs;
+        }
+      }
       bf16_terms(p[0], p[1], ph[jb / 2][(jb % 2) * 2],
                  pl[jb / 2][(jb % 2) * 2]);
       bf16_terms(p[2], p[3], ph[jb / 2][(jb % 2) * 2 + 1],
@@ -459,18 +543,40 @@ chunk_wgmma(const ChunkArgs a, float* __restrict__ ws,
                   CW_THREADS);
 }
 
-template <int D>
+template <int D, bool Q8>
 int launch_wgmma(const ChunkArgs& a, float* ws, int* counters, int nsplit,
                  int jps, cudaStream_t stream) {
-  constexpr int DP = D < 64 ? 64 : D;
-  constexpr int smem = CwSmem<DP>::BYTES;
-  if (CW_ROWS * nsplit * 4 > 2 * CwSmem<DP>::TILE)
+  using L = CwSmem<D, Q8>;
+  if (CW_ROWS * nsplit * 4 > 2 * L::TILE)
     return (int)cudaErrorInvalidValue;  // the merge's weights
-  const int e = smem_limit_once<chunk_wgmma<D>>(smem);
+  const int e = smem_limit_once<chunk_wgmma<D, Q8>>(L::BYTES);
   if (e != 0) return e;
   const dim3 grid((a.CG + CW_ROWS - 1) / CW_ROWS, nsplit, a.KV);
-  chunk_wgmma<D><<<grid, CW_THREADS, smem, stream>>>(a, ws, counters, jps);
+  chunk_wgmma<D, Q8>
+      <<<grid, CW_THREADS, L::BYTES, stream>>>(a, ws, counters, jps);
   return (int)cudaGetLastError();
+}
+
+// The wgmma launch's checks of the plan (ps a multiple of 8; nsplit
+// splits of jps entries covering J, none starting at or past it) and its
+// dispatch on D.
+template <bool Q8>
+int wgmma_d(const ChunkArgs& a, void* ws, void* counters, int D,
+            int nsplit, int jps, void* stream) {
+  if (bad_shape(a) || a.ps % 8 != 0 || nsplit < 1 || nsplit > FIN_SPLITS ||
+      jps < 1 || (long long)nsplit * jps < a.J ||
+      (nsplit > 1 && ((long long)(nsplit - 1) * jps >= a.J || ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (a.CG == 0 || a.KV == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)ws;
+  int* c = (int*)counters;
+  switch (D) {
+    case 32: return launch_wgmma<32, Q8>(a, w, c, nsplit, jps, s);
+    case 64: return launch_wgmma<64, Q8>(a, w, c, nsplit, jps, s);
+    case 128: return launch_wgmma<128, Q8>(a, w, c, nsplit, jps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -531,18 +637,21 @@ extern "C" int vwr_chunk_prefix_attend_wgmma_launch(
   const ChunkArgs a{q, k_pool, v_pool, nullptr, nullptr, (const int*)table,
                     (const int*)counts, (float*)o_t, (float*)m, (float*)l,
                     CG, J, n_pages, ps, KV, scale};
-  if (bad_shape(a) || ps % 8 != 0 || nsplit < 1 || nsplit > FIN_SPLITS ||
-      jps < 1 || (long long)nsplit * jps < J ||
-      (nsplit > 1 && ((long long)(nsplit - 1) * jps >= J || ws == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (CG == 0 || KV == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  float* w = (float*)ws;
-  int* c = (int*)counters;
-  switch (D) {
-    case 32: return launch_wgmma<32>(a, w, c, nsplit, jps, s);
-    case 64: return launch_wgmma<64>(a, w, c, nsplit, jps, s);
-    case 128: return launch_wgmma<128>(a, w, c, nsplit, jps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return wgmma_d<false>(a, ws, counters, D, nsplit, jps, stream);
+}
+
+// Kernel 8 on int8 pools, on wgmma: the operands of
+// vwr_chunk_prefix_attend_q8_launch (bf16 q) with the wgmma launch's plan,
+// workspace and counters.
+extern "C" int vwr_chunk_prefix_attend_q8_wgmma_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* counts, void* o_t, void* m, void* l, void* ws,
+    void* counters, int CG, int J, int n_pages, int ps, int KV, int D,
+    int nsplit, int jps, float scale, void* stream) {
+  const ChunkArgs a{q, k_pool, v_pool, (const float*)k_scale,
+                    (const float*)v_scale, (const int*)table,
+                    (const int*)counts, (float*)o_t, (float*)m, (float*)l,
+                    CG, J, n_pages, ps, KV, scale};
+  return wgmma_d<true>(a, ws, counters, D, nsplit, jps, stream);
 }

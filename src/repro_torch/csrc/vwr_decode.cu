@@ -12,7 +12,9 @@
 // a decode step's ~150 keys the bytes take ~0.0002 ms: a launch and one
 // round trip to memory set the time.
 //
-// Two kernels (kernels/vwr_decode.py decode_variant picks one per call).
+// Three kernels: kernels/vwr_decode.py decode_variant picks the split
+// variant (decode_split on bf16 caches, decode_split_q8 on int8 ones) or
+// the FMA kernel per call.
 //
 // bf16 caches (decode_split; kernel 4's "split" variant): grid (B * KV,
 // nsplit), one 128-thread block a split of a (batch, KV head) group's
@@ -42,7 +44,21 @@
 //   block's end are common.cuh sd_slice / sd_finish, shared with kernel
 //   5's mma variant (csrc/vwr_paged_decode.cu).
 //
-// fp32 caches (decode_kernel; "fma"), and kernel 9 on int8 caches: one
+// int8 caches with bf16 queries (decode_split_q8; kernel 9's "split"
+// variant): the same grid, plan, slices and merge over int8 K and V.  An
+// int8 value is exact in bf16 and in fp16, and both scales are constant
+// over a group's keys, so the products stay exact and the scales commute
+// with the sums: scale * k_scale multiplies the fp32 score, and v_scale
+// the block's merged o_tilde (the Pallas kernel's order).  Each warp
+// stages its own 16-key slice of every tile by cp.async into a ring of 4
+// int8 stages (D bytes a row) and converts it (common.cuh i8x16_to_16bit,
+// no conversion unit) into the rows of one bf16 K tile and one fp16 V tile
+// that only it reads, so the key loop has no block barrier.  P is two fp16
+// terms against the fp16 values (~2^-22 a weight, p <= 1 needing no
+// scaling): two bf16 terms used 0.94 of the 1e-4 limit at 2048 int8 keys
+// in the CPU emulation, fp16 0.12.
+//
+// fp32 caches and queries (decode_kernel; "fma"), over either cache: one
 // 128-thread block per (batch, KV head) query group: the G query heads
 // that share the KV head read each K/V row once (zero-copy GQA, straight
 // from the native (B, T, KV, D) cache layout).  The TPU grid's sequential
@@ -56,17 +72,16 @@
 // decode contract returns: a row with no valid key gives m = -1e30, l =
 // 0, o_tilde = 0 (both kernels).
 //
-// The int8 kernel is the same body on the cache's element type: its rows
-// load 8 int8 a lane at a time, the row's k scale multiplies each score
-// after the dot, and its v scale the finished P @ V (the scales are
-// constant over the row, so both commute with the sums exactly, as in the
-// Pallas kernel; the model-dtype kernel takes scales of 1).
+// On an int8 cache the FMA kernel is the same body on the cache's element
+// type: its rows load 8 int8 a lane at a time, the row's k scale
+// multiplies each score after the dot, and its v scale the finished P @ V
+// (the model-dtype kernel takes scales of 1).
 //
 // Known limits: a split's merge (fences, a counter in L2, the partials'
 // round trip) costs ~2 us on the H100, more than splitting a decode
 // step's ~150 keys saves, so tinyllama's batch-4 step runs 16 blocks;
-// a 2048-key cache reaches ~15% of its byte bound.  The FMA kernel (fp32,
-// int8) keeps one block a group.
+// a 2048-key cache reaches ~15% of its byte bound.  The FMA kernel (fp32)
+// keeps one block a group.
 #include "common.cuh"
 
 namespace {
@@ -331,6 +346,159 @@ int launch_split(const DecodeArgs& a, float* ws, int* counters, int nsplit,
   return (int)cudaGetLastError();
 }
 
+// ---- int8 caches (kernel 9): the split kernel, each warp staging and
+// converting its own slices ----
+
+// Shared memory: a ring of NST stages, each the int8 K and V rows of a
+// 64-key tile (D bytes a row, unswizzled), then one K tile in bf16 and one
+// V tile in fp16 in the bf16 kernel's layout (sd_chunk: DP columns,
+// 128-byte swizzle).  A warp converts its own 16-key slice of a landed tile
+// into the 16-bit rows that it alone reads, so the key loop has no block
+// barrier.  After the loop the same bytes hold the warps' partials, then
+// the merge's weights.
+template <int D>
+struct SpSmemQ8 {
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int NST = 4;
+  static constexpr int I8 = SD_TILE * D;          // an int8 K or V tile
+  static constexpr int T16 = (DP / 64) * SD_TILE * 128;
+  static constexpr int K16 = 2 * NST * I8, V16 = K16 + T16;
+  static constexpr int BYTES = 1024 + V16 + T16;
+};
+
+// grid (B * KV, nsplit), as decode_split, over an int8 cache with the
+// group's scales: S = Q K^T on the bf16 keys times scale * k_scale in
+// fp32, O += P V with P as two fp16 terms against the fp16 values, and the
+// block's merged o_tilde times v_scale (both scales are constant over the
+// group's keys, so each commutes with the sums exactly).
+template <int D>
+__global__ void __launch_bounds__(SD_THREADS)
+decode_split_q8(const bf16* __restrict__ q, const int8_t* __restrict__ k,
+                const int8_t* __restrict__ v,
+                const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale, float* __restrict__ o_t,
+                float* __restrict__ m_out, float* __restrict__ l_out,
+                float* __restrict__ ws, int* __restrict__ counters,
+                int T_len, int KV, int G, int n_keys, int kps, float scale) {
+  using L = SpSmemQ8<D>;
+  constexpr int NB = D / 16;  // 16-byte int8 chunks a row
+  extern __shared__ unsigned char spq_smem[];
+  unsigned char* sm = align1024(spq_smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bkv = blockIdx.x, split = blockIdx.y;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const size_t row = (size_t)KV * D;
+  const int8_t* kb = k + (size_t)b * T_len * row + (size_t)kvh * D;
+  const int8_t* vb = v + (size_t)b * T_len * row + (size_t)kvh * D;
+  const int k0 = split * kps, k1 = min(n_keys, k0 + kps);
+  const int n_tiles = k1 > k0 ? (k1 - k0 + SD_TILE - 1) / SD_TILE : 0;
+  const int r0 = warp * SD_SLICE;  // this warp's rows of every tile
+  unsigned char* k16 = sm + L::K16;
+  unsigned char* v16 = sm + L::V16;
+
+  // this warp's slice of tile i into stage i % NST (zeros past k1; a slice
+  // wholly past k1 is neither loaded nor read)
+  auto stage = [&](int i) {
+    const int s0 = k0 + i * SD_TILE + r0;
+    if (s0 >= k1) return;
+    unsigned char* kt = sm + (i % L::NST) * 2 * L::I8;
+    for (int e = lane; e < SD_SLICE * NB; e += 32) {
+      const int r = e / NB, c = e % NB;
+      const bool ok = s0 + r < k1;
+      const size_t off = ok ? (size_t)(s0 + r) * row + c * 16 : 0;
+      cp_async16(kt + (r0 + r) * D + c * 16, kb + off, ok);
+      cp_async16(kt + L::I8 + (r0 + r) * D + c * 16, vb + off, ok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < L::NST - 1; ++i) {
+    if (i < n_tiles) stage(i);
+    cp_async_commit();
+  }
+
+  uint32_t qa[D / 16][4];
+  sd_load_q<D>(qa, q + (size_t)bkv * G * D, G, lane);
+  const float sk = scale * k_scale[bkv], vs = v_scale[bkv];
+  SdPartial<D> w;
+  for (int i = 0; i < n_tiles; ++i) {
+    // this warp's slice of tile i has landed; its lanes are done with the
+    // stage tile i + NST - 1 takes and with the 16-bit rows
+    cp_async_wait<L::NST - 2>();
+    __syncwarp();
+    if (i + L::NST - 1 < n_tiles) stage(i + L::NST - 1);
+    cp_async_commit();
+    const int s0 = k0 + i * SD_TILE + r0;
+    if (s0 >= k1) continue;
+    const unsigned char* kt = sm + (i % L::NST) * 2 * L::I8;
+    for (int e = lane; e < SD_SLICE * NB; e += 32) {
+      const int r = r0 + e / NB, c = e % NB;
+      uint4 f[2];
+      i8x16_to_16bit<false>(
+          *reinterpret_cast<const uint4*>(kt + r * D + c * 16), f);
+      *reinterpret_cast<uint4*>(k16 + sd_chunk(r, 2 * c)) = f[0];
+      *reinterpret_cast<uint4*>(k16 + sd_chunk(r, 2 * c + 1)) = f[1];
+      i8x16_to_16bit<true>(
+          *reinterpret_cast<const uint4*>(kt + L::I8 + r * D + c * 16), f);
+      *reinterpret_cast<uint4*>(v16 + sd_chunk(r, 2 * c)) = f[0];
+      *reinterpret_cast<uint4*>(v16 + sd_chunk(r, 2 * c + 1)) = f[1];
+    }
+    __syncwarp();
+    const uint32_t valid =
+        k1 - s0 >= SD_SLICE ? 0xffffu : (1u << (k1 - s0)) - 1u;
+    sd_slice<D, true>(w, qa, k16, v16, r0, valid, sk, lane);
+  }
+  sd_finish<D>(w, sm, o_t, m_out, l_out, ws, counters, gridDim.x, bkv,
+               split, gridDim.y, G, vs);
+}
+
+template <int D>
+int launch_split_q8(const DecodeArgs& a, float* ws, int* counters,
+                    int nsplit, int kps, cudaStream_t stream) {
+  constexpr int smem = SpSmemQ8<D>::BYTES;
+  static_assert(4 * 16 * D * 4 + 2 * 64 * 4 <= smem - 1024,
+                "the warps' partials fit the stages");
+  static_assert(16 * FIN_SPLITS * 4 <= smem - 1024,
+                "the merge's weights fit the stages");
+  if (smem > 48 * 1024) {
+    const int e = smem_limit_once<decode_split_q8<D>>(smem);
+    if (e != 0) return e;
+  }
+  decode_split_q8<D><<<dim3(a.B * a.KV, nsplit), SD_THREADS, smem, stream>>>(
+      (const bf16*)a.q, (const int8_t*)a.k, (const int8_t*)a.v, a.k_scale,
+      a.v_scale, (float*)a.o_t, (float*)a.m, (float*)a.l, ws, counters,
+      a.T_len, a.KV, a.G, a.n_keys, kps, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The split launches' checks of the plan (decode_plan's contract) and
+// their dispatch on D: kernel 4's kernel, or kernel 9's (a.k_scale set).
+int split_d(const DecodeArgs& a, void* ws, void* counters, int D,
+            int nsplit, int kps, void* stream) {
+  if (a.G <= 0 || a.G > 16 || a.n_keys < 0 || a.n_keys > a.T_len ||
+      nsplit < 1 || nsplit > FIN_SPLITS || kps < 1 ||
+      (long long)nsplit * kps < a.n_keys ||
+      (nsplit > 1 && ((long long)(nsplit - 1) * kps >= a.n_keys ||
+                      ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.KV <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)ws;
+  int* c = (int*)counters;
+  const bool q8 = a.k_scale != nullptr;
+  switch (D) {
+    case 32:
+      return q8 ? launch_split_q8<32>(a, w, c, nsplit, kps, s)
+                : launch_split<32>(a, w, c, nsplit, kps, s);
+    case 64:
+      return q8 ? launch_split_q8<64>(a, w, c, nsplit, kps, s)
+                : launch_split<64>(a, w, c, nsplit, kps, s);
+    case 128:
+      return q8 ? launch_split_q8<128>(a, w, c, nsplit, kps, s)
+                : launch_split<128>(a, w, c, nsplit, kps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B*KV, G, D) — one token's heads, kv-major (h = kv*G + g); k, v
@@ -378,21 +546,22 @@ extern "C" int vwr_flash_decode_split_launch(
     const void* q, const void* k, const void* v, void* o_t, void* m, void* l,
     void* ws, void* counters, int B, int T_len, int KV, int G, int D,
     int n_keys, int nsplit, int kps, float scale, void* stream) {
-  if (G <= 0 || G > 16 || n_keys < 0 || n_keys > T_len || nsplit < 1 ||
-      nsplit > FIN_SPLITS || kps < 1 || (long long)nsplit * kps < n_keys ||
-      (nsplit > 1 && ((long long)(nsplit - 1) * kps >= n_keys ||
-                      ws == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || KV <= 0) return 0;
   const DecodeArgs a{q, k, v, nullptr, nullptr, o_t, m, l,
                      B, T_len, KV, G, n_keys, scale};
-  cudaStream_t s = (cudaStream_t)stream;
-  float* w = (float*)ws;
-  int* c = (int*)counters;
-  switch (D) {
-    case 32: return launch_split<32>(a, w, c, nsplit, kps, s);
-    case 64: return launch_split<64>(a, w, c, nsplit, kps, s);
-    case 128: return launch_split<128>(a, w, c, nsplit, kps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return split_d(a, ws, counters, D, nsplit, kps, stream);
+}
+
+// Kernel 9 on int8 caches, split across blocks: the operands of
+// vwr_flash_decode_q8_launch (bf16 q) with the split launch's plan,
+// workspace and counters.
+extern "C" int vwr_flash_decode_q8_split_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, void* o_t, void* m, void* l, void* ws,
+    void* counters, int B, int T_len, int KV, int G, int D, int n_keys,
+    int nsplit, int kps, float scale, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{q, k, v, (const float*)k_scale, (const float*)v_scale,
+                     o_t, m, l, B, T_len, KV, G, n_keys, scale};
+  return split_d(a, ws, counters, D, nsplit, kps, stream);
 }

@@ -145,9 +145,10 @@
 //   18 KB each, unswizzled; latent boxes of up to 256 columns and a rope
 //   box a segment, by TMA).  Tile t + 1 lands in int8 while tile t's
 //   products run; once tile t's P c_kv products are done, every thread
-//   converts it into the fp16 stage (128-byte swizzle; byte permutes and
-//   one fp16 subtraction a pair, not the conversion units), and tile t + 2's
-//   loads go to the int8 stage tile t left.  The walking warp also copies
+//   converts it into the fp16 stage (128-byte swizzle; common.cuh
+//   i8x4_to_f16: byte permutes and one fp16 subtraction a pair, not the
+//   conversion units), and tile t + 2's loads go to the int8 stage tile t
+//   left.  The walking warp also copies
 //   each segment's two page scales into the tile's map (0 for an absent
 //   segment).  The second warpgroup's half of the score depth ends in the
 //   rope dims: it keeps them in a second m64n32 accumulator, and each side
@@ -444,32 +445,6 @@ __device__ __forceinline__ void pv_slice(float (&o)[OC / 2],
       wgmma_rs_n128<1, F16>(*reinterpret_cast<float(*)[64]>(o + 64 * h), a,
                             wgmma_desc(vt + 2 * h * kblk, kblk, 1024));
   }
-}
-
-// Q8: four int8 (one word, the first in the low byte) as two fp16x2 words,
-// exactly: each byte + 128 is set as the mantissa of 1024 (0x6400), and
-// 1152 = 1024 + 128 subtracted (integer ops and one fp16 subtraction a
-// pair, not four conversions).
-__device__ __forceinline__ void i8x4_to_f16(uint32_t w, uint32_t& lo,
-                                            uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  const __half2 bias = __float2half2_rn(1152.0f);
-  uint32_t a = __byte_perm(u, 0x64646464u, 0x4140);
-  uint32_t b = __byte_perm(u, 0x64646464u, 0x4342);
-  const __half2 x = __hsub2(*reinterpret_cast<__half2*>(&a), bias);
-  const __half2 y = __hsub2(*reinterpret_cast<__half2*>(&b), bias);
-  lo = *reinterpret_cast<const uint32_t*>(&x);
-  hi = *reinterpret_cast<const uint32_t*>(&y);
-}
-
-// Q8: the power of two that brings `amax` into [2^14, 2^15) (1 for 0), so
-// that x times it and its fp16 terms stay inside fp16's normal range for
-// every |x| within 2^-17 of amax (kernels/vwr_mla_decode.py _pow2_up).
-__device__ __forceinline__ float pow2_up(float amax) {
-  if (!(amax > 0.0f)) return 1.0f;
-  int e;
-  frexpf(amax, &e);
-  return ldexpf(1.0f, min(15 - e, 126));
 }
 
 // tc, tr: the pools as (n_pages * ps, r) and (n_pages * ps, rope) row

@@ -20,9 +20,10 @@ WMMA / FMA tile kernel;
 ``vwr_conv2d``: wgmma or the halo-tile kernel;
 ``vwr_mla_flash_decode``, ``vwr_mla_paged_flash_decode``,
 ``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
-``vwr_flash_decode``: split-KV on mma.sync or FMA;
-``vwr_paged_flash_decode``: split-KV on mma.sync or FMA;
-``vwr_chunk_prefix_attend``: wgmma or FMA; ``vwr_depthwise``: row-streamed
+``vwr_flash_decode`` and its ``_q8`` sibling: split-KV on mma.sync or
+FMA; ``vwr_paged_flash_decode``: split-KV on mma.sync or FMA;
+``vwr_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
+``vwr_depthwise``: row-streamed
 strips or the halo tile) also counts the variant that ran in
 ``VARIANTS``.
 """
@@ -74,8 +75,12 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
                             "vwr_mla_chunk_prefix_attend_q8.fma": 0,
                             "vwr_flash_decode.split": 0,
                             "vwr_flash_decode.fma": 0,
+                            "vwr_flash_decode_q8.split": 0,
+                            "vwr_flash_decode_q8.fma": 0,
                             "vwr_chunk_prefix_attend.wgmma": 0,
                             "vwr_chunk_prefix_attend.fma": 0,
+                            "vwr_chunk_prefix_attend_q8.wgmma": 0,
+                            "vwr_chunk_prefix_attend_q8.fma": 0,
                             "vwr_paged_flash_decode.mma": 0,
                             "vwr_paged_flash_decode.fma": 0,
                             "vwr_depthwise.stream": 0,
@@ -229,8 +234,9 @@ def split_counters(device, stream: int, n: int):
     kernels whose K splits are summed by the last block of a tile
     (``vwr_matmul``'s split-K and wgmma variants, ``vwr_swiglu``'s and
     ``vwr_conv2d``'s wgmma variants) or whose key splits are merged by the
-    last block of a row group (``vwr_flash_decode``'s split variant,
-    ``vwr_paged_flash_decode``'s mma variant, ``vwr_chunk_prefix_attend``'s,
+    last block of a row group (``vwr_flash_decode``'s and its ``_q8``
+    sibling's split variants, ``vwr_paged_flash_decode``'s mma variant,
+    ``vwr_chunk_prefix_attend``'s and its ``_q8`` sibling's,
     ``vwr_mla_flash_decode``'s and ``vwr_mla_paged_flash_decode``'s wgmma
     variants), kept across calls: every launch leaves its counters at
     0.  A buffer belongs to one stream, and so does a CUDA graph captured
@@ -252,9 +258,9 @@ _SPLIT_WORKSPACE: Dict[object, object] = {}
 def split_workspace(device, stream: int, n: int):
     """An fp32 buffer of at least ``n`` floats for the key splits'
     partials of launches on ``stream`` on ``device`` (``vwr_flash_decode``'s
-    split variant, ``vwr_paged_flash_decode``'s mma variant,
-    ``vwr_chunk_prefix_attend``'s and the MLA decode kernels' wgmma
-    variants), kept across calls and
+    and its ``_q8`` sibling's split variants, ``vwr_paged_flash_decode``'s
+    mma variant, ``vwr_chunk_prefix_attend``'s and its ``_q8`` sibling's
+    and the MLA decode kernels' wgmma variants), kept across calls and
     grown (doubled) when a call needs more: a launch writes every partial
     it reads.  A buffer belongs to one stream, as ``split_counters``'s
     does; it is allocated while that stream is current, so the caching

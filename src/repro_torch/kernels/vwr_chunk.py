@@ -18,15 +18,17 @@ pools, on each call, with the scale of the true width
 (``widths.at_widths``): acceptable at reduced widths, and nothing is
 copied at D 64 or 128.
 
-Kernel 6 has two kernels, and ``chunk_variant`` picks one per call:
-``"wgmma"`` (bf16 pools at D 32 / 64 / 128, pages of a multiple of 8
-rows: 64 chunk rows a block as wgmma's M, 64-key tiles from the page walk
-``key_tiles``, P as two bf16 terms, the table cut into ``chunk_plan``'s
-splits, one block a split, merged by the row group's last block in the
-same launch; ``chunk_wgmma_emulation`` is its arithmetic in plain
-PyTorch) or ``"fma"`` (fp32 pools, pages off 8: the FMA kernel).  Kernel
-8 (int8 pools) runs the FMA kernel.  ``build.VARIANTS`` counts both of
-kernel 6's.
+Kernels 6 and 8 have two kernels each, and ``chunk_variant`` picks one
+per call: ``"wgmma"`` (bf16 queries at D 32 / 64 / 128, pages of a
+multiple of 8 rows: 64 chunk rows a block as wgmma's M, 64-key tiles from
+the page walk ``key_tiles``, P as two bf16 terms, the table cut into
+``chunk_plan``'s splits, one block a split, merged by the row group's
+last block in the same launch; over kernel 8's int8 pools each tile lands
+in int8 and is converted exactly to bf16, each score column takes scale
+times its page's k scale in fp32 and P its page's v scale before the
+split; ``chunk_wgmma_emulation`` is the arithmetic in plain PyTorch) or
+``"fma"`` (fp32 queries, pages off 8: the FMA kernel).
+``build.VARIANTS`` counts both variants of each.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.
@@ -105,8 +107,9 @@ def _cdiv(a, b):
 
 
 def chunk_variant(CG, D, page_size, dtype):
-    """The kernel that serves a ``vwr_chunk_prefix_attend`` call at the
-    kernel's widths (after ``widths.at_widths``): "wgmma" for bf16 pools
+    """The kernel that serves a ``vwr_chunk_prefix_attend`` or
+    ``vwr_chunk_prefix_attend_q8`` call at the kernel's widths (after
+    ``widths.at_widths``): "wgmma" for bf16 queries (bf16 or int8 pools)
     at D 32, 64 or 128 with pages of a multiple of 8 rows, else "fma".
     A one-token chunk (8 rows at G 8) takes "wgmma" too: measured on the
     H100 at 16 pages, 0.013 ms against the FMA kernel's 0.050 (PERF.md)."""
@@ -163,15 +166,18 @@ def key_tiles(table, counts, page_size, keys=CHUNK_KEYS):
 
 
 def chunk_wgmma_emulation(q, k_pool, v_pool, table, counts, plan=None,
-                          terms=2):
+                          terms=2, scales=None):
     """The wgmma variant's arithmetic in plain PyTorch (the tests hold it
     against ``vwr_chunk_prefix_attend_ref`` and the JAX op): per split
     (``chunk_plan``'s unless ``plan`` is given) the split's pages walked
     into 64-key tiles (``key_tiles``), scores (q . k) * scale of the bf16
     values in fp32, masked per slot, an fp32 online softmax, P as
     ``terms`` bf16 terms against V; the splits merged in split order
-    (``combine_partials``).  Returns fp32 (o_tilde (KV, C*G, D), m (KV,
-    C*G), l (KV, C*G))."""
+    (``combine_partials``).  ``scales``: kernel 8's int8 pools with their
+    (n_pages, KV) (k_scale, v_scale): the int8 values exact in bf16, each
+    score column times scale * its page's k scale, P times its column's v
+    scale before the split into terms, l over the unscaled P.  Returns
+    fp32 (o_tilde (KV, C*G, D), m (KV, C*G), l (KV, C*G))."""
     KV, CG, D = q.shape
     n_pages, ps = k_pool.shape[:2]
     J = table.shape[0]
@@ -193,13 +199,20 @@ def chunk_wgmma_emulation(q, k_pool, v_pool, table, counts, plan=None,
             idx = torch.tensor([max(t, 0) for t in tile], device=q.device)
             ok = torch.tensor([t >= 0 for t in tile], device=q.device)
             kc, vc = kf[idx], vf[idx]
-            sc = torch.einsum("hcd,thd->hct", qf, kc) * scale
+            # a slot's factors (KV, 1, keys): scale, and its page's scales
+            sk = torch.full((KV, 1, len(tile)), scale, **f32)
+            vs = torch.ones((KV, 1, len(tile)), **f32)
+            if scales is not None:
+                page = idx // ps
+                sk = (scale * scales[0].float()[page]).T[:, None]
+                vs = scales[1].float()[page].T[:, None]
+            sc = torch.einsum("hcd,thd->hct", qf, kc) * sk
             sc = torch.where(ok, sc, NEG_INF)
             mx = torch.maximum(m, sc.amax(-1))
             corr = torch.exp(m - mx)
             p = torch.where(ok, torch.exp(sc - mx[..., None]), 0.0)
             pv = sum(torch.einsum("hct,thd->hcd", t, vc)
-                     for t in bf16_terms(p, terms))
+                     for t in bf16_terms(p * vs, terms))
             o, m, l = o * corr[..., None] + pv, mx, l * corr + p.sum(-1)
         splits.append((o, m, l))
     return combine_partials(splits)
@@ -217,7 +230,6 @@ def _chunk_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
     KV, CG, D = q.shape
     n_pages, ps, KVp, Dp = k_pool.shape
     J = table.shape[0]
-    code = build.dtype_code(q.dtype)
     if KVp != KV or Dp != D or n_pages < 1:
         raise ValueError(f"{kernel}: needs q (KV, C*G, D) against pools "
                          f"(n_pages>=1, ps, KV, D) and a (J,) table; got q "
@@ -233,13 +245,9 @@ def _chunk_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
         build.check_operands(kernel, torch.float32,
                              k_scale=(scales[0], (n_pages, KV)),
                              v_scale=(scales[1], (n_pages, KV)))
-    if scales:   # kernel 8
-        out = _launch_fma(kernel, q, k_pool, v_pool, table, counts, scales,
-                          scale, code)
-        build.count_launch(kernel)
-        return out
     return chunk_launch(q, k_pool, v_pool, table, counts,
-                        chunk_variant(CG, D, ps, q.dtype), scale=scale)
+                        chunk_variant(CG, D, ps, q.dtype), scale=scale,
+                        scales=scales)
 
 
 def _launch_fma(kernel, q, k_pool, v_pool, table, counts, scales, scale,
@@ -262,18 +270,20 @@ def _launch_fma(kernel, q, k_pool, v_pool, table, counts, scales, scale,
 
 
 def chunk_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
-                 scale=None):
+                 scale=None, scales=()):
     """One launch of kernel 6's variant ``kind`` ("wgmma" or "fma") on
     operands ``vwr_chunk_prefix_attend`` checked, with ``chunk_plan``'s
-    plan unless ``plan`` is given; chip_smoke.py times the variants and
-    plans against each other through it."""
+    plan unless ``plan`` is given; with ``scales`` (the int8 pools'
+    (k_scale, v_scale)) kernel 8's, on operands
+    ``vwr_chunk_prefix_attend_q8`` checked.  chip_smoke.py times the
+    variants and plans against each other through it."""
     KV, CG, D = q.shape
     n_pages, ps = k_pool.shape[:2]
     J = table.shape[0]
     scale = 1.0 / D ** 0.5 if scale is None else scale
-    kernel = "vwr_chunk_prefix_attend"
+    kernel = "vwr_chunk_prefix_attend" + ("_q8" if scales else "")
     if kind == "fma":
-        out = _launch_fma(kernel, q, k_pool, v_pool, table, counts, (),
+        out = _launch_fma(kernel, q, k_pool, v_pool, table, counts, scales,
                           scale, build.dtype_code(q.dtype))
     else:
         nsplit, jps = plan or chunk_plan(KV, CG, J, ps)
@@ -285,14 +295,12 @@ def chunk_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
         f32 = dict(dtype=torch.float32, device=q.device)
         out = (torch.empty((KV, CG, D), **f32),
                torch.empty((KV, CG), **f32), torch.empty((KV, CG), **f32))
-        lib, fn = build.kernel_fn(
-            "vwr_chunk_prefix", "vwr_chunk_prefix_attend_wgmma_launch",
-            [_VP] * 10 + [_I] * 8 + [_F, _VP])
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), counts.data_ptr(),
-                 *(t.data_ptr() for t in out), ws.data_ptr(),
-                 counters.data_ptr(), CG, J, n_pages, ps, KV, D, nsplit,
-                 jps, scale, stream)
+        ptrs = [q, k_pool, v_pool, *scales, table, counts, *out, ws,
+                counters]
+        lib, fn = build.kernel_fn("vwr_chunk_prefix", f"{kernel}_wgmma_launch",
+                                  [_VP] * len(ptrs) + [_I] * 8 + [_F, _VP])
+        err = fn(*(t.data_ptr() for t in ptrs), CG, J, n_pages, ps, KV, D,
+                 nsplit, jps, scale, stream)
         build.check(lib, err, kernel)
     build.count_launch(kernel, kind)
     return out

@@ -29,20 +29,24 @@ pool of a reduced config that pads the whole pool on each call, which
 is acceptable at reduced widths.  Nothing is copied at D 64 or 128 and
 G <= 16.
 
-Kernel 4 has two kernels, and ``decode_variant`` picks one per call:
-``"split"`` (bf16 caches at D 32 / 64 / 128: each (batch, KV head)
-group's keys cut into ``decode_plan``'s splits, one block a split, the
-products on mma.sync with P as two bf16 terms, the splits merged by the
-group's last block in the same launch; ``decode_split_emulation`` is its
-arithmetic in plain PyTorch) or ``"fma"`` (fp32 caches: the FMA kernel).
-Kernel 9 (the int8 cache) runs the FMA kernel.  Kernel 5 has two as well,
+Kernels 4 and 9 have two kernels each, and ``decode_variant`` picks one
+per call: ``"split"`` (bf16 queries at D 32 / 64 / 128: each (batch, KV
+head) group's keys cut into ``decode_plan``'s splits, one block a split,
+the products on mma.sync with P as two bf16 terms, the splits merged by
+the group's last block in the same launch; over kernel 9's int8 cache
+the keys are converted exactly to bf16 and the values to fp16, the
+scores take scale * k_scale in fp32, P is two fp16 terms and each
+split's o_tilde takes v_scale; ``decode_split_emulation`` is the
+arithmetic in plain PyTorch) or ``"fma"`` (fp32 queries: the FMA
+kernel).  Kernel 5 has two as well,
 and ``paged_variant`` picks one: ``"mma"`` (bf16 pools at D 32 / 64 /
 128, any page size: kernel 4's split kernel over the block table, each
 slot's table entries cut into ``paged_plan``'s splits from the table's
 shape alone, 64-slot tiles of logical keys that resolve their own
 entries, masked per key; ``paged_mma_emulation`` is its arithmetic) or
 ``"fma"`` (fp32 pools: the FMA kernel).  Kernel 7 (int8 pools) runs the
-FMA kernel.  ``build.VARIANTS`` counts both variants of kernels 4 and 5.
+FMA kernel.  ``build.VARIANTS`` counts both variants of kernels 4, 5 and
+9.
 The split variants' partials and counters are ``build.split_workspace``
 / ``split_counters``, one buffer per (device, stream).
 
@@ -116,9 +120,10 @@ def _cdiv(a, b):
 
 
 def decode_variant(dtype, D, G):
-    """The kernel that serves a ``vwr_flash_decode`` call at the kernel's
-    widths (after ``widths.at_widths``): "split" for bf16 caches at D 32,
-    64 or 128 and G <= 16, else "fma"."""
+    """The kernel that serves a ``vwr_flash_decode`` or
+    ``vwr_flash_decode_q8`` call at the kernel's widths (after
+    ``widths.at_widths``): "split" for bf16 queries (bf16 or int8 caches)
+    at D 32, 64 or 128 and G <= 16, else "fma"."""
     if dtype == torch.bfloat16 and D in HEAD_DIMS and G <= MAX_GROUP:
         return "split"
     return "fma"
@@ -190,7 +195,15 @@ def bf16_terms(x, terms=2):
     return (hi, (x - hi).bfloat16().float())[:terms]
 
 
-def decode_split_emulation(q, k, v, cur_len, pos0=0, plan=None, terms=2):
+def f16_terms(x, terms=2):
+    """x (fp32, in [0, 1]: P) as ``terms`` fp16 terms, hi = fp16(x) and lo =
+    fp16(x - hi) (kernel 9's split variant), each returned as fp32."""
+    hi = x.half().float()
+    return (hi, (x - hi).half().float())[:terms]
+
+
+def decode_split_emulation(q, k, v, cur_len, pos0=0, plan=None, terms=2,
+                           scales=None, p_terms=None):
     """The split variant's arithmetic in plain PyTorch (the tests hold it
     against ``vwr_flash_decode_ref`` and the JAX op): per split
     (``decode_plan``'s unless ``plan`` is given), 64-key tiles whose 16-key
@@ -198,7 +211,12 @@ def decode_split_emulation(q, k, v, cur_len, pos0=0, plan=None, terms=2):
     slices with the scores (q . k) * scale of the bf16 values and P as
     ``terms`` bf16 terms against V; the warps merge in warp order into the
     split's partial, the splits in split order (``combine_partials``).
-    Returns fp32 (o_tilde (B*KV, G, D), m (B*KV, G), l (B*KV, G))."""
+    ``scales``: kernel 9's int8 cache with its (B*KV,) (k_scale, v_scale):
+    the int8 values exact in bf16 and fp16, each score (q . k8) times
+    scale * k scale, P as fp16 terms (``f16_terms``; ``p_terms`` sets the
+    splitter), and each split's merged o_tilde times the v scale (both
+    scales constant over a group).  Returns fp32 (o_tilde (B*KV, G, D),
+    m (B*KV, G), l (B*KV, G))."""
     BKV, G, D = q.shape
     B, T, KV, _ = k.shape
     scale = 1.0 / D ** 0.5
@@ -208,6 +226,12 @@ def decode_split_emulation(q, k, v, cur_len, pos0=0, plan=None, terms=2):
     kf, vf = (t.bfloat16().float().permute(0, 2, 1, 3).reshape(BKV, T, D)
               for t in (k, v))
     f32 = dict(dtype=torch.float32, device=q.device)
+    sk = torch.full((BKV, 1, 1), scale, **f32)
+    vs = torch.ones((BKV, 1, 1), **f32)
+    if scales is not None:
+        sk = (scale * scales[0].float()).reshape(BKV, 1, 1)
+        vs = scales[1].float().reshape(BKV, 1, 1)
+    p_terms = p_terms or (f16_terms if scales is not None else bf16_terms)
     empty = (torch.zeros((BKV, G, D), **f32),
              torch.full((BKV, G), NEG_INF, **f32), torch.zeros((BKV, G), **f32))
     splits = []
@@ -221,15 +245,16 @@ def decode_split_emulation(q, k, v, cur_len, pos0=0, plan=None, terms=2):
                     continue
                 keys = slice(s0, min(s0 + SPLIT_SLICE, k1))
                 o, m, l = warps[w]
-                sc = torch.einsum("bgd,btd->bgt", qf, kf[:, keys]) * scale
+                sc = torch.einsum("bgd,btd->bgt", qf, kf[:, keys]) * sk
                 mx = torch.maximum(m, sc.amax(-1))
                 corr = torch.exp(m - mx)
                 p = torch.exp(sc - mx[..., None])
                 pv = sum(torch.einsum("bgt,btd->bgd", t, vf[:, keys])
-                         for t in bf16_terms(p, terms))
+                         for t in p_terms(p, terms))
                 warps[w] = (o * corr[..., None] + pv, mx,
                             l * corr + p.sum(-1))
-        splits.append(combine_partials(warps))
+        o, m, l = combine_partials(warps)
+        splits.append((o * vs, m, l))
     return combine_partials(splits)
 
 
@@ -247,7 +272,6 @@ def _dense_kernel(kernel, q, k, v, scales, cur_len, pos0, scale):
     if BKV != B * KV:
         raise ValueError(f"{kernel}: needs q (B*KV, G, D), got q "
                          f"{tuple(q.shape)} and cache {tuple(k.shape)}")
-    code = build.dtype_code(q.dtype)
     build.check_operands(kernel, q.dtype, q=(q, (BKV, G, D)))
     build.check_operands(kernel, torch.int8 if scales else q.dtype,
                          k=(k, (B, T, KV, D)), v=(v, (B, T, KV, D)))
@@ -256,12 +280,8 @@ def _dense_kernel(kernel, q, k, v, scales, cur_len, pos0, scale):
                              k_scale=(scales[0], (BKV,)),
                              v_scale=(scales[1], (BKV,)))
     n_keys = max(0, min(T, int(cur_len) - int(pos0)))
-    if scales:   # kernel 9
-        out = _launch_fma(kernel, q, k, v, scales, n_keys, scale, code)
-        build.count_launch(kernel)
-        return out
     return decode_launch(q, k, v, n_keys, decode_variant(q.dtype, D, G),
-                         scale=scale)
+                         scale=scale, scales=scales)
 
 
 def _launch_fma(kernel, q, k, v, scales, n_keys, scale, code):
@@ -280,17 +300,19 @@ def _launch_fma(kernel, q, k, v, scales, n_keys, scale, code):
     return o_t, m, l
 
 
-def decode_launch(q, k, v, n_keys, kind, plan=None, scale=None):
+def decode_launch(q, k, v, n_keys, kind, plan=None, scale=None, scales=()):
     """One launch of kernel 4's variant ``kind`` ("split" or "fma") on
     operands ``vwr_flash_decode`` checked, keys 0 .. n_keys - 1 valid, with
-    ``decode_plan``'s plan unless ``plan`` is given; chip_smoke.py times
-    the variants and plans against each other through it."""
+    ``decode_plan``'s plan unless ``plan`` is given; with ``scales`` (the
+    int8 cache's (k_scale, v_scale)) kernel 9's, on operands
+    ``vwr_flash_decode_q8`` checked.  chip_smoke.py times the variants and
+    plans against each other through it."""
     BKV, G, D = q.shape
     B, T, KV, _ = k.shape
     scale = 1.0 / D ** 0.5 if scale is None else scale
-    kernel = "vwr_flash_decode"
+    kernel = "vwr_flash_decode" + ("_q8" if scales else "")
     if kind == "fma":
-        out = _launch_fma(kernel, q, k, v, (), n_keys, scale,
+        out = _launch_fma(kernel, q, k, v, scales, n_keys, scale,
                           build.dtype_code(q.dtype))
     else:
         nsplit, kps = plan or decode_plan(BKV, n_keys)
@@ -301,13 +323,11 @@ def decode_launch(q, k, v, n_keys, kind, plan=None, scale=None):
         f32 = dict(dtype=torch.float32, device=q.device)
         out = (torch.empty((BKV, G, D), **f32),
                torch.empty((BKV, G), **f32), torch.empty((BKV, G), **f32))
-        lib, fn = build.kernel_fn("vwr_decode",
-                                  "vwr_flash_decode_split_launch",
-                                  [_VP] * 8 + [_I] * 8 + [_F, _VP])
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 *(t.data_ptr() for t in out), ws.data_ptr(),
-                 counters.data_ptr(), B, T, KV, G, D, n_keys, nsplit, kps,
-                 scale, stream)
+        ptrs = [q, k, v, *scales, *out, ws, counters]
+        lib, fn = build.kernel_fn("vwr_decode", f"{kernel}_split_launch",
+                                  [_VP] * len(ptrs) + [_I] * 8 + [_F, _VP])
+        err = fn(*(t.data_ptr() for t in ptrs), B, T, KV, G, D, n_keys,
+                 nsplit, kps, scale, stream)
         build.check(lib, err, kernel)
     build.count_launch(kernel, kind)
     return out
