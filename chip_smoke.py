@@ -57,11 +57,16 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    two launches, held against the plain version and the emulation;
    kernels 4 and 6's split and tile edges over int8, B4 / B1 T2048 and
    124 pages timed, plan tables beside the FMA kernel forced through
-   ``kind`` and dequantize-then-SDPA); then kernels 1 (split-K), 4 (8
-   splits), 5 (8 splits), 11, 9 (8 splits) and 8 (16 splits) launched in
-   turns on two streams with no synchronisation, each stream's outputs
-   bitwise equal to one stream's (the split buffers belong to one
-   stream);
+   ``kind`` and dequantize-then-SDPA); kernels 7 and 13 on int8 pages by
+   kernel 5's mma and kernel 11's wgmma variants (kernels 5 and 11's
+   edges over int8, each case on its rule's variant, bitwise over two
+   launches, held against the plain version and the emulation; a case
+   whose splits' page scales lie 2^12 apart; the J 128 tables timed
+   beside the FMA kernel forced and the library call; both plan tables);
+   then kernels 1 (split-K), 4 (8 splits), 5 (8 splits), 11, 9 (8
+   splits), 8 (16 splits), 7 and 13 (J 128) launched in turns on two
+   streams with no synchronisation, each stream's outputs bitwise equal
+   to one stream's (the split buffers belong to one stream);
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -85,8 +90,8 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    pages of 16, 24 requests with prompts of 32-256 tokens and gen 32,
    8 submitted at once and 2 more every 4 steps), once with bf16 and
    once with int8 pools: every request FINISHED, every page free after
-   the drain, the paged kernel launched 22 times a decode step (on bf16
-   pools every launch on kernel 5's mma variant), the
+   the drain, the paged kernel launched 22 times a decode step (every
+   launch on the mma variant: kernel 5's on bf16 pools, 7's on int8), the
    dense decode kernel never, ``vwr_attention`` 22 times a (batch-1)
    prefill; the same stream again with 40 pages held, where growth must
    preempt and every request still finish; 4 requests replayed
@@ -122,8 +127,8 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    path with the routing of both compared, kernel 14 through
    ``dist.decode.local_mla_decode_attend`` over generate's latent cache
    quantized per sequence, and the Scheduler stream of phase 5 on bf16
-   and int8 latent pools (kernels 11, every launch on its wgmma variant,
-   and 13), its requests replayed in
+   and int8 latent pools (kernels 11 and 13, every launch on the wgmma
+   variant), its requests replayed in
    the live slots through both paths;
 8. the prefix cache and chunked prefill of the MLA families: kernels 12
    and 15 (a chunk's C tokens against its prior latent pages, one (J,)
@@ -885,14 +890,16 @@ def check_kernels(torch, F):
             before = dict(build.VARIANTS)
             got = fn(*ops_)
             torch.cuda.synchronize()
-            if not q8:
-                _served(kname, shape_s, before, build, KD.paged_variant(
-                    dt, widths.native_width(D, KD.HEAD_DIMS, kname),
-                    min(G, KD.MAX_GROUP)))
+            kind = KD.paged_variant(
+                dt, widths.native_width(D, KD.HEAD_DIMS, kname),
+                min(G, KD.MAX_GROUP))
+            _served(kname, shape_s, before, build, kind)
             err = compare(kname, shape_s, f32, got, ref(*ops_))
-            if dt == bf16 and not q8:
+            if kind == "mma":
                 compare("  vs emulation", shape_s, f32, got,
-                        KD.paged_mma_emulation(*ops_))
+                        KD.paged_mma_emulation(
+                            q, *pools, table, counts,
+                            scales=tuple(scales) or None))
                 _bitwise(kname, shape_s, got, fn(*ops_))
             for b, n in enumerate(lens):
                 if n == 0 and got[2][b * KV:(b + 1) * KV].abs().max() != 0:
@@ -912,6 +919,12 @@ def check_kernels(torch, F):
                        _paged_sdpa(torch, F, q, pools, scales, table,
                                    counts, KV, G, D),
                        4 * KV * G * D * n_keys, nbytes, head)
+                row = record.rows[-1]
+                row["variant"] = kind
+                row["fma_ms"] = time_ms(torch, lambda: KD.paged_launch(
+                    q, *pools, table, counts, "fma", scales=tuple(scales)))
+                print(f"      variant {kind}; the FMA kernel (forced): "
+                      f"{row['fma_ms']:.4f} ms")
 
     # ---- vwr_chunk_prefix_attend[_q8]: a prompt chunk vs its prior pages ----
     ck_cases = [
@@ -1004,6 +1017,7 @@ def check_kernels(torch, F):
     check_paged_variants(torch, F, compare, record)
     check_mla_kernels(torch, F, gen, compare, record)
     check_mla_decode_variants(torch, F, compare, record)
+    check_paged_q8_variants(torch, F, compare, record)
     check_conv_kernels(torch, F, gen, compare, record)
     return results
 
@@ -1426,7 +1440,8 @@ def check_two_streams(torch):
     mma variant on a 128-entry table, 8 splits a group; kernel 11's wgmma
     variant on a 128-entry table at DeepSeek-V3's widths; kernel 9's split
     variant at B4 T2048 over an int8 cache; kernel 8's wgmma variant on
-    124 int8 pages, 16 splits a row group) issued in turns
+    124 int8 pages, 16 splits a row group; kernels 7 and 13 on the
+    128-entry table over int8 pages) issued in turns
     on two streams with no synchronisation between them, and each
     stream's outputs held bitwise to the same launches on one stream.
     With one buffer a device the two streams' blocks would count on the
@@ -1467,6 +1482,15 @@ def check_two_streams(torch):
     ctable = torch.randperm(160, generator=gen,
                             device="cuda")[:124].to(torch.int32)
     ccounts = torch.full((124,), 16, dtype=torch.int32, device="cuda")
+    i8 = dict(generator=gen, device="cuda", dtype=torch.int8)
+    pools8 = [torch.randint(-127, 128, (1200, 16, KV, D), **i8)
+              for _ in range(2)]
+    psc = tuple(torch.rand((1200, KV), generator=gen, device="cuda") * 0.02
+                + 1e-3 for _ in range(2))
+    mla_pools8 = [torch.randint(-127, 128, (1200, 16, w), **i8)
+                  for w in (512, 64)]
+    msc = tuple(torch.rand(1200, generator=gen, device="cuda") * 0.02 + 1e-3
+                for _ in range(2))
     calls = {
         "vwr_flash_decode split (8, 256)":
             (lambda: KD.vwr_flash_decode(qd, kd, vd, T),
@@ -1487,6 +1511,14 @@ def check_two_streams(torch):
             (lambda: KC.vwr_chunk_prefix_attend_q8(qc, *cpools, *csc, ctable,
                                                    ccounts),
              "vwr_chunk_prefix_attend_q8", "wgmma"),
+        "vwr_paged_flash_decode_q8 mma J 128":
+            (lambda: KD.vwr_paged_flash_decode_q8(qp, *pools8, *psc, table,
+                                                  counts),
+             "vwr_paged_flash_decode_q8", "mma"),
+        "vwr_mla_paged_flash_decode_q8 wgmma J 128":
+            (lambda: KMLA.vwr_mla_paged_flash_decode_q8(
+                *qm, *mla_pools8, *msc, table, counts, scale=192 ** -0.5),
+             "vwr_mla_paged_flash_decode_q8", "wgmma"),
     }
     if (KD.decode_plan(B * KV, T)[0] < 2
             or KD.paged_plan(8 * KV, 128, 16)[0] < 2
@@ -1843,12 +1875,12 @@ def check_mla_kernels(torch, F, gen, compare, record):
             before = dict(build.VARIANTS)
             got = fn(*args, scale=SCALE)
             torch.cuda.synchronize()
-            kind = None if q8 else KM.decode_variant(R, RP, H, None, dt)
-            if kind:
-                _served(kname, shape, before, build, kind)
+            kind = KM.decode_variant(R, RP, H, None,
+                                     torch.int8 if q8 else dt)
+            _served(kname, shape, before, build, kind)
             if kind == "wgmma":
                 _bitwise(kname, shape, got, fn(*args, scale=SCALE))
-            err = compare(f"{kname} {kind or 'fma'}", shape, f32, got,
+            err = compare(f"{kname} {kind}", shape, f32, got,
                           ref(*args, scale=SCALE))
             if cur <= pos0 and (got[2].abs().max().item() != 0.0
                                 or got[1].max().item() > -1e29):
@@ -1872,7 +1904,7 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        lambda: ref(*args, scale=SCALE), sliced,
                        2 * H * B * n * (2 * R + RP), nbytes, head,
                        op_dtype=bf16 if kind == "wgmma" else f32)
-                record.rows[-1]["variant"] = kind or "fma"
+                record.rows[-1]["variant"] = kind
 
     # 8 slots, ragged: 653 keys in 44 live pages; slot 0 is inactive, a
     # page of slot 4 is counted 0 and slot 2's table entry lies past the
@@ -1907,13 +1939,19 @@ def check_mla_kernels(torch, F, gen, compare, record):
             before = dict(build.VARIANTS)
             got = fn(*args, scale=SCALE)
             torch.cuda.synchronize()
-            kind = None if q8 else KM.decode_variant(R, RP, H, pgs, dt)
-            if kind:
-                _served(kname, shape, before, build, kind)
+            kind = KM.decode_variant(R, RP, H, pgs,
+                                     torch.int8 if q8 else dt)
+            _served(kname, shape, before, build, kind)
             if kind == "wgmma":
                 _bitwise(kname, shape, got, fn(*args, scale=SCALE))
-            err = compare(f"{kname} {kind or 'fma'}", shape, f32, got,
+            err = compare(f"{kname} {kind}", shape, f32, got,
                           ref(*args, scale=SCALE))
+            if kind == "wgmma" and q8:
+                compare("  vs emulation", shape, f32, got,
+                        KM.decode_split_emulation(
+                            qa, qr, *pools, table, counts,
+                            ckv_scale=scales[0], krope_scale=scales[1],
+                            scale=SCALE))
             if got[2][0].abs().max().item() != 0.0:
                 raise AssertionError("an inactive slot must give l=0")
             if timed:
@@ -1939,7 +1977,15 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        lambda: ref(*args, scale=SCALE), gathered,
                        2 * H * n_keys * (2 * R + RP), nbytes, head,
                        op_dtype=bf16 if kind == "wgmma" else f32)
-                record.rows[-1]["variant"] = kind or "fma"
+                row = record.rows[-1]
+                row["variant"] = kind
+                if kind == "wgmma":
+                    row["fma_ms"] = time_ms(
+                        torch, lambda: KM.mla_decode_launch(
+                            qa, qr, *pools, (table, counts), 0, "fma",
+                            scale=SCALE, scales=tuple(scales)))
+                    print(f"      the FMA kernel (forced): "
+                          f"{row['fma_ms']:.4f} ms")
 
     # kernels 12 and 15: a prompt chunk's C tokens against its prior
     # pages, one (J,) table; each case's last table entry lies past the
@@ -2394,6 +2440,277 @@ def check_mla_decode_variants(torch, F, compare, record):
         for name in calls:
             print(f"      {name}: " + ", ".join(f"{a:.2f} / {b:.2f}"
                                                 for a, b in row[name]))
+
+
+# kernels 7 and 13 with their page scales 2^12 apart between the first
+# and the last split of a slot, and slot 0 in its first split alone: P's
+# power of two must come from the block's own split (taken from slot 0's
+# row or from a first split, P's fp16 terms overflow in the last ones)
+SCALE_STEP = 2.0 ** 12
+
+
+def _stepped_scales(torch, scales, table, counts, nsplit, per):
+    """The page scales of the live pages that ``table`` holds before a
+    slot's last split of ``per`` entries (``nsplit`` splits) divided by
+    ``SCALE_STEP``, in place (the outputs keep their magnitude); returns
+    the factor between the splits' largest counted scales, the smallest
+    over the slots with both."""
+    B, J = table.shape
+    n_pages = scales[0].shape[0]
+    tbl = table.long().clamp(0, n_pages - 1)
+    late = torch.arange(J, device=table.device) >= (nsplit - 1) * per
+    pages = tbl[:, ~late][counts[:, ~late] > 0].unique()
+    for s in scales:
+        s[pages] /= SCALE_STEP
+    cs = scales[0].reshape(n_pages, -1)[:, 0]
+    steps = []
+    for b in range(B):
+        live = counts[b] > 0
+        first, last = live & ~late, live & late
+        if bool(first.any()) and bool(last.any()):
+            steps.append(float(cs[tbl[b][last]].max()
+                               / cs[tbl[b][first]].max()))
+    return min(steps)
+
+
+def check_paged_q8_variants(torch, F, compare, record):
+    """Kernel 7's mma variant and kernel 13's wgmma variant (kernels 5
+    and 11's over int8 pages) at kernels 5 and 11's edges (masks, page
+    sizes, widths, forced plans, J 128 tables; each case on the variant
+    its rule names, within the fp32 limit of the plain version and of the
+    emulation, bitwise over two launches, a slot without a valid key
+    giving m = -1e30, l = 0, o = 0), a case whose splits' page scales lie
+    2^12 apart, the J 128 tables timed beside their bounds, the parent's
+    FMA kernel (forced through ``kind``) and the library call, and the
+    plan tables.  A generator of its own (seed 25), so the other cases
+    keep their inputs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_decode as KD
+    from repro_torch.kernels import vwr_mla_decode as KM
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    bf16, f32 = torch.bfloat16, torch.float32
+    i8 = dict(generator=gen, device="cuda", dtype=torch.int8)
+
+    def scales(*shape):
+        return tuple(torch.rand(shape, generator=gen, device="cuda") * 0.02
+                     + 1e-3 for _ in range(2))
+
+    def empty_ok(kname, shape, got, empty):
+        if bool(empty.any()) and (
+                got[2][empty].abs().max().item() != 0.0
+                or got[0][empty].abs().max().item() != 0.0
+                or got[1][empty].max().item() > -1e29):
+            raise AssertionError(f"{kname} {shape}: a slot with no valid "
+                                 "key must give m=-1e30, l=0, o=0")
+
+    def held(kname, want_kind, shape, run, want, emul):
+        before = dict(build.VARIANTS)
+        got = run()
+        torch.cuda.synchronize()
+        _served(kname, shape, before, build, want_kind)
+        err = compare(kname, shape, f32, got, want)
+        compare("  vs emulation", shape, f32, got, emul)
+        _bitwise(kname, shape, got, run())
+        return got, err
+
+    # ---- kernel 7: kernel 5's edges over int8 pages ----
+    kname = "vwr_paged_flash_decode_q8"
+    print(f"{kname} mma edges")
+
+    def paged_ops(B, KV, G, D, ps, n_pages, J, lens, cset=None, tset=None):
+        q = torch.randn(B * KV, G, D, generator=gen, device="cuda").to(bf16)
+        pools = [torch.randint(-127, 128, (n_pages, ps, KV, D), **i8)
+                 for _ in range(2)]
+        sc = scales(n_pages, KV)
+        table, counts, live = _paged_table(torch, gen, lens, J, ps, n_pages)
+        for (b, j), c in (cset or {}).items():
+            counts[b, j] = c
+        for (b, j), t in (tset or {}).items():
+            table[b, j] = t
+        return (q, *pools, *sc, table, counts), live
+
+    def paged_case(label, ops_, plan, KV, timed=False, live=0):
+        q, kp, vp, ks, vs, table, counts = ops_
+        B, J = table.shape
+        G, D = q.shape[1:]
+        ps = kp.shape[1]
+        shape = (f"B{B} KV{KV} G{G} D{D} ps{ps} J{J} keys "
+                 f"{int(counts.sum())} plan "
+                 f"{plan or KD.paged_plan(B * KV, J, ps)}")
+
+        def run(ops_=ops_, plan=plan):
+            if plan is None:
+                return KD.vwr_paged_flash_decode_q8(*ops_)
+            return KD.paged_launch(q, kp, vp, table, counts, "mma", plan,
+                                   scales=(ks, vs))
+
+        def plain(ops_=ops_):
+            return KD.vwr_paged_flash_decode_q8_ref(*ops_)
+        got, err = held(kname, KD.paged_variant(bf16, D, G), shape, run,
+                        plain(), KD.paged_mma_emulation(
+                            q, kp, vp, table, counts, plan=plan,
+                            scales=(ks, vs)))
+        empty_ok(kname, shape, got, (counts.sum(1) == 0).repeat_interleave(
+            KV))
+        if timed:
+            n_keys = int(counts.sum())
+            record(kname, label, shape, bf16, err, run, plain,
+                   _paged_sdpa(torch, F, q, (kp, vp), (ks, vs), table,
+                               counts, KV, G, D),
+                   4 * KV * G * D * n_keys,
+                   2 * n_keys * KV * D + 8 * live * KV + 2 * q.numel()
+                   + 8 * B * J + 4 * B * KV * G * (D + 2))
+            row = record.rows[-1]
+            row["variant"] = "mma"
+            row["fma_ms"] = time_ms(torch, lambda: KD.paged_launch(
+                q, kp, vp, table, counts, "fma", scales=(ks, vs)))
+            print(f"      the parent's kernel (fma): {row['fma_ms']:.4f} ms")
+
+    for (label, B, KV, G, D, ps, n_pages, J, lens, cset, tset, plan,
+         timed) in PAGED_EDGES:
+        ops_, live = paged_ops(B, KV, G, D, ps, n_pages, J, lens, cset, tset)
+        paged_case(label, ops_, plan, KV, timed, live)
+    # v scales 2^12 apart between a slot's first and last split
+    ops_, _ = paged_ops(4, 4, 8, 64, 16, 256, 16, (64, 200, 255, 130))
+    plan = (4, 4)
+    step = _stepped_scales(torch, ops_[4:5], ops_[5], ops_[6], *plan)
+    print(f"  splits' page scales {step:.0f}x apart")
+    paged_case("split-dependent scales", ops_, plan, 4)
+
+    print(f"  {kname} plans (ms; (splits, table entries a split)), the FMA "
+          "kernel (the parent's), SDPA:")
+    for label, KV, G, J, lens in (
+            ("tinyllama 8 slots, J 16", 4, 8, 16, PAGED_LENS),
+            ("tinyllama 8 slots, J 18", 4, 8, 18,
+             (288, 1, 17, 3, 100, 0, 250, 64)),
+            ("tinyllama 8 slots, J 128", 4, 8, 128, LONG_LENS)):
+        B, D, ps = 8, 64, 16
+        ops_, _ = paged_ops(B, KV, G, D, ps, 1200, J, lens)
+        q, kp, vp, ks, vs, table, counts = ops_
+        row = {"kernel": f"{kname} plans", "case": label,
+               "shape": f"B{B} KV{KV} G{G} D{D} J{J} of {ps}, keys "
+                        f"{sum(lens)}", "plans": []}
+        for plan in _paged_plans(KD, B * KV, J):
+            ms = time_ms(torch, lambda: KD.paged_launch(
+                q, kp, vp, table, counts, "mma", plan, scales=(ks, vs)))
+            row["plans"].append({"plan": plan, "ms": ms})
+        row["fma_ms"] = time_ms(torch, lambda: KD.paged_launch(
+            q, kp, vp, table, counts, "fma", scales=(ks, vs)))
+        row["library_ms"] = time_ms(torch, _paged_sdpa(
+            torch, F, q, (kp, vp), (ks, vs), table, counts, KV, G, D))
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f}" for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f}")
+
+    # ---- kernel 13: kernel 11's edges over int8 pages ----
+    kname = "vwr_mla_paged_flash_decode_q8"
+    scale = 1.0 / 192 ** 0.5
+    print(f"{kname} wgmma edges")
+
+    def mla_ops(H, r, rope, ps, n_pages, J, lens, cset=None, tset=None):
+        B = len(lens)
+        table, counts, live = _paged_table(torch, gen, lens, J, ps, n_pages)
+        for (b, j), c in (cset or {}).items():
+            counts[b, j] = c
+        for (b, j), t in (tset or {}).items():
+            table[b, j] = t
+        return (torch.randn(B, H, r, generator=gen, device="cuda"),
+                torch.randn(B, H, rope, generator=gen, device="cuda"),
+                torch.randint(-127, 128, (n_pages, ps, r), **i8),
+                torch.randint(-127, 128, (n_pages, ps, rope), **i8),
+                *scales(n_pages), table, counts)
+
+    def mla_library(ops_):
+        qa, qr, ckv, kr, cs, rs, table, counts = ops_
+        B, J = table.shape
+        ps = ckv.shape[1]
+        tbl = table.long().clamp(0, ckv.shape[0] - 1)
+        valid = (torch.arange(ps, device="cuda")[None, None, :]
+                 < counts[..., None]).reshape(B, -1)
+        kv = [(x[tbl].to(bf16) * s[tbl][:, :, None, None].to(bf16))
+              .reshape(B, J * ps, -1) for x, s in ((ckv, cs), (kr, rs))]
+        return _mla_sdpa(F, qa, qr, *kv, valid, scale)
+
+    def mla_case(label, ops_, plan, timed=False):
+        qa, qr, ckv, kr, cs, rs, table, counts = ops_
+        B, J = table.shape
+        H, r = qa.shape[1:]
+        rope, ps = qr.shape[2], ckv.shape[1]
+        n_keys = int(counts.sum())
+        shape = (f"B{B} H{H} r{r} rope{rope} ps{ps} J{J} keys{n_keys} plan "
+                 f"{plan or KM.mla_decode_plan(B, H, J, ps, r)}")
+
+        def run(ops_=ops_, plan=plan):
+            if plan is None:
+                return KM.vwr_mla_paged_flash_decode_q8(*ops_, scale=scale)
+            return KM.mla_decode_launch(qa, qr, ckv, kr, (table, counts), 0,
+                                        "wgmma", plan, scale=scale,
+                                        scales=(cs, rs))
+
+        def plain(ops_=ops_):
+            return KM.vwr_mla_paged_flash_decode_q8_ref(*ops_, scale=scale)
+        got, err = held(kname, KM.decode_variant(r, rope, H, ps, torch.int8),
+                        shape, run, plain(), KM.decode_split_emulation(
+                            qa, qr, ckv, kr, table, counts, plan=plan,
+                            ckv_scale=cs, krope_scale=rs, scale=scale))
+        empty_ok(kname, shape, got, counts.sum(1) == 0)
+        if timed:
+            live = int((counts > 0).sum())
+            record(kname, label, shape, bf16, err, run, plain,
+                   mla_library(ops_), 2 * H * n_keys * (2 * r + rope),
+                   4 * B * H * (r + rope) + n_keys * (r + rope) + 8 * live
+                   + 8 * B * J + 4 * B * H * (r + 2), op_dtype=bf16)
+            row = record.rows[-1]
+            row["variant"] = "wgmma"
+            row["fma_ms"] = time_ms(torch, lambda: KM.mla_decode_launch(
+                qa, qr, ckv, kr, (table, counts), 0, "fma", scale=scale,
+                scales=(cs, rs)))
+            print(f"      the parent's kernel (fma): {row['fma_ms']:.4f} ms")
+
+    for (label, H, r, rope, ps, n_pages, J, lens, cset, tset, plan,
+         timed) in MLA_PAGED_EDGES:
+        mla_case(label, mla_ops(H, r, rope, ps, n_pages, J, lens, cset,
+                                tset), plan, timed)
+    ops_ = mla_ops(128, 512, 64, 16, 1024, 17,
+                   (90, 1, 16, 17, 255, 100, 200, 64), {(4, 3): 0})
+    plan = (3, 6, 2)
+    step = _stepped_scales(torch, ops_[4:6], ops_[6], ops_[7], 3, 6)
+    print(f"  splits' page scales {step:.0f}x apart")
+    mla_case("split-dependent scales", ops_, plan)
+
+    print(f"  {kname} plans (ms, mean / median of 20 launches; (splits, "
+          "table entries a split, column blocks)), the FMA kernel (the "
+          "parent's), SDPA:")
+    for label, n_pages, J, lens, cset, tset in (
+            ("Scheduler 8 slots, J 17", 1024, 17, PAGED_LENS, {(4, 3): 0},
+             {(2, 0): 1029}),
+            ("8 slots, J 128", 1200, 128, LONG_LENS, {}, {})):
+        ops_ = mla_ops(128, 512, 64, 16, n_pages, J, lens, cset, tset)
+        qa, qr, ckv, kr, cs, rs, table, counts = ops_
+        B = len(lens)
+        row = {"kernel": f"{kname} plans", "case": label,
+               "shape": f"B{B} H128 r512 rope64 J{J} of 16, keys "
+                        f"{int(counts.sum())}", "plans": [],
+               "rule": KM.mla_decode_plan(B, 128, J, 16, 512)}
+        for plan in [row["rule"]] + [
+                p for p in _mla_plans(KM, B, 128, J, 16, 512)
+                if p != row["rule"]]:
+            ts = launch_ms(torch, lambda: KM.mla_decode_launch(
+                qa, qr, ckv, kr, (table, counts), 0, "wgmma", plan,
+                scale=scale, scales=(cs, rs)))
+            row["plans"].append({"plan": plan, "ms": sum(ts) / len(ts),
+                                 "median_ms": statistics.median(ts)})
+        row["fma_ms"] = time_ms(torch, lambda: KM.mla_decode_launch(
+            qa, qr, ckv, kr, (table, counts), 0, "fma", scale=scale,
+            scales=(cs, rs)))
+        row["library_ms"] = time_ms(torch, mla_library(ops_))
+        record.rows.append(row)
+        print(f"    {label} {row['shape']} (rule {row['rule']}): "
+              + ", ".join(f"{p['plan']} {p['ms']:.4f} / "
+                          f"{p['median_ms']:.4f}" for p in row["plans"])
+              + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f}")
 
 
 # ----------------------------------------------------------------------
@@ -3123,20 +3440,22 @@ def _swiglu_variants(torch, what, L, prefills, steps, passes=None):
 
 
 def _paged_variants(what, kv_dtype, launches):
-    """Kernel 5's launches by variant over a stream (the counts since the
-    last reset), held: on bf16 pools every one of its ``launches`` on the
-    mma variant; on int8 pools kernel 7 runs, and kernel 5 none.  Returns
-    the counts."""
+    """Kernels 5 and 7's launches by variant over a stream (the counts
+    since the last reset), held: every one of the ``launches`` on the mma
+    variant, kernel 5's on bf16 pools, kernel 7's on int8 pools, and the
+    other kernel none.  Returns the counts."""
     from repro_torch.kernels import build
 
     got = {k: n for k, n in build.VARIANTS.items()
-           if k.startswith("vwr_paged_flash_decode.")}
-    want = {"vwr_paged_flash_decode.mma":
-            launches if kv_dtype == "bf16" else 0,
-            "vwr_paged_flash_decode.fma": 0}
+           if k.startswith("vwr_paged_flash_decode")}
+    q8 = kv_dtype == "int8"
+    want = {"vwr_paged_flash_decode.mma": 0 if q8 else launches,
+            "vwr_paged_flash_decode.fma": 0,
+            "vwr_paged_flash_decode_q8.mma": launches if q8 else 0,
+            "vwr_paged_flash_decode_q8.fma": 0}
     if got != want:
-        raise AssertionError(f"{what}: vwr_paged_flash_decode by variant "
-                             f"{got}, expected {want}")
+        raise AssertionError(f"{what}: vwr_paged_flash_decode[_q8] by "
+                             f"variant {got}, expected {want}")
     return got
 
 
@@ -4247,17 +4566,18 @@ def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,
     if launches != want:
         raise AssertionError(f"deepseek scheduler {tag}: launches "
                              f"{launches}, expected {want}")
-    # kernel 11 on bf16 pools: every launch on its wgmma variant (int8
-    # pools run kernel 13, the FMA kernel)
+    # kernel 11 on bf16 pools and kernel 13 on int8 pools: every launch
+    # on the wgmma variant
     mla = {k: n for k, n in build.VARIANTS.items()
-           if k.startswith("vwr_mla_paged_flash_decode.")}
-    want_mla = {"vwr_mla_paged_flash_decode.wgmma":
-                launches[paged] if kv_dtype == "bf16" else 0,
-                "vwr_mla_paged_flash_decode.fma": 0}
-    print(f"    kernel 11 by variant: {mla}")
+           if k.startswith("vwr_mla_paged_flash_decode")}
+    want_mla = {f"{k}.{v}": 0 for k in ("vwr_mla_paged_flash_decode",
+                                        "vwr_mla_paged_flash_decode_q8")
+                for v in ("wgmma", "fma")}
+    want_mla[f"{paged}.wgmma"] = launches[paged]
+    print(f"    kernels 11 / 13 by variant: {mla}")
     if mla != want_mla:
-        raise AssertionError(f"deepseek scheduler {tag}: kernel 11 by "
-                             f"variant {mla}, expected {want_mla}")
+        raise AssertionError(f"deepseek scheduler {tag}: kernels 11 / 13 "
+                             f"by variant {mla}, expected {want_mla}")
     swiglu = _swiglu_variants(torch, f"deepseek scheduler {tag}", L,
                               st["prefills"], st["steps"],
                               passes if prefix_chunked else None)

@@ -852,8 +852,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
-// ---- split flash decode on mma.sync (vwr_decode's split kernel, kernel 4,
-// and vwr_paged_decode's mma kernel, kernel 5): a 128-thread block scores
+// ---- split flash decode on mma.sync (vwr_decode's split kernels, kernels
+// 4 and 9, and vwr_paged_decode's mma kernels, kernels 5 and 7): a
+// 128-thread block scores
 // its group's G <= 16 query rows, zero-padded to 16, against staged 64-key
 // tiles, warp w the 16-key slice w of each, and writes the group's
 // partial or its split's ----
@@ -887,6 +888,31 @@ __device__ __forceinline__ void sd_load_q(uint32_t (&qa)[D / 16][4],
   }
 }
 
+// The int8 split kernels (kernels 9 and 7): a warp's 16 rows r0 .. r0 + 15
+// of the int8 K tile at kt and of the V tile I8 bytes after it (D bytes a
+// row) converted into the 16-bit tiles the slice step reads: K as bf16
+// into k16, V as fp16 into v16 (sd_chunk's layout).  Exact: an int8 value
+// is exact in both.
+template <int D>
+__device__ __forceinline__ void sd_convert_q8(const unsigned char* kt,
+                                              int I8, unsigned char* k16,
+                                              unsigned char* v16, int r0,
+                                              int lane) {
+  constexpr int NB = D / 16;  // 16-byte int8 chunks a row
+  for (int e = lane; e < SD_SLICE * NB; e += 32) {
+    const int r = r0 + e / NB, c = e % NB;
+    uint4 f[2];
+    i8x16_to_16bit<false>(
+        *reinterpret_cast<const uint4*>(kt + r * D + c * 16), f);
+    *reinterpret_cast<uint4*>(k16 + sd_chunk(r, 2 * c)) = f[0];
+    *reinterpret_cast<uint4*>(k16 + sd_chunk(r, 2 * c + 1)) = f[1];
+    i8x16_to_16bit<true>(
+        *reinterpret_cast<const uint4*>(kt + I8 + r * D + c * 16), f);
+    *reinterpret_cast<uint4*>(v16 + sd_chunk(r, 2 * c)) = f[0];
+    *reinterpret_cast<uint4*>(v16 + sd_chunk(r, 2 * c + 1)) = f[1];
+  }
+}
+
 // The running partial of one warp: rows g and g + 8 of the online softmax
 // (l sums this thread's columns) and their o fragments.
 template <int D>
@@ -904,13 +930,18 @@ struct SdPartial {
 // misses the 1e-4 limit) and V by ldmatrix.trans.  F16 (kernel 9's int8
 // cache): V is fp16 and P two fp16 terms (~2^-22 a weight: p <= 1 needs
 // no scaling; two bf16 terms used 0.94 of the limit at 2048 int8 keys).
-template <int D, bool F16 = false>
+// PK (kernel 7's int8 pages, whose scales vary per key): the slice's 16
+// keys' k and v scales at ksc / vsc; key t's score takes scale * ksc[t],
+// and its p (after l) vsc[t] * pup before the terms.
+template <int D, bool F16 = false, bool PK = false>
 __device__ __forceinline__ void sd_slice(SdPartial<D>& w,
                                          const uint32_t (&qa)[D / 16][4],
                                          const unsigned char* kt,
                                          const unsigned char* vt, int row0,
                                          uint32_t valid, float scale,
-                                         int lane) {
+                                         int lane, const float* ksc = nullptr,
+                                         const float* vsc = nullptr,
+                                         float pup = 1.0f) {
   const int t4 = lane % 4, mi = lane / 8, mr = lane % 8;
   // S (16 rows x 16 keys): key blocks j = 0, 1 of 8 keys
   float s[2][4] = {};
@@ -928,8 +959,9 @@ __device__ __forceinline__ void sd_slice(SdPartial<D>& w,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       in[j][e] = valid >> (8 * j + 2 * t4 + e) & 1u;
-      s[j][e] = in[j][e] ? s[j][e] * scale : REPRO_NEG_INF;
-      s[j][2 + e] = in[j][e] ? s[j][2 + e] * scale : REPRO_NEG_INF;
+      const float f = PK ? scale * ksc[8 * j + 2 * t4 + e] : scale;
+      s[j][e] = in[j][e] ? s[j][e] * f : REPRO_NEG_INF;
+      s[j][2 + e] = in[j][e] ? s[j][2 + e] * f : REPRO_NEG_INF;
       mx0 = fmaxf(mx0, s[j][e]);
       mx1 = fmaxf(mx1, s[j][2 + e]);
     }
@@ -957,6 +989,11 @@ __device__ __forceinline__ void sd_slice(SdPartial<D>& w,
       p[j][2 + e] = in[j][e] ? expf(s[j][2 + e] - w.m1) : 0.0f;
       w.l0 += p[j][e];
       w.l1 += p[j][2 + e];
+      if constexpr (PK) {  // the value scale rides on p, after l
+        const float f = vsc[8 * j + 2 * t4 + e] * pup;
+        p[j][e] *= f;
+        p[j][2 + e] *= f;
+      }
     }
   // P as two bf16 terms, the A fragments of O += P V: keys 0-7 are key
   // block 0, keys 8-15 block 1

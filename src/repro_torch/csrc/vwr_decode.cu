@@ -429,19 +429,8 @@ decode_split_q8(const bf16* __restrict__ q, const int8_t* __restrict__ k,
     cp_async_commit();
     const int s0 = k0 + i * SD_TILE + r0;
     if (s0 >= k1) continue;
-    const unsigned char* kt = sm + (i % L::NST) * 2 * L::I8;
-    for (int e = lane; e < SD_SLICE * NB; e += 32) {
-      const int r = r0 + e / NB, c = e % NB;
-      uint4 f[2];
-      i8x16_to_16bit<false>(
-          *reinterpret_cast<const uint4*>(kt + r * D + c * 16), f);
-      *reinterpret_cast<uint4*>(k16 + sd_chunk(r, 2 * c)) = f[0];
-      *reinterpret_cast<uint4*>(k16 + sd_chunk(r, 2 * c + 1)) = f[1];
-      i8x16_to_16bit<true>(
-          *reinterpret_cast<const uint4*>(kt + L::I8 + r * D + c * 16), f);
-      *reinterpret_cast<uint4*>(v16 + sd_chunk(r, 2 * c)) = f[0];
-      *reinterpret_cast<uint4*>(v16 + sd_chunk(r, 2 * c + 1)) = f[1];
-    }
+    sd_convert_q8<D>(sm + (i % L::NST) * 2 * L::I8, L::I8, k16, v16, r0,
+                     lane);
     __syncwarp();
     const uint32_t valid =
         k1 - s0 >= SD_SLICE ? 0xffffu : (1u << (k1 - s0)) - 1u;

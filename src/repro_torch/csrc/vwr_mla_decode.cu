@@ -37,12 +37,12 @@
 //
 // Design.  The TPU kernel keeps all H heads' (H, r) accumulators in VMEM:
 // 256 KB at DeepSeek-V3's widths, more than a block's shared memory.  Two
-// kernels serve kernels 10 and 11 here, and kernels/vwr_mla_decode.py
+// kernels serve kernels 10, 11 and 13 here, and kernels/vwr_mla_decode.py
 // decode_variant picks one a call: the wgmma kernel (below) for bf16
-// caches and pools at r 128 / 256 / 512, rope 32 / 64, pages of a
-// multiple of 8 rows, and the FMA kernel (mla_decode_kernel) for fp32
-// caches, the padded widths of the reduced configs and the int8 kernels
-// 13 and 14.
+// caches and pools and int8 pools (kernel 13) at r 128 / 256 / 512, rope
+// 32 / 64, pages of a multiple of 8 rows, and the FMA kernel
+// (mla_decode_kernel) for fp32 caches, the padded widths of the reduced
+// configs and the dense int8 cache of kernel 14.
 //   The FMA kernel: a block takes one sequence and HB = 16 heads (grid (B,
 //   H / 16)), and each of its 8 warps owns 2 heads.  A lane holds r / 32
 //   latent and rope / 32 rope query features of each of its heads, and r
@@ -128,7 +128,10 @@
 //   issued while the score products run.  A row with no valid key keeps
 //   m = -1e30, l = 0, o_tilde = 0.  o_tilde leaves through the idle query
 //   blocks, whole rows of 16-byte stores.
-//   Kernel 15 (int8 pools, Q8).  An int8 value is exact in a 16-bit
+//   Kernels 15 and 13 (int8 pools, Q8: the CHUNK instance, and the
+//   decode one, whose splits each take P's power of two from their own
+//   entries of the sequence's row and write o_tilde divided by it, so the
+//   merge takes them unchanged).  An int8 value is exact in a 16-bit
 //   float, so the keys are converted and the page scales applied in fp32
 //   outside the products: s = (q_abs . c8) cs + (q_rope . k8) rs, P c8
 //   with P times cs before its hi / lo split, l over the unscaled P (the
@@ -138,7 +141,8 @@
 //   fp16's range is kept by powers of two: each query row is scaled so
 //   its largest |q| lies in [2^14, 2^15) (the row is staged by one warp,
 //   which takes the maximum from its registers), P times cs so the
-//   largest scale of a counted page does, and the scores and o_tilde
+//   largest scale of a counted page among the block's entries does, and
+//   the scores and o_tilde
 //   divide them out again, exactly.  Shared memory holds no third stage:
 //   the room of kernel 12's two bf16 stages takes one fp16 stage (36 KB
 //   at r 512) and a ring of two int8 stages (32 rows of r + rope bytes,
@@ -456,14 +460,15 @@ __device__ __forceinline__ void pv_slice(float (&o)[OC / 2],
 // masked), key split s and output columns c R / NCOL ..  CHUNK: the
 // chunk kernels' instance (12 and 15), a chunk as one sequence of C * H
 // rows over the shared table, one split, one column block, fixed at
-// compile time (no split merge in the kernel).  Int8 pools (Q8) come only
-// with CHUNK.
+// compile time (no split merge in the kernel).  Int8 (Q8) means int8
+// pools: kernel 15 (CHUNK) and kernel 13 (a sequence's table row); the
+// dense int8 cache (kernel 14) has no instance here, so `dense` is false
+// at compile time.
 template <int R, int RP, bool Q8, int NCOL, bool CHUNK>
 __global__ void __launch_bounds__(CW_THREADS, 1)
 mla_wgmma(const __grid_constant__ CUtensorMap tc,
           const __grid_constant__ CUtensorMap tr, const MlaArgs a) {
   static_assert(!CHUNK || NCOL == 1, "a chunk takes one column block");
-  static_assert(CHUNK || !Q8, "int8 pools: the chunk kernel only");
   using L = CwSmem<R, RP, Q8>;
   constexpr int I8W = R < 256 ? R : 256;  // columns of an int8 latent box
   constexpr int NB8 = R / I8W + 1;        // int8 boxes a segment
@@ -485,7 +490,7 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
   const int col0 = col * OCB, S = CHUNK ? 1 : a.nsplit;
   const size_t row0 = (size_t)b * a.H + hb * CW_ROWS;
   const int nrow = min(CW_ROWS, a.H - hb * CW_ROWS);
-  const bool dense = !CHUNK && a.table == nullptr;
+  const bool dense = !CHUNK && !Q8 && a.table == nullptr;
   const int ps = a.rows, seg = dense ? CW_KEYS : min(ps, CW_KEYS);
   const int nseg = CW_KEYS / seg;
   // the split's table entries [k0, k1) of row b (pools) or keys (dense)
@@ -656,12 +661,16 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
   // thread before the first is converted
   constexpr int QN = CW_ROWS * CH / CW_THREADS, QB = 9;
   static_assert(CW_ROWS * CH % CW_THREADS == 0, "whole chunks a thread");
-  // Q8: the largest latent scale of a counted page (P's power of two)
+  // Q8: the largest latent scale of a counted page of the block's own
+  // entries (P's power of two): the split's [k0, k1) of row b (a chunk:
+  // the whole shared row)
   if constexpr (Q8) {
+    const int* tb = a.table + (size_t)b * a.tstride;
+    const int* cb = a.counts + (size_t)b * a.tstride;
     float cmax = 0.0f;
-    for (int j = tid; j < a.n; j += CW_THREADS)
-      if (a.counts[j] > 0)
-        cmax = fmaxf(cmax, fabsf(a.ckv_scale[min(max(a.table[j], 0),
+    for (int j = k0 + tid; j < k1; j += CW_THREADS)
+      if (cb[j] > 0)
+        cmax = fmaxf(cmax, fabsf(a.ckv_scale[min(max(tb[j], 0),
                                                  a.lead - 1)]));
     atomicMax(&ext[CW_ROWS], __float_as_int(cmax));
   }
@@ -1120,14 +1129,17 @@ int launch_chunk(const MlaArgs& a, int r, int rope, cudaStream_t stream) {
   return launch_wgmma_r<Q8, true>(c, r, rope, 1, stream);
 }
 
-// Kernels 10 and 11's wgmma variant: the plan's checks (nsplit splits of
-// `per` keys or table entries covering the n of them, none starting at or
-// past n, at most FIN_SPLITS; a workspace and counters when they split;
-// pages of a multiple of 8 rows), then the instance.
+// Kernels 10, 11 and 13's wgmma variant: the plan's checks (nsplit splits
+// of `per` keys or table entries covering the n of them, none starting at
+// or past n, at most FIN_SPLITS; a workspace and counters when they split;
+// pages of a multiple of 8 rows; int8 (a.ckv_scale set) only over pools),
+// then the instance.
 int launch_decode(const MlaArgs& a, int r, int rope, int ncol,
                   cudaStream_t stream) {
   const bool dense = a.table == nullptr;
-  if (a.lead <= 0 || a.rows <= 0 || a.n < 0 || a.nsplit < 1 ||
+  const bool q8 = a.ckv_scale != nullptr;
+  if ((q8 && (dense || a.krope_scale == nullptr)) || a.lead <= 0 ||
+      a.rows <= 0 || a.n < 0 || a.nsplit < 1 ||
       a.nsplit > FIN_SPLITS || a.per < 1 ||
       (long long)a.nsplit * a.per < a.n ||
       (a.nsplit > 1 && ((long long)(a.nsplit - 1) * a.per >= a.n ||
@@ -1135,7 +1147,8 @@ int launch_decode(const MlaArgs& a, int r, int rope, int ncol,
       (!dense && (a.rows < 8 || a.rows % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.H <= 0) return 0;
-  return launch_wgmma_r<false, false>(a, r, rope, ncol, stream);
+  return q8 ? launch_wgmma_r<true, false>(a, r, rope, ncol, stream)
+            : launch_wgmma_r<false, false>(a, r, rope, ncol, stream);
 }
 
 }  // namespace
@@ -1231,6 +1244,26 @@ extern "C" int vwr_mla_paged_flash_decode_q8_launch(
                   (const int*)table, (const int*)counts, (float*)o_t,
                   (float*)m, (float*)l, B, H, lead, rows, J, scale, J};
   return launch_dtype(a, r, rope, dtype, true, (cudaStream_t)stream);
+}
+
+// Kernel 13's wgmma variant: the operands of
+// vwr_mla_paged_flash_decode_q8_launch (r in {128, 256, 512}, rope in {32,
+// 64}, pages of a multiple of 8 rows) with the plan, workspace and
+// counters of vwr_mla_paged_flash_decode_wgmma_launch.
+extern "C" int vwr_mla_paged_flash_decode_q8_wgmma_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* ckv_scale, const void* krope_scale, const void* table,
+    const void* counts, void* o_t, void* m, void* l, void* ws,
+    void* counters, int B, int H, int r, int rope, int lead, int rows, int J,
+    int nsplit, int per, int ncol, float scale, void* stream) {
+  if (ckv_scale == nullptr || krope_scale == nullptr || table == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  (const float*)ckv_scale, (const float*)krope_scale,
+                  (const int*)table, (const int*)counts, (float*)o_t,
+                  (float*)m, (float*)l, B, H, lead, rows, J, scale, J,
+                  (float*)ws, (int*)counters, nsplit, per};
+  return launch_decode(a, r, rope, ncol, (cudaStream_t)stream);
 }
 
 // Kernel 12: a chunk of C tokens, q_abs (C, H, r) and q_rope (C, H, rope)

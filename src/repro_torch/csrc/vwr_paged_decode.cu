@@ -12,7 +12,9 @@
 // At a decode step's few hundred keys a slot the bytes take ~0.0002 ms: a
 // launch and a few round trips to memory set the time.
 //
-// Two kernels (kernels/vwr_decode.py paged_variant picks one per call).
+// Three kernels (kernels/vwr_decode.py paged_variant picks one per call:
+// bf16 queries take the mma kernel of their pools, fp32 queries the FMA
+// kernel).
 //
 // bf16 pools (paged_mma; kernel 5's "mma" variant): kernel 4's split
 // kernel (csrc/vwr_decode.cu decode_split) over the block-table walk.
@@ -47,8 +49,29 @@
 //   partials merge in shared memory in warp order with the flash combine
 //   (m > -1e30/2 guard).
 //
-// fp32 pools (paged_decode_kernel; "fma"), and kernel 7 on int8 pools:
-// the dense FMA kernel's (csrc/vwr_decode.cu decode_kernel) with a
+// int8 pools with bf16 queries (paged_mma_q8; kernel 7's "mma" variant):
+// paged_mma's grid, plan, per-slot walk and merge over int8 pages, staged
+// as kernel 9's int8 split kernel (csrc/vwr_decode.cu decode_split_q8).
+//   Each warp stages only its own 16-slot slice of each 64-slot tile: its
+//   slots' 16-byte chunks of int8 rows by cp.async into a ring of 4 int8
+//   stages (masked slots zero-filled) and each slot's two page scales by
+//   4-byte cp.async (0 where masked); a slice without a valid key reads
+//   no pool byte.  It converts the slice (common.cuh i8x16_to_16bit) into
+//   the rows of one bf16 K tile and one fp16 V tile that only it reads, so
+//   the key loop has no block barrier.
+//   Scales.  They vary per page, so they ride on each key (common.cuh
+//   sd_slice's PK form): a score column takes scale * k_scale[page, head]
+//   in fp32; P, after it entered l, takes v_scale[page, head] times pup
+//   before its two fp16 terms (against the fp16 values), pup the power of
+//   two that brings the split's largest v scale of a counted page into
+//   [2^14, 2^15), divided out of the block's merged o_tilde again.  Two
+//   fp16 terms used 0.02-0.06 of the 1e-4 limit in the CPU emulation at
+//   the Scheduler's table (653 keys) and at a J 128 table (up to 2,048
+//   keys a slot), two bf16 terms 0.16-0.29 (PERF.md).
+//
+// fp32 queries (paged_decode_kernel; "fma"; chip_smoke also forces it on
+// bf16 queries, the parent's kernel), over fp32 or int8 pools: the
+// dense FMA kernel's (csrc/vwr_decode.cu decode_kernel) with a
 // block-table walk.  One 128-thread block per (slot, KV head) query group:
 // the G query heads that share the KV head read each K/V row once
 // (zero-copy GQA).  A page is (page_size, KV, D) rows with the dense
@@ -74,10 +97,10 @@
 //
 // Known limits: a split's merge costs ~2 us (kernel 4's), so the plan
 // keeps splits of at least three slices; at a decode step the time is a
-// launch and a few memory round trips (0.014 ms at tinyllama's 8 slots,
-// 0.47x SDPA over gathered pages; PERF.md).  The FMA kernel (fp32 pools,
-// kernel 7's int8 pools) keeps one block a group: 32 blocks on 132 SMs
-// at 8 slots x 4 KV heads.
+// launch and a few memory round trips (0.014 ms at tinyllama's 8 slots on
+// either pool, under half of SDPA over gathered pages; PERF.md).  The FMA
+// kernel (fp32 queries) keeps one block a group: 32 blocks on 132 SMs at
+// 8 slots x 4 KV heads.
 #include "common.cuh"
 
 namespace {
@@ -396,8 +419,187 @@ int launch_mma(const PagedArgs& a, float* ws, int* counters, int nsplit,
   return (int)cudaGetLastError();
 }
 
+// ---- int8 pools (kernel 7): the mma kernel, each warp staging and
+// converting its own slices ----
+
+// Shared memory: a ring of NST stages, each the int8 K and V rows of a
+// 64-slot tile (D bytes a row, unswizzled), then each stage's 64 k and 64 v
+// page scales (fp32, a slot's), then one K tile in bf16 and one V tile in
+// fp16 in the bf16 kernel's layout (sd_chunk: DP columns, 128-byte
+// swizzle).  A warp stages and converts only its own 16-slot slice of a
+// tile, into the 16-bit rows that it alone reads, so the key loop has no
+// block barrier.  After the loop the same bytes hold the warps' partials,
+// then the merge's weights.
+template <int D>
+struct PmSmemQ8 {
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int NST = 4;
+  static constexpr int I8 = SD_TILE * D;  // an int8 K or V tile
+  static constexpr int T16 = (DP / 64) * SD_TILE * 128;
+  static constexpr int SC = 2 * NST * I8;
+  static constexpr int K16 = SC + NST * 2 * SD_TILE * 4, V16 = K16 + T16;
+  static constexpr int BYTES = 1024 + V16 + T16;
+  static_assert(K16 % 1024 == 0, "the 16-bit tiles keep the swizzle's atoms");
+};
+
+// grid (B * KV, nsplit), as paged_mma, over int8 pools: warp w stages,
+// converts and scores slots 16 w .. + 15 of each 64-slot tile.  Each
+// slot's page scales come with its rows: S = Q K^T on the bf16 keys, each
+// score times scale * k_scale[page, head] in fp32; P (after l) times
+// v_scale[page, head] * pup before its two fp16 terms against the fp16
+// values, pup the power of two that brings the split's largest counted v
+// scale into [2^14, 2^15) (common.cuh pow2_up), divided out of the block's
+// merged o_tilde again (exactly).
+template <int D>
+__global__ void __launch_bounds__(SD_THREADS)
+paged_mma_q8(const PagedArgs a, float* __restrict__ ws,
+             int* __restrict__ counters, int jps) {
+  using L = PmSmemQ8<D>;
+  constexpr int NB = D / 16;  // 16-byte int8 chunks a row
+  static_assert(L::NST * 16 == 64, "a slice mask a stage in one register");
+  extern __shared__ unsigned char pq_smem[];
+  unsigned char* sm = align1024(pq_smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bkv = blockIdx.x, split = blockIdx.y;
+  const int KV = a.KV, ps = a.ps;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const size_t row = (size_t)KV * D;  // pool key-row stride
+  const int8_t* kpool = static_cast<const int8_t*>(a.k_pool) + (size_t)kvh * D;
+  const int8_t* vpool = static_cast<const int8_t*>(a.v_pool) + (size_t)kvh * D;
+  const int* tb = a.table + (size_t)b * a.J;
+  const int* cb = a.counts + (size_t)b * a.J;
+  const int j0 = split * jps, j1 = min(a.J, j0 + jps);
+  const int x0 = j0 * ps, x1 = j1 > j0 ? j1 * ps : x0;
+  const int n_tiles = (x1 - x0 + SD_TILE - 1) / SD_TILE;
+  const int r0 = warp * SD_SLICE;  // this warp's rows of every tile
+  unsigned char* k16 = sm + L::K16;
+  unsigned char* v16 = sm + L::V16;
+  float* scl = reinterpret_cast<float*>(sm + L::SC);
+
+  // as paged_mma: the pool row of the split's logical key x, or -1
+  auto key_row = [&](int x) -> int {
+    if (x >= x1) return -1;
+    const int j = x / ps, o = x - j * ps;
+    if (o >= __ldg(cb + j)) return -1;
+    return min(max(__ldg(tb + j), 0), a.n_pages - 1) * ps + o;
+  };
+  // this warp's slice of tile i into stage i % NST: its 16-bit slot mask
+  // (into `masks`, 16 bits a stage), then, if it holds a valid key, the
+  // slots' int8 rows (zeros where masked) and their two page scales (0
+  // where masked); a slice without a valid key reads no pool byte
+  uint64_t masks = 0;
+  auto stage = [&](int i) {
+    const int st = i % L::NST;
+    const int pr = lane < SD_SLICE ? key_row(x0 + i * SD_TILE + r0 + lane)
+                                   : -1;
+    const uint32_t vm = __ballot_sync(0xffffffffu, pr >= 0);
+    masks = (masks & ~(0xffffull << (16 * st))) | (uint64_t)vm << (16 * st);
+    if (vm == 0) return;
+    unsigned char* kt = sm + st * 2 * L::I8;
+    for (int e = lane; e < SD_SLICE * NB; e += 32) {
+      const int r = e / NB, c = e % NB;
+      const int p = __shfl_sync(0xffffffffu, pr, r);
+      const bool ok = p >= 0;
+      const size_t off = ok ? (size_t)p * row + c * 16 : 0;
+      cp_async16(kt + (r0 + r) * D + c * 16, kpool + off, ok);
+      cp_async16(kt + L::I8 + (r0 + r) * D + c * 16, vpool + off, ok);
+    }
+    if (lane < SD_SLICE) {
+      const bool ok = pr >= 0;
+      const size_t si = ok ? (size_t)(pr / ps) * KV + kvh : 0;
+      float* sc = scl + st * 2 * SD_TILE + r0 + lane;
+      cp_async4(sc, a.k_scale + si, ok);
+      cp_async4(sc + SD_TILE, a.v_scale + si, ok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < L::NST - 1; ++i) {
+    if (i < n_tiles) stage(i);
+    cp_async_commit();
+  }
+
+  // P's power of two: the split's largest v scale of a counted page
+  float vmax = 0.0f;
+  for (int j = j0 + lane; j < j1; j += 32)
+    if (__ldg(cb + j) > 0)
+      vmax = fmaxf(vmax, fabsf(__ldg(
+                             a.v_scale +
+                             (size_t)min(max(__ldg(tb + j), 0), a.n_pages - 1) *
+                                 KV +
+                             kvh)));
+  const float pup = pow2_up(warp_max(vmax));
+
+  uint32_t qa[D / 16][4];
+  sd_load_q<D>(qa, static_cast<const bf16*>(a.q) + (size_t)bkv * a.G * D,
+               a.G, lane);
+  SdPartial<D> w;
+  for (int i = 0; i < n_tiles; ++i) {
+    // this warp's slice of tile i has landed; its lanes are done with the
+    // stage tile i + NST - 1 takes and with the 16-bit rows
+    cp_async_wait<L::NST - 2>();
+    __syncwarp();
+    if (i + L::NST - 1 < n_tiles) stage(i + L::NST - 1);
+    cp_async_commit();
+    const int st = i % L::NST;
+    const uint32_t valid = (uint32_t)(masks >> (16 * st)) & 0xffffu;
+    if (valid == 0) continue;  // this warp's slice has no valid key
+    sd_convert_q8<D>(sm + st * 2 * L::I8, L::I8, k16, v16, r0, lane);
+    __syncwarp();
+    const float* sc = scl + st * 2 * SD_TILE + r0;
+    sd_slice<D, true, true>(w, qa, k16, v16, r0, valid, a.scale, lane, sc,
+                            sc + SD_TILE, pup);
+  }
+  sd_finish<D>(w, sm, a.o_t, a.m, a.l, ws, counters, gridDim.x, bkv, split,
+               gridDim.y, a.G, 1.0f / pup);
+}
+
+template <int D>
+int launch_mma_q8(const PagedArgs& a, float* ws, int* counters, int nsplit,
+                  int jps, cudaStream_t stream) {
+  constexpr int smem = PmSmemQ8<D>::BYTES;
+  static_assert(4 * 16 * D * 4 + 2 * 64 * 4 <= smem - 1024,
+                "the warps' partials fit the stages");
+  static_assert(16 * FIN_SPLITS * 4 <= smem - 1024,
+                "the merge's weights fit the stages");
+  if (smem > 48 * 1024) {
+    const int e = smem_limit_once<paged_mma_q8<D>>(smem);
+    if (e != 0) return e;
+  }
+  paged_mma_q8<D><<<dim3(a.B * a.KV, nsplit), SD_THREADS, smem, stream>>>(
+      a, ws, counters, jps);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(const PagedArgs& a) {
   return a.G <= 0 || a.J < 0 || a.ps <= 0 || a.n_pages <= 0;
+}
+
+// The mma launches' checks of the plan (paged_plan's contract) and their
+// dispatch on D: kernel 5's kernel, or kernel 7's (a.k_scale set).
+int mma_d(const PagedArgs& a, void* ws, void* counters, int D, int nsplit,
+          int jps, void* stream) {
+  if (bad_shape(a) || a.G > 16 || nsplit < 1 || nsplit > FIN_SPLITS ||
+      jps < 1 || (long long)nsplit * jps < a.J ||
+      (long long)a.J * a.ps >= (1LL << 30) ||
+      (nsplit > 1 && ((long long)(nsplit - 1) * jps >= a.J || ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.KV <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)ws;
+  int* c = (int*)counters;
+  const bool q8 = a.k_scale != nullptr;
+  switch (D) {
+    case 32:
+      return q8 ? launch_mma_q8<32>(a, w, c, nsplit, jps, s)
+                : launch_mma<32>(a, w, c, nsplit, jps, s);
+    case 64:
+      return q8 ? launch_mma_q8<64>(a, w, c, nsplit, jps, s)
+                : launch_mma<64>(a, w, c, nsplit, jps, s);
+    case 128:
+      return q8 ? launch_mma_q8<128>(a, w, c, nsplit, jps, s)
+                : launch_mma<128>(a, w, c, nsplit, jps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -461,19 +663,23 @@ extern "C" int vwr_paged_flash_decode_mma_launch(
   const PagedArgs a{q, k_pool, v_pool, nullptr, nullptr,
                     (const int*)table, (const int*)counts, (float*)o_t,
                     (float*)m, (float*)l, B, J, n_pages, ps, KV, G, scale};
-  if (bad_shape(a) || G > 16 || nsplit < 1 || nsplit > FIN_SPLITS ||
-      jps < 1 || (long long)nsplit * jps < J ||
-      (long long)J * ps >= (1LL << 30) ||
-      (nsplit > 1 && ((long long)(nsplit - 1) * jps >= J || ws == nullptr)))
+  return mma_d(a, ws, counters, D, nsplit, jps, stream);
+}
+
+// Kernel 7 on int8 pools, on mma.sync: the operands of
+// vwr_paged_flash_decode_q8_launch (bf16 q) with the mma launch's plan,
+// workspace and counters.
+extern "C" int vwr_paged_flash_decode_q8_mma_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* counts, void* o_t, void* m, void* l, void* ws,
+    void* counters, int B, int J, int n_pages, int ps, int KV, int G, int D,
+    int nsplit, int jps, float scale, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (B <= 0 || KV <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  float* w = (float*)ws;
-  int* c = (int*)counters;
-  switch (D) {
-    case 32: return launch_mma<32>(a, w, c, nsplit, jps, s);
-    case 64: return launch_mma<64>(a, w, c, nsplit, jps, s);
-    case 128: return launch_mma<128>(a, w, c, nsplit, jps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const PagedArgs a{q, k_pool, v_pool, (const float*)k_scale,
+                    (const float*)v_scale, (const int*)table,
+                    (const int*)counts, (float*)o_t, (float*)m, (float*)l,
+                    B, J, n_pages, ps, KV, G, scale};
+  return mma_d(a, ws, counters, D, nsplit, jps, stream);
 }

@@ -18,10 +18,12 @@ the main path went through.  A kernel with variants (``vwr_matmul``:
 split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_swiglu``: wgmma or the
 WMMA / FMA tile kernel;
 ``vwr_conv2d``: wgmma or the halo-tile kernel;
-``vwr_mla_flash_decode``, ``vwr_mla_paged_flash_decode``,
-``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
+``vwr_mla_flash_decode``, ``vwr_mla_paged_flash_decode`` and its
+``_q8`` sibling, ``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling:
+wgmma or FMA; ``vwr_mla_flash_decode_q8``: FMA only;
 ``vwr_flash_decode`` and its ``_q8`` sibling: split-KV on mma.sync or
-FMA; ``vwr_paged_flash_decode``: split-KV on mma.sync or FMA;
+FMA; ``vwr_paged_flash_decode`` and its ``_q8`` sibling: split-KV on
+mma.sync or FMA;
 ``vwr_chunk_prefix_attend`` and its ``_q8`` sibling: wgmma or FMA;
 ``vwr_depthwise``: row-streamed
 strips or the halo tile) also counts the variant that ran in
@@ -83,6 +85,11 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
                             "vwr_chunk_prefix_attend_q8.fma": 0,
                             "vwr_paged_flash_decode.mma": 0,
                             "vwr_paged_flash_decode.fma": 0,
+                            "vwr_paged_flash_decode_q8.mma": 0,
+                            "vwr_paged_flash_decode_q8.fma": 0,
+                            "vwr_mla_paged_flash_decode_q8.wgmma": 0,
+                            "vwr_mla_paged_flash_decode_q8.fma": 0,
+                            "vwr_mla_flash_decode_q8.fma": 0,
                             "vwr_depthwise.stream": 0,
                             "vwr_depthwise.tile": 0}
 

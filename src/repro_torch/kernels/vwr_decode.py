@@ -39,14 +39,16 @@ scores take scale * k_scale in fp32, P is two fp16 terms and each
 split's o_tilde takes v_scale; ``decode_split_emulation`` is the
 arithmetic in plain PyTorch) or ``"fma"`` (fp32 queries: the FMA
 kernel).  Kernel 5 has two as well,
-and ``paged_variant`` picks one: ``"mma"`` (bf16 pools at D 32 / 64 /
-128, any page size: kernel 4's split kernel over the block table, each
+and ``paged_variant`` picks one: ``"mma"`` (bf16 queries at D 32 / 64
+/ 128, any page size: kernel 4's split kernel over the block table, each
 slot's table entries cut into ``paged_plan``'s splits from the table's
 shape alone, 64-slot tiles of logical keys that resolve their own
-entries, masked per key; ``paged_mma_emulation`` is its arithmetic) or
-``"fma"`` (fp32 pools: the FMA kernel).  Kernel 7 (int8 pools) runs the
-FMA kernel.  ``build.VARIANTS`` counts both variants of kernels 4, 5 and
-9.
+entries, masked per key; over kernel 7's int8 pools each warp stages and
+converts its own 16-slot slice with its slots' page scales, each score
+takes scale * its page's k scale, P its page's v scale and the split's
+power of two before two fp16 terms; ``paged_mma_emulation`` is the
+arithmetic) or ``"fma"`` (fp32 queries: the FMA kernel).
+``build.VARIANTS`` counts both variants of kernels 4, 5, 7 and 9.
 The split variants' partials and counters are ``build.split_workspace``
 / ``split_counters``, one buffer per (device, stream).
 
@@ -146,10 +148,11 @@ def decode_plan(BKV, n_keys):
 
 
 def paged_variant(dtype, D, G):
-    """The kernel that serves a ``vwr_paged_flash_decode`` call at the
-    kernel's widths (after ``widths.at_widths``): "mma" for bf16 pools at
-    D 32, 64 or 128 and G <= 16 (any page size), else "fma" (fp32 pools).
-    Kernel 7 (int8 pools) runs the FMA kernel."""
+    """The kernel that serves a ``vwr_paged_flash_decode`` or
+    ``vwr_paged_flash_decode_q8`` call at the kernel's widths (after
+    ``widths.at_widths``): "mma" for bf16 queries (bf16 or int8 pools) at
+    D 32, 64 or 128 and G <= 16 (any page size), else "fma" (fp32
+    queries)."""
     if dtype == torch.bfloat16 and D in HEAD_DIMS and G <= MAX_GROUP:
         return "mma"
     return "fma"
@@ -402,8 +405,26 @@ def vwr_paged_flash_decode_q8_ref(q, k_pool, v_pool, k_scale, v_scale,
     return _paged_partials(q, k, v, counts, scale)
 
 
+def pow2_up(amax):
+    """The power of two that brings amax (>= 0) into [2^14, 2^15), 1 for
+    0 (common.cuh pow2_up): x times it and its fp16 terms stay inside
+    fp16's normal range for every |x| within 2^-17 of amax."""
+    e = torch.frexp(amax)[1]
+    return torch.where(amax > 0, torch.ldexp(torch.ones_like(amax),
+                                             (15 - e).clamp(max=126)), 1.0)
+
+
+def split_p_up(v_counted, x0, x1):
+    """Kernel 7's power of two for P in the split of logical key slots
+    [x0, x1), a (B*KV,) tensor: ``pow2_up`` of each group's largest v
+    scale of a counted page among them (``v_counted`` (B*KV, J * ps):
+    each slot's page v scale, 0 where its page holds no valid key)."""
+    return pow2_up(v_counted[:, x0:x1].amax(-1) if x1 > x0
+                   else v_counted.new_zeros(v_counted.shape[0]))
+
+
 def paged_mma_emulation(q, k_pool, v_pool, table, counts, plan=None,
-                        terms=2):
+                        terms=2, scales=None, p_terms=None):
     """The mma variant's arithmetic in plain PyTorch (the tests hold it
     against ``vwr_paged_flash_decode_ref`` and the JAX op): per split
     (``paged_plan``'s unless ``plan`` is given) the split's table entries
@@ -413,8 +434,14 @@ def paged_mma_emulation(q, k_pool, v_pool, table, counts, plan=None,
     fp32 online softmax over the others with the scores (q . k) * scale
     of the bf16 values and P as ``terms`` bf16 terms against V; the warps
     merge in warp order into the split's partial, the splits in split
-    order (``combine_partials``).  Returns fp32 (o_tilde (B*KV, G, D),
-    m (B*KV, G), l (B*KV, G))."""
+    order (``combine_partials``).  ``scales``: kernel 7's int8 pools with
+    their (n_pages, KV) (k_scale, v_scale): the int8 values exact in 16
+    bits, each score (q . k8) times scale * its page's k scale, P (after
+    l) times its page's v scale and the split's power of two
+    (``split_p_up``) before ``terms`` fp16 terms (``f16_terms``;
+    ``p_terms`` sets the splitter), and the split's merged o_tilde divided
+    by that power of two.  Returns fp32 (o_tilde
+    (B*KV, G, D), m (B*KV, G), l (B*KV, G))."""
     BKV, G, D = q.shape
     n_pages, ps, KV, _ = k_pool.shape
     B, J = table.shape
@@ -422,17 +449,32 @@ def paged_mma_emulation(q, k_pool, v_pool, table, counts, plan=None,
     nsplit, jps = plan or paged_plan(BKV, J, ps)
     tbl = table.long().clamp(0, n_pages - 1)
     qf = q.bfloat16().float()
+
+    def by_group(t):        # (B, J, ...) per slot -> (B*KV, J * ps) per key
+        return (t.float().repeat_interleave(ps, 1).permute(0, 2, 1)
+                .reshape(BKV, J * ps))
     kf, vf = (t[tbl].bfloat16().float().reshape(B, J * ps, KV, D)
               .permute(0, 2, 1, 3).reshape(BKV, J * ps, D)
               for t in (k_pool, v_pool))
     valid = (torch.arange(ps, device=q.device) < counts[..., None].long()
              ).reshape(B, 1, J * ps).expand(B, KV, J * ps).reshape(BKV, -1)
     f32 = dict(dtype=torch.float32, device=q.device)
+    sk = torch.full((BKV, J * ps), scale, **f32)
+    vs = torch.ones((BKV, J * ps), **f32)
+    if scales is not None:
+        sk = scale * by_group(scales[0][tbl])
+        vs = by_group(scales[1][tbl])
+        counted = (counts > 0)[..., None].expand(B, J, KV)
+        v_counted = by_group(torch.where(counted, scales[1][tbl].abs(), 0.0))
+    p_terms = p_terms or (f16_terms if scales is not None else bf16_terms)
     empty = (torch.zeros((BKV, G, D), **f32),
              torch.full((BKV, G), NEG_INF, **f32), torch.zeros((BKV, G), **f32))
     splits = []
     for sp in range(nsplit):
         x0, x1 = sp * jps * ps, min(J, (sp + 1) * jps) * ps
+        pup = torch.ones((BKV, 1, 1), **f32)
+        if scales is not None:
+            pup = split_p_up(v_counted, x0, x1).reshape(BKV, 1, 1)
         warps = [empty] * SPLIT_WARPS
         for t0 in range(x0, x1, SPLIT_TILE):
             for w in range(SPLIT_WARPS):
@@ -443,20 +485,23 @@ def paged_mma_emulation(q, k_pool, v_pool, table, counts, plan=None,
                     continue
                 live = ok.any(-1)                     # groups with a key
                 o, m, l = warps[w]
-                sc = torch.einsum("bgd,btd->bgt", qf, kf[:, keys]) * scale
+                sc = (torch.einsum("bgd,btd->bgt", qf, kf[:, keys])
+                      * sk[:, None, keys])
                 sc = torch.where(ok[:, None], sc, NEG_INF)
                 mx = torch.maximum(m, sc.amax(-1))
                 corr = torch.exp(m - mx)
                 p = torch.where(ok[:, None], torch.exp(sc - mx[..., None]),
                                 0.0)
                 pv = sum(torch.einsum("bgt,btd->bgd", t, vf[:, keys])
-                         for t in bf16_terms(p, terms))
+                         for t in p_terms(p * (vs[:, None, keys] * pup),
+                                          terms))
                 keep = live[:, None]
                 warps[w] = (torch.where(keep[..., None],
                                         o * corr[..., None] + pv, o),
                             torch.where(keep, mx, m),
                             torch.where(keep, l * corr + p.sum(-1), l))
-        splits.append(combine_partials(warps))
+        o, m, l = combine_partials(warps)
+        splits.append((o * (1.0 / pup), m, l))
     return combine_partials(splits)
 
 
@@ -472,7 +517,6 @@ def _paged_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
     BKV, G, D = q.shape
     n_pages, ps, KV, Dp = k_pool.shape
     B, J = table.shape
-    code = build.dtype_code(q.dtype)
     if BKV != B * KV or Dp != D or n_pages < 1:
         raise ValueError(f"{kernel}: needs q (B*KV, G, D) against pools "
                          f"(n_pages>=1, ps, KV, D) and a (B, J) table; got "
@@ -488,12 +532,9 @@ def _paged_kernel(kernel, q, k_pool, v_pool, table, counts, scales, scale):
         build.check_operands(kernel, torch.float32,
                              k_scale=(scales[0], (n_pages, KV)),
                              v_scale=(scales[1], (n_pages, KV)))
-        out = _paged_fma(kernel, q, k_pool, v_pool, table, counts, scales,
-                         scale, code)
-        build.count_launch(kernel)
-        return out
     return paged_launch(q, k_pool, v_pool, table, counts,
-                        paged_variant(q.dtype, D, G), scale=scale)
+                        paged_variant(q.dtype, D, G), scale=scale,
+                        scales=scales)
 
 
 def _paged_fma(kernel, q, k_pool, v_pool, table, counts, scales, scale,
@@ -516,18 +557,20 @@ def _paged_fma(kernel, q, k_pool, v_pool, table, counts, scales, scale,
 
 
 def paged_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
-                 scale=None):
+                 scale=None, scales=()):
     """One launch of kernel 5's variant ``kind`` ("mma" or "fma") on
     operands ``vwr_paged_flash_decode`` checked, with ``paged_plan``'s
-    plan unless ``plan`` is given; chip_smoke.py times the variants and
-    plans against each other through it."""
+    plan unless ``plan`` is given; with ``scales`` (the int8 pools'
+    (k_scale, v_scale)) kernel 7's, on operands
+    ``vwr_paged_flash_decode_q8`` checked.  chip_smoke.py times the
+    variants and plans against each other through it."""
     BKV, G, D = q.shape
     n_pages, ps, KV, _ = k_pool.shape
     B, J = table.shape
     scale = 1.0 / D ** 0.5 if scale is None else scale
-    kernel = "vwr_paged_flash_decode"
+    kernel = "vwr_paged_flash_decode" + ("_q8" if scales else "")
     if kind == "fma":
-        out = _paged_fma(kernel, q, k_pool, v_pool, table, counts, (),
+        out = _paged_fma(kernel, q, k_pool, v_pool, table, counts, scales,
                          scale, build.dtype_code(q.dtype))
     else:
         nsplit, jps = plan or paged_plan(BKV, J, ps)
@@ -538,14 +581,12 @@ def paged_launch(q, k_pool, v_pool, table, counts, kind, plan=None,
         f32 = dict(dtype=torch.float32, device=q.device)
         out = (torch.empty((BKV, G, D), **f32),
                torch.empty((BKV, G), **f32), torch.empty((BKV, G), **f32))
-        lib, fn = build.kernel_fn("vwr_paged_decode",
-                                  "vwr_paged_flash_decode_mma_launch",
-                                  [_VP] * 10 + [_I] * 9 + [_F, _VP])
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), counts.data_ptr(),
-                 *(t.data_ptr() for t in out), ws.data_ptr(),
-                 counters.data_ptr(), B, J, n_pages, ps, KV, G, D, nsplit,
-                 jps, scale, stream)
+        ptrs = [q, k_pool, v_pool, *scales, table, counts, *out, ws,
+                counters]
+        lib, fn = build.kernel_fn("vwr_paged_decode", f"{kernel}_mma_launch",
+                                  [_VP] * len(ptrs) + [_I] * 9 + [_F, _VP])
+        err = fn(*(t.data_ptr() for t in ptrs), B, J, n_pages, ps, KV, G, D,
+                 nsplit, jps, scale, stream)
         build.check(lib, err, kernel)
     build.count_launch(kernel, kind)
     return out

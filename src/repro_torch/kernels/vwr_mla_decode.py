@@ -36,16 +36,18 @@ acceptable at reduced widths.  Nothing is copied at DeepSeek-V3's r 512,
 rope 64.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
 
-Kernels 10 and 11 have two kernels each, and ``decode_variant`` picks one
-per call: ``"wgmma"`` (bf16 caches and pools at r 128 / 256 / 512, rope
-32 / 64, pages of a multiple of 8 rows: 64 of a sequence's heads as wgmma
-rows, the fp32 queries and P each split into two bf16 terms, the keys in
-32-slot tiles of the sequence's table row or slab; ``mla_decode_plan``
-cuts a row group's keys into splits, one block a split, merged by the
-group's last block in the same launch, and its output columns into
-column blocks; ``decode_split_emulation`` is its arithmetic in plain
-PyTorch) or ``"fma"`` (fp32 caches and every other width: fp32 FMAs).
-Kernels 13 and 14 (int8) run the FMA kernel.
+Kernels 10, 11 and 13 have two kernels each, and ``decode_variant``
+picks one per call: ``"wgmma"`` (bf16 caches and pools and int8 pools at
+r 128 / 256 / 512, rope 32 / 64, pages of a multiple of 8 rows: 64 of a
+sequence's heads as wgmma rows, the fp32 queries and P each split into
+two bf16 terms, the keys in 32-slot tiles of the sequence's table row or
+slab; ``mla_decode_plan`` cuts a row group's keys into splits, one block
+a split, merged by the group's last block in the same launch, and its
+output columns into column blocks; over kernel 13's int8 pools the terms
+are kernel 15's fp16 ones, P's power of two taken per split;
+``decode_split_emulation`` is its arithmetic in plain PyTorch) or
+``"fma"`` (fp32 caches and every other width: fp32 FMAs).  Kernel 14
+(the dense int8 cache) runs the FMA kernel.
 
 Kernels 12 and 15 have two kernels each, and ``chunk_variant`` picks one
 per call: ``"wgmma"`` (bf16 or int8 pools at r 128 / 256 / 512, rope
@@ -55,8 +57,8 @@ pools two fp16 terms of each query row and of P scaled by powers of two,
 the keys converted to fp16 exactly and their page scales applied in fp32
 outside the products; ``chunk_split_emulation`` is its arithmetic in
 plain PyTorch) or ``"fma"`` (fp32 pools and every other width: the decode
-body, fp32 FMAs).  ``build.VARIANTS`` counts the variants of kernels 10,
-11, 12 and 15.  The split partials and counters are
+body, fp32 FMAs).  ``build.VARIANTS`` counts the variants of kernels 10
+to 15.  The split partials and counters are
 ``build.split_workspace`` / ``split_counters``, one buffer per (device,
 stream).
 """
@@ -69,7 +71,8 @@ import torch
 
 from repro_torch.kernels import build, widths
 from repro_torch.kernels.vwr_chunk import key_tiles
-from repro_torch.kernels.vwr_decode import SMS, bf16_terms, combine_partials
+from repro_torch.kernels.vwr_decode import (SMS, bf16_terms, combine_partials,
+                                            pow2_up)
 
 NEG_INF = -1e30
 # the kernel holds a lane's share of r and rope in registers: r / 32
@@ -210,15 +213,18 @@ def _cdiv(a, b):
 
 def decode_variant(r, rope, H, page_size, dtype):
     """The kernel that serves a ``vwr_mla_flash_decode`` (``page_size``
-    None: the dense cache) or ``vwr_mla_paged_flash_decode`` call at the
-    kernel's widths (after ``widths.at_widths``): "wgmma" for bf16 caches
-    and pools at r 128, 256 or 512 and rope 32 or 64, with pages of a
-    multiple of 8 rows (any H: the rows past H in a sequence's last block
-    of 64 are masked), else "fma" (fp32 caches, the reduced configs'
-    padded widths).  Kernels 13 and 14 (int8) run the FMA kernel."""
-    if (dtype == torch.bfloat16 and r in WGMMA_RANKS and rope in ROPES
-            and H > 0 and (page_size is None or (
-                page_size > 0 and page_size % WGMMA_PAGE_ROWS == 0))):
+    None: the dense cache), ``vwr_mla_paged_flash_decode`` or ``_q8``
+    call at the kernel's widths (after ``widths.at_widths``; ``dtype`` the
+    cache's): "wgmma" for bf16 caches and pools and int8 pools (kernel 13)
+    at r 128, 256 or 512 and rope 32 or 64, with pages of a multiple of 8
+    rows (any H: the rows past H in a sequence's last block of 64 are
+    masked), else "fma" (fp32 caches, the reduced configs' padded widths,
+    the dense int8 cache of kernel 14)."""
+    paged = page_size is not None
+    if ((dtype == torch.bfloat16 or (dtype == torch.int8 and paged))
+            and r in WGMMA_RANKS and rope in ROPES and H > 0
+            and (not paged or (page_size > 0
+                               and page_size % WGMMA_PAGE_ROWS == 0))):
         return "wgmma"
     return "fma"
 
@@ -269,21 +275,10 @@ def mla_decode_plan(B, H, n, page_size=None, r=512):
     return best[2]
 
 
-# kernel 15's fp16 terms: each query row (and P) is scaled by the power of
-# two that brings its largest magnitude into [2^14, 2^15): inside fp16's
-# range, with lo = fp16(x - hi) still a normal number for every element
-# down to 2^-17 of the largest
-F16_TOP = 15
-
-
-def _pow2_up(amax):
-    """The power of two that brings amax into [2^14, 2^15) (1 for 0)."""
-    e = torch.frexp(amax)[1]
-    return torch.where(amax > 0, torch.ldexp(torch.ones_like(amax),
-                                             (F16_TOP - e).clamp(max=126)),
-                       1.0)
-
-
+# kernels 15 and 13's fp16 terms: each query row (and P) is scaled by the
+# power of two that brings its largest magnitude into [2^14, 2^15)
+# (``pow2_up``): inside fp16's range, with lo = fp16(x - hi) still a
+# normal number for every element down to 2^-17 of the largest
 def _f16_terms(x, up):
     """x (fp32) as two fp16 terms of x * up, hi = fp16(x up) and lo =
     fp16(x up - hi), each returned as fp32 and divided by up again (both
@@ -291,6 +286,14 @@ def _f16_terms(x, up):
     xs = x * up
     hi = xs.half().float()
     return hi / up, (xs - hi).half().float() / up
+
+
+def _f16_query_terms(xa, xr):
+    """The query rows xa (rows, r), xr (rows, rope), times scale, as two
+    fp16 terms each, every row scaled by the power of two of its largest
+    |x| over both parts (``_f16_terms``)."""
+    up = pow2_up(torch.maximum(xa.abs().amax(-1), xr.abs().amax(-1)))
+    return _f16_terms(xa, up[:, None]), _f16_terms(xr, up[:, None])
 
 
 def chunk_key_tiles(table, counts, page_size):
@@ -345,7 +348,7 @@ def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
     pools' values, fp32 products and sums, an fp32 online softmax over the
     kernel's key tiles.  With the int8 pools' (n_pages,) scales the terms
     are fp16 (each query row, and P, scaled by the power of two
-    ``_pow2_up`` gives), the int8 values exact in fp16, a key's latent and
+    ``pow2_up`` gives), the int8 values exact in fp16, a key's latent and
     rope sums each take their page's scale in fp32 and P takes the latent
     one before its split, while l sums the unscaled P.  Returns fp32
     (o_tilde (C, H, r), m (C, H), l (C, H))."""
@@ -356,14 +359,13 @@ def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
     xr = q_rope.float().reshape(C * H, -1) * scale
     if q8:
         # int8 pools: fp16 terms, each row scaled by its power of two
-        up = _pow2_up(torch.maximum(xa.abs().amax(-1), xr.abs().amax(-1)))
-        qa, qr = (_f16_terms(t, up[:, None]) for t in (xa, xr))
+        qa, qr = _f16_query_terms(xa, xr)
         # P times the latent scale, scaled by the power of two of the
         # largest scale of a counted page
         cs_pages = torch.where(counts > 0, ckv_scale.float()[
             table.long().clamp(0, n_pages - 1)], 0.0)
-        p_up = _pow2_up(cs_pages.amax() if cs_pages.numel()
-                        else torch.zeros(()))
+        p_up = pow2_up(cs_pages.amax() if cs_pages.numel()
+                       else torch.zeros(()))
         p_terms = lambda p: _f16_terms(p, p_up)   # noqa: E731
     else:
         qa, qr = bf16_terms(xa), bf16_terms(xr)
@@ -377,23 +379,44 @@ def chunk_split_emulation(q_abs, q_rope, ckv_pool, krope_pool, table, counts,
     return o.reshape(C, H, r), m.reshape(C, H), l.reshape(C, H)
 
 
+def split_p_up(ckv_scale, table, counts, k0, k1):
+    """Kernel 13's power of two for P in the key split of entries [k0,
+    k1) of one sequence's table row (``table`` / ``counts`` lists, pages
+    clamped): ``pow2_up`` of the largest latent scale of a counted page
+    among them."""
+    cs = [abs(float(ckv_scale[t])) for t, c in zip(table[k0:k1],
+                                                    counts[k0:k1]) if c > 0]
+    return pow2_up(torch.tensor(max(cs, default=0.0)))
+
+
 def decode_split_emulation(q_abs, q_rope, c_kv, k_rope, table=None,
-                           counts=None, cur_len=None, pos0=0, plan=None, *,
+                           counts=None, cur_len=None, pos0=0, plan=None,
+                           ckv_scale=None, krope_scale=None, terms=2, *,
                            scale: float):
-    """The wgmma variant of kernels 10 and 11 in plain PyTorch (the tests
-    hold it against ``vwr_mla_flash_decode_ref`` /
-    ``vwr_mla_paged_flash_decode_ref`` and the JAX ops): each sequence's
-    rows, the queries times scale and P as two bf16 terms against the bf16
-    keys, per key split (``mla_decode_plan``'s unless ``plan`` is given)
-    an fp32 online softmax over the kernel's 32-slot tiles (the pools: the
-    page walk ``chunk_key_tiles`` over the split's table entries; the
-    dense cache: 32 keys of the slab a tile, masked past the split's
-    keys), the splits merged in split order (``combine_partials``).  The
-    column blocks change no value.  Dense: c_kv (B, T, r) with the keys
-    ``pos0 + idx < cur_len`` valid; pools: (n_pages, page_size, r) through
-    ``table`` / ``counts`` (B, J).  Returns fp32 (o_tilde (B, H, r),
-    m (B, H), l (B, H))."""
+    """The wgmma variant of kernels 10, 11 and 13 in plain PyTorch (the
+    tests hold it against ``vwr_mla_flash_decode_ref`` /
+    ``vwr_mla_paged_flash_decode_ref`` / its q8 sibling and the JAX ops):
+    each sequence's rows, the queries times scale and P as two bf16 terms
+    against the bf16 keys, per key split (``mla_decode_plan``'s unless
+    ``plan`` is given) an fp32 online softmax over the kernel's 32-slot
+    tiles (the pools: the page walk ``chunk_key_tiles`` over the split's
+    table entries; the dense cache: 32 keys of the slab a tile, masked
+    past the split's keys), the splits merged in split order
+    (``combine_partials``), P as ``terms`` terms (two, or hi alone).  The
+    column blocks change no value.  Dense:
+    c_kv (B, T, r) with the keys ``pos0 + idx < cur_len`` valid; pools:
+    (n_pages, page_size, r) through ``table`` / ``counts`` (B, J).  With
+    the int8 pools' (n_pages,) scales (kernel 13) the terms are kernel
+    15's: fp16, each query row scaled by its power of two, P times its
+    page's latent scale and the split's own power of two
+    (``split_p_up``) before its split, l over the unscaled P, each key's
+    latent and rope sums times their page's scales.  Returns fp32
+    (o_tilde (B, H, r), m (B, H), l (B, H))."""
     B, H, r = q_abs.shape
+    q8 = ckv_scale is not None
+    if q8 and table is None:
+        raise ValueError("the dense int8 cache (kernel 14) has no wgmma "
+                         "variant")
     xa = q_abs.float() * scale
     xr = q_rope.float() * scale
     lead, rows = c_kv.shape[:2]
@@ -409,17 +432,25 @@ def decode_split_emulation(q_abs, q_rope, c_kv, k_rope, table=None,
         cnt = counts.tolist()
     outs = []
     for b in range(B):
-        qa, qr = bf16_terms(xa[b]), bf16_terms(xr[b])
+        qa, qr = (_f16_query_terms(xa[b], xr[b]) if q8
+                  else (bf16_terms(xa[b]), bf16_terms(xr[b])))
         parts = []
         for sp in range(nsplit):
             k0, k1 = sp * per, min(n, (sp + 1) * per)
+            p_terms, scales = (lambda p: bf16_terms(p, terms)), None
             if table is None:
                 tiles = [[b * rows + k if k < k1 else -1
                           for k in range(t0, t0 + CHUNK_KEYS)]
                          for t0 in range(k0, k1, CHUNK_KEYS)]
             else:
                 tiles = chunk_key_tiles(tbl[b][k0:k1], cnt[b][k0:k1], rows)
-            parts.append(_online_tiles(qa, qr, ckv, kr, tiles, bf16_terms))
+            if q8:
+                up = split_p_up(ckv_scale, tbl[b], cnt[b], k0, k1)
+                p_terms = (lambda p, up=up:  # noqa: E731
+                           _f16_terms(p, up)[:terms])
+                scales = (ckv_scale, krope_scale, rows)
+            parts.append(_online_tiles(qa, qr, ckv, kr, tiles, p_terms,
+                                       scales))
         outs.append(combine_partials(parts))
     return tuple(torch.stack(t) for t in zip(*outs))
 
@@ -482,15 +513,12 @@ def _kernel(kernel, q_abs, q_rope, ckv, kr, scales, index, n_keys, scale):
         build.check_operands(kernel, torch.int32,
                              table=(index[0], (*rows, J)),
                              counts=(index[1], (*rows, J)))
-    if kernel.startswith("vwr_mla_chunk"):
-        kind = chunk_variant(r, rope, lead[1], ckv.dtype)
-    elif scales:   # kernels 13 and 14
-        kind = None
-    else:          # kernels 10 and 11
+    if not kernel.startswith("vwr_mla_chunk"):   # kernels 10, 11, 13, 14
         return mla_decode_launch(
             q_abs, q_rope, ckv, kr, index, n_keys,
             decode_variant(r, rope, H, lead[1] if paged else None,
-                           ckv.dtype), scale=scale)
+                           ckv.dtype), scale=scale, scales=scales)
+    kind = chunk_variant(r, rope, lead[1], ckv.dtype)
     out = _entry(kernel, "_wgmma_launch" if kind == "wgmma" else "_launch",
                  q_abs, q_rope, ckv, kr, scales, index, n_keys, scale, code)
     build.count_launch(kernel, kind)
@@ -523,18 +551,24 @@ def _entry(kernel, entry, q_abs, q_rope, ckv, kr, scales, index, n_keys,
 
 
 def mla_decode_launch(q_abs, q_rope, ckv, kr, index, n_keys, kind,
-                      plan=None, *, scale: float):
+                      plan=None, *, scale: float, scales=()):
     """One launch of kernel 10's (``index`` (): the dense cache, ``n_keys``
     valid keys a slab) or kernel 11's (``index`` (table, counts)) variant
     ``kind`` ("wgmma" or "fma") on operands their wrappers checked, at the
     kernel's widths, with ``mla_decode_plan``'s plan unless ``plan``
-    (nsplit, per, ncol) is given; chip_smoke.py times the variants and
-    plans against each other through it."""
+    (nsplit, per, ncol) is given; with ``scales`` (the int8 caches'
+    (ckv_scale, krope_scale)) kernel 14's (the FMA kernel only) or kernel
+    13's.  chip_smoke.py times the variants and plans against each other
+    through it."""
     kernel = ("vwr_mla_paged_flash_decode" if index
-              else "vwr_mla_flash_decode")
+              else "vwr_mla_flash_decode") + ("_q8" if scales else "")
     if kind == "fma":
-        out = _entry(kernel, "_launch", q_abs, q_rope, ckv, kr, (), index,
-                     n_keys, scale, build.dtype_code(ckv.dtype))
+        out = _entry(kernel, "_launch", q_abs, q_rope, ckv, kr, scales,
+                     index, n_keys, scale,
+                     0 if scales else build.dtype_code(ckv.dtype))
+    elif scales and not index:
+        raise ValueError(f"{kernel}: the dense int8 cache has no wgmma "
+                         "variant")
     else:
         B, H, r = q_abs.shape
         lead = ckv.shape[:2]
@@ -548,7 +582,8 @@ def mla_decode_launch(q_abs, q_rope, ckv, kr, index, n_keys, kind,
                                    * (r + 2 * ncol))
         counters = build.split_counters(q_abs.device, stream, groups * ncol)
         out = _outputs(q_abs)
-        ptrs = [q_abs, q_rope, ckv, kr, *index, *out, ws, counters]
+        ptrs = [q_abs, q_rope, ckv, kr, *scales, *index, *out, ws,
+                counters]
         lib, fn = build.kernel_fn("vwr_mla_decode", kernel + "_wgmma_launch",
                                   [_VP] * len(ptrs) + [_I] * 10
                                   + [_F, _VP])

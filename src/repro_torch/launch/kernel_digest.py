@@ -1,32 +1,77 @@
-"""A digest and the device time of kernel 15's output, to hold two
-checkouts' kernels bitwise against each other on one card.
+"""Digests and device times of kernels 4, 5, 9 and 15's outputs, to hold
+two checkouts' kernels bitwise against each other on one card.
 
     PYTHONPATH=<checkout>/src python3 -P \\
         src/repro_torch/launch/kernel_digest.py
 
-``vwr_mla_chunk_prefix_attend_q8`` (kernel 15) at chip_smoke.py's
-headline shape (DeepSeek-V3 widths: a 64-token chunk of 128 heads, r 512,
-rope 64, over 16 int8 pages of 16 with fp32 page scales; fp32 queries),
-inputs from seed 15.  Prints one JSON line: the sha256 of the fp32
-outputs (o_tilde, m, l) and the mean device ms of 20 launches (CUDA
-events, each after a 64 MB write that evicts the L2).  The ``-P`` keeps
-this file's directory off ``sys.path``, so ``PYTHONPATH`` names the
-package whose kernel runs.  Needs a GPU.
+Each case runs a kernel through its public wrapper at chip_smoke.py's
+shapes, inputs from a seed of its own: ``vwr_flash_decode`` (kernel 4,
+bf16: tinyllama's B4 T160 cache, one split a group, and B1 T2048, 8
+splits), ``vwr_paged_flash_decode`` (kernel 5, bf16 pools: 8 slots, J 16
+of 16, and a J 128 table), ``vwr_flash_decode_q8`` (kernel 9, the int8
+cache at both dense shapes) and ``vwr_mla_chunk_prefix_attend_q8``
+(kernel 15: a 64-token chunk of 128 heads, r 512, rope 64, over 16 int8
+pages of 16; fp32 queries).  Prints one JSON line a case: the sha256 of
+the fp32 outputs (o_tilde, m, l) and the mean device ms of 20 launches
+(CUDA events, each after a 64 MB write that evicts the L2).  The ``-P``
+keeps this file's directory off ``sys.path``, so ``PYTHONPATH`` names the
+package whose kernels run.  Needs a GPU.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import vwr_decode as KD
 from repro_torch.kernels import vwr_mla_decode as KM
 
-C, H, R, RP, PS, J, N_PAGES, SEED = 64, 128, 512, 64, 16, 16, 64, 15
+PAGED_LENS = (0, 1, 16, 17, 255, 100, 200, 64)
+LONG_LENS = (2048, 1900, 1500, 1024, 777, 2000, 100, 1)
 
 
-def main():
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+def _table(g, lens, J, ps, n_pages):
+    """Each slot's live pages a permuted page each, zero past them."""
+    perm = torch.randperm(n_pages, generator=g, device="cuda").cpu()
+    table = np.zeros((len(lens), J), np.int32)
+    counts = np.zeros((len(lens), J), np.int32)
+    k = 0
+    for b, n in enumerate(lens):
+        live = -(-n // ps)
+        table[b, :live] = perm[k:k + live].numpy()
+        counts[b, :live] = np.clip(n - ps * np.arange(live), 0, ps)
+        k += live
+    return torch.from_numpy(table).cuda(), torch.from_numpy(counts).cuda()
+
+
+def _dense(g, B, T, n, q8):
+    KV, G, D = 4, 8, 64
+    q = torch.randn(B * KV, G, D, generator=g, device="cuda").bfloat16()
+    if not q8:
+        k, v = (torch.randn(B, T, KV, D, generator=g, device="cuda")
+                .bfloat16() for _ in range(2))
+        return lambda: KD.vwr_flash_decode(q, k, v, n)
+    k, v = (torch.randint(-127, 128, (B, T, KV, D), generator=g,
+                          device="cuda", dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(B * KV, generator=g, device="cuda") * 0.02 + 1e-3
+              for _ in range(2))
+    return lambda: KD.vwr_flash_decode_q8(q, k, v, ks, vs, n)
+
+
+def _paged(g, lens, J, n_pages):
+    KV, G, D, PS = 4, 8, 64, 16
+    q = torch.randn(len(lens) * KV, G, D, generator=g,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn(n_pages, PS, KV, D, generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    table, counts = _table(g, lens, J, PS, n_pages)
+    return lambda: KD.vwr_paged_flash_decode(q, k, v, table, counts)
+
+
+def _chunk_q8(g):
+    C, H, R, RP, PS, J, N_PAGES = 64, 128, 512, 64, 16, 16, 64
     qa = torch.randn(C, H, R, generator=g, device="cuda")
     qr = torch.randn(C, H, RP, generator=g, device="cuda")
     pools = [torch.randint(-127, 128, (N_PAGES, PS, w), generator=g,
@@ -36,31 +81,54 @@ def main():
     table = torch.randperm(N_PAGES, generator=g,
                            device="cuda")[:J].to(torch.int32)
     counts = torch.full((J,), PS, dtype=torch.int32, device="cuda")
+    return lambda: KM.vwr_mla_chunk_prefix_attend_q8(
+        qa, qr, *pools, *scales, table, counts, scale=(R + RP) ** -0.5)
 
-    def run():
-        return KM.vwr_mla_chunk_prefix_attend_q8(
-            qa, qr, *pools, *scales, table, counts, scale=(R + RP) ** -0.5)
 
-    out = run()
-    torch.cuda.synchronize()
-    digest = hashlib.sha256()
-    for t in out:
-        digest.update(t.contiguous().cpu().numpy().tobytes())
+def _cases():
+    """(kernel, shape, seed, a function of a generator that sets up the
+    inputs and returns the call)."""
+    return [
+        ("vwr_flash_decode", "B4 T160 cur 144", 4,
+         lambda g: _dense(g, 4, 160, 144, False)),
+        ("vwr_flash_decode", "B1 T2048", 41,
+         lambda g: _dense(g, 1, 2048, 2048, False)),
+        ("vwr_paged_flash_decode", "8 slots, J 16 of 16", 5,
+         lambda g: _paged(g, PAGED_LENS, 16, 1024)),
+        ("vwr_paged_flash_decode", "8 slots, J 128 of 16", 51,
+         lambda g: _paged(g, LONG_LENS, 128, 1200)),
+        ("vwr_flash_decode_q8", "B4 T160 cur 144", 9,
+         lambda g: _dense(g, 4, 160, 144, True)),
+        ("vwr_flash_decode_q8", "B1 T2048", 91,
+         lambda g: _dense(g, 1, 2048, 2048, True)),
+        ("vwr_mla_chunk_prefix_attend_q8", "C64 H128, 16 pages of 16", 15,
+         _chunk_q8),
+    ]
+
+
+def main():
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    events = []
-    for _ in range(20):
-        torch.cuda._sleep(1_000_000)
-        flush.zero_()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        run()
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
-    print(json.dumps({"kernel": "vwr_mla_chunk_prefix_attend_q8",
-                      "sha256": digest.hexdigest(), "ms": ms,
-                      "device": torch.cuda.get_device_name(0)}))
+    for kernel, shape, seed, make in _cases():
+        run = make(torch.Generator(device="cuda").manual_seed(seed))
+        out = run()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for t in out:
+            digest.update(t.contiguous().cpu().numpy().tobytes())
+        events = []
+        for _ in range(20):
+            torch.cuda._sleep(1_000_000)
+            flush.zero_()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            run()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+        print(json.dumps({"kernel": kernel, "shape": shape,
+                          "sha256": digest.hexdigest(), "ms": ms,
+                          "device": torch.cuda.get_device_name(0)}))
 
 
 if __name__ == "__main__":
