@@ -63,10 +63,16 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    launches, held against the plain version and the emulation; a case
    whose splits' page scales lie 2^12 apart; the J 128 tables timed
    beside the FMA kernel forced and the library call; both plan tables);
+   kernel 14 on the dense int8 slab by kernel 10's wgmma variant (its
+   dense cases on the variant, bitwise over two launches, held against
+   the plain version and the emulation; B1 T2048 timed and the headline
+   beside the FMA kernel forced and the library call; a batch whose
+   sequences' scales lie 2^12 apart; its plan tables at both shapes);
    then kernels 1 (split-K), 4 (8 splits), 5 (8 splits), 11, 9 (8
-   splits), 8 (16 splits), 7 and 13 (J 128) launched in turns on two
-   streams with no synchronisation, each stream's outputs bitwise equal
-   to one stream's (the split buffers belong to one stream);
+   splits), 8 (16 splits), 7 and 13 (J 128) and 14 (B1 T2048, 16
+   splits) launched in turns on two streams with no synchronisation,
+   each stream's outputs bitwise equal to one stream's (the split
+   buffers belong to one stream);
 3. serve tinyllama-1.1b at full width (22 layers, d 2048, vocab 32000,
    bf16, random weights from a seed) through ``DecodeEngine.generate``
    on the kernels (after one warm-up generate), with every launch counter
@@ -89,14 +95,16 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    full-width tinyllama-1.1b through the ``Scheduler`` (8 slots, 128
    pages of 16, 24 requests with prompts of 32-256 tokens and gen 32,
    8 submitted at once and 2 more every 4 steps), once with bf16 and
-   once with int8 pools: every request FINISHED, every page free after
-   the drain, the paged kernel launched 22 times a decode step (every
-   launch on the mma variant: kernel 5's on bf16 pools, 7's on int8), the
-   dense decode kernel never, ``vwr_attention`` 22 times a (batch-1)
-   prefill; the same stream again with 40 pages held, where growth must
-   preempt and every request still finish; 4 requests replayed
-   teacher-forced and held against the plain path; steps, preemptions,
-   peak pages, table widths, generated tokens/s and p50/p99 latency and
+   once with int8 pools: every request FINISHED (a Scheduler that stalls
+   fails the run within twice the stream's tokens of rounds, with its
+   state), every page free after the drain, the paged kernel launched 22
+   times a decode step (every launch on the mma variant: kernel 5's on
+   bf16 pools, 7's on int8), the dense decode kernel never,
+   ``vwr_attention`` 22 times a (batch-1) prefill; the same stream
+   again with 40 pages held, where growth must preempt and every request
+   still finish; 4 requests replayed teacher-forced and held against the
+   plain path; steps, preemptions, peak pages, table widths, generated
+   tokens/s and p50/p99 latency and
    ITL printed;
 6. the prefix cache and chunked prefill: kernels 6 and 8 are held and
    timed in phase 2 (tinyllama's 64-token chunk over 16 pages, partial
@@ -126,7 +134,8 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    variant) teacher-forced against the plain
    path with the routing of both compared, kernel 14 through
    ``dist.decode.local_mla_decode_attend`` over generate's latent cache
-   quantized per sequence, and the Scheduler stream of phase 5 on bf16
+   quantized per sequence (every launch on its wgmma variant), and the
+   Scheduler stream of phase 5 on bf16
    and int8 latent pools (kernels 11 and 13, every launch on the wgmma
    variant), its requests replayed in
    the live slots through both paths;
@@ -1441,7 +1450,8 @@ def check_two_streams(torch):
     variant on a 128-entry table at DeepSeek-V3's widths; kernel 9's split
     variant at B4 T2048 over an int8 cache; kernel 8's wgmma variant on
     124 int8 pages, 16 splits a row group; kernels 7 and 13 on the
-    128-entry table over int8 pages) issued in turns
+    128-entry table over int8 pages; kernel 14's wgmma variant at B1
+    T2048 over an int8 slab, 16 splits) issued in turns
     on two streams with no synchronisation between them, and each
     stream's outputs held bitwise to the same launches on one stream.
     With one buffer a device the two streams' blocks would count on the
@@ -1491,6 +1501,11 @@ def check_two_streams(torch):
                   for w in (512, 64)]
     msc = tuple(torch.rand(1200, generator=gen, device="cuda") * 0.02 + 1e-3
                 for _ in range(2))
+    q1 = [torch.randn(1, 128, w, generator=gen, device="cuda")
+          for w in (512, 64)]
+    slab8 = [torch.randint(-127, 128, (1, 2048, w), **i8) for w in (512, 64)]
+    ssc = tuple(torch.rand(1, generator=gen, device="cuda") * 0.02 + 1e-3
+                for _ in range(2))
     calls = {
         "vwr_flash_decode split (8, 256)":
             (lambda: KD.vwr_flash_decode(qd, kd, vd, T),
@@ -1519,10 +1534,15 @@ def check_two_streams(torch):
             (lambda: KMLA.vwr_mla_paged_flash_decode_q8(
                 *qm, *mla_pools8, *msc, table, counts, scale=192 ** -0.5),
              "vwr_mla_paged_flash_decode_q8", "wgmma"),
+        "vwr_mla_flash_decode_q8 wgmma B1 T2048":
+            (lambda: KMLA.vwr_mla_flash_decode_q8(
+                *q1, *slab8, *ssc, 2048, scale=192 ** -0.5),
+             "vwr_mla_flash_decode_q8", "wgmma"),
     }
     if (KD.decode_plan(B * KV, T)[0] < 2
             or KD.paged_plan(8 * KV, 128, 16)[0] < 2
             or KMLA.mla_decode_plan(8, 128, 128, 16)[0] < 2
+            or KMLA.mla_decode_plan(1, 128, 2048)[0] < 2
             or KC.chunk_plan(KV, 64 * G, 124, 16)[0] < 2):
         raise AssertionError("the two-stream cases must split")
     print("two streams: split buffers per stream")
@@ -1817,29 +1837,34 @@ def check_mla_kernels(torch, F, gen, compare, record):
     DeepSeek-V3's widths (H 128, r 512, rope 64, fp32 queries) against
     their plain versions; the bound counts the fp32 queries and partials
     beside the valid keys, and fp32 operations (the queries are fp32),
-    bf16 ones for the wgmma variants of kernels 10, 11 and 12 (their terms
-    are bf16).  Kernels 10 and 11 on bf16 caches and pools run their
-    wgmma variant, on fp32 ones the FMA kernel (``decode_variant``), each
-    case's variant asserted and each wgmma output bitwise equal over two
-    launches."""
+    bf16 ones for the wgmma variants of kernels 10-15 (their terms are
+    bf16 or fp16).  Kernels 10, 11, 13 and 14 on bf16 and int8 caches and
+    pools run their wgmma variant, on fp32 ones the FMA kernel
+    (``decode_variant``), each case's variant asserted and each wgmma
+    output bitwise equal over two launches; the int8 ones are held to
+    their emulation too, and the timed wgmma cases beside the FMA kernel
+    forced.  Kernel 14 adds B1 T2048 (timed) and a batch whose sequences'
+    scales lie ~2^12 apart, from a generator of their own (seed 26), so
+    the cases after draw the inputs they drew before."""
     from repro_torch.kernels import build
     from repro_torch.kernels import vwr_mla_decode as KM
 
     f32, bf16 = torch.float32, torch.bfloat16
     H, R, RP, SCALE = 128, 512, 64, 1.0 / 192 ** 0.5
+    g14 = torch.Generator(device="cuda").manual_seed(26)
 
-    def queries(B):
-        return (torch.randn(B, H, R, generator=gen, device="cuda"),
-                torch.randn(B, H, RP, generator=gen, device="cuda"))
+    def queries(B, g=gen):
+        return (torch.randn(B, H, R, generator=g, device="cuda"),
+                torch.randn(B, H, RP, generator=g, device="cuda"))
 
-    def caches(lead, dt, q8):
+    def caches(lead, dt, q8, g=gen):
         if q8:
-            return ([torch.randint(-127, 128, (*lead, w), generator=gen,
+            return ([torch.randint(-127, 128, (*lead, w), generator=g,
                                    device="cuda", dtype=torch.int8)
                      for w in (R, RP)],
-                    [torch.rand(lead[0], generator=gen, device="cuda")
+                    [torch.rand(lead[0], generator=g, device="cuda")
                      * 0.02 + 1e-3 for _ in range(2)])
-        return [torch.randn(*lead, w, generator=gen, device="cuda").to(dt)
+        return [torch.randn(*lead, w, generator=g, device="cuda").to(dt)
                 for w in (R, RP)], []
 
     def split(B, keys, elt, scale_bytes, index_bytes):
@@ -1861,15 +1886,33 @@ def check_mla_kernels(torch, F, gen, compare, record):
         ("fp32 cache", 2, 77, 77, 0, f32, False, False),
         ("no valid key", 2, 40, 3, 10, bf16, False, False),
     ]
+    # kernel 14 alone (int8 slabs from g14); step: the even sequences'
+    # scales divided by it, the others' in [0.01, 0.012)
+    slab_cases = [
+        # label, B, T, cur_len, pos0, dtype, timed, headline, step
+        ("B1 T2048", 1, 2048, 2048, 0, bf16, True, False, None),
+        ("sequences' scales 2^12 apart", 4, 160, 144, 0, bf16, False,
+         False, SCALE_STEP),
+    ]
     for q8 in (False, True):
         kname = "vwr_mla_flash_decode" + ("_q8" if q8 else "")
         print(kname)
         fn = KM.vwr_mla_flash_decode_q8 if q8 else KM.vwr_mla_flash_decode
         ref = (KM.vwr_mla_flash_decode_q8_ref if q8
                else KM.vwr_mla_flash_decode_ref)
-        for label, B, T, cur, pos0, dt, timed, head in dense_cases:
-            qa, qr = queries(B)
-            cache, scales = caches((B, T), dt, q8)
+        cases = [(*c, gen, None) for c in dense_cases]
+        if q8:
+            cases += [(*c[:-1], g14, c[-1]) for c in slab_cases]
+        for label, B, T, cur, pos0, dt, timed, head, g, step in cases:
+            qa, qr = queries(B, g)
+            cache, scales = caches((B, T), dt, q8, g)
+            if step:
+                for s in scales:
+                    s.copy_(torch.rand(B, generator=g, device="cuda")
+                            * 0.002 + 0.01)
+                    s[::2] /= step
+                apart = scales[0][1::2].min() / scales[0][::2].max()
+                print(f"  sequences' scales {float(apart):.0f}x apart")
             args = (qa, qr, *cache, *scales, cur, pos0)
             shape = f"B{B} H{H} r{R} rope{RP} T{T} cur{cur} pos0{pos0}"
             before = dict(build.VARIANTS)
@@ -1882,6 +1925,12 @@ def check_mla_kernels(torch, F, gen, compare, record):
                 _bitwise(kname, shape, got, fn(*args, scale=SCALE))
             err = compare(f"{kname} {kind}", shape, f32, got,
                           ref(*args, scale=SCALE))
+            if kind == "wgmma" and q8:
+                compare("  vs emulation", shape, f32, got,
+                        KM.decode_split_emulation(
+                            qa, qr, *cache, cur_len=cur, pos0=pos0,
+                            ckv_scale=scales[0], krope_scale=scales[1],
+                            scale=SCALE))
             if cur <= pos0 and (got[2].abs().max().item() != 0.0
                                 or got[1].max().item() > -1e29):
                 raise AssertionError("a head with no valid key must give "
@@ -1904,7 +1953,15 @@ def check_mla_kernels(torch, F, gen, compare, record):
                        lambda: ref(*args, scale=SCALE), sliced,
                        2 * H * B * n * (2 * R + RP), nbytes, head,
                        op_dtype=bf16 if kind == "wgmma" else f32)
-                record.rows[-1]["variant"] = kind
+                row = record.rows[-1]
+                row["variant"] = kind
+                if kind == "wgmma":
+                    row["fma_ms"] = time_ms(
+                        torch, lambda: KM.mla_decode_launch(
+                            qa, qr, *cache, (), n, "fma", scale=SCALE,
+                            scales=tuple(scales)))
+                    print(f"      the FMA kernel (forced): "
+                          f"{row['fma_ms']:.4f} ms")
 
     # 8 slots, ragged: 653 keys in 44 live pages; slot 0 is inactive, a
     # page of slot 4 is counted 0 and slot 2's table entry lies past the
@@ -2214,8 +2271,11 @@ def check_mla_decode_variants(torch, F, compare, record):
     o = 0), the long shapes timed beside their bounds and the parent's
     kernel (the FMA one, forced), the plan tables (ms a plan, mean and
     median, the FMA kernel, SDPA), the time of a launch by keys (the
-    plan's cost model) and the host's enqueue of a call.  A generator of
-    its own, so the cases before and after draw the inputs they drew
+    plan's cost model) and the host's enqueue of a call; then kernel 14's
+    plan tables over int8 slabs at both dense shapes (the rule's plan,
+    from the bf16 cost model, first; the FMA kernel; dequantize-then-
+    SDPA), with the rule's plan against the best by medians.  A generator
+    of its own, so the cases before and after draw the inputs they drew
     before."""
     from repro_torch.kernels import build
     from repro_torch.kernels import vwr_mla_decode as KM
@@ -2440,6 +2500,52 @@ def check_mla_decode_variants(torch, F, compare, record):
         for name in calls:
             print(f"      {name}: " + ", ".join(f"{a:.2f} / {b:.2f}"
                                                 for a, b in row[name]))
+
+    print("  vwr_mla_flash_decode_q8 plans (ms, mean / median of 20 "
+          "launches; (splits, keys a split, column blocks); rule first), "
+          "the FMA kernel (the parent's), dequantize-then-SDPA:")
+    for label, B, T, n in (("generate B4 T160 cur 144", 4, 160, 144),
+                           ("batch 1, 2048 keys", 1, 2048, 2048)):
+        qa, qr = randn(B, 128, 512), randn(B, 128, 64)
+        ckv, kr = (torch.randint(-127, 128, (B, T, w), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+                   for w in (512, 64))
+        cs, rs = (torch.rand(B, generator=gen, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2))
+        rule = KM.mla_decode_plan(B, 128, n, None, 512)
+        row = {"kernel": "vwr_mla_flash_decode_q8 plans", "case": label,
+               "shape": f"B{B} H128 r512 rope64 keys {n}", "rule": rule,
+               "plans": []}
+        for plan in [rule] + [p for p in _mla_plans(KM, B, 128, n, None, 512)
+                              if p != rule]:
+            ts = launch_ms(torch, lambda: KM.mla_decode_launch(
+                qa, qr, ckv, kr, (), n, "wgmma", plan, scale=scale,
+                scales=(cs, rs)))
+            row["plans"].append({"plan": plan, "ms": sum(ts) / len(ts),
+                                 "median_ms": statistics.median(ts)})
+        best = min(row["plans"], key=lambda p: p["median_ms"])
+        row["rule_over_best"] = row["plans"][0]["median_ms"] / best[
+            "median_ms"]
+        row["fma_ms"] = time_ms(torch, lambda: KM.mla_decode_launch(
+            qa, qr, ckv, kr, (), n, "fma", scale=scale, scales=(cs, rs)))
+        valid = torch.ones(B, n, dtype=torch.bool, device="cuda")
+
+        def library(qa=qa, qr=qr, ckv=ckv, kr=kr, cs=cs, rs=rs, n=n,
+                    valid=valid):
+            kv = [x[:, :n].to(bf16) * s[:, None, None].to(bf16)
+                  for x, s in ((ckv, cs), (kr, rs))]
+            return _mla_sdpa(F, qa, qr, *kv, valid, scale)()
+        row["library_ms"] = time_ms(torch, library)
+        record.rows.append(row)
+        print(f"    {label} {row['shape']}: " + ", ".join(
+            f"{p['plan']} {p['ms']:.4f} / {p['median_ms']:.4f}"
+            for p in row["plans"])
+            + f"; fma {row['fma_ms']:.4f}; SDPA {row['library_ms']:.4f}")
+        print(f"      the rule's plan {rule} takes "
+              f"{row['rule_over_best']:.3f}x the best int8 plan "
+              f"{best['plan']} by medians: "
+              + ("within" if row["rule_over_best"] <= 1.05 else "outside")
+              + " 5%")
 
 
 # kernels 7 and 13 with their page scales 2^12 apart between the first
@@ -3402,13 +3508,27 @@ def _requests(cfg, n, prompt, gen, seed):
 
 def _drive(sched, reqs):
     """Submit FIRST requests, then BURST more every EVERY steps (or at
-    once when the scheduler runs dry), and step until all are done."""
+    once when the scheduler runs dry), and step until all are done.  Every
+    round admits or advances a live request by a token or a chunk unless
+    the Scheduler stalls (work held, none admitted or stepped), so twice
+    the stream's prompt and generated tokens bound the rounds: past that
+    the stall raises with the Scheduler's state instead of spinning."""
     k = min(FIRST, len(reqs))
     for r in reqs[:k]:
         sched.submit(r)
     next_at = EVERY
+    cap = 2 * sum(len(r.tokens) + r.gen + 1 for r in reqs)
+    rounds = 0
     while (k < len(reqs) or sched.pending or sched.parked
            or sched.n_active):
+        rounds += 1
+        if rounds > cap:
+            raise AssertionError(
+                f"the Scheduler stalled: {rounds - 1} rounds (cap {cap}) "
+                f"for {len(reqs)} requests, {k} submitted; steps "
+                f"{sched.stats['steps']}, pending {len(sched.pending)}, "
+                f"parked {len(sched.parked)}, active {sched.n_active}, "
+                f"free pages {sched.allocator.free_pages}")
         idle = not (sched.n_active or sched.pending or sched.parked)
         if k < len(reqs) and (sched.stats["steps"] >= next_at or idle):
             for r in reqs[k:k + BURST]:
@@ -4462,7 +4582,8 @@ def deepseek_kernel14(torch, cfg, cache, cur_len):
     """Kernel 14 through ``dist.decode.local_mla_decode_attend`` with
     per-sequence int8 scales over the latent cache ``generate`` left
     behind, quantized one scale a sequence (latent and rope apart),
-    held to the plain dequantize-then-attend op; launches counted."""
+    held to the plain dequantize-then-attend op; launches counted, every
+    one on the wgmma variant."""
     from repro_torch.dist import decode as DD
     from repro_torch.kernels import build
     from repro_torch.kernels.quant import int8_scale
@@ -4494,6 +4615,8 @@ def deepseek_kernel14(torch, cfg, cache, cur_len):
            for q, q8, sc in work]
     torch.cuda.synchronize()
     launches = build.LAUNCHES["vwr_mla_flash_decode_q8"]
+    variants = {v: build.VARIANTS[f"vwr_mla_flash_decode_q8.{v}"]
+                for v in ("wgmma", "fma")}
     err = 0.0
     for (q, q8, sc), x in zip(work, got):
         want = DD.local_mla_decode_attend(*q, *q8, cur_len, scale=scale,
@@ -4507,10 +4630,13 @@ def deepseek_kernel14(torch, cfg, cache, cur_len):
                                  "dequantize-then-attend")
     print(f"  kernel 14 over the int8 latent cache of generate ({len(work)}"
           f" layers, cur_len {cur_len}): max|err| {err:.3e} (atol {atol:g},"
-          f" rtol {rtol:g}), {launches} launches")
-    if launches != len(work):
-        raise AssertionError(f"kernel 14 launched {launches} times")
-    return {"layers": len(work), "max_abs_err": err, "launches": launches}
+          f" rtol {rtol:g}), {launches} launches {variants}")
+    if launches != len(work) or variants != {"wgmma": len(work), "fma": 0}:
+        raise AssertionError(f"kernel 14 launched {launches} times, by "
+                             f"variant {variants}: every launch must be on "
+                             "its wgmma variant")
+    return {"layers": len(work), "max_abs_err": err, "launches": launches,
+            "variants": variants}
 
 
 def deepseek_scheduler(torch, params, cfg, kv_dtype, routes,

@@ -37,12 +37,12 @@
 //
 // Design.  The TPU kernel keeps all H heads' (H, r) accumulators in VMEM:
 // 256 KB at DeepSeek-V3's widths, more than a block's shared memory.  Two
-// kernels serve kernels 10, 11 and 13 here, and kernels/vwr_mla_decode.py
-// decode_variant picks one a call: the wgmma kernel (below) for bf16
-// caches and pools and int8 pools (kernel 13) at r 128 / 256 / 512, rope
-// 32 / 64, pages of a multiple of 8 rows, and the FMA kernel
-// (mla_decode_kernel) for fp32 caches, the padded widths of the reduced
-// configs and the dense int8 cache of kernel 14.
+// kernels serve kernels 10, 11, 13 and 14 here, and
+// kernels/vwr_mla_decode.py decode_variant picks one a call: the wgmma
+// kernel (below) for bf16 caches and pools and int8 caches (kernel 14)
+// and pools (kernel 13) at r 128 / 256 / 512, rope 32 / 64, pages of a
+// multiple of 8 rows, and the FMA kernel (mla_decode_kernel) for fp32
+// caches and the padded widths of the reduced configs.
 //   The FMA kernel: a block takes one sequence and HB = 16 heads (grid (B,
 //   H / 16)), and each of its 8 warps owns 2 heads.  A lane holds r / 32
 //   latent and rope / 32 rope query features of each of its heads, and r
@@ -56,10 +56,11 @@
 //   The wgmma kernel (mla_wgmma, shared with the chunk kernels below): the
 //   heads as M, (H x 576) . (576 x T) a sequence, 64 of a sequence's heads
 //   a block (rows past H masked), 2 blocks a sequence at H 128.  Its keys
-//   are the sequence's own table row (kernel 11) or its slab of the dense
-//   cache (kernel 10: rows b T .. b T + n_keys of a (B * T, r) tensor map;
-//   the 32-row TMA boxes that run past n_keys into the next sequence are
-//   masked in the scores, past the tensor TMA fills zeros).  Decode has
+//   are the sequence's own table row (kernels 11, 13) or its slab of the
+//   dense cache (kernels 10, 14: rows b T .. b T + n_keys of a (B * T, r)
+//   tensor map; the 32-row TMA boxes that run past n_keys into the next
+//   sequence are masked in the scores, past the tensor TMA fills zeros).
+//   Decode has
 //   few keys a sequence (144 in generate, 1-255 a Scheduler slot) and row
 //   blocks alone give 8-16 blocks, so mla_decode_plan also cuts a row
 //   group's keys into splits (whole table entries, from the table's shape,
@@ -131,11 +132,15 @@
 //   Kernels 15 and 13 (int8 pools, Q8: the CHUNK instance, and the
 //   decode one, whose splits each take P's power of two from their own
 //   entries of the sequence's row and write o_tilde divided by it, so the
-//   merge takes them unchanged).  An int8 value is exact in a 16-bit
-//   float, so the keys are converted and the page scales applied in fp32
-//   outside the products: s = (q_abs . c8) cs + (q_rope . k8) rs, P c8
-//   with P times cs before its hi / lo split, l over the unscaled P (the
-//   plain version's order).  The terms are fp16, not bf16: against int8
+//   merge takes them unchanged) and kernel 14 (the dense int8 slab: the
+//   decode instance with DENSE_Q8; one scale pair a sequence, so every
+//   tile of sequence b takes b's scales, and P's power of two is b's
+//   latent scale's wherever the split has a key).  An int8 value is exact
+//   in a 16-bit float, so the keys are converted and the page scales
+//   applied in fp32 outside the products: s = (q_abs . c8) cs + (q_rope .
+//   k8) rs, P c8 with P times cs before its hi / lo split, l over the
+//   unscaled P (the plain version's order).  The terms are fp16, not
+//   bf16: against int8
 //   keys two bf16 terms (2^-18 of each product) used 0.79-1.11 of the
 //   fp32 tolerance at 256 keys, two fp16 terms (2^-22) ~0.2 (PERF.md).
 //   fp16's range is kept by powers of two: each query row is scaled so
@@ -383,8 +388,8 @@ int launch_dtype(const MlaArgs& a, int r, int rope, int dtype, bool q8,
 }
 
 // ---------------------------------------------------------------------
-// The wgmma kernel: kernels 12 and 15 (a chunk's C*H rows as M), 10 and
-// 11 (a sequence's heads as M) on bf16 caches and pools
+// The wgmma kernel: kernels 12 and 15 (a chunk's C*H rows as M), 10, 11,
+// 13 and 14 (a sequence's heads as M) on bf16 and int8 caches and pools
 // ---------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -460,15 +465,17 @@ __device__ __forceinline__ void pv_slice(float (&o)[OC / 2],
 // masked), key split s and output columns c R / NCOL ..  CHUNK: the
 // chunk kernels' instance (12 and 15), a chunk as one sequence of C * H
 // rows over the shared table, one split, one column block, fixed at
-// compile time (no split merge in the kernel).  Int8 (Q8) means int8
-// pools: kernel 15 (CHUNK) and kernel 13 (a sequence's table row); the
-// dense int8 cache (kernel 14) has no instance here, so `dense` is false
-// at compile time.
-template <int R, int RP, bool Q8, int NCOL, bool CHUNK>
+// compile time (no split merge in the kernel).  Int8 (Q8): kernel 15
+// (CHUNK) and kernel 13 (a sequence's table row) over pools, and kernel
+// 14 (DENSE_Q8: the dense slab, with (B,) scales).  `dense` is fixed at
+// compile time in a Q8 instance, so the instances of kernels 13 and 15
+// compile as they did before kernel 14 had one (registers: PERF.md).
+template <int R, int RP, bool Q8, int NCOL, bool CHUNK, bool DENSE_Q8>
 __global__ void __launch_bounds__(CW_THREADS, 1)
 mla_wgmma(const __grid_constant__ CUtensorMap tc,
           const __grid_constant__ CUtensorMap tr, const MlaArgs a) {
   static_assert(!CHUNK || NCOL == 1, "a chunk takes one column block");
+  static_assert(!DENSE_Q8 || (Q8 && !CHUNK), "the slab is int8 decode");
   using L = CwSmem<R, RP, Q8>;
   constexpr int I8W = R < 256 ? R : 256;  // columns of an int8 latent box
   constexpr int NB8 = R / I8W + 1;        // int8 boxes a segment
@@ -490,7 +497,7 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
   const int col0 = col * OCB, S = CHUNK ? 1 : a.nsplit;
   const size_t row0 = (size_t)b * a.H + hb * CW_ROWS;
   const int nrow = min(CW_ROWS, a.H - hb * CW_ROWS);
-  const bool dense = !CHUNK && !Q8 && a.table == nullptr;
+  const bool dense = !CHUNK && (Q8 ? DENSE_Q8 : a.table == nullptr);
   const int ps = a.rows, seg = dense ? CW_KEYS : min(ps, CW_KEYS);
   const int nseg = CW_KEYS / seg;
   // the split's table entries [k0, k1) of row b (pools) or keys (dense)
@@ -512,6 +519,10 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
       if (lane < CW_SEGS)
         mp[CW_SEG0 + lane] = lane == 0 && k < k1 ? b * ps + k : -1;
       if (lane == 0) {
+        if constexpr (DENSE_Q8) {  // the tile's one segment: b's scales
+          mp[CW_CS0] = __float_as_int(a.ckv_scale[b]);
+          mp[CW_RS0] = __float_as_int(a.krope_scale[b]);
+        }
         mp[CW_EXISTS] = k < k1;
         mp[CW_VALID] = (int)valid;
         mp[CW_ABSENT] = 0;
@@ -635,7 +646,12 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
     mbar_init_fence();
   }
   int* ext = reinterpret_cast<int*>(sm + L::EXT);
-  if (Q8 && tid == 0) ext[CW_ROWS] = 0;
+  // Q8: P's power of two from the largest latent scale of the block's
+  // keys: the slab's sequence scale if the split has a key (DENSE_Q8),
+  // else the scan of the table below
+  if (Q8 && tid == 0)
+    ext[CW_ROWS] =
+        DENSE_Q8 && k1 > k0 ? __float_as_int(fabsf(a.ckv_scale[b])) : 0;
   // slots past the last whole segment (pages of 24: rows 24-31) stay zero
   if constexpr (!Q8) {
     for (int e = tid; e < 2 * L::BLK * (CW_KEYS - nseg * seg) * 8;
@@ -664,7 +680,7 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
   // Q8: the largest latent scale of a counted page of the block's own
   // entries (P's power of two): the split's [k0, k1) of row b (a chunk:
   // the whole shared row)
-  if constexpr (Q8) {
+  if constexpr (Q8 && !DENSE_Q8) {
     const int* tb = a.table + (size_t)b * a.tstride;
     const int* cb = a.counts + (size_t)b * a.tstride;
     float cmax = 0.0f;
@@ -1057,7 +1073,7 @@ mla_wgmma(const __grid_constant__ CUtensorMap tc,
                   tid, CW_THREADS, R);
 }
 
-template <int R, int RP, bool Q8, int NCOL, bool CHUNK>
+template <int R, int RP, bool Q8, int NCOL, bool CHUNK, bool DENSE_Q8>
 int launch_wgmma(const MlaArgs& a, cudaStream_t stream) {
   using L = CwSmem<R, RP, Q8>;
   const int seg = a.table == nullptr ? CW_KEYS
@@ -1070,10 +1086,11 @@ int launch_wgmma(const MlaArgs& a, cudaStream_t stream) {
   e = Q8 ? encode_rows_i8(&tr, a.krope, a.lead * a.rows, RP, seg, RP)
          : encode_rows(&tr, a.krope, a.lead * a.rows, RP, seg);
   if (e != 0) return e;
-  e = smem_limit_once<mla_wgmma<R, RP, Q8, NCOL, CHUNK>>(L::BYTES);
+  e = smem_limit_once<mla_wgmma<R, RP, Q8, NCOL, CHUNK, DENSE_Q8>>(
+      L::BYTES);
   if (e != 0) return e;
   const dim3 grid(a.B * ((a.H + CW_ROWS - 1) / CW_ROWS), a.nsplit, NCOL);
-  mla_wgmma<R, RP, Q8, NCOL, CHUNK>
+  mla_wgmma<R, RP, Q8, NCOL, CHUNK, DENSE_Q8>
       <<<grid, CW_THREADS, L::BYTES, stream>>>(tc, tr, a);
   return (int)cudaGetLastError();
 }
@@ -1081,34 +1098,38 @@ int launch_wgmma(const MlaArgs& a, cudaStream_t stream) {
 // The instance for rope and the column blocks (the decode kernels only:
 // NCOL 2 at r >= 256, 4 at r 512, so that a warpgroup owns >= 64
 // columns).
-template <int R, bool Q8, bool CHUNK>
+template <int R, bool Q8, bool CHUNK, bool DQ>
 int launch_wgmma_rope(const MlaArgs& a, int rope, int ncol,
                       cudaStream_t stream) {
   if (rope != 32 && rope != 64) return (int)cudaErrorInvalidValue;
   const bool r32 = rope == 32;
   if (ncol == 1)
-    return r32 ? launch_wgmma<R, 32, Q8, 1, CHUNK>(a, stream)
-               : launch_wgmma<R, 64, Q8, 1, CHUNK>(a, stream);
+    return r32 ? launch_wgmma<R, 32, Q8, 1, CHUNK, DQ>(a, stream)
+               : launch_wgmma<R, 64, Q8, 1, CHUNK, DQ>(a, stream);
   if constexpr (!CHUNK && R >= 256) {
     if (ncol == 2)
-      return r32 ? launch_wgmma<R, 32, Q8, 2, CHUNK>(a, stream)
-                 : launch_wgmma<R, 64, Q8, 2, CHUNK>(a, stream);
+      return r32 ? launch_wgmma<R, 32, Q8, 2, CHUNK, DQ>(a, stream)
+                 : launch_wgmma<R, 64, Q8, 2, CHUNK, DQ>(a, stream);
   }
   if constexpr (!CHUNK && R >= 512) {
     if (ncol == 4)
-      return r32 ? launch_wgmma<R, 32, Q8, 4, CHUNK>(a, stream)
-                 : launch_wgmma<R, 64, Q8, 4, CHUNK>(a, stream);
+      return r32 ? launch_wgmma<R, 32, Q8, 4, CHUNK, DQ>(a, stream)
+                 : launch_wgmma<R, 64, Q8, 4, CHUNK, DQ>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool Q8, bool CHUNK>
+// DQ: the dense int8 slab's instance (kernel 14, DENSE_Q8)
+template <bool Q8, bool CHUNK, bool DQ = false>
 int launch_wgmma_r(const MlaArgs& a, int r, int rope, int ncol,
                    cudaStream_t stream) {
   switch (r) {
-    case 128: return launch_wgmma_rope<128, Q8, CHUNK>(a, rope, ncol, stream);
-    case 256: return launch_wgmma_rope<256, Q8, CHUNK>(a, rope, ncol, stream);
-    case 512: return launch_wgmma_rope<512, Q8, CHUNK>(a, rope, ncol, stream);
+    case 128:
+      return launch_wgmma_rope<128, Q8, CHUNK, DQ>(a, rope, ncol, stream);
+    case 256:
+      return launch_wgmma_rope<256, Q8, CHUNK, DQ>(a, rope, ncol, stream);
+    case 512:
+      return launch_wgmma_rope<512, Q8, CHUNK, DQ>(a, rope, ncol, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1129,16 +1150,16 @@ int launch_chunk(const MlaArgs& a, int r, int rope, cudaStream_t stream) {
   return launch_wgmma_r<Q8, true>(c, r, rope, 1, stream);
 }
 
-// Kernels 10, 11 and 13's wgmma variant: the plan's checks (nsplit splits
-// of `per` keys or table entries covering the n of them, none starting at
-// or past n, at most FIN_SPLITS; a workspace and counters when they split;
-// pages of a multiple of 8 rows; int8 (a.ckv_scale set) only over pools),
-// then the instance.
+// Kernels 10, 11, 13 and 14's wgmma variant: the plan's checks (nsplit
+// splits of `per` keys or table entries covering the n of them, none
+// starting at or past n, at most FIN_SPLITS; a workspace and counters when
+// they split; pages of a multiple of 8 rows; int8 (a.ckv_scale set) with
+// both scales), then the instance: int8 over pools (13) or the slab (14).
 int launch_decode(const MlaArgs& a, int r, int rope, int ncol,
                   cudaStream_t stream) {
   const bool dense = a.table == nullptr;
   const bool q8 = a.ckv_scale != nullptr;
-  if ((q8 && (dense || a.krope_scale == nullptr)) || a.lead <= 0 ||
+  if ((q8 && a.krope_scale == nullptr) || a.lead <= 0 ||
       a.rows <= 0 || a.n < 0 || a.nsplit < 1 ||
       a.nsplit > FIN_SPLITS || a.per < 1 ||
       (long long)a.nsplit * a.per < a.n ||
@@ -1147,8 +1168,9 @@ int launch_decode(const MlaArgs& a, int r, int rope, int ncol,
       (!dense && (a.rows < 8 || a.rows % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.H <= 0) return 0;
-  return q8 ? launch_wgmma_r<true, false>(a, r, rope, ncol, stream)
-            : launch_wgmma_r<false, false>(a, r, rope, ncol, stream);
+  if (!q8) return launch_wgmma_r<false, false>(a, r, rope, ncol, stream);
+  return dense ? launch_wgmma_r<true, false, true>(a, r, rope, ncol, stream)
+               : launch_wgmma_r<true, false>(a, r, rope, ncol, stream);
 }
 
 }  // namespace
@@ -1228,6 +1250,26 @@ extern "C" int vwr_mla_paged_flash_decode_wgmma_launch(
                   nullptr, nullptr, (const int*)table, (const int*)counts,
                   (float*)o_t, (float*)m, (float*)l, B, H, lead, rows, J,
                   scale, J, (float*)ws, (int*)counters, nsplit, per};
+  return launch_decode(a, r, rope, ncol, (cudaStream_t)stream);
+}
+
+// Kernel 14's wgmma variant: the operands of
+// vwr_mla_flash_decode_q8_launch (r in {128, 256, 512}, rope in {32, 64})
+// with the plan, workspace and counters of
+// vwr_mla_flash_decode_wgmma_launch.
+extern "C" int vwr_mla_flash_decode_q8_wgmma_launch(
+    const void* q_abs, const void* q_rope, const void* ckv, const void* krope,
+    const void* ckv_scale, const void* krope_scale, void* o_t, void* m,
+    void* l, void* ws, void* counters, int B, int H, int r, int rope,
+    int lead, int rows, int n_keys, int nsplit, int per, int ncol,
+    float scale, void* stream) {
+  if (ckv_scale == nullptr || krope_scale == nullptr || lead != B)
+    return (int)cudaErrorInvalidValue;
+  const MlaArgs a{(const float*)q_abs, (const float*)q_rope, ckv, krope,
+                  (const float*)ckv_scale, (const float*)krope_scale,
+                  nullptr, nullptr, (float*)o_t, (float*)m, (float*)l, B, H,
+                  lead, rows, n_keys, scale, 0, (float*)ws, (int*)counters,
+                  nsplit, per};
   return launch_decode(a, r, rope, ncol, (cudaStream_t)stream);
 }
 

@@ -18,9 +18,9 @@ the main path went through.  A kernel with variants (``vwr_matmul``:
 split-K, wgmma, the WMMA / FMA tile kernel; ``vwr_swiglu``: wgmma or the
 WMMA / FMA tile kernel;
 ``vwr_conv2d``: wgmma or the halo-tile kernel;
-``vwr_mla_flash_decode``, ``vwr_mla_paged_flash_decode`` and its
-``_q8`` sibling, ``vwr_mla_chunk_prefix_attend`` and its ``_q8`` sibling:
-wgmma or FMA; ``vwr_mla_flash_decode_q8``: FMA only;
+``vwr_mla_flash_decode``, ``vwr_mla_paged_flash_decode``,
+``vwr_mla_chunk_prefix_attend`` and their ``_q8`` siblings: wgmma or
+FMA;
 ``vwr_flash_decode`` and its ``_q8`` sibling: split-KV on mma.sync or
 FMA; ``vwr_paged_flash_decode`` and its ``_q8`` sibling: split-KV on
 mma.sync or FMA;
@@ -89,6 +89,7 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
                             "vwr_paged_flash_decode_q8.fma": 0,
                             "vwr_mla_paged_flash_decode_q8.wgmma": 0,
                             "vwr_mla_paged_flash_decode_q8.fma": 0,
+                            "vwr_mla_flash_decode_q8.wgmma": 0,
                             "vwr_mla_flash_decode_q8.fma": 0,
                             "vwr_depthwise.stream": 0,
                             "vwr_depthwise.tile": 0}
@@ -244,10 +245,11 @@ def split_counters(device, stream: int, n: int):
     last block of a row group (``vwr_flash_decode``'s and its ``_q8``
     sibling's split variants, ``vwr_paged_flash_decode``'s mma variant,
     ``vwr_chunk_prefix_attend``'s and its ``_q8`` sibling's,
-    ``vwr_mla_flash_decode``'s and ``vwr_mla_paged_flash_decode``'s wgmma
-    variants), kept across calls: every launch leaves its counters at
-    0.  A buffer belongs to one stream, and so does a CUDA graph captured
-    on it: launches on one stream run in order and share it, launches on
+    ``vwr_mla_flash_decode``'s and ``vwr_mla_paged_flash_decode``'s and
+    their ``_q8`` siblings' wgmma variants), kept across calls: every
+    launch leaves its counters at 0.  A buffer belongs to one stream, and
+    so does a CUDA graph captured on it: launches on one stream run in
+    order and share it, launches on
     two streams get two buffers and cannot race on them."""
     import torch
 

@@ -36,18 +36,18 @@ acceptable at reduced widths.  Nothing is copied at DeepSeek-V3's r 512,
 rope 64.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
 
-Kernels 10, 11 and 13 have two kernels each, and ``decode_variant``
-picks one per call: ``"wgmma"`` (bf16 caches and pools and int8 pools at
-r 128 / 256 / 512, rope 32 / 64, pages of a multiple of 8 rows: 64 of a
+Kernels 10, 11, 13 and 14 have two kernels each, and ``decode_variant``
+picks one per call: ``"wgmma"`` (bf16 and int8 caches and pools at r
+128 / 256 / 512, rope 32 / 64, pages of a multiple of 8 rows: 64 of a
 sequence's heads as wgmma rows, the fp32 queries and P each split into
 two bf16 terms, the keys in 32-slot tiles of the sequence's table row or
 slab; ``mla_decode_plan`` cuts a row group's keys into splits, one block
 a split, merged by the group's last block in the same launch, and its
-output columns into column blocks; over kernel 13's int8 pools the terms
-are kernel 15's fp16 ones, P's power of two taken per split;
+output columns into column blocks; over kernel 13's int8 pools and
+kernel 14's int8 slab the terms are kernel 15's fp16 ones, P's power of
+two taken per split, from its own pages' scales or its sequence's;
 ``decode_split_emulation`` is its arithmetic in plain PyTorch) or
-``"fma"`` (fp32 caches and every other width: fp32 FMAs).  Kernel 14
-(the dense int8 cache) runs the FMA kernel.
+``"fma"`` (fp32 caches and every other width: fp32 FMAs).
 
 Kernels 12 and 15 have two kernels each, and ``chunk_variant`` picks one
 per call: ``"wgmma"`` (bf16 or int8 pools at r 128 / 256 / 512, rope
@@ -213,16 +213,16 @@ def _cdiv(a, b):
 
 def decode_variant(r, rope, H, page_size, dtype):
     """The kernel that serves a ``vwr_mla_flash_decode`` (``page_size``
-    None: the dense cache), ``vwr_mla_paged_flash_decode`` or ``_q8``
-    call at the kernel's widths (after ``widths.at_widths``; ``dtype`` the
-    cache's): "wgmma" for bf16 caches and pools and int8 pools (kernel 13)
-    at r 128, 256 or 512 and rope 32 or 64, with pages of a multiple of 8
-    rows (any H: the rows past H in a sequence's last block of 64 are
-    masked), else "fma" (fp32 caches, the reduced configs' padded widths,
-    the dense int8 cache of kernel 14)."""
+    None: the dense cache), ``vwr_mla_paged_flash_decode`` or either's
+    ``_q8`` call at the kernel's widths (after ``widths.at_widths``;
+    ``dtype`` the cache's): "wgmma" for bf16 caches and pools and int8
+    caches (kernel 14) and pools (kernel 13) at r 128, 256 or 512 and rope
+    32 or 64, with pages of a multiple of 8 rows (any H: the rows past H
+    in a sequence's last block of 64 are masked), else "fma" (fp32 caches,
+    the reduced configs' padded widths)."""
     paged = page_size is not None
-    if ((dtype == torch.bfloat16 or (dtype == torch.int8 and paged))
-            and r in WGMMA_RANKS and rope in ROPES and H > 0
+    if (dtype in (torch.bfloat16, torch.int8) and r in WGMMA_RANKS
+            and rope in ROPES and H > 0
             and (not paged or (page_size > 0
                                and page_size % WGMMA_PAGE_ROWS == 0))):
         return "wgmma"
@@ -389,6 +389,14 @@ def split_p_up(ckv_scale, table, counts, k0, k1):
     return pow2_up(torch.tensor(max(cs, default=0.0)))
 
 
+def slab_p_up(ckv_scale, b, k0, k1):
+    """Kernel 14's power of two for P in the key split [k0, k1) of
+    sequence b's slab: ``pow2_up`` of b's latent scale if the split has a
+    key (1 if not)."""
+    return pow2_up(torch.tensor(abs(float(ckv_scale[b])) if k1 > k0
+                                else 0.0))
+
+
 def decode_split_emulation(q_abs, q_rope, c_kv, k_rope, table=None,
                            counts=None, cur_len=None, pos0=0, plan=None,
                            ckv_scale=None, krope_scale=None, terms=2, *,
@@ -406,17 +414,16 @@ def decode_split_emulation(q_abs, q_rope, c_kv, k_rope, table=None,
     column blocks change no value.  Dense:
     c_kv (B, T, r) with the keys ``pos0 + idx < cur_len`` valid; pools:
     (n_pages, page_size, r) through ``table`` / ``counts`` (B, J).  With
-    the int8 pools' (n_pages,) scales (kernel 13) the terms are kernel
-    15's: fp16, each query row scaled by its power of two, P times its
-    page's latent scale and the split's own power of two
-    (``split_p_up``) before its split, l over the unscaled P, each key's
-    latent and rope sums times their page's scales.  Returns fp32
-    (o_tilde (B, H, r), m (B, H), l (B, H))."""
+    the int8 pools' (n_pages,) scales (kernel 13) or the int8 slab's (B,)
+    ones (kernel 14) the terms are kernel 15's: fp16, each query row
+    scaled by its power of two, P times its key's latent scale and the
+    split's own power of two (``split_p_up`` over the split's pages,
+    ``slab_p_up`` from the split's sequence) before its split, l over the
+    unscaled P, each key's latent and rope sums times their page's or
+    sequence's scales.  Returns fp32 (o_tilde (B, H, r), m (B, H),
+    l (B, H))."""
     B, H, r = q_abs.shape
     q8 = ckv_scale is not None
-    if q8 and table is None:
-        raise ValueError("the dense int8 cache (kernel 14) has no wgmma "
-                         "variant")
     xa = q_abs.float() * scale
     xr = q_rope.float() * scale
     lead, rows = c_kv.shape[:2]
@@ -445,7 +452,8 @@ def decode_split_emulation(q_abs, q_rope, c_kv, k_rope, table=None,
             else:
                 tiles = chunk_key_tiles(tbl[b][k0:k1], cnt[b][k0:k1], rows)
             if q8:
-                up = split_p_up(ckv_scale, tbl[b], cnt[b], k0, k1)
+                up = (slab_p_up(ckv_scale, b, k0, k1) if table is None
+                      else split_p_up(ckv_scale, tbl[b], cnt[b], k0, k1))
                 p_terms = (lambda p, up=up:  # noqa: E731
                            _f16_terms(p, up)[:terms])
                 scales = (ckv_scale, krope_scale, rows)
@@ -557,18 +565,14 @@ def mla_decode_launch(q_abs, q_rope, ckv, kr, index, n_keys, kind,
     ``kind`` ("wgmma" or "fma") on operands their wrappers checked, at the
     kernel's widths, with ``mla_decode_plan``'s plan unless ``plan``
     (nsplit, per, ncol) is given; with ``scales`` (the int8 caches'
-    (ckv_scale, krope_scale)) kernel 14's (the FMA kernel only) or kernel
-    13's.  chip_smoke.py times the variants and plans against each other
-    through it."""
+    (ckv_scale, krope_scale)) kernel 14's or kernel 13's.  chip_smoke.py
+    times the variants and plans against each other through it."""
     kernel = ("vwr_mla_paged_flash_decode" if index
               else "vwr_mla_flash_decode") + ("_q8" if scales else "")
     if kind == "fma":
         out = _entry(kernel, "_launch", q_abs, q_rope, ckv, kr, scales,
                      index, n_keys, scale,
                      0 if scales else build.dtype_code(ckv.dtype))
-    elif scales and not index:
-        raise ValueError(f"{kernel}: the dense int8 cache has no wgmma "
-                         "variant")
     else:
         B, H, r = q_abs.shape
         lead = ckv.shape[:2]
@@ -611,7 +615,9 @@ def vwr_mla_flash_decode(q_abs, q_rope, c_kv, k_rope, cur_len: int,
 def vwr_mla_flash_decode_q8(q_abs, q_rope, c_kv, k_rope, ckv_scale,
                             krope_scale, cur_len: int, pos0: int = 0, *,
                             scale: float):
-    """Kernel 14: kernel 10 over int8 caches with fp32 (B,) scales."""
+    """Kernel 14: kernel 10 over int8 caches with fp32 (B,) scales; on
+    the card ``decode_variant`` picks the kernel (wgmma at the widths it
+    takes)."""
     if q_abs.device.type == "cpu":
         return vwr_mla_flash_decode_q8_ref(q_abs, q_rope, c_kv, k_rope,
                                            ckv_scale, krope_scale, cur_len,

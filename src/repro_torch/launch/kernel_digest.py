@@ -1,5 +1,6 @@
-"""Digests and device times of kernels 4, 5, 9 and 15's outputs, to hold
-two checkouts' kernels bitwise against each other on one card.
+"""Digests and device times of kernels 4, 5, 9, 10, 11, 13 and 15's
+outputs, to hold two checkouts' kernels bitwise against each other on one
+card.
 
     PYTHONPATH=<checkout>/src python3 -P \\
         src/repro_torch/launch/kernel_digest.py
@@ -9,18 +10,23 @@ shapes, inputs from a seed of its own: ``vwr_flash_decode`` (kernel 4,
 bf16: tinyllama's B4 T160 cache, one split a group, and B1 T2048, 8
 splits), ``vwr_paged_flash_decode`` (kernel 5, bf16 pools: 8 slots, J 16
 of 16, and a J 128 table), ``vwr_flash_decode_q8`` (kernel 9, the int8
-cache at both dense shapes) and ``vwr_mla_chunk_prefix_attend_q8``
-(kernel 15: a 64-token chunk of 128 heads, r 512, rope 64, over 16 int8
-pages of 16; fp32 queries).  Prints one JSON line a case: the sha256 of
-the fp32 outputs (o_tilde, m, l) and the mean device ms of 20 launches
-(CUDA events, each after a 64 MB write that evicts the L2).  The ``-P``
-keeps this file's directory off ``sys.path``, so ``PYTHONPATH`` names the
-package whose kernels run.  Needs a GPU.
+cache at both dense shapes), ``vwr_mla_flash_decode`` (kernel 10, bf16:
+DeepSeek-V3's B4 T160 cache at 144 keys, and B1 T2048),
+``vwr_mla_paged_flash_decode`` and its ``_q8`` sibling (kernels 11 and
+13, bf16 and int8 pools of 16: 8 slots at J 17, and a J 128 table) and
+``vwr_mla_chunk_prefix_attend_q8`` (kernel 15: a 64-token chunk of 128
+heads, r 512, rope 64, over 16 int8 pages of 16); the MLA kernels take
+fp32 queries of 128 heads, r 512, rope 64.  Prints one JSON line a case:
+the sha256 of the fp32 outputs (o_tilde, m, l) and the mean and median
+device ms of 20 launches (CUDA events, each after a 64 MB write that
+evicts the L2).  The ``-P`` keeps this file's directory off ``sys.path``,
+so ``PYTHONPATH`` names the package whose kernels run.  Needs a GPU.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import statistics
 
 import numpy as np
 import torch
@@ -70,6 +76,38 @@ def _paged(g, lens, J, n_pages):
     return lambda: KD.vwr_paged_flash_decode(q, k, v, table, counts)
 
 
+def _mla_queries(g, B):
+    return (torch.randn(B, 128, 512, generator=g, device="cuda"),
+            torch.randn(B, 128, 64, generator=g, device="cuda"))
+
+
+def _mla_dense(g, B, T, n):
+    qa, qr = _mla_queries(g, B)
+    ckv, kr = (torch.randn(B, T, w, generator=g, device="cuda").bfloat16()
+               for w in (512, 64))
+    return lambda: KM.vwr_mla_flash_decode(qa, qr, ckv, kr, n,
+                                           scale=576 ** -0.5)
+
+
+def _mla_paged(g, lens, J, n_pages, q8):
+    qa, qr = _mla_queries(g, len(lens))
+    if q8:
+        pools = [torch.randint(-127, 128, (n_pages, 16, w), generator=g,
+                               device="cuda", dtype=torch.int8)
+                 for w in (512, 64)]
+        scales = [torch.rand(n_pages, generator=g, device="cuda") * 0.02
+                  + 1e-3 for _ in range(2)]
+    else:
+        pools = [torch.randn(n_pages, 16, w, generator=g,
+                             device="cuda").bfloat16() for w in (512, 64)]
+    table, counts = _table(g, lens, J, 16, n_pages)
+    if q8:
+        return lambda: KM.vwr_mla_paged_flash_decode_q8(
+            qa, qr, *pools, *scales, table, counts, scale=576 ** -0.5)
+    return lambda: KM.vwr_mla_paged_flash_decode(qa, qr, *pools, table,
+                                                 counts, scale=576 ** -0.5)
+
+
 def _chunk_q8(g):
     C, H, R, RP, PS, J, N_PAGES = 64, 128, 512, 64, 16, 16, 64
     qa = torch.randn(C, H, R, generator=g, device="cuda")
@@ -101,6 +139,18 @@ def _cases():
          lambda g: _dense(g, 4, 160, 144, True)),
         ("vwr_flash_decode_q8", "B1 T2048", 91,
          lambda g: _dense(g, 1, 2048, 2048, True)),
+        ("vwr_mla_flash_decode", "B4 T160 cur 144", 10,
+         lambda g: _mla_dense(g, 4, 160, 144)),
+        ("vwr_mla_flash_decode", "B1 T2048", 101,
+         lambda g: _mla_dense(g, 1, 2048, 2048)),
+        ("vwr_mla_paged_flash_decode", "8 slots, J 17 of 16", 11,
+         lambda g: _mla_paged(g, PAGED_LENS, 17, 1024, False)),
+        ("vwr_mla_paged_flash_decode", "8 slots, J 128 of 16", 111,
+         lambda g: _mla_paged(g, LONG_LENS, 128, 1200, False)),
+        ("vwr_mla_paged_flash_decode_q8", "8 slots, J 17 of 16", 13,
+         lambda g: _mla_paged(g, PAGED_LENS, 17, 1024, True)),
+        ("vwr_mla_paged_flash_decode_q8", "8 slots, J 128 of 16", 131,
+         lambda g: _mla_paged(g, LONG_LENS, 128, 1200, True)),
         ("vwr_mla_chunk_prefix_attend_q8", "C64 H128, 16 pages of 16", 15,
          _chunk_q8),
     ]
@@ -125,9 +175,11 @@ def main():
             b.record()
             events.append((a, b))
         torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+        ms = [a.elapsed_time(b) for a, b in events]
         print(json.dumps({"kernel": kernel, "shape": shape,
-                          "sha256": digest.hexdigest(), "ms": ms,
+                          "sha256": digest.hexdigest(),
+                          "ms": sum(ms) / len(ms),
+                          "median_ms": statistics.median(ms),
                           "device": torch.cuda.get_device_name(0)}))
 
 

@@ -50,7 +50,8 @@ def _no_autotune(monkeypatch):
     (512, 64, 128, 4, BF16, "fma"),        # pages under 8 rows
     (512, 64, 128, 12, BF16, "fma"),       # or off a multiple of 8
     (512, 64, 128, 16, I8, "wgmma"),       # kernel 13 (int8 pools)
-    (512, 64, 128, None, I8, "fma"),       # kernel 14 (the int8 cache)
+    (512, 64, 128, None, I8, "wgmma"),     # kernel 14 (the int8 cache)
+    (32, 32, 4, None, I8, "fma"),          # its padded reduced widths
 ])
 def test_rule(r, rope, h, ps, dtype, want):
     assert KM.decode_variant(r, rope, h, ps, dtype) == want

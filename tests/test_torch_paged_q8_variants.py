@@ -65,10 +65,10 @@ def test_paged_rule_over_int8_pools(dtype, D, G):
 @pytest.mark.parametrize("ps", [None, 4, 8, 16, 24, 64])
 def test_mla_rule_over_int8_caches(r, rope, ps):
     """Kernel 13 (int8 pools) takes the wgmma variant at r 128 / 256 /
-    512, rope 32 / 64 and pages of a multiple of 8 rows; pages of 4, the
-    padded ranks and kernel 14's dense int8 cache (``ps`` None) the FMA
-    kernel."""
-    wgmma = ps is not None and ps % 8 == 0 and r in (128, 256, 512)
+    512, rope 32 / 64 and pages of a multiple of 8 rows, and so does
+    kernel 14's dense int8 cache (``ps`` None) at those widths; pages of 4
+    and the padded ranks the FMA kernel."""
+    wgmma = (ps is None or ps % 8 == 0) and r in (128, 256, 512)
     assert KM.decode_variant(r, rope, 128, ps, I8) == ("wgmma" if wgmma
                                                       else "fma")
 
@@ -385,15 +385,6 @@ def test_mla_q8_one_p_term_misses_the_tolerance():
                                      ckv_scale=cs, krope_scale=rs, terms=1,
                                      scale=SCALE)
     assert _use(once, want) > 1
-
-
-def test_mla_q8_dense_cache_has_no_wgmma_variant():
-    """Kernel 14 (the dense int8 cache) keeps the FMA kernel: the
-    emulation refuses it."""
-    qa, qr, ckv, kr, cs, rs = _latent(1, 2, 16, 128, 32, 8, 2)
-    with pytest.raises(ValueError):
-        KM.decode_split_emulation(qa, qr, ckv, kr, cur_len=8,
-                                  ckv_scale=cs, krope_scale=rs, scale=SCALE)
 
 
 def test_variant_counts_stay_zero_on_the_cpu():
