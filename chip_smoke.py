@@ -122,6 +122,33 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    prefix / chunked modes, launch counts checked, the on/on streams
    replayed teacher-forced (each step whose pick is not the served
    token printed with its logit gaps beside its error);
+6b. durable serving (``checkpoint.store``, ``engine.snapshot``,
+   ``engine.journal``, ``runtime.resilience.serve_with_recovery``) on the
+   kernels of phase 6's path: tinyllama-1.1b's shared-prompt stream (all
+   24 requests submitted at once, prefix cache and chunks of 64 on) on
+   bf16 and on int8 pools, crash-free, then through
+   ``serve_with_recovery`` with a snapshot every 4 steps (into a
+   temporary directory outside the repo, removed afterwards) and a
+   ``CrashFault`` on the fresh run, twice: at a step whose journal
+   suffix holds no finished result (the recovered run repeats the
+   crash-free schedule) and at one whose suffix holds one (taken
+   verbatim from the journal, its slot freed at the snapshot's step),
+   each after at least two snapshots with a prompt mid-chunk; every
+   request finished, the allocator and trie invariants, every page but
+   the trie's free, the paged decode kernel launched 22 times a step
+   over both processes (all on mma); the recovered streams equal the
+   crash-free ones, except that on int8 pools a stream parting after
+   the journal crash is replayed with its recovered tokens and held at
+   5e-2 (``_hold_streams``), counted; then a snapshot of a live
+   Scheduler (a prompt mid-chunk) restored into a fresh one: every pool
+   leaf (bf16, int8, fp32 scales), the table, lengths, free-list order,
+   trie and slots bitwise, and the next step's logits bitwise on both;
+   the snapshot's cut, background write, restore and one fsynced
+   journal append timed beside the card's name and power limit, and
+   the recovered run's wall beside the crash-free run's.  Phase 8 ends
+   with DeepSeek-V3 at depth 4 on int8 latent pools the same way
+   (kernel 13 over restored pages and scales; the journal crash; parted
+   streams replayed in the served slot layout, ``_replay_both``);
 7. the moe family: kernels 10, 14 (dense latent cache) and 11, 13
    (latent page pools, int8 with page scales) are held and timed in
    phase 2 at DeepSeek-V3's widths (H 128, r 512, rope 64); on reduced
@@ -3911,7 +3938,8 @@ def _replay_streams(torch, eng, ref, reqs, streams, chunk=None):
     return logits
 
 
-def _hold_streams(torch, what, eng, ref, reqs, got, want, chunk=None):
+def _hold_streams(torch, what, eng, ref, reqs, got, want, chunk=None,
+                  tol=E2E_FP32_TOL):
     """Greedy Scheduler streams of the kernel path on int8 pools
     (``got``, one token list a request) against the plain path's
     (``want``): equal, or held past the step where they part.
@@ -3922,9 +3950,9 @@ def _hold_streams(torch, what, eng, ref, reqs, got, want, chunk=None):
     lie closer than that moves the logits, the picks part.  Every
     request whose streams part is then replayed with the plain path's
     tokens (``_replay_streams``), and at every step, the split and every
-    later page included, the kernel path's logits are held at
-    E2E_FP32_TOL x max(1, max|logits|) to the plain path's on the same
-    int8 pages (``"shared"``).  The plain path on pools of its own is
+    later page included, the kernel path's logits are held at ``tol``
+    (E2E_FP32_TOL for the reduced fp32 configs) x max(1, max|logits|) to
+    the plain path's on the same int8 pages (``"shared"``).  The plain path on pools of its own is
     reported beside it and not held: there the int8 rounding of the
     whole history differs between the paths, not the kernels alone.
     Returns a summary (empty where the streams are equal)."""
@@ -3946,11 +3974,11 @@ def _hold_streams(torch, what, eng, ref, reqs, got, want, chunk=None):
         for j, (x, y, z) in enumerate(zip(lg["cuda"], lg["shared"],
                                           lg["torch"])):
             err = rel(x, y)
-            if not err <= E2E_FP32_TOL:
+            if not err <= tol:
                 raise AssertionError(
                     f"{what}: request {i}, replayed with the plain "
                     f"path's tokens, step {j}: max|d logits| {err:.3e} of "
-                    f"scale past {E2E_FP32_TOL:g} on the same int8 pages")
+                    f"scale past {tol:g} on the same int8 pages")
             worst, own = max(worst, err), max(own, rel(x, z))
             steps += 1
             agree += int(x.argmax()) == want[i][j]
@@ -4235,17 +4263,12 @@ def chunked_prefill_logits(torch, params):
     return out
 
 
-def serve_prefix_chunked(torch, params):
-    """Full-width tinyllama-1.1b through the Scheduler with the prefix
-    cache and chunked prefill, on the shared-prompt stream, in each of
-    PC_MODES: launch counts checked, every request finished and every
-    page back (but the trie's), the on/on streams replayed
-    teacher-forced against the plain path (``_replay_slots``) and
-    compared with the off/off streams."""
+def _pc_engines(torch, params):
+    """The full-width tinyllama-1.1b engines of phases 6 and 6b, bf16 and
+    int8 pools (SLOTS slots, N_PAGES pages of PAGE, chunks of
+    CHUNK_TOKENS), each warmed up by a short prefix + chunked stream."""
     from repro_torch.configs import get_config
-    from repro_torch.engine import (DecodeEngine, EngineConfig,
-                                    RequestStatus, Scheduler)
-    from repro_torch.kernels import build
+    from repro_torch.engine import DecodeEngine, EngineConfig, Scheduler
 
     cfg = get_config("tinyllama-1.1b")
     engines = {}
@@ -4259,6 +4282,21 @@ def serve_prefix_chunked(torch, params):
         _drive(Scheduler(eng, prefix_cache=True, chunked_prefill=True),
                _requests(cfg, 4, PROMPT, 4, seed=5))
         engines[kv_dtype] = eng
+    return engines
+
+
+def serve_prefix_chunked(torch, engines):
+    """Full-width tinyllama-1.1b through the Scheduler with the prefix
+    cache and chunked prefill, on the shared-prompt stream, in each of
+    PC_MODES (on the bf16 and int8 ``engines`` of ``_pc_engines``):
+    launch counts checked, every request finished and every page back
+    (but the trie's), the on/on streams replayed teacher-forced against
+    the plain path (``_replay_slots``) and compared with the off/off
+    streams."""
+    from repro_torch.engine import RequestStatus, Scheduler
+    from repro_torch.kernels import build
+
+    cfg = engines["bf16"].cfg
     print(f"Scheduler with the prefix cache and chunked prefill, "
           f"tinyllama-1.1b: {N_REQ} requests ({N_SHARED} open with one "
           f"{SYSTEM}-token system prompt + {TAIL[0]}-{TAIL[1]} tokens, "
@@ -4337,9 +4375,478 @@ def serve_prefix_chunked(torch, params):
                            replay_flips=flips)
         summaries.append(summary)
         del sched
-    del engines
     torch.cuda.empty_cache()
     return summaries
+
+
+# ----------------------------------------------------------------------
+# phase 6b: durable serving (snapshots, the request journal, recovery)
+# ----------------------------------------------------------------------
+
+# the crash+recover streams snapshot every RECOVER_EVERY steps; the crash
+# comes after at least two snapshots, at a step with a chunked prompt in
+# flight
+RECOVER_EVERY = 4
+# fsynced journal appends timed for the cost of one
+JOURNAL_APPENDS = 50
+
+
+def _paged_kernel(eng):
+    """The paged decode kernel an engine's steps launch, and the variant
+    every launch must take: kernel 5 / 7 on mma, 11 / 13 on wgmma."""
+    mla = eng.cfg.mla is not None
+    name = ("vwr_mla_paged_flash_decode" if mla
+            else "vwr_paged_flash_decode")
+    if eng.ecfg.kv_dtype == "int8":
+        name += "_q8"
+    return name, "wgmma" if mla else "mma"
+
+
+class _Watch:
+    """A snapshotter stand-in for a crash-free run: records after every
+    step whether a prompt is part-way through chunked prefill (a
+    PREFILLING slot with some of its prompt resident) and how many
+    results are finished."""
+
+    def __init__(self):
+        self.mid_prompt, self.finished = {}, {}
+
+    def on_step(self, sched):
+        from repro_torch.engine import RequestStatus
+
+        k = sched.stats["steps"]
+        self.mid_prompt[k] = any(
+            s is not None and s.req.status is RequestStatus.PREFILLING
+            and s.prefilled > 0 for s in sched.slots)
+        self.finished[k] = len(sched.finished)
+
+    def wait(self):
+        pass
+
+
+def _crash_step(watch, journal):
+    """The crash step: off the cadence, after at least two snapshots, with
+    a prompt part-way through chunked prefill, its last snapshot holding
+    such a prompt too where one does (a chunk cut by the snapshot).  With
+    ``journal`` a result finished between that snapshot and the crash, so
+    recovery takes its terminal verbatim from the journal and frees its
+    slot early, and later admissions run beside other slot mates than in
+    the crash-free run; without, no result did (and, where one can, some
+    finished before the snapshot), so the recovered run repeats the
+    crash-free schedule step for step."""
+    def snap(k):
+        return RECOVER_EVERY * (k // RECOVER_EVERY)
+
+    def cut(k):
+        return bool(watch.mid_prompt.get(snap(k)))
+    steps = [k for k in sorted(watch.mid_prompt)
+             if k > 2 * RECOVER_EVERY and k % RECOVER_EVERY
+             and watch.mid_prompt[k]
+             and (watch.finished[k] > watch.finished[snap(k)]) == journal]
+    if not steps:
+        raise AssertionError(
+            "no step with a chunk in flight after two snapshots and "
+            f"{'a' if journal else 'no'} result finished since the last")
+    return min(steps, key=lambda k: (
+        not cut(k), journal or not watch.finished[snap(k)], k))
+
+
+def _recovery_streams(torch, tag, eng, make_reqs, crashes=(False, True)):
+    """One stream (``make_reqs()``, all submitted at once, the prefix
+    cache and chunked prefill on) on the kernel path: crash-free, then
+    through ``serve_with_recovery`` once for each of ``crashes`` (the
+    ``journal`` flag of ``_crash_step``), each with a snapshot every
+    RECOVER_EVERY steps into a temporary directory outside the repo
+    (removed afterwards) and a CrashFault on the fresh run.  Holds for
+    every run: every request FINISHED with GEN tokens, the allocator and
+    trie invariants, every page but the trie's free; for each recovery:
+    the restart taken from a snapshot, and the paged decode kernel
+    launched L times a step over both processes' steps, every launch on
+    its Hopper variant.  Returns (summaries, crash-free results,
+    recovered Schedulers), one summary and Scheduler a crash."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.engine import RequestStatus, Scheduler, faults
+    from repro_torch.engine.snapshot import _read_host_state
+    from repro_torch.kernels import build
+    from repro_torch.runtime.resilience import (RestartPolicy,
+                                                serve_with_recovery)
+
+    modes = dict(prefix_cache=True, chunked_prefill=True)
+    L = eng.cfg.n_layers
+    name, variant = _paged_kernel(eng)
+
+    def check(what, sched, out):
+        bad = {rid: r.status for rid, r in out.items()
+               if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+        if len(out) != N_REQ or bad:
+            raise AssertionError(f"{tag}, {what}: unfinished {bad}")
+        sched.allocator.check()
+        sched.prefix.check()
+        if sched.allocator.free_pages != (eng.n_pages
+                                          - sched.prefix.cached_pages):
+            raise AssertionError(f"{tag}, {what}: pages left allocated")
+
+    watch = _Watch()
+    ref = Scheduler(eng, snapshotter=watch, **modes)
+    for r in make_reqs():
+        ref.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.run()
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    check("crash-free", ref, want)
+    print(f"  {tag}: crash-free {ref.stats['steps']} steps, "
+          f"{wall_ref:.4f} s")
+
+    summaries, scheds = [], []
+    for journal in crashes:
+        crash = _crash_step(watch, journal)
+        d = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+        info, fresh = {}, []
+
+        def on_start(sched, is_fresh, crash=crash, info=info, fresh=fresh):
+            if is_fresh:
+                fresh.append(sched)
+                faults.inject(sched, decode_faults=[
+                    faults.CrashFault(step=crash)])
+                return
+            step = sched.stats["steps"]
+            info["restored_step"] = step
+            info["in_snapshot"] = (len(_read_host_state(
+                sched.snapshotter.store, step)["finished"]) if step else 0)
+
+        def submit(sched):
+            for r in make_reqs():
+                sched.submit(r)
+
+        try:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            sched = serve_with_recovery(
+                eng, d, submit, snapshot_every=RECOVER_EVERY,
+                policy=RestartPolicy(max_restarts=1, backoff_s=0.0),
+                on_start=on_start, sched_kwargs=modes)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, variants = dict(build.LAUNCHES), dict(build.VARIANTS)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        got = sched.finished
+        what = f"crash at step {crash}"
+        check(what, sched, got)
+        if not info.get("restored_step"):
+            raise AssertionError(f"{tag}, {what}: no snapshot to restore")
+        journaled = len(fresh.pop().finished)
+        steps_run = crash + sched.stats["steps"] - info["restored_step"]
+        if (launches[name] != L * steps_run
+                or variants[f"{name}.{variant}"] != launches[name]):
+            raise AssertionError(
+                f"{tag}, {what}: {name} launched {launches[name]} times "
+                f"({variants[f'{name}.{variant}']} on {variant}), expected "
+                f"{L} x {steps_run} steps, all on {variant}")
+        parted = [rid for rid in sorted(want)
+                  if not np.array_equal(got[rid], want[rid])]
+        summary = {
+            "crash_step": crash, "snapshot_every": RECOVER_EVERY,
+            "snapshot_cut_mid_prompt": bool(watch.mid_prompt.get(
+                RECOVER_EVERY * (crash // RECOVER_EVERY))),
+            "restored_step": info["restored_step"],
+            "snapshots": sched.snapshotter.saved,
+            "terminals_journaled_before_crash": journaled,
+            "terminals_in_snapshot": info["in_snapshot"],
+            "terminals_recovered_from_journal":
+                journaled - info["in_snapshot"],
+            "steps_crash_free": ref.stats["steps"],
+            "steps_recovered": sched.stats["steps"],
+            "steps_run": steps_run,
+            "wall_crash_free_s": wall_ref, "wall_recovered_s": wall,
+            "launches": {k: v for k, v in launches.items() if v},
+            "streams_parted": len(parted), "parted": parted}
+        print(f"  {tag}, {what} (a snapshot every {RECOVER_EVERY} steps; "
+              "the last before the crash cut a prompt mid-chunk: "
+              f"{summary['snapshot_cut_mid_prompt']}): restored from step "
+              f"{info['restored_step']}; {journaled} results journaled "
+              f"before the crash, {info['in_snapshot']} in the snapshot, "
+              f"{summary['terminals_recovered_from_journal']} recovered "
+              "verbatim from the journal")
+        print(f"    {steps_run} steps over both processes "
+              f"({ref.stats['steps']} crash-free); {name} launched "
+              f"{launches[name]} times, all on {variant}; wall: crash + "
+              f"restore + recovered run {wall:.4f} s against {wall_ref:.4f} "
+              f"s crash-free ({summary['snapshots']} snapshots); "
+              f"{N_REQ - len(parted)}/{N_REQ} streams equal to the "
+              "crash-free run")
+        summaries.append(summary)
+        scheds.append(sched)
+    return summaries, want, scheds
+
+
+def _bits(torch, t):
+    """``t``'s elements as integers of their own width, so that two
+    tensors compare bit for bit (-0 and NaN included)."""
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+class _Tap:
+    """Delegating engine proxy that keeps a copy of every decode and
+    mixed step's logits (and a final chunk's)."""
+
+    def __init__(self, eng):
+        self._eng, self.logits = eng, []
+
+    def __getattr__(self, name):
+        return getattr(self._eng, name)
+
+    def decode_fn(self, params, batch):
+        out = self._eng.decode_fn(params, batch)
+        self.logits.append(out[0].clone())
+        return out
+
+    def mixed_fn(self, params, batch):
+        out = self._eng.mixed_fn(params, batch)
+        self.logits.extend(x.clone() for x in out[:2] if x is not None)
+        return out
+
+
+def snapshot_round_trip(torch, tag, eng, make_reqs, at):
+    """The stream of ``make_reqs`` (prefix cache and chunked prefill on)
+    run to step ``at`` on the kernel path, snapshotted and restored into a
+    fresh Scheduler: every pool leaf (bf16 or int8 pools and fp32 scales),
+    the block table, lengths, pending tokens, free-list order, trie,
+    chunking queue and slots held bit for bit; then one more step on
+    both, every logits row held bit for bit, and the pools again.  Times
+    the snapshot's cut (the synchronous host copy), its background write,
+    the restore (a fresh Scheduler, its pools, the copy in) and one
+    fsynced journal append."""
+    import os
+    import shutil
+    import statistics as st
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.checkpoint.store import _leaf_paths
+    from repro_torch.engine import (RequestJournal, Scheduler, restore,
+                                    snapshot)
+
+    a = Scheduler(eng, prefix_cache=True, chunked_prefill=True)
+    for r in make_reqs():
+        a.submit(r)
+    while a.stats["steps"] < at:
+        a.admit()
+        a.step()
+    d = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    try:
+        store = CheckpointStore(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = snapshot(a, store, async_=True)
+        t1 = time.perf_counter()
+        store.wait()
+        t2 = time.perf_counter()
+        sdir = os.path.join(d, f"step_{step}")
+        disk = sum(os.path.getsize(os.path.join(sdir, f))
+                   for f in os.listdir(sdir))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        b = restore(store, eng)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        journal = RequestJournal(os.path.join(d, "journal.jsonl"))
+        reqs, appends = make_reqs(), []
+        for i in range(JOURNAL_APPENDS):
+            t = time.perf_counter()
+            journal.submit(reqs[i % len(reqs)])
+            appends.append(time.perf_counter() - t)
+        journal.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    pools = _leaf_paths(a.cache)
+    pool_bytes = sum(t.numel() * t.element_size() for t in pools.values())
+
+    def slots(s):
+        return [x and (x.req.rid, x.length, x.pages, x.out, x.steps,
+                       x.prefilled, x.order) for x in s.slots]
+
+    def trie(s):
+        """The trie as {token path: (page, LRU stamp)}, its clock and
+        counters (``to_state`` lists nodes in walk order, which a
+        reload may change)."""
+        state, paths, out = s.prefix.to_state(), [], {}
+        for nd in state["nodes"]:
+            path = (paths[nd["parent"]] if nd["parent"] >= 0 else ()) + (
+                tuple(nd["key"]),)
+            paths.append(path)
+            out[path] = (nd["page"], nd["last_used"])
+        return out, state["clock"], state["stats"]
+
+    def same_pools():
+        pb = _leaf_paths(b.cache)
+        return [k for k, t in pools.items()
+                if not torch.equal(_bits(torch, t), _bits(torch, pb[k]))]
+
+    host = {"table": np.array_equal(a.table, b.table),
+            "lens": np.array_equal(a.lens, b.lens),
+            "tokens": np.array_equal(a.tokens, b.tokens),
+            "free_list": a.allocator.to_state() == b.allocator.to_state(),
+            "trie": trie(a) == trie(b),
+            "chunking": list(a._prefilling) == list(b._prefilling),
+            "slots": slots(a) == slots(b)}
+    differ = same_pools()
+    if differ or not all(host.values()):
+        raise AssertionError(f"{tag}: the restored Scheduler differs: "
+                             f"pools {differ}, host {host}")
+    if not a._prefilling:
+        raise AssertionError(f"{tag}: no prompt mid-chunk at step {at}")
+    a.eng, b.eng = _Tap(eng), _Tap(eng)
+    for s in (a, b):
+        s.admit()
+        s.step()
+    la, lb = a.eng.logits, b.eng.logits
+    if (len(la) != len(lb) or not la or any(
+            not torch.equal(_bits(torch, x), _bits(torch, y))
+            for x, y in zip(la, lb))):
+        raise AssertionError(f"{tag}: the step after the restore differs")
+    differ = same_pools()
+    if differ:
+        raise AssertionError(f"{tag}: pools differ after the next step: "
+                             f"{differ}")
+    summary = {
+        "step": step, "leaves": sorted(pools), "pool_mb": pool_bytes / 1e6,
+        "snapshot_mb": disk / 1e6, "cut_ms": (t1 - t0) * 1e3,
+        "write_ms": (t2 - t1) * 1e3, "restore_ms": (t4 - t3) * 1e3,
+        "journal_append_ms_mean": st.mean(appends) * 1e3,
+        "journal_append_ms_p50": st.median(appends) * 1e3,
+        "next_step_logits_rows": sum(x.shape[0] for x in la)}
+    print(f"    round trip at step {step} (a prompt mid-chunk): "
+          f"{len(pools)} pool leaves ({', '.join(sorted(pools))}), "
+          f"table, lengths, tokens, free list, trie and slots bitwise; "
+          f"the next step's {len(la)} logits tensors bitwise")
+    print(f"    snapshot {summary['snapshot_mb']:.2f} MB on disk (pools "
+          f"{summary['pool_mb']:.2f} MB): cut {summary['cut_ms']:.3f} ms, "
+          f"background write {summary['write_ms']:.3f} ms; restore "
+          f"{summary['restore_ms']:.3f} ms; journal append (fsync) mean "
+          f"{summary['journal_append_ms_mean']:.3f} ms, p50 "
+          f"{summary['journal_append_ms_p50']:.3f} ms over "
+          f"{JOURNAL_APPENDS}")
+    del a, b
+    return summary
+
+
+def serve_recovery(torch, engines):
+    """Phase 6b on the bf16 and int8 tinyllama-1.1b ``engines`` of
+    ``_pc_engines``: the shared-prompt stream crash-free and twice
+    crashed + recovered (``_recovery_streams``).  After the crash whose
+    journal suffix holds no result, the recovered run repeats the
+    crash-free schedule, and its streams must equal the crash-free ones
+    on both pools.  After the crash whose suffix holds one, recovery
+    takes that result from the journal and frees its slot at the
+    snapshot's step, so later requests run beside other slot mates (the
+    caveat of ``engine.snapshot``'s docstring): on bf16 pools its streams
+    must equal the crash-free ones too; on int8 pools a stream that parts
+    at a near-tie is replayed with its recovered tokens and held by
+    ``_hold_streams`` at the full-width tolerance, and the count printed.
+    Then the bitwise round trip and the costs (``snapshot_round_trip``)
+    beside the card."""
+    from repro_torch.engine import DecodeEngine
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    print(f"durable serving, tinyllama-1.1b: the shared-prompt stream "
+          f"({N_REQ} requests submitted at once, gen {GEN}, prefix cache "
+          f"and chunks of {CHUNK_TOKENS} on) crash-free and through "
+          f"serve_with_recovery; {card}")
+    out = {}
+    for kv_dtype, eng in engines.items():
+        cfg = eng.cfg
+        tag = f"tinyllama-1.1b, {kv_dtype} pools"
+
+        def make_reqs(cfg=cfg):
+            return _shared_requests(cfg)
+        summaries, want, scheds = _recovery_streams(torch, tag, eng,
+                                                    make_reqs)
+        for summary, sched in zip(summaries, scheds):
+            journal = summary["terminals_recovered_from_journal"] > 0
+            if not summary["parted"]:
+                continue
+            if kv_dtype == "bf16" or not journal:
+                raise AssertionError(
+                    f"{tag}, crash at step {summary['crash_step']}: "
+                    f"recovered streams {summary['parted']} differ from "
+                    "the crash-free run")
+            ref = DecodeEngine(cfg, eng.ecfg.replace(kernel_impl="torch"),
+                               params=eng.params, device="cuda")
+            held = _hold_streams(
+                torch, tag, eng, ref, make_reqs(),
+                [want[i].tokens.tolist() for i in range(N_REQ)],
+                [sched.finished[i].tokens.tolist() for i in range(N_REQ)],
+                chunk=CHUNK_TOKENS, tol=E2E_BF16_REL)
+            summary["held"] = held
+            print(f"    {len(held['parted'])} streams part from the "
+                  f"crash-free run, first at request "
+                  f"{held['first_split']['request']} step "
+                  f"{held['first_split']['step']}; their recovered tokens "
+                  f"replayed: kernel vs plain max|d logits| "
+                  f"{held['max_rel_err']:.3e} of scale on the same int8 "
+                  f"pages over {held['replayed_steps']} steps (limit "
+                  f"{E2E_BF16_REL:g}); the replay picks the recovered "
+                  f"token at {held['kernel_picks_plain_token']}/"
+                  f"{held['replayed_steps']} steps")
+            del ref
+        del scheds
+        rt = snapshot_round_trip(torch, tag, eng, make_reqs,
+                                 summaries[-1]["crash_step"])
+        out[kv_dtype] = {"crashes": summaries, "round_trip": rt,
+                         "card": card}
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_recovery(torch, params, cfg, routes):
+    """Phase 6b on DeepSeek-V3 at depth 4 (the phase 7-8 weights): the
+    shared-prompt stream on int8 latent pools (kernel 13 reading restored
+    pages and per-page latent scales) crash-free and crashed + recovered
+    at a step whose journal suffix holds a result
+    (``_recovery_streams``).  A recovered stream that parts from the
+    crash-free one (after the recovery, requests share the MoE decode
+    group's capacity with other slot mates; int8 near-ties) is held by
+    replaying the recovered streams through both paths in the served
+    slot layout (``_replay_both``), and the count printed."""
+    from repro_torch.engine import DecodeEngine, EngineConfig
+
+    ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
+                        page_size=PAGE, n_pages=N_PAGES, kv_dtype="int8",
+                        chunk_tokens=CHUNK_TOKENS, kernel_impl="cuda")
+    eng = DecodeEngine(cfg, ecfg, params=params, device="cuda")
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    tag = f"{DEEPSEEK} depth {DEEPSEEK_DEPTH}, int8 latent pools"
+    print(f"  durable serving, {tag}: the shared-prompt stream crash-free "
+          f"and through serve_with_recovery; {card}")
+
+    def make_reqs():
+        return _shared_requests(cfg)
+    (summary,), _, (sched,) = _recovery_streams(torch, tag, eng, make_reqs,
+                                                crashes=(True,))
+    if summary["parted"]:
+        ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                           params=params, device="cuda")
+        summary["replay"] = _replay_both(
+            torch, eng, ref, sched.cache, make_reqs(), sched.finished,
+            routes, chunk=CHUNK_TOKENS)
+        del ref
+    summary["card"] = card
+    del eng, sched
+    torch.cuda.empty_cache()
+    return summary
 
 
 def _dense_mla():
@@ -5009,12 +5516,13 @@ def serve_deepseek(torch):
         pc_streams = [deepseek_scheduler(torch, params, cfg, kv, routes,
                                          prefix_chunked=True)
                       for kv in ("bf16", "int8")]
+        recovery = deepseek_recovery(torch, params, cfg, routes)
     del params
     torch.cuda.empty_cache()
     return {"arch": DEEPSEEK, "n_layers": DEEPSEEK_DEPTH,
             "n_params": n_params, "generate": gen_summary,
             "kernel14": k14, "scheduler": streams,
-            "prefix_chunked": pc_streams}
+            "prefix_chunked": pc_streams, "recovery": recovery}
 
 
 # ----------------------------------------------------------------------
@@ -5172,8 +5680,12 @@ def main() -> int:
                for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
     rows = chunk_rows(torch, params)
     chunk_logits = chunked_prefill_logits(torch, params)
-    pc_streams = serve_prefix_chunked(torch, params)
-    del params
+    pc_engines = _pc_engines(torch, params)
+    pc_streams = serve_prefix_chunked(torch, pc_engines)
+
+    print("durable serving: snapshots, the request journal, recovery")
+    recovery = serve_recovery(torch, pc_engines)
+    del pc_engines, params
     torch.cuda.empty_cache()
 
     print("the moe family: DeepSeek-V3 (MLA) and OLMoE (GQA)")
@@ -5270,6 +5782,8 @@ def main() -> int:
               "prefix_chunked_reduced_fp32": pc_fp32,
               "chunk_rows": rows, "chunked_prefill_logits": chunk_logits,
               "prefix_chunked": pc_streams,
+              "recovery": {"tinyllama-1.1b": recovery,
+                           DEEPSEEK: deepseek["recovery"]},
               "moe_reduced_fp32_max_abs": moe_fp32,
               "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,

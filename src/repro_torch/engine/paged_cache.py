@@ -26,7 +26,7 @@ tree.  The audio pools are not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import torch
 
@@ -278,7 +278,9 @@ class PageAllocator:
     exclusive-owner release: it rejects a shared page, a double free and
     a page that was never handed out.  ``check()`` asserts the pool
     invariant (owned and free partition the pages, every owned page
-    holds a ref, no free page does)."""
+    holds a ref, no free page does).  ``to_state`` / ``load_state`` carry
+    the partition, free-list order included, through an engine snapshot
+    (``engine.snapshot``)."""
 
     def __init__(self, n_pages: int):
         self.n_pages = int(n_pages)
@@ -407,3 +409,25 @@ class PageAllocator:
             raise ValueError(f"refcounts on pages not handed out: "
                              f"{sorted(ghost)}")
         return True
+
+    def to_state(self) -> Dict[str, Any]:
+        """JSON-serializable snapshot of the pool partition.  The free
+        LIST (not set) is captured in order: ``alloc`` pops from the
+        end, so reproducing the exact order is what makes page
+        assignment — and therefore block tables — deterministic across
+        a snapshot/restore cycle."""
+        return {"n_pages": self.n_pages,
+                "free": list(self._free),
+                "refs": [[int(p), int(r)]
+                         for p, r in sorted(self._refs.items())]}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Restore a ``to_state`` snapshot (validates the partition)."""
+        if int(state["n_pages"]) != self.n_pages:
+            raise ValueError(
+                f"allocator snapshot covers {state['n_pages']} pages "
+                f"but this pool has {self.n_pages}")
+        self._free = [int(p) for p in state["free"]]
+        self._refs = {int(p): int(r) for p, r in state["refs"]}
+        self._owned = set(self._refs)
+        self.check()

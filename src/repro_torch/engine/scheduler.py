@@ -1,8 +1,7 @@
 """Continuous batching: request-level serving on the paged DecodeEngine.
 
-Counterpart of ``repro.engine.scheduler`` without durable serving
-(ROADMAP queue 1 item 9).  The engine's paged decode step runs as a
-slot machine:
+Counterpart of ``repro.engine.scheduler``.  The engine's paged decode
+step runs as a slot machine:
 
   admit    a pending request takes a free slot: its prompt is prefilled
            alone (batch 1) and written into freshly allocated pages;
@@ -48,6 +47,12 @@ streams stay bit-identical, a transient step exception is retried with
 bounded backoff (``runtime.resilience``), and a slot preempted more
 than ``max_preemptions`` times is parked until the pool quiets.
 Injectors for all of this are in ``engine.faults``.
+
+Durable serving rides on top: with a ``journal`` (``engine.journal``)
+every submit, cancel and terminal result is write-ahead logged, and a
+``snapshotter`` (``engine.snapshot``) cuts the whole serving state every
+N steps, so ``runtime.resilience.serve_with_recovery`` survives process
+death with the crash-free run's streams.
 
 All bookkeeping (free slots, pages, per-slot lengths, block tables, the
 prefix trie) is host-side numpy.  A step sends the device one buffer
@@ -290,8 +295,13 @@ class Scheduler:
     ``shared_pages`` (peak pages held twice or more), ``cow_forks``,
     ``mixed_steps``, ``chunks`` and ``chunked_tokens``.
 
-    ``journal`` and ``snapshotter`` are not ported yet and raise
-    ``NotImplementedError`` when set.
+    ``journal`` (an ``engine.journal.RequestJournal``) write-ahead logs
+    every submit, cancel intent and terminal result; ``snapshotter`` (an
+    ``engine.snapshot.EngineSnapshotter``) is called after every step and
+    joined when ``run`` drains.  The JAX Scheduler's ``guard_nonfinite``,
+    ``chunk_tokens``, ``token_budget`` and ``enc_len`` options are not
+    taken: the port always guards, chunks ``EngineConfig.chunk_tokens``
+    under a budget of ``batch + chunk_tokens``, and serves no audio.
     """
 
     def __init__(self, engine, bucket_tables: bool = True,
@@ -306,17 +316,16 @@ class Scheduler:
             raise ValueError(
                 "Scheduler needs a paged engine: EngineConfig("
                 "paged=True, page_size=..., n_pages=...)")
-        for name, value in (("journal", journal),
-                            ("snapshotter", snapshotter)):
-            if value:
-                raise NotImplementedError(
-                    f"Scheduler({name}=...) is not ported to repro_torch "
-                    "yet: ROADMAP queue 1 item 9")
         self.eng = engine
         self.cfg = engine.cfg
         B, J = engine.ecfg.batch, engine.max_pages
         self.page_size = engine.page_size
         self.allocator = PageAllocator(engine.n_pages)
+        # durability hooks (engine.journal / engine.snapshot): every
+        # submit/cancel/terminal is write-ahead logged, and the
+        # snapshotter cuts the full serving state every N steps
+        self.journal = journal
+        self.snapshotter = snapshotter
         self.slots: List[Optional[_Slot]] = [None] * B
         self.table = np.zeros((B, J), np.int32)
         self.lens = np.zeros((B,), np.int32)
@@ -395,6 +404,11 @@ class Scheduler:
     def submit(self, req: Request) -> None:
         req.status = RequestStatus.PENDING
         req.submit_t = time.monotonic()
+        if self.journal is not None:
+            # write-ahead: the submit is on disk (fsynced) before the
+            # scheduler can act on it — an acknowledged request
+            # survives a crash even if no snapshot ever sees it
+            self.journal.submit(req)
         self.pending.append(req)
 
     def results(self) -> Dict[Any, RequestResult]:
@@ -429,6 +443,8 @@ class Scheduler:
                             token_times=(list(token_times)
                                          if token_times else None))
         self.finished[req.rid] = res
+        if self.journal is not None:
+            self.journal.terminal(req.rid, res)
         if lat is not None:
             self._latencies.append(lat)
         if token_times and len(token_times) > 1:
@@ -513,6 +529,10 @@ class Scheduler:
         """Cancel a request wherever it is: mid-flight (slot and pages
         freed at once, partial tokens attached), pending, or parked.
         Returns False if ``rid`` is unknown or already terminal."""
+        if self.journal is not None:
+            # intent record — the terminal event that follows is what
+            # replay treats as authoritative
+            self.journal.cancel(rid)
         for slot_id, slot in enumerate(self.slots):
             if slot is not None and slot.req.rid == rid:
                 slot = self._evict(slot_id)
@@ -1035,6 +1055,10 @@ class Scheduler:
                 "finished": len(self.finished),
                 "failed": self.stats["failed"],
                 "retries": self.stats["step_retries"]})
+        if self.snapshotter is not None:
+            # the cadence: the host copy happens here, the disk writes
+            # on the store's background worker
+            self.snapshotter.on_step(self)
 
     def run(self) -> Dict[Any, RequestResult]:
         """Drain the queue: admit / step until every request is
@@ -1060,4 +1084,8 @@ class Scheduler:
                     "left to retire — raise EngineConfig.n_pages")
                 continue
             self.step()
+        if self.snapshotter is not None:
+            # surface a failed background snapshot at run end instead
+            # of silently dropping it with the drained queue
+            self.snapshotter.wait()
         return dict(self.finished)

@@ -1,14 +1,15 @@
 """Fault-tolerance runtime for serving: straggler monitor, heartbeat,
-bounded retries and latency percentiles.
+bounded retries, latency percentiles and restart-from-snapshot.
 
-The port's own copy of the serving half of ``repro.runtime.resilience``
-(the port imports nothing of the JAX package).  The scheduler
-(``engine.scheduler``) runs a StragglerMonitor and a Heartbeat in its
-step loop, bounds transient step and prefill faults with
-``RetryPolicy``/``call_with_retries``, and summarizes per-request
-latency with ``percentiles``.  ``RestartPolicy``, ``run_with_restarts``
-and ``serve_with_recovery`` belong to durable serving (snapshots and
-the request journal), which is not ported yet (ROADMAP queue 1 item 9).
+The port's own copy of ``repro.runtime.resilience`` (the port imports
+nothing of the JAX package).  The scheduler (``engine.scheduler``) runs
+a StragglerMonitor and a Heartbeat in its step loop, bounds transient
+step and prefill faults with ``RetryPolicy``/``call_with_retries``, and
+summarizes per-request latency with ``percentiles``.
+``run_with_restarts`` is the generic restart loop, and
+``serve_with_recovery`` wraps it around a journaled, snapshot-cadenced
+Scheduler drain: durable serving (``engine.snapshot``,
+``engine.journal``).
 """
 from __future__ import annotations
 
@@ -127,3 +128,97 @@ def percentiles(samples: Sequence[float],
         lo, hi = int(pos), min(int(pos) + 1, len(xs) - 1)
         out[f"p{q:g}"] = xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
     return out
+
+
+@dataclass
+class RestartPolicy:
+    max_restarts: int = 10
+    backoff_s: float = 1.0
+
+
+def run_with_restarts(make_state: Callable[[Optional[int]], object],
+                      run: Callable[[object], None],
+                      store,
+                      policy: RestartPolicy = RestartPolicy()):
+    """make_state(resume_step|None) -> state;  run(state) raises on
+    failure.  Resumes from store.latest_step() after each failure."""
+    attempts = 0
+    while True:
+        resume = store.latest_step()
+        state = make_state(resume)
+        try:
+            run(state)
+            return
+        except KeyboardInterrupt:
+            raise
+        except Exception:                           # noqa: BLE001
+            attempts += 1
+            if attempts > policy.max_restarts:
+                raise
+            time.sleep(policy.backoff_s * attempts)
+
+
+def serve_with_recovery(engine, snapshot_dir: str, submit: Callable,
+                        *, snapshot_every: int = 0, keep: int = 3,
+                        policy: RestartPolicy = RestartPolicy(),
+                        on_start: Optional[Callable] = None,
+                        sched_kwargs: Optional[dict] = None):
+    """Durable serving supervisor: ``run_with_restarts`` wrapped around
+    a snapshot-cadenced, journaled scheduler drain.
+
+    The first attempt builds a FRESH scheduler and calls
+    ``submit(sched)`` to enqueue the workload (every submit lands in
+    the write-ahead journal under ``snapshot_dir``); the scheduler then
+    snapshots its full serving state every ``snapshot_every`` steps off
+    the step path (0 = journal-only durability).  When the drain raises
+    — e.g. an ``engine.faults.CrashFault`` simulating process death —
+    the restart loop rebuilds the scheduler from the latest complete
+    snapshot (or from scratch when the crash beat the first cadence)
+    and replays the journal suffix: finished results are recovered
+    verbatim, post-snapshot submits re-queued, in-flight slots resume
+    from their snapshotted pages and sampling state.  ``submit`` is NOT
+    called again on recovery attempts — the journal is the workload's
+    durable record.
+
+    ``on_start(sched, fresh)`` runs after each (re)build — the hook
+    fault-injection tests use to crash only the fresh run.  Returns the
+    scheduler that completed the drain; async snapshot failures surface
+    here (teardown waits on the background writer).
+    """
+    # engine modules import this one — keep the import lazy
+    from repro_torch.engine.journal import (RequestJournal, read_events,
+                                            replay)
+    from repro_torch.engine.scheduler import Scheduler
+    from repro_torch.engine.snapshot import EngineSnapshotter, restore
+
+    snapshotter = EngineSnapshotter(snapshot_dir, every=snapshot_every,
+                                    keep=keep)
+    journal = RequestJournal(os.path.join(snapshot_dir, "journal.jsonl"))
+    kw = dict(sched_kwargs or {})
+    done: dict = {}
+
+    def make_state(resume):
+        events = read_events(journal.path)
+        if resume is None and not events:
+            sched = Scheduler(engine, journal=journal,
+                              snapshotter=snapshotter, **kw)
+            submit(sched)
+            fresh = True
+        else:
+            sched = restore(snapshotter, engine, step=resume,
+                            journal=journal, snapshotter=snapshotter,
+                            **kw)
+            replay(sched, events)
+            fresh = False
+        if on_start is not None:
+            on_start(sched, fresh)
+        done["sched"] = sched
+        return sched
+
+    try:
+        run_with_restarts(make_state, lambda s: s.run(), snapshotter,
+                          policy)
+    finally:
+        journal.close()
+        snapshotter.close()     # re-raises a failed async snapshot
+    return done["sched"]

@@ -251,9 +251,11 @@ def test_scheduler_needs_a_paged_engine_and_refuses_unported_modes(eng):
                          device="cpu")
     with pytest.raises(ValueError, match="paged"):
         Scheduler(dense)
-    for kw in (dict(journal=object()), dict(snapshotter=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Scheduler(eng, **kw)
+    # durable serving is served: the journal and the snapshotter are
+    # taken and kept (tests/test_torch_snapshot.py drives them)
+    journal, snapshotter = object(), object()
+    sched = Scheduler(eng, journal=journal, snapshotter=snapshotter)
+    assert sched.journal is journal and sched.snapshotter is snapshotter
     # the prefix cache and chunked prefill are served: the constructor
     # takes them, with the JAX Scheduler's checks
     sched = Scheduler(eng, prefix_cache=True, chunked_prefill=True)
