@@ -68,6 +68,16 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    the plain version and the emulation; B1 T2048 timed and the headline
    beside the FMA kernel forced and the library call; a batch whose
    sequences' scales lie 2^12 apart; its plan tables at both shapes);
+   the frontend families' shapes (``check_frontend_shapes``): kernel
+   1's relu up projection and down + residual at seamless-m4t's widths,
+   kernel 3 at internvl2's (B1 S384 H16 KV8 D128, and S 293), kernel 4
+   over internvl2's dense cache (B4 T416 KV8 G2 D128) and seamless's
+   cross cache (B4 T512 KV16 G1 D64, ragged T 500 and 961), kernel 5
+   over the identity-paged cross pool (8 slots, 64 entries of 16,
+   ragged encoder lengths, an inactive slot) and internvl2's pools,
+   kernel 7 at internvl2's pool shape, each on its rule's variant,
+   against the plain version and the emulation, bitwise twice, timed
+   beside the bound and the library call;
    then kernels 1 (split-K), 4 (8 splits), 5 (8 splits), 11, 9 (8
    splits), 8 (16 splits), 7 and 13 (J 128) and 14 (B1 T2048, 16
    splits) launched in turns on two streams with no synchronisation,
@@ -148,7 +158,30 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    the recovered run's wall beside the crash-free run's.  Phase 8 ends
    with DeepSeek-V3 at depth 4 on int8 latent pools the same way
    (kernel 13 over restored pages and scales; the journal crash; parted
-   streams replayed in the served slot layout, ``_replay_both``);
+   streams replayed in the served slot layout, ``_replay_both``), and
+   phase 6c with seamless-m4t-large-v2's Scheduler stream (a snapshot
+   every 40 steps, ~0.9 GB of pools each with the cross cache; the
+   crash after two, with no result since the last: restored slots keep
+   their encoder rows, every stream equals the crash-free run's) and the
+   fsynced journal append of an internvl2 request (256 x 1024 frontend
+   floats as JSON) timed;
+6c. the frontend families at full width, random conditioned weights:
+   internvl2-2b (vlm: 24 layers, d 2048, 16 / 8 heads of 128, d_ff
+   8192, 256 projected patch embeddings of 1024 ahead of each prompt)
+   and seamless-m4t-large-v2 (audio: 24 encoder + 24 decoder layers, d
+   1024, 16 heads of 64, layernorm, relu d_ff 8192, vocab 256206; frames
+   of 1024); their reduced fp32 configs first (greedy streams identical,
+   1e-3).  ``generate`` at batch 4 (internvl2: 128-token prompts;
+   seamless: 512 frames, decoder prompts of 16), gen 32, launches and
+   variants held (kernel 4 twice a seamless layer a step: self and
+   cross), teacher-forced against the plain path at 5e-2; the Scheduler
+   stream of phase 5 with frontends (internvl2 on bf16 and int8 pools
+   over 192 pages, where growth preempts; seamless with 160-960 frames
+   under ``enc_len`` 1024 on bf16 pools, kernel 5 twice a layer a step
+   over the self pools and the identity-paged cross cache), every
+   request finished, launches on kernels 1-5 and 7's Hopper variants
+   only, finished requests replayed in the live slots against a batch-1
+   plain engine at 5e-2; seamless's int8 pools refused;
 7. the moe family: kernels 10, 14 (dense latent cache) and 11, 13
    (latent page pools, int8 with page scales) are held and timed in
    phase 2 at DeepSeek-V3's widths (H 128, r 512, rope 64); on reduced
@@ -1054,6 +1087,7 @@ def check_kernels(torch, F):
     check_mla_kernels(torch, F, gen, compare, record)
     check_mla_decode_variants(torch, F, compare, record)
     check_paged_q8_variants(torch, F, compare, record)
+    check_frontend_shapes(torch, F, compare, record)
     check_conv_kernels(torch, F, gen, compare, record)
     return results
 
@@ -2847,6 +2881,203 @@ def check_paged_q8_variants(torch, F, compare, record):
 
 
 # ----------------------------------------------------------------------
+# phase 2: the frontend families' shapes (internvl2-2b, seamless-m4t)
+# ----------------------------------------------------------------------
+
+# the identity-paged cross pool: 8 slots of 64 entries of 16 (the
+# Scheduler's enc_len 1024), ragged encoder lengths, slot 3 inactive
+CROSS_LENS = (961, 160, 500, 0, 1024, 333, 17, 640)
+# internvl2's self pools: 8 slots, 34 entries of 16 (max_len 544), the
+# 256 frontend positions ahead of each prompt, slot 5 inactive
+VLM_LENS = (544, 300, 417, 288, 512, 0, 399, 256)
+
+
+def check_frontend_shapes(torch, F, compare, record):
+    """The new shapes of the frontend families on kernels 1, 3, 4, 5 and
+    7, each on the variant its rule names, held against the plain
+    version (the decode kernels also against their emulation, bitwise
+    over two launches) and timed beside the bound and the library call:
+    kernel 1's relu up projection and its down projection + residual at
+    seamless's widths (M 512), kernel 3 at internvl2's widths (B1 S384
+    H16 KV8 D128; S 293 = 256 + 37 held too), kernel 4 over internvl2's
+    dense cache (B4 T416 KV8 G2 D128) and seamless's cross cache (B4
+    T512 KV16 G1 D64, and ragged T 500 and 961), kernel 5 over the
+    identity-paged cross pool (``CROSS_LENS``) and internvl2's pools,
+    kernel 7 at internvl2's pool shape.  A generator of its own (seed
+    27), so the other cases keep their inputs."""
+    from repro_torch.dist.decode import _page_counts
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_attention as KA
+    from repro_torch.kernels import vwr_decode as KD
+    from repro_torch.kernels import vwr_matmul as KM
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("the frontend families' shapes")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(bf16)
+
+    for label, M, K, N, act, res in (
+            ("seamless relu up", 512, 1024, 8192, "relu", False),
+            ("seamless down+res", 512, 8192, 1024, None, True)):
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        r = randn(M, N) if res else None
+        shape = f"{M}x{K}x{N}" + ("+res" if res else f"+{act}")
+        before = dict(build.VARIANTS)
+        got = KM.vwr_matmul(x, w, None, r, activation=act)
+        torch.cuda.synchronize()
+        _served("vwr_matmul", shape, before, build, "wgmma")
+        err = compare("vwr_matmul wgmma", shape, bf16, got,
+                      KM.vwr_matmul_ref(x, w, None, r, activation=act))
+        _bitwise("vwr_matmul", shape, (got,),
+                 (KM.vwr_matmul(x, w, None, r, activation=act),))
+        if act:
+            # relu(0 + x @ w) in one call: cuBLASLt's RELU epilogue,
+            # held against the plain version like the kernel
+            zero = torch.zeros(N, dtype=bf16, device="cuda")
+            library = lambda: torch._addmm_activation(zero, x, w)
+            compare("_addmm_activation", shape, bf16, library(),
+                    KM.vwr_matmul_ref(x, w, None, r, activation=act))
+        else:
+            library = lambda: torch.addmm(r, x, w)
+        record("vwr_matmul", label, shape, bf16, err,
+               lambda: KM.vwr_matmul(x, w, None, r, activation=act),
+               lambda: KM.vwr_matmul_ref(x, w, None, r, activation=act),
+               library, 2 * M * K * N,
+               2 * (M * K + K * N + M * N * (2 if res else 1)))
+        row = record.rows[-1]
+        row["variant"] = "wgmma"
+        if act:
+            row["matmul_alone_ms"] = time_ms(torch, lambda: x @ w)
+            print(f"      x @ w alone (cuBLAS, no relu): "
+                  f"{row['matmul_alone_ms']:.4f} ms")
+
+    for label, B, S, H, KV, D, timed in (
+            ("internvl2 prefill 256+128", 1, 384, 16, 8, 128, True),
+            ("internvl2 prefill 256+37", 1, 293, 16, 8, 128, False),
+            ("seamless decoder self", 4, 16, 16, 16, 64, False)):
+        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+        shape = f"B{B} S{S} H{H} KV{KV} D{D}"
+        got = KA.vwr_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = compare("vwr_attention", shape, bf16, got,
+                      KA.vwr_attention_ref(q, k, v))
+        _bitwise("vwr_attention", shape, (got,), (KA.vwr_attention(q, k, v),))
+        if timed:
+            G = H // KV
+            qt = q.transpose(1, 2)
+            kt, vt = (t.transpose(1, 2).repeat_interleave(G, 1)
+                      for t in (k, v))
+            record("vwr_attention", label, shape, bf16, err,
+                   lambda: KA.vwr_attention(q, k, v),
+                   lambda: KA.vwr_attention_ref(q, k, v),
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True),
+                   4 * B * H * D * S * (S + 1) // 2,
+                   2 * 2 * B * S * D * (H + KV))
+
+    for label, B, T, KV, G, D, timed in (
+            ("internvl2 decode", 4, 416, 8, 2, 128, True),
+            ("seamless cross", 4, 512, 16, 1, 64, True),
+            ("seamless cross, ragged", 4, 500, 16, 1, 64, False),
+            ("seamless cross, ragged", 4, 961, 16, 1, 64, True)):
+        q = randn(B * KV, G, D)
+        k, v = randn(B, T, KV, D), randn(B, T, KV, D)
+        shape = f"B{B} T{T} KV{KV} G{G} D{D} cur{T}"
+        before = dict(build.VARIANTS)
+        got = KD.vwr_flash_decode(q, k, v, T)
+        torch.cuda.synchronize()
+        _served("vwr_flash_decode", shape, before, build, "split")
+        err = compare("vwr_flash_decode", shape, f32, got,
+                      KD.vwr_flash_decode_ref(q, k, v, T))
+        compare("  vs emulation", shape, f32, got,
+                KD.decode_split_emulation(q, k, v, T))
+        _bitwise("vwr_flash_decode", shape, got,
+                 KD.vwr_flash_decode(q, k, v, T))
+        if timed:
+            qs = q.reshape(B, KV * G, 1, D)
+            ks, vs = (t.transpose(1, 2).repeat_interleave(G, 1)
+                      for t in (k, v))
+            record("vwr_flash_decode", label, shape, bf16, err,
+                   lambda: KD.vwr_flash_decode(q, k, v, T),
+                   lambda: KD.vwr_flash_decode_ref(q, k, v, T),
+                   lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                   4 * B * KV * G * D * T,
+                   2 * (B * KV * G * D + 2 * B * T * KV * D)
+                   + 4 * B * KV * G * (D + 2))
+            record.rows[-1]["plan"] = list(KD.decode_plan(B * KV, T))
+
+    for q8, label, lens, KV, G, D, J, cross in (
+            (False, "seamless identity-paged cross pool", CROSS_LENS, 16, 1,
+             64, 64, True),
+            (False, "internvl2 8 slots", VLM_LENS, 8, 2, 128, 34, False),
+            (True, "internvl2 8 slots", VLM_LENS, 8, 2, 128, 34, False)):
+        kname = "vwr_paged_flash_decode" + ("_q8" if q8 else "")
+        B, ps = len(lens), 16
+        q = randn(B * KV, G, D)
+        if cross:
+            # the slot-dense (B, J * 16, KV, D) cross cache viewed as B * J
+            # pages: the identity table, the counts of the encoder lengths
+            n_pages = B * J
+            table = torch.arange(n_pages, dtype=torch.int32,
+                                 device="cuda").view(B, J)
+            counts = torch.from_numpy(_page_counts(lens, J, ps)).cuda()
+            live = sum(-(-n // ps) for n in lens)
+        else:
+            n_pages = 320
+            table, counts, live = _paged_table(torch, gen, lens, J, ps,
+                                               n_pages)
+        shape = (n_pages, ps, KV, D)
+        if q8:
+            pools = [torch.randint(-127, 128, shape, generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                     for _ in range(2)]
+            scales = [torch.rand((n_pages, KV), generator=gen,
+                                 device="cuda") * 0.02 + 1e-3
+                      for _ in range(2)]
+        else:
+            pools, scales = [randn(*shape) for _ in range(2)], []
+        ops_ = (q, *pools, *scales, table, counts)
+        fn = KD.vwr_paged_flash_decode_q8 if q8 \
+            else KD.vwr_paged_flash_decode
+        ref = KD.vwr_paged_flash_decode_q8_ref if q8 \
+            else KD.vwr_paged_flash_decode_ref
+        shape_s = (f"B{B} KV{KV} G{G} D{D} ps{ps} J{J} pages{n_pages} "
+                   f"keys{sum(lens)}")
+        before = dict(build.VARIANTS)
+        got = fn(*ops_)
+        torch.cuda.synchronize()
+        _served(kname, shape_s, before, build, "mma")
+        err = compare(kname, shape_s, f32, got, ref(*ops_))
+        compare("  vs emulation", shape_s, f32, got,
+                KD.paged_mma_emulation(q, *pools, table, counts,
+                                       scales=tuple(scales) or None))
+        _bitwise(kname, shape_s, got, fn(*ops_))
+        for b, n in enumerate(lens):
+            if n == 0 and got[2][b * KV:(b + 1) * KV].abs().max() != 0:
+                raise AssertionError("a slot with no valid key must give "
+                                     "l=0")
+        n_keys = sum(lens)
+        nbytes = (pools[0].element_size() * 2 * n_keys * KV * D
+                  + (8 * live * KV if q8 else 0) + 2 * q.numel()
+                  + 8 * B * J + 4 * B * KV * G * (D + 2))
+        record(kname, label, shape_s, bf16, err, lambda: fn(*ops_),
+               lambda: ref(*ops_),
+               _paged_sdpa(torch, F, q, pools, scales, table, counts, KV,
+                           G, D),
+               4 * KV * G * D * n_keys, nbytes)
+        row = record.rows[-1]
+        row["variant"] = "mma"
+        row["plan"] = list(KD.paged_plan(B * KV, J, ps))
+        row["fma_ms"] = time_ms(torch, lambda: KD.paged_launch(
+            q, *pools, table, counts, "fma", scales=tuple(scales)))
+        print(f"      plan {row['plan']}; the FMA kernel (forced): "
+              f"{row['fma_ms']:.4f} ms")
+
+
+# ----------------------------------------------------------------------
 # kernels 16 and 17: the paper's CNN layers (phase 2 and phase 9)
 # ----------------------------------------------------------------------
 
@@ -3426,11 +3657,15 @@ def _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
     """Per-step max |logits error| of ``eng`` against ``ref`` on one
     stream, relative to max|ref|; with ``atol``, absolute, and raising
     past ``atol`` times the logits' scale (max|ref|, at least 1).
-    Returns the errors and ``eng``'s dense cache after the stream."""
+    ``prompts``: the prompt tokens, or the prefill batch (with the
+    frontend families' ``frontend_emb``); ``P`` the positions the
+    prefill occupies.  Returns the errors and ``eng``'s dense cache after
+    the stream."""
     out = []
     vocab = eng.cfg.vocab
-    lc, cc = eng.prefill({"tokens": prompts})
-    lr, cr = ref.prefill({"tokens": prompts})
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    lc, cc = eng.prefill(batch)
+    lr, cr = ref.prefill(batch)
     for i in range(gen):
         if check_greedy and not bool(
                 (lc.argmax(-1).to(torch.int32) == tokens[:, i]).all()):
@@ -3464,29 +3699,36 @@ def _reduced(name):
 def serve_reduced_fp32(torch, name):
     """Reduced fp32 config on the card: kernel path against the plain
     path at the Pallas-vs-XLA tolerance, greedy streams identical; kernel
-    4 (where the family decodes through it) on its FMA kernel."""
+    4 (where the family decodes through it) on its FMA kernel.  The
+    frontend families take random embeddings: the vlm's frontend tokens
+    ahead of the prompt, 23 encoder frames for audio."""
     from repro_torch.engine import DecodeEngine, EngineConfig
     from repro_torch.kernels import build
 
     cfg = _reduced(name)
-    ecfg = EngineConfig(batch=2, max_len=40, kernel_impl="cuda")
+    n_front = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    ecfg = EngineConfig(batch=2, max_len=40 + n_front, kernel_impl="cuda")
     eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
     ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
                        params=eng.params, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
     prompts = torch.randint(0, cfg.vocab, (2, 31), generator=g,
                             device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    if cfg.frontend:
+        batch["frontend_emb"] = torch.randn(
+            2, n_front or 23, cfg.frontend_dim, generator=g, device="cuda")
     build.reset_launches()
-    tok_c, _ = eng.generate({"tokens": prompts}, gen=9)
+    tok_c, _ = eng.generate(batch, gen=9)
     torch.cuda.synchronize()
     if build.VARIANTS["vwr_flash_decode.split"]:
         raise AssertionError(f"{name} reduced fp32: kernel 4 must keep its "
                              "FMA kernel on fp32 caches")
-    tok_r, _ = ref.generate({"tokens": prompts}, gen=9)
+    tok_r, _ = ref.generate(batch, gen=9)
     if not bool((tok_c == tok_r).all()):
         raise AssertionError(f"{name} reduced fp32: greedy streams differ")
-    err, _ = _teacher_forced(torch, eng, ref, prompts, tok_c, 31, 9,
-                             atol=E2E_FP32_TOL)
+    err, _ = _teacher_forced(torch, eng, ref, batch, tok_c,
+                             eng.prefill_len(batch), 9, atol=E2E_FP32_TOL)
     print(f"  {cfg.name} fp32: max|d logits| {max(err):.3e} "
           f"(limit {E2E_FP32_TOL:g} x max(1, max|logits|)), greedy tokens "
           "identical")
@@ -3702,15 +3944,27 @@ def serve_scheduler(torch, kv_dtype, params=None):
     return summary, params
 
 
+def _prefill_batch(torch, r):
+    """The batch-1 prefill batch of request ``r``: its tokens and, for
+    the frontend families, its ``frontend_emb``."""
+    batch = {"tokens": torch.from_numpy(r.tokens)[None].cuda()}
+    if r.frontend_emb is not None:
+        batch["frontend_emb"] = torch.from_numpy(r.frontend_emb)[None].cuda()
+    return batch
+
+
 def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
-                  agree_floor=REPLAY_AGREE):
+                  agree_floor=REPLAY_AGREE, min_slots=SLOTS):
     """Teacher-force finished requests through the serving engine's
     slots, all of them live in one decode batch, on the drained stream's
     pools (stale pages and int8 scales included), and hold each
     request's logits at every step against a batch-1 plain engine: dense
     for model-dtype pools, paged int8 for int8 pools, which reads the
-    same quantized pages.  A wrong table or counts row, a write into
-    another slot's page or a stale scale shows here.  Returns the
+    same quantized pages.  As many requests as fit the pool together, one
+    a slot, at least ``min_slots`` of them; an audio request's encoder
+    frames go to its slot's row of the cross cache.  A wrong table or
+    counts row, a write into another slot's page or a stale scale shows
+    here.  Returns the
     per-step relative errors, the steps whose greedy pick equals the
     served token, which must be at least ``agree_floor`` of them, and
     one record a step where it does not: the replay's gap between its
@@ -3724,34 +3978,40 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
     from repro_torch.engine.paged_cache import write_prefill
 
     cfg, vocab = eng.cfg, eng.cfg.vocab
+    slots, ps, n_pages = eng.ecfg.batch, eng.page_size, eng.n_pages
     # the first requests whose pages fit the pool together, one a slot
     picked, need = [], 0
     for r in reqs:
-        n = -(-(len(r.tokens) + GEN - 1) // PAGE)
-        if len(picked) < SLOTS and need + n <= N_PAGES:
+        n = -(-(eng.prefill_positions(len(r.tokens)) + GEN - 1) // ps)
+        if len(picked) < slots and need + n <= n_pages:
             picked.append((r, n))
             need += n
-    if len(picked) < SLOTS:
+    if len(picked) < min_slots:
         raise AssertionError(f"only {len(picked)} requests fit the pool")
-    perm = np.random.default_rng(7).permutation(N_PAGES).astype(np.int32)
-    table = np.zeros((SLOTS, eng.max_pages), np.int32)
-    lens = np.zeros((SLOTS,), np.int32)
-    served = np.zeros((SLOTS, GEN), np.int32)
+    perm = np.random.default_rng(7).permutation(n_pages).astype(np.int32)
+    table = np.zeros((slots, eng.max_pages), np.int32)
+    lens = np.zeros((slots,), np.int32)
+    enc_lens = np.zeros((slots,), np.int32)
+    served = np.zeros((slots, GEN), np.int32)
     got = [[] for _ in picked]
     at = 0
     for b, (r, n) in enumerate(picked):
         table[b, :n] = perm[at:at + n]
         at += n
-        logits, caches = eng.prefill_fn(
-            eng.params, {"tokens": torch.from_numpy(r.tokens)[None].cuda()})
-        write_prefill(cfg, cache, caches, table[b][None])
+        logits, caches = eng.prefill_fn(eng.params, _prefill_batch(torch, r))
+        write_prefill(cfg, cache, caches, table[b][None], enc_slots=[b])
         got[b].append(logits[0, :vocab])
-        lens[b] = len(r.tokens)
+        lens[b] = eng.prefill_positions(len(r.tokens))
+        if cfg.family == "audio":
+            enc_lens[b] = len(r.frontend_emb)
         served[b] = out[r.rid].tokens
     for i in range(GEN - 1):
-        logits, cache = eng.decode_step(served[:, i], lens + i, cache,
-                                        block_table=table)
-        for b in range(SLOTS):
+        step = {"token": served[:, i], "cur_len": np.where(
+            lens > 0, lens + i, 0), "block_table": table, "cache": cache}
+        if cfg.family == "audio":
+            step["enc_lens"] = enc_lens
+        logits, cache = eng.decode_fn(eng.params, step)
+        for b in range(len(picked)):
             got[b].append(logits[b, :vocab])
 
     one = EngineConfig(batch=1, max_len=eng.ecfg.max_len,
@@ -3759,15 +4019,15 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
     if kv_dtype == "int8":
         one = one.replace(paged=True, page_size=PAGE, kv_dtype="int8")
     ref = DecodeEngine(cfg, one, params=eng.params, device="cuda")
-    rel, agree, flips = [], 0, []
+    rel, agree, flips, where = [], 0, [], []
     for b, (r, _) in enumerate(picked):
-        P = len(r.tokens)
-        lr, cr = ref.prefill({"tokens": torch.from_numpy(r.tokens)[None]
-                              .cuda()})
+        P = eng.prefill_positions(len(r.tokens))
+        lr, cr = ref.prefill(_prefill_batch(torch, r))
         for i in range(GEN):
             want, x = lr[0, :vocab], got[b][i]
             err = (x - want).abs().max().item()
             rel.append(err / want.abs().max().item())
+            where.append((r.rid, i))
             tok = int(served[b, i])
             if int(x.argmax()) == tok:
                 agree += 1
@@ -3782,11 +4042,14 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
             if i + 1 < GEN:
                 lr, cr = _decode(ref, served[b, i:i + 1], P + i, cr)
     worst = max(rel)
-    print(f"  {len(picked)} requests replayed in {SLOTS} live slots, "
+    worst_rid, worst_step = where[rel.index(worst)]
+    print(f"  {len(picked)} requests replayed in {slots} live slots, "
           f"teacher-forced: logits vs the plain "
           f"{'dense' if kv_dtype == 'bf16' else 'paged int8'} path max "
           f"|d|/max|ref| {worst:.3e} over {len(rel)} steps (limit "
-          f"{E2E_BF16_REL:g}); greedy == served token at "
+          f"{E2E_BF16_REL:g}), the largest at request "
+          f"{worst_rid} step {worst_step} "
+          f"(step 0: the prefill's logits); greedy == served token at "
           f"{agree}/{len(rel)} steps (floor {agree_floor})")
     for f in flips:
         print(f"    request {f['rid']} step {f['step']}: top-two gap "
@@ -4935,6 +5198,567 @@ def scheduler_reduced_prefix_chunked(torch, name, cfg=None):
 
 
 # ----------------------------------------------------------------------
+# phase 6c: the frontend families (internvl2-2b vlm, seamless-m4t audio)
+# ----------------------------------------------------------------------
+
+VLM, AUDIO = "internvl2-2b", "seamless-m4t-large-v2"
+# generate: batch 4, gen 32; internvl2's 128-token prompts after its 256
+# frontend tokens, seamless's 16-token decoder prompts over 512 frames
+FRONT_BATCH, VLM_PROMPT, AUDIO_PROMPT, AUDIO_FRAMES = 4, 128, 16, 512
+# the Scheduler streams of ``_drive`` (24 requests, gen 32, 8 slots,
+# pages of 16): internvl2's prompts of PROMPT tokens after its frontend,
+# over VLM_PAGES pages, fewer than 8 such requests hold, so growth
+# preempts; seamless's decoder prompts of AUDIO_PROMPTS tokens over
+# AUDIO_FRAME_RANGE frames, under a cross budget of AUDIO_ENC_LEN
+VLM_PAGES = 192
+AUDIO_PROMPTS, AUDIO_FRAME_RANGE, AUDIO_ENC_LEN = (4, 32), (160, 960), 1024
+AUDIO_PAGES = 64
+# the seamless crash + recover: the first AUDIO_RECOVER_REQS requests of
+# the stream, a snapshot every AUDIO_RECOVER_EVERY steps, each ~0.9 GB of
+# pools (0.8 GB of it the cross cache) and ~100-260 MB of host JSON
+# (every live and queued request's frames as lists, the JAX encoding):
+# all 24 requests at a cadence of 12 cut 7 snapshots and took 108.8 s
+# against 8.6 s crash-free on an NVIDIA H100 80GB HBM3 at 700 W.  The
+# crash comes before any result finishes: a snapshot's write is still in
+# flight at the next cadence step, so recovery restores the one before
+AUDIO_RECOVER_EVERY, AUDIO_RECOVER_REQS = 12, 12
+# fsynced journal appends of a vlm request (256 x 1024 floats as JSON)
+VLM_JOURNAL_APPENDS = 10
+# internvl2's floor of replay steps that pick the served token, on bf16
+# and int8 pools (seamless keeps REPLAY_AGREE): on an NVIDIA H100 80GB
+# HBM3 at 700 W its bf16 replay agreed at 182/192 steps, every one of
+# the 10 flips at a top-two gap of 0-2 bf16 steps (0-0.031), below that
+# step's max |d| against the plain path; ``_vlm_prefill_layers`` shows
+# where that |d| comes from
+VLM_REPLAY_AGREE = 0.9
+
+
+def _front_requests(cfg, n, prompt, gen, seed):
+    """``_requests`` with each request's frontend: internvl2's 256 patch
+    embeddings, or seamless's frames (AUDIO_FRAME_RANGE of them), numpy
+    fp32 from the same seed."""
+    import numpy as np
+
+    reqs = _requests(cfg, n, prompt, gen, seed)
+    rng = np.random.default_rng(seed + 100)
+    for r in reqs:
+        m = (cfg.frontend_tokens if cfg.family == "vlm" else int(
+            rng.integers(AUDIO_FRAME_RANGE[0], AUDIO_FRAME_RANGE[1] + 1)))
+        r.frontend_emb = rng.standard_normal(
+            (m, cfg.frontend_dim)).astype(np.float32)
+    return reqs
+
+
+def _front_stream(cfg):
+    """(prompt range, Scheduler options) of a frontend family's stream."""
+    if cfg.family == "vlm":
+        return PROMPT, {}
+    return AUDIO_PROMPTS, {"enc_len": AUDIO_ENC_LEN}
+
+
+def _no_fallback(what, variants):
+    """No launch of kernels 1-5 and 7 on a non-Hopper variant."""
+    bad = {k: n for k, n in variants.items() if n and k in (
+        "vwr_matmul.gemm", "vwr_swiglu.gemm", "vwr_flash_decode.fma",
+        "vwr_paged_flash_decode.fma", "vwr_paged_flash_decode_q8.fma")}
+    if bad:
+        raise AssertionError(f"{what}: launches off the Hopper variants: "
+                             f"{bad}")
+
+
+def serve_frontend_generate(torch, name):
+    """Full-width ``generate`` of a frontend family on the kernels (after
+    a warm-up one), launch counts and variants held (prefill products on
+    wgmma tiles, decode products on split-K, kernel 4 on its split
+    variant: the vlm's over its dense cache, seamless's twice a layer, the
+    self cache and the cross cache of the 512 frames), then the stream
+    teacher-forced through the plain path at 5e-2 of the logits' scale.
+    Returns (summary, the engine's parameters)."""
+    from repro_torch.common.module import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig
+    from repro_torch.kernels import build
+
+    cfg = get_config(name)
+    vlm = cfg.family == "vlm"
+    B, gen, L = FRONT_BATCH, GEN, cfg.n_layers
+    P = VLM_PROMPT if vlm else AUDIO_PROMPT
+    n_front = cfg.frontend_tokens if vlm else AUDIO_FRAMES
+    ecfg = EngineConfig(batch=B, max_len=(n_front if vlm else 0) + P + gen,
+                        kernel_impl="cuda")
+    t0 = time.perf_counter()
+    eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
+    _condition(torch, eng.params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in leaves(eng.params))
+    print(f"{name}: {cfg.n_layers} layers"
+          + (f" (+ {cfg.enc_layers} encoder)" if cfg.enc_layers else "")
+          + f", d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B params "
+          f"({time.perf_counter() - t0:.1f} s to init); batch {B}, "
+          + (f"{n_front} frontend tokens + {P}" if vlm
+             else f"{n_front} frames, decoder prompt {P}") + f", gen {gen}")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, P), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "frontend_emb": torch.randn(B, n_front, cfg.frontend_dim,
+                                         generator=g, device="cuda")}
+    eng.generate(batch, gen=gen)
+    build.reset_launches()
+    tokens, stats = eng.generate(batch, gen=gen)
+    torch.cuda.synchronize()
+    launches, variants = dict(build.LAUNCHES), dict(build.VARIANTS)
+    steps = gen - 1
+    if vlm:
+        want = {"vwr_matmul": 5 * L + L * steps, "vwr_swiglu": L * gen,
+                "vwr_attention": L, "vwr_flash_decode": L * steps,
+                "vwr_matmul.wgmma": 5 * L, "vwr_matmul.splitk": L * steps,
+                "vwr_swiglu.wgmma": L * gen,
+                "vwr_flash_decode.split": L * steps}
+    else:
+        E = cfg.enc_layers
+        want = {"vwr_matmul": 6 * E + 7 * L + 2 * L * steps,
+                "vwr_swiglu": 0, "vwr_attention": L,
+                "vwr_flash_decode": 2 * L * steps,
+                "vwr_matmul.wgmma": 6 * E + 7 * L,
+                "vwr_matmul.splitk": 2 * L * steps,
+                "vwr_flash_decode.split": 2 * L * steps}
+    print(f"  launches in generate: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    for k, n in want.items():
+        got = launches[k] if k in launches else variants[k]
+        if got != n:
+            raise AssertionError(f"{name}: {k} launched {got} times, "
+                                 f"expected {n}")
+    _no_fallback(name, variants)
+    if tokens.shape != (B, gen) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{name}: bad tokens {tokens.shape}")
+    print(f"  prefill_tok_s {stats['prefill_tok_s']:.1f}  decode_tok_s "
+          f"{stats['decode_tok_s']:.1f}  (t_prefill {stats['t_prefill_s']:.4f}"
+          f" s, t_decode {stats['t_decode_s']:.4f} s)")
+    ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                       params=eng.params, device="cuda")
+    rel, _ = _teacher_forced(torch, eng, ref, batch, tokens,
+                             eng.prefill_len(batch), gen, check_greedy=True)
+    print(f"  teacher-forced logits vs plain path: max |d|/max|ref| "
+          f"{max(rel):.3e} over {len(rel)} steps (limit {E2E_BF16_REL:g}),"
+          f" the largest at step {rel.index(max(rel))} (step 0: the "
+          "prefill's logits)")
+    if not max(rel) <= E2E_BF16_REL:
+        raise AssertionError(f"{name}: logits diverge from the plain path")
+    layers = _vlm_prefill_layers(torch, eng, ref, batch) if vlm else None
+    params = eng.params
+    del eng, ref
+    torch.cuda.empty_cache()
+    return {"arch": name, "batch": B, "prompt": P, "frontend": n_front,
+            "gen": gen, "n_params": n_params,
+            "launches": {k: n for k, n in launches.items() if n},
+            "variants": {k: n for k, n in variants.items() if n},
+            "logits_rel_err": rel, "prefill_layers": layers, **stats}, params
+
+
+def _rel(a, b):
+    """max |a - b| / max |b|, in fp32."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def _vlm_prefill_layers(torch, eng, ref, batch):
+    """Where internvl2's logits gap against the plain path comes from:
+    the prefill of ``batch`` layer by layer on the kernel path, the plain
+    bf16 path and the plain path in fp32 over the same weights widened,
+    each layer's output hidden states (B, 256 + P, d) held as ``_rel``
+    between the paths, and the prefill's logits (``lm.prefill``)
+    likewise.  A kernel fault shows as a step at one layer in the kernel
+    path's distance to fp32 that the plain bf16 path does not share;
+    bf16 rounding as both bf16 paths drifting from fp32 alike.  Raises
+    if the kernel path ends farther from fp32 than twice the plain bf16
+    path."""
+    from repro_torch.common.module import map_tree
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg32 = ref.cfg.replace(dtype="float32")
+    p32 = map_tree(lambda t: t.float(), eng.params)
+
+    def hidden(cfg, params):
+        x = L.embed(params["embed"], batch["tokens"]).to(L.dt(cfg))
+        pre = L.frontend_proj(params["frontend"], batch["frontend_emb"])
+        x = torch.cat([pre.to(x.dtype), x], dim=1)
+        pos = torch.arange(x.shape[1], device=x.device)
+        hs = []
+
+        def layer(x, lp, key, i, moe):
+            x, kv = lm._dense_body(cfg, pos, x, lp)
+            hs.append(x.float())
+            return x, kv
+
+        lm._run_groups(cfg, params, x, layer, False)
+        logits = lm.prefill(params, batch, cfg)[0][:, :cfg.vocab]
+        return hs, logits
+
+    (hk, lk), (hp, lp), (h32, l32) = (
+        hidden(eng.cfg, eng.params), hidden(ref.cfg, eng.params),
+        hidden(cfg32, p32))
+    out = {"kernel_vs_plain": [_rel(a, b) for a, b in zip(hk, hp)],
+           "kernel_vs_fp32": [_rel(a, b) for a, b in zip(hk, h32)],
+           "plain_vs_fp32": [_rel(a, b) for a, b in zip(hp, h32)],
+           "logits": {"kernel_vs_plain": _rel(lk, lp),
+                      "kernel_vs_fp32": _rel(lk, l32),
+                      "plain_vs_fp32": _rel(lp, l32)}}
+    del p32, hk, hp, h32
+    torch.cuda.empty_cache()
+    n = len(out["kernel_vs_plain"])
+    picks = sorted({0, n // 4, n // 2, 3 * n // 4, n - 1})
+    print("  prefill layer by layer (hidden states, max |d|/max|ref|; "
+          f"layers {', '.join(str(i + 1) for i in picks)}): " + "; ".join(
+              f"{k.replace('_', ' ')} " + ", ".join(
+                  f"{out[k][i]:.3e}" for i in picks)
+              for k in ("kernel_vs_plain", "kernel_vs_fp32",
+                        "plain_vs_fp32")))
+    steps = [b - a for a, b in zip([0.0] + out["kernel_vs_fp32"],
+                                   out["kernel_vs_fp32"])]
+    print(f"    kernel vs fp32: largest rise {max(steps):.3e} at layer "
+          f"{steps.index(max(steps)) + 1}; prefill logits: kernel vs plain "
+          f"{out['logits']['kernel_vs_plain']:.3e}, kernel vs fp32 "
+          f"{out['logits']['kernel_vs_fp32']:.3e}, plain vs fp32 "
+          f"{out['logits']['plain_vs_fp32']:.3e}")
+    if not (out["logits"]["kernel_vs_fp32"]
+            <= 2 * out["logits"]["plain_vs_fp32"]):
+        raise AssertionError("internvl2 prefill: the kernel path ends "
+                             "farther from fp32 than twice the plain path")
+    return out
+
+
+def _front_engine(torch, cfg, params, kv_dtype):
+    from repro_torch.engine import DecodeEngine, EngineConfig
+
+    vlm = cfg.family == "vlm"
+    prompt, _ = _front_stream(cfg)
+    ecfg = EngineConfig(
+        batch=SLOTS, max_len=(cfg.frontend_tokens if vlm else 0)
+        + prompt[1] + GEN, paged=True, page_size=PAGE,
+        n_pages=VLM_PAGES if vlm else AUDIO_PAGES, kv_dtype=kv_dtype,
+        kernel_impl="cuda")
+    return DecodeEngine(cfg, ecfg, params=params, device="cuda")
+
+
+def serve_frontend_scheduler(torch, name, params, kv_dtype):
+    """A frontend family's Scheduler stream at full width on the kernels
+    (``_front_requests``; seamless under ``enc_len`` AUDIO_ENC_LEN):
+    every request FINISHED, every page free, launches held (kernel 5 or
+    7 a layer a step for the vlm's pools, kernel 5 twice for seamless:
+    its self pools and the identity-paged cross cache, all on mma;
+    ``vwr_attention`` a layer a prefill; no product off its Hopper
+    variants), then finished requests replayed teacher-forced in the
+    live slots against a batch-1 plain engine at 5e-2
+    (``_replay_slots``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import RequestStatus, Scheduler
+    from repro_torch.kernels import build
+
+    cfg = get_config(name)
+    vlm = cfg.family == "vlm"
+    eng = _front_engine(torch, cfg, params, kv_dtype)
+    prompt, kw = _front_stream(cfg)
+    print(f"Scheduler, {name}, {kv_dtype} pools: {SLOTS} slots, "
+          f"{eng.n_pages} pages of {PAGE}, {N_REQ} requests, prompts "
+          f"{prompt[0]}-{prompt[1]}"
+          + (f" after {cfg.frontend_tokens} frontend tokens" if vlm else
+             f", {AUDIO_FRAME_RANGE[0]}-{AUDIO_FRAME_RANGE[1]} frames "
+             f"(enc_len {AUDIO_ENC_LEN})") + f", gen {GEN}")
+    _drive(Scheduler(eng, **kw), _front_requests(cfg, 4, prompt, 4, seed=5))
+    reqs = _front_requests(cfg, N_REQ, prompt, GEN, seed=4)
+    sched = Scheduler(eng, **kw)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = _drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = dict(build.LAUNCHES), dict(build.VARIANTS)
+    st, L = sched.stats, cfg.n_layers
+    paged = "vwr_paged_flash_decode" + ("_q8" if kv_dtype == "int8" else "")
+    other = ("vwr_paged_flash_decode" if kv_dtype == "int8"
+             else "vwr_paged_flash_decode_q8")
+    per_step = L if vlm else 2 * L
+    want = {paged: per_step * st["steps"], other: 0, "vwr_flash_decode": 0,
+            "vwr_attention": L * st["prefills"],
+            f"{paged}.mma": per_step * st["steps"]}
+    if vlm:
+        want.update(vwr_swiglu=L * (st["prefills"] + st["steps"]),
+                    vwr_matmul=L * (5 * st["prefills"] + st["steps"]))
+    else:
+        want.update(vwr_swiglu=0, vwr_matmul=(
+            (6 * cfg.enc_layers + 7 * L) * st["prefills"]
+            + 2 * L * st["steps"]))
+    print(f"  launches: {({k: n for k, n in launches.items() if n})}")
+    for k, n in want.items():
+        got = launches[k] if k in launches else variants[k]
+        if got != n:
+            raise AssertionError(f"scheduler {name} {kv_dtype}: {k} "
+                                 f"launched {got} times, expected {n}")
+    _no_fallback(f"scheduler {name} {kv_dtype}", variants)
+    bad = {rid: r.status for rid, r in out.items()
+           if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+    if len(out) != N_REQ or bad:
+        raise AssertionError(f"scheduler {name} {kv_dtype}: unfinished "
+                             f"{bad}")
+    sched.allocator.check()
+    if sched.allocator.free_pages != eng.n_pages or sched.enc_lens.any():
+        raise AssertionError("pages or encoder rows left after the drain")
+    if vlm and st["preempted"] < 1:
+        raise AssertionError(f"{VLM_PAGES} pages: growth never preempted")
+    n_tok = sum(len(r) for r in out.values())
+    lat, itl = sched.latency_percentiles(), sched.itl_percentiles()
+    summary = {
+        "kv_dtype": kv_dtype, "n_pages": eng.n_pages, "steps": st["steps"],
+        "prefills": st["prefills"], "preempted": st["preempted"],
+        "parked": st["parked"], "peak_pages": st["peak_pages"],
+        "table_widths": {str(k): v for k, v in
+                         sorted(st["table_widths"].items())},
+        "generated_tokens": n_tok, "wall_s": wall,
+        "gen_tok_s": n_tok / wall,
+        "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
+        "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
+        "launches": {k: n for k, n in launches.items() if n},
+        "variants": {k: n for k, n in variants.items() if n}}
+    print(f"  steps {st['steps']}, prefills {st['prefills']}, preempted "
+          f"{st['preempted']}, peak pages {st['peak_pages']}/{eng.n_pages},"
+          f" table widths {summary['table_widths']}")
+    print(f"  {n_tok} tokens in {wall:.4f} s: {summary['gen_tok_s']:.1f} "
+          f"generated tok/s; request latency p50 {lat['p50']:.4f} s p99 "
+          f"{lat['p99']:.4f} s; ITL p50 {itl['p50'] * 1e3:.3f} ms p99 "
+          f"{itl['p99'] * 1e3:.3f} ms")
+    rel, agree, flips = _replay_slots(
+        torch, eng, sched.cache, reqs, out, kv_dtype,
+        VLM_REPLAY_AGREE if vlm else REPLAY_AGREE, min_slots=4)
+    summary.update(logits_rel_err=rel, replay_agree=agree,
+                   replay_flips=flips)
+    del eng, sched
+    torch.cuda.empty_cache()
+    return summary
+
+
+def audio_recovery(torch, params):
+    """Phase 6b on seamless-m4t: the first AUDIO_RECOVER_REQS requests of
+    its Scheduler stream (all submitted at once, ``enc_len``
+    AUDIO_ENC_LEN) crash-free, then through ``serve_with_recovery`` with
+    a snapshot every AUDIO_RECOVER_EVERY steps (into a temporary
+    directory outside the repo, removed afterwards) and a CrashFault on
+    the fresh run at a step after two snapshots with no result finished
+    since the one before the last (the last one's write may still be in
+    flight, and then recovery restores the one before): the restored
+    slots carry their encoder rows and lengths, every stream equals the
+    crash-free run's, and kernel 5 launches twice a layer a step over
+    both processes, all on mma."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import RequestStatus, Scheduler, faults
+    from repro_torch.kernels import build
+    from repro_torch.runtime.resilience import (RestartPolicy,
+                                                serve_with_recovery)
+
+    cfg = get_config(AUDIO)
+    eng = _front_engine(torch, cfg, params, "bf16")
+    prompt, kw = _front_stream(cfg)
+
+    n_req = AUDIO_RECOVER_REQS
+
+    def make_reqs():
+        return _front_requests(cfg, N_REQ, prompt, GEN, seed=4)[:n_req]
+
+    def check(what, sched, out):
+        bad = {rid: r.status for rid, r in out.items()
+               if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+        if len(out) != n_req or bad:
+            raise AssertionError(f"{AUDIO} recovery, {what}: unfinished "
+                                 f"{bad}")
+        sched.allocator.check()
+        if sched.allocator.free_pages != eng.n_pages:
+            raise AssertionError(f"{AUDIO} recovery, {what}: pages left")
+
+    watch = _Watch()
+    ref = Scheduler(eng, snapshotter=watch, **kw)
+    for r in make_reqs():
+        ref.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.run()
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    check("crash-free", ref, want)
+    every = AUDIO_RECOVER_EVERY
+
+    def before_last(k):
+        return every * (k // every - 1)
+    steps = [k for k in watch.finished if k > 2 * every and k % every
+             and watch.finished[k] == watch.finished[before_last(k)]]
+    if not steps:
+        raise AssertionError(f"{AUDIO}: no crash step after two snapshots "
+                             "without a result since the one before")
+    crash = min(steps)
+    d = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    info = {}
+
+    def on_start(sched, fresh):
+        if fresh:
+            faults.inject(sched, decode_faults=[
+                faults.CrashFault(step=crash)])
+        else:
+            step = info["restored_step"] = sched.stats["steps"]
+            info["enc_rows"] = int((sched.enc_lens > 0).sum())
+            info["host_mb"] = os.path.getsize(os.path.join(
+                d, f"step_{step}", "host.s0.npy")) / 1e6
+
+    def submit(sched):
+        for r in make_reqs():
+            sched.submit(r)
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        sched = serve_with_recovery(
+            eng, d, submit, snapshot_every=every,
+            policy=RestartPolicy(max_restarts=1, backoff_s=0.0),
+            on_start=on_start, sched_kwargs=kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, variants = dict(build.LAUNCHES), dict(build.VARIANTS)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = sched.finished
+    check(f"crash at step {crash}", sched, got)
+    if not info.get("restored_step") or not info["enc_rows"]:
+        raise AssertionError(f"{AUDIO}: no snapshot with live encoder rows "
+                             "restored")
+    steps_run = crash + sched.stats["steps"] - info["restored_step"]
+    k5 = "vwr_paged_flash_decode"
+    L = cfg.n_layers
+    if (launches[k5] != 2 * L * steps_run
+            or variants[f"{k5}.mma"] != launches[k5]):
+        raise AssertionError(f"{AUDIO} recovery: kernel 5 launched "
+                             f"{launches[k5]} times, expected 2 x {L} x "
+                             f"{steps_run}, all on mma")
+    parted = [rid for rid in sorted(want)
+              if not np.array_equal(got[rid], want[rid])]
+    print(f"  {AUDIO}, bf16 pools, {n_req} requests: crash-free "
+          f"{ref.stats['steps']} steps, "
+          f"{wall_ref:.4f} s; crash at step {crash} (a snapshot every "
+          f"{every} steps), restored from step {info['restored_step']} "
+          f"with {info['enc_rows']} slots holding encoder rows (its host "
+          f"JSON {info['host_mb']:.1f} MB); "
+          f"{steps_run} steps over both processes, kernel 5 launched "
+          f"{launches[k5]} times, all on mma; wall {wall:.4f} s; "
+          f"{n_req - len(parted)}/{n_req} streams equal to the crash-free "
+          "run")
+    if parted:
+        raise AssertionError(f"{AUDIO} recovery: streams {parted} differ "
+                             "from the crash-free run")
+    summary = {"requests": n_req, "crash_step": crash,
+               "snapshot_every": every,
+               "restored_step": info["restored_step"],
+               "enc_rows_restored": info["enc_rows"],
+               "restored_host_json_mb": info["host_mb"],
+               "steps_crash_free": ref.stats["steps"],
+               "steps_run": steps_run, "wall_crash_free_s": wall_ref,
+               "wall_recovered_s": wall,
+               "snapshots": sched.snapshotter.saved,
+               "streams_parted": len(parted)}
+    del eng, ref, sched
+    torch.cuda.empty_cache()
+    return summary
+
+
+def vlm_journal_append(torch):
+    """VLM_JOURNAL_APPENDS fsynced journal appends of an internvl2 submit
+    (256 x 1024 frontend floats as JSON, the JAX encoding) into a
+    temporary directory outside the repo (removed afterwards), timed;
+    the journal replays the request with its embeddings intact."""
+    import os
+    import shutil
+    import statistics as stats_
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import RequestJournal, read_events
+    from repro_torch.engine.journal import request_from_event
+
+    cfg = get_config(VLM)
+    req = _front_requests(cfg, 1, PROMPT, GEN, seed=9)[0]
+    d = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    try:
+        path = os.path.join(d, "journal.jsonl")
+        journal = RequestJournal(path)
+        times = []
+        for i in range(VLM_JOURNAL_APPENDS):
+            req.rid = i
+            t0 = time.perf_counter()
+            journal.submit(req)
+            times.append(1e3 * (time.perf_counter() - t0))
+        journal.close()
+        line = os.path.getsize(path) / VLM_JOURNAL_APPENDS
+        back = request_from_event(read_events(path)[-1])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not np.array_equal(back.frontend_emb, req.frontend_emb):
+        raise AssertionError("the journal lost a vlm request's frontend")
+    out = {"appends": VLM_JOURNAL_APPENDS, "bytes_a_line": line,
+           "mean_ms": stats_.fmean(times), "p50_ms": stats_.median(times),
+           "max_ms": max(times)}
+    print(f"  {VLM} journal append (a submit with {cfg.frontend_tokens} x "
+          f"{cfg.frontend_dim} frontend floats, {line / 1e6:.2f} MB a line, "
+          f"fsynced): mean {out['mean_ms']:.3f} ms, p50 {out['p50_ms']:.3f}"
+          f" ms, max {out['max_ms']:.3f} ms over {VLM_JOURNAL_APPENDS}")
+    return out
+
+
+def serve_frontends(torch):
+    """Phase 6c: internvl2-2b and seamless-m4t-large-v2 at full width,
+    random conditioned weights: ``generate``, the Scheduler streams
+    (internvl2 on bf16 and int8 pools, seamless on bf16 pools; its int8
+    pools refused), the seamless crash + recover of phase 6b and the vlm
+    journal append, beside the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    out = {"card": card}
+    gen_vlm, params = serve_frontend_generate(torch, VLM)
+    out[VLM] = {"generate": gen_vlm, "scheduler": [
+        serve_frontend_scheduler(torch, VLM, params, kv)
+        for kv in ("bf16", "int8")]}
+    del params
+    torch.cuda.empty_cache()
+    out[VLM]["journal_append"] = vlm_journal_append(torch)
+    gen_audio, params = serve_frontend_generate(torch, AUDIO)
+    out[AUDIO] = {"generate": gen_audio, "scheduler": [
+        serve_frontend_scheduler(torch, AUDIO, params, "bf16")]}
+    try:
+        DecodeEngine(get_config(AUDIO), EngineConfig(
+            batch=SLOTS, max_len=64, paged=True, kv_dtype="int8"),
+            params=params, device="cuda")
+    except ValueError as e:
+        out[AUDIO]["int8_refused"] = str(e)
+        print(f"  {AUDIO}, int8 pools: refused ({e})")
+    else:
+        raise AssertionError(f"{AUDIO}: int8 pools must be refused")
+    out[AUDIO]["recovery"] = audio_recovery(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
 # phase 7: DeepSeek-V3, the moe family with MLA
 # ----------------------------------------------------------------------
 
@@ -5688,6 +6512,10 @@ def main() -> int:
     del pc_engines, params
     torch.cuda.empty_cache()
 
+    print("the frontend families: internvl2-2b (vlm), seamless-m4t (audio)")
+    front_fp32 = {n: serve_reduced_fp32(torch, n) for n in (VLM, AUDIO)}
+    front = serve_frontends(torch)
+
     print("the moe family: DeepSeek-V3 (MLA) and OLMoE (GQA)")
     moe_fp32 = {n: serve_reduced_fp32(torch, n)
                 for n in (DEEPSEEK, "olmoe-1b-7b")}
@@ -5783,7 +6611,10 @@ def main() -> int:
               "chunk_rows": rows, "chunked_prefill_logits": chunk_logits,
               "prefix_chunked": pc_streams,
               "recovery": {"tinyllama-1.1b": recovery,
-                           DEEPSEEK: deepseek["recovery"]},
+                           DEEPSEEK: deepseek["recovery"],
+                           AUDIO: front[AUDIO]["recovery"]},
+              "frontend_reduced_fp32_max_abs": front_fp32,
+              "frontends": front,
               "moe_reduced_fp32_max_abs": moe_fp32,
               "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,

@@ -1,27 +1,36 @@
 """Decode-cache construction: place prefill KV material into the
-fixed-size decode buffers (counterpart of ``repro.engine.cache``, dense
-and moe families)."""
+fixed-size decode buffers (counterpart of ``repro.engine.cache``, for
+the KV-cache families)."""
 from __future__ import annotations
 
 from repro_torch.models import lm
 
 
 def _put(group, stacks):
-    """Each (L, B, S, ...) prefill stack at offset 0 of its (L, B,
-    max_len, ...) buffer in ``group`` ({"k", "v"} or {"ckv", "krope"},
-    keys in that order)."""
+    """Each (L, B, S, ...) prefill stack at offset 0 of its (L, B, T,
+    ...) buffer in ``group`` ({"k", "v"}, {"ckv", "krope"} or the audio
+    family's {"self_k", "self_v", "cross_k", "cross_v"}, keys in that
+    order)."""
     for buf, kv in zip(group.values(), stacks):
+        if kv.shape[2] > buf.shape[2]:
+            raise ValueError(f"prefill length {kv.shape[2]} exceeds the "
+                             f"cache's {buf.shape[2]} positions")
         buf[:, :, :kv.shape[2]] = kv
 
 
-def pad_cache_from_prefill(cfg, caches, batch, max_len):
+def pad_cache_from_prefill(cfg, caches, batch, max_len, enc_len=0):
     """Place ``lm.prefill``'s cache stacks at offset 0 of a zeroed
     fixed-size decode cache: (k, v) or (c_kv, k_rope) stacks, or for the
-    moe family the pair (dense layers' stacks or None, MoE layers')."""
+    moe family the pair (dense layers' stacks or None, MoE layers'), or
+    for the audio family the pair (self (k, v), cross (xk, xv)), whose
+    cross cache holds ``enc_len`` positions (``max_len`` when 0)."""
+    if cfg.family == "audio":
+        (k, v), (xk, xv) = caches
+        cache = lm.init_cache(cfg, batch, max_len, enc_len=enc_len,
+                              device=k.device)
+        _put(cache, (k, v, xk, xv))
+        return cache
     groups = caches if cfg.family == "moe" else (None, caches)
-    S = groups[1][0].shape[2]
-    if S > max_len:
-        raise ValueError(f"prefill length {S} exceeds max_len {max_len}")
     cache = lm.init_cache(cfg, batch, max_len, device=groups[1][0].device)
     if cfg.family == "moe":
         if groups[0] is not None:

@@ -1,13 +1,13 @@
 """DecodeEngine: the serving surface on one device.
 
-Counterpart of ``repro.engine.engine`` for the dense and moe families,
-with the dense ``(batch, max_len)`` decode cache or, with
-``EngineConfig(paged=True)``, a paged one (``engine.paged_cache``:
-shared page pools in the model dtype or, with ``kv_dtype='int8'``, int8
-with per-page scales, addressed through per-slot block tables), which
-``engine.scheduler`` runs continuous batching on.  One object owns the
-config, the parameters on the device, and the prefill/decode step
-functions::
+Counterpart of ``repro.engine.engine`` for the KV-cache families
+(dense, moe, vlm and audio), with the dense ``(batch, max_len)`` decode
+cache or, with ``EngineConfig(paged=True)``, a paged one
+(``engine.paged_cache``: shared page pools in the model dtype or, with
+``kv_dtype='int8'``, int8 with per-page scales, addressed through
+per-slot block tables), which ``engine.scheduler`` runs continuous
+batching on.  One object owns the config, the parameters on the device,
+and the prefill/decode step functions::
 
     from repro_torch.configs import get_config
     from repro_torch.engine import DecodeEngine, EngineConfig
@@ -30,10 +30,19 @@ and ``mixed_fn`` (one chunked-prefill chunk plus the decode batch in one
 step), which the Scheduler's ``prefix_cache`` and ``chunked_prefill``
 modes use.
 
+The frontend families take their precomputed embeddings in the batch:
+internvl2's 256 patch embeddings open each prompt, seamless-m4t's frames
+are the encoder's input, and the cross cache is sized by them::
+
+    eng = DecodeEngine(get_config("seamless-m4t-large-v2"),
+                       EngineConfig(batch=4, max_len=48))
+    tokens, stats = eng.generate({"tokens": prompts,
+                                  "frontend_emb": frames}, gen=32)
+
 The engine runs on ``device="cuda"`` by default and raises if there is
 no GPU; pass ``device="cpu"`` to run the plain versions on the CPU.
-Sequence sharding, meshes other than (1, 1) and the audio pools are not
-ported yet and raise ``NotImplementedError``.
+Sequence sharding and meshes other than (1, 1) are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -158,6 +167,10 @@ class DecodeEngine:
         self.ecfg = ecfg
         if ecfg.paged:
             paged_cache.check_family(cfg)
+            if ecfg.kv_dtype == "int8" and cfg.family == "audio":
+                raise ValueError(
+                    "kv_dtype='int8' is unsupported for the audio "
+                    "family (slot-dense cross cache stays model-dtype)")
             self.page_size = ecfg.page_size
             self.max_pages = paged_cache.max_pages(ecfg.max_len,
                                                    ecfg.page_size)
@@ -176,6 +189,7 @@ class DecodeEngine:
         self.suffix_prefill_fn = (steps.build_suffix_prefill(cfg)
                                   if suffix else None)
         self.mixed_fn = steps.build_mixed_step(cfg) if suffix else None
+        self._enc_len = 0       # audio: encoder positions at prefill
 
     # ------------------------------------------------------------------
     # steps
@@ -187,31 +201,45 @@ class DecodeEngine:
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any]):
-        """Prefill ``batch['tokens']`` (B, P) and build the fixed-size
-        decode cache.  Returns (last-token logits (B, vocab_padded)
-        fp32, cache)."""
+        """Prefill ``batch['tokens']`` (B, P) [+ ``frontend_emb`` (B, S_f,
+        frontend_dim)] and build the fixed-size decode cache; an audio
+        engine sizes the cross cache by the encoder's S_f, which need not
+        equal the decoder prompt's P.  Returns (last-token logits (B,
+        vocab_padded) fp32, cache)."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        B = tokens.shape[0]
+        B, P = tokens.shape
         if B != self.ecfg.batch:
             raise ValueError(f"batch {B} != engine batch {self.ecfg.batch}")
-        logits, caches = self.prefill_fn(self.params, {"tokens": tokens})
+        pbatch = {"tokens": tokens}
+        if batch.get("frontend_emb") is not None:
+            pbatch["frontend_emb"] = torch.as_tensor(batch["frontend_emb"],
+                                                     device=self.device)
+        enc_len = (pbatch["frontend_emb"].shape[1]
+                   if self.cfg.is_encdec and "frontend_emb" in pbatch
+                   else P)
+        self._enc_len = enc_len
+        logits, caches = self.prefill_fn(self.params, pbatch)
         if self.ecfg.paged:
-            cache = self.init_paged_cache()
+            cache = self.init_paged_cache(enc_len=enc_len)
             paged_cache.write_prefill(self.cfg, cache, caches,
                                       self.default_block_table())
         else:
             cache = pad_cache_from_prefill(self.cfg, caches, B,
-                                           self.ecfg.max_len)
+                                           self.ecfg.max_len,
+                                           enc_len=enc_len)
         return logits, cache
 
-    def init_paged_cache(self):
+    def init_paged_cache(self, enc_len: Optional[int] = None):
         """Zeroed page pools on the device: the starting cache of
         continuous batching (``engine.scheduler`` fills it per admitted
-        request)."""
+        request).  ``enc_len`` budgets the audio cross cache (default:
+        the engine's max_len), padded up to whole pages."""
         if not self.ecfg.paged:
             raise ValueError("init_paged_cache() needs paged=True")
         return paged_cache.init_paged_cache(
-            self.cfg, self.n_pages, self.page_size,
+            self.cfg, self.n_pages, self.page_size, self.ecfg.batch,
+            enc_len=(enc_len if enc_len is not None
+                     else self.ecfg.max_len),
             kv_dtype=self.ecfg.kv_dtype, device=self.device)
 
     def default_block_table(self) -> np.ndarray:
@@ -240,7 +268,8 @@ class DecodeEngine:
         Paged: ``cur_len`` is an int or a per-slot (B,) host array and
         ``block_table`` a (B, W) host int32 table, W <= max_pages
         covering every slot's live pages (the scheduler passes the
-        power-of-two bucket of the longest active slot)."""
+        power-of-two bucket of the longest active slot).  An audio
+        engine's slots all hold the last prefill's encoder positions."""
         if self.ecfg.paged:
             if block_table is None:
                 raise ValueError(
@@ -249,15 +278,26 @@ class DecodeEngine:
                     "generation)")
             lens = np.broadcast_to(np.asarray(cur_len, np.int32),
                                    (self.ecfg.batch,))
-            return self.decode_fn(self.params, {
-                "token": token, "cur_len": lens,
-                "block_table": block_table, "cache": cache})
+            dbatch = {"token": token, "cur_len": lens,
+                      "block_table": block_table, "cache": cache}
+            if self.cfg.family == "audio":
+                dbatch["enc_lens"] = np.full((self.ecfg.batch,),
+                                             self._enc_len, np.int32)
+            return self.decode_fn(self.params, dbatch)
         return self.decode_fn(self.params, {
             "token": torch.as_tensor(token, device=self.device),
             "cur_len": int(cur_len), "cache": cache})
 
+    def prefill_positions(self, n_tokens: int) -> int:
+        """Positions a prefill of ``n_tokens`` tokens occupies (vlm
+        prepends its frontend tokens)."""
+        if self.cfg.family == "vlm":
+            return n_tokens + self.cfg.frontend_tokens
+        return n_tokens
+
     def prefill_len(self, batch) -> int:
-        return batch["tokens"].shape[1]
+        """Positions the prefill of ``batch`` occupies."""
+        return self.prefill_positions(batch["tokens"].shape[1])
 
     # ------------------------------------------------------------------
     # generation loop
@@ -267,7 +307,8 @@ class DecodeEngine:
                  temperature: float = 0.0, seed: int = 0,
                  check_finite: bool = False,
                  ) -> Tuple[torch.Tensor, Dict[str, float]]:
-        """Prefill + ``gen`` greedy (or sampled) decode steps.
+        """Prefill + ``gen`` greedy (or sampled) decode steps; ``batch``
+        as ``prefill`` takes it.
 
         Sampling draws from a ``torch.Generator`` seeded with ``seed``:
         deterministic per seed, but not the JAX engine's stream (only

@@ -3,10 +3,9 @@ cannot provide.
 
 The port's own copy of ``repro.engine.journal`` (pure Python: the port
 imports nothing of the JAX package); the events and their JSON are the
-same, so a journal written by either package replays in the other.
-The port's ``Request`` has no ``frontend_emb`` (the vlm and audio
-families are ROADMAP queue 1 item 11): a ``submit`` event that carries
-one raises ``NotImplementedError`` instead of dropping it.
+same, so a journal written by either package replays in the other: a
+request's ``frontend_emb`` rides in the JAX encoding, ``{"data": nested
+list, "dtype": numpy dtype name}``.
 
 A snapshot (``engine.snapshot``) captures the serving state every N
 steps; everything that happened SINCE the last snapshot — requests
@@ -15,8 +14,8 @@ lost on a crash without a finer-grained record.  This module keeps
 that record as an append-only JSONL log, one fsynced line per event:
 
   ``submit``    the full request (rid, prompt tokens, gen budget,
-                temperature, seed, deadline, max_steps) — enough to
-                re-queue it verbatim;
+                temperature, seed, frontend embeddings, deadline,
+                max_steps) — enough to re-queue it verbatim;
   ``cancel``    the cancellation intent (rid);
   ``terminal``  the finished ``RequestResult`` (tokens, status, error,
                 latency, token timestamps) — recovered VERBATIM on
@@ -67,26 +66,34 @@ def _req_event(req) -> Dict[str, Any]:
         "deadline_s": req.deadline_s,
         "max_steps": req.max_steps,
     }
+    if req.frontend_emb is not None:
+        ev["frontend_emb"] = encode_emb(req.frontend_emb)
     return ev
 
 
-def check_no_frontend(rec: Dict[str, Any], what: str) -> None:
-    """Refuse a request record that carries frontend embeddings."""
-    if rec.get("frontend_emb") is not None:
-        raise NotImplementedError(
-            f"{what} carries frontend_emb: the vlm and audio frontends "
-            "are not ported to repro_torch yet (ROADMAP queue 1 item 11)")
+def encode_emb(emb) -> Dict[str, Any]:
+    """Frontend embeddings as the JAX package's journal and snapshots
+    write them."""
+    emb = np.asarray(emb)
+    return {"data": emb.tolist(), "dtype": str(emb.dtype)}
+
+
+def decode_emb(rec):
+    """``encode_emb``'s record back to an array (None stays None)."""
+    if rec is None:
+        return None
+    return np.asarray(rec["data"], np.dtype(rec["dtype"]))
 
 
 def request_from_event(ev: Dict[str, Any]):
     """Rebuild a fresh ``Request`` from a ``submit`` journal event."""
     from repro_torch.engine.scheduler import Request
-    check_no_frontend(ev, f"journal submit of request {ev['rid']!r}")
     return Request(rid=ev["rid"],
                    tokens=np.asarray(ev["tokens"], np.int32),
                    gen=int(ev["gen"]),
                    temperature=float(ev.get("temperature", 0.0)),
                    seed=int(ev.get("seed", 0)),
+                   frontend_emb=decode_emb(ev.get("frontend_emb")),
                    deadline_s=ev.get("deadline_s"),
                    max_steps=ev.get("max_steps"))
 

@@ -1,14 +1,21 @@
 """Paged KV cache: a shared page pool + per-slot block tables.
 
-Counterpart of ``repro.engine.paged_cache`` for the dense and moe
-families (each GQA or MLA).  The cache is ``{"k", "v"}`` pools of shape
-``(L, n_pages, page_size, KV, Dh)``, or for MLA the latent and rope
-pools ``{"ckv", "krope"}`` of shape ``(L, n_pages, page_size, r)`` /
-``(L, n_pages, page_size, rope)``; the moe family nests either as
-``{"dense": ... or None, "moe": ...}`` per layer group.  These are the
-layouts of the JAX package, so a pool copies across as it is; a
-``(B_slots, max_pages)`` int32 block table maps each slot's logical page
-j to a physical page id handed out by ``PageAllocator``.
+Counterpart of ``repro.engine.paged_cache`` for the KV-cache families:
+dense and moe (each GQA or MLA), vlm and audio.  The cache is ``{"k",
+"v"}`` pools of shape ``(L, n_pages, page_size, KV, Dh)``, or for MLA
+the latent and rope pools ``{"ckv", "krope"}`` of shape ``(L, n_pages,
+page_size, r)`` / ``(L, n_pages, page_size, rope)``; the moe family
+nests either as ``{"dense": ... or None, "moe": ...}`` per layer group.
+These are the layouts of the JAX package, so a pool copies across as it
+is; a ``(B_slots, max_pages)`` int32 block table maps each slot's
+logical page j to a physical page id handed out by ``PageAllocator``.
+
+The audio family's cache is its self-attention pools ``self_k`` /
+``self_v`` (L, n_pages, page_size, KV, Dh) plus the slot-dense cross
+cache ``cross_k`` / ``cross_v`` (L, B_slots, enc_p, KV, Dh): written once
+at admission, sized by the encoder budget padded up to whole pages, and
+viewed as an identity-paged pool at attend time (``models.lm``).  The
+vlm family's pools are the dense family's.
 
 With ``kv_dtype='int8'`` the pools hold symmetric int8 pages with fp32
 scale sidecars: ``k_scale``/``v_scale`` of shape ``(L, n_pages, KV)`` —
@@ -21,7 +28,7 @@ buffer); here every write is in place into the engine-owned pools
 (``write_prefill``, ``quantized_page_write`` and the decode step), as
 the port's dense cache already is; ``fork_page`` (the prefix cache's
 copy-on-write) copies a page in place, across every leaf of the nested
-tree.  The audio pools are not ported yet.
+tree.
 """
 from __future__ import annotations
 
@@ -39,19 +46,13 @@ PAGED_FAMILIES = ("dense", "vlm", "moe", "audio")
 
 def check_family(cfg) -> None:
     """Paged KV covers the KV-cache families (``ValueError`` for the
-    recurrent ones, as in the JAX package); of those the port serves the
-    dense and moe families (each GQA or MLA) so far."""
+    recurrent ones, as in the JAX package)."""
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(
             f"paged KV cache supports the KV-cache families "
             f"{PAGED_FAMILIES}; family {cfg.family!r} carries O(1) "
             "recurrent state per slot (nothing to page) — serve it "
             "with the dense engine")
-    if cfg.family in ("dense", "moe"):
-        return
-    raise NotImplementedError(
-        f"paged {cfg.family} pools are not ported to repro_torch yet: "
-        "ROADMAP queue 1 item 11 (remaining families)")
 
 
 def max_pages(max_len: int, page_size: int) -> int:
@@ -71,19 +72,35 @@ def bucket_table_width(live_pages: int, max_pages: int) -> int:
     return min(w, max_pages)
 
 
+def enc_padded(enc_len: int, page_size: int) -> int:
+    """The cross cache's positions a slot: ``enc_len`` (at least 1)
+    padded up to whole pages."""
+    return max_pages(max(enc_len, 1), page_size) * page_size
+
+
 def paged_cache_spec(cfg, n_pages: int, page_size: int,
+                     batch_slots: int = 1, enc_len: int = 0,
                      kv_dtype: str = None):
     """{name: (shape, dtype)} of the paged decode cache (nested per layer
-    group for the moe family).
+    group for the moe family).  The audio family's cross pair is
+    slot-dense, (L, batch_slots, enc_padded(enc_len), KV, Dh) at the
+    model dtype.
 
     ``kv_dtype``: None/'bf16' keeps the pools at the model dtype;
     'int8' stores int8 pools plus fp32 scales, (L, n_pages, KV) for K/V
-    pools and (L, n_pages) for the latent and rope pools."""
+    pools and (L, n_pages) for the latent and rope pools.  The audio
+    family takes no int8 pools (``ValueError``, as in the JAX package)."""
     check_family(cfg)
     if kv_dtype not in (None, "bf16", "int8"):
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                          f"{kv_dtype!r}")
     q8 = kv_dtype == "int8"
+    if q8 and cfg.family == "audio":
+        raise ValueError(
+            "kv_dtype='int8' is unsupported for the audio family: the "
+            "slot-dense cross cache is written once at admission and "
+            "stays at the model dtype — serve audio with kv_dtype="
+            "'bf16'")
     pool_dt = torch.int8 if q8 else dt(cfg)
 
     def group(shapes):
@@ -97,7 +114,12 @@ def paged_cache_spec(cfg, n_pages: int, page_size: int,
     tree = lm.group_specs(cfg, (n_pages, page_size))
     if cfg.family == "moe":
         return {k: None if g is None else group(g) for k, g in tree.items()}
-    return group(tree)
+    spec = group(tree)
+    if cfg.family == "audio":
+        xh = lm.cross_shape(cfg, batch_slots,
+                            enc_padded(enc_len, page_size))
+        spec.update(cross_k=(xh, dt(cfg)), cross_v=(xh, dt(cfg)))
+    return spec
 
 
 def _layer_aligned_zeros(shape, dtype, device) -> torch.Tensor:
@@ -113,10 +135,12 @@ def _layer_aligned_zeros(shape, dtype, device) -> torch.Tensor:
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int,
+                     batch_slots: int = 1, enc_len: int = 0,
                      kv_dtype: str = None, device="cuda"):
     return lm.map_groups(
         lambda sd: _layer_aligned_zeros(sd[0], sd[1], device),
-        paged_cache_spec(cfg, n_pages, page_size, kv_dtype))
+        paged_cache_spec(cfg, n_pages, page_size, batch_slots, enc_len,
+                         kv_dtype))
 
 
 # ----------------------------------------------------------------------
@@ -214,13 +238,34 @@ def _scatter_group(group, stacks, table) -> None:
             _scatter_pages(group[name], kv, table)
 
 
-def write_prefill(cfg, cache, caches, table) -> None:
+def _write_cross(cache, cross, slots) -> None:
+    """The audio prefill's cross stacks (xk, xv) (L, B', S_enc, KV, Dh)
+    into rows ``slots`` of the slot-dense cross cache, zero-padded up to
+    its enc_p positions (the pad scrubs a reused slot's tail).  An
+    encoder longer than the cache raises ``ValueError`` (the Scheduler
+    rejects such a request before its prefill)."""
+    enc_p = cache["cross_k"].shape[2]
+    S = cross[0].shape[2]
+    if S > enc_p:
+        raise ValueError(f"{S} encoder positions exceed the cross cache's "
+                         f"{enc_p} a slot")
+    ids = torch.as_tensor(slots, device=cross[0].device).long()
+    for name, xkv in zip(("cross_k", "cross_v"), cross):
+        buf = cache[name]
+        buf[:, ids, S:] = 0
+        buf[:, ids, :S] = xkv.to(buf.dtype)
+
+
+def write_prefill(cfg, cache, caches, table, enc_slots=None) -> None:
     """Scatter prefill KV material into the page pools, in place.
 
     ``caches`` is ``lm.prefill``'s cache stacks for B' requests (the
     whole batch, or 1 for the scheduler's admission): (k, v) (L, B', S,
     KV, Dh), or for the moe family the pair (dense layers' stacks or
-    None, MoE layers'), each (k, v) or MLA's (c_kv, k_rope);
+    None, MoE layers'), each (k, v) or MLA's (c_kv, k_rope), or for the
+    audio family the pair (self (k, v), cross (xk, xv)), whose cross
+    stacks go to the slot-dense cross cache's rows ``enc_slots`` (B',)
+    (default 0 .. B' - 1);
     ``table`` holds the rows (B', >= ceil(S / page_size)) of the pages
     they land in, host ints or a device tensor: a whole prompt's row, or
     for a suffix or a chunk (``lm.prefill_suffix`` / ``prefill_chunk``,
@@ -232,6 +277,12 @@ def write_prefill(cfg, cache, caches, table) -> None:
         if kv_d is not None:
             _scatter_group(cache["dense"], kv_d, table)
         _scatter_group(cache["moe"], kv_m, table)
+    elif cfg.family == "audio":
+        (k, v), cross = caches
+        _scatter_pages(cache["self_k"], k, table)
+        _scatter_pages(cache["self_v"], v, table)
+        _write_cross(cache, cross, range(k.shape[1]) if enc_slots is None
+                     else enc_slots)
     else:
         _scatter_group(cache, caches, table)
 

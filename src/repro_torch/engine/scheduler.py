@@ -149,7 +149,10 @@ class RequestResult(np.ndarray):
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``tokens`` is the (P,) int32 prompt;
-    ``gen`` counts generated tokens (the prefill's argmax included).
+    ``gen`` counts generated tokens (the prefill's argmax included);
+    ``frontend_emb`` feeds the vlm / audio frontends: (frontend_tokens,
+    frontend_dim) patch embeddings that open a vlm prompt, or (frames,
+    frontend_dim) encoder input for audio.
 
     ``deadline_s`` (wall seconds from ``submit()``) and ``max_steps``
     (decode steps) bound the request; crossing either ends it TIMED_OUT
@@ -160,6 +163,7 @@ class Request:
     gen: int
     temperature: float = 0.0
     seed: int = 0
+    frontend_emb: Optional[np.ndarray] = None
     deadline_s: Optional[float] = None
     max_steps: Optional[int] = None
     status: RequestStatus = RequestStatus.PENDING
@@ -257,6 +261,14 @@ def pack_chunk(remaining: int, n_decode: int, budget: int,
 class Scheduler:
     """Admit / step / retire requests over a paged ``DecodeEngine``.
 
+    ``enc_len`` budgets the audio cross cache (encoder frames a slot,
+    padded up to whole pages; default the engine's decoder ``max_len``,
+    which is usually too short for speech: size it to the longest
+    expected ``frontend_emb``).  A request with more frames is REJECTED.
+    A vlm request's frontend positions count against its pages and the
+    engine's ``max_len``, and a preempted one prefills its frontend again
+    at re-admission.
+
     ``bucket_tables`` (default on) cuts the block table each step to the
     power-of-two width covering the longest active slot's pages
     (``paged_cache.bucket_table_width``), so the kernels walk only live
@@ -299,12 +311,13 @@ class Scheduler:
     every submit, cancel intent and terminal result; ``snapshotter`` (an
     ``engine.snapshot.EngineSnapshotter``) is called after every step and
     joined when ``run`` drains.  The JAX Scheduler's ``guard_nonfinite``,
-    ``chunk_tokens``, ``token_budget`` and ``enc_len`` options are not
-    taken: the port always guards, chunks ``EngineConfig.chunk_tokens``
-    under a budget of ``batch + chunk_tokens``, and serves no audio.
+    ``chunk_tokens`` and ``token_budget`` options are not taken: the port
+    always guards and chunks ``EngineConfig.chunk_tokens`` under a budget
+    of ``batch + chunk_tokens``.
     """
 
-    def __init__(self, engine, bucket_tables: bool = True,
+    def __init__(self, engine, enc_len: Optional[int] = None,
+                 bucket_tables: bool = True,
                  retry: Optional[RetryPolicy] = None,
                  max_preemptions: int = 3,
                  straggler: Optional[StragglerMonitor] = None,
@@ -330,7 +343,10 @@ class Scheduler:
         self.table = np.zeros((B, J), np.int32)
         self.lens = np.zeros((B,), np.int32)
         self.tokens = np.zeros((B,), np.int32)
-        self.cache = engine.init_paged_cache()
+        self.enc_lens = np.zeros((B,), np.int32)
+        self.cache = engine.init_paged_cache(enc_len=enc_len)
+        self.enc_budget = (self.cache["cross_k"].shape[2]
+                           if self.cfg.family == "audio" else 0)
         self.bucket_tables = bucket_tables
         # transient step faults retry; a simulated process death
         # (CrashError) surfaces at once
@@ -464,6 +480,7 @@ class Scheduler:
         self.slots[slot_id] = None
         self.lens[slot_id] = 0
         self.tokens[slot_id] = 0
+        self.enc_lens[slot_id] = 0
 
     def _evict(self, slot_id: int) -> _Slot:
         """Release a slot's pages and batch row (no terminal record).
@@ -569,6 +586,11 @@ class Scheduler:
     # admission
     # ------------------------------------------------------------------
 
+    def _positions(self, item) -> int:
+        """Every position the admission prefill of ``item`` occupies:
+        ``_teacher_tokens``' and a vlm prompt's frontend."""
+        return self.eng.prefill_positions(len(self._teacher_tokens(item)))
+
     @staticmethod
     def _teacher_tokens(item) -> np.ndarray:
         """Every position the admission prefill occupies: the prompt,
@@ -594,10 +616,17 @@ class Scheduler:
 
     def _validate(self, req: Request) -> Optional[str]:
         """Admission-blocking fault in ``req``, or None if admissible."""
-        P = len(req.tokens)
+        P = self.eng.prefill_positions(len(req.tokens))
         if P + req.gen - 1 > self.eng.ecfg.max_len:
             return (f"prompt {P} + gen {req.gen} exceeds engine "
                     f"max_len {self.eng.ecfg.max_len}")
+        if (self.cfg.family == "audio"
+                and req.frontend_emb is not None
+                and req.frontend_emb.shape[0] > self.enc_budget):
+            return (f"{req.frontend_emb.shape[0]} encoder frames "
+                    f"exceed the cross-cache budget {self.enc_budget} "
+                    "— construct the Scheduler with enc_len >= the "
+                    "longest expected frontend_emb")
         return None
 
     def admit(self) -> int:
@@ -641,7 +670,7 @@ class Scheduler:
             # a chunk-preempted slot may come back with out == [] (it
             # never finished prefilling): the prefill emits its first
             # token, as for a fresh request
-            positions = len(self._teacher_tokens(item))
+            positions = self._positions(item)
             need = self._pages_needed(positions,
                                       max(len(partial), 1) < req.gen)
             if need > self.allocator.n_pages:
@@ -714,6 +743,9 @@ class Scheduler:
         M = n_shared * self.page_size       # cached positions (whole pages)
         batch = {"tokens": torch.from_numpy(tokens[M:])[None].to(
             self.eng.device)}
+        if req.frontend_emb is not None:
+            batch["frontend_emb"] = torch.as_tensor(
+                req.frontend_emb, device=self.eng.device)[None]
         prefill_fn = self.eng.prefill_fn
         if n_shared:
             batch["pages"] = np.asarray(pages[:n_shared], np.int32)
@@ -740,9 +772,10 @@ class Scheduler:
         # only the suffix pages are written: the shared prefix pages hold
         # their K/V already and must never be written through
         write_prefill(self.cfg, self.cache, caches,
-                      row[None, n_shared:len(pages)])
+                      row[None, n_shared:len(pages)], enc_slots=[slot_id])
         if resumed:
-            slot = _Slot(req=req, length=len(tokens), pages=list(pages),
+            slot = _Slot(req=req, length=self._positions(item),
+                         pages=list(pages),
                          out=list(item.out), steps=item.steps,
                          order=self._order, preempts=item.preempts,
                          token_times=list(item.token_times))
@@ -751,7 +784,8 @@ class Scheduler:
             # engine convention: the first generated token is the argmax
             # of the prefill logits
             tok = int(logits[0].argmax())
-            slot = _Slot(req=req, length=len(tokens), pages=list(pages),
+            slot = _Slot(req=req, length=self._positions(item),
+                         pages=list(pages),
                          out=[tok], order=self._order,
                          token_times=[time.monotonic()])
         self._order += 1
@@ -760,6 +794,9 @@ class Scheduler:
         self.table[slot_id] = row
         self.lens[slot_id] = slot.length
         self.tokens[slot_id] = tok
+        self.enc_lens[slot_id] = (req.frontend_emb.shape[0]
+                                  if self.cfg.family == "audio"
+                                  and req.frontend_emb is not None else 0)
         self.stats["admitted"] += 1
         self.stats["peak_pages"] = max(self.stats["peak_pages"],
                                        self.allocator.used_pages)
@@ -932,10 +969,10 @@ class Scheduler:
         self.stats["prefills"] += 1
         if slot.out:
             tok = slot.out[-1]
-            slot.length = len(req.tokens) + len(slot.out) - 1
+            slot.length = self._positions(slot)
         else:
             slot.out = [tok]
-            slot.length = len(req.tokens)
+            slot.length = self.eng.prefill_positions(len(req.tokens))
             slot.token_times.append(time.monotonic())
         req.status = RequestStatus.RUNNING
         self.lens[slot_id] = slot.length
@@ -991,6 +1028,8 @@ class Scheduler:
             self.stats["table_widths"].get(W, 0) + 1
         dbatch = {"token": self.tokens, "cur_len": self.lens,
                   "block_table": self.table[:, :W], "cache": self.cache}
+        if self.cfg.family == "audio":
+            dbatch["enc_lens"] = self.enc_lens
         final = None                # the final chunk's logits row
         if c_slot is not None:
             slot = self.slots[c_slot]

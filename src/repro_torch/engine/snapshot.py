@@ -43,13 +43,13 @@ Where the port departs from JAX:
     mutates a published cache), so the store copies every pool to host
     memory synchronously and only the ``.npy`` writes go to its
     background worker;
-  * the ``"sched"`` block's ``guard_nonfinite``, ``chunk_tokens``,
-    ``token_budget`` and ``enc_len`` are what the port's Scheduler
-    derives (it always guards; chunks and budget come from the
-    EngineConfig; no audio family yet), and ``restore`` refuses a
-    snapshot whose values differ (``ValueError`` naming the field);
-  * a request carrying ``frontend_emb`` raises ``NotImplementedError``
-    (ROADMAP queue 1 item 11).
+  * the ``"sched"`` block's ``guard_nonfinite``, ``chunk_tokens`` and
+    ``token_budget`` are what the port's Scheduler derives (it always
+    guards; chunks and budget come from the EngineConfig), and
+    ``restore`` refuses a snapshot whose values differ (``ValueError``
+    naming the field); ``enc_len`` (the audio cross cache's positions a
+    slot) is restored like the options, and refused where the engine
+    has no cross cache to give it.
 
 ``EngineSnapshotter`` adds the cadence: every ``every`` steps the
 scheduler's step path cuts the state and hands the disk writes to the
@@ -78,7 +78,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from repro_torch.checkpoint.store import CheckpointStore
-from repro_torch.engine.journal import check_no_frontend
+from repro_torch.engine.journal import decode_emb, encode_emb
 
 SNAPSHOT_VERSION = 1
 
@@ -88,26 +88,29 @@ SNAPSHOT_VERSION = 1
 # ----------------------------------------------------------------------
 
 def _req_state(req) -> Dict[str, Any]:
-    return {"rid": req.rid,
-            "tokens": np.asarray(req.tokens, np.int32).tolist(),
-            "gen": int(req.gen),
-            "temperature": float(req.temperature),
-            "seed": int(req.seed),
-            "deadline_s": req.deadline_s,
-            "max_steps": req.max_steps,
-            "status": req.status.value,
-            "error": req.error,
-            "submit_t": req.submit_t}
+    d = {"rid": req.rid,
+         "tokens": np.asarray(req.tokens, np.int32).tolist(),
+         "gen": int(req.gen),
+         "temperature": float(req.temperature),
+         "seed": int(req.seed),
+         "deadline_s": req.deadline_s,
+         "max_steps": req.max_steps,
+         "status": req.status.value,
+         "error": req.error,
+         "submit_t": req.submit_t}
+    if req.frontend_emb is not None:
+        d["frontend_emb"] = encode_emb(req.frontend_emb)
+    return d
 
 
 def _req_from_state(d: Dict[str, Any], delta: float):
     from repro_torch.engine.scheduler import Request, RequestStatus
-    check_no_frontend(d, f"snapshot of request {d['rid']!r}")
     return Request(rid=d["rid"],
                    tokens=np.asarray(d["tokens"], np.int32),
                    gen=int(d["gen"]),
                    temperature=float(d["temperature"]),
                    seed=int(d["seed"]),
+                   frontend_emb=decode_emb(d.get("frontend_emb")),
                    deadline_s=d.get("deadline_s"),
                    max_steps=d.get("max_steps"),
                    status=RequestStatus(d["status"]),
@@ -180,12 +183,14 @@ def _result_from_state(d: Dict[str, Any]):
 
 
 def derived_knobs(sched) -> Dict[str, Any]:
-    """The ``"sched"`` fields the port's Scheduler takes no option for:
-    the values it runs with, as the JAX snapshot spells them."""
+    """The ``"sched"`` fields as the JAX snapshot spells them from what
+    its Scheduler runs with: the port's Scheduler takes no option for
+    the first three, and its ``enc_len`` option becomes the cross
+    cache's padded positions a slot (None without a cross cache)."""
     return {"guard_nonfinite": True,
             "chunk_tokens": int(sched.chunk_tokens) or None,
             "token_budget": int(sched.token_budget) or None,
-            "enc_len": None}
+            "enc_len": int(sched.enc_budget) or None}
 
 
 def _geometry(engine) -> Dict[str, Any]:
@@ -215,8 +220,7 @@ def scheduler_state(sched) -> Dict[str, Any]:
         "table": sched.table.tolist(),
         "lens": sched.lens.tolist(),
         "tokens": sched.tokens.tolist(),
-        # no audio family: no slot holds encoder positions
-        "enc_lens": [0] * len(sched.slots),
+        "enc_lens": sched.enc_lens.tolist(),
         "slots": [None if s is None else _slot_state(s)
                   for s in sched.slots],
         "pending": _queue_state(sched.pending),
@@ -286,7 +290,7 @@ def _read_host_state(store: CheckpointStore, step: int) -> Dict[str, Any]:
 
 # the Scheduler options a snapshot restores (the rest are derived)
 _KNOBS = ("bucket_tables", "max_preemptions", "prefix_cache",
-          "chunked_prefill")
+          "chunked_prefill", "enc_len")
 
 
 def restore(directory_or_store, engine, step: Optional[int] = None,
@@ -331,11 +335,7 @@ def restore(directory_or_store, engine, step: Optional[int] = None,
             raise ValueError(
                 f"snapshot Scheduler {key}={sk.get(key)!r}, but the port's "
                 f"Scheduler runs with {key}={value!r} under this engine "
-                "config and takes no option for it")
-    if any(int(n) for n in state["enc_lens"]):
-        raise NotImplementedError(
-            "snapshot slots hold encoder positions: the audio family is "
-            "not ported to repro_torch yet (ROADMAP queue 1 item 11)")
+                "config")
 
     # device pools: copied into the fresh Scheduler's own pools, in place
     store.restore(step, {"cache": sched.cache})
@@ -346,6 +346,7 @@ def restore(directory_or_store, engine, step: Optional[int] = None,
     sched.table = np.asarray(state["table"], np.int32)
     sched.lens = np.asarray(state["lens"], np.int32)
     sched.tokens = np.asarray(state["tokens"], np.int32)
+    sched.enc_lens = np.asarray(state["enc_lens"], np.int32)
     sched.slots = [None if s is None else _slot_from_state(s, delta)
                    for s in state["slots"]]
     sched.pending = _queue_from_state(state["pending"], delta)

@@ -1,1 +1,1 @@
-"""Model layers and assembly (dense family)."""
+"""Model layers and assembly (the KV-cache families)."""

@@ -161,3 +161,19 @@ def mlp(p, x, act: str, *, backend="cuda", residual=None):
     'cuda' path it is fused into the down-projection's epilogue.
     ``backend`` is a backend string or a ModelConfig."""
     return D.dispatch("mlp", backend, p, x, act, residual=residual)
+
+
+# ---------------- frontends (stubs: precomputed embeddings) ----------------
+
+def frontend_proj_spec(raw_dim, d, dtype):
+    """Projects precomputed frame / patch embeddings into d_model."""
+    return {"w": ParamDef((raw_dim, d), dtype, ("frontend_in", "embed"))}
+
+
+def frontend_proj(p, emb):
+    """emb (..., raw_dim) @ w (raw_dim, d): a plain product, as in the
+    JAX package (an einsum outside any kernel), in the promoted dtype of
+    the two (fp32 embeddings against bf16 weights multiply in fp32)."""
+    w = p["w"]
+    dtype = torch.promote_types(emb.dtype, w.dtype)
+    return torch.matmul(emb.to(dtype), w.to(dtype))

@@ -1,9 +1,12 @@
-"""Model assembly for the dense and moe families: spec, prefill and
-decode.
+"""Model assembly for the KV-cache families: spec, prefill and decode.
 
 Counterpart of ``repro.models.lm`` for the dense family (tinyllama,
-granite, qwen, deepseek-coder) and the moe family (olmoe with GQA,
-deepseek-v3 with MLA).  Conventions kept from the JAX package:
+granite, qwen, deepseek-coder), the moe family (olmoe with GQA,
+deepseek-v3 with MLA) and the two frontend families: vlm (internvl2, a
+dense decoder whose prompt opens with the projected frontend
+embeddings) and audio (seamless-m4t, an encoder-decoder whose encoder
+reads the projected frame embeddings).  Conventions kept from the JAX
+package:
 
   * pre-norm attention + MLP (or MoE FFN); the attention and MLP
     sub-blocks take the residual stream as ``residual=`` on prefill
@@ -13,15 +16,26 @@ deepseek-v3 with MLA).  Conventions kept from the JAX package:
     (``dense_layers``, FFN width ``d_ff_dense``) before its MoE layers
     (``layers``); either family's attention is MLA when ``cfg.mla`` is
     set;
+  * vlm: ``frontend_proj`` of the (B, S_f, frontend_dim) embeddings is
+    concatenated before the token embeddings and positions run over
+    both; audio: the projected frames run through ``enc_layers``
+    (non-causal attention, on the blockwise path as in the JAX package:
+    the prefill kernel is causal only) and ``enc_norm``, and each
+    decoder layer adds a cross-attention block over the encoder output
+    (plain q / k / v products, the output projection on the kernels);
   * parameters are stacked on a leading layer axis; the layers run as
     a Python loop over it;
   * the dense decode cache is ``{"k", "v"}`` of shape (L, B, T, KV, Dh),
     or ``{"ckv", "krope"}`` (L, B, T, r / rope) for MLA, nested as
     ``{"dense": ..., "moe": ...}`` for the moe family (``"dense"`` None
-    without dense layers); the paged one holds pools of shape (L,
-    n_pages, page_size, KV, Dh) or (L, n_pages, page_size, r / rope)
-    (+ fp32 scales for int8 pools) in the same nesting, addressed
-    through per-slot block tables (``paged_decode_step``);
+    without dense layers); the audio family's is ``{"self_k", "self_v",
+    "cross_k", "cross_v"}``, the cross pair sized by the encoder length;
+    the paged one holds pools of shape (L, n_pages, page_size, KV, Dh)
+    or (L, n_pages, page_size, r / rope) (+ fp32 scales for int8 pools)
+    in the same nesting, addressed through per-slot block tables
+    (``paged_decode_step``); the audio family's cross pair stays
+    slot-dense (L, slots, enc_p, KV, Dh) and is viewed as an
+    identity-paged pool at attend time;
   * a prompt whose prefix is already in the pools (a prefix-cache hit,
     or the earlier chunks of a chunked prefill) prefills only its
     suffix against the prefix gathered back out of the pools
@@ -31,12 +45,15 @@ deepseek-v3 with MLA).  Conventions kept from the JAX package:
     The moe family's suffix runs its MoE FFN over the suffix tokens
     alone, as in the JAX package: with capacity drops (capacity
     ``ceil(S * top_k * capacity_factor / n_experts)`` of the tokens in
-    the call) a suffix's rows can differ from the whole prompt's.
+    the call) a suffix's rows can differ from the whole prompt's.  The
+    frontend families have no suffix path (their prompts open with
+    frontend positions a token-keyed prefix cannot match).
 
 ``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda').
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple
 
 import numpy as np
@@ -50,10 +67,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
+FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
 def _check_family(cfg) -> None:
-    """The dense and moe families (each with GQA or MLA attention) are
-    ported; the others raise with their ROADMAP item."""
-    if cfg.family in ("dense", "moe"):
+    """The KV-cache families are ported (dense and moe, each with GQA or
+    MLA attention; vlm and audio); the recurrent ones raise with their
+    ROADMAP item."""
+    if cfg.family in FAMILIES:
         return
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
@@ -103,6 +124,26 @@ def _moe_layer_spec(cfg):
     }
 
 
+def _encoder_layer_spec(cfg):
+    return {
+        "attn_norm": _norm_spec(cfg),
+        "attn": A.gqa_spec(cfg),
+        "mlp_norm": _norm_spec(cfg),
+        "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, L.dt(cfg)),
+    }
+
+
+def _decoder_xattn_layer_spec(cfg):
+    return {
+        "self_norm": _norm_spec(cfg),
+        "self": A.gqa_spec(cfg),
+        "cross_norm": _norm_spec(cfg),
+        "cross": A.gqa_spec(cfg),
+        "mlp_norm": _norm_spec(cfg),
+        "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, L.dt(cfg)),
+    }
+
+
 def model_spec(cfg) -> Dict[str, Any]:
     _check_family(cfg)
     dtype = L.dt(cfg)
@@ -118,12 +159,21 @@ def model_spec(cfg) -> Dict[str, Any]:
                 m.first_k_dense)
         spec["layers"] = M.stack_specs(_moe_layer_spec(cfg),
                                        cfg.n_layers - m.first_k_dense)
+    elif cfg.family == "audio":
+        spec["enc_layers"] = M.stack_specs(_encoder_layer_spec(cfg),
+                                           cfg.enc_layers)
+        spec["enc_norm"] = _norm_spec(cfg)
+        spec["layers"] = M.stack_specs(_decoder_xattn_layer_spec(cfg),
+                                       cfg.n_layers)
     else:
         spec["layers"] = M.stack_specs(_dense_layer_spec(cfg),
                                        cfg.n_layers)
     if not cfg.tie_embeddings:
         spec["unembed"] = L.unembed_spec(cfg.vocab_padded, cfg.d_model,
                                          dtype)
+    if cfg.frontend:
+        spec["frontend"] = L.frontend_proj_spec(cfg.frontend_dim,
+                                                cfg.d_model, dtype)
     return spec
 
 
@@ -166,7 +216,9 @@ def _kv_names(cfg):
 def pool_leaf(cfg, cache):
     """The cache leaf whose shape gives the pages and page size of a
     paged cache: the latent pool for MLA, the K pool otherwise (in the
-    moe group for the moe family)."""
+    moe group for the moe family, the self-attention pool for audio)."""
+    if cfg.family == "audio":
+        return cache["self_k"]
     return _cache_group(cache, "moe" if cfg.family == "moe" else None)[
         _kv_names(cfg)[0]]
 
@@ -197,24 +249,26 @@ def _run_groups(cfg, params, x, layer, collect):
 # prefill: tokens -> final hidden states (+ the per-layer KV)
 # ======================================================================
 
-def _attn_delta(cfg, ap, h, positions, *, residual=None):
+def _attn_delta(cfg, ap, h, positions, *, causal=True, residual=None):
     """h already normed.  Returns (residual + attn(h) if residual is
     given else attn(h), (k, v)) for cache building — (c_kv, k_rope) for
-    MLA, whose prefill is the expanded form on the blockwise path."""
+    MLA, whose prefill is the expanded form on the blockwise path.  The
+    'cuda' attention op runs the prefill kernel for causal calls and the
+    blockwise formulation for the non-causal (encoder) ones."""
     if cfg.mla is not None:
         out, kv = MLA.mla_attention(ap, h, positions, cfg,
                                     dense=cfg.accounting)
         return (out if residual is None else residual + out), kv
     q, k, v = A.qkv_proj(ap, h, positions, cfg.rope_theta, cfg)
-    o = D.dispatch("attention", cfg, q, k, v, causal=True,
+    o = D.dispatch("attention", cfg, q, k, v, causal=causal,
                    q_positions=positions, kv_positions=positions,
                    block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
     return A.o_proj(ap, o, cfg, residual=residual), (k, v)
 
 
-def _dense_body(cfg, positions, x, lp):
+def _dense_body(cfg, positions, x, lp, *, causal=True):
     x, kv = _attn_delta(cfg, lp["attn"], _norm(cfg, lp["attn_norm"], x),
-                        positions, residual=x)
+                        positions, causal=causal, residual=x)
     x = L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
               backend=cfg, residual=x)
     return x, kv
@@ -227,19 +281,85 @@ def _moe_body(cfg, positions, x, lp):
     return x + y, kv
 
 
+def _xattn_body(cfg, positions, enc, enc_valid, x, lp):
+    """Encoder-decoder decoder layer (prefill): causal self-attention,
+    cross-attention over the encoder output ``enc`` (B, S_enc, d) — its
+    q / k / v plain products and its attention the blockwise formulation,
+    as in the JAX package; the output projection on the kernels with the
+    residual fused — then the MLP.  Returns (x, ((k, v), (xk, xv)))."""
+    x, kv = _attn_delta(cfg, lp["self"], _norm(cfg, lp["self_norm"], x),
+                        positions, residual=x)
+    h = _norm(cfg, lp["cross_norm"], x)
+    cp = lp["cross"]
+    q = torch.einsum("bsd,dhk->bshk", h, cp["wq"])
+    k = torch.einsum("bsd,dhk->bshk", enc, cp["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc, cp["wv"])
+    if cfg.accounting:
+        o = A.full_attn_ref(q, k, v, causal=False, kv_valid=enc_valid)
+    else:
+        o = A.blockwise_attn(q, k, v, causal=False, kv_valid=enc_valid,
+                             block_q=cfg.attn_block_q,
+                             block_kv=cfg.attn_block_kv)
+    x = A.o_proj(cp, o, cfg, residual=x)
+    x = L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
+              backend=cfg, residual=x)
+    return x, (kv, (k, v))
+
+
+def encode(params, frontend_emb, cfg):
+    """The audio encoder: the projected frames (B, S_enc, frontend_dim)
+    through ``enc_layers`` (non-causal) and ``enc_norm``.  Returns
+    (B, S_enc, d_model) in the model dtype."""
+    enc = L.frontend_proj(params["frontend"], frontend_emb).to(L.dt(cfg))
+    pos = torch.arange(enc.shape[1], device=enc.device)
+    stacked = params["enc_layers"]
+    for i in range(_depth(stacked)):
+        enc, _ = _dense_body(cfg, pos, enc, _layer(stacked, i),
+                             causal=False)
+    return _norm(cfg, params["enc_norm"], enc)
+
+
 class ForwardOut(NamedTuple):
     h: torch.Tensor          # (B, S, D) final hidden (post-norm)
     caches: Any              # KV stacks (see ``backbone``) or None
 
 
-def backbone(params, tokens, cfg, *, collect_cache=False) -> ForwardOut:
-    """tokens: (B, S) int.  ``collect_cache=True`` (prefill) also
-    returns the per-layer cache stacks: (k, v) (L, B, S, KV, Dh), or
-    (c_kv, k_rope) (L, B, S, r / rope) for MLA; for the moe family the
-    pair (dense layers' stacks or None, MoE layers' stacks)."""
+def backbone(params, tokens, cfg, *, frontend_emb=None,
+             enc_tokens_valid=None, collect_cache=False) -> ForwardOut:
+    """tokens: (B, S) int; frontend_emb: (B, S_f, frontend_dim) or None —
+    for 'vlm' projected and put before the token embeddings (the
+    sequence is S_f + S), for 'audio' the encoder's input (the tokens
+    are the decoder's; ``enc_tokens_valid`` (S_f,) bool masks encoder
+    padding).  ``collect_cache=True`` (prefill) also returns the
+    per-layer cache stacks: (k, v) (L, B, S, KV, Dh), or (c_kv, k_rope)
+    (L, B, S, r / rope) for MLA; for the moe family the pair (dense
+    layers' stacks or None, MoE layers' stacks); for audio the pair
+    (self (k, v), cross (xk, xv) (L, B, S_f, KV, Dh))."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens).to(L.dt(cfg))
+    if frontend_emb is not None:
+        frontend_emb = torch.as_tensor(frontend_emb, device=x.device)
+    if cfg.family == "vlm":
+        pre = L.frontend_proj(params["frontend"], frontend_emb)
+        x = torch.cat([pre.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "audio":
+        enc = encode(params, frontend_emb, cfg)
+        if enc_tokens_valid is not None:
+            enc_tokens_valid = torch.as_tensor(enc_tokens_valid,
+                                               device=x.device)
+        stacked, out = params["layers"], []
+        for i in range(_depth(stacked)):
+            x, kvs = _xattn_body(cfg, positions, enc, enc_tokens_valid, x,
+                                 _layer(stacked, i))
+            if collect_cache:
+                out.append(kvs)
+        caches = None
+        if collect_cache:
+            caches = tuple(tuple(torch.stack([o[j][t] for o in out])
+                                 for t in range(2)) for j in range(2))
+        return ForwardOut(h=_norm(cfg, params["final_norm"], x),
+                          caches=caches)
 
     def layer(x, lp, key, i, moe):
         return (_moe_body if moe else _dense_body)(cfg, positions, x, lp)
@@ -260,10 +380,13 @@ def _logits(params, h, cfg):
 
 
 def prefill(params, batch, cfg):
-    """Full-sequence prefill: returns (last-token logits (B, V) fp32,
+    """Full-sequence prefill of ``batch["tokens"]`` (+ ``frontend_emb``
+    for the frontend families): returns (last-token logits (B, V) fp32,
     the cache stacks of ``backbone``); ``engine.pad_cache_from_prefill``
     pads them into a fixed-size decode cache."""
-    out = backbone(params, batch["tokens"], cfg, collect_cache=True)
+    out = backbone(params, batch["tokens"], cfg,
+                   frontend_emb=batch.get("frontend_emb"),
+                   collect_cache=True)
     logits = _logits(params, out.h[:, -1:, :], cfg)[:, 0]
     return logits.float(), out.caches
 
@@ -430,15 +553,26 @@ def _group_spec(cfg, n: int, lead):
 
 def group_specs(cfg, lead):
     """The cache tree's shapes: one group, or for the moe family
-    ``{"dense": group or None, "moe": group}`` (``engine.paged_cache``
-    builds its pools on it with ``lead = (n_pages, page_size)``)."""
+    ``{"dense": group or None, "moe": group}``, or for the audio family
+    its self-attention pair ``{"self_k", "self_v"}`` (the cross pair is
+    sized by the encoder: ``cache_spec``, ``engine.paged_cache``).
+    ``engine.paged_cache`` builds its pools on it with ``lead =
+    (n_pages, page_size)``."""
     if cfg.family == "moe":
         m = cfg.moe
         return {"dense": (_group_spec(cfg, m.first_k_dense, lead)
                           if m.first_k_dense else None),
                 "moe": _group_spec(cfg, cfg.n_layers - m.first_k_dense,
                                    lead)}
-    return _group_spec(cfg, cfg.n_layers, lead)
+    g = _group_spec(cfg, cfg.n_layers, lead)
+    if cfg.family == "audio":
+        return {"self_k": g["k"], "self_v": g["v"]}
+    return g
+
+
+def cross_shape(cfg, batch: int, enc_len: int):
+    """The audio cross cache's (L, batch, enc_len, KV, Dh)."""
+    return (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.d_head)
 
 
 def map_groups(fn, tree):
@@ -447,18 +581,23 @@ def map_groups(fn, tree):
                 if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
 
 
-def cache_spec(cfg, batch: int, max_len: int):
+def cache_spec(cfg, batch: int, max_len: int, enc_len: int = 0):
     """{name: (shape, dtype)} of the dense decode cache (nested for the
-    moe family)."""
+    moe family; the audio family's cross pair holds ``enc_len`` encoder
+    positions, ``max_len`` when 0)."""
     _check_family(cfg)
-    return map_groups(lambda sh: (sh, L.dt(cfg)),
-                      group_specs(cfg, (batch, max_len)))
+    tree = group_specs(cfg, (batch, max_len))
+    if cfg.family == "audio":
+        xh = cross_shape(cfg, batch, enc_len or max_len)
+        tree = {**tree, "cross_k": xh, "cross_v": xh}
+    return map_groups(lambda sh: (sh, L.dt(cfg)), tree)
 
 
-def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0,
+               device="cuda"):
     return map_groups(
         lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device),
-        cache_spec(cfg, batch, max_len))
+        cache_spec(cfg, batch, max_len, enc_len))
 
 
 def _rope_dim(cfg) -> int:
@@ -539,6 +678,26 @@ def _decode_attn_delta(cfg, ap, h, cs, cur_len, rope):
     return _decode_gqa(cfg, ap, h, cs["k"], cs["v"], cur_len, rope)
 
 
+def _decode_cross(cfg, lp, h, xk, xv):
+    """Cross-attention of one decode token against the (static) encoder
+    cache xk / xv (B, T_enc, KV, Dh): every one of its T_enc positions is
+    valid.  q and the output projection are plain products, as in the
+    JAX step; the attention is the decode op (kernel 4 on 'cuda')."""
+    q = torch.einsum("bd,dhk->bhk", h, lp["wq"])
+    o = _decode_attend(cfg, q, xk, xv, xk.shape[1])
+    return torch.einsum("bhk,hkd->bd", o, lp["wo"])
+
+
+def _audio_layer(cfg, lp, x, self_delta, cross_delta):
+    """One encoder-decoder decoder layer of a decode step: ``self_delta``
+    / ``cross_delta`` (attention params, normed h) -> delta, then the
+    MLP, each added to the residual stream."""
+    x = x + self_delta(lp["self"], _norm(cfg, lp["self_norm"], x))
+    x = x + cross_delta(lp["cross"], _norm(cfg, lp["cross_norm"], x))
+    return x + L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
+                     backend=cfg)
+
+
 def _ffn_delta(cfg, lp, x, moe: bool):
     """The decode FFN's delta: the MLP, or the MoE FFN over all B slots
     as one group, inactive slots included, as the JAX decode step groups
@@ -551,7 +710,8 @@ def _ffn_delta(cfg, lp, x, moe: bool):
 
 def decode_step(params, batch, cfg):
     """One-token serve step.  batch: ``token`` (B,), ``cur_len`` (host
-    int: every slot at the same position), ``cache`` (updated in place).
+    int: every slot at the same position), ``cache`` (updated in place;
+    the audio family's cross pair is read whole, as the encoder's).
     With a ``block_table`` in the batch (and per-slot ``cur_len``) the
     step runs over a paged cache instead: ``paged_decode_step``.
 
@@ -566,14 +726,25 @@ def decode_step(params, batch, cfg):
     # would sync the stream)
     rope = _step_rope(cfg, torch.full((1,), cur, dtype=torch.float32,
                                       device=x.device))
-    for stacked, key, moe in _groups(cfg, params):
-        group = _cache_group(cache, key)
+    if cfg.family == "audio":
+        stacked = params["layers"]
         for i in range(_depth(stacked)):
-            lp = _layer(stacked, i)
-            h = _norm(cfg, lp["attn_norm"], x)
-            x = x + _decode_attn_delta(cfg, lp["attn"], h,
-                                       _layer(group, i), cur, rope)
-            x = x + _ffn_delta(cfg, lp, x, moe)
+            cs = _layer(cache, i)
+            x = _audio_layer(
+                cfg, _layer(stacked, i), x,
+                lambda ap, h: _decode_gqa(cfg, ap, h, cs["self_k"],
+                                          cs["self_v"], cur, rope),
+                lambda cp, h: _decode_cross(cfg, cp, h, cs["cross_k"],
+                                            cs["cross_v"]))
+    else:
+        for stacked, key, moe in _groups(cfg, params):
+            group = _cache_group(cache, key)
+            for i in range(_depth(stacked)):
+                lp = _layer(stacked, i)
+                h = _norm(cfg, lp["attn_norm"], x)
+                x = x + _decode_attn_delta(cfg, lp["attn"], h,
+                                           _layer(group, i), cur, rope)
+                x = x + _ffn_delta(cfg, lp, x, moe)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
     return logits, cache
@@ -595,6 +766,7 @@ class PagedStep(NamedTuple):
     offs: torch.Tensor       # (A,) offset in that page
     all_active: bool
     extra: tuple = ()        # further int32 host arrays, on the device
+    cross_counts: Any = None  # audio: (B, Jx) valid encoder keys a page
 
 
 def _to_host(x) -> np.ndarray:
@@ -614,13 +786,17 @@ def _page_write_ids(table, lens, page_size):
 
 
 def paged_step_meta(token, lens, table, page_size: int, device,
-                    extra=()) -> PagedStep:
+                    extra=(), enc_lens=None, enc_pages: int = 0
+                    ) -> PagedStep:
     """Build a paged step's metadata from host arrays — ``lens`` (B,),
     ``table`` (B, W), and ``token`` (B,) unless it is already on the
     device — with one host-to-device copy (asynchronous from pinned
     memory on CUDA, so the host does not wait for the device here).
     ``extra`` host int arrays (the mixed step's chunk tokens and pages)
-    ride the same copy and come back as ``PagedStep.extra``."""
+    ride the same copy and come back as ``PagedStep.extra``; so do, for
+    the audio family, the per-page counts of the encoder lengths
+    ``enc_lens`` (B,) over the cross cache's ``enc_pages`` pages a slot
+    (``PagedStep.cross_counts``)."""
     lens = _to_host(lens).astype(np.int32)
     table = _to_host(table).astype(np.int32)
     B, W = table.shape
@@ -628,8 +804,10 @@ def paged_step_meta(token, lens, table, page_size: int, device,
     counts = DD._page_counts(n_valid, W, page_size)
     on_device = (isinstance(token, torch.Tensor)
                  and token.device.type == device.type)
+    cross = () if enc_lens is None else (DD._page_counts(
+        _to_host(enc_lens), enc_pages, page_size).ravel(),)
     parts = [lens, act, pages, offs, table.ravel(), counts.ravel(),
-             *(_to_host(x).ravel() for x in extra)]
+             *cross, *(_to_host(x).ravel() for x in extra)]
     if not on_device:
         parts.append(_to_host(token))
     # each part padded to 4 int32, so every view starts 16-byte aligned
@@ -644,12 +822,23 @@ def paged_step_meta(token, lens, table, page_size: int, device,
         buf = buf.pin_memory().to(device, non_blocking=True)
     lens_d, act_d, pages_d, offs_d, tbl_d, cnt_d, *rest = [
         buf[at:at + n] for at, n in zip(starts, sizes)]
+    xcnt = rest.pop(0).view(B, enc_pages) if cross else None
     n_extra = len(extra)
     return PagedStep(token=token if on_device else rest[n_extra],
                      pos=lens_d, table=tbl_d.view(B, W),
                      counts=cnt_d.view(B, W), act=act_d, pages=pages_d,
                      offs=offs_d, all_active=len(act) == B,
-                     extra=tuple(rest[:n_extra]))
+                     extra=tuple(rest[:n_extra]), cross_counts=xcnt)
+
+
+@functools.lru_cache(maxsize=16)
+def identity_table(B: int, Jx: int, device) -> torch.Tensor:
+    """(B, Jx) int32 table whose slot b holds pages [b * Jx, (b + 1) *
+    Jx): the slot-dense cross cache (B, Jx * ps, KV, Dh) viewed as a
+    pool of B * Jx pages of ps.  Built once a (slots, pages, device) and
+    read, never written, by every layer of every step."""
+    return torch.arange(B * Jx, dtype=torch.int32,
+                        device=device).view(B, Jx)
 
 
 def _pool_write(pool, scales, meta, x):
@@ -701,6 +890,23 @@ def _decode_mla_paged(cfg, lp, h, ckv_pool, krope_pool, cs, rs, meta,
     return MLA.mla_decode_finish(lp, o.float(), cfg).to(h.dtype)
 
 
+def _decode_cross_paged(cfg, lp, h, xk, xv, page_size, meta):
+    """Cross-attention against the slot-dense encoder cache xk / xv (B,
+    Tx, KV, Dh), viewed as an identity-paged pool of pages of
+    ``page_size`` (a reshape, no copy), so the per-slot encoder lengths
+    (``meta.cross_counts``; 0 for an inactive slot) mask as the paged
+    self-attention does: the paged decode op (kernel 5 on 'cuda').  q and
+    the output projection are plain products, as in the JAX step."""
+    B, Tx = xk.shape[:2]
+    kp = xk.reshape(B * (Tx // page_size), page_size, *xk.shape[2:])
+    vp = xv.reshape(kp.shape)
+    table = identity_table(B, Tx // page_size, xk.device)
+    q = torch.einsum("bd,dhk->bhk", h, lp["wq"])
+    o = DD.paged_decode_attend(q, kp, vp, table, meta.cross_counts,
+                               backend=cfg.kernel_impl)
+    return torch.einsum("bhk,hkd->bd", o, lp["wo"])
+
+
 def _paged_attn_delta(cfg, ap, h, cs, meta, rope):
     """Attention step of the paged decode: MLA or GQA on this layer's
     pool slice ``cs``; int8 pools are told by their scales."""
@@ -722,9 +928,12 @@ def paged_decode_step(params, batch, cfg, meta=None):
     cur_len == 0 are inactive: they write nothing, their attention is
     masked to zero and their logits are garbage the caller discards
     (they still take part in the MoE FFN's one decode group, as in the
-    JAX step).  ``meta`` is the step's metadata when the caller already
-    built it (``paged_step_meta``; the mixed step does, with its
-    chunk's).  Returns (logits (B, vocab_padded) fp32, cache)."""
+    JAX step).  The audio family also takes ``enc_lens`` (B,), each
+    slot's encoder positions in its cross cache (host ints; 0 for an
+    inactive slot), which ride the step's one metadata copy.  ``meta`` is
+    the step's metadata when the caller already built it
+    (``paged_step_meta``; the mixed step does, with its chunk's).
+    Returns (logits (B, vocab_padded) fp32, cache)."""
     # engine modules import this one: keep the import lazy
     from repro_torch.engine.paged_cache import check_family
     check_family(cfg)
@@ -733,21 +942,38 @@ def paged_decode_step(params, batch, cfg, meta=None):
         # cache as it was
         raise NotImplementedError(DD._SEQ_SHARD)
     cache = batch["cache"]
+    leaf = pool_leaf(cfg, cache)
+    ps = leaf.shape[2]
     if meta is None:
-        leaf = pool_leaf(cfg, cache)
+        enc = {}
+        if cfg.family == "audio":
+            enc = dict(enc_lens=batch["enc_lens"],
+                       enc_pages=cache["cross_k"].shape[2] // ps)
         meta = paged_step_meta(batch["token"], batch["cur_len"],
-                               batch["block_table"], leaf.shape[2],
-                               leaf.device)
+                               batch["block_table"], ps, leaf.device,
+                               **enc)
     x = L.embed(params["embed"], meta.token).to(L.dt(cfg))   # (B, D)
     rope = _step_rope(cfg, meta.pos[:, None])         # per-slot positions
-    for stacked, key, moe in _groups(cfg, params):
-        group = _cache_group(cache, key)
+    if cfg.family == "audio":
+        stacked = params["layers"]
         for i in range(_depth(stacked)):
-            lp = _layer(stacked, i)
-            h = _norm(cfg, lp["attn_norm"], x)
-            x = x + _paged_attn_delta(cfg, lp["attn"], h, _layer(group, i),
-                                      meta, rope)
-            x = x + _ffn_delta(cfg, lp, x, moe)
+            cs = _layer(cache, i)
+            x = _audio_layer(
+                cfg, _layer(stacked, i), x,
+                lambda ap, h: _decode_gqa_paged(
+                    cfg, ap, h, cs["self_k"], cs["self_v"], None, None,
+                    meta, rope),
+                lambda cp, h: _decode_cross_paged(
+                    cfg, cp, h, cs["cross_k"], cs["cross_v"], ps, meta))
+    else:
+        for stacked, key, moe in _groups(cfg, params):
+            group = _cache_group(cache, key)
+            for i in range(_depth(stacked)):
+                lp = _layer(stacked, i)
+                h = _norm(cfg, lp["attn_norm"], x)
+                x = x + _paged_attn_delta(cfg, lp["attn"], h,
+                                          _layer(group, i), meta, rope)
+                x = x + _ffn_delta(cfg, lp, x, moe)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
     return logits, cache

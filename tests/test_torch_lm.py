@@ -129,21 +129,54 @@ def test_moe_prefill_suffix_matches_jax(name, kv_dtype):
         _close(g.numpy(), w, "suffix stacks")
 
 
-@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-350m",
-                                  "internvl2-2b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-350m"])
 def test_unported_families_raise(name):
-    """The dense and moe families are served (the moe family in
-    ``test_torch_moe.py``, its suffix prefill above); the other families
-    refuse their spec."""
+    """The KV-cache families are served (the moe family in
+    ``test_torch_moe.py``, the frontend families below and in
+    ``test_torch_vlm.py`` / ``test_torch_audio.py``); the recurrent
+    families refuse their spec, naming their ROADMAP item."""
     tc = tconfigs.reduced(tconfigs.get_config(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         lm.model_spec(tc)
+
+
+@pytest.mark.parametrize("name", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_frontend_family_spec_and_prefill_match_jax(name):
+    """The frontend families' spec (leaf shapes) and prefill (logits and
+    every cache stack) against JAX: the vlm's 8 frontend tokens open its
+    prompt, the audio encoder reads 11 frames."""
+    jc = jconfigs.reduced(jconfigs.get_config(name))
+    tc = tconfigs.reduced(tconfigs.get_config(name))
+    theirs = {tuple(k.key for k in path): tuple(a.shape) for path, a in
+              jax.tree_util.tree_flatten_with_path(jlm.abstract_init(jc))[0]}
+    from repro_torch.common.module import leaves
+    assert {path: tuple(d.shape) for path, d in
+            leaves(lm.model_spec(tc))} == theirs
+    params = jlm.init(jc, jax.random.PRNGKey(0))
+    tp = bridge.from_jax(jax.tree.map(np.asarray, params), "cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, jc.vocab, (B, 7)).astype(np.int32)
+    n = jc.frontend_tokens if jc.family == "vlm" else 11
+    emb = rng.standard_normal((B, n, jc.frontend_dim)).astype(np.float32)
+    jl, jkv = jlm.prefill(params, {"tokens": jnp.asarray(toks),
+                                   "frontend_emb": jnp.asarray(emb)}, jc)
+    tl, tkv = lm.prefill(tp, {"tokens": torch.from_numpy(toks),
+                              "frontend_emb": torch.from_numpy(emb)}, tc)
+    _close(tl.numpy(), jl, "prefill logits")
+    flat = jax.tree.leaves(jkv)
+    got = [t for pair in (tkv if jc.family == "audio" else (tkv,))
+           for t in pair]
+    assert len(got) == len(flat)
+    for t, j in zip(got, flat):
+        assert t.shape == j.shape
+        _close(t.numpy(), j, "prefill stacks")
 
 
 def test_paged_and_seq_sharded_decode_raise():
     """Paged decode is served now (``test_torch_paged.py``); what still
     raises is sequence-sharded decode, over the dense cache and over
-    the page pools, and the paged pools of unported families."""
+    the page pools.  The audio family's paged step is served too: one
+    step over its self pools and cross cache."""
     tc = tconfigs.reduced(tconfigs.get_config("tinyllama-1.1b"))
     tp = lm.init(tc, seed=0, device="cpu")
     cache = lm.init_cache(tc, 1, 8, device="cpu")
@@ -162,5 +195,15 @@ def test_paged_and_seq_sharded_decode_raise():
         lm.decode_step(tp, paged, tc.replace(decode_shard="seq"))
     # it raises before any pool write: the cache is left as it was
     assert not paged["cache"]["k"].any() and not paged["cache"]["v"].any()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        lm.decode_step(tp, paged, tc.replace(family="audio"))
+    ac = tconfigs.reduced(tconfigs.get_config("seamless-m4t-large-v2"))
+    ap = lm.init(ac, seed=0, device="cpu")
+    pools = tpc.init_paged_cache(ac, 2, 4, 1, enc_len=4, device="cpu")
+    pools["cross_k"].normal_()
+    pools["cross_v"].normal_()
+    logits, out = lm.decode_step(ap, {
+        "token": np.zeros(1, np.int32), "cur_len": np.ones(1, np.int32),
+        "block_table": np.zeros((1, 2), np.int32), "cache": pools,
+        "enc_lens": np.full(1, 3, np.int32)}, ac)
+    assert logits.shape == (1, ac.vocab_padded)
+    assert bool(torch.isfinite(logits).all())
+    assert out is pools and pools["self_k"][:, 0, 1].any()

@@ -583,8 +583,15 @@ def test_paged_engine_input_checks():
         eng.default_block_table()       # 3 pages < 2 slots x 2 pages
     with pytest.raises(ValueError, match="recurrent state"):
         tpc.check_family(tc.replace(family="ssm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        tpc.check_family(tc.replace(family="audio"))
+    with pytest.raises(ValueError, match="recurrent state"):
+        tpc.check_family(tc.replace(family="hybrid"))
+    # the frontend families are served; int8 audio pools are refused, as
+    # in the JAX package (the slot-dense cross cache stays model-dtype)
+    for fam in ("vlm", "audio"):
+        tpc.check_family(tc.replace(family=fam))
+    with pytest.raises(ValueError, match="audio family"):
+        tpc.paged_cache_spec(tc.replace(family="audio"), 3, 4,
+                             kv_dtype="int8")
     # the moe family is served, its prefix cache's fork_page too: every
     # leaf of the nested {"dense": None, "moe": ...} olmoe pools
     olmoe = tconfigs.reduced(tconfigs.get_config("olmoe-1b-7b"))

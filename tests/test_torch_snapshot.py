@@ -17,9 +17,13 @@ crash-free streams (model-dtype and int8 pools).
 Then the port copies of the JAX snapshot and journal units, and what is
 new in the port: an async snapshot followed by more steps restores the
 state at the cut (the port writes its pools in place), restored scale
-leaves keep their 16-byte layer stride, ``frontend_emb`` and a
-``"sched"`` block the port does not derive are refused, and sampled
-streams recover identical (the Gumbel noise is a hash of (seed, step)).
+leaves keep their 16-byte layer stride, a ``"sched"`` block the port
+does not derive is refused, and sampled streams recover identical (the
+Gumbel noise is a hash of (seed, step)).  The frontend families (vlm,
+audio): ``frontend_emb`` rides the journal and snapshots in the JAX
+encoding, JAX and port snapshots with frontends and encoder lengths
+restore in the other package, and their streams crash and recover
+identical.
 
 Widths are those of ``tests/test_snapshot.py`` (2 layers, d 64, page 4,
 chunk 8, fp32).  The JAX engines run on an explicit (1, 1) mesh with
@@ -666,27 +670,195 @@ def test_restore_refuses_a_sched_block_the_port_does_not_derive(
         restore(str(tmp_path), eng)
 
 
-def test_frontend_embeddings_are_refused(tmp_path):
-    """A submit event or a snapshot request carrying frontend_emb raises,
-    naming ROADMAP queue 1 item 11, instead of dropping it."""
-    eng = _engine("gqa", "bf16")
-    emb = {"data": [[0.0] * 4], "dtype": "float32"}
-    jpath = tmp_path / "journal.jsonl"
-    ev = {"ev": "submit", "rid": 0, "tokens": [3, 4], "gen": 2,
-          "frontend_emb": emb}
-    jpath.write_text(json.dumps(ev) + "\n")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        replay(Scheduler(eng), read_events(str(jpath)))
+# ------------------------------------------------- the frontend families
 
-    a = Scheduler(eng)
-    a.submit(_requests(eng.cfg.vocab)[0])
+# 2-layer vlm (4 frontend tokens) and audio (2 encoder layers) configs of
+# the widths above, frontends of dim 24; audio streams run under a cross
+# budget of ENC_LEN frames
+_FRONT = {"vlm": dict(family="vlm", frontend="vision", frontend_tokens=4,
+                      frontend_dim=24),
+          "audio": dict(family="audio", enc_layers=2, frontend="audio",
+                        frontend_dim=24)}
+ENC_LEN = 20
+_FRONT_EKW = dict(batch=2, max_len=24, paged=True, page_size=PS,
+                  n_pages=10)
+
+
+def _front_engines(family):
+    """(JAX engine, the port's engine with its parameters) of a frontend
+    family, once each."""
+    global _MESH
+    key = ("front", family)
+    if key not in _ENGINES:
+        if _MESH is None:
+            _MESH = jax.make_mesh((1, 1), ("data", "model"),
+                                  axis_types=(AxisType.Auto, AxisType.Auto))
+        kw = {**_BASE, **_FRONT[family]}
+        jeng = JEngine(jconfig.ModelConfig(**kw),
+                       JEngineConfig(**_FRONT_EKW), mesh=_MESH)
+        params = bridge.from_jax(jax.tree.map(np.asarray, jeng.params),
+                                 "cpu")
+        _ENGINES[key] = (jeng, DecodeEngine(
+            tconfig.ModelConfig(**kw),
+            EngineConfig(**_FRONT_EKW, kernel_impl="cuda"), params=params,
+            device="cpu"))
+    return _ENGINES[key]
+
+
+def _front_requests(cfg, req_cls=Request):
+    """Four requests with their frontends (audio: 9-18 frames), more than
+    the 2 slots, so a cut holds live slots and queued requests."""
+    rng = np.random.default_rng(5)
+    out = []
+    for i, (p, g, f) in enumerate(((3, 6, 18), (5, 5, 9), (2, 6, 13),
+                                   (4, 4, 11))):
+        n = cfg.frontend_tokens if cfg.family == "vlm" else f
+        out.append(req_cls(
+            rid=i, tokens=rng.integers(2, cfg.vocab, p).astype(np.int32),
+            gen=g, frontend_emb=rng.standard_normal(
+                (n, cfg.frontend_dim)).astype(np.float32)))
+    return out
+
+
+def _front_kw(family):
+    return {"enc_len": ENC_LEN} if family == "audio" else {}
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_frontend_snapshot_and_journal_restore_across_packages(
+        family, direction, tmp_path):
+    """A journaled stream of requests with frontends, cut by a snapshot
+    after step 3 (live slots, their encoder lengths, queued requests'
+    embeddings): the snapshot restored in the other package, with the
+    journal replayed over it, continues to the crash-free streams of the
+    JAX Scheduler, which the port's crash-free streams equal."""
+    from repro.engine import RequestJournal as JJournal
+    from repro.engine import read_events as jread
+    from repro.engine import replay as jreplay
+    jeng, eng = _front_engines(family)
+    kw = _front_kw(family)
+    jsched = JScheduler(jeng, **kw)
+    for r in _front_requests(jeng.cfg, JRequest):
+        jsched.submit(r)
+    want = jsched.run()
+    assert all(res.ok for res in want.values())
+    _assert_same_results(_run(eng, _front_requests(eng.cfg), **kw)[1],
+                         want)
+
+    d, path = str(tmp_path / "snap"), str(tmp_path / "journal.jsonl")
+    if direction == "jax-to-port":
+        src_eng, src_sched, src_req, src_journal = (jeng, JScheduler,
+                                                    JRequest, JJournal)
+        cut_fn, dst, dst_restore = jsnapshot, eng, restore
+        dst_replay, dst_read = replay, read_events
+    else:
+        src_eng, src_sched, src_req, src_journal = (eng, Scheduler, Request,
+                                                    RequestJournal)
+        cut_fn, dst, dst_restore = snapshot, jeng, jrestore
+        dst_replay, dst_read = jreplay, jread
+    cut = _CutAt(cut_fn, d, 3)
+    journal = src_journal(path)
+    sched = src_sched(src_eng, journal=journal, snapshotter=cut, **kw)
+    for r in _front_requests(src_eng.cfg, src_req):
+        sched.submit(r)
+    _assert_same_results(sched.run(), want)
+    journal.close()
+    state = _read_host(d, 3)
+    assert sum(s is not None for s in state["slots"]) == 2
+    assert all(q.get("frontend_emb") is not None for q in state["pending"])
+    assert (any(state["enc_lens"]) if family == "audio"
+            else not any(state["enc_lens"]))
+    got = dst_restore(d, dst)
+    assert got.stats["steps"] == 3
+    if family == "audio":
+        assert got.enc_budget == ENC_LEN
+        np.testing.assert_array_equal(got.enc_lens, state["enc_lens"])
+    queued = [q for q in got.pending]
+    assert queued and all(q.frontend_emb.dtype == np.float32
+                          for q in queued)
+    dst_replay(got, dst_read(path))
+    _assert_same_results(got.run(), want)
+    got.allocator.check()
+    assert got.allocator.free_pages == dst.n_pages
+
+
+def _read_host(directory, step):
+    with open(os.path.join(directory, f"step_{step}", "host.s0.npy"),
+              "rb") as f:
+        return json.loads(bytes(np.load(f)))
+
+
+def test_frontend_embeddings_round_trip(tmp_path):
+    """A request's ``frontend_emb`` rides the journal and a snapshot in
+    the JAX package's encoding (``{"data": list, "dtype": str}``), the
+    same line as the JAX journal writes, and comes back with its values
+    and dtype; a request without one carries no field."""
+    from repro.engine import RequestJournal as JJournal
+    _, eng = _front_engines("audio")
+    emb = np.random.default_rng(1).standard_normal((3, 4)).astype(
+        np.float32)
+    for cls, req_cls, name in ((RequestJournal, Request, "t"),
+                               (JJournal, JRequest, "j")):
+        j = cls(str(tmp_path / f"{name}.jsonl"))
+        j.submit(req_cls(rid=0, tokens=np.arange(3, dtype=np.int32),
+                         gen=2, frontend_emb=emb))
+        j.submit(req_cls(rid=1, tokens=np.arange(2, dtype=np.int32),
+                         gen=2))
+        j.close()
+    line = (tmp_path / "t.jsonl").read_text()
+    assert line == (tmp_path / "j.jsonl").read_text()
+    ev = read_events(str(tmp_path / "t.jsonl"))
+    assert ev[0]["frontend_emb"]["dtype"] == "float32"
+    assert "frontend_emb" not in ev[1]
+    b = Scheduler(eng, enc_len=ENC_LEN)
+    replay(b, ev)
+    got = list(b.pending)
+    np.testing.assert_array_equal(got[0].frontend_emb, emb)
+    assert got[0].frontend_emb.dtype == np.float32
+    assert got[1].frontend_emb is None
+
+    a = Scheduler(eng, enc_len=ENC_LEN)
+    for r in got:
+        a.submit(r)
     step = snapshot(a, str(tmp_path / "snap"))
+    c = restore(str(tmp_path / "snap"), eng)
+    np.testing.assert_array_equal(c.pending[0].frontend_emb, emb)
+    assert c.pending[1].frontend_emb is None and c.enc_budget == ENC_LEN
+    assert _read_host(str(tmp_path / "snap"), step)["sched"]["enc_len"] \
+        == ENC_LEN
 
-    def edit(state):
-        state["pending"][0]["frontend_emb"] = emb
-    _edit_host(str(tmp_path / "snap"), step, edit)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        restore(str(tmp_path / "snap"), eng)
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+def test_frontend_crash_recover_bit_identical(family, tmp_path):
+    """A frontend stream crashed at step 5 (snapshots every 2 steps) and
+    recovered by ``serve_with_recovery`` ends with the crash-free run's
+    streams and page accounting; the audio Scheduler's ``enc_len`` rides
+    ``sched_kwargs`` into the restored one."""
+    _, eng = _front_engines(family)
+    kw = _front_kw(family)
+    _, want = _run(eng, _front_requests(eng.cfg), **kw)
+    starts = []
+
+    def on_start(sched, fresh):
+        starts.append(fresh)
+        if fresh:
+            faults.inject(sched, decode_faults=[faults.CrashFault(step=5)])
+
+    def submit(sched):
+        for r in _front_requests(eng.cfg):
+            sched.submit(r)
+
+    sched = serve_with_recovery(
+        eng, str(tmp_path), submit, snapshot_every=2,
+        policy=RestartPolicy(max_restarts=3, backoff_s=0.0),
+        on_start=on_start, sched_kwargs=kw)
+    assert starts[0] is True and False in starts[1:]
+    assert sched.snapshotter.saved >= 1
+    _assert_same_results(sched.finished, want)
+    sched.allocator.check()
+    assert sched.allocator.free_pages == eng.n_pages
+    assert not sched.enc_lens.any()
 
 
 @pytest.mark.parametrize("kind", KINDS)
