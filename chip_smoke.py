@@ -182,6 +182,24 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    request finished, launches on kernels 1-5 and 7's Hopper variants
    only, finished requests replayed in the live slots against a batch-1
    plain engine at 5e-2; seamless's int8 pools refused;
+6d. the recurrent families: phase 2 holds and times kernels 1-4 at
+   zamba2-1.2b's shared-block shapes (``check_hybrid_shapes``); their
+   reduced fp32 configs (prompts of 32: two chunks of 16) greedy streams
+   identical to the plain path's at 1e-3; then at full width and depth,
+   random conditioned bf16 weights, zamba2-1.2b (hybrid: 38 Mamba2
+   blocks of d_inner 4096, 64 heads of 64, d_state 64, chunk 256; the
+   shared attention + MLP block, 32 MHA heads of 64 and swiglu 8192,
+   invoked 7 times) and xlstm-350m (ssm: 4 groups of 5 mLSTM + 1 sLSTM,
+   d 1024, 4 heads of P 512): ``generate`` (batch 4, prompt 256, gen
+   32), zamba2's launches and variants held at phase 3's dense per-layer
+   counts times 7 invocations, xlstm's at zero for every kernel,
+   teacher-forced against the plain path at 5e-2; a decode step and a
+   prefill split by block kind (CUDA events: the Mamba2 / mLSTM / sLSTM
+   blocks alone, zamba2's shared block and kernels 1-4 alone); the
+   recurrence held in fp32 (a 512-token prefill's logits at positions
+   255-511 against a 256-token prefill and 256 teacher-forced decode
+   steps, 1e-3 of scale: the chunk carry and the one-token steps); the
+   paged engine's refusal of both;
 7. the moe family: kernels 10, 14 (dense latent cache) and 11, 13
    (latent page pools, int8 with page scales) are held and timed in
    phase 2 at DeepSeek-V3's widths (H 128, r 512, rope 64); on reduced
@@ -1088,6 +1106,7 @@ def check_kernels(torch, F):
     check_mla_decode_variants(torch, F, compare, record)
     check_paged_q8_variants(torch, F, compare, record)
     check_frontend_shapes(torch, F, compare, record)
+    check_hybrid_shapes(torch, F, compare, record)
     check_conv_kernels(torch, F, gen, compare, record)
     return results
 
@@ -3077,6 +3096,98 @@ def check_frontend_shapes(torch, F, compare, record):
               f"{row['fma_ms']:.4f} ms")
 
 
+def check_hybrid_shapes(torch, F, compare, record):
+    """Kernels 1-4 at the shapes zamba2-1.2b's shared block gives them in
+    phase 6d's ``generate`` (batch 4, prompt 256, gen 32; d 2048, 32 MHA
+    heads of 64, swiglu 8192): the prefill's products (M 1024) on wgmma
+    tiles, the decode step's down projection (M 4) on split-K, swiglu on
+    wgmma at both, the causal prefill attention, and kernel 4 over the
+    invocation's dense cache at its last step (287 keys) on its split
+    variant; each held against the plain version, bitwise over two
+    launches, and timed beside the bound and the library call.  A
+    generator of its own (seed 28), so the other cases keep their
+    inputs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vwr_attention as KA
+    from repro_torch.kernels import vwr_decode as KD
+    from repro_torch.kernels import vwr_matmul as KM
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("zamba2-1.2b's shared-block shapes")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(bf16)
+
+    for label, M, K, N, res, kind in (
+            ("zamba2 q/k/v", 1024, 2048, 2048, False, "wgmma"),
+            ("zamba2 o+res", 1024, 2048, 2048, True, "wgmma"),
+            ("zamba2 down+res", 1024, 8192, 2048, True, "wgmma"),
+            ("zamba2 decode down", 4, 8192, 2048, False, "splitk")):
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        r = randn(M, N) if res else None
+        shape = f"{M}x{K}x{N}" + ("+res" if res else "")
+        before = dict(build.VARIANTS)
+        got = KM.vwr_matmul(x, w, None, r)
+        torch.cuda.synchronize()
+        _served("vwr_matmul", shape, before, build, kind)
+        err = compare(f"vwr_matmul {kind}", shape, bf16, got,
+                      KM.vwr_matmul_ref(x, w, None, r))
+        _bitwise("vwr_matmul", shape, (got,), (KM.vwr_matmul(x, w, None, r),))
+        record("vwr_matmul", label, shape, bf16, err,
+               lambda: KM.vwr_matmul(x, w, None, r),
+               lambda: KM.vwr_matmul_ref(x, w, None, r),
+               (lambda: torch.addmm(r, x, w)) if res
+               else (lambda: torch.matmul(x, w)),
+               2 * M * K * N, 2 * (M * K + K * N + M * N * (2 if res else 1)))
+        record.rows[-1]["variant"] = kind
+
+    for label, M in (("zamba2 gate/up", 1024), ("zamba2 decode", 4)):
+        x = randn(M, 2048)
+        wg, wi = (randn(2048, 8192, scale=2048 ** -0.5) for _ in range(2))
+        _swiglu_case(torch, F, KM, build, x, wg, wi, label, compare, record,
+                     True, False)
+
+    B, S, H, D = 4, 256, 32, 64
+    q, k, v = (randn(B, S, H, D) for _ in range(3))
+    shape = f"B{B} S{S} H{H} KV{H} D{D}"
+    got = KA.vwr_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = compare("vwr_attention", shape, bf16, got,
+                  KA.vwr_attention_ref(q, k, v))
+    _bitwise("vwr_attention", shape, (got,), (KA.vwr_attention(q, k, v),))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    record("vwr_attention", "zamba2 prefill", shape, bf16, err,
+           lambda: KA.vwr_attention(q, k, v),
+           lambda: KA.vwr_attention_ref(q, k, v),
+           lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=True),
+           4 * B * H * D * S * (S + 1) // 2, 2 * 4 * B * S * H * D)
+
+    T = 288
+    n = S + GEN - 1
+    q = randn(B * H, 1, D)
+    k, v = randn(B, T, H, D), randn(B, T, H, D)
+    shape = f"B{B} T{T} KV{H} G1 D{D} cur{n}"
+    before = dict(build.VARIANTS)
+    got = KD.vwr_flash_decode(q, k, v, n)
+    torch.cuda.synchronize()
+    _served("vwr_flash_decode", shape, before, build, "split")
+    err = compare("vwr_flash_decode", shape, f32, got,
+                  KD.vwr_flash_decode_ref(q, k, v, n))
+    _bitwise("vwr_flash_decode", shape, got, KD.vwr_flash_decode(q, k, v, n))
+    qs = q.reshape(B, H, 1, D)
+    ks, vs = (t[:, :n].transpose(1, 2) for t in (k, v))
+    record("vwr_flash_decode", "zamba2 decode", shape, bf16, err,
+           lambda: KD.vwr_flash_decode(q, k, v, n),
+           lambda: KD.vwr_flash_decode_ref(q, k, v, n),
+           lambda: F.scaled_dot_product_attention(qs, ks, vs),
+           4 * B * H * D * n,
+           2 * (B * H * D + 2 * B * n * H * D) + 4 * B * H * (D + 2))
+    record.rows[-1]["plan"] = list(KD.decode_plan(B * H, n))
+
+
 # ----------------------------------------------------------------------
 # kernels 16 and 17: the paper's CNN layers (phase 2 and phase 9)
 # ----------------------------------------------------------------------
@@ -3604,9 +3715,13 @@ def dense_kernel9(torch, cfg, cache, cur_len):
 
 
 # projections rescaled by ``_condition``: GQA's, the MLPs' and experts',
-# the unembedding, and MLA's
+# the unembedding, MLA's, and the Mamba2 / mLSTM blocks' in and out
+# projections (HF Zamba2's Linear init is std 0.02 too)
 PROJECTIONS = ("wq", "wk", "wv", "wo", "wi", "wg", "w", "wq_a", "wq_b",
-               "wkv_a", "wk_b", "wv_b")
+               "wkv_a", "wk_b", "wv_b", "in_proj", "out_proj")
+# Mamba2's time steps at init, log-uniform (mamba_ssm's and HF Zamba2's
+# time_step_min / time_step_max)
+DT_RANGE = (1e-3, 1e-1)
 
 
 def _std(torch, t, chunk=1 << 24):
@@ -3635,16 +3750,28 @@ def _condition(torch, params):
     and no two rounding orders agree after 22 layers.  Every projection
     is rescaled to std 0.02 (HF Llama's initializer_range) and the QKV
     biases drawn at std 0.02, so the fused bias is not a sum of
-    zeros."""
+    zeros.  Mamba2's ``dt_bias`` is drawn as mamba_ssm and HF Zamba2
+    initialize it, softplus^-1 of time steps log-uniform in
+    ``DT_RANGE``: the JAX init's constant 0.5 gives steps of ~1, whose
+    sums over a 256-token chunk spread a block's output over so wide a
+    range that the bf16 rounding of its inputs alone moves it far from
+    its fp32 value (phase 6d's block-by-block gaps)."""
+    import math
+
     from repro_torch.common.module import leaves
 
     g = torch.Generator(device="cuda").manual_seed(3)
+    lo, hi = (math.log(v) for v in DT_RANGE)
     for path, t in leaves(params):
         if path[-1] in PROJECTIONS:
             t.mul_(0.02 / _std(torch, t))
         elif path[-1] in ("bq", "bk", "bv"):
             t.copy_(torch.randn(t.shape, generator=g, device=t.device)
                     * 0.02)
+        elif path[-1] == "dt_bias":
+            dt = torch.exp(torch.rand(t.shape, generator=g, device=t.device)
+                           * (hi - lo) + lo)
+            t.copy_(dt + torch.log(-torch.expm1(-dt)))
 
 
 def _decode(eng, tok, pos, cache):
@@ -3701,9 +3828,12 @@ def serve_reduced_fp32(torch, name):
     path at the Pallas-vs-XLA tolerance, greedy streams identical; kernel
     4 (where the family decodes through it) on its FMA kernel.  The
     frontend families take random embeddings: the vlm's frontend tokens
-    ahead of the prompt, 23 encoder frames for audio."""
+    ahead of the prompt, 23 encoder frames for audio.  The recurrent
+    families' prompts are 32 tokens (two chunks of 16: a prompt must be
+    a multiple of the chunk), the others' 31."""
     from repro_torch.engine import DecodeEngine, EngineConfig
     from repro_torch.kernels import build
+    from repro_torch.models import lm
 
     cfg = _reduced(name)
     n_front = cfg.frontend_tokens if cfg.family == "vlm" else 0
@@ -3712,7 +3842,8 @@ def serve_reduced_fp32(torch, name):
     ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
                        params=eng.params, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
-    prompts = torch.randint(0, cfg.vocab, (2, 31), generator=g,
+    P = 32 if lm.ssm_decode_supported(cfg) else 31
+    prompts = torch.randint(0, cfg.vocab, (2, P), generator=g,
                             device="cuda", dtype=torch.int32)
     batch = {"tokens": prompts}
     if cfg.frontend:
@@ -5398,35 +5529,45 @@ def _vlm_prefill_layers(torch, eng, ref, batch):
         logits = lm.prefill(params, batch, cfg)[0][:, :cfg.vocab]
         return hs, logits
 
-    (hk, lk), (hp, lp), (h32, l32) = (
-        hidden(eng.cfg, eng.params), hidden(ref.cfg, eng.params),
-        hidden(cfg32, p32))
+    out = _path_gaps(torch, "internvl2", "layer",
+                     hidden(eng.cfg, eng.params),
+                     hidden(ref.cfg, eng.params), hidden(cfg32, p32))
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _path_gaps(torch, what, unit, kernel, plain, fp32):
+    """``_rel`` between the kernel path, the plain bf16 path and the plain
+    path in fp32, each given as (hidden states after each ``unit``, the
+    prefill's logits); printed at five sampled units.  Raises if the
+    kernel path's logits end farther from fp32 than twice the plain bf16
+    path's."""
+    (hk, lk), (hp, lp), (h32, l32) = kernel, plain, fp32
     out = {"kernel_vs_plain": [_rel(a, b) for a, b in zip(hk, hp)],
            "kernel_vs_fp32": [_rel(a, b) for a, b in zip(hk, h32)],
            "plain_vs_fp32": [_rel(a, b) for a, b in zip(hp, h32)],
            "logits": {"kernel_vs_plain": _rel(lk, lp),
                       "kernel_vs_fp32": _rel(lk, l32),
                       "plain_vs_fp32": _rel(lp, l32)}}
-    del p32, hk, hp, h32
-    torch.cuda.empty_cache()
     n = len(out["kernel_vs_plain"])
     picks = sorted({0, n // 4, n // 2, 3 * n // 4, n - 1})
-    print("  prefill layer by layer (hidden states, max |d|/max|ref|; "
-          f"layers {', '.join(str(i + 1) for i in picks)}): " + "; ".join(
+    print(f"  prefill {unit} by {unit} (hidden states, max |d|/max|ref|; "
+          f"{unit}s {', '.join(str(i + 1) for i in picks)}): " + "; ".join(
               f"{k.replace('_', ' ')} " + ", ".join(
                   f"{out[k][i]:.3e}" for i in picks)
               for k in ("kernel_vs_plain", "kernel_vs_fp32",
                         "plain_vs_fp32")))
     steps = [b - a for a, b in zip([0.0] + out["kernel_vs_fp32"],
                                    out["kernel_vs_fp32"])]
-    print(f"    kernel vs fp32: largest rise {max(steps):.3e} at layer "
+    print(f"    kernel vs fp32: largest rise {max(steps):.3e} at {unit} "
           f"{steps.index(max(steps)) + 1}; prefill logits: kernel vs plain "
           f"{out['logits']['kernel_vs_plain']:.3e}, kernel vs fp32 "
           f"{out['logits']['kernel_vs_fp32']:.3e}, plain vs fp32 "
           f"{out['logits']['plain_vs_fp32']:.3e}")
     if not (out["logits"]["kernel_vs_fp32"]
             <= 2 * out["logits"]["plain_vs_fp32"]):
-        raise AssertionError("internvl2 prefill: the kernel path ends "
+        raise AssertionError(f"{what} prefill: the kernel path ends "
                              "farther from fp32 than twice the plain path")
     return out
 
@@ -5755,6 +5896,374 @@ def serve_frontends(torch):
     out[AUDIO]["recovery"] = audio_recovery(torch, params)
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 6d: the recurrent families, zamba2 (hybrid) and xlstm (ssm)
+# ----------------------------------------------------------------------
+
+HYBRID, XLSTM = "zamba2-1.2b", "xlstm-350m"
+# generate: batch 4, a 256-token prompt (one chunk of 256), gen 32
+RECUR_BATCH, RECUR_PROMPT = 4, 256
+# the recurrence held in fp32: a 512-token prefill (two chunks) against
+# a 256-token prefill and 256 teacher-forced decode steps, batch 2
+RECUR_SPLIT, RECUR_CHECK_BATCH = 256, 2
+# calls a decode step's part is timed over
+SHARE_REPS = 10
+
+
+def _part_ms(torch, fn, reps=SHARE_REPS):
+    """Mean CUDA-event ms of ``fn`` over ``reps`` calls issued back to
+    back after one untimed call: host launches included, since a decode
+    step's parts are many small kernels each."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _recurrent_layers(lm, cfg, params):
+    """Every recurrent block's parameters in model order, with its kind
+    ("mamba2", "mlstm", "slstm") and its pre-norm (None for sLSTM, which
+    norms its own input)."""
+    out = []
+    if cfg.family == "hybrid":
+        k, n_main, tail, _ = lm._hybrid_groups(cfg)
+        for g in range(n_main):
+            gp = lm._layer(params["mamba_main"], g)
+            gn = lm._layer(params["mamba_norms"], g)
+            out += [("mamba2", lm._layer(gp, i), lm._layer(gn, i))
+                    for i in range(k)]
+        out += [("mamba2", lm._layer(params["mamba_tail"], i),
+                 lm._layer(params["tail_norms"], i)) for i in range(tail)]
+        return out
+    m_per, n_groups = lm._ssm_groups(cfg)
+    for g in range(n_groups):
+        gp = lm._layer(params["mlstm"], g)
+        gn = lm._layer(params["mlstm_norms"], g)
+        out += [("mlstm", lm._layer(gp, i), lm._layer(gn, i))
+                for i in range(m_per)]
+        out.append(("slstm", lm._layer(params["slstm"], g), None))
+    return out
+
+
+def _recurrent_breakdown(torch, eng, cache, prompts, pos):
+    """Where a decode step's and a prefill's time goes: a whole decode
+    step (at ``pos``, over ``cache``, which it writes) beside each block
+    kind's steps alone (every block of the model on one input, states
+    read from ``cache`` and not written back), the shared block's decode
+    (zamba2: attention + MLP, once an invocation) and kernels 1-4 alone
+    as a step launches them (the MLP's swiglu and down projection and
+    kernel 4, once an invocation); the prefill of ``prompts`` beside
+    each block kind's forward alone.  CUDA-event ms, host launches
+    included."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vwr_decode as KD
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import xlstm as XL
+
+    cfg, params = eng.cfg, eng.params
+    B = prompts.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(29)
+    dt = getattr(torch, cfg.dtype)
+    x = torch.randn(B, cfg.d_model, generator=g, device="cuda").to(dt)
+    xs = torch.randn(B, prompts.shape[1], cfg.d_model, generator=g,
+                     device="cuda").to(dt)
+    tok = prompts[:, -1].contiguous()
+    layers = _recurrent_layers(lm, cfg, params)
+    states = {"mamba2": [], "mlstm": [], "slstm": []}
+    if cfg.family == "hybrid":
+        k, n_main, tail, n_inv = lm._hybrid_groups(cfg)
+        states["mamba2"] = (
+            [lm._state_at(cache["mamba_main"], gi, i)
+             for gi in range(n_main) for i in range(k)]
+            + [lm._state_at(cache["mamba_tail"], i) for i in range(tail)])
+    else:
+        m_per, n_groups = lm._ssm_groups(cfg)
+        n_inv = 0
+        states["mlstm"] = [lm._state_at(cache["mlstm"], gi, i)
+                           for gi in range(n_groups) for i in range(m_per)]
+        states["slstm"] = [lm._state_at(cache["slstm"], gi)
+                           for gi in range(n_groups)]
+    step_fn = {"mamba2": SSM.mamba2_step, "mlstm": XL.mlstm_step,
+               "slstm": XL.slstm_step}
+    fwd_fn = {"mamba2": SSM.mamba2_forward, "mlstm": XL.mlstm_forward,
+              "slstm": XL.slstm_forward}
+
+    def blocks(kind, decode):
+        its = iter(states[kind])
+        work = [(p, next(its) if decode else None)
+                for kd, p, _ in layers if kd == kind]
+
+        def run():
+            for p, st in work:
+                if decode:
+                    step_fn[kind](p, x, st, cfg)
+                else:
+                    fwd_fn[kind](p, xs, cfg)
+        return run
+
+    out = {"decode_step_ms": _part_ms(
+        torch, lambda: eng.decode_step(tok, pos, cache))}
+    kinds = sorted({kd for kd, _, _ in layers})
+    with torch.no_grad():
+        for kind in kinds:
+            out[f"{kind}_blocks_ms"] = _part_ms(torch, blocks(kind, True))
+        if n_inv:
+            sp = params["shared_attn"]
+            rope = lm._step_rope(cfg, torch.full((1,), pos,
+                                                 dtype=torch.float32,
+                                                 device="cuda"))
+            ck, cv = cache["attn_k"][0], cache["attn_v"][0]
+
+            def shared():
+                for _ in range(n_inv):
+                    h = lm._norm(cfg, sp["attn_norm"], x)
+                    y = x + lm._decode_gqa(cfg, sp["attn"], h, ck, cv, pos,
+                                           rope)
+                    lm._ffn_delta(cfg, sp, y, False)
+            q = torch.randn(B * cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head,
+                            generator=g, device="cuda").to(dt)
+
+            def kernels():
+                for _ in range(n_inv):
+                    hh = ops.vwr_swiglu(x, sp["mlp"]["wg"], sp["mlp"]["wi"])
+                    ops.vwr_matmul(hh, sp["mlp"]["wo"])
+                    KD.vwr_flash_decode(q, ck, cv, pos + 1)
+            out["shared_block_ms"] = _part_ms(torch, shared)
+            out["kernels_1_4_ms"] = _part_ms(torch, kernels)
+        else:
+            out["kernels_1_4_ms"] = 0.0
+        out["prefill_ms"] = _part_ms(
+            torch, lambda: eng.prefill({"tokens": prompts}), reps=3)
+        for kind in kinds:
+            out[f"{kind}_prefill_ms"] = _part_ms(torch, blocks(kind, False),
+                                                 reps=3)
+    step = out["decode_step_ms"]
+    shares = {k[:-3]: v / step for k, v in out.items()
+              if k.endswith("_ms") and k not in ("decode_step_ms",
+                                                 "prefill_ms")
+              and "prefill" not in k}
+    print(f"  decode step (B{B}, pos {pos}): {step:.3f} ms; shares of it "
+          "(the part alone / the step): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
+    print(f"  prefill (B{B} x {prompts.shape[1]}): {out['prefill_ms']:.2f} "
+          "ms; " + ", ".join(f"{kind} blocks alone "
+                             f"{out[f'{kind}_prefill_ms']:.2f} ms"
+                             for kind in kinds))
+    out["decode_shares"] = shares
+    return out
+
+
+def _hybrid_prefill_blocks(torch, eng, ref, prompts, p32):
+    """zamba2's prefill of ``prompts`` block by block (after each Mamba2
+    block and each shared-block invocation) on the kernel path, the plain
+    bf16 path and the plain path in fp32 over the same weights widened
+    (``p32``), held by ``_path_gaps``: the Mamba2 blocks launch no kernel,
+    so there the two bf16 paths part only through the shared blocks'
+    kernels, and both drift from fp32 alike."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as SSM
+
+    def hidden(cfg, params):
+        x = L.embed(params["embed"], prompts).to(L.dt(cfg))
+        pos = torch.arange(x.shape[1], device=x.device)
+        k, hs = cfg.mamba2.attn_every, []
+        for n, (_, lp, ln) in enumerate(_recurrent_layers(lm, cfg, params)):
+            x = x + SSM.mamba2_forward(lp, lm._norm(cfg, ln, x), cfg)[0]
+            hs.append(x.float())
+            if (n + 1) % k == 0 or n + 1 == cfg.n_layers:
+                x = lm._dense_body(cfg, pos, x, params["shared_attn"])[0]
+                hs.append(x.float())
+        logits = lm.prefill(params, {"tokens": prompts}, cfg)[0]
+        return hs, logits[:, :cfg.vocab]
+
+    with torch.no_grad():
+        return _path_gaps(torch, eng.cfg.name, "block",
+                          hidden(eng.cfg, eng.params),
+                          hidden(ref.cfg, eng.params),
+                          hidden(ref.cfg.replace(dtype="float32"), p32))
+
+
+def recurrence_fp32(torch, name, p32):
+    """The recurrence held at full width in fp32 (TF32 off): the logits of
+    a 512-token prefill (two chunks of 256) at positions 255-511 against
+    a 256-token prefill's and then 256 teacher-forced ``decode_step``s'
+    over the same (conditioned) weights widened to fp32 (``p32``), within
+    1e-3 of the logits' scale.  It crosses a chunk boundary, so it holds
+    the chunk carry and ``mamba2_step`` / ``mlstm_step`` / ``slstm_step``
+    against ``_ssd_scan`` / ``mlstm_chunkwise`` / the sLSTM loop."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig
+    from repro_torch.models import lm
+
+    cfg = get_config(name).replace(dtype="float32")
+    B, S = RECUR_CHECK_BATCH, RECUR_SPLIT
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (B, 2 * S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    V = cfg.vocab
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = lm.backbone(p32, toks, cfg).h
+        want = lm._logits(p32, h[:, S - 1:], cfg).float()[..., :V]
+    del h
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    eng = DecodeEngine(cfg, EngineConfig(batch=B, max_len=2 * S,
+                                         kernel_impl="cuda"),
+                       params=p32, device="cuda")
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill({"tokens": toks[:, :S]})
+    errs = [(logits[:, :V] - want[:, 0]).abs().max().item()]
+    for i in range(S):
+        logits, cache = eng.decode_step(toks[:, S + i], S + i, cache)
+        errs.append((logits[:, :V] - want[:, i + 1]).abs().max().item())
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    scale = max(1.0, want.abs().max().item())
+    worst = max(errs) / scale
+    at = errs.index(max(errs))
+    print(f"  {name} fp32 recurrence: prefill {2 * S} vs prefill {S} + {S} "
+          f"decode steps, max|d logits| / scale {worst:.3e} (limit "
+          f"{E2E_FP32_TOL:g}; scale {scale:.3f}), the largest at position "
+          f"{S - 1 + at}; {t_full:.2f} s / {t_steps:.2f} s")
+    if not worst <= E2E_FP32_TOL:
+        raise AssertionError(f"{name}: decode steps part from the chunked "
+                             "prefill")
+    del eng, cache, want
+    torch.cuda.empty_cache()
+    return {"batch": B, "split": S, "rel_err": worst, "at": S - 1 + at,
+            "scale": scale, "t_prefill_s": t_full, "t_steps_s": t_steps}
+
+
+def serve_recurrent_generate(torch, name, expected, variants):
+    """Full-width ``generate`` of a recurrent family on the kernel backend
+    (after a warm-up one): zamba2's shared block launches kernels 1-4 at
+    the dense per-layer counts (``expected`` / ``variants`` of phase 3)
+    times its 7 invocations, on their Hopper variants; xlstm launches no
+    kernel at all.  The stream teacher-forced through the plain path at
+    5e-2 of the logits' scale (zamba2's prefill also block by block
+    against the plain path in bf16 and in fp32), where the time goes,
+    the fp32 recurrence and the paged engine's refusal.  Returns the
+    summary."""
+    from repro_torch.common.module import leaves, map_tree
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+
+    cfg = get_config(name)
+    hybrid = cfg.family == "hybrid"
+    B, P, gen = RECUR_BATCH, RECUR_PROMPT, GEN
+    ecfg = EngineConfig(batch=B, max_len=P + gen, kernel_impl="cuda")
+    t0 = time.perf_counter()
+    eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
+    _condition(torch, eng.params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in leaves(eng.params))
+    if hybrid:
+        mc = cfg.mamba2
+        k, n_main, tail, n_inv = lm._hybrid_groups(cfg)
+        layout = (f"{cfg.n_layers} Mamba2 blocks ({n_main} x {k} + "
+                  f"{tail}; d_inner {mc.expand * cfg.d_model}, "
+                  f"{mc.expand * cfg.d_model // mc.head_dim} heads of "
+                  f"{mc.head_dim}, d_state {mc.d_state}, chunk {mc.chunk}), "
+                  f"the shared block {n_inv} times ({cfg.n_heads} heads of "
+                  f"{cfg.d_head}, swiglu {cfg.d_ff})")
+    else:
+        m_per, n_groups = lm._ssm_groups(cfg)
+        n_inv = 0
+        layout = (f"{n_groups} groups of {m_per} mLSTM + 1 sLSTM (d "
+                  f"{cfg.d_model}, {cfg.n_heads} heads of P "
+                  f"{int(cfg.xlstm.proj_factor * cfg.d_model) // cfg.n_heads}"
+                  f", chunk {cfg.xlstm.chunk})")
+    print(f"{name}: {layout}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
+          f"params ({time.perf_counter() - t0:.1f} s to init); batch {B}, "
+          f"prompt {P}, gen {gen}")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=g,
+                            device="cuda", dtype=torch.int32)
+    eng.generate({"tokens": prompts}, gen=gen)
+    build.reset_launches()
+    tokens, stats = eng.generate({"tokens": prompts}, gen=gen)
+    torch.cuda.synchronize()
+    launches, variant_counts = dict(build.LAUNCHES), dict(build.VARIANTS)
+    if hybrid:
+        want = {**expected(n_inv, gen), **variants(n_inv, gen)}
+    else:
+        want = {k: 0 for k in (*launches, *variant_counts)}
+    print(f"  launches in generate: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    for k, n in want.items():
+        got = launches[k] if k in launches else variant_counts[k]
+        if got != n:
+            raise AssertionError(f"{name}: {k} launched {got} times, "
+                                 f"expected {n}")
+    _no_fallback(name, variant_counts)
+    if tokens.shape != (B, gen) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{name}: bad tokens {tokens.shape}")
+    print(f"  prefill {1e3 * stats['t_prefill_s']:.2f} ms, decode_tok_s "
+          f"{stats['decode_tok_s']:.1f} ({1e3 * stats['t_decode_s'] / (gen - 1):.3f}"
+          f" ms a step)")
+    ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                       params=eng.params, device="cuda")
+    rel, cache = _teacher_forced(torch, eng, ref, prompts, tokens, P, gen,
+                                 check_greedy=True)
+    print(f"  teacher-forced logits vs plain path: max |d|/max|ref| "
+          f"{max(rel):.3e} over {len(rel)} steps (limit {E2E_BF16_REL:g})")
+    if not max(rel) <= E2E_BF16_REL:
+        raise AssertionError(f"{name}: logits diverge from the plain path")
+    p32 = map_tree(lambda t: t.float(), eng.params)
+    blocks = (_hybrid_prefill_blocks(torch, eng, ref, prompts, p32)
+              if hybrid else None)
+    del ref
+    breakdown = _recurrent_breakdown(torch, eng, cache, prompts,
+                                     P + gen - 1)
+    del cache
+    recurrence = recurrence_fp32(torch, name, p32)
+    del p32
+    try:
+        DecodeEngine(cfg, ecfg.replace(paged=True), params=eng.params,
+                     device="cuda")
+    except ValueError as e:
+        refused = str(e)
+        print(f"  paged engine: refused ({e})")
+    else:
+        raise AssertionError(f"{name}: the paged engine must refuse it")
+    del eng
+    torch.cuda.empty_cache()
+    return {"arch": name, "batch": B, "prompt": P, "gen": gen,
+            "n_params": n_params,
+            "launches": {k: n for k, n in launches.items() if n},
+            "variants": {k: n for k, n in variant_counts.items() if n},
+            "logits_rel_err": rel, "prefill_blocks": blocks,
+            "breakdown": breakdown, "recurrence_fp32": recurrence,
+            "paged_refused": refused,
+            **stats}
+
+
+def serve_recurrent(torch, expected, variants):
+    """Phase 6d: zamba2-1.2b and xlstm-350m, reduced fp32 configs first
+    (greedy streams identical, 1e-3), then at full width and depth with
+    random conditioned bf16 weights, beside the card."""
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    out = {"card": card, "reduced_fp32_max_abs": {
+        n: serve_reduced_fp32(torch, n) for n in (HYBRID, XLSTM)}}
+    for name in (HYBRID, XLSTM):
+        out[name] = serve_recurrent_generate(torch, name, expected, variants)
+    print(f"  ({card})")
     return out
 
 
@@ -6516,6 +7025,9 @@ def main() -> int:
     front_fp32 = {n: serve_reduced_fp32(torch, n) for n in (VLM, AUDIO)}
     front = serve_frontends(torch)
 
+    print("the recurrent families: zamba2-1.2b (hybrid), xlstm-350m (ssm)")
+    recurrent = serve_recurrent(torch, expected, variants)
+
     print("the moe family: DeepSeek-V3 (MLA) and OLMoE (GQA)")
     moe_fp32 = {n: serve_reduced_fp32(torch, n)
                 for n in (DEEPSEEK, "olmoe-1b-7b")}
@@ -6614,7 +7126,7 @@ def main() -> int:
                            DEEPSEEK: deepseek["recovery"],
                            AUDIO: front[AUDIO]["recovery"]},
               "frontend_reduced_fp32_max_abs": front_fp32,
-              "frontends": front,
+              "frontends": front, "recurrent": recurrent,
               "moe_reduced_fp32_max_abs": moe_fp32,
               "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,

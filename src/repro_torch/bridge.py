@@ -26,8 +26,19 @@ def to_torch(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _convert(v, device):
+    if v is None:
+        return None
+    if isinstance(v, dict):
+        return from_jax(v, device)
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        # a recurrent state (NamedTuple): the same fields, as tensors
+        return type(v)(*(_convert(f, device) for f in v))
+    return to_torch(v, device)
+
+
 def from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:
-    """Nested dict of arrays -> the same nested dict of tensors."""
-    return {k: (from_jax(v, device) if isinstance(v, dict)
-                else to_torch(v, device))
-            for k, v in tree.items()}
+    """Nested dict of arrays -> the same nested dict of tensors.  A
+    NamedTuple (a JAX cache's recurrent state) converts field by field
+    into the same NamedTuple type; None stays None."""
+    return {k: _convert(v, device) for k, v in tree.items()}

@@ -58,6 +58,21 @@ def ones_init(gen, shape, dtype, device):
     return torch.ones(shape, dtype=dtype, device=device)
 
 
+def const_init(value: float) -> Callable:
+    """An initializer filling every element with ``value``."""
+    def init(gen, shape, dtype, device):
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return init
+
+
+def a_log_init(gen, shape, dtype, device):
+    """Mamba2's ``a_log``: log(A) with A in [1, 16] along the last axis
+    (as in the reference implementation), broadcast over any leading
+    layer-stack axes."""
+    row = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device))
+    return row.expand(shape).to(dtype).contiguous()
+
+
 # ---------------- tree utilities ----------------
 
 def leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()

@@ -1,7 +1,9 @@
 """Decode-cache construction: place prefill KV material into the
-fixed-size decode buffers (counterpart of ``repro.engine.cache``, for
-the KV-cache families)."""
+fixed-size decode buffers, and the recurrent families' final states into
+the cache as they are (counterpart of ``repro.engine.cache``)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import lm
 
@@ -23,7 +25,24 @@ def pad_cache_from_prefill(cfg, caches, batch, max_len, enc_len=0):
     fixed-size decode cache: (k, v) or (c_kv, k_rope) stacks, or for the
     moe family the pair (dense layers' stacks or None, MoE layers'), or
     for the audio family the pair (self (k, v), cross (xk, xv)), whose
-    cross cache holds ``enc_len`` positions (``max_len`` when 0)."""
+    cross cache holds ``enc_len`` positions (``max_len`` when 0).  The
+    hybrid family's shared-block stacks land at offset 0 of ``attn_k`` /
+    ``attn_v`` (main groups' invocations, then the tail's); its Mamba2
+    states, and the ssm family's mLSTM / sLSTM states, are taken as they
+    are."""
+    if cfg.family == "ssm":
+        m_sts, s_st = caches
+        return {"mlstm": m_sts, "slstm": s_st}
+    if cfg.family == "hybrid":
+        (st_main, kv_main), (st_tail, kv_tail) = caches
+        cache = lm.init_cache(cfg, batch, max_len, device=kv_main[0].device)
+        cache["mamba_main"] = st_main
+        if st_tail is not None:
+            cache["mamba_tail"] = st_tail
+            kv_main = tuple(torch.cat([m, t[None]]) for m, t in
+                            zip(kv_main, kv_tail))
+        _put({"k": cache["attn_k"], "v": cache["attn_v"]}, kv_main)
+        return cache
     if cfg.family == "audio":
         (k, v), (xk, xv) = caches
         cache = lm.init_cache(cfg, batch, max_len, enc_len=enc_len,

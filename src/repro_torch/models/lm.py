@@ -1,11 +1,14 @@
-"""Model assembly for the KV-cache families: spec, prefill and decode.
+"""Model assembly for every served family: spec, prefill and decode.
 
 Counterpart of ``repro.models.lm`` for the dense family (tinyllama,
 granite, qwen, deepseek-coder), the moe family (olmoe with GQA,
-deepseek-v3 with MLA) and the two frontend families: vlm (internvl2, a
+deepseek-v3 with MLA), the two frontend families: vlm (internvl2, a
 dense decoder whose prompt opens with the projected frontend
 embeddings) and audio (seamless-m4t, an encoder-decoder whose encoder
-reads the projected frame embeddings).  Conventions kept from the JAX
+reads the projected frame embeddings), and the two recurrent families:
+hybrid (zamba2, Mamba2 blocks with one shared attention + MLP block
+after every ``attn_every`` of them) and ssm (xlstm, groups of mLSTM
+blocks closed by one sLSTM block).  Conventions kept from the JAX
 package:
 
   * pre-norm attention + MLP (or MoE FFN); the attention and MLP
@@ -23,19 +26,34 @@ package:
     the prefill kernel is causal only) and ``enc_norm``, and each
     decoder layer adds a cross-attention block over the encoder output
     (plain q / k / v products, the output projection on the kernels);
-  * parameters are stacked on a leading layer axis; the layers run as
-    a Python loop over it;
+  * hybrid: the Mamba2 blocks (``models.ssm``, plain products) return
+    their residual delta; the shared block is a dense GQA layer with one
+    set of weights (``shared_attn``), so it runs kernels 1-3 on prefill
+    and kernel 4 on decode; ssm: mLSTM / sLSTM blocks (``models.xlstm``)
+    launch no kernel, and sLSTM blocks norm their own input;
+  * parameters are stacked on a leading layer axis (the recurrent
+    families' grouped stacks on two: (groups, blocks a group, ...)); the
+    layers run as a Python loop over them;
   * the dense decode cache is ``{"k", "v"}`` of shape (L, B, T, KV, Dh),
     or ``{"ckv", "krope"}`` (L, B, T, r / rope) for MLA, nested as
     ``{"dense": ..., "moe": ...}`` for the moe family (``"dense"`` None
     without dense layers); the audio family's is ``{"self_k", "self_v",
     "cross_k", "cross_v"}``, the cross pair sized by the encoder length;
+    the hybrid family's ``{"mamba_main": Mamba2State (n_main, k, B,
+    ...), "mamba_tail": Mamba2State (tail, B, ...) or None, "attn_k",
+    "attn_v": (n_invocations, B, T, KV, Dh)}`` and the ssm family's
+    ``{"mlstm": MLSTMState (groups, m a group, B, ...), "slstm":
+    SLSTMState (groups, B, D)}``, with the JAX package's field names,
+    fp32 states and model-dtype conv tails, the stabilizers ``m`` at
+    -1e30 in a fresh cache;
     the paged one holds pools of shape (L, n_pages, page_size, KV, Dh)
     or (L, n_pages, page_size, r / rope) (+ fp32 scales for int8 pools)
     in the same nesting, addressed through per-slot block tables
     (``paged_decode_step``); the audio family's cross pair stays
     slot-dense (L, slots, enc_p, KV, Dh) and is viewed as an
-    identity-paged pool at attend time;
+    identity-paged pool at attend time; the recurrent families have no
+    paged cache (O(1) state a slot: nothing to page), as in the JAX
+    package;
   * a prompt whose prefix is already in the pools (a prefix-cache hit,
     or the earlier chunks of a chunked prefill) prefills only its
     suffix against the prefix gathered back out of the pools
@@ -66,19 +84,17 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 
 def _check_family(cfg) -> None:
-    """The KV-cache families are ported (dense and moe, each with GQA or
-    MLA attention; vlm and audio); the recurrent ones raise with their
-    ROADMAP item."""
-    if cfg.family in FAMILIES:
-        return
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
-        "yet: ROADMAP queue 1 item 11 (remaining families)")
+    """Every family of the JAX package is served; any other name raises
+    as the JAX ``model_spec`` does."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 # ======================================================================
@@ -144,6 +160,27 @@ def _decoder_xattn_layer_spec(cfg):
     }
 
 
+def _hybrid_groups(cfg):
+    """zamba2's layout: ``n_layers`` Mamba2 blocks in groups of
+    ``attn_every``, the shared block after each group and after the tail
+    of the remaining blocks.  Returns (k, n_main_groups, tail,
+    shared-block invocations)."""
+    k = cfg.mamba2.attn_every
+    n_main = cfg.n_layers // k
+    tail = cfg.n_layers - n_main * k
+    return k, n_main, tail, n_main + (1 if tail else 0)
+
+
+def _ssm_groups(cfg):
+    """xlstm's layout: groups of (slstm_every - 1) mLSTM blocks and one
+    sLSTM block.  Returns (mLSTM blocks a group, groups)."""
+    k = cfg.xlstm.slstm_every
+    if cfg.n_layers % k:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                         f"slstm_every {k}")
+    return k - 1, cfg.n_layers // k
+
+
 def model_spec(cfg) -> Dict[str, Any]:
     _check_family(cfg)
     dtype = L.dt(cfg)
@@ -151,7 +188,25 @@ def model_spec(cfg) -> Dict[str, Any]:
         "embed": L.embedding_spec(cfg.vocab_padded, cfg.d_model, dtype),
         "final_norm": _norm_spec(cfg),
     }
-    if cfg.family == "moe":
+    if cfg.family == "hybrid":
+        k, n_main, tail, _ = _hybrid_groups(cfg)
+        spec["mamba_main"] = M.stack_specs(
+            M.stack_specs(SSM.mamba2_spec(cfg), k), n_main)
+        spec["mamba_norms"] = M.stack_specs(
+            M.stack_specs(_norm_spec(cfg), k), n_main)
+        if tail:
+            spec["mamba_tail"] = M.stack_specs(SSM.mamba2_spec(cfg), tail)
+            spec["tail_norms"] = M.stack_specs(_norm_spec(cfg), tail)
+        # the JAX package's _shared_attn_block_spec: GQA attention + MLP
+        spec["shared_attn"] = _encoder_layer_spec(cfg)
+    elif cfg.family == "ssm":
+        m_per, n_groups = _ssm_groups(cfg)
+        spec["mlstm"] = M.stack_specs(
+            M.stack_specs(XL.mlstm_spec(cfg), m_per), n_groups)
+        spec["mlstm_norms"] = M.stack_specs(
+            M.stack_specs(_norm_spec(cfg), m_per), n_groups)
+        spec["slstm"] = M.stack_specs(XL.slstm_spec(cfg), n_groups)
+    elif cfg.family == "moe":
         m = cfg.moe
         if m.first_k_dense:
             spec["dense_layers"] = M.stack_specs(
@@ -190,6 +245,23 @@ def _layer(stacked, i: int):
 
 def _depth(stacked) -> int:
     return next(M.leaves(stacked))[1].shape[0]
+
+
+def _stack_states(states):
+    """NamedTuple states -> one state of the same type, each field
+    stacked along a new leading axis."""
+    return type(states[0])(*(torch.stack(f) for f in zip(*states)))
+
+
+def _state_at(state, *index):
+    """A stacked state's entry at ``index``: views into its fields."""
+    return type(state)(*(f[index] for f in state))
+
+
+def _write_state(dst, src) -> None:
+    """``src``'s fields into ``dst``'s tensors, in place."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 def _groups(cfg, params):
@@ -319,6 +391,63 @@ def encode(params, frontend_emb, cfg):
     return _norm(cfg, params["enc_norm"], enc)
 
 
+def _hybrid_backbone(params, x, cfg):
+    """zamba2: each group of Mamba2 blocks, then the shared block (a
+    dense layer: the JAX package's ``_shared_attn_apply`` is its dense
+    body), over the groups and the tail.  Returns (x, ((main states
+    (n_main, k, B, ...), main (k, v) (n_main, B, S, KV, Dh)), (tail
+    states (tail, B, ...), tail (k, v) (B, S, KV, Dh)) or (None, None)))."""
+    k, n_main, tail, _ = _hybrid_groups(cfg)
+    sp = params["shared_attn"]
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def mambas(x, stacked, norms, n):
+        sts = []
+        for i in range(n):
+            d, st = SSM.mamba2_forward(_layer(stacked, i),
+                                       _norm(cfg, _layer(norms, i), x), cfg)
+            x = x + d
+            sts.append(st)
+        x, kv = _dense_body(cfg, positions, x, sp)
+        return x, _stack_states(sts), kv
+
+    sts, kvs = [], []
+    for g in range(n_main):
+        x, st, kv = mambas(x, _layer(params["mamba_main"], g),
+                           _layer(params["mamba_norms"], g), k)
+        sts.append(st)
+        kvs.append(kv)
+    main = (_stack_states(sts), tuple(torch.stack(t) for t in zip(*kvs)))
+    tail_out = (None, None)
+    if tail:
+        x, st, kv = mambas(x, params["mamba_tail"], params["tail_norms"],
+                           tail)
+        tail_out = (st, kv)
+    return x, (main, tail_out)
+
+
+def _ssm_backbone(params, x, cfg):
+    """xlstm: each group's mLSTM blocks (pre-normed, residual delta), then
+    its sLSTM block (which norms its own input).  Returns (x, (mLSTM
+    states (groups, m a group, B, ...), sLSTM states (groups, B, D)))."""
+    m_per, n_groups = _ssm_groups(cfg)
+    m_sts, s_sts = [], []
+    for g in range(n_groups):
+        gp = _layer(params["mlstm"], g)
+        gn = _layer(params["mlstm_norms"], g)
+        sts = []
+        for i in range(m_per):
+            d, st = XL.mlstm_forward(_layer(gp, i),
+                                     _norm(cfg, _layer(gn, i), x), cfg)
+            x = x + d
+            sts.append(st)
+        d, s_st = XL.slstm_forward(_layer(params["slstm"], g), x, cfg)
+        x = x + d
+        m_sts.append(_stack_states(sts))
+        s_sts.append(s_st)
+    return x, (_stack_states(m_sts), _stack_states(s_sts))
+
+
 class ForwardOut(NamedTuple):
     h: torch.Tensor          # (B, S, D) final hidden (post-norm)
     caches: Any              # KV stacks (see ``backbone``) or None
@@ -334,9 +463,16 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
     per-layer cache stacks: (k, v) (L, B, S, KV, Dh), or (c_kv, k_rope)
     (L, B, S, r / rope) for MLA; for the moe family the pair (dense
     layers' stacks or None, MoE layers' stacks); for audio the pair
-    (self (k, v), cross (xk, xv) (L, B, S_f, KV, Dh))."""
+    (self (k, v), cross (xk, xv) (L, B, S_f, KV, Dh)); for the recurrent
+    families the final states (``_hybrid_backbone``, ``_ssm_backbone``),
+    which are returned whether or not ``collect_cache`` is set."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens).to(L.dt(cfg))
+    if ssm_decode_supported(cfg):
+        x, caches = (_ssm_backbone if cfg.family == "ssm"
+                     else _hybrid_backbone)(params, x, cfg)
+        return ForwardOut(h=_norm(cfg, params["final_norm"], x),
+                          caches=caches)
     if frontend_emb is not None:
         frontend_emb = torch.as_tensor(frontend_emb, device=x.device)
     if cfg.family == "vlm":
@@ -575,17 +711,61 @@ def cross_shape(cfg, batch: int, enc_len: int):
     return (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.d_head)
 
 
+def _is_state(v) -> bool:
+    return isinstance(v, tuple) and hasattr(v, "_fields")
+
+
 def map_groups(fn, tree):
-    """``fn`` over a cache tree's leaves (a nested dict; None stays)."""
-    return {k: (None if v is None else map_groups(fn, v)
-                if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
+    """``fn`` over a cache tree's leaves (a nested dict whose groups may be
+    NamedTuple recurrent states, mapped field by field; None stays)."""
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return map_groups(fn, v)
+        if _is_state(v):
+            return type(v)(*(fn(f) for f in v))
+        return fn(v)
+    return {k: one(v) for k, v in tree.items()}
+
+
+def _recurrent_spec(cfg, batch: int, max_len: int):
+    """The recurrent families' cache tree of (shape, dtype) leaves: fp32
+    states, conv tails and the shared block's K/V in the model dtype."""
+    dtype, f32 = L.dt(cfg), torch.float32
+    if cfg.family == "hybrid":
+        mc = cfg.mamba2
+        k, n_main, tail, n_inv = _hybrid_groups(cfg)
+        _, H, P, _, N, d_xbc = SSM._dims(cfg)
+
+        def mstate(*lead):
+            return SSM.Mamba2State(
+                ssm=((*lead, batch, H, N, P), f32),
+                conv=((*lead, batch, mc.d_conv - 1, d_xbc), dtype))
+        kv = ((n_inv, batch, max_len, cfg.n_kv_heads, cfg.d_head), dtype)
+        return {"mamba_main": mstate(n_main, k),
+                "mamba_tail": mstate(tail) if tail else None,
+                "attn_k": kv, "attn_v": kv}
+    m_per, n_groups = _ssm_groups(cfg)
+    d_inner, H, P = XL._mlstm_dims(cfg)
+    lead, D = (n_groups, m_per, batch), cfg.d_model
+    s = ((n_groups, batch, D), f32)
+    return {
+        "mlstm": XL.MLSTMState(
+            C=((*lead, H, P, P), f32), n=((*lead, H, P), f32),
+            m=((*lead, H), f32),
+            conv=((*lead, cfg.xlstm.conv1d_kernel - 1, d_inner), dtype)),
+        "slstm": XL.SLSTMState(c=s, n=s, h=s, m=s)}
 
 
 def cache_spec(cfg, batch: int, max_len: int, enc_len: int = 0):
     """{name: (shape, dtype)} of the dense decode cache (nested for the
     moe family; the audio family's cross pair holds ``enc_len`` encoder
-    positions, ``max_len`` when 0)."""
+    positions, ``max_len`` when 0; NamedTuple states for the recurrent
+    families)."""
     _check_family(cfg)
+    if ssm_decode_supported(cfg):
+        return _recurrent_spec(cfg, batch, max_len)
     tree = group_specs(cfg, (batch, max_len))
     if cfg.family == "audio":
         xh = cross_shape(cfg, batch, enc_len or max_len)
@@ -595,9 +775,14 @@ def cache_spec(cfg, batch: int, max_len: int, enc_len: int = 0):
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0,
                device="cuda"):
-    return map_groups(
+    cache = map_groups(
         lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device),
         cache_spec(cfg, batch, max_len, enc_len))
+    if cfg.family == "ssm":
+        # the mLSTM / sLSTM stabilizers start at -inf-ish
+        cache["mlstm"].m.fill_(XL.M_START)
+        cache["slstm"].m.fill_(XL.M_START)
+    return cache
 
 
 def _rope_dim(cfg) -> int:
@@ -708,10 +893,67 @@ def _ffn_delta(cfg, lp, x, moe: bool):
     return L.mlp(lp["mlp"], h, cfg.act, backend=cfg)
 
 
+def _hybrid_decode(params, x, cache, cur, rope, cfg):
+    """zamba2's decode: each Mamba2 block's ``mamba2_step`` on its state
+    (written back into the cache in place), the shared block (a dense
+    layer's decode, kernel 4 on 'cuda') after each group and after the
+    tail on its invocation's K/V cache."""
+    k, n_main, tail, _ = _hybrid_groups(cfg)
+    sp = params["shared_attn"]
+
+    def mambas(x, stacked, norms, states, n, inv):
+        for i in range(n):
+            st = _state_at(states, i)
+            d, st1 = SSM.mamba2_step(_layer(stacked, i),
+                                     _norm(cfg, _layer(norms, i), x), st,
+                                     cfg)
+            x = x + d
+            _write_state(st, st1)
+        h = _norm(cfg, sp["attn_norm"], x)
+        x = x + _decode_gqa(cfg, sp["attn"], h, cache["attn_k"][inv],
+                            cache["attn_v"][inv], cur, rope)
+        return x + _ffn_delta(cfg, sp, x, False)
+
+    for g in range(n_main):
+        x = mambas(x, _layer(params["mamba_main"], g),
+                   _layer(params["mamba_norms"], g),
+                   _state_at(cache["mamba_main"], g), k, g)
+    if tail:
+        x = mambas(x, params["mamba_tail"], params["tail_norms"],
+                   cache["mamba_tail"], tail, n_main)
+    return x
+
+
+def _ssm_decode(params, x, cache, cfg):
+    """xlstm's decode: each group's ``mlstm_step``s, then its
+    ``slstm_step``, every state written back into the cache in place."""
+    m_per, n_groups = _ssm_groups(cfg)
+    for g in range(n_groups):
+        gp = _layer(params["mlstm"], g)
+        gn = _layer(params["mlstm_norms"], g)
+        for i in range(m_per):
+            st = _state_at(cache["mlstm"], g, i)
+            d, st1 = XL.mlstm_step(_layer(gp, i),
+                                   _norm(cfg, _layer(gn, i), x), st, cfg)
+            x = x + d
+            _write_state(st, st1)
+        st = _state_at(cache["slstm"], g)
+        d, st1 = XL.slstm_step(_layer(params["slstm"], g), x, st, cfg)
+        x = x + d
+        _write_state(st, st1)
+    return x
+
+
+def ssm_decode_supported(cfg) -> bool:
+    """Whether ``cfg``'s family decodes from recurrent state."""
+    return cfg.family in ("hybrid", "ssm")
+
+
 def decode_step(params, batch, cfg):
     """One-token serve step.  batch: ``token`` (B,), ``cur_len`` (host
     int: every slot at the same position), ``cache`` (updated in place;
-    the audio family's cross pair is read whole, as the encoder's).
+    the audio family's cross pair is read whole, as the encoder's; the
+    recurrent families' states are overwritten with the next ones).
     With a ``block_table`` in the batch (and per-slot ``cur_len``) the
     step runs over a paged cache instead: ``paged_decode_step``.
 
@@ -726,7 +968,11 @@ def decode_step(params, batch, cfg):
     # would sync the stream)
     rope = _step_rope(cfg, torch.full((1,), cur, dtype=torch.float32,
                                       device=x.device))
-    if cfg.family == "audio":
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, x, cache, cur, rope, cfg)
+    elif cfg.family == "ssm":
+        x = _ssm_decode(params, x, cache, cfg)
+    elif cfg.family == "audio":
         stacked = params["layers"]
         for i in range(_depth(stacked)):
             cs = _layer(cache, i)

@@ -130,14 +130,44 @@ def test_moe_prefill_suffix_matches_jax(name, kv_dtype):
 
 
 @pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-350m"])
-def test_unported_families_raise(name):
-    """The KV-cache families are served (the moe family in
-    ``test_torch_moe.py``, the frontend families below and in
-    ``test_torch_vlm.py`` / ``test_torch_audio.py``); the recurrent
-    families refuse their spec, naming their ROADMAP item."""
+def test_recurrent_families_refuse_paged(name):
+    """The recurrent families serve through the dense engine's
+    ``generate`` only (``test_torch_hybrid.py``, ``test_torch_xlstm.py``):
+    their state is O(1) a slot, nothing to page.  The paged engine (and
+    so the Scheduler), and the prefix cache and chunked prefill on either
+    engine, refuse them with the JAX package's ``ValueError``, on both
+    sides."""
+    from jax.sharding import AxisType
+
+    from repro.engine import DecodeEngine as JEngine
+    from repro.engine import EngineConfig as JEngineConfig
+    from repro_torch.engine import DecodeEngine, EngineConfig, Scheduler
+
+    jc = jconfigs.reduced(jconfigs.get_config(name))
     tc = tconfigs.reduced(tconfigs.get_config(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        lm.model_spec(tc)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    for kw, match in (
+            (dict(paged=True, page_size=4), "recurrent state"),
+            (dict(paged=True, page_size=4, kv_dtype="int8"),
+             "recurrent state"),
+            (dict(prefix_cache=True), "needs paged=True"),
+            (dict(chunked_prefill=True, chunk_tokens=4), "needs paged=True"),
+            (dict(paged=True, page_size=4, prefix_cache=True), "token-only"),
+            (dict(paged=True, page_size=4, chunked_prefill=True,
+                  chunk_tokens=4), "token-only")):
+        with pytest.raises(ValueError, match=match):
+            JEngine(jc, JEngineConfig(batch=1, max_len=16, **kw), mesh=mesh)
+        with pytest.raises(ValueError, match=match):
+            DecodeEngine(tc, EngineConfig(batch=1, max_len=16, **kw),
+                         device="cpu")
+    with pytest.raises(ValueError, match="recurrent state"):
+        tpc.init_paged_cache(tc, 4, 4, device="cpu")
+    eng = DecodeEngine(tc, EngineConfig(batch=1, max_len=16), device="cpu")
+    assert eng.suffix_prefill_fn is None and eng.mixed_fn is None
+    with pytest.raises(ValueError, match="paged engine"):
+        Scheduler(eng)
+    assert lm.ssm_decode_supported(tc) and jlm.ssm_decode_supported(jc)
 
 
 @pytest.mark.parametrize("name", ["internvl2-2b", "seamless-m4t-large-v2"])
