@@ -255,7 +255,23 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    the plain versions, and the fused bias + relu conv is timed against
    the conv followed by separate bias and relu passes; RN_112x112
    (stride 2) and AN_55x55 (stride 4) are printed as not covered;
-10. print ``{"kernels": [...]}``, then the last line
+10. training, on the 'torch' backend (the kernels are forward-only, as
+   the JAX package trains on 'xla'; no kernel launches here): (a)
+   tinyllama-1.1b at full width and depth, bf16 weights from a seed
+   (``_condition``ed), fp32 master copies and moments, remat "full",
+   4 x 1024 SyntheticLM tokens a step: one warm-up step through
+   ``build_train_step``, 5 timed (tok/s; forward + backward and the
+   optimizer by CUDA events; peak memory), every loss and grad norm
+   finite; (b) the first step again in fp32 (TF32 off): loss within
+   1e-2, each grad leaf within 5e-2 of its norm; (c) remat "none" /
+   "full" / "dots" at depth 2: the same grads; (d) each served family's
+   reduced fp32 config, 3 steps on the card against the same steps on
+   the CPU; (e) width_reduce(tinyllama): 50 steps, the loss falls by
+   0.3, and n_microbatches 4 matches 1; (f) 6 steps straight equal 3 +
+   a CheckpointStore save and restore + 3, bit for bit; (g) training
+   on kernel_impl "cuda" raises the forward-only ValueError; (h)
+   ``launch.train.main`` runs 20 steps and resumes to 30;
+11. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The reduced fp32 configs of phases 3-8 run at the CPU tests' widths
@@ -274,6 +290,7 @@ the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -6948,6 +6965,401 @@ def serve_cnn(torch):
 
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# phase 10: training (the 'torch' backend; the kernels are forward-only)
+# ----------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024          # (a): 4096 tokens a step
+TRAIN_TIMED = 5
+# (b): the bf16 step's loss and grads against the same step in fp32
+# (TF32 off): the port's full-width bf16 bounds (E2E_BF16_REL for grads)
+TRAIN_LOSS_REL = 1e-2
+# (d): a reduced fp32 step on the card against the same step on the CPU
+TRAIN_FP32_TOL = 1e-3
+# the moe family at capacity factor 4 (no drops), as the CPU tests run it
+TRAIN_FAMILIES = ("tinyllama-1.1b", "qwen1.5-0.5b", VLM, AUDIO,
+                  "zamba2-1.2b", "xlstm-350m", "olmoe-1b-7b", DEEPSEEK)
+
+
+def _leaf_gap(got, want):
+    """{path: ||got - want|| / ||want||} over two parameter trees (fp32)."""
+    from repro_torch.common.module import leaves
+
+    want = dict(leaves(want))
+    return {"/".join(k): float((g.float() - want[k].float()).norm()
+                               / want[k].float().norm().clamp_min(1e-30))
+            for k, g in leaves(got)}
+
+
+def _hold_adam(got, want, lr, tol, what):
+    """Parameters after Adam steps of total learning rate ``lr``: every
+    element within ``tol`` of its leaf's max |x|, but for at most 1e-3
+    of them, and none farther than 2.5 lr.  A near-zero gradient element
+    whose fp32 noise flips its sign moves by up to 2 lr in Adam's early
+    steps (the CPU tests saw <= 5.4e-4 of the elements, 1.97 lr)."""
+    from repro_torch.common.module import leaves
+
+    want = dict(leaves(want))
+    off = total = 0
+    worst = 0.0
+    for k, g in leaves(got):
+        r = want[k].to(g.device).float()
+        d = (g.float() - r).abs()
+        off += int((d > tol * r.abs().max()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()) / lr)
+    if off > 1e-3 * total or worst > 2.5:
+        raise AssertionError(f"{what}: {off} of {total} elements off "
+                             f"{tol} of scale, worst {worst:.3f} lr")
+    return {"off": off, "elements": total, "worst_over_lr": worst}
+
+
+def _deterministic(torch, on):
+    """``torch.use_deterministic_algorithms`` on / off; cuBLAS needs its
+    workspace config named (one stream: its results repeat anyway)."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(on)
+
+
+def train_full_width(torch):
+    """(a) tinyllama-1.1b at full width and depth (22 layers, d 2048,
+    vocab 32000), bf16 parameters from a seed (``_condition``ed: the
+    fan-in init's near-argmax attention turns bf16 rounding into O(1)
+    gradient gaps, 1.5x the fp32 gradient on the CPU at reduced width),
+    fp32 master copies and moments, remat "full", kernel_impl "torch":
+    one warm-up step through
+    ``build_train_step``, then 5 timed steps as the train step runs them
+    (``value_and_grad``, then ``adamw.update``), CUDA events between;
+    (b) the first step's loss and grads again in fp32, after freeing
+    (a)'s optimizer state, held to the bf16 ones."""
+    from repro_torch.common.module import leaves, map_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(TRAIN_ARCH).replace(kernel_impl="torch", remat="full")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=29))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, seed=29, device="cuda")
+    _condition(torch, params)
+    opt_cfg = adamw.OptConfig()     # lr 3e-4, 100 warmup steps
+    opt = adamw.init(opt_cfg, params)
+    state_bytes = sum(t.numel() * t.element_size() for tree in
+                      (params, opt.m, opt.v, opt.master)
+                      for _, t in leaves(tree))
+    n_params = sum(t.numel() for _, t in leaves(params))
+    # the first step's loss and grads, kept for (b)
+    (loss0, _), g0 = steps.value_and_grad(params, data.batch(0), cfg)
+    train_step = steps.build_train_step(cfg, opt_cfg)
+    params, opt, m = train_step(params, opt, data.batch(0))
+    torch.cuda.synchronize()
+    losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(TRAIN_TIMED)]
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        batch = steps.to_device(data.batch(1 + i), "cuda")
+        ev[i][0].record()
+        (loss, met), grads = steps.value_and_grad(params, batch, cfg)
+        ev[i][1].record()
+        params, opt, om = adamw.update(opt_cfg, grads, opt, params)
+        ev[i][2].record()
+        losses.append(loss)
+        norms.append(om["grad_norm"])
+        del grads
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    peak = torch.cuda.max_memory_allocated() - base
+    fb = [e[0].elapsed_time(e[1]) for e in ev]
+    up = [e[1].elapsed_time(e[2]) for e in ev]
+    tok_s = TRAIN_TIMED * TRAIN_BATCH * TRAIN_SEQ / wall
+    print(f"  (a) {TRAIN_ARCH} bf16, {n_params / 1e9:.3f} B params, "
+          f"B{TRAIN_BATCH} S{TRAIN_SEQ}, remat full: {tok_s:.1f} tok/s, "
+          f"{1e3 * wall / TRAIN_TIMED:.1f} ms a step (forward + backward "
+          f"{statistics.mean(fb):.1f} ms, optimizer "
+          f"{statistics.mean(up):.1f} ms); params + grads + optimizer "
+          f"state {(state_bytes + n_params * 2) / 1e9:.2f} GB, peak "
+          f"{peak / 1e9:.2f} GB over {base / 1e9:.2f} GB held before")
+    print(f"      losses {['%.4f' % x for x in losses]}, grad norms "
+          f"{['%.3f' % x for x in norms]}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"training: a loss or grad norm is not "
+                             f"finite: {losses} {norms}")
+    del opt, params
+    torch.cuda.empty_cache()
+
+    # (b) the fp32 referee of the first step
+    p32 = lm.init(cfg, seed=29, device="cuda")
+    _condition(torch, p32)
+    p32 = map_tree(lambda t: t.float(), p32)
+    (loss32, _), g32 = steps.value_and_grad(p32, data.batch(0),
+                                            cfg.replace(dtype="float32"))
+    del p32
+    rel = abs(float(loss0) - float(loss32)) / abs(float(loss32))
+    gaps = _leaf_gap(g0, g32)
+    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+    print(f"  (b) first step bf16 vs fp32: loss {float(loss0):.5f} / "
+          f"{float(loss32):.5f} ({rel:.2e} relative); worst grad leaves "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst))
+    if rel > TRAIN_LOSS_REL or worst[0][1] > E2E_BF16_REL:
+        raise AssertionError(f"training: the bf16 step is off its fp32 "
+                             f"referee: loss {rel:.3e}, grads {worst}")
+    del g0, g32
+    torch.cuda.empty_cache()
+    return {"params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "tok_s": tok_s, "step_ms": 1e3 * wall / TRAIN_TIMED,
+            "fwd_bwd_ms": fb, "optimizer_ms": up, "losses": losses,
+            "grad_norms": norms, "state_gb": (state_bytes + 2 * n_params)
+            / 1e9, "peak_gb": peak / 1e9, "held_before_gb": base / 1e9,
+            "fp32_loss_rel": rel, "fp32_worst_leaves": worst}
+
+
+def train_remat(torch):
+    """(c) remat "none", "full" and "dots" at full width and depth 2
+    (bf16, deterministic algorithms): the same grads within 1e-6 of each
+    leaf's max |g|."""
+    from repro_torch.common.module import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config(TRAIN_ARCH).replace(kernel_impl="torch", n_layers=2)
+    params = lm.init(cfg, seed=29, device="cuda")
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=29)
+                        ).batch(0)
+    _deterministic(torch, True)
+    try:
+        grads = {mode: dict(leaves(steps.value_and_grad(
+            params, batch, cfg.replace(remat=mode))[1]))
+            for mode in ("none", "full", "dots")}
+    finally:
+        _deterministic(torch, False)
+    out = {}
+    for mode in ("full", "dots"):
+        out[mode] = max(float((grads[mode][k] - g).abs().max()
+                              / g.abs().max().clamp_min(1e-30))
+                        for k, g in grads["none"].items())
+        print(f"  (c) remat {mode} vs none, depth 2: max |d| "
+              f"{out[mode]:.3e} of scale")
+        if out[mode] > 1e-6:
+            raise AssertionError(f"training: remat {mode!r} grads differ "
+                                 f"from 'none' by {out[mode]:.3e}")
+    return out
+
+
+def train_families(torch):
+    """(d) every family the port serves, reduced fp32 (the moe family at
+    capacity factor 4; weights ``_condition``ed): 3 train steps on the
+    card, each from the CPU run's state before it, held against the
+    CPU's step (``_hold_adam`` at 1e-3 of scale; losses 1e-4
+    relative)."""
+    import dataclasses
+
+    from repro_torch.common.module import map_tree
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    def to(tree, dev):
+        return (None if tree is None else
+                map_tree(lambda t: t.to(dev, copy=True), tree))
+
+    def state_to(st, dev):
+        return adamw.OptState(st.step.to(dev, copy=True), to(st.m, dev),
+                              to(st.v, dev), to(st.master, dev))
+
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=30)
+    out = {}
+    for name in TRAIN_FAMILIES:
+        cfg = _reduced(name).replace(kernel_impl="torch")
+        if cfg.moe is not None:
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                      capacity_factor=4.0))
+        step = steps.build_train_step(cfg, opt_cfg)
+        get = train.make_batch_fn(cfg, 2, 32)
+        p = lm.init(cfg, seed=29, device="cuda")
+        _condition(torch, p)
+        p = to(p, "cpu")
+        o = adamw.init(opt_cfg, p)
+        rows = []
+        for s in range(3):
+            pc, oc = to(p, "cuda"), state_to(o, "cuda")
+            p, o, m = step(p, o, get(s))
+            pc, oc, mc = step(pc, oc, get(s))
+            rel = abs(float(mc["loss"]) - float(m["loss"])) / float(m["loss"])
+            held = _hold_adam(pc, p, float(m["lr"]), TRAIN_FP32_TOL,
+                              f"{name} step {s}")
+            if rel > 1e-4:
+                raise AssertionError(f"{name} step {s}: loss {rel:.3e} "
+                                     "off the CPU's")
+            rows.append({"loss_rel": rel, **held})
+        out[name] = rows
+        print(f"  (d) {name} reduced fp32, 3 steps card vs CPU: loss "
+              f"{max(r['loss_rel'] for r in rows):.2e}, elements off "
+              f"{[r['off'] for r in rows]}, worst "
+              f"{max(r['worst_over_lr'] for r in rows):.3f} lr")
+    return out
+
+
+def train_width(torch):
+    """(e) width_reduce(tinyllama) fp32 on the card: 50 steps, batch 8,
+    seq 256, lr 1e-3, the mean of the last 5 losses below the first 5's
+    by 0.3 (JAX's test_loss_decreases); n_microbatches 4 vs 1 on one
+    batch (weights ``_condition``ed) within 5e-5 but for the elements
+    ``_hold_adam`` allows; (f) 6 straight steps against 3,
+    a CheckpointStore save, a restore into fresh tensors and 3 more,
+    under deterministic algorithms: losses and parameters equal; (g)
+    ``lm.train_loss`` with kernel_impl "cuda" raises the forward-only
+    ValueError."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.common.module import leaves, map_tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = train.width_reduce(get_config(TRAIN_ARCH)).replace(
+        kernel_impl="torch", remat="none")
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=50)
+    get = train.make_batch_fn(cfg, 8, 256)
+    step = steps.build_train_step(cfg, opt_cfg)
+    p = lm.init(cfg, seed=29, device="cuda")
+    o = adamw.init(opt_cfg, p)
+    losses = []
+    for s in range(50):
+        p, o, m = step(p, o, get(s))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"  (e) {cfg.name} fp32, 50 steps B8 S256: first 5 {head:.4f}, "
+          f"last 5 {tail:.4f}")
+    if not (tail < head - 0.3 and all(map(math.isfinite, losses))):
+        raise AssertionError(f"training: the loss did not fall: {losses}")
+
+    mb_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    p0 = lm.init(cfg, seed=30, device="cuda")
+    _condition(torch, p0)
+    runs = {}
+    for nm in (1, 4):
+        pp = map_tree(lambda t: t.clone(), p0)
+        runs[nm] = steps.build_train_step(cfg.replace(n_microbatches=nm),
+                                          mb_cfg)(
+            pp, adamw.init(mb_cfg, pp), get(0))
+    # within 5e-5 (JAX's test), but for the elements an fp32 sign flip
+    # of a near-zero gradient moves by an Adam step (_hold_adam's rule)
+    pairs = [(a, b) for (_, a), (_, b) in zip(leaves(runs[4][0]),
+                                              leaves(runs[1][0]))]
+    lr = float(runs[1][2]["lr"])
+    d = max(float((a - b).abs().max()) for a, b in pairs)
+    off = sum(int(((a - b).abs() > 5e-5).sum()) for a, b in pairs)
+    total = sum(a.numel() for a, _ in pairs)
+    mb = {"max_abs": d, "off_5e-5": off, "elements": total, "lr": lr,
+          "loss": [float(runs[nm][2]["loss"]) for nm in (4, 1)]}
+    print(f"  (e) n_microbatches 4 vs 1: max |d| {d:.3e} ({d / lr:.3f} lr), "
+          f"{off} of {total} elements past 5e-5; loss {mb['loss']}")
+    if off > 1e-3 * total or d > 2.5 * lr:
+        raise AssertionError(f"training: microbatches part: {mb}")
+
+    ck = ROOT / "build" / "train_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    get4 = train.make_batch_fn(cfg, 4, 256)
+    _deterministic(torch, True)
+    try:
+        p = lm.init(cfg, seed=31, device="cuda")
+        o = adamw.init(opt_cfg, p)
+        straight = []
+        for s in range(6):
+            p, o, m = step(p, o, get4(s))
+            straight.append(float(m["loss"]))
+        q = lm.init(cfg, seed=31, device="cuda")
+        r = adamw.init(opt_cfg, q)
+        resumed = []
+        for s in range(3):
+            q, r, m = step(q, r, get4(s))
+            resumed.append(float(m["loss"]))
+        store = CheckpointStore(str(ck))
+        store.save(3, {"params": q, "opt": r})
+        q = lm.init(cfg, seed=32, device="cuda")
+        r = adamw.init(opt_cfg, q)
+        store.restore(3, {"params": q, "opt": r})
+        for s in range(3, 6):
+            q, r, m = step(q, r, get4(s))
+            resumed.append(float(m["loss"]))
+    finally:
+        _deterministic(torch, False)
+        shutil.rmtree(ck, ignore_errors=True)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(leaves(p), leaves(q)))
+    print(f"  (f) 6 straight steps vs 3 + save + restore + 3: losses "
+          f"{'equal' if straight == resumed else 'DIFFER'}, parameters "
+          f"{'equal' if same else 'DIFFER'}")
+    if straight != resumed or not same:
+        raise AssertionError(f"training: resume is not exact: {straight} "
+                             f"{resumed}")
+
+    try:
+        lm.train_loss(p, get(0), cfg.replace(kernel_impl="cuda"))
+    except ValueError as e:
+        if "forward-only" not in str(e):
+            raise
+        print(f"  (g) kernel_impl='cuda' refused: {str(e)[:60]}...")
+    else:
+        raise AssertionError("training on kernel_impl='cuda' was not "
+                             "refused")
+    return {"losses": losses, "microbatches": mb,
+            "resume_losses": straight}
+
+
+def train_launcher(torch):
+    """(h) ``launch.train.main`` on the card: --reduce width, 20 steps,
+    a checkpoint every 10; run again to 30 it resumes from step 20."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    ck = ROOT / "build" / "train_smoke_launcher"
+    shutil.rmtree(ck, ignore_errors=True)
+    args = ["--arch", TRAIN_ARCH, "--reduce", "width", "--batch", "8",
+            "--seq", "256", "--ckpt", str(ck), "--ckpt-every", "10",
+            "--log-every", "5"]
+    try:
+        first = train.main(args + ["--steps", "20"])
+        second = train.main(args + ["--steps", "30"])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if [s for s, _ in first] != [0, 5, 10, 15, 19] or \
+            [s for s, _ in second] != [20, 25, 29]:
+        raise AssertionError(f"launcher steps {first} {second}")
+    return {"first": first, "resumed": second}
+
+
+def serve_training(torch):
+    """Phase 10: (a)-(h)."""
+    t0 = time.perf_counter()
+    out = {"full_width": train_full_width(torch),
+           "remat": train_remat(torch),
+           "families": train_families(torch),
+           "width": train_width(torch),
+           "launcher": train_launcher(torch)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  training phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -7044,6 +7456,9 @@ def main() -> int:
 
     print("the paper's CNN path: provet_cnn suite on kernels 16 and 17")
     cnn = serve_cnn(torch)
+
+    print("training: the 'torch' backend (the kernels are forward-only)")
+    training = serve_training(torch)
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
@@ -7130,7 +7545,7 @@ def main() -> int:
               "moe_reduced_fp32_max_abs": moe_fp32,
               "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,
-              "deepseek": deepseek, "cnn": cnn,
+              "deepseek": deepseek, "cnn": cnn, "training": training,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

@@ -13,8 +13,11 @@ Counterpart of ``repro.checkpoint.store`` on one device.  Layout::
     before the next save (at most one in flight); ``wait()`` re-raises
     a failed write;
   * leaf keys are the JAX store's: the path of each leaf through nested
-    dicts (keys sorted), joined by ``/``, with ``None`` subtrees dropped,
-    as ``jax.tree_util.tree_flatten_with_path`` walks them, so a store
+    dicts (keys sorted), NamedTuples (``.<field>``, fields in order:
+    an optimizer state ``OptState`` keys as ``opt/.step``,
+    ``opt/.m/<path>``, ...) and plain tuples and lists (the index),
+    joined by ``/``, with ``None`` subtrees dropped, as
+    ``jax.tree_util.tree_flatten_with_path`` walks them, so a store
     written by either package reads in the other.
 
 The port writes one shard per leaf (one device, no elastic re-shard);
@@ -41,8 +44,9 @@ import torch
 
 
 def _leaf_paths(tree) -> Dict[str, Any]:
-    """{key: leaf} of a tree of nested dicts, ``None`` subtrees dropped,
-    in the JAX flattening order (dict keys sorted)."""
+    """{key: leaf} of a tree of nested dicts, NamedTuples, tuples and
+    lists, ``None`` subtrees dropped, in the JAX flattening order (dict
+    keys sorted, a NamedTuple's fields and a sequence's items in order)."""
     out: Dict[str, Any] = {}
 
     def walk(node, path):
@@ -51,6 +55,12 @@ def _leaf_paths(tree) -> Dict[str, Any]:
         if isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], path + (str(k),))
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f in node._fields:
+                walk(getattr(node, f), path + ("." + f,))
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
         else:
             out["/".join(path)] = node
     walk(tree, ())

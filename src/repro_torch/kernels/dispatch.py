@@ -16,6 +16,10 @@ Backends:
 
 The measured per-shape choice ('auto' in the JAX package) is not
 ported yet.
+
+Training differentiates through 'torch' only (``training_backend``), as
+the JAX package trains on 'xla': no hand-written kernel defines a
+backward, and none is routed around silently.
 """
 from __future__ import annotations
 
@@ -23,8 +27,25 @@ from typing import Any, Callable, Dict, Tuple
 
 BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
+# backends autograd can differentiate through (the JAX package's
+# DIFFERENTIABLE_BACKENDS = ("xla",))
+DIFFERENTIABLE_BACKENDS: Tuple[str, ...] = ("torch",)
+
 # op -> backend -> implementation
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
+
+
+def training_backend(cfg_or_backend: Any) -> str:
+    """The backend training may use: a differentiable one is returned as
+    is; a forward-only pin ('cuda') raises."""
+    backend = backend_for(cfg_or_backend)
+    if backend not in DIFFERENTIABLE_BACKENDS:
+        raise ValueError(
+            f"kernel_impl={backend!r} is forward-only (prefill/decode/"
+            "eval): the hand-written CUDA kernels define no backward.  "
+            f"Train with kernel_impl in {DIFFERENTIABLE_BACKENDS} "
+            "(kernel_impl='torch').")
+    return backend
 
 
 def register(op: str, backend: str) -> Callable[[Callable], Callable]:

@@ -1,1 +1,1 @@
-"""Step builders for serving."""
+"""Step builders (training and serving) and the train launcher."""

@@ -82,8 +82,34 @@ def embedding_spec(vocab, d, dtype):
                               embed_init)}
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's gradients in fp32
+    and rounds the sum once to the table's dtype.  A bf16 table's plain
+    indexing backward sums a frequent token's rows in bf16: its gradient
+    sat 0.148 of its norm off the fp32 one on the card (tinyllama-1.1b,
+    4 x 1024 SyntheticLM tokens, a third of them one token)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        d = g.shape[-1]
+        acc = torch.zeros((ctx.rows, d), dtype=torch.float32,
+                          device=g.device)
+        acc.index_add_(0, idx.reshape(-1), g.reshape(-1, d).float())
+        return acc.to(g.dtype), None
+
+
 def embed(p, tokens):
-    return p["table"][tokens.long()]
+    table = p["table"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Lookup.apply(table, tokens.long())
+    return table[tokens.long()]
 
 
 def unembed_spec(vocab, d, dtype):

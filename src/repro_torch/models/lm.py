@@ -1,4 +1,5 @@
-"""Model assembly for every served family: spec, prefill and decode.
+"""Model assembly for every served family: spec, train loss, prefill and
+decode.
 
 Counterpart of ``repro.models.lm`` for the dense family (tinyllama,
 granite, qwen, deepseek-coder), the moe family (olmoe with GQA,
@@ -67,6 +68,12 @@ package:
     frontend families have no suffix path (their prompts open with
     frontend positions a token-keyed prefix cannot match).
 
+Training (``train_loss``, ``ce_loss``) runs on the 'torch' backend only,
+as the JAX package trains on 'xla': the kernels are forward-only.  Every
+layer body runs through ``_maybe_remat`` (``cfg.remat``), which acts only
+under autograd; the moe family's ``backbone`` returns the MoE aux losses
+averaged over its MoE layers.
+
 ``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda').
 """
 from __future__ import annotations
@@ -76,6 +83,9 @@ from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common import module as M
 from repro_torch.dist import decode as DD
@@ -238,6 +248,46 @@ def init(cfg, seed: int = 0, device="cuda"):
     return M.init_params(model_spec(cfg), seed=seed, device=device)
 
 
+# ======================================================================
+# remat
+# ======================================================================
+
+# the products whose outputs "dots" keeps: those with no batch dims (the
+# JAX package's dots_with_no_batch_dims_saveable); batched einsums
+# (bmm) are recomputed with everything else
+_DOTS_SAVEABLE = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_requires_grad(v) for v in tree)
+    return False
+
+
+def _maybe_remat(cfg, fn):
+    """A layer body under ``cfg.remat``: "none" runs it as is, "full"
+    through ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward), "dots" the same keeping the products with no batch dims.
+    It checkpoints only when grad is enabled and an argument requires
+    grad, so serving runs the body itself."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS_SAVEABLE)
+
+    def body(*args):
+        if not (torch.is_grad_enabled() and _requires_grad(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return body
+
+
 def _layer(stacked, i: int):
     """Layer ``i``'s parameters (or cache): views into the stacks."""
     return M.map_tree(lambda a: a[i], stacked)
@@ -347,10 +397,11 @@ def _dense_body(cfg, positions, x, lp, *, causal=True):
 
 
 def _moe_body(cfg, positions, x, lp):
+    """Returns (x, (k, v), the MoE FFN's aux losses)."""
     x, kv = _attn_delta(cfg, lp["attn"], _norm(cfg, lp["attn_norm"], x),
                         positions, residual=x)
-    y, _aux = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x), cfg)
-    return x + y, kv
+    y, aux = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x), cfg)
+    return x + y, kv, aux
 
 
 def _xattn_body(cfg, positions, enc, enc_valid, x, lp):
@@ -384,10 +435,11 @@ def encode(params, frontend_emb, cfg):
     (B, S_enc, d_model) in the model dtype."""
     enc = L.frontend_proj(params["frontend"], frontend_emb).to(L.dt(cfg))
     pos = torch.arange(enc.shape[1], device=enc.device)
+    body = _maybe_remat(cfg, functools.partial(_dense_body, cfg, pos,
+                                               causal=False))
     stacked = params["enc_layers"]
     for i in range(_depth(stacked)):
-        enc, _ = _dense_body(cfg, pos, enc, _layer(stacked, i),
-                             causal=False)
+        enc, _ = body(enc, _layer(stacked, i))
     return _norm(cfg, params["enc_norm"], enc)
 
 
@@ -401,20 +453,27 @@ def _hybrid_backbone(params, x, cfg):
     sp = params["shared_attn"]
     positions = torch.arange(x.shape[1], device=x.device)
 
+    def mamba_body(x, lp, norm):
+        d, st = SSM.mamba2_forward(lp, _norm(cfg, norm, x), cfg)
+        return x + d, st
+    mamba_body = _maybe_remat(cfg, mamba_body)
+
     def mambas(x, stacked, norms, n):
         sts = []
         for i in range(n):
-            d, st = SSM.mamba2_forward(_layer(stacked, i),
-                                       _norm(cfg, _layer(norms, i), x), cfg)
-            x = x + d
+            x, st = mamba_body(x, _layer(stacked, i), _layer(norms, i))
             sts.append(st)
         x, kv = _dense_body(cfg, positions, x, sp)
         return x, _stack_states(sts), kv
+    # each main group is one remat body, its Mamba2 blocks nested ones
+    # (JAX scans and remats both); the tail's blocks are rematted one by
+    # one and its shared block not at all, as in JAX
+    group_body = _maybe_remat(cfg, mambas)
 
     sts, kvs = [], []
     for g in range(n_main):
-        x, st, kv = mambas(x, _layer(params["mamba_main"], g),
-                           _layer(params["mamba_norms"], g), k)
+        x, st, kv = group_body(x, _layer(params["mamba_main"], g),
+                               _layer(params["mamba_norms"], g), k)
         sts.append(st)
         kvs.append(kv)
     main = (_stack_states(sts), tuple(torch.stack(t) for t in zip(*kvs)))
@@ -431,25 +490,34 @@ def _ssm_backbone(params, x, cfg):
     its sLSTM block (which norms its own input).  Returns (x, (mLSTM
     states (groups, m a group, B, ...), sLSTM states (groups, B, D)))."""
     m_per, n_groups = _ssm_groups(cfg)
-    m_sts, s_sts = [], []
-    for g in range(n_groups):
-        gp = _layer(params["mlstm"], g)
-        gn = _layer(params["mlstm_norms"], g)
+
+    def ml_body(x, lp, norm):
+        d, st = XL.mlstm_forward(lp, _norm(cfg, norm, x), cfg)
+        return x + d, st
+    ml_body = _maybe_remat(cfg, ml_body)
+
+    def group_body(x, gp, gn, sp):
         sts = []
         for i in range(m_per):
-            d, st = XL.mlstm_forward(_layer(gp, i),
-                                     _norm(cfg, _layer(gn, i), x), cfg)
-            x = x + d
+            x, st = ml_body(x, _layer(gp, i), _layer(gn, i))
             sts.append(st)
-        d, s_st = XL.slstm_forward(_layer(params["slstm"], g), x, cfg)
-        x = x + d
-        m_sts.append(_stack_states(sts))
+        d, s_st = XL.slstm_forward(sp, x, cfg)
+        return x + d, _stack_states(sts), s_st
+    group_body = _maybe_remat(cfg, group_body)
+
+    m_sts, s_sts = [], []
+    for g in range(n_groups):
+        x, m_st, s_st = group_body(x, _layer(params["mlstm"], g),
+                                   _layer(params["mlstm_norms"], g),
+                                   _layer(params["slstm"], g))
+        m_sts.append(m_st)
         s_sts.append(s_st)
     return x, (_stack_states(m_sts), _stack_states(s_sts))
 
 
 class ForwardOut(NamedTuple):
     h: torch.Tensor          # (B, S, D) final hidden (post-norm)
+    aux: Dict[str, torch.Tensor]   # scalar aux metrics (moe losses)
     caches: Any              # KV stacks (see ``backbone``) or None
 
 
@@ -465,13 +533,17 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
     layers' stacks or None, MoE layers' stacks); for audio the pair
     (self (k, v), cross (xk, xv) (L, B, S_f, KV, Dh)); for the recurrent
     families the final states (``_hybrid_backbone``, ``_ssm_backbone``),
-    which are returned whether or not ``collect_cache`` is set."""
+    which are returned whether or not ``collect_cache`` is set.
+
+    ``aux``: for the moe family ``lb_loss``, ``z_loss_router`` and
+    ``drop_frac``, each the mean over the MoE layers; empty otherwise.
+    Every layer body runs through ``_maybe_remat``."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens).to(L.dt(cfg))
     if ssm_decode_supported(cfg):
         x, caches = (_ssm_backbone if cfg.family == "ssm"
                      else _hybrid_backbone)(params, x, cfg)
-        return ForwardOut(h=_norm(cfg, params["final_norm"], x),
+        return ForwardOut(h=_norm(cfg, params["final_norm"], x), aux={},
                           caches=caches)
     if frontend_emb is not None:
         frontend_emb = torch.as_tensor(frontend_emb, device=x.device)
@@ -484,24 +556,43 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
         if enc_tokens_valid is not None:
             enc_tokens_valid = torch.as_tensor(enc_tokens_valid,
                                                device=x.device)
+        body = _maybe_remat(cfg, functools.partial(
+            _xattn_body, cfg, positions, enc, enc_tokens_valid))
         stacked, out = params["layers"], []
         for i in range(_depth(stacked)):
-            x, kvs = _xattn_body(cfg, positions, enc, enc_tokens_valid, x,
-                                 _layer(stacked, i))
+            x, kvs = body(x, _layer(stacked, i))
             if collect_cache:
                 out.append(kvs)
         caches = None
         if collect_cache:
             caches = tuple(tuple(torch.stack([o[j][t] for o in out])
                                  for t in range(2)) for j in range(2))
-        return ForwardOut(h=_norm(cfg, params["final_norm"], x),
+        return ForwardOut(h=_norm(cfg, params["final_norm"], x), aux={},
                           caches=caches)
 
+    dense_body = _maybe_remat(cfg, functools.partial(_dense_body, cfg,
+                                                     positions))
+    moe_body = _maybe_remat(cfg, functools.partial(_moe_body, cfg,
+                                                   positions))
+    moe_aux = []
+
     def layer(x, lp, key, i, moe):
-        return (_moe_body if moe else _dense_body)(cfg, positions, x, lp)
+        if not moe:
+            return dense_body(x, lp)
+        x, kv, aux = moe_body(x, lp)
+        moe_aux.append(aux)
+        return x, kv
 
     x, caches = _run_groups(cfg, params, x, layer, collect_cache)
-    return ForwardOut(h=_norm(cfg, params["final_norm"], x), caches=caches)
+    aux = {}
+    if moe_aux:
+        # the JAX package's means over the scanned MoE layers' aux
+        for name, key in (("lb_loss", "lb_loss"),
+                          ("z_loss_router", "z_loss"),
+                          ("drop_frac", "drop_frac")):
+            aux[name] = torch.stack([a[key] for a in moe_aux]).mean()
+    return ForwardOut(h=_norm(cfg, params["final_norm"], x), aux=aux,
+                      caches=caches)
 
 
 def _logits(params, h, cfg):
@@ -513,6 +604,73 @@ def _logits(params, h, cfg):
         pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab
         logits = torch.where(pad, -1e30, logits.float()).to(logits.dtype)
     return logits
+
+
+# ======================================================================
+# loss
+# ======================================================================
+
+def ce_loss(params, h, labels, mask, cfg):
+    """Cross-entropy over (B, S, D) hiddens, in chunks of
+    ``cfg.logits_chunk`` positions (0: the whole sequence; a ragged tail
+    is padded with masked positions).  The label logit is picked by a
+    masked sum over the vocab, as in the JAX package.  Returns (loss,
+    {"z_loss"}), both sums over the masked positions divided by their
+    count (at least 1)."""
+    B, S, _ = h.shape
+    C = min(cfg.logits_chunk or S, S)
+    pad = (-S) % C
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    nchunk = h.shape[1] // C
+
+    def one_chunk(hc, lc, mc):
+        logits = _logits(params, hc, cfg).float()
+        lz = torch.logsumexp(logits, -1)                     # (B, C)
+        hit = (torch.arange(logits.shape[-1], device=logits.device)
+               == lc[..., None])
+        ll = torch.where(hit, logits, 0.0).sum(-1)
+        return ((lz - ll) * mc).sum(), ((lz * lz) * mc).sum()
+
+    if nchunk == 1:
+        loss_sum, z_sum = one_chunk(h, labels, mask)
+    else:
+        loss_sum = z_sum = torch.zeros((), device=h.device)
+        for i in range(nchunk):
+            sl = slice(i * C, (i + 1) * C)
+            a, b = one_chunk(h[:, sl], labels[:, sl], mask[:, sl])
+            loss_sum, z_sum = loss_sum + a, z_sum + b
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return loss_sum / denom, {"z_loss": z_sum / denom}
+
+
+def train_loss(params, batch, cfg):
+    """batch: ``tokens`` (B, S), ``labels`` (B, S), ``loss_mask`` (B, S)
+    [+ ``frontend_emb``], numpy arrays or tensors.  Returns (loss,
+    metrics {"ce", "z_loss", moe aux..., "loss"}).  Training runs on a
+    differentiable backend only (``dispatch.training_backend``: a
+    'cuda' pin raises)."""
+    cfg = cfg.replace(kernel_impl=D.training_backend(cfg))
+    dev = params["embed"]["table"].device
+    out = backbone(params, torch.as_tensor(batch["tokens"], device=dev),
+                   cfg, frontend_emb=batch.get("frontend_emb"))
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    mask = torch.as_tensor(batch["loss_mask"], device=dev).float()
+    h = out.h
+    if cfg.family == "vlm":
+        # the hidden sequence is the frontend prefix + the text: the loss
+        # is taken on the text part only
+        h = h[:, batch["frontend_emb"].shape[1]:]
+    loss, lmx = ce_loss(params, h, labels, mask, cfg)
+    metrics = {"ce": loss, **lmx, **out.aux}
+    total = loss + cfg.z_loss_coef * lmx["z_loss"]
+    if "lb_loss" in out.aux:
+        total = (total + cfg.lb_coef * out.aux["lb_loss"]
+                 + cfg.router_z_coef * out.aux["z_loss_router"])
+    metrics["loss"] = total
+    return total, metrics
 
 
 def prefill(params, batch, cfg):

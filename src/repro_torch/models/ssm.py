@@ -64,7 +64,7 @@ class Mamba2State(NamedTuple):
     conv: torch.Tensor     # (B, K-1, d_xbc) model dtype
 
 
-def init_state(cfg, batch: int, device="cpu") -> Mamba2State:
+def init_state(cfg, batch: int, device) -> Mamba2State:
     mc = cfg.mamba2
     _, H, P, _, N, d_xbc = _dims(cfg)
     return Mamba2State(

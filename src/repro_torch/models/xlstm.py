@@ -73,7 +73,7 @@ class MLSTMState(NamedTuple):
     conv: torch.Tensor    # (B, K-1, d_inner) model dtype
 
 
-def mlstm_init_state(cfg, batch: int, device="cpu") -> MLSTMState:
+def mlstm_init_state(cfg, batch: int, device) -> MLSTMState:
     d_inner, H, P = _mlstm_dims(cfg)
     f32 = torch.float32
     return MLSTMState(
@@ -263,7 +263,7 @@ class SLSTMState(NamedTuple):
     m: torch.Tensor    # (B, D) fp32
 
 
-def slstm_init_state(cfg, batch: int, device="cpu") -> SLSTMState:
+def slstm_init_state(cfg, batch: int, device) -> SLSTMState:
     def z():
         return torch.zeros((batch, cfg.d_model), dtype=torch.float32,
                            device=device)
