@@ -271,7 +271,35 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    a CheckpointStore save and restore + 3, bit for bit; (g) training
    on kernel_impl "cuda" raises the forward-only ValueError; (h)
    ``launch.train.main`` runs 20 steps and resumes to 30;
-11. print ``{"kernels": [...]}``, then the last line
+11. the serving surfaces (``launch/serve.py``, the "auto" backend,
+   ``kernels/autotune.py``; the run starts from an empty autotuner cache
+   of its own, ``chiprun_out/autotune.json``, and phases 3-6 print the
+   tuner misses inside each timed window, which must be none (the plan
+   hooks only look up outside a tuning pass), listed again here): (a)
+   full-width tinyllama-1.1b built through ``serve.engine_config_from_args``
+   with ``--kernel-impl auto``: ``generate`` (batch 4, prompt 128, gen
+   32) after a warm-up that is a tuning pass (``autotune.tuning()``:
+   'auto' measures the backends, the plan hooks the tiles; the rule's
+   and the tuned plans' summed device us printed), each
+   ``dispatch:<op>`` winner printed with both backends' measured us,
+   launches by kernel and variant, teacher-forced logits against the
+   plain path at 5e-2 of scale, the same on "cuda" beside it (its plans
+   looked up), the host enqueue time of a decode step on each; phase
+   5's stream shape (8 slots, 128 pages of 16, 24 requests) through
+   ``serve._serve_stream`` on bf16 pools on each, a warm-up stream (a
+   tuning pass on 'auto') before the timed one, which must miss
+   nothing; (b) ``autotune.reset()`` and the same generate again: no
+   miss, the same tokens; (c) in a tuning pass, kernels 1, 2 and 16 at
+   phase 2's headline shapes through
+   their wrappers: the tuner's plan and its time beside the rule's, the
+   output on the rule's variant, held to the plain version at TOL and
+   bitwise over two launches; (d) ``serve.main`` at the CLI's own
+   ``--reduce width``: generate, ``--stream 24 --inject``, and a durable
+   stream crashed at step 6 (a snapshot every 2 steps) equal to a
+   crash-free one; ``examples.quickstart``, ``examples.serve_batch
+   --stream --crash-at 6 --snapshot-every 2`` and ``examples.train_100m
+   --steps 20`` as subprocesses, each to exit 0;
+12. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The reduced fp32 configs of phases 3-8 run at the CPU tests' widths
@@ -289,8 +317,10 @@ the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -299,11 +329,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is
-# max(operations / peak rate of their type, bytes / memory rate)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense; launch/roofline.py): the bound
+# of each kernel is max(operations / peak rate of their type, bytes /
+# memory rate)
+from repro_torch.launch.roofline import HBM_BW as PEAK_BYTES  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS  # noqa: E402
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # fp32: both accumulate in fp32, only the order of the sums differs.
@@ -366,31 +398,32 @@ def bound_ms(flops, nbytes, dtype):
     return 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
 
 
+# (timed window, autotuner misses inside it) of phases 3-6, printed again
+# in phase 11: a miss would measure its candidates inside the window
+TIMED_WINDOWS = []
+
+
+def _tuner_misses():
+    from repro_torch.kernels import autotune
+
+    return autotune.stats["misses"]
+
+
+def _window_misses(label, before):
+    """Record and print the tuner misses since ``before`` (a
+    ``_tuner_misses()`` taken as the timed window opened)."""
+    n = _tuner_misses() - before
+    TIMED_WINDOWS.append((label, n))
+    print(f"    autotuner misses inside the timed window: {n}")
+    if n:
+        raise AssertionError(f"{label}: the tuner measured inside the "
+                             "timed window")
+    return n
+
+
 # ----------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
-
-def _alt_plans(KM, kind, M, N, K):
-    """The variant's own plan, then others of the same form: for the wgmma
-    tiles 64- or 128-row tiles with K in 1, 2, 4 or 8 slices; for split-K
-    K in slices sized for ~1, 2 or 4 blocks an SM."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    if kind == "wgmma":
-        own, kt = KM.tile_plan(M, N, K), cdiv(K, KM.TILE_BK)
-        alts = [(bm, cdiv(kt, cdiv(kt, ns)), cdiv(kt, ns))
-                for bm in (64, 128) for ns in (1, 2, 4, 8) if kt // ns >= 4]
-    else:
-        own = KM.splitk_plan(M, N, K)
-        mt, strips = own[0], cdiv(M, own[0]) * cdiv(N, KM.SPLITK_BN)
-        alts = []
-        for per_sm in (1, 2, 4):
-            ks = cdiv(cdiv(K, max(1, cdiv(per_sm * KM.SMS, strips))), 16) * 16
-            ks = min(max(ks, 64), KM.SPLITK_X_FLOATS // mt)
-            alts.append((mt, cdiv(K, ks), ks))
-    return [own] + [p for p in dict.fromkeys(alts) if p != own]
-
 
 def _swiglu_case(torch, F, KM, build, x, wg, wi, label, compare, record,
                  timed, head):
@@ -445,7 +478,7 @@ def check_swiglu(torch, F, gen, randn, compare, record):
     the wgmma tiles against ``gemm_kernel`` (the WMMA kernel bf16 swiglu
     ran before them) and the library at M 1-72, the wgmma plans, and the
     host's enqueue time of a call on each kernel."""
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
     from repro_torch.kernels import vwr_matmul as KM
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -523,7 +556,7 @@ def check_swiglu(torch, F, gen, randn, compare, record):
         want = KM.vwr_swiglu_ref(x, wg, wi)
         row = {"kernel": "vwr_swiglu plans", "variant": "wgmma",
                "shape": f"{M}x{K}x{N}", "plans": []}
-        for plan in _swiglu_plans(KM, M, N, K):
+        for plan in autotune.swiglu_candidates(M, N, K):
             compare("vwr_swiglu wgmma", f"{M}x{K}x{N} {plan}", bf16,
                     KM.swiglu_launch(x, wg, wi, "wgmma", plan), want)
             ms = time_ms(torch, lambda: KM.swiglu_launch(x, wg, wi, "wgmma",
@@ -559,11 +592,14 @@ def _swiglu_enqueue(torch, F, KM, rand, record):
     """The host's time to enqueue one swiglu call at a decode step's shape
     (and a tiny one): ``gemm_kernel`` (the WMMA kernel bf16 swiglu ran
     before the wgmma tiles) and the wgmma tiles through ``swiglu_launch``,
-    the operand checks with the ``gemm_kernel`` launch (the wrapper bf16
-    swiglu had before the wgmma tiles), the whole wrapper (``vwr_swiglu``:
-    the checks, the rule, the wgmma launch), one ``torch.matmul`` and the
-    4-call library, in three rounds; and the wgmma variant's three tensor
-    maps' share of it (``encode_us``)."""
+    the same given the rule's plan, computed each call (the launch
+    before the autotuner: the difference is the plan hook's cost), the
+    operand checks with the
+    ``gemm_kernel`` launch (the wrapper bf16 swiglu had before the wgmma
+    tiles), the whole wrapper (``vwr_swiglu``: the checks, the plan
+    lookup, the wgmma launch), one ``torch.matmul`` and the 4-call
+    library, in three rounds; and the wgmma variant's three tensor maps'
+    share of it (``encode_us``)."""
     from repro_torch.kernels import build
 
     def checked_gemm(x, wg, wi):
@@ -580,6 +616,8 @@ def _swiglu_enqueue(torch, F, KM, rand, record):
         calls = {
             "gemm": lambda: KM.swiglu_launch(x, wg, wi, "gemm"),
             "wgmma": lambda: KM.swiglu_launch(x, wg, wi, "wgmma"),
+            "wgmma, rule's plan given": lambda: KM.swiglu_launch(
+                x, wg, wi, "wgmma", KM.swiglu_tile_plan(M, N, K)),
             "checks + gemm": lambda: checked_gemm(x, wg, wi),
             "vwr_swiglu": lambda: KM.vwr_swiglu(x, wg, wi),
             "torch.matmul": lambda: torch.matmul(x, wg),
@@ -600,20 +638,6 @@ def _swiglu_enqueue(torch, F, KM, rand, record):
         del x, wg, wi
 
 
-def _swiglu_plans(KM, M, N, K):
-    """The wgmma variant's own plan, then others of the same form: 64- or
-    128-row tiles on 64- or 128-column strips, K in 1, 2 or 4 slices up
-    to 128 rows (whole above, as ``tile_plan``)."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    own, kt = KM.swiglu_tile_plan(M, N, K), cdiv(K, KM.TILE_BK)
-    alts = [(bm, bn, cdiv(kt, cdiv(kt, ns)), cdiv(kt, ns))
-            for bn in KM.SWIGLU_TILE_BNS for bm in (64, 128)
-            for ns in ((1, 2, 4) if M <= 128 else (1,)) if kt // ns >= 4]
-    return [own] + [p for p in dict.fromkeys(alts) if p != own]
-
-
 def _served(kernel, shape, before, build, want):
     """The variant of ``kernel`` that the launches since ``before`` (a
     copy of ``build.VARIANTS``) counted must be ``want`` alone."""
@@ -631,7 +655,7 @@ def _bitwise(kernel, shape, got, again):
 
 
 def check_kernels(torch, F):
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
     from repro_torch.kernels import vwr_attention as KA
     from repro_torch.kernels import vwr_chunk as KC
     from repro_torch.kernels import vwr_decode as KD
@@ -792,7 +816,7 @@ def check_kernels(torch, F):
         w = randn(K, N, dtype=bf16, scale=K ** -0.5)
         row = {"kernel": "vwr_matmul plans", "variant": kind,
                "shape": f"{M}x{K}x{N}", "plans": []}
-        for plan in _alt_plans(KM, kind, M, N, K):
+        for plan in autotune.matmul_candidates(kind, M, N, K):
             ms = time_ms(torch, lambda: KM.launch(x, w, None, None, None,
                                                   kind, plan))
             row["plans"].append({"plan": plan, "ms": ms})
@@ -3278,21 +3302,6 @@ CONV_PLAN_SHAPES = (("RN_56x56 N32", 32, 58, 58, 64, 64, 3),
                     ("AN_27x27 N1", 1, 31, 31, 96, 256, 5))
 
 
-def _conv_alt_plans(K16, N, H, W, C, Fo, KH):
-    """The rule's plan, then 64- / 128-row and -filter tiles with the K
-    steps in 1, 2, 4, 9 or 18 balanced slices (at least 2 steps a
-    slice)."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    own = K16.plan(N, H, W, C, KH, KH, Fo)
-    kt = KH * KH * cdiv(C, K16.SLICE)
-    alts = [(bm, bn, cdiv(kt, cdiv(kt, ns)), cdiv(kt, ns))
-            for bm in (64, 128) for bn in (64, 128)
-            for ns in (1, 2, 4, 9, 18) if kt // ns >= 2]
-    return [own] + [p for p in dict.fromkeys(alts) if p != own]
-
-
 def _dw_alt_plans(K17, N, H, W, C):
     """dw_plan's (cb, sh, tw) first, then its cb and tw with strips of 4,
     8, 16, 32 rows or the whole height, and its sh with the other channel
@@ -3318,7 +3327,7 @@ def check_conv_kernels(torch, F, gen, compare, record):
     and fp32 (conv with bias + relu), each timed beside its bound, its
     plain version and cuDNN, with the variant that served it; and the
     wgmma plans behind the split rule."""
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
     from repro_torch.kernels import vwr_conv2d as K16
     from repro_torch.kernels import vwr_depthwise as K17
 
@@ -3478,8 +3487,7 @@ def check_conv_kernels(torch, F, gen, compare, record):
                     row = record.rows[-1]
                     row["variant"] = kind
                     if kind == "wgmma":
-                        row["plan"] = K16.plan(*x.shape, *w.shape[:2],
-                                               w.shape[3])
+                        row["plan"] = autotune.conv_plan(x, w, b, "relu")
                     elif kind == "stream":
                         row["plan"] = K17.dw_plan(*x.shape, *w.shape[:2])
                     print(f"      variant {kind}"
@@ -3492,7 +3500,7 @@ def check_conv_kernels(torch, F, gen, compare, record):
     for label, N, H, W, C, Fo, KH in CONV_PLAN_SHAPES:
         x, w, b = _conv_operands(torch, gen, N, H, W, C, Fo, KH, KH, bf16)
         row = {"kernel": "vwr_conv2d plans", "case": label, "plans": []}
-        for p in _conv_alt_plans(K16, N, H, W, C, Fo, KH):
+        for p in autotune.conv_candidates(N, H, W, C, KH, KH, Fo):
             ms = time_ms(torch, lambda p=p: K16.launch(x, w, b, "relu",
                                                        "wgmma", p))
             row["plans"].append({"plan": p, "ms": ms})
@@ -3635,8 +3643,10 @@ def serve(torch, name, gen, expected_launches, expected_variants,
     # finds the allocator's pools and the kernels' first launches done
     eng.generate({"tokens": prompts}, gen=gen)
     build.reset_launches()
+    m0 = _tuner_misses()
     tokens, stats = eng.generate({"tokens": prompts}, gen=gen)
     torch.cuda.synchronize()
+    misses = _window_misses(f"{name} generate", m0)
     launches = dict(build.LAUNCHES)
     variants = {k: n for k, n in build.VARIANTS.items()
                 if k.startswith(("vwr_matmul.", "vwr_swiglu.",
@@ -3670,7 +3680,8 @@ def serve(torch, name, gen, expected_launches, expected_variants,
     torch.cuda.empty_cache()
     return {"arch": name, "batch": B, "prompt": P, "gen": gen,
             "n_params": n_params, "launches": launches,
-            "matmul_variants": variants, "logits_rel_err": rel, "kernel9": k9, **stats}
+            "matmul_variants": variants, "logits_rel_err": rel, "kernel9": k9,
+            "tuner_misses": misses, **stats}
 
 
 def dense_kernel9(torch, cfg, cache, cur_len):
@@ -4025,10 +4036,12 @@ def serve_scheduler(torch, kv_dtype, params=None):
     sched = Scheduler(eng)
     torch.cuda.synchronize()
     build.reset_launches()
+    m0 = _tuner_misses()
     t0 = time.perf_counter()
     out = _drive(sched, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    misses = _window_misses(f"scheduler {kv_dtype}", m0)
     launches = dict(build.LAUNCHES)
     st = sched.stats
     L = cfg.n_layers
@@ -4070,7 +4083,7 @@ def serve_scheduler(torch, kv_dtype, params=None):
         "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
         "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
         "launches": launches, "swiglu_variants": swiglu,
-        "paged_variants": paged_variants}
+        "paged_variants": paged_variants, "tuner_misses": misses}
     print(f"  steps {st['steps']}, prefills {st['prefills']}, preempted "
           f"{st['preempted']}, peak pages {st['peak_pages']}/{N_PAGES}, "
           f"table widths {summary['table_widths']}")
@@ -4720,6 +4733,7 @@ def serve_prefix_chunked(torch, engines):
         sched = Scheduler(eng, prefix_cache=prefix, chunked_prefill=chunked)
         torch.cuda.synchronize()
         build.reset_launches()
+        m0 = _tuner_misses()
         t0 = time.perf_counter()
         out = _drive(sched, reqs)
         torch.cuda.synchronize()
@@ -4728,6 +4742,7 @@ def serve_prefix_chunked(torch, engines):
         st = sched.stats
         tag = (f"{kv_dtype} pools, prefix {'on' if prefix else 'off'}, "
                f"chunked {'on' if chunked else 'off'}")
+        misses = _window_misses(f"shared-prompt stream, {tag}", m0)
         want = _stream_launches(st, cfg.n_layers, kv_dtype, prefix,
                                 chunked)
         for k, n in want.items():
@@ -4760,7 +4775,7 @@ def serve_prefix_chunked(torch, engines):
                    "gen_tok_s": n_tok / wall,
                    "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
                    "itl_p50_s": itl["p50"], "itl_p99_s": itl["p99"],
-                   "launches": launches}
+                   "launches": launches, "tuner_misses": misses}
         print(f"  {tag}: steps {st['steps']}, prefills {st['prefills']}, "
               f"preempted {st['preempted']}, peak pages "
               f"{st['peak_pages']}/{N_PAGES}, table widths "
@@ -4906,10 +4921,12 @@ def _recovery_streams(torch, tag, eng, make_reqs, crashes=(False, True)):
     for r in make_reqs():
         ref.submit(r)
     torch.cuda.synchronize()
+    m0 = _tuner_misses()
     t0 = time.perf_counter()
     want = ref.run()
     torch.cuda.synchronize()
     wall_ref = time.perf_counter() - t0
+    _window_misses(f"recovery {tag}, crash-free", m0)
     check("crash-free", ref, want)
     print(f"  {tag}: crash-free {ref.stats['steps']} steps, "
           f"{wall_ref:.4f} s")
@@ -4938,6 +4955,7 @@ def _recovery_streams(torch, tag, eng, make_reqs, crashes=(False, True)):
         try:
             torch.cuda.synchronize()
             build.reset_launches()
+            m0 = _tuner_misses()
             t0 = time.perf_counter()
             sched = serve_with_recovery(
                 eng, d, submit, snapshot_every=RECOVER_EVERY,
@@ -4945,6 +4963,8 @@ def _recovery_streams(torch, tag, eng, make_reqs, crashes=(False, True)):
                 on_start=on_start, sched_kwargs=modes)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            misses = _window_misses(f"recovery {tag}, crash at step "
+                                    f"{crash}", m0)
             launches, variants = dict(build.LAUNCHES), dict(build.VARIANTS)
         finally:
             shutil.rmtree(d, ignore_errors=True)
@@ -4977,6 +4997,7 @@ def _recovery_streams(torch, tag, eng, make_reqs, crashes=(False, True)):
             "steps_recovered": sched.stats["steps"],
             "steps_run": steps_run,
             "wall_crash_free_s": wall_ref, "wall_recovered_s": wall,
+            "tuner_misses": misses,
             "launches": {k: v for k, v in launches.items() if v},
             "streams_parted": len(parted), "parted": parted}
         print(f"  {tag}, {what} (a snapshot every {RECOVER_EVERY} steps; "
@@ -7360,6 +7381,393 @@ def serve_training(torch):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 11: the serving surfaces (launch/serve.py, 'auto', the tuner)
+# ----------------------------------------------------------------------
+
+# full-width tinyllama-1.1b at phase 3's generate shapes, through the CLI
+AUTO_ARGS = ["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len",
+             "128", "--gen", "32", "--kernel-impl", "auto"]
+# phase 5's stream shape in the CLI's stream mode: 8 slots, 128 pages of
+# 16, 24 requests (prompts of 128-256 tokens, gens of 16-32)
+AUTO_STREAM = ["--stream", str(N_REQ), "--batch", str(SLOTS),
+               "--prompt-len", str(PROMPT[1]), "--gen", str(GEN),
+               "--page-size", str(PAGE), "--n-pages", str(N_PAGES)]
+# the CLI's own --reduce width (~100M-class, fp32) for its modes
+CLI_ARGS = ["--arch", "tinyllama-1.1b", "--reduce", "width", "--batch",
+            "4", "--prompt-len", "64", "--gen", "32"]
+
+
+def _dispatch_winners():
+    """The 'auto' choices measured since the tuner's last reset:
+    {"dispatch:<op>|shape|dtype|tag": {backend: us, "winner": name}}."""
+    from repro_torch.kernels import autotune
+
+    table = autotune._load(autotune.cache_path())
+    rows = {}
+    for m in autotune.measurements:
+        if m["key"].startswith("dispatch:"):
+            rows.setdefault(m["key"], {})[m["cand"][0]] = m["us"]
+    for key, row in rows.items():
+        row["winner"] = table[key]["blocks"][0]
+    return rows
+
+
+def _plan_gains():
+    """The plan tuner's keys measured since the tuner's last reset: how
+    many, how many moved off the rule's plan (measured first), and the
+    sums of the rule's and the winners' device us over them."""
+    from repro_torch.kernels import autotune
+
+    table = autotune._load(autotune.cache_path())
+    rows = {}
+    for m in autotune.measurements:
+        if not m["key"].startswith("dispatch:"):
+            rows.setdefault(m["key"], []).append(m)
+    out = {}
+    for key, ms in rows.items():
+        op = key.split("|")[0]
+        d = out.setdefault(op, {"keys": 0, "moved": 0, "rule_us": 0.0,
+                                "tuned_us": 0.0})
+        d["keys"] += 1
+        d["rule_us"] += ms[0]["us"]
+        d["tuned_us"] += table[key]["us"]
+        d["moved"] += list(table[key]["blocks"]) != list(ms[0]["cand"])
+    for op, d in out.items():
+        print(f"  tuning pass, {op}: {d['keys']} keys, {d['moved']} off the "
+              f"rule's plan; summed device us rule {d['rule_us']:.1f}, "
+              f"tuned {d['tuned_us']:.1f}")
+    return out
+
+
+def _step_enqueue_us(torch, eng, tok, pos, cache, reps=20):
+    """Median host microseconds a dense decode step takes to return,
+    the device idle as each starts (its work not waited for)."""
+    ts = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.decode_step(tok, pos, cache)
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(ts[1:]) * 1e6
+
+
+def _timed_stream(torch, serve, eng, args):
+    """``serve._serve_stream`` on the card: (results, wall s, tok/s,
+    tuner misses inside it)."""
+    m0 = _tuner_misses()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve._serve_stream(eng, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r) for r in out.values())
+    return out, wall, n_tok / wall, _tuner_misses() - m0
+
+
+def _tuned_case(torch, build, label, served, fn, plain, launch, rule,
+                tuned, cands):
+    """The tuner's plan at a headline shape: the output through the
+    wrapper (served by variant ``served`` alone) held to the plain version
+    at TOL and bitwise over two launches, every plan the tuner weighs
+    (``cands``) bitwise equal to the rule's; the tuned plan's time beside
+    the rule's."""
+    before = dict(build.VARIANTS)
+    got = fn()
+    torch.cuda.synchronize()
+    ran = [k for k, n in build.VARIANTS.items() if n != before[k]]
+    if ran != [served]:
+        raise AssertionError(f"{label}: served by {ran}, the rule's "
+                             f"variant is {served}")
+    want = plain()
+    atol, rtol = TOL[str(got.dtype)[6:]]
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= atol + rtol * want.float().abs()).all()):
+        raise AssertionError(f"{label}: tuned plan {tuned} off the plain "
+                             f"version by {err.max().item():.3e}")
+    if not torch.equal(got, fn()):
+        raise AssertionError(f"{label}: two launches differ")
+    base = launch(rule)
+    differ = [p for p in cands if not torch.equal(launch(p), base)]
+    if differ:
+        raise AssertionError(f"{label}: plans {differ} sum otherwise than "
+                             f"the rule's {tuple(rule)}")
+    row = {"case": label, "variant": served, "rule_plan": list(rule),
+           "tuned_plan": list(tuned), "max_abs_err": err.max().item(),
+           "rule_ms": time_ms(torch, lambda: launch(rule)),
+           "tuned_ms": time_ms(torch, lambda: launch(tuned))}
+    print(f"  {label} ({served}): rule {tuple(rule)} {row['rule_ms']:.4f} "
+          f"ms, tuned {tuple(tuned)} {row['tuned_ms']:.4f} ms; max|d| "
+          f"{row['max_abs_err']:.3e} from the plain version")
+    return row
+
+
+def _block_tuner(torch, build):
+    """(c): kernels 1, 2 and 16 at phase 2's headline shapes through
+    their wrappers, on the tuner's plans."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import vwr_conv2d as K16
+    from repro_torch.kernels import vwr_matmul as KM
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(30)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(bf16)
+
+    rows = []
+    M, K, N = 512, 5632, 2048              # tinyllama down + residual
+    x, w, r = randn(M, K), randn(K, N, scale=K ** -0.5), randn(M, N)
+    kind = KM.variant(M, N, K, bf16, True)
+    rows.append(_tuned_case(
+        torch, build, f"vwr_matmul {M}x{K}x{N} +res", f"vwr_matmul.{kind}",
+        lambda: KM.vwr_matmul(x, w, residual=r),
+        lambda: KM.vwr_matmul_ref(x, w, residual=r),
+        lambda p: KM.launch(x, w, None, r, None, kind, p),
+        KM.tile_plan(M, N, K),
+        autotune.matmul_plan(kind, x, w, None, r, None),
+        autotune.retiled(KM.tile_plan(M, N, K), autotune.ROW_TILES)))
+    M, K, N = 512, 2048, 5632              # tinyllama gate / up
+    x = randn(M, K)
+    wg, wi = randn(K, N, scale=K ** -0.5), randn(K, N, scale=K ** -0.5)
+    rows.append(_tuned_case(
+        torch, build, f"vwr_swiglu {M}x{K}x{N}", "vwr_swiglu.wgmma",
+        lambda: KM.vwr_swiglu(x, wg, wi),
+        lambda: KM.vwr_swiglu_ref(x, wg, wi),
+        lambda p: KM.swiglu_launch(x, wg, wi, "wgmma", p),
+        KM.swiglu_tile_plan(M, N, K), autotune.swiglu_plan(x, wg, wi),
+        autotune.retiled(KM.swiglu_tile_plan(M, N, K), autotune.TILES)))
+    label, n, H, W, C, Fo, KH = CONV_PLAN_SHAPES[0]     # RN_56x56 N32
+    x, w, b = _conv_operands(torch, gen, n, H, W, C, Fo, KH, KH, bf16)
+    rows.append(_tuned_case(
+        torch, build, f"vwr_conv2d {label}", "vwr_conv2d.wgmma",
+        lambda: K16.vwr_conv2d(x, w, b, activation="relu"),
+        lambda: K16.vwr_conv2d_ref(x, w, b, activation="relu"),
+        lambda p: K16.launch(x, w, b, "relu", "wgmma", p),
+        K16.plan(n, H, W, C, KH, KH, Fo),
+        autotune.conv_plan(x, w, b, "relu"),
+        autotune.retiled(K16.plan(n, H, W, C, KH, KH, Fo), autotune.TILES)))
+    return rows
+
+
+def _cli_and_examples(torch, serve):
+    """(d): ``serve.main`` at the CLI's --reduce width for generate, a
+    stream with --inject, and a durable stream crashed at step 6 against
+    a crash-free one; then quickstart, serve_batch (crash recovery) and
+    train_100m as subprocesses, each to exit 0."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    res = {}
+    gen = serve.main(CLI_ARGS)
+    if tuple(gen.shape) != (4, 32):
+        raise AssertionError(f"serve.main generate: {tuple(gen.shape)}")
+    out = serve.main(CLI_ARGS + ["--stream", "24", "--inject"])
+    status = {v: sum(r.status.value == v for r in out.values())
+              for v in ("FINISHED", "FAILED", "CANCELLED")}
+    if len(out) != 24 or sum(status.values()) != 24 or not status["FAILED"]:
+        raise AssertionError(f"serve.main --inject: {status}")
+    res["inject_status"] = status
+    d = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    procs = {}
+    try:
+        durable = ["--stream", "24", "--snapshot-every", "2"]
+        crashed = serve.main(CLI_ARGS + durable + [
+            "--snapshot-dir", os.path.join(d, "crash"), "--crash-at", "6"])
+        clean = serve.main(CLI_ARGS + durable + [
+            "--snapshot-dir", os.path.join(d, "clean")])
+        parted = [rid for rid in sorted(clean)
+                  if crashed[rid].status is not clean[rid].status
+                  or not np.array_equal(crashed[rid], clean[rid])]
+        if set(crashed) != set(clean) or parted:
+            raise AssertionError(f"serve.main --crash-at 6: streams "
+                                 f"{parted} differ from the crash-free run")
+        res["durable_equal"] = len(clean)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        mods = {"quickstart": [],
+                "serve_batch": ["--stream", "--crash-at", "6",
+                                "--snapshot-every", "2"],
+                "train_100m": ["--steps", "20", "--ckpt",
+                               os.path.join(d, "ckpt")]}
+        t0 = time.perf_counter()
+        for name, argv in mods.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}",
+                 *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for name, p in procs.items():
+            text, _ = p.communicate(timeout=600)
+            tail = text.strip().splitlines()[-2:]
+            print(f"  examples.{name}: exit {p.returncode}; "
+                  + " | ".join(tail))
+            if p.returncode:
+                raise AssertionError(f"examples.{name} exited "
+                                     f"{p.returncode}:\n{text[-4000:]}")
+        res["examples_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def serve_surfaces(torch):
+    """Phase 11: (a) full-width tinyllama-1.1b through
+    ``serve.engine_config_from_args`` on kernel_impl "auto": ``generate``
+    (each ``dispatch:<op>`` winner with both backends' measured us, the
+    launches by kernel and variant, teacher-forced logits against the
+    plain path at 5e-2 of scale) beside "cuda", the host enqueue time of
+    a decode step on each, and phase 5's stream shape through
+    ``serve._serve_stream`` on bf16 pools on each; (b) the tuner reset and
+    the same generate again: nothing measured, the same tokens; (c) the
+    block tuner at the headline shapes of kernels 1, 2 and 16; (d) the
+    CLI and the examples on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, RequestStatus
+    from repro_torch.kernels import autotune, build
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    print(f"autotuner cache {autotune.cache_path()}; misses inside the "
+          "timed windows of phases 3-6: "
+          + ", ".join(f"{w} {n}" for w, n in TIMED_WINDOWS))
+    res = {"timed_window_misses": [list(w) for w in TIMED_WINDOWS]}
+    args = serve.build_parser().parse_args(AUTO_ARGS)
+    ecfg = serve.engine_config_from_args(args)
+    cfg = get_config(args.arch)
+    eng = DecodeEngine(cfg, ecfg, device="cuda", seed=0)
+    _condition(torch, eng.params)
+    engines = {"auto": eng, "cuda": DecodeEngine(
+        cfg, ecfg.replace(kernel_impl="cuda"), params=eng.params,
+        device="cuda")}
+    ref = DecodeEngine(cfg, ecfg.replace(kernel_impl="torch"),
+                       params=eng.params, device="cuda")
+    B, P, G = args.batch, args.prompt_len, args.gen
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=g,
+                            device="cuda", dtype=torch.int32)
+
+    # (a) generate: a warm-up, then a timed run.  On 'auto' the warm-up
+    # is a tuning pass: 'auto' measures the backends and the plan hooks
+    # the tiles; "cuda" after it looks the plans up
+    gens = {}
+    for impl, e in engines.items():
+        m0 = _tuner_misses()
+        with (autotune.tuning() if impl == "auto"
+              else contextlib.nullcontext()):
+            e.generate({"tokens": prompts}, gen=G)
+        warm = _tuner_misses() - m0
+        build.reset_launches()
+        m0 = _tuner_misses()
+        tokens, stats = e.generate({"tokens": prompts}, gen=G)
+        torch.cuda.synchronize()
+        gens[impl] = {
+            "tokens": tokens, "warmup_misses": warm,
+            "misses": _tuner_misses() - m0,
+            "launches": {k: n for k, n in build.LAUNCHES.items() if n},
+            "variants": {k: n for k, n in build.VARIANTS.items() if n},
+            **stats}
+        print(f"  generate B{B} P{P} gen {G} on {impl!r}: prefill "
+              f"{stats['prefill_tok_s']:.1f} tok/s, decode "
+              f"{stats['decode_tok_s']:.1f} tok/s; tuner misses: warm-up "
+              f"{warm}, timed {gens[impl]['misses']}")
+        print(f"    launches {gens[impl]['launches']}")
+        print(f"    variants {gens[impl]['variants']}")
+        if gens[impl]["misses"]:
+            raise AssertionError(f"{impl}: the timed generate missed")
+    res["plan_tuning"] = _plan_gains()
+    winners = _dispatch_winners()
+    print("  'auto' winners (us measured on cuda / torch):")
+    for key, row in winners.items():
+        op, shape, dtype = key.split("|")[:3]
+        print(f"    {op[9:]:<16} {row.get('cuda', float('nan')):9.1f} "
+              f"{row.get('torch', float('nan')):9.1f} -> {row['winner']:<5}"
+              f" [{shape[:48]}{'...' if len(shape) > 48 else ''}; "
+              f"{dtype}]")
+    res["winners"] = winners
+    rel, cache = _teacher_forced(torch, eng, ref, prompts,
+                                 gens["auto"]["tokens"], P, G,
+                                 check_greedy=True)
+    print(f"  'auto' teacher-forced logits vs plain path: max |d|/max|ref| "
+          f"{max(rel):.3e} over {len(rel)} steps (limit {E2E_BF16_REL:g})")
+    if not max(rel) <= E2E_BF16_REL:
+        raise AssertionError("'auto': logits diverge from the plain path")
+    tok = gens["auto"]["tokens"][:, -1]
+    enqueue = {}
+    for impl, e in engines.items():
+        _, c = e.prefill({"tokens": prompts})
+        enqueue[impl] = _step_enqueue_us(torch, e, tok, P, c)
+    del cache, c
+    print(f"  host enqueue of a decode step: auto {enqueue['auto']:.1f} us, "
+          f"cuda {enqueue['cuda']:.1f} us")
+    res.update(generate={k: {n: v for n, v in d.items() if n != "tokens"}
+                         for k, d in gens.items()},
+               logits_rel_err=rel, step_enqueue_us=enqueue,
+               same_tokens_as_cuda=bool(torch.equal(
+                   gens["auto"]["tokens"], gens["cuda"]["tokens"])))
+
+    # the phase-5 stream shape through serve._serve_stream: a warm-up
+    # stream (on 'auto' a tuning pass), then a timed one
+    streams = {}
+    for impl in ("auto", "cuda"):
+        sargs = serve.build_parser().parse_args(
+            AUTO_ARGS + AUTO_STREAM + ["--kernel-impl", impl])
+        se = DecodeEngine(cfg, serve.engine_config_from_args(sargs),
+                          params=eng.params, device="cuda")
+        with (autotune.tuning() if impl == "auto"
+              else contextlib.nullcontext()):
+            _, _, _, warm = _timed_stream(torch, serve, se, sargs)
+        out, wall, tok_s, misses = _timed_stream(torch, serve, se, sargs)
+        bad = [rid for rid, r in out.items()
+               if r.status is not RequestStatus.FINISHED]
+        if len(out) != N_REQ or bad:
+            raise AssertionError(f"stream on {impl!r}: unfinished {bad}")
+        streams[impl] = {"out": out, "wall_s": wall, "gen_tok_s": tok_s,
+                         "warmup_misses": warm, "tuner_misses": misses}
+        print(f"  stream on {impl!r} (bf16 pools): {wall:.4f} s, "
+              f"{tok_s:.1f} generated tok/s; tuner misses: warm-up "
+              f"{warm}, timed {misses}")
+        if misses:
+            raise AssertionError(f"{impl}: the timed stream missed")
+        del se
+    same = sum(bool((streams["auto"]["out"][rid]
+                     == streams["cuda"]["out"][rid]).all())
+               for rid in streams["cuda"]["out"])
+    print(f"  {same}/{N_REQ} 'auto' streams equal to the 'cuda' ones")
+    res["streams"] = {k: {n: v for n, v in d.items() if n != "out"}
+                      for k, d in streams.items()}
+    res["streams_equal"] = same
+
+    # (b) the cache persists: a fresh in-memory tuner reads the file
+    autotune.reset()
+    again, _ = eng.generate({"tokens": prompts}, gen=G)
+    if autotune.stats["misses"] or not torch.equal(
+            again, gens["auto"]["tokens"]):
+        raise AssertionError(f"after reset: {autotune.stats}, same tokens "
+                             f"{torch.equal(again, gens['auto']['tokens'])}")
+    print(f"  after autotune.reset(): generate again with "
+          f"{autotune.stats['hits']} hits, 0 misses, the same tokens")
+    res["reset_hits"] = autotune.stats["hits"]
+    del engines, ref, eng
+    torch.cuda.empty_cache()
+
+    # (c) the block tuner, in a tuning pass
+    with autotune.tuning():
+        res["block_tuner"] = _block_tuner(torch, build)
+    # (d) the CLI and the examples
+    res["cli"] = _cli_and_examples(torch, serve)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 11: {res['wall_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -7368,18 +7776,21 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # every run tunes from an empty autotuner cache of its own
+    OUT.mkdir(exist_ok=True)
+    tune_cache = OUT / "autotune.json"
+    tune_cache.unlink(missing_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(tune_cache)
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    OUT.mkdir(exist_ok=True)
     secs = build.timed_build(ptxas_verbose=True, log_dir=OUT)
     print(f"build: {secs:.1f} s ({', '.join(build.SOURCES)})")
 
@@ -7459,6 +7870,9 @@ def main() -> int:
 
     print("training: the 'torch' backend (the kernels are forward-only)")
     training = serve_training(torch)
+
+    print("the serving surfaces: launch/serve.py, 'auto', the autotuner")
+    surfaces = serve_surfaces(torch)
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
@@ -7546,6 +7960,7 @@ def main() -> int:
               "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,
               "deepseek": deepseek, "cnn": cnn, "training": training,
+              "surfaces": surfaces,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

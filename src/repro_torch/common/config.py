@@ -114,6 +114,8 @@ class ModelConfig:
     # 'cuda'  = the hand-written Hopper kernels in repro_torch/csrc
     #           (the counterpart of 'pallas'; default).  On CPU tensors
     #           each kernel wrapper runs its plain version.
+    # 'auto'  = per op and shape, the backend measured faster
+    #           (kernels.autotune's cache, 'dispatch:<op>' entries)
     kernel_impl: str = "cuda"
     # decode attention distribution:
     # 'none' = the cache is shard-local (GSPMD may still head-shard it)

@@ -82,7 +82,7 @@ class EngineConfig:
     max_len: int = 128              # prompt + generation budget
     mesh_shape: Tuple[int, int] = (1, 1)      # (data, model)
     decode_shard: Optional[str] = None   # 'none' | 'seq'
-    kernel_impl: Optional[str] = None    # 'torch' | 'cuda'
+    kernel_impl: Optional[str] = None    # 'torch' | 'cuda' | 'auto'
     param_strategy: str = "serve"
     paged: bool = False
     page_size: int = 16

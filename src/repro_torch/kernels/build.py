@@ -31,6 +31,7 @@ strips or the halo tile) also counts the variant that ran in
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -97,10 +98,28 @@ VARIANTS: Dict[str, int] = {"vwr_matmul.splitk": 0, "vwr_matmul.wgmma": 0,
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+# open ``uncounted()`` blocks
+_UNCOUNTED = 0
+
+
 def count_launch(kernel: str, variant: Optional[str] = None) -> None:
+    if _UNCOUNTED:
+        return
     LAUNCHES[kernel] += 1
     if variant is not None:
         VARIANTS[f"{kernel}.{variant}"] += 1
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are not counted: the autotuner's timing launches
+    are not work that a path did."""
+    global _UNCOUNTED
+    _UNCOUNTED += 1
+    try:
+        yield
+    finally:
+        _UNCOUNTED -= 1
 
 
 def reset_launches() -> None:

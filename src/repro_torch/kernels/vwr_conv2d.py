@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.vwr_matmul import ACT_CODES, ACTIVATIONS, SMS
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -144,8 +144,11 @@ def vwr_conv2d(x, w, bias=None, *, activation=None):
 def launch(x, w, bias, activation, kind, plan_=None):
     """One launch of variant ``kind`` on operands ``vwr_conv2d`` checked
     (every one contiguous and 16-byte aligned); ``vwr_conv2d`` passes
-    ``variant``'s choice and ``plan``'s.  chip_smoke.py also times other
-    plans (``plan``'s tuples) through it."""
+    ``variant``'s choice.  With no ``plan_`` the wgmma variant takes
+    ``autotune.conv_plan``'s: ``plan``'s unless a tuning pass persisted
+    another.  chip_smoke.py also times other plans through it."""
+    if kind != "tile" and plan_ is None:
+        plan_ = autotune.conv_plan(x, w, bias, activation)
     N, H, W, C = x.shape
     KH, KW, _, F = w.shape
     out = torch.empty((N, H - KH + 1, W - KW + 1, F), dtype=x.dtype,
@@ -158,7 +161,6 @@ def launch(x, w, bias, activation, kind, plan_=None):
         err = fn(*ptrs, N, H, W, C, KH, KW, F, build.dtype_code(x.dtype),
                  ACT_CODES[activation], build.stream_of(x))
     else:
-        plan_ = plan_ or plan(N, H, W, C, KH, KW, F)
         n_ws, n_counters = scratch_sizes(N, H, W, C, KH, KW, F, plan_)
         ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
               if n_ws else None)

@@ -33,7 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -179,9 +179,13 @@ def vwr_matmul(x, w, bias=None, residual=None, *, activation=None):
 
 def launch(x, w, bias, residual, activation, kind, plan=None):
     """One launch of variant ``kind`` on operands ``vwr_matmul`` checked;
-    ``vwr_matmul`` passes ``variant``'s choice and its plan.  chip_smoke.py
-    also times the variants, and other plans (``splitk_plan`` /
-    ``tile_plan``'s tuples), against each other through it."""
+    ``vwr_matmul`` passes ``variant``'s choice.  With no ``plan`` a split-K
+    or wgmma launch takes ``autotune.matmul_plan``'s: the rule's
+    (``splitk_plan`` / ``tile_plan``) unless a tuning pass persisted
+    another of the same variant.  chip_smoke.py also times the variants,
+    and other plans, against each other through it."""
+    if kind != "gemm" and plan is None:
+        plan = autotune.matmul_plan(kind, x, w, bias, residual, activation)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -196,9 +200,8 @@ def launch(x, w, bias, residual, activation, kind, plan=None):
                                   [_VP] * 5 + [_I] * 5 + [_VP])
         err = fn(*ptrs, M, N, K, build.dtype_code(x.dtype), *tail)
     else:
-        planner, bn = ((splitk_plan, SPLITK_BN) if kind == "splitk"
-                       else (tile_plan, TILE_BN))
-        tile, nsplit, depth = plan or planner(M, N, K)
+        bn = SPLITK_BN if kind == "splitk" else TILE_BN
+        tile, nsplit, depth = plan
         n_counters = _cdiv(M, tile) * _cdiv(N, bn)
         ws = (torch.empty((nsplit, M, N), dtype=torch.float32,
                           device=x.device) if nsplit > 1 else None)
@@ -273,9 +276,12 @@ def vwr_swiglu(x, wg, wi):
 
 def swiglu_launch(x, wg, wi, kind, plan=None):
     """One launch of vwr_swiglu's variant ``kind`` on operands
-    ``vwr_swiglu`` checked, with ``swiglu_tile_plan``'s plan unless
-    ``plan`` is given; chip_smoke.py times the variants and plans against
-    each other through it."""
+    ``vwr_swiglu`` checked; with no ``plan`` the wgmma variant takes
+    ``autotune.swiglu_plan``'s: ``swiglu_tile_plan``'s unless a tuning
+    pass persisted another.  chip_smoke.py times the variants and plans
+    against each other through it."""
+    if kind != "gemm" and plan is None:
+        plan = autotune.swiglu_plan(x, wg, wi)
     M, K = x.shape
     N = wg.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -286,7 +292,7 @@ def swiglu_launch(x, wg, wi, kind, plan=None):
         err = fn(*ptrs, M, N, K, build.dtype_code(x.dtype),
                  build.stream_of(x))
     else:
-        bm, bn, nsplit, kt_split = plan or swiglu_tile_plan(M, N, K)
+        bm, bn, nsplit, kt_split = plan
         ws = (torch.empty((nsplit, M, 2 * N), dtype=torch.float32,
                           device=x.device) if nsplit > 1 else None)
         stream = build.stream_of(x)

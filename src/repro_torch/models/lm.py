@@ -74,7 +74,7 @@ layer body runs through ``_maybe_remat`` (``cfg.remat``), which acts only
 under autograd; the moe family's ``backbone`` returns the MoE aux losses
 averaged over its MoE layers.
 
-``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda').
+``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda' | 'auto').
 """
 from __future__ import annotations
 

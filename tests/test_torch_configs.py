@@ -53,6 +53,12 @@ def test_import_leaves_jax_out():
             "import repro_torch.kernels.vwr_conv2d\n"
             "import repro_torch.kernels.vwr_depthwise\n"
             "import repro_torch.examples.provet_conv_demo\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.serve_batch\n"
+            "import repro_torch.examples.train_100m\n"
+            "import repro_torch.kernels.autotune\n"
+            "import repro_torch.launch.roofline\n"
+            "import repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -86,12 +92,16 @@ def test_dispatch_registry_has_both_backends():
                "decode_partial_mla_q8", "decode_partial_mla_paged",
                "decode_partial_mla_paged_q8"):
         assert dispatch.backends(op) == ("cuda", "torch"), op
-    with pytest.raises(KeyError, match="no 'auto' backend"):
-        dispatch.resolve("mlp", "auto")
+    # 'auto' resolves at the registry; with nothing to key on (no
+    # arguments) it takes the first of AUTO_ORDER
+    assert dispatch.resolve("mlp", "auto") is dispatch.resolve("mlp", "cuda")
+    with pytest.raises(KeyError, match="no 'pallas' backend"):
+        dispatch.resolve("mlp", "pallas")
     with pytest.raises(KeyError, match="registered ops"):
         dispatch.resolve("nope", "torch")
-    with pytest.raises(ValueError, match="unknown backend"):
-        dispatch.register("mlp", "pallas")
+    for name in ("pallas", "auto"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            dispatch.register("mlp", name)
 
 
 def test_kernel_build_paths_and_counters():
