@@ -299,7 +299,28 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    crash-free one; ``examples.quickstart``, ``examples.serve_batch
    --stream --crash-at 6 --snapshot-every 2`` and ``examples.train_100m
    --steps 20`` as subprocesses, each to exit 0;
-12. print ``{"kernels": [...]}``, then the last line
+12. distributed serving (``serve_distributed``): ranks spawned on this
+   card by ``launch.mesh.run_ranks`` (gloo between them: NCCL refuses two
+   ranks on one GPU), each launching the decode kernels on its own slab:
+   tinyllama-1.1b (full width, bf16) ``generate`` B4 P128 gen 32 on
+   (1, 2) and (2, 2) with the cache sequence-sharded and on (2, 1) with
+   the batch split, and P16 gen 16 on (1, 2) (rank 1's slab empty, kernel
+   4 launched with no valid key), each held against the single rank in
+   this process (teacher-forced logits at 5e-2 of scale, greedy tokens
+   counted, tokens equal on every rank, the seeded parameters' digests
+   equal), and a sampled P16 gen 16 on (2, 1) equal to the single
+   rank's; phase 5's Scheduler stream on (1, 2) seq over bf16 and int8
+   pools (kernels 5 and 7 over tables of foreign pages at count 0; every
+   parted request replayed with the single rank's tokens and held at
+   5e-2); the
+   reduced dense + MLA config (fp32) through generate and the Scheduler
+   on (1, 2) seq (kernels 10, 11, 13; equal greedy streams on fp32
+   pools, logits at 1e-3); kernels 10, 11, 13, 14 at DeepSeek-V3's widths
+   and 9, 6, 8, 12, 15 at phase 2's shapes through ``dist.decode``'s
+   sharded functions against the same kernels on the whole operands;
+   decode tok/s of each mesh beside the single rank's, the combine's
+   share of a decode step, the launches per rank;
+13. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The reduced fp32 configs of phases 3-8 run at the CPU tests' widths
@@ -318,6 +339,7 @@ the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -7768,6 +7790,665 @@ def serve_surfaces(torch):
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 12: distributed serving (sequence-sharded decode over ranks)
+# ----------------------------------------------------------------------
+
+# generate at full width on each mesh: B4 P128 gen 32 in a cache of 160
+DIST_B, DIST_P, DIST_GEN, DIST_MAX = 4, 128, 32, 160
+# P16 gen 16 on (1, 2): its 32 positions lie in rank 0's slab [0, 80), so
+# rank 1 launches kernel 4 with no valid key at every step
+DIST_SHORT = (16, 16)
+# a sampled generate at P16 gen 16 on (2, 1) and on the single rank
+DIST_TEMP = 0.8
+# the reduced dense + MLA config (fp32): generate B4 P16 gen 8 in a cache
+# of 32, and the reduced Scheduler geometry of scheduler_reduced_fp32
+MLA_GEN = (4, 16, 8, 32)
+MLA_PAGED = dict(batch=3, max_len=64, paged=True, page_size=8, n_pages=12)
+MLA_REQS = (7, (5, 40), 16, 6)          # n, prompt range, gen, seed
+# DeepSeek-V3's attention widths (phase 2's MLA cases)
+DS_H, DS_R, DS_RP = 128, 512, 64
+
+
+def _param_digest(torch, params):
+    """Per leaf, the sum and the sum of squares of its bits read as int16:
+    equal digests on two ranks mean the same seeded parameters (no
+    broadcast of the weights through the host)."""
+    from repro_torch.common.module import leaves
+
+    out = []
+    for path, t in leaves(params):
+        bits = t.contiguous().view(-1).view(torch.int16).to(torch.int64)
+        out.append(("/".join(path), int(bits.sum()),
+                    int((bits * bits).sum())))
+    return out
+
+
+def _forced(torch, eng, prompts, tokens, P, gen):
+    """Host fp32 logits of ``eng``'s prefill and ``gen - 1`` decode steps
+    fed ``tokens`` (the whole batch's (B, gen); each rank feeds its rows,
+    ``eng.rows``)."""
+    V = eng.cfg.vocab
+    lg, cache = eng.prefill({"tokens": prompts})
+    out = [lg[:, :V].float().cpu()]
+    for i in range(gen - 1):
+        lg, cache = eng.decode_step(tokens[eng.rows, i].cuda(), P + i,
+                                    cache)
+        out.append(lg[:, :V].float().cpu())
+    return out
+
+
+def _rel_errs(got, want, rows, floor=0.0):
+    """Per step max|d| / max(floor, max|want|) over this rank's rows."""
+    return [(a - b[rows]).abs().max().item()
+            / max(floor, b[rows].abs().max().item())
+            for a, b in zip(got, want)]
+
+
+def _combine_share(torch, eng, prompts, gen):
+    """One more generate with the host clock around each collective of
+    the combine (a device sync before and after, so the time is the
+    collective's, the host staging of gloo included): (seconds in the
+    collectives, their count, the decode's seconds)."""
+    from repro_torch.launch.mesh import Mesh
+
+    spent = [0.0, 0]
+    orig = Mesh.all_reduce
+
+    def timed(self, t, axis, op="sum"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(self, t, axis, op)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return t
+    Mesh.all_reduce = timed
+    try:
+        _, stats = eng.generate({"tokens": prompts}, gen=gen)
+    finally:
+        Mesh.all_reduce = orig
+    return {"combine_s": spent[0], "collectives": spent[1],
+            "t_decode_s": stats["t_decode_s"],
+            "share": spent[0] / stats["t_decode_s"]}
+
+
+def _dist_generate(torch, eng, prompts, ref, P, gen, tol, floor=0.0,
+                   kernel="vwr_flash_decode", share=False, warm=True):
+    """Generate on a mesh (after a short warm-up in a fresh process, the
+    timed run with the launch counters set to 0 just before it and read
+    just after), the single rank's tokens fed back teacher-forced and
+    each step's logits held to its at ``tol`` of scale, and the greedy
+    tokens counted against its stream."""
+    from repro_torch.kernels import build
+
+    p = prompts[:, :P].cuda()
+    if warm:
+        eng.generate({"tokens": p}, gen=2)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    tokens, stats = eng.generate({"tokens": p}, gen=gen)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES[kernel]
+    variants = {k: n for k, n in build.VARIANTS.items()
+                if k.startswith(kernel + ".") and n}
+    L = eng.cfg.n_layers
+    if launches != L * (gen - 1):
+        raise AssertionError(f"{kernel} launched {launches} times on "
+                             f"{eng.mesh!r}, expected {L * (gen - 1)}")
+    rel = _rel_errs(_forced(torch, eng, p, ref["tokens"], P, gen),
+                    ref["logits"], eng.rows, floor)
+    if not max(rel) <= tol:
+        raise AssertionError(f"{eng.mesh!r}: teacher-forced logits "
+                             f"{max(rel):.3e} of scale past {tol:g}")
+    out = {"tokens": tokens.cpu(), "launches": launches,
+           "variants": variants, "max_rel_err": max(rel),
+           "equal_tokens": int((tokens.cpu() == ref["tokens"]).sum()),
+           "decode_tok_s": stats["decode_tok_s"]}
+    if share:
+        out["combine"] = _combine_share(torch, eng, p, gen)
+    return out
+
+
+def _one_rank(mesh):
+    """A one-rank mesh on this rank's device (a single-rank engine inside
+    a world of several)."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh({"data": 1, "model": 1}, {"data": 0, "model": 0},
+                device=mesh.device)
+
+
+def _replay_forced(torch, eng, reqs, streams):
+    """Teacher-force each request's ``streams`` tokens through ``eng``
+    (sharded or not) from fresh pools, as many requests at a time as
+    slots and pages allow, one slot and a run of pages each: the logits
+    rows (host fp32) of the prefill and of every decode step."""
+    import numpy as np
+
+    from repro_torch.engine.paged_cache import write_prefill
+
+    B, ps, V = eng.ecfg.batch, eng.page_size, eng.cfg.vocab
+    need = {r.rid: -(-(len(r.tokens) + len(streams[r.rid])) // ps)
+            for r in reqs}
+    groups, group = [], []
+    for r in reqs:
+        if len(group) == B or sum(need[g.rid] for g in group) \
+                + need[r.rid] > eng.n_pages:
+            groups.append(group)
+            group = []
+        group.append(r)
+    groups.append(group)
+    out = {r.rid: [] for r in reqs}
+    for group in groups:
+        table = np.zeros((B, eng.max_pages), np.int32)
+        lens = np.zeros((B,), np.int32)
+        at = 0
+        for b, r in enumerate(group):
+            table[b, :need[r.rid]] = np.arange(at, at + need[r.rid])
+            at += need[r.rid]
+            lens[b] = len(r.tokens)
+        cache = eng.init_paged_cache()
+        for b, r in enumerate(group):
+            lg, caches = eng.prefill_fn(eng.params, {
+                "tokens": torch.from_numpy(r.tokens)[None].cuda()})
+            write_prefill(eng.cfg, cache, caches, table[b:b + 1],
+                          slab=eng.page_slab)
+            out[r.rid].append(lg[0, :V].float().cpu())
+        for i in range(max(len(streams[r.rid]) for r in group) - 1):
+            tok = np.zeros((B,), np.int32)
+            cur = np.zeros((B,), np.int32)
+            for b, r in enumerate(group):
+                if i + 1 < len(streams[r.rid]):
+                    tok[b], cur[b] = streams[r.rid][i], lens[b] + i
+            lg, cache = eng.decode_step(tok, cur, cache, block_table=table)
+            for b, r in enumerate(group):
+                if cur[b]:
+                    out[r.rid].append(lg[b, :V].float().cpu())
+    return out
+
+
+def _dist_stream(torch, mesh, cfg, params, ecfg, reqs, want, tol,
+                 floor=0.0):
+    """A Scheduler stream on a (1, M) seq-sharded paged engine (launches
+    counted from 0 over the stream), its greedy streams against the
+    single rank's ``want``: equal, or the parted requests replayed with
+    ``want``'s tokens through both engines from fresh pools and their
+    logits held at ``tol`` of scale at every step."""
+    from repro_torch.engine import DecodeEngine, RequestStatus, Scheduler
+    from repro_torch.kernels import build
+
+    eng = DecodeEngine(cfg, ecfg.replace(mesh_shape=(1, mesh.axis_size(
+        "model")), decode_shard="seq"), params=params, device="cuda",
+        mesh=mesh)
+    sched = Scheduler(eng)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = _drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.stats
+    mla = cfg.mla is not None
+    kernel = ("vwr_mla_paged_flash_decode" if mla
+              else "vwr_paged_flash_decode") + (
+        "_q8" if ecfg.kv_dtype == "int8" else "")
+    L = cfg.n_layers
+    if build.LAUNCHES[kernel] != L * st["steps"]:
+        raise AssertionError(f"{kernel} launched {build.LAUNCHES[kernel]} "
+                             f"times, expected {L * st['steps']}")
+    bad = [i for i, r in out.items() if r.status
+           is not RequestStatus.FINISHED]
+    if bad or len(out) != len(reqs):
+        raise AssertionError(f"unfinished requests {bad}")
+    sched.allocator.check()
+    got = [out[i].tokens.tolist() for i in range(len(reqs))]
+    res = {"kv_dtype": ecfg.kv_dtype, "steps": st["steps"],
+           "launches": build.LAUNCHES[kernel], "wall_s": wall,
+           "gen_tok_s": sum(len(t) for t in got) / wall,
+           "equal": got == want,
+           "table_digest": hashlib.sha256(
+               sched.table.tobytes() + sched.lens.tobytes()).hexdigest()}
+    parted = [i for i in range(len(reqs)) if got[i] != want[i]]
+    if parted:
+        ref = DecodeEngine(cfg, ecfg, params=params, device="cuda",
+                           mesh=_one_rank(mesh))
+        # every parted request, in groups of as many as the slots and
+        # the pool hold at once
+        pick = [reqs[i] for i in parted]
+        streams = {r.rid: want[r.rid] for r in pick}
+        a = _replay_forced(torch, eng, pick, streams)
+        b = _replay_forced(torch, ref, pick, streams)
+        worst, agree, n = 0.0, 0, 0
+        for i in streams:
+            for j, (x, y) in enumerate(zip(a[i], b[i])):
+                err = (x - y).abs().max().item() / max(
+                    floor, y.abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(
+                        f"{kernel} stream, request {i} replayed, step {j}: "
+                        f"{err:.3e} of scale past {tol:g}")
+                worst = max(worst, err)
+                agree += int(x.argmax()) == want[i][j]
+                n += 1
+        res.update(parted=parted, replayed=sorted(streams),
+                   replayed_steps=n, replay_max_rel=worst,
+                   replay_picks_single_token=agree)
+    return res
+
+
+def _hold_op(torch, rows, name, shape, got, want, dt):
+    """A sharded op's outputs against the unsharded launch's at TOL[dt]
+    (normalized outputs; (o~, m, l) partials as o~ / l and m)."""
+    atol, rtol = TOL[str(dt).split(".")[-1]]
+    if isinstance(got, tuple):
+        got = (got[0] / got[2].clamp_min(1e-30)[..., None], got[1])
+        want = (want[0] / want[2].clamp_min(1e-30)[..., None], want[1])
+    else:
+        got, want = (got,), (want,)
+    err = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+            raise AssertionError(f"{name} {shape}: sharded max|d| "
+                                 f"{(a - b).abs().max().item():.3e} past "
+                                 f"atol {atol} + rtol {rtol}")
+        err = max(err, (a - b).abs().max().item())
+    rows.append({"kernel": name, "case": shape, "max_abs_err": err})
+
+
+def _dist_ops(torch, mesh):
+    """Op level on the mesh's 'model' ranks: kernels 10 and 14 (dense
+    latent slabs, bf16 and int8) and 11 and 13 (latent pools) at
+    DeepSeek-V3's widths (H 128, r 512, rope 64), kernel 9 (the dense
+    int8 slab) at tinyllama's, kernels 6 and 8 (the chunk prefix, GQA)
+    and 12 and 15 (MLA) over permuted tables, each through
+    ``dist.decode``'s sharded function on this rank's block and held to
+    the same kernel on the whole operands.  Every kind has a case whose
+    rank 1 holds no valid key."""
+    import numpy as np
+
+    from repro_torch.dist import decode as DD
+    from repro_torch.dist.sharding import PS, block_span, local_block
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    SC = 1.0 / 192 ** 0.5
+    M = mesh.axis_size("model")
+    rows = []
+
+    def rnd(*s, dt=f32):
+        return torch.randn(*s, generator=g, device="cuda").to(dt)
+
+    def ints(*s):
+        return torch.randint(-127, 128, s, generator=g, device="cuda",
+                             dtype=i8)
+
+    def scales(*s):
+        return torch.rand(*s, generator=g, device="cuda") * 0.02 + 1e-3
+
+    def slab(x):
+        return local_block(x, PS(None, "model"), mesh)
+
+    # kernels 10, 14: B, T, cur_len
+    for label, B, T, cur in (("B4 T160 cur144", 4, 160, 144),
+                             ("B1 T2048", 1, 2048, 2048),
+                             ("rank 1 empty", 4, 160, 60)):
+        qa, qr = rnd(B, DS_H, DS_R), rnd(B, DS_H, DS_RP)
+        for q8 in (False, True):
+            if q8:
+                ck, kr, sc = ints(B, T, DS_R), ints(B, T, DS_RP), \
+                    (scales(B), scales(B))
+            else:
+                ck, kr, sc = rnd(B, T, DS_R, dt=bf16), \
+                    rnd(B, T, DS_RP, dt=bf16), (None, None)
+            kw = dict(scale=SC, ckv_scale=sc[0], krope_scale=sc[1])
+            want = DD.local_mla_decode_attend(qa, qr, ck, kr, cur, **kw)
+            got = DD.sharded_mla_flash_decode(mesh, qa, qr, slab(ck),
+                                              slab(kr), cur, **kw)
+            _hold_op(torch, rows, "vwr_mla_flash_decode" + (
+                "_q8" if q8 else ""), label, got, want, f32)
+    # kernels 11, 13: 8 slots over a 1024-page pool, tables permuted over
+    # all of it; then every page in rank 0's half (rank 1 empty)
+    lens, ps, n_pages, J = (0, 1, 16, 17, 255, 100, 200, 64), 16, 1024, 17
+    pp = n_pages // M
+    for label, span in (("8 slots", n_pages), ("rank 1 empty", pp)):
+        perm = torch.randperm(span, generator=g, device="cuda").cpu()
+        table = np.zeros((8, J), np.int32)
+        at = 0
+        for b, n in enumerate(lens):
+            live = -(-n // ps)
+            table[b, :live] = perm[at:at + live].numpy()
+            at += live
+        counts = DD._page_counts(np.array(lens), J, ps)
+        qa, qr = rnd(8, DS_H, DS_R), rnd(8, DS_H, DS_RP)
+        tl, cl = (torch.from_numpy(a).cuda() for a in DD.own_pages(
+            table, counts, *block_span(mesh, "model", n_pages)))
+        tw, cw = torch.from_numpy(table).cuda(), \
+            torch.from_numpy(counts).cuda()
+        for q8 in (False, True):
+            if q8:
+                pools, sc = [ints(n_pages, ps, w) for w in (DS_R, DS_RP)], \
+                    [scales(n_pages) for _ in range(2)]
+            else:
+                pools, sc = [rnd(n_pages, ps, w, dt=bf16)
+                             for w in (DS_R, DS_RP)], [None, None]
+            mine = [local_block(p, PS("model"), mesh) for p in pools]
+            smine = [None if s is None else local_block(s, PS("model"),
+                                                        mesh) for s in sc]
+            want = DD.local_mla_paged_decode_attend(
+                qa, qr, *pools, tw, cw, scale=SC, ckv_scale=sc[0],
+                krope_scale=sc[1])
+            got = DD.sharded_mla_paged_flash_decode(
+                mesh, qa, qr, *mine, tl, cl, scale=SC, ckv_scale=smine[0],
+                krope_scale=smine[1])
+            _hold_op(torch, rows, "vwr_mla_paged_flash_decode" + (
+                "_q8" if q8 else ""), label, got, want, f32)
+    # kernel 9: tinyllama's decode over int8 slabs, (B, KV) scales
+    for label, cur in (("tinyllama B4 T160 cur144", 144),
+                       ("rank 1 empty", 60)):
+        q = rnd(4, 32, 64, dt=bf16)
+        k, v = ints(4, 160, 4, 64), ints(4, 160, 4, 64)
+        ks, vs = scales(4, 4), scales(4, 4)
+        want = DD.local_decode_attend(q, k, v, cur, k_scale=ks, v_scale=vs)
+        got = DD.sharded_flash_decode(mesh, q, slab(k), slab(v), cur,
+                                      k_scale=ks, v_scale=vs)
+        _hold_op(torch, rows, "vwr_flash_decode_q8", label, got, want, bf16)
+    # kernels 6, 8 (tinyllama's chunk) and 12, 15 (DeepSeek-V3's): a
+    # 64-token chunk over 16 prior pages of 16, permuted over a 64-page
+    # pool, then all of them in rank 0's half
+    n_pages, pp = 64, 64 // M
+    counts = np.full((16,), 16, np.int32)
+    for label, span in (("chunk 64, 16 pages", n_pages),
+                        ("rank 1 empty", pp)):
+        table = torch.randperm(span, generator=g, device="cuda")[:16].cpu() \
+            .numpy().astype(np.int32)
+        tl, cl = (torch.from_numpy(a).cuda() for a in DD.own_pages(
+            table, counts, *block_span(mesh, "model", n_pages)))
+        tw, cw = torch.from_numpy(table).cuda(), \
+            torch.from_numpy(counts).cuda()
+        q = rnd(64, 32, 64, dt=bf16)
+        qa, qr = rnd(64, DS_H, DS_R), rnd(64, DS_H, DS_RP)
+        for q8 in (False, True):
+            if q8:
+                kv = [ints(n_pages, 16, 4, 64) for _ in range(2)]
+                ksc = [scales(n_pages, 4) for _ in range(2)]
+                lat = [ints(n_pages, 16, w) for w in (DS_R, DS_RP)]
+                lsc = [scales(n_pages) for _ in range(2)]
+            else:
+                kv = [rnd(n_pages, 16, 4, 64, dt=bf16) for _ in range(2)]
+                lat = [rnd(n_pages, 16, w, dt=bf16) for w in (DS_R, DS_RP)]
+                ksc, lsc = [None, None], [None, None]
+
+            def mine(xs):
+                return [None if x is None else local_block(x, PS("model"),
+                                                           mesh)
+                        for x in xs]
+            want = DD.local_chunk_prefix_attend(
+                q, *kv, tw, cw, k_scale=ksc[0], v_scale=ksc[1])
+            got = DD.sharded_chunk_prefix_attend(
+                mesh, q, *mine(kv), tl, cl, k_scale=mine(ksc)[0],
+                v_scale=mine(ksc)[1])
+            _hold_op(torch, rows, "vwr_chunk_prefix_attend" + (
+                "_q8" if q8 else ""), label, got, want, bf16)
+            from repro_torch.kernels import dispatch as KD
+            op = "chunk_prefix_mla_paged" + ("_q8" if q8 else "")
+            sc = tuple(s for s in lsc if s is not None)
+            want = KD.dispatch(op, "cuda", qa, qr, *lat, *sc, tw, cw,
+                               scale=SC)
+            got = DD.sharded_mla_chunk_prefix_attend(
+                mesh, qa, qr, *mine(lat), tl, cl, scale=SC,
+                ckv_scale=mine(lsc)[0], krope_scale=mine(lsc)[1])
+            _hold_op(torch, rows, "vwr_mla_chunk_prefix_attend" + (
+                "_q8" if q8 else ""), label, got, want, f32)
+    return rows
+
+
+def _dist_world(mesh, prompts, refs, digest, streams, mla):
+    """Everything phase 12 runs on one mesh of ranks (every rank runs
+    it): tinyllama-1.1b's generate (and on (1, M) the short run, the
+    Scheduler streams and the MLA and op-level checks); the rank's
+    results, gathered from every rank."""
+    import torch
+
+    from repro_torch.common.config import MLAConfig  # noqa: F401
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig
+
+    data, model = mesh.axis_size("data"), mesh.axis_size("model")
+    cfg = get_config("tinyllama-1.1b")
+    seq = "seq" if model > 1 else None
+    eng = DecodeEngine(cfg, EngineConfig(
+        batch=DIST_B, max_len=DIST_MAX, kernel_impl="cuda",
+        mesh_shape=(data, model), decode_shard=seq), device="cuda", seed=0,
+        mesh=mesh)
+    _condition(torch, eng.params)
+    out = {"coords": dict(mesh.coords),
+           "same_params": _param_digest(torch, eng.params) == digest}
+    out["generate"] = _dist_generate(
+        torch, eng, prompts, refs["long"], DIST_P, DIST_GEN, E2E_BF16_REL)
+    if model == 1:
+        # the batch split over 'data' leaves each row's logits bitwise
+        # one rank's, so a sampled stream is one rank's too
+        P, G = DIST_SHORT
+        out["sampled"] = {"tokens": eng.generate(
+            {"tokens": prompts[:, :P].cuda()}, gen=G, temperature=DIST_TEMP,
+            seed=7)[0].cpu()}
+        if not torch.equal(out["sampled"]["tokens"], refs["sampled"]):
+            raise AssertionError(f"{mesh!r}: sampled tokens differ from "
+                                 "one rank's")
+    if data == 1:
+        out["short"] = _dist_generate(torch, eng, prompts, refs["short"],
+                                      *DIST_SHORT, E2E_BF16_REL,
+                                      share=True, warm=False)
+        ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + GEN,
+                            paged=True, page_size=PAGE, n_pages=N_PAGES,
+                            kernel_impl="cuda")
+        reqs = _requests(cfg, N_REQ, PROMPT, GEN, seed=4)
+        out["streams"] = [_dist_stream(
+            torch, mesh, cfg, eng.params, ecfg.replace(kv_dtype=kv), reqs,
+            streams[kv], E2E_BF16_REL) for kv in ("bf16", "int8")]
+        del eng
+        torch.cuda.empty_cache()
+        mcfg = _dense_mla()
+        B, P, G, T = MLA_GEN
+        meng = DecodeEngine(mcfg, EngineConfig(
+            batch=B, max_len=T, kernel_impl="cuda", mesh_shape=(1, model),
+            decode_shard="seq"), device="cuda", seed=0, mesh=mesh)
+        out["mla_generate"] = _dist_generate(
+            torch, meng, mla["prompts"], mla["ref"], P, G, E2E_FP32_TOL,
+            floor=1.0, kernel="vwr_mla_flash_decode")
+        if out["mla_generate"]["equal_tokens"] != B * G:
+            raise AssertionError("MLA generate: greedy tokens differ")
+        n, rng, gen, seed = MLA_REQS
+        mreqs = _requests(mcfg, n, rng, gen, seed=seed)
+        out["mla_streams"] = [_dist_stream(
+            torch, mesh, mcfg, meng.params, EngineConfig(
+                **MLA_PAGED, kv_dtype=kv, kernel_impl="cuda"), mreqs,
+            mla["streams"][kv], E2E_FP32_TOL, floor=1.0)
+            for kv in ("bf16", "int8")]
+        if not out["mla_streams"][0]["equal"]:
+            raise AssertionError("MLA fp32 Scheduler stream differs")
+        del meng
+        out["ops"] = _dist_ops(torch, mesh)
+    ranks = mesh.gather_objects(out)
+    for key in ("generate", "short", "sampled"):
+        if key in out and not all(torch.equal(r[key]["tokens"],
+                                              ranks[0][key]["tokens"])
+                                  for r in ranks):
+            raise AssertionError(f"{key}: tokens differ across ranks")
+    for key in ("streams", "mla_streams"):
+        if key in out and len({tuple(s["table_digest"] for s in r[key])
+                               for r in ranks}) != 1:
+            raise AssertionError(f"{key}: tables differ across ranks")
+    if not all(r["same_params"] for r in ranks):
+        raise AssertionError("ranks built different parameters")
+    return ranks
+
+
+def serve_distributed(torch):
+    """Phase 12: tinyllama-1.1b (full width, bf16) through ``generate``
+    on (1, 2) and (2, 2) with the cache sequence-sharded and on (2, 1)
+    with the batch split, and P16 gen 16 on (1, 2) (rank 1's slab empty);
+    its Scheduler stream on (1, 2) seq over bf16 and int8 pools; the
+    reduced dense + MLA config through generate and the Scheduler on
+    (1, 2) seq; the sharded ops at DeepSeek-V3's and tinyllama's widths.
+    Each rank is a process on this card (``run_ranks``), talking over
+    gloo.  Held against the single rank in this process: teacher-forced
+    logits, greedy tokens, the streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import DecodeEngine, EngineConfig, Scheduler
+    from repro_torch.launch.mesh import run_ranks, transport
+
+    t_phase = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    eng = DecodeEngine(cfg, EngineConfig(batch=DIST_B, max_len=DIST_MAX,
+                                         kernel_impl="cuda"),
+                       device="cuda", seed=0)
+    _condition(torch, eng.params)
+    digest = _param_digest(torch, eng.params)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    prompts = torch.randint(0, cfg.vocab, (DIST_B, DIST_P), generator=g,
+                            device="cuda", dtype=torch.int32)
+    refs = {}
+    for key, (P, G) in (("long", (DIST_P, DIST_GEN)), ("short", DIST_SHORT)):
+        p = prompts[:, :P]
+        eng.generate({"tokens": p}, gen=2)
+        toks, stats = eng.generate({"tokens": p}, gen=G)
+        refs[key] = {"tokens": toks.cpu(),
+                     "logits": _forced(torch, eng, p, toks, P, G),
+                     "decode_tok_s": stats["decode_tok_s"]}
+    # a sampled generate: a mesh that splits the batch draws the same
+    P, G = DIST_SHORT
+    sampled = eng.generate({"tokens": prompts[:, :P]}, gen=G,
+                           temperature=DIST_TEMP, seed=7)[0].cpu()
+    streams = {}
+    for kv in ("bf16", "int8"):
+        peng = DecodeEngine(cfg, EngineConfig(
+            batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
+            page_size=PAGE, n_pages=N_PAGES, kv_dtype=kv,
+            kernel_impl="cuda"), params=eng.params, device="cuda")
+        t0 = time.perf_counter()
+        out = _drive(Scheduler(peng), _requests(cfg, N_REQ, PROMPT, GEN,
+                                                seed=4))
+        torch.cuda.synchronize()
+        streams[kv] = [out[i].tokens.tolist() for i in range(N_REQ)]
+        streams[kv + "_tok_s"] = sum(map(len, streams[kv])) / (
+            time.perf_counter() - t0)
+        del peng
+    del eng
+    mcfg = _dense_mla()
+    B, P, G, T = MLA_GEN
+    meng = DecodeEngine(mcfg, EngineConfig(batch=B, max_len=T,
+                                           kernel_impl="cuda"),
+                        device="cuda", seed=0)
+    mp = torch.randint(0, mcfg.vocab, (B, P), generator=g, device="cuda",
+                       dtype=torch.int32)
+    mtoks, _ = meng.generate({"tokens": mp}, gen=G)
+    mla = {"prompts": mp.cpu(), "ref": {
+        "tokens": mtoks.cpu(), "logits": _forced(torch, meng, mp, mtoks, P,
+                                                 G)}, "streams": {}}
+    n, rng, gen, seed = MLA_REQS
+    for kv in ("bf16", "int8"):
+        peng = DecodeEngine(mcfg, EngineConfig(**MLA_PAGED, kv_dtype=kv,
+                                               kernel_impl="cuda"),
+                            params=meng.params, device="cuda")
+        out = _drive(Scheduler(peng), _requests(mcfg, n, rng, gen, seed))
+        mla["streams"][kv] = [out[i].tokens.tolist() for i in range(n)]
+    del meng, peng
+    torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t_phase
+    print(f"  the single rank: {t_single:.1f} s; transport of 2 or 4 ranks "
+          f"on this card: {transport(2, 'cuda')} / {transport(4, 'cuda')}")
+
+    single = {k: v["decode_tok_s"] for k, v in refs.items()}
+    print(f"  one rank: decode tok/s {single['long']:.1f} (P{DIST_P} gen "
+          f"{DIST_GEN}), {single['short']:.1f} (P{DIST_SHORT[0]} gen "
+          f"{DIST_SHORT[1]}); Scheduler generated tok/s "
+          f"{streams['bf16_tok_s']:.1f} (bf16), "
+          f"{streams['int8_tok_s']:.1f} (int8)")
+    refs = {k: {"tokens": v["tokens"], "logits": v["logits"]}
+            for k, v in refs.items()}
+    refs["sampled"] = sampled
+    res = {"single": {"decode_tok_s": single, "stream_gen_tok_s": {
+        kv: streams[kv + "_tok_s"] for kv in ("bf16", "int8")}},
+        "transport": transport(2, "cuda"), "meshes": {}}
+    for shape in ((1, 2), (2, 1), (2, 2)):
+        t0 = time.perf_counter()
+        ranks = run_ranks(_dist_world, *shape, device="cuda",
+                          args=(prompts.cpu(), refs, digest, streams, mla))
+        name = f"({shape[0]}, {shape[1]})" + (" seq" if shape[1] > 1
+                                              else "")
+        res["meshes"][name] = _dist_report(name, ranks, single,
+                                           time.perf_counter() - t0)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 12: {res['wall_s']:.1f} s")
+    return res
+
+
+def _dist_report(name, ranks, single, wall):
+    """Print one mesh's results; return them without the token
+    tensors."""
+    r0 = ranks[0]
+    gen = r0["generate"]
+    print(f"  {name}, {len(ranks)} ranks, {wall:.1f} s: decode tok/s "
+          f"{gen['decode_tok_s']:.1f} (rank 0; one rank {single['long']:.1f})"
+          f"; greedy tokens equal to one rank's {gen['equal_tokens']}/"
+          f"{DIST_B * DIST_GEN}; teacher-forced max|d logits| "
+          f"{max(r['generate']['max_rel_err'] for r in ranks):.3e} of "
+          f"scale (limit {E2E_BF16_REL:g}); kernel 4 launches per rank "
+          f"{[r['generate']['launches'] for r in ranks]}, variants "
+          f"{gen['variants']}; tokens equal on every rank")
+    if "short" in r0:
+        s = r0["short"]
+        print(f"    P{DIST_SHORT[0]} gen {DIST_SHORT[1]} (rank 1's slab "
+              f"empty): decode tok/s {s['decode_tok_s']:.1f} (one rank "
+              f"{single['short']:.1f}); greedy tokens equal "
+              f"{s['equal_tokens']}/{DIST_B * DIST_SHORT[1]}; max|d logits| "
+              f"{max(r['short']['max_rel_err'] for r in ranks):.3e}; "
+              f"kernel 4 launches per rank "
+              f"{[r['short']['launches'] for r in ranks]}")
+        c = s["combine"]
+        print(f"    the combine over that run: {c['collectives']} "
+              f"collectives, {c['combine_s']:.4f} s of a "
+              f"{c['t_decode_s']:.4f} s decode ({100 * c['share']:.1f}%; "
+              "host clock, the device synchronized around each)")
+    for key, what in (("streams", "tinyllama Scheduler"),
+                      ("mla_streams", "dense+MLA fp32 Scheduler")):
+        for s in r0.get(key, []):
+            note = "equal to one rank's" if s["equal"] else (
+                f"part in {len(s['parted'])} requests; {len(s['replayed'])}"
+                f" replayed with one rank's tokens: max|d logits| "
+                f"{s['replay_max_rel']:.3e} of scale over "
+                f"{s['replayed_steps']} steps, its token picked at "
+                f"{s['replay_picks_single_token']}")
+            print(f"    {what}, {s['kv_dtype']} pools: {s['steps']} steps, "
+                  f"{s['gen_tok_s']:.1f} generated tok/s; streams {note}; "
+                  f"paged kernel launches per rank "
+                  f"{[r[key][i]['launches'] for r in ranks for i, t in enumerate(r[key]) if t['kv_dtype'] == s['kv_dtype']]}")
+    if "sampled" in r0:
+        print(f"    sampled generate (temperature {DIST_TEMP:g}, P"
+              f"{DIST_SHORT[0]} gen {DIST_SHORT[1]}): tokens equal to one "
+              f"rank's and on every rank")
+    if "mla_generate" in r0:
+        m = r0["mla_generate"]
+        print(f"    dense+MLA fp32 generate: greedy tokens equal "
+              f"{m['equal_tokens']}, max|d logits| {m['max_rel_err']:.3e} "
+              f"(limit {E2E_FP32_TOL:g}); kernel 10 launches per rank "
+              f"{[r['mla_generate']['launches'] for r in ranks]}")
+    for row in r0.get("ops", []):
+        print(f"    {row['kernel']} sharded vs whole, {row['case']}: "
+              f"max|d| {row['max_abs_err']:.3e}")
+
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items() if k != "tokens"}
+        if isinstance(x, list):
+            return [strip(v) for v in x]
+        return x
+    return strip(ranks)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -7873,6 +8554,10 @@ def main() -> int:
 
     print("the serving surfaces: launch/serve.py, 'auto', the autotuner")
     surfaces = serve_surfaces(torch)
+
+    print("distributed serving: ranks on this card, the KV cache "
+          "sequence-sharded")
+    distributed = serve_distributed(torch)
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
@@ -7960,7 +8645,7 @@ def main() -> int:
               "moe_scheduler_reduced_fp32": moe_sched_fp32,
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,
               "deepseek": deepseek, "cnn": cnn, "training": training,
-              "surfaces": surfaces,
+              "surfaces": surfaces, "distributed": distributed,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

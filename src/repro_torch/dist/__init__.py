@@ -1,1 +1,21 @@
-"""Decode attention across cache slabs and page pools (local branches)."""
+"""Multi-device distribution layer (counterpart of ``repro.dist``).
+
+The paper's hierarchy (local vector registers / intermediate SRAM /
+global memory) maps onto a multi-device stack as on-chip memory /
+per-device HBM / the interconnect, and the same discipline applies: keep
+traffic in the near tier, and where it must cross the far tier, cross it
+in the widest, fewest transactions.
+
+  sharding     one vocabulary (logical axes -> mesh partition specs) for
+               params, batches and decode caches, per model family and
+               strategy ('fsdp_tp' | 'ddp' | 'serve'), and the blocks a
+               rank holds under a spec
+  decode       distributed FlashDecoding: a sequence-sharded KV cache,
+               per-rank unnormalized softmax partials, one small
+               (B, H)-sized combine across ranks instead of moving the
+               cache
+
+The training half (``pipeline``, ``compression``) is ROADMAP queue 1
+item 14.
+"""
+from repro_torch.dist import decode, sharding  # noqa: F401

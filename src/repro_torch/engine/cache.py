@@ -8,19 +8,24 @@ import torch
 from repro_torch.models import lm
 
 
-def _put(group, stacks):
+def _put(group, stacks, span=None):
     """Each (L, B, S, ...) prefill stack at offset 0 of its (L, B, T,
     ...) buffer in ``group`` ({"k", "v"}, {"ckv", "krope"} or the audio
     family's {"self_k", "self_v", "cross_k", "cross_v"}, keys in that
-    order)."""
+    order).  With ``span`` (t0, max_len) the buffer is a rank's slab of a
+    ``max_len`` cache holding positions [t0, t0 + T), and gets the
+    stack's rows of them."""
+    t0, max_len = span if span is not None else (0, None)
     for buf, kv in zip(group.values(), stacks):
-        if kv.shape[2] > buf.shape[2]:
+        if kv.shape[2] > (max_len or buf.shape[2]):
             raise ValueError(f"prefill length {kv.shape[2]} exceeds the "
-                             f"cache's {buf.shape[2]} positions")
-        buf[:, :, :kv.shape[2]] = kv
+                             f"cache's {max_len or buf.shape[2]} positions")
+        rows = kv[:, :, t0:t0 + buf.shape[2]]
+        buf[:, :, :rows.shape[2]] = rows
 
 
-def pad_cache_from_prefill(cfg, caches, batch, max_len, enc_len=0):
+def pad_cache_from_prefill(cfg, caches, batch, max_len, enc_len=0,
+                           span=None):
     """Place ``lm.prefill``'s cache stacks at offset 0 of a zeroed
     fixed-size decode cache: (k, v) or (c_kv, k_rope) stacks, or for the
     moe family the pair (dense layers' stacks or None, MoE layers'), or
@@ -29,7 +34,9 @@ def pad_cache_from_prefill(cfg, caches, batch, max_len, enc_len=0):
     hybrid family's shared-block stacks land at offset 0 of ``attn_k`` /
     ``attn_v`` (main groups' invocations, then the tail's); its Mamba2
     states, and the ssm family's mLSTM / sLSTM states, are taken as they
-    are."""
+    are.  ``span`` (t0, T) builds this rank's slab of a cache
+    sequence-sharded over 'model' instead: positions [t0, t0 + T) (the
+    dense and moe families)."""
     if cfg.family == "ssm":
         m_sts, s_st = caches
         return {"mlstm": m_sts, "slstm": s_st}
@@ -49,12 +56,14 @@ def pad_cache_from_prefill(cfg, caches, batch, max_len, enc_len=0):
                               device=k.device)
         _put(cache, (k, v, xk, xv))
         return cache
+    T = span[1] if span is not None else max_len
+    span = (span[0], max_len) if span is not None else None
     groups = caches if cfg.family == "moe" else (None, caches)
-    cache = lm.init_cache(cfg, batch, max_len, device=groups[1][0].device)
+    cache = lm.init_cache(cfg, batch, T, device=groups[1][0].device)
     if cfg.family == "moe":
         if groups[0] is not None:
-            _put(cache["dense"], groups[0])
-        _put(cache["moe"], groups[1])
+            _put(cache["dense"], groups[0], span)
+        _put(cache["moe"], groups[1], span)
     else:
-        _put(cache, caches)
+        _put(cache, caches, span)
     return cache

@@ -41,8 +41,34 @@ are the encoder's input, and the cross cache is sized by them::
 
 The engine runs on ``device="cuda"`` by default and raises if there is
 no GPU; pass ``device="cpu"`` to run the plain versions on the CPU.
-Sequence sharding and meshes other than (1, 1) are not ported yet and
-raise ``NotImplementedError``.
+
+Distributed serving (the dense and moe families, GQA or MLA): one
+engine a rank of a ``(data, model)`` mesh of ``torch.distributed``
+ranks (``launch.mesh``), every rank constructing it alike::
+
+    def serve(mesh):
+        eng = DecodeEngine(cfg, EngineConfig(batch=4, max_len=160,
+                                             mesh_shape=(2, 2),
+                                             decode_shard="seq"),
+                           mesh=mesh)
+        return eng.generate({"tokens": prompts}, gen=32)[0].cpu()
+
+    tokens = run_ranks(serve, 2, 2, device="cuda")
+
+Each rank holds the whole parameters (built from the same seed) and its
+block of the decode cache (``dist.sharding.cache_pspecs`` /
+``paged_cache_pspecs``): its ``B / data`` rows of a dense cache (all of
+them when ``data`` does not divide B), and with ``decode_shard='seq'``
+its slab of the sequence (dense) or of the page pool (paged) over
+'model'.  Each decode step launches the decode kernels on the rank's own
+slab and stitches the shards together with one statistics combine
+(``dist.decode``), so everything after it is replicated over 'model' and
+the host state (tokens, a Scheduler's tables) stays equal across ranks
+by construction.  ``generate`` returns the whole (B, G) tokens on every
+rank.  The frontend and recurrent families, a paged engine with a data
+axis, a 'model' axis without ``decode_shard='seq'``, the prefix cache
+and chunked prefill with ``decode_shard='seq'``, and durable serving
+under a mesh raise ``NotImplementedError`` (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -54,10 +80,14 @@ import numpy as np
 import torch
 
 from repro_torch.common.module import map_tree, resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.engine import paged_cache
 from repro_torch.engine.cache import pad_cache_from_prefill
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import lm
+
+ITEM_14 = "ROADMAP.md queue 1 item 14"
 
 
 class NonFiniteLogitsError(RuntimeError):
@@ -96,14 +126,35 @@ class EngineConfig:
         return dataclasses.replace(self, **kw)
 
 
-def _unported(ecfg: EngineConfig) -> Optional[str]:
-    """The first option the port does not serve yet, with its ROADMAP
-    place (queue 1), or None."""
-    if ecfg.decode_shard == "seq":
-        return "decode_shard='seq' (distributed decode: item 14)"
-    if tuple(ecfg.mesh_shape) != (1, 1):
-        return f"mesh_shape={ecfg.mesh_shape} (distributed: item 14)"
+def _unported(cfg, ecfg: EngineConfig, mesh_shape) -> Optional[str]:
+    """The first distributed option the port does not serve yet, or
+    None."""
+    if ecfg.decode_shard != "seq" and tuple(mesh_shape) == (1, 1):
+        return None
+    if cfg.family not in ("dense", "moe"):
+        return (f"the {cfg.family} family under a mesh or "
+                "decode_shard='seq'")
+    if ecfg.paged and mesh_shape[0] > 1:
+        return "paged=True with a data axis of more than one rank"
+    if ecfg.decode_shard != "seq" and mesh_shape[1] > 1:
+        # the JAX cache layout then puts the kv heads over 'model', and
+        # the port's parameters are whole on every rank
+        return ("a 'model' axis of more than one rank without "
+                "decode_shard='seq' (tensor-parallel heads)")
+    if ecfg.decode_shard == "seq" and (ecfg.prefix_cache
+                                       or ecfg.chunked_prefill):
+        return "the prefix cache or chunked prefill with decode_shard='seq'"
     return None
+
+
+def refuse_distributed(engine, what: str) -> None:
+    """Raise for ``what`` (an option the port serves on one rank only)
+    on a distributed engine."""
+    if getattr(engine, "distributed", False):
+        raise NotImplementedError(
+            f"{what} under a mesh ({engine.mesh!r}, decode_shard="
+            f"{engine.ecfg.decode_shard!r}) is not ported to repro_torch "
+            f"yet: {ITEM_14}")
 
 
 def _check_prefix_and_chunks(cfg, ecfg: EngineConfig) -> None:
@@ -136,10 +187,12 @@ class DecodeEngine:
     """Owns config + parameters on one device + the step functions.
 
     ``params`` may be a ready parameter tree (moved to ``device``) or
-    None to initialize random parameters from ``seed``."""
+    None to initialize random parameters from ``seed``.  ``mesh`` (a
+    ``launch.mesh.Mesh`` of this rank) defaults to ``make_local_mesh(
+    *ecfg.mesh_shape)``; a mesh's device is the engine's."""
 
     def __init__(self, cfg, ecfg: EngineConfig, params=None,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, mesh=None):
         ecfg = ecfg.replace(
             kernel_impl=(ecfg.kernel_impl if ecfg.kernel_impl is not None
                          else cfg.kernel_impl),
@@ -156,11 +209,12 @@ class DecodeEngine:
                 "per-sequence scale would re-quantize the whole slab "
                 "per token — per-page scales make the rewrite O(page)")
         _check_prefix_and_chunks(cfg, ecfg)
-        unported = _unported(ecfg)
+        shape = ((mesh.axis_size("data"), mesh.axis_size("model"))
+                 if mesh is not None else tuple(ecfg.mesh_shape))
+        unported = _unported(cfg, ecfg, shape)
         if unported is not None:
             raise NotImplementedError(
-                f"{unported} is not ported to repro_torch yet; see "
-                "ROADMAP.md queue 1")
+                f"{unported} is not ported to repro_torch yet: {ITEM_14}")
         cfg = cfg.replace(kernel_impl=ecfg.kernel_impl,
                           decode_shard=ecfg.decode_shard)
         self.cfg = cfg
@@ -176,12 +230,30 @@ class DecodeEngine:
                                                    ecfg.page_size)
             self.n_pages = (ecfg.n_pages if ecfg.n_pages is not None
                             else ecfg.batch * self.max_pages)
-        self.device = resolve_device(device)
+        seq, data, model = ecfg.decode_shard == "seq", *shape
+        if seq:
+            # the JAX engine's checks
+            if ecfg.paged and self.n_pages % model:
+                raise ValueError(
+                    f"decode_shard='seq' needs n_pages={self.n_pages} "
+                    f"divisible by the model axis ({model})")
+            if not ecfg.paged and ecfg.max_len % model:
+                raise ValueError(
+                    f"decode_shard='seq' needs max_len={ecfg.max_len} "
+                    f"divisible by the model axis ({model})")
+        self.mesh = (mesh if mesh is not None
+                     else make_local_mesh(data, model, device=device))
+        self.distributed = seq or self.mesh.size > 1
+        self.device = (self.mesh.device if self.mesh.device is not None
+                       else resolve_device(device))
+        self.rows, self.seq_slab, self.page_slab = self._blocks(cfg, seq)
+        self.step_mesh = (self.mesh if self.rows != slice(0, ecfg.batch)
+                          else self.mesh.fold("data"))
         if params is None:
             params = lm.init(cfg, seed=seed, device=self.device)
         self.params = map_tree(lambda t: t.to(self.device), params)
         self.prefill_fn = steps.build_prefill(cfg)
-        self.decode_fn = steps.build_decode(cfg)
+        self.decode_fn = steps.build_decode(cfg, self.step_mesh)
         # built for every paged token-only engine, so a Scheduler can
         # turn either mode on per stream whatever the EngineConfig
         # defaults
@@ -200,16 +272,49 @@ class DecodeEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
+    def _blocks(self, cfg, seq: bool):
+        """This rank's block of the decode batch and cache under the JAX
+        engine's specs (``dist.sharding.decode_batch_pspecs`` /
+        ``paged_decode_batch_pspecs``): its rows of the batch as a slice
+        (all of them where 'data' does not divide B), and with
+        ``decode_shard='seq'`` its (start, length) slab of the dense
+        cache's sequence or of the pool's pages, else None."""
+        B = self.ecfg.batch
+        if not self.distributed:
+            return slice(0, B), None, None
+        if self.ecfg.paged:
+            specs = SH.paged_decode_batch_pspecs(
+                cfg, self.mesh, B, seq_shard=seq, n_pages=self.n_pages,
+                quantized=self.ecfg.kv_dtype == "int8")
+        else:
+            specs = SH.decode_batch_pspecs(cfg, self.mesh, B,
+                                           seq_shard=seq)
+        r0, n = SH.block_span(self.mesh, specs["token"][0], B)
+        group = (specs["cache"]["moe"] if cfg.family == "moe"
+                 else specs["cache"])
+        kv = next(iter(group.values()))
+        if not seq:
+            return slice(r0, r0 + n), None, None
+        if self.ecfg.paged:      # (L, n_pages, page_size, ...)
+            return slice(r0, r0 + n), None, SH.block_span(
+                self.mesh, kv[1], self.n_pages)
+        # (L, B, T, ...)
+        return slice(r0, r0 + n), SH.block_span(
+            self.mesh, kv[2], self.ecfg.max_len), None
+
     def prefill(self, batch: Dict[str, Any]):
         """Prefill ``batch['tokens']`` (B, P) [+ ``frontend_emb`` (B, S_f,
         frontend_dim)] and build the fixed-size decode cache; an audio
         engine sizes the cross cache by the encoder's S_f, which need not
         equal the decoder prompt's P.  Returns (last-token logits (B,
-        vocab_padded) fp32, cache)."""
+        vocab_padded) fp32, cache): on a mesh, this rank's rows
+        (``self.rows``) and its block of the cache."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, P = tokens.shape
         if B != self.ecfg.batch:
             raise ValueError(f"batch {B} != engine batch {self.ecfg.batch}")
+        tokens = tokens[self.rows]
+        B = tokens.shape[0]
         pbatch = {"tokens": tokens}
         if batch.get("frontend_emb") is not None:
             pbatch["frontend_emb"] = torch.as_tensor(batch["frontend_emb"],
@@ -222,22 +327,27 @@ class DecodeEngine:
         if self.ecfg.paged:
             cache = self.init_paged_cache(enc_len=enc_len)
             paged_cache.write_prefill(self.cfg, cache, caches,
-                                      self.default_block_table())
+                                      self.default_block_table(),
+                                      slab=self.page_slab)
         else:
             cache = pad_cache_from_prefill(self.cfg, caches, B,
                                            self.ecfg.max_len,
-                                           enc_len=enc_len)
+                                           enc_len=enc_len,
+                                           span=self.seq_slab)
         return logits, cache
 
     def init_paged_cache(self, enc_len: Optional[int] = None):
         """Zeroed page pools on the device: the starting cache of
         continuous batching (``engine.scheduler`` fills it per admitted
-        request).  ``enc_len`` budgets the audio cross cache (default:
-        the engine's max_len), padded up to whole pages."""
+        request); on a seq-sharded engine this rank's slab of
+        ``n_pages / model`` pages (``page_slab``).  ``enc_len`` budgets
+        the audio cross cache (default: the engine's max_len), padded up
+        to whole pages."""
         if not self.ecfg.paged:
             raise ValueError("init_paged_cache() needs paged=True")
         return paged_cache.init_paged_cache(
-            self.cfg, self.n_pages, self.page_size, self.ecfg.batch,
+            self.cfg, self.n_pages if self.page_slab is None
+            else self.page_slab[1], self.page_size, self.ecfg.batch,
             enc_len=(enc_len if enc_len is not None
                      else self.ecfg.max_len),
             kv_dtype=self.ecfg.kv_dtype, device=self.device)
@@ -260,9 +370,9 @@ class DecodeEngine:
 
     @torch.no_grad()
     def decode_step(self, token, cur_len, cache, block_table=None):
-        """One token for the whole batch: token (B,) int.  Returns
-        (logits (B, vocab_padded) fp32, cache) — the cache is updated in
-        place.
+        """One token for the whole batch: token (B,) int (this rank's
+        rows, ``self.rows``, on a mesh).  Returns (logits (B,
+        vocab_padded) fp32, cache) — the cache is updated in place.
 
         Dense cache: every slot at position ``cur_len`` (a host int).
         Paged: ``cur_len`` is an int or a per-slot (B,) host array and
@@ -312,7 +422,8 @@ class DecodeEngine:
 
         Sampling draws from a ``torch.Generator`` seeded with ``seed``:
         deterministic per seed, but not the JAX engine's stream (only
-        greedy streams match it).  Returns (tokens (B, gen) int32,
+        greedy streams match it); a mesh draws for the whole batch, so
+        its tokens are one rank's.  Returns (tokens (B, gen) int32,
         stats with prefill/decode wall times and tok/s)."""
         prefill_tokens = self.prefill_len(batch)
         if prefill_tokens + gen - 1 > self.ecfg.max_len:
@@ -333,9 +444,12 @@ class DecodeEngine:
 
         def pick(logits):
             if rng is not None:
-                probs = torch.softmax(logits / temperature, dim=-1)
-                return torch.multinomial(probs, 1, generator=rng)[:, 0].to(
-                    torch.int32)
+                # the whole batch's draw on every data rank, then this
+                # rank's rows: each row gets the draw one rank gives it
+                full = self.step_mesh.all_gather(logits, "data")
+                probs = torch.softmax(full / temperature, dim=-1)
+                return torch.multinomial(probs, 1, generator=rng)[
+                    self.rows, 0].to(torch.int32)
             return logits.argmax(-1).to(torch.int32)
 
         # first token is always the argmax of the prefill logits
@@ -351,6 +465,7 @@ class DecodeEngine:
                     f"non-finite logits at decode step {i}")
             tok = pick(logits)
             out.append(tok)
+        tokens = self.step_mesh.all_gather(torch.stack(out, 1), "data")
         self._sync()
         t_decode = time.perf_counter() - t0
         stats = {
@@ -359,4 +474,4 @@ class DecodeEngine:
             "prefill_tok_s": B * prefill_tokens / max(t_prefill, 1e-9),
             "decode_tok_s": B * max(gen - 1, 0) / max(t_decode, 1e-9),
         }
-        return torch.stack(out, 1), stats
+        return tokens, stats

@@ -29,6 +29,13 @@ buffer); here every write is in place into the engine-owned pools
 the port's dense cache already is; ``fork_page`` (the prefix cache's
 copy-on-write) copies a page in place, across every leaf of the nested
 tree.
+
+On an engine whose pools are sequence-sharded over a mesh's 'model'
+axis (``dist.sharding.paged_cache_pspecs``), each rank holds the slab of
+pages [p0, p0 + pp) (``DecodeEngine.page_slab``) and every pool write
+keeps only the rows bound for its pages, at their local ids; the
+allocator and the block tables stay global and know nothing of the
+mesh, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -147,35 +154,43 @@ def init_paged_cache(cfg, n_pages: int, page_size: int,
 # prefill -> pages
 # ----------------------------------------------------------------------
 
-def _page_rows(kv, table, ps):
+def _page_rows(kv, table, ps, slab=None):
     """kv (L, B', S, KV, Dh) -> (L, B'*J, ps, KV, Dh) pages, S padded up
     to a page multiple with zeros (the pad scrubs stale bytes from a
-    reused page), and the (B'*J,) physical ids they go to."""
+    reused page), and the (B'*J,) physical ids they go to.  With ``slab``
+    (p0, pp), a rank's share of a pool sharded over 'model', only the
+    pages in [p0, p0 + pp) are kept, at their local ids."""
     L, Bp, S = kv.shape[:3]
     pad = (-S) % ps
     if pad:
         kv = torch.cat([kv, kv.new_zeros((L, Bp, pad, *kv.shape[3:]))], 2)
     J = kv.shape[2] // ps
     ids = torch.as_tensor(table, device=kv.device)[:, :J].reshape(-1).long()
-    return kv.reshape(L, Bp * J, ps, *kv.shape[3:]), ids
+    rows = kv.reshape(L, Bp * J, ps, *kv.shape[3:])
+    if slab is not None:
+        p0, pp = slab
+        keep = ((ids >= p0) & (ids < p0 + pp)).nonzero()[:, 0]
+        rows, ids = rows[:, keep], ids[keep] - p0
+    return rows, ids
 
 
-def _scatter_pages(pool, kv, table):
+def _scatter_pages(pool, kv, table, slab=None):
     """pool (L, n_pages, ps, ...) <- kv (L, B', S, ...) at the pages of
-    ``table`` (B', max_pages), in place."""
-    rows, ids = _page_rows(kv, table, pool.shape[2])
+    ``table`` (B', max_pages), in place (this rank's pages of them under
+    ``slab``)."""
+    rows, ids = _page_rows(kv, table, pool.shape[2], slab)
     pool[:, ids] = rows.to(pool.dtype)
 
 
-def _scatter_pages_q8(pool, scales, kv, table):
+def _scatter_pages_q8(pool, scales, kv, table, slab=None):
     """Quantize-on-write prefill scatter into an int8 pool and its scales,
     in place: one symmetric int8 scale per (page, KV head) over the
     page's (page_size, Dh) values for a K/V pool ((L, n_pages, KV)
     scales), one per whole page for a flat latent or rope pool (L,
     n_pages, ps, r) ((L, n_pages) scales).  The zero pad of a partial
     last page stays inside the group, so it scrubs stale bytes and
-    leaves the amax alone."""
-    rows, ids = _page_rows(kv, table, pool.shape[2])
+    leaves the amax alone.  The scales shard with their pages."""
+    rows, ids = _page_rows(kv, table, pool.shape[2], slab)
     if pool.ndim == 5:
         q, s = quantize_int8(rows, axis=(2, 4))  # s: (L, B'*J, 1, KV, 1)
         s = s[:, :, 0, :, 0]
@@ -225,7 +240,7 @@ def quantized_page_write(pool, scales, pages, offs, x):
     scales[pages] = s_new
 
 
-def _scatter_group(group, stacks, table) -> None:
+def _scatter_group(group, stacks, table, slab) -> None:
     """One layer group's prefill stacks into its pools ({"k", "v"} or
     {"ckv", "krope"}, in that order), quantize-on-write when the group
     carries scales."""
@@ -233,9 +248,9 @@ def _scatter_group(group, stacks, table) -> None:
                         stacks):
         if name + "_scale" in group:
             _scatter_pages_q8(group[name], group[name + "_scale"], kv,
-                              table)
+                              table, slab)
         else:
-            _scatter_pages(group[name], kv, table)
+            _scatter_pages(group[name], kv, table, slab)
 
 
 def _write_cross(cache, cross, slots) -> None:
@@ -256,7 +271,8 @@ def _write_cross(cache, cross, slots) -> None:
         buf[:, ids, :S] = xkv.to(buf.dtype)
 
 
-def write_prefill(cfg, cache, caches, table, enc_slots=None) -> None:
+def write_prefill(cfg, cache, caches, table, enc_slots=None,
+                  slab=None) -> None:
     """Scatter prefill KV material into the page pools, in place.
 
     ``caches`` is ``lm.prefill``'s cache stacks for B' requests (the
@@ -270,13 +286,17 @@ def write_prefill(cfg, cache, caches, table, enc_slots=None) -> None:
     they land in, host ints or a device tensor: a whole prompt's row, or
     for a suffix or a chunk (``lm.prefill_suffix`` / ``prefill_chunk``,
     which start page-aligned) the row of pages from its first position
-    on — never a shared prefix page."""
+    on — never a shared prefix page.  ``slab`` (p0, pp): the pools are a
+    rank's pages [p0, p0 + pp) of a pool sharded over 'model' (``engine.
+    DecodeEngine.page_slab``), and only the rows bound for them are
+    written, at their local ids (the audio family is not served
+    sharded)."""
     check_family(cfg)
     if cfg.family == "moe":
         kv_d, kv_m = caches
         if kv_d is not None:
-            _scatter_group(cache["dense"], kv_d, table)
-        _scatter_group(cache["moe"], kv_m, table)
+            _scatter_group(cache["dense"], kv_d, table, slab)
+        _scatter_group(cache["moe"], kv_m, table, slab)
     elif cfg.family == "audio":
         (k, v), cross = caches
         _scatter_pages(cache["self_k"], k, table)
@@ -284,7 +304,7 @@ def write_prefill(cfg, cache, caches, table, enc_slots=None) -> None:
         _write_cross(cache, cross, range(k.shape[1]) if enc_slots is None
                      else enc_slots)
     else:
-        _scatter_group(cache, caches, table)
+        _scatter_group(cache, caches, table, slab)
 
 
 def fork_page(cfg, cache, src: int, dst: int) -> None:

@@ -27,6 +27,13 @@ whole decode batch), packed under a token budget (``pack_chunk``) that
 always runs every decoding slot, so a long prompt no longer stalls
 decode between steps.
 
+On an engine whose pools are sequence-sharded over a mesh
+(``decode_shard='seq'``), every rank runs its own Scheduler over the
+global allocator and tables, and writes only the pages its slab holds;
+the combine gives every rank the same logits, so the ranks admit,
+preempt and retire alike.  The prefix cache, chunked prefill and the
+durability hooks are refused there (ROADMAP queue 1 item 14).
+
 Every request walks a status machine (PREFILLING only with chunked
 prefill)::
 
@@ -78,6 +85,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.engine.engine import refuse_distributed
 from repro_torch.engine.faults import CrashError
 from repro_torch.engine.paged_cache import (PageAllocator,
                                             bucket_table_width, fork_page,
@@ -329,6 +337,16 @@ class Scheduler:
             raise ValueError(
                 "Scheduler needs a paged engine: EngineConfig("
                 "paged=True, page_size=..., n_pages=...)")
+        # a seq-sharded engine serves plain streams: every rank runs this
+        # Scheduler alike over its slab of the pool
+        if prefix_cache or (prefix_cache is None
+                            and engine.ecfg.prefix_cache):
+            refuse_distributed(engine, "the prefix cache")
+        if chunked_prefill or (chunked_prefill is None
+                               and engine.ecfg.chunked_prefill):
+            refuse_distributed(engine, "chunked prefill")
+        if journal is not None or snapshotter is not None:
+            refuse_distributed(engine, "durable serving")
         self.eng = engine
         self.cfg = engine.cfg
         B, J = engine.ecfg.batch, engine.max_pages
@@ -772,7 +790,8 @@ class Scheduler:
         # only the suffix pages are written: the shared prefix pages hold
         # their K/V already and must never be written through
         write_prefill(self.cfg, self.cache, caches,
-                      row[None, n_shared:len(pages)], enc_slots=[slot_id])
+                      row[None, n_shared:len(pages)], enc_slots=[slot_id],
+                      slab=self.eng.page_slab)
         if resumed:
             slot = _Slot(req=req, length=self._positions(item),
                          pages=list(pages),

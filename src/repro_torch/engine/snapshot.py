@@ -78,6 +78,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.engine.engine import refuse_distributed
 from repro_torch.engine.journal import decode_emb, encode_emb
 
 SNAPSHOT_VERSION = 1
@@ -268,6 +269,7 @@ def snapshot(sched, directory_or_store, step: Optional[int] = None,
     here, synchronously, whatever ``async_`` says, so the cut is
     consistent however the scheduler writes its pools on; ``async_``
     hands only the disk writes to the store's background worker."""
+    refuse_distributed(sched.eng, "durable serving")
     store = _as_store(directory_or_store, keep=keep)
     if step is None:
         step = int(sched.stats["steps"])
@@ -304,6 +306,7 @@ def restore(directory_or_store, engine, step: Optional[int] = None,
     batch, max_len, family, kv_dtype); scheduler knobs (bucketing,
     preemption limit, prefix cache, chunking) are restored from the
     snapshot and can be overridden via ``sched_overrides``."""
+    refuse_distributed(engine, "durable serving")
     from repro_torch.engine.scheduler import Scheduler
 
     store = _as_store(directory_or_store)

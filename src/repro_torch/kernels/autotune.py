@@ -231,21 +231,6 @@ def lookup(op: str, shape: Sequence[int], dtype: str,
     return best
 
 
-def rewrite(op: str, shape: Sequence[int], dtype: str, backend: str,
-            blocks: Optional[tuple]) -> Optional[tuple]:
-    """Replace a persisted entry's ``blocks`` (None drops the entry);
-    returns what a lookup now gives."""
-    path, key = cache_path(), cache_key(op, shape, dtype, backend)
-    table = _load(path)
-    if blocks is None:
-        table.pop(key, None)
-    else:
-        table[key] = {**table.get(key, {}), "blocks": list(blocks)}
-    _persist(path, table)
-    _HOT[(op, tuple(shape), dtype, backend)] = blocks
-    return blocks
-
-
 def device_sync(device) -> Optional[Callable[[], None]]:
     """What ``_measure`` waits on for work queued on ``device``: the
     card's ``synchronize``, nothing on the CPU."""

@@ -19,7 +19,10 @@ Backends:
            turns, and the winner is persisted by name under
            ``dispatch:<op>``: the first of ``AUTO_ORDER`` ('cuda')
            unless another is faster by more than ``AUTO_MARGIN``; with
-           measurement off (``REPRO_AUTOTUNE=0``) 'cuda'.  A backend that
+           measurement off (``REPRO_AUTOTUNE=0``) 'cuda'.  A rank of a
+           ``torch.distributed`` world of more than one rank only looks
+           the winner up (``cached_backend``), so every rank runs the
+           same backend and none writes the cache file.  A backend that
            raises while measured raises: 'auto' never picks 'torch'
            because a kernel failed.  Its choices are memoized in the
            process: a hit costs the call's key and one dict lookup.
@@ -41,6 +44,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import autotune
 
@@ -160,17 +164,13 @@ def cached_backend(op: str, cfg_or_backend: Any, args=(),
     shape, dtype, device = _signature(op, args, kwargs or {})
     hit = shape and autotune.lookup(f"dispatch:{op}", shape, dtype,
                                     autotune.backend_tag(device))
-    return (hit and _decode_winner(hit[0], cands)) or cands[0]
+    return hit[0] if hit and hit[0] in cands else cands[0]
 
 
-def _decode_winner(entry, cands) -> "str | None":
-    """A persisted dispatch winner: the backend NAME (current format),
-    or a legacy positional index into the candidate list, tolerated
-    while it is still in range."""
-    if isinstance(entry, str):
-        return entry if entry in cands else None
-    idx = int(entry)
-    return cands[idx] if 0 <= idx < len(cands) else None
+def _in_world() -> bool:
+    """Whether this process is one rank of a ``torch.distributed`` world
+    of more than one rank."""
+    return dist.is_initialized() and dist.get_world_size() > 1
 
 
 # ======================================================================
@@ -251,18 +251,16 @@ def _resolve_auto(op: str, table: Dict[str, Callable], args, kwargs) -> str:
     cands = _candidates(table)
     if len(cands) == 1:
         return cands[0]
+    if _in_world():
+        # ranks that measured apart could pick different backends, and
+        # their writes would race on one cache file: look up only (a
+        # tuning pass runs on one process before the world starts)
+        return cached_backend(op, "auto", args, kwargs)
     shape, dtype, device = _signature(op, args, kwargs)
     if not shape or not autotune.enabled():
         return cands[0]                 # nothing to key on, or no tuning
     name, tag = f"dispatch:{op}", autotune.backend_tag(device)
     hit = autotune.lookup(name, shape, dtype, tag)
-    if hit is not None and not isinstance(hit[0], str):
-        # a legacy positional index: it shifts meaning whenever a
-        # backend is registered, so persist the name it decodes to now,
-        # or drop it and measure again
-        winner = _decode_winner(hit[0], cands)
-        hit = autotune.rewrite(name, shape, dtype, tag,
-                               winner and (winner,))
     if hit is None:
         def runner(cand):
             impl = table[cand[0]]

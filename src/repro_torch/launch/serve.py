@@ -1,14 +1,22 @@
 """Serving driver: prefill a batch of prompts, decode with a KV cache.
 
 Counterpart of ``repro.launch.serve``: a thin CLI over
-``repro_torch.engine.DecodeEngine`` on one device, with the same flags
-plus ``--device``.  ``--kernel-impl`` picks the dispatch-registry
-backend per op: ``cuda`` (the default, the hand-written Hopper kernels),
-``torch`` (plain PyTorch) or ``auto`` (per op and shape, the backend
-the autotuner's cache measured faster).  A mesh other than
-``--data-model 1 1`` and ``--shard seq`` are distributed serving, not
-ported (ROADMAP queue 1 item 14): the engine raises for them.  The run
-is on the card unless ``--device cpu`` is given.
+``repro_torch.engine.DecodeEngine``, with the same flags plus
+``--device``.  ``--kernel-impl`` picks the dispatch-registry backend per
+op: ``cuda`` (the default, the hand-written Hopper kernels), ``torch``
+(plain PyTorch) or ``auto`` (per op and shape, the backend the
+autotuner's cache measured faster).  The run is on the card unless
+``--device cpu`` is given.
+
+Sharded serving: ``--data-model D M`` with D * M > 1 spawns a world of
+D * M ranks itself (``launch.mesh.run_ranks``; the kernels are built
+once, in this process, before it), one engine a rank: the dense cache's
+batch split over 'data' and, with ``--shard seq``, the KV cache
+sequence-sharded over 'model' (distributed FlashDecoding,
+``dist.decode``).  Ranks sharing one GPU talk over ``gloo``, ranks with
+a GPU each over ``nccl`` (``launch.mesh.transport``).  Rank 0 prints the
+same lines as ``--data-model 1 1``.  Durable serving (``--snapshot-dir``)
+under a mesh is not ported (ROADMAP queue 1 item 14).
 
 On the card (a ~100M-class shrink of the model, batched requests):
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -17,16 +25,23 @@ On the card (a ~100M-class shrink of the model, batched requests):
 On the CPU (the reduced config, the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch tinyllama-1.1b --reduce smoke --device cpu --stream 8
+Sequence-sharded over two ranks on one card:
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch tinyllama-1.1b --data-model 1 2 --shard seq
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 
 import numpy as np
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.engine import DecodeEngine, EngineConfig
+from repro_torch.engine.engine import ITEM_14
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.train import width_reduce
 
 
@@ -39,11 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--data-model", type=int, nargs=2, default=(1, 1),
-                    help="mesh shape (data, model); only 1 1 is ported "
-                         "(distributed serving: ROADMAP queue 1 item 14)")
+                    help="mesh shape (data, model): D * M ranks, spawned "
+                         "by this command")
     ap.add_argument("--shard", choices=["none", "seq"], default="none",
                     help="'seq' = sequence-shard the KV cache over "
-                         "'model' (distributed FlashDecoding; not ported)")
+                         "'model' (distributed FlashDecoding)")
     ap.add_argument("--kernel-impl", choices=list(dispatch.BACKENDS),
                     default="cuda")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -340,7 +355,33 @@ def _serve_stream(engine, args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    data, model = args.data_model
+    if data * model == 1:
+        return _serve(args)
+    if args.snapshot_dir:
+        raise NotImplementedError(
+            "durable serving (--snapshot-dir) under a mesh is not ported "
+            f"to repro_torch yet: {ITEM_14}")
+    if args.device == "cuda":
+        from repro_torch.kernels import build
+        build.build()
+    return run_ranks(_serve_rank, data, model, args=(args,),
+                     device=args.device)
 
+
+def _serve_rank(mesh, args):
+    """One rank of a sharded run: rank 0 prints, and its results come
+    back to the parent on the host."""
+    rank0 = mesh.coord("data") == 0 and mesh.coord("model") == 0
+    with (contextlib.nullcontext() if rank0
+          else contextlib.redirect_stdout(io.StringIO())):
+        out = _serve(args, mesh)
+    if isinstance(out, dict):
+        return {k: np.asarray(v) for k, v in out.items()}
+    return out.cpu()
+
+
+def _serve(args, mesh=None):
     cfg = get_config(args.arch)
     cfg = reduced(cfg) if args.reduce == "smoke" else width_reduce(cfg)
     if cfg.mamba2 is not None or cfg.xlstm is not None:
@@ -348,7 +389,7 @@ def main(argv=None):
         assert args.prompt_len % chunk == 0
 
     engine = DecodeEngine(cfg, engine_config_from_args(args, cfg),
-                          device=args.device)
+                          device=args.device, mesh=mesh)
     cfg = engine.cfg
 
     if args.stream:

@@ -105,12 +105,13 @@ def build_prefill(cfg):
     return prefill_step
 
 
-def build_decode(cfg):
+def build_decode(cfg, mesh=None):
     """One-token serve step: over the dense cache, or over the paged
     pools when the batch carries a ``block_table`` (``lm.decode_step``
-    routes it to ``lm.paged_decode_step``)."""
+    routes it to ``lm.paged_decode_step``); ``mesh`` the layout of this
+    rank's operands (``lm.decode_step``)."""
     def serve_step(params, batch):
-        return lm.decode_step(params, batch, cfg)
+        return lm.decode_step(params, batch, cfg, mesh=mesh)
     return serve_step
 
 

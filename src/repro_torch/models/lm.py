@@ -89,6 +89,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.common import module as M
 from repro_torch.dist import decode as DD
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels import dispatch as D
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -961,15 +962,35 @@ def _rope1(x, rope):
     return L.rotate(x[:, None], *rope)[:, 0]
 
 
-def _decode_attend(cfg, q, ck, cv, n_valid):
+def _seq_mesh(cfg, mesh):
+    """The mesh a step's cache is sequence-sharded over: ``mesh`` when
+    ``cfg.decode_shard == 'seq'`` and it has a 'model' axis, else None
+    (the local path; seq without a mesh is local, as in JAX)."""
+    if cfg.decode_shard == "seq" and DD._routes(mesh, True):
+        return mesh
+    return None
+
+
+def _slab_index(mesh, pos: int, T_local: int):
+    """This rank's local index of global position ``pos`` of a cache
+    sequence-sharded over ``mesh`` ('model'; None: the whole cache), or
+    None when another rank's slab holds it."""
+    t = pos - (SH.block_start(mesh, "model", T_local) if mesh is not None
+               else 0)
+    return t if 0 <= t < T_local else None
+
+
+def _decode_attend(cfg, q, ck, cv, n_valid, mesh=None):
     return DD.decode_attend(q, ck, cv, n_valid, backend=cfg.kernel_impl,
-                            seq_shard=(cfg.decode_shard == "seq"))
+                            mesh=mesh, seq_shard=mesh is not None)
 
 
-def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope):
+def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope, mesh=None):
     """h: (B, D) normed; ck/cv: (B, T, KV, Dh) this layer's cache, written
     in place at ``cur_len``; rope: the (cos, sin) tables of ``cur_len``.
-    Returns the attention delta (B, D)."""
+    With ``mesh`` (``_seq_mesh``) ck / cv are this rank's slab, and only
+    the rank that holds ``cur_len`` writes.  Returns the attention delta
+    (B, D)."""
     # plain products, as in the JAX decode step (its einsums stay XLA)
     q = torch.einsum("bd,dhk->bhk", h, lp["wq"])
     k = torch.einsum("bd,dhk->bhk", h, lp["wk"])
@@ -981,9 +1002,11 @@ def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope):
     # in place, where the JAX step returns a new cache through
     # dynamic_update_slice: the engine owns the buffer and never reads
     # the old version again
-    ck[:, cur_len] = k
-    cv[:, cur_len] = v
-    o = _decode_attend(cfg, q, ck, cv, cur_len + 1)
+    t = _slab_index(mesh, cur_len, ck.shape[1])
+    if t is not None:
+        ck[:, t] = k
+        cv[:, t] = v
+    o = _decode_attend(cfg, q, ck, cv, cur_len + 1, mesh)
     return torch.einsum("bhk,hkd->bd", o, lp["wo"])
 
 
@@ -998,27 +1021,30 @@ def _mla_token(cfg, lp, h, rope):
     return q_abs, q_rope, scale, c_kv[:, 0], k_rope[:, 0]
 
 
-def _decode_mla(cfg, lp, h, cckv, ckr, cur_len, rope):
+def _decode_mla(cfg, lp, h, cckv, ckr, cur_len, rope, mesh=None):
     """Absorbed MLA decode.  cckv (B, T, r) / ckr (B, T, rope) this
-    layer's latent and rope caches, written in place at ``cur_len``;
-    the two ride separately into ``dist.decode.mla_decode_attend``.
-    Returns the attention delta (B, D)."""
+    layer's latent and rope caches (this rank's slab under ``mesh``),
+    written in place at ``cur_len``; the two ride separately into
+    ``dist.decode.mla_decode_attend``.  Returns the attention delta
+    (B, D)."""
     q_abs, q_rope, scale, c_kv, k_rope = _mla_token(cfg, lp, h, rope)
-    cckv[:, cur_len] = c_kv
-    ckr[:, cur_len] = k_rope
+    t = _slab_index(mesh, cur_len, cckv.shape[1])
+    if t is not None:
+        cckv[:, t] = c_kv
+        ckr[:, t] = k_rope
     o = DD.mla_decode_attend(q_abs, q_rope, cckv, ckr, cur_len + 1,
                              scale=scale, backend=cfg.kernel_impl,
-                             seq_shard=(cfg.decode_shard == "seq"))
+                             mesh=mesh, seq_shard=mesh is not None)
     return MLA.mla_decode_finish(lp, o.float(), cfg).to(h.dtype)
 
 
-def _decode_attn_delta(cfg, ap, h, cs, cur_len, rope):
+def _decode_attn_delta(cfg, ap, h, cs, cur_len, rope, mesh=None):
     """Attention step of the dense-cache decode: MLA or GQA on this
     layer's cache slice ``cs``."""
     if cfg.mla is not None:
         return _decode_mla(cfg, ap, h, cs["ckv"], cs["krope"], cur_len,
-                           rope)
-    return _decode_gqa(cfg, ap, h, cs["k"], cs["v"], cur_len, rope)
+                           rope, mesh)
+    return _decode_gqa(cfg, ap, h, cs["k"], cs["v"], cur_len, rope, mesh)
 
 
 def _decode_cross(cfg, lp, h, xk, xv):
@@ -1041,13 +1067,20 @@ def _audio_layer(cfg, lp, x, self_delta, cross_delta):
                      backend=cfg)
 
 
-def _ffn_delta(cfg, lp, x, moe: bool):
+def _ffn_delta(cfg, lp, x, moe: bool, mesh=None):
     """The decode FFN's delta: the MLP, or the MoE FFN over all B slots
     as one group, inactive slots included, as the JAX decode step groups
-    them (a slot's capacity depends on its neighbours)."""
+    them (a slot's capacity depends on its neighbours).  With the rows
+    split over ``mesh``'s 'data' axis the MoE group is still the whole
+    batch: the rows are gathered for it and this rank's taken back."""
     h = _norm(cfg, lp["mlp_norm"], x)
     if moe:
-        return MOE.moe_ffn(lp["moe"], h[None], cfg)[0][0]
+        if mesh is None or mesh.axis_size("data") == 1:
+            return MOE.moe_ffn(lp["moe"], h[None], cfg)[0][0]
+        b0, b = mesh.coord("data") * h.shape[0], h.shape[0]
+        y = MOE.moe_ffn(lp["moe"], mesh.all_gather(h, "data")[None],
+                        cfg)[0][0]
+        return y[b0:b0 + b]
     return L.mlp(lp["mlp"], h, cfg.act, backend=cfg)
 
 
@@ -1107,7 +1140,7 @@ def ssm_decode_supported(cfg) -> bool:
     return cfg.family in ("hybrid", "ssm")
 
 
-def decode_step(params, batch, cfg):
+def decode_step(params, batch, cfg, mesh=None):
     """One-token serve step.  batch: ``token`` (B,), ``cur_len`` (host
     int: every slot at the same position), ``cache`` (updated in place;
     the audio family's cross pair is read whole, as the encoder's; the
@@ -1115,10 +1148,18 @@ def decode_step(params, batch, cfg):
     With a ``block_table`` in the batch (and per-slot ``cur_len``) the
     step runs over a paged cache instead: ``paged_decode_step``.
 
+    ``mesh`` (``launch.mesh.Mesh``; the dense and moe families) is the
+    layout of this rank's operands: its rows of the batch when the
+    mesh's 'data' axis has more than one rank, and with
+    ``cfg.decode_shard == 'seq'`` its slab of the cache's sequence over
+    'model' (``dist.sharding.cache_pspecs``).  The logits of this rank's
+    rows come out equal on every rank of the 'model' axis.
+
     Returns (logits (B, vocab_padded) fp32, cache)."""
     if "block_table" in batch:
-        return paged_decode_step(params, batch, cfg)
+        return paged_decode_step(params, batch, cfg, mesh=mesh)
     _check_family(cfg)
+    smesh = _seq_mesh(cfg, mesh)
     cur = int(batch["cur_len"])
     cache = batch["cache"]
     x = L.embed(params["embed"], batch["token"]).to(L.dt(cfg))  # (B, D)
@@ -1147,8 +1188,9 @@ def decode_step(params, batch, cfg):
                 lp = _layer(stacked, i)
                 h = _norm(cfg, lp["attn_norm"], x)
                 x = x + _decode_attn_delta(cfg, lp["attn"], h,
-                                           _layer(group, i), cur, rope)
-                x = x + _ffn_delta(cfg, lp, x, moe)
+                                           _layer(group, i), cur, rope,
+                                           smesh)
+                x = x + _ffn_delta(cfg, lp, x, moe, mesh)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
     return logits, cache
@@ -1190,8 +1232,8 @@ def _page_write_ids(table, lens, page_size):
 
 
 def paged_step_meta(token, lens, table, page_size: int, device,
-                    extra=(), enc_lens=None, enc_pages: int = 0
-                    ) -> PagedStep:
+                    extra=(), enc_lens=None, enc_pages: int = 0,
+                    slab=None) -> PagedStep:
     """Build a paged step's metadata from host arrays — ``lens`` (B,),
     ``table`` (B, W), and ``token`` (B,) unless it is already on the
     device — with one host-to-device copy (asynchronous from pinned
@@ -1200,12 +1242,23 @@ def paged_step_meta(token, lens, table, page_size: int, device,
     ride the same copy and come back as ``PagedStep.extra``; so do, for
     the audio family, the per-page counts of the encoder lengths
     ``enc_lens`` (B,) over the cross cache's ``enc_pages`` pages a slot
-    (``PagedStep.cross_counts``)."""
+    (``PagedStep.cross_counts``).
+
+    ``slab`` (p0, pp): the pools are a rank's pages [p0, p0 + pp) of a
+    pool sharded over 'model'.  The table and counts are then the
+    replicated ones as this rank sees them (``dist.decode.own_pages``:
+    local ids, foreign pages at count 0) and the writes are the active
+    slots' whose page this rank owns, at local ids."""
     lens = _to_host(lens).astype(np.int32)
     table = _to_host(table).astype(np.int32)
     B, W = table.shape
     act, pages, offs, n_valid = _page_write_ids(table, lens, page_size)
     counts = DD._page_counts(n_valid, W, page_size)
+    if slab is not None:
+        p0, pp = slab
+        mine = (pages >= p0) & (pages < p0 + pp)
+        act, pages, offs = act[mine], pages[mine] - p0, offs[mine]
+        table, counts = DD.own_pages(table, counts, p0, pp)
     on_device = (isinstance(token, torch.Tensor)
                  and token.device.type == device.type)
     cross = () if enc_lens is None else (DD._page_counts(
@@ -1257,11 +1310,12 @@ def _pool_write(pool, scales, meta, x):
         pool[meta.pages, meta.offs] = x.to(pool.dtype)
 
 
-def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope):
+def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope, mesh=None):
     """h: (B, D) normed; kp/vp: this layer's (n_pages, ps, KV, Dh)
     pools, written in place at each active slot's position; ks/vs its
-    (n_pages, KV) scales for int8 pools, else None.  Returns the
-    attention delta (B, D)."""
+    (n_pages, KV) scales for int8 pools, else None.  Under ``mesh``
+    (``_seq_mesh``) the pools are this rank's slab and ``meta`` its view.
+    Returns the attention delta (B, D)."""
     q = torch.einsum("bd,dhk->bhk", h, lp["wq"])
     k = torch.einsum("bd,dhk->bhk", h, lp["wk"])
     v = torch.einsum("bd,dhk->bhk", h, lp["wv"])
@@ -1273,12 +1327,13 @@ def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope):
     _pool_write(vp, vs, meta, v)
     o = DD.paged_decode_attend(q, kp, vp, meta.table, meta.counts,
                                k_scale=ks, v_scale=vs,
-                               backend=cfg.kernel_impl)
+                               backend=cfg.kernel_impl, mesh=mesh,
+                               seq_shard=mesh is not None)
     return torch.einsum("bhk,hkd->bd", o, lp["wo"])
 
 
 def _decode_mla_paged(cfg, lp, h, ckv_pool, krope_pool, cs, rs, meta,
-                      rope):
+                      rope, mesh=None):
     """Absorbed MLA decode against this layer's latent pools (n_pages,
     ps, r) / (n_pages, ps, rope), written in place; cs/rs their
     (n_pages,) scales for int8 pools, else None.  The pools ride
@@ -1290,7 +1345,8 @@ def _decode_mla_paged(cfg, lp, h, ckv_pool, krope_pool, cs, rs, meta,
     o = DD.mla_paged_decode_attend(q_abs, q_rope, ckv_pool, krope_pool,
                                    meta.table, meta.counts, scale=scale,
                                    ckv_scale=cs, krope_scale=rs,
-                                   backend=cfg.kernel_impl)
+                                   backend=cfg.kernel_impl, mesh=mesh,
+                                   seq_shard=mesh is not None)
     return MLA.mla_decode_finish(lp, o.float(), cfg).to(h.dtype)
 
 
@@ -1311,18 +1367,18 @@ def _decode_cross_paged(cfg, lp, h, xk, xv, page_size, meta):
     return torch.einsum("bhk,hkd->bd", o, lp["wo"])
 
 
-def _paged_attn_delta(cfg, ap, h, cs, meta, rope):
+def _paged_attn_delta(cfg, ap, h, cs, meta, rope, mesh=None):
     """Attention step of the paged decode: MLA or GQA on this layer's
     pool slice ``cs``; int8 pools are told by their scales."""
     if cfg.mla is not None:
         return _decode_mla_paged(cfg, ap, h, cs["ckv"], cs["krope"],
                                  cs.get("ckv_scale"), cs.get("krope_scale"),
-                                 meta, rope)
+                                 meta, rope, mesh)
     return _decode_gqa_paged(cfg, ap, h, cs["k"], cs["v"], cs.get("k_scale"),
-                             cs.get("v_scale"), meta, rope)
+                             cs.get("v_scale"), meta, rope, mesh)
 
 
-def paged_decode_step(params, batch, cfg, meta=None):
+def paged_decode_step(params, batch, cfg, meta=None, mesh=None):
     """One-token serve step over a paged KV cache.
 
     batch: ``token`` (B,), ``cur_len`` (B,) per-slot valid positions and
@@ -1337,14 +1393,15 @@ def paged_decode_step(params, batch, cfg, meta=None):
     inactive slot), which ride the step's one metadata copy.  ``meta`` is
     the step's metadata when the caller already built it
     (``paged_step_meta``; the mixed step does, with its chunk's).
-    Returns (logits (B, vocab_padded) fp32, cache)."""
+    ``mesh``: with ``cfg.decode_shard == 'seq'`` the pools are this
+    rank's slab of a pool sharded over its 'model' axis
+    (``dist.sharding.paged_cache_pspecs``), the table and lengths the
+    replicated global ones.  Returns (logits (B, vocab_padded) fp32,
+    cache)."""
     # engine modules import this one: keep the import lazy
     from repro_torch.engine.paged_cache import check_family
     check_family(cfg)
-    if cfg.decode_shard == "seq":
-        # before any pool write, so a caller that catches this keeps its
-        # cache as it was
-        raise NotImplementedError(DD._SEQ_SHARD)
+    smesh = _seq_mesh(cfg, mesh)
     cache = batch["cache"]
     leaf = pool_leaf(cfg, cache)
     ps = leaf.shape[2]
@@ -1353,9 +1410,11 @@ def paged_decode_step(params, batch, cfg, meta=None):
         if cfg.family == "audio":
             enc = dict(enc_lens=batch["enc_lens"],
                        enc_pages=cache["cross_k"].shape[2] // ps)
-        meta = paged_step_meta(batch["token"], batch["cur_len"],
-                               batch["block_table"], ps, leaf.device,
-                               **enc)
+        pp = leaf.shape[1]
+        meta = paged_step_meta(
+            batch["token"], batch["cur_len"], batch["block_table"], ps,
+            leaf.device, slab=None if smesh is None
+            else (SH.block_start(smesh, "model", pp), pp), **enc)
     x = L.embed(params["embed"], meta.token).to(L.dt(cfg))   # (B, D)
     rope = _step_rope(cfg, meta.pos[:, None])         # per-slot positions
     if cfg.family == "audio":
@@ -1376,7 +1435,8 @@ def paged_decode_step(params, batch, cfg, meta=None):
                 lp = _layer(stacked, i)
                 h = _norm(cfg, lp["attn_norm"], x)
                 x = x + _paged_attn_delta(cfg, lp["attn"], h,
-                                          _layer(group, i), meta, rope)
+                                          _layer(group, i), meta, rope,
+                                          smesh)
                 x = x + _ffn_delta(cfg, lp, x, moe)
     h = _norm(cfg, params["final_norm"], x)
     logits = _logits(params, h[:, None, :], cfg)[:, 0].float()

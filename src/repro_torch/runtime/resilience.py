@@ -186,10 +186,14 @@ def serve_with_recovery(engine, snapshot_dir: str, submit: Callable,
     here (teardown waits on the background writer).
     """
     # engine modules import this one — keep the import lazy
+    from repro_torch.engine.engine import refuse_distributed
     from repro_torch.engine.journal import (RequestJournal, read_events,
                                             replay)
     from repro_torch.engine.scheduler import Scheduler
     from repro_torch.engine.snapshot import EngineSnapshotter, restore
+
+    # before the snapshotter makes its directory
+    refuse_distributed(engine, "durable serving")
 
     snapshotter = EngineSnapshotter(snapshot_dir, every=snapshot_every,
                                     keep=keep)

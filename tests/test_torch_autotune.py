@@ -7,8 +7,8 @@ a miss measures and persists, a hit measures nothing, a persist merges
 with the file on disk; ``REPRO_AUTOTUNE=0`` gives the rule's plans and
 does no file I/O; the plan hooks only look up outside a tuning pass and
 measure every retiled plan, uncounted, inside one; 'auto' keeps its
-first backend within ``AUTO_MARGIN``; a legacy positional winner
-migrates to a name and a stale name falls back to ``AUTO_ORDER[0]``;
+first backend within ``AUTO_MARGIN``; a stale name falls back to
+``AUTO_ORDER[0]``;
 the plan candidates put the rule's plan first and stay within the
 kernels' limits; the roofline terms (``launch.roofline``) equal JAX's
 on every arch, over the H100's constants.  Every test that
@@ -352,17 +352,6 @@ def test_auto_measures_persists_and_hits_by_name(tuner):
     assert autotune.stats["measured"] == 2 and autotune.stats["hits"] >= 1
     assert dispatch.cached_backend("mlp", "auto", args) == name
     assert dispatch.cached_backend("mlp", "cuda", args) == "cuda"
-
-
-def test_legacy_index_migrates_to_a_name(tuner):
-    args, key = _mlp_call()
-    json.dump({key: {"blocks": [1], "us": 1.0}}, open(tuner, "w"))
-    # AUTO_ORDER = ("cuda", "torch"): index 1 is 'torch'
-    assert dispatch.cached_backend("mlp", "auto", args) == "torch"
-    assert dispatch._resolve_auto("mlp", dispatch._REGISTRY["mlp"],
-                                  args, {}) == "torch"
-    assert json.load(open(tuner))[key]["blocks"] == ["torch"]
-    assert autotune.stats["measured"] == 0
 
 
 def test_stale_name_falls_back_to_the_first_backend(tuner):

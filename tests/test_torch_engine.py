@@ -140,12 +140,17 @@ def test_engine_on_cuda_without_a_gpu_raises(monkeypatch):
         DecodeEngine(tc, EngineConfig(batch=1, max_len=8))
 
 
-@pytest.mark.parametrize("kw", [dict(decode_shard="seq"),
-                                dict(mesh_shape=(1, 2))])
+@pytest.mark.parametrize("kw", [
+    dict(paged=True, page_size=4, mesh_shape=(2, 1)),
+    dict(paged=True, page_size=4, decode_shard="seq", prefix_cache=True)])
 def test_unported_engine_options_raise(kw):
+    """Sequence sharding and meshes are served now (the dense and moe
+    families: ``test_torch_dist_engine.py``); a paged engine with a data
+    axis and the prefix cache with ``decode_shard='seq'`` are not, and
+    raise before a mesh or a parameter is made."""
     _, tc = _cfgs("tinyllama-1.1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tc, EngineConfig(batch=1, max_len=8, **kw),
+        DecodeEngine(tc, EngineConfig(batch=2, max_len=8, **kw),
                      device="cpu")
 
 

@@ -203,28 +203,37 @@ def test_frontend_family_spec_and_prefill_match_jax(name):
 
 
 def test_paged_and_seq_sharded_decode_raise():
-    """Paged decode is served now (``test_torch_paged.py``); what still
-    raises is sequence-sharded decode, over the dense cache and over
-    the page pools.  The audio family's paged step is served too: one
-    step over its self pools and cross cache."""
+    """``decode_shard='seq'`` without a mesh is the local step, as in
+    JAX (the sharded steps run on a mesh of ranks:
+    ``test_torch_dist_engine.py``): over the dense cache and over the
+    page pools it gives the unsharded step's logits and cache writes,
+    bit for bit.  The audio family's paged step is served too: one step
+    over its self pools and cross cache."""
     tc = tconfigs.reduced(tconfigs.get_config("tinyllama-1.1b"))
     tp = lm.init(tc, seed=0, device="cpu")
-    cache = lm.init_cache(tc, 1, 8, device="cpu")
-    batch = {"token": torch.zeros(1, dtype=torch.int32), "cur_len": 0,
-             "cache": cache}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lm.decode_step(tp, batch, tc.replace(decode_shard="seq"))
-    paged = {"token": np.zeros(1, np.int32),
-             "cur_len": np.ones(1, np.int32),
-             "block_table": np.zeros((1, 2), np.int32),
-             "cache": {"k": torch.zeros(tc.n_layers, 2, 4, tc.n_kv_heads,
-                                        tc.d_head),
-                       "v": torch.zeros(tc.n_layers, 2, 4, tc.n_kv_heads,
-                                        tc.d_head)}}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lm.decode_step(tp, paged, tc.replace(decode_shard="seq"))
-    # it raises before any pool write: the cache is left as it was
-    assert not paged["cache"]["k"].any() and not paged["cache"]["v"].any()
+    seq = tc.replace(decode_shard="seq")
+    tok = torch.tensor([5], dtype=torch.int32)
+    outs = []
+    for cfg in (tc, seq):
+        cache = lm.init_cache(cfg, 1, 8, device="cpu")
+        outs.append(lm.decode_step(tp, {"token": tok, "cur_len": 0,
+                                        "cache": cache}, cfg))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=0)
+    for name in ("k", "v"):
+        assert outs[1][1][name][:, 0, 0].any()
+        torch.testing.assert_close(outs[1][1][name], outs[0][1][name],
+                                   rtol=0, atol=0)
+    outs = []
+    for cfg in (tc, seq):
+        pools = tpc.init_paged_cache(cfg, 2, 4, device="cpu")
+        outs.append(lm.decode_step(tp, {
+            "token": np.zeros(1, np.int32), "cur_len": np.ones(1, np.int32),
+            "block_table": np.zeros((1, 2), np.int32), "cache": pools},
+            cfg))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=0)
+    assert outs[1][1]["k"][:, 0, 1].any()
+    torch.testing.assert_close(outs[1][1]["k"], outs[0][1]["k"], rtol=0,
+                               atol=0)
     ac = tconfigs.reduced(tconfigs.get_config("seamless-m4t-large-v2"))
     ap = lm.init(ac, seed=0, device="cpu")
     pools = tpc.init_paged_cache(ac, 2, 4, 1, enc_len=4, device="cpu")

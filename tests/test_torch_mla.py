@@ -317,9 +317,12 @@ def test_mla_decode_attend_matches_jax(q8):
         *(_t(a) for a in (*q, *pools, table, counts)), scale=SCALE,
         **{k: _t(v) for k, v in kw.items()}, backend="cuda")
     _close(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # seq_shard without a mesh is the local path, as in JAX
+    torch.testing.assert_close(
         tdd.mla_decode_attend(*(_t(a) for a in (*q, *cache)), 21,
-                              scale=SCALE, seq_shard=True)
+                              scale=SCALE, seq_shard=True),
+        tdd.local_mla_decode_attend(*(_t(a) for a in (*q, *cache)), 21,
+                                    scale=SCALE), rtol=0, atol=0)
 
 
 def test_cpu_mla_ops_run_the_plain_version_uncounted():

@@ -487,15 +487,23 @@ def _paged_steps(name, kv_dtype, jimpl, timpl):
 
 
 def test_paged_seq_sharded_decode_raises():
-    tc = tconfigs.reduced(tconfigs.get_config("tinyllama-1.1b")).replace(
-        decode_shard="seq")
+    """``decode_shard='seq'`` without a mesh is the local paged step (the
+    JAX routers' fallback): the same logits and pool writes as the
+    unsharded step.  On a mesh of ranks: ``test_torch_dist_engine.py``."""
+    tc = tconfigs.reduced(tconfigs.get_config("tinyllama-1.1b"))
     tp = lm.init(tc, seed=0, device="cpu")
-    cache = tpc.init_paged_cache(tc, 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lm.decode_step(tp, {"token": np.zeros(1, np.int32),
-                            "cur_len": np.ones(1, np.int32),
-                            "block_table": np.zeros((1, 2), np.int32),
-                            "cache": cache}, tc)
+    outs = []
+    for cfg in (tc, tc.replace(decode_shard="seq")):
+        cache = tpc.init_paged_cache(cfg, 4, 4, device="cpu")
+        outs.append(lm.decode_step(tp, {"token": np.zeros(1, np.int32),
+                                        "cur_len": np.ones(1, np.int32),
+                                        "block_table": np.zeros((1, 2),
+                                                                np.int32),
+                                        "cache": cache}, cfg))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=0)
+    for name in ("k", "v"):
+        torch.testing.assert_close(outs[1][1][name], outs[0][1][name],
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,W", [(1, 1), (3, 5), (4, 4)])

@@ -182,12 +182,26 @@ def test_serve_durable_crash_matches_jax(side, tmp_path):
     _same_results(got, serve._serve_durable(eng, args))
 
 
-@pytest.mark.parametrize("argv", [["--data-model", "2", "4"],
-                                  ["--shard", "seq"]])
-def test_distributed_flags_raise_item_14(argv):
+@pytest.mark.parametrize("argv", [["--data-model", "1", "2", "--shard",
+                                   "seq"],
+                                  ["--data-model", "2", "1"]])
+def test_distributed_flags_raise_item_14(argv, capfd):
+    """Sharded serving from the CLI: ``--data-model 1 2 --shard seq``
+    (the cache sequence-sharded over two ranks) and ``--data-model 2 1``
+    (the batch split) spawn their ranks and give ``1 1``'s tokens and
+    output lines (the timings aside).  Durable serving under a mesh is
+    still refused, naming ROADMAP queue 1 item 14."""
+    base = ["--arch", NAME, "--reduce", "smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--gen", "4"]
+    want = serve.main(base)
+    lines = capfd.readouterr().out.splitlines()
+    got = serve.main(base + argv)
+    assert torch.equal(got, want.cpu())
+    same = capfd.readouterr().out.splitlines()
+    assert same[1:] == lines[1:] and same[0].split(":")[0] == \
+        lines[0].split(":")[0]
     with pytest.raises(NotImplementedError, match="item 14"):
-        serve.main(["--arch", NAME, "--reduce", "smoke", "--device", "cpu"]
-                   + argv)
+        serve.main(base + argv + ["--stream", "2", "--snapshot-dir", "x"])
 
 
 # ---------------------------------------------------------------- 'auto'

@@ -1,0 +1,150 @@
+"""The port's sharding vocabulary (``repro_torch.dist.sharding``) against
+the JAX package's: the spec trees of every family's reduced config equal
+JAX's leaf by leaf (as tuples) on the (2, 4), (16, 16) and (2, 16, 16)
+meshes, both sides given a duck-typed mesh (``axis_names``, ``shape``):
+``param_pspecs`` under 'fsdp_tp', 'ddp' and 'serve', ``cache_pspecs``
+with sequence sharding on and off, ``paged_cache_pspecs`` quantized and
+not, and the batch pspecs.  ``local_block`` cuts blocks that tile the
+whole tensor, which ``gather_block`` puts back together
+(``test_torch_dist_decode.py`` runs that inverse over ranks).  No ranks
+here."""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.dist import sharding as TSH  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_production_mesh  # noqa: E402
+
+FAMILIES = ("tinyllama-1.1b", "qwen1.5-0.5b", "deepseek-v3-671b",
+            "olmoe-1b-7b", "internvl2-2b", "seamless-m4t-large-v2",
+            "zamba2-1.2b", "xlstm-350m")
+MESHES = {"2x4": {"data": 2, "model": 4},
+          "16x16": {"data": 16, "model": 16},
+          "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+PAGED = ("tinyllama-1.1b", "deepseek-v3-671b", "olmoe-1b-7b",
+         "internvl2-2b", "seamless-m4t-large-v2")
+
+
+def _mesh(shape):
+    return types.SimpleNamespace(axis_names=tuple(shape), shape=dict(shape))
+
+
+def _cfgs(name):
+    from repro import configs as jconfigs
+    return (jconfigs.reduced(jconfigs.get_config(name)),
+            tconfigs.reduced(tconfigs.get_config(name)))
+
+
+def _flat(tree, path=()):
+    """(path, spec tuple or None) of a spec tree: dicts by sorted key,
+    NamedTuple states field by field."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    elif hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _flat(v, path + (k,))
+    else:
+        yield path, None if tree is None else tuple(tree)
+
+
+def _same(got, want):
+    got, want = list(_flat(got)), list(_flat(want))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g == w, (path, g, w)
+    return len(got)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", FAMILIES)
+def test_spec_trees_equal_jax(name, mesh):
+    from repro.dist import sharding as JSH
+
+    jc, tc = _cfgs(name)
+    m = _mesh(MESHES[mesh])
+    for strategy in ("fsdp_tp", "ddp", "serve"):
+        assert _same(TSH.param_pspecs(tc, m, strategy),
+                     JSH.param_pspecs(jc, m, strategy)) > 0
+    for batch in (4, 32, 3):
+        for seq in (False, True):
+            _same(TSH.cache_pspecs(tc, m, batch, seq_shard=seq),
+                  JSH.cache_pspecs(jc, m, batch, seq_shard=seq))
+            _same(TSH.decode_batch_pspecs(tc, m, batch, seq_shard=seq),
+                  JSH.decode_batch_pspecs(jc, m, batch, seq_shard=seq))
+            if name not in PAGED:
+                continue
+            for q8 in (False, True):
+                if q8 and jc.family == "audio":
+                    continue
+                for n_pages in (None, 64, 30):
+                    kw = dict(seq_shard=seq, n_pages=n_pages, quantized=q8)
+                    _same(TSH.paged_cache_pspecs(tc, m, batch, **kw),
+                          JSH.paged_cache_pspecs(jc, m, batch, **kw))
+                    _same(TSH.paged_decode_batch_pspecs(tc, m, batch, **kw),
+                          JSH.paged_decode_batch_pspecs(jc, m, batch, **kw))
+    shapes = {"tokens": (32, 16), "labels": (32, 16), "mask": (3, 16),
+              "cur_len": ()}
+    _same(TSH.train_batch_pspecs(tc, m, {k: np.zeros(s) for k, s
+                                         in shapes.items()}),
+          JSH.train_batch_pspecs(jc, m, {k: np.zeros(s) for k, s
+                                         in shapes.items()}))
+
+
+def test_rules_and_axes_equal_jax():
+    from repro.dist import sharding as JSH
+
+    jc, tc = _cfgs("deepseek-v3-671b")
+    for shape in MESHES.values():
+        m = _mesh(shape)
+        assert TSH.data_axes(m) == JSH.data_axes(m)
+        assert TSH.data_size(m) == JSH.data_size(m)
+        assert TSH.model_axis(m) == JSH.model_axis(m)
+        for strategy in ("fsdp_tp", "ddp", "serve"):
+            assert TSH.rules(tc, m, strategy) == JSH.rules(jc, m, strategy)
+    with pytest.raises(ValueError, match="unknown sharding strategy"):
+        TSH.rules(tc, _mesh(MESHES["2x4"]), "zero3")
+
+
+def test_production_mesh_is_abstract():
+    m = make_production_mesh()
+    assert m.axis_names == ("data", "model") and m.shape == {
+        "data": 16, "model": 16} and not m.groups and m.size == 256
+    m = make_production_mesh(multi_pod=True)
+    assert m.axis_names == ("pod", "data", "model") and m.size == 512
+
+
+@pytest.mark.parametrize("spec", [
+    TSH.PS(None, "model", None), TSH.PS("data", "model", None),
+    TSH.PS(("pod", "data"), None, "model"), TSH.PS(None, None, None)])
+def test_local_blocks_tile_the_whole_tensor(spec):
+    """Every coordinate's ``local_block`` is the tensor's block at that
+    coordinate, and the blocks together cover it once."""
+    shape = {"pod": 2, "data": 2, "model": 4}
+    x = torch.arange(4 * 8 * 8, dtype=torch.float32).view(4, 8, 8)
+    seen = torch.zeros_like(x)
+    for p in range(2):
+        for d in range(2):
+            for mm in range(4):
+                mesh = Mesh(shape, {"pod": p, "data": d, "model": mm})
+                blk = TSH.local_block(x, spec, mesh)
+                assert blk.is_contiguous()
+                index = []
+                for dim, entry in enumerate(spec):
+                    i, n = TSH._block_index(mesh, TSH._flat(entry))
+                    per = x.shape[dim] // n
+                    index.append(slice(i * per, (i + 1) * per))
+                torch.testing.assert_close(blk, x[tuple(index)],
+                                           rtol=0, atol=0)
+                seen[tuple(index)] += 1
+    # replicated dims give every coordinate the same block
+    copies = 16 // np.prod([TSH._block_index(mesh, TSH._flat(e))[1]
+                            for e in spec])
+    assert bool((seen == copies).all())
+    with pytest.raises(ValueError, match="does not split"):
+        TSH.local_block(torch.zeros(3, 5), TSH.PS(None, "model"),
+                        Mesh(shape, {"pod": 0, "data": 0, "model": 1}))
