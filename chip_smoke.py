@@ -176,8 +176,9 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    variants held (kernel 4 twice a seamless layer a step: self and
    cross), teacher-forced against the plain path at 5e-2; the Scheduler
    stream of phase 5 with frontends (internvl2 on bf16 and int8 pools
-   over 192 pages, where growth preempts; seamless with 160-960 frames
-   under ``enc_len`` 1024 on bf16 pools, kernel 5 twice a layer a step
+   over 192 pages, where growth preempts; seamless's first 12 requests
+   with 160-960 frames under ``enc_len`` 1024 on bf16 pools, kernel 5
+   twice a layer a step
    over the self pools and the identity-paged cross cache), every
    request finished, launches on kernels 1-5 and 7's Hopper variants
    only, finished requests replayed in the live slots against a batch-1
@@ -302,15 +303,15 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
 12. distributed serving (``serve_distributed``): ranks spawned on this
    card by ``launch.mesh.run_ranks`` (gloo between them: NCCL refuses two
    ranks on one GPU), each launching the decode kernels on its own slab:
-   tinyllama-1.1b (full width, bf16) ``generate`` B4 P128 gen 32 on
+   tinyllama-1.1b (full width, bf16) ``generate`` B4 P128 gen 16 on
    (1, 2) and (2, 2) with the cache sequence-sharded and on (2, 1) with
    the batch split, and P16 gen 16 on (1, 2) (rank 1's slab empty, kernel
    4 launched with no valid key), each held against the single rank in
    this process (teacher-forced logits at 5e-2 of scale, greedy tokens
    counted, tokens equal on every rank, the seeded parameters' digests
    equal), and a sampled P16 gen 16 on (2, 1) equal to the single
-   rank's; phase 5's Scheduler stream on (1, 2) seq over bf16 and int8
-   pools (kernels 5 and 7 over tables of foreign pages at count 0; every
+   rank's; the first 6 requests of phase 5's Scheduler stream on (1, 2)
+   seq over bf16 and int8 pools (kernels 5 and 7 over tables of foreign pages at count 0; every
    parted request replayed with the single rank's tokens and held at
    5e-2); the
    reduced dense + MLA config (fp32) through generate and the Scheduler
@@ -320,8 +321,27 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    sharded functions against the same kernels on the whole operands;
    decode tok/s of each mesh beside the single rank's, the combine's
    share of a decode step, the launches per rank;
-13. print ``{"kernels": [...]}``, then the last line
+13. distributed training (``serve_train_distributed``): one (2, 1) world
+   of ranks on this card (gloo), the rank functions ``_dp_*``: (a)
+   tinyllama-1.1b at full width, bf16, remat "full", global B4 S1024 of
+   phase 10's conditioned weights: the data-parallel step with ZeRO-1
+   (``build_train_step(mesh=)``) against rank 0's single-rank step on
+   the same batch (loss within 1e-2, the fp32 master copies by
+   ``_hold_adam``), each rank's peak memory with ZeRO-1 off and on, the
+   step's wall, the gradient sync's wall and bytes, tok/s; (b) reduced
+   fp32 tinyllama (rank 1's rows half masked) and olmoe (capacity factor
+   4), n_microbatches 2, against the same step on one rank on the CPU;
+   (c) ``compressed_psum`` of a 32000 x 2048 fp32 leaf against the exact
+   mean, the error-feedback contract, its wire bytes beside the fp32
+   ring's; (d) ``pipeline_apply`` over a ``{"pipe": 2}`` mesh, width
+   2048, 8 microbatches, within 1e-5 of the sequential composition; (e)
+   ``launch/train.py --reduce width --data-model 2 1`` with a
+   checkpoint, its losses against ``1 1``'s, resumed on ``1 1``;
+14. print ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Every phase prints ``phase <n> wall: <s> s`` on a line of its own when
+it ends (``_phase``); ``chiprun_out/chip_smoke.json`` keeps the walls.
 
 The reduced fp32 configs of phases 3-8 run at the CPU tests' widths
 (head dim 16; MLA rank 16, rope 8): the kernel wrappers zero-pad them to
@@ -339,6 +359,7 @@ the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -5404,6 +5425,10 @@ FRONT_BATCH, VLM_PROMPT, AUDIO_PROMPT, AUDIO_FRAMES = 4, 128, 16, 512
 VLM_PAGES = 192
 AUDIO_PROMPTS, AUDIO_FRAME_RANGE, AUDIO_ENC_LEN = (4, 32), (160, 960), 1024
 AUDIO_PAGES = 64
+# seamless's Scheduler stream: the first AUDIO_REQS requests (cut from
+# all N_REQ to make room for phase 13; internvl2 keeps N_REQ, whose
+# growth must preempt)
+AUDIO_REQS = 12
 # the seamless crash + recover: the first AUDIO_RECOVER_REQS requests of
 # the stream, a snapshot every AUDIO_RECOVER_EVERY steps, each ~0.9 GB of
 # pools (0.8 GB of it the cross cache) and ~100-260 MB of host JSON
@@ -5412,9 +5437,11 @@ AUDIO_PAGES = 64
 # against 8.6 s crash-free on an NVIDIA H100 80GB HBM3 at 700 W.  The
 # crash comes before any result finishes: a snapshot's write is still in
 # flight at the next cadence step, so recovery restores the one before
-AUDIO_RECOVER_EVERY, AUDIO_RECOVER_REQS = 12, 12
-# fsynced journal appends of a vlm request (256 x 1024 floats as JSON)
-VLM_JOURNAL_APPENDS = 10
+# (cut from 12 requests to make room for phase 13)
+AUDIO_RECOVER_EVERY, AUDIO_RECOVER_REQS = 12, 8
+# fsynced journal appends of a vlm request (256 x 1024 floats as JSON;
+# cut from 10 to make room for phase 13)
+VLM_JOURNAL_APPENDS = 5
 # internvl2's floor of replay steps that pick the served token, on bf16
 # and int8 pools (seamless keeps REPLAY_AGREE): on an NVIDIA H100 80GB
 # HBM3 at 700 W its bf16 replay agreed at 182/192 steps, every one of
@@ -5661,16 +5688,17 @@ def serve_frontend_scheduler(torch, name, params, kv_dtype):
 
     cfg = get_config(name)
     vlm = cfg.family == "vlm"
+    n_req = N_REQ if vlm else AUDIO_REQS
     eng = _front_engine(torch, cfg, params, kv_dtype)
     prompt, kw = _front_stream(cfg)
     print(f"Scheduler, {name}, {kv_dtype} pools: {SLOTS} slots, "
-          f"{eng.n_pages} pages of {PAGE}, {N_REQ} requests, prompts "
+          f"{eng.n_pages} pages of {PAGE}, {n_req} requests, prompts "
           f"{prompt[0]}-{prompt[1]}"
           + (f" after {cfg.frontend_tokens} frontend tokens" if vlm else
              f", {AUDIO_FRAME_RANGE[0]}-{AUDIO_FRAME_RANGE[1]} frames "
              f"(enc_len {AUDIO_ENC_LEN})") + f", gen {GEN}")
     _drive(Scheduler(eng, **kw), _front_requests(cfg, 4, prompt, 4, seed=5))
-    reqs = _front_requests(cfg, N_REQ, prompt, GEN, seed=4)
+    reqs = _front_requests(cfg, N_REQ, prompt, GEN, seed=4)[:n_req]
     sched = Scheduler(eng, **kw)
     torch.cuda.synchronize()
     build.reset_launches()
@@ -5703,7 +5731,7 @@ def serve_frontend_scheduler(torch, name, params, kv_dtype):
     _no_fallback(f"scheduler {name} {kv_dtype}", variants)
     bad = {rid: r.status for rid, r in out.items()
            if r.status is not RequestStatus.FINISHED or len(r) != GEN}
-    if len(out) != N_REQ or bad:
+    if len(out) != n_req or bad:
         raise AssertionError(f"scheduler {name} {kv_dtype}: unfinished "
                              f"{bad}")
     sched.allocator.check()
@@ -7257,9 +7285,10 @@ def train_families(torch):
 
 
 def train_width(torch):
-    """(e) width_reduce(tinyllama) fp32 on the card: 50 steps, batch 8,
-    seq 256, lr 1e-3, the mean of the last 5 losses below the first 5's
-    by 0.3 (JAX's test_loss_decreases); n_microbatches 4 vs 1 on one
+    """(e) width_reduce(tinyllama) fp32 on the card under deterministic
+    algorithms: 50 steps, batch 8, seq 256, lr 1e-3, the mean of the last
+    5 losses below the first 5's by 0.3 (JAX's test_loss_decreases);
+    n_microbatches 4 vs 1 on one
     batch (weights ``_condition``ed) within 5e-5 but for the elements
     ``_hold_adam`` allows; (f) 6 straight steps against 3,
     a CheckpointStore save, a restore into fresh tensors and 3 more,
@@ -7283,13 +7312,21 @@ def train_width(torch):
     p = lm.init(cfg, seed=29, device="cuda")
     o = adamw.init(opt_cfg, p)
     losses = []
-    for s in range(50):
-        p, o, m = step(p, o, get(s))
-        losses.append(m["loss"])
-    losses = [float(x) for x in losses]
+    # deterministic algorithms: from this init the summation order alone
+    # moves the fall over 50 steps between 0.29 and 0.53 run to run
+    # (scripts/train_loss_spread.py), so the hold is made on one
+    # reproducible trajectory
+    _deterministic(torch, True)
+    try:
+        for s in range(50):
+            p, o, m = step(p, o, get(s))
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+    finally:
+        _deterministic(torch, False)
     head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    print(f"  (e) {cfg.name} fp32, 50 steps B8 S256: first 5 {head:.4f}, "
-          f"last 5 {tail:.4f}")
+    print(f"  (e) {cfg.name} fp32, 50 steps B8 S256, deterministic "
+          f"algorithms: first 5 {head:.4f}, last 5 {tail:.4f}")
     if not (tail < head - 0.3 and all(map(math.isfinite, losses))):
         raise AssertionError(f"training: the loss did not fall: {losses}")
 
@@ -7794,8 +7831,14 @@ def serve_surfaces(torch):
 # phase 12: distributed serving (sequence-sharded decode over ranks)
 # ----------------------------------------------------------------------
 
-# generate at full width on each mesh: B4 P128 gen 32 in a cache of 160
-DIST_B, DIST_P, DIST_GEN, DIST_MAX = 4, 128, 32, 160
+# generate at full width on each mesh: B4 P128 gen 16 in a cache of 160
+# (cut from gen 32 to make room for phase 13)
+DIST_B, DIST_P, DIST_GEN, DIST_MAX = 4, 128, 16, 160
+# phase 5's Scheduler stream on (1, 2) seq: its first DIST_REQ requests
+# at gen DIST_REQ_GEN (cut from all N_REQ at gen GEN to make room for
+# phase 13).  More than FIRST + BURST of them, so requests are still
+# admitted mid-stream into the slots and pages that finished ones freed
+DIST_REQ, DIST_REQ_GEN = 12, 16
 # P16 gen 16 on (1, 2): its 32 positions lie in rank 0's slab [0, 80), so
 # rank 1 launches kernel 4 with no valid key at every step
 DIST_SHORT = (16, 16)
@@ -7805,7 +7848,8 @@ DIST_TEMP = 0.8
 # of 32, and the reduced Scheduler geometry of scheduler_reduced_fp32
 MLA_GEN = (4, 16, 8, 32)
 MLA_PAGED = dict(batch=3, max_len=64, paged=True, page_size=8, n_pages=12)
-MLA_REQS = (7, (5, 40), 16, 6)          # n, prompt range, gen, seed
+# n (cut from 7 to make room for phase 13), prompt range, gen, seed
+MLA_REQS = (4, (5, 40), 16, 6)
 # DeepSeek-V3's attention widths (phase 2's MLA cases)
 DS_H, DS_R, DS_RP = 128, 512, 64
 
@@ -8004,6 +8048,7 @@ def _dist_stream(torch, mesh, cfg, params, ecfg, reqs, want, tol,
     sched.allocator.check()
     got = [out[i].tokens.tolist() for i in range(len(reqs))]
     res = {"kv_dtype": ecfg.kv_dtype, "steps": st["steps"],
+           "admitted": st["admitted"], "retired": st["retired"],
            "launches": build.LAUNCHES[kernel], "wall_s": wall,
            "gen_tok_s": sum(len(t) for t in got) / wall,
            "equal": got == want,
@@ -8241,13 +8286,19 @@ def _dist_world(mesh, prompts, refs, digest, streams, mla):
         out["short"] = _dist_generate(torch, eng, prompts, refs["short"],
                                       *DIST_SHORT, E2E_BF16_REL,
                                       share=True, warm=False)
-        ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + GEN,
+        ecfg = EngineConfig(batch=SLOTS, max_len=PROMPT[1] + DIST_REQ_GEN,
                             paged=True, page_size=PAGE, n_pages=N_PAGES,
                             kernel_impl="cuda")
-        reqs = _requests(cfg, N_REQ, PROMPT, GEN, seed=4)
+        reqs = _requests(cfg, N_REQ, PROMPT, DIST_REQ_GEN, seed=4)[:DIST_REQ]
         out["streams"] = [_dist_stream(
             torch, mesh, cfg, eng.params, ecfg.replace(kv_dtype=kv), reqs,
             streams[kv], E2E_BF16_REL) for kv in ("bf16", "int8")]
+        for s in out["streams"]:
+            # continuous batching: admissions past the slots reuse the
+            # slots and pages of finished requests
+            if s["admitted"] <= SLOTS:
+                raise AssertionError(f"(1, {model}) stream: {s['admitted']}"
+                                     f" admissions over {SLOTS} slots")
         del eng
         torch.cuda.empty_cache()
         mcfg = _dense_mla()
@@ -8325,14 +8376,14 @@ def serve_distributed(torch):
     streams = {}
     for kv in ("bf16", "int8"):
         peng = DecodeEngine(cfg, EngineConfig(
-            batch=SLOTS, max_len=PROMPT[1] + GEN, paged=True,
+            batch=SLOTS, max_len=PROMPT[1] + DIST_REQ_GEN, paged=True,
             page_size=PAGE, n_pages=N_PAGES, kv_dtype=kv,
             kernel_impl="cuda"), params=eng.params, device="cuda")
         t0 = time.perf_counter()
-        out = _drive(Scheduler(peng), _requests(cfg, N_REQ, PROMPT, GEN,
-                                                seed=4))
+        out = _drive(Scheduler(peng), _requests(
+            cfg, N_REQ, PROMPT, DIST_REQ_GEN, seed=4)[:DIST_REQ])
         torch.cuda.synchronize()
-        streams[kv] = [out[i].tokens.tolist() for i in range(N_REQ)]
+        streams[kv] = [out[i].tokens.tolist() for i in range(DIST_REQ)]
         streams[kv + "_tok_s"] = sum(map(len, streams[kv])) / (
             time.perf_counter() - t0)
         del peng
@@ -8423,6 +8474,7 @@ def _dist_report(name, ranks, single, wall):
                 f"{s['replayed_steps']} steps, its token picked at "
                 f"{s['replay_picks_single_token']}")
             print(f"    {what}, {s['kv_dtype']} pools: {s['steps']} steps, "
+                  f"{s['admitted']} admissions, {s['retired']} retired, "
                   f"{s['gen_tok_s']:.1f} generated tok/s; streams {note}; "
                   f"paged kernel launches per rank "
                   f"{[r[key][i]['launches'] for r in ranks for i, t in enumerate(r[key]) if t['kv_dtype'] == s['kv_dtype']]}")
@@ -8449,6 +8501,466 @@ def _dist_report(name, ranks, single, wall):
     return strip(ranks)
 
 
+# ----------------------------------------------------------------------
+# phase 13: data-parallel training (ZeRO-1) over ranks on this card
+# ----------------------------------------------------------------------
+
+# (b): reduced fp32 configs, B4 S32, n_microbatches 2: each rank takes
+# one row of each microbatch (rows 0, 2 on rank 0; 1, 3 on rank 1)
+DP_REDUCED = ("tinyllama-1.1b", "olmoe-1b-7b")
+DP_RANK1_ROWS = [1, 3]
+# (c): a tinyllama-1.1b embedding's worth of fp32 gradient
+DP_PSUM = (32000, 2048)
+# (d): the pipeline's stages, microbatches, rows a microbatch, width
+DP_PIPE = (2, 8, 16, 2048)
+DP_PIPE_TOL = 1e-5
+# (e): the launcher's losses against 1 1's and its resumed moments;
+# the resumed step-4 loss (the same state and row blocks)
+DP_LAUNCH_REL, DP_RESUME_REL = 1e-3, 1e-5
+
+
+def _dp_full_width(torch, mesh):
+    """(a) tinyllama-1.1b bf16 at full width, remat "full", global B4
+    S1024 (phase 10's weights): rank 0 first takes the single-rank step
+    (its loss and fp32 master copies kept), then every rank takes the
+    (2, 1) step with ZeRO-1 off and on (peak memory, step wall, the
+    gradient sync's wall and bytes), each held to the single rank's."""
+    from repro_torch.common.module import leaves, map_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(TRAIN_ARCH).replace(kernel_impl="torch", remat="full")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=29))
+    oc = adamw.OptConfig()
+    rank0 = mesh.coord("data") == 0
+
+    def weights():
+        p = lm.init(cfg, seed=29, device="cuda")
+        _condition(torch, p)
+        return p
+
+    p = weights()
+    digests = mesh.gather_objects(_param_digest(torch, p))
+    if any(d != digests[0] for d in digests):
+        raise AssertionError("(a): the ranks built different parameters")
+    out = {"rank": mesh.coord("data")}
+    ref = None
+    if rank0:
+        o = adamw.init(oc, p)
+        p, o, m = steps.build_train_step(cfg, oc)(p, o, data.batch(0))
+        # the single rank's master copies wait on the host
+        ref = {"loss": float(m["loss"]), "lr": float(m["lr"]),
+               "master": map_tree(lambda t: t.cpu(), o.master)}
+        del o, m
+    del p
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh.gather_objects(None)           # rank 0's reference is taken
+    held = {}
+    for zero1 in (False, True):
+        key = "zero1" if zero1 else "whole"
+        p = weights()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = adamw.init(oc, p, mesh=mesh, zero1=zero1)
+        state = sum(t.numel() * t.element_size() for tree in
+                    (o.m, o.v, o.master) for _, t in leaves(tree))
+        step = steps.build_train_step(cfg, oc, mesh=mesh, zero1=zero1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, data.batch(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        held[key] = _dp_hold_master(torch, mesh, oc, o, p, ref, m, zero1)
+        out[key] = {
+            "peak_gb": peak / 1e9, "held_before_gb": base / 1e9,
+            "state_gb": state / 1e9, "step_s": wall,
+            "sync_s": step.last_sync["s"],
+            "sync_bytes": step.last_sync["bytes"],
+            "loss": float(m["loss"]),
+            "tok_s": TRAIN_BATCH * TRAIN_SEQ / wall}
+        del p, o, step, m
+        torch.cuda.empty_cache()
+    out["held"] = held
+    return out
+
+
+def _dp_hold_master(torch, mesh, oc, opt, params, ref, metrics, zero1):
+    """(a)'s hold: the step's loss within ``TRAIN_LOSS_REL`` of the
+    single rank's, and its fp32 master copies (with ``zero1`` every
+    rank's blocks, gathered leaf by leaf on each rank) by ``_hold_adam``
+    against the single rank's (flipped Adam steps of near-zero gradient
+    elements allowed)."""
+    from repro_torch.common.module import leaves
+    from repro_torch.dist import sharding as SH
+    from repro_torch.optim import adamw
+
+    specs = adamw.state_specs(oc, params, mesh, zero1).master
+    what = "ZeRO-1" if zero1 else "whole-state"
+    got = {}
+    for path, t in leaves(opt.master):
+        whole = SH.gather_block(t, adamw._at(specs, path), mesh)
+        if ref is not None:
+            node = got
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = whole
+        else:
+            del whole
+    if ref is None:
+        return None
+    rel = abs(float(metrics["loss"]) - ref["loss"]) / abs(ref["loss"])
+    held = _hold_adam(got, ref["master"], ref["lr"], TRAIN_FP32_TOL,
+                      f"(a) {what} master copies")
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"(a): the {what} (2, 1) step's loss is "
+                             f"{rel:.3e} off the single rank's")
+    return {"loss": float(metrics["loss"]), "single_loss": ref["loss"],
+            "loss_rel": rel, **held}
+
+
+def _dp_reduced(torch, mesh):
+    """(b) reduced fp32 tinyllama (rank 1's rows half masked) and olmoe
+    (capacity factor 4), n_microbatches 2: one (2, 1) step from the
+    conditioned seed-29 weights; the losses and parameters to rank 0."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    out = {}
+    for name in DP_REDUCED:
+        cfg, batch = _dp_reduced_case(name)
+        oc = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=30)
+        p = lm.init(cfg, seed=29, device="cuda")
+        _condition(torch, p)
+        o = adamw.init(oc, p, mesh=mesh)
+        p, o, m = steps.build_train_step(cfg, oc, mesh=mesh)(p, o, batch)
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "params": {k: t.cpu().numpy() for k, t in _flat(p)}}
+    return out
+
+
+def _flat(tree):
+    from repro_torch.common.module import leaves
+    return [("/".join(k), t) for k, t in leaves(tree)]
+
+
+def _dp_reduced_case(name):
+    """(b)'s config and global batch."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    cfg = _reduced(name).replace(kernel_impl="torch", n_microbatches=2)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=4.0))
+    batch = train.make_batch_fn(cfg, 4, 32)(0)
+    batch["loss_mask"] = batch["loss_mask"].copy()
+    batch["loss_mask"][DP_RANK1_ROWS, :16] = 0.0
+    return cfg, batch
+
+
+def _dp_compressed(torch, mesh):
+    """(c) ``compressed_psum`` of a 32000 x 2048 fp32 leaf a rank on the
+    card: its error against the exact mean (an fp32 all-reduce), the
+    residual, and the error-feedback contract (two steps' mean closer
+    than one); the wire bytes beside the fp32 ring's."""
+    from repro_torch.dist.compression import compressed_psum
+
+    n = mesh.axis_size("data")
+    g = torch.Generator(device="cuda").manual_seed(40 + mesh.coord("data"))
+    x = torch.randn(DP_PSUM, generator=g, device="cuda")
+    exact = mesh.all_reduce(x.clone(), "data") / n
+    err = torch.zeros_like(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out1, err1 = compressed_psum(x, err, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out2, _ = compressed_psum(x, err1, mesh)
+    one = float((out1 - exact).abs().max())
+    two = float(((out1 + out2) / 2 - exact).abs().max())
+    res = float(err1.abs().max())
+    if not (one < 0.05 and res > 0 and two <= one + 1e-6):
+        raise AssertionError(f"(c) compressed_psum: one step {one:.3e}, "
+                             f"two {two:.3e}, residual {res:.3e}")
+    return {"one_step_max_err": one, "two_step_max_err": two,
+            "residual_max": res, "wall_s": wall,
+            # every rank's int8 payload and fp32 scale, gathered
+            "wire_bytes": n * (x.numel() + 4),
+            "fp32_ring_bytes": 2 * 4 * x.numel()}
+
+
+def _dp_pipeline(torch):
+    """(d) ``pipeline_apply`` over a ``{"pipe": 2}`` mesh of the same
+    ranks: tanh(x @ w) stages at width 2048, 8 microbatches of 16 rows,
+    fp32 (TF32 off), against the sequential composition on this rank."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    n_stages, n_micro, mb, d = DP_PIPE
+    pipe = make_mesh({"pipe": n_stages}, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(41)
+    w = torch.randn((n_stages, d, d), generator=g, device="cuda") / d ** 0.5
+    x = torch.randn((n_micro * mb, d), generator=g, device="cuda")
+    stage = SH.local_block(w, SH.PS("pipe", None, None), pipe)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipeline_apply(pipe, lambda wt, xb: torch.tanh(xb @ wt), stage,
+                         x, n_micro=n_micro)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = x
+    for s in range(n_stages):
+        want = torch.tanh(want @ w[s])
+    err = float((got - want).abs().max())
+    if err > DP_PIPE_TOL:
+        raise AssertionError(f"(d) pipeline_apply: {err:.3e} off the "
+                             "sequential composition")
+    return {"max_abs_err": err, "wall_s": wall,
+            "ticks": n_micro + n_stages - 1}
+
+
+def _dp_world(mesh):
+    """Phase 13's (a)-(d) on every rank of a (2, 1) world; the results
+    of every rank, gathered."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"full_width": _dp_full_width(torch, mesh)}
+    out["full_width_s"] = time.perf_counter() - t0
+    out["reduced"] = _dp_reduced(torch, mesh)
+    out["compressed"] = _dp_compressed(torch, mesh)
+    out["pipeline"] = _dp_pipeline(torch)
+    ranks = mesh.gather_objects({k: v for k, v in out.items()
+                                 if k != "reduced"})
+    return {"ranks": ranks, "reduced": out["reduced"],
+            "transport": mesh.transport}
+
+
+def _dp_launcher(torch):
+    """(e) ``launch/train.py --reduce width --data-model 2 1 --steps 5
+    --ckpt`` (checkpoints at steps 4 and 5), then ``1 1`` resumed from
+    that step-4 checkpoint for steps 4-5.
+
+    The launcher's weights are its unconditioned seed-0 init, whose
+    loss is so sharp (gradient norms ~1e6-1e7) that fp32 summation-order
+    noise grows into losses that part by 1e-3 or more after two steps
+    (``1 1`` is run twice here: the card's backward is not bitwise
+    repeatable), and a step's loss barely sees a wrong m.  So the
+    (2, 1) run's steps 0-1 are held against ``1 1``'s, and the restore
+    across meshes is held on the state itself: ``1 1 --microbatches 2``
+    (the ranks' 4-row blocks) resumed at step 4 takes the (2, 1) run's
+    step-4 loss, and its step-5 checkpoint is the (2, 1) run's (m and v
+    within ``DP_LAUNCH_REL`` of each leaf's norm, the parameters by
+    ``_hold_adam`` at step 5's learning rate)."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.common.module import leaves
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    ck = ROOT / "build" / "train_dp_launcher"
+    ck4 = ROOT / "build" / "train_dp_launcher_4"
+    for d in (ck, ck4):
+        shutil.rmtree(d, ignore_errors=True)
+    args = ["--arch", TRAIN_ARCH, "--reduce", "width", "--batch", "8",
+            "--seq", "256", "--log-every", "1"]
+    parsed = train.build_parser().parse_args(args + ["--steps", "6"])
+    cfg = train._config(parsed)
+    oc = adamw.OptConfig(lr=parsed.lr, warmup_steps=20, total_steps=6)
+
+    def state(d):
+        p = lm.init(cfg, seed=0, device="cpu")
+        tree = {"params": p, "opt": adamw.init(oc, p)}
+        return CheckpointStore(str(d)).restore(5, tree)
+
+    try:
+        t0 = time.perf_counter()
+        straight = train.main(args + ["--steps", "4"])
+        again = train.main(args + ["--steps", "4"])
+        t1 = time.perf_counter()
+        dp = train.main(args + ["--steps", "5", "--ckpt", str(ck),
+                                "--ckpt-every", "4", "--data-model", "2",
+                                "1"])
+        t2 = time.perf_counter()
+        # the step-4 checkpoint alone (the run also saved step 5)
+        shutil.copytree(ck / "step_4", ck4 / "step_4")
+        resumed = train.main(args + ["--steps", "6", "--microbatches", "2",
+                                     "--ckpt", str(ck4), "--ckpt-every",
+                                     "1"])
+        want, got = state(ck), state(ck4)
+    finally:
+        for d in (ck, ck4):
+            shutil.rmtree(d, ignore_errors=True)
+    if [s for s, _ in dp] != list(range(5)) or \
+            [s for s, _ in resumed] != [4, 5]:
+        raise AssertionError(f"(e) launcher steps {dp} {resumed}")
+
+    def gaps(run, base):
+        return [abs(a - b) / abs(b) for (_, a), (_, b) in zip(run, base)]
+
+    moments = {}
+    for name in ("m", "v"):
+        w = dict(leaves(getattr(want["opt"], name)))
+        moments[name] = max(
+            float((t - w[k]).norm() / w[k].norm().clamp_min(1e-30))
+            for k, t in leaves(getattr(got["opt"], name)))
+    out = {"straight": straight, "again": again, "data_parallel": dp,
+           "resumed": resumed, "gaps": gaps(dp, straight),
+           "again_gaps": gaps(again, straight),
+           "resumed_step4": gaps(resumed, dp[4:])[0],
+           "moments_rel": moments,
+           "params": _hold_adam(got["params"], want["params"],
+                                float(adamw.schedule(oc, 5)),
+                                TRAIN_FP32_TOL, "(e) step-5 parameters"),
+           "one_rank_s": t1 - t0, "two_ranks_s": t2 - t1}
+    if (max(out["gaps"][:2]) > DP_LAUNCH_REL
+            or out["resumed_step4"] > DP_RESUME_REL
+            or max(moments.values()) > DP_LAUNCH_REL
+            or int(got["opt"].step) != 5
+            or not all(math.isfinite(x) for _, x in dp + resumed)):
+        raise AssertionError(f"(e) launcher off: {out}")
+    return out
+
+
+def serve_train_distributed(torch):
+    """Phase 13: (a)-(d) in one (2, 1) world of ranks on this card
+    (gloo), (b) held against the same step on one rank on the CPU here,
+    then (e) the launcher."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    world = run_ranks(_dp_world, 2, 1, device="cuda")
+    res = {"transport": world["transport"]}
+    fw = [r["full_width"] for r in world["ranks"]]
+    print(f"  (a) {TRAIN_ARCH} bf16 B{TRAIN_BATCH} S{TRAIN_SEQ}, remat full,"
+          f" (2, 1) over {world['transport']}")
+    for key, what in (("whole", "ZeRO-1 off"), ("zero1", "ZeRO-1 on")):
+        r, held = fw[0][key], fw[0]["held"][key]
+        print(f"      {what}: loss {held['loss']:.5f} vs one rank "
+              f"{held['single_loss']:.5f} ({held['loss_rel']:.2e}); master "
+              f"copies: {held['off']} of {held['elements']} elements off "
+              f"{TRAIN_FP32_TOL:g} of scale, worst "
+              f"{held['worst_over_lr']:.3f} lr")
+        print(f"      {what}: peak per rank "
+              f"{[round(f[key]['peak_gb'], 2) for f in fw]} GB (state "
+              f"{[round(f[key]['state_gb'], 2) for f in fw]} GB); step "
+              f"{r['step_s']:.3f} s, gradient sync {r['sync_s']:.3f} s, "
+              f"{r['sync_bytes'] / 1e9:.3f} GB sent a rank; "
+              f"{r['tok_s']:.1f} tok/s")
+    res["full_width"] = fw
+    res["full_width_s"] = world["ranks"][0]["full_width_s"]
+
+    # (b) the same step on one rank on the CPU
+    res["reduced"] = {}
+    for name in DP_REDUCED:
+        cfg, batch = _dp_reduced_case(name)
+        oc = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=30)
+        p = lm.init(cfg, seed=29, device="cuda")
+        _condition(torch, p)
+        p = _nest(_flat(p), "cpu")
+        p, o, m = steps.build_train_step(cfg, oc)(p, adamw.init(oc, p),
+                                                 batch)
+        got = world["reduced"][name]
+        rel = max(abs(got["metrics"][k] - float(m[k]))
+                  / max(abs(float(m[k])), 1e-30)
+                  for k in ("loss", "ce", "z_loss"))
+        held = _hold_adam(_nest(list(got["params"].items()), "cpu"), p,
+                          float(m["lr"]), TRAIN_FP32_TOL, f"(b) {name}")
+        if rel > 1e-4:
+            raise AssertionError(f"(b) {name}: loss {rel:.3e} off the "
+                                 "CPU's one rank")
+        extra = ""
+        if "lb_loss" in m:
+            lb = abs(got["metrics"]["lb_loss"] - float(m["lb_loss"])) \
+                / float(m["lb_loss"])
+            extra = f", lb_loss {lb:.2e}"
+        res["reduced"][name] = {"loss_rel": rel, **held}
+        print(f"  (b) {name} reduced fp32, n_microbatches 2, (2, 1) on the "
+              f"card vs one rank on the CPU: loss {rel:.2e}{extra}; "
+              f"{held['off']} elements off, worst "
+              f"{held['worst_over_lr']:.3f} lr")
+    c = world["ranks"][0]["compressed"]
+    res["compressed"] = [r["compressed"] for r in world["ranks"]]
+    print(f"  (c) compressed_psum {DP_PSUM[0]}x{DP_PSUM[1]} fp32: max err "
+          f"{c['one_step_max_err']:.3e} (two steps "
+          f"{c['two_step_max_err']:.3e}), {c['wall_s']:.3f} s; wire "
+          f"{c['wire_bytes'] / 1e6:.1f} MB vs the fp32 ring's "
+          f"{c['fp32_ring_bytes'] / 1e6:.1f} MB")
+    d = world["ranks"][0]["pipeline"]
+    res["pipeline"] = [r["pipeline"] for r in world["ranks"]]
+    print(f"  (d) pipeline_apply over {{'pipe': 2}}, width {DP_PIPE[3]}, "
+          f"{DP_PIPE[1]} microbatches: max|d| "
+          f"{max(r['pipeline']['max_abs_err'] for r in world['ranks']):.3e}"
+          f" of the sequential composition, {d['wall_s']:.3f} s")
+    t_world = time.perf_counter() - t_phase
+    res["launcher"] = _dp_launcher(torch)
+    e = res["launcher"]
+    print(f"  (e) launch/train.py --reduce width --data-model 2 1 --steps 5"
+          f" --ckpt ({e['two_ranks_s']:.1f} s; 1 1 twice: "
+          f"{e['one_rank_s']:.1f} s): losses off 1 1's by "
+          f"{['%.1e' % x for x in e['gaps']]} (steps 0-1 held at "
+          f"{DP_LAUNCH_REL:g}; 1 1 again off 1 1 by "
+          f"{['%.1e' % x for x in e['again_gaps']]})")
+    p = e["params"]
+    print(f"      1 1 --microbatches 2 resumed from its step-4 checkpoint: "
+          f"step 4's loss off by {e['resumed_step4']:.1e} (limit "
+          f"{DP_RESUME_REL:g}); the step-5 state against the (2, 1) run's:"
+          f" m, v {e['moments_rel']['m']:.1e}, {e['moments_rel']['v']:.1e}"
+          f" of a leaf's norm (limit {DP_LAUNCH_REL:g}), parameters "
+          f"{p['off']} of {p['elements']} elements off, worst "
+          f"{p['worst_over_lr']:.3f} lr")
+    res["world_s"] = t_world
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _nest(pairs, device):
+    """A parameter tree from ("a/b/c", tensor) pairs, on ``device``."""
+    out = {}
+    for key, t in pairs:
+        node = out
+        path = key.split("/")
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _as_tensor(t, device)
+    return out
+
+
+def _as_tensor(t, device):
+    import torch
+
+    return torch.as_tensor(t, device=device)
+
+
+@contextlib.contextmanager
+def _phase(walls, name):
+    """Print a phase's name, run it, print its wall on a line of its own
+    and keep it in ``walls``."""
+    print(f"phase {name}")
+    t0 = time.perf_counter()
+    yield
+    walls[name] = time.perf_counter() - t0
+    print(f"phase {name.split()[0]} wall: {walls[name]:.1f} s")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -8472,11 +8984,15 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    secs = build.timed_build(ptxas_verbose=True, log_dir=OUT)
-    print(f"build: {secs:.1f} s ({', '.join(build.SOURCES)})")
+    walls = {}
+    phase = functools.partial(_phase, walls)
+    with phase("1 build"):
+        secs = build.timed_build(ptxas_verbose=True, log_dir=OUT)
+        print(f"build: {secs:.1f} s ({', '.join(build.SOURCES)})")
 
-    results = check_kernels(torch, F)
-    two_streams = check_two_streams(torch)
+    with phase("2 kernels"):
+        results = check_kernels(torch, F)
+        two_streams = check_two_streams(torch)
 
     print("end to end")
     per_step = {  # launches per layer: prefill, decode step
@@ -8500,64 +9016,77 @@ def main() -> int:
                 "vwr_flash_decode.split": cfg_layers * (gen - 1),
                 "vwr_flash_decode.fma": 0}
 
-    fp32 = {n: serve_reduced_fp32(torch, n)
-            for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
-    tiny = serve(torch, "tinyllama-1.1b", 32, expected(22, 32),
-                 variants(22, 32), kernel9=True)
-    qwen = serve(torch, "qwen1.5-0.5b", 8, expected(24, 8), variants(24, 8))
+    with phase("3 tinyllama-1.1b generate"):
+        fp32 = {n: serve_reduced_fp32(torch, n)
+                for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
+        tiny = serve(torch, "tinyllama-1.1b", 32, expected(22, 32),
+                     variants(22, 32), kernel9=True)
+    with phase("4 qwen1.5-0.5b generate"):
+        qwen = serve(torch, "qwen1.5-0.5b", 8, expected(24, 8),
+                     variants(24, 8))
 
-    print("continuous batching")
-    sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
-                  for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
-    sched_bf16, params = serve_scheduler(torch, "bf16")
-    sched_int8, _ = serve_scheduler(torch, "int8", params=params)
+    with phase("5 continuous batching"):
+        sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
+                      for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
+        sched_bf16, params = serve_scheduler(torch, "bf16")
+        sched_int8, _ = serve_scheduler(torch, "int8", params=params)
 
-    print("prefix cache and chunked prefill")
-    pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
-               for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
-    rows = chunk_rows(torch, params)
-    chunk_logits = chunked_prefill_logits(torch, params)
-    pc_engines = _pc_engines(torch, params)
-    pc_streams = serve_prefix_chunked(torch, pc_engines)
+    with phase("6 prefix cache and chunked prefill"):
+        pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
+                   for n in ("tinyllama-1.1b", "qwen1.5-0.5b")}
+        rows = chunk_rows(torch, params)
+        chunk_logits = chunked_prefill_logits(torch, params)
+        pc_engines = _pc_engines(torch, params)
+        pc_streams = serve_prefix_chunked(torch, pc_engines)
 
-    print("durable serving: snapshots, the request journal, recovery")
-    recovery = serve_recovery(torch, pc_engines)
-    del pc_engines, params
-    torch.cuda.empty_cache()
+    with phase("6b durable serving: snapshots, the request journal, "
+               "recovery"):
+        recovery = serve_recovery(torch, pc_engines)
+        del pc_engines, params
+        torch.cuda.empty_cache()
 
-    print("the frontend families: internvl2-2b (vlm), seamless-m4t (audio)")
-    front_fp32 = {n: serve_reduced_fp32(torch, n) for n in (VLM, AUDIO)}
-    front = serve_frontends(torch)
+    with phase("6c the frontend families: internvl2-2b (vlm), seamless-m4t "
+               "(audio)"):
+        front_fp32 = {n: serve_reduced_fp32(torch, n) for n in (VLM, AUDIO)}
+        front = serve_frontends(torch)
 
-    print("the recurrent families: zamba2-1.2b (hybrid), xlstm-350m (ssm)")
-    recurrent = serve_recurrent(torch, expected, variants)
+    with phase("6d the recurrent families: zamba2-1.2b (hybrid), xlstm-350m "
+               "(ssm)"):
+        recurrent = serve_recurrent(torch, expected, variants)
 
-    print("the moe family: DeepSeek-V3 (MLA) and OLMoE (GQA)")
-    moe_fp32 = {n: serve_reduced_fp32(torch, n)
-                for n in (DEEPSEEK, "olmoe-1b-7b")}
-    moe_sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
-                      for n in (DEEPSEEK, "olmoe-1b-7b")}
-    print("prefix cache and chunked prefill of the MLA and moe families")
-    mla_pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
-                   for n in (DEEPSEEK, "olmoe-1b-7b")}
-    dense_mla = _dense_mla()
-    mla_pc_fp32[dense_mla.name] = scheduler_reduced_prefix_chunked(
-        torch, None, cfg=dense_mla)
-    deepseek = serve_deepseek(torch)
-    pc = deepseek["prefix_chunked"]
+    with phase("7-8 the moe family: DeepSeek-V3 (MLA) and OLMoE (GQA), "
+               "their prefix cache and chunked prefill"):
+        moe_fp32 = {n: serve_reduced_fp32(torch, n)
+                    for n in (DEEPSEEK, "olmoe-1b-7b")}
+        moe_sched_fp32 = {n: scheduler_reduced_fp32(torch, n)
+                          for n in (DEEPSEEK, "olmoe-1b-7b")}
+        mla_pc_fp32 = {n: scheduler_reduced_prefix_chunked(torch, n)
+                       for n in (DEEPSEEK, "olmoe-1b-7b")}
+        dense_mla = _dense_mla()
+        mla_pc_fp32[dense_mla.name] = scheduler_reduced_prefix_chunked(
+            torch, None, cfg=dense_mla)
+        deepseek = serve_deepseek(torch)
+        pc = deepseek["prefix_chunked"]
 
-    print("the paper's CNN path: provet_cnn suite on kernels 16 and 17")
-    cnn = serve_cnn(torch)
+    with phase("9 the paper's CNN path: provet_cnn suite on kernels 16 and "
+               "17"):
+        cnn = serve_cnn(torch)
 
-    print("training: the 'torch' backend (the kernels are forward-only)")
-    training = serve_training(torch)
+    with phase("10 training: the 'torch' backend (the kernels are "
+               "forward-only)"):
+        training = serve_training(torch)
 
-    print("the serving surfaces: launch/serve.py, 'auto', the autotuner")
-    surfaces = serve_surfaces(torch)
+    with phase("11 the serving surfaces: launch/serve.py, 'auto', the "
+               "autotuner"):
+        surfaces = serve_surfaces(torch)
 
-    print("distributed serving: ranks on this card, the KV cache "
-          "sequence-sharded")
-    distributed = serve_distributed(torch)
+    with phase("12 distributed serving: ranks on this card, the KV cache "
+               "sequence-sharded"):
+        distributed = serve_distributed(torch)
+
+    with phase("13 distributed training: a (2, 1) world on this card, "
+               "ZeRO-1"):
+        train_dist = serve_train_distributed(torch)
     launches = {**tiny["launches"],
                 "vwr_paged_flash_decode":
                     sched_bf16["launches"]["vwr_paged_flash_decode"],
@@ -8646,6 +9175,7 @@ def main() -> int:
               "mla_moe_prefix_chunked_reduced_fp32": mla_pc_fp32,
               "deepseek": deepseek, "cnn": cnn, "training": training,
               "surfaces": surfaces, "distributed": distributed,
+              "train_distributed": train_dist, "phase_walls_s": walls,
               "wall_s": time.perf_counter() - t_start}
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"wall {detail['wall_s']:.1f} s")

@@ -14,8 +14,13 @@ in the widest, fewest transactions.
                per-rank unnormalized softmax partials, one small
                (B, H)-sized combine across ranks instead of moving the
                cache
+  compression  int8 all-reduce with error feedback (``compressed_psum``)
+  pipeline     the GPipe microbatch schedule over a 'pipe' axis
+               (``pipeline_apply``)
 
-The training half (``pipeline``, ``compression``) is ROADMAP queue 1
-item 14.
+Data-parallel training with ZeRO-1 is ``launch.steps.build_train_step(
+..., mesh=)`` over ``optim.adamw``'s sharded state.  Still left (ROADMAP
+queue 1 item 14): the tensor-parallel layers (a 'model' axis > 1, with
+``common/hints.py``) and expert parallelism (``MoEConfig(ep="full_ep")``).
 """
-from repro_torch.dist import decode, sharding  # noqa: F401
+from repro_torch.dist import compression, decode, pipeline, sharding  # noqa: F401

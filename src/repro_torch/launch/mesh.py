@@ -12,13 +12,23 @@ groups and the device.
 
     mesh = make_local_mesh(1, 2)           # inside a world of 2 ranks
     run_ranks(fn, 1, 2, device="cuda")     # spawns that world, fn(mesh)
+    pipe = make_mesh({"pipe": 2})          # the same ranks, other axes
+
+``make_mesh`` is the counterpart of ``jax.make_mesh``: any axis names,
+row-major over the world's ranks; ``make_local_mesh(data, model)`` is
+its ``(data, model)`` case.
 
 Transport: ranks that share a GPU cannot use NCCL (it refuses two ranks
-on one device), so they use ``gloo``, whose all-reduce, all-gather and
-broadcast take CUDA tensors by staging them through the host; ranks
-with a GPU each use ``nccl``.  ``transport`` picks by the world size
-against ``torch.cuda.device_count()``; the tensors and the kernels stay
-on the card either way.  A mesh's ``repr`` names its transport.
+on one device), so they use ``gloo``, whose all-reduce, reduce-scatter,
+all-gather and broadcast take CUDA tensors by staging them through the
+host; ranks with a GPU each use ``nccl``.  ``transport`` picks by the
+world size against ``torch.cuda.device_count()``; the tensors and the
+kernels stay on the card either way.  A mesh's ``repr`` names its
+transport.  gloo's point-to-point send and receive do not take CUDA
+tensors (they hand the device pointer to the socket), so
+``Mesh.exchange`` copies through the host itself when the transport is
+gloo and the tensors are on a card (``_host_staged``, decided by the
+transport alone).
 
 ``make_local_mesh`` raises unless the world has exactly ``data * model``
 ranks, where the JAX function silently falls back to ``(n, 1)``: a
@@ -29,11 +39,12 @@ from __future__ import annotations
 
 import datetime
 import math
+import pickle
 import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -43,19 +54,22 @@ DEFAULT_TIMEOUT_S = 120.0
 
 
 class Mesh:
-    """A (data, model) mesh of ranks, or an abstract one (no groups).
+    """A mesh of ranks, or an abstract one (no groups).
 
     ``shape`` is an ordered {axis: size} dict, as ``jax.sharding.Mesh.
     shape`` is; ``coords`` this rank's index on each axis; ``groups`` one
     process group per axis of more than one rank (the ranks that differ
-    only on that axis)."""
+    only on that axis) and ``peers`` the world ranks of that group in
+    coordinate order."""
 
     def __init__(self, shape: Dict[str, int], coords=None, groups=None,
-                 device=None, transport: Optional[str] = None):
+                 device=None, transport: Optional[str] = None,
+                 peers=None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.coords = dict(coords or {})
         self.groups = dict(groups or {})
+        self.peers = dict(peers or {})
         self.device = device
         self.transport = transport
 
@@ -74,7 +88,8 @@ class Mesh:
         blocks that are whole along ``axis`` (replicated over it)."""
         return Mesh({**self.shape, axis: 1}, {**self.coords, axis: 0},
                     {a: g for a, g in self.groups.items() if a != axis},
-                    self.device, self.transport)
+                    self.device, self.transport,
+                    {a: r for a, r in self.peers.items() if a != axis})
 
     def __repr__(self):
         where = ("abstract" if not self.coords else
@@ -106,6 +121,46 @@ class Mesh:
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=self.groups[axis])
         return torch.cat(parts, dim)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int = 0
+                       ) -> torch.Tensor:
+        """``t`` summed over ``axis``, and of the sum this rank's block
+        along ``dim`` (``t.shape[dim]`` split evenly, in coordinate
+        order), as a tensor of its own.  gloo and nccl both take CUDA
+        tensors for it (gloo staging them through the host)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        parts = [p.contiguous() for p in t.chunk(n, dim)]
+        out = torch.empty_like(parts[self.coord(axis)])
+        dist.reduce_scatter(out, parts, group=self.groups[axis])
+        return out
+
+    def exchange(self, axis: str, send: Optional[torch.Tensor] = None,
+                 to: Optional[int] = None,
+                 recv: Optional[torch.Tensor] = None,
+                 frm: Optional[int] = None) -> Optional[torch.Tensor]:
+        """Send ``send`` to coordinate ``to`` of ``axis`` and receive into
+        ``recv`` from coordinate ``frm``, in one batch of point-to-point
+        operations (every rank of the axis posts its pair together, so
+        no order of ranks deadlocks); either half may be left out.
+        Returns ``recv``."""
+        staged = _host_staged(self)
+        ops = []
+        if send is not None:
+            buf = send.cpu() if staged else send.contiguous()
+            ops.append(dist.P2POp(dist.isend, buf, self.peers[axis][to],
+                                  self.groups[axis]))
+        if recv is not None:
+            rbuf = torch.empty_like(recv, device="cpu") if staged else recv
+            ops.append(dist.P2POp(dist.irecv, rbuf, self.peers[axis][frm],
+                                  self.groups[axis]))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        if recv is not None and staged:
+            recv.copy_(rbuf)
+        return recv
 
     def gather_objects(self, obj) -> list:
         """``obj`` of every rank of the whole mesh, in rank order (host
@@ -143,45 +198,71 @@ def _rank_device(device, rank: int) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
+def _host_staged(mesh) -> bool:
+    """True when ``mesh``'s point-to-point operations would hand CUDA
+    tensors to gloo, whose send / receive take host memory only: the one
+    place ``Mesh.exchange`` decides by its transport to copy through the
+    host."""
+    return (mesh.transport == "gloo" and mesh.device is not None
+            and mesh.device.type == "cuda")
+
+
+def make_mesh(shape: Dict[str, int], *, device="cuda",
+              timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """The mesh of this process's ``torch.distributed`` world with axes
+    ``shape`` (an ordered {name: size} dict; the counterpart of
+    ``jax.make_mesh``): rank r sits at r unravelled row-major over the
+    sizes.  Needs an initialized world of exactly ``prod(sizes)`` ranks
+    (a single process without a world is the one-rank mesh) and raises
+    otherwise.  Every rank must call it, in the same order as its other
+    group creations: each axis group is created collectively, and a
+    collective on it that waits longer than ``timeout_s`` for its peers
+    raises.  One world can build several meshes (a ``{"data": 2}`` and a
+    ``{"pipe": 2}`` over the same two ranks)."""
+    shape = {a: int(n) for a, n in shape.items()}
+    n = math.prod(shape.values())
+    what = f"a mesh of {shape}"
+    if not dist.is_initialized():
+        if n == 1:
+            return Mesh(shape, {a: 0 for a in shape},
+                        device=_rank_device(device, 0))
+        raise RuntimeError(
+            f"{what} needs a torch.distributed world of {n} ranks, and "
+            "none is initialized: start the ranks with "
+            "launch.mesh.run_ranks")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != n:
+        raise ValueError(f"{what} needs a world of {n} ranks, this one "
+                         f"has {world}")
+    axes = list(shape)
+    strides = {a: math.prod(shape[b] for b in axes[i + 1:])
+               for i, a in enumerate(axes)}
+    coords = {a: (rank // strides[a]) % shape[a] for a in axes}
+    groups, peers = {}, {}
+    timeout = datetime.timedelta(seconds=timeout_s)
+    # every rank creates every group of every axis, in one order
+    for a in axes:
+        if shape[a] == 1:
+            continue
+        for base in range(n):
+            if (base // strides[a]) % shape[a]:
+                continue            # not the first rank of its group
+            ranks = [base + i * strides[a] for i in range(shape[a])]
+            g = dist.new_group(ranks, timeout=timeout)
+            if rank in ranks:
+                groups[a], peers[a] = g, ranks
+    return Mesh(shape, coords, groups, device=_rank_device(device, rank),
+                transport=dist.get_backend(), peers=peers)
+
+
 def make_local_mesh(data: int = 1, model: int = 1, *, device="cuda",
                     timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
     """The (data, model) mesh of this process's ``torch.distributed``
-    world: rank r sits at (r // model, r % model).  Needs an initialized
-    world of exactly ``data * model`` ranks (a single process without a
-    world is the (1, 1) mesh) and raises otherwise.  Every rank must call
-    it, in the same order as its other group creations: each axis group
-    is created collectively, and a collective on it that waits longer
-    than ``timeout_s`` for its peers raises."""
-    n = data * model
-    if not dist.is_initialized():
-        if n == 1:
-            return Mesh({"data": 1, "model": 1}, {"data": 0, "model": 0},
-                        device=_rank_device(device, 0))
-        raise RuntimeError(
-            f"make_local_mesh({data}, {model}) needs a torch.distributed "
-            f"world of {n} ranks, and none is initialized: start the "
-            "ranks with launch.mesh.run_ranks")
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if world != n:
-        raise ValueError(f"make_local_mesh({data}, {model}) needs a world "
-                         f"of {n} ranks, this one has {world}")
-    d, m = divmod(rank, model)
-    groups = {}
-    timeout = datetime.timedelta(seconds=timeout_s)
-    # every rank creates every group, in one order
-    for dd in range(data):
-        g = dist.new_group([dd * model + mm for mm in range(model)],
-                           timeout=timeout)
-        if dd == d and model > 1:
-            groups["model"] = g
-    for mm in range(model):
-        g = dist.new_group([dd * model + mm for dd in range(data)],
-                           timeout=timeout)
-        if mm == m and data > 1:
-            groups["data"] = g
-    return Mesh({"data": data, "model": model}, {"data": d, "model": m},
-                groups, device=_rank_device(device, rank),
-                transport=dist.get_backend())
+    world: rank r sits at (r // model, r % model) (``make_mesh``'s
+    ``{"data": data, "model": model}``); raises unless the world has
+    exactly ``data * model`` ranks."""
+    return make_mesh({"data": data, "model": model}, device=device,
+                     timeout_s=timeout_s)
 
 
 # ----------------------------------------------------------------------
@@ -203,13 +284,15 @@ def _rank_main(rank, world, port, shape, device, backend, timeout_s,
             backend, init_method=f"tcp://localhost:{port}",
             world_size=world, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
-        mesh = make_local_mesh(*shape, device=device, timeout_s=timeout_s)
+        mesh = make_mesh(shape, device=device, timeout_s=timeout_s)
         if mesh.device.type == "cuda":
             torch.cuda.set_device(mesh.device)
         out = fn(mesh, *args)
         # no rank leaves while another may still be in a collective
         dist.barrier()
-        results.put((rank, "ok", out if rank == 0 else None))
+        # by value (the plain pickler), not torch's shared-memory handles,
+        # which die with this process before the parent may read them
+        results.put((rank, "ok", pickle.dumps(out) if rank == 0 else None))
     except BaseException:                              # noqa: BLE001
         # the process boundary: report the traceback to the parent, which
         # raises it, before the group closes under the other ranks; then
@@ -221,25 +304,29 @@ def _rank_main(rank, world, port, shape, device, backend, timeout_s,
             dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, data: int = 1, model: int = 1, *,
-              args: Sequence[Any] = (), device="cuda",
+def run_ranks(fn: Callable, data: Union[int, Dict[str, int]] = 1,
+              model: int = 1, *, args: Sequence[Any] = (), device="cuda",
               timeout_s: float = DEFAULT_TIMEOUT_S,
               threads: Optional[int] = None) -> Any:
     """Spawn a world of ``data * model`` ranks on ``device``, run
-    ``fn(mesh, *args)`` on each, and return rank 0's result.
+    ``fn(mesh, *args)`` on each, and return rank 0's result.  ``data``
+    may be a shape dict instead (``run_ranks(fn, {"pipe": 2})``), whose
+    ``make_mesh`` each rank then gets.
 
     ``fn`` and ``args`` go to the ranks by pickle (``fn`` by import path)
-    and rank 0's result comes back the same way, so it must be a host
-    object.  The ranks talk over ``transport(world, device)``;
-    ``threads`` sets each rank's ``torch.set_num_threads`` (on the CPU by
-    default this process's threads over the ranks).  A rank that
+    and rank 0's result comes back pickled by value (its tensors copied,
+    so they outlive the rank).  The ranks talk over ``transport(world,
+    device)``; ``threads`` sets each rank's ``torch.set_num_threads`` (on
+    the CPU by default this process's threads over the ranks).  A rank that
     raises fails the run with its traceback; a collective that never
     completes raises in its ranks after ``timeout_s`` (the groups'
     timeout), and a world that has not finished by then plus a margin is
     terminated and raises ``TimeoutError``."""
     import torch.multiprocessing as mp
 
-    world = data * model
+    shape = (dict(data) if isinstance(data, dict)
+             else {"data": data, "model": model})
+    world = math.prod(shape.values())
     backend = transport(world, device)
     if threads is None and torch.device(device).type == "cpu":
         # ranks on the CPU share its cores
@@ -248,7 +335,7 @@ def run_ranks(fn: Callable, data: int = 1, model: int = 1, *,
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, port, (data, model), str(device),
+                         args=(r, world, port, shape, str(device),
                                backend, timeout_s, threads, fn, tuple(args),
                                results))
              for r in range(world)]
@@ -272,7 +359,7 @@ def run_ranks(fn: Callable, data: int = 1, model: int = 1, *,
                                  f"{procs[dead[0]].exitcode}")
                 elif time.monotonic() > deadline:
                     raise TimeoutError(
-                        f"the {data}x{model} world did not finish within "
+                        f"the {shape} world did not finish within "
                         f"{2 * timeout_s + 60:.0f} s")
                 continue
             if status == "error":
@@ -285,7 +372,7 @@ def run_ranks(fn: Callable, data: int = 1, model: int = 1, *,
                     if status == "error":
                         error += f"\nrank {rank} raised:\n{out}"
             else:
-                done[rank] = out
+                done[rank] = out if out is None else pickle.loads(out)
     finally:
         for p in procs:
             p.join(timeout=10 if error is None else 1)
@@ -295,7 +382,6 @@ def run_ranks(fn: Callable, data: int = 1, model: int = 1, *,
                 p.join(timeout=10)
         results.close()
     if error is not None:
-        raise RuntimeError(f"run_ranks({fn.__name__}, {data}, {model}): "
-                           f"{error}")
+        raise RuntimeError(f"run_ranks({fn.__name__}, {shape}): {error}")
     return done[0]
 

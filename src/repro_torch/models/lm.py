@@ -398,11 +398,13 @@ def _dense_body(cfg, positions, x, lp, *, causal=True):
 
 
 def _moe_body(cfg, positions, x, lp):
-    """Returns (x, (k, v), the MoE FFN's aux losses)."""
+    """Returns (x, (k, v), the MoE FFN's aux losses and its load
+    statistics ``me`` / ``ce``)."""
     x, kv = _attn_delta(cfg, lp["attn"], _norm(cfg, lp["attn_norm"], x),
                         positions, residual=x)
-    y, aux = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x), cfg)
-    return x + y, kv, aux
+    y, aux, (me, ce) = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x),
+                                   cfg, stats=True)
+    return x + y, kv, {**aux, "me": me, "ce": ce}
 
 
 def _xattn_body(cfg, positions, enc, enc_valid, x, lp):
@@ -520,6 +522,9 @@ class ForwardOut(NamedTuple):
     h: torch.Tensor          # (B, S, D) final hidden (post-norm)
     aux: Dict[str, torch.Tensor]   # scalar aux metrics (moe losses)
     caches: Any              # KV stacks (see ``backbone``) or None
+    # moe family: (me, ce), each (L_moe, E), the per-layer means that
+    # ``lb_loss`` multiplies (``moe.moe_ffn(stats=True)``)
+    moe_stats: Any = None
 
 
 def backbone(params, tokens, cfg, *, frontend_emb=None,
@@ -585,15 +590,17 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
         return x, kv
 
     x, caches = _run_groups(cfg, params, x, layer, collect_cache)
-    aux = {}
+    aux, stats = {}, None
     if moe_aux:
         # the JAX package's means over the scanned MoE layers' aux
         for name, key in (("lb_loss", "lb_loss"),
                           ("z_loss_router", "z_loss"),
                           ("drop_frac", "drop_frac")):
             aux[name] = torch.stack([a[key] for a in moe_aux]).mean()
+        stats = tuple(torch.stack([a[k] for a in moe_aux])
+                      for k in ("me", "ce"))
     return ForwardOut(h=_norm(cfg, params["final_norm"], x), aux=aux,
-                      caches=caches)
+                      caches=caches, moe_stats=stats)
 
 
 def _logits(params, h, cfg):
@@ -611,13 +618,13 @@ def _logits(params, h, cfg):
 # loss
 # ======================================================================
 
-def ce_loss(params, h, labels, mask, cfg):
+def ce_sums(params, h, labels, mask, cfg):
     """Cross-entropy over (B, S, D) hiddens, in chunks of
     ``cfg.logits_chunk`` positions (0: the whole sequence; a ragged tail
     is padded with masked positions).  The label logit is picked by a
-    masked sum over the vocab, as in the JAX package.  Returns (loss,
-    {"z_loss"}), both sums over the masked positions divided by their
-    count (at least 1)."""
+    masked sum over the vocab, as in the JAX package.  Returns the sums
+    over the masked positions of the loss and of the squared log-sum-exp
+    (the z-loss), not yet divided by the mask count."""
     B, S, _ = h.shape
     C = min(cfg.logits_chunk or S, S)
     pad = (-S) % C
@@ -636,21 +643,29 @@ def ce_loss(params, h, labels, mask, cfg):
         return ((lz - ll) * mc).sum(), ((lz * lz) * mc).sum()
 
     if nchunk == 1:
-        loss_sum, z_sum = one_chunk(h, labels, mask)
-    else:
-        loss_sum = z_sum = torch.zeros((), device=h.device)
-        for i in range(nchunk):
-            sl = slice(i * C, (i + 1) * C)
-            a, b = one_chunk(h[:, sl], labels[:, sl], mask[:, sl])
-            loss_sum, z_sum = loss_sum + a, z_sum + b
+        return one_chunk(h, labels, mask)
+    loss_sum = z_sum = torch.zeros((), device=h.device)
+    for i in range(nchunk):
+        sl = slice(i * C, (i + 1) * C)
+        a, b = one_chunk(h[:, sl], labels[:, sl], mask[:, sl])
+        loss_sum, z_sum = loss_sum + a, z_sum + b
+    return loss_sum, z_sum
+
+
+def ce_loss(params, h, labels, mask, cfg):
+    """``ce_sums`` divided by the mask count (at least 1): (loss,
+    {"z_loss"})."""
+    loss_sum, z_sum = ce_sums(params, h, labels, mask, cfg)
     denom = torch.clamp(mask.sum(), min=1.0)
     return loss_sum / denom, {"z_loss": z_sum / denom}
 
 
-def train_loss(params, batch, cfg):
-    """batch: ``tokens`` (B, S), ``labels`` (B, S), ``loss_mask`` (B, S)
-    [+ ``frontend_emb``], numpy arrays or tensors.  Returns (loss,
-    metrics {"ce", "z_loss", moe aux..., "loss"}).  Training runs on a
+def train_parts(params, batch, cfg):
+    """The pieces of ``train_loss`` before any normalisation: a dict of
+    ``ce_sum`` / ``z_sum`` (``ce_sums``), ``mask`` (the loss mask on the
+    device), ``aux`` (``backbone``'s) and ``moe_stats`` (``ForwardOut``).
+    A data-parallel step (``launch.steps``) divides them by the global
+    batch's counts instead of this batch's.  Training runs on a
     differentiable backend only (``dispatch.training_backend``: a
     'cuda' pin raises)."""
     cfg = cfg.replace(kernel_impl=D.training_backend(cfg))
@@ -664,12 +679,25 @@ def train_loss(params, batch, cfg):
         # the hidden sequence is the frontend prefix + the text: the loss
         # is taken on the text part only
         h = h[:, batch["frontend_emb"].shape[1]:]
-    loss, lmx = ce_loss(params, h, labels, mask, cfg)
-    metrics = {"ce": loss, **lmx, **out.aux}
-    total = loss + cfg.z_loss_coef * lmx["z_loss"]
-    if "lb_loss" in out.aux:
-        total = (total + cfg.lb_coef * out.aux["lb_loss"]
-                 + cfg.router_z_coef * out.aux["z_loss_router"])
+    ce_sum, z_sum = ce_sums(params, h, labels, mask, cfg)
+    return {"ce_sum": ce_sum, "z_sum": z_sum, "mask": mask,
+            "aux": out.aux, "moe_stats": out.moe_stats}
+
+
+def train_loss(params, batch, cfg):
+    """batch: ``tokens`` (B, S), ``labels`` (B, S), ``loss_mask`` (B, S)
+    [+ ``frontend_emb``], numpy arrays or tensors.  Returns (loss,
+    metrics {"ce", "z_loss", moe aux..., "loss"}): the parts of
+    ``train_parts`` divided by this batch's mask count."""
+    parts = train_parts(params, batch, cfg)
+    denom = torch.clamp(parts["mask"].sum(), min=1.0)
+    loss, z_loss = parts["ce_sum"] / denom, parts["z_sum"] / denom
+    aux = parts["aux"]
+    metrics = {"ce": loss, "z_loss": z_loss, **aux}
+    total = loss + cfg.z_loss_coef * z_loss
+    if "lb_loss" in aux:
+        total = (total + cfg.lb_coef * aux["lb_loss"]
+                 + cfg.router_z_coef * aux["z_loss_router"])
     metrics["loss"] = total
     return total, metrics
 

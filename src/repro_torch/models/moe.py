@@ -18,7 +18,7 @@ neighbours exactly as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -106,10 +106,14 @@ def _positions_sort(idx_flat, n_experts):
 
 # ---------------- dispatch / combine ----------------
 
-def moe_ffn(p, x, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def moe_ffn(p, x, cfg, stats: bool = False):
     """x: (G, S, D) grouped tokens.  Returns (y (G, S, D), aux) with aux
     'lb_loss' (load balance), 'z_loss' (router logit magnitude) and
-    'drop_frac' (share of assignments dropped by capacity)."""
+    'drop_frac' (share of assignments dropped by capacity).  With
+    ``stats`` also the two means ``lb_loss`` is the product of, each
+    (E,) over the G * S tokens: the router probability (with its
+    gradient) and the assignment count (none): a data-parallel step
+    (``launch.steps``) sums them over the ranks before the product."""
     m = cfg.moe
     if m.ep == "full_ep":
         raise NotImplementedError(_FULL_EP)
@@ -164,4 +168,6 @@ def moe_ffn(p, x, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     aux = {"lb_loss": E * torch.sum(me * ce) / K,
            "z_loss": torch.logsumexp(logits, -1).square().mean(),
            "drop_frac": 1.0 - keep.float().mean()}
+    if stats:
+        return y, aux, (me, ce)
     return y, aux

@@ -59,6 +59,8 @@ def test_import_leaves_jax_out():
             "import repro_torch.kernels.autotune\n"
             "import repro_torch.launch.roofline\n"
             "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.train\n"
+            "import repro_torch.dist.compression, repro_torch.dist.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

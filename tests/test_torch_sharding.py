@@ -6,8 +6,10 @@ meshes, both sides given a duck-typed mesh (``axis_names``, ``shape``):
 with sequence sharding on and off, ``paged_cache_pspecs`` quantized and
 not, and the batch pspecs.  ``local_block`` cuts blocks that tile the
 whole tensor, which ``gather_block`` puts back together
-(``test_torch_dist_decode.py`` runs that inverse over ranks).  No ranks
-here."""
+(``test_torch_dist_decode.py`` runs that inverse over ranks).  The
+ZeRO-1 specs (``optim.adamw.zero1_pspecs`` / ``opt_state_pspecs``) equal
+JAX's over every family, strategy and mesh, and on the cases of JAX's
+``test_zero1_pspecs_shard_replicated_dims``.  No ranks here."""
 import types
 
 import numpy as np
@@ -18,6 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.dist import sharding as TSH  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_production_mesh  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
 
 FAMILIES = ("tinyllama-1.1b", "qwen1.5-0.5b", "deepseek-v3-671b",
             "olmoe-1b-7b", "internvl2-2b", "seamless-m4t-large-v2",
@@ -93,6 +97,56 @@ def test_spec_trees_equal_jax(name, mesh):
                                          in shapes.items()}),
           JSH.train_batch_pspecs(jc, m, {k: np.zeros(s) for k, s
                                          in shapes.items()}))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", FAMILIES)
+def test_zero1_spec_trees_equal_jax(name, mesh):
+    """``zero1_pspecs`` over each strategy's parameter specs, and
+    ``opt_state_pspecs`` with ZeRO-1 on and off, in fp32 and bf16 (the
+    master copies' subtree), leaf by leaf equal to JAX's."""
+    from repro.dist import sharding as JSH
+    from repro.models import lm as jlm
+    from repro.optim import adamw as jadamw
+
+    jc, tc = _cfgs(name)
+    m = _mesh(MESHES[mesh])
+    for dtype in ("float32", "bfloat16"):
+        jcd, tcd = jc.replace(dtype=dtype), tc.replace(dtype=dtype)
+        javals, tavals = jlm.abstract_init(jcd), tlm.model_spec(tcd)
+        for strategy in ("fsdp_tp", "ddp", "serve"):
+            tps = TSH.param_pspecs(tcd, m, strategy)
+            jps = JSH.param_pspecs(jcd, m, strategy)
+            assert _same(tadamw.zero1_pspecs(tps, tavals, m),
+                         jadamw.zero1_pspecs(jps, javals, m)) > 0
+            for zero1 in (True, False):
+                _same(tadamw.opt_state_pspecs(
+                    tadamw.OptConfig(), tps, tavals, m, zero1=zero1),
+                    jadamw.opt_state_pspecs(
+                    jadamw.OptConfig(), jps, javals, m, zero1=zero1))
+
+
+def test_zero1_pspecs_jax_cases():
+    """JAX's ``test_zero1_pspecs_shard_replicated_dims`` on the port, and
+    the port's whole parameters (``adamw.replicated``) on (4, 2)."""
+    from jax.sharding import PartitionSpec as JPS
+    from repro.optim import adamw as jadamw
+
+    m = _mesh({"data": 4, "model": 2})
+    avals = {"w": types.SimpleNamespace(shape=(64, 32)),
+             "b": types.SimpleNamespace(shape=(64,))}
+    z = tadamw.zero1_pspecs({"w": TSH.PS(None, "model"),
+                             "b": TSH.PS(None)}, avals, m)
+    assert z["w"] == TSH.PS("data", "model") and z["b"] == TSH.PS("data")
+    jz = jadamw.zero1_pspecs({"w": JPS(None, "model"), "b": JPS(None)},
+                             avals, m)
+    _same(z, jz)
+    # a whole (64, 32) leaf: the larger dim; a (3,) one: no dim divides
+    rep = {"w": torch.zeros(64, 32), "b": torch.zeros(3)}
+    z = tadamw.zero1_pspecs(tadamw.replicated(rep), rep, m)
+    assert z == {"w": TSH.PS("data", None), "b": TSH.PS(None)}
+    assert tadamw.block_shape((64, 32), z["w"],
+                              Mesh(m.shape, {"data": 1})) == (16, 32)
 
 
 def test_rules_and_axes_equal_jax():

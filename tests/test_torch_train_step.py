@@ -292,11 +292,21 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refusals():
-    """A mesh is distributed training (item 14); a recurrent sequence off
-    the chunk raises, as the JAX launcher asserts."""
+    """``--data-model 2 1`` trains over two gloo ranks and logs ``1 1``'s
+    losses (1e-5 relative); a 'model' axis (tensor-parallel layers) is
+    item 14; a recurrent sequence off the chunk raises, as the JAX
+    launcher asserts."""
+    args = ["--arch", "tinyllama-1.1b", "--reduce", "smoke", "--device",
+            "cpu", "--batch", "4", "--seq", "32", "--steps", "3",
+            "--log-every", "1"]
+    one = train.main(args)
+    two = train.main(args + ["--data-model", "2", "1"])
+    assert [s for s, _ in two] == [s for s, _ in one] == [0, 1, 2]
+    for (_, a), (_, b) in zip(two, one):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
     with pytest.raises(NotImplementedError, match="item 14"):
         train.main(["--arch", "tinyllama-1.1b", "--reduce", "smoke",
-                    "--device", "cpu", "--data-model", "2", "1"])
+                    "--device", "cpu", "--data-model", "1", "2"])
     with pytest.raises(ValueError, match="chunk"):
         train.main(["--arch", "zamba2-1.2b", "--reduce", "smoke",
                     "--device", "cpu", "--seq", "24"])
