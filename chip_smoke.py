@@ -175,8 +175,9 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    seamless: 512 frames, decoder prompts of 16), gen 32, launches and
    variants held (kernel 4 twice a seamless layer a step: self and
    cross), teacher-forced against the plain path at 5e-2; the Scheduler
-   stream of phase 5 with frontends (internvl2 on bf16 and int8 pools
-   over 192 pages, where growth preempts; seamless's first 12 requests
+   stream of phase 5 with frontends (internvl2's first 12 requests at
+   gen 16 on bf16 and int8 pools over 160 pages, where growth preempts;
+   seamless's first 12 requests
    with 160-960 frames under ``enc_len`` 1024 on bf16 pools, kernel 5
    twice a layer a step
    over the self pools and the identity-paged cross cache), every
@@ -320,7 +321,18 @@ Phases (each raises on failure; nothing is caught, the exit is non-zero):
    and 9, 6, 8, 12, 15 at phase 2's shapes through ``dist.decode``'s
    sharded functions against the same kernels on the whole operands;
    decode tok/s of each mesh beside the single rank's, the combine's
-   share of a decode step, the launches per rank;
+   share of a decode step, the launches per rank; tensor-parallel
+   serving on the (1, 2) world (``_tp_world``: each rank its blocks of
+   the weights under ``param_pspecs(..., 'serve')``, no seq): phase 5's
+   first 12 requests on bf16 pools against the single rank's streams,
+   tinyllama-1.1b's generate B4 P128 gen 16 against the single rank's
+   (teacher-forced logits at 5e-2 of scale, flipped rows, tok/s,
+   collectives and their wait a decode step, parameter bytes and peak
+   memory per rank, launches per rank), kernels 1 and 2 at each rank's
+   shapes against their plain versions, and olmoe-1b-7b at full width
+   cut to 2 layers with ``ep='full_ep'`` (32 of its 64 experts a rank)
+   against the single rank, teacher-forced and routed as it (the sets
+   that would differ counted), held at 5e-2;
 13. distributed training (``serve_train_distributed``): one (2, 1) world
    of ranks on this card (gloo), the rank functions ``_dp_*``: (a)
    tinyllama-1.1b at full width, bf16, remat "full", global B4 S1024 of
@@ -529,6 +541,8 @@ def check_swiglu(torch, F, gen, randn, compare, record):
     sw_cases = [
         ("tinyllama gate/up", 512, 2048, 5632, bf16, True, True),
         ("tinyllama decode", 4, 2048, 5632, bf16, True, False),
+        ("tinyllama (1, 2) gate/up", 512, 2048, 2816, bf16, True, False),
+        ("tinyllama (1, 2) decode", 4, 2048, 2816, bf16, True, False),
         ("qwen gate/up", 512, 1024, 2816, bf16, True, False),
         ("fp32", 64, 256, 512, f32, False, False),
         ("ragged", 37, 100, 70, f32, False, False),
@@ -765,6 +779,12 @@ def check_kernels(torch, F):
         ("tinyllama o+res", 512, 2048, 2048, bf16, False, True, None, True, False),
         ("tinyllama down+res", 512, 5632, 2048, bf16, False, True, None, True, True),
         ("tinyllama decode down", 4, 5632, 2048, bf16, False, False, None, True, False),
+        # a rank's shapes of tinyllama on (1, 2) tensor-parallel (phase 12)
+        ("tinyllama (1, 2) q", 512, 2048, 1024, bf16, False, False, None, True, False),
+        ("tinyllama (1, 2) k/v", 512, 2048, 128, bf16, False, False, None, True, False),
+        ("tinyllama (1, 2) o+res", 512, 1024, 2048, bf16, False, True, None, True, False),
+        ("tinyllama (1, 2) down+res", 512, 2816, 2048, bf16, False, True, None, True, False),
+        ("tinyllama (1, 2) decode down", 4, 2816, 2048, bf16, False, False, None, True, False),
         ("qwen qkv+bias", 512, 1024, 1024, bf16, True, False, None, True, False),
         ("qwen decode down", 4, 2816, 1024, bf16, False, False, None, True, False),
         ("deepseek-v3 decode down", 4, 18432, 7168, bf16, False, False, None, True, False),
@@ -882,6 +902,7 @@ def check_kernels(torch, F):
     print("vwr_attention")
     at_cases = [
         ("tinyllama prefill", 4, 128, 32, 4, 64, bf16, True, True),
+        ("tinyllama (1, 2) prefill", 4, 128, 16, 2, 64, bf16, True, False),
         ("qwen prefill (G=1)", 4, 128, 16, 16, 64, bf16, True, False),
         ("tinyllama batch-1 prefill", 1, 256, 32, 4, 64, bf16, True, False),
         ("tinyllama long prefill", 1, 2048, 32, 4, 64, bf16, True, False),
@@ -928,6 +949,8 @@ def check_kernels(torch, F):
         # label, B, T, KV, G, D, cur_len, pos0, dtype, timed, headline
         ("tinyllama decode", 4, 160, 4, 8, 64, 144, 0, bf16, True, True),
         ("tinyllama decode full", 4, 160, 4, 8, 64, 160, 0, bf16, False, False),
+        ("tinyllama (1, 2) decode", 4, 160, 2, 8, 64, 144, 0, bf16, True,
+         False),
         ("qwen decode (G=1)", 4, 136, 16, 1, 64, 130, 0, bf16, True, False),
         ("ragged slab", 2, 77, 2, 4, 64, 50, 5, f32, False, False),
         ("masked row", 2, 40, 2, 4, 64, 3, 10, f32, False, False),
@@ -1019,6 +1042,8 @@ def check_kernels(torch, F):
          True, True),
         ("qwen 8 slots (G=1)", 8, 16, 1, 64, 16, 1024, 16, tiny_lens, bf16,
          True, False),
+        ("tinyllama (1, 2) 8 slots", 8, 2, 8, 64, 16, 1024, 16, tiny_lens,
+         bf16, True, False),
         ("fp32", 4, 4, 8, 64, 16, 256, 16, (255, 0, 17, 16), f32, False,
          False),
         ("D=32 G=3", 3, 2, 3, 32, 16, 64, 6, (5, 0, 90), bf16, False,
@@ -4158,7 +4183,7 @@ def _prefill_batch(torch, r):
 
 
 def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
-                  agree_floor=REPLAY_AGREE, min_slots=SLOTS):
+                  agree_floor=REPLAY_AGREE, min_slots=SLOTS, gen=GEN):
     """Teacher-force finished requests through the serving engine's
     slots, all of them live in one decode batch, on the drained stream's
     pools (stale pages and int8 scales included), and hold each
@@ -4168,7 +4193,7 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
     a slot, at least ``min_slots`` of them; an audio request's encoder
     frames go to its slot's row of the cross cache.  A wrong table or
     counts row, a write into another slot's page or a stale scale shows
-    here.  Returns the
+    here.  ``gen`` is the stream's generation length.  Returns the
     per-step relative errors, the steps whose greedy pick equals the
     served token, which must be at least ``agree_floor`` of them, and
     one record a step where it does not: the replay's gap between its
@@ -4186,7 +4211,7 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
     # the first requests whose pages fit the pool together, one a slot
     picked, need = [], 0
     for r in reqs:
-        n = -(-(eng.prefill_positions(len(r.tokens)) + GEN - 1) // ps)
+        n = -(-(eng.prefill_positions(len(r.tokens)) + gen - 1) // ps)
         if len(picked) < slots and need + n <= n_pages:
             picked.append((r, n))
             need += n
@@ -4196,7 +4221,7 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
     table = np.zeros((slots, eng.max_pages), np.int32)
     lens = np.zeros((slots,), np.int32)
     enc_lens = np.zeros((slots,), np.int32)
-    served = np.zeros((slots, GEN), np.int32)
+    served = np.zeros((slots, gen), np.int32)
     got = [[] for _ in picked]
     at = 0
     for b, (r, n) in enumerate(picked):
@@ -4209,7 +4234,7 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
         if cfg.family == "audio":
             enc_lens[b] = len(r.frontend_emb)
         served[b] = out[r.rid].tokens
-    for i in range(GEN - 1):
+    for i in range(gen - 1):
         step = {"token": served[:, i], "cur_len": np.where(
             lens > 0, lens + i, 0), "block_table": table, "cache": cache}
         if cfg.family == "audio":
@@ -4227,7 +4252,7 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
     for b, (r, _) in enumerate(picked):
         P = eng.prefill_positions(len(r.tokens))
         lr, cr = ref.prefill(_prefill_batch(torch, r))
-        for i in range(GEN):
+        for i in range(gen):
             want, x = lr[0, :vocab], got[b][i]
             err = (x - want).abs().max().item()
             rel.append(err / want.abs().max().item())
@@ -4243,7 +4268,7 @@ def _replay_slots(torch, eng, cache, reqs, out, kv_dtype,
                     "served_gap": (top2[0] - x[tok].float()).item(),
                     "abs_err": err,
                     "plain_picks_served": int(want.argmax()) == tok})
-            if i + 1 < GEN:
+            if i + 1 < gen:
                 lr, cr = _decode(ref, served[b, i:i + 1], P + i, cr)
     worst = max(rel)
     worst_rid, worst_step = where[rel.index(worst)]
@@ -5417,17 +5442,19 @@ VLM, AUDIO = "internvl2-2b", "seamless-m4t-large-v2"
 # generate: batch 4, gen 32; internvl2's 128-token prompts after its 256
 # frontend tokens, seamless's 16-token decoder prompts over 512 frames
 FRONT_BATCH, VLM_PROMPT, AUDIO_PROMPT, AUDIO_FRAMES = 4, 128, 16, 512
-# the Scheduler streams of ``_drive`` (24 requests, gen 32, 8 slots,
-# pages of 16): internvl2's prompts of PROMPT tokens after its frontend,
-# over VLM_PAGES pages, fewer than 8 such requests hold, so growth
-# preempts; seamless's decoder prompts of AUDIO_PROMPTS tokens over
-# AUDIO_FRAME_RANGE frames, under a cross budget of AUDIO_ENC_LEN
-VLM_PAGES = 192
+# the Scheduler streams of ``_drive`` (8 slots, pages of 16): internvl2's
+# first VLM_REQS requests at gen VLM_GEN, prompts of PROMPT tokens after
+# its frontend, over VLM_PAGES pages, fewer than 8 such requests hold, so
+# growth preempts (once: the page accounting alone decides it; cut from
+# 24 requests at gen 32 over 192 pages to make room for phase 12's
+# tensor-parallel serving); seamless's decoder prompts of AUDIO_PROMPTS
+# tokens over AUDIO_FRAME_RANGE frames, under a cross budget of
+# AUDIO_ENC_LEN, at gen GEN
+VLM_REQS, VLM_GEN, VLM_PAGES = 12, 16, 160
 AUDIO_PROMPTS, AUDIO_FRAME_RANGE, AUDIO_ENC_LEN = (4, 32), (160, 960), 1024
 AUDIO_PAGES = 64
 # seamless's Scheduler stream: the first AUDIO_REQS requests (cut from
-# all N_REQ to make room for phase 13; internvl2 keeps N_REQ, whose
-# growth must preempt)
+# all N_REQ to make room for phase 13)
 AUDIO_REQS = 12
 # the seamless crash + recover: the first AUDIO_RECOVER_REQS requests of
 # the stream, a snapshot every AUDIO_RECOVER_EVERY steps, each ~0.9 GB of
@@ -5444,10 +5471,10 @@ AUDIO_RECOVER_EVERY, AUDIO_RECOVER_REQS = 12, 8
 VLM_JOURNAL_APPENDS = 5
 # internvl2's floor of replay steps that pick the served token, on bf16
 # and int8 pools (seamless keeps REPLAY_AGREE): on an NVIDIA H100 80GB
-# HBM3 at 700 W its bf16 replay agreed at 182/192 steps, every one of
-# the 10 flips at a top-two gap of 0-2 bf16 steps (0-0.031), below that
-# step's max |d| against the plain path; ``_vlm_prefill_layers`` shows
-# where that |d| comes from
+# HBM3 at 700 W its bf16 replay at gen 32 agreed at 182/192 steps, every
+# one of the 10 flips at a top-two gap of 0-2 bf16 steps (0-0.031), below
+# that step's max |d| against the plain path; ``_vlm_prefill_layers``
+# shows where that |d| comes from
 VLM_REPLAY_AGREE = 0.9
 
 
@@ -5468,10 +5495,11 @@ def _front_requests(cfg, n, prompt, gen, seed):
 
 
 def _front_stream(cfg):
-    """(prompt range, Scheduler options) of a frontend family's stream."""
+    """(prompt range, gen, Scheduler options) of a frontend family's
+    stream."""
     if cfg.family == "vlm":
-        return PROMPT, {}
-    return AUDIO_PROMPTS, {"enc_len": AUDIO_ENC_LEN}
+        return PROMPT, VLM_GEN, {}
+    return AUDIO_PROMPTS, GEN, {"enc_len": AUDIO_ENC_LEN}
 
 
 def _no_fallback(what, variants):
@@ -5663,10 +5691,10 @@ def _front_engine(torch, cfg, params, kv_dtype):
     from repro_torch.engine import DecodeEngine, EngineConfig
 
     vlm = cfg.family == "vlm"
-    prompt, _ = _front_stream(cfg)
+    prompt, gen, _ = _front_stream(cfg)
     ecfg = EngineConfig(
         batch=SLOTS, max_len=(cfg.frontend_tokens if vlm else 0)
-        + prompt[1] + GEN, paged=True, page_size=PAGE,
+        + prompt[1] + gen, paged=True, page_size=PAGE,
         n_pages=VLM_PAGES if vlm else AUDIO_PAGES, kv_dtype=kv_dtype,
         kernel_impl="cuda")
     return DecodeEngine(cfg, ecfg, params=params, device="cuda")
@@ -5688,17 +5716,17 @@ def serve_frontend_scheduler(torch, name, params, kv_dtype):
 
     cfg = get_config(name)
     vlm = cfg.family == "vlm"
-    n_req = N_REQ if vlm else AUDIO_REQS
+    n_req = VLM_REQS if vlm else AUDIO_REQS
     eng = _front_engine(torch, cfg, params, kv_dtype)
-    prompt, kw = _front_stream(cfg)
+    prompt, gen, kw = _front_stream(cfg)
     print(f"Scheduler, {name}, {kv_dtype} pools: {SLOTS} slots, "
           f"{eng.n_pages} pages of {PAGE}, {n_req} requests, prompts "
           f"{prompt[0]}-{prompt[1]}"
           + (f" after {cfg.frontend_tokens} frontend tokens" if vlm else
              f", {AUDIO_FRAME_RANGE[0]}-{AUDIO_FRAME_RANGE[1]} frames "
-             f"(enc_len {AUDIO_ENC_LEN})") + f", gen {GEN}")
+             f"(enc_len {AUDIO_ENC_LEN})") + f", gen {gen}")
     _drive(Scheduler(eng, **kw), _front_requests(cfg, 4, prompt, 4, seed=5))
-    reqs = _front_requests(cfg, N_REQ, prompt, GEN, seed=4)[:n_req]
+    reqs = _front_requests(cfg, N_REQ, prompt, gen, seed=4)[:n_req]
     sched = Scheduler(eng, **kw)
     torch.cuda.synchronize()
     build.reset_launches()
@@ -5730,7 +5758,7 @@ def serve_frontend_scheduler(torch, name, params, kv_dtype):
                                  f"launched {got} times, expected {n}")
     _no_fallback(f"scheduler {name} {kv_dtype}", variants)
     bad = {rid: r.status for rid, r in out.items()
-           if r.status is not RequestStatus.FINISHED or len(r) != GEN}
+           if r.status is not RequestStatus.FINISHED or len(r) != gen}
     if len(out) != n_req or bad:
         raise AssertionError(f"scheduler {name} {kv_dtype}: unfinished "
                              f"{bad}")
@@ -5762,7 +5790,7 @@ def serve_frontend_scheduler(torch, name, params, kv_dtype):
           f"{itl['p99'] * 1e3:.3f} ms")
     rel, agree, flips = _replay_slots(
         torch, eng, sched.cache, reqs, out, kv_dtype,
-        VLM_REPLAY_AGREE if vlm else REPLAY_AGREE, min_slots=4)
+        VLM_REPLAY_AGREE if vlm else REPLAY_AGREE, min_slots=4, gen=gen)
     summary.update(logits_rel_err=rel, replay_agree=agree,
                    replay_flips=flips)
     del eng, sched
@@ -5796,7 +5824,7 @@ def audio_recovery(torch, params):
 
     cfg = get_config(AUDIO)
     eng = _front_engine(torch, cfg, params, "bf16")
-    prompt, kw = _front_stream(cfg)
+    prompt, _, kw = _front_stream(cfg)
 
     n_req = AUDIO_RECOVER_REQS
 
@@ -7852,6 +7880,18 @@ MLA_PAGED = dict(batch=3, max_len=64, paged=True, page_size=8, n_pages=12)
 MLA_REQS = (4, (5, 40), 16, 6)
 # DeepSeek-V3's attention widths (phase 2's MLA cases)
 DS_H, DS_R, DS_RP = 128, 512, 64
+# tensor-parallel serving on (1, 2): tinyllama-1.1b's generate (the
+# DIST_* shape) and DIST_REQ-request Scheduler stream on bf16 pools, each
+# rank its blocks of the weights, beside olmoe-1b-7b at full width cut to
+# TP_OLMOE_DEPTH layers (both MoE) with ep="full_ep": 64 experts, 32 a
+# rank.  Its random router puts near-ties in the top 8 of 64 that the
+# ranks' bf16 partial sums break apart, and every sequence of a 128-token
+# prefill meets one, so its teacher-forced run is routed as the single
+# rank's (``_ForcedRoutes``), the sets that differed counted, and every
+# row held at E2E_BF16_REL
+TP_OLMOE_DEPTH = 2
+# the rows of a rank's kernel 1 and 2 products held at its local shapes
+TP_ROWS = DIST_B * DIST_P
 
 
 def _param_digest(torch, params):
@@ -7934,6 +7974,7 @@ def _dist_generate(torch, eng, prompts, ref, P, gen, tol, floor=0.0,
     tokens, stats = eng.generate({"tokens": p}, gen=gen)
     torch.cuda.synchronize()
     launches = build.LAUNCHES[kernel]
+    every = {k: n for k, n in build.LAUNCHES.items() if n}
     variants = {k: n for k, n in build.VARIANTS.items()
                 if k.startswith(kernel + ".") and n}
     L = eng.cfg.n_layers
@@ -7946,7 +7987,8 @@ def _dist_generate(torch, eng, prompts, ref, P, gen, tol, floor=0.0,
         raise AssertionError(f"{eng.mesh!r}: teacher-forced logits "
                              f"{max(rel):.3e} of scale past {tol:g}")
     out = {"tokens": tokens.cpu(), "launches": launches,
-           "variants": variants, "max_rel_err": max(rel),
+           "every_launch": every, "variants": variants,
+           "max_rel_err": max(rel),
            "equal_tokens": int((tokens.cpu() == ref["tokens"]).sum()),
            "decode_tok_s": stats["decode_tok_s"]}
     if share:
@@ -8013,17 +8055,18 @@ def _replay_forced(torch, eng, reqs, streams):
 
 
 def _dist_stream(torch, mesh, cfg, params, ecfg, reqs, want, tol,
-                 floor=0.0):
-    """A Scheduler stream on a (1, M) seq-sharded paged engine (launches
-    counted from 0 over the stream), its greedy streams against the
-    single rank's ``want``: equal, or the parted requests replayed with
-    ``want``'s tokens through both engines from fresh pools and their
-    logits held at ``tol`` of scale at every step."""
+                 floor=0.0, shard="seq"):
+    """A Scheduler stream on a (1, M) paged engine, seq-sharded or with
+    ``shard='none'`` tensor-parallel (launches counted from 0 over the
+    stream), its greedy streams against the single rank's ``want``:
+    equal, or the parted requests replayed with ``want``'s tokens through
+    both engines from fresh pools and their logits held at ``tol`` of
+    scale at every step."""
     from repro_torch.engine import DecodeEngine, RequestStatus, Scheduler
     from repro_torch.kernels import build
 
     eng = DecodeEngine(cfg, ecfg.replace(mesh_shape=(1, mesh.axis_size(
-        "model")), decode_shard="seq"), params=params, device="cuda",
+        "model")), decode_shard=shard), params=params, device="cuda",
         mesh=mesh)
     sched = Scheduler(eng)
     torch.cuda.synchronize()
@@ -8249,7 +8292,241 @@ def _dist_ops(torch, mesh):
     return rows
 
 
-def _dist_world(mesh, prompts, refs, digest, streams, mla):
+def _nbytes(params) -> int:
+    from repro_torch.common.module import leaves
+    return sum(t.numel() * t.element_size() for _, t in leaves(params))
+
+
+def _olmoe_tp(torch):
+    """olmoe-1b-7b at full width, TP_OLMOE_DEPTH layers, ep="full_ep",
+    with its conditioned weights from seed 0 on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("olmoe-1b-7b")
+    cfg = cfg.replace(n_layers=TP_OLMOE_DEPTH,
+                      moe=dataclasses.replace(cfg.moe, ep="full_ep"))
+    params = lm.init(cfg, seed=0, device="cuda")
+    _condition(torch, params)
+    return cfg, params
+
+
+def _forced_routes(torch, eng, prompts, tokens, P, gen):
+    """``_forced``'s logits, and every MoE layer's expert sets of each call
+    (``_Routes``), host side."""
+    with _Routes() as routes:
+        routes.tag = "forced"
+        logits = _forced(torch, eng, prompts, tokens, P, gen)
+        return logits, [r.cpu() for r in routes.take("forced")]
+
+
+class _ForcedRoutes:
+    """Routes every MoE FFN call as the same call of another run did
+    (``ref``: its sorted expert sets a call, ``_Routes``' log), each
+    assignment gated by this run's own probability, and counts the
+    (token, layer) sets this run would have chosen otherwise: two paths'
+    logits compared with the routing held equal."""
+
+    def __init__(self, ref):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.ref = moe, moe.top_k_gates, ref
+        self.calls, self.differ = 0, 0
+
+    def __enter__(self):
+        import torch
+
+        def top_k_gates(probs, sel, cfg):
+            _, idx = self.orig(probs, sel, cfg)
+            want = self.ref[self.calls].to(idx.device).view(idx.shape)
+            self.calls += 1
+            self.differ += int((idx.sort(-1).values != want).any(-1).sum())
+            m = cfg.moe
+            gates = torch.gather(probs, -1, want)
+            if m.norm_topk:
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-20)
+            return gates * m.routed_scale, want
+        self.moe.top_k_gates = top_k_gates
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_gates = self.orig
+
+
+def _tp_collectives(torch, eng, prompts, tokens, P, gen):
+    """Decode steps after a prefill, with the host clock around every
+    collective that crosses ranks (the device synchronized before and
+    after, so gloo's host staging counts): collectives and their wait a
+    step, beside the step's wall under those syncs."""
+    from repro_torch.launch.mesh import Mesh, _axes
+
+    spent = [0.0, 0]
+    origs = {n: getattr(Mesh, n) for n in ("all_reduce", "all_gather")}
+
+    def wrap(orig):
+        def timed(self, t, axis, *a, **kw):
+            if all(self.axis_size(x) == 1 for x in _axes(axis)):
+                return orig(self, t, axis, *a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(self, t, axis, *a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+        return timed
+
+    lg, cache = eng.prefill({"tokens": prompts})
+    for n, f in origs.items():
+        setattr(Mesh, n, wrap(f))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            lg, cache = eng.decode_step(tokens[eng.rows, i].cuda(), P + i,
+                                        cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for n, f in origs.items():
+            setattr(Mesh, n, f)
+    return {"collectives_a_step": spent[1] / (gen - 1),
+            "wait_ms_a_step": 1e3 * spent[0] / (gen - 1),
+            "step_ms": 1e3 * wall / (gen - 1), "share": spent[0] / wall}
+
+
+def _tp_kernels(torch, eng):
+    """Kernels 1 and 2 at this rank's local shapes (tinyllama-1.1b's layer
+    0 blocks: q, k / v, o + residual, down + residual at TP_ROWS rows and
+    the decode's 4, the gate / up pair) against their plain versions at
+    TOL, on random activations."""
+    from repro_torch.kernels import vwr_matmul as KM
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    lp = {k: {n: t[0] for n, t in v.items()}
+          for k, v in eng.params["layers"].items() if isinstance(v, dict)}
+    a, m = lp["attn"], lp["mlp"]
+    d = a["wq"].shape[0]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    x = rnd(TP_ROWS, d)
+    o = rnd(TP_ROWS, a["wo"].shape[0] * a["wo"].shape[1])
+    h = rnd(TP_ROWS, m["wo"].shape[0])
+    res = rnd(TP_ROWS, d)
+    cases = [("vwr_matmul", "q", (x, a["wq"].reshape(d, -1), None, None)),
+             ("vwr_matmul", "k/v", (x, a["wk"].reshape(d, -1), None, None)),
+             ("vwr_matmul", "o+res", (o, a["wo"].reshape(-1, d), None,
+                                      res)),
+             ("vwr_matmul", "down+res", (h, m["wo"], None, res)),
+             ("vwr_matmul", "decode down", (h[:DIST_B], m["wo"], None,
+                                            None)),
+             ("vwr_swiglu", "gate/up", (x, m["wg"], m["wi"])),
+             ("vwr_swiglu", "decode gate/up", (x[:DIST_B], m["wg"],
+                                               m["wi"]))]
+    atol, rtol = TOL["bfloat16"]
+    rows = []
+    for kernel, label, args in cases:
+        fn, ref = ((KM.vwr_matmul, KM.vwr_matmul_ref) if kernel ==
+                   "vwr_matmul" else (KM.vwr_swiglu, KM.vwr_swiglu_ref))
+        got, want = fn(*args).float(), ref(*args).float()
+        diff = (got - want).abs()
+        shape = "x".join(str(n) for n in (args[0].shape[0],
+                                          *args[1].shape))
+        if not bool((diff <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"{kernel} {label} {shape} at this rank's "
+                                 f"shape: max|d| {diff.max().item():.3e}")
+        rows.append({"kernel": kernel, "case": label, "shape": shape,
+                     "max_abs_err": diff.max().item()})
+    return rows
+
+
+def _tp_olmoe(torch, mesh, prompts, ref):
+    """olmoe-1b-7b with ep="full_ep" on (1, M): generate (launches
+    counted), then teacher-forced with the single rank's tokens and
+    expert sets (``ref``; TP_OLMOE_DEPTH's note), every row's logits held
+    at E2E_BF16_REL of scale."""
+    from repro_torch.engine import DecodeEngine, EngineConfig
+    from repro_torch.kernels import build
+
+    cfg, params = _olmoe_tp(torch)
+    eng = DecodeEngine(cfg, EngineConfig(
+        batch=DIST_B, max_len=DIST_MAX, kernel_impl="cuda",
+        mesh_shape=(1, mesh.axis_size("model"))), params=params,
+        device="cuda", mesh=mesh)
+    digest = _param_digest(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    p = prompts[:, :DIST_P].cuda()
+    eng.generate({"tokens": p}, gen=2)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    tokens, stats = eng.generate({"tokens": p}, gen=DIST_GEN)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    with _ForcedRoutes(ref["routes"]) as routes:
+        logits = _forced(torch, eng, p, ref["tokens"], DIST_P, DIST_GEN)
+    rel = _rel_errs(logits, ref["logits"], slice(None))
+    if routes.calls != len(ref["routes"]) or not max(rel) <= E2E_BF16_REL:
+        raise AssertionError(f"olmoe (1, {mesh.axis_size('model')}) "
+                             f"full_ep: logits {max(rel):.3e} of scale past "
+                             f"{E2E_BF16_REL:g} routed as one rank, or "
+                             f"{routes.calls} MoE calls against "
+                             f"{len(ref['routes'])}")
+    return {"digest": digest == ref["digest"], "tokens": tokens.cpu(),
+            "equal_tokens": int((tokens.cpu() == ref["tokens"]).sum()),
+            "decode_tok_s": stats["decode_tok_s"], "launches": launches,
+            "max_rel": max(rel), "expert_sets_differ": routes.differ,
+            "expert_sets": sum(len(r) for r in ref["routes"]),
+            "param_bytes": _nbytes(eng.params),
+            "experts_a_rank": eng.params["layers"]["moe"]["wi"].shape[1]}
+
+
+def _tp_world(torch, mesh, cfg, whole, prompts, refs, streams, olmoe):
+    """Phase 12's tensor-parallel serving on this (1, M) world (every rank
+    runs it): tinyllama-1.1b's DIST_REQ-request Scheduler stream on bf16
+    pools (the whole weights kept for replays), then its generate with
+    only the rank's blocks on the card (parameter bytes, peak memory,
+    collectives a step, launches), kernels 1 and 2 at the rank's shapes,
+    and olmoe-1b-7b with ep="full_ep".  ``whole`` is a one-item list
+    holding the whole weights, emptied here."""
+    from repro_torch.engine import DecodeEngine, EngineConfig
+
+    M = mesh.axis_size("model")
+    reqs = _requests(cfg, N_REQ, PROMPT, DIST_REQ_GEN, seed=4)[:DIST_REQ]
+    out = {"stream": _dist_stream(
+        torch, mesh, cfg, whole[0], EngineConfig(
+            batch=SLOTS, max_len=PROMPT[1] + DIST_REQ_GEN, paged=True,
+            page_size=PAGE, n_pages=N_PAGES, kernel_impl="cuda"), reqs,
+        streams["bf16"], E2E_BF16_REL, shard="none")}
+    eng = DecodeEngine(cfg, EngineConfig(
+        batch=DIST_B, max_len=DIST_MAX, kernel_impl="cuda",
+        mesh_shape=(1, M)), params=whole[0], device="cuda", mesh=mesh)
+    out["whole_bytes"] = _nbytes(whole.pop())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["param_bytes"] = _nbytes(eng.params)
+    out["generate"] = _dist_generate(torch, eng, prompts, refs["long"],
+                                     DIST_P, DIST_GEN, E2E_BF16_REL)
+    out["launches"] = out["generate"]["every_launch"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    g = out["generate"]["tokens"]
+    out["flipped_rows"] = int((g != refs["long"]["tokens"]).any(-1).sum())
+    p = prompts[:, :DIST_P].cuda()
+    out["collectives"] = _tp_collectives(torch, eng, p, refs["long"][
+        "tokens"], DIST_P, DIST_GEN)
+    out["kernels"] = _tp_kernels(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    out["olmoe"] = _tp_olmoe(torch, mesh, prompts, olmoe)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_world(mesh, prompts, refs, digest, streams, mla, olmoe):
     """Everything phase 12 runs on one mesh of ranks (every rank runs
     it): tinyllama-1.1b's generate (and on (1, M) the short run, the
     Scheduler streams and the MLA and op-level checks); the rank's
@@ -8293,13 +8570,16 @@ def _dist_world(mesh, prompts, refs, digest, streams, mla):
         out["streams"] = [_dist_stream(
             torch, mesh, cfg, eng.params, ecfg.replace(kv_dtype=kv), reqs,
             streams[kv], E2E_BF16_REL) for kv in ("bf16", "int8")]
-        for s in out["streams"]:
+        whole = [eng.params]
+        del eng
+        out["tp"] = _tp_world(torch, mesh, cfg, whole, prompts, refs,
+                              streams, olmoe)
+        for s in out["streams"] + [out["tp"]["stream"]]:
             # continuous batching: admissions past the slots reuse the
             # slots and pages of finished requests
             if s["admitted"] <= SLOTS:
                 raise AssertionError(f"(1, {model}) stream: {s['admitted']}"
                                      f" admissions over {SLOTS} slots")
-        del eng
         torch.cuda.empty_cache()
         mcfg = _dense_mla()
         B, P, G, T = MLA_GEN
@@ -8332,6 +8612,19 @@ def _dist_world(mesh, prompts, refs, digest, streams, mla):
         if key in out and len({tuple(s["table_digest"] for s in r[key])
                                for r in ranks}) != 1:
             raise AssertionError(f"{key}: tables differ across ranks")
+    if "tp" in out:
+        if len({r["tp"]["stream"]["table_digest"] for r in ranks}) != 1:
+            raise AssertionError("tensor-parallel stream: tables differ "
+                                 "across ranks")
+        for key in ("generate", "olmoe"):
+            if not all(torch.equal(r["tp"][key]["tokens"],
+                                   ranks[0]["tp"][key]["tokens"])
+                       for r in ranks):
+                raise AssertionError(f"tensor-parallel {key}: tokens "
+                                     "differ across ranks")
+        if not all(r["tp"]["olmoe"]["digest"] for r in ranks):
+            raise AssertionError("olmoe: ranks built other parameters "
+                                 "than the single rank")
     if not all(r["same_params"] for r in ranks):
         raise AssertionError("ranks built different parameters")
     return ranks
@@ -8408,6 +8701,23 @@ def serve_distributed(torch):
         mla["streams"][kv] = [out[i].tokens.tolist() for i in range(n)]
     del meng, peng
     torch.cuda.empty_cache()
+    ocfg, oparams = _olmoe_tp(torch)
+    odigest = _param_digest(torch, oparams)
+    oeng = DecodeEngine(ocfg, EngineConfig(batch=DIST_B, max_len=DIST_MAX,
+                                           kernel_impl="cuda"),
+                        params=oparams, device="cuda")
+    del oparams
+    p = prompts[:, :DIST_P]
+    oeng.generate({"tokens": p}, gen=2)
+    otoks, ostats = oeng.generate({"tokens": p}, gen=DIST_GEN)
+    ologits, oroutes = _forced_routes(torch, oeng, p, otoks, DIST_P,
+                                      DIST_GEN)
+    olmoe = {"tokens": otoks.cpu(), "logits": ologits, "routes": oroutes,
+             "digest": odigest}
+    single_olmoe = {"decode_tok_s": ostats["decode_tok_s"],
+                    "param_bytes": _nbytes(oeng.params)}
+    del oeng
+    torch.cuda.empty_cache()
     t_single = time.perf_counter() - t_phase
     print(f"  the single rank: {t_single:.1f} s; transport of 2 or 4 ranks "
           f"on this card: {transport(2, 'cuda')} / {transport(4, 'cuda')}")
@@ -8422,24 +8732,27 @@ def serve_distributed(torch):
             for k, v in refs.items()}
     refs["sampled"] = sampled
     res = {"single": {"decode_tok_s": single, "stream_gen_tok_s": {
-        kv: streams[kv + "_tok_s"] for kv in ("bf16", "int8")}},
-        "transport": transport(2, "cuda"), "meshes": {}}
+        kv: streams[kv + "_tok_s"] for kv in ("bf16", "int8")},
+        "olmoe": single_olmoe}, "transport": transport(2, "cuda"),
+        "meshes": {}}
     for shape in ((1, 2), (2, 1), (2, 2)):
         t0 = time.perf_counter()
         ranks = run_ranks(_dist_world, *shape, device="cuda",
-                          args=(prompts.cpu(), refs, digest, streams, mla))
+                          args=(prompts.cpu(), refs, digest, streams, mla,
+                                olmoe))
         name = f"({shape[0]}, {shape[1]})" + (" seq" if shape[1] > 1
                                               else "")
-        res["meshes"][name] = _dist_report(name, ranks, single,
+        res["meshes"][name] = _dist_report(name, ranks, res["single"],
                                            time.perf_counter() - t0)
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase 12: {res['wall_s']:.1f} s")
     return res
 
 
-def _dist_report(name, ranks, single, wall):
+def _dist_report(name, ranks, one, wall):
     """Print one mesh's results; return them without the token
     tensors."""
+    single = one["decode_tok_s"]
     r0 = ranks[0]
     gen = r0["generate"]
     print(f"  {name}, {len(ranks)} ranks, {wall:.1f} s: decode tok/s "
@@ -8491,6 +8804,8 @@ def _dist_report(name, ranks, single, wall):
     for row in r0.get("ops", []):
         print(f"    {row['kernel']} sharded vs whole, {row['case']}: "
               f"max|d| {row['max_abs_err']:.3e}")
+    if "tp" in r0:
+        _tp_report(ranks, one)
 
     def strip(x):
         if isinstance(x, dict):
@@ -8499,6 +8814,60 @@ def _dist_report(name, ranks, single, wall):
             return [strip(v) for v in x]
         return x
     return strip(ranks)
+
+
+def _tp_report(ranks, one):
+    """Print phase 12's tensor-parallel results (``_tp_world``)."""
+    tp = [r["tp"] for r in ranks]
+    t0, g = tp[0], tp[0]["generate"]
+    gb = 1e-9
+    print(f"    tensor-parallel (1, {len(ranks)}), no seq: generate B{DIST_B}"
+          f" P{DIST_P} gen {DIST_GEN}: decode tok/s {g['decode_tok_s']:.1f}"
+          f" (one rank {one['decode_tok_s']['long']:.1f}); greedy tokens "
+          f"equal {g['equal_tokens']}/{DIST_B * DIST_GEN}, "
+          f"{t0['flipped_rows']} rows flipped; teacher-forced max|d logits| "
+          f"{max(t['generate']['max_rel_err'] for t in tp):.3e} of scale "
+          f"(limit {E2E_BF16_REL:g}); tokens equal on every rank")
+    c = t0["collectives"]
+    print(f"    a decode step: {c['collectives_a_step']:.1f} collectives "
+          f"crossing ranks, {c['wait_ms_a_step']:.2f} ms in them of a "
+          f"{c['step_ms']:.2f} ms step ({100 * c['share']:.1f}%; host "
+          "clock, the device synchronized around each)")
+    print(f"    parameter bytes per rank "
+          f"{[round(t['param_bytes'] * gb, 3) for t in tp]} GB (whole "
+          f"{t0['whole_bytes'] * gb:.3f} GB); peak memory per rank over the "
+          f"generate {[round(t['peak_bytes'] * gb, 3) for t in tp]} GB")
+    print(f"    launches per rank over the generate: "
+          f"{[t['launches'] for t in tp]}")
+    for row in t0["kernels"]:
+        errs = [next(x["max_abs_err"] for x in t["kernels"]
+                     if x["case"] == row["case"]) for t in tp]
+        print(f"    {row['kernel']} {row['case']} at a rank's shape "
+              f"{row['shape']}: max|d| vs plain per rank "
+              f"{[f'{e:.3e}' for e in errs]}")
+    s = t0["stream"]
+    note = "equal to one rank's" if s["equal"] else (
+        f"part in {len(s['parted'])} requests; replayed with one rank's "
+        f"tokens: max|d logits| {s['replay_max_rel']:.3e} of scale over "
+        f"{s['replayed_steps']} steps, its token picked at "
+        f"{s['replay_picks_single_token']}")
+    print(f"    tinyllama Scheduler, {DIST_REQ} requests, bf16 pools: "
+          f"{s['steps']} steps, {s['admitted']} admissions, "
+          f"{s['gen_tok_s']:.1f} generated tok/s; streams {note}; paged "
+          f"kernel launches per rank {[t['stream']['launches'] for t in tp]}")
+    o = t0["olmoe"]
+    print(f"    olmoe-1b-7b, {TP_OLMOE_DEPTH} layers, ep='full_ep', "
+          f"{o['experts_a_rank']} experts a rank: decode tok/s "
+          f"{o['decode_tok_s']:.1f} (one rank "
+          f"{one['olmoe']['decode_tok_s']:.1f}); greedy tokens equal "
+          f"{o['equal_tokens']}/{DIST_B * DIST_GEN}; teacher-forced and "
+          f"routed as one rank, max|d logits| {o['max_rel']:.3e} of scale "
+          f"(limit {E2E_BF16_REL:g}); {o['expert_sets_differ']} of "
+          f"{o['expert_sets']} (token, layer) expert sets would differ; "
+          f"parameter bytes per rank "
+          f"{[round(t['olmoe']['param_bytes'] * gb, 3) for t in tp]} GB "
+          f"(one rank {one['olmoe']['param_bytes'] * gb:.3f}); launches "
+          f"{o['launches']}")
 
 
 # ----------------------------------------------------------------------
@@ -9081,7 +9450,7 @@ def main() -> int:
         surfaces = serve_surfaces(torch)
 
     with phase("12 distributed serving: ranks on this card, the KV cache "
-               "sequence-sharded"):
+               "sequence-sharded, tensor-parallel weights"):
         distributed = serve_distributed(torch)
 
     with phase("13 distributed training: a (2, 1) world on this card, "

@@ -19,8 +19,10 @@ in the widest, fewest transactions.
                (``pipeline_apply``)
 
 Data-parallel training with ZeRO-1 is ``launch.steps.build_train_step(
-..., mesh=)`` over ``optim.adamw``'s sharded state.  Still left (ROADMAP
-queue 1 item 14): the tensor-parallel layers (a 'model' axis > 1, with
-``common/hints.py``) and expert parallelism (``MoEConfig(ep="full_ep")``).
+..., mesh=)`` over ``optim.adamw``'s sharded state.  Tensor- and
+expert-parallel serving lives in the layers (``models``), which compute
+on the blocks ``sharding.shard_params`` cuts, with ``common.hints`` for
+the layout cuts.  Still left (ROADMAP queue 1 item 14): a 'model' axis
+in training.
 """
 from repro_torch.dist import compression, decode, pipeline, sharding  # noqa: F401

@@ -22,16 +22,19 @@ A spec is a ``PS``: a tuple with, per dim, None, an axis name or a tuple
 of axis names.  ``local_block(x, spec, mesh)`` cuts this rank's block of
 a whole tensor (the counterpart of ``device_put`` onto a
 ``NamedSharding``) and ``gather_block`` puts the whole tensor back
-together from every rank's block.  The serving path lays out its
-decode caches by these specs (``engine``); its parameters stay whole on
-every rank, since the port has no tensor-parallel layers yet (ROADMAP
-queue 1 item 14), so ``param_pspecs`` is the layout those layers will
-read.
+together from every rank's block; ``shard_params`` cuts a whole
+parameter tree into this rank's blocks under ``param_pspecs`` (the
+counterpart of ``device_put`` onto ``to_shardings``).  The serving path
+lays out its decode caches by these specs, and on a mesh without
+sequence sharding its parameters too: ``tp_layout`` reads off that spec
+tree, once, which parts of the model a rank holds a block of, and the
+tensor-parallel layers of ``models`` compute on those blocks with
+explicit collectives where it says so (``engine``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -380,7 +383,66 @@ def gather_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     if spec is None:
         return x
     for dim, entry in enumerate(spec):
-        # the innermost axis varies fastest in the block index
-        for a in reversed(_flat(entry)):
-            x = mesh.all_gather(x, a, dim)
+        x = mesh.all_gather(x, _flat(entry), dim)
     return x
+
+
+def shard_params(params, pspecs, mesh):
+    """This rank's blocks of the parameter tree ``params`` (whole on every
+    rank) under ``pspecs`` (``param_pspecs``): the counterpart of JAX's
+    ``device_put(params, to_shardings(mesh, pspecs))``.  A block that is
+    a view into its whole leaf is copied, so the rank keeps only its
+    blocks' bytes once the whole tree is dropped."""
+    def cut(x, spec):
+        blk = local_block(x, spec, mesh)
+        if blk.numel() != x.numel() and (blk.untyped_storage().data_ptr()
+                                         == x.untyped_storage().data_ptr()):
+            blk = blk.clone()
+        return blk
+    return {k: (shard_params(v, pspecs[k], mesh) if isinstance(v, dict)
+                else cut(v, pspecs[k])) for k, v in params.items()}
+
+
+class TPLayout(NamedTuple):
+    """Which parts of the model a rank's parameters hold a block of,
+    read off the spec tree they were cut by (``tp_layout``), and the mesh
+    they are split over.  Each part but the experts is split over
+    'model'; the experts over every axis (``models.moe.EP_AXES``)."""
+    mesh: Any
+    vocab: bool         # the embedding table and the head's columns
+    heads: bool         # the attention's query heads
+    kv: bool            # its kv heads (else whole beside split heads)
+    ffn: bool           # the dense MLPs' ffn dim
+    experts: bool       # the MoE experts
+    expert_ff: bool     # the experts' ffn dim (where they stay whole)
+    shared: bool        # the shared experts' ffn dim
+
+    def on(self, part: str):
+        """The mesh ``part``'s collectives run over, or None where the
+        rank holds it whole (the one-device computation)."""
+        return self.mesh if getattr(self, part) else None
+
+
+def tp_layout(pspecs, mesh) -> TPLayout:
+    """The ``TPLayout`` of parameters cut by ``pspecs`` (``param_pspecs``'
+    tree for the dense and moe families) over ``mesh``: a part is split
+    where its dim's spec entry spans more than one rank."""
+    def split(group, leaf, dim) -> bool:
+        spec = (group or {}).get(leaf)
+        if spec is None:
+            return False
+        return math.prod(mesh.shape[a] for a in _flat(spec[dim])) > 1
+
+    layers = pspecs["layers"]
+    dense = pspecs.get("dense_layers") or layers   # the moe family's
+    moe = layers.get("moe")
+    return TPLayout(
+        mesh, vocab=split(pspecs["embed"], "table", 0),
+        # stacked leaves: (L, D, H, Dh) projections, (L, D, F) / (L, F, D)
+        # MLPs, (L, D, E) router, (L, E, F, D) expert wo
+        heads=split(layers["attn"], "wq", 2),
+        kv=split(layers["attn"], "wk", 2),
+        ffn=split(dense.get("mlp"), "wo", 1),
+        experts=split(moe, "router", 2),
+        expert_ff=split(moe, "wo", 2),
+        shared=split((moe or {}).get("shared"), "wo", 1))

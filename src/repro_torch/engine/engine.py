@@ -55,20 +55,33 @@ ranks (``launch.mesh``), every rank constructing it alike::
 
     tokens = run_ranks(serve, 2, 2, device="cuda")
 
-Each rank holds the whole parameters (built from the same seed) and its
-block of the decode cache (``dist.sharding.cache_pspecs`` /
-``paged_cache_pspecs``): its ``B / data`` rows of a dense cache (all of
-them when ``data`` does not divide B), and with ``decode_shard='seq'``
-its slab of the sequence (dense) or of the page pool (paged) over
-'model'.  Each decode step launches the decode kernels on the rank's own
-slab and stitches the shards together with one statistics combine
-(``dist.decode``), so everything after it is replicated over 'model' and
-the host state (tokens, a Scheduler's tables) stays equal across ranks
-by construction.  ``generate`` returns the whole (B, G) tokens on every
-rank.  The frontend and recurrent families, a paged engine with a data
-axis, a 'model' axis without ``decode_shard='seq'``, the prefix cache
-and chunked prefill with ``decode_shard='seq'``, and durable serving
-under a mesh raise ``NotImplementedError`` (ROADMAP queue 1 item 14).
+Each rank holds its block of the decode cache (``dist.sharding.
+cache_pspecs`` / ``paged_cache_pspecs``): its ``B / data`` rows of a
+dense cache (all of them when ``data`` does not divide B), and
+
+* with ``decode_shard='seq'``, its slab of the sequence (dense) or of
+  the page pool (paged) over 'model', beside the whole parameters (built
+  from the same seed on every rank).  Each decode step launches the
+  decode kernels on the rank's own slab and stitches the shards together
+  with one statistics combine (``dist.decode``);
+* without it (tensor-parallel serving, the dense and moe families with
+  GQA attention, ``param_strategy='serve'``), its kv heads over 'model'
+  (all of them where 'model' does not divide them) and its blocks of the
+  parameters under ``param_pspecs(cfg, mesh, 'serve')``
+  (``dist.sharding.shard_params``): the vocab, heads and ffn dims over
+  'model', the experts over every axis.  The layers compute on those
+  blocks with explicit collectives where the layout read off the same
+  spec tree says so (``dist.sharding.tp_layout``, ``models.lm``), so a
+  rank holds about 1 / model of the weights.
+
+Either way everything after a layer's collectives is replicated over
+'model', and the host state (tokens, a Scheduler's tables) stays equal
+across ranks by construction.  ``generate`` returns the whole (B, G)
+tokens on every rank.  The frontend and recurrent families, MLA or a
+``param_strategy`` other than 'serve' under a tensor-parallel 'model'
+axis, a paged engine with a data axis, the prefix cache and chunked
+prefill under a mesh, and durable serving under a mesh raise
+``NotImplementedError`` (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -136,14 +149,15 @@ def _unported(cfg, ecfg: EngineConfig, mesh_shape) -> Optional[str]:
                 "decode_shard='seq'")
     if ecfg.paged and mesh_shape[0] > 1:
         return "paged=True with a data axis of more than one rank"
-    if ecfg.decode_shard != "seq" and mesh_shape[1] > 1:
-        # the JAX cache layout then puts the kv heads over 'model', and
-        # the port's parameters are whole on every rank
-        return ("a 'model' axis of more than one rank without "
-                "decode_shard='seq' (tensor-parallel heads)")
-    if ecfg.decode_shard == "seq" and (ecfg.prefix_cache
-                                       or ecfg.chunked_prefill):
-        return "the prefix cache or chunked prefill with decode_shard='seq'"
+    tp = ecfg.decode_shard != "seq" and mesh_shape[1] > 1
+    if tp and ecfg.param_strategy != "serve":
+        return (f"param_strategy={ecfg.param_strategy!r} on a "
+                "tensor-parallel 'model' axis (tensor-parallel serving "
+                "lays the weights out by 'serve')")
+    if tp and cfg.mla is not None:
+        return "MLA attention on a tensor-parallel 'model' axis"
+    if ecfg.prefix_cache or ecfg.chunked_prefill:
+        return "the prefix cache or chunked prefill under a mesh"
     return None
 
 
@@ -187,9 +201,11 @@ class DecodeEngine:
     """Owns config + parameters on one device + the step functions.
 
     ``params`` may be a ready parameter tree (moved to ``device``) or
-    None to initialize random parameters from ``seed``.  ``mesh`` (a
-    ``launch.mesh.Mesh`` of this rank) defaults to ``make_local_mesh(
-    *ecfg.mesh_shape)``; a mesh's device is the engine's."""
+    None to initialize random parameters from ``seed``; a whole tree
+    either way, which a tensor-parallel engine cuts into its blocks
+    (``params``).  ``mesh`` (a ``launch.mesh.Mesh`` of
+    this rank) defaults to ``make_local_mesh(*ecfg.mesh_shape)``; a
+    mesh's device is the engine's."""
 
     def __init__(self, cfg, ecfg: EngineConfig, params=None,
                  device="cuda", seed: int = 0, mesh=None):
@@ -252,8 +268,22 @@ class DecodeEngine:
         if params is None:
             params = lm.init(cfg, seed=seed, device=self.device)
         self.params = map_tree(lambda t: t.to(self.device), params)
-        self.prefill_fn = steps.build_prefill(cfg)
-        self.decode_fn = steps.build_decode(cfg, self.step_mesh)
+        # tensor-parallel serving: the rank's blocks of the parameters
+        # under the 'serve' specs, the layout the layers read off them,
+        # and a cache of its kv heads (the cache constructors read the
+        # count from the config they are given); another strategy, which
+        # only a data-only mesh lets through, keeps them whole
+        self.cache_cfg, self.layout = cfg, None
+        if self.distributed and not seq and ecfg.param_strategy == "serve":
+            specs = SH.param_pspecs(cfg, self.mesh, "serve")
+            self.params = SH.shard_params(self.params, specs, self.mesh)
+            self.layout = SH.tp_layout(specs, self.mesh)
+            if cfg.mla is None:     # MLA's latent caches have no heads
+                self.cache_cfg = cfg.replace(n_kv_heads=self._kv_heads(cfg))
+        self.prefill_fn = steps.build_prefill(cfg, self.step_mesh,
+                                              self.layout)
+        self.decode_fn = steps.build_decode(cfg, self.step_mesh,
+                                            self.layout)
         # built for every paged token-only engine, so a Scheduler can
         # turn either mode on per stream whatever the EngineConfig
         # defaults
@@ -270,6 +300,18 @@ class DecodeEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _kv_heads(self, cfg) -> int:
+        """This rank's kv heads under the cache's spec (the kv-head dim of
+        ``paged_cache_pspecs`` / ``cache_pspecs``: 'model' where it
+        divides them)."""
+        if self.ecfg.paged:
+            specs = SH.paged_cache_pspecs(cfg, self.mesh, self.ecfg.batch,
+                                          n_pages=self.n_pages)
+        else:
+            specs = SH.cache_pspecs(cfg, self.mesh, self.ecfg.batch)
+        kv = (specs["moe"] if cfg.family == "moe" else specs)["k"]
+        return SH.block_span(self.mesh, kv[3], cfg.n_kv_heads)[1]
 
     @torch.no_grad()
     def _blocks(self, cfg, seq: bool):
@@ -330,7 +372,7 @@ class DecodeEngine:
                                       self.default_block_table(),
                                       slab=self.page_slab)
         else:
-            cache = pad_cache_from_prefill(self.cfg, caches, B,
+            cache = pad_cache_from_prefill(self.cache_cfg, caches, B,
                                            self.ecfg.max_len,
                                            enc_len=enc_len,
                                            span=self.seq_slab)
@@ -346,7 +388,7 @@ class DecodeEngine:
         if not self.ecfg.paged:
             raise ValueError("init_paged_cache() needs paged=True")
         return paged_cache.init_paged_cache(
-            self.cfg, self.n_pages if self.page_slab is None
+            self.cache_cfg, self.n_pages if self.page_slab is None
             else self.page_slab[1], self.page_size, self.ecfg.batch,
             enc_len=(enc_len if enc_len is not None
                      else self.ecfg.max_len),

@@ -30,9 +30,11 @@ decode between steps.
 On an engine whose pools are sequence-sharded over a mesh
 (``decode_shard='seq'``), every rank runs its own Scheduler over the
 global allocator and tables, and writes only the pages its slab holds;
-the combine gives every rank the same logits, so the ranks admit,
-preempt and retire alike.  The prefix cache, chunked prefill and the
-durability hooks are refused there (ROADMAP queue 1 item 14).
+on a tensor-parallel engine, every rank's pools hold its kv heads of
+every page.  Either way the collectives give every rank the same
+logits, so the ranks admit, preempt and retire alike.  The prefix
+cache, chunked prefill and the durability hooks are refused under a
+mesh (ROADMAP queue 1 item 14).
 
 Every request walks a status machine (PREFILLING only with chunked
 prefill)::

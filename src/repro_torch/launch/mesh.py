@@ -97,30 +97,36 @@ class Mesh:
         return f"Mesh({self.shape}, {where})"
 
     # ------------------------------------------------------------------
-    # collectives over one axis (identities on an axis of one rank)
+    # collectives over one axis, or over a tuple of axes (a spec entry's;
+    # identities on an axis of one rank)
     # ------------------------------------------------------------------
 
-    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum"
+    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum"
                    ) -> torch.Tensor:
-        """``t`` reduced over ``axis`` in place ('sum' or 'max'); every
-        rank of the axis gets the same bits."""
-        if self.axis_size(axis) > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
-                            else dist.ReduceOp.SUM,
-                            group=self.groups[axis])
+        """``t`` reduced over ``axis`` (a name or a tuple of names) in
+        place ('sum' or 'max'); every rank of the axes gets the same
+        bits."""
+        for a in _axes(axis):
+            if self.axis_size(a) > 1:
+                dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                                else dist.ReduceOp.SUM,
+                                group=self.groups[a])
         return t
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0
+    def all_gather(self, t: torch.Tensor, axis, dim: int = 0
                    ) -> torch.Tensor:
         """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in
-        coordinate order."""
-        n = self.axis_size(axis)
-        if n == 1:
-            return t
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=self.groups[axis])
-        return torch.cat(parts, dim)
+        coordinate order; over a tuple of axes, in the order of the block
+        index (row-major over them, the innermost varying fastest)."""
+        for a in reversed(_axes(axis)):
+            n = self.axis_size(a)
+            if n == 1:
+                continue
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=self.groups[a])
+            t = torch.cat(parts, dim)
+        return t
 
     def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int = 0
                        ) -> torch.Tensor:
@@ -170,6 +176,10 @@ class Mesh:
         out = [None] * self.size
         dist.all_gather_object(out, obj)
         return out
+
+
+def _axes(axis) -> tuple:
+    return axis if isinstance(axis, tuple) else (axis,)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -13,9 +13,12 @@ D * M ranks itself (``launch.mesh.run_ranks``; the kernels are built
 once, in this process, before it), one engine a rank: the dense cache's
 batch split over 'data' and, with ``--shard seq``, the KV cache
 sequence-sharded over 'model' (distributed FlashDecoding,
-``dist.decode``).  Ranks sharing one GPU talk over ``gloo``, ranks with
-a GPU each over ``nccl`` (``launch.mesh.transport``).  Rank 0 prints the
-same lines as ``--data-model 1 1``.  Durable serving (``--snapshot-dir``)
+``dist.decode``), the weights whole on every rank; without it
+tensor-parallel, each rank its blocks of the weights over 'model' (and
+of the experts over every axis) and its kv heads of the cache.  Ranks
+sharing one GPU talk over ``gloo`` (through the host), ranks with a GPU
+each over ``nccl`` (``launch.mesh.transport``).  Rank 0 prints the same
+lines as ``--data-model 1 1``.  Durable serving (``--snapshot-dir``)
 under a mesh is not ported (ROADMAP queue 1 item 14).
 
 On the card (a ~100M-class shrink of the model, batched requests):
@@ -28,6 +31,9 @@ On the CPU (the reduced config, the plain versions):
 Sequence-sharded over two ranks on one card:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch tinyllama-1.1b --data-model 1 2 --shard seq
+Tensor-parallel over two ranks on one card (half the weights a rank):
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch tinyllama-1.1b --data-model 1 2
 """
 from __future__ import annotations
 

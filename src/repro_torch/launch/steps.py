@@ -39,7 +39,7 @@ from repro_torch.dist import sharding as SH
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 
-# tensor-parallel layers are not ported: a 'model' axis > 1 refuses
+# the tensor-parallel layers serve only: a 'model' axis > 1 refuses
 ITEM_14_TP = ("tensor-parallel layers ('model' axis > 1) are not ported "
               "to repro_torch yet: ROADMAP.md queue 1 item 14")
 
@@ -269,19 +269,21 @@ def _data_parallel_step(cfg, opt_cfg, mesh, zero1):
 # ======================================================================
 
 
-def build_prefill(cfg):
+def build_prefill(cfg, mesh=None, layout=None):
+    """Full-sequence prefill (``lm.prefill``); ``mesh`` / ``layout`` the
+    layout of this rank's rows and parameters."""
     def prefill_step(params, batch):
-        return lm.prefill(params, batch, cfg)
+        return lm.prefill(params, batch, cfg, mesh=mesh, layout=layout)
     return prefill_step
 
 
-def build_decode(cfg, mesh=None):
+def build_decode(cfg, mesh=None, layout=None):
     """One-token serve step: over the dense cache, or over the paged
     pools when the batch carries a ``block_table`` (``lm.decode_step``
-    routes it to ``lm.paged_decode_step``); ``mesh`` the layout of this
-    rank's operands (``lm.decode_step``)."""
+    routes it to ``lm.paged_decode_step``); ``mesh`` / ``layout`` the
+    layout of this rank's operands and parameters (``lm.decode_step``)."""
     def serve_step(params, batch):
-        return lm.decode_step(params, batch, cfg, mesh=mesh)
+        return lm.decode_step(params, batch, cfg, mesh=mesh, layout=layout)
     return serve_step
 
 

@@ -10,6 +10,14 @@ goes through the hand-written kernels (``repro_torch.kernels.ops``).
 Decode and chunk-prefix attention return unnormalized partials
 ``(o_tilde, m, l)`` so that slabs, shards and a chunk's own causal
 block can be combined (``merge_partials``, ``dist.decode``).
+
+Tensor parallelism (``param_pspecs``' 'serve' layout): a rank's ``wq``
+/ ``bq`` hold its block of the query heads over 'model', its ``wk`` /
+``wv`` / ``bk`` / ``bv`` its block of the kv heads where 'model' divides
+them (else all of them), and ``qkv_proj`` runs unchanged on those
+blocks.  ``kv_for_heads`` picks the kv heads a block of query heads
+reads out of all of them, and ``o_proj`` with a ``mesh`` is
+row-parallel over the rank's heads (one all-reduce over 'model').
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import torch
 
 from repro_torch.common.module import ParamDef, zeros_init
 from repro_torch.kernels import dispatch as D
-from repro_torch.models.layers import apply_rope, dt
+from repro_torch.models.layers import (apply_rope, dt, rank_residual,
+                                       row_parallel)
 
 NEG_INF = -1e30
 
@@ -99,10 +108,37 @@ def _o_proj_cuda(p, o, residual=None):
     return out.reshape(B, S, d)
 
 
-def o_proj(p, o, backend="cuda", residual=None):
+def o_proj(p, o, backend="cuda", residual=None, mesh=None):
     """Output projection; with ``residual`` returns residual + o @ wo —
-    fused into the kernel's epilogue on the 'cuda' path."""
-    return D.dispatch("o_proj", backend, p, o, residual=residual)
+    fused into the kernel's epilogue on the 'cuda' path.  With ``mesh``
+    ``o`` and ``wo`` hold this rank's heads over 'model': the partial
+    takes the residual at 'model' coordinate 0 only and one all-reduce
+    over 'model' sums the partials."""
+    out = D.dispatch("o_proj", backend, p, o,
+                     residual=rank_residual(residual, mesh))
+    return row_parallel(out, mesh)
+
+
+def kv_for_heads(n_heads: int, n_kv: int, h0: int, hl: int):
+    """The kv heads that query heads [h0, h0 + hl) of ``n_heads`` read
+    (kv-major groups of ``n_heads // n_kv``), as an index into all
+    ``n_kv``: a slice where the block holds whole groups (``hl`` a
+    multiple of the group) or shares one kv head (``hl`` dividing it,
+    ``h0`` a multiple of ``hl``), so the block's own grouping reads them;
+    else a list of one kv head a query head (group 1)."""
+    G = n_heads // n_kv
+    if hl % G == 0 or G % hl == 0:
+        k0 = h0 // G
+        return slice(k0, k0 + max(hl // G, 1))
+    return [(h0 + j) // G for j in range(hl)]
+
+
+def take_heads(t, index, dim: int):
+    """``t``'s heads ``index`` (``kv_for_heads``) along ``dim``: a view
+    for a slice, a copy for a list."""
+    if isinstance(index, slice):
+        return t.narrow(dim, index.start, index.stop - index.start)
+    return t.index_select(dim, torch.tensor(index, device=t.device))
 
 
 # ---------------- blockwise flash attention (prefill) ----------------

@@ -4,6 +4,12 @@ Counterpart of ``repro.models.layers`` (logical axis names kept).  The
 ``swiglu`` and ``mlp`` ops are registered here per dispatch backend:
 'torch' is the plain formulation, 'cuda' goes through the hand-written
 kernels (``repro_torch.kernels.ops``).
+
+Tensor parallelism: ``embed``, ``unembed`` and ``mlp`` take a ``mesh``
+when their parameters are this rank's blocks over the mesh's 'model'
+axis (``dist.sharding.param_pspecs``' 'serve' layout: the vocab, the ffn
+dim), and add the collectives the one-device layer does not need; the
+caller passes None for whole parameters.
 """
 from __future__ import annotations
 
@@ -105,8 +111,19 @@ class _Lookup(torch.autograd.Function):
         return acc.to(g.dtype), None
 
 
-def embed(p, tokens):
+def embed(p, tokens, mesh=None):
+    """The rows of ``tokens``.  With ``mesh`` the table is this rank's
+    block of the vocab over 'model' (rows [v0, v0 + V_l)): the ids in
+    that range take their rows, the others zeros, and one all-reduce over
+    'model' sums the blocks (exact: each sum has one non-zero term)."""
     table = p["table"]
+    if mesh is not None:
+        n = table.shape[0]
+        ids = tokens.long() - mesh.coord("model") * n
+        mine = (ids >= 0) & (ids < n)
+        rows = table[ids.clamp(0, n - 1)]
+        return mesh.all_reduce(torch.where(mine[..., None], rows,
+                                           rows.new_zeros(())), "model")
     if torch.is_grad_enabled() and table.requires_grad:
         return _Lookup.apply(table, tokens.long())
     return table[tokens.long()]
@@ -116,8 +133,12 @@ def unembed_spec(vocab, d, dtype):
     return {"w": ParamDef((d, vocab), dtype, ("embed", "vocab"))}
 
 
-def unembed(p, x):
-    return x @ p["w"]
+def unembed(p, x, mesh=None):
+    """``x @ w``; with ``mesh`` ``w`` is this rank's vocab columns over
+    'model', and the logits' blocks are gathered over 'model' into the
+    whole vocab."""
+    out = x @ p["w"]
+    return out if mesh is None else mesh.all_gather(out, "model", -1)
 
 
 # ---------------- MLP ----------------
@@ -181,12 +202,33 @@ def _mlp_cuda(p, x, act, residual=None):
     return out.reshape(*lead, out.shape[-1])
 
 
-def mlp(p, x, act: str, *, backend="cuda", residual=None):
+def row_parallel(out, mesh):
+    """A row-parallel product's partial ``out`` summed over ``mesh``'s
+    'model' axis, in place, in the model dtype (unchanged without a
+    mesh).  Summing fp32 partials with the residual added after the sum
+    parted as many greedy streams from one device's at bf16 (PERF.md),
+    and would unfuse the residual from kernel 1's epilogue."""
+    return out if mesh is None else mesh.all_reduce(out, "model")
+
+
+def rank_residual(residual, mesh):
+    """The residual a row-parallel partial adds: the whole residual at
+    'model' coordinate 0 only, so the sum over 'model' adds it once."""
+    return None if mesh is not None and mesh.coord("model") else residual
+
+
+def mlp(p, x, act: str, *, backend="cuda", residual=None, mesh=None):
     """FFN block via the dispatch registry.  With ``residual`` the
     residual add is part of the block (``residual + mlp(x)``); on the
     'cuda' path it is fused into the down-projection's epilogue.
-    ``backend`` is a backend string or a ModelConfig."""
-    return D.dispatch("mlp", backend, p, x, act, residual=residual)
+    ``backend`` is a backend string or a ModelConfig.  With ``mesh`` the
+    ffn dim is split over 'model': ``wi`` / ``wg`` are this rank's
+    columns (column-parallel, kernel 2 on them) and ``wo`` its rows
+    (row-parallel, kernel 1), and one all-reduce over 'model' sums the
+    partials (``rank_residual``, ``row_parallel``)."""
+    out = D.dispatch("mlp", backend, p, x, act,
+                     residual=rank_residual(residual, mesh))
+    return row_parallel(out, mesh)
 
 
 # ---------------- frontends (stubs: precomputed embeddings) ----------------

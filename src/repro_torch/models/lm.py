@@ -75,6 +75,21 @@ under autograd; the moe family's ``backbone`` returns the MoE aux losses
 averaged over its MoE layers.
 
 ``cfg.kernel_impl`` selects the dispatch backend ('torch' | 'cuda' | 'auto').
+
+Tensor-parallel serving: ``prefill``, ``decode_step`` and
+``paged_decode_step`` take a ``layout`` (``dist.sharding.TPLayout``)
+when the parameters are this rank's blocks under ``dist.sharding.
+param_pspecs(cfg, mesh, 'serve')`` (``DecodeEngine`` cuts them and reads
+the layout off the same spec tree).  The layout says which parts are
+split: the vocab-parallel embedding and head (``layers.embed`` /
+``unembed``), column- then row-parallel attention (the rank's query
+heads, its kv heads where 'model' divides them, else all of them,
+``_read_kv``) and MLP, and the expert-parallel MoE FFN
+(``moe.moe_ffn``), each with its collectives over the layout's mesh.
+Without a layout the parameters are whole and compute as on one device;
+the caches and pools then hold the rank's kv heads, the layout of
+``cache_pspecs`` / ``paged_cache_pspecs``.  The dense and moe families
+with GQA attention serve this way.
 """
 from __future__ import annotations
 
@@ -289,6 +304,28 @@ def _maybe_remat(cfg, fn):
     return body
 
 
+def _on(layout, part: str):
+    """The mesh ``part`` of the model is split over under ``layout``
+    (``dist.sharding.TPLayout.on``), or None: whole parameters, the
+    one-device computation."""
+    return None if layout is None else layout.on(part)
+
+
+def _read_kv(cfg, layout, hl: int, *pairs):
+    """The kv heads this rank's ``hl`` query heads read, from each
+    (tensor, kv dim) pair (keys, values, their int8 scales; None passes):
+    the tensors as they are unless ``layout`` splits the query heads
+    while the kv heads stay whole ('model' does not divide them), then
+    their heads by ``attention.kv_for_heads``."""
+    tp = _on(layout, "heads")
+    if tp is None or layout.kv:
+        return tuple(t for t, _ in pairs)
+    index = A.kv_for_heads(cfg.n_heads, cfg.n_kv_heads,
+                           tp.coord("model") * hl, hl)
+    return tuple(None if t is None else A.take_heads(t, index, d)
+                 for t, d in pairs)
+
+
 def _layer(stacked, i: int):
     """Layer ``i``'s parameters (or cache): views into the stacks."""
     return M.map_tree(lambda a: a[i], stacked)
@@ -372,38 +409,59 @@ def _run_groups(cfg, params, x, layer, collect):
 # prefill: tokens -> final hidden states (+ the per-layer KV)
 # ======================================================================
 
-def _attn_delta(cfg, ap, h, positions, *, causal=True, residual=None):
+def _attn_delta(cfg, ap, h, positions, *, causal=True, residual=None,
+                layout=None):
     """h already normed.  Returns (residual + attn(h) if residual is
     given else attn(h), (k, v)) for cache building — (c_kv, k_rope) for
     MLA, whose prefill is the expanded form on the blockwise path.  The
     'cuda' attention op runs the prefill kernel for causal calls and the
-    blockwise formulation for the non-causal (encoder) ones."""
+    blockwise formulation for the non-causal (encoder) ones.  Under a
+    ``layout`` that splits the heads, (k, v) are the rank's kv heads (all
+    of them where 'model' does not divide them)."""
     if cfg.mla is not None:
         out, kv = MLA.mla_attention(ap, h, positions, cfg,
                                     dense=cfg.accounting)
         return (out if residual is None else residual + out), kv
     q, k, v = A.qkv_proj(ap, h, positions, cfg.rope_theta, cfg)
-    o = D.dispatch("attention", cfg, q, k, v, causal=causal,
+    kr, vr = _read_kv(cfg, layout, q.shape[2], (k, 2), (v, 2))
+    o = D.dispatch("attention", cfg, q, kr, vr, causal=causal,
                    q_positions=positions, kv_positions=positions,
                    block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
-    return A.o_proj(ap, o, cfg, residual=residual), (k, v)
+    return A.o_proj(ap, o, cfg, residual=residual,
+                    mesh=_on(layout, "heads")), (k, v)
 
 
-def _dense_body(cfg, positions, x, lp, *, causal=True):
+def _dense_body(cfg, positions, x, lp, *, causal=True, layout=None):
     x, kv = _attn_delta(cfg, lp["attn"], _norm(cfg, lp["attn_norm"], x),
-                        positions, causal=causal, residual=x)
+                        positions, causal=causal, residual=x, layout=layout)
     x = L.mlp(lp["mlp"], _norm(cfg, lp["mlp_norm"], x), cfg.act,
-              backend=cfg, residual=x)
+              backend=cfg, residual=x, mesh=_on(layout, "ffn"))
     return x, kv
 
 
-def _moe_body(cfg, positions, x, lp):
+def _moe_rows(cfg, p, h, mesh, layout, stats=False):
+    """``moe.moe_ffn`` of this rank's prefill rows h (B, S, D), a group a
+    row.  Experts split over every axis (``layout``) need every rank to
+    hold the same groups: rows split over ``mesh``'s 'data' axis are
+    gathered first and this rank's taken back out of y."""
+    if _on(layout, "experts") is None or mesh is None \
+            or mesh.axis_size("data") == 1:
+        return MOE.moe_ffn(p, h, cfg, stats=stats, layout=layout)
+    out = MOE.moe_ffn(p, mesh.all_gather(h, "data", 0), cfg, stats=stats,
+                      layout=layout)
+    b = h.shape[0]
+    b0 = mesh.coord("data") * b
+    return (out[0][b0:b0 + b], *out[1:])
+
+
+def _moe_body(cfg, positions, x, lp, mesh=None, layout=None):
     """Returns (x, (k, v), the MoE FFN's aux losses and its load
     statistics ``me`` / ``ce``)."""
     x, kv = _attn_delta(cfg, lp["attn"], _norm(cfg, lp["attn_norm"], x),
-                        positions, residual=x)
-    y, aux, (me, ce) = MOE.moe_ffn(lp["moe"], _norm(cfg, lp["mlp_norm"], x),
-                                   cfg, stats=True)
+                        positions, residual=x, layout=layout)
+    y, aux, (me, ce) = _moe_rows(cfg, lp["moe"],
+                                 _norm(cfg, lp["mlp_norm"], x), mesh,
+                                 layout, stats=True)
     return x + y, kv, {**aux, "me": me, "ce": ce}
 
 
@@ -528,7 +586,8 @@ class ForwardOut(NamedTuple):
 
 
 def backbone(params, tokens, cfg, *, frontend_emb=None,
-             enc_tokens_valid=None, collect_cache=False) -> ForwardOut:
+             enc_tokens_valid=None, collect_cache=False,
+             mesh=None, layout=None) -> ForwardOut:
     """tokens: (B, S) int; frontend_emb: (B, S_f, frontend_dim) or None —
     for 'vlm' projected and put before the token embeddings (the
     sequence is S_f + S), for 'audio' the encoder's input (the tokens
@@ -543,9 +602,13 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
 
     ``aux``: for the moe family ``lb_loss``, ``z_loss_router`` and
     ``drop_frac``, each the mean over the MoE layers; empty otherwise.
-    Every layer body runs through ``_maybe_remat``."""
+    Every layer body runs through ``_maybe_remat``.  ``mesh``: the
+    layout of this rank's rows; ``layout``: of its parameters (the module
+    docstring; the dense and moe families), whose caches are then the
+    rank's kv heads."""
     _check_family(cfg)
-    x = L.embed(params["embed"], tokens).to(L.dt(cfg))
+    x = L.embed(params["embed"], tokens,
+                _on(layout, "vocab")).to(L.dt(cfg))
     if ssm_decode_supported(cfg):
         x, caches = (_ssm_backbone if cfg.family == "ssm"
                      else _hybrid_backbone)(params, x, cfg)
@@ -576,10 +639,10 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
         return ForwardOut(h=_norm(cfg, params["final_norm"], x), aux={},
                           caches=caches)
 
-    dense_body = _maybe_remat(cfg, functools.partial(_dense_body, cfg,
-                                                     positions))
-    moe_body = _maybe_remat(cfg, functools.partial(_moe_body, cfg,
-                                                   positions))
+    dense_body = _maybe_remat(cfg, functools.partial(
+        _dense_body, cfg, positions, layout=layout))
+    moe_body = _maybe_remat(cfg, functools.partial(
+        _moe_body, cfg, positions, mesh=mesh, layout=layout))
     moe_aux = []
 
     def layer(x, lp, key, i, moe):
@@ -603,11 +666,14 @@ def backbone(params, tokens, cfg, *, frontend_emb=None,
                       caches=caches, moe_stats=stats)
 
 
-def _logits(params, h, cfg):
+def _logits(params, h, cfg, layout=None):
+    """The logits of h over the whole (padded) vocab; under a ``layout``
+    that splits the vocab, the blocks gathered first."""
+    tp = _on(layout, "vocab")
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["table"].T
+        logits = L.unembed({"w": params["embed"]["table"].T}, h, tp)
     else:
-        logits = L.unembed(params["unembed"], h)
+        logits = L.unembed(params["unembed"], h, tp)
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab
         logits = torch.where(pad, -1e30, logits.float()).to(logits.dtype)
@@ -702,15 +768,16 @@ def train_loss(params, batch, cfg):
     return total, metrics
 
 
-def prefill(params, batch, cfg):
+def prefill(params, batch, cfg, mesh=None, layout=None):
     """Full-sequence prefill of ``batch["tokens"]`` (+ ``frontend_emb``
     for the frontend families): returns (last-token logits (B, V) fp32,
     the cache stacks of ``backbone``); ``engine.pad_cache_from_prefill``
-    pads them into a fixed-size decode cache."""
+    pads them into a fixed-size decode cache.  ``mesh`` / ``layout``: of
+    this rank's rows and parameters (``backbone``)."""
     out = backbone(params, batch["tokens"], cfg,
                    frontend_emb=batch.get("frontend_emb"),
-                   collect_cache=True)
-    logits = _logits(params, out.h[:, -1:, :], cfg)[:, 0]
+                   collect_cache=True, mesh=mesh, layout=layout)
+    logits = _logits(params, out.h[:, -1:, :], cfg, layout)[:, 0]
     return logits.float(), out.caches
 
 
@@ -1013,12 +1080,15 @@ def _decode_attend(cfg, q, ck, cv, n_valid, mesh=None):
                             mesh=mesh, seq_shard=mesh is not None)
 
 
-def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope, mesh=None):
+def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope, mesh=None,
+                layout=None):
     """h: (B, D) normed; ck/cv: (B, T, KV, Dh) this layer's cache, written
     in place at ``cur_len``; rope: the (cos, sin) tables of ``cur_len``.
     With ``mesh`` (``_seq_mesh``) ck / cv are this rank's slab, and only
-    the rank that holds ``cur_len`` writes.  Returns the attention delta
-    (B, D)."""
+    the rank that holds ``cur_len`` writes.  Under a ``layout`` that
+    splits the heads the projections are the rank's heads, ck / cv its kv
+    heads, and the output projection's partials are summed over 'model'.
+    Returns the attention delta (B, D)."""
     # plain products, as in the JAX decode step (its einsums stay XLA)
     q = torch.einsum("bd,dhk->bhk", h, lp["wq"])
     k = torch.einsum("bd,dhk->bhk", h, lp["wk"])
@@ -1034,8 +1104,10 @@ def _decode_gqa(cfg, lp, h, ck, cv, cur_len, rope, mesh=None):
     if t is not None:
         ck[:, t] = k
         cv[:, t] = v
-    o = _decode_attend(cfg, q, ck, cv, cur_len + 1, mesh)
-    return torch.einsum("bhk,hkd->bd", o, lp["wo"])
+    kr, vr = _read_kv(cfg, layout, q.shape[1], (ck, 2), (cv, 2))
+    o = _decode_attend(cfg, q, kr, vr, cur_len + 1, mesh)
+    return L.row_parallel(torch.einsum("bhk,hkd->bd", o, lp["wo"]),
+                          _on(layout, "heads"))
 
 
 def _mla_token(cfg, lp, h, rope):
@@ -1066,13 +1138,16 @@ def _decode_mla(cfg, lp, h, cckv, ckr, cur_len, rope, mesh=None):
     return MLA.mla_decode_finish(lp, o.float(), cfg).to(h.dtype)
 
 
-def _decode_attn_delta(cfg, ap, h, cs, cur_len, rope, mesh=None):
+def _decode_attn_delta(cfg, ap, h, cs, cur_len, rope, mesh=None,
+                       layout=None):
     """Attention step of the dense-cache decode: MLA or GQA on this
-    layer's cache slice ``cs``."""
+    layer's cache slice ``cs``; ``mesh`` the seq mesh (``_seq_mesh``),
+    ``layout`` the parameters' (``_decode_gqa``)."""
     if cfg.mla is not None:
         return _decode_mla(cfg, ap, h, cs["ckv"], cs["krope"], cur_len,
                            rope, mesh)
-    return _decode_gqa(cfg, ap, h, cs["k"], cs["v"], cur_len, rope, mesh)
+    return _decode_gqa(cfg, ap, h, cs["k"], cs["v"], cur_len, rope, mesh,
+                       layout)
 
 
 def _decode_cross(cfg, lp, h, xk, xv):
@@ -1095,21 +1170,25 @@ def _audio_layer(cfg, lp, x, self_delta, cross_delta):
                      backend=cfg)
 
 
-def _ffn_delta(cfg, lp, x, moe: bool, mesh=None):
+def _ffn_delta(cfg, lp, x, moe: bool, mesh=None, layout=None):
     """The decode FFN's delta: the MLP, or the MoE FFN over all B slots
     as one group, inactive slots included, as the JAX decode step groups
     them (a slot's capacity depends on its neighbours).  With the rows
     split over ``mesh``'s 'data' axis the MoE group is still the whole
-    batch: the rows are gathered for it and this rank's taken back."""
+    batch: the rows are gathered for it and this rank's taken back.  The
+    parameters may be the rank's blocks under ``layout`` (``L.mlp``,
+    ``moe.moe_ffn``)."""
     h = _norm(cfg, lp["mlp_norm"], x)
     if moe:
         if mesh is None or mesh.axis_size("data") == 1:
-            return MOE.moe_ffn(lp["moe"], h[None], cfg)[0][0]
+            return MOE.moe_ffn(lp["moe"], h[None], cfg,
+                               layout=layout)[0][0]
         b0, b = mesh.coord("data") * h.shape[0], h.shape[0]
         y = MOE.moe_ffn(lp["moe"], mesh.all_gather(h, "data")[None],
-                        cfg)[0][0]
+                        cfg, layout=layout)[0][0]
         return y[b0:b0 + b]
-    return L.mlp(lp["mlp"], h, cfg.act, backend=cfg)
+    return L.mlp(lp["mlp"], h, cfg.act, backend=cfg,
+                 mesh=_on(layout, "ffn"))
 
 
 def _hybrid_decode(params, x, cache, cur, rope, cfg):
@@ -1168,7 +1247,7 @@ def ssm_decode_supported(cfg) -> bool:
     return cfg.family in ("hybrid", "ssm")
 
 
-def decode_step(params, batch, cfg, mesh=None):
+def decode_step(params, batch, cfg, mesh=None, layout=None):
     """One-token serve step.  batch: ``token`` (B,), ``cur_len`` (host
     int: every slot at the same position), ``cache`` (updated in place;
     the audio family's cross pair is read whole, as the encoder's; the
@@ -1178,19 +1257,23 @@ def decode_step(params, batch, cfg, mesh=None):
 
     ``mesh`` (``launch.mesh.Mesh``; the dense and moe families) is the
     layout of this rank's operands: its rows of the batch when the
-    mesh's 'data' axis has more than one rank, and with
+    mesh's 'data' axis has more than one rank, with
     ``cfg.decode_shard == 'seq'`` its slab of the cache's sequence over
-    'model' (``dist.sharding.cache_pspecs``).  The logits of this rank's
-    rows come out equal on every rank of the 'model' axis.
+    'model' (``dist.sharding.cache_pspecs``).  ``layout``
+    (``dist.sharding.TPLayout``): the parameters are the rank's blocks
+    and the cache its kv heads (the module docstring).  The logits of
+    this rank's rows come out equal on every rank of the 'model' axis.
 
     Returns (logits (B, vocab_padded) fp32, cache)."""
     if "block_table" in batch:
-        return paged_decode_step(params, batch, cfg, mesh=mesh)
+        return paged_decode_step(params, batch, cfg, mesh=mesh,
+                                 layout=layout)
     _check_family(cfg)
     smesh = _seq_mesh(cfg, mesh)
     cur = int(batch["cur_len"])
     cache = batch["cache"]
-    x = L.embed(params["embed"], batch["token"]).to(L.dt(cfg))  # (B, D)
+    x = L.embed(params["embed"], batch["token"],
+                _on(layout, "vocab")).to(L.dt(cfg))  # (B, D)
     # torch.full fills on the device (a tensor copied from a host scalar
     # would sync the stream)
     rope = _step_rope(cfg, torch.full((1,), cur, dtype=torch.float32,
@@ -1217,10 +1300,10 @@ def decode_step(params, batch, cfg, mesh=None):
                 h = _norm(cfg, lp["attn_norm"], x)
                 x = x + _decode_attn_delta(cfg, lp["attn"], h,
                                            _layer(group, i), cur, rope,
-                                           smesh)
-                x = x + _ffn_delta(cfg, lp, x, moe, mesh)
+                                           smesh, layout)
+                x = x + _ffn_delta(cfg, lp, x, moe, mesh, layout)
     h = _norm(cfg, params["final_norm"], x)
-    logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
+    logits = _logits(params, h[:, None, :], cfg, layout)[:, 0].float()
     return logits, cache
 
 
@@ -1338,12 +1421,14 @@ def _pool_write(pool, scales, meta, x):
         pool[meta.pages, meta.offs] = x.to(pool.dtype)
 
 
-def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope, mesh=None):
+def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope, mesh=None,
+                      layout=None):
     """h: (B, D) normed; kp/vp: this layer's (n_pages, ps, KV, Dh)
     pools, written in place at each active slot's position; ks/vs its
     (n_pages, KV) scales for int8 pools, else None.  Under ``mesh``
-    (``_seq_mesh``) the pools are this rank's slab and ``meta`` its view.
-    Returns the attention delta (B, D)."""
+    (``_seq_mesh``) the pools are this rank's slab and ``meta`` its view;
+    under ``layout`` the rank's heads and kv heads, as in
+    ``_decode_gqa``.  Returns the attention delta (B, D)."""
     q = torch.einsum("bd,dhk->bhk", h, lp["wq"])
     k = torch.einsum("bd,dhk->bhk", h, lp["wk"])
     v = torch.einsum("bd,dhk->bhk", h, lp["wv"])
@@ -1353,11 +1438,14 @@ def _decode_gqa_paged(cfg, lp, h, kp, vp, ks, vs, meta, rope, mesh=None):
         q, k = _rope1(q, rope), _rope1(k, rope)
     _pool_write(kp, ks, meta, k)
     _pool_write(vp, vs, meta, v)
+    kp, vp, ks, vs = _read_kv(cfg, layout, q.shape[1], (kp, 2), (vp, 2),
+                              (ks, 1), (vs, 1))
     o = DD.paged_decode_attend(q, kp, vp, meta.table, meta.counts,
                                k_scale=ks, v_scale=vs,
                                backend=cfg.kernel_impl, mesh=mesh,
                                seq_shard=mesh is not None)
-    return torch.einsum("bhk,hkd->bd", o, lp["wo"])
+    return L.row_parallel(torch.einsum("bhk,hkd->bd", o, lp["wo"]),
+                          _on(layout, "heads"))
 
 
 def _decode_mla_paged(cfg, lp, h, ckv_pool, krope_pool, cs, rs, meta,
@@ -1395,18 +1483,20 @@ def _decode_cross_paged(cfg, lp, h, xk, xv, page_size, meta):
     return torch.einsum("bhk,hkd->bd", o, lp["wo"])
 
 
-def _paged_attn_delta(cfg, ap, h, cs, meta, rope, mesh=None):
+def _paged_attn_delta(cfg, ap, h, cs, meta, rope, mesh=None, layout=None):
     """Attention step of the paged decode: MLA or GQA on this layer's
-    pool slice ``cs``; int8 pools are told by their scales."""
+    pool slice ``cs``; int8 pools are told by their scales.  ``mesh`` the
+    seq mesh, ``layout`` the parameters' (``_decode_attn_delta``)."""
     if cfg.mla is not None:
         return _decode_mla_paged(cfg, ap, h, cs["ckv"], cs["krope"],
                                  cs.get("ckv_scale"), cs.get("krope_scale"),
                                  meta, rope, mesh)
     return _decode_gqa_paged(cfg, ap, h, cs["k"], cs["v"], cs.get("k_scale"),
-                             cs.get("v_scale"), meta, rope, mesh)
+                             cs.get("v_scale"), meta, rope, mesh, layout)
 
 
-def paged_decode_step(params, batch, cfg, meta=None, mesh=None):
+def paged_decode_step(params, batch, cfg, meta=None, mesh=None,
+                      layout=None):
     """One-token serve step over a paged KV cache.
 
     batch: ``token`` (B,), ``cur_len`` (B,) per-slot valid positions and
@@ -1424,8 +1514,9 @@ def paged_decode_step(params, batch, cfg, meta=None, mesh=None):
     ``mesh``: with ``cfg.decode_shard == 'seq'`` the pools are this
     rank's slab of a pool sharded over its 'model' axis
     (``dist.sharding.paged_cache_pspecs``), the table and lengths the
-    replicated global ones.  Returns (logits (B, vocab_padded) fp32,
-    cache)."""
+    replicated global ones.  ``layout``: the parameters are the rank's
+    blocks and the pools its kv heads (``decode_step``).  Returns (logits
+    (B, vocab_padded) fp32, cache)."""
     # engine modules import this one: keep the import lazy
     from repro_torch.engine.paged_cache import check_family
     check_family(cfg)
@@ -1443,7 +1534,8 @@ def paged_decode_step(params, batch, cfg, meta=None, mesh=None):
             batch["token"], batch["cur_len"], batch["block_table"], ps,
             leaf.device, slab=None if smesh is None
             else (SH.block_start(smesh, "model", pp), pp), **enc)
-    x = L.embed(params["embed"], meta.token).to(L.dt(cfg))   # (B, D)
+    x = L.embed(params["embed"], meta.token,
+                _on(layout, "vocab")).to(L.dt(cfg))   # (B, D)
     rope = _step_rope(cfg, meta.pos[:, None])         # per-slot positions
     if cfg.family == "audio":
         stacked = params["layers"]
@@ -1464,8 +1556,8 @@ def paged_decode_step(params, batch, cfg, meta=None, mesh=None):
                 h = _norm(cfg, lp["attn_norm"], x)
                 x = x + _paged_attn_delta(cfg, lp["attn"], h,
                                           _layer(group, i), meta, rope,
-                                          smesh)
-                x = x + _ffn_delta(cfg, lp, x, moe)
+                                          smesh, layout)
+                x = x + _ffn_delta(cfg, lp, x, moe, mesh, layout)
     h = _norm(cfg, params["final_norm"], x)
-    logits = _logits(params, h[:, None, :], cfg)[:, 0].float()
+    logits = _logits(params, h[:, None, :], cfg, layout)[:, 0].float()
     return logits, cache

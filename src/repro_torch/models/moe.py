@@ -15,6 +15,22 @@ by its gate.  The shared expert is ``layers.mlp``, so it runs on the
 Grouping: one group per batch row for prefill; decode runs all B slots as
 one group, inactive ones included, so a slot's capacity depends on its
 neighbours exactly as in the JAX package.
+
+Expert parallelism (``moe_ffn(layout=)``, a ``dist.sharding.TPLayout``
+of ``param_pspecs``' 'serve' layout): the experts spread over every axis
+of the mesh (data x model) when E divides the product.  A rank then
+holds E / (D * M) experts and its block of ``router``, ``e_bias``,
+``wi``, ``wg`` and ``wo``; its router logits are gathered over every
+axis, so every rank routes every token of the group alike (the caller
+hands each rank the whole group), ``shard_hint`` cuts the dispatched
+tokens down to the rank's experts, and the rank's weighted outputs are
+summed over every axis in fp32.
+When E does not divide, the experts stay whole and ``expert_ff`` takes
+'model': ``wi`` / ``wg`` are column- and ``wo`` row-parallel, and the
+weighted outputs are summed over 'model'.  Either way which tokens drop
+is the one-device computation's: the routing is.  ``ep='full_ep'``
+constrains the JAX layout only, so it runs the same computation as
+'gspmd' here.
 """
 from __future__ import annotations
 
@@ -23,11 +39,13 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.hints import shard_hint
 from repro_torch.common.module import ParamDef, zeros_init
+from repro_torch.dist.sharding import PS, block_start
 from repro_torch.models.layers import dt, mlp, mlp_spec
 
-_FULL_EP = ("ep='full_ep' (expert-parallel sharding across devices) is "
-            "not ported yet: ROADMAP queue 1 item 14")
+# the axes the experts spread over (``dist.sharding.rules``: every axis)
+EP_AXES = ("data", "model")
 
 
 def moe_spec(cfg):
@@ -57,12 +75,18 @@ def moe_spec(cfg):
 
 # ---------------- routing ----------------
 
-def router_scores(p, x, cfg):
-    """x: (..., D) -> (probs (..., E) fp32, selection scores, logits)."""
+def router_scores(p, x, cfg, mesh=None):
+    """x: (..., D) -> (probs (..., E) fp32, selection scores, logits).
+    With ``mesh`` the router and ``e_bias`` are this rank's experts'
+    block over ``EP_AXES``, and the blocks are gathered into all E."""
     logits = torch.einsum("...d,de->...e", x.float(), p["router"])
+    if mesh is not None:
+        logits = mesh.all_gather(logits, EP_AXES, -1)
     if cfg.moe.score_fn == "sigmoid":
         probs = torch.sigmoid(logits)
-        sel = probs + p["e_bias"]
+        bias = p["e_bias"]
+        sel = probs + (bias if mesh is None
+                       else mesh.all_gather(bias, EP_AXES, 0))
     else:
         probs = torch.softmax(logits, dim=-1)
         sel = probs
@@ -106,23 +130,30 @@ def _positions_sort(idx_flat, n_experts):
 
 # ---------------- dispatch / combine ----------------
 
-def moe_ffn(p, x, cfg, stats: bool = False):
+def moe_ffn(p, x, cfg, stats: bool = False, layout=None):
     """x: (G, S, D) grouped tokens.  Returns (y (G, S, D), aux) with aux
     'lb_loss' (load balance), 'z_loss' (router logit magnitude) and
     'drop_frac' (share of assignments dropped by capacity).  With
     ``stats`` also the two means ``lb_loss`` is the product of, each
     (E,) over the G * S tokens: the router probability (with its
     gradient) and the assignment count (none): a data-parallel step
-    (``launch.steps``) sums them over the ranks before the product."""
+    (``launch.steps``) sums them over the ranks before the product.
+
+    ``layout``: which of ``p``'s dims are a rank's blocks, and over what
+    mesh (the module docstring; the counterpart of JAX's ``mesh``, whose
+    arrays carry their layout); ``x`` is then the same whole group on
+    every rank, and so is ``y``.  Without it ``p`` is whole and computes
+    as on one device."""
     m = cfg.moe
-    if m.ep == "full_ep":
-        raise NotImplementedError(_FULL_EP)
     G, S, D = x.shape
     E, K = m.n_experts, m.top_k
     A = S * K
     cap = int(max(1, -(-S * K * m.capacity_factor // E)))   # ceil
+    # experts split over every axis, or their ffn dim over 'model'
+    ep = None if layout is None else layout.on("experts")
+    ff = None if layout is None else layout.on("expert_ff")
 
-    probs, sel, logits = router_scores(p, x, cfg)           # (G, S, E)
+    probs, sel, logits = router_scores(p, x, cfg, ep)       # (G, S, E)
     gates, idx = top_k_gates(probs, sel, cfg)               # (G, S, K)
 
     idx_flat = idx.reshape(G, A)
@@ -145,23 +176,38 @@ def moe_ffn(p, x, cfg, stats: bool = False):
     x_pad = torch.cat([x, x.new_zeros(G, 1, D)], 1)        # row S: zeros
     xd = torch.gather(x_pad, 1, token_for_slot[..., None].expand(
         G, E * cap, D)).reshape(G, E, cap, D)
+    own = keep
+    if ep is not None:
+        # the dispatch cut: this rank's experts' slots (El of them)
+        xd = shard_hint(xd, PS(None, EP_AXES, None, None), ep)
+        e0 = block_start(ep, EP_AXES, xd.shape[1])
+        own = keep & (idx_flat >= e0) & (idx_flat < e0 + xd.shape[1])
+        slot = torch.where(own, slot - e0 * cap, xd.shape[1] * cap)
+    El = xd.shape[1]
 
     # the experts' swiglu as products batched over the expert axis
     h = torch.einsum("gecd,edf->gecf", xd, p["wi"])
     gte = torch.einsum("gecd,edf->gecf", xd, p["wg"])
     h = F.silu(gte.float()).to(h.dtype) * h
-    y_e = torch.einsum("gecf,efd->gecd", h, p["wo"])        # (G,E,cap,D)
+    y_e = torch.einsum("gecf,efd->gecd", h, p["wo"])        # (G,El,cap,D)
 
-    # combine: each assignment's slot output, weighted by its gate
-    y_flat = torch.cat([y_e.reshape(G, E * cap, D),
+    # combine: each assignment's slot output, weighted by its gate; on a
+    # mesh the ranks' fp32 partials (their experts', or their ffn
+    # blocks') are summed before the one cast
+    y_flat = torch.cat([y_e.reshape(G, El * cap, D),
                         y_e.new_zeros(G, 1, D)], 1)
     y_a = torch.gather(y_flat, 1, slot[..., None].expand(G, A, D))
-    w_a = (gates.reshape(G, A) * keep).float()
+    w_a = (gates.reshape(G, A) * own).float()
     y = (y_a.float() * w_a[..., None]).reshape(G, S, K, D).sum(2)
+    if ep is not None:
+        ep.all_reduce(y, EP_AXES)
+    elif ff is not None:
+        ff.all_reduce(y, "model")
     y = y.to(x.dtype)
 
     if m.n_shared:
-        y = y + mlp(p["shared"], x, "swiglu", backend=cfg)
+        y = y + mlp(p["shared"], x, "swiglu", backend=cfg, mesh=(
+            None if layout is None else layout.on("shared")))
 
     me = probs.mean(dim=(0, 1))                             # (E,)
     ce = F.one_hot(idx, E).float().sum(2).mean(dim=(0, 1))

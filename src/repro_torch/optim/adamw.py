@@ -17,8 +17,8 @@ them with a new step counter: the state passed in is consumed, as the
 JAX step donates it.
 
 Under a mesh with a data axis of D > 1 ranks (``init`` / ``update``
-with ``mesh=``) every rank keeps the whole parameters (nothing is
-tensor-parallel yet, ROADMAP queue 1 item 14) and, with ``zero1``, only
+with ``mesh=``) every rank keeps the whole parameters (training has no
+tensor-parallel layers yet, ROADMAP queue 1 item 14) and, with ``zero1``, only
 its ``local_block`` of m, v and master under ``opt_state_pspecs``: about
 1/D of the state.  ``update`` then takes the rank's blocks of the
 data-reduced gradient (``launch.steps`` reduce-scatters them), updates

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.kernels import autotune as jautotune  # noqa: E402

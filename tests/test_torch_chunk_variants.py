@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402

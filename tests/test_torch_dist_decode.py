@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro_torch.dist import decode as TDD  # noqa: E402
 from repro_torch.dist import sharding as TSH  # noqa: E402

@@ -11,10 +11,13 @@ rank), and the paged engine on (1, 2) seq:
 ``generate`` and a Scheduler stream (a preemption, slot reuse) on fp32
 and int8 pools.  World B (4 ranks): both dense configs on (2, 2) seq.
 Tokens, the Scheduler's tables and lengths after every step, and the
-parameters an engine builds from a seed are equal on every rank.  The
-options still refused raise before any state changes and name ROADMAP
-queue 1 item 14; a rank that raises or a collective that never
-completes fails ``run_ranks``."""
+parameters an engine builds from a seed are equal on every rank.  On
+(2, 1) without sequence sharding each rank holds its blocks of the
+parameters under ``param_pspecs(..., 'serve')`` (olmoe's experts split
+over 'data'); tensor-parallel serving on a 'model' axis is
+``test_torch_tp_engine.py``'s.  The options still refused raise before
+any state changes and name ROADMAP queue 1 item 14; a rank that raises
+or a collective that never completes fails ``run_ranks``."""
 import hashlib
 import os
 import time
@@ -23,6 +26,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.common.module import leaves  # noqa: E402
@@ -291,15 +296,19 @@ def _abstract(data, model):
     ("zamba2-1.2b", dict(decode_shard="seq"), (1, 2)),
     ("xlstm-350m", {}, (2, 1)),
     ("tinyllama-1.1b", dict(paged=True, page_size=4), (2, 1)),
-    ("tinyllama-1.1b", {}, (1, 2)),
+    ("dense-mla", {}, (1, 2)),
+    ("tinyllama-1.1b", dict(param_strategy="fsdp_tp"), (1, 2)),
     ("tinyllama-1.1b", dict(paged=True, page_size=4, prefix_cache=True,
                             decode_shard="seq"), (1, 2)),
     ("olmoe-1b-7b", dict(paged=True, page_size=4, chunked_prefill=True,
                          chunk_tokens=4, decode_shard="seq"), (1, 1)),
-], ids=["vlm", "audio", "hybrid", "ssm", "paged-data", "model-no-seq",
-        "prefix-seq", "chunked-seq"])
+], ids=["vlm", "audio", "hybrid", "ssm", "paged-data", "mla-tp",
+        "fsdp_tp", "prefix-seq", "chunked-seq"])
 def test_unserved_options_raise_item_14(name, ekw, mesh):
-    tc = tconfigs.reduced(tconfigs.get_config(name))
+    """MLA and any ``param_strategy`` but 'serve' on a tensor-parallel
+    'model' axis (no sequence sharding) are refused too."""
+    tc = (_cfgs(name)[1] if name == "dense-mla"
+          else tconfigs.reduced(tconfigs.get_config(name)))
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         DecodeEngine(tc, EngineConfig(batch=2, max_len=16, **ekw),
                      device="cpu", mesh=_abstract(*mesh))

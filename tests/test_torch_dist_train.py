@@ -45,6 +45,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.common.module import leaves  # noqa: E402

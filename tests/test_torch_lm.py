@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.engine import pad_cache_from_prefill as jpad  # noqa: E402

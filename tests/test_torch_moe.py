@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.common import module as JM  # noqa: E402
@@ -137,12 +139,21 @@ def test_moe_ffn_matches_jax(name, cf, dispatch):
         assert float(aux["drop_frac"]) > 0
 
 
-def test_full_ep_is_not_ported():
-    _, tc = _cfgs("olmoe-1b-7b", ep="full_ep")
-    tp = moe.moe_spec(tc)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        moe.moe_ffn(M.init_params(tp, device="cpu"),
-                    torch.zeros(1, 2, tc.d_model), tc)
+@pytest.mark.parametrize("name", NAMES)
+def test_full_ep_matches_jax(name):
+    """``ep='full_ep'`` only constrains JAX's layout: on one device its
+    output and aux losses equal JAX's full_ep ``moe_ffn`` (drops
+    forced), as 'gspmd' does; the expert-parallel blocks are
+    ``test_torch_tp_engine.py``'s."""
+    jc, tc = _cfgs(name, ep="full_ep", capacity_factor=0.5)
+    jp, tp = _moe_params(jc)
+    x = _x(tc, 2, 16)
+    jy, jaux = jmoe.moe_ffn(jp, jnp.asarray(x), jc)
+    y, aux = moe.moe_ffn(tp, torch.from_numpy(x), tc)
+    _close(y.numpy(), jy)
+    for k in aux:
+        _close(aux[k].numpy(), jaux[k])
+    assert float(aux["drop_frac"]) > 0
 
 
 # ---------------------------------------------------------------- the model

@@ -19,6 +19,8 @@ import pytest
 from jax.sharding import AxisType
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.engine import DecodeEngine as JEngine  # noqa: E402
@@ -184,13 +186,15 @@ def test_serve_durable_crash_matches_jax(side, tmp_path):
 
 @pytest.mark.parametrize("argv", [["--data-model", "1", "2", "--shard",
                                    "seq"],
-                                  ["--data-model", "2", "1"]])
+                                  ["--data-model", "2", "1"],
+                                  ["--data-model", "1", "2"]])
 def test_distributed_flags_raise_item_14(argv, capfd):
     """Sharded serving from the CLI: ``--data-model 1 2 --shard seq``
-    (the cache sequence-sharded over two ranks) and ``--data-model 2 1``
-    (the batch split) spawn their ranks and give ``1 1``'s tokens and
-    output lines (the timings aside).  Durable serving under a mesh is
-    still refused, naming ROADMAP queue 1 item 14."""
+    (the cache sequence-sharded over two ranks), ``--data-model 2 1``
+    (the batch split) and ``--data-model 1 2`` (tensor-parallel: each
+    rank its blocks of the weights) spawn their ranks and give ``1 1``'s
+    tokens and output lines (the timings aside).  Durable serving under
+    a mesh is still refused, naming ROADMAP queue 1 item 14."""
     base = ["--arch", NAME, "--reduce", "smoke", "--device", "cpu",
             "--batch", "2", "--prompt-len", "8", "--gen", "4"]
     want = serve.main(base)

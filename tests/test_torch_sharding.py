@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.dist import sharding as TSH  # noqa: E402
@@ -97,6 +99,36 @@ def test_spec_trees_equal_jax(name, mesh):
                                          in shapes.items()}),
           JSH.train_batch_pspecs(jc, m, {k: np.zeros(s) for k, s
                                          in shapes.items()}))
+
+
+SERVED = {"tinyllama-1.1b": {}, "qwen1.5-0.5b": {}, "olmoe-1b-7b": {},
+          "olmoe-1b-7b-6": {"n_experts": 6}}
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4)],
+                         ids=["1x2", "2x2", "1x4"])
+@pytest.mark.parametrize("name", list(SERVED))
+def test_served_spec_trees_equal_jax(name, mesh):
+    """The layouts tensor-parallel serving cuts its parameters by:
+    ``param_pspecs(..., 'serve')`` of the configs it serves, on the
+    meshes its tests run, leaf by leaf JAX's (olmoe's 8 experts over
+    every axis, 6 over none with ``expert_ff`` over 'model')."""
+    import dataclasses
+
+    from repro.dist import sharding as JSH
+
+    jc, tc = _cfgs(name.rsplit("-", 1)[0] if SERVED[name] else name)
+    if SERVED[name]:
+        jc = jc.replace(moe=dataclasses.replace(jc.moe, **SERVED[name]))
+        tc = tc.replace(moe=dataclasses.replace(tc.moe, **SERVED[name]))
+    m = _mesh({"data": mesh[0], "model": mesh[1]})
+    assert _same(TSH.param_pspecs(tc, m, "serve"),
+                 JSH.param_pspecs(jc, m, "serve")) > 0
+    for B in (4, 3):
+        _same(TSH.cache_pspecs(tc, m, B), JSH.cache_pspecs(jc, m, B))
+        for q8 in (False, True):
+            _same(TSH.paged_cache_pspecs(tc, m, B, quantized=q8),
+                  JSH.paged_cache_pspecs(jc, m, B, quantized=q8))
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

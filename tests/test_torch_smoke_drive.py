@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.engine import (DecodeEngine, EngineConfig,  # noqa: E402

@@ -22,6 +22,8 @@ import pytest
 from jax.sharding import AxisType
 
 torch = pytest.importorskip("torch")
+# one thread a test process: the suite's xdist workers share the cores
+torch.set_num_threads(1)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.engine import DecodeEngine as JEngine  # noqa: E402
